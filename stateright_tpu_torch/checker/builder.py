@@ -61,14 +61,28 @@ class CheckerBuilder:
         has no effect), ``grow_at`` (table load that triggers
         growth, default 0.55) — the JAX package's ``tpu_options`` of the
         same names — and ``device`` (default ``"cuda"``;
-        ``device="cpu"`` runs the kernels' plain versions)."""
+        ``device="cpu"`` runs the kernels' plain versions).
+
+        The sharded engine adds ``mesh`` (a ``torch.distributed``
+        DeviceMesh: CUDA with NCCL, or CPU with gloo; its device type
+        sets the device), ``mesh_axis`` (default ``"shards"``; its size
+        must be a power of two), ``exchange`` (``"bucket"``, the
+        default, or ``"ring"``), ``kb`` (rows per destination of the
+        bucketed exchange), ``kraw`` and ``kmax`` (candidate widths);
+        ``capacity`` is then the global table, split evenly over the
+        ranks."""
         self.gpu_options_.update(options)
         return self
 
     def spawn_gpu(self) -> "Checker":
         """The GPU engine: the device-resident BFS loop driving the
         hand-written CUDA step kernel. Requires a
-        :class:`~stateright_tpu_torch.models.packed.PackedModel`."""
+        :class:`~stateright_tpu_torch.models.packed.PackedModel`. With
+        ``gpu_options(mesh=...)`` the sharded engine runs instead, one
+        rank per device of the mesh axis."""
+        if "mesh" in self.gpu_options_:
+            from ..parallel.engine import ShardedGpuChecker
+            return ShardedGpuChecker(self)
         from .gpu import GpuChecker
         return GpuChecker(self)
 

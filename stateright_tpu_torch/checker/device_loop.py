@@ -221,7 +221,8 @@ def run_loop(model, carry: ChunkCarry, *, fmax: int, grow_limit: int,
     the carry and returns the new limit; without ``grow`` the loop stops
     there, as a JAX chunk does. ``steps`` bounds the iterations (one JAX
     chunk; ``None``: no bound). Returns the transitions generated."""
-    fmax_small, two_size = small_step_sizes(fmax)
+    fmax_small, _k, two_size = small_step_sizes(
+        fmax, fmax * model.max_actions, model.max_actions)
     qmargin = max(fmax * model.max_actions, fmax)
     gen = iterations = 0
     while steps is None or iterations < steps:

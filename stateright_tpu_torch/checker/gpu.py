@@ -28,10 +28,6 @@ from .builder import CheckerBuilder
 from .device_loop import LoopStats, run_loop, seed_carry
 from .host import HostChecker
 
-#: gpu_options keys the engine reads
-_OPTIONS = ("capacity", "fmax", "cc_dedup", "chunk_steps", "grow_at",
-            "device")
-
 #: tpu_options keys of the JAX engine, accepted only at the value that
 #: is this engine's behaviour
 _FIXED = {"race": False, "pipeline": False, "fused": True}
@@ -47,9 +43,24 @@ _NOT_PORTED = {
              "are not ported: the step always runs the CUDA kernel (its "
              "plain version on the CPU)",
     "mode": "the per-level engine (mode='level') is not ported",
-    "mesh": "multi-chip meshes (the sharded engine) are not ported",
     "hint": "the per-row staged compaction (hint=) is not ported",
+    "host_map": "fleet host labels (cluster/mesh.py) are not ported",
+    "hcap": "host-evaluated properties (the history dedup and the "
+            "post-hoc reduction) are not ported",
+    "hmax": "host-evaluated properties (the history dedup and the "
+            "post-hoc reduction) are not ported",
 }
+for _key in ("retries", "backoff", "chunk_deadline", "retry_seed",
+             "degrade", "min_mesh", "blame_after", "spill", "spill_frac",
+             "max_spills", "max_capacity", "max_segment", "audit",
+             "corrupt_hook", "fault_hook", "autosave", "autosave_interval",
+             "resumable"):
+    _NOT_PORTED[_key] = (
+        "the resilience layer (retry, the degrade/promote ladder, spill, "
+        "audit, the host shadow, autosave and checkpoints) is not ported")
+for _key in ("mesh_axis", "exchange", "kb", "kraw", "kmax"):
+    _NOT_PORTED[_key] = ("a knob of the sharded engine: pass "
+                         "gpu_options(mesh=<DeviceMesh>) as well")
 
 
 def auto_fmax(model, shards: int = 1) -> int:
@@ -61,9 +72,30 @@ def auto_fmax(model, shards: int = 1) -> int:
         target // (model.max_actions * model.packed_width * shards)))
 
 
+def candidate_sizes(model, fmax: int, opts: dict) -> "tuple":
+    """``(kraw, kmax)`` of the sharded step: the static defaults
+    (``ops/expand.py``) or the explicit ``kraw``/``kmax`` options, each
+    clamped (``kraw <= F*A``, ``kmax <= kraw``). The JAX package also
+    tightens the defaults from sizes earlier runs in the process
+    observed; the port does not, so its defaults never move between
+    runs."""
+    from ..ops.expand import kfinal_default, kmax_default
+    fa = fmax * model.max_actions
+    kraw = min(int(opts.get("kraw", kmax_default(model, fmax))), fa)
+    kmax = min(int(opts.get("kmax", kfinal_default(model, fmax))), kraw)
+    return kraw, kmax
+
+
 class GpuChecker(HostChecker):
     """Device-resident BFS over a packed model on one CUDA device (or,
     with ``gpu_options(device="cpu")``, the kernels' plain versions)."""
+
+    #: gpu_options keys the engine reads
+    _OPTIONS = ("capacity", "fmax", "cc_dedup", "chunk_steps", "grow_at",
+                "device")
+
+    def _resolve_device(self, opts: dict) -> torch.device:
+        return torch.device(opts.get("device", "cuda"))
 
     def __init__(self, builder: CheckerBuilder):
         model = builder.model
@@ -76,7 +108,7 @@ class GpuChecker(HostChecker):
         super().__init__(builder)
         opts = dict(builder.gpu_options_)
         for key, value in opts.items():
-            if key in _OPTIONS:
+            if key in self._OPTIONS:
                 continue
             if key == "mode" and value in ("auto", "device"):
                 continue
@@ -100,7 +132,7 @@ class GpuChecker(HostChecker):
             raise NotImplementedError(
                 "resume_from() and checkpoints are not ported")
         self._opts = opts
-        self._device = torch.device(opts.get("device", "cuda"))
+        self._device = self._resolve_device(opts)
         if self._device.type == "cuda":
             model.cuda_spec()  # raises for a model the kernel lacks
         if self._device.type == "cuda" and not torch.cuda.is_available():

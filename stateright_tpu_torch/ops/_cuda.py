@@ -1,9 +1,12 @@
 """Build and bind the CUDA kernels of ``stateright_tpu_torch/csrc``.
 
-The sources are compiled with ``nvcc`` for ``sm_90a`` into a shared
+Each source (``fused_step.cu``: the single-chip step and the insert;
+``sharded_step.cu``: the sharded engine's probe-free step and owner-side
+probe) is compiled with ``nvcc`` for ``sm_90a`` into its own shared
 library with a plain C interface the first time a kernel is needed (never
-at import), into ``<repo>/build/kernels/`` (git-ignored), named by a hash
-of the sources so a stale library is never loaded. The library is bound
+at import), all ``nvcc`` processes started together, into
+``<repo>/build/kernels/`` (git-ignored), named by a hash of the sources so
+a stale library is never loaded. The libraries are bound
 with ``ctypes``: every pointer (and the stream) goes over as a
 ``c_void_p`` inside an argument struct, and every C entry returns
 ``cudaGetLastError()`` of its launches, which the wrappers turn into an
@@ -29,17 +32,22 @@ from .fused import property_masks
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD = Path(__file__).resolve().parents[2] / "build" / "kernels"
-_SOURCE = "fused_step.cu"
+#: library name -> source under csrc/
+_SOURCES = {"fused_step": "fused_step.cu", "sharded_step": "sharded_step.cu"}
 _NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-#: kernel launches per wrapper: ``fused_step`` (K1-K3 of one step) and
-#: ``table_insert`` (K4)
-LAUNCHES = {"fused_step": 0, "table_insert": 0}
+#: kernel launches per wrapper: ``fused_step`` (K1-K3 of one step),
+#: ``table_insert`` (K4), ``fused_step_noprobe`` (K1 + K5 of one
+#: probe-free step) and ``probe_block`` (K6)
+LAUNCHES = {"fused_step": 0, "table_insert": 0, "fused_step_noprobe": 0,
+            "probe_block": 0}
 
-#: ``{"seconds": build time, "log": nvcc/ptxas output, "path": library}``
+#: ``{"seconds": build time, "log": nvcc/ptxas output of every source,
+#: "path": {library name: path}}``
 BUILD_INFO: dict = {}
 
+#: library name -> loaded ctypes library, once built
 _LIB = None
 
 _p = ctypes.c_void_p
@@ -76,6 +84,40 @@ class InsertArgs(ctypes.Structure):
     ]
 
 
+class DedupArgs(ctypes.Structure):
+    """``DedupArgs`` of ``csrc/sharded_step.cu``, field for field."""
+
+    _fields_ = [
+        ("s", StepArgs), ("pre_arena", _p), ("block_lanes", _ll),
+        ("pre_cells", _ll), ("arena", _p), ("arena_owner", _p),
+        ("cells", _ll),
+    ]
+
+
+class ProbeArgs(ctypes.Structure):
+    """``ProbeArgs`` of ``csrc/sharded_step.cu``, field for field."""
+
+    _fields_ = [
+        ("hi", _p), ("lo", _p), ("valid", _p), ("n", _ll), ("keys", _p),
+        ("n_buckets", _ll), ("max_rounds", _i), ("step", _u),
+        ("owner", _p), ("stamp", _p), ("lane_slot", _p), ("inserted", _p),
+        ("stats", _p), ("stream", _p),
+    ]
+
+#: per library: (C entry, argument struct, its size function, whether
+#: the entry takes the model parameter) of each kernel
+_ENTRIES = {
+    "fused_step": [("srt_fused_step_twopc", StepArgs, "srt_step_args_size",
+                    True),
+                   ("srt_table_insert", InsertArgs, "srt_insert_args_size",
+                    False)],
+    "sharded_step": [("srt_dedup_step_twopc", DedupArgs,
+                      "srt_dedup_args_size", True),
+                     ("srt_probe_block", ProbeArgs, "srt_probe_args_size",
+                      False)],
+}
+
+
 def _nvcc() -> str:
     home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
     for cand in (os.path.join(home, "bin", "nvcc"), shutil.which("nvcc")):
@@ -96,41 +138,57 @@ def _source_hash() -> str:
 
 
 def build() -> dict:
-    """Compile the kernels (unless this source hash is already built)
-    and load the library. Returns :data:`BUILD_INFO`."""
+    """Compile the kernels (unless this source hash is already built),
+    one ``nvcc`` per source, all started together, and load the
+    libraries. Returns :data:`BUILD_INFO`."""
     global _LIB
     if _LIB is not None:
         return BUILD_INFO
-    lib_path = _BUILD / f"libsrt_kernels_{_source_hash()}.so"
-    log = ""
+    tag = _source_hash()
+    paths = {name: _BUILD / f"libsrt_{name}_{tag}.so" for name in _SOURCES}
+    logs = {}
     t0 = time.perf_counter()
-    if not lib_path.exists():
+    todo = {name: p for name, p in paths.items() if not p.exists()}
+    if todo:
         nvcc = _nvcc()
         _BUILD.mkdir(parents=True, exist_ok=True)
-        tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *_NVCC_FLAGS, "-o", str(tmp), str(_CSRC / _SOURCE)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{log}")
-        os.replace(tmp, lib_path)
+        procs = {}
+        for name, path in todo.items():
+            tmp = path.with_suffix(f".{os.getpid()}.tmp")
+            cmd = [nvcc, *_NVCC_FLAGS, "-o", str(tmp),
+                   str(_CSRC / _SOURCES[name])]
+            procs[name] = (cmd, tmp, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True))
+        failed = []
+        for name, (cmd, tmp, proc) in procs.items():
+            logs[name] = proc.communicate()[0]
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed ({proc.returncode}): "
+                              f"{' '.join(cmd)}\n{logs[name]}")
+        if failed:
+            raise RuntimeError("\n".join(failed))
+        for name, (_cmd, tmp, _proc) in procs.items():
+            os.replace(tmp, todo[name])
     seconds = time.perf_counter() - t0
-    lib = ctypes.CDLL(str(lib_path))
-    lib.srt_fused_step_twopc.argtypes = [ctypes.POINTER(StepArgs), _i]
-    lib.srt_fused_step_twopc.restype = _i
-    lib.srt_table_insert.argtypes = [ctypes.POINTER(InsertArgs)]
-    lib.srt_table_insert.restype = _i
-    for size_fn in (lib.srt_step_args_size, lib.srt_insert_args_size):
-        size_fn.argtypes = []
-        size_fn.restype = _i
-    if lib.srt_step_args_size() != ctypes.sizeof(StepArgs) \
-            or lib.srt_insert_args_size() != ctypes.sizeof(InsertArgs):
-        raise RuntimeError(
-            "argument struct layout differs between csrc/fused_step.cu "
-            "and ops/_cuda.py")
-    _LIB = lib
-    BUILD_INFO.update(seconds=seconds, log=log, path=str(lib_path))
+    libs = {}
+    for name, path in paths.items():
+        lib = ctypes.CDLL(str(path))
+        for entry, struct, size_name, with_n in _ENTRIES[name]:
+            fn = getattr(lib, entry)
+            fn.argtypes = [ctypes.POINTER(struct)] + ([_i] if with_n else [])
+            fn.restype = _i
+            size_fn = getattr(lib, size_name)
+            size_fn.argtypes = []
+            size_fn.restype = _i
+            if size_fn() != ctypes.sizeof(struct):
+                raise RuntimeError(
+                    f"{struct.__name__} layout differs between "
+                    f"csrc/{_SOURCES[name]} and ops/_cuda.py")
+        libs[name] = lib
+    _LIB = libs
+    BUILD_INFO.update(seconds=seconds, log="".join(logs.values()),
+                      path={k: str(v) for k, v in paths.items()})
     return BUILD_INFO
 
 
@@ -151,16 +209,15 @@ def _raise_on(err: int, what: str) -> None:
         raise RuntimeError(f"{what} launch failed: CUDA error {err}")
 
 
-def fused_step(model, frontier, ebits, fvalid, phi, plo, table, ring, ws,
+def _step_args(model, frontier, ebits, fvalid, phi, plo, ring, ws,
                stats_len: int):
-    """Launch K1-K3 for one step; returns the output tensors
-    ``(pbits, ebits, terminal, flat, chi, clo, cvalid, dvalid, inserted,
-    stats)``. ``table`` and ``ring`` are updated in place."""
+    """Check K1's inputs, allocate the step's outputs and fill the
+    table-free fields of a ``StepArgs``; returns ``(params, outputs,
+    lane_slot, args)`` where ``params`` are the model kernel's
+    parameters and ``outputs`` the wrappers' return tuple."""
     name, params = model.cuda_spec()
     if name != "twopc":
         raise NotImplementedError(f"no CUDA step kernel for {name!r}")
-    build()
-    lib = _LIB
     dev = frontier.device
     f, w = frontier.shape
     _check(frontier, "frontier", torch.int32, 2, dev, contiguous=False)
@@ -174,21 +231,18 @@ def fused_step(model, frontier, ebits, fvalid, phi, plo, table, ring, ws,
     if phi.stride(0) != plo.stride(0):
         raise ValueError("phi and plo must share one stride")
     _check(fvalid, "fvalid", torch.bool, 1, dev)
-    _check(table, "table", torch.int64, 2, dev)
-    capacity = table.numel()
-    if table.shape[1] != 4 or capacity >= 1 << 31:
-        raise ValueError("table must be [C/4, 4] with C < 2**31")
     cc = 0
     if ring is not None:
         _check(ring, "ring", torch.int64, 1, dev)
         cc = ring.shape[0]
     n_actions = model.max_actions
     lanes = f * n_actions
-    properties = model.properties()
-    n_props = len(properties)
+    n_props = len(model.properties())
     if n_props > 32 or lanes >= 1 << 31:
         raise ValueError("at most 32 properties and 2**31 lanes per step")
-    ws.check(capacity, cc, n_props, dev)
+    if (ws.ring_arena.shape[0] < cc or ws.disc_cand.shape[0] < n_props
+            or ws.disc_cand.device != dev):
+        raise ValueError("workspace does not match this ring or model")
     ws.step += 1
     masks = property_masks(model)
     pcols = max(n_props, 1)
@@ -216,17 +270,103 @@ def fused_step(model, frontier, ebits, fvalid, phi, plo, table, ring, ws,
         chi=chi.data_ptr(), clo=clo.data_ptr(), cvalid=cvalid.data_ptr(),
         dvalid=dvalid.data_ptr(), inserted=inserted.data_ptr(),
         lane_slot=lane_slot.data_ptr(), stats=stats.data_ptr(),
-        keys=table.data_ptr(), n_buckets=table.shape[0], max_rounds=4096,
-        cc=cc, owner=ws.owner.data_ptr(), stamp=ws.stamp.data_ptr(),
-        ring=ring.data_ptr() if cc else None,
+        max_rounds=4096, cc=cc, ring=ring.data_ptr() if cc else None,
         ring_arena=ws.ring_arena.data_ptr(),
         disc_cand=ws.disc_cand.data_ptr(),
         stream=torch.cuda.current_stream(dev).cuda_stream)
+    outputs = (pbits, ebits_out, terminal, flat, chi, clo, cvalid, dvalid,
+               inserted, stats)
+    return params, outputs, args
+
+
+def fused_step(model, frontier, ebits, fvalid, phi, plo, table, ring, ws,
+               stats_len: int):
+    """Launch K1-K3 for one step; returns the output tensors
+    ``(pbits, ebits, terminal, flat, chi, clo, cvalid, dvalid, inserted,
+    stats)``. ``table`` and ``ring`` are updated in place."""
+    build()
+    lib = _LIB["fused_step"]
+    dev = frontier.device
+    _check(table, "table", torch.int64, 2, dev)
+    capacity = table.numel()
+    if table.shape[1] != 4 or capacity >= 1 << 31:
+        raise ValueError("table must be [C/4, 4] with C < 2**31")
+    ws.check(capacity, 0 if ring is None else ring.shape[0],
+             len(model.properties()), dev)
+    params, outputs, args = _step_args(model, frontier, ebits, fvalid, phi,
+                                       plo, ring, ws, stats_len)
+    args.keys = table.data_ptr()
+    args.n_buckets = table.shape[0]
+    args.owner = ws.owner.data_ptr()
+    args.stamp = ws.stamp.data_ptr()
     _raise_on(lib.srt_fused_step_twopc(ctypes.byref(args), *params),
               "fused step")
     LAUNCHES["fused_step"] += 1
-    return (pbits, ebits_out, terminal, flat, chi, clo, cvalid, dvalid,
-            inserted, stats)
+    return outputs
+
+
+def fused_step_noprobe(model, frontier, ebits, fvalid, phi, plo, ring, ws,
+                       block_rows: int, stats_len: int):
+    """Launch K1 + K5 for one probe-free step; returns the same output
+    tuple as :func:`fused_step` with ``inserted`` aliasing ``dvalid``.
+    ``ring`` is read only; ``ws`` is a ``DedupWorkspace`` for this
+    step's lanes. Pre-dedup blocks are ``block_rows`` frontier rows."""
+    build()
+    lib = _LIB["sharded_step"]
+    f = frontier.shape[0]
+    lanes = f * model.max_actions
+    ws.check(lanes, block_rows * model.max_actions, frontier.device)
+    params, outputs, args = _step_args(model, frontier, ebits, fvalid, phi,
+                                       plo, ring, ws, stats_len)
+    outputs = outputs[:8] + (outputs[7], outputs[9])
+    dargs = DedupArgs(
+        s=args, pre_arena=ws.pre_arena.data_ptr(),
+        block_lanes=block_rows * model.max_actions,
+        pre_cells=ws.pre_cells, arena=ws.arena.data_ptr(),
+        arena_owner=ws.arena_owner.data_ptr(), cells=ws.arena.shape[0])
+    _raise_on(lib.srt_dedup_step_twopc(ctypes.byref(dargs), *params),
+              "probe-free step")
+    LAUNCHES["fused_step_noprobe"] += 1
+    return outputs
+
+
+def probe_block(table, fhi, flo, valid, ws, max_rounds: int):
+    """Launch K6: the owner-side probe of ``(fhi, flo)`` lanes against
+    ``table`` (this rank's slice), in place. Returns ``(inserted,
+    overflow, rounds)``, the two scalars as 0-d device tensors (no
+    sync). ``ws`` is the table's ``StepWorkspace`` (owner and stamp
+    words)."""
+    build()
+    lib = _LIB["sharded_step"]
+    dev = table.device
+    _check(table, "table", torch.int64, 2, dev)
+    capacity = table.numel()
+    if table.shape[1] != 4 or capacity >= 1 << 31:
+        raise ValueError("table must be [C/4, 4] with C < 2**31")
+    ws.check(capacity, 0, 0, dev)
+    n = fhi.shape[0]
+    hi = fhi.to(torch.int32).contiguous()
+    lo = flo.to(torch.int32).contiguous()
+    _check(hi, "fhi", torch.int32, 1, dev)
+    _check(lo, "flo", torch.int32, 1, dev)
+    _check(valid, "valid", torch.bool, 1, dev)
+    if lo.shape[0] != n or valid.shape[0] != n or n >= 1 << 31:
+        raise ValueError("fhi, flo and valid must have equal lengths "
+                         "below 2**31")
+    ws.step += 1
+    inserted = torch.zeros((n,), dtype=torch.bool, device=dev)
+    lane_slot = torch.empty((n,), dtype=torch.int32, device=dev)
+    stats = torch.zeros((2,), dtype=torch.int32, device=dev)
+    args = ProbeArgs(
+        hi=hi.data_ptr(), lo=lo.data_ptr(), valid=valid.data_ptr(), n=n,
+        keys=table.data_ptr(), n_buckets=table.shape[0],
+        max_rounds=max_rounds, step=ws.step, owner=ws.owner.data_ptr(),
+        stamp=ws.stamp.data_ptr(), lane_slot=lane_slot.data_ptr(),
+        inserted=inserted.data_ptr(), stats=stats.data_ptr(),
+        stream=torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(lib.srt_probe_block(ctypes.byref(args)), "owner-side probe")
+    LAUNCHES["probe_block"] += 1
+    return inserted, stats[0] > 0, stats[1]
 
 
 def table_insert(table, fhi, flo, valid, max_rounds: int):
@@ -234,7 +374,7 @@ def table_insert(table, fhi, flo, valid, max_rounds: int):
     Returns ``(inserted, overflow, rounds)`` — the two scalars read back
     with one synchronising copy (seeding and growth only)."""
     build()
-    lib = _LIB
+    lib = _LIB["fused_step"]
     dev = table.device
     _check(table, "table", torch.int64, 2, dev)
     n = fhi.shape[0]

@@ -143,7 +143,35 @@ def assemble_candidates(rows_k, ebits_k, s_chi, s_clo, pw_hi, pw_lo):
     return cand, width + 1
 
 
-def small_step_sizes(fmax: int):
-    """``(fmax_small, two_size)`` of the thin-frontier step."""
+def small_step_sizes(fmax: int, kmax: int, n_actions: int):
+    """The two-size (thin-frontier) step sizes shared by the single-chip
+    and sharded loops: ``(fmax_small, kmax_small, two_size)``."""
     fmax_small = min(FMAX_SMALL, fmax)
-    return fmax_small, fmax_small < fmax
+    return (fmax_small, min(fmax_small * n_actions, kmax),
+            fmax_small < fmax)
+
+
+def kmax_default(model, fmax: int) -> int:
+    """Default raw candidate width (``kraw``) of the sharded step: every
+    raw-valid child lane of an iteration. Models that declare
+    ``branching_hint`` (most valid children per state) get ``fmax*hint``
+    with a 1/4 margin, others ``F*A/2`` (the JAX package's policy;
+    sound-eventually node keys are not ported)."""
+    fa = fmax * model.max_actions
+    hint = getattr(model, "branching_hint", None)
+    if hint:
+        scale = 5 * fmax * hint // 4
+        return min(fa, max(1 << 12, -(-scale // 256) * 256))
+    return min(fa, max(1 << 12, fa // 2))
+
+
+def kfinal_default(model, fmax: int) -> int:
+    """Default post-dedup candidate width (``kmax``): the exchange, the
+    owner-side probe and the appends run at this width — the halved
+    hint, or ``F*A/8`` (the JAX package's policy)."""
+    fa = fmax * model.max_actions
+    hint = getattr(model, "branching_hint", None)
+    if hint:
+        scale = 5 * fmax * hint // 8
+        return min(fa, max(1 << 12, -(-scale // 256) * 256))
+    return min(fa, max(1 << 12, fa // 8))

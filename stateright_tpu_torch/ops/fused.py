@@ -1,8 +1,11 @@
-"""The fused BFS step: expand -> fingerprint -> dedup -> table claim.
+"""The fused BFS step: expand -> fingerprint -> dedup -> table claim,
+and the sharded engine's owner-side probe.
 
-Counterpart of ``stateright_tpu/ops/fused.py`` in the configuration the
-single-chip main path runs (``build_fused_block_fn`` with ``probe=True``,
-properties in the kernel, cross-chunk ring on, no symmetry).
+Counterpart of ``stateright_tpu/ops/fused.py`` in the configurations the
+port's engines run: ``build_fused_block_fn`` with ``probe=True``
+(single chip: properties in the kernel, cross-chunk ring on, no
+symmetry) and with ``probe=False`` (the sharded step: no table, the ring
+read only), and ``build_probe_block_fn`` (:func:`probe_block`).
 
 :func:`fused_step` is the wrapper: for CUDA tensors it launches the
 hand-written kernels of ``csrc/fused_step.cu`` (expand, claim, commit)
@@ -10,7 +13,11 @@ through ``ops/_cuda.py``, or raises; for CPU tensors it runs
 :func:`fused_step_reference`, the plain version: the JAX package's
 ``_staged_block`` math over the same sequential blocks of up to 256
 frontier rows, carrying table, ring and discovery registers from block
-to block, lane for lane equal to the Pallas kernel on the CPU.
+to block, lane for lane equal to the Pallas kernel on the CPU. With
+``probe=False`` the wrapper launches the probe-free kernels of
+``csrc/sharded_step.cu`` (expand, in-block pre-dedup, ring probe,
+step-wide dedup) instead; the plain version runs the same blocks without
+the table insert and the ring update.
 
 Both update the visited table and the ring IN PLACE (the carried buffers
 are the engine's; a functional copy would move the whole table every
@@ -23,7 +30,18 @@ bits, eventually-bits and terminal rows). ``dvalid``, the ring-hit count
 and the round count depend on how the work is split and are reported,
 not compared: the kernel sees no ring entry written in the same step,
 runs no in-batch pre-dedup (its claim resolves duplicates), and counts
-the most rounds one lane took.
+the most rounds one lane took. The probe-free kernel and its plain
+version agree lane for lane on everything but ``dvalid`` (and
+``inserted``, its alias), the ring-hit count included; the kernel's
+``dvalid`` keeps one lane per key (the lowest that survives the ring),
+where the plain version keeps one per key and block, so it is held to
+the plain version's key set.
+
+:func:`probe_block` inserts the lanes a rank received in the exchange
+into its table slice: on a CUDA table the kernel of
+``csrc/sharded_step.cu`` (the lowest received lane of each fresh key is
+inserted), on a CPU table :func:`probe_block_reference`, the JAX
+package's ``table_insert`` round for round.
 """
 
 from __future__ import annotations
@@ -102,17 +120,24 @@ def _cc_slot(chi, clo, cc: int):
 def cc_ring_update(ring, chi, clo, mask) -> None:
     """Write the ``mask``-ed lanes' keys into their ring slots IN PLACE,
     one winner per contested slot (the lowest lane, by a scatter-min
-    arena)."""
+    arena). Every lane writes its slot's outcome — the winner's key, or
+    the slot's old value where no lane won it — so the scatter needs no
+    boolean indexing (no host sync on the card)."""
     cc = ring.shape[0]
     lanes = chi.shape[0]
+    if not lanes:
+        return
     lane = torch.arange(lanes, dtype=torch.int64, device=ring.device)
     slot = _cc_slot(chi, clo, cc)
     arena = torch.full((cc + 1,), lanes, dtype=torch.int64,
                        device=ring.device)
     arena.scatter_reduce_(0, torch.where(mask, slot, cc), lane,
                           reduce="amin")
-    win = mask & (arena[slot] == lane)
-    ring[slot[win]] = pack64(chi, clo)[win]
+    win = arena[slot]
+    keys = pack64(chi, clo)
+    ring.scatter_(0, slot, torch.where(win < lanes,
+                                       keys[win.clamp(max=lanes - 1)],
+                                       ring[slot]))
 
 
 def stats_len(model) -> int:
@@ -127,14 +152,29 @@ def property_masks(model) -> dict:
 
 
 def fused_step(model, frontier, ebits, fvalid, phi, plo, table,
-               ring=None, ws: "Optional[StepWorkspace]" = None) -> FusedOut:
+               ring=None, ws=None, probe: bool = True) -> FusedOut:
     """One fused step over ``frontier`` (int32 ``[F, W]``, any row
     stride; ``ebits``/``phi``/``plo`` int32 ``[F]``, the queue's cached
     eventually-bits and fingerprints; ``fvalid`` bool ``[F]``) against
     ``table`` (int64 ``[C/4, 4]``) and ``ring`` (int64 ``[cc]`` or
     ``None``), both updated in place. CUDA tensors launch the kernels
-    (``ws`` carries their per-table state; a fresh one is made when
-    omitted); CPU tensors run :func:`fused_step_reference`."""
+    (``ws`` carries their state — a :class:`StepWorkspace`, or with
+    ``probe=False`` a :class:`DedupWorkspace`; a fresh one is made when
+    omitted); CPU tensors run :func:`fused_step_reference`.
+
+    ``probe=False`` is the sharded engine's step: no table (``table`` is
+    ignored), the ring read only, ``inserted`` aliasing ``dvalid``."""
+    if frontier.is_cuda and not probe:
+        from . import _cuda
+        fb = _block_rows(frontier.shape[0])
+        if ws is None:
+            ws = DedupWorkspace(frontier.shape[0] * model.max_actions,
+                                fb * model.max_actions,
+                                0 if ring is None else ring.shape[0],
+                                len(model.properties()), frontier.device)
+        return FusedOut(*_cuda.fused_step_noprobe(
+            model, frontier, ebits, fvalid, phi, plo, ring, ws, fb,
+            stats_len(model)))
     if frontier.is_cuda:
         from . import _cuda
         if ws is None:
@@ -145,7 +185,7 @@ def fused_step(model, frontier, ebits, fvalid, phi, plo, table,
             model, frontier, ebits, fvalid, phi, plo, table, ring, ws,
             stats_len(model)))
     return fused_step_reference(model, frontier, ebits, fvalid, phi, plo,
-                                table, ring)
+                                table, ring, probe=probe)
 
 
 class StepWorkspace:
@@ -175,10 +215,44 @@ class StepWorkspace:
                              "ring or model")
 
 
+class DedupWorkspace:
+    """Kernel state of the probe-free step (CUDA only), one per step
+    width: the per-block pre-dedup arenas, the step-wide key arena
+    (>= 2 cells per lane) and its owner words, the ring arena K1 resets,
+    the discovery candidates, and the step counter that tags them."""
+
+    def __init__(self, lanes: int, block_lanes: int, cc: int,
+                 n_props: int, device):
+        self.lanes = lanes
+        self.block_lanes = block_lanes
+        # the JAX pre_dedup arena of one block
+        self.pre_cells = 1 << max((2 * block_lanes - 1).bit_length(), 0)
+        nblk = lanes // block_lanes if block_lanes else 0
+        self.pre_arena = torch.empty((max(nblk * self.pre_cells, 1),),
+                                     dtype=torch.int32, device=device)
+        cells = 1 << max((2 * lanes - 1).bit_length(), 1)
+        self.arena = torch.empty((cells,), dtype=torch.int64,
+                                 device=device)
+        self.arena_owner = torch.full((cells,), -1, dtype=torch.int64,
+                                      device=device)
+        self.ring_arena = torch.empty((max(cc, 1),), dtype=torch.int64,
+                                      device=device)
+        self.disc_cand = torch.full((max(n_props, 1),), -1,
+                                    dtype=torch.int64, device=device)
+        self.step = 0
+
+    def check(self, lanes: int, block_lanes: int, device) -> None:
+        if (self.lanes != lanes or self.block_lanes != block_lanes
+                or self.arena.device != device):
+            raise ValueError("DedupWorkspace does not match this step")
+
+
 def fused_step_reference(model, frontier, ebits, fvalid, phi, plo, table,
-                         ring=None) -> FusedOut:
+                         ring=None, probe: bool = True) -> FusedOut:
     """The plain version of :func:`fused_step` (any device): the JAX
-    package's fused block math, block by block."""
+    package's fused block math, block by block. ``probe=False`` skips
+    the table insert and the ring update, so every block reads the ring
+    as it stood when the step began."""
     f, width = frontier.shape
     properties = model.properties()
     n_props = len(properties)
@@ -204,10 +278,13 @@ def fused_step_reference(model, frontier, ebits, fvalid, phi, plo, table,
             hit = dvalid & (ring[slot] == pack64(exp.chi, exp.clo))
             cch += int(hit.sum())
             dvalid = dvalid & ~hit
-        inserted, b_ovf, b_rounds = table_insert_reference(
-            table, exp.chi, exp.clo, dvalid, with_rounds=True)
-        if ring is not None:
-            cc_ring_update(ring, exp.chi, exp.clo, inserted)
+        if probe:
+            inserted, b_ovf, b_rounds = table_insert_reference(
+                table, exp.chi, exp.clo, dvalid, with_rounds=True)
+            if ring is not None:
+                cc_ring_update(ring, exp.chi, exp.clo, inserted)
+        else:
+            inserted, b_ovf, b_rounds = dvalid, False, 0
         if n_props:
             # sticky first hit across blocks (blocks are frontier order)
             hit, hi, lo = discovery_candidates(properties, exp, fv)
@@ -233,3 +310,35 @@ def fused_step_reference(model, frontier, ebits, fvalid, phi, plo, table,
                     flat=u32(cols[3]), chi=u32(cols[4]), clo=u32(cols[5]),
                     cvalid=cvalid, dvalid=dvalid, inserted=inserted,
                     stats=stats)
+
+
+def probe_block(table, fhi, flo, valid, ws: "Optional[StepWorkspace]" = None,
+                max_rounds: int = 4096):
+    """The owner-side probe: insert the received lanes ``(fhi, flo)``
+    (int32 bit patterns, ``[N]``; ``valid`` bool ``[N]``) into
+    ``table`` (this rank's int64 ``[C/4, 4]`` slice) IN PLACE.
+
+    Returns ``(inserted bool[N], overflow, rounds)``, the last two as
+    0-d tensors on the table's device (no host sync): ``inserted`` marks
+    one lane per key that was not in the table. A CUDA table launches
+    the kernel (``ws``: the table's :class:`StepWorkspace`, made when
+    omitted), which inserts the LOWEST received lane of each fresh key
+    and counts the most rounds one lane took; a CPU table runs
+    :func:`probe_block_reference`."""
+    if table.is_cuda:
+        from . import _cuda
+        if ws is None:
+            ws = StepWorkspace(table.numel(), 0, 0, table.device)
+        return _cuda.probe_block(table, fhi, flo, valid, ws, max_rounds)
+    return probe_block_reference(table, fhi, flo, valid, max_rounds)
+
+
+def probe_block_reference(table, fhi, flo, valid, max_rounds: int = 4096):
+    """The plain version of :func:`probe_block` (any device): the JAX
+    package's ``table_insert(..., with_rounds=True)``, which its probe
+    kernel evaluates, with the same winner as XLA:CPU."""
+    inserted, ovf, rounds = table_insert_reference(
+        table, fhi, flo, valid, max_rounds, with_rounds=True)
+    dev = table.device
+    return (inserted, torch.tensor(ovf, device=dev),
+            torch.tensor(rounds, dtype=torch.int32, device=dev))

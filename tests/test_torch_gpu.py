@@ -99,7 +99,120 @@ def test_engine_on_card_matches_plain_path():
     assert ck.state_count() == plain.state_count()
     assert ck.generated_fingerprints() == plain.generated_fingerprints()
     ck.assert_properties()
-    assert all(_cuda.LAUNCHES[k] > launches[k] for k in launches)
+    # the single-chip path's kernels (the sharded engine's are below)
+    assert all(_cuda.LAUNCHES[k] > launches[k]
+               for k in ("fused_step", "table_insert"))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,fmax", [(4, 16), (5, 512)])
+def test_sharded_kernels_match_plain_versions_on_card(n, fmax):
+    """K5 (the probe-free step) and K6 (the owner-side probe) against
+    their plain versions: lane-exact outputs and scalars, the key-set
+    gate on ``dvalid``, and the lowest-lane rule of the probe."""
+    _need_card()
+    from stateright_tpu_torch.ops.fused import (S_CCH, S_DISC, S_VALID,
+                                                S_XOVF, fused_step,
+                                                fused_step_reference,
+                                                probe_block,
+                                                probe_block_reference)
+    from stateright_tpu_torch.ops.hash_kernel import fp64_device
+    from stateright_tpu_torch.ops.hashtable import (make_table,
+                                                    start_bucket)
+    from stateright_tpu_torch.ops.words import from_numpy_u32, pack64
+    model = TwoPhaseSys(n)
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(n)
+    states = _reachable(model)
+    rows = np.stack([model.encode(states[i])
+                     for i in rng.integers(0, len(states), fmax)])
+    block = from_numpy_u32(rows, dev)
+    phi, plo = (x.to(torch.int32) for x in fp64_device(block))
+    ebits = torch.zeros((fmax,), dtype=torch.int32, device=dev)
+    fvalid = torch.from_numpy(rng.random(fmax) < 0.9).to(dev)
+    # a ring holding some of the reachable states
+    known = np.array([model.fingerprint(states[i]) for i in
+                      rng.integers(0, len(states), len(states) // 2)],
+                     np.uint64)
+    ring = torch.zeros((1 << 10,), dtype=torch.int64, device=dev)
+    khi = from_numpy_u32((known >> np.uint64(32)).astype(np.uint32), dev)
+    klo = from_numpy_u32(known.astype(np.uint32), dev)
+    ring[start_bucket(khi, klo, 1 << 10)] = pack64(khi, klo)
+    args = (model, block, ebits, fvalid, phi, plo, None, ring)
+    k = fused_step(*args, probe=False)
+    p = fused_step_reference(*args, probe=False)
+    for name in ("flat", "chi", "clo", "cvalid", "pbits", "ebits",
+                 "terminal"):
+        assert torch.equal(getattr(k, name), getattr(p, name)), name
+    for i in (S_XOVF, S_CCH, S_VALID):
+        assert int(k.stats[i]) == int(p.stats[i])
+    assert torch.equal(k.stats[S_DISC:], p.stats[S_DISC:])
+    keys = pack64(k.chi, k.clo)
+    live = k.cvalid & ~(ring[start_bucket(k.chi, k.clo, 1 << 10)] == keys)
+    kd = keys[k.dvalid].tolist()
+    assert bool((k.dvalid <= live).all())
+    assert set(kd) == set(keys[live].tolist()) \
+        == set(keys[p.dvalid].tolist())
+    assert len(kd) == len(set(kd))
+    for lane in torch.nonzero(k.dvalid).flatten().tolist():
+        assert lane == int(torch.nonzero(live & (keys == keys[lane]))
+                           .flatten().min())
+    # the owner-side probe: the kept lanes twice over, into a table that
+    # already holds half the reachable states
+    hi, lo = torch.cat([k.chi, k.chi]), torch.cat([k.clo, k.clo])
+    valid = torch.cat([k.dvalid, k.dvalid])
+    out = {}
+    for name, fn in (("kernel", probe_block),
+                     ("plain", probe_block_reference)):
+        table = make_table(1 << 14, dev)
+        probe_block_reference(table, khi, klo,
+                              torch.ones_like(khi, dtype=torch.bool))
+        ins, ovf, _rounds = fn(table, hi, lo, valid)
+        out[name] = (ins, bool(ovf), sorted(table[table != 0].tolist()))
+    (ik, ok, tk), (ip, op, tp) = out["kernel"], out["plain"]
+    both = pack64(hi, lo)
+    assert ok == op is False and tk == tp
+    assert set(both[ik].tolist()) == set(both[ip].tolist())
+    assert int(ik.sum()) == len(set(both[ik].tolist()))
+    for lane in torch.nonzero(ik).flatten().tolist():
+        assert lane == int(torch.nonzero(valid & (both == both[lane]))
+                           .flatten().min())
+
+
+@pytest.mark.gpu
+def test_sharded_engine_on_card_matches_plain_path():
+    """The sharded engine at D = 1 on a one-rank NCCL group against the
+    single-chip plain path: the same set, counts and verdicts, through
+    the sharded kernels only."""
+    _need_card()
+    import socket
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from stateright_tpu_torch.ops import _cuda
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=0, world_size=1)
+    try:
+        mesh = init_device_mesh("cuda", (1,), mesh_dim_names=("shards",))
+        launches = dict(_cuda.LAUNCHES)
+        ck = TwoPhaseSys(5).checker().gpu_options(mesh=mesh).spawn_gpu() \
+            .join()
+        after = dict(_cuda.LAUNCHES)
+    finally:
+        dist.destroy_process_group()
+    plain = _cpu(TwoPhaseSys(5))
+    assert ck.unique_state_count() == 8832
+    assert ck.state_count() == plain.state_count()
+    assert ck.generated_fingerprints() == plain.generated_fingerprints()
+    ck.assert_properties()
+    assert after["fused_step"] == launches["fused_step"]
+    assert all(after[k] > launches[k]
+               for k in ("fused_step_noprobe", "probe_block"))
 
 
 class _Strict(TwoPhaseSys):

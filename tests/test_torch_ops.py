@@ -269,7 +269,8 @@ def test_discovery_candidates_matches_jax():
 def test_small_step_sizes_match_jax():
     assert texp.FMAX_SMALL == jexp.FMAX_SMALL
     for fmax in (16, 256, 512, 12288):
-        fs, _k, two = jexp.small_step_sizes(fmax, fmax * 37, 37)
-        assert texp.small_step_sizes(fmax) == (fs, two)
+        for kmax in (fmax * 37, 4096, 16):
+            assert texp.small_step_sizes(fmax, kmax, 37) \
+                == jexp.small_step_sizes(fmax, kmax, 37)
     assert texp.eventually_indices(_props(tcore)) \
         == jexp.eventually_indices(_props(jcore))
