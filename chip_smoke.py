@@ -13,18 +13,34 @@ Phases, one JSON line each:
              at the main paths' shapes (2pc n=7, a mid-search frontier of
              12,288 and of 256 rows, a 2**20-slot table, a 2**15-slot
              ring; the owner-side probe at the received width of the
-             sharded step) by the lane and set gates, and timed with CUDA
-             events and ``torch.profiler``;
+             sharded step; the symmetric steps at 2pc n=16, 82 actions,
+             with both representatives) by the lane and set gates, and
+             timed with CUDA events and ``torch.profiler``;
 4. e2e     — ``TwoPhaseSys(7).checker().spawn_gpu().join()`` with default
              options, checked against the oracle counts, the fingerprint-set
              digest, the properties and both witness replays, with every
              kernel's launch count set to 0 before the run and read after
              it; then again from a 2**16-slot table, which grows twice;
-5. e2e_sharded — the same check through the sharded engine,
+5. e2e_sym — symmetry reduction on one card: every reachable 2pc7 state
+             recounted into its 920 orbits and 9,840 reference keys
+             (``orbits_2pc7``); ``TwoPhaseSys(n[, complete_symmetry=True])
+             .checker().symmetry_fn(model.representative).spawn_gpu()`` at
+             n=7 and n=16: the complete representative held to the JAX
+             package's count, generated count and canonical-key digest,
+             the reference one to its sound range at n=7, to covering
+             every orbit (its enqueued original rows canonicalized by the
+             complete representative) and, at n=16 (the full-width run,
+             over a million reduced states), to a repeated search record
+             and the complete run's verdicts, with a profiled repeat;
+             the complete one again through table growth; witnesses
+             replay;
+6. e2e_sharded — the same check through the sharded engine,
              ``gpu_options(mesh=<DeviceMesh>)``, on a one-rank NCCL group
              (one card), with default options and again from a 2**16-slot
              table at 512-row steps, which grows; the same launch counts,
-             and a second run's search record compared row for row.
+             and a second run's search record compared row for row; then
+             2pc16 under complete symmetry (``e2e_sharded_sym``), held to
+             the single-chip pins.
 
 Then a ``kernels`` line (the contract's per-kernel record), the card's name
 and power limit from ``nvidia-smi``, and as the last line
@@ -36,8 +52,9 @@ checkout of the repository.
 
 runs the sharded engine across that many cards instead, one process per
 card on one NCCL group: 2pc n=7 with the bucketed exchange and with the
-ring, each held to the same counts, digest and witnesses on every rank
-(phase ``e2e_ranks``). It needs that many cards.
+ring, and 2pc n=16 under complete symmetry with the bucketed exchange,
+each held to the same counts, digest and witnesses on every rank (phase
+``e2e_ranks``). It needs that many cards.
 """
 
 from __future__ import annotations
@@ -62,6 +79,31 @@ GENERATED_2PC7 = 2_744_706
 #: both the port's plain path and that JAX run to all three constants
 DIGEST_2PC7 = ("68bd762484aa0d7b8f3efb611f754ba2"
                "908888832a15e5df5b2c5656db338113")
+
+#: TwoPhaseSys(16, complete_symmetry=True) under symmetry reduction
+#: (``symmetry_fn(model.representative)``): the 21,335 RM-permutation
+#: orbits of 2pc with 16 RMs, state_count() (the init state and 450,858
+#: generated transitions) and the sha256 of the sorted canonical keys,
+#: from the JAX package's fused device engine on the CPU (Pallas in
+#: interpret mode, fmax=256; its staged engine gives the same), with the
+#: model's property patterns made uint32 constants: at n=16 the JAX
+#: package's Python-int patterns overflow JAX's scalar parsing.
+#: tests/test_torch_symmetry.py::test_complete_symmetry_pins holds that
+#: JAX run and the port's plain path to all three. The orbit-invariant
+#: representative makes them the same for every engine and step size.
+UNIQUE_2PC16_SYM = 21_335
+GENERATED_2PC16_SYM = 450_859
+DIGEST_2PC16_SYM = ("e8cd19b6cdc0755720449d43e37723c6"
+                    "4178e70a74bc6c5bb313a4882505089f")
+#: the same for TwoPhaseSys(7, complete_symmetry=True): 920 orbits
+UNIQUE_2PC7_SYM = 920
+GENERATED_2PC7_SYM = 8_410
+DIGEST_2PC7_SYM = ("4302d7490af6f8bfb60b2c6197f14954"
+                   "654cee87bde6e7dbcd38fd5d2d05b43c")
+#: the sound range of the reference representative at n=7: at least
+#: one key per orbit, at most the distinct representative keys over all
+#: 296,448 states (phase ``orbits_2pc7`` recounts both on the card)
+REF_KEYS_2PC7 = 9_840
 
 #: HBM bandwidth of an H100 SXM (bytes/s) and its CUDA-core fp32 rate
 #: (operations/s): NVIDIA's published peaks at 700 W. The steps do 32-bit
@@ -94,7 +136,10 @@ _OURS = ("dedup_claim_kernel", "dedup_commit_kernel", "probe_claim_kernel",
 
 
 def kernel_name(symbol: str):
-    return next((k for k in _OURS if k in symbol), None)
+    name = next((k for k in _OURS if k in symbol), None)
+    if name == "expand_kernel" and ("true>" in symbol or "Lb1E" in symbol):
+        return "expand_kernel_sym"  # the symmetric instantiation of K1
+    return name
 
 
 def ptxas_usage(log: str) -> dict:
@@ -151,7 +196,7 @@ def device_times(fn, host_top: int = 0) -> dict:
                              ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    ours = {k: 0.0 for k in _OURS}
+    ours = {k: 0.0 for k in _OURS + ("expand_kernel_sym",)}
     torch_ms = copy_ms = 0.0
     seen = False
     for e in prof.key_averages():
@@ -182,9 +227,11 @@ def device_times(fn, host_top: int = 0) -> dict:
     return out
 
 
-def mid_search_carry(model, device):
-    """A real mid-search state of 2pc n=7: the port's own loop run until
-    at least 12,288 rows are pending."""
+def mid_search_carry(model, device, symmetry: bool = False,
+                     rows: int = 12288):
+    """A real mid-search state of ``model`` (2pc n=7, or n=16 under
+    symmetry reduction): the port's own loop run until at least ``rows``
+    rows are pending."""
     import numpy as np
     import torch
 
@@ -196,23 +243,24 @@ def mid_search_carry(model, device):
     from stateright_tpu_torch.ops.words import from_numpy_u32
 
     init = model.init_states()[0]
-    fp = model.fingerprint(init)
-    fa = 12288 * model.max_actions
+    fp = model.fingerprint(model.representative(init) if symmetry
+                           else init)
+    fa = rows * model.max_actions
     carry = seed_carry(model, 1 << 21, 1 << 20, [model.encode(init)], 0,
-                       [fp], 1 << 15, device)
+                       [fp], 1 << 15, device, symmetry=symmetry)
     table_insert(carry.table,
                  from_numpy_u32(np.array([fp >> 32], np.uint32), device),
                  from_numpy_u32(np.array([fp & 0xFFFFFFFF], np.uint32),
                                 device),
                  torch.ones((1,), dtype=torch.bool, device=device))
     stats = LoopStats()
-    while carry.q_tail - carry.q_head < 12288:
+    while carry.q_tail - carry.q_head < rows:
         avail = carry.q_tail - carry.q_head
         if avail == 0 or carry.q_tail > carry.q.shape[0] - fa:
-            raise RuntimeError("2pc7 search ended before a 12,288-row "
+            raise RuntimeError(f"the search ended before a {rows}-row "
                                "frontier")
         step_once(model, carry, FMAX_SMALL if avail <= FMAX_SMALL
-                  else 12288, stats)
+                  else rows, stats)
     return carry
 
 
@@ -233,9 +281,33 @@ def lowest_lane_wins(out) -> bool:
     return bool((won == lanes[out.inserted]).all())
 
 
-def check_step(model, carry, f: int, reps: int) -> dict:
-    """K1-K3 (one ``fused_step``) against ``fused_step_reference`` on the
-    card over ``f`` pending rows of ``carry``, by the set gate."""
+def step_ops(model, symmetry: bool) -> int:
+    """Integer operations per lane of K1: ~120 for the successor and its
+    fingerprint, and under symmetry ~20 per RM for the counting sort plus
+    ~60 for the second fingerprint."""
+    return 120 + (60 + 20 * model.n if symmetry else 0)
+
+
+def block_args(model, carry, f: int, pfp=None):
+    """The step inputs over ``f`` pending rows of ``carry``: frontier,
+    ebits, fvalid and the frontier fingerprints (the queue's cached ones,
+    or ``pfp(rows)``)."""
+    import torch
+
+    w = model.packed_width
+    block = carry.q[carry.q_head:carry.q_head + f]
+    take = min(carry.q_tail - carry.q_head, f)
+    fvalid = torch.arange(f, device=block.device) < take
+    phi, plo = (block[:, w + 1], block[:, w + 2]) if pfp is None \
+        else pfp(block[:, :w])
+    return block, (block[:, :w], block[:, w], fvalid, phi, plo)
+
+
+def check_step(model, carry, f: int, reps: int, symmetry: bool = False,
+               pfp=None) -> dict:
+    """K1-K3 (one ``fused_step``, the symmetric instantiation under
+    ``symmetry``) against ``fused_step_reference`` on the card over ``f``
+    pending rows of ``carry``, by the set gate."""
     import numpy as np
     import torch
 
@@ -245,29 +317,25 @@ def check_step(model, carry, f: int, reps: int) -> dict:
     from stateright_tpu_torch.ops.words import pack64
 
     w = model.packed_width
-    block = carry.q[carry.q_head:carry.q_head + f]
-    take = min(carry.q_tail - carry.q_head, f)
-    fvalid = torch.arange(f, device=block.device) < take
-    args = (block[:, :w], block[:, w], fvalid, block[:, w + 1],
-            block[:, w + 2])
+    block, args = block_args(model, carry, f, pfp)
     table0, ring0 = carry.table.clone(), carry.ring.clone()
     t_k, r_k = table0.clone(), ring0.clone()
     t_p, r_p = table0.clone(), ring0.clone()
     n_props = len(model.properties())
     ws = StepWorkspace(table0.numel(), ring0.shape[0], n_props,
                        block.device)
-    k = fused_step(model, *args, t_k, r_k, ws)
+    k = fused_step(model, *args, t_k, r_k, ws, symmetry=symmetry)
     # the plain version walks its blocks one after another: it is timed
     # on this one comparison step only
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
-    p = fused_step_reference(model, *args, t_p, r_p)
+    p = fused_step_reference(model, *args, t_p, r_p, symmetry=symmetry)
     end.record()
     end.synchronize()
     plain_ms = start.elapsed_time(end)
     lane_exact = ("flat", "chi", "clo", "cvalid", "pbits", "ebits",
-                  "terminal")
+                  "terminal") + (("ohi", "olo") if symmetry else ())
     err = 0
     for name in lane_exact:
         a = getattr(k, name).to(torch.int64)
@@ -302,10 +370,12 @@ def check_step(model, carry, f: int, reps: int) -> dict:
         t_k.copy_(table0)
         r_k.copy_(ring0)
 
-    ms = cuda_ms(lambda: fused_step(model, *args, t_k, r_k, ws), reps,
-                 restore)
+    def launch():
+        return fused_step(model, *args, t_k, r_k, ws, symmetry=symmetry)
+
+    ms = cuda_ms(launch, reps, restore)
     restore()
-    dev = device_times(lambda: fused_step(model, *args, t_k, r_k, ws))
+    dev = device_times(launch)
     # the bound: each input read once, each output written once, table
     # and ring traffic counted for this step's lanes
     lanes = f * model.max_actions
@@ -315,10 +385,11 @@ def check_step(model, carry, f: int, reps: int) -> dict:
     nbytes = (f * (4 * w + 4 + 8 + 1)            # frontier, ebits, fps, fvalid
               + f * (max(n_props, 1) + 4 + 1)    # pbits, ebits, terminal
               + lanes * (4 * w + 8 + 3)          # flat, chi/clo, 3 masks
+              + lanes * (8 if symmetry else 0)   # ohi/olo
               + n_valid * 8                      # ring probes
               + n_table * 32                     # bucket reads
               + n_ins * 16)                      # table + ring writes
-    ops = lanes * 120 + n_table * 12
+    ops = lanes * step_ops(model, symmetry) + n_table * 12
     bound_s = max(nbytes / HBM_BYTES_S, ops / CORE_OPS_S)
     return {"f": f, "lanes": lanes, "valid": n_valid, "to_table": n_table,
             "inserted": n_ins, "max_abs_err": err, "ms": ms,
@@ -404,12 +475,14 @@ def ring_hits(out, ring):
     return out.cvalid & (ring[slot] == keys)
 
 
-def check_noprobe(model, carry, f: int, reps: int) -> dict:
-    """K1 + K5 (one ``fused_step(probe=False)``) against its plain version
-    on the card over ``f`` pending rows of ``carry`` and its ring:
-    lane-exact outputs, scalars and discoveries; ``dvalid`` by the key-set
-    gate (a subset of the valid lanes the ring does not hold, with their
-    key set, one lane per key, the lowest)."""
+def check_noprobe(model, carry, f: int, reps: int, symmetry: bool = False,
+                  pfp=None) -> dict:
+    """K1 + K5 (one ``fused_step(probe=False)``, the symmetric
+    instantiation under ``symmetry``) against its plain version on the
+    card over ``f`` pending rows of ``carry`` and its ring: lane-exact
+    outputs, scalars and discoveries; ``dvalid`` by the key-set gate (a
+    subset of the valid lanes the ring does not hold, with their key set,
+    one lane per key, the lowest)."""
     import torch
 
     from stateright_tpu_torch.ops.fused import (S_CCH, S_DISC, S_OVF,
@@ -421,25 +494,26 @@ def check_noprobe(model, carry, f: int, reps: int) -> dict:
 
     w = model.packed_width
     a = model.max_actions
-    block = carry.q[carry.q_head:carry.q_head + f]
-    take = min(carry.q_tail - carry.q_head, f)
-    fvalid = torch.arange(f, device=block.device) < take
-    args = (block[:, :w], block[:, w], fvalid, block[:, w + 1],
-            block[:, w + 2], None, carry.ring)
+    block, args = block_args(model, carry, f, pfp)
+    args += (None, carry.ring)
     n_props = len(model.properties())
     ws = DedupWorkspace(f * a, _block_rows(f) * a, carry.ring.shape[0],
                         n_props, block.device)
-    k = fused_step(model, *args, ws, probe=False)
+
+    def launch():
+        return fused_step(model, *args, ws, probe=False, symmetry=symmetry)
+
+    k = launch()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
-    p = fused_step_reference(model, *args, probe=False)
+    p = fused_step_reference(model, *args, probe=False, symmetry=symmetry)
     end.record()
     end.synchronize()
     plain_ms = start.elapsed_time(end)
     err = 0
     for name in ("flat", "chi", "clo", "cvalid", "pbits", "ebits",
-                 "terminal"):
+                 "terminal") + (("ohi", "olo") if symmetry else ()):
         x = getattr(k, name).to(torch.int64)
         y = getattr(p, name).to(torch.int64)
         if x.shape != y.shape:
@@ -467,15 +541,16 @@ def check_noprobe(model, carry, f: int, reps: int) -> dict:
     if not all(checks.values()):
         raise AssertionError(f"probe-free step f={f} disagrees with its "
                              f"plain version: {checks}")
-    ms = cuda_ms(lambda: fused_step(model, *args, ws, probe=False), reps)
-    dev = device_times(lambda: fused_step(model, *args, ws, probe=False))
+    ms = cuda_ms(launch, reps)
+    dev = device_times(launch)
     lanes = f * a
     n_valid = int(k.cvalid.sum())
     nbytes = (f * (4 * w + 4 + 8 + 1)            # frontier, ebits, fps, fvalid
               + f * (max(n_props, 1) + 4 + 1)    # pbits, ebits, terminal
               + lanes * (4 * w + 8 + 2)          # flat, chi/clo, 2 masks
+              + lanes * (8 if symmetry else 0)   # ohi/olo
               + n_valid * 8)                     # ring probes
-    ops = lanes * 120 + n_valid * 16
+    ops = lanes * step_ops(model, symmetry) + n_valid * 16
     bound_s = max(nbytes / HBM_BYTES_S, ops / CORE_OPS_S)
     return {"f": f, "lanes": lanes, "valid": n_valid,
             "ring_hits": int(sk[S_CCH]), "dvalid": len(kd),
@@ -577,6 +652,156 @@ def check_probe(model, carry, step, reps: int) -> dict:
     return out
 
 
+def frontier_fps(model):
+    """``rows -> (hi, lo)``: the int32 fingerprints of the rows' canonical
+    members under ``model``'s representative (the plain version)."""
+    import torch
+
+    from stateright_tpu_torch.ops.hash_kernel import fp64_device
+
+    def fps(rows):
+        hi, lo = fp64_device(model.packed_representative(rows))
+        return hi.to(torch.int32), lo.to(torch.int32)
+    return fps
+
+
+def canonical_keys(model, rows, chunk: int = 1 << 20) -> set:
+    """``{fp64(model.packed_representative(row))}`` over ``rows`` (int32
+    ``[N, W]`` on the card), by the plain version in chunks, as Python
+    ints (what ``generated_fingerprints()`` holds)."""
+    import numpy as np
+    import torch
+
+    from stateright_tpu_torch.ops.hash_kernel import fp64_device
+    from stateright_tpu_torch.ops.words import pack64
+
+    parts = [torch.zeros((0,), dtype=torch.int64, device=rows.device)]
+    for i in range(0, rows.shape[0], chunk):
+        hi, lo = fp64_device(model.packed_representative(rows[i:i + chunk]))
+        parts.append(torch.unique(pack64(hi, lo)))
+    keys = torch.unique(torch.cat(parts)).cpu().numpy()
+    return set(keys.view(np.uint64).tolist())
+
+
+def orbits_2pc7(device) -> dict:
+    """Every reachable state of 2pc n=7 (the port's loop run to the end
+    on the card), and the keys both representatives give them: 920
+    orbits (the complete representative's keys, whose digest is the JAX
+    package's) and 9,840 distinct reference keys, the ends of the
+    reference representative's sound range."""
+    import numpy as np
+    import torch
+
+    from stateright_tpu_torch import TwoPhaseSys
+    from stateright_tpu_torch.checker.device_loop import (LoopStats,
+                                                          run_loop,
+                                                          seed_carry)
+    from stateright_tpu_torch.ops.hashtable import table_insert
+    from stateright_tpu_torch.ops.words import from_numpy_u32
+
+    model = TwoPhaseSys(7)
+    init = model.init_states()[0]
+    fp = model.fingerprint(init)
+    carry = seed_carry(model, 1 << 21, 1 << 20, [model.encode(init)], 0,
+                       [fp], 1 << 15, device)
+    table_insert(carry.table,
+                 from_numpy_u32(np.array([fp >> 32], np.uint32), device),
+                 from_numpy_u32(np.array([fp & 0xFFFFFFFF], np.uint32),
+                                device),
+                 torch.ones((1,), dtype=torch.bool, device=device))
+    run_loop(model, carry, fmax=12288, grow_limit=1 << 20,
+             target_remaining=2**62, stats=LoopStats())
+    rows = carry.q[:carry.q_tail, :model.packed_width]
+    orbit_keys = canonical_keys(TwoPhaseSys(7, complete_symmetry=True),
+                                rows)
+    ref_keys = canonical_keys(model, rows)
+    checks = {
+        "states": carry.q_head == carry.q_tail == UNIQUE_2PC7,
+        "orbits": len(orbit_keys) == UNIQUE_2PC7_SYM,
+        "orbit_digest": fp_digest(orbit_keys) == DIGEST_2PC7_SYM,
+        "reference_keys": len(ref_keys) == REF_KEYS_2PC7,
+    }
+    if not all(checks.values()):
+        raise AssertionError(f"2pc7 orbits: {checks} ({carry.q_tail} "
+                             f"states, {len(orbit_keys)} orbits, "
+                             f"{len(ref_keys)} reference keys)")
+    return {"states": carry.q_tail, "orbits": len(orbit_keys),
+            "reference_keys": len(ref_keys), "checks": checks}, orbit_keys
+
+
+def end_to_end_sym(model, path_kernels, off_kernels, want=None, **opts):
+    """One check of ``model`` under symmetry reduction
+    (``symmetry_fn(model.representative)``) through the user entry
+    point: every launch count is set to 0 before it, each of
+    ``path_kernels`` must have launched and none of ``off_kernels``;
+    ``want`` = (unique, state_count, canonical-key digest) pins the
+    answer; the verdicts hold and both witnesses replay through the host
+    model. Returns its measurements, the checker and its search record
+    (the device log, or every rank's)."""
+    import torch
+
+    from stateright_tpu_torch.ops import _cuda
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for key in _cuda.LAUNCHES:
+        _cuda.LAUNCHES[key] = 0
+    t0 = time.perf_counter()
+    builder = model.checker().symmetry_fn(model.representative)
+    if opts:
+        builder = builder.gpu_options(**opts)
+    ck = builder.spawn_gpu().join()
+    wall = time.perf_counter() - t0
+    launches = dict(_cuda.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    # the search record before the mirror pulls it: the log rows
+    # (canonical child, canonical parent, original child)
+    record = (ck._logs if opts.get("mesh") is not None
+              else [ck._mirror[0][:ck._mirror[1]]])
+    unique = ck.unique_state_count()
+    t1 = time.perf_counter()
+    keys = ck.generated_fingerprints()
+    mirror_s = time.perf_counter() - t1
+    digest = fp_digest(keys)
+    prof = ck.profile()
+    checks = {
+        "launches": all(launches[k] > 0 for k in path_kernels)
+        and not any(launches[k] for k in off_kernels),
+        "keys": len(keys) == unique,
+        "originals": len(ck._orig_of) == unique,
+    }
+    if want is not None:
+        checks.update(unique=unique == want[0],
+                      generated=ck.state_count() == want[1],
+                      digest=digest == want[2])
+    ck.assert_no_discovery("consistent")
+    for name in ("abort agreement", "commit agreement"):
+        path = ck.assert_any_discovery(name)  # replays or raises
+        checks[f"replay {name}"] = model.property(name).condition(
+            model, path.last_state())
+    shown = {k: (f"DeviceMesh {tuple(v.shape)} {v.device_type}"
+                 if k == "mesh" else v) for k, v in opts.items()}
+    mode = "complete" if model.complete_symmetry else "reference"
+    if not all(checks.values()):
+        raise AssertionError(
+            f"2pc{model.n} {mode} symmetry {shown or 'default'}: {checks} "
+            f"(unique {unique}, generated {ck.state_count()}, digest "
+            f"{digest}, launches {launches})")
+    keys_prof = ("engine", "syncs", "iterations", "small_iterations",
+                 "grows", "capacity", "loop_s", "sync_s", "shards",
+                 "exchange", "collectives", "collectives_per_iteration",
+                 "kovfs", "aborts", "kmax", "gather_s", "vmax", "dmax")
+    return {"model": f"TwoPhaseSys({model.n}, complete_symmetry="
+                     f"{model.complete_symmetry})",
+            "representative": mode, "options": shown, "wall_s": wall,
+            "unique": unique, "unique_per_s": unique / wall,
+            "generated": ck.state_count(), "digest": digest,
+            "mirror_pull_s": mirror_s,
+            **{k: prof[k] for k in keys_prof if k in prof},
+            "max_memory_allocated": peak, "launches": launches,
+            "checks": checks}, ck, record
+
+
 def one_rank_mesh():
     """A one-rank NCCL group on card 0 and its DeviceMesh (the sharded
     engine at D = 1), over the loopback interface."""
@@ -675,11 +900,16 @@ def mirror_vs_plain(card) -> dict:
         "first_row_differing": first, "cpu_wall_s": cpu_wall}
 
 
-def rank_run(rank: int, world: int, init: str, out_dir: str, n: int = 7,
+#: the runs of ``--ranks``: (exchange, 2pc n, complete symmetry or None)
+RANK_CASES = (("bucket", 7, None), ("ring", 7, None), ("bucket", 16, True))
+
+
+def rank_run(rank: int, world: int, init: str, out_dir: str,
              device_type: str = "cuda") -> None:
-    """One rank of ``--ranks``: TwoPhaseSys(n) through the sharded engine
-    on this rank's card, with each exchange; writes what its checker
-    answers to ``<out_dir>/rank<rank>.json``."""
+    """One rank of ``--ranks``: each of ``RANK_CASES`` through the sharded
+    engine on this rank's card (2pc n=7 with each exchange, then 2pc n=16
+    under complete symmetry reduction); writes what its checker answers
+    to ``<out_dir>/rank<rank>.json``."""
     import datetime
 
     import torch
@@ -700,7 +930,7 @@ def rank_run(rank: int, world: int, init: str, out_dir: str, n: int = 7,
     try:
         mesh = init_device_mesh(device_type, (world,),
                                 mesh_dim_names=("shards",))
-        for exchange in ("bucket", "ring"):
+        for exchange, n, complete in RANK_CASES:
             # NCCL sets up its peer connections at the first collective
             # of each kind: a small check first, so the timed run is warm
             TwoPhaseSys(3).checker().gpu_options(
@@ -711,8 +941,12 @@ def rank_run(rank: int, world: int, init: str, out_dir: str, n: int = 7,
                 torch.cuda.synchronize()
                 torch.cuda.reset_peak_memory_stats()
             t0 = time.perf_counter()
-            ck = TwoPhaseSys(n).checker().gpu_options(
-                mesh=mesh, exchange=exchange).spawn_gpu().join()
+            model = TwoPhaseSys(n, complete_symmetry=bool(complete))
+            builder = model.checker().gpu_options(mesh=mesh,
+                                                  exchange=exchange)
+            if complete is not None:
+                builder = builder.symmetry_fn(model.representative)
+            ck = builder.spawn_gpu().join()
             wall = time.perf_counter() - t0
             prof = ck.profile()
             replay = {}
@@ -721,6 +955,7 @@ def rank_run(rank: int, world: int, init: str, out_dir: str, n: int = 7,
                 replay[prop] = bool(ck.model().property(prop).condition(
                     ck.model(), path.last_state()))
             runs.append({
+                "n": n, "symmetry": complete is not None,
                 "exchange": prof["exchange"], "wall_s": wall,
                 "unique": ck.unique_state_count(),
                 "generated": ck.state_count(),
@@ -783,17 +1018,23 @@ def ranks_main(world: int) -> int:
     for i, first in enumerate(ranks[0]):
         same = ("exchange", "unique", "generated", "digest", "replay",
                 "iterations", "rank_rows")
+        want = ((UNIQUE_2PC16_SYM, GENERATED_2PC16_SYM, DIGEST_2PC16_SYM)
+                if first["symmetry"] else
+                (UNIQUE_2PC7, GENERATED_2PC7, DIGEST_2PC7))
+        step = ("fused_step_noprobe_sym" if first["symmetry"]
+                else "fused_step_noprobe")
         checks = {
-            "unique": first["unique"] == UNIQUE_2PC7,
-            "generated": first["generated"] == GENERATED_2PC7,
-            "digest": first["digest"] == DIGEST_2PC7,
+            "unique": first["unique"] == want[0],
+            "generated": first["generated"] == want[1],
+            "digest": first["digest"] == want[2],
             "replay": all(first["replay"].values()),
             "ranks_agree": all(r[i][k] == first[k] for r in ranks
                                for k in same),
-            "exchange": first["exchange"] == ("bucket", "ring")[i],
-            "launches": all(r[i]["launches"]["fused_step_noprobe"] > 0
+            "exchange": first["exchange"] == RANK_CASES[i][0],
+            "launches": all(r[i]["launches"][step] > 0
                             and r[i]["launches"]["probe_block"] > 0
                             and r[i]["launches"]["fused_step"] == 0
+                            and r[i]["launches"]["fused_step_sym"] == 0
                             for r in ranks),
         }
         wall = max(r[i]["wall_s"] for r in ranks)
@@ -803,12 +1044,13 @@ def ranks_main(world: int) -> int:
                  "wall_s", "loop_s", "syncs", "sync_s", "collectives",
                  "peak", "launches", "gather_s")} for r in ranks],
              **{k: first[k] for k in (
-                 "exchange", "unique", "generated", "digest", "iterations",
+                 "n", "symmetry", "exchange", "unique", "generated",
+                 "digest", "iterations",
                  "small_iterations", "collectives_per_iteration", "kovfs",
                  "aborts", "kmax", "kb", "rank_rows", "dmax", "bmax")},
              checks=checks)
         if not all(checks.values()):
-            raise AssertionError(f"{world}-rank 2pc7, "
+            raise AssertionError(f"{world}-rank 2pc{first['n']}, "
                                  f"{first['exchange']}: {checks}")
     for line in smi:
         print(line, flush=True)
@@ -863,6 +1105,30 @@ def main() -> int:
     emit(phase="kernels", kernel="probe_block", **probe)
     del carry, step
 
+    # the symmetric steps at the full width of 2pc n=16 (82 actions): a
+    # mid-search frontier of the reference representative's search; the
+    # complete representative's own search never holds more than ~1,200
+    # pending rows, so it is checked on the same rows with its own
+    # canonical frontier fingerprints
+    sym_models = {"reference": TwoPhaseSys(16),
+                  "complete": TwoPhaseSys(16, complete_symmetry=True)}
+    carry16 = mid_search_carry(sym_models["reference"],
+                               torch.device("cuda", 0), symmetry=True)
+    sym_kernels = {"fused_step_sym": {}, "fused_step_noprobe_sym": {}}
+    for mode, m16 in sym_models.items():
+        pfp = None if mode == "reference" else frontier_fps(m16)
+        for f, reps in ((12288, 20), (256, 50)):
+            res = check_step(m16, carry16, f, reps, symmetry=True, pfp=pfp)
+            sym_kernels["fused_step_sym"][mode, f] = res
+            emit(phase="kernels", kernel="fused_step_sym",
+                 representative=mode, **res)
+            res, _ = check_noprobe(m16, carry16, f, reps, symmetry=True,
+                                   pfp=pfp)
+            sym_kernels["fused_step_noprobe_sym"][mode, f] = res
+            emit(phase="kernels", kernel="fused_step_noprobe_sym",
+                 representative=mode, **res)
+    del carry16
+
     single = ("fused_step", "table_insert")
     default, card = end_to_end(TwoPhaseSys, single)
     emit(phase="e2e", **default)
@@ -881,6 +1147,80 @@ def main() -> int:
     if grown["grows"] != 2 or grown["digest"] != default["digest"]:
         raise AssertionError(f"growth run: {grown['grows']} growths, "
                              f"digest {grown['digest']}")
+
+    # symmetry reduction on one card: the orbits of 2pc7 and its
+    # reference representative's sound range, recounted on the card;
+    # then the symmetric single-chip path
+    orbits, orbit_keys7 = orbits_2pc7(torch.device("cuda", 0))
+    emit(phase="orbits_2pc7", **orbits)
+    single_sym = ("fused_step_sym", "table_insert")
+    off_sym = ("fused_step", "fused_step_noprobe", "fused_step_noprobe_sym",
+               "probe_block")
+    res, ck7, _rec = end_to_end_sym(
+        TwoPhaseSys(7, complete_symmetry=True), single_sym, off_sym,
+        want=(UNIQUE_2PC7_SYM, GENERATED_2PC7_SYM, DIGEST_2PC7_SYM))
+    emit(phase="e2e_sym", **res)
+    res, ck7, _rec = end_to_end_sym(TwoPhaseSys(7), single_sym, off_sym)
+    # the reference representative: a count in the sound range, and the
+    # original rows it enqueued cover every orbit
+    q7, tail7 = ck7._queue
+    cover7 = canonical_keys(TwoPhaseSys(7, complete_symmetry=True),
+                            q7[:tail7, :4])
+    res["checks"].update(
+        sound_range=UNIQUE_2PC7_SYM <= res["unique"] <= REF_KEYS_2PC7,
+        covers_every_orbit=cover7 == orbit_keys7)
+    emit(phase="e2e_sym", **res)
+    if not all(res["checks"].values()):
+        raise AssertionError(f"2pc7 reference symmetry: {res['checks']}")
+    del ck7, q7, _rec
+    sym16, ck16, _rec = end_to_end_sym(
+        TwoPhaseSys(16, complete_symmetry=True), single_sym, off_sym,
+        want=(UNIQUE_2PC16_SYM, GENERATED_2PC16_SYM, DIGEST_2PC16_SYM))
+    emit(phase="e2e_sym", **sym16)
+    orbit_keys16 = ck16.generated_fingerprints()
+    verdicts16 = sorted(ck16.discoveries())
+    del ck16, _rec
+    # the full-width run where the kernels work: over a million
+    # reduced states
+    ref16, ck16, rec16 = end_to_end_sym(TwoPhaseSys(16), single_sym,
+                                        off_sym)
+    emit(phase="e2e_sym", **ref16)
+    again, _ck, rec_again = end_to_end_sym(TwoPhaseSys(16), single_sym,
+                                           off_sym)
+    del _ck
+    q16, tail16 = ck16._queue
+    cover16 = canonical_keys(TwoPhaseSys(16, complete_symmetry=True),
+                             q16[:tail16, :4])
+    checks = {
+        # K2/K3's winner rule makes the search record repeat row for row
+        "record_repeats": (len(rec16[0]) == len(rec_again[0])
+                           and torch.equal(rec16[0], rec_again[0])),
+        "covers_every_orbit": cover16 == orbit_keys16,
+        "verdicts": sorted(ck16.discoveries()) == verdicts16,
+    }
+    emit(phase="e2e_sym_checks", representative="reference", n=16,
+         rows=len(rec16[0]), enqueued=tail16, orbits=len(cover16),
+         repeat_wall_s=again["wall_s"], checks=checks)
+    if not all(checks.values()):
+        raise AssertionError(f"2pc16 reference symmetry: {checks}")
+    del ck16, q16, rec16, rec_again
+    # where the device time of the full-width symmetric run goes (a
+    # separate, profiled run)
+    m16 = TwoPhaseSys(16)
+    prof16 = device_times(lambda: m16.checker().symmetry_fn(
+        m16.representative).spawn_gpu().join(), host_top=12)
+    emit(phase="e2e_profile", engine="gpu", symmetry="reference", n=16,
+         **prof16)
+    # growth under symmetry (the 6-column log re-inserted): 16-row steps
+    # keep a 2**12-slot table, which then grows twice
+    grown_sym, _ck, _rec = end_to_end_sym(
+        TwoPhaseSys(16, complete_symmetry=True), single_sym, off_sym,
+        want=(UNIQUE_2PC16_SYM, GENERATED_2PC16_SYM, DIGEST_2PC16_SYM),
+        capacity=1 << 12, fmax=16)
+    emit(phase="e2e_sym", **grown_sym)
+    if grown_sym["grows"] < 1:
+        raise AssertionError("the symmetric growth run did not grow")
+    del _ck, _rec
 
     # the sharded engine on a one-rank NCCL group: the probe-free step,
     # the owner-side probe, the insert kernel (seeding, growth) — and no
@@ -915,6 +1255,16 @@ def main() -> int:
     if sh_grown["grows"] < 1 or sh_grown["digest"] != default["digest"]:
         raise AssertionError(f"sharded growth run: {sh_grown['grows']} "
                              f"growths, digest {sh_grown['digest']}")
+    # the sharded engine under symmetry: the symmetric probe-free step,
+    # the owner-side probe on canonical keys, the same 21,335 orbits
+    sh_sym, _ck, _rec = end_to_end_sym(
+        TwoPhaseSys(16, complete_symmetry=True),
+        ("fused_step_noprobe_sym", "probe_block", "table_insert"),
+        ("fused_step", "fused_step_sym", "fused_step_noprobe"),
+        want=(UNIQUE_2PC16_SYM, GENERATED_2PC16_SYM, DIGEST_2PC16_SYM),
+        mesh=mesh)
+    emit(phase="e2e_sharded_sym", **sh_sym)
+    del _ck, _rec
     dist.destroy_process_group()
 
     fused_src = "stateright_tpu_torch/csrc/fused_step.cu"
@@ -957,6 +1307,30 @@ def main() -> int:
          "bound_by": probe["bound_by"], "library_ms": None,
          "status": "ok"},
     ]
+    for kernel, launches in (("fused_step_sym",
+                               ref16["launches"]["fused_step_sym"]),
+                              ("fused_step_noprobe_sym",
+                               sh_sym["launches"]["fused_step_noprobe_sym"])):
+        runs = sym_kernels[kernel]
+        large = runs["reference", 12288]
+        probe = kernel == "fused_step_sym"
+        kernels.append({
+            "name": kernel, "route": "cuda",
+            "source": fused_src if probe else sharded_src,
+            "replaces": "stateright_tpu/ops/fused.py:259",
+            "configuration": "symmetry=True, probe="
+                             + ("True" if probe else "False (sharded step)"),
+            "launches": launches,
+            "max_abs_err": max(r["max_abs_err"] for r in runs.values()),
+            "ms": large["ms"], "plain_ms": large["plain_ms"],
+            "bound_ms": large["bound_ms"], "bound_by": large["bound_by"],
+            "library_ms": None,
+            "by_mode_and_rows": {
+                f"{mode} f={f}": {k: r[k] for k in (
+                    "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+                    "max_abs_err")}
+                for (mode, f), r in runs.items()},
+            "status": "ok"})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     # the run uses one card, whatever the machine holds

@@ -2,8 +2,8 @@
 
 Counterpart of ``stateright_tpu/checker/builder.py``, trimmed to this
 port's engine: ``spawn_gpu()`` with ``gpu_options(...)``. The builder
-methods whose features are not ported (symmetry, visitors, sound
-eventually, checkpoints) are kept so a caller's intent is never dropped:
+methods whose features are not ported (visitors, sound eventually,
+checkpoints) are kept so a caller's intent is never dropped:
 ``spawn_gpu()`` raises ``NotImplementedError`` for each of them.
 """
 
@@ -31,6 +31,13 @@ class CheckerBuilder:
         return self.symmetry_fn(lambda state: state.representative())
 
     def symmetry_fn(self, representative) -> "CheckerBuilder":
+        """Symmetry reduction: ``representative(state)`` is the canonical
+        member of the state's class. ``spawn_gpu()`` dedups on the
+        fingerprint of the model's ``packed_representative`` (the device
+        canonicalization, which must agree with ``representative`` bit
+        for bit; checked on the init states) and replays witnesses
+        through the original states it explored.
+        ``generated_fingerprints()`` then answers canonical keys."""
         self.symmetry_fn_ = representative
         return self
 

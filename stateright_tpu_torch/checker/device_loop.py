@@ -11,7 +11,9 @@ carry holds
   * the visited table (``ops/hashtable.py``: packed int64 keys);
   * the cross-chunk recent-key ring (packed int64 keys);
   * an append-only log of (child fp hi, lo, parent fp hi, lo) rows, the
-    search record the host mirrors lazily;
+    search record the host mirrors lazily; under symmetry reduction the
+    child and parent fps are canonical keys and two more columns hold
+    the child's original fp hi, lo (the state the queue really holds);
   * sticky first-hit discovery registers and overflow flags.
 
 JAX runs the loop as ``lax.while_loop``s on the device; here it is a host
@@ -52,13 +54,14 @@ class ChunkCarry:
     q_tail: int              # next free row
     table: torch.Tensor      # int64[cap/4, 4] visited table
     ring: Optional[torch.Tensor]  # int64[cc] recent-key ring, or None
-    log: torch.Tensor        # int32[logcap, 4] (child fp, parent fp)
-    log_n: int
+    log: torch.Tensor        # int32[logcap, 4 or 6] (child fp, parent fp
+    log_n: int               # [, child original fp] under symmetry)
     disc_hit: np.ndarray     # bool[P]   property discovered?
     disc_fp: np.ndarray      # uint64[P] witnessing state fingerprint
     ovf: bool = False        # table probe overflow
     xovf: bool = False       # model encoding overflow (fatal)
     ws: Optional[StepWorkspace] = None  # kernel state (CUDA only)
+    symmetry: bool = False   # dedup on packed_representative keys
 
 
 @dataclass
@@ -88,10 +91,12 @@ def shrink_indices(mask: torch.Tensor, k: int) -> torch.Tensor:
 
 
 def seed_carry(model, qcap: int, capacity: int, init_rows, full_ebits,
-               init_fps, cc: int, device) -> ChunkCarry:
+               init_fps, cc: int, device,
+               symmetry: bool = False) -> ChunkCarry:
     """The initial carry: init states enqueued (with their cached
-    fingerprints), empty table, log and ring. The caller inserts the init
-    fingerprints into the table."""
+    fingerprints: the canonical ones under ``symmetry``), empty table,
+    log (6 columns under ``symmetry``) and ring. The caller inserts the
+    init fingerprints into the table."""
     width = model.packed_width
     q = torch.zeros((qcap, width + 3), dtype=torch.int32, device=device)
     k = len(init_rows)
@@ -109,11 +114,12 @@ def seed_carry(model, qcap: int, capacity: int, init_rows, full_ebits,
         q=q, q_head=0, q_tail=k, table=table,
         ring=(torch.zeros((cc,), dtype=torch.int64, device=device)
               if cc else None),
-        log=torch.zeros((capacity, 4), dtype=torch.int32, device=device),
+        log=torch.zeros((capacity, 6 if symmetry else 4),
+                        dtype=torch.int32, device=device),
         log_n=0, disc_hit=np.zeros(n_props, bool),
         disc_fp=np.zeros(n_props, np.uint64),
         ws=(StepWorkspace(capacity, cc, n_props, table.device)
-            if table.is_cuda else None))
+            if table.is_cuda else None), symmetry=symmetry)
 
 
 def carry_from_numpy(carry, ring_hi, ring_lo, device="cpu") -> ChunkCarry:
@@ -122,8 +128,9 @@ def carry_from_numpy(carry, ring_hi, ring_lo, device="cpu") -> ChunkCarry:
     ``q_tail``, bucket-major ``key_hi``/``key_lo``, ``log``, ``log_n``,
     ``disc_hit``/``disc_hi``/``disc_lo``, ``ovf``, ``xovf``); the ring
     halves ride beside it (``None`` for no ring). The table and ring
-    halves become packed int64 keys."""
-    log = np.asarray(carry.log)[:, :4]
+    halves become packed int64 keys; a 6-column log is a symmetric
+    run's."""
+    log = np.asarray(carry.log)
     table = keys_from_numpy(np.asarray(carry.key_hi),
                             np.asarray(carry.key_lo), device)
     ring = (None if ring_hi is None
@@ -140,7 +147,7 @@ def carry_from_numpy(carry, ring_hi, ring_lo, device="cpu") -> ChunkCarry:
         ovf=bool(carry.ovf), xovf=bool(carry.xovf),
         ws=(StepWorkspace(table.numel(), 0 if ring is None
                           else ring.shape[0], n_props, table.device)
-            if table.is_cuda else None))
+            if table.is_cuda else None), symmetry=log.shape[1] == 6)
 
 
 def carry_to_numpy(carry: ChunkCarry) -> dict:
@@ -173,7 +180,7 @@ def step_once(model, carry: ChunkCarry, fmax_b: int,
     fvalid = torch.arange(fmax_b, device=q.device) < take
     out = fused_step(model, block[:, :width], block[:, width], fvalid,
                      block[:, width + 1], block[:, width + 2], carry.table,
-                     carry.ring, carry.ws)
+                     carry.ring, carry.ws, symmetry=carry.symmetry)
     src = shrink_indices(out.inserted, fmax_b * n_actions)
     t0 = time.perf_counter()
     st = out.stats.cpu().numpy()
@@ -183,13 +190,15 @@ def step_once(model, carry: ChunkCarry, fmax_b: int,
     if cnt:
         src = src[:cnt]
         ridx = src // n_actions
+        orig = ((out.ohi[src], out.olo[src]) if carry.symmetry
+                else (None, None))
         cand, log_off = assemble_candidates(
             out.flat[src], out.ebits[ridx], out.chi[src], out.clo[src],
-            block[:, width + 1][ridx], block[:, width + 2][ridx])
+            block[:, width + 1][ridx], block[:, width + 2][ridx], *orig)
         t = carry.q_tail
         q[t:t + cnt] = cand[:, :width + 3]
         carry.log[carry.log_n:carry.log_n + cnt] = \
-            cand[:, log_off:log_off + 4]
+            cand[:, log_off:log_off + carry.log.shape[1]]
     carry.q_head = h + take
     carry.q_tail += cnt
     carry.log_n += cnt

@@ -8,6 +8,13 @@ the CPU), grow the visited table when it fills, and mirror the search
 log into the fingerprint -> parent map on first use, from which
 discoveries replay through the host model.
 
+Under symmetry reduction (``symmetry_fn``) dedup, the visited table and
+the mirror work on canonical keys (the fingerprint of the model's
+``packed_representative``) while the queue holds the original rows the
+search reached; the log's two extra columns map each canonical key to
+its original state's fingerprint (``_orig_of``), through which witness
+paths replay as concrete paths.
+
 What the JAX engine offers beyond that path is not ported yet and raises
 ``NotImplementedError`` naming the reason; nothing is silently ignored.
 """
@@ -122,10 +129,14 @@ class GpuChecker(HostChecker):
             host_props=bool(getattr(model, "host_property_indices", ())))
         if reason is not None:
             raise NotImplementedError(reason)
-        if builder.symmetry_fn_ is not None:
+        self._symmetry_fn = builder.symmetry_fn_
+        self._symmetry = builder.symmetry_fn_ is not None
+        if (self._symmetry
+                and getattr(model, "packed_representative", None) is None):
             raise NotImplementedError(
-                "symmetry reduction (packed_representative in the step "
-                "kernel) is not ported")
+                "symmetry reduction on the GPU engine requires the model "
+                "to implement packed_representative (the device "
+                "canonicalization)")
         if builder.visitor_ is not None:
             raise NotImplementedError("checker visitors are not ported")
         if builder.resume_path_ is not None:
@@ -134,7 +145,8 @@ class GpuChecker(HostChecker):
         self._opts = opts
         self._device = self._resolve_device(opts)
         if self._device.type == "cuda":
-            model.cuda_spec()  # raises for a model the kernel lacks
+            # raises for a model (or representative) the kernel lacks
+            model.cuda_spec(self._symmetry)
         if self._device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
                 "spawn_gpu() runs on a CUDA device and none is available; "
@@ -156,20 +168,54 @@ class GpuChecker(HostChecker):
                     f"gpu_options(cc_dedup={cc_opt!r}) must be True, False "
                     "or a power-of-two slot count >= 4")
         self._mirror = None  # (log, log_n) until first pulled
+        #: under symmetry, (queue, tail): the original rows the search
+        #: enqueued, kept on the device with the checker (coverage
+        #: diagnostics read them)
+        self._queue = None
 
     # --- seeding ------------------------------------------------------
+    def _canon_fp(self, state) -> int:
+        """The dedup key: the fingerprint of the state's canonical
+        member under symmetry reduction, of the state otherwise."""
+        if self._symmetry:
+            return self._model.fingerprint(self._symmetry_fn(state))
+        return self._model.fingerprint(state)
+
+    def _check_symmetry_fn(self, init_states) -> None:
+        """The host ``symmetry_fn`` and the device
+        ``packed_representative`` must agree bit for bit, or dedup would
+        silently go wrong: checked on the first init states
+        (``symmetry_fn`` accepts any function)."""
+        model = self._model
+        for s in init_states[:4]:
+            host = model.encode(self._symmetry_fn(s))
+            row = torch.from_numpy(model.encode(s).astype(np.int64)[None])
+            dev = to_numpy_u32(model.packed_representative(row)[0])
+            if not np.array_equal(host, dev):
+                raise ValueError(
+                    "symmetry_fn disagrees with the model's "
+                    "packed_representative on an init state: host "
+                    f"canonical {host.tolist()} vs device {dev.tolist()}. "
+                    "The device engines require the two "
+                    "canonicalizations to be bit-identical.")
+
     def _seed_inits(self) -> List[np.ndarray]:
-        """Fingerprint and encode the in-boundary init states into the
-        mirror; returns the packed rows of the distinct ones."""
+        """Fingerprint (canonically, under symmetry) and encode the
+        in-boundary init states into the mirror; returns the packed rows
+        of the distinct ones."""
         model = self._model
         init_states = [s for s in model.init_states()
                        if model.within_boundary(s)]
         self._state_count = len(init_states)
+        if self._symmetry:
+            self._check_symmetry_fn(init_states)
         rows = []
         for s in init_states:
-            fp = model.fingerprint(s)
+            fp = self._canon_fp(s)
             if fp not in self._generated:
                 self._generated[fp] = None
+                if self._symmetry:
+                    self._orig_of[fp] = model.fingerprint(s)
                 rows.append(model.encode(s))
         self._unique_state_count = len(self._generated)
         return rows
@@ -212,8 +258,8 @@ class GpuChecker(HostChecker):
         q = torch.zeros((self._device_qcap(n_init, headroom),
                          carry.q.shape[1]), dtype=torch.int32, device=dev)
         q[:carry.q_tail] = carry.q[:carry.q_tail]
-        log = torch.zeros((self._capacity, 4), dtype=torch.int32,
-                          device=dev)
+        log = torch.zeros((self._capacity, carry.log.shape[1]),
+                          dtype=torch.int32, device=dev)
         log[:carry.log_n] = carry.log[:carry.log_n]
         table = torch.zeros((self._capacity // 4, 4), dtype=torch.int64,
                             device=dev)
@@ -256,7 +302,7 @@ class GpuChecker(HostChecker):
         qcap = self._device_qcap(n_init, headroom)
         carry = seed_carry(model, qcap, self._capacity, init_rows,
                            full_ebits, self._base_fps, self._cc,
-                           self._device)
+                           self._device, symmetry=self._symmetry)
         self._insert_keys(carry.table, self._base_fps)
         prof["seed_s"] = time.perf_counter() - t_start
 
@@ -297,6 +343,8 @@ class GpuChecker(HostChecker):
         # the search record stays on the device until a path or the
         # fingerprint set is asked for
         self._mirror = (carry.log, carry.log_n)
+        if self._symmetry:
+            self._queue = (carry.q, carry.q_tail)
         prof.update(
             capacity=self._capacity, iterations=stats.iterations,
             small_iterations=stats.small_iterations, syncs=stats.syncs,
@@ -310,21 +358,31 @@ class GpuChecker(HostChecker):
             "checkpoints (Checker.save / resume_from) are not ported")
 
     # --- the search record ---------------------------------------------
+    def _mirror_rows(self, log) -> None:
+        """Add log rows (child fp, parent fp[, child original fp]) to
+        the host mirror (and, under symmetry, to ``_orig_of``)."""
+        rows = to_numpy_u32(log).astype(np.uint64)
+        child = (rows[:, 0] << np.uint64(32)) | rows[:, 1]
+        parent = (rows[:, 2] << np.uint64(32)) | rows[:, 3]
+        self._generated.update(zip(child.tolist(), parent.tolist()))
+        if rows.shape[1] == 6:
+            orig = (rows[:, 4] << np.uint64(32)) | rows[:, 5]
+            self._orig_of.update(zip(child.tolist(), orig.tolist()))
+
     def _ensure_mirror(self) -> None:
-        """Pull the (child fp, parent fp) log into the host mirror."""
+        """Pull the search log into the host mirror."""
         if self._mirror is None:
             return
         log, log_n = self._mirror
         self._mirror = None
         t0 = time.perf_counter()
-        rows = to_numpy_u32(log[:log_n]).astype(np.uint64)
-        child = (rows[:, 0] << np.uint64(32)) | rows[:, 1]
-        parent = (rows[:, 2] << np.uint64(32)) | rows[:, 3]
-        self._generated.update(zip(child.tolist(), parent.tolist()))
+        self._mirror_rows(log[:log_n])
         self._unique_state_count = len(self._generated)
         self._profile["mirror_s"] = time.perf_counter() - t0
 
     def generated_fingerprints(self) -> set:
+        """The visited fingerprints: the canonical keys under symmetry
+        reduction (as the JAX package's engines answer)."""
         self._ensure_mirror()
         return super().generated_fingerprints()
 

@@ -2,8 +2,9 @@
 
 Counterpart of ``stateright_tpu/checker/host.py``, trimmed: the
 properties, the discovered fingerprints, the counts, ``join`` and path
-reconstruction from the fingerprint -> parent mirror. The run executes
-in the caller's thread on the first ``join()``.
+reconstruction from the fingerprint -> parent mirror (translated through
+``_orig_of`` under symmetry reduction). The run executes in the caller's
+thread on the first ``join()``.
 """
 
 from __future__ import annotations
@@ -28,6 +29,10 @@ class HostChecker(Checker):
         #: fingerprint -> parent fingerprint (None for init states), in
         #: insertion order: the search record witness paths replay from
         self._generated: Dict[int, Optional[int]] = {}
+        #: under symmetry reduction the mirror's keys are canonical:
+        #: canonical key -> the fingerprint of the original state the
+        #: search explored for it (empty otherwise)
+        self._orig_of: Dict[int, int] = {}
         self._done = False
         self._error: Optional[BaseException] = None
         self._profile: Dict[str, object] = {}
@@ -70,11 +75,15 @@ class HostChecker(Checker):
 
     def _reconstruct_path(self, fp: int) -> Path:
         """Walk parent pointers to an init state, then replay forward
-        through the host model (the Rust crate's ``bfs.rs:314-342``)."""
+        through the host model (the Rust crate's ``bfs.rs:314-342``).
+        Under symmetry reduction the chain is canonical; each node is
+        translated to its original state's fingerprint, so the replay
+        follows the concrete states the search explored (the DFS
+        engine's enqueue-original rule, ``dfs.rs:260-285``)."""
         fingerprints = []
         next_fp = fp
         while next_fp in self._generated:
-            fingerprints.append(next_fp)
+            fingerprints.append(self._orig_of.get(next_fp, next_fp))
             parent = self._generated[next_fp]
             if parent is None:
                 break

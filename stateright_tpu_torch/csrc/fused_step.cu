@@ -4,8 +4,12 @@
 //
 // Replaces the Pallas step kernel of the JAX package,
 // stateright_tpu/ops/fused.py:259 (build_fused_block_fn), in the
-// configuration the single-chip main path runs: probe=True, properties
-// in the kernel, cross-chunk ring on, no symmetry. Built with nvcc for
+// configurations the single-chip main path runs: probe=True, properties
+// in the kernel, cross-chunk ring on, without symmetry
+// (srt_fused_step_twopc) and with it (srt_fused_step_twopc_sym: K1's
+// symmetric instantiation keys each child on fp64(canon(child)) and
+// writes fp64(child) to ohi/olo; K2 and K3 key on chi/clo either way, so
+// they dedup, claim and ring-cache canonical keys). Built with nvcc for
 // sm_90a into a shared library with a plain C interface and driven over
 // ctypes by stateright_tpu_torch/ops/_cuda.py.
 //
@@ -62,7 +66,12 @@
 // registers within a kernel, writes each output once, and uses
 // warp-aggregated atomics for the step counters so 454k lanes do not
 // serialise on one address. It is a first, simple cut: K1's serial
-// action loop is the first thing to parallelise (PERF.md).
+// action loop is the first thing to parallelise (PERF.md). Under
+// symmetry at 2pc n=16 (82 actions, 1,007,616 lanes at F = 12,288) K1
+// also writes ~8 MB of original fingerprints and does ~500 integer
+// operations per lane (the counting sort over 16 RMs and a second
+// fingerprint): bytes still bound the step at ~14 us, and the serial
+// row loop, 82 lanes per thread in only 48 blocks, is what it spends.
 
 #include "step_common.cuh"
 
@@ -158,11 +167,12 @@ __global__ void insert_kernel(InsertArgs a) {
   warp_max(&a.stats[1], rounds);
 }
 
-template <class M>
+template <class M, bool SYM>
 int launch_step(const M& m, const StepArgs& a) {
   cudaStream_t st = static_cast<cudaStream_t>(a.stream);
   const long long lanes = (long long)a.F * a.A;
-  expand_kernel<M><<<blocks_for(a.F > 0 ? a.F : 1), kThreads, 0, st>>>(m, a);
+  expand_kernel<M, SYM>
+      <<<blocks_for(a.F > 0 ? a.F : 1), kThreads, 0, st>>>(m, a);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   if (lanes == 0) return 0;
@@ -182,7 +192,18 @@ extern "C" {
 int srt_fused_step_twopc(const StepArgs* args, int n) {
   const TwoPcModel m(n);
   if (args->A != m.max_actions()) return (int)cudaErrorInvalidValue;
-  return launch_step(m, *args);
+  return launch_step<TwoPcModel, false>(m, *args);
+}
+
+// The same step under RM-permutation symmetry: dedup on canonical keys
+// (complete = 1: the orbit-invariant representative), original
+// fingerprints to ohi/olo.
+int srt_fused_step_twopc_sym(const StepArgs* args, int n, int complete) {
+  const TwoPcModel m(n, complete);
+  if (args->A != m.max_actions() || args->ohi == nullptr ||
+      args->olo == nullptr)
+    return (int)cudaErrorInvalidValue;
+  return launch_step<TwoPcModel, true>(m, *args);
 }
 
 // Stand-alone batched insert (seeding and growth).

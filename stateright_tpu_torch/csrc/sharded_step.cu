@@ -6,15 +6,19 @@
 //   * stateright_tpu/ops/fused.py:259 build_fused_block_fn with
 //     probe=False: expand, fingerprint, properties, in-batch pre-dedup,
 //     read-only cross-chunk ring probe; no visited table (children are
-//     routed to their owner rank before any table probe);
+//     routed to their owner rank before any table probe); without
+//     symmetry (srt_dedup_step_twopc) and with it
+//     (srt_dedup_step_twopc_sym: K1's symmetric instantiation, so K5
+//     dedups canonical keys and the owner is chosen by them);
 //   * stateright_tpu/ops/fused.py:526 build_probe_block_fn: the owner
 //     rank's probe/insert of the lanes it received in the exchange.
 // Built with nvcc for sm_90a into its own shared library with a plain C
 // interface, driven over ctypes by stateright_tpu_torch/ops/_cuda.py.
 //
 // What it computes:
-//   K1 expand_kernel        (step_common.cuh, unchanged) one thread per
-//                           frontier row: successors, fingerprints,
+//   K1 expand_kernel        (step_common.cuh) one thread per frontier
+//                           row: successors, fingerprints (canonical
+//                           keys and original ones under symmetry),
 //                           validity, property bits, discovery rows.
 //   K5 predup_kernel        one thread per lane: the JAX pre_dedup
 //                           arena of the lane's <=256-row block (the
@@ -60,7 +64,8 @@
 // microseconds. K6 on ~57k received lanes reads ~0.5 MB of lanes and
 // one 32-byte bucket per lane: well under a microsecond of bytes; its
 // launches and the random bucket reads rule. A first, simple cut: one
-// thread per lane, global-memory atomics.
+// thread per lane, global-memory atomics. Under symmetry only K1
+// changes (its symmetric instantiation; fused_step.cu notes its bound).
 
 #include "step_common.cuh"
 
@@ -205,7 +210,7 @@ __global__ void probe_commit_kernel(ProbeArgs a) {
   }
 }
 
-template <class M>
+template <class M, bool SYM>
 int launch_dedup_step(const M& m, const DedupArgs& d) {
   const StepArgs& a = d.s;
   cudaStream_t st = static_cast<cudaStream_t>(a.stream);
@@ -221,7 +226,8 @@ int launch_dedup_step(const M& m, const DedupArgs& d) {
                         (size_t)d.cells * sizeof(unsigned long long), st);
     if (e != cudaSuccess) return (int)e;
   }
-  expand_kernel<M><<<blocks_for(a.F > 0 ? a.F : 1), kThreads, 0, st>>>(m, a);
+  expand_kernel<M, SYM>
+      <<<blocks_for(a.F > 0 ? a.F : 1), kThreads, 0, st>>>(m, a);
   e = cudaGetLastError();
   if (e != cudaSuccess || lanes == 0) return (int)e;
   predup_kernel<<<blocks_for(lanes), kThreads, 0, st>>>(d, lanes);
@@ -234,6 +240,14 @@ int launch_dedup_step(const M& m, const DedupArgs& d) {
   return (int)cudaGetLastError();
 }
 
+bool dedup_args_ok(const TwoPcModel& m, const DedupArgs& d) {
+  const long long lanes = (long long)d.s.F * d.s.A;
+  return d.s.A == m.max_actions() && d.block_lanes > 0 &&
+         lanes % d.block_lanes == 0 && d.cells >= 2 * lanes &&
+         (d.cells & (d.cells - 1)) == 0 &&
+         (d.pre_cells & (d.pre_cells - 1)) == 0;
+}
+
 }  // namespace
 
 extern "C" {
@@ -242,14 +256,19 @@ extern "C" {
 // the launches (0 = launched); the caller raises on anything else.
 int srt_dedup_step_twopc(const DedupArgs* args, int n) {
   const TwoPcModel m(n);
-  const DedupArgs& d = *args;
-  const long long lanes = (long long)d.s.F * d.s.A;
-  if (d.s.A != m.max_actions() || d.block_lanes <= 0 ||
-      lanes % d.block_lanes != 0 || d.cells < 2 * lanes ||
-      (d.cells & (d.cells - 1)) != 0 ||
-      (d.pre_cells & (d.pre_cells - 1)) != 0)
+  if (!dedup_args_ok(m, *args)) return (int)cudaErrorInvalidValue;
+  return launch_dedup_step<TwoPcModel, false>(m, *args);
+}
+
+// The same step under RM-permutation symmetry (complete = 1: the
+// orbit-invariant representative): dedup and ownership on canonical
+// keys, original fingerprints to ohi/olo.
+int srt_dedup_step_twopc_sym(const DedupArgs* args, int n, int complete) {
+  const TwoPcModel m(n, complete);
+  if (!dedup_args_ok(m, *args) || args->s.ohi == nullptr ||
+      args->s.olo == nullptr)
     return (int)cudaErrorInvalidValue;
-  return launch_dedup_step(m, d);
+  return launch_dedup_step<TwoPcModel, true>(m, *args);
 }
 
 // The owner-side probe of the received lanes against this rank's slice.

@@ -1,9 +1,11 @@
 // Device code shared by the step kernels of fused_step.cu and
 // sharded_step.cu: the constants, the StepArgs layout, the fingerprint,
 // the warp-aggregated counters, the 4-slot bucket probe/claim and K1,
-// the expand kernel. Each .cu file includes it and is built on its own
-// into its own library (ops/_cuda.py), so everything here has internal
-// linkage.
+// the expand kernel (with a compile-time symmetry flag: the symmetric
+// instantiation keys each child on the fingerprint of its canonical
+// representative and writes the child's own fingerprint beside it).
+// Each .cu file includes it and is built on its own into its own library
+// (ops/_cuda.py), so everything here has internal linkage.
 #pragma once
 
 #include <cstdint>
@@ -55,8 +57,10 @@ struct StepArgs {
   uint32_t* ebits_out;       // [F]
   uint8_t* terminal;         // [F]
   uint32_t* flat;            // [F*A, W]
-  uint32_t* chi;             // [F*A]
+  uint32_t* chi;             // [F*A] dedup keys (canonical under symmetry)
   uint32_t* clo;
+  uint32_t* ohi;             // [F*A] the children's own fingerprints
+  uint32_t* olo;             //       (written by the symmetric step only)
   uint8_t* cvalid;           // [F*A]
   uint8_t* dvalid;
   uint8_t* inserted;
@@ -158,7 +162,12 @@ __device__ int probe_claim(unsigned long long* keys, long long n_buckets,
   return PROBE_OVF;
 }
 
-template <class M>
+// K1. SYM = false: chi/clo = fp64(child), ohi/olo untouched. SYM = true:
+// chi/clo = fp64(m.canon(child)), the key every later kernel dedups on,
+// and ohi/olo = fp64(child), the original state's fingerprint the log
+// keeps; flat stays the original child and the properties are evaluated
+// on the original frontier rows either way.
+template <class M, bool SYM>
 __global__ void expand_kernel(M m, StepArgs a) {
   const long long tid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   const long long nthreads = (long long)gridDim.x * blockDim.x;
@@ -190,7 +199,17 @@ __global__ void expand_kernel(M m, StepArgs a) {
         for (int i = 0; i < M::W; ++i) a.flat[lane * M::W + i] = s[i];
       }
       uint32_t hi, lo;
-      fp64<M::W>(s, hi, lo);
+      if constexpr (SYM) {
+        uint32_t c[M::W];
+        m.canon(s, c);
+        fp64<M::W>(c, hi, lo);
+        uint32_t ohi, olo;
+        fp64<M::W>(s, ohi, olo);
+        a.ohi[lane] = ohi;
+        a.olo[lane] = olo;
+      } else {
+        fp64<M::W>(s, hi, lo);
+      }
       a.chi[lane] = hi;
       a.clo[lane] = lo;
       const bool cv = v && fv;

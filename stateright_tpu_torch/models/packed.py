@@ -13,6 +13,10 @@ The host/device contract (checked by :func:`validate_packed_model`):
     ``{encode(t) for t in next_states(s)}``;
   * ``packed_properties(encode(s))[i] == properties()[i].condition(self, s)``.
 
+A model that supports symmetry reduction on the device also defines
+``packed_representative(words)``: the canonical rows of a ``[F, W]``
+batch, bit-exact with ``encode(representative(s))``.
+
 On the card the engine does not call the torch methods: the step kernel
 evaluates the model's CUDA device functions (``csrc/<name>.cuh``), named
 by :meth:`PackedModel.cuda_spec`. The torch methods are their plain
@@ -72,9 +76,12 @@ class PackedModel(Model):
         """``bool[F, P]`` in ``self.properties()`` order."""
         raise NotImplementedError
 
-    def cuda_spec(self) -> Tuple[str, Tuple[int, ...]]:
+    def cuda_spec(self, symmetry: bool = False
+                  ) -> Tuple[str, Tuple[int, ...]]:
         """``(model name, integer parameters)`` of the CUDA device
-        functions the step kernel is instantiated with."""
+        functions the step kernel is instantiated with; ``symmetry``
+        asks for the ones of the symmetric step, which also canonicalize
+        each child as ``packed_representative`` does."""
         raise NotImplementedError(
             f"{type(self).__name__} has no CUDA device functions; the "
             "GPU step kernel supports TwoPhaseSys in this slice")

@@ -4,13 +4,16 @@ A copy of ``stateright_tpu/models/twopc.py`` (the same protocol as the
 Rust ``stateright`` crate's ``examples/2pc.rs``): N resource managers
 (RMs) and one transaction manager (TM) exchange messages through a
 persistent message set. Oracle counts: 3 RMs -> 288 unique states,
-5 RMs -> 8,832, 7 RMs -> 296,448.
+5 RMs -> 8,832, 7 RMs -> 296,448; under RM-permutation symmetry with
+``complete_symmetry=True`` 5 RMs -> 314 orbits, 7 -> 920, 16 -> 21,335.
 
 The whole state packs into 4 uint32 words (RM states as 2-bit fields, TM
 state, a prepared bitmask and a message bitset). The packed side is
 written twice: in torch here (the plain version, vectorised over the
 frontier) and as CUDA device functions in ``csrc/twopc.cuh`` (what the
-step kernel runs). Symmetry reduction is not ported.
+step kernel runs). So is the representative under RM permutation:
+:meth:`TwoPhaseSys.packed_representative` in torch, ``canon`` in
+``csrc/twopc.cuh``.
 
 State (host view): ``(rm_state, tm_state, tm_prepared, msgs)`` where
 ``rm_state`` is a tuple of per-RM codes, ``tm_prepared`` a tuple of 0/1 and
@@ -25,6 +28,7 @@ from typing import List, Tuple
 import numpy as np
 import torch
 
+from ..checker.representative import RewritePlan
 from ..core import Expectation, Property
 from ..ops.words import M32, u64
 from .packed import PackedModel
@@ -47,22 +51,37 @@ _CUDA_PROPERTIES = (("abort agreement", Expectation.SOMETIMES),
 class TwoPhaseSys(PackedModel):
     packed_width = 4
 
-    def __init__(self, n: int):
+    def __init__(self, n: int, complete_symmetry: bool = False):
+        """``complete_symmetry=True`` swaps the reference's sort-by-RM-
+        state representative (``2pc.rs:165-182``: ties broken by original
+        position, so a reduced count depends on the order the engine
+        explores in) for an orbit-invariant one that sorts the complete
+        per-RM record (state, prepared bit, Prepared-message bit). Every
+        engine then reduces to exactly the orbit partition: 314 classes
+        at n=5."""
         if not 1 <= n <= 16:
             raise ValueError("packed 2pc supports 1 to 16 RMs")
         self.n = n
+        self.complete_symmetry = bool(complete_symmetry)
         self.max_actions = 2 + 5 * n
 
     def cache_key(self):
-        return ("twopc", self.n)
+        return ("twopc", self.n, self.complete_symmetry)
 
-    def cuda_spec(self):
+    def cuda_spec(self, symmetry: bool = False):
         """The kernel runs ``csrc/twopc.cuh``: TwoPhaseSys's own packed
-        step, encoding and three properties. A subclass that changes any
-        of them would get TwoPhaseSys's verdicts from the card, so it is
-        refused here (its plain version still runs on the CPU)."""
+        step, encoding and three properties, and under ``symmetry`` its
+        own representative (``canon``, the mode of
+        ``complete_symmetry``). A subclass that changes any of them would
+        get TwoPhaseSys's verdicts from the card, so it is refused here
+        (its plain version still runs on the CPU). Returns the kernel's
+        name and integer parameters: ``(n,)``, or under ``symmetry``
+        ``(n, complete)``."""
         cls = type(self)
-        for name in ("packed_step", "packed_properties", "encode"):
+        overridable = ("packed_step", "packed_properties", "encode")
+        if symmetry:
+            overridable += ("packed_representative", "representative")
+        for name in overridable:
             if getattr(cls, name) is not getattr(TwoPhaseSys, name):
                 raise NotImplementedError(
                     f"{cls.__name__} overrides {name}; the CUDA step "
@@ -76,6 +95,8 @@ class TwoPhaseSys(PackedModel):
                 "shape; the CUDA step kernel evaluates TwoPhaseSys's "
                 f"{[name for name, _ in _CUDA_PROPERTIES]} "
                 "(csrc/twopc.cuh)")
+        if symmetry:
+            return "twopc", (self.n, int(self.complete_symmetry))
         return "twopc", (self.n,)
 
     # ------------------------------------------------------------------
@@ -145,6 +166,25 @@ class TwoPhaseSys(PackedModel):
                                   and any(r == COMMITTED for r in s[0]))),
         ]
 
+    def representative(self, state: State) -> State:
+        """Canonical member under RM-permutation symmetry: the
+        reference's sort-by-RM-state (``2pc.rs:165-182``), or the
+        orbit-invariant complete-record sort under
+        ``complete_symmetry``."""
+        rm_state, tm_state, tm_prepared, msgs = state
+        if self.complete_symmetry:
+            keys = [(rm_state[i], tm_prepared[i],
+                     1 if i in msgs else 0) for i in range(self.n)]
+            plan = RewritePlan.from_values_to_sort(keys)
+        else:
+            plan = RewritePlan.from_values_to_sort(rm_state)
+        return (
+            tuple(plan.reindex(rm_state)),
+            tm_state,
+            tuple(plan.reindex(tm_prepared)),
+            frozenset(plan.rewrite(m) if m < 16 else m for m in msgs),
+        )
+
     def format_action(self, action) -> str:
         return action[0] + (f"({action[1]})" if len(action) > 1 else "")
 
@@ -170,6 +210,29 @@ class TwoPhaseSys(PackedModel):
         tm_prepared = tuple((prep >> i) & 1 for i in range(self.n))
         msgs = frozenset(m for m in range(18) if msgw & (1 << m))
         return (rm_state, tm_state, tm_prepared, msgs)
+
+    def packed_representative(self, words):
+        """Canonical rows of a ``[F, 4]`` batch under RM permutation
+        (int64 values): a stable sort of the per-RM (state, prepared,
+        message) triples by RM state (bit-exact with the reference-style
+        :meth:`representative`), or by the packed complete record
+        ``state*4 + prepared*2 + message`` (the host's tuple order) under
+        ``complete_symmetry``. Message bits ``>= n`` (Commit, Abort) pass
+        through. The JAX package's counterpart canonicalizes one row;
+        this one a batch."""
+        w = u64(words)
+        n = self.n
+        idx = torch.arange(n, dtype=torch.int64, device=w.device)
+        r = (w[:, 0:1] >> (2 * idx)) & 3
+        p = (w[:, 2:3] >> idx) & 1
+        m = (w[:, 3:4] >> idx) & 1  # message bit i: RM i sent Prepared
+        key = (r << 2) | (p << 1) | m if self.complete_symmetry else r
+        order = torch.sort(key, dim=1, stable=True).indices
+        r, p, m = (x.gather(1, order) for x in (r, p, m))
+        rest = w[:, 3] & (~((1 << n) - 1) & M32)
+        return torch.stack([(r << (2 * idx)).sum(1), w[:, 1],
+                            (p << idx).sum(1), (m << idx).sum(1) | rest],
+                           dim=1)
 
     def packed_step(self, words):
         """Successors of a ``[F, 4]`` batch. Action lanes, in order:

@@ -39,9 +39,12 @@ _NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 #: kernel launches per wrapper: ``fused_step`` (K1-K3 of one step),
 #: ``table_insert`` (K4), ``fused_step_noprobe`` (K1 + K5 of one
-#: probe-free step) and ``probe_block`` (K6)
+#: probe-free step), ``probe_block`` (K6), and the symmetric steps
+#: ``fused_step_sym`` and ``fused_step_noprobe_sym`` (the same kernels
+#: with K1's symmetric instantiation)
 LAUNCHES = {"fused_step": 0, "table_insert": 0, "fused_step_noprobe": 0,
-            "probe_block": 0}
+            "probe_block": 0, "fused_step_sym": 0,
+            "fused_step_noprobe_sym": 0}
 
 #: ``{"seconds": build time, "log": nvcc/ptxas output of every source,
 #: "path": {library name: path}}``
@@ -66,7 +69,8 @@ class StepArgs(ctypes.Structure):
         ("always_mask", _u), ("sometimes_mask", _u), ("ev_mask", _u),
         ("step", _u),
         ("pbits", _p), ("ebits_out", _p), ("terminal", _p), ("flat", _p),
-        ("chi", _p), ("clo", _p), ("cvalid", _p), ("dvalid", _p),
+        ("chi", _p), ("clo", _p), ("ohi", _p), ("olo", _p),
+        ("cvalid", _p), ("dvalid", _p),
         ("inserted", _p), ("lane_slot", _p), ("stats", _p),
         ("keys", _p), ("n_buckets", _ll), ("max_rounds", _i), ("cc", _i),
         ("owner", _p), ("stamp", _p), ("ring", _p), ("ring_arena", _p),
@@ -104,17 +108,21 @@ class ProbeArgs(ctypes.Structure):
         ("stats", _p), ("stream", _p),
     ]
 
-#: per library: (C entry, argument struct, its size function, whether
-#: the entry takes the model parameter) of each kernel
+#: per library: (C entry, argument struct, its size function, the
+#: number of int parameters after the struct: the model's) of each kernel
 _ENTRIES = {
     "fused_step": [("srt_fused_step_twopc", StepArgs, "srt_step_args_size",
-                    True),
+                    1),
+                   ("srt_fused_step_twopc_sym", StepArgs,
+                    "srt_step_args_size", 2),
                    ("srt_table_insert", InsertArgs, "srt_insert_args_size",
-                    False)],
+                    0)],
     "sharded_step": [("srt_dedup_step_twopc", DedupArgs,
-                      "srt_dedup_args_size", True),
+                      "srt_dedup_args_size", 1),
+                     ("srt_dedup_step_twopc_sym", DedupArgs,
+                      "srt_dedup_args_size", 2),
                      ("srt_probe_block", ProbeArgs, "srt_probe_args_size",
-                      False)],
+                      0)],
 }
 
 
@@ -174,9 +182,9 @@ def build() -> dict:
     libs = {}
     for name, path in paths.items():
         lib = ctypes.CDLL(str(path))
-        for entry, struct, size_name, with_n in _ENTRIES[name]:
+        for entry, struct, size_name, n_params in _ENTRIES[name]:
             fn = getattr(lib, entry)
-            fn.argtypes = [ctypes.POINTER(struct)] + ([_i] if with_n else [])
+            fn.argtypes = [ctypes.POINTER(struct)] + [_i] * n_params
             fn.restype = _i
             size_fn = getattr(lib, size_name)
             size_fn.argtypes = []
@@ -210,12 +218,13 @@ def _raise_on(err: int, what: str) -> None:
 
 
 def _step_args(model, frontier, ebits, fvalid, phi, plo, ring, ws,
-               stats_len: int):
+               stats_len: int, symmetry: bool):
     """Check K1's inputs, allocate the step's outputs and fill the
     table-free fields of a ``StepArgs``; returns ``(params, outputs,
-    lane_slot, args)`` where ``params`` are the model kernel's
-    parameters and ``outputs`` the wrappers' return tuple."""
-    name, params = model.cuda_spec()
+    args)`` where ``params`` are the model kernel's parameters and
+    ``outputs`` the wrappers' return tuple (``ohi``/``olo`` last: new
+    tensors under ``symmetry``, else ``chi``/``clo`` again)."""
+    name, params = model.cuda_spec(symmetry)
     if name != "twopc":
         raise NotImplementedError(f"no CUDA step kernel for {name!r}")
     dev = frontier.device
@@ -252,6 +261,11 @@ def _step_args(model, frontier, ebits, fvalid, phi, plo, ring, ws,
     flat = torch.empty((lanes, w), dtype=torch.int32, device=dev)
     chi = torch.empty((lanes,), dtype=torch.int32, device=dev)
     clo = torch.empty((lanes,), dtype=torch.int32, device=dev)
+    if symmetry:
+        ohi = torch.empty((lanes,), dtype=torch.int32, device=dev)
+        olo = torch.empty((lanes,), dtype=torch.int32, device=dev)
+    else:
+        ohi, olo = chi, clo
     cvalid = torch.empty((lanes,), dtype=torch.bool, device=dev)
     dvalid = torch.empty((lanes,), dtype=torch.bool, device=dev)
     inserted = torch.empty((lanes,), dtype=torch.bool, device=dev)
@@ -267,7 +281,9 @@ def _step_args(model, frontier, ebits, fvalid, phi, plo, ring, ws,
         ev_mask=masks[Expectation.EVENTUALLY], step=ws.step,
         pbits=pbits.data_ptr(), ebits_out=ebits_out.data_ptr(),
         terminal=terminal.data_ptr(), flat=flat.data_ptr(),
-        chi=chi.data_ptr(), clo=clo.data_ptr(), cvalid=cvalid.data_ptr(),
+        chi=chi.data_ptr(), clo=clo.data_ptr(),
+        ohi=ohi.data_ptr() if symmetry else None,
+        olo=olo.data_ptr() if symmetry else None, cvalid=cvalid.data_ptr(),
         dvalid=dvalid.data_ptr(), inserted=inserted.data_ptr(),
         lane_slot=lane_slot.data_ptr(), stats=stats.data_ptr(),
         max_rounds=4096, cc=cc, ring=ring.data_ptr() if cc else None,
@@ -275,15 +291,17 @@ def _step_args(model, frontier, ebits, fvalid, phi, plo, ring, ws,
         disc_cand=ws.disc_cand.data_ptr(),
         stream=torch.cuda.current_stream(dev).cuda_stream)
     outputs = (pbits, ebits_out, terminal, flat, chi, clo, cvalid, dvalid,
-               inserted, stats)
+               inserted, stats, ohi, olo)
     return params, outputs, args
 
 
 def fused_step(model, frontier, ebits, fvalid, phi, plo, table, ring, ws,
-               stats_len: int):
+               stats_len: int, symmetry: bool = False):
     """Launch K1-K3 for one step; returns the output tensors
     ``(pbits, ebits, terminal, flat, chi, clo, cvalid, dvalid, inserted,
-    stats)``. ``table`` and ``ring`` are updated in place."""
+    stats, ohi, olo)``. ``table`` and ``ring`` are updated in place.
+    ``symmetry`` launches the symmetric instantiation (canonical keys in
+    ``chi``/``clo``, the children's own fingerprints in ``ohi``/``olo``)."""
     build()
     lib = _LIB["fused_step"]
     dev = frontier.device
@@ -294,39 +312,52 @@ def fused_step(model, frontier, ebits, fvalid, phi, plo, table, ring, ws,
     ws.check(capacity, 0 if ring is None else ring.shape[0],
              len(model.properties()), dev)
     params, outputs, args = _step_args(model, frontier, ebits, fvalid, phi,
-                                       plo, ring, ws, stats_len)
+                                       plo, ring, ws, stats_len, symmetry)
     args.keys = table.data_ptr()
     args.n_buckets = table.shape[0]
     args.owner = ws.owner.data_ptr()
     args.stamp = ws.stamp.data_ptr()
-    _raise_on(lib.srt_fused_step_twopc(ctypes.byref(args), *params),
-              "fused step")
-    LAUNCHES["fused_step"] += 1
+    if symmetry:
+        _raise_on(lib.srt_fused_step_twopc_sym(ctypes.byref(args), *params),
+                  "symmetric fused step")
+        LAUNCHES["fused_step_sym"] += 1
+    else:
+        _raise_on(lib.srt_fused_step_twopc(ctypes.byref(args), *params),
+                  "fused step")
+        LAUNCHES["fused_step"] += 1
     return outputs
 
 
 def fused_step_noprobe(model, frontier, ebits, fvalid, phi, plo, ring, ws,
-                       block_rows: int, stats_len: int):
+                       block_rows: int, stats_len: int,
+                       symmetry: bool = False):
     """Launch K1 + K5 for one probe-free step; returns the same output
     tuple as :func:`fused_step` with ``inserted`` aliasing ``dvalid``.
     ``ring`` is read only; ``ws`` is a ``DedupWorkspace`` for this
-    step's lanes. Pre-dedup blocks are ``block_rows`` frontier rows."""
+    step's lanes. Pre-dedup blocks are ``block_rows`` frontier rows.
+    ``symmetry`` launches the symmetric instantiation."""
     build()
     lib = _LIB["sharded_step"]
     f = frontier.shape[0]
     lanes = f * model.max_actions
     ws.check(lanes, block_rows * model.max_actions, frontier.device)
     params, outputs, args = _step_args(model, frontier, ebits, fvalid, phi,
-                                       plo, ring, ws, stats_len)
-    outputs = outputs[:8] + (outputs[7], outputs[9])
+                                       plo, ring, ws, stats_len, symmetry)
+    outputs = outputs[:8] + (outputs[7],) + outputs[9:]
     dargs = DedupArgs(
         s=args, pre_arena=ws.pre_arena.data_ptr(),
         block_lanes=block_rows * model.max_actions,
         pre_cells=ws.pre_cells, arena=ws.arena.data_ptr(),
         arena_owner=ws.arena_owner.data_ptr(), cells=ws.arena.shape[0])
-    _raise_on(lib.srt_dedup_step_twopc(ctypes.byref(dargs), *params),
-              "probe-free step")
-    LAUNCHES["fused_step_noprobe"] += 1
+    if symmetry:
+        _raise_on(lib.srt_dedup_step_twopc_sym(ctypes.byref(dargs),
+                                               *params),
+                  "symmetric probe-free step")
+        LAUNCHES["fused_step_noprobe_sym"] += 1
+    else:
+        _raise_on(lib.srt_dedup_step_twopc(ctypes.byref(dargs), *params),
+                  "probe-free step")
+        LAUNCHES["fused_step_noprobe"] += 1
     return outputs
 
 

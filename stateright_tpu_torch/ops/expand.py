@@ -1,9 +1,9 @@
 """Frontier expansion, in-batch dedup and discovery selection in torch.
 
-Counterpart of ``stateright_tpu/ops/expand.py`` without symmetry or
-sound-eventually node keys (neither is ported). These are the plain
-versions of what the step kernel (``csrc/fused_step.cu``) computes; they
-compute in int64 holding uint32 values (``ops/words.py``).
+Counterpart of ``stateright_tpu/ops/expand.py`` without sound-eventually
+node keys (not ported). These are the plain versions of what the step
+kernel (``csrc/fused_step.cu``) computes; they compute in int64 holding
+uint32 values (``ops/words.py``).
 """
 
 from __future__ import annotations
@@ -28,12 +28,17 @@ class Expansion(NamedTuple):
     flat: torch.Tensor      # int64[F*A, W] children (action-major per row)
     avalid: torch.Tensor    # bool[F, A]    per-(row, action) validity
     cvalid: torch.Tensor    # bool[F*A]     child validity
-    chi: torch.Tensor       # int64[F*A]    child fingerprints
-    clo: torch.Tensor
+    chi: torch.Tensor       # int64[F*A]    child fingerprints (canonical
+    clo: torch.Tensor       #               under symmetry reduction)
     phi: torch.Tensor       # int64[F]      frontier fingerprints
-    plo: torch.Tensor
+    plo: torch.Tensor       #               (canonical under symmetry)
     terminal: torch.Tensor  # bool[F]       rows with no valid action
     xovf: torch.Tensor      # bool[]        model encoding overflow
+    # int64[F*A] child ORIGINAL-state fingerprints (chi/clo without
+    # symmetry): recorded so witness paths replay through the states the
+    # search really explored
+    ohi: Optional[torch.Tensor] = None
+    olo: Optional[torch.Tensor] = None
 
 
 def eventually_indices(properties) -> list:
@@ -43,12 +48,17 @@ def eventually_indices(properties) -> list:
 
 def expand_frontier(model, frontier, fvalid, ebits,
                     eventually_idx: Sequence[int],
-                    pfp: Optional[tuple] = None) -> Expansion:
+                    pfp: Optional[tuple] = None,
+                    symmetry: bool = False) -> Expansion:
     """Evaluate properties and expand one frontier batch.
 
     ``pfp`` supplies the frontier fingerprints ``(hi, lo)`` from the
     queue's cache (the engine never re-hashes its frontier); without it
-    they are computed."""
+    they are computed. With ``symmetry`` the fingerprints are taken over
+    ``model.packed_representative`` of each state (dedup works on
+    canonical keys) while the children stay original rows and
+    ``ohi``/``olo`` carry their own fingerprints; properties are
+    evaluated on the original rows."""
     frontier = u64(frontier)
     fcount, width = frontier.shape
     pbits = model.packed_properties(frontier)
@@ -69,13 +79,21 @@ def expand_frontier(model, frontier, fvalid, ebits,
     flat = succ.reshape(-1, width)
     if pfp is not None:
         phi, plo = u64(pfp[0]), u64(pfp[1])
+    elif symmetry:
+        phi, plo = fp64_device(model.packed_representative(frontier))
     else:
         phi, plo = fp64_device(frontier)
-    chi, clo = fp64_device(flat)
+    if symmetry:
+        chi, clo = fp64_device(model.packed_representative(flat))
+        ohi, olo = fp64_device(flat)
+    else:
+        chi, clo = fp64_device(flat)
+        ohi, olo = chi, clo
     terminal = fvalid & ~avalid.any(dim=1)
     return Expansion(pbits=pbits, ebits=ebits, flat=flat, avalid=avalid,
                      cvalid=avalid.reshape(-1), chi=chi, clo=clo,
-                     phi=phi, plo=plo, terminal=terminal, xovf=xovf)
+                     phi=phi, plo=plo, terminal=terminal, xovf=xovf,
+                     ohi=ohi, olo=olo)
 
 
 def pre_dedup(chi, clo, cvalid):
@@ -127,18 +145,24 @@ def discovery_candidates(properties, exp: Expansion, fvalid,
     return hit, whi[k], wlo[k]
 
 
-def assemble_candidates(rows_k, ebits_k, s_chi, s_clo, pw_hi, pw_lo):
+def assemble_candidates(rows_k, ebits_k, s_chi, s_clo, pw_hi, pw_lo,
+                        o_hi=None, o_lo=None):
     """The candidate-matrix column layout, from per-lane columns:
 
       [packed row (0..W-1) | child ebits (W) | state fp hi/lo (W+1, W+2)
-       | parent fp hi/lo (W+3, W+4)]
+       | parent fp hi/lo (W+3, W+4) | original fp hi/lo (W+5, W+6)]
 
-    so the queue block is ``[:, :W+3]`` and the log block (child fp,
-    parent fp) the slice ``[:, W+1:W+5]``. Columns are int32 bit
-    patterns; returns ``(cand, log_off)``."""
+    the last two only when ``o_hi``/``o_lo`` are given (symmetry
+    reduction: the state fp is the canonical key, the original fp the
+    enqueued row's own). The queue block is ``[:, :W+3]`` and the log
+    block (child fp, parent fp[, original fp]) the slice from
+    ``log_off``. Columns are int32 bit patterns; returns
+    ``(cand, log_off)``."""
     width = rows_k.shape[1]
     cols = [rows_k, ebits_k[:, None], s_chi[:, None], s_clo[:, None],
             pw_hi[:, None], pw_lo[:, None]]
+    if o_hi is not None:
+        cols += [o_hi[:, None], o_lo[:, None]]
     cand = torch.cat([c.to(torch.int32) for c in cols], dim=1)
     return cand, width + 1
 

@@ -3,9 +3,12 @@ and the sharded engine's owner-side probe.
 
 Counterpart of ``stateright_tpu/ops/fused.py`` in the configurations the
 port's engines run: ``build_fused_block_fn`` with ``probe=True``
-(single chip: properties in the kernel, cross-chunk ring on, no
-symmetry) and with ``probe=False`` (the sharded step: no table, the ring
-read only), and ``build_probe_block_fn`` (:func:`probe_block`).
+(single chip: properties in the kernel, cross-chunk ring on) and with
+``probe=False`` (the sharded step: no table, the ring read only), each
+with and without ``symmetry`` (dedup on the fingerprint of
+``packed_representative`` of each child, the original fingerprint kept
+in ``ohi``/``olo`` for the log), and ``build_probe_block_fn``
+(:func:`probe_block`).
 
 :func:`fused_step` is the wrapper: for CUDA tensors it launches the
 hand-written kernels of ``csrc/fused_step.cu`` (expand, claim, commit)
@@ -17,7 +20,10 @@ to block, lane for lane equal to the Pallas kernel on the CPU. With
 ``probe=False`` the wrapper launches the probe-free kernels of
 ``csrc/sharded_step.cu`` (expand, in-block pre-dedup, ring probe,
 step-wide dedup) instead; the plain version runs the same blocks without
-the table insert and the ring update.
+the table insert and the ring update. With ``symmetry=True`` the
+wrappers launch the symmetric instantiations of the same kernels (the
+expand kernel also canonicalizes and hashes each child twice); the plain
+version runs ``expand_frontier(symmetry=True)`` over the same blocks.
 
 Both update the visited table and the ring IN PLACE (the carried buffers
 are the engine's; a functional copy would move the whole table every
@@ -77,22 +83,16 @@ class FusedOut(NamedTuple):
     ebits: torch.Tensor     # int32[F]   eventually-bits after clearing
     terminal: torch.Tensor  # bool[F]    rows with no valid action
     flat: torch.Tensor      # int32[F*A, W] children (action-major)
-    chi: torch.Tensor       # int32[F*A] child fingerprint halves
-    clo: torch.Tensor
+    chi: torch.Tensor       # int32[F*A] child fingerprint halves (the
+    clo: torch.Tensor       #            canonical key under symmetry)
     cvalid: torch.Tensor    # bool[F*A]  valid child lanes
     dvalid: torch.Tensor    # bool[F*A]  lanes that reached the table
     inserted: torch.Tensor  # bool[F*A]  fresh-key lanes, one per key
     stats: torch.Tensor     # int32[7 + 3P] (S_* layout)
-
-    @property
-    def ohi(self):
-        """Original-state fingerprints: the same as ``chi`` without
-        symmetry reduction."""
-        return self.chi
-
-    @property
-    def olo(self):
-        return self.clo
+    # int32[F*A] the children's own (original-state) fingerprints: the
+    # same tensors as chi/clo without symmetry reduction
+    ohi: Optional[torch.Tensor] = None
+    olo: Optional[torch.Tensor] = None
 
 
 def supports(model, *, sound: bool, host_props: bool) -> Optional[str]:
@@ -152,7 +152,8 @@ def property_masks(model) -> dict:
 
 
 def fused_step(model, frontier, ebits, fvalid, phi, plo, table,
-               ring=None, ws=None, probe: bool = True) -> FusedOut:
+               ring=None, ws=None, probe: bool = True,
+               symmetry: bool = False) -> FusedOut:
     """One fused step over ``frontier`` (int32 ``[F, W]``, any row
     stride; ``ebits``/``phi``/``plo`` int32 ``[F]``, the queue's cached
     eventually-bits and fingerprints; ``fvalid`` bool ``[F]``) against
@@ -163,7 +164,11 @@ def fused_step(model, frontier, ebits, fvalid, phi, plo, table,
     omitted); CPU tensors run :func:`fused_step_reference`.
 
     ``probe=False`` is the sharded engine's step: no table (``table`` is
-    ignored), the ring read only, ``inserted`` aliasing ``dvalid``."""
+    ignored), the ring read only, ``inserted`` aliasing ``dvalid``.
+    ``symmetry=True`` dedups on the fingerprints of
+    ``model.packed_representative`` of the children (``chi``/``clo``;
+    ``phi``/``plo`` are then the frontier's canonical fingerprints) and
+    returns the children's own in ``ohi``/``olo``."""
     if frontier.is_cuda and not probe:
         from . import _cuda
         fb = _block_rows(frontier.shape[0])
@@ -174,7 +179,7 @@ def fused_step(model, frontier, ebits, fvalid, phi, plo, table,
                                 len(model.properties()), frontier.device)
         return FusedOut(*_cuda.fused_step_noprobe(
             model, frontier, ebits, fvalid, phi, plo, ring, ws, fb,
-            stats_len(model)))
+            stats_len(model), symmetry))
     if frontier.is_cuda:
         from . import _cuda
         if ws is None:
@@ -183,9 +188,9 @@ def fused_step(model, frontier, ebits, fvalid, phi, plo, table,
                                len(model.properties()), frontier.device)
         return FusedOut(*_cuda.fused_step(
             model, frontier, ebits, fvalid, phi, plo, table, ring, ws,
-            stats_len(model)))
+            stats_len(model), symmetry))
     return fused_step_reference(model, frontier, ebits, fvalid, phi, plo,
-                                table, ring, probe=probe)
+                                table, ring, probe=probe, symmetry=symmetry)
 
 
 class StepWorkspace:
@@ -248,11 +253,13 @@ class DedupWorkspace:
 
 
 def fused_step_reference(model, frontier, ebits, fvalid, phi, plo, table,
-                         ring=None, probe: bool = True) -> FusedOut:
+                         ring=None, probe: bool = True,
+                         symmetry: bool = False) -> FusedOut:
     """The plain version of :func:`fused_step` (any device): the JAX
     package's fused block math, block by block. ``probe=False`` skips
     the table insert and the ring update, so every block reads the ring
-    as it stood when the step began."""
+    as it stood when the step began; ``symmetry`` expands with
+    ``expand_frontier(symmetry=True)``."""
     f, width = frontier.shape
     properties = model.properties()
     n_props = len(properties)
@@ -269,7 +276,8 @@ def fused_step_reference(model, frontier, ebits, fvalid, phi, plo, table,
         rows = slice(b, b + fb)
         fv = fvalid[rows]
         exp = expand_frontier(model, frontier[rows], fv, ebits[rows],
-                              ev_idx, pfp=(phi[rows], plo[rows]))
+                              ev_idx, pfp=(phi[rows], plo[rows]),
+                              symmetry=symmetry)
         dvalid = pre_dedup(exp.chi, exp.clo, exp.cvalid)
         if ring is not None:
             # an exact ring match is a key an earlier step (or block)
@@ -296,7 +304,8 @@ def fused_step_reference(model, frontier, ebits, fvalid, phi, plo, table,
         ovf |= b_ovf
         rounds += b_rounds
         parts.append((exp.pbits, exp.ebits, exp.terminal, exp.flat,
-                      exp.chi, exp.clo, exp.cvalid, dvalid, inserted))
+                      exp.chi, exp.clo, exp.cvalid, dvalid, inserted,
+                      exp.ohi, exp.olo))
     cols = [torch.cat(c) for c in zip(*parts)]
     pbits = cols[0] if n_props else torch.zeros((f, 1), dtype=torch.bool,
                                                   device=dev)
@@ -306,10 +315,12 @@ def fused_step_reference(model, frontier, ebits, fvalid, phi, plo, table,
          int(dvalid.sum()), int(inserted.sum())], dtype=torch.int64,
         device=dev)
     stats = u32(torch.cat([scalars, d_hit.to(torch.int64), d_hi, d_lo]))
+    chi, clo = u32(cols[4]), u32(cols[5])
+    ohi, olo = (u32(cols[9]), u32(cols[10])) if symmetry else (chi, clo)
     return FusedOut(pbits=pbits, ebits=u32(cols[1]), terminal=cols[2],
-                    flat=u32(cols[3]), chi=u32(cols[4]), clo=u32(cols[5]),
+                    flat=u32(cols[3]), chi=chi, clo=clo,
                     cvalid=cvalid, dvalid=dvalid, inserted=inserted,
-                    stats=stats)
+                    stats=stats, ohi=ohi, olo=olo)
 
 
 def probe_block(table, fhi, flo, valid, ws: "Optional[StepWorkspace]" = None,

@@ -10,7 +10,9 @@ the candidate buffers after an abort (``kovf``), grows every slice when
 one fills, and at the end gathers every rank's log, so each rank's
 checker answers ``unique_state_count()``, ``generated_fingerprints()``
 and ``discoveries()`` the same way. The mirror is the init states, then
-each rank's log in rank order (the JAX engine's shard order).
+each rank's log in rank order (the JAX engine's shard order); under
+symmetry reduction the logs carry each canonical key's original
+fingerprint, so every rank also holds the same ``_orig_of``.
 
 What the JAX engine offers beyond that path raises ``NotImplementedError``
 (through ``GpuChecker``'s guards, or here): the degrade/promote ladder,
@@ -22,13 +24,11 @@ from __future__ import annotations
 
 import time
 
-import numpy as np
 import torch
 
 from ..checker.builder import CheckerBuilder
 from ..checker.gpu import GpuChecker, auto_fmax, candidate_sizes
 from ..ops.expand import eventually_indices
-from ..ops.words import to_numpy_u32
 from .collectives import AxisGroup
 from .sharded import (ShardedStats, StepSizes, owner_bits, owner_of,
                       rebuild_table, route_init, run_sharded_loop,
@@ -109,7 +109,8 @@ class ShardedGpuChecker(GpuChecker):
         q = torch.zeros((qloc, carry.q.shape[1]), dtype=torch.int32,
                         device=dev)
         q[:carry.q_tail] = carry.q[:carry.q_tail]
-        log = torch.zeros((closc, 4), dtype=torch.int32, device=dev)
+        log = torch.zeros((closc, carry.log.shape[1]), dtype=torch.int32,
+                          device=dev)
         log[:carry.log_n] = carry.log[:carry.log_n]
         carry.q, carry.log = q, log
         ovf = rebuild_table(carry, closc)
@@ -154,7 +155,8 @@ class ShardedGpuChecker(GpuChecker):
                                   sizes.headroom, d)
         carry = seed_sharded_carry(model, d, grp.rank, qcap, self._capacity,
                                    init_rows, self._base_fps, full_ebits,
-                                   self._cc, self._device)
+                                   self._cc, self._device,
+                                   symmetry=self._symmetry)
         # everything known at seed time, on its owner (re-inserted on
         # growth: the log only records states found since)
         self._owned_base_fps = [fp for fp in self._base_fps
@@ -252,18 +254,14 @@ class ShardedGpuChecker(GpuChecker):
 
     # --- the search record ---------------------------------------------
     def _ensure_mirror(self) -> None:
-        """Add every rank's (child fp, parent fp) rows to the host mirror,
-        in rank order."""
+        """Add every rank's log rows to the host mirror (and
+        ``_orig_of``), in rank order."""
         if self._logs is None:
             return
         logs, self._logs = self._logs, None
         t0 = time.perf_counter()
         for rows in logs:
-            if not rows.shape[0]:
-                continue
-            r = to_numpy_u32(rows).astype(np.uint64)
-            child = (r[:, 0] << np.uint64(32)) | r[:, 1]
-            parent = (r[:, 2] << np.uint64(32)) | r[:, 3]
-            self._generated.update(zip(child.tolist(), parent.tolist()))
+            if rows.shape[0]:
+                self._mirror_rows(rows)
         self._unique_state_count = len(self._generated)
         self._profile["mirror_s"] = time.perf_counter() - t0

@@ -7,7 +7,10 @@ ownership over one DeviceMesh dimension of ``D`` ranks.
   * Each rank owns a ``1/D`` slice of the append-only queue, the visited
     table and the (child fp, parent fp) log. A state is owned by the rank
     selected by the top ``log2 D`` bits of its fingerprint's hi word, so
-    it is deduplicated and expanded by one rank only.
+    it is deduplicated and expanded by one rank only. Under symmetry
+    reduction that fingerprint is the canonical key, the exchanged lanes
+    carry the child's original fingerprint too, and the log keeps it in
+    two more columns.
   * Each iteration every rank takes up to ``fmax`` pending rows and runs
     the probe-free step (``ops/fused.py`` ``fused_step(probe=False)``:
     expand, fingerprint, properties, in-batch dedup, the read-only
@@ -119,8 +122,8 @@ class ShardedCarry:
     q_tail: int
     table: torch.Tensor      # int64[closc/4, 4] visited-table slice
     ring: Optional[torch.Tensor]  # int64[cc] recent-key ring, or None
-    log: torch.Tensor        # int32[closc, 4] (child fp, parent fp)
-    log_n: int
+    log: torch.Tensor        # int32[closc, 4 or 6] (child fp, parent fp
+    log_n: int               # [, child original fp] under symmetry)
     disc_hit: np.ndarray     # bool[P]
     disc_fp: np.ndarray      # uint64[P]
     ovf: bool = False        # table probe overflow (any rank)
@@ -128,6 +131,7 @@ class ShardedCarry:
     kovf: bool = False       # candidate overflow: iteration aborted
     probe_ws: Optional[StepWorkspace] = None  # K6 state (CUDA only)
     dedup_ws: Dict[int, DedupWorkspace] = field(default_factory=dict)
+    symmetry: bool = False   # dedup on packed_representative keys
 
 
 @dataclass
@@ -200,10 +204,11 @@ def route_init(fps, d: int) -> List[List[int]]:
 
 def seed_sharded_carry(model, d: int, rank: int, qcap: int, capacity: int,
                        init_rows, init_fps, full_ebits: int, cc: int,
-                       device) -> ShardedCarry:
+                       device, symmetry: bool = False) -> ShardedCarry:
     """This rank's initial slice: the init states it owns enqueued (with
-    their cached fingerprints), an empty table slice, log and ring. The
-    caller inserts the init fingerprints the rank owns."""
+    their cached fingerprints, canonical under ``symmetry``), an empty
+    table slice, log (6 columns under ``symmetry``) and ring. The caller
+    inserts the init fingerprints the rank owns."""
     width = model.packed_width
     qloc, closc = qcap // d, capacity // d
     q = torch.zeros((qloc, width + 3), dtype=torch.int32, device=device)
@@ -224,11 +229,12 @@ def seed_sharded_carry(model, d: int, rank: int, qcap: int, capacity: int,
         q=q, q_head=0, q_tail=len(mine), table=table,
         ring=(torch.zeros((cc,), dtype=torch.int64, device=device)
               if cc else None),
-        log=torch.zeros((closc, 4), dtype=torch.int32, device=device),
+        log=torch.zeros((closc, 6 if symmetry else 4), dtype=torch.int32,
+                        device=device),
         log_n=0, disc_hit=np.zeros(n_props, bool),
         disc_fp=np.zeros(n_props, np.uint64),
         probe_ws=(StepWorkspace(closc, 0, 0, device)
-                  if table.is_cuda else None))
+                  if table.is_cuda else None), symmetry=symmetry)
 
 
 def rebuild_table(carry: ShardedCarry, capacity_local: int) -> torch.Tensor:
@@ -288,7 +294,7 @@ def sharded_step_once(model, carry: ShardedCarry, grp, sizes: StepSizes,
                 n_props, dev)
     out = fused_step(model, block[:, :width], block[:, width], fvalid,
                      block[:, width + 1], block[:, width + 2], None,
-                     carry.ring, ws, probe=False)
+                     carry.ring, ws, probe=False, symmetry=carry.symmetry)
     st = out.stats.to(torch.int64)
     hit_l = st[S_DISC:S_DISC + n_props] != 0
     d_hi = u64(out.stats[S_DISC + n_props:S_DISC + 2 * n_props])
@@ -329,10 +335,12 @@ def sharded_step_once(model, carry: ShardedCarry, grp, sizes: StepSizes,
         src = torch.arange(lanes, device=dev)
         kvalid = out.dvalid
     ridx = src // n_actions
+    orig = (out.ohi[src], out.olo[src]) if carry.symmetry else (None, None)
     cand, log_off = assemble_candidates(
         out.flat[src], out.ebits[ridx], out.chi[src], out.clo[src],
-        block[:, width + 1][ridx], block[:, width + 2][ridx])
+        block[:, width + 1][ridx], block[:, width + 2][ridx], *orig)
     cols = cand.shape[1]
+    log_w = carry.log.shape[1]
     owner = owner_rank(cand[:, log_off], kbits)
     carry.q_head = h + take
 
@@ -392,7 +400,7 @@ def sharded_step_once(model, carry: ShardedCarry, grp, sizes: StepSizes,
             new = rows[sidx[:c]]
             carry.q[carry.q_tail:carry.q_tail + c] = new[:, :width + 3]
             carry.log[carry.log_n:carry.log_n + c] = \
-                new[:, log_off:log_off + 4]
+                new[:, log_off:log_off + log_w]
             carry.q_tail += c
             carry.log_n += c
     carry.ovf |= pm2_h[3] > 0

@@ -215,6 +215,107 @@ def test_sharded_engine_on_card_matches_plain_path():
                for k in ("fused_step_noprobe", "probe_block"))
 
 
+SYM_CASES = [(complete, probe) for complete in (False, True)
+             for probe in (True, False)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize(
+    "complete,probe", SYM_CASES,
+    ids=[f"{'complete' if c else 'reference'}-{'probe' if p else 'noprobe'}"
+         for c, p in SYM_CASES])
+def test_symmetric_steps_match_plain_versions_on_card(complete, probe):
+    """The symmetric step entry points (K1's symmetric instantiation with
+    K2/K3, or with K5) against their plain versions at 2pc n=5, 512
+    rows: lane-exact successors, canonical and original fingerprints,
+    validity and property bits; the same inserted (or kept) key set,
+    one lane per key, the lowest; the same table and discoveries."""
+    _need_card()
+    from stateright_tpu_torch.ops import _cuda
+    from stateright_tpu_torch.ops.fused import (S_CCH, S_DISC, S_VALID,
+                                                S_XOVF, fused_step,
+                                                fused_step_reference)
+    from stateright_tpu_torch.ops.hash_kernel import fp64_device
+    from stateright_tpu_torch.ops.hashtable import make_table
+    from stateright_tpu_torch.ops.words import from_numpy_u32, pack64
+    model = TwoPhaseSys(5, complete_symmetry=complete)
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(7 + complete)
+    states = _reachable(model)
+    rows = np.stack([model.encode(states[i])
+                     for i in rng.integers(0, len(states), 512)])
+    block = from_numpy_u32(rows, dev)
+    phi, plo = (x.to(torch.int32) for x in
+                fp64_device(model.packed_representative(block)))
+    ebits = torch.zeros((512,), dtype=torch.int32, device=dev)
+    fvalid = torch.from_numpy(rng.random(512) < 0.9).to(dev)
+    out = {}
+    launches = dict(_cuda.LAUNCHES)
+    for name, fn in (("kernel", fused_step), ("plain", fused_step_reference)):
+        table = make_table(1 << 14, dev)
+        ring = torch.zeros((1 << 10,), dtype=torch.int64, device=dev)
+        res = fn(model, block, ebits, fvalid, phi, plo, table, ring,
+                 probe=probe, symmetry=True)
+        out[name] = (res, sorted(table[table != 0].tolist()))
+    key = "fused_step_sym" if probe else "fused_step_noprobe_sym"
+    assert _cuda.LAUNCHES[key] == launches[key] + 1
+    (k, kt), (p, pt) = out["kernel"], out["plain"]
+    for name in ("flat", "chi", "clo", "ohi", "olo", "cvalid", "pbits",
+                 "ebits", "terminal"):
+        assert torch.equal(getattr(k, name), getattr(p, name)), name
+    assert not torch.equal(k.chi, k.ohi)  # keys are canonical
+    for i in (S_XOVF, S_VALID) + (() if probe else (S_CCH,)):
+        assert int(k.stats[i]) == int(p.stats[i])
+    assert torch.equal(k.stats[S_DISC:], p.stats[S_DISC:])
+    keys = pack64(k.chi, k.clo)
+    kk = keys[k.inserted].tolist()
+    assert set(kk) == set(keys[p.inserted].tolist())
+    assert len(kk) == len(set(kk))
+    assert kt == pt
+    live = k.dvalid if probe else k.cvalid
+    for lane in torch.nonzero(k.inserted).flatten().tolist():
+        assert lane == int(torch.nonzero(live & (keys == keys[lane]))
+                           .flatten().min())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("complete", [False, True],
+                         ids=["reference", "complete"])
+def test_symmetric_engine_on_card(complete):
+    """2pc n=5 under symmetry on the card: the complete representative
+    gives the 314 orbits and the plain path's canonical keys; the
+    reference one a count in its sound range [314, 1092] whose keys
+    cover every orbit. Witnesses replay."""
+    _need_card()
+    from stateright_tpu_torch.ops import _cuda
+    model = TwoPhaseSys(5, complete_symmetry=complete)
+    launches = dict(_cuda.LAUNCHES)
+    ck = model.checker().symmetry_fn(model.representative).spawn_gpu() \
+        .join()
+    assert _cuda.LAUNCHES["fused_step_sym"] > launches["fused_step_sym"]
+    assert _cuda.LAUNCHES["fused_step"] == launches["fused_step"]
+    n = ck.unique_state_count()
+    full = TwoPhaseSys(5, complete_symmetry=True)
+    orbit_of_key = {model.fingerprint(model.representative(s)):
+                    full.fingerprint(full.representative(s))
+                    for s in _reachable(model)}
+    assert {orbit_of_key[k] for k in ck.generated_fingerprints()} \
+        == set(orbit_of_key.values())
+    if complete:
+        plain = model.checker().symmetry_fn(model.representative) \
+            .gpu_options(device="cpu").spawn_gpu().join()
+        assert n == plain.unique_state_count() == 314
+        assert ck.state_count() == plain.state_count() == 2048
+        assert ck.generated_fingerprints() \
+            == plain.generated_fingerprints()
+    else:
+        assert 314 <= n <= 1092
+    ck.assert_properties()
+    for name in ("abort agreement", "commit agreement"):
+        path = ck.discovery(name)
+        assert model.property(name).condition(model, path.last_state())
+
+
 class _Strict(TwoPhaseSys):
     """TwoPhaseSys with a fourth property the kernel does not evaluate."""
 

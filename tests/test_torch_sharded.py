@@ -10,7 +10,10 @@ width, since a process group costs seconds to start. The gates: equal
 unique and generated counts, visited-fingerprint sets and discoveries,
 witnesses that replay through the port's host model, every rank
 answering alike, and at D = 1, 2 and 4 (bucket exchange at D > 1) the
-mirror equal to the JAX engine's row for row. Exact: integer arithmetic."""
+mirror equal to the JAX engine's row for row. Under symmetry reduction:
+the complete representative's 314 orbits of 2pc n=5 at D = 1, 2 and 4,
+and the row gate (mirror and original fingerprints) at n=4 with the
+reference representative at D = 1 and 2. Exact: integer arithmetic."""
 
 import ast
 import os
@@ -39,9 +42,10 @@ import torch_sharded_worker as worker  # noqa: E402
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 
 #: cases each width runs (names of torch_sharded_worker.CASES)
-RUNS = {1: ("n3", "n4", "n4_grow", "n3_kmax"),
-        2: ("n3", "n4", "n4_ring", "n4_grow", "n3_kmax", "n3_kb"),
-        4: ("n3", "n4")}
+RUNS = {1: ("n3", "n4", "n4_grow", "n3_kmax", "n4_sym", "n5_csym"),
+        2: ("n3", "n4", "n4_ring", "n4_grow", "n3_kmax", "n3_kb", "n4_sym",
+            "n5_csym"),
+        4: ("n3", "n4", "n5_csym")}
 
 _JAX: dict = {}
 
@@ -49,18 +53,22 @@ _JAX: dict = {}
 def jax_ref(name: str, d: int) -> dict:
     """The JAX sharded fused engine's answers for one case (memoized)."""
     if (name, d) not in _JAX:
-        n, opts = worker.CASES[name]
+        n, opts, *sym = worker.CASES[name]
         devices = jax.devices()
         if len(devices) < d:
             pytest.skip(f"needs {d} JAX devices")
-        ck = (jtwopc.TwoPhaseSys(n).checker()
-              .tpu_options(mesh=Mesh(np.array(devices[:d]), ("shards",)),
-                           fused=True, race=False, **opts)
-              .spawn_tpu().join())
+        model = jtwopc.TwoPhaseSys(n, complete_symmetry=sym == ["complete"])
+        builder = model.checker().tpu_options(
+            mesh=Mesh(np.array(devices[:d]), ("shards",)), fused=True,
+            race=False, **opts)
+        if sym:
+            builder = builder.symmetry_fn(model.representative)
+        ck = builder.spawn_tpu().join()
         fps = ck.generated_fingerprints()
         _JAX[name, d] = {"unique": ck.unique_state_count(),
                          "generated": ck.state_count(), "fps": fps,
                          "mirror": list(ck._generated.items()),
+                         "orig": list(ck._orig_of.items()),
                          "discoveries": dict(ck._discovery_fps)}
     return _JAX[name, d]
 
@@ -137,6 +145,35 @@ def test_row_gate_against_jax_sharded_engine(ranks, d):
     assert got["mirror"] == want["mirror"]
 
 
+@pytest.mark.parametrize("d", [1, 2, 4])
+def test_complete_symmetry_set_gate(ranks, d):
+    # the orbit-invariant representative: exactly the 314 orbits of 2pc
+    # n=5, the JAX sharded engine's canonical keys, whatever the width
+    got, want = _result(ranks, d, "n5_csym"), jax_ref("n5_csym", d)
+    assert got["unique"] == want["unique"] == 314
+    assert got["generated"] == want["generated"] == 2048
+    assert got["fps"] == want["fps"]
+    assert got["discoveries"] == want["discoveries"]
+    assert got["replay"] == {"abort agreement": True,
+                             "commit agreement": True}
+
+
+@pytest.mark.parametrize("d", [1, 2])
+def test_symmetric_row_gate_against_jax_sharded_engine(ranks, d):
+    # the reference representative, whose count depends on the order:
+    # the mirror (canonical keys) and the original fingerprints of the
+    # 6-column logs, row for row
+    got, want = _result(ranks, d, "n4_sym"), jax_ref("n4_sym", d)
+    assert got["unique"] == want["unique"]
+    assert got["generated"] == want["generated"]
+    assert got["mirror"] == want["mirror"]
+    assert got["orig"] == want["orig"]
+    assert len(got["orig"]) == got["unique"]
+    assert got["discoveries"] == want["discoveries"]
+    assert got["replay"] == {"abort agreement": True,
+                             "commit agreement": True}
+
+
 def test_ring_and_bucket_give_the_same_set(ranks):
     ring, bucket = _result(ranks, 2, "n4_ring"), _result(ranks, 2, "n4")
     assert ring["profile"]["exchange"] == "ring"
@@ -177,7 +214,7 @@ def test_every_rank_answers_alike(ranks, d):
         first = _result(ranks, d, name)
         for r in range(1, d):
             other = ranks[d][r][name]
-            for key in ("unique", "generated", "fps", "mirror",
+            for key in ("unique", "generated", "fps", "mirror", "orig",
                         "discoveries", "replay"):
                 assert other[key] == first[key], (name, r, key)
 

@@ -19,8 +19,11 @@ import traceback
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
-#: the cases, by name: (2pc n, gpu_options). Every knob the JAX engine
-#: sizes by is explicit, so both engines take the same steps.
+#: the cases, by name: (2pc n, gpu_options[, symmetry]). Every knob the
+#: JAX engine sizes by is explicit, so both engines take the same steps.
+#: A third entry runs under symmetry reduction with that representative
+#: ("reference": 2pc's sort by RM state; "complete": the orbit-invariant
+#: one).
 CASES = {
     "n3": (3, dict(capacity=1 << 12, fmax=64, kraw=1088, kmax=1088)),
     "n4": (4, dict(capacity=1 << 14, fmax=64, kraw=1408, kmax=512, kb=256,
@@ -32,6 +35,10 @@ CASES = {
     "n3_kmax": (3, dict(capacity=1 << 12, fmax=64, kmax=16)),
     "n3_kb": (3, dict(capacity=1 << 12, fmax=64, kraw=1088, kmax=1088,
                       kb=16)),
+    "n4_sym": (4, dict(capacity=1 << 14, fmax=64, kraw=1408, kmax=512,
+                       kb=256, cc_dedup=1 << 10), "reference"),
+    "n5_csym": (5, dict(capacity=1 << 12, fmax=64, kraw=1728, kmax=1024,
+                        cc_dedup=1 << 10), "complete"),
     # the slow grid: 8,832 states, 256-row steps
     "n5": (5, dict(capacity=1 << 16, fmax=256, kraw=6912, kmax=4096)),
 }
@@ -41,9 +48,12 @@ def check(mesh, name: str) -> dict:
     """Run one case on ``mesh``; return the checker's answers."""
     from stateright_tpu_torch import TwoPhaseSys
 
-    n, opts = CASES[name]
-    ck = TwoPhaseSys(n).checker().gpu_options(mesh=mesh, **opts) \
-        .spawn_gpu().join()
+    n, opts, *sym = CASES[name]
+    model = TwoPhaseSys(n, complete_symmetry=sym == ["complete"])
+    builder = model.checker().gpu_options(mesh=mesh, **opts)
+    if sym:
+        builder = builder.symmetry_fn(model.representative)
+    ck = builder.spawn_gpu().join()
     fps = ck.generated_fingerprints()
     model = ck.model()
     replay = {}
@@ -54,6 +64,7 @@ def check(mesh, name: str) -> dict:
             "generated": ck.state_count(), "fps": fps,
             # the mirror is engine-internal; the row gate reads it
             "mirror": list(ck._generated.items()),
+            "orig": list(ck._orig_of.items()),
             "discoveries": dict(ck._discovery_fps), "replay": replay,
             "profile": ck.profile()}
 
