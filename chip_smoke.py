@@ -15,7 +15,9 @@ Phases, one JSON line each:
              ring; the owner-side probe at the received width of the
              sharded step; the symmetric steps at 2pc n=16, 82 actions,
              with both representatives) by the lane and set gates, and
-             timed with CUDA events and ``torch.profiler``;
+             timed with CUDA events and ``torch.profiler``, with each
+             kernel's own device time, bound and launch geometry
+             (``parts``);
 4. e2e     — ``TwoPhaseSys(7).checker().spawn_gpu().join()`` with default
              options, checked against the oracle counts, the fingerprint-set
              digest, the properties and both witness replays, with every
@@ -30,7 +32,8 @@ Phases, one JSON line each:
              the reference one to its sound range at n=7, to covering
              every orbit (its enqueued original rows canonicalized by the
              complete representative) and, at n=16 (the full-width run,
-             over a million reduced states), to a repeated search record
+             over a million reduced states), to the card's own count,
+             generated count and key digest, to a repeated search record
              and the complete run's verdicts, with a profiled repeat;
              the complete one again through table growth; witnesses
              replay;
@@ -104,6 +107,17 @@ DIGEST_2PC7_SYM = ("4302d7490af6f8bfb60b2c6197f14954"
 #: one key per orbit, at most the distinct representative keys over all
 #: 296,448 states (phase ``orbits_2pc7`` recounts both on the card)
 REF_KEYS_2PC7 = 9_840
+#: TwoPhaseSys(16) under the reference representative on the card:
+#: reduced states, state_count() and the sha256 of the sorted canonical
+#: keys. The count depends on the engine's winner rule (ROADMAP C3): the
+#: card inserts the lowest valid lane of each fresh key, which fixes it
+#: at every step size (tools/torch_symmetry_counts.py on an H100 at
+#: 12,288, 4,096, 1,024 and 256 rows per step), where the CPU path, with
+#: the JAX package's winner rule, reaches other counts.
+UNIQUE_2PC16_REF = 1_309_367
+GENERATED_2PC16_REF = 23_296_759
+DIGEST_2PC16_REF = ("6284d610fdbea7532587dc7e1c5b8ad8"
+                    "2fa2963c47f0b7651e44f9960eeaffc3")
 
 #: HBM bandwidth of an H100 SXM (bytes/s) and its CUDA-core fp32 rate
 #: (operations/s): NVIDIA's published peaks at 700 W. The steps do 32-bit
@@ -182,37 +196,44 @@ def cuda_ms(fn, reps: int, before=None) -> float:
     return total / reps
 
 
-def device_times(fn, host_top: int = 0) -> dict:
+def device_times(fn, host_top: int = 0, before=None) -> dict:
     """Device time of one call of ``fn`` from ``torch.profiler``, split
     into this port's kernels (by name), torch's kernels, and copies and
     memsets, in milliseconds; ``None`` values when the trace holds no
-    device time. ``host_top`` > 0 adds the host operations with the most
-    self CPU time (name, ms, calls)."""
+    device time. ``before()`` (outside the trace) restores ``fn``'s
+    inputs before each try. ``host_top`` > 0 adds the host operations
+    with the most self CPU time (name, ms, calls)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    ours = {k: 0.0 for k in _OURS + ("expand_kernel_sym",)}
-    torch_ms = copy_ms = 0.0
-    seen = False
-    for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA:
-            continue
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = e.self_cuda_time_total
-        seen = seen or us > 0
-        name = kernel_name(e.key)
-        if name:
-            ours[name] += us / 1e3
-        elif "memcpy" in e.key.lower() or "memset" in e.key.lower():
-            copy_ms += us / 1e3
-        else:
-            torch_ms += us / 1e3
+    # a trace now and then holds no device time: up to three tries
+    for _attempt in range(3):
+        if before:
+            before()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        ours = {k: 0.0 for k in _OURS + ("expand_kernel_sym",)}
+        torch_ms = copy_ms = 0.0
+        seen = False
+        for e in prof.key_averages():
+            if e.device_type != DeviceType.CUDA:
+                continue
+            us = getattr(e, "self_device_time_total", None)
+            if us is None:
+                us = e.self_cuda_time_total
+            seen = seen or us > 0
+            name = kernel_name(e.key)
+            if name:
+                ours[name] += us / 1e3
+            elif "memcpy" in e.key.lower() or "memset" in e.key.lower():
+                copy_ms += us / 1e3
+            else:
+                torch_ms += us / 1e3
+        if seen:
+            break
     out = {"ours_ms": None, "torch_ms": None, "copy_ms": None,
            "by_kernel_ms": None}
     if seen:
@@ -264,28 +285,92 @@ def mid_search_carry(model, device, symmetry: bool = False,
     return carry
 
 
-def lowest_lane_wins(out) -> bool:
-    """The kernel's winner rule: each inserted lane is the lowest lane
-    that carried its key to the table."""
+def lowest_lane_wins(out, among=None) -> bool:
+    """The kernel's winner rule: each inserted lane is the lowest lane of
+    ``among`` (default: the lanes that carried their key to the table,
+    ``dvalid``) carrying its key."""
     import torch
 
     from stateright_tpu_torch.ops.words import pack64
 
+    mask = out.dvalid if among is None else among
     keys = pack64(out.chi, out.clo)
     lanes = torch.arange(keys.shape[0], device=keys.device)
-    uniq, inv = torch.unique(keys[out.dvalid], return_inverse=True)
+    uniq, inv = torch.unique(keys[mask], return_inverse=True)
     first = torch.full((uniq.shape[0],), keys.shape[0], dtype=torch.int64,
                        device=keys.device)
-    first.scatter_reduce_(0, inv, lanes[out.dvalid], reduce="amin")
+    first.scatter_reduce_(0, inv, lanes[mask], reduce="amin")
     won = first[torch.searchsorted(uniq, keys[out.inserted])]
     return bool((won == lanes[out.inserted]).all())
 
 
+def bound(nbytes: int, ops: int) -> dict:
+    """The least time the card could take for ``nbytes`` of device
+    memory traffic and ``ops`` integer operations, and which bounds it."""
+    return {"bytes": nbytes, "ops": ops,
+            "bound_ms": max(nbytes / HBM_BYTES_S, ops / CORE_OPS_S) * 1e3,
+            "bound_by": ("bytes" if nbytes / HBM_BYTES_S
+                         >= ops / CORE_OPS_S else "operations")}
+
+
+def kernel_parts(model, f: int, symmetry: bool, cc: int, by_kernel,
+                 counts=None) -> dict:
+    """Per kernel of one step over ``f`` rows: its device ms (from
+    ``by_kernel``, a profiled call), its own bound and its launch
+    geometry. K1 (expand) always; with ``counts = (valid lanes, tile
+    winners, tile winners that reached the table, inserted lanes)`` also
+    K2 (claim) and K3 (commit) of the single-chip step. Each kernel counts its own inputs
+    read once and outputs written once, so the parts' bounds add up to
+    more than the step's (K1's outputs are K2's inputs)."""
+    import torch
+
+    from stateright_tpu_torch.ops import _cuda
+
+    w = model.packed_width
+    a = model.max_actions
+    lanes = f * a
+    pcols = max(len(model.properties()), 1)
+    by_kernel = by_kernel or {}
+    geometry = _cuda.tile_geometry(
+        f, a, _cuda.sm_count(torch.cuda.current_device()))._asdict()
+    k1 = "expand_kernel_sym" if symmetry else "expand_kernel"
+    parts = {k1: {
+        "device_ms": by_kernel.get(k1),
+        **bound(f * (4 * w + 4 + 1)                # frontier, ebits, fvalid
+                + f * (pcols + 4 + 1)              # pbits, ebits, terminal
+                + lanes * (4 * w + 8 + 1)          # flat, chi/clo, cvalid
+                + lanes * (8 if symmetry else 0)   # ohi/olo
+                + cc * 8,                          # the ring arena reset
+                lanes * step_ops(model, symmetry)),
+        "geometry": geometry}}
+    if counts is not None:
+        valid, winners, table, ins = counts
+        parts["claim_kernel"] = {
+            "device_ms": by_kernel.get("claim_kernel"),
+            # cvalid, chi/clo, dvalid, lane_slot per lane; the ring per
+            # tile winner; a bucket and the owner word per tile winner
+            # that reaches the table; the claim, stamp and ring arena per
+            # inserted lane; 16 operations per valid lane for the tile
+            # dedup and 12 per table probe
+            **bound(lanes * 14 + (winners * 8 if cc else 0)
+                    + table * (32 + 8) + ins * (8 + 4 + 8),
+                    valid * 16 + table * 12),
+            "geometry": geometry}
+        parts["commit_kernel"] = {
+            "device_ms": by_kernel.get("commit_kernel"),
+            # lane_slot and inserted per lane; stamp and owner per lane
+            # with a slot; key, ring arena and ring per inserted lane
+            **bound(lanes * 5 + table * 12 + ins * 24, lanes * 4),
+            "geometry": {"threads": 256, "blocks": -(-lanes // 256)}}
+    return parts
+
+
 def step_ops(model, symmetry: bool) -> int:
     """Integer operations per lane of K1: ~120 for the successor and its
-    fingerprint, and under symmetry ~20 per RM for the counting sort plus
-    ~60 for the second fingerprint."""
-    return 120 + (60 + 20 * model.n if symmetry else 0)
+    fingerprint, and under symmetry ~120 more: the lane's RM moved within
+    its row's representative (the row's counting sort, shared by its
+    lanes, adds a few per lane) and the second fingerprint."""
+    return 120 + (120 if symmetry else 0)
 
 
 def block_args(model, carry, f: int, pfp=None):
@@ -311,8 +396,10 @@ def check_step(model, carry, f: int, reps: int, symmetry: bool = False,
     import numpy as np
     import torch
 
-    from stateright_tpu_torch.ops.fused import (S_DISC, S_OVF, S_XOVF,
-                                                StepWorkspace, fused_step,
+    from stateright_tpu_torch.ops import _cuda
+    from stateright_tpu_torch.ops.fused import (S_CCH, S_DEDUP, S_DISC,
+                                                S_OVF, S_XOVF, StepWorkspace,
+                                                fused_step,
                                                 fused_step_reference)
     from stateright_tpu_torch.ops.words import pack64
 
@@ -353,14 +440,24 @@ def check_step(model, carry, f: int, reps: int, symmetry: bool = False,
     table_k = np.sort(t_k[t_k != 0].cpu().numpy())
     table_p = np.sort(t_p[t_p != 0].cpu().numpy())
     sk, sp = k.stats.cpu().numpy(), p.stats.cpu().numpy()
+    # K2's tile stage passes one lane per key and tile to the ring
+    geo = _cuda.tile_geometry(f, model.max_actions,
+                              _cuda.sm_count(block.device))
+    lane = torch.arange(k.cvalid.shape[0], device=block.device)
+    pairs = torch.stack([lane // (geo.rows * model.max_actions),
+                         pack64(k.chi, k.clo)], 1)[k.cvalid]
     checks = {
         "lane_exact": err == 0,
+        "tile_winners": int(sk[S_DEDUP]) + int(sk[S_CCH])
+        == torch.unique(pairs, dim=0).shape[0],
         "inserted_set": ks == ps,
         "one_lane_per_key": len(kk) == len(ks) and len(pk) == len(ps),
         "table_set": np.array_equal(table_k, table_p),
         "discoveries": np.array_equal(sk[S_DISC:], sp[S_DISC:]),
         "flags": (sk[S_XOVF], sk[S_OVF]) == (sp[S_XOVF], sp[S_OVF]),
         "lowest_lane_wins": lowest_lane_wins(k),
+        # K2's tile stage keeps the rule over every valid lane
+        "lowest_valid_lane_wins": lowest_lane_wins(k, among=k.cvalid),
     }
     if not all(checks.values()):
         raise AssertionError(f"fused step f={f} disagrees with its plain "
@@ -374,31 +471,34 @@ def check_step(model, carry, f: int, reps: int, symmetry: bool = False,
         return fused_step(model, *args, t_k, r_k, ws, symmetry=symmetry)
 
     ms = cuda_ms(launch, reps, restore)
-    restore()
-    dev = device_times(launch)
+    dev = device_times(launch, before=restore)
     # the bound: each input read once, each output written once, table
-    # and ring traffic counted for this step's lanes
+    # and ring traffic counted for the lanes that need it: the ring per
+    # tile winner (K2's one lane per key and tile; the kernel counts the
+    # winners the ring held in S_CCH, the others in S_DEDUP), a bucket
+    # per winner the ring did not hold
     lanes = f * model.max_actions
     n_valid = int(k.cvalid.sum())
     n_table = int(k.dvalid.sum())
+    n_win = int(sk[S_DEDUP]) + int(sk[S_CCH])
     n_ins = len(kk)
     nbytes = (f * (4 * w + 4 + 8 + 1)            # frontier, ebits, fps, fvalid
               + f * (max(n_props, 1) + 4 + 1)    # pbits, ebits, terminal
               + lanes * (4 * w + 8 + 3)          # flat, chi/clo, 3 masks
               + lanes * (8 if symmetry else 0)   # ohi/olo
-              + n_valid * 8                      # ring probes
+              + (n_win * 8 if ring0.shape[0] else 0)  # ring probes
               + n_table * 32                     # bucket reads
               + n_ins * 16)                      # table + ring writes
     ops = lanes * step_ops(model, symmetry) + n_table * 12
-    bound_s = max(nbytes / HBM_BYTES_S, ops / CORE_OPS_S)
-    return {"f": f, "lanes": lanes, "valid": n_valid, "to_table": n_table,
+    return {"f": f, "lanes": lanes, "valid": n_valid,
+            "tile_winners": n_win, "to_table": n_table,
             "inserted": n_ins, "max_abs_err": err, "ms": ms,
             "device_ms": dev["ours_ms"],
             "device_by_kernel_ms": dev["by_kernel_ms"],
-            "plain_ms": plain_ms, "bytes": nbytes, "ops": ops,
-            "bound_ms": bound_s * 1e3,
-            "bound_by": ("bytes" if nbytes / HBM_BYTES_S
-                         >= ops / CORE_OPS_S else "operations"),
+            "plain_ms": plain_ms, **bound(nbytes, ops),
+            "parts": kernel_parts(model, f, symmetry, ring0.shape[0],
+                                  dev["by_kernel_ms"],
+                                  (n_valid, n_win, n_table, n_ins)),
             "checks": checks}
 
 
@@ -450,18 +550,14 @@ def check_insert(carry, reps: int) -> dict:
                              f"version: {checks}")
     ms = cuda_ms(lambda: table_insert(t_k, hi, lo, valid), reps,
                  lambda: t_k.zero_())
-    t_k.zero_()
-    dev = device_times(lambda: table_insert(t_k, hi, lo, valid))
+    dev = device_times(lambda: table_insert(t_k, hi, lo, valid),
+                       before=t_k.zero_)
     n = hi.shape[0]
     nbytes = n * (4 + 4 + 1 + 1) + n * 32 + carry.log_n * 8
     ops = n * 12
     return {"n": n, "keys": carry.log_n, "max_abs_err": err, "ms": ms,
             "device_ms": dev["ours_ms"], "plain_ms": plain_ms,
-            "bytes": nbytes, "ops": ops,
-            "bound_ms": max(nbytes / HBM_BYTES_S, ops / CORE_OPS_S) * 1e3,
-            "bound_by": ("bytes" if nbytes / HBM_BYTES_S
-                         >= ops / CORE_OPS_S else "operations"),
-            "checks": checks}
+            **bound(nbytes, ops), "checks": checks}
 
 
 def ring_hits(out, ring):
@@ -551,16 +647,15 @@ def check_noprobe(model, carry, f: int, reps: int, symmetry: bool = False,
               + lanes * (8 if symmetry else 0)   # ohi/olo
               + n_valid * 8)                     # ring probes
     ops = lanes * step_ops(model, symmetry) + n_valid * 16
-    bound_s = max(nbytes / HBM_BYTES_S, ops / CORE_OPS_S)
     return {"f": f, "lanes": lanes, "valid": n_valid,
             "ring_hits": int(sk[S_CCH]), "dvalid": len(kd),
             "dvalid_plain": len(pd), "max_abs_err": err, "ms": ms,
             "device_ms": dev["ours_ms"],
             "device_by_kernel_ms": dev["by_kernel_ms"],
             "memset_ms": dev["copy_ms"], "plain_ms": plain_ms,
-            "bytes": nbytes, "ops": ops, "bound_ms": bound_s * 1e3,
-            "bound_by": ("bytes" if nbytes / HBM_BYTES_S
-                         >= ops / CORE_OPS_S else "operations"),
+            **bound(nbytes, ops),
+            "parts": kernel_parts(model, f, symmetry, carry.ring.shape[0],
+                                  dev["by_kernel_ms"]),
             "checks": checks}, k
 
 
@@ -635,8 +730,8 @@ def check_probe(model, carry, step, reps: int) -> dict:
 
             out["ms"] = cuda_ms(lambda: probe_block(t_k, h, l_, v, ws),
                                 reps, restore)
-            restore()
-            dev = device_times(lambda: probe_block(t_k, h, l_, v, ws))
+            dev = device_times(lambda: probe_block(t_k, h, l_, v, ws),
+                               before=restore)
             out["device_ms"] = dev["ours_ms"]
             out["device_by_kernel_ms"] = dev["by_kernel_ms"]
             n_ins = len(kk)
@@ -645,10 +740,7 @@ def check_probe(model, carry, step, reps: int) -> dict:
     ops = n * 12
     out.update(max_abs_err=max(out["main"]["max_abs_err"],
                                out["twice"]["max_abs_err"]),
-               bytes=nbytes, ops=ops,
-               bound_ms=max(nbytes / HBM_BYTES_S, ops / CORE_OPS_S) * 1e3,
-               bound_by=("bytes" if nbytes / HBM_BYTES_S
-                         >= ops / CORE_OPS_S else "operations"))
+               **bound(nbytes, ops))
     return out
 
 
@@ -1182,11 +1274,12 @@ def main() -> int:
     del ck16, _rec
     # the full-width run where the kernels work: over a million
     # reduced states
+    want_ref16 = (UNIQUE_2PC16_REF, GENERATED_2PC16_REF, DIGEST_2PC16_REF)
     ref16, ck16, rec16 = end_to_end_sym(TwoPhaseSys(16), single_sym,
-                                        off_sym)
+                                        off_sym, want=want_ref16)
     emit(phase="e2e_sym", **ref16)
     again, _ck, rec_again = end_to_end_sym(TwoPhaseSys(16), single_sym,
-                                           off_sym)
+                                           off_sym, want=want_ref16)
     del _ck
     q16, tail16 = ck16._queue
     cover16 = canonical_keys(TwoPhaseSys(16, complete_symmetry=True),
@@ -1279,6 +1372,7 @@ def main() -> int:
          "library_ms": None,
          "small_step": {k: small[k] for k in ("ms", "plain_ms", "bound_ms",
                                               "bound_by")},
+         "parts": {"f=12288": large["parts"], "f=256": small["parts"]},
          "status": "ok"},
         {"name": "table_insert", "route": "cuda", "source": fused_src,
          "replaces": "stateright_tpu/ops/hashtable.py:71",
@@ -1298,6 +1392,8 @@ def main() -> int:
          "library_ms": None,
          "small_step": {k: np_small[k] for k in ("ms", "plain_ms",
                                                  "bound_ms", "bound_by")},
+         "parts": {"f=12288": np_large["parts"],
+                   "f=256": np_small["parts"]},
          "status": "ok"},
         {"name": "probe_block", "route": "cuda", "source": sharded_src,
          "replaces": "stateright_tpu/ops/fused.py:526",
@@ -1328,7 +1424,7 @@ def main() -> int:
             "by_mode_and_rows": {
                 f"{mode} f={f}": {k: r[k] for k in (
                     "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
-                    "max_abs_err")}
+                    "max_abs_err", "parts")}
                 for (mode, f), r in runs.items()},
             "status": "ok"})
     print(json.dumps({"kernels": kernels}), flush=True)

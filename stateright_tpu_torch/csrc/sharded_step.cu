@@ -16,10 +16,11 @@
 // interface, driven over ctypes by stateright_tpu_torch/ops/_cuda.py.
 //
 // What it computes:
-//   K1 expand_kernel        (step_common.cuh) one thread per frontier
-//                           row: successors, fingerprints (canonical
-//                           keys and original ones under symmetry),
-//                           validity, property bits, discovery rows.
+//   K1 expand_kernel        (step_common.cuh) one thread per lane
+//                           over block tiles of whole rows: successors,
+//                           fingerprints (canonical keys and original
+//                           ones under symmetry), validity, property
+//                           bits, discovery rows.
 //   K5 predup_kernel        one thread per lane: the JAX pre_dedup
 //                           arena of the lane's <=256-row block (the
 //                           lowest valid lane of each cell wins, by
@@ -226,9 +227,7 @@ int launch_dedup_step(const M& m, const DedupArgs& d) {
                         (size_t)d.cells * sizeof(unsigned long long), st);
     if (e != cudaSuccess) return (int)e;
   }
-  expand_kernel<M, SYM>
-      <<<blocks_for(a.F > 0 ? a.F : 1), kThreads, 0, st>>>(m, a);
-  e = cudaGetLastError();
+  e = launch_expand<M, SYM>(m, a, st);
   if (e != cudaSuccess || lanes == 0) return (int)e;
   predup_kernel<<<blocks_for(lanes), kThreads, 0, st>>>(d, lanes);
   e = cudaGetLastError();

@@ -1,15 +1,17 @@
 // Device code shared by the step kernels of fused_step.cu and
-// sharded_step.cu: the constants, the StepArgs layout, the fingerprint,
-// the warp-aggregated counters, the 4-slot bucket probe/claim and K1,
-// the expand kernel (with a compile-time symmetry flag: the symmetric
-// instantiation keys each child on the fingerprint of its canonical
-// representative and writes the child's own fingerprint beside it).
-// Each .cu file includes it and is built on its own into its own library
-// (ops/_cuda.py), so everything here has internal linkage.
+// sharded_step.cu: the constants, the StepArgs layout with the tile
+// geometry of K1 and K2, the fingerprint, the warp- and block-aggregated
+// counters, the 4-slot bucket probe/claim and K1, the expand kernel
+// (with a compile-time symmetry flag: the symmetric instantiation keys
+// each child on the fingerprint of its canonical representative and
+// writes the child's own fingerprint beside it). Each .cu file includes
+// it and is built on its own into its own library (ops/_cuda.py), so
+// everything here has internal linkage.
 #pragma once
 
 #include <cstdint>
 #include <cuda_runtime.h>
+#include <type_traits>
 
 #include "twopc.cuh"
 
@@ -39,6 +41,19 @@ enum Stat {
 enum Probe { PROBE_DUP = 0, PROBE_CLAIMED = 1, PROBE_OVF = 2 };
 
 }  // namespace
+
+// The launch geometry of a kernel that works on block tiles of whole
+// frontier rows (K1, K2), computed by ops/_cuda.py tile_geometry and
+// mirrored there field for field: block b takes rows [b * rows,
+// min(F, (b + 1) * rows)), lane t of its tile is row t / A, action t % A,
+// and its threads walk the tile's lanes t, t + threads, ...
+struct TileGeometry {
+  int rows;     // frontier rows per block
+  int threads;  // threads per block (a multiple of 32)
+  int blocks;   // blocks of the launch (>= 1, blocks * rows >= F)
+  int cells;    // K2: shared dedup cells per block (a power of two
+                // >= 2 * rows * A); K1: unused
+};
 
 // Mirrored field for field by ops/_cuda.py StepArgs.
 struct StepArgs {
@@ -75,6 +90,7 @@ struct StepArgs {
   unsigned long long* ring;        // [cc]
   unsigned long long* ring_arena;  // [cc]
   unsigned long long* disc_cand;   // [P]
+  TileGeometry tile;               // K1's and K2's launch
   void* stream;
 };
 
@@ -119,6 +135,31 @@ __device__ __forceinline__ void warp_max(int* dst, int v) {
   if ((threadIdx.x & 31) == 0 && m) atomicMax(dst, (int)m);
 }
 
+// Add v over the block into *dst with one global atomic per block. acc
+// is a __shared__ int the block zeroed before a __syncthreads; every
+// thread of the block must call this (it holds a barrier).
+__device__ __forceinline__ void block_add(int* dst, int v, int* acc) {
+  warp_add(acc, v);
+  __syncthreads();
+  if (threadIdx.x == 0 && *acc) atomicAdd(dst, *acc);
+}
+
+// One 4-slot bucket as two 16-byte loads that bypass L1 (ld.global.cg:
+// other blocks claim slots during the kernel, and the atomics that do it
+// live in L2). volatile, so a re-read after a lost CAS is not merged
+// with the first read.
+__device__ __forceinline__ void load_bucket(const unsigned long long* b,
+                                            unsigned long long (&v)[4]) {
+  asm volatile("ld.global.cg.v2.u64 {%0, %1}, [%2];"
+               : "=l"(v[0]), "=l"(v[1])
+               : "l"(b)
+               : "memory");
+  asm volatile("ld.global.cg.v2.u64 {%0, %1}, [%2+16];"
+               : "=l"(v[2]), "=l"(v[3])
+               : "l"(b)
+               : "memory");
+}
+
 // Probe the 4-slot buckets for key from its start bucket; claim the first
 // empty slot of the first bucket without a match and with room. Returns
 // the outcome, the slot the key ends in and the rounds (bucket reads).
@@ -131,19 +172,17 @@ __device__ int probe_claim(unsigned long long* keys, long long n_buckets,
   int rounds = 0;
   while (rounds < max_rounds) {
     ++rounds;
-    // volatile: a slot another lane claimed must be seen on re-read
-    const volatile unsigned long long* b =
-        keys + (long long)g * kBucket;
+    unsigned long long v[kBucket];
+    load_bucket(keys + (long long)g * kBucket, v);
     int first_empty = kBucket;
 #pragma unroll
     for (int j = 0; j < kBucket; ++j) {
-      const unsigned long long v = b[j];
-      if (v == key) {
+      if (v[j] == key) {
         *slot_out = (long long)g * kBucket + j;
         *rounds_out = rounds;
         return PROBE_DUP;
       }
-      if (v == 0ull && first_empty == kBucket) first_empty = j;
+      if (v[j] == 0ull && first_empty == kBucket) first_empty = j;
     }
     if (first_empty == kBucket) {  // full of foreign keys: next bucket
       g = (g + 1) & mask;
@@ -162,75 +201,170 @@ __device__ int probe_claim(unsigned long long* keys, long long n_buckets,
   return PROBE_OVF;
 }
 
-// K1. SYM = false: chi/clo = fp64(child), ohi/olo untouched. SYM = true:
-// chi/clo = fp64(m.canon(child)), the key every later kernel dedups on,
-// and ohi/olo = fp64(child), the original state's fingerprint the log
-// keeps; flat stays the original child and the properties are evaluated
-// on the original frontier rows either way.
+struct NoCanon {};
+
+// K1's per-row state in shared memory, written once per row (16-byte
+// aligned, so a lane reads its row's words as one vector load).
+template <class M, bool SYM>
+struct alignas(16) RowState {
+  uint32_t w[M::W];  // the frontier row
+  uint32_t pb;       // property bits m.props(w)
+  uint32_t eb;       // eventually-bits after the clear
+  uint8_t fv;        // fvalid
+  uint8_t valid;     // some lane of the row is a valid child
+  uint8_t xovf;      // some lane of a valid row overflowed its encoding
+  // SYM: the row's representative, carried to each child (canon_child)
+  std::conditional_t<SYM, typename M::RowCanon, NoCanon> rc;
+};
+
+// K1. One thread per lane over block tiles of whole rows (a.tile):
+// one thread per row loads the row, its fvalid and ebits and evaluates
+// the properties (under SYM also the row's representative, m.row_canon)
+// into shared memory; then each lane (row t / A, action
+// t % A of the tile, so the lanes of a warp are consecutive) computes
+// its successor, fingerprint(s) and validity and writes them coalesced;
+// then one thread per row writes pbits, ebits_out and terminal (a
+// per-row OR of the lanes' validity) and posts the row's discovery
+// candidates (atomicMin: the lowest row wins). SYM = false: chi/clo =
+// fp64(child), ohi/olo untouched. SYM = true: chi/clo =
+// fp64(canon(child)) (m.canon_child from the row's representative), the
+// key every later kernel dedups on, and
+// ohi/olo = fp64(child), the original state's fingerprint the log keeps;
+// flat stays the original child and the properties are evaluated on the
+// original frontier rows either way. The grid also resets the ring
+// arena for the step (grid-stride).
 template <class M, bool SYM>
 __global__ void expand_kernel(M m, StepArgs a) {
+  extern __shared__ __align__(16) unsigned char tile_smem[];
+  RowState<M, SYM>* rows = reinterpret_cast<RowState<M, SYM>*>(tile_smem);
+  __shared__ int s_valid;
   const long long tid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   const long long nthreads = (long long)gridDim.x * blockDim.x;
   for (long long i = tid; i < a.cc; i += nthreads) a.ring_arena[i] = ~0ull;
-  int nvalid = 0;
-  if (tid < a.F) {
-    const int r = (int)tid;
+  const int A = a.A;
+  const long long row0 = (long long)blockIdx.x * a.tile.rows;
+  const int nrows =
+      (int)max(0ll, min((long long)a.tile.rows, (long long)a.F - row0));
+  if (threadIdx.x == 0) s_valid = 0;
+  for (int i = threadIdx.x; i < nrows; i += blockDim.x) {
+    const long long r = row0 + i;
+    RowState<M, SYM>& rs = rows[i];
     uint32_t w[M::W];
 #pragma unroll
-    for (int i = 0; i < M::W; ++i) w[i] = a.frontier[r * a.fstride + i];
-    const bool fv = a.fvalid[r] != 0;
+    for (int k = 0; k < M::W; ++k) w[k] = rs.w[k] =
+        a.frontier[r * a.fstride + k];
     const uint32_t pb = m.props(w);
-    for (int p = 0; p < a.pcols; ++p)
-      a.pbits[(long long)r * a.pcols + p] =
-          p < a.P ? (uint8_t)((pb >> p) & 1u) : (uint8_t)0;
-    const uint32_t eb = a.ebits[r * a.estride] & ~(pb & a.ev_mask);
-    a.ebits_out[r] = eb;
-    bool xovf = false;
-    for (int act = 0; act < a.A; ++act) {
-      uint32_t s[M::W];
-      bool ovf = false;
-      const bool v = m.step(w, act, s, ovf);
-      const long long lane = (long long)r * a.A + act;
-      if constexpr (M::W == 4) {
-        reinterpret_cast<uint4*>(a.flat)[lane] =
-            make_uint4(s[0], s[1], s[2], s[3]);
-      } else {
+    if constexpr (SYM) m.row_canon(w, rs.rc);
+    rs.pb = pb;
+    rs.eb = a.ebits[r * a.estride] & ~(pb & a.ev_mask);
+    rs.fv = a.fvalid[r] != 0;
+    rs.valid = 0;
+    rs.xovf = 0;
+  }
+  __syncthreads();
+  int nvalid = 0;
+  const int tile = nrows * A;
+  const long long lane0 = row0 * A;
+  // lane t = row * A + act, walked in strides of blockDim.x
+  const int drow = blockDim.x / A, dact = blockDim.x - drow * A;
+  int row = threadIdx.x / A, act = threadIdx.x - row * A;
+  for (int t = threadIdx.x; t < tile; t += blockDim.x) {
+    RowState<M, SYM>& rs = rows[row];
+    uint32_t w[M::W], s[M::W];
 #pragma unroll
-        for (int i = 0; i < M::W; ++i) a.flat[lane * M::W + i] = s[i];
-      }
-      uint32_t hi, lo;
-      if constexpr (SYM) {
-        uint32_t c[M::W];
-        m.canon(s, c);
-        fp64<M::W>(c, hi, lo);
-        uint32_t ohi, olo;
-        fp64<M::W>(s, ohi, olo);
-        a.ohi[lane] = ohi;
-        a.olo[lane] = olo;
-      } else {
-        fp64<M::W>(s, hi, lo);
-      }
-      a.chi[lane] = hi;
-      a.clo[lane] = lo;
-      const bool cv = v && fv;
-      a.cvalid[lane] = cv;
-      nvalid += cv;
-      xovf |= ovf && fv;
+    for (int k = 0; k < M::W; ++k) w[k] = rs.w[k];
+    bool ovf = false;
+    const bool v = m.step(w, act, s, ovf);
+    const long long lane = lane0 + t;
+    if constexpr (M::W == 4) {
+      reinterpret_cast<uint4*>(a.flat)[lane] =
+          make_uint4(s[0], s[1], s[2], s[3]);
+    } else {
+#pragma unroll
+      for (int k = 0; k < M::W; ++k) a.flat[lane * M::W + k] = s[k];
     }
-    const bool term = fv && nvalid == 0;
+    uint32_t hi, lo;
+    if constexpr (SYM) {
+      uint32_t c[M::W];
+      m.canon_child(rs.rc, w, act, s, c);
+      fp64<M::W>(c, hi, lo);
+      uint32_t ohi, olo;
+      fp64<M::W>(s, ohi, olo);
+      a.ohi[lane] = ohi;
+      a.olo[lane] = olo;
+    } else {
+      fp64<M::W>(s, hi, lo);
+    }
+    a.chi[lane] = hi;
+    a.clo[lane] = lo;
+    const bool cv = v && rs.fv;
+    a.cvalid[lane] = cv;
+    nvalid += cv;
+    // plain stores of one value: the row's OR, read after the barrier
+    if (cv) rs.valid = 1;
+    if (ovf && rs.fv) rs.xovf = 1;
+    row += drow;
+    act += dact;
+    if (act >= A) {
+      act -= A;
+      ++row;
+    }
+  }
+  __syncthreads();
+  const unsigned long long tag = (unsigned long long)(~a.step) << 32;
+  for (int i = threadIdx.x; i < nrows; i += blockDim.x) {
+    const RowState<M, SYM>& rs = rows[i];
+    const long long r = row0 + i;
+    const uint32_t pb = rs.pb, eb = rs.eb;
+    for (int p = 0; p < a.pcols; ++p)
+      a.pbits[r * a.pcols + p] =
+          p < a.P ? (uint8_t)((pb >> p) & 1u) : (uint8_t)0;
+    a.ebits_out[r] = eb;
+    const bool term = rs.fv && !rs.valid;
     a.terminal[r] = term;
-    if (xovf) atomicOr(&a.stats[S_XOVF], 1);
+    if (rs.xovf) atomicOr(&a.stats[S_XOVF], 1);
     uint32_t hits = 0;
-    if (fv) hits |= (~pb & a.always_mask) | (pb & a.sometimes_mask);
+    if (rs.fv) hits |= (~pb & a.always_mask) | (pb & a.sometimes_mask);
     if (term && eb != 0u) hits |= eb & a.ev_mask;
-    const unsigned long long tag = (unsigned long long)(~a.step) << 32;
     while (hits) {
       const int p = __ffs(hits) - 1;
       hits &= hits - 1;
       atomicMin(&a.disc_cand[p], tag | (unsigned long long)r);
     }
   }
-  warp_add(&a.stats[S_VALID], nvalid);
+  block_add(&a.stats[S_VALID], nvalid, &s_valid);
+}
+
+// Whether g can launch a kernel over tiles of F rows of A lanes.
+inline bool geometry_ok(const TileGeometry& g, int F, int A) {
+  return g.rows >= 1 && g.threads >= 32 && g.threads <= 1024 &&
+         g.threads % 32 == 0 && g.blocks >= 1 &&
+         (long long)g.blocks * g.rows >= F &&
+         (long long)(g.blocks - 1) * g.rows < (F > 0 ? F : 1) && A >= 1;
+}
+
+// Allow a kernel smem bytes of dynamic shared memory (above the 48 KB
+// every kernel may take, up to the 227 KB of a Hopper block).
+template <class K>
+cudaError_t allow_smem(K kernel, size_t smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  if (smem > 227 * 1024) return cudaErrorInvalidValue;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)smem);
+}
+
+// Launch K1 over a.tile (blocks >= 1 even at F = 0: the grid resets
+// the ring arena).
+template <class M, bool SYM>
+cudaError_t launch_expand(const M& m, const StepArgs& a, cudaStream_t st) {
+  const TileGeometry& g = a.tile;
+  if (!geometry_ok(g, a.F, a.A)) return cudaErrorInvalidValue;
+  const size_t smem = (size_t)g.rows * sizeof(RowState<M, SYM>);
+  cudaError_t e = allow_smem(expand_kernel<M, SYM>, smem);
+  if (e != cudaSuccess) return e;
+  expand_kernel<M, SYM><<<g.blocks, g.threads, smem, st>>>(m, a);
+  return cudaGetLastError();
 }
 
 inline int blocks_for(long long n) {

@@ -18,12 +18,14 @@ never synchronise. ``LAUNCHES`` counts each wrapper's launches.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
 import subprocess
 import time
 from pathlib import Path
+from typing import NamedTuple
 
 import torch
 
@@ -59,8 +61,66 @@ _i = ctypes.c_int
 _u = ctypes.c_uint32
 
 
+#: the lane budget of a block tile of K1 (expand) and K2 (claim): whole
+#: rows, as many as fit (at least one); 1,024 was the best of 512, 1,024
+#: and 2,048 for both kernels on an H100 (tools/torch_tile_sweep.py)
+TILE_LANES = 1024
+#: the most threads per block of K1 and K2
+TILE_THREADS = 256
+#: below this many tiles per SM the rows per tile shrink (to one at the
+#: least), so a thin frontier still spreads over the card
+TILES_PER_SM = 2
+
+
+class Geometry(NamedTuple):
+    """The launch of a kernel over block tiles of whole frontier rows:
+    block ``b`` takes rows ``[b * rows, min(F, (b + 1) * rows))``, lane
+    ``t`` of its tile is row ``t // A``, action ``t % A``, and its
+    ``threads`` walk the tile's lanes ``t, t + threads, ...``. ``cells``
+    is K2's shared dedup table per block (a power of two, at least two
+    per lane of a tile)."""
+
+    rows: int
+    threads: int
+    blocks: int
+    cells: int
+
+
+def tile_geometry(f: int, a: int, sms: int) -> Geometry:
+    """The launch of K1 or K2 over ``f`` frontier rows of ``a`` action
+    lanes on a card of ``sms`` SMs, from ``TILE_LANES``, ``TILE_THREADS``
+    and ``TILES_PER_SM`` as they are when called: ``TILE_LANES // a``
+    rows (at least one, so a row wider than the budget is one tile),
+    fewer when that would give under ``TILES_PER_SM * sms`` tiles; at
+    most ``TILE_THREADS`` threads, a multiple of 32; at least one block,
+    also at ``f = 0`` (K1's grid resets the ring arena)."""
+    lanes, threads, target = TILE_LANES, TILE_THREADS, TILES_PER_SM * sms
+    if (f < 0 or a < 1 or lanes < 1 or threads < 32 or threads > 1024
+            or threads % 32 or target < 1):
+        raise ValueError(f"no tile geometry for f={f}, a={a}, "
+                         f"lanes={lanes}, threads={threads}, sms={sms}")
+    rows = max(1, min(lanes // a, -(-f // target)))
+    tile = rows * a
+    return Geometry(rows=rows, threads=min(threads, -(-tile // 32) * 32),
+                    blocks=max(1, -(-f // rows)),
+                    cells=1 << (2 * tile - 1).bit_length())
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device) -> int:
+    """The SM count of a CUDA ``device``."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+class TileGeometry(ctypes.Structure):
+    """``TileGeometry`` of ``csrc/step_common.cuh``, field for field."""
+
+    _fields_ = [("rows", _i), ("threads", _i), ("blocks", _i),
+                ("cells", _i)]
+
+
 class StepArgs(ctypes.Structure):
-    """``StepArgs`` of ``csrc/fused_step.cu``, field for field."""
+    """``StepArgs`` of ``csrc/step_common.cuh``, field for field."""
 
     _fields_ = [
         ("frontier", _p), ("fstride", _ll), ("ebits", _p), ("estride", _ll),
@@ -74,7 +134,7 @@ class StepArgs(ctypes.Structure):
         ("inserted", _p), ("lane_slot", _p), ("stats", _p),
         ("keys", _p), ("n_buckets", _ll), ("max_rounds", _i), ("cc", _i),
         ("owner", _p), ("stamp", _p), ("ring", _p), ("ring_arena", _p),
-        ("disc_cand", _p), ("stream", _p),
+        ("disc_cand", _p), ("tile", TileGeometry), ("stream", _p),
     ]
 
 
@@ -289,6 +349,7 @@ def _step_args(model, frontier, ebits, fvalid, phi, plo, ring, ws,
         max_rounds=4096, cc=cc, ring=ring.data_ptr() if cc else None,
         ring_arena=ws.ring_arena.data_ptr(),
         disc_cand=ws.disc_cand.data_ptr(),
+        tile=TileGeometry(*tile_geometry(f, n_actions, sm_count(dev))),
         stream=torch.cuda.current_stream(dev).cuda_stream)
     outputs = (pbits, ebits_out, terminal, flat, chi, clo, cvalid, dvalid,
                inserted, stats, ohi, olo)

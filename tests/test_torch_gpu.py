@@ -350,3 +350,143 @@ def test_card_refuses_a_model_its_kernel_does_not_implement():
     # its plain path still gives its own verdict
     ck = _cpu(model)
     assert ck.discovery_classification("no commit") == "counterexample"
+
+
+def _frontier(model, f, rng, symmetry, dev):
+    """``f`` reachable states of ``model`` drawn with replacement (so
+    lanes share keys), with their (canonical under ``symmetry``)
+    fingerprints, random eventually-bits and ~10 % invalid rows."""
+    from stateright_tpu_torch.ops.hash_kernel import fp64_device
+    from stateright_tpu_torch.ops.words import from_numpy_u32
+    states = _reachable(model)
+    rows = np.stack([model.encode(states[i])
+                     for i in rng.integers(0, len(states), f)])
+    block = from_numpy_u32(rows, dev)
+    phi, plo = (x.to(torch.int32) for x in fp64_device(
+        model.packed_representative(block) if symmetry else block))
+    ebits = torch.from_numpy(rng.integers(0, 8, f).astype(np.int32)).to(dev)
+    fvalid = torch.from_numpy(rng.random(f) < 0.9).to(dev)
+    return block, ebits, fvalid, phi, plo
+
+
+EXPAND_CASES = [(complete, probe) for complete in (None, False, True)
+                for probe in (True, False)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize(
+    "complete,probe", EXPAND_CASES,
+    ids=[f"{'plain' if c is None else ('complete' if c else 'reference')}"
+         f"-{'probe' if p else 'noprobe'}" for c, p in EXPAND_CASES])
+def test_expand_lane_exact_at_ragged_frontiers(complete, probe,
+                                               monkeypatch):
+    """K1 over row tiles at ragged F (one row, one tile minus a row, one
+    and a half tiles, 255, 257) in both instantiations, through both step
+    entry points: lane for lane the plain version's successors,
+    fingerprints, validity, property bits, eventually-bits and terminal
+    rows, with the card's tiles and with full-size ones (as on a card of
+    one SM: no shrinking), where F = 55, 255 and 257 end in a ragged tile
+    of several rows."""
+    _need_card()
+    from stateright_tpu_torch.ops import _cuda
+    from stateright_tpu_torch.ops.fused import (S_DISC, S_VALID, S_XOVF,
+                                                fused_step,
+                                                fused_step_reference)
+    from stateright_tpu_torch.ops.hashtable import make_table
+    symmetry = complete is not None
+    model = TwoPhaseSys(5, complete_symmetry=bool(complete))
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(11)
+    rows = _cuda.TILE_LANES // model.max_actions
+    names = ("flat", "chi", "clo", "cvalid", "pbits", "ebits",
+             "terminal") + (("ohi", "olo") if symmetry else ())
+    ragged = 0
+    for full in (False, True):
+        if full:
+            monkeypatch.setattr(_cuda, "sm_count", lambda device: 1)
+            monkeypatch.setattr(_cuda, "TILES_PER_SM", 1)
+        for f in (1, rows - 1, rows + rows // 2, 255, 257):
+            geo = _cuda.tile_geometry(f, model.max_actions,
+                                      _cuda.sm_count(dev))
+            ragged += geo.rows > 1 and f % geo.rows != 0
+            args = _frontier(model, f, rng, symmetry, dev)
+            out = []
+            for fn in (fused_step, fused_step_reference):
+                table = None if not probe else make_table(1 << 14, dev)
+                ring = torch.zeros((1 << 10,), dtype=torch.int64,
+                                   device=dev)
+                out.append(fn(model, *args, table, ring, probe=probe,
+                              symmetry=symmetry))
+            k, p = out
+            for name in names:
+                assert torch.equal(getattr(k, name), getattr(p, name)), \
+                    (f, geo, name)
+            for i in (S_XOVF, S_VALID):
+                assert int(k.stats[i]) == int(p.stats[i]), (f, geo, i)
+            assert torch.equal(k.stats[S_DISC:], p.stats[S_DISC:])
+    assert ragged >= 3
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("f", [256, 12288])
+def test_claim_inserts_the_lowest_valid_lane_of_each_fresh_key(f):
+    """K2's tile pre-dedup and claim on a step where many lanes share a
+    key (2pc5 under the reference representative, rows drawn with
+    replacement, half the keys already in the table, some in the ring):
+    the inserted lanes are the lowest valid lane of each fresh key, with
+    the plain version's key set and table; each lane that reached the
+    table is the lowest valid lane of its key in its tile."""
+    _need_card()
+    from stateright_tpu_torch.ops import _cuda
+    from stateright_tpu_torch.ops.fused import (fused_step,
+                                                fused_step_reference)
+    from stateright_tpu_torch.ops.hashtable import (make_table,
+                                                    start_bucket,
+                                                    table_insert_reference)
+    from stateright_tpu_torch.ops.words import from_numpy_u32, pack64
+    model = TwoPhaseSys(5)
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(f)
+    args = _frontier(model, f, rng, True, dev)
+    canon = sorted({model.fingerprint(model.representative(s))
+                    for s in _reachable(model)})
+    known = np.array([canon[i] for i in
+                      rng.choice(len(canon), len(canon) // 2,
+                                 replace=False)], np.uint64)
+    khi = from_numpy_u32((known >> np.uint64(32)).astype(np.uint32), dev)
+    klo = from_numpy_u32(known.astype(np.uint32), dev)
+    out = {}
+    for name, fn in (("kernel", fused_step), ("plain", fused_step_reference)):
+        table = make_table(1 << 14, dev)
+        table_insert_reference(table, khi, klo,
+                               torch.ones_like(khi, dtype=torch.bool))
+        ring = torch.zeros((1 << 10,), dtype=torch.int64, device=dev)
+        half = slice(0, known.shape[0] // 2)
+        ring[start_bucket(khi[half], klo[half], 1 << 10)] = \
+            pack64(khi[half], klo[half])
+        res = fn(model, *args, table, ring, symmetry=True)
+        out[name] = (res, sorted(table[table != 0].tolist()))
+    (k, kt), (p, pt) = out["kernel"], out["plain"]
+    keys = pack64(k.chi, k.clo)
+    kk = keys[k.inserted]
+    assert set(kk.tolist()) == set(keys[p.inserted].tolist())
+    assert kk.shape[0] == len(set(kk.tolist())) and kt == pt
+    lanes = torch.arange(keys.shape[0], device=dev)
+    uniq, inv = torch.unique(keys[k.cvalid], return_inverse=True)
+    first = torch.full((uniq.shape[0],), keys.shape[0], dtype=torch.int64,
+                       device=dev)
+    first.scatter_reduce_(0, inv, lanes[k.cvalid], reduce="amin")
+    won = first[torch.searchsorted(uniq, kk)]
+    assert torch.equal(won, lanes[k.inserted])
+    # the tile stage: one lane per key and tile, the tile's lowest
+    assert bool((k.dvalid <= k.cvalid).all())
+    geo = _cuda.tile_geometry(f, model.max_actions, _cuda.sm_count(dev))
+    tile = lanes // (geo.rows * model.max_actions)
+    tkey = tile * (1 << 20) + torch.unique(keys, return_inverse=True)[1]
+    tu, tinv = torch.unique(tkey[k.cvalid], return_inverse=True)
+    tfirst = torch.full((tu.shape[0],), keys.shape[0], dtype=torch.int64,
+                        device=dev)
+    tfirst.scatter_reduce_(0, tinv, lanes[k.cvalid], reduce="amin")
+    reached = tfirst[torch.searchsorted(tu, tkey[k.dvalid])]
+    assert torch.equal(reached, lanes[k.dvalid])
+    assert int(k.dvalid.sum()) < int(k.cvalid.sum())
