@@ -125,6 +125,9 @@ DIGEST_2PC16_REF = ("6284d610fdbea7532587dc7e1c5b8ad8"
 #: counted at the fp32 CUDA-core rate.
 HBM_BYTES_S = 3.35e12
 CORE_OPS_S = 67e12
+#: threads per block of K3 and of K5's commit (``kCommitThreads`` of
+#: stateright_tpu_torch/csrc/step_common.cuh)
+COMMIT_THREADS = 64
 
 
 def emit(**fields) -> None:
@@ -145,8 +148,8 @@ def fp_digest(fps) -> str:
 #: this port's kernels, by the name each has in the profiler; longer
 #: names first, so a name that contains another is matched as itself
 _OURS = ("dedup_claim_kernel", "dedup_commit_kernel", "probe_claim_kernel",
-         "probe_commit_kernel", "predup_kernel", "expand_kernel",
-         "claim_kernel", "commit_kernel", "insert_kernel")
+         "probe_commit_kernel", "expand_kernel", "claim_kernel",
+         "commit_kernel", "insert_kernel")
 
 
 def kernel_name(symbol: str):
@@ -314,14 +317,16 @@ def bound(nbytes: int, ops: int) -> dict:
 
 
 def kernel_parts(model, f: int, symmetry: bool, cc: int, by_kernel,
-                 counts=None) -> dict:
+                 counts=None, noprobe=None) -> dict:
     """Per kernel of one step over ``f`` rows: its device ms (from
     ``by_kernel``, a profiled call), its own bound and its launch
     geometry. K1 (expand) always; with ``counts = (valid lanes, tile
     winners, tile winners that reached the table, inserted lanes)`` also
-    K2 (claim) and K3 (commit) of the single-chip step. Each kernel counts its own inputs
-    read once and outputs written once, so the parts' bounds add up to
-    more than the step's (K1's outputs are K2's inputs)."""
+    K2 (claim) and K3 (commit) of the single-chip step; with ``noprobe =
+    (valid lanes, tile winners, tile winners the ring held, claims)``
+    K5's claim and commit of the probe-free step. Each kernel counts its
+    own inputs read once and outputs written once, so the parts' bounds
+    add up to more than the step's (K1's outputs are K2's inputs)."""
     import torch
 
     from stateright_tpu_torch.ops import _cuda
@@ -331,8 +336,11 @@ def kernel_parts(model, f: int, symmetry: bool, cc: int, by_kernel,
     lanes = f * a
     pcols = max(len(model.properties()), 1)
     by_kernel = by_kernel or {}
-    geometry = _cuda.tile_geometry(
-        f, a, _cuda.sm_count(torch.cuda.current_device()))._asdict()
+    tiles = _cuda.tile_geometry(
+        f, a, _cuda.sm_count(torch.cuda.current_device()))
+    geometry = tiles._asdict()
+    # K3 and K5's commit: one block per tile, COMMIT_THREADS threads
+    commit_geometry = {"threads": COMMIT_THREADS, "blocks": tiles.blocks}
     k1 = "expand_kernel_sym" if symmetry else "expand_kernel"
     parts = {k1: {
         "device_ms": by_kernel.get(k1),
@@ -347,21 +355,47 @@ def kernel_parts(model, f: int, symmetry: bool, cc: int, by_kernel,
         valid, winners, table, ins = counts
         parts["claim_kernel"] = {
             "device_ms": by_kernel.get("claim_kernel"),
-            # cvalid, chi/clo, dvalid, lane_slot per lane; the ring per
+            # cvalid, chi/clo, dvalid, inserted per lane; the ring per
             # tile winner; a bucket and the owner word per tile winner
-            # that reaches the table; the claim, stamp and ring arena per
-            # inserted lane; 16 operations per valid lane for the tile
-            # dedup and 12 per table probe
-            **bound(lanes * 14 + (winners * 8 if cc else 0)
-                    + table * (32 + 8) + ins * (8 + 4 + 8),
+            # that reaches the table; the claim, the ring arena and the
+            # 8-byte claims-list entry per inserted lane; a count per
+            # tile; 16 operations per valid lane for the tile dedup and
+            # 12 per table probe
+            **bound(lanes * 11 + (winners * 8 if cc else 0)
+                    + table * (32 + 8) + ins * (8 + 8 + 8)
+                    + tiles.blocks * 4,
                     valid * 16 + table * 12),
             "geometry": geometry}
         parts["commit_kernel"] = {
             "device_ms": by_kernel.get("commit_kernel"),
-            # lane_slot and inserted per lane; stamp and owner per lane
-            # with a slot; key, ring arena and ring per inserted lane
-            **bound(lanes * 5 + table * 12 + ins * 24, lanes * 4),
-            "geometry": {"threads": 256, "blocks": -(-lanes // 256)}}
+            # a count per tile; per claim its entry (table slot and ring
+            # slot), owner word and inserted byte, and the ring arena
+            # slot and the ring write
+            **bound(tiles.blocks * 4
+                    + ins * (8 + 8 + 1 + ((8 + 8) if cc else 0)),
+                    ins * 8),
+            "geometry": commit_geometry}
+    if noprobe is not None:
+        valid, winners, held, claims = noprobe
+        parts["dedup_claim_kernel"] = {
+            "device_ms": by_kernel.get("dedup_claim_kernel"),
+            # cvalid, chi/clo, dvalid per lane; the ring per tile winner;
+            # the arena key and owner word per winner the ring did not
+            # hold; the 8-byte claims-list entry per claim; a count per
+            # tile; 16 operations per valid lane for the tile dedup and 4
+            # per arena probe
+            **bound(lanes * 10 + (winners * 8 if cc else 0)
+                    + (winners - held) * 16 + claims * 8
+                    + tiles.blocks * 4,
+                    valid * 16 + (winners - held) * 4),
+            "geometry": geometry}
+        parts["dedup_commit_kernel"] = {
+            "device_ms": by_kernel.get("dedup_commit_kernel"),
+            # a count per tile; per claim its cell, owner word, dvalid
+            # byte and the cell's clear
+            **bound(tiles.blocks * 4 + claims * (8 + 8 + 1 + 8),
+                    claims * 8),
+            "geometry": commit_geometry}
     return parts
 
 
@@ -396,9 +430,9 @@ def check_step(model, carry, f: int, reps: int, symmetry: bool = False,
     import numpy as np
     import torch
 
-    from stateright_tpu_torch.ops import _cuda
     from stateright_tpu_torch.ops.fused import (S_CCH, S_DEDUP, S_DISC,
-                                                S_OVF, S_XOVF, StepWorkspace,
+                                                S_FAULT, S_INSERTED, S_OVF,
+                                                S_XOVF, StepWorkspace,
                                                 fused_step,
                                                 fused_step_reference)
     from stateright_tpu_torch.ops.words import pack64
@@ -412,6 +446,7 @@ def check_step(model, carry, f: int, reps: int, symmetry: bool = False,
     ws = StepWorkspace(table0.numel(), ring0.shape[0], n_props,
                        block.device)
     k = fused_step(model, *args, t_k, r_k, ws, symmetry=symmetry)
+    n_claims = int(ws.n_claims.sum())  # K2's claims, which K3 walks
     # the plain version walks its blocks one after another: it is timed
     # on this one comparison step only
     start = torch.cuda.Event(enable_timing=True)
@@ -441,20 +476,18 @@ def check_step(model, carry, f: int, reps: int, symmetry: bool = False,
     table_p = np.sort(t_p[t_p != 0].cpu().numpy())
     sk, sp = k.stats.cpu().numpy(), p.stats.cpu().numpy()
     # K2's tile stage passes one lane per key and tile to the ring
-    geo = _cuda.tile_geometry(f, model.max_actions,
-                              _cuda.sm_count(block.device))
-    lane = torch.arange(k.cvalid.shape[0], device=block.device)
-    pairs = torch.stack([lane // (geo.rows * model.max_actions),
-                         pack64(k.chi, k.clo)], 1)[k.cvalid]
     checks = {
         "lane_exact": err == 0,
         "tile_winners": int(sk[S_DEDUP]) + int(sk[S_CCH])
-        == torch.unique(pairs, dim=0).shape[0],
+        == tile_key_pairs(k, k.cvalid, f, model.max_actions),
         "inserted_set": ks == ps,
         "one_lane_per_key": len(kk) == len(ks) and len(pk) == len(ps),
         "table_set": np.array_equal(table_k, table_p),
         "discoveries": np.array_equal(sk[S_DISC:], sp[S_DISC:]),
-        "flags": (sk[S_XOVF], sk[S_OVF]) == (sp[S_XOVF], sp[S_OVF]),
+        "flags": bool((sk[S_XOVF], sk[S_OVF]) == (sp[S_XOVF], sp[S_OVF])
+                      and sk[S_FAULT] == 0),
+        # one claimed slot per inserted lane
+        "claims": n_claims == int(sk[S_INSERTED]) == len(kk),
         "lowest_lane_wins": lowest_lane_wins(k),
         # K2's tile stage keeps the rule over every valid lane
         "lowest_valid_lane_wins": lowest_lane_wins(k, among=k.cvalid),
@@ -492,7 +525,8 @@ def check_step(model, carry, f: int, reps: int, symmetry: bool = False,
     ops = lanes * step_ops(model, symmetry) + n_table * 12
     return {"f": f, "lanes": lanes, "valid": n_valid,
             "tile_winners": n_win, "to_table": n_table,
-            "inserted": n_ins, "max_abs_err": err, "ms": ms,
+            "inserted": n_ins, "claims": n_claims, "max_abs_err": err,
+            "ms": ms,
             "device_ms": dev["ours_ms"],
             "device_by_kernel_ms": dev["by_kernel_ms"],
             "plain_ms": plain_ms, **bound(nbytes, ops),
@@ -571,6 +605,22 @@ def ring_hits(out, ring):
     return out.cvalid & (ring[slot] == keys)
 
 
+def tile_key_pairs(out, mask, f: int, a: int) -> int:
+    """The distinct (tile, key) pairs among the ``mask``-ed lanes of a
+    step over ``f`` rows of ``a`` lanes, at the card's tile geometry: the
+    tile winners there are among them."""
+    import torch
+
+    from stateright_tpu_torch.ops import _cuda
+    from stateright_tpu_torch.ops.words import pack64
+
+    geo = _cuda.tile_geometry(f, a, _cuda.sm_count(out.chi.device))
+    lane = torch.arange(out.chi.shape[0], device=out.chi.device)
+    pairs = torch.stack([lane // (geo.rows * a), pack64(out.chi, out.clo)],
+                        1)[mask]
+    return torch.unique(pairs, dim=0).shape[0]
+
+
 def check_noprobe(model, carry, f: int, reps: int, symmetry: bool = False,
                   pfp=None) -> dict:
     """K1 + K5 (one ``fused_step(probe=False)``, the symmetric
@@ -578,13 +628,14 @@ def check_noprobe(model, carry, f: int, reps: int, symmetry: bool = False,
     card over ``f`` pending rows of ``carry`` and its ring: lane-exact
     outputs, scalars and discoveries; ``dvalid`` by the key-set gate (a
     subset of the valid lanes the ring does not hold, with their key set,
-    one lane per key, the lowest)."""
+    one lane per key, the lowest); the ring-hit count recounted over the
+    tile winners; the key arena clean after the step."""
     import torch
 
-    from stateright_tpu_torch.ops.fused import (S_CCH, S_DISC, S_OVF,
+    from stateright_tpu_torch.ops.fused import (S_CCH, S_DEDUP, S_DISC,
+                                                S_FAULT, S_INSERTED, S_OVF,
                                                 S_VALID, S_XOVF,
-                                                DedupWorkspace, _block_rows,
-                                                fused_step,
+                                                DedupWorkspace, fused_step,
                                                 fused_step_reference)
     from stateright_tpu_torch.ops.words import pack64
 
@@ -593,13 +644,14 @@ def check_noprobe(model, carry, f: int, reps: int, symmetry: bool = False,
     block, args = block_args(model, carry, f, pfp)
     args += (None, carry.ring)
     n_props = len(model.properties())
-    ws = DedupWorkspace(f * a, _block_rows(f) * a, carry.ring.shape[0],
-                        n_props, block.device)
+    ws = DedupWorkspace(f * a, carry.ring.shape[0], n_props, block.device)
 
     def launch():
         return fused_step(model, *args, ws, probe=False, symmetry=symmetry)
 
     k = launch()
+    n_claims = int(ws.n_claims.sum())  # K5's claims, which its commit walks
+    arena_clean = not bool(ws.arena.any())
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -622,10 +674,16 @@ def check_noprobe(model, carry, f: int, reps: int, symmetry: bool = False,
     kd = keys[k.dvalid].cpu().numpy()
     pd = keys[p.dvalid].cpu().numpy()
     live_keys = set(keys[live].cpu().numpy().tolist())
+    # K5's tile stage passes one lane per key and tile to the ring: S_CCH
+    # counts those the ring holds
+    n_win = tile_key_pairs(k, k.cvalid, f, a)
+    n_held = tile_key_pairs(k, hit, f, a)
     checks = {
         "lane_exact": err == 0,
-        "scalars": all(sk[i] == sp[i] for i in (S_XOVF, S_OVF, S_CCH,
-                                                 S_VALID)),
+        "scalars": bool(all(sk[i] == sp[i] for i in (S_XOVF, S_OVF,
+                                                      S_VALID))
+                        and sk[S_FAULT] == 0),
+        "ring_hits": int(sk[S_CCH]) == n_held,
         "discoveries": bool((sk[S_DISC:] == sp[S_DISC:]).all()),
         "dvalid_subset": bool((k.dvalid <= live).all()),
         "dvalid_key_set": set(kd.tolist()) == live_keys
@@ -633,29 +691,41 @@ def check_noprobe(model, carry, f: int, reps: int, symmetry: bool = False,
         "one_lane_per_key": len(kd) == len(set(kd.tolist())),
         "lowest_lane_wins": lowest_lane_wins(k._replace(
             dvalid=live, inserted=k.dvalid)),
+        # one claimed cell per kept lane
+        "claims": n_claims == int(sk[S_DEDUP]) == int(sk[S_INSERTED])
+        == len(kd),
+        # each claim's commit cleared its cell: no memset before a step
+        "arena_clean": arena_clean,
     }
     if not all(checks.values()):
         raise AssertionError(f"probe-free step f={f} disagrees with its "
                              f"plain version: {checks}")
     ms = cuda_ms(launch, reps)
     dev = device_times(launch)
+    if ws.arena.any():
+        raise AssertionError(f"probe-free step f={f}: the key arena is not "
+                             "clean after the timed steps")
     lanes = f * a
     n_valid = int(k.cvalid.sum())
     nbytes = (f * (4 * w + 4 + 8 + 1)            # frontier, ebits, fps, fvalid
               + f * (max(n_props, 1) + 4 + 1)    # pbits, ebits, terminal
               + lanes * (4 * w + 8 + 2)          # flat, chi/clo, 2 masks
               + lanes * (8 if symmetry else 0)   # ohi/olo
-              + n_valid * 8)                     # ring probes
+              + n_win * 8)                       # ring probes
     ops = lanes * step_ops(model, symmetry) + n_valid * 16
     return {"f": f, "lanes": lanes, "valid": n_valid,
-            "ring_hits": int(sk[S_CCH]), "dvalid": len(kd),
-            "dvalid_plain": len(pd), "max_abs_err": err, "ms": ms,
+            "tile_winners": n_win, "ring_hits": int(sk[S_CCH]),
+            "ring_hits_plain": int(sp[S_CCH]), "dvalid": len(kd),
+            "dvalid_plain": len(pd), "claims": n_claims,
+            "max_abs_err": err, "ms": ms,
             "device_ms": dev["ours_ms"],
             "device_by_kernel_ms": dev["by_kernel_ms"],
             "memset_ms": dev["copy_ms"], "plain_ms": plain_ms,
             **bound(nbytes, ops),
             "parts": kernel_parts(model, f, symmetry, carry.ring.shape[0],
-                                  dev["by_kernel_ms"]),
+                                  dev["by_kernel_ms"],
+                                  noprobe=(n_valid, n_win, n_held,
+                                           n_claims)),
             "checks": checks}, k
 
 

@@ -35,8 +35,8 @@ import numpy as np
 import torch
 
 from ..ops.expand import assemble_candidates, small_step_sizes
-from ..ops.fused import (S_CCH, S_DEDUP, S_DISC, S_INSERTED, S_OVF,
-                         S_ROUNDS, S_VALID, S_XOVF, StepWorkspace,
+from ..ops.fused import (S_CCH, S_DEDUP, S_DISC, S_FAULT, S_INSERTED,
+                         S_OVF, S_ROUNDS, S_VALID, S_XOVF, StepWorkspace,
                          fused_step)
 from ..ops.hashtable import make_table
 from ..ops.words import (from_numpy_u32, keys_from_numpy, keys_to_numpy,
@@ -186,6 +186,9 @@ def step_once(model, carry: ChunkCarry, fmax_b: int,
     st = out.stats.cpu().numpy()
     stats.sync_s += time.perf_counter() - t0
     stats.syncs += 1
+    if st[S_FAULT]:
+        raise RuntimeError("the step kernel found a claimed slot without "
+                           "this step's owner word (S_FAULT)")
     cnt = int(st[S_INSERTED])
     if cnt:
         src = src[:cnt]

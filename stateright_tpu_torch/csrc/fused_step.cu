@@ -24,17 +24,19 @@
 //                      candidates (atomicMin of the row per property:
 //                      the lowest row wins, which is the Pallas rule
 //                      "first block with a hit, first row in it").
-//   K2 claim_kernel    one block per tile of K1's: the tile's lowest
-//                      valid lane of each key, found in a shared
-//                      open-addressed table,
-//                      probes the cross-chunk ring as it stood when the
-//                      step began (a hit kills the lane), then walks the
-//                      4-slot buckets of the visited table and claims the
-//                      first empty slot with a 64-bit atomicCAS; the
-//                      tile's other lanes stop there.
-//   K3 commit_kernel   one thread per lane: resolve which lane of each
-//                      fresh key is the inserted one, write the ring,
-//                      publish the per-step discovery registers.
+//   K2 claim_kernel    one block per tile of K1's: the tile stage
+//                      (step_common.cuh) finds the tile's lowest valid
+//                      lane of each key in a shared open-addressed table;
+//                      only those probe the cross-chunk ring as it stood
+//                      when the step began (a hit kills the lane), then
+//                      walk the 4-slot buckets of the visited table and
+//                      claim the first empty slot with a 64-bit
+//                      atomicCAS; each claimed slot goes on the tile's
+//                      claims list.
+//   K3 commit_kernel   one block per tile, over its claims only: the
+//                      inserted lane of each claimed slot (its owner
+//                      word), the ring write, and the per-step discovery
+//                      registers.
 //   K4 insert_kernel   the probe/claim of K2 on its own, for seeding and
 //                      growth.
 //
@@ -49,17 +51,18 @@
 //     LOWEST valid lane carrying it. Every tile winner (the lowest valid
 //     lane of its key in its tile) whose probe ends at slot s
 //     atomicMin's ((~step) << 32 | lane) into owner[s]; the lane whose
-//     CAS claimed s writes stamp[s] = step. After K2, lane l is inserted
-//     iff stamp[slot(l)] == step and owner[slot(l)] holds its own word:
-//     the minimum of the tiles' minima. The step tag in the high half
-//     makes older owner words larger, so owner and stamp never need
-//     clearing between steps. The tile stage changes which lanes reach
-//     the table (dvalid, lane_slot, the ring-hit and round counts), not
+//     CAS claimed s lists s among its tile's claims. After K2, the
+//     inserted lane of each claimed slot is the low half of owner[s]:
+//     the minimum of the tiles' minima, which may be a lane of another
+//     tile than the claimer's. The step tag in the high half makes older
+//     owner words larger, so they never need clearing between steps, and
+//     K3 checks it (S_FAULT otherwise). The tile stage changes which
+//     lanes reach the table (dvalid, the ring-hit and round counts), not
 //     which lane is inserted.
-//   * Ring: the claiming lane atomicMin's its key into ring_arena[slot];
-//     in K3 the inserted lane of the smallest fresh key of each ring
-//     slot writes it: one deterministic writer per slot. K1 resets the
-//     arena for the step.
+//   * Ring: the claiming lane atomicMin's its key into ring_arena[rs];
+//     in K3 every claim of ring slot rs writes ring[rs] =
+//     ring_arena[rs], the same value: the smallest fresh key of the slot,
+//     whatever the order. K1 resets the arena for the step.
 //   * Within one step K2 sees no ring entries written in that step
 //     (the Pallas grid's later blocks do); such lanes die in the table
 //     probe instead, so the inserted key set is the same.
@@ -80,8 +83,11 @@
 // and tile to the ring and the table (~90 % of 2pc7's valid lanes carry
 // a key already there or claimed in the same step; under symmetry the n
 // lanes of an action family often share one canonical key), reads a
-// bucket as two 16-byte L2 loads, and adds its counters once per block.
-// At the thin-frontier step (256 rows) the tiles shrink to one row per
+// bucket as two 16-byte L2 loads, and adds its counters once per block;
+// K3 reads nothing per lane: it walks the ~2 * 10^4 claimed slots of a
+// large step (of 454,656 lanes at 2pc n=7), which K2 listed per tile
+// with their ring slots, since K2 already writes every lane's inserted =
+// 0. At the thin-frontier step (256 rows) the tiles shrink to one row per
 // block so the launch still spreads over the SMs; latency rules there.
 
 #include "step_common.cuh"
@@ -102,147 +108,108 @@ struct InsertArgs {
 
 namespace {
 
-// K2. One block per tile of whole rows (a.tile, K1's tiles), in three
-// phases:
-//   1. every valid lane enters (key, its tile lane) into an
-//      open-addressed table of a.tile.cells shared cells (64-bit CAS on
-//      the key, atomicMin on the lane), so each cell ends holding the
-//      tile's LOWEST valid lane of its key;
-//   2. those tile winners go to a shared list (warp-aggregated); every
-//      other lane is done: dvalid = 0, lane_slot = -1;
-//   3. one thread per winner: the ring probe (read only in K2, through
-//      the read-only path; a hit kills the lane: committed in an earlier
-//      step), then the bucket walk and claim of probe_claim, stamp[s] =
-//      step by the claiming lane, and the owner word ((~step) << 32 |
-//      lane) atomicMin'ed into owner[s] by every winner whose probe ends
-//      at s, a claimer or not (a claimer of this step may not have
-//      written its stamp yet).
-// owner[s] so ends holding the minimum of the tiles' minima: the lowest
-// valid lane of each fresh key, as without the tile stage.
+// K2. One block per tile of whole rows (a.tile, K1's tiles): the tile
+// stage (step_common.cuh: the tile's LOWEST valid lane of each key goes
+// on; every lane gets inserted = 0 and every other lane dvalid = 0), then
+// one thread per tile winner: the ring probe (read only in K2, through
+// the read-only path; a hit kills the lane: committed in an earlier
+// step), then the bucket walk and claim of probe_claim, and the owner
+// word ((~step) << 32 | lane) atomicMin'ed into owner[s] by every winner
+// whose probe ends at s, a claimer or not (the claimer may be a higher
+// lane of another tile). owner[s] so ends holding the minimum of the
+// tiles' minima: the lowest valid lane of each fresh key, as without the
+// tile stage. The claiming lane atomicMin's its key into the ring arena
+// and appends (ring slot << 32 | s) to the tile's claims
+// (warp-aggregated, in the tile's own lane range of a.claims: a tile
+// claims at most one slot per lane); the tile's count goes to a.n_claims
+// and S_INSERTED: each claimed slot is one inserted lane, which K3
+// finds.
 __global__ void claim_kernel(StepArgs a) {
-  extern __shared__ __align__(16) unsigned char tile_smem[];
-  const TileGeometry& g = a.tile;
-  const int A = a.A;
-  unsigned long long* s_key = reinterpret_cast<unsigned long long*>(tile_smem);
-  uint32_t* s_lane = reinterpret_cast<uint32_t*>(s_key + g.cells);
-  uint32_t* s_cell = s_lane + g.cells;  // [rows * A] tile lane -> cell
-  uint32_t* s_win = s_cell + g.rows * A;  // [rows * A] the tile's winners
-  __shared__ int s_nwin, s_cch, s_dv, s_rounds;
-  const long long row0 = (long long)blockIdx.x * g.rows;
-  const int nrows = (int)min((long long)g.rows, (long long)a.F - row0);
-  const int n = nrows * A;
-  const long long lane0 = row0 * A;
-  const uint32_t cmask = (uint32_t)g.cells - 1u;
-  if (threadIdx.x == 0) s_nwin = s_cch = s_dv = s_rounds = 0;
-  for (int c = threadIdx.x; c < g.cells; c += blockDim.x) {
-    s_key[c] = 0ull;
-    s_lane[c] = ~0u;
-  }
-  __syncthreads();
-  // 1. at most half the cells are ever taken: each walk ends
-  for (int t = threadIdx.x; t < n; t += blockDim.x) {
-    const long long l = lane0 + t;
-    uint32_t cell = ~0u;
-    if (a.cvalid[l]) {
-      const uint32_t hi = a.chi[l], lo = a.clo[l];
-      const unsigned long long key = ((unsigned long long)hi << 32) | lo;
-      uint32_t c = (lo ^ (hi * kPhi)) & cmask;
-      while (true) {
-        const unsigned long long prev = atomicCAS(&s_key[c], 0ull, key);
-        if (prev == 0ull || prev == key) break;
-        c = (c + 1) & cmask;
-      }
-      atomicMin(&s_lane[c], (uint32_t)t);
-      cell = c;
-    }
-    s_cell[t] = cell;
-  }
-  __syncthreads();
-  // 2. uniform trip count: the ballot needs the whole warp
-  for (int base = 0; base < n; base += blockDim.x) {
-    const int t = base + threadIdx.x;
-    bool win = false;
-    if (t < n) {
-      const uint32_t c = s_cell[t];
-      win = c != ~0u && s_lane[c] == (uint32_t)t;
-      if (!win) {
-        a.dvalid[lane0 + t] = 0;
-        a.lane_slot[lane0 + t] = -1;
-      }
-    }
-    const unsigned ballot = __ballot_sync(0xFFFFFFFFu, win);
-    const int wl = threadIdx.x & 31;
-    int at = 0;
-    if (wl == 0 && ballot) at = atomicAdd(&s_nwin, __popc(ballot));
-    at = __shfl_sync(0xFFFFFFFFu, at, 0);
-    if (win) s_win[at + __popc(ballot & ((1u << wl) - 1u))] = (uint32_t)t;
-  }
-  __syncthreads();
-  // 3.
-  const int nwin = s_nwin;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const TileSmem s = tile_stage_smem(smem, a.tile, a.A);
+  __shared__ int s_nwin, s_ncl, s_cch, s_dv, s_rounds;
+  const Tile t = tile_of(a);
+  if (threadIdx.x == 0) s_ncl = s_cch = s_dv = s_rounds = 0;
+  const int nwin = tile_stage(a, s, t, &s_nwin, a.inserted, a.dvalid);
   const unsigned long long tag = (unsigned long long)(~a.step) << 32;
   int cch = 0, dvs = 0, rounds = 0;
-  for (int i = threadIdx.x; i < nwin; i += blockDim.x) {
-    const int t = (int)s_win[i];
-    const long long l = lane0 + t;
-    const unsigned long long key = s_key[s_cell[t]];
-    const uint32_t hi = (uint32_t)(key >> 32), lo = (uint32_t)key;
-    const uint32_t rs =
-        a.cc ? ((lo ^ (hi * kPhi)) & (uint32_t)(a.cc - 1)) : 0u;
-    int dv = 0, slot = -1;
-    if (a.cc && __ldg(a.ring + rs) == key) {
-      ++cch;  // committed in an earlier step: a duplicate
-    } else {
-      dv = 1;
-      long long s;
-      int r;
-      const int st = probe_claim(a.keys, a.n_buckets, hi, lo, a.max_rounds,
-                                 &s, &r);
-      rounds = max(rounds, r);
-      if (st == PROBE_OVF) {
-        atomicOr(&a.stats[S_OVF], 1);
+  // uniform trip count: the claims list's ballot needs the whole warp
+  for (int base = 0; base < nwin; base += blockDim.x) {
+    const int i = base + threadIdx.x;
+    bool claimed = false;
+    unsigned long long claim = 0ull;  // ring slot << 32 | table slot
+    if (i < nwin) {
+      const uint32_t tl = s.win[i];
+      const long long l = t.lane0 + tl;
+      const unsigned long long key = s.key[s.cell[tl]];
+      const uint32_t hi = (uint32_t)(key >> 32), lo = (uint32_t)key;
+      const uint32_t rs =
+          a.cc ? ((lo ^ (hi * kPhi)) & (uint32_t)(a.cc - 1)) : 0u;
+      int dv = 0;
+      if (a.cc && __ldg(a.ring + rs) == key) {
+        ++cch;  // committed in an earlier step: a duplicate
       } else {
-        if (st == PROBE_CLAIMED) {
-          a.stamp[s] = a.step;
-          if (a.cc) atomicMin(&a.ring_arena[rs], key);
+        dv = 1;
+        long long slot;
+        int r;
+        const int st = probe_claim(a.keys, a.n_buckets, hi, lo,
+                                   a.max_rounds, &slot, &r);
+        rounds = max(rounds, r);
+        if (st == PROBE_OVF) {
+          atomicOr(&a.stats[S_OVF], 1);
+        } else {
+          if (st == PROBE_CLAIMED) {
+            if (a.cc) atomicMin(&a.ring_arena[rs], key);
+            claimed = true;
+            claim = ((unsigned long long)rs << 32) | (unsigned long long)slot;
+          }
+          atomicMin(&a.owner[slot], tag | (unsigned long long)l);
         }
-        atomicMin(&a.owner[s], tag | (unsigned long long)l);
-        slot = (int)s;
       }
+      dvs += dv;
+      a.dvalid[l] = (uint8_t)dv;
     }
-    dvs += dv;
-    a.dvalid[l] = (uint8_t)dv;
-    a.lane_slot[l] = slot;
+    warp_append(a.claims + t.lane0, &s_ncl, claimed, claim);
   }
   warp_add(&s_cch, cch);
   warp_add(&s_dv, dvs);
   warp_max(&s_rounds, rounds);
   __syncthreads();
   if (threadIdx.x == 0) {
+    a.n_claims[blockIdx.x] = s_ncl;
+    if (s_ncl) atomicAdd(&a.stats[S_INSERTED], s_ncl);
     if (s_cch) atomicAdd(&a.stats[S_CCH], s_cch);
     if (s_dv) atomicAdd(&a.stats[S_DEDUP], s_dv);
     if (s_rounds) atomicMax(&a.stats[S_ROUNDS], s_rounds);
   }
 }
 
-__global__ void commit_kernel(StepArgs a, long long n) {
-  const long long l = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  const unsigned long long tag = (unsigned long long)(~a.step) << 32;
-  if (l == 0) publish_discoveries(a);
-  int ins = 0;
-  if (l < n) {
-    const int s = a.lane_slot[l];
-    ins = s >= 0 && a.stamp[s] == a.step &&
-          a.owner[s] == (tag | (unsigned long long)l);
-    a.inserted[l] = (uint8_t)ins;
-    if (ins && a.cc) {
-      const uint32_t hi = a.chi[l], lo = a.clo[l];
-      const unsigned long long key = ((unsigned long long)hi << 32) | lo;
-      const uint32_t rs = (lo ^ (hi * kPhi)) & (uint32_t)(a.cc - 1);
-      if (a.ring_arena[rs] == key) a.ring[rs] = key;
+// K3. One block per tile of K2's launch, over that tile's claims only:
+// for each slot s it claimed, the inserted lane is the owner word's low
+// half (the lowest valid lane of the key, which may lie in another tile:
+// the claimer is only its own tile's lowest), and the key's ring slot rs
+// gets ring_arena[rs], the smallest fresh key of that slot, which every
+// claim of rs writes alike. An owner word without this step's tag is a
+// kernel fault: S_FAULT, which the host loop raises. Block 0 publishes
+// the step's discovery registers. Each claim is two dependent loads (the
+// claim, then its owner word and ring arena slot together), and a thread
+// reads its first claim with the tile's count (claims_walk).
+__global__ void commit_kernel(StepArgs a) {
+  if (blockIdx.x == 0 && threadIdx.x == 0) publish_discoveries(a);
+  const long long lanes = (long long)a.F * a.A;
+  claims_walk(a, [&](unsigned long long claim) {
+    const long long s = (long long)(claim & 0xFFFFFFFFull);
+    const uint32_t rs = (uint32_t)(claim >> 32);
+    const unsigned long long word = a.owner[s];
+    const unsigned long long smallest = a.cc ? a.ring_arena[rs] : 0ull;
+    const long long lane = owner_lane(word, a.step, lanes);
+    if (lane < 0) {
+      atomicOr(&a.stats[S_FAULT], 1);
+      return;
     }
-  }
-  warp_add(&a.stats[S_INSERTED], ins);
+    a.inserted[lane] = 1;
+    if (a.cc) a.ring[rs] = smallest;
+  });
 }
 
 __global__ void insert_kernel(InsertArgs a) {
@@ -262,31 +229,21 @@ __global__ void insert_kernel(InsertArgs a) {
   warp_max(&a.stats[1], rounds);
 }
 
-// K2's dynamic shared memory: cells keys and lanes, and per tile lane
-// its cell and a slot of the winner list.
-inline size_t claim_smem(const TileGeometry& g, int A) {
-  return (size_t)g.cells * (sizeof(unsigned long long) + sizeof(uint32_t)) +
-         (size_t)g.rows * A * 2 * sizeof(uint32_t);
-}
-
 template <class M, bool SYM>
 int launch_step(const M& m, const StepArgs& a) {
   cudaStream_t st = static_cast<cudaStream_t>(a.stream);
-  const long long lanes = (long long)a.F * a.A;
   const TileGeometry& g = a.tile;
-  if (!geometry_ok(g, a.F, a.A) || g.cells < 2 * g.rows * a.A ||
-      (g.cells & (g.cells - 1)) != 0)
-    return (int)cudaErrorInvalidValue;
+  if (!tile_stage_ok(g, a.F, a.A)) return (int)cudaErrorInvalidValue;
   cudaError_t e = launch_expand<M, SYM>(m, a, st);
   if (e != cudaSuccess) return (int)e;
-  if (lanes == 0) return 0;
-  const size_t smem = claim_smem(g, a.A);
+  if ((long long)a.F * a.A == 0) return 0;
+  const size_t smem = tile_stage_smem_bytes(g, a.A);
   e = allow_smem(claim_kernel, smem);
   if (e != cudaSuccess) return (int)e;
   claim_kernel<<<g.blocks, g.threads, smem, st>>>(a);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  commit_kernel<<<blocks_for(lanes), kThreads, 0, st>>>(a, lanes);
+  commit_kernel<<<g.blocks, kCommitThreads, 0, st>>>(a);
   return (int)cudaGetLastError();
 }
 

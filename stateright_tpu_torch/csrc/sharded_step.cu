@@ -21,63 +21,75 @@
 //                           fingerprints (canonical keys and original
 //                           ones under symmetry), validity, property
 //                           bits, discovery rows.
-//   K5 predup_kernel        one thread per lane: the JAX pre_dedup
-//                           arena of the lane's <=256-row block (the
-//                           lowest valid lane of each cell wins, by
-//                           atomicMin of the block-local lane).
-//      dedup_claim_kernel   one thread per lane that survives that
-//                           pre-dedup: probe the ring (read only; a hit
-//                           counts cch and drops the lane), then claim
-//                           the key in a step-wide scratch arena of
-//                           >= 2*F*A single-key cells (linear probing,
-//                           64-bit atomicCAS) and atomicMin the owner
-//                           word ((~step) << 32 | lane) of its cell.
-//      dedup_commit_kernel  one thread per lane: dvalid iff the lane
-//                           owns its cell, so the LOWEST surviving lane
-//                           of each key goes on, deterministically, and
-//                           no key twice; publishes the discoveries.
+//   K5 dedup_claim_kernel   one block per tile of K1's: the tile stage
+//                           of fused_step.cu's K2 (step_common.cuh: the
+//                           tile's lowest valid lane of each key; dvalid
+//                           = 0 for every lane), then one thread per tile
+//                           winner: probe the ring (read only; a hit
+//                           counts cch and drops the lane), else claim
+//                           the key in a step-wide arena of >= 2*F*A
+//                           single-key cells (linear probing, 64-bit
+//                           atomicCAS) and atomicMin the owner word
+//                           ((~step) << 32 | lane) of its cell; the lane
+//                           whose CAS took the cell lists it among its
+//                           tile's claims.
+//      dedup_commit_kernel  one block per tile, over its claims only:
+//                           dvalid for the owner lane of each claimed
+//                           cell (the LOWEST live lane of its key,
+//                           step-wide), and the cell cleared, so the
+//                           arena is all zero for the next step without a
+//                           memset; publishes the discoveries.
 //   K6 probe_claim_kernel   one thread per received lane: the 4-slot
 //                           bucket walk and claim of the visited-table
-//                           slice (probe_claim), stamp and owner words
-//                           as in fused_step.cu K2.
+//                           slice (probe_claim), and the owner word as
+//                           in fused_step.cu K2 with a claim stamp.
 //      probe_commit_kernel  one thread per lane: inserted iff its slot
 //                           was claimed in this call and it owns it:
 //                           the LOWEST received lane of each fresh key.
 //
 // Rules the design takes:
-//   * The pre-dedup is JAX's, lane for lane (same cells, same winner),
-//     so the ring probe sees the same lanes and counts the same hits
-//     (cch) as the plain version. The step-wide arena then drops what
-//     JAX keeps: a key repeated across blocks, or two lanes of one key
-//     whose cell a foreign key won. dvalid is therefore a subset of the
-//     plain version's with the same key set and one lane per key.
-//   * The arena is cleared (cudaMemsetAsync) before each step; owner
-//     words carry the step tag in their high half, so older words are
-//     larger and never need clearing (the rule of fused_step.cu).
+//   * dvalid keeps the lowest live lane of each key, step-wide: a key's
+//     lowest valid lane wins its own tile, the ring kills every lane of a
+//     key or none, and the owner word takes the minimum over the tile
+//     winners. So dvalid holds the plain version's key set with one lane
+//     per key, where JAX keeps one lane per key and <=256-row block, or
+//     more when a foreign key won the key's pre-dedup cell.
+//   * cch counts the tile winners whose key the ring holds, not the
+//     lanes that survive JAX's per-block pre-dedup as the plain version
+//     does: the same change as K2's.
+//   * The arena's cells are cleared by their claims' commit, so it is
+//     zero between steps (zeroed once, when the workspace is made, and
+//     shared by steps of every width up to its own); owner words carry
+//     the step tag in their high half, so older words are larger and
+//     never need clearing (the rule of fused_step.cu), and the commit
+//     checks the tag (S_FAULT otherwise).
 //   * K6 reuses fused_step.cu's winner rule on the table slice, so the
 //     owner's search record (which parent a child keeps) repeats run to
 //     run; the stand-alone insert kernel there lets a racing lane win.
 //
 // What bounds it on this card: at 2pc n=7 and F = 12,288 rows (454,656
 // lanes) the probe-free step writes ~7.3 MB of successors and ~3.6 MB
-// of fingerprints and clears a 6.3 MB pre-dedup arena and an 8 MB key
-// arena (all within the 50 MB L2): bytes bound it at a few
-// microseconds. K6 on ~57k received lanes reads ~0.5 MB of lanes and
-// one 32-byte bucket per lane: well under a microsecond of bytes; its
-// launches and the random bucket reads rule. A first, simple cut: one
-// thread per lane, global-memory atomics. Under symmetry only K1
-// changes (its symmetric instantiation; fused_step.cu notes its bound).
+// of fingerprints (all within the 50 MB L2): bytes bound it at a few
+// microseconds. The first cut cleared a 6.3 MB pre-dedup arena
+// and the 8 MB key arena each step and ran three one-thread-per-lane
+// kernels with global atomics after K1; now the tile stage keeps the
+// dedup of a tile in shared memory, only the ~67k tile winners touch the
+// ring and the arena, and the commit walks only the ~22k claims. K6 on
+// ~57k received lanes reads ~0.5 MB of lanes and one 32-byte bucket per
+// lane: well under a microsecond of bytes; its launches and the random
+// bucket reads rule (one thread per lane, global-memory atomics). Under
+// symmetry only K1 changes (its symmetric instantiation; fused_step.cu
+// notes its bound).
 
 #include "step_common.cuh"
 
 // Mirrored by ops/_cuda.py DedupArgs.
 struct DedupArgs {
-  StepArgs s;                       // K1's arguments (no table: keys,
-                                    // owner, stamp unused)
-  uint32_t* pre_arena;              // [F*A/block_lanes * pre_cells]
-  long long block_lanes;            // lanes of one pre-dedup block
-  long long pre_cells;              // cells of one block's arena
-  unsigned long long* arena;        // [cells] step-wide key arena
+  StepArgs s;                       // K1's and the tile stage's arguments
+                                    // (no table: keys, owner
+                                    // unused)
+  unsigned long long* arena;        // [cells] step-wide key arena, all 0
+                                    // between steps
   unsigned long long* arena_owner;  // [cells] owner words
   long long cells;
 };
@@ -106,75 +118,69 @@ __device__ __forceinline__ uint32_t key_hash(uint32_t hi, uint32_t lo) {
   return lo ^ (hi * kPhi);
 }
 
-__global__ void predup_kernel(DedupArgs d, long long n) {
+__global__ void dedup_claim_kernel(DedupArgs d) {
+  extern __shared__ __align__(16) unsigned char smem[];
   const StepArgs& a = d.s;
-  const long long l = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (l < n && a.cvalid[l]) {
-    const long long b = l / d.block_lanes;
-    const uint32_t local = (uint32_t)(l - b * d.block_lanes);
-    const uint32_t c =
-        key_hash(a.chi[l], a.clo[l]) & (uint32_t)(d.pre_cells - 1);
-    atomicMin(&d.pre_arena[b * d.pre_cells + c], local);
-  }
-}
-
-__global__ void dedup_claim_kernel(DedupArgs d, long long n) {
-  const StepArgs& a = d.s;
-  const long long l = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const TileSmem s = tile_stage_smem(smem, a.tile, a.A);
+  __shared__ int s_nwin, s_ncl, s_cch;
+  const Tile t = tile_of(a);
+  if (threadIdx.x == 0) s_ncl = s_cch = 0;
+  const int nwin = tile_stage(a, s, t, &s_nwin, a.dvalid, nullptr);
+  const unsigned long long tag = (unsigned long long)(~a.step) << 32;
+  const unsigned long long mask = (unsigned long long)(d.cells - 1);
   int cch = 0;
-  if (l < n) {
-    long long cell = -1;
-    if (a.cvalid[l]) {
-      const uint32_t hi = a.chi[l], lo = a.clo[l];
-      const uint32_t h = key_hash(hi, lo);
-      const long long b = l / d.block_lanes;
-      const uint32_t local = (uint32_t)(l - b * d.block_lanes);
-      const uint32_t w =
-          d.pre_arena[b * d.pre_cells + (h & (uint32_t)(d.pre_cells - 1))];
-      const long long wl = b * d.block_lanes + w;
-      // JAX pre_dedup: a lane dies iff a lower lane of its block won its
-      // cell with the same key
-      if (w == local || a.chi[wl] != hi || a.clo[wl] != lo) {
-        const unsigned long long key =
-            ((unsigned long long)hi << 32) | lo;
-        if (a.cc && a.ring[h & (uint32_t)(a.cc - 1)] == key) {
-          cch = 1;  // committed in an earlier step: a duplicate
-        } else {
-          const unsigned long long mask =
-              (unsigned long long)(d.cells - 1);
-          unsigned long long g = (unsigned long long)h & mask;
-          // at most half the cells are ever taken: this ends
-          while (true) {
-            const unsigned long long prev = atomicCAS(&d.arena[g], 0ull, key);
-            if (prev == 0ull || prev == key) break;
-            g = (g + 1) & mask;
-          }
-          atomicMin(&d.arena_owner[g],
-                    ((unsigned long long)(~a.step) << 32) |
-                        (unsigned long long)l);
-          cell = (long long)g;
+  // uniform trip count: the claims list's ballot needs the whole warp
+  for (int base = 0; base < nwin; base += blockDim.x) {
+    const int i = base + threadIdx.x;
+    bool took = false;
+    unsigned long long cell = 0ull;
+    if (i < nwin) {
+      const uint32_t tl = s.win[i];
+      const unsigned long long key = s.key[s.cell[tl]];
+      const uint32_t h = key_hash((uint32_t)(key >> 32), (uint32_t)key);
+      if (a.cc && __ldg(a.ring + (h & (uint32_t)(a.cc - 1))) == key) {
+        ++cch;  // committed in an earlier step: a duplicate
+      } else {
+        unsigned long long g = (unsigned long long)h & mask;
+        unsigned long long prev;
+        // at most half the cells are ever taken: this ends
+        while (true) {
+          prev = atomicCAS(&d.arena[g], 0ull, key);
+          if (prev == 0ull || prev == key) break;
+          g = (g + 1) & mask;
         }
+        atomicMin(&d.arena_owner[g],
+                  tag | (unsigned long long)(t.lane0 + tl));
+        took = prev == 0ull;
+        cell = g;
       }
     }
-    a.lane_slot[l] = (int)cell;
+    warp_append(a.claims + t.lane0, &s_ncl, took, cell);
   }
-  warp_add(&a.stats[S_CCH], cch);
+  warp_add(&s_cch, cch);
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    a.n_claims[blockIdx.x] = s_ncl;
+    if (s_cch) atomicAdd(&a.stats[S_CCH], s_cch);
+  }
 }
 
-__global__ void dedup_commit_kernel(DedupArgs d, long long n) {
+__global__ void dedup_commit_kernel(DedupArgs d) {
   const StepArgs& a = d.s;
-  const long long l = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (l == 0) publish_discoveries(a);
-  int dv = 0;
-  if (l < n) {
-    const int c = a.lane_slot[l];
-    dv = c >= 0 && d.arena_owner[c] == (((unsigned long long)(~a.step)
-                                         << 32) |
-                                        (unsigned long long)l);
-    a.dvalid[l] = (uint8_t)dv;
+  if (blockIdx.x == 0 && threadIdx.x == 0) publish_discoveries(a);
+  const long long lanes = (long long)a.F * a.A;
+  const int n = claims_walk(a, [&](unsigned long long c) {
+    const long long lane = owner_lane(d.arena_owner[c], a.step, lanes);
+    d.arena[c] = 0ull;  // the claim's own cell: clean for the next step
+    if (lane < 0)
+      atomicOr(&a.stats[S_FAULT], 1);
+    else
+      a.dvalid[lane] = 1;
+  });
+  if (threadIdx.x == 0 && n) {
+    atomicAdd(&a.stats[S_DEDUP], n);
+    atomicAdd(&a.stats[S_INSERTED], n);
   }
-  warp_add(&a.stats[S_DEDUP], dv);
-  warp_add(&a.stats[S_INSERTED], dv);
 }
 
 __global__ void probe_claim_kernel(ProbeArgs a) {
@@ -215,36 +221,24 @@ template <class M, bool SYM>
 int launch_dedup_step(const M& m, const DedupArgs& d) {
   const StepArgs& a = d.s;
   cudaStream_t st = static_cast<cudaStream_t>(a.stream);
-  const long long lanes = (long long)a.F * a.A;
-  cudaError_t e = cudaSuccess;
-  if (lanes > 0) {
-    e = cudaMemsetAsync(d.pre_arena, 0xFF,
-                        (size_t)(lanes / d.block_lanes) * d.pre_cells *
-                            sizeof(uint32_t),
-                        st);
-    if (e != cudaSuccess) return (int)e;
-    e = cudaMemsetAsync(d.arena, 0,
-                        (size_t)d.cells * sizeof(unsigned long long), st);
-    if (e != cudaSuccess) return (int)e;
-  }
-  e = launch_expand<M, SYM>(m, a, st);
-  if (e != cudaSuccess || lanes == 0) return (int)e;
-  predup_kernel<<<blocks_for(lanes), kThreads, 0, st>>>(d, lanes);
+  const TileGeometry& g = a.tile;
+  cudaError_t e = launch_expand<M, SYM>(m, a, st);
+  if (e != cudaSuccess || (long long)a.F * a.A == 0) return (int)e;
+  const size_t smem = tile_stage_smem_bytes(g, a.A);
+  e = allow_smem(dedup_claim_kernel, smem);
+  if (e != cudaSuccess) return (int)e;
+  dedup_claim_kernel<<<g.blocks, g.threads, smem, st>>>(d);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  dedup_claim_kernel<<<blocks_for(lanes), kThreads, 0, st>>>(d, lanes);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  dedup_commit_kernel<<<blocks_for(lanes), kThreads, 0, st>>>(d, lanes);
+  dedup_commit_kernel<<<g.blocks, kCommitThreads, 0, st>>>(d);
   return (int)cudaGetLastError();
 }
 
+// The arena holds >= 2 cells per lane, so a linear probe ends.
 bool dedup_args_ok(const TwoPcModel& m, const DedupArgs& d) {
   const long long lanes = (long long)d.s.F * d.s.A;
-  return d.s.A == m.max_actions() && d.block_lanes > 0 &&
-         lanes % d.block_lanes == 0 && d.cells >= 2 * lanes &&
-         (d.cells & (d.cells - 1)) == 0 &&
-         (d.pre_cells & (d.pre_cells - 1)) == 0;
+  return d.s.A == m.max_actions() && tile_stage_ok(d.s.tile, d.s.F, d.s.A) &&
+         d.cells >= 2 * lanes && (d.cells & (d.cells - 1)) == 0;
 }
 
 }  // namespace

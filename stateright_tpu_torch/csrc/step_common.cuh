@@ -1,12 +1,13 @@
 // Device code shared by the step kernels of fused_step.cu and
 // sharded_step.cu: the constants, the StepArgs layout with the tile
-// geometry of K1 and K2, the fingerprint, the warp- and block-aggregated
-// counters, the 4-slot bucket probe/claim and K1, the expand kernel
-// (with a compile-time symmetry flag: the symmetric instantiation keys
-// each child on the fingerprint of its canonical representative and
-// writes the child's own fingerprint beside it). Each .cu file includes
-// it and is built on its own into its own library (ops/_cuda.py), so
-// everything here has internal linkage.
+// geometry of K1, K2 and K5, the fingerprint, the warp- and
+// block-aggregated counters and lists, the 4-slot bucket probe/claim,
+// K1, the expand kernel (with a compile-time symmetry flag: the
+// symmetric instantiation keys each child on the fingerprint of its
+// canonical representative and writes the child's own fingerprint beside
+// it), and the tile stage of K2 and K5 (the tile's lowest valid lane of
+// each key). Each .cu file includes it and is built on its own into its
+// own library (ops/_cuda.py), so everything here has internal linkage.
 #pragma once
 
 #include <cstdint>
@@ -25,6 +26,9 @@ constexpr uint32_t kSeed2 = 0x85EBCA6Bu;
 constexpr uint32_t kPhi = 0x9E3779B9u;
 constexpr int kBucket = 4;
 constexpr int kThreads = 256;
+// threads per block of the commit kernels (K3, K5's commit), which walk
+// one tile's claims: ~10-30 per tile on a large step of 2pc n=7 or n=16
+constexpr int kCommitThreads = 64;
 
 // stats vector layout (ops/fused.py S_*)
 enum Stat {
@@ -35,7 +39,9 @@ enum Stat {
   S_VALID = 4,
   S_DEDUP = 5,
   S_INSERTED = 6,
-  S_DISC = 7,
+  S_FAULT = 7,  // a commit kernel found a claim whose owner word is not
+                // this step's: a kernel fault, raised by the host loop
+  S_DISC = 8,
 };
 
 enum Probe { PROBE_DUP = 0, PROBE_CLAIMED = 1, PROBE_OVF = 2 };
@@ -43,16 +49,17 @@ enum Probe { PROBE_DUP = 0, PROBE_CLAIMED = 1, PROBE_OVF = 2 };
 }  // namespace
 
 // The launch geometry of a kernel that works on block tiles of whole
-// frontier rows (K1, K2), computed by ops/_cuda.py tile_geometry and
-// mirrored there field for field: block b takes rows [b * rows,
-// min(F, (b + 1) * rows)), lane t of its tile is row t / A, action t % A,
-// and its threads walk the tile's lanes t, t + threads, ...
+// frontier rows (K1, K2, K3, K5), computed by ops/_cuda.py
+// tile_geometry and mirrored there field for field: block b takes rows
+// [b * rows, min(F, (b + 1) * rows)), lane t of its tile is row t / A,
+// action t % A, and its threads walk the tile's lanes t, t + threads,
+// ... (K3 and K5's commit: the tile's claims, with kCommitThreads)
 struct TileGeometry {
   int rows;     // frontier rows per block
   int threads;  // threads per block (a multiple of 32)
   int blocks;   // blocks of the launch (>= 1, blocks * rows >= F)
-  int cells;    // K2: shared dedup cells per block (a power of two
-                // >= 2 * rows * A); K1: unused
+  int cells;    // the tile stage's shared dedup cells per block (a
+                // power of two >= 2 * rows * A); K1: unused
 };
 
 // Mirrored field for field by ops/_cuda.py StepArgs.
@@ -79,18 +86,21 @@ struct StepArgs {
   uint8_t* cvalid;           // [F*A]
   uint8_t* dvalid;
   uint8_t* inserted;
-  int* lane_slot;            // [F*A] scratch
-  int* stats;                // [7 + 3P], zeroed by the caller
+  // [F*A] per tile, in its own lane range, n_claims[tile] entries: the
+  // table slots its lanes claimed with their keys' ring slots (K2:
+  // ring slot << 32 | table slot) or the arena cells they claimed (K5)
+  unsigned long long* claims;
+  int* n_claims;             // [tile.blocks]
+  int* stats;                // [8 + 3P], zeroed by the caller
   unsigned long long* keys;  // [n_buckets * 4] visited table
   long long n_buckets;
   int max_rounds;
   int cc;                    // ring slots (0 = no ring)
   unsigned long long* owner;       // [n_buckets * 4]
-  uint32_t* stamp;                 // [n_buckets * 4]
   unsigned long long* ring;        // [cc]
   unsigned long long* ring_arena;  // [cc]
   unsigned long long* disc_cand;   // [P]
-  TileGeometry tile;               // K1's and K2's launch
+  TileGeometry tile;               // the launch of K1, K2, K3 and K5
   void* stream;
 };
 
@@ -133,6 +143,19 @@ __device__ __forceinline__ void warp_add(int* dst, int v) {
 __device__ __forceinline__ void warp_max(int* dst, int v) {
   const unsigned m = __reduce_max_sync(0xFFFFFFFFu, (unsigned)v);
   if ((threadIdx.x & 31) == 0 && m) atomicMax(dst, (int)m);
+}
+
+// Append v to list[] where take, warp-aggregated: one shared or global
+// atomicAdd on *count per warp. Every lane of the warp must call it.
+template <class T>
+__device__ __forceinline__ void warp_append(T* list, int* count, bool take,
+                                            T v) {
+  const unsigned ballot = __ballot_sync(0xFFFFFFFFu, take);
+  const int wl = threadIdx.x & 31;
+  int at = 0;
+  if (wl == 0 && ballot) at = atomicAdd(count, __popc(ballot));
+  at = __shfl_sync(0xFFFFFFFFu, at, 0);
+  if (take) list[at + __popc(ballot & ((1u << wl) - 1u))] = v;
 }
 
 // Add v over the block into *dst with one global atomic per block. acc
@@ -383,6 +406,139 @@ __device__ __forceinline__ void publish_discoveries(const StepArgs& a) {
     a.stats[S_DISC + a.P + p] = hit ? (int)a.phi[row * a.pstride] : 0;
     a.stats[S_DISC + 2 * a.P + p] = hit ? (int)a.plo[row * a.pstride] : 0;
   }
+}
+
+// The tile of block blockIdx.x of a launch over a.tile: its first lane
+// and its lanes.
+struct Tile {
+  long long lane0;
+  int n;
+};
+
+__device__ __forceinline__ Tile tile_of(const StepArgs& a) {
+  const long long row0 = (long long)blockIdx.x * a.tile.rows;
+  const int nrows = (int)max(0ll, min((long long)a.tile.rows,
+                                      (long long)a.F - row0));
+  return {row0 * a.A, nrows * a.A};
+}
+
+// The tile stage's dynamic shared memory: per cell a key and a lane, per
+// tile lane its cell and a slot of the winner list.
+struct TileSmem {
+  unsigned long long* key;  // [cells]
+  uint32_t* lane;           // [cells] the lowest tile lane of the key
+  uint32_t* cell;           // [rows * A] tile lane -> cell (~0u: invalid)
+  uint32_t* win;            // [rows * A] the tile's winners (tile lanes)
+};
+
+inline size_t tile_stage_smem_bytes(const TileGeometry& g, int A) {
+  return (size_t)g.cells * (sizeof(unsigned long long) + sizeof(uint32_t)) +
+         (size_t)g.rows * A * 2 * sizeof(uint32_t);
+}
+
+__device__ __forceinline__ TileSmem tile_stage_smem(unsigned char* smem,
+                                                    const TileGeometry& g,
+                                                    int A) {
+  TileSmem s;
+  s.key = reinterpret_cast<unsigned long long*>(smem);
+  s.lane = reinterpret_cast<uint32_t*>(s.key + g.cells);
+  s.cell = s.lane + g.cells;
+  s.win = s.cell + g.rows * A;
+  return s;
+}
+
+// Whether g can launch the tile stage over F rows of A lanes.
+inline bool tile_stage_ok(const TileGeometry& g, int F, int A) {
+  return geometry_ok(g, F, A) && g.cells >= 2 * g.rows * A &&
+         (g.cells & (g.cells - 1)) == 0;
+}
+
+// The tile stage of K2 and K5 over tile t, in two phases:
+//   1. every valid lane enters (key, its tile lane) into an
+//      open-addressed table of a.tile.cells shared cells (64-bit CAS on
+//      the key, atomicMin on the lane), so each cell ends holding the
+//      tile's LOWEST valid lane of its key;
+//   2. those tile winners go to the shared list s.win (warp-aggregated);
+//      every lane l of the tile gets zero_all[l] = 0, and every lane that
+//      is not a winner zero_losers[l] = 0 (where not null).
+// Returns the number of winners: s.win[i] is a tile lane, and
+// s.key[s.cell[s.win[i]]] its key. Every thread of the block must call
+// it (it holds barriers, the first of which publishes what thread 0 set
+// before the call).
+__device__ __forceinline__ int tile_stage(const StepArgs& a, TileSmem s,
+                                          Tile t, int* s_nwin,
+                                          uint8_t* zero_all,
+                                          uint8_t* zero_losers) {
+  const uint32_t cmask = (uint32_t)a.tile.cells - 1u;
+  if (threadIdx.x == 0) *s_nwin = 0;
+  for (int c = threadIdx.x; c < a.tile.cells; c += blockDim.x) {
+    s.key[c] = 0ull;
+    s.lane[c] = ~0u;
+  }
+  __syncthreads();
+  // 1. at most half the cells are ever taken: each walk ends
+  for (int i = threadIdx.x; i < t.n; i += blockDim.x) {
+    const long long l = t.lane0 + i;
+    uint32_t cell = ~0u;
+    if (a.cvalid[l]) {
+      const uint32_t hi = a.chi[l], lo = a.clo[l];
+      const unsigned long long key = ((unsigned long long)hi << 32) | lo;
+      uint32_t c = (lo ^ (hi * kPhi)) & cmask;
+      while (true) {
+        const unsigned long long prev = atomicCAS(&s.key[c], 0ull, key);
+        if (prev == 0ull || prev == key) break;
+        c = (c + 1) & cmask;
+      }
+      atomicMin(&s.lane[c], (uint32_t)i);
+      cell = c;
+    }
+    s.cell[i] = cell;
+  }
+  __syncthreads();
+  // 2. uniform trip count: the ballot needs the whole warp
+  for (int base = 0; base < t.n; base += blockDim.x) {
+    const int i = base + threadIdx.x;
+    bool win = false;
+    if (i < t.n) {
+      const uint32_t c = s.cell[i];
+      win = c != ~0u && s.lane[c] == (uint32_t)i;
+      zero_all[t.lane0 + i] = 0;
+      if (!win && zero_losers) zero_losers[t.lane0 + i] = 0;
+    }
+    warp_append(s.win, s_nwin, win, (uint32_t)i);
+  }
+  __syncthreads();
+  return *s_nwin;
+}
+
+// The commit kernels' walk (K3, K5's commit; one block per tile, any
+// thread count): call fn(claim) for each of the tile's n_claims claims,
+// and return their count. A thread reads its first entry of the tile's
+// claims list together with the count (the list spans the tile's lanes,
+// so the read stays in bounds when the tile has fewer claims), and the
+// next one before it works on the current one.
+template <class Fn>
+__device__ __forceinline__ int claims_walk(const StepArgs& a, Fn fn) {
+  const Tile t = tile_of(a);
+  const unsigned long long* list = a.claims + t.lane0;
+  unsigned long long next = threadIdx.x < t.n ? list[threadIdx.x] : 0ull;
+  const int n = a.n_claims[blockIdx.x];
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    const unsigned long long claim = next;
+    if (i + (int)blockDim.x < n) next = list[i + blockDim.x];
+    fn(claim);
+  }
+  return n;
+}
+
+// The owner word's lane when it carries this step's tag (and names a lane
+// of the step), else -1: a kernel fault the caller must flag.
+__device__ __forceinline__ long long owner_lane(unsigned long long word,
+                                                uint32_t step,
+                                                long long lanes) {
+  const unsigned long long tag = (unsigned long long)(~step) << 32;
+  const long long lane = (long long)(word & 0xFFFFFFFFull);
+  return (word & 0xFFFFFFFF00000000ull) == tag && lane < lanes ? lane : -1;
 }
 
 }  // namespace

@@ -61,11 +61,12 @@ _i = ctypes.c_int
 _u = ctypes.c_uint32
 
 
-#: the lane budget of a block tile of K1 (expand) and K2 (claim): whole
+#: the lane budget of a block tile of K1 (expand), K2 (claim) and K5's
+#: claim (K3 and K5's commit run one block per tile too): whole
 #: rows, as many as fit (at least one); 1,024 was the best of 512, 1,024
-#: and 2,048 for both kernels on an H100 (tools/torch_tile_sweep.py)
+#: and 2,048 for K1 and K2 on an H100 (tools/torch_tile_sweep.py)
 TILE_LANES = 1024
-#: the most threads per block of K1 and K2
+#: the most threads per block of K1, K2 and K5's claim
 TILE_THREADS = 256
 #: below this many tiles per SM the rows per tile shrink (to one at the
 #: least), so a thin frontier still spreads over the card
@@ -77,8 +78,8 @@ class Geometry(NamedTuple):
     block ``b`` takes rows ``[b * rows, min(F, (b + 1) * rows))``, lane
     ``t`` of its tile is row ``t // A``, action ``t % A``, and its
     ``threads`` walk the tile's lanes ``t, t + threads, ...``. ``cells``
-    is K2's shared dedup table per block (a power of two, at least two
-    per lane of a tile)."""
+    is the tile stage's (K2's, K5's) shared dedup table per block (a
+    power of two, at least two per lane of a tile)."""
 
     rows: int
     threads: int
@@ -87,10 +88,11 @@ class Geometry(NamedTuple):
 
 
 def tile_geometry(f: int, a: int, sms: int) -> Geometry:
-    """The launch of K1 or K2 over ``f`` frontier rows of ``a`` action
-    lanes on a card of ``sms`` SMs, from ``TILE_LANES``, ``TILE_THREADS``
-    and ``TILES_PER_SM`` as they are when called: ``TILE_LANES // a``
-    rows (at least one, so a row wider than the budget is one tile),
+    """The launch of K1, K2, K3 or K5 over ``f`` frontier rows of ``a``
+    action lanes on a card of ``sms`` SMs, from ``TILE_LANES``,
+    ``TILE_THREADS`` and ``TILES_PER_SM`` as they are when called:
+    ``TILE_LANES // a`` rows (at least one, so a row wider than the
+    budget is one tile),
     fewer when that would give under ``TILES_PER_SM * sms`` tiles; at
     most ``TILE_THREADS`` threads, a multiple of 32; at least one block,
     also at ``f = 0`` (K1's grid resets the ring arena)."""
@@ -131,9 +133,9 @@ class StepArgs(ctypes.Structure):
         ("pbits", _p), ("ebits_out", _p), ("terminal", _p), ("flat", _p),
         ("chi", _p), ("clo", _p), ("ohi", _p), ("olo", _p),
         ("cvalid", _p), ("dvalid", _p),
-        ("inserted", _p), ("lane_slot", _p), ("stats", _p),
+        ("inserted", _p), ("claims", _p), ("n_claims", _p), ("stats", _p),
         ("keys", _p), ("n_buckets", _ll), ("max_rounds", _i), ("cc", _i),
-        ("owner", _p), ("stamp", _p), ("ring", _p), ("ring_arena", _p),
+        ("owner", _p), ("ring", _p), ("ring_arena", _p),
         ("disc_cand", _p), ("tile", TileGeometry), ("stream", _p),
     ]
 
@@ -151,11 +153,8 @@ class InsertArgs(ctypes.Structure):
 class DedupArgs(ctypes.Structure):
     """``DedupArgs`` of ``csrc/sharded_step.cu``, field for field."""
 
-    _fields_ = [
-        ("s", StepArgs), ("pre_arena", _p), ("block_lanes", _ll),
-        ("pre_cells", _ll), ("arena", _p), ("arena_owner", _p),
-        ("cells", _ll),
-    ]
+    _fields_ = [("s", StepArgs), ("arena", _p), ("arena_owner", _p),
+                ("cells", _ll)]
 
 
 class ProbeArgs(ctypes.Structure):
@@ -329,7 +328,12 @@ def _step_args(model, frontier, ebits, fvalid, phi, plo, ring, ws,
     cvalid = torch.empty((lanes,), dtype=torch.bool, device=dev)
     dvalid = torch.empty((lanes,), dtype=torch.bool, device=dev)
     inserted = torch.empty((lanes,), dtype=torch.bool, device=dev)
-    lane_slot = torch.empty((lanes,), dtype=torch.int32, device=dev)
+    geo = tile_geometry(f, n_actions, sm_count(dev))
+    # K2's or K5's claims per tile, in the tile's own lane range, and
+    # their count per tile; the workspace keeps the counts of its last
+    # step (a diagnostic: their sum is the step's inserted lanes)
+    claims = torch.empty((lanes,), dtype=torch.int64, device=dev)
+    ws.n_claims = torch.empty((geo.blocks,), dtype=torch.int32, device=dev)
     stats = torch.zeros((stats_len,), dtype=torch.int32, device=dev)
     args = StepArgs(
         frontier=frontier.data_ptr(), fstride=frontier.stride(0),
@@ -345,11 +349,12 @@ def _step_args(model, frontier, ebits, fvalid, phi, plo, ring, ws,
         ohi=ohi.data_ptr() if symmetry else None,
         olo=olo.data_ptr() if symmetry else None, cvalid=cvalid.data_ptr(),
         dvalid=dvalid.data_ptr(), inserted=inserted.data_ptr(),
-        lane_slot=lane_slot.data_ptr(), stats=stats.data_ptr(),
+        claims=claims.data_ptr(), n_claims=ws.n_claims.data_ptr(),
+        stats=stats.data_ptr(),
         max_rounds=4096, cc=cc, ring=ring.data_ptr() if cc else None,
         ring_arena=ws.ring_arena.data_ptr(),
         disc_cand=ws.disc_cand.data_ptr(),
-        tile=TileGeometry(*tile_geometry(f, n_actions, sm_count(dev))),
+        tile=TileGeometry(*geo),
         stream=torch.cuda.current_stream(dev).cuda_stream)
     outputs = (pbits, ebits_out, terminal, flat, chi, clo, cvalid, dvalid,
                inserted, stats, ohi, olo)
@@ -377,7 +382,6 @@ def fused_step(model, frontier, ebits, fvalid, phi, plo, table, ring, ws,
     args.keys = table.data_ptr()
     args.n_buckets = table.shape[0]
     args.owner = ws.owner.data_ptr()
-    args.stamp = ws.stamp.data_ptr()
     if symmetry:
         _raise_on(lib.srt_fused_step_twopc_sym(ctypes.byref(args), *params),
                   "symmetric fused step")
@@ -390,26 +394,21 @@ def fused_step(model, frontier, ebits, fvalid, phi, plo, table, ring, ws,
 
 
 def fused_step_noprobe(model, frontier, ebits, fvalid, phi, plo, ring, ws,
-                       block_rows: int, stats_len: int,
-                       symmetry: bool = False):
+                       stats_len: int, symmetry: bool = False):
     """Launch K1 + K5 for one probe-free step; returns the same output
     tuple as :func:`fused_step` with ``inserted`` aliasing ``dvalid``.
-    ``ring`` is read only; ``ws`` is a ``DedupWorkspace`` for this
-    step's lanes. Pre-dedup blocks are ``block_rows`` frontier rows.
-    ``symmetry`` launches the symmetric instantiation."""
+    ``ring`` is read only; ``ws`` is a ``DedupWorkspace`` of at least
+    this step's lanes. ``symmetry`` launches the symmetric
+    instantiation."""
     build()
     lib = _LIB["sharded_step"]
-    f = frontier.shape[0]
-    lanes = f * model.max_actions
-    ws.check(lanes, block_rows * model.max_actions, frontier.device)
+    ws.check(frontier.shape[0] * model.max_actions, frontier.device)
     params, outputs, args = _step_args(model, frontier, ebits, fvalid, phi,
                                        plo, ring, ws, stats_len, symmetry)
     outputs = outputs[:8] + (outputs[7],) + outputs[9:]
-    dargs = DedupArgs(
-        s=args, pre_arena=ws.pre_arena.data_ptr(),
-        block_lanes=block_rows * model.max_actions,
-        pre_cells=ws.pre_cells, arena=ws.arena.data_ptr(),
-        arena_owner=ws.arena_owner.data_ptr(), cells=ws.arena.shape[0])
+    dargs = DedupArgs(s=args, arena=ws.arena.data_ptr(),
+                      arena_owner=ws.arena_owner.data_ptr(),
+                      cells=ws.arena.shape[0])
     if symmetry:
         _raise_on(lib.srt_dedup_step_twopc_sym(ctypes.byref(dargs),
                                                *params),

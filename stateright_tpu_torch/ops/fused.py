@@ -18,9 +18,10 @@ through ``ops/_cuda.py``, or raises; for CPU tensors it runs
 frontier rows, carrying table, ring and discovery registers from block
 to block, lane for lane equal to the Pallas kernel on the CPU. With
 ``probe=False`` the wrapper launches the probe-free kernels of
-``csrc/sharded_step.cu`` (expand, in-block pre-dedup, ring probe,
-step-wide dedup) instead; the plain version runs the same blocks without
-the table insert and the ring update. With ``symmetry=True`` the
+``csrc/sharded_step.cu`` (expand; a dedup of each block tile in shared
+memory, the ring probe and a step-wide dedup of the tile winners; a
+commit over the claimed keys) instead; the plain version runs the same
+blocks without the table insert and the ring update. With ``symmetry=True`` the
 wrappers launch the symmetric instantiations of the same kernels (the
 expand kernel also canonicalizes and hashes each child twice); the plain
 version runs ``expand_frontier(symmetry=True)`` over the same blocks.
@@ -35,13 +36,16 @@ overflow flags; lane-exact successors, fingerprints, validity, property
 bits, eventually-bits and terminal rows). ``dvalid``, the ring-hit count
 and the round count depend on how the work is split and are reported,
 not compared: the kernel sees no ring entry written in the same step,
-runs no in-batch pre-dedup (its claim resolves duplicates), and counts
-the most rounds one lane took. The probe-free kernel and its plain
-version agree lane for lane on everything but ``dvalid`` (and
-``inserted``, its alias), the ring-hit count included; the kernel's
-``dvalid`` keeps one lane per key (the lowest that survives the ring),
-where the plain version keeps one per key and block, so it is held to
-the plain version's key set.
+runs JAX's in-batch pre-dedup only as a dedup of each block tile (its
+claim resolves the rest), and counts the most rounds one lane took. The
+probe-free kernel and its plain version agree lane for lane on
+everything but ``dvalid`` (and ``inserted``, its alias) and the ring-hit
+count: the kernel's ``dvalid`` keeps one lane per key (the lowest that
+survives the ring), where the plain version keeps one per key and
+block, so it is held to the plain version's key set; its ring-hit count
+(``S_CCH``) counts the tile winners (one per key and tile) whose key the
+ring holds, where the plain version counts the lanes that survive the
+pre-dedup.
 
 :func:`probe_block` inserts the lanes a rank received in the exchange
 into its table slice: on a CUDA table the kernel of
@@ -70,9 +74,12 @@ _BLOCK_ROWS = (256, 128, 64, 32, 16, 8, 4, 2, 1)
 CC_DEFAULT = 1 << 15
 
 # the step's stats vector (int32): these scalars, then disc_hit[P],
-# disc_hi[P], disc_lo[P] (fingerprint halves as int32 bit patterns)
-S_XOVF, S_OVF, S_ROUNDS, S_CCH, S_VALID, S_DEDUP, S_INSERTED, S_DISC = \
-    range(8)
+# disc_hi[P], disc_lo[P] (fingerprint halves as int32 bit patterns).
+# S_FAULT is set by a commit kernel that finds a claim whose owner word is
+# not its step's (a kernel fault: the host loops raise); the plain
+# version leaves it 0
+(S_XOVF, S_OVF, S_ROUNDS, S_CCH, S_VALID, S_DEDUP, S_INSERTED, S_FAULT,
+ S_DISC) = range(9)
 
 
 class FusedOut(NamedTuple):
@@ -88,7 +95,7 @@ class FusedOut(NamedTuple):
     cvalid: torch.Tensor    # bool[F*A]  valid child lanes
     dvalid: torch.Tensor    # bool[F*A]  lanes that reached the table
     inserted: torch.Tensor  # bool[F*A]  fresh-key lanes, one per key
-    stats: torch.Tensor     # int32[7 + 3P] (S_* layout)
+    stats: torch.Tensor     # int32[8 + 3P] (S_* layout)
     # int32[F*A] the children's own (original-state) fingerprints: the
     # same tensors as chi/clo without symmetry reduction
     ohi: Optional[torch.Tensor] = None
@@ -160,8 +167,9 @@ def fused_step(model, frontier, ebits, fvalid, phi, plo, table,
     ``table`` (int64 ``[C/4, 4]``) and ``ring`` (int64 ``[cc]`` or
     ``None``), both updated in place. CUDA tensors launch the kernels
     (``ws`` carries their state — a :class:`StepWorkspace`, or with
-    ``probe=False`` a :class:`DedupWorkspace`; a fresh one is made when
-    omitted); CPU tensors run :func:`fused_step_reference`.
+    ``probe=False`` a :class:`DedupWorkspace` of at least the step's
+    lanes; a fresh one is made when omitted); CPU tensors run
+    :func:`fused_step_reference`.
 
     ``probe=False`` is the sharded engine's step: no table (``table`` is
     ignored), the ring read only, ``inserted`` aliasing ``dvalid``.
@@ -171,14 +179,12 @@ def fused_step(model, frontier, ebits, fvalid, phi, plo, table,
     returns the children's own in ``ohi``/``olo``."""
     if frontier.is_cuda and not probe:
         from . import _cuda
-        fb = _block_rows(frontier.shape[0])
         if ws is None:
             ws = DedupWorkspace(frontier.shape[0] * model.max_actions,
-                                fb * model.max_actions,
                                 0 if ring is None else ring.shape[0],
                                 len(model.properties()), frontier.device)
         return FusedOut(*_cuda.fused_step_noprobe(
-            model, frontier, ebits, fvalid, phi, plo, ring, ws, fb,
+            model, frontier, ebits, fvalid, phi, plo, ring, ws,
             stats_len(model), symmetry))
     if frontier.is_cuda:
         from . import _cuda
@@ -195,10 +201,10 @@ def fused_step(model, frontier, ebits, fvalid, phi, plo, table,
 
 class StepWorkspace:
     """Kernel state that outlives one step (CUDA only): per table slot
-    the owner word and the claim stamp of the winner rule
-    (``csrc/fused_step.cu``), the ring arena, the discovery candidates,
-    and the step counter that tags them. One per table: growth makes a
-    new one."""
+    the owner word of the winner rule (``csrc/fused_step.cu``) and the
+    claim stamp of the owner-side probe (``csrc/sharded_step.cu`` K6),
+    the ring arena, the discovery candidates, and the step counter that
+    tags them. One per table: growth makes a new one."""
 
     def __init__(self, capacity: int, cc: int, n_props: int, device):
         self.owner = torch.full((capacity,), -1, dtype=torch.int64,
@@ -210,6 +216,7 @@ class StepWorkspace:
         self.disc_cand = torch.full((max(n_props, 1),), -1,
                                     dtype=torch.int64, device=device)
         self.step = 0
+        self.n_claims = None  # the last step's claims per tile
 
     def check(self, capacity: int, cc: int, n_props: int, device) -> None:
         if (self.owner.shape[0] != capacity
@@ -221,23 +228,16 @@ class StepWorkspace:
 
 
 class DedupWorkspace:
-    """Kernel state of the probe-free step (CUDA only), one per step
-    width: the per-block pre-dedup arenas, the step-wide key arena
-    (>= 2 cells per lane) and its owner words, the ring arena K1 resets,
-    the discovery candidates, and the step counter that tags them."""
+    """Kernel state of the probe-free step (CUDA only) for steps of up to
+    ``lanes`` lanes: the step-wide key arena (>= 2 cells per lane), zeroed
+    here once and left zero by every step (each claimed cell is cleared by
+    its claim's commit), its owner words, the ring arena K1 resets, the
+    discovery candidates, and the step counter that tags them."""
 
-    def __init__(self, lanes: int, block_lanes: int, cc: int,
-                 n_props: int, device):
+    def __init__(self, lanes: int, cc: int, n_props: int, device):
         self.lanes = lanes
-        self.block_lanes = block_lanes
-        # the JAX pre_dedup arena of one block
-        self.pre_cells = 1 << max((2 * block_lanes - 1).bit_length(), 0)
-        nblk = lanes // block_lanes if block_lanes else 0
-        self.pre_arena = torch.empty((max(nblk * self.pre_cells, 1),),
-                                     dtype=torch.int32, device=device)
         cells = 1 << max((2 * lanes - 1).bit_length(), 1)
-        self.arena = torch.empty((cells,), dtype=torch.int64,
-                                 device=device)
+        self.arena = torch.zeros((cells,), dtype=torch.int64, device=device)
         self.arena_owner = torch.full((cells,), -1, dtype=torch.int64,
                                       device=device)
         self.ring_arena = torch.empty((max(cc, 1),), dtype=torch.int64,
@@ -245,10 +245,10 @@ class DedupWorkspace:
         self.disc_cand = torch.full((max(n_props, 1),), -1,
                                     dtype=torch.int64, device=device)
         self.step = 0
+        self.n_claims = None  # the last step's claims per tile
 
-    def check(self, lanes: int, block_lanes: int, device) -> None:
-        if (self.lanes != lanes or self.block_lanes != block_lanes
-                or self.arena.device != device):
+    def check(self, lanes: int, device) -> None:
+        if lanes > self.lanes or self.arena.device != device:
             raise ValueError("DedupWorkspace does not match this step")
 
 
@@ -312,7 +312,7 @@ def fused_step_reference(model, frontier, ebits, fvalid, phi, plo, table,
     cvalid, dvalid, inserted = cols[6], cols[7], cols[8]
     scalars = torch.tensor(
         [int(xovf), int(ovf), rounds, cch, int(cvalid.sum()),
-         int(dvalid.sum()), int(inserted.sum())], dtype=torch.int64,
+         int(dvalid.sum()), int(inserted.sum()), 0], dtype=torch.int64,
         device=dev)
     stats = u32(torch.cat([scalars, d_hit.to(torch.int64), d_hi, d_lo]))
     chi, clo = u32(cols[4]), u32(cols[5])

@@ -37,17 +37,17 @@ updated in place.
 from __future__ import annotations
 
 import time
-from dataclasses import dataclass, field
-from typing import Callable, Dict, List, Optional, Tuple
+from dataclasses import dataclass
+from typing import Callable, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..checker.device_loop import shrink_indices
 from ..ops.expand import assemble_candidates, small_step_sizes
-from ..ops.fused import (S_CCH, S_DEDUP, S_DISC, S_VALID, S_XOVF,
-                         DedupWorkspace, StepWorkspace, _block_rows,
-                         cc_ring_update, fused_step, probe_block)
+from ..ops.fused import (S_CCH, S_DEDUP, S_DISC, S_FAULT, S_VALID, S_XOVF,
+                         DedupWorkspace, StepWorkspace, cc_ring_update,
+                         fused_step, probe_block)
 from ..ops.hashtable import make_table
 from ..ops.words import from_numpy_u32, u64
 
@@ -130,7 +130,8 @@ class ShardedCarry:
     xovf: bool = False       # model encoding overflow (any rank)
     kovf: bool = False       # candidate overflow: iteration aborted
     probe_ws: Optional[StepWorkspace] = None  # K6 state (CUDA only)
-    dedup_ws: Dict[int, DedupWorkspace] = field(default_factory=dict)
+    # K5 state (CUDA only): one for every step width up to its own
+    dedup_ws: Optional[DedupWorkspace] = None
     symmetry: bool = False   # dedup on packed_representative keys
 
 
@@ -284,14 +285,11 @@ def sharded_step_once(model, carry: ShardedCarry, grp, sizes: StepSizes,
     take = min(carry.q_tail - h, fmax_b)
     block = carry.q[h:h + fmax_b]
     fvalid = torch.arange(fmax_b, device=dev) < take
-    ws = None
-    if block.is_cuda:
-        ws = carry.dedup_ws.get(fmax_b)
-        if ws is None:
-            ws = carry.dedup_ws[fmax_b] = DedupWorkspace(
-                fmax_b * n_actions, _block_rows(fmax_b) * n_actions,
-                0 if carry.ring is None else carry.ring.shape[0],
-                n_props, dev)
+    ws = carry.dedup_ws
+    if block.is_cuda and (ws is None or ws.lanes < fmax_b * n_actions):
+        ws = carry.dedup_ws = DedupWorkspace(
+            fmax_b * n_actions,
+            0 if carry.ring is None else carry.ring.shape[0], n_props, dev)
     out = fused_step(model, block[:, :width], block[:, width], fvalid,
                      block[:, width + 1], block[:, width + 2], None,
                      carry.ring, ws, probe=False, symmetry=carry.symmetry)
@@ -315,8 +313,12 @@ def sharded_step_once(model, carry: ShardedCarry, grp, sizes: StepSizes,
     # --- fused reduction 1 of 3: what the abort gate needs
     pm1 = _read(grp.pmax(torch.cat([
         st[S_VALID:S_VALID + 1], st[S_DEDUP:S_DEDUP + 1],
-        st[S_XOVF:S_XOVF + 1], bmax_it, negsel])), stats)
-    vshard, dshard, xovf_any, bshard = pm1[:4]
+        st[S_XOVF:S_XOVF + 1], bmax_it, st[S_FAULT:S_FAULT + 1],
+        negsel])), stats)
+    vshard, dshard, xovf_any, bshard, fault = pm1[:5]
+    if fault:  # on every rank alike: the value is the ranks' maximum
+        raise RuntimeError("the probe-free step kernel found a claim "
+                           "without this step's owner word (S_FAULT)")
     stats.vmax = max(stats.vmax, vshard)
     stats.dmax = max(stats.dmax, dshard)
     stats.bmax = max(stats.bmax, bshard)
@@ -383,7 +385,7 @@ def sharded_step_once(model, carry: ShardedCarry, grp, sizes: StepSizes,
         # probe overflowed (its lanes were not all resolved)
         cc_ring_update(carry.ring, cand[:, log_off], cand[:, log_off + 1],
                        kvalid & (pm2[3] == 0))
-    min_rank = d - 1 - torch.tensor(pm1[4:4 + n_props], dtype=torch.int64,
+    min_rank = d - 1 - torch.tensor(pm1[5:5 + n_props], dtype=torch.int64,
                                     device=dev)
     pick = hit_l & (min_rank == me)
     pdh_it = st[S_VALID] - st[S_DEDUP] - st[S_CCH]
@@ -409,7 +411,7 @@ def sharded_step_once(model, carry: ShardedCarry, grp, sizes: StepSizes,
     stats.rounds += prb
     stats.cch += cch
     for p in range(n_props):
-        if pm1[4 + p] >= 0 and not carry.disc_hit[p]:  # sticky first hit
+        if pm1[5 + p] >= 0 and not carry.disc_hit[p]:  # sticky first hit
             carry.disc_hit[p] = True
             carry.disc_fp[p] = np.uint64((ps_h[4 + p] << 32)
                                          | ps_h[4 + n_props + p])

@@ -37,6 +37,21 @@ def _need_card():
         pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
 
 
+def _ring_held_tile_keys(out, ring, f, a):
+    """The (tile, key) pairs, at the card's tile geometry, of the valid
+    lanes whose key ``ring`` holds: the tile winners the probe-free
+    step's ring probe drops, which its ``S_CCH`` counts."""
+    from stateright_tpu_torch.ops import _cuda
+    from stateright_tpu_torch.ops.hashtable import start_bucket
+    from stateright_tpu_torch.ops.words import pack64
+    keys = pack64(out.chi, out.clo)
+    held = out.cvalid & (ring[start_bucket(out.chi, out.clo,
+                                           ring.shape[0])] == keys)
+    geo = _cuda.tile_geometry(f, a, _cuda.sm_count(keys.device))
+    tile = torch.arange(keys.shape[0], device=keys.device) // (geo.rows * a)
+    return torch.unique(torch.stack([tile, keys], 1)[held], dim=0).shape[0]
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("n,fmax", [(4, 16), (5, 512)])
 def test_kernels_match_plain_versions_on_card(n, fmax):
@@ -144,8 +159,12 @@ def test_sharded_kernels_match_plain_versions_on_card(n, fmax):
     for name in ("flat", "chi", "clo", "cvalid", "pbits", "ebits",
                  "terminal"):
         assert torch.equal(getattr(k, name), getattr(p, name)), name
-    for i in (S_XOVF, S_CCH, S_VALID):
+    for i in (S_XOVF, S_VALID):
         assert int(k.stats[i]) == int(p.stats[i])
+    # S_CCH counts the tile winners the ring holds (the plain version:
+    # the lanes that survive its per-block pre-dedup)
+    assert int(k.stats[S_CCH]) == _ring_held_tile_keys(k, ring, fmax,
+                                                       model.max_actions)
     assert torch.equal(k.stats[S_DISC:], p.stats[S_DISC:])
     keys = pack64(k.chi, k.clo)
     live = k.cvalid & ~(ring[start_bucket(k.chi, k.clo, 1 << 10)] == keys)
@@ -264,8 +283,12 @@ def test_symmetric_steps_match_plain_versions_on_card(complete, probe):
                  "ebits", "terminal"):
         assert torch.equal(getattr(k, name), getattr(p, name)), name
     assert not torch.equal(k.chi, k.ohi)  # keys are canonical
-    for i in (S_XOVF, S_VALID) + (() if probe else (S_CCH,)):
+    for i in (S_XOVF, S_VALID):
         assert int(k.stats[i]) == int(p.stats[i])
+    if not probe:
+        ring = torch.zeros((1 << 10,), dtype=torch.int64, device=dev)
+        assert int(k.stats[S_CCH]) == _ring_held_tile_keys(
+            k, ring, 512, model.max_actions)
     assert torch.equal(k.stats[S_DISC:], p.stats[S_DISC:])
     keys = pack64(k.chi, k.clo)
     kk = keys[k.inserted].tolist()
@@ -428,27 +451,33 @@ def test_expand_lane_exact_at_ragged_frontiers(complete, probe,
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("complete", [None, False, True],
+                         ids=["plain", "reference", "complete"])
 @pytest.mark.parametrize("f", [256, 12288])
-def test_claim_inserts_the_lowest_valid_lane_of_each_fresh_key(f):
-    """K2's tile pre-dedup and claim on a step where many lanes share a
-    key (2pc5 under the reference representative, rows drawn with
-    replacement, half the keys already in the table, some in the ring):
-    the inserted lanes are the lowest valid lane of each fresh key, with
-    the plain version's key set and table; each lane that reached the
-    table is the lowest valid lane of its key in its tile."""
+def test_claim_inserts_the_lowest_valid_lane_of_each_fresh_key(f, complete):
+    """K2's tile pre-dedup and claim, and K3 over K2's claims, on a step
+    where many lanes share a key (2pc5 rows drawn with replacement, half
+    the keys already in the table, some in the ring), without symmetry
+    and under both representatives: the inserted lanes are the lowest
+    valid lane of each fresh key, one per claimed slot, with the plain
+    version's key set and table; each lane that reached the table is the
+    lowest valid lane of its key in its tile."""
     _need_card()
     from stateright_tpu_torch.ops import _cuda
-    from stateright_tpu_torch.ops.fused import (fused_step,
+    from stateright_tpu_torch.ops.fused import (S_FAULT, S_INSERTED,
+                                                StepWorkspace, fused_step,
                                                 fused_step_reference)
     from stateright_tpu_torch.ops.hashtable import (make_table,
                                                     start_bucket,
                                                     table_insert_reference)
     from stateright_tpu_torch.ops.words import from_numpy_u32, pack64
-    model = TwoPhaseSys(5)
+    symmetry = complete is not None
+    model = TwoPhaseSys(5, complete_symmetry=bool(complete))
     dev = torch.device("cuda")
     rng = np.random.default_rng(f)
-    args = _frontier(model, f, rng, True, dev)
-    canon = sorted({model.fingerprint(model.representative(s))
+    args = _frontier(model, f, rng, symmetry, dev)
+    canon = sorted({model.fingerprint(model.representative(s) if symmetry
+                                      else s)
                     for s in _reachable(model)})
     known = np.array([canon[i] for i in
                       rng.choice(len(canon), len(canon) // 2,
@@ -456,7 +485,7 @@ def test_claim_inserts_the_lowest_valid_lane_of_each_fresh_key(f):
     khi = from_numpy_u32((known >> np.uint64(32)).astype(np.uint32), dev)
     klo = from_numpy_u32(known.astype(np.uint32), dev)
     out = {}
-    for name, fn in (("kernel", fused_step), ("plain", fused_step_reference)):
+    for name in ("kernel", "plain"):
         table = make_table(1 << 14, dev)
         table_insert_reference(table, khi, klo,
                                torch.ones_like(khi, dtype=torch.bool))
@@ -464,13 +493,23 @@ def test_claim_inserts_the_lowest_valid_lane_of_each_fresh_key(f):
         half = slice(0, known.shape[0] // 2)
         ring[start_bucket(khi[half], klo[half], 1 << 10)] = \
             pack64(khi[half], klo[half])
-        res = fn(model, *args, table, ring, symmetry=True)
+        if name == "kernel":
+            ws = StepWorkspace(table.numel(), ring.shape[0],
+                               len(model.properties()), dev)
+            res = fused_step(model, *args, table, ring, ws,
+                             symmetry=symmetry)
+        else:
+            res = fused_step_reference(model, *args, table, ring,
+                                       symmetry=symmetry)
         out[name] = (res, sorted(table[table != 0].tolist()))
     (k, kt), (p, pt) = out["kernel"], out["plain"]
     keys = pack64(k.chi, k.clo)
     kk = keys[k.inserted]
     assert set(kk.tolist()) == set(keys[p.inserted].tolist())
     assert kk.shape[0] == len(set(kk.tolist())) and kt == pt
+    # K3 walks K2's claims: one claimed slot per inserted lane
+    assert int(ws.n_claims.sum()) == int(k.stats[S_INSERTED]) \
+        == kk.shape[0] and int(k.stats[S_FAULT]) == 0
     lanes = torch.arange(keys.shape[0], device=dev)
     uniq, inv = torch.unique(keys[k.cvalid], return_inverse=True)
     first = torch.full((uniq.shape[0],), keys.shape[0], dtype=torch.int64,
@@ -490,3 +529,72 @@ def test_claim_inserts_the_lowest_valid_lane_of_each_fresh_key(f):
     reached = tfirst[torch.searchsorted(tu, tkey[k.dvalid])]
     assert torch.equal(reached, lanes[k.dvalid])
     assert int(k.dvalid.sum()) < int(k.cvalid.sum())
+
+
+def _mid_search(model, rows, symmetry, dev):
+    """A real mid-search state of ``model`` on the card: the port's own
+    loop run until at least ``rows`` rows are pending."""
+    from stateright_tpu_torch.checker.device_loop import (LoopStats,
+                                                          seed_carry,
+                                                          step_once)
+    from stateright_tpu_torch.ops.expand import FMAX_SMALL
+    from stateright_tpu_torch.ops.hashtable import table_insert
+    from stateright_tpu_torch.ops.words import from_numpy_u32
+    init = model.init_states()[0]
+    fp = model.fingerprint(model.representative(init) if symmetry
+                           else init)
+    carry = seed_carry(model, 1 << 21, 1 << 20, [model.encode(init)], 0,
+                       [fp], 1 << 15, dev, symmetry=symmetry)
+    table_insert(carry.table,
+                 from_numpy_u32(np.array([fp >> 32], np.uint32), dev),
+                 from_numpy_u32(np.array([fp & 0xFFFFFFFF], np.uint32),
+                                dev),
+                 torch.ones((1,), dtype=torch.bool, device=dev))
+    stats = LoopStats()
+    while carry.q_tail - carry.q_head < rows:
+        avail = carry.q_tail - carry.q_head
+        assert avail, f"the search ended before a {rows}-row frontier"
+        step_once(model, carry, FMAX_SMALL if avail <= FMAX_SMALL
+                  else rows, stats)
+    return carry
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,symmetry", [(7, False), (16, True)],
+                         ids=["2pc7", "2pc16-reference"])
+def test_dedup_workspace_serves_steps_of_every_width(n, symmetry):
+    """One ``DedupWorkspace`` for probe-free steps of 12,288, 256 and
+    12,288 rows of a real mid-search frontier (2pc7; 2pc16 under the
+    reference representative, 82 actions): each step's ``dvalid`` and
+    counts are a fresh workspace's, and the key arena reads all zero
+    after each step, so its commits cleared every cell their claims
+    took and no memset is needed."""
+    _need_card()
+    from stateright_tpu_torch.ops.fused import (S_DEDUP, S_FAULT,
+                                                DedupWorkspace, fused_step)
+    model = TwoPhaseSys(n)
+    dev = torch.device("cuda")
+    carry = _mid_search(model, 12288, symmetry, dev)
+    a, w = model.max_actions, model.packed_width
+    n_props = len(model.properties())
+    cc = carry.ring.shape[0]
+    ws = DedupWorkspace(12288 * a, cc, n_props, dev)
+    assert not bool(ws.arena.any())
+    kept = 0
+    for start, f in ((0, 12288), (1000, 256), (37, 12288)):
+        block = carry.q[carry.q_head + start:carry.q_head + start + f]
+        fvalid = (carry.q_head + start + torch.arange(f, device=dev)
+                  < carry.q_tail)
+        args = (model, block[:, :w], block[:, w], fvalid, block[:, w + 1],
+                block[:, w + 2], None, carry.ring)
+        k = fused_step(*args, ws, probe=False, symmetry=symmetry)
+        fresh = fused_step(*args, DedupWorkspace(f * a, cc, n_props, dev),
+                           probe=False, symmetry=symmetry)
+        assert torch.equal(k.dvalid, fresh.dvalid), f
+        assert torch.equal(k.stats, fresh.stats), f
+        assert int(k.stats[S_FAULT]) == 0
+        assert int(ws.n_claims.sum()) == int(k.stats[S_DEDUP]) \
+            == int(k.dvalid.sum())
+        assert not bool(ws.arena.any()), f
+        kept += int(k.dvalid.sum())
+    assert kept > 0
