@@ -147,9 +147,8 @@ def fp_digest(fps) -> str:
 
 #: this port's kernels, by the name each has in the profiler; longer
 #: names first, so a name that contains another is matched as itself
-_OURS = ("dedup_claim_kernel", "dedup_commit_kernel", "probe_claim_kernel",
-         "probe_commit_kernel", "expand_kernel", "claim_kernel",
-         "commit_kernel", "insert_kernel")
+_OURS = ("dedup_claim_kernel", "dedup_commit_kernel", "flat_insert_kernel",
+         "expand_kernel", "claim_kernel", "commit_kernel")
 
 
 def kernel_name(symbol: str):
@@ -276,7 +275,8 @@ def mid_search_carry(model, device, symmetry: bool = False,
                  from_numpy_u32(np.array([fp >> 32], np.uint32), device),
                  from_numpy_u32(np.array([fp & 0xFFFFFFFF], np.uint32),
                                 device),
-                 torch.ones((1,), dtype=torch.bool, device=device))
+                 torch.ones((1,), dtype=torch.bool, device=device),
+                 mask=False)
     stats = LoopStats()
     while carry.q_tail - carry.q_head < rows:
         avail = carry.q_tail - carry.q_head
@@ -292,19 +292,25 @@ def lowest_lane_wins(out, among=None) -> bool:
     """The kernel's winner rule: each inserted lane is the lowest lane of
     ``among`` (default: the lanes that carried their key to the table,
     ``dvalid``) carrying its key."""
-    import torch
-
     from stateright_tpu_torch.ops.words import pack64
 
-    mask = out.dvalid if among is None else among
-    keys = pack64(out.chi, out.clo)
+    return lowest_valid_lane_wins(pack64(out.chi, out.clo),
+                                  out.dvalid if among is None else among,
+                                  out.inserted)
+
+
+def lowest_valid_lane_wins(keys, valid, inserted) -> bool:
+    """Each ``inserted`` lane is the lowest ``valid`` lane carrying its
+    key (the owner-word rule of the step and the flat insert)."""
+    import torch
+
     lanes = torch.arange(keys.shape[0], device=keys.device)
-    uniq, inv = torch.unique(keys[mask], return_inverse=True)
+    uniq, inv = torch.unique(keys[valid], return_inverse=True)
     first = torch.full((uniq.shape[0],), keys.shape[0], dtype=torch.int64,
                        device=keys.device)
-    first.scatter_reduce_(0, inv, lanes[mask], reduce="amin")
-    won = first[torch.searchsorted(uniq, keys[out.inserted])]
-    return bool((won == lanes[out.inserted]).all())
+    first.scatter_reduce_(0, inv, lanes[valid], reduce="amin")
+    won = first[torch.searchsorted(uniq, keys[inserted])]
+    return bool((won == lanes[inserted]).all())
 
 
 def bound(nbytes: int, ops: int) -> dict:
@@ -536,13 +542,50 @@ def check_step(model, carry, f: int, reps: int, symmetry: bool = False,
             "checks": checks}
 
 
+def insert_parts(keys, valid, n_ins: int, by_kernel, mask: bool) -> dict:
+    """The flat insert's kernel over ``keys`` where ``valid`` (K4, K6):
+    its device ms (from ``by_kernel``, a profiled call), its own bound
+    and its launch, with ``n_ins`` keys inserted (one claim each). It
+    reads each lane once, a bucket per valid lane and writes the key per
+    claim; with ``mask`` it also writes each lane's inserted byte, posts
+    the owner word per valid lane and per claim reads it back and writes
+    one inserted byte; 12 operations per probe."""
+    n, n_valid = keys.shape[0], int(valid.sum())
+    nbytes = n * 9 + n_valid * 32 + n_ins * 8
+    if mask:
+        nbytes += n + n_valid * 8 + n_ins * (8 + 1)
+    return {"flat_insert_kernel": {
+        "device_ms": (by_kernel or {}).get("flat_insert_kernel"),
+        **bound(nbytes, n_valid * 12),
+        "launch": "cooperative" if mask else "plain"}}
+
+
+def insert_bound(keys, valid, n_ins: int, mask: bool) -> dict:
+    """The least time of the flat insert as a function: each lane read
+    once (and with ``mask`` its inserted byte written), a bucket read per
+    distinct valid key and the key written per inserted lane; 16
+    operations per valid lane (the dedup) and 12 per distinct key (its
+    probe)."""
+    import torch
+
+    distinct = torch.unique(keys[valid]).shape[0]
+    return bound(keys.shape[0] * (9 + mask) + distinct * 32 + n_ins * 8,
+                 int(valid.sum()) * 16 + distinct * 12)
+
+
 def check_insert(carry, reps: int) -> dict:
     """K4 against ``table_insert_reference`` on the card: the growth
     re-insert of the mid-search log into an empty 2**20-slot table, with
-    every key twice in the batch."""
+    every key twice in the batch. Without a mask, as the seed and growth
+    call it: the table and the flags. With one: the inserted lane of each
+    key is its lowest (the first copy), and a second call on an equal
+    table with the same workspace gives the same mask. Both timed; the
+    kernel's line carries the first (the main path's) and the masked
+    call under ``mask``."""
     import numpy as np
     import torch
 
+    from stateright_tpu_torch.ops.fused import StepWorkspace
     from stateright_tpu_torch.ops.hashtable import (make_table,
                                                     table_insert,
                                                     table_insert_reference)
@@ -552,9 +595,7 @@ def check_insert(carry, reps: int) -> dict:
     hi = torch.cat([log[:, 0], log[:, 0]])
     lo = torch.cat([log[:, 1], log[:, 1]])
     valid = torch.ones((hi.shape[0],), dtype=torch.bool, device=hi.device)
-    t_k = make_table(1 << 20, hi.device)
     t_p = make_table(1 << 20, hi.device)
-    ins_k, ovf_k = table_insert(t_k, hi, lo, valid)
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -563,35 +604,62 @@ def check_insert(carry, reps: int) -> dict:
     end.synchronize()
     plain_ms = start.elapsed_time(end)
     keys = pack64(hi, lo)
-    kk, pk = keys[ins_k].cpu().numpy(), keys[ins_p].cpu().numpy()
-    table_k = np.sort(t_k[t_k != 0].cpu().numpy())
+    pk = keys[ins_p].cpu().numpy()
     table_p = np.sort(t_p[t_p != 0].cpu().numpy())
+    t_n = make_table(1 << 20, hi.device)
+    none, ovf_n = table_insert(t_n, hi, lo, valid, mask=False)
+    t_k = make_table(1 << 20, hi.device)
+    ws = StepWorkspace(t_k.numel(), 0, 0, hi.device)
+    ins_k, ovf_k = table_insert(t_k, hi, lo, valid, ws=ws)
+    kk = keys[ins_k].cpu().numpy()
+    table_n = np.sort(t_n[t_n != 0].cpu().numpy())
+    table_k = np.sort(t_k[t_k != 0].cpu().numpy())
+    t_again = make_table(1 << 20, hi.device)
+    ins_again, _ovf = table_insert(t_again, hi, lo, valid, ws=ws)
     checks = {
+        "table_set": np.array_equal(table_n, table_p),
+        "flags": ovf_n == ovf_p and none is None,
         "inserted_set": set(kk.tolist()) == set(pk.tolist()),
         "one_lane_per_key": len(kk) == len(set(kk.tolist())) == carry.log_n,
-        "table_set": np.array_equal(table_k, table_p),
-        "flags": ovf_k == ovf_p,
+        "table_set_mask": np.array_equal(table_k, table_p),
+        "flags_mask": ovf_k == ovf_p,
+        # the owner-word rule: the first copy of each key
+        "lowest_lane_wins": lowest_valid_lane_wins(keys, valid, ins_k)
+        and bool(ins_k[:carry.log_n].all()),
+        "repeat": torch.equal(ins_again, ins_k),
     }
-    if table_k.shape != table_p.shape:
-        raise AssertionError(f"insert kernel table holds {table_k.size} "
-                             f"keys, its plain version {table_p.size}")
+    if table_n.shape != table_p.shape or table_k.shape != table_p.shape:
+        raise AssertionError(f"insert kernel tables hold {table_n.size} "
+                             f"and {table_k.size} keys, its plain version "
+                             f"{table_p.size}")
     # the largest difference of the sorted table keys' uint32 words
-    words_k = table_k.view(np.uint32).astype(np.int64)
     words_p = table_p.view(np.uint32).astype(np.int64)
-    err = int(np.abs(words_k - words_p).max()) if words_k.size else 0
+    err = max((int(np.abs(t.view(np.uint32).astype(np.int64)
+                          - words_p).max()) if t.size else 0)
+              for t in (table_n, table_k))
     if not all(checks.values()):
         raise AssertionError(f"insert kernel disagrees with its plain "
                              f"version: {checks}")
-    ms = cuda_ms(lambda: table_insert(t_k, hi, lo, valid), reps,
-                 lambda: t_k.zero_())
-    dev = device_times(lambda: table_insert(t_k, hi, lo, valid),
-                       before=t_k.zero_)
-    n = hi.shape[0]
-    nbytes = n * (4 + 4 + 1 + 1) + n * 32 + carry.log_n * 8
-    ops = n * 12
-    return {"n": n, "keys": carry.log_n, "max_abs_err": err, "ms": ms,
-            "device_ms": dev["ours_ms"], "plain_ms": plain_ms,
-            **bound(nbytes, ops), "checks": checks}
+    n_ins = len(kk)
+    out = {"n": hi.shape[0], "keys": carry.log_n, "max_abs_err": err,
+           "plain_ms": plain_ms, "checks": checks}
+    for mask, t in ((False, t_n), (True, t_k)):
+        def launch(t=t, mask=mask):
+            return table_insert(t, hi, lo, valid, ws=ws, mask=mask)
+
+        dev = device_times(launch, before=t.zero_)
+        timing = {"ms": cuda_ms(launch, reps, t.zero_),
+                  "device_ms": dev["ours_ms"],
+                  "device_by_kernel_ms": dev["by_kernel_ms"],
+                  "torch_ms": dev["torch_ms"],
+                  **insert_bound(keys, valid, n_ins, mask),
+                  "parts": insert_parts(keys, valid, n_ins,
+                                        dev["by_kernel_ms"], mask)}
+        if mask:
+            out["mask"] = timing
+        else:
+            out.update(timing)
+    return out
 
 
 def ring_hits(out, ring):
@@ -729,30 +797,42 @@ def check_noprobe(model, carry, f: int, reps: int, symmetry: bool = False,
             "checks": checks}, k
 
 
-def check_probe(model, carry, step, reps: int) -> dict:
-    """K6 (``probe_block``) against ``probe_block_reference`` on the card:
-    the lanes the probe-free step ``step`` kept, compacted to the received
-    width of the default one-rank sharded run (``kmax`` rows, the fresh
-    ones first), probed into a copy of ``carry``'s table; then the same
-    lanes twice over, where the lowest lane of each fresh key must win."""
-    import numpy as np
+def probe_lanes(model, carry, step):
+    """The received lanes of the default one-rank sharded run: the lanes
+    the probe-free step ``step`` kept, compacted to ``kmax`` rows (the
+    fresh ones first). Returns ``(hi, lo, valid)``."""
     import torch
 
     from stateright_tpu_torch.checker.device_loop import shrink_indices
     from stateright_tpu_torch.checker.gpu import candidate_sizes
-    from stateright_tpu_torch.ops.fused import (StepWorkspace, probe_block,
-                                                probe_block_reference)
-    from stateright_tpu_torch.ops.words import pack64
 
-    kraw, kmax = candidate_sizes(model, 12288, {})
+    _kraw, kmax = candidate_sizes(model, 12288, {})
     count = int(step.dvalid.sum())
     if count > kmax:  # the engine's abort handler widens it so
         kmax = min(max(kmax * 2, -(-(count + count // 4) // 256) * 256),
                    12288 * model.max_actions)
     src = shrink_indices(step.dvalid, kmax)
-    hi, lo = step.chi[src], step.clo[src]
-    valid = torch.arange(kmax, device=hi.device) < count
-    out = {"n": kmax, "valid": count}
+    return (step.chi[src], step.clo[src],
+            torch.arange(kmax, device=step.chi.device) < count)
+
+
+def check_probe(model, carry, step, reps: int) -> dict:
+    """K6 (``probe_block``) against ``probe_block_reference`` on the card:
+    the lanes the probe-free step ``step`` kept, at the received width of
+    the default one-rank sharded run (``probe_lanes``), probed into a
+    copy of ``carry``'s table; then the same lanes twice over, where the
+    lowest lane of each fresh key must win. Each is repeated on an equal
+    table with the same workspace (the same mask), and timed."""
+    import numpy as np
+    import torch
+
+    from stateright_tpu_torch.ops.fused import (S_FAULT, StepWorkspace,
+                                                probe_block,
+                                                probe_block_reference)
+    from stateright_tpu_torch.ops.words import pack64
+
+    hi, lo, valid = probe_lanes(model, carry, step)
+    out = {"n": hi.shape[0], "valid": int(valid.sum())}
     for label, (h, l_, v) in (("main", (hi, lo, valid)),
                               ("twice", (torch.cat([hi, hi]),
                                          torch.cat([lo, lo]),
@@ -760,6 +840,7 @@ def check_probe(model, carry, step, reps: int) -> dict:
         t_k, t_p = carry.table.clone(), carry.table.clone()
         ws = StepWorkspace(t_k.numel(), 0, 0, t_k.device)
         ins_k, ovf_k, _r = probe_block(t_k, h, l_, v, ws)
+        fault = int(ws.insert_stats[S_FAULT])
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -770,18 +851,15 @@ def check_probe(model, carry, step, reps: int) -> dict:
         kk, pk = keys[ins_k].cpu().numpy(), keys[ins_p].cpu().numpy()
         table_k = np.sort(t_k[t_k != 0].cpu().numpy())
         table_p = np.sort(t_p[t_p != 0].cpu().numpy())
-        lanes = torch.arange(keys.shape[0], device=keys.device)
-        uniq, inv = torch.unique(keys[v], return_inverse=True)
-        first = torch.full((uniq.shape[0],), keys.shape[0],
-                           dtype=torch.int64, device=keys.device)
-        first.scatter_reduce_(0, inv, lanes[v], reduce="amin")
-        won = first[torch.searchsorted(uniq, keys[ins_k])]
+        t_again = carry.table.clone()
+        ins_again, _o, _r = probe_block(t_again, h, l_, v, ws)
         checks = {
             "inserted_set": set(kk.tolist()) == set(pk.tolist()),
             "one_lane_per_key": len(kk) == len(set(kk.tolist())),
             "table_set": np.array_equal(table_k, table_p),
-            "flags": bool(ovf_k) == bool(ovf_p),
-            "lowest_lane_wins": bool((won == lanes[ins_k]).all()),
+            "flags": bool(ovf_k) == bool(ovf_p) and fault == 0,
+            "lowest_lane_wins": lowest_valid_lane_wins(keys, v, ins_k),
+            "repeat": torch.equal(ins_again, ins_k),
         }
         if table_k.shape != table_p.shape or not all(checks.values()):
             raise AssertionError(f"owner-side probe ({label}) disagrees "
@@ -789,28 +867,32 @@ def check_probe(model, carry, step, reps: int) -> dict:
         words_k = table_k.view(np.uint32).astype(np.int64)
         words_p = table_p.view(np.uint32).astype(np.int64)
         err = int(np.abs(words_k - words_p).max()) if words_k.size else 0
-        out[label] = {"inserted": len(kk), "max_abs_err": err,
+
+        def restore(t=t_k, t0=carry.table):
+            t.copy_(t0)
+
+        def launch(t=t_k, h=h, l_=l_, v=v, ws=ws):
+            return probe_block(t, h, l_, v, ws)
+
+        dev = device_times(launch, before=restore)
+        n_ins = len(kk)
+        out[label] = {"n": h.shape[0], "inserted": n_ins,
+                      "max_abs_err": err,
+                      "ms": cuda_ms(launch, reps, restore),
+                      "device_ms": dev["ours_ms"],
+                      "device_by_kernel_ms": dev["by_kernel_ms"],
+                      "torch_ms": dev["torch_ms"],
+                      "plain_ms": start.elapsed_time(end),
+                      **insert_bound(keys, v, n_ins, True),
+                      "parts": insert_parts(keys, v, n_ins,
+                                            dev["by_kernel_ms"], True),
                       "checks": checks}
-        if label == "main":
-            out["plain_ms"] = start.elapsed_time(end)
-            table0 = carry.table
-
-            def restore(t=t_k, t0=table0):
-                t.copy_(t0)
-
-            out["ms"] = cuda_ms(lambda: probe_block(t_k, h, l_, v, ws),
-                                reps, restore)
-            dev = device_times(lambda: probe_block(t_k, h, l_, v, ws),
-                               before=restore)
-            out["device_ms"] = dev["ours_ms"]
-            out["device_by_kernel_ms"] = dev["by_kernel_ms"]
-            n_ins = len(kk)
-    n = kmax
-    nbytes = n * (4 + 4 + 1 + 1) + count * 32 + n_ins * 8
-    ops = n * 12
-    out.update(max_abs_err=max(out["main"]["max_abs_err"],
-                               out["twice"]["max_abs_err"]),
-               **bound(nbytes, ops))
+    main = out["main"]
+    out.update({k: main[k] for k in ("ms", "device_ms", "plain_ms",
+                                     "bound_ms", "bound_by", "bytes",
+                                     "ops")},
+               max_abs_err=max(out["main"]["max_abs_err"],
+                               out["twice"]["max_abs_err"]))
     return out
 
 
@@ -870,7 +952,8 @@ def orbits_2pc7(device) -> dict:
                  from_numpy_u32(np.array([fp >> 32], np.uint32), device),
                  from_numpy_u32(np.array([fp & 0xFFFFFFFF], np.uint32),
                                 device),
-                 torch.ones((1,), dtype=torch.bool, device=device))
+                 torch.ones((1,), dtype=torch.bool, device=device),
+                 mask=False)
     run_loop(model, carry, fmax=12288, grow_limit=1 << 20,
              target_remaining=2**62, stats=LoopStats())
     rows = carry.q[:carry.q_tail, :model.packed_width]
@@ -1449,7 +1532,11 @@ def main() -> int:
          "launches": default["launches"]["table_insert"],
          "max_abs_err": ins["max_abs_err"], "ms": ins["ms"],
          "plain_ms": ins["plain_ms"], "bound_ms": ins["bound_ms"],
-         "bound_by": ins["bound_by"], "library_ms": None, "status": "ok"},
+         "bound_by": ins["bound_by"], "library_ms": None,
+         "parts": ins["parts"],
+         "mask": {k: ins["mask"][k] for k in ("ms", "device_ms", "bound_ms",
+                                              "bound_by", "parts")},
+         "status": "ok"},
         {"name": "fused_step_noprobe", "route": "cuda",
          "source": sharded_src,
          "replaces": "stateright_tpu/ops/fused.py:259",
@@ -1471,6 +1558,8 @@ def main() -> int:
          "max_abs_err": probe["max_abs_err"], "ms": probe["ms"],
          "plain_ms": probe["plain_ms"], "bound_ms": probe["bound_ms"],
          "bound_by": probe["bound_by"], "library_ms": None,
+         "parts": {"main": probe["main"]["parts"],
+                   "twice": probe["twice"]["parts"]},
          "status": "ok"},
     ]
     for kernel, launches in (("fused_step_sym",

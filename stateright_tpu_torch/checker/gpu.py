@@ -230,7 +230,7 @@ class GpuChecker(HostChecker):
         lo = from_numpy_u32(arr.astype(np.uint32), table.device)
         valid = torch.ones((len(arr),), dtype=torch.bool,
                            device=table.device)
-        _, ovf = table_insert(table, hi, lo, valid)
+        _, ovf = table_insert(table, hi, lo, valid, mask=False)
         if ovf:
             raise RuntimeError(
                 "device hash table overflow while inserting known "
@@ -265,7 +265,7 @@ class GpuChecker(HostChecker):
                             device=dev)
         valid = torch.ones((carry.log_n,), dtype=torch.bool, device=dev)
         _, ovf = table_insert(table, log[:carry.log_n, 0],
-                              log[:carry.log_n, 1], valid)
+                              log[:carry.log_n, 1], valid, mask=False)
         if ovf:
             raise RuntimeError("overflow while re-inserting during growth")
         self._insert_keys(table, self._base_fps)

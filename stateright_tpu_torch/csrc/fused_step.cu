@@ -1,6 +1,6 @@
 // The fused BFS step on Hopper: expand -> fingerprint -> ring probe ->
 // visited-table claim -> commit, in three kernels, plus the stand-alone
-// table insert.
+// table insert (K4).
 //
 // Replaces the Pallas step kernel of the JAX package,
 // stateright_tpu/ops/fused.py:259 (build_fused_block_fn), in the
@@ -11,7 +11,8 @@
 // writes fp64(child) to ohi/olo; K2 and K3 key on chi/clo either way, so
 // they dedup, claim and ring-cache canonical keys). Built with nvcc for
 // sm_90a into a shared library with a plain C interface and driven over
-// ctypes by stateright_tpu_torch/ops/_cuda.py.
+// ctypes by stateright_tpu_torch/ops/_cuda.py. K4 replaces the XLA insert
+// stateright_tpu/ops/hashtable.py:71 (table_insert), not a pallas_call.
 //
 // What it computes (per step over F frontier rows of A action lanes):
 //   K1 expand_kernel   one thread per lane over block tiles of whole
@@ -37,11 +38,16 @@
 //                      inserted lane of each claimed slot (its owner
 //                      word), the ring write, and the per-step discovery
 //                      registers.
-//   K4 insert_kernel   the probe/claim of K2 on its own, for seeding and
-//                      growth.
+//   K4 flat_insert_kernel  the flat insert of step_common.cuh (one
+//                      thread per lane: the bucket probe/claim, and with
+//                      a mask the owner word, the grid's barrier and the
+//                      claimer's commit), for seeding and growth; its
+//                      mask marks the LOWEST valid lane of each fresh
+//                      key, as K2/K3 do.
 //
-// K1, the bucket probe/claim and the counters are in step_common.cuh,
-// shared with the sharded step (sharded_step.cu).
+// K1, the bucket probe/claim, the counters and the flat insert are in
+// step_common.cuh, shared with the sharded step (sharded_step.cu, whose
+// K6 is the same flat insert).
 //
 // Rules the design takes:
 //   * The table holds one 64-bit key (hi << 32 | lo) per slot, so a
@@ -66,6 +72,10 @@
 //   * Within one step K2 sees no ring entries written in that step
 //     (the Pallas grid's later blocks do); such lanes die in the table
 //     probe instead, so the inserted key set is the same.
+//   * K4 with a mask takes the owner words and the step counter of the
+//     table's workspace (ops/fused.py StepWorkspace), so one counter tags
+//     the steps and the inserts alike and no owner word needs clearing;
+//     without a mask (the seed and growth, which drop it) it posts none.
 //
 // What bounds it on this card: at 2pc n=7 and F = 12,288 rows (454,656
 // lanes) the step moves ~7.3 MB of successors, ~3.6 MB of fingerprint
@@ -91,20 +101,6 @@
 // block so the launch still spreads over the SMs; latency rules there.
 
 #include "step_common.cuh"
-
-// Mirrored by ops/_cuda.py InsertArgs.
-struct InsertArgs {
-  const uint32_t* hi;  // [n]
-  const uint32_t* lo;
-  const uint8_t* valid;
-  long long n;
-  unsigned long long* keys;
-  long long n_buckets;
-  int max_rounds;
-  uint8_t* inserted;  // [n]
-  int* stats;         // [2]: overflow, most rounds of one lane
-  void* stream;
-};
 
 namespace {
 
@@ -212,23 +208,6 @@ __global__ void commit_kernel(StepArgs a) {
   });
 }
 
-__global__ void insert_kernel(InsertArgs a) {
-  const long long l = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  int rounds = 0;
-  if (l < a.n) {
-    int ins = 0;
-    if (a.valid[l]) {
-      long long s;
-      const int st = probe_claim(a.keys, a.n_buckets, a.hi[l], a.lo[l],
-                                 a.max_rounds, &s, &rounds);
-      ins = st == PROBE_CLAIMED;
-      if (st == PROBE_OVF) atomicOr(&a.stats[0], 1);
-    }
-    a.inserted[l] = (uint8_t)ins;
-  }
-  warp_max(&a.stats[1], rounds);
-}
-
 template <class M, bool SYM>
 int launch_step(const M& m, const StepArgs& a) {
   cudaStream_t st = static_cast<cudaStream_t>(a.stream);
@@ -270,17 +249,13 @@ int srt_fused_step_twopc_sym(const StepArgs* args, int n, int complete) {
   return launch_step<TwoPcModel, true>(m, *args);
 }
 
-// Stand-alone batched insert (seeding and growth).
-int srt_table_insert(const InsertArgs* args) {
-  const InsertArgs& a = *args;
-  if (a.n == 0) return 0;
-  insert_kernel<<<blocks_for(a.n), kThreads, 0,
-                  static_cast<cudaStream_t>(a.stream)>>>(a);
-  return (int)cudaGetLastError();
+// K4, the stand-alone batched insert (seeding and growth): the flat
+// insert of step_common.cuh over args->F lanes.
+int srt_table_insert(const StepArgs* args) {
+  return (int)launch_insert(*args);
 }
 
-// Bytes of the argument structs, checked by the Python binding.
+// Bytes of the argument struct, checked by the Python binding.
 int srt_step_args_size() { return (int)sizeof(StepArgs); }
-int srt_insert_args_size() { return (int)sizeof(InsertArgs); }
 
 }  // extern "C"

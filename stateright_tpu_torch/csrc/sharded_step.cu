@@ -39,13 +39,14 @@
 //                           step-wide), and the cell cleared, so the
 //                           arena is all zero for the next step without a
 //                           memset; publishes the discoveries.
-//   K6 probe_claim_kernel   one thread per received lane: the 4-slot
-//                           bucket walk and claim of the visited-table
-//                           slice (probe_claim), and the owner word as
-//                           in fused_step.cu K2 with a claim stamp.
-//      probe_commit_kernel  one thread per lane: inserted iff its slot
-//                           was claimed in this call and it owns it:
-//                           the LOWEST received lane of each fresh key.
+//   K6 flat_insert_kernel   the flat insert of step_common.cuh, the
+//                           kernel of fused_step.cu's K4, with a mask:
+//                           one thread per received lane walks the
+//                           4-slot buckets of this rank's table slice,
+//                           claims, and atomicMin's the owner word; after
+//                           the grid's barrier each claimer marks its
+//                           slot's owner lane: the LOWEST received lane
+//                           of each fresh key.
 //
 // Rules the design takes:
 //   * dvalid keeps the lowest live lane of each key, step-wide: a key's
@@ -65,7 +66,10 @@
 //     checks the tag (S_FAULT otherwise).
 //   * K6 reuses fused_step.cu's winner rule on the table slice, so the
 //     owner's search record (which parent a child keeps) repeats run to
-//     run; the stand-alone insert kernel there lets a racing lane win.
+//     run; its owner words and step counter are the slice's workspace's
+//     (ops/fused.py StepWorkspace), and the claimer keeps its slot in a
+//     register across the barrier, so no per-slot claim stamp and no
+//     per-lane slot scratch are kept.
 //
 // What bounds it on this card: at 2pc n=7 and F = 12,288 rows (454,656
 // lanes) the probe-free step writes ~7.3 MB of successors and ~3.6 MB
@@ -75,9 +79,15 @@
 // kernels with global atomics after K1; now the tile stage keeps the
 // dedup of a tile in shared memory, only the ~67k tile winners touch the
 // ring and the arena, and the commit walks only the ~22k claims. K6 on
-// ~57k received lanes reads ~0.5 MB of lanes and one 32-byte bucket per
-// lane: well under a microsecond of bytes; its launches and the random
-// bucket reads rule (one thread per lane, global-memory atomics). Under
+// ~57k received lanes (~22k valid, the rest padding) reads ~0.5 MB of
+// lanes and one 32-byte bucket per valid key: well under a microsecond
+// of bytes, so its launch and its chain of dependent memory steps rule
+// (the lane, its bucket, the CAS, the grid's barrier, the owner word).
+// The first cut ran two kernels after a torch fill of the mask, stamped
+// each claimed slot and re-read every lane's slot, stamp and owner word;
+// K2's tile stage and per-tile claims lists, tried in its place, cost
+// more latency than they saved on these batches, whose lanes are mostly
+// distinct keys (tools/torch_insert_sweep.py, PERF.md). Under
 // symmetry only K1 changes (its symmetric instantiation; fused_step.cu
 // notes its bound).
 
@@ -92,24 +102,6 @@ struct DedupArgs {
                                     // between steps
   unsigned long long* arena_owner;  // [cells] owner words
   long long cells;
-};
-
-// Mirrored by ops/_cuda.py ProbeArgs.
-struct ProbeArgs {
-  const uint32_t* hi;  // [n] received lanes
-  const uint32_t* lo;
-  const uint8_t* valid;
-  long long n;
-  unsigned long long* keys;  // [n_buckets * 4] this rank's table slice
-  long long n_buckets;
-  int max_rounds;
-  uint32_t step;             // this call's tag (>= 1)
-  unsigned long long* owner;  // [n_buckets * 4]
-  uint32_t* stamp;            // [n_buckets * 4]
-  int* lane_slot;             // [n] scratch
-  uint8_t* inserted;          // [n]
-  int* stats;                 // [2]: overflow, most rounds of one lane
-  void* stream;
 };
 
 namespace {
@@ -183,40 +175,6 @@ __global__ void dedup_commit_kernel(DedupArgs d) {
   }
 }
 
-__global__ void probe_claim_kernel(ProbeArgs a) {
-  const long long l = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  int rounds = 0;
-  if (l < a.n) {
-    int slot = -1;
-    if (a.valid[l]) {
-      long long s;
-      const int st = probe_claim(a.keys, a.n_buckets, a.hi[l], a.lo[l],
-                                 a.max_rounds, &s, &rounds);
-      if (st == PROBE_OVF) {
-        atomicOr(&a.stats[0], 1);
-      } else {
-        if (st == PROBE_CLAIMED) a.stamp[s] = a.step;
-        atomicMin(&a.owner[s], ((unsigned long long)(~a.step) << 32) |
-                                   (unsigned long long)l);
-        slot = (int)s;
-      }
-    }
-    a.lane_slot[l] = slot;
-  }
-  warp_max(&a.stats[1], rounds);
-}
-
-__global__ void probe_commit_kernel(ProbeArgs a) {
-  const long long l = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (l < a.n) {
-    const int s = a.lane_slot[l];
-    a.inserted[l] =
-        (uint8_t)(s >= 0 && a.stamp[s] == a.step &&
-                  a.owner[s] == (((unsigned long long)(~a.step) << 32) |
-                                 (unsigned long long)l));
-  }
-}
-
 template <class M, bool SYM>
 int launch_dedup_step(const M& m, const DedupArgs& d) {
   const StepArgs& a = d.s;
@@ -264,20 +222,14 @@ int srt_dedup_step_twopc_sym(const DedupArgs* args, int n, int complete) {
   return launch_dedup_step<TwoPcModel, true>(m, *args);
 }
 
-// The owner-side probe of the received lanes against this rank's slice.
-int srt_probe_block(const ProbeArgs* args) {
-  const ProbeArgs& a = *args;
-  if (a.n == 0) return 0;
-  cudaStream_t st = static_cast<cudaStream_t>(a.stream);
-  probe_claim_kernel<<<blocks_for(a.n), kThreads, 0, st>>>(a);
-  const cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  probe_commit_kernel<<<blocks_for(a.n), kThreads, 0, st>>>(a);
-  return (int)cudaGetLastError();
+// K6, the owner-side probe of the received lanes against this rank's
+// slice: the flat insert of step_common.cuh over args->F lanes.
+int srt_probe_block(const StepArgs* args) {
+  return (int)launch_insert(*args);
 }
 
 // Bytes of the argument structs, checked by the Python binding.
 int srt_dedup_args_size() { return (int)sizeof(DedupArgs); }
-int srt_probe_args_size() { return (int)sizeof(ProbeArgs); }
+int srt_step_args_size() { return (int)sizeof(StepArgs); }
 
 }  // extern "C"

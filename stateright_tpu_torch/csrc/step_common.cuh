@@ -5,11 +5,14 @@
 // K1, the expand kernel (with a compile-time symmetry flag: the
 // symmetric instantiation keys each child on the fingerprint of its
 // canonical representative and writes the child's own fingerprint beside
-// it), and the tile stage of K2 and K5 (the tile's lowest valid lane of
-// each key). Each .cu file includes it and is built on its own into its
-// own library (ops/_cuda.py), so everything here has internal linkage.
+// it), the tile stage of K2 and K5 (the tile's lowest valid lane of
+// each key), and the flat insert (K4 in fused_step.cu, K6 in
+// sharded_step.cu). Each .cu file includes it and is built on its own
+// into its own library (ops/_cuda.py), so everything here has internal
+// linkage.
 #pragma once
 
+#include <cooperative_groups.h>
 #include <cstdint>
 #include <cuda_runtime.h>
 #include <type_traits>
@@ -25,6 +28,7 @@ constexpr uint32_t kSeed1 = 0x9747B28Cu;
 constexpr uint32_t kSeed2 = 0x85EBCA6Bu;
 constexpr uint32_t kPhi = 0x9E3779B9u;
 constexpr int kBucket = 4;
+// threads per block of the flat insert (one lane per thread)
 constexpr int kThreads = 256;
 // threads per block of the commit kernels (K3, K5's commit), which walk
 // one tile's claims: ~10-30 per tile on a large step of 2pc n=7 or n=16
@@ -390,10 +394,6 @@ cudaError_t launch_expand(const M& m, const StepArgs& a, cudaStream_t st) {
   return cudaGetLastError();
 }
 
-inline int blocks_for(long long n) {
-  return (int)((n + kThreads - 1) / kThreads);
-}
-
 // Publish this step's discovery registers from the candidates K1 left
 // in disc_cand (one thread calls it, after K1 has finished).
 __device__ __forceinline__ void publish_discoveries(const StepArgs& a) {
@@ -539,6 +539,94 @@ __device__ __forceinline__ long long owner_lane(unsigned long long word,
   const unsigned long long tag = (unsigned long long)(~step) << 32;
   const long long lane = (long long)(word & 0xFFFFFFFFull);
   return (word & 0xFFFFFFFF00000000ull) == tag && lane < lanes ? lane : -1;
+}
+
+// The flat insert (K4, K6): insert the a.F lanes (key chi << 32 | clo,
+// where cvalid) into the table a.keys, and with a mask (MASK; a.inserted)
+// mark the LOWEST valid lane of each fresh key, by the owner-word rule of
+// K2/K3. One thread per lane, from lane0: it loads the lane's key with
+// its validity (one memory latency), then walks and claims its bucket
+// (probe_claim). With a mask every lane gets inserted = 0, every valid
+// lane atomicMin's (~step) << 32 | lane into owner[s] of the slot s its
+// probe ends at, a claimer or not, and the claimer keeps s in a register;
+// after the grid's barrier (one cooperative launch) the claimer reads
+// owner[s], whose lane it marks: the lowest valid lane of the key, though
+// the claimer may be any lane that raced in first. An owner word without
+// this call's tag is a kernel fault (S_FAULT). Without a mask there are
+// no owner words, no barrier and no commit: one pass of claims, launched
+// plainly. Overflow goes to S_OVF, the most rounds of one lane to
+// S_ROUNDS.
+template <bool MASK>
+__global__ void __launch_bounds__(kThreads)
+    flat_insert_kernel(StepArgs a, long long lane0) {
+  const long long l =
+      lane0 + (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  long long claimed = -1;
+  int rounds = 0;
+  if (l < a.F) {
+    const bool valid = a.cvalid[l];
+    const uint32_t hi = a.chi[l], lo = a.clo[l];
+    if (MASK) a.inserted[l] = 0;
+    if (valid) {
+      long long s;
+      const int st = probe_claim(a.keys, a.n_buckets, hi, lo, a.max_rounds,
+                                 &s, &rounds);
+      if (st == PROBE_OVF) {
+        atomicOr(&a.stats[S_OVF], 1);
+      } else if (MASK) {
+        atomicMin(&a.owner[s], ((unsigned long long)(~a.step) << 32) |
+                                   (unsigned long long)l);
+        if (st == PROBE_CLAIMED) claimed = s;
+      }
+    }
+  }
+  warp_max(&a.stats[S_ROUNDS], rounds);
+  if (!MASK) return;
+  cooperative_groups::this_grid().sync();
+  if (claimed >= 0) {
+    const long long lane = owner_lane(a.owner[claimed], a.step, a.F);
+    if (lane < 0)
+      atomicOr(&a.stats[S_FAULT], 1);
+    else
+      a.inserted[lane] = 1;
+  }
+}
+
+// Launch the flat insert of a.F lanes into a.keys (a.A == 1, no ring),
+// kThreads lanes per block. Without a mask: one launch over every lane.
+// With one, the cooperative grid is capped at the blocks that can be
+// resident at once, so a batch wider than its threads runs as
+// consecutive launches over lane ranges in order, under the same tag: a
+// later range's lanes are all higher, so its owner words never undercut
+// an earlier range's, and a key an earlier range inserted is found
+// there. Only the table, a.inserted, the owner words and a.stats (zeroed
+// by the caller) are written.
+inline cudaError_t launch_insert(const StepArgs& a) {
+  if (a.F == 0) return cudaSuccess;
+  if (a.A != 1 || a.cc != 0) return cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(a.stream);
+  const long long blocks = (a.F + kThreads - 1) / kThreads;
+  if (!a.inserted) {
+    flat_insert_kernel<false><<<(int)blocks, kThreads, 0, st>>>(a, 0ll);
+    return cudaGetLastError();
+  }
+  int per_sm = 0, dev = 0, sms = 0;
+  cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, flat_insert_kernel<true>, kThreads, 0);
+  if (e == cudaSuccess) e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return e;
+  const long long grid = min(blocks, (long long)per_sm * sms);
+  if (grid < 1) return cudaErrorCooperativeLaunchTooLarge;
+  StepArgs copy = a;
+  for (long long lane0 = 0; lane0 < a.F; lane0 += grid * kThreads) {
+    void* params[] = {&copy, &lane0};
+    e = cudaLaunchCooperativeKernel((const void*)flat_insert_kernel<true>,
+                                    (int)grid, kThreads, params, 0, st);
+    if (e != cudaSuccess) return e;
+  }
+  return cudaGetLastError();
 }
 
 }  // namespace

@@ -30,7 +30,7 @@ from typing import NamedTuple
 import torch
 
 from ..core import Expectation
-from .fused import property_masks
+from .fused import S_DISC, S_FAULT, S_OVF, S_ROUNDS, property_masks
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -40,8 +40,9 @@ _NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 #: kernel launches per wrapper: ``fused_step`` (K1-K3 of one step),
-#: ``table_insert`` (K4), ``fused_step_noprobe`` (K1 + K5 of one
-#: probe-free step), ``probe_block`` (K6), and the symmetric steps
+#: ``table_insert`` (K4: the flat insert), ``fused_step_noprobe`` (K1 +
+#: K5 of one probe-free step), ``probe_block`` (K6: the same flat
+#: insert), and the symmetric steps
 #: ``fused_step_sym`` and ``fused_step_noprobe_sym`` (the same kernels
 #: with K1's symmetric instantiation)
 LAUNCHES = {"fused_step": 0, "table_insert": 0, "fused_step_noprobe": 0,
@@ -140,32 +141,11 @@ class StepArgs(ctypes.Structure):
     ]
 
 
-class InsertArgs(ctypes.Structure):
-    """``InsertArgs`` of ``csrc/fused_step.cu``, field for field."""
-
-    _fields_ = [
-        ("hi", _p), ("lo", _p), ("valid", _p), ("n", _ll), ("keys", _p),
-        ("n_buckets", _ll), ("max_rounds", _i), ("inserted", _p),
-        ("stats", _p), ("stream", _p),
-    ]
-
-
 class DedupArgs(ctypes.Structure):
     """``DedupArgs`` of ``csrc/sharded_step.cu``, field for field."""
 
     _fields_ = [("s", StepArgs), ("arena", _p), ("arena_owner", _p),
                 ("cells", _ll)]
-
-
-class ProbeArgs(ctypes.Structure):
-    """``ProbeArgs`` of ``csrc/sharded_step.cu``, field for field."""
-
-    _fields_ = [
-        ("hi", _p), ("lo", _p), ("valid", _p), ("n", _ll), ("keys", _p),
-        ("n_buckets", _ll), ("max_rounds", _i), ("step", _u),
-        ("owner", _p), ("stamp", _p), ("lane_slot", _p), ("inserted", _p),
-        ("stats", _p), ("stream", _p),
-    ]
 
 #: per library: (C entry, argument struct, its size function, the
 #: number of int parameters after the struct: the model's) of each kernel
@@ -174,13 +154,13 @@ _ENTRIES = {
                     1),
                    ("srt_fused_step_twopc_sym", StepArgs,
                     "srt_step_args_size", 2),
-                   ("srt_table_insert", InsertArgs, "srt_insert_args_size",
+                   ("srt_table_insert", StepArgs, "srt_step_args_size",
                     0)],
     "sharded_step": [("srt_dedup_step_twopc", DedupArgs,
                       "srt_dedup_args_size", 1),
                      ("srt_dedup_step_twopc_sym", DedupArgs,
                       "srt_dedup_args_size", 2),
-                     ("srt_probe_block", ProbeArgs, "srt_probe_args_size",
+                     ("srt_probe_block", StepArgs, "srt_step_args_size",
                       0)],
 }
 
@@ -421,20 +401,24 @@ def fused_step_noprobe(model, frontier, ebits, fvalid, phi, plo, ring, ws,
     return outputs
 
 
-def probe_block(table, fhi, flo, valid, ws, max_rounds: int):
-    """Launch K6: the owner-side probe of ``(fhi, flo)`` lanes against
-    ``table`` (this rank's slice), in place. Returns ``(inserted,
-    overflow, rounds)``, the two scalars as 0-d device tensors (no
-    sync). ``ws`` is the table's ``StepWorkspace`` (owner and stamp
-    words)."""
+def _flat_insert(library: str, entry: str, what: str, table, fhi, flo,
+                 valid, ws, max_rounds: int, mask: bool = True):
+    """Launch the flat insert of ``csrc/step_common.cuh`` through the C
+    entry ``entry`` of ``library`` (K4: ``srt_table_insert`` of
+    ``fused_step``; K6: ``srt_probe_block`` of ``sharded_step``; ``what``
+    names it in a launch error): insert the ``(fhi, flo)`` lanes where
+    ``valid`` into ``table`` in place. With ``mask`` it marks the lowest
+    valid lane of each fresh key, through the owner words and the step
+    counter of ``ws``, the table's ``StepWorkspace``; without it no mask
+    is made and ``ws`` is not used. Returns ``(inserted, stats)``: the
+    mask (``None`` without one) and the ``S_*`` stats vector (``S_OVF``,
+    ``S_ROUNDS``, ``S_FAULT``), both on the device, not synchronised."""
     build()
-    lib = _LIB["sharded_step"]
     dev = table.device
     _check(table, "table", torch.int64, 2, dev)
     capacity = table.numel()
     if table.shape[1] != 4 or capacity >= 1 << 31:
         raise ValueError("table must be [C/4, 4] with C < 2**31")
-    ws.check(capacity, 0, 0, dev)
     n = fhi.shape[0]
     hi = fhi.to(torch.int32).contiguous()
     lo = flo.to(torch.int32).contiguous()
@@ -444,49 +428,57 @@ def probe_block(table, fhi, flo, valid, ws, max_rounds: int):
     if lo.shape[0] != n or valid.shape[0] != n or n >= 1 << 31:
         raise ValueError("fhi, flo and valid must have equal lengths "
                          "below 2**31")
-    ws.step += 1
-    inserted = torch.zeros((n,), dtype=torch.bool, device=dev)
-    lane_slot = torch.empty((n,), dtype=torch.int32, device=dev)
-    stats = torch.zeros((2,), dtype=torch.int32, device=dev)
-    args = ProbeArgs(
-        hi=hi.data_ptr(), lo=lo.data_ptr(), valid=valid.data_ptr(), n=n,
-        keys=table.data_ptr(), n_buckets=table.shape[0],
-        max_rounds=max_rounds, step=ws.step, owner=ws.owner.data_ptr(),
-        stamp=ws.stamp.data_ptr(), lane_slot=lane_slot.data_ptr(),
-        inserted=inserted.data_ptr(), stats=stats.data_ptr(),
+    inserted, owner, step = None, None, 0
+    if mask:
+        ws.check(capacity, 0, 0, dev)
+        ws.step += 1
+        # the kernel writes every lane's inserted = 0 before its barrier
+        inserted = torch.empty((n,), dtype=torch.bool, device=dev)
+        owner, step = ws.owner.data_ptr(), ws.step
+    stats = torch.zeros((S_DISC,), dtype=torch.int32, device=dev)
+    args = StepArgs(
+        F=n, A=1, P=0, pcols=1, step=step, chi=hi.data_ptr(),
+        clo=lo.data_ptr(), cvalid=valid.data_ptr(),
+        inserted=None if inserted is None else inserted.data_ptr(),
+        stats=stats.data_ptr(), keys=table.data_ptr(),
+        n_buckets=table.shape[0], max_rounds=max_rounds, cc=0, owner=owner,
         stream=torch.cuda.current_stream(dev).cuda_stream)
-    _raise_on(lib.srt_probe_block(ctypes.byref(args)), "owner-side probe")
+    _raise_on(getattr(_LIB[library], entry)(ctypes.byref(args)), what)
+    return inserted, stats
+
+
+def probe_block(table, fhi, flo, valid, ws, max_rounds: int):
+    """Launch K6: the owner-side probe of ``(fhi, flo)`` lanes against
+    ``table`` (this rank's slice), in place. Returns ``(inserted,
+    overflow, rounds)``, the two scalars as 0-d device tensors (no
+    sync). ``ws`` is the table's ``StepWorkspace``; it keeps this call's
+    stats vector as ``ws.insert_stats``, whose ``S_FAULT`` the sharded
+    loop reads with its next reduction."""
+    inserted, stats = _flat_insert("sharded_step", "srt_probe_block",
+                                   "owner-side probe", table, fhi, flo,
+                                   valid, ws, max_rounds)
+    ws.insert_stats = stats
     LAUNCHES["probe_block"] += 1
-    return inserted, stats[0] > 0, stats[1]
+    return inserted, stats[S_OVF] > 0, stats[S_ROUNDS]
 
 
-def table_insert(table, fhi, flo, valid, max_rounds: int):
-    """Launch K4: insert ``(fhi, flo)`` lanes into ``table`` in place.
-    Returns ``(inserted, overflow, rounds)`` — the two scalars read back
-    with one synchronising copy (seeding and growth only)."""
-    build()
-    lib = _LIB["fused_step"]
-    dev = table.device
-    _check(table, "table", torch.int64, 2, dev)
-    n = fhi.shape[0]
-    hi = fhi.to(torch.int32).contiguous()
-    lo = flo.to(torch.int32).contiguous()
-    _check(hi, "fhi", torch.int32, 1, dev)
-    _check(lo, "flo", torch.int32, 1, dev)
-    _check(valid, "valid", torch.bool, 1, dev)
-    if lo.shape[0] != n or valid.shape[0] != n:
-        raise ValueError("fhi, flo and valid must have equal lengths")
-    if n == 0:
-        return torch.zeros((0,), dtype=torch.bool, device=dev), False, 0
-    inserted = torch.empty((n,), dtype=torch.bool, device=dev)
-    stats = torch.zeros((2,), dtype=torch.int32, device=dev)
-    args = InsertArgs(
-        hi=hi.data_ptr(), lo=lo.data_ptr(), valid=valid.data_ptr(), n=n,
-        keys=table.data_ptr(), n_buckets=table.shape[0],
-        max_rounds=max_rounds, inserted=inserted.data_ptr(),
-        stats=stats.data_ptr(),
-        stream=torch.cuda.current_stream(dev).cuda_stream)
-    _raise_on(lib.srt_table_insert(ctypes.byref(args)), "table insert")
+def table_insert(table, fhi, flo, valid, ws, max_rounds: int,
+                 mask: bool = True):
+    """Launch K4: insert ``(fhi, flo)`` lanes into ``table`` in place;
+    with ``mask``, through ``ws``, the table's ``StepWorkspace`` (without
+    it no mask is made, ``ws`` may be ``None``). Returns ``(inserted,
+    overflow, rounds)`` — the two scalars read back with one
+    synchronising copy (seeding and growth only), ``inserted`` ``None``
+    without a mask; raises on a kernel fault (``S_FAULT``)."""
+    if fhi.shape[0] == 0:
+        return (torch.zeros((0,), dtype=torch.bool, device=table.device)
+                if mask else None, False, 0)
+    inserted, stats = _flat_insert("fused_step", "srt_table_insert",
+                                   "table insert", table, fhi, flo, valid,
+                                   ws, max_rounds, mask)
     LAUNCHES["table_insert"] += 1
-    ovf, rounds = stats.tolist()
-    return inserted, bool(ovf), int(rounds)
+    host = stats.tolist()
+    if host[S_FAULT]:
+        raise RuntimeError("the insert kernel found a claim without this "
+                           "call's owner word (S_FAULT)")
+    return inserted, bool(host[S_OVF]), int(host[S_ROUNDS])

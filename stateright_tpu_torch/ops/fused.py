@@ -48,10 +48,12 @@ ring holds, where the plain version counts the lanes that survive the
 pre-dedup.
 
 :func:`probe_block` inserts the lanes a rank received in the exchange
-into its table slice: on a CUDA table the kernel of
-``csrc/sharded_step.cu`` (the lowest received lane of each fresh key is
-inserted), on a CPU table :func:`probe_block_reference`, the JAX
-package's ``table_insert`` round for round.
+into its table slice: on a CUDA table the flat insert of
+``csrc/step_common.cuh`` through ``csrc/sharded_step.cu`` (the lowest
+received lane of each fresh key is inserted; the same kernel as the
+stand-alone insert, ``ops/hashtable.py`` ``table_insert``), on a CPU
+table :func:`probe_block_reference`, the JAX package's ``table_insert``
+round for round.
 """
 
 from __future__ import annotations
@@ -201,22 +203,25 @@ def fused_step(model, frontier, ebits, fvalid, phi, plo, table,
 
 class StepWorkspace:
     """Kernel state that outlives one step (CUDA only): per table slot
-    the owner word of the winner rule (``csrc/fused_step.cu``) and the
-    claim stamp of the owner-side probe (``csrc/sharded_step.cu`` K6),
-    the ring arena, the discovery candidates, and the step counter that
-    tags them. One per table: growth makes a new one."""
+    the owner word of the winner rule (``csrc/step_common.cuh``), the
+    ring arena, the discovery candidates, and the step counter that tags
+    the owner words. The steps (K2/K3) and the masked flat inserts into
+    the same table (K4 when its mask is asked for, K6 on a sharded slice)
+    share it, so one counter tags them all. One per table: growth makes
+    a new one."""
 
     def __init__(self, capacity: int, cc: int, n_props: int, device):
         self.owner = torch.full((capacity,), -1, dtype=torch.int64,
                                 device=device)
-        self.stamp = torch.zeros((capacity,), dtype=torch.int32,
-                                 device=device)
         self.ring_arena = torch.empty((max(cc, 1),), dtype=torch.int64,
                                       device=device)
         self.disc_cand = torch.full((max(n_props, 1),), -1,
                                     dtype=torch.int64, device=device)
         self.step = 0
         self.n_claims = None  # the last step's claims per tile
+        # the last owner-side probe's stats vector (S_* layout): the
+        # sharded loop reads its S_FAULT
+        self.insert_stats = None
 
     def check(self, capacity: int, cc: int, n_props: int, device) -> None:
         if (self.owner.shape[0] != capacity
@@ -332,10 +337,10 @@ def probe_block(table, fhi, flo, valid, ws: "Optional[StepWorkspace]" = None,
     Returns ``(inserted bool[N], overflow, rounds)``, the last two as
     0-d tensors on the table's device (no host sync): ``inserted`` marks
     one lane per key that was not in the table. A CUDA table launches
-    the kernel (``ws``: the table's :class:`StepWorkspace`, made when
-    omitted), which inserts the LOWEST received lane of each fresh key
-    and counts the most rounds one lane took; a CPU table runs
-    :func:`probe_block_reference`."""
+    the flat insert (``csrc/step_common.cuh``; ``ws``: the table's
+    :class:`StepWorkspace`, made when omitted), which inserts the LOWEST
+    valid lane of each fresh key and counts the most rounds one lane
+    took; a CPU table runs :func:`probe_block_reference`."""
     if table.is_cuda:
         from . import _cuda
         if ws is None:

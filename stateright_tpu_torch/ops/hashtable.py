@@ -10,10 +10,10 @@ keys sends it to the next bucket. Buckets only ever fill, so a lookup
 revisits every bucket between a key's start bucket and its slot.
 
 :func:`table_insert` is the wrapper: on a CUDA table it launches the
-stand-alone insert kernel (``csrc/fused_step.cu`` ``insert_kernel``, the
-same probe/claim device function the step kernel uses); on a CPU table
-it runs :func:`table_insert_reference`, the JAX package's insert ported
-lane for lane.
+flat insert (``csrc/step_common.cuh``, through ``csrc/fused_step.cu``:
+the step kernel's bucket claim one thread per lane, and for a mask its
+owner words); on a CPU table it runs :func:`table_insert_reference`, the JAX package's insert
+ported lane for lane.
 """
 
 from __future__ import annotations
@@ -50,7 +50,7 @@ def start_bucket(hi: torch.Tensor, lo: torch.Tensor, n_buckets: int):
 
 
 def table_insert(table, fhi, flo, valid, max_rounds: int = 4096,
-                 with_rounds: bool = False):
+                 with_rounds: bool = False, ws=None, mask: bool = True):
     """Insert a batch of fingerprints into ``table`` IN PLACE.
 
     Args:
@@ -60,24 +60,36 @@ def table_insert(table, fhi, flo, valid, max_rounds: int = 4096,
       valid: bool ``[N]``; invalid lanes are ignored.
       max_rounds: probe-round bound; hitting it reports overflow.
       with_rounds: also return the probe-round count.
+      ws: the table's ``ops.fused.StepWorkspace`` (CUDA only: its owner
+        words and step counter, shared with the steps on the same
+        table); made when omitted.
+      mask: ``False`` when the caller drops ``inserted`` (the seed and
+        growth): the kernel then makes no mask (one pass, no owner words,
+        ``ws`` unused) and ``inserted`` is ``None`` on either device.
 
     Returns:
       ``(inserted bool[N], overflowed bool)`` (+ ``rounds int``):
       ``inserted`` marks exactly one lane per key that was not yet in
       the table. Which lane of an in-batch duplicate group is marked is
-      unspecified (the JAX package documents the same): the CPU path
-      marks the one the JAX package's XLA:CPU scatter marks, the kernel
-      the lane whose claim landed first. On the card ``rounds`` is the
-      most rounds one lane took; on the CPU it is the JAX count.
+      unspecified by the JAX package: the CPU path marks the one the JAX
+      package's XLA:CPU scatter marks, the kernel the LOWEST valid lane
+      of each fresh key (the owner-word rule of the step kernel), so its
+      mask repeats from call to call. On the card ``rounds`` is the most
+      rounds one lane took; on the CPU it is the JAX count.
     """
     if table.is_cuda:
         from . import _cuda
-        inserted, ovf, rounds = _cuda.table_insert(
-            table, fhi, flo, valid, max_rounds)
-        out = (inserted, ovf)
-        return out + (rounds,) if with_rounds else out
-    return table_insert_reference(table, fhi, flo, valid, max_rounds,
-                                  with_rounds)
+        if ws is None and mask:
+            from .fused import StepWorkspace
+            ws = StepWorkspace(table.numel(), 0, 0, table.device)
+        out = _cuda.table_insert(table, fhi, flo, valid, ws, max_rounds,
+                                 mask)
+    else:
+        out = table_insert_reference(table, fhi, flo, valid, max_rounds,
+                                     True)
+        if not mask:
+            out = (None,) + out[1:]
+    return out if with_rounds else out[:2]
 
 
 def table_insert_reference(table, fhi, flo, valid, max_rounds: int = 4096,

@@ -113,8 +113,11 @@ class ShardedGpuChecker(GpuChecker):
                           device=dev)
         log[:carry.log_n] = carry.log[:carry.log_n]
         carry.q, carry.log = q, log
-        ovf = rebuild_table(carry, closc)
-        if int(grp.pmax(ovf.reshape(1))[0]):
+        ovf, fault = grp.pmax(rebuild_table(carry, closc)).tolist()
+        if fault:
+            raise RuntimeError("the owner-side probe kernel found a claim "
+                               "without this call's owner word (S_FAULT)")
+        if ovf:
             raise RuntimeError("overflow while re-inserting during growth")
         self._insert_keys(carry.table, self._owned_base_fps)
 

@@ -242,19 +242,28 @@ def rebuild_table(carry: ShardedCarry, capacity_local: int) -> torch.Tensor:
     """A fresh table slice of ``capacity_local`` slots holding this
     rank's logged fingerprints (every one distinct, every one owned
     here), inserted through the owner-side probe; returns its overflow
-    flag as a 0-d tensor. Replaces ``carry.table`` and ``probe_ws``."""
+    and kernel-fault flags as an int64 ``[2]`` tensor. Replaces
+    ``carry.table`` and ``probe_ws``."""
     dev = carry.q.device
     carry.table = make_table(capacity_local, dev)
     carry.probe_ws = (StepWorkspace(capacity_local, 0, 0, dev)
                       if carry.table.is_cuda else None)
     ln = carry.log_n
     if not ln:
-        return torch.zeros((), dtype=torch.bool, device=dev)
+        return torch.zeros((2,), dtype=torch.int64, device=dev)
     _, ovf, _ = probe_block(carry.table, carry.log[:ln, 0],
                             carry.log[:ln, 1],
                             torch.ones((ln,), dtype=torch.bool, device=dev),
                             carry.probe_ws)
-    return ovf
+    return torch.stack([ovf.to(torch.int64), _probe_fault(carry)])
+
+
+def _probe_fault(carry: ShardedCarry) -> torch.Tensor:
+    """The last owner-side probe's kernel fault flag (``S_FAULT``) as a
+    0-d tensor: the kernel's on the card, 0 for the plain version."""
+    if carry.probe_ws is None:
+        return torch.zeros((), dtype=torch.int32, device=carry.q.device)
+    return carry.probe_ws.insert_stats[S_FAULT]
 
 
 def _read(t: torch.Tensor, stats: ShardedStats) -> list:
@@ -347,15 +356,18 @@ def sharded_step_once(model, carry: ShardedCarry, grp, sizes: StepSizes,
     carry.q_head = h + take
 
     hops = []  # (received rows, inserted mask) per probe round
-    t_ovf = torch.zeros((), dtype=torch.bool, device=dev)
-    rounds = torch.zeros((), dtype=torch.int64, device=dev)
+    # the probes' overflow, rounds and kernel fault (S_FAULT)
     if bucket:
         recv = grp.all_to_all(bucket_send(cand, kvalid, owner, d, kb))
         ins, t_ovf, rounds = probe_block(
             carry.table, recv[:, log_off], recv[:, log_off + 1],
             recv[:, cols] == 1, carry.probe_ws)
+        fault = _probe_fault(carry)
         hops.append((recv, ins))
     else:
+        t_ovf = torch.zeros((), dtype=torch.bool, device=dev)
+        rounds = torch.zeros((), dtype=torch.int64, device=dev)
+        fault = torch.zeros((), dtype=torch.int32, device=dev)
         # D hops around the ring; each rank claims the lanes it owns
         rc = torch.cat([cand, kvalid[:, None].to(torch.int32),
                         owner[:, None].to(torch.int32)], dim=1)
@@ -367,6 +379,7 @@ def sharded_step_once(model, carry: ShardedCarry, grp, sizes: StepSizes,
             hops.append((rc, ins))
             t_ovf = t_ovf | o
             rounds = rounds + r
+            fault = fault | _probe_fault(carry)
             if hop < d - 1:
                 rc = grp.ring_shift(rc)
     cnts = torch.stack([ins.sum() for _rows, ins in hops])
@@ -374,11 +387,11 @@ def sharded_step_once(model, carry: ShardedCarry, grp, sizes: StepSizes,
     total = cnts.sum()
 
     # --- fused reductions 2 and 3 of 3: the loop condition's maxima and
-    # the probe overflow in one pmax; the sums in one psum
+    # the probe overflow and fault in one pmax; the sums in one psum
     tail = carry.q_tail + total
     pm2 = grp.pmax(torch.stack([tail - carry.q_head, tail,
                                 carry.log_n + total,
-                                t_ovf.to(torch.int64)]))
+                                t_ovf.to(torch.int64), fault]))
     if carry.ring is not None:
         # staged and post-commit: ring entries stay a subset of the
         # committed visited set, so nothing is cached when some owner's
@@ -395,7 +408,10 @@ def sharded_step_once(model, carry: ShardedCarry, grp, sizes: StepSizes,
         torch.where(pick, d_hi, 0), torch.where(pick, d_lo, 0)]))
     host = _read(torch.cat([cnts, pm2, ps]), stats)
     nh = len(hops)
-    cnt_h, pm2_h, ps_h = host[:nh], host[nh:nh + 4], host[nh + 4:]
+    cnt_h, pm2_h, ps_h = host[:nh], host[nh:nh + 5], host[nh + 5:]
+    if pm2_h[4]:  # on every rank alike: the value is the ranks' maximum
+        raise RuntimeError("the owner-side probe kernel found a claim "
+                           "without this call's owner word (S_FAULT)")
 
     for (rows, _ins), sidx, c in zip(hops, srcs, cnt_h):
         if c:

@@ -598,3 +598,188 @@ def test_dedup_workspace_serves_steps_of_every_width(n, symmetry):
         assert not bool(ws.arena.any()), f
         kept += int(k.dvalid.sum())
     assert kept > 0
+
+
+def _insert_batch(rng, n, dev):
+    """``n`` fingerprints of reachable 2pc5 states drawn with replacement
+    (so lanes share keys), ~20 % invalid, and a quarter of the keys
+    already in a 2**16-slot table."""
+    from stateright_tpu_torch.ops.hashtable import (make_table,
+                                                    table_insert_reference)
+    from stateright_tpu_torch.ops.words import from_numpy_u32
+    model = TwoPhaseSys(5)
+    fps = np.array([model.fingerprint(s) for s in _reachable(model)],
+                   np.uint64)
+    keys = fps[rng.integers(0, fps.shape[0], n)]
+    hi = from_numpy_u32((keys >> np.uint64(32)).astype(np.uint32), dev)
+    lo = from_numpy_u32(keys.astype(np.uint32), dev)
+    valid = torch.from_numpy(rng.random(n) < 0.8).to(dev)
+    table = make_table(1 << 16, dev)
+    known = fps[::4]
+    table_insert_reference(
+        table,
+        from_numpy_u32((known >> np.uint64(32)).astype(np.uint32), dev),
+        from_numpy_u32(known.astype(np.uint32), dev),
+        torch.ones((known.shape[0],), dtype=torch.bool, device=dev))
+    return hi, lo, valid, table
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [1, 300, 20000])
+def test_insert_inserts_the_lowest_valid_lane_of_each_fresh_key(n):
+    """K4, the flat insert, on a batch where many lanes share a key and a
+    quarter of the keys are in the table: the inserted lanes are the
+    lowest valid lane of each fresh key, with the plain insert's key set
+    and table."""
+    _need_card()
+    from stateright_tpu_torch.ops.fused import StepWorkspace
+    from stateright_tpu_torch.ops.hashtable import (table_insert,
+                                                    table_insert_reference)
+    from stateright_tpu_torch.ops.words import pack64
+    dev = torch.device("cuda")
+    hi, lo, valid, table = _insert_batch(np.random.default_rng(n), n, dev)
+    tk, tp = table.clone(), table.clone()
+    before = set(table[table != 0].tolist())
+    ik, ok = table_insert(tk, hi, lo, valid,
+                          ws=StepWorkspace(tk.numel(), 0, 0, dev))
+    ip, op = table_insert_reference(tp, hi, lo, valid)
+    keys = pack64(hi, lo)
+    assert ok == op is False
+    assert set(keys[ik].tolist()) == set(keys[ip].tolist())
+    assert sorted(tk[tk != 0].tolist()) == sorted(tp[tp != 0].tolist())
+    want = set()
+    for lane in torch.nonzero(valid).flatten().tolist():
+        key = int(keys[lane])
+        if key not in before:
+            before.add(key)
+            want.add(lane)
+    assert set(torch.nonzero(ik).flatten().tolist()) == want
+
+
+@pytest.mark.gpu
+def test_insert_mask_repeats():
+    """Two K4 calls on equal inputs (equal tables; one workspace, and a
+    fresh one) give equal masks: the owner-word rule, not the race,
+    picks the inserted lane."""
+    _need_card()
+    from stateright_tpu_torch.ops.fused import StepWorkspace
+    from stateright_tpu_torch.ops.hashtable import table_insert
+    dev = torch.device("cuda")
+    hi, lo, valid, table = _insert_batch(np.random.default_rng(7), 50000,
+                                         dev)
+    ws = StepWorkspace(table.numel(), 0, 0, dev)
+    masks = []
+    for w in (ws, ws, StepWorkspace(table.numel(), 0, 0, dev)):
+        t = table.clone()
+        masks.append(table_insert(t, hi, lo, valid, ws=w)[0])
+    assert int(masks[0].sum()) > 0
+    assert torch.equal(masks[0], masks[1])
+    assert torch.equal(masks[0], masks[2])
+
+
+@pytest.mark.gpu
+def test_one_workspace_serves_a_step_an_insert_and_a_step():
+    """A step (K1-K3), an insert (K4) and a step again on one table and
+    one ``StepWorkspace``, whose counter tags all three: no tag fault,
+    each step's inserted lanes the lowest valid lane of each fresh key,
+    and the table's key set the plain path's after all three."""
+    _need_card()
+    from stateright_tpu_torch.ops.fused import (S_FAULT, S_INSERTED,
+                                                StepWorkspace, fused_step,
+                                                fused_step_reference)
+    from stateright_tpu_torch.ops.hashtable import (make_table,
+                                                    table_insert,
+                                                    table_insert_reference)
+    from stateright_tpu_torch.ops.words import pack64
+    model = TwoPhaseSys(5)
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(5)
+    first = _frontier(model, 512, rng, False, dev)
+    second = _frontier(model, 512, rng, False, dev)
+    hi, lo, valid, _t = _insert_batch(rng, 4000, dev)
+    tk, tp = make_table(1 << 16, dev), make_table(1 << 16, dev)
+    rk = torch.zeros((1 << 10,), dtype=torch.int64, device=dev)
+    rp = rk.clone()
+    ws = StepWorkspace(tk.numel(), rk.shape[0], len(model.properties()),
+                       dev)
+    for stage in ("step", "insert", "step"):
+        if stage == "insert":
+            ik, _ok = table_insert(tk, hi, lo, valid, ws=ws)
+            ip, _op = table_insert_reference(tp, hi, lo, valid)
+            keys = pack64(hi, lo)
+            assert set(keys[ik].tolist()) == set(keys[ip].tolist())
+            continue
+        args = first if ws.step == 0 else second
+        before = set(tk[tk != 0].tolist())
+        k = fused_step(model, *args, tk, rk, ws)
+        fused_step_reference(model, *args, tp, rp)
+        assert int(k.stats[S_FAULT]) == 0
+        assert int(ws.n_claims.sum()) == int(k.stats[S_INSERTED]) \
+            == int(k.inserted.sum())
+        keys = pack64(k.chi, k.clo)
+        want = set()
+        for lane in torch.nonzero(k.cvalid).flatten().tolist():
+            key = int(keys[lane])
+            if key not in before:
+                before.add(key)
+                want.add(lane)
+        assert set(torch.nonzero(k.inserted).flatten().tolist()) == want
+    assert ws.step == 3
+    assert sorted(tk[tk != 0].tolist()) == sorted(tp[tp != 0].tolist())
+
+
+@pytest.mark.gpu
+def test_insert_without_a_mask_builds_the_plain_table():
+    """K4 without a mask (the seed and growth): one pass, no owner words;
+    the plain insert's table and overflow flag, and no mask."""
+    _need_card()
+    from stateright_tpu_torch.ops.hashtable import (table_insert,
+                                                    table_insert_reference)
+    dev = torch.device("cuda")
+    hi, lo, valid, table = _insert_batch(np.random.default_rng(3), 30000,
+                                         dev)
+    tk, tp = table.clone(), table.clone()
+    ik, ok, rk = table_insert(tk, hi, lo, valid, with_rounds=True,
+                              mask=False)
+    _ip, op = table_insert_reference(tp, hi, lo, valid)
+    assert ik is None and ok == op is False and rk >= 1
+    assert sorted(tk[tk != 0].tolist()) == sorted(tp[tp != 0].tolist())
+
+
+@pytest.mark.gpu
+def test_insert_over_several_launch_ranges_keeps_the_lowest_lane():
+    """A batch wider than the resident grid's lanes runs as launches over
+    consecutive lane ranges under one tag: each key twice, its copies in
+    different ranges, ~20 % of lanes invalid, so some keys' lowest valid
+    lane lies in a later range. The mask is the lowest valid lane of each
+    key, with a mask and the table's key set as the plain insert's."""
+    _need_card()
+    from stateright_tpu_torch.ops.hashtable import (make_table,
+                                                    table_insert,
+                                                    table_insert_reference)
+    from stateright_tpu_torch.ops.words import from_numpy_u32, pack64
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(11)
+    half = 1_500_000
+    base = rng.integers(1, 2**63, size=half, dtype=np.int64).astype(
+        np.uint64)
+    keys = np.concatenate([base, base])
+    hi = from_numpy_u32((keys >> np.uint64(32)).astype(np.uint32), dev)
+    lo = from_numpy_u32(keys.astype(np.uint32), dev)
+    valid = torch.from_numpy(rng.random(2 * half) < 0.8).to(dev)
+    tk, tp = make_table(1 << 23, dev), make_table(1 << 23, dev)
+    ik, ok = table_insert(tk, hi, lo, valid)
+    _ip, op = table_insert_reference(tp, hi, lo, valid)
+    assert ok == op is False
+    assert torch.equal(torch.sort(tk[tk != 0]).values,
+                       torch.sort(tp[tp != 0]).values)
+    k = pack64(hi, lo)
+    lanes = torch.arange(k.shape[0], device=dev)
+    uniq, inv = torch.unique(k[valid], return_inverse=True)
+    first = torch.full((uniq.shape[0],), k.shape[0], dtype=torch.int64,
+                       device=dev)
+    first.scatter_reduce_(0, inv, lanes[valid], reduce="amin")
+    want = torch.zeros_like(ik)
+    want[first] = True
+    assert bool(want[half:].any())  # some lowest valid lanes lie late
+    assert torch.equal(ik, want)
