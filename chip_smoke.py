@@ -148,7 +148,9 @@ def fp_digest(fps) -> str:
 #: this port's kernels, by the name each has in the profiler; longer
 #: names first, so a name that contains another is matched as itself
 _OURS = ("dedup_claim_kernel", "dedup_commit_kernel", "flat_insert_kernel",
-         "expand_kernel", "claim_kernel", "commit_kernel")
+         "expand_kernel", "claim_kernel", "commit_kernel",
+         "append_count_kernel", "append_kernel", "gate_kernel",
+         "chunk_begin_kernel")
 
 
 def kernel_name(symbol: str):
@@ -204,7 +206,11 @@ def device_times(fn, host_top: int = 0, before=None) -> dict:
     memsets, in milliseconds; ``None`` values when the trace holds no
     device time. ``before()`` (outside the trace) restores ``fn``'s
     inputs before each try. ``host_top`` > 0 adds the host operations
-    with the most self CPU time (name, ms, calls)."""
+    with the most self CPU time (name, ms, calls). ``cuda_api``: the
+    CUDA runtime calls of the host (``cudaLaunchKernel``,
+    ``cudaGraphLaunch``, ...) as [calls, host ms]; when ``fn`` returns a
+    checker, ``loop_s`` is its profile's and ``busy`` the traced device
+    time over it."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -215,7 +221,7 @@ def device_times(fn, host_top: int = 0, before=None) -> dict:
             before()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            fn()
+            result = fn()
             torch.cuda.synchronize()
         ours = {k: 0.0 for k in _OURS + ("expand_kernel_sym",)}
         torch_ms = copy_ms = 0.0
@@ -247,6 +253,17 @@ def device_times(fn, host_top: int = 0, before=None) -> dict:
         cpu.sort(key=lambda e: e.self_cpu_time_total, reverse=True)
         out["host_top"] = [(e.key, e.self_cpu_time_total / 1e3, e.count)
                            for e in cpu[:host_top]]
+    out["cuda_api"] = {e.key: [e.count, e.self_cpu_time_total / 1e3]
+                       for e in prof.key_averages()
+                       if e.device_type == DeviceType.CPU
+                       and e.key.startswith("cuda")}
+    loop_s = (result.profile().get("loop_s")
+              if hasattr(result, "profile") else None)
+    if loop_s:
+        out["loop_s"] = loop_s
+        if seen:
+            out["busy"] = (out["ours_ms"] + torch_ms + copy_ms) / (
+                loop_s * 1e3)
     return out
 
 
@@ -258,17 +275,15 @@ def mid_search_carry(model, device, symmetry: bool = False,
     import numpy as np
     import torch
 
-    from stateright_tpu_torch.checker.device_loop import (LoopStats,
-                                                          seed_carry,
-                                                          step_once)
-    from stateright_tpu_torch.ops.expand import FMAX_SMALL
+    from stateright_tpu_torch.checker.device_loop import (E_ITERS,
+                                                          run_chunk,
+                                                          seed_carry)
     from stateright_tpu_torch.ops.hashtable import table_insert
     from stateright_tpu_torch.ops.words import from_numpy_u32
 
     init = model.init_states()[0]
     fp = model.fingerprint(model.representative(init) if symmetry
                            else init)
-    fa = rows * model.max_actions
     carry = seed_carry(model, 1 << 21, 1 << 20, [model.encode(init)], 0,
                        [fp], 1 << 15, device, symmetry=symmetry)
     table_insert(carry.table,
@@ -277,14 +292,14 @@ def mid_search_carry(model, device, symmetry: bool = False,
                                 device),
                  torch.ones((1,), dtype=torch.bool, device=device),
                  mask=False)
-    stats = LoopStats()
+    # one iteration per chunk: the small step while at most FMAX_SMALL
+    # rows are pending, else one of ``rows`` rows (the loop condition
+    # also keeps the queue's margin)
     while carry.q_tail - carry.q_head < rows:
-        avail = carry.q_tail - carry.q_head
-        if avail == 0 or carry.q_tail > carry.q.shape[0] - fa:
+        c = run_chunk(model, carry, fmax=rows, steps=1)
+        if not c[carry.layout.ext + E_ITERS]:
             raise RuntimeError(f"the search ended before a {rows}-row "
                                "frontier")
-        step_once(model, carry, FMAX_SMALL if avail <= FMAX_SMALL
-                  else rows, stats)
     return carry
 
 
@@ -896,6 +911,188 @@ def check_probe(model, carry, step, reps: int) -> dict:
     return out
 
 
+def check_control(model, carry, f: int = 12288) -> dict:
+    """The chunk's control kernels (``chunk_begin_kernel`` and
+    ``gate_kernel``, ``csrc/chunk.cu``) against their plain versions on
+    the card, from the counters of a mid-search ``carry``, under chunk
+    parameters that open the gate and that shut it (no steps left, the
+    generation target reached, the growth limit reached): the counter
+    block bit for bit and the step's stats vector zeroed."""
+    import torch
+
+    from stateright_tpu_torch.checker.device_loop import (
+        E_GATE, G_SIZE, I32_MAX, ChunkRunner, chunk_begin_reference,
+        gate_reference, step_sizes)
+
+    lay = carry.layout
+    card = ChunkRunner(model, carry, f).card()
+    f_small, f_large, qmargin = step_sizes(model, f)
+    qlimit = carry.q.shape[0] - qmargin
+    ctr0 = carry.ctr.clone()
+    stats = card.bufs["stats"]
+    cases = {"open": (3, I32_MAX, I32_MAX, 7),
+             "no_steps": (0, I32_MAX, I32_MAX, 7),
+             "target": (3, 0, I32_MAX, 7),
+             "grow_limit": (3, I32_MAX, 0, 7)}
+    err, checks = 0, {}
+    for name, params in cases.items():
+        carry.ctr.copy_(ctr0)
+        stats.fill_(-1)
+        card.begin(*params)
+        card.launch_gate()
+        k_ctr, k_stats = carry.ctr.clone(), stats.clone()
+        p_ctr, p_stats = ctr0.clone(), torch.full_like(k_stats, -1)
+        chunk_begin_reference(p_ctr, lay, *params)
+        gate_reference(p_ctr, lay, f_small, f_large, qlimit, p_stats)
+        e = int((k_ctr.long() - p_ctr.long()).abs().max())
+        err = max(err, e)
+        opened = int(k_ctr[lay.ext + E_GATE + G_SIZE]) != 0
+        checks[name] = (e == 0 and not bool(k_stats.any())
+                        and not bool(p_stats.any())
+                        and opened == (name == "open"))
+    if not all(checks.values()):
+        raise AssertionError(f"chunk control kernels disagree with their "
+                             f"plain versions: {checks}")
+
+    def restore():
+        carry.ctr.copy_(ctr0)
+
+    def begin():
+        card.begin(*cases["open"])
+
+    begin()
+    ms_gate = cuda_ms(card.launch_gate, 200)
+    ms_begin = cuda_ms(begin, 200)
+    dev = device_times(lambda: (begin(), card.launch_gate()), before=restore)
+    p_ctr = ctr0.clone()
+    plain_ms = {}
+    for name, plain in (
+            ("begin", lambda: chunk_begin_reference(p_ctr, lay,
+                                                    *cases["open"])),
+            ("gate", lambda: gate_reference(p_ctr, lay, f_small, f_large,
+                                            qlimit, stats))):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        plain()
+        end.record()
+        end.synchronize()
+        plain_ms[name] = start.elapsed_time(end)
+    restore()
+    # the bound: the counter block read and written once, the stats
+    # vector written; a few dozen integer operations
+    nbytes = 4 * (2 * lay.length + stats.shape[0])
+    by = dev["by_kernel_ms"] or {}
+    return {"f": f, "counters": lay.length, "max_abs_err": err,
+            "ms": ms_gate, "begin_ms": ms_begin,
+            "device_ms": by.get("gate_kernel"),
+            "begin_device_ms": by.get("chunk_begin_kernel"),
+            "plain_ms": plain_ms["gate"], "begin_plain_ms": plain_ms["begin"],
+            **bound(nbytes, 64),
+            "checks": checks}
+
+
+def check_append(model, carry, f: int, reps: int) -> dict:
+    """K7 (``append_count_kernel`` + ``append_kernel``, ``csrc/chunk.cu``)
+    against its plain version on the card over a real step of ``carry``
+    at ``f`` rows per large step: the gate and the gated step (K1-K3) on
+    the card, then K7, or ``append_reference`` from the same counters,
+    queue and log; the counter block, the queue and log rows it may write
+    bit for bit. Timed with CUDA events and ``torch.profiler`` beside the
+    plain version, whose torch kernels are the glue K7 replaced. The
+    carry's table, ring and counters are restored afterwards."""
+    import torch
+
+    from stateright_tpu_torch.checker.device_loop import (
+        B_LOG_N, B_Q_TAIL, E_FAULT, E_GATE, G_SIZE, I32_MAX, ChunkRunner,
+        append_reference)
+    from stateright_tpu_torch.ops.fused import S_FAULT, S_INSERTED
+
+    lay = carry.layout
+    w, a = model.packed_width, model.max_actions
+    table0, ring0, ctr0 = (carry.table.clone(), carry.ring.clone(),
+                           carry.ctr.clone())
+    card = ChunkRunner(model, carry, f).card()
+    carry.ws.step += 1
+    card.begin(1, I32_MAX, I32_MAX, carry.ws.step)
+    card.launch_gate()
+    card.launch_steps()
+    c = carry.counters()
+    size = int(c[lay.ext + E_GATE + G_SIZE])
+    if not size:
+        raise AssertionError(f"the gate picked no step at f={f}")
+    out = card.outputs(size)
+    lanes = out.inserted.shape[0]
+    qbase, lbase = int(c[B_Q_TAIL]), int(c[B_LOG_N])
+    rows_q = slice(qbase, qbase + lanes)
+    rows_l = slice(lbase, lbase + lanes)
+    ctr1 = carry.ctr.clone()
+    q1, log1 = carry.q[rows_q].clone(), carry.log[rows_l].clone()
+    cnt = int(out.inserted.sum())
+    card.launch_append()
+    k = (carry.ctr.clone(), carry.q[rows_q].clone(),
+         carry.log[rows_l].clone())
+
+    def restore():
+        carry.ctr.copy_(ctr1)
+
+    def restore_all():
+        restore()
+        carry.q[rows_q] = q1
+        carry.log[rows_l] = log1
+
+    def plain():
+        append_reference(carry.ctr, lay, carry.q, carry.log, out, a)
+
+    restore_all()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    plain()
+    end.record()
+    end.synchronize()
+    plain_ms = start.elapsed_time(end)
+    p = (carry.ctr.clone(), carry.q[rows_q].clone(),
+         carry.log[rows_l].clone())
+    err = max(int((x.long() - y.long()).abs().max()) for x, y in zip(k, p))
+    st = out.stats.cpu().numpy()
+    checks = {
+        "bit_exact": err == 0,
+        "count": cnt == int(st[S_INSERTED]) == int(k[0][B_Q_TAIL]) - qbase,
+        "no_fault": int(k[0][lay.ext + E_FAULT]) == 0
+        and int(st[S_FAULT]) == 0,
+        # rows past the appended ones are left as they were
+        "rows_past_untouched": torch.equal(k[1][cnt:], q1[cnt:])
+        and torch.equal(k[2][cnt:], log1[cnt:]),
+    }
+    if not all(checks.values()):
+        raise AssertionError(f"K7 f={f} disagrees with its plain version: "
+                             f"{checks} (max_abs_err {err})")
+    ms = cuda_ms(card.launch_append, reps, restore)
+    dev = device_times(card.launch_append, before=restore)
+    glue = device_times(plain, before=restore)
+    by = dev["by_kernel_ms"] or {}
+    k7_ms = (None if dev["by_kernel_ms"] is None else
+             by["append_count_kernel"] + by["append_kernel"])
+    carry.table.copy_(table0)
+    carry.ring.copy_(ring0)
+    carry.ctr.copy_(ctr0)
+    sym = carry.symmetry
+    lc = carry.log.shape[1]
+    # the bound: the inserted mask read once; per appended row its
+    # successor, keys, the row's eventually-bits and the parent's keys
+    # read, the queue row and the log row written
+    nbytes = (lanes + cnt * (4 * w + 8 + 4 + 8 + (8 if sym else 0))
+              + cnt * 4 * (w + 3 + lc))
+    return {"f": f, "lanes": lanes, "appended": cnt, "max_abs_err": err,
+            "ms": ms, "device_ms": k7_ms, "device_by_kernel_ms": {
+                k_: by.get(k_) for k_ in ("append_count_kernel",
+                                          "append_kernel")},
+            "plain_ms": plain_ms, "glue_device_ms": glue["torch_ms"],
+            "glue_copy_ms": glue["copy_ms"], **bound(nbytes, 4 * lanes),
+            "checks": checks}
+
+
 def frontier_fps(model):
     """``rows -> (hi, lo)``: the int32 fingerprints of the rows' canonical
     members under ``model``'s representative (the plain version)."""
@@ -937,8 +1134,8 @@ def orbits_2pc7(device) -> dict:
     import torch
 
     from stateright_tpu_torch import TwoPhaseSys
-    from stateright_tpu_torch.checker.device_loop import (LoopStats,
-                                                          run_loop,
+    from stateright_tpu_torch.checker.device_loop import (E_ITERS,
+                                                          run_chunk,
                                                           seed_carry)
     from stateright_tpu_torch.ops.hashtable import table_insert
     from stateright_tpu_torch.ops.words import from_numpy_u32
@@ -954,8 +1151,9 @@ def orbits_2pc7(device) -> dict:
                                 device),
                  torch.ones((1,), dtype=torch.bool, device=device),
                  mask=False)
-    run_loop(model, carry, fmax=12288, grow_limit=1 << 20,
-             target_remaining=2**62, stats=LoopStats())
+    while run_chunk(model, carry, fmax=12288, steps=64,
+                    grow_limit=1 << 20)[carry.layout.ext + E_ITERS]:
+        pass
     rows = carry.q[:carry.q_tail, :model.packed_width]
     orbit_keys = canonical_keys(TwoPhaseSys(7, complete_symmetry=True),
                                 rows)
@@ -1034,6 +1232,7 @@ def end_to_end_sym(model, path_kernels, off_kernels, want=None, **opts):
             f"{digest}, launches {launches})")
     keys_prof = ("engine", "syncs", "iterations", "small_iterations",
                  "grows", "capacity", "loop_s", "sync_s", "shards",
+                 "chunks", "sync_stall", "capture_s", "graph_launches",
                  "exchange", "collectives", "collectives_per_iteration",
                  "kovfs", "aborts", "kmax", "gather_s", "vmax", "dmax")
     return {"model": f"TwoPhaseSys({model.n}, complete_symmetry="
@@ -1119,7 +1318,8 @@ def end_to_end(model_cls, path_kernels, **opts):
     keys = ("engine", "syncs", "iterations", "small_iterations", "grows",
             "loop_s", "sync_s", "mirror_s", "shards", "exchange",
             "collectives", "collectives_per_iteration", "kovfs", "aborts",
-            "kmax", "gather_s", "dmax")
+            "kmax", "gather_s", "dmax", "chunks", "sync_stall", "capture_s",
+            "graph_launches", "pipeline", "chunk_steps")
     return {"options": shown, "wall_s": wall, "unique": unique,
             "unique_per_s": unique / wall, "generated": ck.state_count(),
             "digest": digest, **{k: prof[k] for k in keys if k in prof},
@@ -1348,7 +1548,16 @@ def main() -> int:
     emit(phase="kernels", kernel="fused_step_noprobe", **np_small)
     probe = check_probe(model, carry, step, reps=20)
     emit(phase="kernels", kernel="probe_block", **probe)
-    del carry, step
+    del step
+    # the chunk's kernels: the control kernels, then K7 after a real step
+    # of 12,288 and of 256 rows
+    control = check_control(model, carry)
+    emit(phase="kernels", kernel="chunk_gate", **control)
+    appends = {("plain", f): check_append(model, carry, f, reps)
+               for f, reps in ((12288, 50), (256, 100))}
+    for (_mode, f), res in appends.items():
+        emit(phase="kernels", kernel="append", **res)
+    del carry
 
     # the symmetric steps at the full width of 2pc n=16 (82 actions): a
     # mid-search frontier of the reference representative's search; the
@@ -1372,11 +1581,38 @@ def main() -> int:
             sym_kernels["fused_step_noprobe_sym"][mode, f] = res
             emit(phase="kernels", kernel="fused_step_noprobe_sym",
                  representative=mode, **res)
+    # K7 with the 6-column log, after a real symmetric step
+    for f, reps in ((12288, 50), (256, 100)):
+        res = appends["symmetric", f] = check_append(
+            sym_models["reference"], carry16, f, reps)
+        emit(phase="kernels", kernel="append", symmetry="reference", **res)
     del carry16
 
-    single = ("fused_step", "table_insert")
+    chunk_kernels = ("chunk_begin", "chunk_gate", "append")
+    single = ("fused_step", "table_insert") + chunk_kernels
     default, card = end_to_end(TwoPhaseSys, single)
     emit(phase="e2e", **default)
+    # the chunk: the default run (pipeline=True) and the synchronous
+    # chunk loop, in turns, on this card; one sync per chunk
+    chunk_runs = []
+    for pipeline in (True, False, True, False):
+        res, _ck = end_to_end(TwoPhaseSys, single, pipeline=pipeline)
+        del _ck
+        chunk_runs.append(res)
+        limit = -(-res["iterations"] // 64) + 2
+        res["checks"]["syncs_per_chunk"] = (res["syncs"] <= limit
+                                            and res["syncs"]
+                                            == res["chunks"])
+        emit(phase="chunk", pipeline=pipeline, sync_limit=limit,
+             **{k: res[k] for k in (
+                 "wall_s", "loop_s", "chunks", "syncs", "sync_stall",
+                 "sync_s", "capture_s", "graph_launches", "iterations",
+                 "small_iterations", "launches", "checks")})
+        if not res["checks"]["syncs_per_chunk"]:
+            raise AssertionError(f"chunk run pipeline={pipeline}: "
+                                 f"{res['syncs']} syncs, {res['chunks']} "
+                                 f"chunks over {res['iterations']} "
+                                 "iterations")
     emit(phase="mirror_vs_plain", **mirror_vs_plain(card))
     del card
     # where the device time of the run goes (a separate, profiled run)
@@ -1398,7 +1634,7 @@ def main() -> int:
     # then the symmetric single-chip path
     orbits, orbit_keys7 = orbits_2pc7(torch.device("cuda", 0))
     emit(phase="orbits_2pc7", **orbits)
-    single_sym = ("fused_step_sym", "table_insert")
+    single_sym = ("fused_step_sym", "table_insert") + chunk_kernels
     off_sym = ("fused_step", "fused_step_noprobe", "fused_step_noprobe_sym",
                "probe_block")
     res, ck7, _rec = end_to_end_sym(
@@ -1506,7 +1742,8 @@ def main() -> int:
     sh_sym, _ck, _rec = end_to_end_sym(
         TwoPhaseSys(16, complete_symmetry=True),
         ("fused_step_noprobe_sym", "probe_block", "table_insert"),
-        ("fused_step", "fused_step_sym", "fused_step_noprobe"),
+        ("fused_step", "fused_step_sym", "fused_step_noprobe")
+        + chunk_kernels,
         want=(UNIQUE_2PC16_SYM, GENERATED_2PC16_SYM, DIGEST_2PC16_SYM),
         mesh=mesh)
     emit(phase="e2e_sharded_sym", **sh_sym)
@@ -1586,11 +1823,43 @@ def main() -> int:
                     "max_abs_err", "parts")}
                 for (mode, f), r in runs.items()},
             "status": "ok"})
+    chunk_src = "stateright_tpu_torch/csrc/chunk.cu"
+    k7 = appends["plain", 12288]
+    kernels += [
+        {"name": "append", "route": "cuda", "source": chunk_src,
+         "replaces": "stateright_tpu/checker/device_loop.py:696",
+         "launches": default["launches"]["append"],
+         "max_abs_err": max(r["max_abs_err"] for r in appends.values()),
+         "ms": k7["ms"], "plain_ms": k7["plain_ms"],
+         "bound_ms": k7["bound_ms"], "bound_by": k7["bound_by"],
+         "library_ms": None,
+         "by_shape": {f"{mode} f={f}": {k: r[k] for k in (
+             "lanes", "appended", "ms", "device_ms", "device_by_kernel_ms",
+             "plain_ms", "glue_device_ms", "bound_ms", "bound_by",
+             "max_abs_err")} for (mode, f), r in appends.items()},
+         "status": "ok"},
+        {"name": "chunk_gate", "route": "cuda", "source": chunk_src,
+         "replaces": "stateright_tpu/checker/device_loop.py:352",
+         "launches": default["launches"]["chunk_gate"],
+         "max_abs_err": control["max_abs_err"], "ms": control["ms"],
+         "plain_ms": control["plain_ms"], "bound_ms": control["bound_ms"],
+         "bound_by": control["bound_by"], "library_ms": None,
+         "device_ms": control["device_ms"], "status": "ok"},
+        {"name": "chunk_begin", "route": "cuda", "source": chunk_src,
+         "replaces": "stateright_tpu/checker/tpu.py:1377",
+         "launches": default["launches"]["chunk_begin"],
+         "max_abs_err": control["max_abs_err"], "ms": control["begin_ms"],
+         "plain_ms": control["begin_plain_ms"],
+         "bound_ms": control["bound_ms"],
+         "bound_by": control["bound_by"], "library_ms": None,
+         "device_ms": control["begin_device_ms"], "status": "ok"},
+    ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     # the run uses one card, whatever the machine holds
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": name, "count": 1}}), flush=True)
+        "platform": "gpu", "kind": name,
+        "count": torch.cuda.device_count()}}), flush=True)
     return 0
 
 

@@ -63,12 +63,17 @@ class CheckerBuilder:
         """Knobs of ``spawn_gpu``: ``capacity`` (visited-table slots, a
         power of two, default 2**20), ``fmax`` (frontier rows per step),
         ``cc_dedup`` (cross-chunk ring: True = 2**15 slots, False = off,
-        or a power-of-two slot count), ``chunk_steps`` (accepted for
-        the JAX package's options; the host loop has no chunks, so it
-        has no effect), ``grow_at`` (table load that triggers
-        growth, default 0.55) — the JAX package's ``tpu_options`` of the
-        same names — and ``device`` (default ``"cuda"``;
-        ``device="cpu"`` runs the kernels' plain versions).
+        or a power-of-two slot count), ``chunk_steps`` (iterations per
+        chunk, default 64: the device runs up to that many steps between
+        two host syncs; on the card one CUDA graph of an iteration is
+        replayed that many times), ``pipeline`` (default True: chunk
+        N+1 is launched before chunk N's counters are read, so one chunk
+        is always in flight; a ``target_state_count`` then lands up to
+        one chunk late, as in the JAX package; False: each chunk is read
+        before the next is launched), ``grow_at`` (table load that
+        triggers growth, default 0.55) — the JAX package's
+        ``tpu_options`` of the same names — and ``device`` (default
+        ``"cuda"``; ``device="cpu"`` runs the kernels' plain versions).
 
         The sharded engine adds ``mesh`` (a ``torch.distributed``
         DeviceMesh: CUDA with NCCL, or CPU with gloo; its device type
@@ -77,7 +82,8 @@ class CheckerBuilder:
         default, or ``"ring"``), ``kb`` (rows per destination of the
         bucketed exchange), ``kraw`` and ``kmax`` (candidate widths);
         ``capacity`` is then the global table, split evenly over the
-        ranks."""
+        ranks. Its loop is a host loop: ``chunk_steps`` has no effect
+        there and ``pipeline=True`` is refused."""
         self.gpu_options_.update(options)
         return self
 

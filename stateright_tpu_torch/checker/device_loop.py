@@ -1,4 +1,4 @@
-"""The device-resident BFS chunk loop, driven from the host.
+"""The BFS chunk on the device.
 
 Counterpart of ``stateright_tpu/checker/device_loop.py`` on its fused
 single-chip path (``build_chunk_core`` with ``fused=True, cc > 0``). The
@@ -14,22 +14,31 @@ carry holds
     search record the host mirrors lazily; under symmetry reduction the
     child and parent fps are canonical keys and two more columns hold
     the child's original fp hi, lo (the state the queue really holds);
-  * sticky first-hit discovery registers and overflow flags.
+  * the counter block ``ctr`` (int32, :class:`CtrLayout`): the loop
+    scalars, the flags, the sticky first-hit discovery registers and the
+    profile counters, in the JAX package's ``base_stats`` layout, then
+    the port's own fields (steps left, the fault flag, the next step's
+    tag, the chunk's parameters and the iteration's gate).
 
-JAX runs the loop as ``lax.while_loop``s on the device; here it is a host
-loop of launches. Each iteration takes the small step (``FMAX_SMALL``
-rows) iff at most that many rows are pending, else the large one — the
-order the JAX package's small/large/small window loops walk — runs the
-fused step, reads the step's stats vector with ONE device->host copy
-(the iteration's only sync), and appends exactly the inserted rows to
-the queue and the log. Queue, table, ring and log are updated in place.
+A chunk is up to ``chunk_steps`` iterations of the JAX package's loop,
+each run only while its condition (``make_cond``) holds on the device.
+Each iteration takes the small step (``FMAX_SMALL`` rows) iff at most
+that many rows are pending, else the large one — the order the JAX
+package's small/large/small window loops walk — runs the fused step and
+appends exactly the inserted rows to the queue and the log. On the card
+one iteration (the gate kernel, K1-K3 of both sizes, each gated on the
+device, and K7, the append) is one CUDA graph, captured once per carry
+allocation and replayed ``chunk_steps`` times; the host copies the
+counter block once per chunk. On the CPU the same iterations run the
+kernels' plain versions. Queue, table, ring, log and counters are
+updated in place.
 """
 
 from __future__ import annotations
 
 import time
-from dataclasses import dataclass
-from typing import Callable, Optional
+from dataclasses import dataclass, field
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -37,45 +46,112 @@ import torch
 from ..ops.expand import assemble_candidates, small_step_sizes
 from ..ops.fused import (S_CCH, S_DEDUP, S_DISC, S_FAULT, S_INSERTED,
                          S_OVF, S_ROUNDS, S_VALID, S_XOVF, StepWorkspace,
-                         fused_step)
+                         fused_step, stats_len)
 from ..ops.hashtable import make_table
 from ..ops.words import (from_numpy_u32, keys_from_numpy, keys_to_numpy,
                          to_numpy_u32)
 
+# the counter block: the JAX package's base_stats fields (kovf, h_n,
+# hovf, rmax and e_n are those of paths the port does not run: 0), then
+# disc_hit[P], disc_hi[P], disc_lo[P], the most recent queue row (W + 3)
+# and the ring hits (CtrLayout)
+(B_Q_HEAD, B_Q_TAIL, B_LOG_N, B_GEN, B_OVF, B_XOVF, B_KOVF, B_H_N, B_HOVF,
+ B_VMAX, B_DMAX, B_RMAX, B_E_N, B_PDH, B_PRB, B_DISC) = range(16)
+# the port's fields from CtrLayout.ext: steps left in the chunk, the
+# kernel-fault flag, the next step's tag, the chunk's iterations and small
+# iterations, its target_remaining and grow_limit, then the gate
+(E_STEPS, E_FAULT, E_TAG, E_ITERS, E_SMALL, E_TARGET, E_GROW,
+ E_GATE) = range(8)
+# the gate (csrc/step_common.cuh Gate): the step size the iteration runs
+# (0 none, 1 small, 2 large), the queue head, the rows taken, the tag,
+# and the queue tail and log length the append writes at
+(G_SIZE, G_HEAD, G_TAKE, G_TAG, G_QBASE, G_LBASE, G_LEN) = range(7)
+
+#: the largest int32: target_remaining and grow_limit are clamped to it
+I32_MAX = 2**31 - 1
+
+
+class CtrLayout(NamedTuple):
+    """Offsets into the counter block of a model with ``P`` properties
+    and packed width ``W``."""
+
+    P: int
+    W: int
+
+    @property
+    def recent(self) -> int:
+        return B_DISC + 3 * self.P
+
+    @property
+    def cch(self) -> int:
+        return self.recent + self.W + 3
+
+    @property
+    def ext(self) -> int:
+        return self.cch + 1
+
+    @property
+    def length(self) -> int:
+        return self.ext + E_GATE + G_LEN
+
 
 @dataclass
 class ChunkCarry:
-    """The search state. Tensors live on the engine's device; the loop
-    scalars and discovery registers live on the host (every iteration
-    reads them anyway)."""
+    """The search state, on the engine's device. The loop scalars live in
+    ``ctr``; the properties below read them (a sync on the card)."""
 
     q: torch.Tensor          # int32[qcap, W+3] append-only queue
-    q_head: int              # next row to expand
-    q_tail: int              # next free row
     table: torch.Tensor      # int64[cap/4, 4] visited table
     ring: Optional[torch.Tensor]  # int64[cc] recent-key ring, or None
     log: torch.Tensor        # int32[logcap, 4 or 6] (child fp, parent fp
-    log_n: int               # [, child original fp] under symmetry)
-    disc_hit: np.ndarray     # bool[P]   property discovered?
-    disc_fp: np.ndarray      # uint64[P] witnessing state fingerprint
-    ovf: bool = False        # table probe overflow
-    xovf: bool = False       # model encoding overflow (fatal)
+    #                          [, child original fp] under symmetry)
+    ctr: torch.Tensor        # int32[layout.length] the counter block
+    layout: CtrLayout
     ws: Optional[StepWorkspace] = None  # kernel state (CUDA only)
     symmetry: bool = False   # dedup on packed_representative keys
+    #: the card's chunk for this allocation (CardChunk), made on first
+    #: use and dropped when a buffer is replaced
+    card: object = field(default=None, repr=False)
+
+    def counters(self) -> np.ndarray:
+        return self.ctr.cpu().numpy().copy()
+
+    @property
+    def q_head(self) -> int:
+        return int(self.counters()[B_Q_HEAD])
+
+    @property
+    def q_tail(self) -> int:
+        return int(self.counters()[B_Q_TAIL])
+
+    @property
+    def log_n(self) -> int:
+        return int(self.counters()[B_LOG_N])
+
+
+def disc_registers(c: np.ndarray, n_props: int):
+    """``(hit bool[P], fingerprint uint64[P])`` from a counter block."""
+    d = c[B_DISC:B_DISC + 3 * n_props].astype(np.uint32).astype(np.uint64)
+    fp = (d[n_props:2 * n_props] << np.uint64(32)) | d[2 * n_props:]
+    return d[:n_props] != 0, fp
 
 
 @dataclass
 class LoopStats:
-    """Counters of the host loop (``GpuChecker.profile()``)."""
+    """Counters of the chunk loop (``GpuChecker.profile()``)."""
 
+    chunks: int = 0
+    syncs: int = 0           # device->host copies of a chunk's counters
+    sync_s: float = 0.0      # host seconds blocked on them (sync_stall)
+    capture_s: float = 0.0   # host seconds capturing the iteration graph
+    graph_launches: int = 0  # replays of the iteration graph
     iterations: int = 0
     small_iterations: int = 0
-    syncs: int = 0           # device->host copies of the step stats
-    sync_s: float = 0.0      # host seconds blocked in those copies
     vmax: int = 0            # most valid lanes in one step
     dmax: int = 0            # most lanes reaching the table in one step
     cch: int = 0             # cross-chunk ring hits
     rounds: int = 0          # probe rounds (see ops/hashtable.py)
+    pdh: int = 0             # valid lanes the in-step dedup dropped
 
 
 def shrink_indices(mask: torch.Tensor, k: int) -> torch.Tensor:
@@ -90,6 +166,15 @@ def shrink_indices(mask: torch.Tensor, k: int) -> torch.Tensor:
     return inv[:k]
 
 
+def _new_ctr(layout: CtrLayout, device, q_head: int = 0, q_tail: int = 0,
+             log_n: int = 0, recent=None) -> torch.Tensor:
+    ctr = np.zeros(layout.length, np.int64)
+    ctr[B_Q_HEAD], ctr[B_Q_TAIL], ctr[B_LOG_N] = q_head, q_tail, log_n
+    if recent is not None:
+        ctr[layout.recent:layout.cch] = np.asarray(recent, np.uint32)
+    return from_numpy_u32(ctr.astype(np.uint32), device)
+
+
 def seed_carry(model, qcap: int, capacity: int, init_rows, full_ebits,
                init_fps, cc: int, device,
                symmetry: bool = False) -> ChunkCarry:
@@ -100,6 +185,7 @@ def seed_carry(model, qcap: int, capacity: int, init_rows, full_ebits,
     width = model.packed_width
     q = torch.zeros((qcap, width + 3), dtype=torch.int32, device=device)
     k = len(init_rows)
+    block = None
     if k:
         fps = np.asarray(init_fps, np.uint64)
         block = np.concatenate(
@@ -109,15 +195,17 @@ def seed_carry(model, qcap: int, capacity: int, init_rows, full_ebits,
              fps.astype(np.uint32)[:, None]], axis=1)
         q[:k] = from_numpy_u32(block, device)
     n_props = len(model.properties())
+    layout = CtrLayout(n_props, width)
     table = make_table(capacity, device)
     return ChunkCarry(
-        q=q, q_head=0, q_tail=k, table=table,
+        q=q, table=table,
         ring=(torch.zeros((cc,), dtype=torch.int64, device=device)
               if cc else None),
         log=torch.zeros((capacity, 6 if symmetry else 4),
                         dtype=torch.int32, device=device),
-        log_n=0, disc_hit=np.zeros(n_props, bool),
-        disc_fp=np.zeros(n_props, np.uint64),
+        ctr=_new_ctr(layout, q.device, q_tail=k,
+                     recent=None if block is None else block[-1]),
+        layout=layout,
         ws=(StepWorkspace(capacity, cc, n_props, table.device)
             if table.is_cuda else None), symmetry=symmetry)
 
@@ -131,20 +219,25 @@ def carry_from_numpy(carry, ring_hi, ring_lo, device="cpu") -> ChunkCarry:
     halves become packed int64 keys; a 6-column log is a symmetric
     run's."""
     log = np.asarray(carry.log)
+    q = np.asarray(carry.q)
     table = keys_from_numpy(np.asarray(carry.key_hi),
                             np.asarray(carry.key_lo), device)
     ring = (None if ring_hi is None
             else keys_from_numpy(np.asarray(ring_hi), np.asarray(ring_lo),
                                  device))
     n_props = np.asarray(carry.disc_hit).shape[0]
-    disc_fp = (np.asarray(carry.disc_hi, np.uint64) << np.uint64(32)) \
-        | np.asarray(carry.disc_lo, np.uint64)
+    layout = CtrLayout(n_props, q.shape[1] - 3)
+    tail = int(carry.q_tail)
+    ctr = _new_ctr(layout, "cpu", int(carry.q_head), tail, int(carry.log_n),
+                   q[max(tail - 1, 0)])
+    ctr[B_OVF], ctr[B_XOVF] = int(bool(carry.ovf)), int(bool(carry.xovf))
+    disc = np.concatenate([np.asarray(carry.disc_hit, np.uint32),
+                           np.asarray(carry.disc_hi, np.uint32),
+                           np.asarray(carry.disc_lo, np.uint32)])
+    ctr[B_DISC:B_DISC + 3 * n_props] = from_numpy_u32(disc, "cpu")
     return ChunkCarry(
-        q=from_numpy_u32(carry.q, device), q_head=int(carry.q_head),
-        q_tail=int(carry.q_tail), table=table, ring=ring,
-        log=from_numpy_u32(log, device), log_n=int(carry.log_n),
-        disc_hit=np.asarray(carry.disc_hit, bool).copy(), disc_fp=disc_fp,
-        ovf=bool(carry.ovf), xovf=bool(carry.xovf),
+        q=from_numpy_u32(q, device), table=table, ring=ring,
+        log=from_numpy_u32(log, device), ctr=ctr.to(device), layout=layout,
         ws=(StepWorkspace(table.numel(), 0 if ring is None
                           else ring.shape[0], n_props, table.device)
             if table.is_cuda else None), symmetry=log.shape[1] == 6)
@@ -154,104 +247,350 @@ def carry_to_numpy(carry: ChunkCarry) -> dict:
     """Inverse of :func:`carry_from_numpy`: the JAX layout as numpy
     arrays (table and ring as uint32 hi/lo halves)."""
     key_hi, key_lo = keys_to_numpy(carry.table)
-    out = dict(q=to_numpy_u32(carry.q), q_head=carry.q_head,
-               q_tail=carry.q_tail, key_hi=key_hi, key_lo=key_lo,
-               log=to_numpy_u32(carry.log), log_n=carry.log_n,
-               disc_hit=carry.disc_hit.copy(),
-               disc_hi=(carry.disc_fp >> np.uint64(32)).astype(np.uint32),
-               disc_lo=carry.disc_fp.astype(np.uint32),
-               ovf=carry.ovf, xovf=carry.xovf, ring_hi=None, ring_lo=None)
+    c = carry.counters()
+    n_props = carry.layout.P
+    hit, fp = disc_registers(c, n_props)
+    out = dict(q=to_numpy_u32(carry.q), q_head=int(c[B_Q_HEAD]),
+               q_tail=int(c[B_Q_TAIL]), key_hi=key_hi, key_lo=key_lo,
+               log=to_numpy_u32(carry.log), log_n=int(c[B_LOG_N]),
+               disc_hit=hit, disc_hi=(fp >> np.uint64(32)).astype(np.uint32),
+               disc_lo=fp.astype(np.uint32), ovf=bool(c[B_OVF]),
+               xovf=bool(c[B_XOVF]), ring_hi=None, ring_lo=None)
     if carry.ring is not None:
         out["ring_hi"], out["ring_lo"] = keys_to_numpy(carry.ring)
     return out
 
 
-def step_once(model, carry: ChunkCarry, fmax_b: int,
-              stats: LoopStats) -> np.ndarray:
-    """One loop iteration over up to ``fmax_b`` pending rows: the fused
-    step, the stats sync, the queue and log appends. Returns the step's
-    stats vector (``ops/fused.py`` ``S_*``)."""
-    width = model.packed_width
-    n_actions = model.max_actions
-    q = carry.q
-    h = carry.q_head
-    take = min(carry.q_tail - h, fmax_b)
-    block = q[h:h + fmax_b]
-    fvalid = torch.arange(fmax_b, device=q.device) < take
-    out = fused_step(model, block[:, :width], block[:, width], fvalid,
-                     block[:, width + 1], block[:, width + 2], carry.table,
-                     carry.ring, carry.ws, symmetry=carry.symmetry)
-    src = shrink_indices(out.inserted, fmax_b * n_actions)
-    t0 = time.perf_counter()
-    st = out.stats.cpu().numpy()
-    stats.sync_s += time.perf_counter() - t0
-    stats.syncs += 1
-    if st[S_FAULT]:
-        raise RuntimeError("the step kernel found a claimed slot without "
-                           "this step's owner word (S_FAULT)")
-    cnt = int(st[S_INSERTED])
+# --- the plain versions of the chunk's kernels ---------------------------
+
+def chunk_begin_reference(ctr, layout: CtrLayout, steps: int, target: int,
+                          grow_limit: int, tag: int) -> None:
+    """The plain version of ``chunk_begin_kernel`` (``csrc/chunk.cu``):
+    the chunk's parameters, the per-chunk counters zeroed (the JAX
+    package's dispatch resets its carry's so)."""
+    x = layout.ext
+    for i in (B_GEN, B_VMAX, B_DMAX, B_PDH, B_PRB, layout.cch,
+              x + E_ITERS, x + E_SMALL):
+        ctr[i] = 0
+    ctr[x + E_STEPS], ctr[x + E_TARGET] = steps, target
+    ctr[x + E_GROW], ctr[x + E_TAG] = grow_limit, tag
+
+
+def gate_reference(ctr, layout: CtrLayout, f_small: int, f_large: int,
+                   qlimit: int, stats=None) -> list:
+    """The plain version of ``gate_kernel``: ``stats`` (the step's stats
+    vector, when given) zeroed, the JAX package's ``make_cond`` on the
+    counters and the iteration's gate, written into ``ctr`` and
+    returned (``G_*`` order)."""
+    if stats is not None:
+        stats.zero_()
+    c = ctr.tolist()
+    x = layout.ext
+    head, tail, log_n = c[B_Q_HEAD], c[B_Q_TAIL], c[B_LOG_N]
+    avail = tail - head
+    disc = c[B_DISC:B_DISC + layout.P]
+    go = (avail > 0 and c[x + E_STEPS] > 0 and not c[B_OVF]
+          and not c[B_XOVF] and not c[x + E_FAULT]
+          and c[B_GEN] < c[x + E_TARGET] and log_n < c[x + E_GROW]
+          and tail <= qlimit and not (disc and all(disc)))
+    small = 0 < f_small and avail <= f_small
+    f = f_small if small else f_large
+    gate = [(1 if small else 2) if go else 0, head, min(avail, f),
+            c[x + E_TAG], tail, log_n]
+    ctr[x + E_GATE:x + E_GATE + G_LEN] = torch.tensor(gate,
+                                                      dtype=torch.int32)
+    return gate
+
+
+def append_reference(ctr, layout: CtrLayout, q, log, out,
+                     n_actions: int) -> None:
+    """The plain version of K7 (``csrc/chunk.cu``): the torch glue that
+    followed each step — :func:`shrink_indices`, ``assemble_candidates``
+    and the queue and log slice writes — over the step ``out`` (a
+    ``FusedOut`` whose frontier was the queue rows from the gate's head),
+    at the gate's queue tail and log length, then the carry update of
+    the counter block (``ctr``, in place, with ``q`` and ``log``). A
+    closed gate appends nothing."""
+    x = layout.ext
+    c = ctr.tolist()
+    size, head, take, _tag, qbase, lbase = c[x + E_GATE:x + E_GATE + G_LEN]
+    if not size:
+        return
+    w = layout.W
+    st = out.stats.tolist()
+    lanes = out.inserted.shape[0]
+    cnt = int(out.inserted.sum())
     if cnt:
-        src = src[:cnt]
+        src = shrink_indices(out.inserted, lanes)[:cnt]
         ridx = src // n_actions
-        orig = ((out.ohi[src], out.olo[src]) if carry.symmetry
+        orig = ((out.ohi[src], out.olo[src]) if log.shape[1] == 6
                 else (None, None))
         cand, log_off = assemble_candidates(
             out.flat[src], out.ebits[ridx], out.chi[src], out.clo[src],
-            block[:, width + 1][ridx], block[:, width + 2][ridx], *orig)
-        t = carry.q_tail
-        q[t:t + cnt] = cand[:, :width + 3]
-        carry.log[carry.log_n:carry.log_n + cnt] = \
-            cand[:, log_off:log_off + carry.log.shape[1]]
-    carry.q_head = h + take
-    carry.q_tail += cnt
-    carry.log_n += cnt
-    carry.ovf |= bool(st[S_OVF])
-    carry.xovf |= bool(st[S_XOVF])
-    n_props = carry.disc_hit.shape[0]
-    d = st[S_DISC:S_DISC + 3 * n_props].astype(np.uint32).astype(np.uint64)
-    for p in range(n_props):
-        if d[p] and not carry.disc_hit[p]:  # sticky first hit
-            carry.disc_hit[p] = True
-            carry.disc_fp[p] = (d[n_props + p] << np.uint64(32)) \
-                | d[2 * n_props + p]
-    stats.iterations += 1
-    stats.vmax = max(stats.vmax, int(st[S_VALID]))
-    stats.dmax = max(stats.dmax, int(st[S_DEDUP]))
-    stats.cch += int(st[S_CCH])
-    stats.rounds += int(st[S_ROUNDS])
-    return st
+            q[head + ridx, w + 1], q[head + ridx, w + 2], *orig)
+        q[qbase:qbase + cnt] = cand[:, :w + 3]
+        log[lbase:lbase + cnt] = cand[:, log_off:log_off + log.shape[1]]
+        c[layout.recent:layout.cch] = cand[cnt - 1, :w + 3].tolist()
+    c[B_Q_HEAD] = head + take
+    c[B_Q_TAIL] = qbase + cnt
+    c[B_LOG_N] = lbase + cnt
+    c[B_GEN] += st[S_VALID]
+    c[B_OVF] |= int(st[S_OVF] != 0)
+    c[B_XOVF] |= int(st[S_XOVF] != 0)
+    c[x + E_FAULT] |= int(st[S_FAULT] != 0 or st[S_INSERTED] != cnt)
+    c[B_VMAX] = max(c[B_VMAX], st[S_VALID])
+    c[B_DMAX] = max(c[B_DMAX], st[S_DEDUP])
+    c[B_PDH] += st[S_VALID] - st[S_DEDUP] - st[S_CCH]
+    c[B_PRB] += st[S_ROUNDS]
+    c[layout.cch] += st[S_CCH]
+    p_n = layout.P
+    for p in range(p_n):
+        if not c[B_DISC + p] and st[S_DISC + p]:  # sticky first hit
+            c[B_DISC + p] = 1
+            c[B_DISC + p_n + p] = st[S_DISC + p_n + p]
+            c[B_DISC + 2 * p_n + p] = st[S_DISC + 2 * p_n + p]
+    c[x + E_STEPS] -= 1
+    c[x + E_TAG] += 1
+    c[x + E_ITERS] += 1
+    c[x + E_SMALL] += int(size == 1)
+    ctr.copy_(torch.tensor(c, dtype=torch.int64).to(torch.int32))
 
 
-def run_loop(model, carry: ChunkCarry, *, fmax: int, grow_limit: int,
-             target_remaining: int, stats: LoopStats,
-             steps: Optional[int] = None,
-             grow: Optional[Callable[[], int]] = None) -> int:
-    """Iterate :func:`step_once` while the JAX chunk loop's condition
-    holds: rows pending, no overflow, the generation target not reached,
-    not every property discovered. When the log reaches ``grow_limit`` or
-    the queue has no headroom for one more append, ``grow()`` enlarges
-    the carry and returns the new limit; without ``grow`` the loop stops
-    there, as a JAX chunk does. ``steps`` bounds the iterations (one JAX
-    chunk; ``None``: no bound). Returns the transitions generated."""
+def step_sizes(model, fmax: int):
+    """``(f_small, f_large, qmargin)`` of the chunk at ``fmax`` rows:
+    ``f_small`` 0 when one size serves (``fmax <= FMAX_SMALL``);
+    ``qmargin`` the queue rows one iteration needs past the tail (the
+    widest append and the frontier window)."""
     fmax_small, _k, two_size = small_step_sizes(
         fmax, fmax * model.max_actions, model.max_actions)
-    qmargin = max(fmax * model.max_actions, fmax)
-    gen = iterations = 0
-    while steps is None or iterations < steps:
-        avail = carry.q_tail - carry.q_head
-        if (avail <= 0 or carry.ovf or carry.xovf
-                or gen >= target_remaining
-                or (carry.disc_hit.size and carry.disc_hit.all())):
-            break
-        if (carry.log_n >= grow_limit
-                or carry.q_tail > carry.q.shape[0] - qmargin):
-            if grow is None:
-                break
-            grow_limit = grow()
-            continue
-        small = two_size and avail <= fmax_small
-        st = step_once(model, carry, fmax_small if small else fmax, stats)
-        stats.small_iterations += small
-        gen += int(st[S_VALID])
-        iterations += 1
-    return gen
+    return (fmax_small if two_size else 0, fmax,
+            max(fmax * model.max_actions, fmax))
+
+
+def iteration_reference(model, carry: ChunkCarry, fmax: int) -> bool:
+    """One iteration of the chunk's plain version: the gate, then (when
+    it picks a step) the step over its rows and K7's plain version.
+    Returns whether a step ran."""
+    f_small, f_large, qmargin = step_sizes(model, fmax)
+    size, head, take = gate_reference(carry.ctr, carry.layout, f_small,
+                                      f_large,
+                                      carry.q.shape[0] - qmargin)[:3]
+    if not size:
+        return False
+    f = f_small if size == 1 else f_large
+    w = model.packed_width
+    block = carry.q[head:head + f]
+    fvalid = torch.arange(f, device=block.device) < take
+    out = fused_step(model, block[:, :w], block[:, w], fvalid,
+                     block[:, w + 1], block[:, w + 2], carry.table,
+                     carry.ring, carry.ws, symmetry=carry.symmetry)
+    append_reference(carry.ctr, carry.layout, carry.q, carry.log, out,
+                     model.max_actions)
+    return True
+
+
+# --- the chunk on the card -------------------------------------------------
+
+class CardChunk:
+    """The chunk on the card for one carry allocation and one ``fmax``:
+    the step buffers both sizes share, K7's block counts, the chunk's
+    arguments and the graph of one iteration — :meth:`launch_gate`,
+    :meth:`launch_steps` (K1-K3 of the small size, when there is one, and
+    of the large size, each gated) and :meth:`launch_append` (K7) —
+    captured after one launch of each with the gate shut."""
+
+    def __init__(self, model, carry: ChunkCarry, fmax: int):
+        from ..ops import _cuda
+        dev = carry.q.device
+        f_small, f_large, qmargin = step_sizes(model, fmax)
+        n_actions = model.max_actions
+        sms = _cuda.sm_count(dev)
+        tiles = max(_cuda.tile_geometry(f, n_actions, sms).blocks
+                    for f in (f_small, f_large) if f)
+        self.bufs = _cuda.step_buffers(model, f_large, stats_len(model),
+                                       carry.symmetry, dev, tiles)
+        self.blk_cnt = torch.zeros(
+            (_cuda.append_blocks(f_large * n_actions),), dtype=torch.int32,
+            device=dev)
+        lay = carry.layout
+        self.args = _cuda.chunk_args(
+            ctr=carry.ctr, bufs=self.bufs, q=carry.q, log=carry.log,
+            blk_cnt=self.blk_cnt, qlimit=carry.q.shape[0] - qmargin,
+            n_props=lay.P, width=lay.W, n_actions=n_actions,
+            f_small=f_small, f_large=f_large, ext=lay.ext,
+            recent=lay.recent, cch=lay.cch)
+        self.device, self.fmax = dev, fmax
+        self.sizes = {1: f_small, 2: f_large} if f_small else {2: f_large}
+        # the carry's buffers, not the carry: the carry holds this object
+        self._model = model
+        self._step = (carry.q, carry.table, carry.ring, carry.ws,
+                      carry.symmetry)
+        self._gate_ptr = carry.ctr[lay.ext + E_GATE:].data_ptr()
+        t0 = time.perf_counter()
+        # every kernel once outside the capture (loads it, sets its
+        # shared-memory limit), with no steps left: the gate stays shut
+        self.begin(0, 0, 0, 0)
+        self._record()
+        torch.cuda.synchronize(dev)
+        self.graph = _cuda.ChunkGraph(self._record, dev)
+        torch.cuda.synchronize(dev)
+        self.capture_s = time.perf_counter() - t0
+
+    def begin(self, steps: int, target: int, grow_limit: int,
+              tag: int) -> None:
+        from ..ops import _cuda
+        _cuda.chunk_begin(self.args, self.device, steps, target, grow_limit,
+                          tag)
+
+    def launch_gate(self) -> None:
+        from ..ops import _cuda
+        _cuda.chunk_gate(self.args, self.device)
+
+    def launch_steps(self) -> None:
+        from ..ops import _cuda
+        model = self._model
+        q, table, ring, ws, symmetry = self._step
+        w = model.packed_width
+        for size, f in self.sizes.items():
+            _cuda.fused_step(model, q[:f, :w], q[:f, w], None, q[:f, w + 1],
+                             q[:f, w + 2], table, ring, ws,
+                             stats_len(model), symmetry, bufs=self.bufs,
+                             gate=self._gate_ptr, gate_size=size)
+
+    def launch_append(self) -> None:
+        from ..ops import _cuda
+        _cuda.append(self.args, self.device)
+
+    def _record(self) -> None:
+        self.launch_gate()
+        self.launch_steps()
+        self.launch_append()
+
+    def outputs(self, size: int):
+        """The step outputs of the step size ``size`` (a ``FusedOut``
+        over the shared buffers)."""
+        from ..ops.fused import FusedOut
+        f = self.sizes[size]
+        lanes = f * self._model.max_actions
+        b = self.bufs
+        return FusedOut(
+            pbits=b["pbits"][:f], ebits=b["ebits_out"][:f],
+            terminal=b["terminal"][:f], flat=b["flat"][:lanes],
+            chi=b["chi"][:lanes], clo=b["clo"][:lanes],
+            cvalid=b["cvalid"][:lanes], dvalid=b["dvalid"][:lanes],
+            inserted=b["inserted"][:lanes], stats=b["stats"],
+            ohi=b["ohi"][:lanes], olo=b["olo"][:lanes])
+
+    def run(self, steps: int, target: int, grow_limit: int,
+            tag: int) -> None:
+        """One chunk: its start, then ``steps`` replays of the graph."""
+        self.begin(steps, target, grow_limit, tag)
+        self.graph.replay(steps)
+
+
+class PendingChunk:
+    """A dispatched chunk: :meth:`read` returns its counter block (numpy
+    int32), waiting for the card when it has to, and adds the chunk to
+    the profile the first time."""
+
+    def __init__(self, stats: LoopStats, layout: CtrLayout, counters=None,
+                 buf=None, event=None):
+        self._stats, self._layout = stats, layout
+        self._c, self._buf, self._event = counters, buf, event
+        self._counted = False
+
+    def read(self) -> np.ndarray:
+        st = self._stats
+        if self._c is None:
+            t0 = time.perf_counter()
+            self._event.synchronize()
+            self._c = self._buf.numpy().copy()
+            st.sync_s += time.perf_counter() - t0
+        if not self._counted:
+            self._counted = True
+            c, lay = self._c, self._layout
+            st.syncs += 1
+            st.iterations += int(c[lay.ext + E_ITERS])
+            st.small_iterations += int(c[lay.ext + E_SMALL])
+            st.vmax = max(st.vmax, int(c[B_VMAX]))
+            st.dmax = max(st.dmax, int(c[B_DMAX]))
+            st.cch += int(c[lay.cch])
+            st.rounds += int(c[B_PRB])
+            st.pdh += int(c[B_PDH])
+        return self._c
+
+
+class ChunkRunner:
+    """Runs chunks over one carry at ``fmax`` rows per large step. On the
+    card each chunk is one ``chunk_begin`` launch, ``steps`` replays of
+    the iteration graph (captured on first use and again after
+    :meth:`invalidate`) and one copy of the counter block into one of two
+    pinned host buffers, with an event; on the CPU the plain versions run
+    at dispatch. ``stats`` gathers the profile."""
+
+    def __init__(self, model, carry: ChunkCarry, fmax: int,
+                 stats: Optional[LoopStats] = None):
+        self.model, self.carry, self.fmax = model, carry, fmax
+        self.stats = stats if stats is not None else LoopStats()
+        self._tag = 0   # the CPU path's tags (the card's: carry.ws.step)
+        self._host = None
+        self._turn = 0
+        if carry.q.is_cuda:
+            n = carry.layout.length
+            self._host = [(torch.empty((n,), dtype=torch.int32,
+                                       pin_memory=True),
+                           torch.cuda.Event()) for _ in range(2)]
+
+    def invalidate(self) -> None:
+        """The carry's buffers were replaced (growth): recapture."""
+        self.carry.card = None
+
+    def card(self) -> CardChunk:
+        """The carry's chunk on the card at this ``fmax``, captured now
+        if the carry has none."""
+        card = self.carry.card
+        if card is None or card.fmax != self.fmax:
+            card = self.carry.card = CardChunk(self.model, self.carry,
+                                               self.fmax)
+            self.stats.capture_s += card.capture_s
+        return card
+
+    def dispatch(self, steps: int, target_remaining: int = I32_MAX,
+                 grow_limit: int = I32_MAX) -> PendingChunk:
+        """Launch one chunk of at most ``steps`` iterations under the
+        JAX package's loop condition with these ``target_remaining``
+        (generated transitions) and ``grow_limit`` (log rows)."""
+        carry, st = self.carry, self.stats
+        target = min(max(int(target_remaining), 0), I32_MAX)
+        grow_limit = min(int(grow_limit), I32_MAX)
+        st.chunks += 1
+        if carry.ws is not None:   # tags above every one handed out
+            tag = carry.ws.step + 1
+            carry.ws.step += steps
+        else:
+            tag = self._tag + 1
+            self._tag += steps
+        if not carry.q.is_cuda:
+            chunk_begin_reference(carry.ctr, carry.layout, steps, target,
+                                  grow_limit, tag)
+            for _ in range(steps):
+                if not iteration_reference(self.model, carry, self.fmax):
+                    break  # nothing changed: the condition stays false
+            return PendingChunk(st, carry.layout, carry.counters())
+        self.card().run(steps, target, grow_limit, tag)
+        st.graph_launches += steps
+        buf, event = self._host[self._turn]
+        self._turn ^= 1
+        buf.copy_(carry.ctr, non_blocking=True)
+        event.record()
+        return PendingChunk(st, carry.layout, buf=buf, event=event)
+
+
+def run_chunk(model, carry: ChunkCarry, *, fmax: int, steps: int,
+              target_remaining: int = I32_MAX, grow_limit: int = I32_MAX,
+              stats: Optional[LoopStats] = None) -> np.ndarray:
+    """Run one chunk of at most ``steps`` iterations at ``fmax`` rows per
+    large step and return its counter block (numpy int32, ``B_*`` /
+    :class:`CtrLayout`): one sync."""
+    return ChunkRunner(model, carry, fmax, stats).dispatch(
+        steps, target_remaining, grow_limit).read()

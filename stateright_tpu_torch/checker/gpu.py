@@ -1,10 +1,13 @@
 """The GPU engine: ``spawn_gpu()``.
 
 Counterpart of the single-chip main path of ``stateright_tpu/checker/
-tpu.py`` (``TpuChecker`` with ``fused=True``, synchronous chunk loop):
-seed the init states, run the chunk loop of ``device_loop.py`` (whose
-step is the hand-written CUDA kernel on the card, its plain version on
-the CPU), grow the visited table when it fills, and mirror the search
+tpu.py`` (``TpuChecker`` with ``fused=True``): seed the init states, run
+chunks of ``chunk_steps`` iterations on the device (``device_loop.py``:
+on the card a CUDA graph of one iteration replayed, the hand-written
+kernels inside; on the CPU their plain versions), one host sync per
+chunk, double-buffered by default (``pipeline=True``, as in the JAX
+package: chunk N+1 is launched before chunk N's counters are read), grow
+the visited table between chunks when it fills, and mirror the search
 log into the fingerprint -> parent map on first use, from which
 discoveries replay through the host model.
 
@@ -22,6 +25,7 @@ What the JAX engine offers beyond that path is not ported yet and raises
 from __future__ import annotations
 
 import time
+from collections import deque
 from typing import List
 
 import numpy as np
@@ -32,20 +36,22 @@ from ..ops.fused import CC_DEFAULT, StepWorkspace, supports
 from ..ops.hashtable import table_insert
 from ..ops.words import from_numpy_u32, to_numpy_u32
 from .builder import CheckerBuilder
-from .device_loop import LoopStats, run_loop, seed_carry
+from .device_loop import (B_DISC, B_GEN, B_LOG_N, B_OVF, B_Q_HEAD,
+                          B_Q_TAIL, B_XOVF, E_FAULT, I32_MAX, ChunkRunner,
+                          LoopStats, disc_registers, seed_carry,
+                          step_sizes)
 from .host import HostChecker
 
 #: tpu_options keys of the JAX engine, accepted only at the value that
 #: is this engine's behaviour
-_FIXED = {"race": False, "pipeline": False, "fused": True}
+_FIXED = {"race": False, "fused": True}
 
 _NOT_PORTED = {
     "race": "the host-BFS race (checker/race.py) is not ported; the "
             "engine always runs on the device — drop race or pass "
             "race=False",
-    "pipeline": "the double-buffered chunk pipeline is not ported; the "
-                "loop is synchronous — drop pipeline or pass "
-                "pipeline=False",
+    "pipeline": "the sharded engine's loop is a host loop with no chunk "
+                "pipeline — drop pipeline or pass pipeline=False",
     "fused": "the staged (unfused) path and the fused='auto' fallback "
              "are not ported: the step always runs the CUDA kernel (its "
              "plain version on the CPU)",
@@ -99,7 +105,9 @@ class GpuChecker(HostChecker):
 
     #: gpu_options keys the engine reads
     _OPTIONS = ("capacity", "fmax", "cc_dedup", "chunk_steps", "grow_at",
-                "device")
+                "device", "pipeline")
+    #: tpu_options keys accepted only at the value that is the engine's
+    _FIXED = _FIXED
 
     def _resolve_device(self, opts: dict) -> torch.device:
         return torch.device(opts.get("device", "cuda"))
@@ -119,7 +127,7 @@ class GpuChecker(HostChecker):
                 continue
             if key == "mode" and value in ("auto", "device"):
                 continue
-            if key in _FIXED and value is _FIXED[key]:
+            if key in self._FIXED and value is self._FIXED[key]:
                 continue
             raise NotImplementedError(
                 f"gpu_options({key}={value!r}): "
@@ -156,6 +164,9 @@ class GpuChecker(HostChecker):
         if self._capacity & (self._capacity - 1) or self._capacity < 4:
             raise ValueError("capacity must be a power of two >= 4")
         self._grow_at = float(opts.get("grow_at", 0.55))
+        self._chunk_steps = int(opts.get("chunk_steps", 64))
+        if self._chunk_steps < 1:
+            raise ValueError("chunk_steps must be at least 1")
         cc_opt = opts.get("cc_dedup", True)
         if cc_opt is True:
             self._cc = CC_DEFAULT
@@ -255,17 +266,18 @@ class GpuChecker(HostChecker):
         kernel (plain insert on the CPU), then the seed-time keys."""
         self._capacity *= 4
         dev = carry.q.device
+        q_tail, log_n = carry.q_tail, carry.log_n
         q = torch.zeros((self._device_qcap(n_init, headroom),
                          carry.q.shape[1]), dtype=torch.int32, device=dev)
-        q[:carry.q_tail] = carry.q[:carry.q_tail]
+        q[:q_tail] = carry.q[:q_tail]
         log = torch.zeros((self._capacity, carry.log.shape[1]),
                           dtype=torch.int32, device=dev)
-        log[:carry.log_n] = carry.log[:carry.log_n]
+        log[:log_n] = carry.log[:log_n]
         table = torch.zeros((self._capacity // 4, 4), dtype=torch.int64,
                             device=dev)
-        valid = torch.ones((carry.log_n,), dtype=torch.bool, device=dev)
-        _, ovf = table_insert(table, log[:carry.log_n, 0],
-                              log[:carry.log_n, 1], valid, mask=False)
+        valid = torch.ones((log_n,), dtype=torch.bool, device=dev)
+        _, ovf = table_insert(table, log[:log_n, 0], log[:log_n, 1], valid,
+                              mask=False)
         if ovf:
             raise RuntimeError("overflow while re-inserting during growth")
         self._insert_keys(table, self._base_fps)
@@ -284,10 +296,13 @@ class GpuChecker(HostChecker):
         full_ebits = sum(1 << i for i in eventually_indices(properties))
         fmax = int(opts.get("fmax", auto_fmax(model)))
         headroom = fmax * model.max_actions
+        k_steps = self._chunk_steps
+        pipeline = bool(opts.get("pipeline", True))
         stats = LoopStats()
         prof = self._profile
         prof.update(engine="gpu", device=str(self._device), fmax=fmax,
-                    cc_dedup_capacity=self._cc, grows=0)
+                    cc_dedup_capacity=self._cc, grows=0,
+                    chunk_steps=k_steps, pipeline=pipeline)
 
         init_rows = self._seed_inits()
         n_init = len(init_rows)
@@ -305,52 +320,98 @@ class GpuChecker(HostChecker):
                            self._device, symmetry=self._symmetry)
         self._insert_keys(carry.table, self._base_fps)
         prof["seed_s"] = time.perf_counter() - t_start
-
-        def grow_limit() -> int:
-            return int(min(self._grow_at * self._capacity,
-                           self._capacity - headroom) - preload)
-
-        def grow() -> int:
-            self._grow_device(carry, n_init, headroom)
-            prof["grows"] += 1
-            return grow_limit()
-
+        runner = ChunkRunner(model, carry, fmax, stats)
+        qmargin = step_sizes(model, fmax)[2]
         target = self._target_state_count
+        inflight: deque = deque()
+        last = None  # the newest counter block read
+
+        def dispatch() -> None:
+            # the growth limit bounds the log; the seed-time keys count
+            # against the table's load. The generation budget is the
+            # host's count at dispatch, which lags one chunk under the
+            # pipeline, as in the JAX package
+            grow_limit = int(min(self._grow_at * self._capacity,
+                                 self._capacity - headroom) - preload)
+            remaining = (min(max(target - self._state_count, 0), I32_MAX)
+                         if target is not None else I32_MAX)
+            inflight.append((runner.dispatch(k_steps, remaining,
+                                             grow_limit), grow_limit))
+
+        def process(pending, grow_limit: int) -> set:
+            """Consume one chunk's counters; returns the host actions it
+            demands (handled once the pipeline is drained)."""
+            nonlocal last
+            c = last = pending.read()
+            if c[carry.layout.ext + E_FAULT]:
+                raise RuntimeError(
+                    "the step kernel found a claimed slot without this "
+                    "step's owner word, or the append's count disagreed "
+                    "with the step's (S_FAULT)")
+            self._state_count += int(c[B_GEN])
+            if c[B_XOVF]:
+                raise RuntimeError(
+                    "model capacity overflow: a successor could not be "
+                    "encoded in the packed layout")
+            if c[B_OVF]:
+                raise RuntimeError(
+                    "device hash table probe overflow below the growth "
+                    f"limit (capacity {self._capacity}); raise "
+                    "gpu_options(capacity=...)")
+            acts = set()
+            q_tail, log_n = int(c[B_Q_TAIL]), int(c[B_LOG_N])
+            if (q_tail == c[B_Q_HEAD]
+                    or c[B_DISC:B_DISC + prop_count].all()
+                    or (target is not None and self._state_count >= target)):
+                acts.add("done")
+            elif (log_n >= grow_limit
+                  or q_tail > carry.q.shape[0] - qmargin):
+                acts.add("grow")
+            return acts
+
         t_loop = time.perf_counter()
-        # one host loop: chunk_steps bounds a JAX chunk, which has no
-        # counterpart here, so it is accepted and has no effect
-        self._state_count += run_loop(
-            model, carry, fmax=fmax, grow_limit=grow_limit(),
-            target_remaining=(target - self._state_count
-                              if target is not None else 2**63),
-            stats=stats, grow=grow)
-        self._unique_state_count = preload + carry.log_n
-        if carry.xovf:
-            raise RuntimeError(
-                "model capacity overflow: a successor could not be "
-                "encoded in the packed layout")
-        if carry.ovf:
-            raise RuntimeError(
-                "device hash table probe overflow below the growth "
-                f"limit (capacity {self._capacity}); raise "
-                "gpu_options(capacity=...)")
-        if carry.q.is_cuda:
-            torch.cuda.synchronize(carry.q.device)
+        # the JAX package's chunk loop (checker/tpu.py _drive_device):
+        # with the pipeline, chunk N+1 is in flight while chunk N's
+        # counters are read; a chunk launched past a stop condition runs
+        # no iteration, since every condition the host acts on is also in
+        # the device's loop condition
+        dispatch()
+        while True:
+            if pipeline and len(inflight) == 1:
+                dispatch()
+            acts = process(*inflight.popleft())
+            if not acts:
+                if not inflight:
+                    dispatch()
+                continue
+            while inflight:
+                acts |= process(*inflight.popleft())
+            if "done" in acts:
+                break
+            self._grow_device(carry, n_init, headroom)
+            runner.invalidate()
+            prof["grows"] += 1
+            dispatch()
         prof["loop_s"] = time.perf_counter() - t_loop
+        log_n = int(last[B_LOG_N])
+        self._unique_state_count = preload + log_n
+        hit, fps = disc_registers(last, prop_count)
         for i, prop in enumerate(properties):
-            if carry.disc_hit[i]:
-                self._discovery_fps[prop.name] = int(carry.disc_fp[i])
+            if hit[i]:
+                self._discovery_fps[prop.name] = int(fps[i])
         # the search record stays on the device until a path or the
         # fingerprint set is asked for
-        self._mirror = (carry.log, carry.log_n)
+        self._mirror = (carry.log, log_n)
         if self._symmetry:
-            self._queue = (carry.q, carry.q_tail)
+            self._queue = (carry.q, int(last[B_Q_TAIL]))
         prof.update(
-            capacity=self._capacity, iterations=stats.iterations,
-            small_iterations=stats.small_iterations, syncs=stats.syncs,
-            sync_s=stats.sync_s,
+            capacity=self._capacity, chunks=stats.chunks, syncs=stats.syncs,
+            sync_s=stats.sync_s, sync_stall=stats.sync_s,
+            capture_s=stats.capture_s, graph_launches=stats.graph_launches,
+            iterations=stats.iterations,
+            small_iterations=stats.small_iterations,
             vmax=stats.vmax, dmax=stats.dmax, cc_dedup_hits=stats.cch,
-            probe_rounds=stats.rounds,
+            probe_rounds=stats.rounds, predup_hits=stats.pdh,
             wall_s=time.perf_counter() - t_start)
 
     def save(self, path) -> None:

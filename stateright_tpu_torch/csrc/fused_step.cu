@@ -76,6 +76,12 @@
 //     table's workspace (ops/fused.py StepWorkspace), so one counter tags
 //     the steps and the inserts alike and no owner word needs clearing;
 //     without a mask (the seed and growth, which drop it) it posts none.
+//   * Inside a chunk (chunk.cu) K1-K3 are captured once per step size in
+//     a CUDA graph of one iteration and read their window and tag from
+//     the chunk's gate (StepArgs.gate, open_gate in step_common.cuh):
+//     the tag grows by one per step that runs and starts each chunk
+//     above every tag the host has handed out, so the owner-word rule
+//     holds across replays, chunks and K4's masked inserts.
 //
 // What bounds it on this card: at 2pc n=7 and F = 12,288 rows (454,656
 // lanes) the step moves ~7.3 MB of successors, ~3.6 MB of fingerprint
@@ -119,8 +125,9 @@ namespace {
 // (warp-aggregated, in the tile's own lane range of a.claims: a tile
 // claims at most one slot per lane); the tile's count goes to a.n_claims
 // and S_INSERTED: each claimed slot is one inserted lane, which K3
-// finds.
+// finds. Inside a chunk the launch is gated like K1's (open_gate).
 __global__ void claim_kernel(StepArgs a) {
+  if (!open_gate(a, nullptr)) return;
   extern __shared__ __align__(16) unsigned char smem[];
   const TileSmem s = tile_stage_smem(smem, a.tile, a.A);
   __shared__ int s_nwin, s_ncl, s_cch, s_dv, s_rounds;
@@ -189,8 +196,10 @@ __global__ void claim_kernel(StepArgs a) {
 // kernel fault: S_FAULT, which the host loop raises. Block 0 publishes
 // the step's discovery registers. Each claim is two dependent loads (the
 // claim, then its owner word and ring arena slot together), and a thread
-// reads its first claim with the tile's count (claims_walk).
+// reads its first claim with the tile's count (claims_walk). Gated like
+// K1 inside a chunk.
 __global__ void commit_kernel(StepArgs a) {
+  if (!open_gate(a, nullptr)) return;
   if (blockIdx.x == 0 && threadIdx.x == 0) publish_discoveries(a);
   const long long lanes = (long long)a.F * a.A;
   claims_walk(a, [&](unsigned long long claim) {

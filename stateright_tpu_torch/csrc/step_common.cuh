@@ -1,6 +1,7 @@
 // Device code shared by the step kernels of fused_step.cu and
-// sharded_step.cu: the constants, the StepArgs layout with the tile
-// geometry of K1, K2 and K5, the fingerprint, the warp- and
+// sharded_step.cu (and the chunk kernels of chunk.cu): the constants, the
+// StepArgs layout with the tile geometry of K1, K2 and K5 and the chunk's
+// gate, the fingerprint, the warp- and
 // block-aggregated counters and lists, the 4-slot bucket probe/claim,
 // K1, the expand kernel (with a compile-time symmetry flag: the
 // symmetric instantiation keys each child on the fingerprint of its
@@ -49,6 +50,21 @@ enum Stat {
 };
 
 enum Probe { PROBE_DUP = 0, PROBE_CLAIMED = 1, PROBE_OVF = 2 };
+
+// The chunk's gate (chunk.cu gate_kernel writes it at the start of each
+// iteration; ops/_cuda.py G_* mirror it): which step size runs (0: none,
+// 1: the small one, 2: the large one), the queue head, the rows pending
+// (at most the size's), the step's owner-word tag, and the queue tail and
+// log length the append writes at.
+enum Gate {
+  G_SIZE = 0,
+  G_HEAD = 1,
+  G_TAKE = 2,
+  G_TAG = 3,
+  G_QBASE = 4,
+  G_LBASE = 5,
+  G_LEN = 6,
+};
 
 }  // namespace
 
@@ -105,6 +121,14 @@ struct StepArgs {
   unsigned long long* ring_arena;  // [cc]
   unsigned long long* disc_cand;   // [P]
   TileGeometry tile;               // the launch of K1, K2, K3 and K5
+  // Inside a chunk on the card (chunk.cu), K1-K3 are launched for both
+  // step sizes in every iteration and read their window from the
+  // device: a launch runs only when gate[G_SIZE] == gate_size, over the
+  // frontier rows from gate[G_HEAD] (frontier, ebits, phi and plo point
+  // at queue row 0), gate[G_TAKE] of them valid (fvalid unused), under
+  // the tag gate[G_TAG] (step unused). Null: the host arguments.
+  const int* gate;
+  int gate_size;
   void* stream;
 };
 
@@ -228,6 +252,28 @@ __device__ int probe_claim(unsigned long long* keys, long long n_buckets,
   return PROBE_OVF;
 }
 
+// The chunk's gate (StepArgs.gate) for one launch of K1-K3: false when
+// the iteration picked no step or the other step size (every block
+// returns at once: the value is the same for every thread); otherwise the
+// frontier window moves to the queue head, a.step takes the iteration's
+// tag, and *take (when not null) the rows pending. Without a gate: true,
+// *take = -1 (fvalid holds the rows).
+__device__ __forceinline__ bool open_gate(StepArgs& a, int* take) {
+  if (a.gate == nullptr) {
+    if (take) *take = -1;
+    return true;
+  }
+  if (a.gate[G_SIZE] != a.gate_size) return false;
+  const long long h = a.gate[G_HEAD];
+  a.frontier += h * a.fstride;
+  a.ebits += h * a.estride;
+  a.phi += h * a.pstride;
+  a.plo += h * a.pstride;
+  a.step = (uint32_t)a.gate[G_TAG];
+  if (take) *take = a.gate[G_TAKE];
+  return true;
+}
+
 struct NoCanon {};
 
 // K1's per-row state in shared memory, written once per row (16-byte
@@ -259,12 +305,16 @@ struct alignas(16) RowState {
 // ohi/olo = fp64(child), the original state's fingerprint the log keeps;
 // flat stays the original child and the properties are evaluated on the
 // original frontier rows either way. The grid also resets the ring
-// arena for the step (grid-stride).
+// arena for the step (grid-stride). Inside a chunk the launch is gated
+// (open_gate): its rows are the queue's from the head, the first take of
+// them valid.
 template <class M, bool SYM>
 __global__ void expand_kernel(M m, StepArgs a) {
   extern __shared__ __align__(16) unsigned char tile_smem[];
   RowState<M, SYM>* rows = reinterpret_cast<RowState<M, SYM>*>(tile_smem);
   __shared__ int s_valid;
+  int take;
+  if (!open_gate(a, &take)) return;
   const long long tid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   const long long nthreads = (long long)gridDim.x * blockDim.x;
   for (long long i = tid; i < a.cc; i += nthreads) a.ring_arena[i] = ~0ull;
@@ -284,7 +334,7 @@ __global__ void expand_kernel(M m, StepArgs a) {
     if constexpr (SYM) m.row_canon(w, rs.rc);
     rs.pb = pb;
     rs.eb = a.ebits[r * a.estride] & ~(pb & a.ev_mask);
-    rs.fv = a.fvalid[r] != 0;
+    rs.fv = take >= 0 ? r < take : a.fvalid[r] != 0;
     rs.valid = 0;
     rs.xovf = 0;
   }

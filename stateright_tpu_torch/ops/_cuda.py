@@ -2,7 +2,8 @@
 
 Each source (``fused_step.cu``: the single-chip step and the insert;
 ``sharded_step.cu``: the sharded engine's probe-free step and owner-side
-probe) is compiled with ``nvcc`` for ``sm_90a`` into its own shared
+probe; ``chunk.cu``: the chunk's control kernels and K7, the append) is
+compiled with ``nvcc`` for ``sm_90a`` into its own shared
 library with a plain C interface the first time a kernel is needed (never
 at import), all ``nvcc`` processes started together, into
 ``<repo>/build/kernels/`` (git-ignored), named by a hash of the sources so
@@ -13,6 +14,13 @@ with ``ctypes``: every pointer (and the stream) goes over as a
 exception. The wrappers check device, dtype, shape and contiguity,
 allocate outputs and scratch with torch, launch on the current stream and
 never synchronise. ``LAUNCHES`` counts each wrapper's launches.
+
+Inside a chunk (``checker/device_loop.py``) one loop iteration — the
+gate, K1-K3 of both step sizes (gated on the device) and K7 — is
+captured once per carry allocation as a CUDA graph
+(:class:`ChunkGraph`) and replayed; a wrapper called while a graph is
+being captured records its launches with the graph, and each replay
+adds them to ``LAUNCHES``.
 """
 
 from __future__ import annotations
@@ -35,19 +43,26 @@ from .fused import S_DISC, S_FAULT, S_OVF, S_ROUNDS, property_masks
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD = Path(__file__).resolve().parents[2] / "build" / "kernels"
 #: library name -> source under csrc/
-_SOURCES = {"fused_step": "fused_step.cu", "sharded_step": "sharded_step.cu"}
+_SOURCES = {"fused_step": "fused_step.cu", "sharded_step": "sharded_step.cu",
+            "chunk": "chunk.cu"}
 _NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 #: kernel launches per wrapper: ``fused_step`` (K1-K3 of one step),
 #: ``table_insert`` (K4: the flat insert), ``fused_step_noprobe`` (K1 +
 #: K5 of one probe-free step), ``probe_block`` (K6: the same flat
-#: insert), and the symmetric steps
+#: insert), the symmetric steps
 #: ``fused_step_sym`` and ``fused_step_noprobe_sym`` (the same kernels
-#: with K1's symmetric instantiation)
+#: with K1's symmetric instantiation), and the chunk's kernels:
+#: ``chunk_begin`` (once per chunk), ``chunk_gate`` (the iteration's
+#: loop condition) and ``append`` (K7: its count and its write launch)
 LAUNCHES = {"fused_step": 0, "table_insert": 0, "fused_step_noprobe": 0,
             "probe_block": 0, "fused_step_sym": 0,
-            "fused_step_noprobe_sym": 0}
+            "fused_step_noprobe_sym": 0, "chunk_begin": 0, "chunk_gate": 0,
+            "append": 0}
+
+#: while a graph is captured: the launches each wrapper recorded in it
+_CAPTURED = None
 
 #: ``{"seconds": build time, "log": nvcc/ptxas output of every source,
 #: "path": {library name: path}}``
@@ -137,7 +152,8 @@ class StepArgs(ctypes.Structure):
         ("inserted", _p), ("claims", _p), ("n_claims", _p), ("stats", _p),
         ("keys", _p), ("n_buckets", _ll), ("max_rounds", _i), ("cc", _i),
         ("owner", _p), ("ring", _p), ("ring_arena", _p),
-        ("disc_cand", _p), ("tile", TileGeometry), ("stream", _p),
+        ("disc_cand", _p), ("tile", TileGeometry), ("gate", _p),
+        ("gate_size", _i), ("stream", _p),
     ]
 
 
@@ -146,6 +162,23 @@ class DedupArgs(ctypes.Structure):
 
     _fields_ = [("s", StepArgs), ("arena", _p), ("arena_owner", _p),
                 ("cells", _ll)]
+
+
+class ChunkArgs(ctypes.Structure):
+    """``ChunkArgs`` of ``csrc/chunk.cu``, field for field."""
+
+    _fields_ = [
+        ("ctr", _p), ("stats", _p), ("inserted", _p), ("flat", _p),
+        ("ebits", _p), ("chi", _p), ("clo", _p), ("ohi", _p), ("olo", _p),
+        ("q", _p), ("log", _p), ("blk_cnt", _p), ("qlimit", _ll),
+        ("P", _i), ("W", _i), ("A", _i), ("log_cols", _i),
+        ("stats_len", _i), ("f_small", _i), ("f_large", _i), ("ext", _i),
+        ("recent", _i), ("cch", _i), ("stream", _p),
+    ]
+
+
+#: lanes per block of K7 (``kAppendLanes`` of ``csrc/chunk.cu``)
+APPEND_LANES = 4096
 
 #: per library: (C entry, argument struct, its size function, the
 #: number of int parameters after the struct: the model's) of each kernel
@@ -156,6 +189,9 @@ _ENTRIES = {
                     "srt_step_args_size", 2),
                    ("srt_table_insert", StepArgs, "srt_step_args_size",
                     0)],
+    "chunk": [("srt_chunk_begin", ChunkArgs, "srt_chunk_args_size", 4),
+              ("srt_chunk_gate", ChunkArgs, "srt_chunk_args_size", 0),
+              ("srt_append", ChunkArgs, "srt_chunk_args_size", 0)],
     "sharded_step": [("srt_dedup_step_twopc", DedupArgs,
                       "srt_dedup_args_size", 1),
                      ("srt_dedup_step_twopc_sym", DedupArgs,
@@ -256,13 +292,61 @@ def _raise_on(err: int, what: str) -> None:
         raise RuntimeError(f"{what} launch failed: CUDA error {err}")
 
 
+def _count(name: str) -> None:
+    """Count a launch of the wrapper ``name``: into the graph being
+    captured (its replays count it), else into ``LAUNCHES``."""
+    if _CAPTURED is not None:
+        _CAPTURED[name] = _CAPTURED.get(name, 0) + 1
+    else:
+        LAUNCHES[name] += 1
+
+
+def step_buffers(model, f: int, stats_len: int, symmetry: bool, device,
+                 n_tiles: int) -> dict:
+    """The outputs and scratch of a step over ``f`` frontier rows:
+    ``pbits``, ``ebits_out``, ``terminal``, ``flat``, ``chi``, ``clo``,
+    ``ohi``/``olo`` (new tensors under ``symmetry``, else ``chi``/``clo``
+    again), ``cvalid``, ``dvalid``, ``inserted``, ``claims`` (K2's or
+    K5's claims per tile, in the tile's own lane range), ``n_claims``
+    (their count per tile, for ``n_tiles`` tiles) and ``stats`` (zeroed).
+    A chunk allocates one set at its large size and both step sizes
+    write into it."""
+    w = model.packed_width
+    lanes = f * model.max_actions
+    pcols = max(len(model.properties()), 1)
+    dev = device
+
+    def i32(*shape):
+        return torch.empty(shape, dtype=torch.int32, device=dev)
+
+    def u8(*shape):
+        return torch.empty(shape, dtype=torch.bool, device=dev)
+
+    out = dict(pbits=u8(f, pcols), ebits_out=i32(f), terminal=u8(f),
+               flat=i32(lanes, w), chi=i32(lanes), clo=i32(lanes),
+               cvalid=u8(lanes), dvalid=u8(lanes), inserted=u8(lanes),
+               claims=torch.empty((lanes,), dtype=torch.int64, device=dev),
+               n_claims=i32(n_tiles),
+               stats=torch.zeros((stats_len,), dtype=torch.int32,
+                                 device=dev))
+    out["ohi"], out["olo"] = ((i32(lanes), i32(lanes)) if symmetry
+                              else (out["chi"], out["clo"]))
+    return out
+
+
 def _step_args(model, frontier, ebits, fvalid, phi, plo, ring, ws,
-               stats_len: int, symmetry: bool):
-    """Check K1's inputs, allocate the step's outputs and fill the
+               stats_len: int, symmetry: bool, bufs=None, gate=None,
+               gate_size: int = 0):
+    """Check K1's inputs, allocate the step's outputs (or take ``bufs``,
+    a :func:`step_buffers` of at least this step's rows) and fill the
     table-free fields of a ``StepArgs``; returns ``(params, outputs,
     args)`` where ``params`` are the model kernel's parameters and
-    ``outputs`` the wrappers' return tuple (``ohi``/``olo`` last: new
-    tensors under ``symmetry``, else ``chi``/``clo`` again)."""
+    ``outputs`` the wrappers' return tuple (``ohi``/``olo`` last).
+    ``gate`` (a device pointer to the chunk's gate) makes the launch a
+    chunk's: ``frontier``, ``ebits``, ``phi`` and ``plo`` start at queue
+    row 0 and the kernels read the window, the valid rows and the tag
+    from the gate, and run only when it picks ``gate_size``; ``fvalid``
+    is then unused and the workspace's counter untouched."""
     name, params = model.cuda_spec(symmetry)
     if name != "twopc":
         raise NotImplementedError(f"no CUDA step kernel for {name!r}")
@@ -278,7 +362,8 @@ def _step_args(model, frontier, ebits, fvalid, phi, plo, ring, ws,
             raise ValueError(f"{nm} must have {f} rows")
     if phi.stride(0) != plo.stride(0):
         raise ValueError("phi and plo must share one stride")
-    _check(fvalid, "fvalid", torch.bool, 1, dev)
+    if gate is None:
+        _check(fvalid, "fvalid", torch.bool, 1, dev)
     cc = 0
     if ring is not None:
         _check(ring, "ring", torch.int64, 1, dev)
@@ -291,63 +376,64 @@ def _step_args(model, frontier, ebits, fvalid, phi, plo, ring, ws,
     if (ws.ring_arena.shape[0] < cc or ws.disc_cand.shape[0] < n_props
             or ws.disc_cand.device != dev):
         raise ValueError("workspace does not match this ring or model")
-    ws.step += 1
+    geo = tile_geometry(f, n_actions, sm_count(dev))
+    if bufs is None:
+        bufs = step_buffers(model, f, stats_len, symmetry, dev, geo.blocks)
+    elif (bufs["inserted"].shape[0] < lanes
+          or bufs["n_claims"].shape[0] < geo.blocks
+          or bufs["stats"].shape[0] != stats_len
+          or (bufs["ohi"] is bufs["chi"]) == symmetry):
+        raise ValueError("step buffers do not fit this step")
+    if gate is None:
+        ws.step += 1
     masks = property_masks(model)
     pcols = max(n_props, 1)
-    pbits = torch.empty((f, pcols), dtype=torch.bool, device=dev)
-    ebits_out = torch.empty((f,), dtype=torch.int32, device=dev)
-    terminal = torch.empty((f,), dtype=torch.bool, device=dev)
-    flat = torch.empty((lanes, w), dtype=torch.int32, device=dev)
-    chi = torch.empty((lanes,), dtype=torch.int32, device=dev)
-    clo = torch.empty((lanes,), dtype=torch.int32, device=dev)
-    if symmetry:
-        ohi = torch.empty((lanes,), dtype=torch.int32, device=dev)
-        olo = torch.empty((lanes,), dtype=torch.int32, device=dev)
-    else:
-        ohi, olo = chi, clo
-    cvalid = torch.empty((lanes,), dtype=torch.bool, device=dev)
-    dvalid = torch.empty((lanes,), dtype=torch.bool, device=dev)
-    inserted = torch.empty((lanes,), dtype=torch.bool, device=dev)
-    geo = tile_geometry(f, n_actions, sm_count(dev))
-    # K2's or K5's claims per tile, in the tile's own lane range, and
-    # their count per tile; the workspace keeps the counts of its last
-    # step (a diagnostic: their sum is the step's inserted lanes)
-    claims = torch.empty((lanes,), dtype=torch.int64, device=dev)
-    ws.n_claims = torch.empty((geo.blocks,), dtype=torch.int32, device=dev)
-    stats = torch.zeros((stats_len,), dtype=torch.int32, device=dev)
+    b = bufs
+    # the workspace keeps the claim counts of its last step (a
+    # diagnostic: their sum is the step's inserted lanes)
+    ws.n_claims = b["n_claims"]
     args = StepArgs(
         frontier=frontier.data_ptr(), fstride=frontier.stride(0),
         ebits=ebits.data_ptr(), estride=ebits.stride(0),
         phi=phi.data_ptr(), plo=plo.data_ptr(), pstride=phi.stride(0),
-        fvalid=fvalid.data_ptr(), F=f, A=n_actions, P=n_props,
+        fvalid=None if gate is not None else fvalid.data_ptr(), F=f,
+        A=n_actions, P=n_props,
         pcols=pcols, always_mask=masks[Expectation.ALWAYS],
         sometimes_mask=masks[Expectation.SOMETIMES],
-        ev_mask=masks[Expectation.EVENTUALLY], step=ws.step,
-        pbits=pbits.data_ptr(), ebits_out=ebits_out.data_ptr(),
-        terminal=terminal.data_ptr(), flat=flat.data_ptr(),
-        chi=chi.data_ptr(), clo=clo.data_ptr(),
-        ohi=ohi.data_ptr() if symmetry else None,
-        olo=olo.data_ptr() if symmetry else None, cvalid=cvalid.data_ptr(),
-        dvalid=dvalid.data_ptr(), inserted=inserted.data_ptr(),
-        claims=claims.data_ptr(), n_claims=ws.n_claims.data_ptr(),
-        stats=stats.data_ptr(),
+        ev_mask=masks[Expectation.EVENTUALLY],
+        step=0 if gate is not None else ws.step,
+        pbits=b["pbits"].data_ptr(), ebits_out=b["ebits_out"].data_ptr(),
+        terminal=b["terminal"].data_ptr(), flat=b["flat"].data_ptr(),
+        chi=b["chi"].data_ptr(), clo=b["clo"].data_ptr(),
+        ohi=b["ohi"].data_ptr() if symmetry else None,
+        olo=b["olo"].data_ptr() if symmetry else None,
+        cvalid=b["cvalid"].data_ptr(),
+        dvalid=b["dvalid"].data_ptr(), inserted=b["inserted"].data_ptr(),
+        claims=b["claims"].data_ptr(), n_claims=b["n_claims"].data_ptr(),
+        stats=b["stats"].data_ptr(),
         max_rounds=4096, cc=cc, ring=ring.data_ptr() if cc else None,
         ring_arena=ws.ring_arena.data_ptr(),
         disc_cand=ws.disc_cand.data_ptr(),
-        tile=TileGeometry(*geo),
+        tile=TileGeometry(*geo), gate=gate, gate_size=gate_size,
         stream=torch.cuda.current_stream(dev).cuda_stream)
-    outputs = (pbits, ebits_out, terminal, flat, chi, clo, cvalid, dvalid,
-               inserted, stats, ohi, olo)
+    outputs = (b["pbits"][:f], b["ebits_out"][:f], b["terminal"][:f],
+               b["flat"][:lanes], b["chi"][:lanes], b["clo"][:lanes],
+               b["cvalid"][:lanes], b["dvalid"][:lanes],
+               b["inserted"][:lanes], b["stats"], b["ohi"][:lanes],
+               b["olo"][:lanes])
     return params, outputs, args
 
 
 def fused_step(model, frontier, ebits, fvalid, phi, plo, table, ring, ws,
-               stats_len: int, symmetry: bool = False):
+               stats_len: int, symmetry: bool = False, bufs=None,
+               gate=None, gate_size: int = 0):
     """Launch K1-K3 for one step; returns the output tensors
     ``(pbits, ebits, terminal, flat, chi, clo, cvalid, dvalid, inserted,
     stats, ohi, olo)``. ``table`` and ``ring`` are updated in place.
     ``symmetry`` launches the symmetric instantiation (canonical keys in
-    ``chi``/``clo``, the children's own fingerprints in ``ohi``/``olo``)."""
+    ``chi``/``clo``, the children's own fingerprints in ``ohi``/``olo``).
+    ``bufs``, ``gate`` and ``gate_size``: a chunk's launch (see
+    :func:`_step_args`)."""
     build()
     lib = _LIB["fused_step"]
     dev = frontier.device
@@ -358,18 +444,19 @@ def fused_step(model, frontier, ebits, fvalid, phi, plo, table, ring, ws,
     ws.check(capacity, 0 if ring is None else ring.shape[0],
              len(model.properties()), dev)
     params, outputs, args = _step_args(model, frontier, ebits, fvalid, phi,
-                                       plo, ring, ws, stats_len, symmetry)
+                                       plo, ring, ws, stats_len, symmetry,
+                                       bufs, gate, gate_size)
     args.keys = table.data_ptr()
     args.n_buckets = table.shape[0]
     args.owner = ws.owner.data_ptr()
     if symmetry:
         _raise_on(lib.srt_fused_step_twopc_sym(ctypes.byref(args), *params),
                   "symmetric fused step")
-        LAUNCHES["fused_step_sym"] += 1
+        _count("fused_step_sym")
     else:
         _raise_on(lib.srt_fused_step_twopc(ctypes.byref(args), *params),
                   "fused step")
-        LAUNCHES["fused_step"] += 1
+        _count("fused_step")
     return outputs
 
 
@@ -393,11 +480,11 @@ def fused_step_noprobe(model, frontier, ebits, fvalid, phi, plo, ring, ws,
         _raise_on(lib.srt_dedup_step_twopc_sym(ctypes.byref(dargs),
                                                *params),
                   "symmetric probe-free step")
-        LAUNCHES["fused_step_noprobe_sym"] += 1
+        _count("fused_step_noprobe_sym")
     else:
         _raise_on(lib.srt_dedup_step_twopc(ctypes.byref(dargs), *params),
                   "probe-free step")
-        LAUNCHES["fused_step_noprobe"] += 1
+        _count("fused_step_noprobe")
     return outputs
 
 
@@ -458,7 +545,7 @@ def probe_block(table, fhi, flo, valid, ws, max_rounds: int):
                                    "owner-side probe", table, fhi, flo,
                                    valid, ws, max_rounds)
     ws.insert_stats = stats
-    LAUNCHES["probe_block"] += 1
+    _count("probe_block")
     return inserted, stats[S_OVF] > 0, stats[S_ROUNDS]
 
 
@@ -476,9 +563,133 @@ def table_insert(table, fhi, flo, valid, ws, max_rounds: int,
     inserted, stats = _flat_insert("fused_step", "srt_table_insert",
                                    "table insert", table, fhi, flo, valid,
                                    ws, max_rounds, mask)
-    LAUNCHES["table_insert"] += 1
+    _count("table_insert")
     host = stats.tolist()
     if host[S_FAULT]:
         raise RuntimeError("the insert kernel found a claim without this "
                            "call's owner word (S_FAULT)")
     return inserted, bool(host[S_OVF]), int(host[S_ROUNDS])
+
+
+# --- the chunk (csrc/chunk.cu) -----------------------------------------
+
+def append_blocks(lanes: int) -> int:
+    """K7's blocks over ``lanes`` lanes."""
+    return max(1, -(-lanes // APPEND_LANES))
+
+
+def chunk_args(*, ctr, bufs, q, log, blk_cnt, qlimit: int, n_props: int,
+               width: int, n_actions: int, f_small: int, f_large: int,
+               ext: int, recent: int, cch: int) -> ChunkArgs:
+    """The ``ChunkArgs`` of a chunk on the card: the counter block
+    ``ctr`` (int32, its layout from ``ext``, ``recent`` and ``cch``),
+    the step buffers ``bufs`` (:func:`step_buffers` at ``f_large`` rows,
+    shared by both sizes; ``f_small`` 0: one size), the queue ``q``
+    (int32 ``[qcap, width + 3]``) and log (int32 ``[cap, 4 or 6]``), K7's
+    block counts ``blk_cnt`` and ``qlimit``, the most ``q_tail`` may be
+    before an iteration. The stream is set at each launch."""
+    dev = ctr.device
+    lanes = f_large * n_actions
+    _check(ctr, "ctr", torch.int32, 1, dev)
+    _check(q, "q", torch.int32, 2, dev)
+    _check(log, "log", torch.int32, 2, dev)
+    _check(blk_cnt, "blk_cnt", torch.int32, 1, dev)
+    if q.shape[1] != width + 3 or log.shape[1] not in (4, 6):
+        raise ValueError("q must be [qcap, W+3] and log [cap, 4 or 6]")
+    # past ext: the port's seven fields, then the gate's six
+    if (ext + 13 > ctr.shape[0] or blk_cnt.shape[0] < append_blocks(lanes)
+            or bufs["inserted"].shape[0] < lanes
+            or bufs["inserted"].data_ptr() % 16
+            or not 0 <= f_small <= f_large):
+        raise ValueError("chunk buffers do not fit this chunk")
+    sym = log.shape[1] == 6
+    if sym == (bufs["ohi"] is bufs["chi"]):
+        raise ValueError("a 6-column log needs the symmetric step's "
+                         "ohi/olo, and only it")
+    return ChunkArgs(
+        ctr=ctr.data_ptr(), stats=bufs["stats"].data_ptr(),
+        inserted=bufs["inserted"].data_ptr(), flat=bufs["flat"].data_ptr(),
+        ebits=bufs["ebits_out"].data_ptr(), chi=bufs["chi"].data_ptr(),
+        clo=bufs["clo"].data_ptr(),
+        ohi=bufs["ohi"].data_ptr() if sym else None,
+        olo=bufs["olo"].data_ptr() if sym else None,
+        q=q.data_ptr(), log=log.data_ptr(), blk_cnt=blk_cnt.data_ptr(),
+        qlimit=qlimit, P=n_props, W=width, A=n_actions,
+        log_cols=log.shape[1], stats_len=bufs["stats"].shape[0],
+        f_small=f_small, f_large=f_large, ext=ext, recent=recent, cch=cch)
+
+
+def _chunk_launch(entry: str, name: str, what: str, args: ChunkArgs,
+                  device, *ints) -> None:
+    build()
+    args.stream = torch.cuda.current_stream(device).cuda_stream
+    _raise_on(getattr(_LIB["chunk"], entry)(ctypes.byref(args), *ints),
+              what)
+    _count(name)
+
+
+def chunk_begin(args: ChunkArgs, device, steps: int, target: int,
+                grow_limit: int, tag: int) -> None:
+    """Launch the chunk's start: its ``steps``, ``target`` (the
+    generated-transitions budget), ``grow_limit`` and first step ``tag``
+    into the counter block, and the per-chunk counters zeroed."""
+    _chunk_launch("srt_chunk_begin", "chunk_begin", "chunk begin", args,
+                  device, steps, target, grow_limit, tag)
+
+
+def chunk_gate(args: ChunkArgs, device) -> None:
+    """Launch an iteration's gate: the step's stats vector zeroed, the
+    loop condition on the counters, the step size, window and tag."""
+    _chunk_launch("srt_chunk_gate", "chunk_gate", "chunk gate", args,
+                  device)
+
+
+def append(args: ChunkArgs, device) -> None:
+    """Launch K7 (its count and its write launch) over the step the gate
+    picked: the inserted lanes' queue and log rows in lane order at the
+    gate's q_tail and log_n, then the carry update."""
+    _chunk_launch("srt_append", "append", "append", args, device)
+
+
+class ChunkGraph:
+    """One loop iteration captured as a CUDA graph: ``record()`` (the
+    wrappers' launches on the current stream) runs once inside the
+    capture, on a side stream of ``device``, and the capture raises if it
+    fails; every :meth:`replay` launches the graph on the current stream,
+    raises if the launch fails, and adds the launches each wrapper
+    recorded to ``LAUNCHES``. The kernels must have been launched once
+    before (a launch outside the capture loads them and sets their
+    attributes). Nothing is allocated inside the capture, so the capture
+    neither collects garbage nor empties torch's allocator cache, as
+    ``torch.cuda.graph`` would."""
+
+    def __init__(self, record, device):
+        global _CAPTURED
+        self.graph = torch.cuda.CUDAGraph()
+        stream = torch.cuda.Stream(device)
+        stream.wait_stream(torch.cuda.current_stream(device))
+        _CAPTURED = {}
+        try:
+            with torch.cuda.stream(stream):
+                self.graph.capture_begin(capture_error_mode="relaxed")
+                try:
+                    record()
+                except BaseException:
+                    try:  # end the capture; the launch error is the news
+                        self.graph.capture_end()
+                    except RuntimeError:
+                        pass
+                    raise
+                self.graph.capture_end()
+            self.counts = dict(_CAPTURED)
+        finally:
+            _CAPTURED = None
+        torch.cuda.current_stream(device).wait_stream(stream)
+        if not self.counts:
+            raise RuntimeError("the chunk's graph captured no launch")
+
+    def replay(self, times: int) -> None:
+        for _ in range(times):
+            self.graph.replay()
+        for name, n in self.counts.items():
+            LAUNCHES[name] += n * times

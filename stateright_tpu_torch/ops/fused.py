@@ -207,8 +207,10 @@ class StepWorkspace:
     ring arena, the discovery candidates, and the step counter that tags
     the owner words. The steps (K2/K3) and the masked flat inserts into
     the same table (K4 when its mask is asked for, K6 on a sharded slice)
-    share it, so one counter tags them all. One per table: growth makes
-    a new one."""
+    share it, so one counter tags them all; ``step`` is never below a
+    tag handed out (a chunk on the card takes its steps' tags from its
+    counter block, from ``step + 1``, and adds ``chunk_steps`` to it).
+    One per table: growth makes a new one."""
 
     def __init__(self, capacity: int, cc: int, n_props: int, device):
         self.owner = torch.full((capacity,), -1, dtype=torch.int64,

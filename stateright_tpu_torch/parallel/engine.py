@@ -43,8 +43,10 @@ _MESH_API = ("mesh_dim_names", "size", "device_type", "get_group",
 class ShardedGpuChecker(GpuChecker):
     """Fingerprint-prefix-sharded BFS over one DeviceMesh dimension."""
 
-    _OPTIONS = GpuChecker._OPTIONS + ("mesh", "mesh_axis", "exchange",
-                                      "kb", "kraw", "kmax")
+    _OPTIONS = tuple(k for k in GpuChecker._OPTIONS if k != "pipeline") \
+        + ("mesh", "mesh_axis", "exchange", "kb", "kraw", "kmax")
+    #: the sharded loop stays a host loop: no chunk pipeline
+    _FIXED = {**GpuChecker._FIXED, "pipeline": False}
 
     def _resolve_device(self, opts: dict) -> torch.device:
         kind = self._mesh.device_type

@@ -18,7 +18,7 @@ from stateright_tpu.models import twopc as jtwopc  # noqa: E402
 from stateright_tpu.ops.fused import build_fused_block_fn  # noqa: E402
 from stateright_tpu.ops.hashtable import plan_insert_host  # noqa: E402
 from stateright_tpu_torch.checker.device_loop import (  # noqa: E402
-    LoopStats, carry_from_numpy, carry_to_numpy, run_loop)
+    B_GEN, carry_from_numpy, carry_to_numpy, run_chunk)
 from stateright_tpu_torch.models.twopc import TwoPhaseSys  # noqa: E402
 from stateright_tpu_torch.ops.fused import (  # noqa: E402
     S_CCH, S_DEDUP, S_DISC, S_INSERTED, S_OVF, S_ROUNDS, S_VALID, S_XOVF,
@@ -146,10 +146,9 @@ def test_chunk_continues_like_jax(mid):
         jnp.asarray(rhi), jnp.asarray(rlo), np.int32(2**31 - 1),
         np.int32(GROW_LIMIT), np.int32(0))
     jcarry = jax.device_get(jcarry)
-    gen = run_loop(TwoPhaseSys(n), port, fmax=fmax, steps=steps,
-                   grow_limit=GROW_LIMIT, target_remaining=2**31 - 1,
-                   stats=LoopStats())
-    assert gen == int(jcarry.gen)
+    counters = run_chunk(TwoPhaseSys(n), port, fmax=fmax, steps=steps,
+                         grow_limit=GROW_LIMIT, target_remaining=2**31 - 1)
+    assert int(counters[B_GEN]) == int(jcarry.gen)
     got = carry_to_numpy(port)
     for name in ("q_head", "q_tail", "log_n"):
         assert got[name] == int(getattr(jcarry, name)), name

@@ -534,10 +534,9 @@ def test_claim_inserts_the_lowest_valid_lane_of_each_fresh_key(f, complete):
 def _mid_search(model, rows, symmetry, dev):
     """A real mid-search state of ``model`` on the card: the port's own
     loop run until at least ``rows`` rows are pending."""
-    from stateright_tpu_torch.checker.device_loop import (LoopStats,
-                                                          seed_carry,
-                                                          step_once)
-    from stateright_tpu_torch.ops.expand import FMAX_SMALL
+    from stateright_tpu_torch.checker.device_loop import (E_ITERS,
+                                                          run_chunk,
+                                                          seed_carry)
     from stateright_tpu_torch.ops.hashtable import table_insert
     from stateright_tpu_torch.ops.words import from_numpy_u32
     init = model.init_states()[0]
@@ -550,12 +549,12 @@ def _mid_search(model, rows, symmetry, dev):
                  from_numpy_u32(np.array([fp & 0xFFFFFFFF], np.uint32),
                                 dev),
                  torch.ones((1,), dtype=torch.bool, device=dev))
-    stats = LoopStats()
+    # one iteration per chunk: the small step while at most FMAX_SMALL
+    # rows are pending, else one of ``rows`` rows
     while carry.q_tail - carry.q_head < rows:
-        avail = carry.q_tail - carry.q_head
-        assert avail, f"the search ended before a {rows}-row frontier"
-        step_once(model, carry, FMAX_SMALL if avail <= FMAX_SMALL
-                  else rows, stats)
+        c = run_chunk(model, carry, fmax=rows, steps=1)
+        assert c[carry.layout.ext + E_ITERS], \
+            f"the search ended before a {rows}-row frontier"
     return carry
 
 
@@ -783,3 +782,210 @@ def test_insert_over_several_launch_ranges_keeps_the_lowest_lane():
     want[first] = True
     assert bool(want[half:].any())  # some lowest valid lanes lie late
     assert torch.equal(ik, want)
+
+
+# --- the chunk on the card (csrc/chunk.cu) ---------------------------------
+
+APPEND_CASES = [(d, s, e) for d in (0.0, 0.01, 0.5, 1.0)
+                for s in (False, True) for e in (False, True)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize(
+    "density,symmetry,near_end", APPEND_CASES,
+    ids=[f"d{d}-{'sym' if s else 'plain'}-{'end' if e else 'mid'}"
+         for d, s, e in APPEND_CASES])
+def test_append_matches_plain_version_on_random_masks(density, symmetry,
+                                                      near_end):
+    """K7 against ``append_reference`` on random words and a random
+    inserted mask over several of its blocks, for the large and the small
+    step size, at the end of the queue and log and inside them: the
+    counter block, queue and log bit for bit."""
+    _need_card()
+    from stateright_tpu_torch.checker.device_loop import (
+        B_DISC, B_LOG_N, B_Q_HEAD, B_Q_TAIL, E_GATE, E_STEPS, G_LEN,
+        CtrLayout, append_reference)
+    from stateright_tpu_torch.ops import _cuda
+    from stateright_tpu_torch.ops.fused import (S_DISC, S_INSERTED,
+                                                S_VALID, FusedOut)
+    from stateright_tpu_torch.ops.words import from_numpy_u32
+    dev = torch.device("cuda")
+    rng = np.random.default_rng([int(density * 100), symmetry, near_end])
+    f_small, f_large, a, w, n_props = 96, 300, 37, 4, 3
+    lay = CtrLayout(n_props, w)
+    lc = 6 if symmetry else 4
+    for size, f in ((2, f_large), (1, f_small)):
+        lanes_l = f_large * a
+        lanes = f * a
+        qcap, logcap = 4 * lanes_l, 3 * lanes_l
+
+        def words(*shape):
+            return from_numpy_u32(rng.integers(
+                0, 2**32, size=shape, dtype=np.uint64).astype(np.uint32),
+                dev)
+
+        bufs = _cuda.step_buffers(TwoPhaseSys(7), f_large, S_DISC + 3 *
+                                  n_props, symmetry, dev, 1)
+        for name in ("flat", "chi", "clo", "ohi", "olo", "ebits_out"):
+            bufs[name].copy_(words(*bufs[name].shape))
+        bufs["inserted"].copy_(torch.from_numpy(
+            rng.random(lanes_l) < density))
+        cnt = int(bufs["inserted"][:lanes].sum())
+        st = np.zeros(S_DISC + 3 * n_props, np.int64)
+        st[S_VALID], st[S_INSERTED] = lanes, cnt
+        st[S_DISC + 1], st[S_DISC + n_props + 1] = 1, 77
+        bufs["stats"].copy_(torch.from_numpy(st.astype(np.int32)))
+        q, log = words(qcap, w + 3), words(logcap, lc)
+        head = lanes_l // 3
+        qbase = qcap - lanes_l if near_end else head + f + 5
+        lbase = logcap - lanes_l if near_end else 17
+        ctr = torch.zeros((lay.length,), dtype=torch.int32, device=dev)
+        ctr[B_Q_HEAD], ctr[B_Q_TAIL], ctr[B_LOG_N] = head, qbase, lbase
+        ctr[B_DISC] = 1
+        ctr[lay.ext + E_STEPS] = 9
+        ctr[lay.ext + E_GATE:lay.ext + E_GATE + G_LEN] = torch.tensor(
+            [size, head, f - 3, 5, qbase, lbase], dtype=torch.int32)
+        blk = torch.zeros((_cuda.append_blocks(lanes_l),),
+                          dtype=torch.int32, device=dev)
+        start = (ctr.clone(), q.clone(), log.clone())
+        args = _cuda.chunk_args(
+            ctr=ctr, bufs=bufs, q=q, log=log, blk_cnt=blk,
+            qlimit=qcap - lanes_l, n_props=n_props, width=w, n_actions=a,
+            f_small=f_small, f_large=f_large, ext=lay.ext,
+            recent=lay.recent, cch=lay.cch)
+        _cuda.append(args, dev)
+        got = (ctr.clone(), q.clone(), log.clone())
+        ctr.copy_(start[0])
+        q.copy_(start[1])
+        log.copy_(start[2])
+        out = FusedOut(
+            pbits=None, ebits=bufs["ebits_out"][:f], terminal=None,
+            flat=bufs["flat"][:lanes], chi=bufs["chi"][:lanes],
+            clo=bufs["clo"][:lanes], cvalid=None, dvalid=None,
+            inserted=bufs["inserted"][:lanes], stats=bufs["stats"],
+            ohi=bufs["ohi"][:lanes], olo=bufs["olo"][:lanes])
+        append_reference(ctr, lay, q, log, out, a)
+        for name, x, y in zip(("ctr", "q", "log"), got, (ctr, q, log)):
+            assert torch.equal(x, y), (size, name)
+        assert int(ctr[B_Q_TAIL]) == qbase + cnt
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,symmetry,f", [(7, False, 12288), (7, False, 256),
+                                          (16, True, 12288)],
+                         ids=["2pc7-f12288", "2pc7-f256", "2pc16-ref"])
+def test_append_matches_plain_version_after_a_real_step(n, symmetry, f):
+    """The gate and the gated step (K1-K3) of a real mid-search
+    iteration, then K7 or ``append_reference`` from the same state: the
+    counters, queue and log rows bit for bit, its count the step's."""
+    _need_card()
+    from stateright_tpu_torch.checker.device_loop import (
+        B_Q_TAIL, E_FAULT, E_GATE, G_SIZE, I32_MAX, ChunkRunner,
+        append_reference)
+    from stateright_tpu_torch.ops.fused import S_INSERTED
+    model = TwoPhaseSys(n)
+    dev = torch.device("cuda")
+    carry = _mid_search(model, 12288, symmetry, dev)
+    lay = carry.layout
+    card = ChunkRunner(model, carry, f).card()
+    carry.ws.step += 1
+    card.begin(1, I32_MAX, I32_MAX, carry.ws.step)
+    card.launch_gate()
+    card.launch_steps()
+    size = int(carry.ctr[lay.ext + E_GATE + G_SIZE])
+    assert size == 2
+    out = card.outputs(size)
+    start = (carry.ctr.clone(), carry.q.clone(), carry.log.clone())
+    card.launch_append()
+    got = (carry.ctr.clone(), carry.q.clone(), carry.log.clone())
+    carry.ctr.copy_(start[0])
+    carry.q.copy_(start[1])
+    carry.log.copy_(start[2])
+    append_reference(carry.ctr, lay, carry.q, carry.log, out,
+                     model.max_actions)
+    for x, y in zip(got, (carry.ctr, carry.q, carry.log)):
+        assert torch.equal(x, y)
+    cnt = int(out.inserted.sum())
+    assert cnt == int(out.stats[S_INSERTED]) > 0
+    assert int(got[0][B_Q_TAIL]) - int(start[0][B_Q_TAIL]) == cnt
+    assert int(got[0][lay.ext + E_FAULT]) == 0
+
+
+def _record(ck):
+    ck.generated_fingerprints()  # pulls the mirror
+    return list(ck._generated.items())
+
+
+@pytest.mark.gpu
+def test_graph_replays_across_a_growth():
+    """The iteration graph is captured again after each growth (new
+    buffers): a run from a 2**10-slot table at 16-row steps grows, and
+    its search record is the non-growing run's row for row (the card's
+    lowest-lane winner rule does not depend on the table's layout, nor
+    the record on where chunks end)."""
+    _need_card()
+    opts = dict(fmax=16, chunk_steps=4, cc_dedup=64)
+    grown = TwoPhaseSys(5).checker().gpu_options(
+        capacity=1 << 10, **opts).spawn_gpu().join()
+    flat = TwoPhaseSys(5).checker().gpu_options(
+        capacity=1 << 16, **opts).spawn_gpu().join()
+    plain = _cpu(TwoPhaseSys(5), capacity=1 << 16, **opts)
+    pg, pf = grown.profile(), flat.profile()
+    assert pg["grows"] == 2 and pf["grows"] == 0
+    assert pg["capture_s"] > pf["capture_s"] > 0
+    assert pg["graph_launches"] > 0 and pg["syncs"] == pg["chunks"]
+    assert _record(grown) == _record(flat)
+    assert grown.unique_state_count() == 8832
+    assert grown.state_count() == plain.state_count()
+    assert grown.generated_fingerprints() == plain.generated_fingerprints()
+    grown.assert_properties()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("chunk_steps", [1, 7, 64])
+def test_pipeline_on_card_repeats_the_record(chunk_steps):
+    """With the pipeline on and off, at any chunk size, the card finds
+    the same search record row for row, and the plain path's set."""
+    _need_card()
+    runs = [TwoPhaseSys(5).checker().gpu_options(
+        chunk_steps=chunk_steps, pipeline=p).spawn_gpu().join()
+        for p in (True, False)]
+    assert _record(runs[0]) == _record(runs[1])
+    for ck in runs:
+        prof = ck.profile()
+        assert prof["syncs"] == prof["chunks"] \
+            <= -(-prof["iterations"] // chunk_steps) + 2
+        assert ck.unique_state_count() == 8832
+
+
+@pytest.mark.gpu
+def test_tag_stays_monotone_across_chunks_and_inserts():
+    """The owner-word tag comes from the counter block: it grows by one
+    per step that runs, each chunk starts above every tag handed out
+    (chunks and the workspace's masked inserts share the counter), and no
+    step or insert faults."""
+    _need_card()
+    from stateright_tpu_torch.checker.device_loop import (
+        E_FAULT, E_ITERS, E_TAG, run_chunk)
+    from stateright_tpu_torch.ops.hashtable import table_insert
+    model = TwoPhaseSys(7)
+    dev = torch.device("cuda")
+    carry = _mid_search(model, 300, False, dev)
+    lay = carry.layout
+    rng = np.random.default_rng(3)
+    last = int(carry.ws.step)
+    for round_ in range(3):
+        first = carry.ws.step + 1
+        c = run_chunk(model, carry, fmax=12288, steps=4)
+        iters = int(c[lay.ext + E_ITERS])
+        assert iters > 0 and int(c[lay.ext + E_FAULT]) == 0
+        assert first > last
+        assert int(c[lay.ext + E_TAG]) == first + iters
+        assert carry.ws.step >= first + iters - 1
+        owner = carry.ws.owner[carry.ws.owner != -1]
+        tags = (~(owner >> 32)) & 0xFFFFFFFF
+        assert int(tags.max()) <= carry.ws.step
+        # a masked insert on the same workspace takes the next tag
+        hi, lo, valid, _t = _insert_batch(rng, 500, dev)
+        table_insert(carry.table, hi, lo, valid, ws=carry.ws)
+        last = int(carry.ws.step)

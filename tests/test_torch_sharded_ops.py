@@ -21,7 +21,7 @@ from stateright_tpu.ops.fused import (build_fused_block_fn,  # noqa: E402
                                       build_probe_block_fn)
 from stateright_tpu.parallel import sharded as jsh  # noqa: E402
 from stateright_tpu_torch.checker.device_loop import (  # noqa: E402
-    LoopStats, run_loop, seed_carry)
+    run_chunk, seed_carry)
 from stateright_tpu_torch.checker.gpu import candidate_sizes  # noqa: E402
 from stateright_tpu_torch.models.twopc import TwoPhaseSys  # noqa: E402
 from stateright_tpu_torch.ops import expand as texp  # noqa: E402
@@ -51,8 +51,7 @@ def _mid_search(n: int):
     table_insert_reference(
         carry.table, torch.tensor([fp >> 32]), torch.tensor([fp & 0xFFFFFFFF]),
         torch.ones((1,), dtype=torch.bool))
-    run_loop(model, carry, fmax=16, grow_limit=1 << 12,
-             target_remaining=2**31, stats=LoopStats(), steps=8)
+    run_chunk(model, carry, fmax=16, grow_limit=1 << 12, steps=8)
     return to_numpy_u32(carry.q[:carry.q_tail])
 
 

@@ -24,7 +24,7 @@ torch.set_num_threads(1)  # leave the other test workers their cores
 
 from stateright_tpu_torch import TwoPhaseSys  # noqa: E402
 from stateright_tpu_torch.checker.device_loop import (  # noqa: E402
-    LoopStats, seed_carry, step_once)
+    run_chunk, seed_carry)
 from stateright_tpu_torch.ops import _cuda  # noqa: E402
 from stateright_tpu_torch.ops.fused import fused_step_reference  # noqa: E402
 from stateright_tpu_torch.ops.hashtable import (  # noqa: E402
@@ -249,15 +249,14 @@ def _mid_search(model, fmax, steps, symmetry):
     init = model.init_states()[0]
     fp = model.fingerprint(model.representative(init) if symmetry
                            else init)
-    carry = seed_carry(model, 1 << 13, 1 << 12, [model.encode(init)], 0,
+    # the queue keeps one iteration's margin past its tail (fmax * A rows)
+    carry = seed_carry(model, 1 << 15, 1 << 12, [model.encode(init)], 0,
                        [fp], 1 << 8, "cpu", symmetry=symmetry)
     table_insert_reference(
         carry.table, from_numpy_u32(np.array([fp >> 32], np.uint32)),
         from_numpy_u32(np.array([fp & 0xFFFFFFFF], np.uint32)),
         torch.ones((1,), dtype=torch.bool))
-    stats = LoopStats()
-    for _ in range(steps):
-        step_once(model, carry, fmax, stats)
+    run_chunk(model, carry, fmax=fmax, steps=steps)
     assert carry.q_tail > carry.q_head
     return carry
 
