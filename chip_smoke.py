@@ -44,6 +44,25 @@ Phases, one JSON line each:
              and a second run's search record compared row for row; then
              2pc16 under complete symmetry (``e2e_sharded_sym``), held to
              the single-chip pins.
+7. models  — the other models end to end through the same entry points,
+             every launch count set to 0 before each run: IncrementLock(9)
+             (3,945,637 states, the full-width run: the JAX package's
+             counts and digest, both properties hold, at least two
+             growths: the table quadruples, 2**20 -> 2**22 -> 2**24),
+             PackedLinearEquation(2, 4, 7) from a 2**14-slot
+             table (65,536 states, no discovery; each growth recaptures
+             the chunk's graph), PackedLinearEquation(2, 10, 14) (its
+             ``solvable`` witness replays), Increment(7) and Increment(16)
+             with and without symmetry reduction (the ``fin``
+             counterexample replays, as long as the JAX package's), and
+             through the one-rank sharded engine IncrementLock(8)
+             (438,401), PackedLinearEquation(2, 4, 7), Increment(7) and
+             Increment(7) under symmetry. Before them (phase
+             ``kernels``) K1 of each new instantiation, with K2/K3 and
+             K5, at a real mid-search step (IncrementLock(9) and
+             Increment(16) with and without symmetry at 12,288 and 256
+             rows, PackedLinearEquation at 256: its frontier never holds
+             more), held to its plain version lane for lane.
 
 Then a ``kernels`` line (the contract's per-kernel record), the card's name
 and power limit from ``nvidia-smi``, and as the last line
@@ -55,9 +74,9 @@ checkout of the repository.
 
 runs the sharded engine across that many cards instead, one process per
 card on one NCCL group: 2pc n=7 with the bucketed exchange and with the
-ring, and 2pc n=16 under complete symmetry with the bucketed exchange,
-each held to the same counts, digest and witnesses on every rank (phase
-``e2e_ranks``). It needs that many cards.
+ring, 2pc n=16 under complete symmetry with the bucketed exchange, and
+IncrementLock(8), each held to the same counts, digest and witnesses on
+every rank (phase ``e2e_ranks``). It needs that many cards.
 """
 
 from __future__ import annotations
@@ -119,6 +138,35 @@ GENERATED_2PC16_REF = 23_296_759
 DIGEST_2PC16_REF = ("6284d610fdbea7532587dc7e1c5b8ad8"
                     "2fa2963c47f0b7651e44f9960eeaffc3")
 
+#: IncrementLock(n) full enumerations (both properties hold, so no run
+#: stops early): unique states, state_count() and the sha256 of the
+#: sorted fingerprints, from the JAX package's staged device engine on
+#: the CPU:
+#:   IncrementLock(n).checker().tpu_options(race=False, fused=False,
+#:       mode="device").spawn_tpu().join()
+#: A full enumeration's counts and set do not depend on the engine; the
+#: state graph is a tree, so state_count() equals the unique count.
+#: tests/test_torch_more_models.py::test_increment_lock_pins (slow) holds
+#: that run, and at n=8 the port's plain path, to both.
+PIN_LOCK9 = (3_945_637, 3_945_637,
+             "6fbe2180605bddc081d764732c4c2817"
+             "d7b550fbe76c14fcf1ffa10df3431713")
+PIN_LOCK8 = (438_401, 438_401,
+             "801d745277f0952a55f29a14065bc786"
+             "a7199cac78aaf7a82021d8a1ae56d138")
+#: the actions in the JAX package's witness of Increment(n)'s falsified
+#: ``fin`` at n = 7 and 16, with and without symmetry reduction (two
+#: reads, then both writes): ``len(ck.discovery("fin"))`` of
+#:   Increment(n).checker()[.symmetry_fn(model.representative)]
+#:       .tpu_options(race=False, fused=True, mode="device")
+#:       .spawn_tpu().join()
+#: A BFS finds a shortest witness whatever its engine's order, so the
+#: card's has this length too.
+FIN_LEN = 4
+#: the same for PackedLinearEquation(2, 10, 14)'s ``solvable`` (the JAX
+#: run's witness ends at (x, y) = (2, 1))
+SOLVABLE_LEN = 3
+
 #: HBM bandwidth of an H100 SXM (bytes/s) and its CUDA-core fp32 rate
 #: (operations/s): NVIDIA's published peaks at 700 W. The steps do 32-bit
 #: integer work, for which no peak is published beside these; it is
@@ -160,10 +208,25 @@ def kernel_name(symbol: str):
     return name
 
 
+def kernel_instance(symbol: str):
+    """The kernel a symbol names, K1 with its model's struct:
+    ``expand_kernel[TwoPcModel]``, ``expand_kernel_sym[IncrementModel]``
+    (mangled or demangled names)."""
+    name = kernel_name(symbol)
+    if name not in ("expand_kernel", "expand_kernel_sym"):
+        return name
+    m = re.search(r"expand_kernelI(\d+)", symbol)
+    if m:
+        model = symbol[m.end():m.end() + int(m.group(1))]
+    else:
+        m = re.search(r"expand_kernel<(\w+)", symbol)
+        model = m.group(1) if m else "?"
+    return f"{name}[{model}]"
+
+
 def ptxas_usage(log: str) -> dict:
-    """Registers and shared memory per kernel from ``-Xptxas -v`` (the
-    expand kernel is built into both libraries; the last one read is
-    kept)."""
+    """Registers and shared memory per kernel (each instantiation of K1
+    by its model) from ``-Xptxas -v`` of one library."""
     out, name = {}, None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line) \
@@ -173,7 +236,7 @@ def ptxas_usage(log: str) -> dict:
         m = re.search(r"Used (\d+) registers", line)
         if m and name:
             smem = re.search(r"(\d+) bytes smem", line)
-            out[kernel_name(name) or name] = {
+            out[kernel_instance(name) or name] = {
                 "registers": int(m.group(1)),
                 "smem_bytes": int(smem.group(1)) if smem else 0}
     return out
@@ -268,14 +331,19 @@ def device_times(fn, host_top: int = 0, before=None) -> dict:
 
 
 def mid_search_carry(model, device, symmetry: bool = False,
-                     rows: int = 12288):
+                     rows: int = 12288, pending: int = None,
+                     past_discoveries: bool = False):
     """A real mid-search state of ``model`` (2pc n=7, or n=16 under
-    symmetry reduction): the port's own loop run until at least ``rows``
-    rows are pending."""
+    symmetry reduction; the other models' at their kernels' checks): the
+    port's own loop run at ``rows`` rows per step until at least
+    ``pending`` (default ``rows``) rows are pending. A model whose every
+    property is soon discovered (Increment's ``fin``) would stop there:
+    ``past_discoveries`` clears the discovery flags after each step, so
+    the search goes on to a wide frontier."""
     import numpy as np
     import torch
 
-    from stateright_tpu_torch.checker.device_loop import (E_ITERS,
+    from stateright_tpu_torch.checker.device_loop import (B_DISC, E_ITERS,
                                                           run_chunk,
                                                           seed_carry)
     from stateright_tpu_torch.ops.hashtable import table_insert
@@ -295,11 +363,14 @@ def mid_search_carry(model, device, symmetry: bool = False,
     # one iteration per chunk: the small step while at most FMAX_SMALL
     # rows are pending, else one of ``rows`` rows (the loop condition
     # also keeps the queue's margin)
-    while carry.q_tail - carry.q_head < rows:
+    want = rows if pending is None else pending
+    while carry.q_tail - carry.q_head < want:
         c = run_chunk(model, carry, fmax=rows, steps=1)
         if not c[carry.layout.ext + E_ITERS]:
-            raise RuntimeError(f"the search ended before a {rows}-row "
+            raise RuntimeError(f"the search ended before a {want}-row "
                                "frontier")
+        if past_discoveries:
+            carry.ctr[B_DISC:B_DISC + carry.layout.P] = 0
     return carry
 
 
@@ -421,11 +492,19 @@ def kernel_parts(model, f: int, symmetry: bool, cc: int, by_kernel,
 
 
 def step_ops(model, symmetry: bool) -> int:
-    """Integer operations per lane of K1: ~120 for the successor and its
-    fingerprint, and under symmetry ~120 more: the lane's RM moved within
-    its row's representative (the row's counting sort, shared by its
-    lanes, adds a few per lane) and the second fingerprint."""
-    return 120 + (120 if symmetry else 0)
+    """Integer operations per lane of K1: ~20 for the successor and ~25
+    per packed word for its fingerprint (~120 at 2pc's four words), and
+    under symmetry as many again: the lane's changed field moved within
+    its row's representative (the row's sort, shared by its lanes, adds
+    a few per lane; Increment's move picks each of its n thread words,
+    ~5 operations apiece) and the second fingerprint."""
+    from stateright_tpu_torch import Increment
+
+    ops = 20 + 25 * model.packed_width
+    if symmetry:
+        ops += 20 + 25 * model.packed_width + (
+            5 * model.n if isinstance(model, Increment) else 0)
+    return ops
 
 
 def block_args(model, carry, f: int, pfp=None):
@@ -1345,8 +1424,261 @@ def mirror_vs_plain(card) -> dict:
         "first_row_differing": first, "cpu_wall_s": cpu_wall}
 
 
-#: the runs of ``--ranks``: (exchange, 2pc n, complete symmetry or None)
-RANK_CASES = (("bucket", 7, None), ("ring", 7, None), ("bucket", 16, True))
+#: K1's new instantiations at a real mid-search step: (label, model
+#: class, its arguments, symmetry, the step sizes, pending rows for the
+#: search to reach, whether it goes on past its discoveries). The kernels phase
+#: checks each size through both step entry points (K1-K3 and K1 + K5).
+#: PackedLinearEquation's frontier never holds more than 256 rows (a
+#: BFS level is one diagonal x + y = d), so the loop only takes its
+#: 256-row step.
+MODEL_STEPS = (
+    ("increment_lock", "IncrementLock", (9,), False, (12288, 256), 12288,
+     False),
+    ("lineq", "PackedLinearEquation", (2, 4, 7), False, (256,), 200, False),
+    ("increment", "Increment", (16,), False, (12288, 256), 12288, True),
+    ("increment", "Increment", (16,), True, (12288, 256), 12288, True),
+)
+
+
+def _models() -> dict:
+    from stateright_tpu_torch import (Increment, IncrementLock,
+                                      PackedLinearEquation)
+    return {"Increment": Increment, "IncrementLock": IncrementLock,
+            "PackedLinearEquation": PackedLinearEquation}
+
+
+def check_model_steps(device) -> dict:
+    """K1 of each new instantiation (with K2/K3 and with K5) at a real
+    mid-search step of its model (``MODEL_STEPS``), held to the plain
+    version by ``check_step`` and ``check_noprobe``; one ``kernels`` line
+    each. Returns the results by (step kernel, label, F)."""
+    out = {}
+    for label, cls, args, symmetry, sizes, pending, past in MODEL_STEPS:
+        model = _models()[cls](*args)
+        carry = mid_search_carry(model, device, symmetry=symmetry,
+                                 rows=max(sizes), pending=pending,
+                                 past_discoveries=past)
+        for f in sizes:
+            reps = 20 if f > 256 else 50
+            res = check_step(model, carry, f, reps, symmetry=symmetry)
+            kernel = "fused_step_sym" if symmetry else "fused_step"
+            out[kernel, label, f] = res
+            emit(phase="kernels", kernel=kernel, model=type(model).__name__,
+                 params=list(model.cuda_spec(symmetry)[1]), **res)
+            res, _ = check_noprobe(model, carry, f, reps, symmetry=symmetry)
+            kernel = ("fused_step_noprobe_sym" if symmetry
+                      else "fused_step_noprobe")
+            out[kernel, label, f] = res
+            emit(phase="kernels", kernel=kernel, model=type(model).__name__,
+                 params=list(model.cuda_spec(symmetry)[1]), **res)
+        del carry
+    return out
+
+
+def end_to_end_model(model, path_kernels, off_kernels=(), symmetry=False,
+                     want=None, holds=(), witness=None, **opts):
+    """One check of ``model`` through the user entry point, every launch
+    count set to 0 before it: each of ``path_kernels`` must have launched
+    and none of ``off_kernels``; ``want`` = (unique, state_count, digest)
+    pins the answer; the properties in ``holds`` have no discovery;
+    ``witness`` = (property, length): its discovery replays through the
+    host model, ends where the property's condition says it should (a
+    ``sometimes`` example satisfies it, an ``always`` counterexample
+    violates it) and has that many actions. Returns its measurements and
+    the checker."""
+    import torch
+
+    from stateright_tpu_torch.core import Expectation
+    from stateright_tpu_torch.ops import _cuda
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for key in _cuda.LAUNCHES:
+        _cuda.LAUNCHES[key] = 0
+    t0 = time.perf_counter()
+    builder = model.checker()
+    if symmetry:
+        builder = builder.symmetry_fn(model.representative)
+    if opts:
+        builder = builder.gpu_options(**opts)
+    ck = builder.spawn_gpu().join()
+    wall = time.perf_counter() - t0
+    launches = dict(_cuda.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    unique = ck.unique_state_count()
+    checks = {"launches": all(launches[k] > 0 for k in path_kernels)
+              and not any(launches[k] for k in off_kernels)}
+    digest = mirror_s = None
+    if want is not None:
+        t1 = time.perf_counter()
+        digest = fp_digest(ck.generated_fingerprints())
+        mirror_s = time.perf_counter() - t1
+        checks.update(unique=unique == want[0],
+                      generated=ck.state_count() == want[1],
+                      digest=digest == want[2])
+    for name in holds:
+        ck.assert_no_discovery(name)
+        checks[f"holds {name}"] = True
+    length = None
+    if witness is not None:
+        name, want_len = witness
+        path = ck.assert_any_discovery(name)  # replays or raises
+        prop = model.property(name)
+        reached = prop.condition(model, path.last_state())
+        checks[f"replay {name}"] = reached == (
+            prop.expectation == Expectation.SOMETIMES)
+        length = len(path)
+        checks["witness_length"] = length == want_len
+    prof = ck.profile()
+    shown = {k: (f"DeviceMesh {tuple(v.shape)} {v.device_type}"
+                 if k == "mesh" else v) for k, v in opts.items()}
+    label = (f"{type(model).__name__}"
+             f"({', '.join(str(p) for p in model.cache_key()[1:])})"
+             + (" under symmetry" if symmetry else ""))
+    if not all(checks.values()):
+        raise AssertionError(
+            f"{label} {shown or 'default'}: {checks} (unique {unique}, "
+            f"generated {ck.state_count()}, digest {digest}, witness "
+            f"{length}, launches {launches})")
+    keys = ("engine", "syncs", "iterations", "small_iterations", "grows",
+            "capacity", "loop_s", "sync_s", "seed_s", "shards", "exchange",
+            "collectives", "collectives_per_iteration", "kovfs", "aborts",
+            "kmax", "gather_s", "vmax", "dmax", "chunks", "sync_stall",
+            "capture_s", "captures", "graph_launches", "fmax")
+    return {"model": label, "options": shown, "wall_s": wall,
+            "unique": unique, "unique_per_s": unique / wall,
+            "generated": ck.state_count(), "digest": digest,
+            "mirror_and_digest_s": mirror_s, "witness_length": length,
+            **{k: prof[k] for k in keys if k in prof},
+            "max_memory_allocated": peak, "launches": launches,
+            "checks": checks}, ck
+
+
+def models_phase(mesh) -> dict:
+    """Phase ``models``: the other models end to end on the card (see
+    the module docstring); ``mesh`` is the one-rank NCCL mesh of the
+    sharded runs. Returns each run's launch counts by label."""
+    m = _models()
+    chunk = ("chunk_begin", "chunk_gate", "append")
+    single = ("fused_step", "table_insert") + chunk
+    single_off = ("fused_step_sym", "fused_step_noprobe",
+                  "fused_step_noprobe_sym", "probe_block")
+    single_sym = ("fused_step_sym", "table_insert") + chunk
+    sym_off = ("fused_step", "fused_step_noprobe", "fused_step_noprobe_sym",
+               "probe_block")
+    sharded = ("fused_step_noprobe", "probe_block", "table_insert")
+    sharded_off = ("fused_step", "fused_step_sym",
+                   "fused_step_noprobe_sym") + chunk
+    sharded_sym = ("fused_step_noprobe_sym", "probe_block", "table_insert")
+    sharded_sym_off = ("fused_step", "fused_step_sym",
+                       "fused_step_noprobe") + chunk
+    lock9, _ck = end_to_end_model(m["IncrementLock"](9), single, single_off,
+                                  want=PIN_LOCK9, holds=("fin", "mutex"))
+    del _ck
+    # the table quadruples at each growth: 2**20 -> 2**22 -> 2**24 at
+    # grow_at 0.55 (576,716 and 2,306,867 log rows)
+    lock9["checks"]["growths"] = lock9["grows"] >= 2
+    emit(phase="models", **lock9)
+    runs = {"increment_lock": lock9}
+    lineq, _ck = end_to_end_model(m["PackedLinearEquation"](2, 4, 7),
+                                  single, single_off, holds=("solvable",),
+                                  capacity=1 << 14)
+    del _ck
+    lineq["checks"].update(
+        unique=lineq["unique"] == 65536, growths=lineq["grows"] >= 1,
+        recaptured=lineq["captures"] == lineq["grows"] + 1)
+    emit(phase="models", **lineq)
+    runs["lineq"] = lineq
+    res, _ck = end_to_end_model(m["PackedLinearEquation"](2, 10, 14),
+                                single, single_off,
+                                witness=("solvable", SOLVABLE_LEN))
+    emit(phase="models", **res)
+    for n in (7, 16):
+        res, _ck = end_to_end_model(m["Increment"](n), single, single_off,
+                                    witness=("fin", FIN_LEN))
+        emit(phase="models", **res)
+        runs["increment", n] = res
+        res, _ck = end_to_end_model(m["Increment"](n), single_sym, sym_off,
+                                    symmetry=True, witness=("fin", FIN_LEN))
+        emit(phase="models", **res)
+        runs["increment_sym", n] = res
+    del _ck
+    res, _ck = end_to_end_model(m["IncrementLock"](8), sharded, sharded_off,
+                                want=PIN_LOCK8, holds=("fin", "mutex"),
+                                mesh=mesh)
+    emit(phase="models_sharded", **res)
+    runs["sharded increment_lock"] = res
+    res, _ck = end_to_end_model(m["PackedLinearEquation"](2, 4, 7), sharded,
+                                sharded_off, holds=("solvable",),
+                                mesh=mesh)
+    res["checks"]["unique"] = res["unique"] == 65536
+    emit(phase="models_sharded", **res)
+    runs["sharded lineq"] = res
+    res, _ck = end_to_end_model(m["Increment"](7), sharded, sharded_off,
+                                witness=("fin", FIN_LEN), mesh=mesh)
+    emit(phase="models_sharded", **res)
+    runs["sharded increment"] = res
+    res, _ck = end_to_end_model(m["Increment"](7), sharded_sym,
+                                sharded_sym_off, symmetry=True,
+                                witness=("fin", FIN_LEN), mesh=mesh)
+    emit(phase="models_sharded", **res)
+    runs["sharded increment_sym"] = res
+    del _ck
+    failed = [label for label, r in runs.items()
+              if not all(r["checks"].values())]
+    if failed:
+        raise AssertionError(f"models phase: {failed}")
+    return runs
+
+
+def model_kernel_entries(steps: dict, runs: dict) -> list:
+    """The ``kernels`` line's records of K1's new instantiations: each
+    step kernel by model, with its launches on its model's run (the
+    single-chip runs for ``fused_step[_sym]``, the sharded ones for
+    ``fused_step_noprobe[_sym]``)."""
+    fused_src = "stateright_tpu_torch/csrc/fused_step.cu"
+    sharded_src = "stateright_tpu_torch/csrc/sharded_step.cu"
+    runs_of = {
+        ("fused_step", "increment_lock"): runs["increment_lock"],
+        ("fused_step", "lineq"): runs["lineq"],
+        ("fused_step", "increment"): runs["increment", 16],
+        ("fused_step_sym", "increment"): runs["increment_sym", 16],
+        ("fused_step_noprobe", "increment_lock"):
+            runs["sharded increment_lock"],
+        ("fused_step_noprobe", "lineq"): runs["sharded lineq"],
+        ("fused_step_noprobe", "increment"): runs["sharded increment"],
+        ("fused_step_noprobe_sym", "increment"):
+            runs["sharded increment_sym"],
+    }
+    out = []
+    for (kernel, label), run in runs_of.items():
+        by_f = {f: r for (k, lab, f), r in steps.items()
+                if k == kernel and lab == label}
+        main = by_f[max(by_f)]
+        probe = kernel in ("fused_step", "fused_step_sym")
+        out.append({
+            "name": f"{kernel}[{label}]", "route": "cuda",
+            "source": fused_src if probe else sharded_src,
+            "replaces": "stateright_tpu/ops/fused.py:259",
+            "configuration": ("symmetry=True, " if "sym" in kernel else "")
+            + ("probe=True" if probe else "probe=False (sharded step)"),
+            "model": run["model"],
+            "launches": run["launches"][kernel],
+            "max_abs_err": max(r["max_abs_err"] for r in by_f.values()),
+            "ms": main["ms"], "plain_ms": main["plain_ms"],
+            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+            "library_ms": None,
+            "by_rows": {f"f={f}": {k: r[k] for k in (
+                "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+                "max_abs_err", "parts")} for f, r in by_f.items()},
+            "status": "ok"})
+    return out
+
+
+#: the runs of ``--ranks``: (exchange, 2pc n or "lock8" for
+#: IncrementLock(8), complete symmetry or None)
+RANK_CASES = (("bucket", 7, None), ("ring", 7, None), ("bucket", 16, True),
+              ("bucket", "lock8", None))
 
 
 def rank_run(rank: int, world: int, init: str, out_dir: str,
@@ -1362,7 +1694,7 @@ def rank_run(rank: int, world: int, init: str, out_dir: str,
     from torch.distributed.device_mesh import init_device_mesh
 
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    from stateright_tpu_torch import TwoPhaseSys
+    from stateright_tpu_torch import IncrementLock, TwoPhaseSys
     from stateright_tpu_torch.ops import _cuda
 
     cuda = device_type == "cuda"
@@ -1386,7 +1718,8 @@ def rank_run(rank: int, world: int, init: str, out_dir: str,
                 torch.cuda.synchronize()
                 torch.cuda.reset_peak_memory_stats()
             t0 = time.perf_counter()
-            model = TwoPhaseSys(n, complete_symmetry=bool(complete))
+            model = (IncrementLock(8) if n == "lock8" else
+                     TwoPhaseSys(n, complete_symmetry=bool(complete)))
             builder = model.checker().gpu_options(mesh=mesh,
                                                   exchange=exchange)
             if complete is not None:
@@ -1394,11 +1727,15 @@ def rank_run(rank: int, world: int, init: str, out_dir: str,
             ck = builder.spawn_gpu().join()
             wall = time.perf_counter() - t0
             prof = ck.profile()
-            replay = {}
-            for prop in ("abort agreement", "commit agreement"):
-                path = ck.assert_any_discovery(prop)  # replays or raises
-                replay[prop] = bool(ck.model().property(prop).condition(
-                    ck.model(), path.last_state()))
+            if n == "lock8":  # both properties hold
+                replay = {prop: ck.discovery(prop) is None
+                          for prop in ("fin", "mutex")}
+            else:
+                replay = {}
+                for prop in ("abort agreement", "commit agreement"):
+                    path = ck.assert_any_discovery(prop)  # or raises
+                    replay[prop] = bool(ck.model().property(prop).condition(
+                        ck.model(), path.last_state()))
             runs.append({
                 "n": n, "symmetry": complete is not None,
                 "exchange": prof["exchange"], "wall_s": wall,
@@ -1463,7 +1800,8 @@ def ranks_main(world: int) -> int:
     for i, first in enumerate(ranks[0]):
         same = ("exchange", "unique", "generated", "digest", "replay",
                 "iterations", "rank_rows")
-        want = ((UNIQUE_2PC16_SYM, GENERATED_2PC16_SYM, DIGEST_2PC16_SYM)
+        want = (PIN_LOCK8 if first["n"] == "lock8" else
+                (UNIQUE_2PC16_SYM, GENERATED_2PC16_SYM, DIGEST_2PC16_SYM)
                 if first["symmetry"] else
                 (UNIQUE_2PC7, GENERATED_2PC7, DIGEST_2PC7))
         step = ("fused_step_noprobe_sym" if first["symmetry"]
@@ -1495,7 +1833,7 @@ def ranks_main(world: int) -> int:
                  "aborts", "kmax", "kb", "rank_rows", "dmax", "bmax")},
              checks=checks)
         if not all(checks.values()):
-            raise AssertionError(f"{world}-rank 2pc{first['n']}, "
+            raise AssertionError(f"{world}-rank {first['n']}, "
                                  f"{first['exchange']}: {checks}")
     for line in smi:
         print(line, flush=True)
@@ -1532,7 +1870,8 @@ def main() -> int:
 
     info = _cuda.build()
     emit(phase="build", seconds=info["seconds"], library=info["path"],
-         kernels=ptxas_usage(info["log"]))
+         kernels={lib: ptxas_usage(log)
+                  for lib, log in info["logs"].items()})
 
     model = TwoPhaseSys(7)
     carry = mid_search_carry(model, torch.device("cuda", 0))
@@ -1587,6 +1926,9 @@ def main() -> int:
             sym_models["reference"], carry16, f, reps)
         emit(phase="kernels", kernel="append", symmetry="reference", **res)
     del carry16
+    # K1's instantiations for the other models, at their real mid-search
+    # steps
+    model_steps = check_model_steps(torch.device("cuda", 0))
 
     chunk_kernels = ("chunk_begin", "chunk_gate", "append")
     single = ("fused_step", "table_insert") + chunk_kernels
@@ -1748,6 +2090,8 @@ def main() -> int:
         mesh=mesh)
     emit(phase="e2e_sharded_sym", **sh_sym)
     del _ck, _rec
+    # the other models end to end, on one card and on the one-rank mesh
+    model_runs = models_phase(mesh)
     dist.destroy_process_group()
 
     fused_src = "stateright_tpu_torch/csrc/fused_step.cu"
@@ -1854,6 +2198,7 @@ def main() -> int:
          "bound_by": control["bound_by"], "library_ms": None,
          "device_ms": control["begin_device_ms"], "status": "ok"},
     ]
+    kernels += model_kernel_entries(model_steps, model_runs)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     # the run uses one card, whatever the machine holds

@@ -144,6 +144,7 @@ class LoopStats:
     syncs: int = 0           # device->host copies of a chunk's counters
     sync_s: float = 0.0      # host seconds blocked on them (sync_stall)
     capture_s: float = 0.0   # host seconds capturing the iteration graph
+    captures: int = 0        # iteration graphs captured (one per carry)
     graph_launches: int = 0  # replays of the iteration graph
     iterations: int = 0
     small_iterations: int = 0
@@ -553,6 +554,7 @@ class ChunkRunner:
             card = self.carry.card = CardChunk(self.model, self.carry,
                                                self.fmax)
             self.stats.capture_s += card.capture_s
+            self.stats.captures += 1
         return card
 
     def dispatch(self, steps: int, target_remaining: int = I32_MAX,

@@ -407,7 +407,8 @@ class GpuChecker(HostChecker):
         prof.update(
             capacity=self._capacity, chunks=stats.chunks, syncs=stats.syncs,
             sync_s=stats.sync_s, sync_stall=stats.sync_s,
-            capture_s=stats.capture_s, graph_launches=stats.graph_launches,
+            capture_s=stats.capture_s, captures=stats.captures,
+            graph_launches=stats.graph_launches,
             iterations=stats.iterations,
             small_iterations=stats.small_iterations,
             vmax=stats.vmax, dmax=stats.dmax, cc_dedup_hits=stats.cch,

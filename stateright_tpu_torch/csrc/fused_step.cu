@@ -6,10 +6,15 @@
 // stateright_tpu/ops/fused.py:259 (build_fused_block_fn), in the
 // configurations the single-chip main path runs: probe=True, properties
 // in the kernel, cross-chunk ring on, without symmetry
-// (srt_fused_step_twopc) and with it (srt_fused_step_twopc_sym: K1's
-// symmetric instantiation keys each child on fp64(canon(child)) and
+// (srt_fused_step_<model>) and with it (srt_fused_step_<model>_sym:
+// K1's symmetric instantiation keys each child on fp64(canon(child)) and
 // writes fp64(child) to ohi/olo; K2 and K3 key on chi/clo either way, so
-// they dedup, claim and ring-cache canonical keys). Built with nvcc for
+// they dedup, claim and ring-cache canonical keys). The Pallas kernel
+// vmaps any packed model's step; here K1 is a template over the model's
+// device functions, instantiated for TwoPhaseSys (twopc.cuh, both
+// flags), PackedLinearEquation (lineq.cuh), Increment (increment.cuh,
+// both flags) and IncrementLock (increment_lock.cuh); K2 and K3 do not
+// depend on the model. Built with nvcc for
 // sm_90a into a shared library with a plain C interface and driven over
 // ctypes by stateright_tpu_torch/ops/_cuda.py. K4 replaces the XLA insert
 // stateright_tpu/ops/hashtable.py:71 (table_insert), not a pallas_call.
@@ -105,8 +110,19 @@
 // with their ring slots, since K2 already writes every lane's inserted =
 // 0. At the thin-frontier step (256 rows) the tiles shrink to one row per
 // block so the launch still spreads over the SMs; latency rules there.
+// The increment models' rows are n + 1 or n + 2 words (up to 18), a
+// runtime width within the row arrays' compile-time bound: K1 walks it
+// with guarded unrolled loops (registers, no local memory) and writes
+// each child as width strided words, so at IncrementLock(9) (11 words,
+// F = 12,288: ~5 MB of successors) and Increment(16) (17 words: ~13 MB)
+// the strided stores, not the bytes, set K1's time (7-10x its byte
+// bound on an H100, PERF.md).
 
+#include "increment.cuh"
+#include "increment_lock.cuh"
+#include "lineq.cuh"
 #include "step_common.cuh"
+#include "twopc.cuh"
 
 namespace {
 
@@ -239,8 +255,9 @@ int launch_step(const M& m, const StepArgs& a) {
 
 extern "C" {
 
-// One fused step for TwoPhaseSys(n). Returns cudaGetLastError() of the
-// launches (0 = launched); the caller raises on anything else.
+// One fused step for TwoPhaseSys(n). Each entry returns
+// cudaGetLastError() of the launches (0 = launched); the caller raises on
+// anything else.
 int srt_fused_step_twopc(const StepArgs* args, int n) {
   const TwoPcModel m(n);
   if (args->A != m.max_actions()) return (int)cudaErrorInvalidValue;
@@ -256,6 +273,41 @@ int srt_fused_step_twopc_sym(const StepArgs* args, int n, int complete) {
       args->olo == nullptr)
     return (int)cudaErrorInvalidValue;
   return launch_step<TwoPcModel, true>(m, *args);
+}
+
+// One fused step for PackedLinearEquation(a, b, c) (a and b as bytes, c
+// a byte or 256: models/packed.py PackedLinearEquation.cuda_spec).
+int srt_fused_step_lineq(const StepArgs* args, int a, int b, int c) {
+  const LinearEquationModel m(a, b, c);
+  if (args->A != m.max_actions()) return (int)cudaErrorInvalidValue;
+  return launch_step<LinearEquationModel, false>(m, *args);
+}
+
+// One fused step for Increment(n), 1 <= n <= 16.
+int srt_fused_step_increment(const StepArgs* args, int n) {
+  if (n < 1 || n > 16) return (int)cudaErrorInvalidValue;
+  const IncrementModel m(n);
+  if (args->A != m.max_actions()) return (int)cudaErrorInvalidValue;
+  return launch_step<IncrementModel, false>(m, *args);
+}
+
+// The same step under thread-permutation symmetry: dedup on the keys of
+// the sorted thread words, original fingerprints to ohi/olo.
+int srt_fused_step_increment_sym(const StepArgs* args, int n) {
+  if (n < 1 || n > 16) return (int)cudaErrorInvalidValue;
+  const IncrementModel m(n);
+  if (args->A != m.max_actions() || args->ohi == nullptr ||
+      args->olo == nullptr)
+    return (int)cudaErrorInvalidValue;
+  return launch_step<IncrementModel, true>(m, *args);
+}
+
+// One fused step for IncrementLock(n), 1 <= n <= 16.
+int srt_fused_step_increment_lock(const StepArgs* args, int n) {
+  if (n < 1 || n > 16) return (int)cudaErrorInvalidValue;
+  const IncrementLockModel m(n);
+  if (args->A != m.max_actions()) return (int)cudaErrorInvalidValue;
+  return launch_step<IncrementLockModel, false>(m, *args);
 }
 
 // K4, the stand-alone batched insert (seeding and growth): the flat

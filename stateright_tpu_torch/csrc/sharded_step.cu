@@ -7,9 +7,10 @@
 //     probe=False: expand, fingerprint, properties, in-batch pre-dedup,
 //     read-only cross-chunk ring probe; no visited table (children are
 //     routed to their owner rank before any table probe); without
-//     symmetry (srt_dedup_step_twopc) and with it
-//     (srt_dedup_step_twopc_sym: K1's symmetric instantiation, so K5
-//     dedups canonical keys and the owner is chosen by them);
+//     symmetry (srt_dedup_step_<model>) and with it
+//     (srt_dedup_step_<model>_sym: K1's symmetric instantiation, so K5
+//     dedups canonical keys and the owner is chosen by them), for the
+//     models of fused_step.cu;
 //   * stateright_tpu/ops/fused.py:526 build_probe_block_fn: the owner
 //     rank's probe/insert of the lanes it received in the exchange.
 // Built with nvcc for sm_90a into its own shared library with a plain C
@@ -91,7 +92,11 @@
 // symmetry only K1 changes (its symmetric instantiation; fused_step.cu
 // notes its bound).
 
+#include "increment.cuh"
+#include "increment_lock.cuh"
+#include "lineq.cuh"
 #include "step_common.cuh"
+#include "twopc.cuh"
 
 // Mirrored by ops/_cuda.py DedupArgs.
 struct DedupArgs {
@@ -193,7 +198,8 @@ int launch_dedup_step(const M& m, const DedupArgs& d) {
 }
 
 // The arena holds >= 2 cells per lane, so a linear probe ends.
-bool dedup_args_ok(const TwoPcModel& m, const DedupArgs& d) {
+template <class M>
+bool dedup_args_ok(const M& m, const DedupArgs& d) {
   const long long lanes = (long long)d.s.F * d.s.A;
   return d.s.A == m.max_actions() && tile_stage_ok(d.s.tile, d.s.F, d.s.A) &&
          d.cells >= 2 * lanes && (d.cells & (d.cells - 1)) == 0;
@@ -220,6 +226,40 @@ int srt_dedup_step_twopc_sym(const DedupArgs* args, int n, int complete) {
       args->s.olo == nullptr)
     return (int)cudaErrorInvalidValue;
   return launch_dedup_step<TwoPcModel, true>(m, *args);
+}
+
+// One probe-free step for PackedLinearEquation(a, b, c) (a and b as
+// bytes, c a byte or 256).
+int srt_dedup_step_lineq(const DedupArgs* args, int a, int b, int c) {
+  const LinearEquationModel m(a, b, c);
+  if (!dedup_args_ok(m, *args)) return (int)cudaErrorInvalidValue;
+  return launch_dedup_step<LinearEquationModel, false>(m, *args);
+}
+
+// One probe-free step for Increment(n), 1 <= n <= 16.
+int srt_dedup_step_increment(const DedupArgs* args, int n) {
+  if (n < 1 || n > 16) return (int)cudaErrorInvalidValue;
+  const IncrementModel m(n);
+  if (!dedup_args_ok(m, *args)) return (int)cudaErrorInvalidValue;
+  return launch_dedup_step<IncrementModel, false>(m, *args);
+}
+
+// The same step under thread-permutation symmetry.
+int srt_dedup_step_increment_sym(const DedupArgs* args, int n) {
+  if (n < 1 || n > 16) return (int)cudaErrorInvalidValue;
+  const IncrementModel m(n);
+  if (!dedup_args_ok(m, *args) || args->s.ohi == nullptr ||
+      args->s.olo == nullptr)
+    return (int)cudaErrorInvalidValue;
+  return launch_dedup_step<IncrementModel, true>(m, *args);
+}
+
+// One probe-free step for IncrementLock(n), 1 <= n <= 16.
+int srt_dedup_step_increment_lock(const DedupArgs* args, int n) {
+  if (n < 1 || n > 16) return (int)cudaErrorInvalidValue;
+  const IncrementLockModel m(n);
+  if (!dedup_args_ok(m, *args)) return (int)cudaErrorInvalidValue;
+  return launch_dedup_step<IncrementLockModel, false>(m, *args);
 }
 
 // K6, the owner-side probe of the received lanes against this rank's

@@ -16,9 +16,6 @@
 #include <cooperative_groups.h>
 #include <cstdint>
 #include <cuda_runtime.h>
-#include <type_traits>
-
-#include "twopc.cuh"
 
 namespace {
 
@@ -143,19 +140,24 @@ __device__ __forceinline__ uint32_t fmix32(uint32_t h) {
   return h;
 }
 
-// The fingerprint of stateright_tpu_torch/fingerprint.py fp64_words.
+// The fingerprint of stateright_tpu_torch/fingerprint.py fp64_words
+// over the first width words of w (width <= W; a runtime width is
+// walked by an unrolled, guarded loop, so w stays in registers): each
+// word mixed with its column key, the width mixed into the seeds.
 template <int W>
-__device__ __forceinline__ void fp64(const uint32_t (&w)[W], uint32_t& hi,
-                                     uint32_t& lo) {
+__device__ __forceinline__ void fp64(const uint32_t (&w)[W], int width,
+                                     uint32_t& hi, uint32_t& lo) {
   uint32_t h1 = 0, h2 = 0;
 #pragma unroll
   for (int i = 0; i < W; ++i) {
-    const uint32_t x = w[i] ^ fmix32((uint32_t)(i + 1) * kGolden);
-    h1 ^= fmix32(x * kC1_1);
-    h2 ^= fmix32(x * kC1_2);
+    if (i < width) {
+      const uint32_t x = w[i] ^ fmix32((uint32_t)(i + 1) * kGolden);
+      h1 ^= fmix32(x * kC1_1);
+      h2 ^= fmix32(x * kC1_2);
+    }
   }
-  h1 = fmix32(h1 ^ kSeed1 ^ (uint32_t)W);
-  h2 = fmix32(h2 ^ kSeed2 ^ ((uint32_t)W * kC1_1));
+  h1 = fmix32(h1 ^ kSeed1 ^ (uint32_t)width);
+  h2 = fmix32(h2 ^ kSeed2 ^ ((uint32_t)width * kC1_1));
   if (h1 == 0u && h2 == 0u) h2 = 1u;
   hi = h1;
   lo = h2;
@@ -276,20 +278,41 @@ __device__ __forceinline__ bool open_gate(StepArgs& a, int* take) {
 
 struct NoCanon {};
 
+// The row's representative state of a model under SYM (M::RowCanon),
+// else nothing: models without symmetry define no RowCanon.
+template <class M, bool SYM>
+struct CanonOf {
+  using type = NoCanon;
+};
+template <class M>
+struct CanonOf<M, true> {
+  using type = typename M::RowCanon;
+};
+
 // K1's per-row state in shared memory, written once per row (16-byte
 // aligned, so a lane reads its row's words as one vector load).
 template <class M, bool SYM>
 struct alignas(16) RowState {
-  uint32_t w[M::W];  // the frontier row
+  uint32_t w[M::W];  // the frontier row (its first m.width() words)
   uint32_t pb;       // property bits m.props(w)
   uint32_t eb;       // eventually-bits after the clear
   uint8_t fv;        // fvalid
   uint8_t valid;     // some lane of the row is a valid child
   uint8_t xovf;      // some lane of a valid row overflowed its encoding
   // SYM: the row's representative, carried to each child (canon_child)
-  std::conditional_t<SYM, typename M::RowCanon, NoCanon> rc;
+  typename CanonOf<M, SYM>::type rc;
 };
 
+// The model interface K1 takes (csrc/twopc.cuh, lineq.cuh,
+// increment.cuh, increment_lock.cuh): M::W, the words of a row array;
+// m.width(), the words of the state (at most W: a runtime width, n + 1
+// or n + 2 for the increment models, is walked by unrolled loops
+// guarded by it, so the row arrays stay in registers); m.step(w, act,
+// s, ovf), the successor of row w under action lane act and whether it
+// is enabled; m.props(w), the property bits; under SYM M::RowCanon,
+// m.row_canon(w, rc) once per row and m.canon_child(rc, w, act, s, c),
+// the representative of the child s.
+//
 // K1. One thread per lane over block tiles of whole rows (a.tile):
 // one thread per row loads the row, its fvalid and ebits and evaluates
 // the properties (under SYM also the row's representative, m.row_canon)
@@ -319,6 +342,7 @@ __global__ void expand_kernel(M m, StepArgs a) {
   const long long nthreads = (long long)gridDim.x * blockDim.x;
   for (long long i = tid; i < a.cc; i += nthreads) a.ring_arena[i] = ~0ull;
   const int A = a.A;
+  const int width = m.width();
   const long long row0 = (long long)blockIdx.x * a.tile.rows;
   const int nrows =
       (int)max(0ll, min((long long)a.tile.rows, (long long)a.F - row0));
@@ -328,8 +352,8 @@ __global__ void expand_kernel(M m, StepArgs a) {
     RowState<M, SYM>& rs = rows[i];
     uint32_t w[M::W];
 #pragma unroll
-    for (int k = 0; k < M::W; ++k) w[k] = rs.w[k] =
-        a.frontier[r * a.fstride + k];
+    for (int k = 0; k < M::W; ++k)
+      w[k] = rs.w[k] = k < width ? a.frontier[r * a.fstride + k] : 0u;
     const uint32_t pb = m.props(w);
     if constexpr (SYM) m.row_canon(w, rs.rc);
     rs.pb = pb;
@@ -353,24 +377,25 @@ __global__ void expand_kernel(M m, StepArgs a) {
     bool ovf = false;
     const bool v = m.step(w, act, s, ovf);
     const long long lane = lane0 + t;
-    if constexpr (M::W == 4) {
+    if constexpr (M::W == 4) {  // 2pc: one 16-byte store
       reinterpret_cast<uint4*>(a.flat)[lane] =
           make_uint4(s[0], s[1], s[2], s[3]);
     } else {
 #pragma unroll
-      for (int k = 0; k < M::W; ++k) a.flat[lane * M::W + k] = s[k];
+      for (int k = 0; k < M::W; ++k)
+        if (k < width) a.flat[lane * width + k] = s[k];
     }
     uint32_t hi, lo;
     if constexpr (SYM) {
       uint32_t c[M::W];
       m.canon_child(rs.rc, w, act, s, c);
-      fp64<M::W>(c, hi, lo);
+      fp64(c, width, hi, lo);
       uint32_t ohi, olo;
-      fp64<M::W>(s, ohi, olo);
+      fp64(s, width, ohi, olo);
       a.ohi[lane] = ohi;
       a.olo[lane] = olo;
     } else {
-      fp64<M::W>(s, hi, lo);
+      fp64(s, width, hi, lo);
     }
     a.chi[lane] = hi;
     a.clo[lane] = lo;

@@ -36,6 +36,7 @@ struct TwoPcModel {
     }
   }
 
+  __host__ __device__ int width() const { return W; }
   __host__ int max_actions() const { return 2 + 5 * n; }
 
   // Successor of w under action lane a into s; returns whether the action

@@ -21,6 +21,10 @@ On the card the engine does not call the torch methods: the step kernel
 evaluates the model's CUDA device functions (``csrc/<name>.cuh``), named
 by :meth:`PackedModel.cuda_spec`. The torch methods are their plain
 versions.
+
+This module also holds :class:`PackedLinearEquation`, the two-word
+fixture of the JAX package's ``models/packed.py`` (its device functions:
+``csrc/lineq.cuh``).
 """
 
 from __future__ import annotations
@@ -30,8 +34,9 @@ from typing import Any, Tuple
 import numpy as np
 import torch
 
-from ..core import Model
+from ..core import Expectation, Model, Property
 from ..fingerprint import fp64_words
+from ..ops.words import u64
 
 
 class PackedModel(Model):
@@ -84,10 +89,116 @@ class PackedModel(Model):
         each child as ``packed_representative`` does."""
         raise NotImplementedError(
             f"{type(self).__name__} has no CUDA device functions; the "
-            "GPU step kernel supports TwoPhaseSys in this slice")
+            "GPU step kernel supports TwoPhaseSys, PackedLinearEquation, "
+            "Increment and IncrementLock")
 
     def fingerprint(self, state: Any) -> int:
         return fp64_words(self.encode(state).tolist())
+
+
+def check_cuda_model(model: PackedModel, base: type, header: str,
+                     properties, width: int, actions: int,
+                     symmetry: bool) -> None:
+    """Refuse ``model`` on the card unless the kernel's device functions
+    (``csrc/<header>``, written for ``base``) compute what it does: a
+    subclass that overrides ``packed_step``, ``packed_properties`` or
+    ``encode`` (under ``symmetry`` also ``packed_representative`` or
+    ``representative``), or whose properties (names, expectations) or
+    packed shape differ from ``properties``, ``width`` and ``actions``,
+    would get ``base``'s verdicts from the card. Its plain version still
+    runs on the CPU."""
+    cls = type(model)
+    overridable = ("packed_step", "packed_properties", "encode")
+    if symmetry:
+        overridable += ("packed_representative", "representative")
+    for name in overridable:
+        if getattr(cls, name) is not getattr(base, name):
+            raise NotImplementedError(
+                f"{cls.__name__} overrides {name}; the CUDA step kernel "
+                f"runs {base.__name__}'s own (csrc/{header})")
+    props = tuple((p.name, p.expectation) for p in model.properties())
+    if (props != tuple(properties) or model.packed_width != width
+            or model.max_actions != actions):
+        raise NotImplementedError(
+            f"{cls.__name__} changes the properties or the packed shape; "
+            f"the CUDA step kernel evaluates {base.__name__}'s "
+            f"{[name for name, _ in properties]} (csrc/{header})")
+
+
+class PackedLinearEquation(PackedModel):
+    """A copy of the JAX package's ``PackedLinearEquation``: the
+    LinearEquation fixture (the Rust crate's ``test_util.rs``), state
+    ``(x, y)`` in u8 x u8, two increment actions, one ``sometimes``
+    property ``solvable``: ``(a*x + b*y) & 0xFF == c``. A full
+    enumeration reaches 65,536 unique states; from a small ``capacity``
+    it exercises table growth. Device functions: ``csrc/lineq.cuh``."""
+
+    packed_width = 2
+    max_actions = 2
+
+    def __init__(self, a: int, b: int, c: int):
+        self.a, self.b, self.c = a, b, c
+
+    def cache_key(self):
+        return ("lineq", self.a, self.b, self.c)
+
+    def cuda_spec(self, symmetry: bool = False):
+        """``("lineq", (a & 0xFF, b & 0xFF, c'))``: only the low bytes of
+        ``a`` and ``b`` reach ``(a*x + b*y) & 0xFF``, and ``c'`` is ``c``
+        when it is a byte, else 256, which no byte equals — so every
+        parameter fits the kernel's ``int``. The model has no
+        representative: symmetry is refused."""
+        if symmetry:
+            raise NotImplementedError(
+                "PackedLinearEquation has no packed_representative")
+        check_cuda_model(self, PackedLinearEquation, "lineq.cuh",
+                         (("solvable", Expectation.SOMETIMES),), 2, 2,
+                         symmetry)
+        c = self.c if 0 <= self.c <= 0xFF else 0x100
+        return "lineq", (self.a & 0xFF, self.b & 0xFF, c)
+
+    # --- host side (the JAX package's models/fixtures.LinearEquation) ---
+    def init_states(self):
+        return [(0, 0)]
+
+    def actions(self, state, actions):
+        actions.extend(["IncreaseX", "IncreaseY"])
+
+    def next_state(self, state, action):
+        x, y = state
+        return ((x + 1) & 0xFF, y) if action == "IncreaseX" \
+            else (x, (y + 1) & 0xFF)
+
+    def properties(self):
+        def solvable(model, solution):
+            x, y = solution
+            return (model.a * x + model.b * y) & 0xFF == model.c
+        return [Property.sometimes("solvable", solvable)]
+
+    # --- packed side: [x, y] ---------------------------------------------
+    def encode(self, state):
+        return np.array(state, dtype=np.uint32)
+
+    def decode(self, words):
+        return (int(words[0]), int(words[1]))
+
+    def packed_step(self, words):
+        """Successors of a ``[F, 2]`` batch: lane 0 IncreaseX, lane 1
+        IncreaseY, both always enabled."""
+        w = u64(words)
+        x, y = w[:, 0], w[:, 1]
+        succ = torch.stack([torch.stack([(x + 1) & 0xFF, y], dim=1),
+                            torch.stack([x, (y + 1) & 0xFF], dim=1)], dim=1)
+        valid = torch.ones((w.shape[0], 2), dtype=torch.bool,
+                           device=w.device)
+        return succ, valid
+
+    def packed_properties(self, words):
+        # the low byte of a*x + b*y (uint32 arithmetic in the JAX
+        # package) depends only on the low bytes of a, b, x and y
+        w = u64(words) & 0xFF
+        low = ((self.a & 0xFF) * w[:, 0] + (self.b & 0xFF) * w[:, 1]) & 0xFF
+        return (low == self.c)[:, None]
 
 
 def validate_packed_model(model: PackedModel, max_states: int = 2000,

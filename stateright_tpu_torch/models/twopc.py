@@ -31,7 +31,7 @@ import torch
 from ..checker.representative import RewritePlan
 from ..core import Expectation, Property
 from ..ops.words import M32, u64
-from .packed import PackedModel
+from .packed import PackedModel, check_cuda_model
 
 # RM state codes, in the reference's Ord order (RmState in 2pc.rs:27).
 WORKING, PREPARED, COMMITTED, ABORTED = 0, 1, 2, 3
@@ -77,24 +77,8 @@ class TwoPhaseSys(PackedModel):
         (its plain version still runs on the CPU). Returns the kernel's
         name and integer parameters: ``(n,)``, or under ``symmetry``
         ``(n, complete)``."""
-        cls = type(self)
-        overridable = ("packed_step", "packed_properties", "encode")
-        if symmetry:
-            overridable += ("packed_representative", "representative")
-        for name in overridable:
-            if getattr(cls, name) is not getattr(TwoPhaseSys, name):
-                raise NotImplementedError(
-                    f"{cls.__name__} overrides {name}; the CUDA step "
-                    "kernel runs TwoPhaseSys's own (csrc/twopc.cuh)")
-        props = tuple((p.name, p.expectation) for p in self.properties())
-        if props != _CUDA_PROPERTIES \
-                or self.max_actions != 2 + 5 * self.n \
-                or self.packed_width != 4:
-            raise NotImplementedError(
-                f"{cls.__name__} changes the properties or the packed "
-                "shape; the CUDA step kernel evaluates TwoPhaseSys's "
-                f"{[name for name, _ in _CUDA_PROPERTIES]} "
-                "(csrc/twopc.cuh)")
+        check_cuda_model(self, TwoPhaseSys, "twopc.cuh", _CUDA_PROPERTIES,
+                         4, 2 + 5 * self.n, symmetry)
         if symmetry:
             return "twopc", (self.n, int(self.complete_symmetry))
         return "twopc", (self.n,)

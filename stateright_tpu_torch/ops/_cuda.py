@@ -64,8 +64,8 @@ LAUNCHES = {"fused_step": 0, "table_insert": 0, "fused_step_noprobe": 0,
 #: while a graph is captured: the launches each wrapper recorded in it
 _CAPTURED = None
 
-#: ``{"seconds": build time, "log": nvcc/ptxas output of every source,
-#: "path": {library name: path}}``
+#: ``{"seconds": build time, "logs": {library name: its nvcc/ptxas
+#: output}, "path": {library name: path}}``
 BUILD_INFO: dict = {}
 
 #: library name -> loaded ctypes library, once built
@@ -180,25 +180,56 @@ class ChunkArgs(ctypes.Structure):
 #: lanes per block of K7 (``kAppendLanes`` of ``csrc/chunk.cu``)
 APPEND_LANES = 4096
 
+#: the models the step kernels are instantiated for, by ``cuda_spec``
+#: name (``csrc/<header>``): the number of int parameters of the plain
+#: step's C entries and of the symmetric step's (``None``: no symmetric
+#: instantiation). Their entries are ``srt_fused_step_<name>[_sym]``
+#: (fused_step.cu) and ``srt_dedup_step_<name>[_sym]`` (sharded_step.cu)
+STEP_MODELS = {"twopc": (1, 2), "lineq": (3, None), "increment": (1, 1),
+               "increment_lock": (1, None)}
+
+
+def _step_entries(prefix: str, struct, size_fn: str) -> list:
+    out = []
+    for name, (n_plain, n_sym) in STEP_MODELS.items():
+        out.append((f"{prefix}_{name}", struct, size_fn, n_plain))
+        if n_sym is not None:
+            out.append((f"{prefix}_{name}_sym", struct, size_fn, n_sym))
+    return out
+
+
 #: per library: (C entry, argument struct, its size function, the
 #: number of int parameters after the struct: the model's) of each kernel
 _ENTRIES = {
-    "fused_step": [("srt_fused_step_twopc", StepArgs, "srt_step_args_size",
-                    1),
-                   ("srt_fused_step_twopc_sym", StepArgs,
-                    "srt_step_args_size", 2),
-                   ("srt_table_insert", StepArgs, "srt_step_args_size",
-                    0)],
+    "fused_step": _step_entries("srt_fused_step", StepArgs,
+                                "srt_step_args_size")
+    + [("srt_table_insert", StepArgs, "srt_step_args_size", 0)],
     "chunk": [("srt_chunk_begin", ChunkArgs, "srt_chunk_args_size", 4),
               ("srt_chunk_gate", ChunkArgs, "srt_chunk_args_size", 0),
               ("srt_append", ChunkArgs, "srt_chunk_args_size", 0)],
-    "sharded_step": [("srt_dedup_step_twopc", DedupArgs,
-                      "srt_dedup_args_size", 1),
-                     ("srt_dedup_step_twopc_sym", DedupArgs,
-                      "srt_dedup_args_size", 2),
-                     ("srt_probe_block", StepArgs, "srt_step_args_size",
-                      0)],
+    "sharded_step": _step_entries("srt_dedup_step", DedupArgs,
+                                  "srt_dedup_args_size")
+    + [("srt_probe_block", StepArgs, "srt_step_args_size", 0)],
 }
+
+
+def step_entry(model, symmetry: bool) -> "tuple":
+    """``(entry suffix, params)`` of ``model``'s step kernels: the
+    suffix after ``srt_fused_step_``/``srt_dedup_step_`` from its
+    ``cuda_spec`` (which raises for a model, or a subclass, the kernels
+    do not run), and the model kernel's integer parameters. Raises
+    ``NotImplementedError`` for a name no kernel is instantiated for."""
+    name, params = model.cuda_spec(symmetry)
+    counts = STEP_MODELS.get(name)
+    n_params = None if counts is None else counts[1 if symmetry else 0]
+    if n_params is None:
+        raise NotImplementedError(
+            f"no CUDA step kernel for {name!r}"
+            + (" under symmetry" if counts is not None else ""))
+    if len(params) != n_params:
+        raise ValueError(f"cuda_spec of {name!r} gives {len(params)} "
+                         f"parameters, the kernel takes {n_params}")
+    return name + ("_sym" if symmetry else ""), tuple(params)
 
 
 def _nvcc() -> str:
@@ -270,7 +301,7 @@ def build() -> dict:
                     f"csrc/{_SOURCES[name]} and ops/_cuda.py")
         libs[name] = lib
     _LIB = libs
-    BUILD_INFO.update(seconds=seconds, log="".join(logs.values()),
+    BUILD_INFO.update(seconds=seconds, logs=logs,
                       path={k: str(v) for k, v in paths.items()})
     return BUILD_INFO
 
@@ -339,17 +370,16 @@ def _step_args(model, frontier, ebits, fvalid, phi, plo, ring, ws,
                gate_size: int = 0):
     """Check K1's inputs, allocate the step's outputs (or take ``bufs``,
     a :func:`step_buffers` of at least this step's rows) and fill the
-    table-free fields of a ``StepArgs``; returns ``(params, outputs,
-    args)`` where ``params`` are the model kernel's parameters and
-    ``outputs`` the wrappers' return tuple (``ohi``/``olo`` last).
+    table-free fields of a ``StepArgs``; returns ``(entry, outputs,
+    args)`` where ``entry`` is :func:`step_entry`'s (the C entry's
+    suffix and the model kernel's parameters) and ``outputs`` the
+    wrappers' return tuple (``ohi``/``olo`` last).
     ``gate`` (a device pointer to the chunk's gate) makes the launch a
     chunk's: ``frontier``, ``ebits``, ``phi`` and ``plo`` start at queue
     row 0 and the kernels read the window, the valid rows and the tag
     from the gate, and run only when it picks ``gate_size``; ``fvalid``
     is then unused and the workspace's counter untouched."""
-    name, params = model.cuda_spec(symmetry)
-    if name != "twopc":
-        raise NotImplementedError(f"no CUDA step kernel for {name!r}")
+    entry = step_entry(model, symmetry)
     dev = frontier.device
     f, w = frontier.shape
     _check(frontier, "frontier", torch.int32, 2, dev, contiguous=False)
@@ -421,7 +451,7 @@ def _step_args(model, frontier, ebits, fvalid, phi, plo, ring, ws,
                b["cvalid"][:lanes], b["dvalid"][:lanes],
                b["inserted"][:lanes], b["stats"], b["ohi"][:lanes],
                b["olo"][:lanes])
-    return params, outputs, args
+    return entry, outputs, args
 
 
 def fused_step(model, frontier, ebits, fvalid, phi, plo, table, ring, ws,
@@ -443,20 +473,16 @@ def fused_step(model, frontier, ebits, fvalid, phi, plo, table, ring, ws,
         raise ValueError("table must be [C/4, 4] with C < 2**31")
     ws.check(capacity, 0 if ring is None else ring.shape[0],
              len(model.properties()), dev)
-    params, outputs, args = _step_args(model, frontier, ebits, fvalid, phi,
-                                       plo, ring, ws, stats_len, symmetry,
-                                       bufs, gate, gate_size)
+    (suffix, params), outputs, args = _step_args(
+        model, frontier, ebits, fvalid, phi, plo, ring, ws, stats_len,
+        symmetry, bufs, gate, gate_size)
     args.keys = table.data_ptr()
     args.n_buckets = table.shape[0]
     args.owner = ws.owner.data_ptr()
-    if symmetry:
-        _raise_on(lib.srt_fused_step_twopc_sym(ctypes.byref(args), *params),
-                  "symmetric fused step")
-        _count("fused_step_sym")
-    else:
-        _raise_on(lib.srt_fused_step_twopc(ctypes.byref(args), *params),
-                  "fused step")
-        _count("fused_step")
+    _raise_on(getattr(lib, f"srt_fused_step_{suffix}")(ctypes.byref(args),
+                                                        *params),
+              f"fused step ({suffix})")
+    _count("fused_step_sym" if symmetry else "fused_step")
     return outputs
 
 
@@ -470,21 +496,17 @@ def fused_step_noprobe(model, frontier, ebits, fvalid, phi, plo, ring, ws,
     build()
     lib = _LIB["sharded_step"]
     ws.check(frontier.shape[0] * model.max_actions, frontier.device)
-    params, outputs, args = _step_args(model, frontier, ebits, fvalid, phi,
-                                       plo, ring, ws, stats_len, symmetry)
+    (suffix, params), outputs, args = _step_args(
+        model, frontier, ebits, fvalid, phi, plo, ring, ws, stats_len,
+        symmetry)
     outputs = outputs[:8] + (outputs[7],) + outputs[9:]
     dargs = DedupArgs(s=args, arena=ws.arena.data_ptr(),
                       arena_owner=ws.arena_owner.data_ptr(),
                       cells=ws.arena.shape[0])
-    if symmetry:
-        _raise_on(lib.srt_dedup_step_twopc_sym(ctypes.byref(dargs),
-                                               *params),
-                  "symmetric probe-free step")
-        _count("fused_step_noprobe_sym")
-    else:
-        _raise_on(lib.srt_dedup_step_twopc(ctypes.byref(dargs), *params),
-                  "probe-free step")
-        _count("fused_step_noprobe")
+    _raise_on(getattr(lib, f"srt_dedup_step_{suffix}")(ctypes.byref(dargs),
+                                                        *params),
+              f"probe-free step ({suffix})")
+    _count("fused_step_noprobe_sym" if symmetry else "fused_step_noprobe")
     return outputs
 
 

@@ -989,3 +989,193 @@ def test_tag_stays_monotone_across_chunks_and_inserts():
         hi, lo, valid, _t = _insert_batch(rng, 500, dev)
         table_insert(carry.table, hi, lo, valid, ws=carry.ws)
         last = int(carry.ws.step)
+
+
+# --- the other models: LinearEquation, Increment, IncrementLock --------------
+
+def _more_model(name):
+    from stateright_tpu_torch import (Increment, IncrementLock,
+                                      PackedLinearEquation)
+    return {"lineq": lambda: PackedLinearEquation(2, 10, 14),
+            "increment": lambda: Increment(5),
+            "increment16": lambda: Increment(16),
+            "increment_lock": lambda: IncrementLock(5),
+            "increment_lock16": lambda: IncrementLock(16)}[name]()
+
+
+MORE_CASES = [(name, sym, probe)
+              for name, sym in (("lineq", False), ("increment", False),
+                                ("increment", True), ("increment16", True),
+                                ("increment_lock", False),
+                                ("increment_lock16", False))
+              for probe in (True, False)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize(
+    "name,symmetry,probe", MORE_CASES,
+    ids=[f"{n}{'-sym' if s else ''}-{'probe' if p else 'noprobe'}"
+         for n, s, p in MORE_CASES])
+def test_more_models_expand_lane_exact(name, symmetry, probe, monkeypatch):
+    """K1 of each new instantiation (its width a runtime argument: 2,
+    n + 1 or n + 2 words of a row array of 17 or 18) through both step
+    entry points, at ragged F with the card's tiles and with full-size
+    ones: lane for lane the plain version's successors, fingerprints
+    (and original fingerprints under symmetry), validity, property bits,
+    eventually-bits and terminal rows, on reachable rows drawn with
+    replacement and on rows of small thread words (equal words, pcs
+    0..5); then the inserted key set and the table, by the set gate."""
+    _need_card()
+    from stateright_tpu_torch.ops import _cuda
+    from stateright_tpu_torch.ops.fused import (S_DISC, S_VALID, S_XOVF,
+                                                fused_step,
+                                                fused_step_reference)
+    from stateright_tpu_torch.ops.hash_kernel import fp64_device
+    from stateright_tpu_torch.ops.hashtable import make_table
+    from stateright_tpu_torch.ops.words import from_numpy_u32, pack64
+    model = _more_model(name)
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(len(name))
+    w = model.packed_width
+    states, seen, queue = [], set(), list(model.init_states())
+    while queue and len(states) < 2000:
+        s = queue.pop(0)
+        fp = model.fingerprint(s)
+        if fp not in seen:
+            seen.add(fp)
+            states.append(model.encode(s))
+            queue.extend(model.next_states(s))
+    names = ("flat", "chi", "clo", "cvalid", "pbits", "ebits",
+             "terminal") + (("ohi", "olo") if symmetry else ())
+    rows_per_tile = _cuda.TILE_LANES // model.max_actions
+    for full in (False, True):
+        if full:
+            monkeypatch.setattr(_cuda, "sm_count", lambda device: 1)
+            monkeypatch.setattr(_cuda, "TILES_PER_SM", 1)
+        for f in (1, rows_per_tile - 1, rows_per_tile + 3, 257, 4096):
+            rows = np.stack([states[i] for i in
+                             rng.integers(0, len(states), f)])
+            ties = rng.random(f) < 0.3
+            small = (rng.integers(0, 4, (f, w)) << 4
+                     | rng.integers(0, 6, (f, w))).astype(np.uint32)
+            rows[ties] = small[ties]
+            block = from_numpy_u32(rows, dev)
+            phi, plo = (x.to(torch.int32) for x in fp64_device(
+                model.packed_representative(block) if symmetry else block))
+            ebits = torch.zeros((f,), dtype=torch.int32, device=dev)
+            fvalid = torch.from_numpy(rng.random(f) < 0.9).to(dev)
+            out, tables = [], []
+            for fn in (fused_step, fused_step_reference):
+                table = make_table(1 << 16, dev)
+                ring = torch.zeros((1 << 10,), dtype=torch.int64,
+                                   device=dev)
+                out.append(fn(model, block, ebits, fvalid, phi, plo, table,
+                              ring, probe=probe, symmetry=symmetry))
+                tables.append(sorted(table[table != 0].tolist()))
+            k, p = out
+            for nm in names:
+                assert torch.equal(getattr(k, nm), getattr(p, nm)), (f, nm)
+            for i in (S_XOVF, S_VALID):
+                assert int(k.stats[i]) == int(p.stats[i]), (f, i)
+            assert torch.equal(k.stats[S_DISC:], p.stats[S_DISC:])
+            key_k = pack64(k.chi, k.clo)[k.inserted].tolist()
+            key_p = pack64(p.chi, p.clo)[p.inserted].tolist()
+            assert len(key_k) == len(set(key_k))
+            assert set(key_k) == set(key_p)
+            if probe:
+                assert tables[0] == tables[1]
+
+
+@pytest.mark.gpu
+def test_more_models_end_to_end_on_card():
+    """Each new model through ``spawn_gpu()`` on the card against its
+    plain path: IncrementLock(6) (7,825 states, both properties hold),
+    PackedLinearEquation(2, 4, 7) from a 2**12-slot table (65,536
+    states, three growths, each recapturing the chunk's graph), and
+    Increment(5) with and without symmetry (the ``fin`` counterexample
+    of four actions replays)."""
+    _need_card()
+    from stateright_tpu_torch import (Increment, IncrementLock,
+                                      PackedLinearEquation)
+    from stateright_tpu_torch.ops import _cuda
+    for model, opts, unique in (
+            (IncrementLock(6), {}, 7825),
+            (PackedLinearEquation(2, 4, 7), dict(capacity=1 << 12,
+                                                 fmax=64), 65536)):
+        launches = _cuda.LAUNCHES["fused_step"]
+        ck = model.checker().gpu_options(**opts).spawn_gpu().join()
+        plain = _cpu(model, **opts)
+        assert ck.unique_state_count() == plain.unique_state_count() \
+            == unique
+        assert ck.state_count() == plain.state_count()
+        assert ck.generated_fingerprints() == plain.generated_fingerprints()
+        assert not ck.discoveries()
+        assert _cuda.LAUNCHES["fused_step"] > launches
+        if opts:
+            assert ck.profile()["grows"] == 3
+    for symmetry in (False, True):
+        model = Increment(5)
+        builder = model.checker()
+        if symmetry:
+            builder = builder.symmetry_fn(model.representative)
+        ck = builder.spawn_gpu().join()
+        path = ck.assert_any_discovery("fin")  # replays or raises
+        assert not model.property("fin").condition(model, path.last_state())
+        assert len(path) == 4
+
+
+WIDTH_CASES = [(name, sym) for name, sym in (("increment", False),
+                                             ("increment", True),
+                                             ("increment_lock", False))]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,symmetry", WIDTH_CASES,
+                         ids=["increment", "increment-sym",
+                              "increment_lock"])
+def test_every_width_launches_lane_exact(name, symmetry, monkeypatch):
+    """K1 at every width the increment models take (n = 1..16: 2 to 17
+    words for Increment, 3 to 18 for IncrementLock; LinearEquation's 2
+    is above), through both step entry points, on 300 rows of small
+    thread words (equal words, every pc 0..5) and reachable rows: lane
+    for lane the plain version's outputs. Then n = 1 (one action: 1,024
+    rows a tile, K1's largest shared-memory tile, 160 KB under symmetry)
+    with full-size tiles, as on a card of one SM."""
+    _need_card()
+    from stateright_tpu_torch.ops import _cuda
+    from stateright_tpu_torch import Increment, IncrementLock
+    from stateright_tpu_torch.ops.fused import (S_DISC, fused_step,
+                                                fused_step_reference)
+    from stateright_tpu_torch.ops.hash_kernel import fp64_device
+    from stateright_tpu_torch.ops.hashtable import make_table
+    from stateright_tpu_torch.ops.words import from_numpy_u32
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(5)
+    names = ("flat", "chi", "clo", "cvalid", "pbits", "ebits",
+             "terminal") + (("ohi", "olo") if symmetry else ())
+    for n, f in [(n, 300) for n in range(1, 17)] + [(1, 1024)]:
+        if f == 1024:
+            monkeypatch.setattr(_cuda, "sm_count", lambda device: 1)
+            monkeypatch.setattr(_cuda, "TILES_PER_SM", 1)
+        model = (Increment if name == "increment" else IncrementLock)(n)
+        w = model.packed_width
+        rows = (rng.integers(0, 4, (f, w)) << 4
+                | rng.integers(0, 6, (f, w))).astype(np.uint32)
+        rows[:, 0] = rng.integers(0, 20, f)
+        reach = [model.encode(s) for s in model.next_states(
+            model.init_states()[0])]
+        rows[:len(reach)] = np.stack(reach)
+        block = from_numpy_u32(rows, dev)
+        phi, plo = (x.to(torch.int32) for x in fp64_device(
+            model.packed_representative(block) if symmetry else block))
+        ebits = torch.zeros((f,), dtype=torch.int32, device=dev)
+        fvalid = torch.ones((f,), dtype=torch.bool, device=dev)
+        for probe in (True, False):
+            k, p = (fn(model, block, ebits, fvalid, phi, plo,
+                       make_table(1 << 14, dev),
+                       torch.zeros((64,), dtype=torch.int64, device=dev),
+                       probe=probe, symmetry=symmetry)
+                    for fn in (fused_step, fused_step_reference))
+            for nm in names:
+                assert torch.equal(getattr(k, nm), getattr(p, nm)), (n, nm)
+            assert torch.equal(k.stats[S_DISC:], p.stats[S_DISC:]), n
