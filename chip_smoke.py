@@ -17,12 +17,19 @@ Phases, one JSON line each:
              with both representatives) by the lane and set gates, and
              timed with CUDA events and ``torch.profiler``, with each
              kernel's own device time, bound and launch geometry
-             (``parts``);
+             (``parts``); the chunk's start (``chunk_begin_kernel`` with
+             the chunk's first gate) under parameters that open and shut
+             the gate, and K7 (``append_kernel``, with the carry update
+             and the next gate) after a real step of 2pc7 at 12,288 and
+             256 rows and of 2pc16 (6-column log), bit for bit;
 4. e2e     — ``TwoPhaseSys(7).checker().spawn_gpu().join()`` with default
              options, checked against the oracle counts, the fingerprint-set
              digest, the properties and both witness replays, with every
              kernel's launch count set to 0 before the run and read after
-             it; then again from a 2**16-slot table, which grows twice;
+             it, and 7 kernel nodes a replay of the chunk's graph (K1-K3
+             of both step sizes and K7: by the launch counts and by the
+             trace of a profiled run); then again from a 2**16-slot
+             table, which grows twice;
 5. e2e_sym — symmetry reduction on one card: every reachable 2pc7 state
              recounted into its 920 orbits and 9,840 reference keys
              (``orbits_2pc7``); ``TwoPhaseSys(n[, complete_symmetry=True])
@@ -62,7 +69,9 @@ Phases, one JSON line each:
              K5, at a real mid-search step (IncrementLock(9) and
              Increment(16) with and without symmetry at 12,288 and 256
              rows, PackedLinearEquation at 256: its frontier never holds
-             more), held to its plain version lane for lane.
+             more), held to its plain version lane for lane, and K7 after
+             the 12,288-row steps of IncrementLock(9) and Increment(16)
+             (14- and 20-word queue rows).
 
 Then a ``kernels`` line (the contract's per-kernel record), the card's name
 and power limit from ``nvidia-smi``, and as the last line
@@ -197,8 +206,7 @@ def fp_digest(fps) -> str:
 #: names first, so a name that contains another is matched as itself
 _OURS = ("dedup_claim_kernel", "dedup_commit_kernel", "flat_insert_kernel",
          "expand_kernel", "claim_kernel", "commit_kernel",
-         "append_count_kernel", "append_kernel", "gate_kernel",
-         "chunk_begin_kernel")
+         "append_kernel", "chunk_begin_kernel")
 
 
 def kernel_name(symbol: str):
@@ -287,6 +295,7 @@ def device_times(fn, host_top: int = 0, before=None) -> dict:
             result = fn()
             torch.cuda.synchronize()
         ours = {k: 0.0 for k in _OURS + ("expand_kernel_sym",)}
+        calls = dict.fromkeys(ours, 0)
         torch_ms = copy_ms = 0.0
         seen = False
         for e in prof.key_averages():
@@ -299,6 +308,7 @@ def device_times(fn, host_top: int = 0, before=None) -> dict:
             name = kernel_name(e.key)
             if name:
                 ours[name] += us / 1e3
+                calls[name] += e.count
             elif "memcpy" in e.key.lower() or "memset" in e.key.lower():
                 copy_ms += us / 1e3
             else:
@@ -306,10 +316,11 @@ def device_times(fn, host_top: int = 0, before=None) -> dict:
         if seen:
             break
     out = {"ours_ms": None, "torch_ms": None, "copy_ms": None,
-           "by_kernel_ms": None}
+           "by_kernel_ms": None, "by_kernel_calls": None}
     if seen:
         out = {"ours_ms": sum(ours.values()), "torch_ms": torch_ms,
-               "copy_ms": copy_ms, "by_kernel_ms": ours}
+               "copy_ms": copy_ms, "by_kernel_ms": ours,
+               "by_kernel_calls": calls}
     if host_top:
         cpu = [e for e in prof.key_averages()
                if e.device_type == DeviceType.CPU]
@@ -320,8 +331,11 @@ def device_times(fn, host_top: int = 0, before=None) -> dict:
                        for e in prof.key_averages()
                        if e.device_type == DeviceType.CPU
                        and e.key.startswith("cuda")}
-    loop_s = (result.profile().get("loop_s")
-              if hasattr(result, "profile") else None)
+    prof = result.profile() if hasattr(result, "profile") else {}
+    for key in ("graph_launches", "captures"):
+        if key in prof:
+            out[key] = prof[key]
+    loop_s = prof.get("loop_s")
     if loop_s:
         out["loop_s"] = loop_s
         if seen:
@@ -990,18 +1004,37 @@ def check_probe(model, carry, step, reps: int) -> dict:
     return out
 
 
+#: kernels per wrapper launch inside the chunk's graph: ``fused_step``
+#: is K1-K3, ``append`` K7
+KERNELS_PER_LAUNCH = {"fused_step": 3, "append": 1}
+
+
+def replay_nodes(run: dict) -> float:
+    """Kernel launches per replay of a single-chip run's iteration graph
+    (an ``end_to_end`` result): the graph's launches over its replays and
+    the capture's warm-up launch of each kernel; ``append`` must equal
+    those (one K7 each)."""
+    n = run["graph_launches"] + run["captures"]
+    launches = run["launches"]
+    if launches["append"] != n:
+        return float("nan")
+    return sum(KERNELS_PER_LAUNCH[k] * launches[k]
+               for k in KERNELS_PER_LAUNCH) / n
+
+
 def check_control(model, carry, f: int = 12288) -> dict:
-    """The chunk's control kernels (``chunk_begin_kernel`` and
-    ``gate_kernel``, ``csrc/chunk.cu``) against their plain versions on
+    """The chunk's start (``chunk_begin_kernel``, ``csrc/chunk.cu``, with
+    the chunk's first gate, ``eval_gate``) against its plain version on
     the card, from the counters of a mid-search ``carry``, under chunk
     parameters that open the gate and that shut it (no steps left, the
     generation target reached, the growth limit reached): the counter
-    block bit for bit and the step's stats vector zeroed."""
+    block (gate included) bit for bit and the step's stats vector
+    zeroed. Also the kernel nodes of one captured iteration."""
     import torch
 
     from stateright_tpu_torch.checker.device_loop import (
         E_GATE, G_SIZE, I32_MAX, ChunkRunner, chunk_begin_reference,
-        gate_reference, step_sizes)
+        step_sizes)
 
     lay = carry.layout
     card = ChunkRunner(model, carry, f).card()
@@ -1018,20 +1051,23 @@ def check_control(model, carry, f: int = 12288) -> dict:
         carry.ctr.copy_(ctr0)
         stats.fill_(-1)
         card.begin(*params)
-        card.launch_gate()
         k_ctr, k_stats = carry.ctr.clone(), stats.clone()
         p_ctr, p_stats = ctr0.clone(), torch.full_like(k_stats, -1)
-        chunk_begin_reference(p_ctr, lay, *params)
-        gate_reference(p_ctr, lay, f_small, f_large, qlimit, p_stats)
+        chunk_begin_reference(p_ctr, lay, *params, f_small, f_large, qlimit,
+                              p_stats)
         e = int((k_ctr.long() - p_ctr.long()).abs().max())
         err = max(err, e)
         opened = int(k_ctr[lay.ext + E_GATE + G_SIZE]) != 0
         checks[name] = (e == 0 and not bool(k_stats.any())
                         and not bool(p_stats.any())
                         and opened == (name == "open"))
+    # the captured iteration: K1-K3 of both sizes and K7, no gate kernel
+    nodes = sum(KERNELS_PER_LAUNCH[k] * n
+                for k, n in card.graph.counts.items())
+    checks["graph_nodes"] = nodes == 7
     if not all(checks.values()):
-        raise AssertionError(f"chunk control kernels disagree with their "
-                             f"plain versions: {checks}")
+        raise AssertionError(f"chunk_begin disagrees with its plain "
+                             f"version: {checks} (graph {card.graph.counts})")
 
     def restore():
         carry.ctr.copy_(ctr0)
@@ -1039,120 +1075,137 @@ def check_control(model, carry, f: int = 12288) -> dict:
     def begin():
         card.begin(*cases["open"])
 
-    begin()
-    ms_gate = cuda_ms(card.launch_gate, 200)
     ms_begin = cuda_ms(begin, 200)
-    dev = device_times(lambda: (begin(), card.launch_gate()), before=restore)
+    dev = device_times(begin, before=restore)
     p_ctr = ctr0.clone()
-    plain_ms = {}
-    for name, plain in (
-            ("begin", lambda: chunk_begin_reference(p_ctr, lay,
-                                                    *cases["open"])),
-            ("gate", lambda: gate_reference(p_ctr, lay, f_small, f_large,
-                                            qlimit, stats))):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        plain()
-        end.record()
-        end.synchronize()
-        plain_ms[name] = start.elapsed_time(end)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    chunk_begin_reference(p_ctr, lay, *cases["open"], f_small, f_large,
+                          qlimit, stats)
+    end.record()
+    end.synchronize()
+    plain_ms = start.elapsed_time(end)
     restore()
     # the bound: the counter block read and written once, the stats
     # vector written; a few dozen integer operations
     nbytes = 4 * (2 * lay.length + stats.shape[0])
     by = dev["by_kernel_ms"] or {}
     return {"f": f, "counters": lay.length, "max_abs_err": err,
-            "ms": ms_gate, "begin_ms": ms_begin,
-            "device_ms": by.get("gate_kernel"),
-            "begin_device_ms": by.get("chunk_begin_kernel"),
-            "plain_ms": plain_ms["gate"], "begin_plain_ms": plain_ms["begin"],
-            **bound(nbytes, 64),
+            "ms": ms_begin, "device_ms": by.get("chunk_begin_kernel"),
+            "plain_ms": plain_ms, "graph_counts": card.graph.counts,
+            "graph_kernel_nodes": nodes, **bound(nbytes, 64),
             "checks": checks}
 
 
 def check_append(model, carry, f: int, reps: int) -> dict:
-    """K7 (``append_count_kernel`` + ``append_kernel``, ``csrc/chunk.cu``)
-    against its plain version on the card over a real step of ``carry``
-    at ``f`` rows per large step: the gate and the gated step (K1-K3) on
-    the card, then K7, or ``append_reference`` from the same counters,
-    queue and log; the counter block, the queue and log rows it may write
-    bit for bit. Timed with CUDA events and ``torch.profiler`` beside the
-    plain version, whose torch kernels are the glue K7 replaced. The
-    carry's table, ring and counters are restored afterwards."""
+    """K7 (``append_kernel``, ``csrc/chunk.cu``) against its plain
+    version on the card over a real step of ``carry`` at ``f`` rows per
+    large step: the chunk's start and the gated step (K1-K3) on the
+    card, then K7, or ``append_reference`` from the same counters, stats
+    vector, queue and log; the counter block (the next gate included),
+    the stats vector, the queue and log rows it may write bit for bit.
+    Timed with CUDA events and ``torch.profiler`` beside the plain
+    version, whose torch kernels are the glue K7 replaced. The carry's
+    table, ring and counters are restored afterwards."""
     import torch
 
     from stateright_tpu_torch.checker.device_loop import (
-        B_LOG_N, B_Q_TAIL, E_FAULT, E_GATE, G_SIZE, I32_MAX, ChunkRunner,
-        append_reference)
-    from stateright_tpu_torch.ops.fused import S_FAULT, S_INSERTED
+        B_DISC, B_LOG_N, B_Q_TAIL, E_FAULT, E_GATE, G_SIZE, I32_MAX,
+        ChunkRunner, append_reference, step_sizes)
+    from stateright_tpu_torch.ops.fused import S_DISC, S_FAULT, S_INSERTED
 
     lay = carry.layout
     w, a = model.packed_width, model.max_actions
+    f_small, f_large, qmargin = step_sizes(model, f)
+    qlimit = carry.q.shape[0] - qmargin
     table0, ring0, ctr0 = (carry.table.clone(), carry.ring.clone(),
                            carry.ctr.clone())
     card = ChunkRunner(model, carry, f).card()
-    carry.ws.step += 1
-    card.begin(1, I32_MAX, I32_MAX, carry.ws.step)
-    card.launch_gate()
-    card.launch_steps()
-    c = carry.counters()
-    size = int(c[lay.ext + E_GATE + G_SIZE])
-    if not size:
-        raise AssertionError(f"the gate picked no step at f={f}")
-    out = card.outputs(size)
-    lanes = out.inserted.shape[0]
-    qbase, lbase = int(c[B_Q_TAIL]), int(c[B_LOG_N])
-    rows_q = slice(qbase, qbase + lanes)
-    rows_l = slice(lbase, lbase + lanes)
-    ctr1 = carry.ctr.clone()
-    q1, log1 = carry.q[rows_q].clone(), carry.log[rows_l].clone()
-    cnt = int(out.inserted.sum())
-    card.launch_append()
-    k = (carry.ctr.clone(), carry.q[rows_q].clone(),
-         carry.log[rows_l].clone())
+    checks, err = {}, 0
+    # a chunk of two steps (K7's tail opens the next step's gate), then
+    # of one (its tail shuts it), each from the same carry; the second is
+    # timed
+    for steps in (2, 1):
+        carry.table.copy_(table0)
+        carry.ring.copy_(ring0)
+        carry.ctr.copy_(ctr0)
+        carry.ws.step += 1
+        card.begin(steps, I32_MAX, I32_MAX, carry.ws.step)
+        card.launch_steps()
+        c = carry.counters()
+        size = int(c[lay.ext + E_GATE + G_SIZE])
+        if not size:
+            raise AssertionError(f"the gate picked no step at f={f}")
+        out = card.outputs(size)
+        if steps == 2:
+            # a step that discovers every property ends the search, and
+            # the tail shuts the gate (Increment's fin): here its hits are
+            # cleared, as a search past its discoveries would
+            # (mid_search_carry), so the open branch is compared too; the
+            # one-step pass compares the real hits
+            out.stats[S_DISC:S_DISC + 3 * lay.P] = 0
+            carry.ctr[B_DISC:B_DISC + 3 * lay.P] = 0
+        lanes = out.inserted.shape[0]
+        qbase, lbase = int(c[B_Q_TAIL]), int(c[B_LOG_N])
+        rows_q = slice(qbase, qbase + lanes)
+        rows_l = slice(lbase, lbase + lanes)
+        # K7's tail zeroes the stats vector after reading it
+        ctr1, stats1 = carry.ctr.clone(), out.stats.clone()
+        q1, log1 = carry.q[rows_q].clone(), carry.log[rows_l].clone()
+        cnt = int(out.inserted.sum())
+        card.launch_append()
+        k = (carry.ctr.clone(), carry.q[rows_q].clone(),
+             carry.log[rows_l].clone(), out.stats.clone())
 
-    def restore():
-        carry.ctr.copy_(ctr1)
+        def restore():
+            carry.ctr.copy_(ctr1)
+            out.stats.copy_(stats1)
 
-    def restore_all():
+        def plain():
+            append_reference(carry.ctr, lay, carry.q, carry.log, out, a,
+                             f_small, f_large, qlimit)
+
         restore()
         carry.q[rows_q] = q1
         carry.log[rows_l] = log1
-
-    def plain():
-        append_reference(carry.ctr, lay, carry.q, carry.log, out, a)
-
-    restore_all()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    plain()
-    end.record()
-    end.synchronize()
-    plain_ms = start.elapsed_time(end)
-    p = (carry.ctr.clone(), carry.q[rows_q].clone(),
-         carry.log[rows_l].clone())
-    err = max(int((x.long() - y.long()).abs().max()) for x, y in zip(k, p))
-    st = out.stats.cpu().numpy()
-    checks = {
-        "bit_exact": err == 0,
-        "count": cnt == int(st[S_INSERTED]) == int(k[0][B_Q_TAIL]) - qbase,
-        "no_fault": int(k[0][lay.ext + E_FAULT]) == 0
-        and int(st[S_FAULT]) == 0,
-        # rows past the appended ones are left as they were
-        "rows_past_untouched": torch.equal(k[1][cnt:], q1[cnt:])
-        and torch.equal(k[2][cnt:], log1[cnt:]),
-    }
-    if not all(checks.values()):
-        raise AssertionError(f"K7 f={f} disagrees with its plain version: "
-                             f"{checks} (max_abs_err {err})")
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        plain()
+        end.record()
+        end.synchronize()
+        plain_ms = start.elapsed_time(end)
+        p = (carry.ctr.clone(), carry.q[rows_q].clone(),
+             carry.log[rows_l].clone(), out.stats.clone())
+        e = max(int((x.long() - y.long()).abs().max()) for x, y in zip(k, p))
+        err = max(err, e)
+        st = stats1.cpu().numpy()
+        gate = int(k[0][lay.ext + E_GATE + G_SIZE])
+        one = {
+            "bit_exact": e == 0,
+            "count": cnt == int(st[S_INSERTED])
+            == int(k[0][B_Q_TAIL]) - qbase,
+            "no_fault": int(k[0][lay.ext + E_FAULT]) == 0
+            and int(st[S_FAULT]) == 0,
+            # rows past the appended ones are left as they were
+            "rows_past_untouched": torch.equal(k[1][cnt:], q1[cnt:])
+            and torch.equal(k[2][cnt:], log1[cnt:]),
+            # the tail's gate: open for the chunk's second step (the
+            # search is mid-way, past its discoveries), shut once its one
+            # step is spent
+            "gate": gate != 0 if steps == 2 else gate == 0,
+            "stats_zeroed": not bool(k[3].any()),
+        }
+        if not all(one.values()):
+            raise AssertionError(
+                f"K7 f={f} steps={steps} disagrees with its plain version: "
+                f"{one} (max_abs_err {e})")
+        checks.update({f"{k}_steps{steps}": v for k, v in one.items()})
     ms = cuda_ms(card.launch_append, reps, restore)
     dev = device_times(card.launch_append, before=restore)
     glue = device_times(plain, before=restore)
     by = dev["by_kernel_ms"] or {}
-    k7_ms = (None if dev["by_kernel_ms"] is None else
-             by["append_count_kernel"] + by["append_kernel"])
     carry.table.copy_(table0)
     carry.ring.copy_(ring0)
     carry.ctr.copy_(ctr0)
@@ -1164,9 +1217,7 @@ def check_append(model, carry, f: int, reps: int) -> dict:
     nbytes = (lanes + cnt * (4 * w + 8 + 4 + 8 + (8 if sym else 0))
               + cnt * 4 * (w + 3 + lc))
     return {"f": f, "lanes": lanes, "appended": cnt, "max_abs_err": err,
-            "ms": ms, "device_ms": k7_ms, "device_by_kernel_ms": {
-                k_: by.get(k_) for k_ in ("append_count_kernel",
-                                          "append_kernel")},
+            "ms": ms, "device_ms": by.get("append_kernel"),
             "plain_ms": plain_ms, "glue_device_ms": glue["torch_ms"],
             "glue_copy_ms": glue["copy_ms"], **bound(nbytes, 4 * lanes),
             "checks": checks}
@@ -1398,7 +1449,7 @@ def end_to_end(model_cls, path_kernels, **opts):
             "loop_s", "sync_s", "mirror_s", "shards", "exchange",
             "collectives", "collectives_per_iteration", "kovfs", "aborts",
             "kmax", "gather_s", "dmax", "chunks", "sync_stall", "capture_s",
-            "graph_launches", "pipeline", "chunk_steps")
+            "captures", "graph_launches", "pipeline", "chunk_steps")
     return {"options": shown, "wall_s": wall, "unique": unique,
             "unique_per_s": unique / wall, "generated": ck.state_count(),
             "digest": digest, **{k: prof[k] for k in keys if k in prof},
@@ -1450,8 +1501,10 @@ def _models() -> dict:
 def check_model_steps(device) -> dict:
     """K1 of each new instantiation (with K2/K3 and with K5) at a real
     mid-search step of its model (``MODEL_STEPS``), held to the plain
-    version by ``check_step`` and ``check_noprobe``; one ``kernels`` line
-    each. Returns the results by (step kernel, label, F)."""
+    version by ``check_step`` and ``check_noprobe``, and K7 after the
+    large step of each model without symmetry (its queue rows of 14 and
+    20 words: ``check_append``); one ``kernels`` line each. Returns the
+    results by (kernel, label, F)."""
     out = {}
     for label, cls, args, symmetry, sizes, pending, past in MODEL_STEPS:
         model = _models()[cls](*args)
@@ -1471,6 +1524,11 @@ def check_model_steps(device) -> dict:
             out[kernel, label, f] = res
             emit(phase="kernels", kernel=kernel, model=type(model).__name__,
                  params=list(model.cuda_spec(symmetry)[1]), **res)
+        if not symmetry and max(sizes) == 12288:
+            res = out["append", label, 12288] = check_append(
+                model, carry, 12288, 50)
+            emit(phase="kernels", kernel="append",
+                 model=type(model).__name__, **res)
         del carry
     return out
 
@@ -1559,7 +1617,7 @@ def models_phase(mesh) -> dict:
     the module docstring); ``mesh`` is the one-rank NCCL mesh of the
     sharded runs. Returns each run's launch counts by label."""
     m = _models()
-    chunk = ("chunk_begin", "chunk_gate", "append")
+    chunk = ("chunk_begin", "append")
     single = ("fused_step", "table_insert") + chunk
     single_off = ("fused_step_sym", "fused_step_noprobe",
                   "fused_step_noprobe_sym", "probe_block")
@@ -1888,10 +1946,10 @@ def main() -> int:
     probe = check_probe(model, carry, step, reps=20)
     emit(phase="kernels", kernel="probe_block", **probe)
     del step
-    # the chunk's kernels: the control kernels, then K7 after a real step
-    # of 12,288 and of 256 rows
+    # the chunk's kernels: its start (with the first gate), then K7 (with
+    # the next gate) after a real step of 12,288 and of 256 rows
     control = check_control(model, carry)
-    emit(phase="kernels", kernel="chunk_gate", **control)
+    emit(phase="kernels", kernel="chunk_begin", **control)
     appends = {("plain", f): check_append(model, carry, f, reps)
                for f, reps in ((12288, 50), (256, 100))}
     for (_mode, f), res in appends.items():
@@ -1930,10 +1988,18 @@ def main() -> int:
     # steps
     model_steps = check_model_steps(torch.device("cuda", 0))
 
-    chunk_kernels = ("chunk_begin", "chunk_gate", "append")
+    chunk_kernels = ("chunk_begin", "append")
     single = ("fused_step", "table_insert") + chunk_kernels
     default, card = end_to_end(TwoPhaseSys, single)
+    # each replay (and the capture's warm-up) launches K1-K3 of both
+    # sizes and K7: 7 kernel nodes, no gate kernel
+    default["kernel_nodes_per_replay"] = replay_nodes(default)
+    default["checks"]["kernel_nodes"] = \
+        default["kernel_nodes_per_replay"] == 7
     emit(phase="e2e", **default)
+    if not default["checks"]["kernel_nodes"]:
+        raise AssertionError(f"2pc7 default: {default['launches']} over "
+                             f"{default['graph_launches']} replays")
     # the chunk: the default run (pipeline=True) and the synchronous
     # chunk loop, in turns, on this card; one sync per chunk
     chunk_runs = []
@@ -1957,10 +2023,20 @@ def main() -> int:
                                  "iterations")
     emit(phase="mirror_vs_plain", **mirror_vs_plain(card))
     del card
-    # where the device time of the run goes (a separate, profiled run)
+    # where the device time of the run goes (a separate, profiled run),
+    # and the kernel nodes of a replay as the trace counts them
     prof = device_times(lambda: TwoPhaseSys(7).checker().spawn_gpu().join(),
                         host_top=12)
+    if prof["by_kernel_calls"] is not None:
+        calls = prof["by_kernel_calls"]
+        prof["kernel_nodes_per_replay_traced"] = sum(
+            calls[k] for k in ("expand_kernel", "claim_kernel",
+                               "commit_kernel", "append_kernel")) / (
+            prof["graph_launches"] + prof["captures"])
     emit(phase="e2e_profile", engine="gpu", **prof)
+    if prof.get("kernel_nodes_per_replay_traced", 7) != 7:
+        raise AssertionError("the traced replays do not launch 7 kernel "
+                             f"nodes each: {prof['by_kernel_calls']}")
     # the capacity pre-bump (capacity grows x4 until grow_at * capacity
     # exceeds one step's appends) would lift 2**16 straight to 2**20 at
     # 12,288-row steps; 512-row steps keep it, so the run grows twice
@@ -2169,34 +2245,34 @@ def main() -> int:
             "status": "ok"})
     chunk_src = "stateright_tpu_torch/csrc/chunk.cu"
     k7 = appends["plain", 12288]
+    for label in ("increment_lock", "increment"):
+        appends[label, 12288] = model_steps["append", label, 12288]
+    gate_src = ("stateright_tpu/checker/device_loop.py:352 (make_cond, "
+                "evaluated in eval_gate)")
     kernels += [
         {"name": "append", "route": "cuda", "source": chunk_src,
          "replaces": "stateright_tpu/checker/device_loop.py:696",
+         "gate": gate_src,
          "launches": default["launches"]["append"],
          "max_abs_err": max(r["max_abs_err"] for r in appends.values()),
-         "ms": k7["ms"], "plain_ms": k7["plain_ms"],
+         "ms": k7["ms"], "device_ms": k7["device_ms"],
+         "plain_ms": k7["plain_ms"],
          "bound_ms": k7["bound_ms"], "bound_by": k7["bound_by"],
          "library_ms": None,
          "by_shape": {f"{mode} f={f}": {k: r[k] for k in (
-             "lanes", "appended", "ms", "device_ms", "device_by_kernel_ms",
-             "plain_ms", "glue_device_ms", "bound_ms", "bound_by",
-             "max_abs_err")} for (mode, f), r in appends.items()},
+             "lanes", "appended", "ms", "device_ms", "plain_ms",
+             "glue_device_ms", "bound_ms", "bound_by", "max_abs_err")}
+             for (mode, f), r in appends.items()},
          "status": "ok"},
-        {"name": "chunk_gate", "route": "cuda", "source": chunk_src,
-         "replaces": "stateright_tpu/checker/device_loop.py:352",
-         "launches": default["launches"]["chunk_gate"],
-         "max_abs_err": control["max_abs_err"], "ms": control["ms"],
-         "plain_ms": control["plain_ms"], "bound_ms": control["bound_ms"],
-         "bound_by": control["bound_by"], "library_ms": None,
-         "device_ms": control["device_ms"], "status": "ok"},
         {"name": "chunk_begin", "route": "cuda", "source": chunk_src,
          "replaces": "stateright_tpu/checker/tpu.py:1377",
+         "gate": gate_src,
          "launches": default["launches"]["chunk_begin"],
-         "max_abs_err": control["max_abs_err"], "ms": control["begin_ms"],
-         "plain_ms": control["begin_plain_ms"],
+         "max_abs_err": control["max_abs_err"], "ms": control["ms"],
+         "plain_ms": control["plain_ms"],
          "bound_ms": control["bound_ms"],
          "bound_by": control["bound_by"], "library_ms": None,
-         "device_ms": control["begin_device_ms"], "status": "ok"},
+         "device_ms": control["device_ms"], "status": "ok"},
     ]
     kernels += model_kernel_entries(model_steps, model_runs)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -25,13 +25,15 @@ each run only while its condition (``make_cond``) holds on the device.
 Each iteration takes the small step (``FMAX_SMALL`` rows) iff at most
 that many rows are pending, else the large one — the order the JAX
 package's small/large/small window loops walk — runs the fused step and
-appends exactly the inserted rows to the queue and the log. On the card
-one iteration (the gate kernel, K1-K3 of both sizes, each gated on the
-device, and K7, the append) is one CUDA graph, captured once per carry
-allocation and replayed ``chunk_steps`` times; the host copies the
-counter block once per chunk. On the CPU the same iterations run the
-kernels' plain versions. Queue, table, ring, log and counters are
-updated in place.
+appends exactly the inserted rows to the queue and the log. The loop
+condition is evaluated where the counters last change: at the chunk's
+start for its first iteration, after each append for the next. On the
+card one iteration (K1-K3 of both sizes, each gated on the device, and
+K7, the append, whose tail evaluates the next gate) is one CUDA graph,
+captured once per carry allocation and replayed ``chunk_steps`` times;
+the host copies the counter block once per chunk. On the CPU the same
+iterations run the kernels' plain versions. Queue, table, ring, log and
+counters are updated in place.
 """
 
 from __future__ import annotations
@@ -265,21 +267,25 @@ def carry_to_numpy(carry: ChunkCarry) -> dict:
 # --- the plain versions of the chunk's kernels ---------------------------
 
 def chunk_begin_reference(ctr, layout: CtrLayout, steps: int, target: int,
-                          grow_limit: int, tag: int) -> None:
+                          grow_limit: int, tag: int, f_small: int,
+                          f_large: int, qlimit: int, stats=None) -> list:
     """The plain version of ``chunk_begin_kernel`` (``csrc/chunk.cu``):
     the chunk's parameters, the per-chunk counters zeroed (the JAX
-    package's dispatch resets its carry's so)."""
+    package's dispatch resets its carry's so), then the first
+    iteration's gate (:func:`gate_reference`, returned)."""
     x = layout.ext
     for i in (B_GEN, B_VMAX, B_DMAX, B_PDH, B_PRB, layout.cch,
               x + E_ITERS, x + E_SMALL):
         ctr[i] = 0
     ctr[x + E_STEPS], ctr[x + E_TARGET] = steps, target
     ctr[x + E_GROW], ctr[x + E_TAG] = grow_limit, tag
+    return gate_reference(ctr, layout, f_small, f_large, qlimit, stats)
 
 
 def gate_reference(ctr, layout: CtrLayout, f_small: int, f_large: int,
                    qlimit: int, stats=None) -> list:
-    """The plain version of ``gate_kernel``: ``stats`` (the step's stats
+    """The plain version of ``eval_gate`` (``csrc/chunk.cu``, run by
+    ``chunk_begin_kernel`` and K7's tail): ``stats`` (the step's stats
     vector, when given) zeroed, the JAX package's ``make_cond`` on the
     counters and the iteration's gate, written into ``ctr`` and
     returned (``G_*`` order)."""
@@ -303,15 +309,16 @@ def gate_reference(ctr, layout: CtrLayout, f_small: int, f_large: int,
     return gate
 
 
-def append_reference(ctr, layout: CtrLayout, q, log, out,
-                     n_actions: int) -> None:
+def append_reference(ctr, layout: CtrLayout, q, log, out, n_actions: int,
+                     f_small: int, f_large: int, qlimit: int) -> None:
     """The plain version of K7 (``csrc/chunk.cu``): the torch glue that
     followed each step — :func:`shrink_indices`, ``assemble_candidates``
     and the queue and log slice writes — over the step ``out`` (a
     ``FusedOut`` whose frontier was the queue rows from the gate's head),
     at the gate's queue tail and log length, then the carry update of
-    the counter block (``ctr``, in place, with ``q`` and ``log``). A
-    closed gate appends nothing."""
+    the counter block (``ctr``, in place, with ``q`` and ``log``) and the
+    next iteration's gate (:func:`gate_reference` at these step sizes and
+    ``qlimit``, ``out.stats`` zeroed). A closed gate changes nothing."""
     x = layout.ext
     c = ctr.tolist()
     size, head, take, _tag, qbase, lbase = c[x + E_GATE:x + E_GATE + G_LEN]
@@ -355,6 +362,7 @@ def append_reference(ctr, layout: CtrLayout, q, log, out,
     c[x + E_ITERS] += 1
     c[x + E_SMALL] += int(size == 1)
     ctr.copy_(torch.tensor(c, dtype=torch.int64).to(torch.int32))
+    gate_reference(ctr, layout, f_small, f_large, qlimit, out.stats)
 
 
 def step_sizes(model, fmax: int):
@@ -369,13 +377,13 @@ def step_sizes(model, fmax: int):
 
 
 def iteration_reference(model, carry: ChunkCarry, fmax: int) -> bool:
-    """One iteration of the chunk's plain version: the gate, then (when
-    it picks a step) the step over its rows and K7's plain version.
-    Returns whether a step ran."""
+    """One iteration of the chunk's plain version: when the gate (of
+    the chunk's start or of the last append) picks a step, the step over
+    its rows and K7's plain version, which leaves the next gate. Returns
+    whether a step ran."""
     f_small, f_large, qmargin = step_sizes(model, fmax)
-    size, head, take = gate_reference(carry.ctr, carry.layout, f_small,
-                                      f_large,
-                                      carry.q.shape[0] - qmargin)[:3]
+    x = carry.layout.ext + E_GATE
+    size, head, take = carry.ctr[x + G_SIZE:x + G_TAKE + 1].tolist()
     if not size:
         return False
     f = f_small if size == 1 else f_large
@@ -386,7 +394,8 @@ def iteration_reference(model, carry: ChunkCarry, fmax: int) -> bool:
                      block[:, w + 1], block[:, w + 2], carry.table,
                      carry.ring, carry.ws, symmetry=carry.symmetry)
     append_reference(carry.ctr, carry.layout, carry.q, carry.log, out,
-                     model.max_actions)
+                     model.max_actions, f_small, f_large,
+                     carry.q.shape[0] - qmargin)
     return True
 
 
@@ -394,11 +403,11 @@ def iteration_reference(model, carry: ChunkCarry, fmax: int) -> bool:
 
 class CardChunk:
     """The chunk on the card for one carry allocation and one ``fmax``:
-    the step buffers both sizes share, K7's block counts, the chunk's
-    arguments and the graph of one iteration — :meth:`launch_gate`,
-    :meth:`launch_steps` (K1-K3 of the small size, when there is one, and
-    of the large size, each gated) and :meth:`launch_append` (K7) —
-    captured after one launch of each with the gate shut."""
+    the step buffers both sizes share, K7's scan state, the chunk's
+    arguments and the graph of one iteration — :meth:`launch_steps`
+    (K1-K3 of the small size, when there is one, and of the large size,
+    each gated) and :meth:`launch_append` (K7, which leaves the next
+    gate) — captured after one launch of each with the gate shut."""
 
     def __init__(self, model, carry: ChunkCarry, fmax: int):
         from ..ops import _cuda
@@ -410,13 +419,15 @@ class CardChunk:
                     for f in (f_small, f_large) if f)
         self.bufs = _cuda.step_buffers(model, f_large, stats_len(model),
                                        carry.symmetry, dev, tiles)
-        self.blk_cnt = torch.zeros(
-            (_cuda.append_blocks(f_large * n_actions),), dtype=torch.int32,
-            device=dev)
+        # new with each allocation, so no earlier launch's status word
+        # matches a tile
+        lanes = f_large * n_actions
+        self.scratch = _cuda.append_scratch(
+            lanes, _cuda.append_tile(lanes, sms), dev)
         lay = carry.layout
         self.args = _cuda.chunk_args(
             ctr=carry.ctr, bufs=self.bufs, q=carry.q, log=carry.log,
-            blk_cnt=self.blk_cnt, qlimit=carry.q.shape[0] - qmargin,
+            scratch=self.scratch, qlimit=carry.q.shape[0] - qmargin,
             n_props=lay.P, width=lay.W, n_actions=n_actions,
             f_small=f_small, f_large=f_large, ext=lay.ext,
             recent=lay.recent, cch=lay.cch)
@@ -443,10 +454,6 @@ class CardChunk:
         _cuda.chunk_begin(self.args, self.device, steps, target, grow_limit,
                           tag)
 
-    def launch_gate(self) -> None:
-        from ..ops import _cuda
-        _cuda.chunk_gate(self.args, self.device)
-
     def launch_steps(self) -> None:
         from ..ops import _cuda
         model = self._model
@@ -463,7 +470,6 @@ class CardChunk:
         _cuda.append(self.args, self.device)
 
     def _record(self) -> None:
-        self.launch_gate()
         self.launch_steps()
         self.launch_append()
 
@@ -573,8 +579,10 @@ class ChunkRunner:
             tag = self._tag + 1
             self._tag += steps
         if not carry.q.is_cuda:
+            f_small, f_large, qmargin = step_sizes(self.model, self.fmax)
             chunk_begin_reference(carry.ctr, carry.layout, steps, target,
-                                  grow_limit, tag)
+                                  grow_limit, tag, f_small, f_large,
+                                  carry.q.shape[0] - qmargin)
             for _ in range(steps):
                 if not iteration_reference(self.model, carry, self.fmax):
                     break  # nothing changed: the condition stays false

@@ -48,8 +48,9 @@ enum Stat {
 
 enum Probe { PROBE_DUP = 0, PROBE_CLAIMED = 1, PROBE_OVF = 2 };
 
-// The chunk's gate (chunk.cu gate_kernel writes it at the start of each
-// iteration; ops/_cuda.py G_* mirror it): which step size runs (0: none,
+// The chunk's gate (chunk.cu eval_gate writes it before each iteration:
+// chunk_begin_kernel for a chunk's first, K7's tail for every next one;
+// checker/device_loop.py G_* mirror it): which step size runs (0: none,
 // 1: the small one, 2: the large one), the queue head, the rows pending
 // (at most the size's), the step's owner-word tag, and the queue tail and
 // log length the append writes at.

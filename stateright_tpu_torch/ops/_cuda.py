@@ -2,7 +2,8 @@
 
 Each source (``fused_step.cu``: the single-chip step and the insert;
 ``sharded_step.cu``: the sharded engine's probe-free step and owner-side
-probe; ``chunk.cu``: the chunk's control kernels and K7, the append) is
+probe; ``chunk.cu``: the chunk's start and K7, the append, which between
+them evaluate the loop's gate) is
 compiled with ``nvcc`` for ``sm_90a`` into its own shared
 library with a plain C interface the first time a kernel is needed (never
 at import), all ``nvcc`` processes started together, into
@@ -15,8 +16,9 @@ exception. The wrappers check device, dtype, shape and contiguity,
 allocate outputs and scratch with torch, launch on the current stream and
 never synchronise. ``LAUNCHES`` counts each wrapper's launches.
 
-Inside a chunk (``checker/device_loop.py``) one loop iteration — the
-gate, K1-K3 of both step sizes (gated on the device) and K7 — is
+Inside a chunk (``checker/device_loop.py``) one loop iteration — K1-K3
+of both step sizes (gated on the device) and K7, whose tail evaluates
+the next iteration's gate — is
 captured once per carry allocation as a CUDA graph
 (:class:`ChunkGraph`) and replayed; a wrapper called while a graph is
 being captured records its launches with the graph, and each replay
@@ -54,12 +56,11 @@ _NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 #: insert), the symmetric steps
 #: ``fused_step_sym`` and ``fused_step_noprobe_sym`` (the same kernels
 #: with K1's symmetric instantiation), and the chunk's kernels:
-#: ``chunk_begin`` (once per chunk), ``chunk_gate`` (the iteration's
-#: loop condition) and ``append`` (K7: its count and its write launch)
+#: ``chunk_begin`` (once per chunk, with the chunk's first gate) and
+#: ``append`` (K7, with the next iteration's gate)
 LAUNCHES = {"fused_step": 0, "table_insert": 0, "fused_step_noprobe": 0,
             "probe_block": 0, "fused_step_sym": 0,
-            "fused_step_noprobe_sym": 0, "chunk_begin": 0, "chunk_gate": 0,
-            "append": 0}
+            "fused_step_noprobe_sym": 0, "chunk_begin": 0, "append": 0}
 
 #: while a graph is captured: the launches each wrapper recorded in it
 _CAPTURED = None
@@ -170,15 +171,20 @@ class ChunkArgs(ctypes.Structure):
     _fields_ = [
         ("ctr", _p), ("stats", _p), ("inserted", _p), ("flat", _p),
         ("ebits", _p), ("chi", _p), ("clo", _p), ("ohi", _p), ("olo", _p),
-        ("q", _p), ("log", _p), ("blk_cnt", _p), ("qlimit", _ll),
+        ("q", _p), ("log", _p), ("status", _p), ("ticket", _p),
+        ("qlimit", _ll),
         ("P", _i), ("W", _i), ("A", _i), ("log_cols", _i),
         ("stats_len", _i), ("f_small", _i), ("f_large", _i), ("ext", _i),
-        ("recent", _i), ("cch", _i), ("stream", _p),
+        ("recent", _i), ("cch", _i), ("tile_lanes", _i), ("stream", _p),
     ]
 
 
-#: lanes per block of K7 (``kAppendLanes`` of ``csrc/chunk.cu``)
-APPEND_LANES = 4096
+#: the tile sizes of K7 (lanes per block: 256 threads of 4 or 16 lanes;
+#: ``csrc/chunk.cu`` instantiates each)
+APPEND_TILES = (1024, 4096)
+#: K7's control words (``Ticket`` of ``csrc/chunk.cu``: the tickets drawn,
+#: the step's highest inserted lane + 1 under its launch's epoch)
+APPEND_TICKETS = 2
 
 #: the models the step kernels are instantiated for, by ``cuda_spec``
 #: name (``csrc/<header>``): the number of int parameters of the plain
@@ -205,7 +211,6 @@ _ENTRIES = {
                                 "srt_step_args_size")
     + [("srt_table_insert", StepArgs, "srt_step_args_size", 0)],
     "chunk": [("srt_chunk_begin", ChunkArgs, "srt_chunk_args_size", 4),
-              ("srt_chunk_gate", ChunkArgs, "srt_chunk_args_size", 0),
               ("srt_append", ChunkArgs, "srt_chunk_args_size", 0)],
     "sharded_step": _step_entries("srt_dedup_step", DedupArgs,
                                   "srt_dedup_args_size")
@@ -595,12 +600,44 @@ def table_insert(table, fhi, flo, valid, ws, max_rounds: int,
 
 # --- the chunk (csrc/chunk.cu) -----------------------------------------
 
-def append_blocks(lanes: int) -> int:
-    """K7's blocks over ``lanes`` lanes."""
-    return max(1, -(-lanes // APPEND_LANES))
+def append_tile(lanes: int, sms: int) -> int:
+    """K7's tile size for steps of up to ``lanes`` lanes on a card of
+    ``sms`` SMs: the largest that still gives at least three tiles for
+    every four SMs (fewer, longer tiles shorten the look-back; more,
+    shorter ones spread the row writes: on an H100, 2pc7's 454,656 lanes
+    take 4,096-lane tiles, IncrementLock(9)'s 110,592 and Increment(16)'s
+    196,608 take 1,024; ``tools/torch_append_sweep.py``)."""
+    want = (3 * sms) // 4
+    for tile in sorted(APPEND_TILES, reverse=True):
+        if lanes // tile >= want:
+            return tile
+    return min(APPEND_TILES)
 
 
-def chunk_args(*, ctr, bufs, q, log, blk_cnt, qlimit: int, n_props: int,
+def append_grid(lanes: int, tile_lanes: int) -> int:
+    """K7's blocks for steps of up to ``lanes`` lanes: one per tile of
+    ``tile_lanes`` lanes, and the tail."""
+    return max(1, -(-lanes // tile_lanes)) + 1
+
+
+def append_scratch(lanes: int, tile: int, device) -> dict:
+    """K7's scan state for steps of up to ``lanes`` lanes in tiles of
+    ``tile`` lanes, zeroed (no epoch matches it): ``status`` (int64, one
+    status word per block of the grid), ``ticket`` (int64 control words)
+    and ``tile``. Every K7 launch leaves them ready for the next. A
+    launch's epoch is its tickets over its blocks, so the scratch fixes
+    the grid: :func:`chunk_args` takes its tile size from it and refuses
+    it for a chunk of another grid."""
+    if tile not in APPEND_TILES:
+        raise ValueError(f"K7 has no {tile}-lane tile")
+    return {"status": torch.zeros((append_grid(lanes, tile),),
+                                  dtype=torch.int64, device=device),
+            "ticket": torch.zeros((APPEND_TICKETS,), dtype=torch.int64,
+                                  device=device),
+            "tile": tile}
+
+
+def chunk_args(*, ctr, bufs, q, log, scratch, qlimit: int, n_props: int,
                width: int, n_actions: int, f_small: int, f_large: int,
                ext: int, recent: int, cch: int) -> ChunkArgs:
     """The ``ChunkArgs`` of a chunk on the card: the counter block
@@ -608,18 +645,24 @@ def chunk_args(*, ctr, bufs, q, log, blk_cnt, qlimit: int, n_props: int,
     the step buffers ``bufs`` (:func:`step_buffers` at ``f_large`` rows,
     shared by both sizes; ``f_small`` 0: one size), the queue ``q``
     (int32 ``[qcap, width + 3]``) and log (int32 ``[cap, 4 or 6]``), K7's
-    block counts ``blk_cnt`` and ``qlimit``, the most ``q_tail`` may be
+    :func:`append_scratch` ``scratch`` (made for ``f_large`` rows: its
+    grid must be this chunk's) and ``qlimit``, the most ``q_tail`` may be
     before an iteration. The stream is set at each launch."""
     dev = ctr.device
     lanes = f_large * n_actions
+    status, ticket, tile = (scratch["status"], scratch["ticket"],
+                            scratch["tile"])
     _check(ctr, "ctr", torch.int32, 1, dev)
     _check(q, "q", torch.int32, 2, dev)
     _check(log, "log", torch.int32, 2, dev)
-    _check(blk_cnt, "blk_cnt", torch.int32, 1, dev)
+    _check(status, "status", torch.int64, 1, dev)
+    _check(ticket, "ticket", torch.int64, 1, dev)
     if q.shape[1] != width + 3 or log.shape[1] not in (4, 6):
         raise ValueError("q must be [qcap, W+3] and log [cap, 4 or 6]")
     # past ext: the port's seven fields, then the gate's six
-    if (ext + 13 > ctr.shape[0] or blk_cnt.shape[0] < append_blocks(lanes)
+    if (tile not in APPEND_TILES or ext + 13 > ctr.shape[0]
+            or status.shape[0] != append_grid(lanes, tile)
+            or ticket.shape[0] < APPEND_TICKETS
             or bufs["inserted"].shape[0] < lanes
             or bufs["inserted"].data_ptr() % 16
             or not 0 <= f_small <= f_large):
@@ -635,10 +678,11 @@ def chunk_args(*, ctr, bufs, q, log, blk_cnt, qlimit: int, n_props: int,
         clo=bufs["clo"].data_ptr(),
         ohi=bufs["ohi"].data_ptr() if sym else None,
         olo=bufs["olo"].data_ptr() if sym else None,
-        q=q.data_ptr(), log=log.data_ptr(), blk_cnt=blk_cnt.data_ptr(),
-        qlimit=qlimit, P=n_props, W=width, A=n_actions,
-        log_cols=log.shape[1], stats_len=bufs["stats"].shape[0],
-        f_small=f_small, f_large=f_large, ext=ext, recent=recent, cch=cch)
+        q=q.data_ptr(), log=log.data_ptr(), status=status.data_ptr(),
+        ticket=ticket.data_ptr(), qlimit=qlimit, P=n_props, W=width,
+        A=n_actions, log_cols=log.shape[1],
+        stats_len=bufs["stats"].shape[0], f_small=f_small, f_large=f_large,
+        ext=ext, recent=recent, cch=cch, tile_lanes=tile)
 
 
 def _chunk_launch(entry: str, name: str, what: str, args: ChunkArgs,
@@ -654,22 +698,17 @@ def chunk_begin(args: ChunkArgs, device, steps: int, target: int,
                 grow_limit: int, tag: int) -> None:
     """Launch the chunk's start: its ``steps``, ``target`` (the
     generated-transitions budget), ``grow_limit`` and first step ``tag``
-    into the counter block, and the per-chunk counters zeroed."""
+    into the counter block, the per-chunk counters zeroed, then the
+    first iteration's gate (the step's stats vector zeroed, the loop
+    condition on the counters, the step size, window and tag)."""
     _chunk_launch("srt_chunk_begin", "chunk_begin", "chunk begin", args,
                   device, steps, target, grow_limit, tag)
 
 
-def chunk_gate(args: ChunkArgs, device) -> None:
-    """Launch an iteration's gate: the step's stats vector zeroed, the
-    loop condition on the counters, the step size, window and tag."""
-    _chunk_launch("srt_chunk_gate", "chunk_gate", "chunk gate", args,
-                  device)
-
-
 def append(args: ChunkArgs, device) -> None:
-    """Launch K7 (its count and its write launch) over the step the gate
-    picked: the inserted lanes' queue and log rows in lane order at the
-    gate's q_tail and log_n, then the carry update."""
+    """Launch K7 over the step the gate picked: the inserted lanes'
+    queue and log rows in lane order at the gate's q_tail and log_n,
+    then the carry update and the next iteration's gate."""
     _chunk_launch("srt_append", "append", "append", args, device)
 
 

@@ -23,13 +23,16 @@ import jax.numpy as jnp  # noqa: E402
 from stateright_tpu.checker import device_loop as jdl  # noqa: E402
 from stateright_tpu.models import twopc as jtwopc  # noqa: E402
 from stateright_tpu.ops import expand as jexp  # noqa: E402
-from stateright_tpu_torch import TwoPhaseSys  # noqa: E402
+from stateright_tpu_torch import IncrementLock, TwoPhaseSys  # noqa: E402
 from stateright_tpu_torch.checker.device_loop import (  # noqa: E402
     B_DISC, B_GEN, B_LOG_N, B_OVF, B_Q_HEAD, B_Q_TAIL, B_VMAX, E_FAULT,
-    E_GATE, E_ITERS, E_STEPS, E_TAG, G_LEN, CtrLayout, append_reference,
-    run_chunk, seed_carry, step_sizes)
+    E_GATE, E_GROW, E_ITERS, E_STEPS, E_TAG, E_TARGET, G_HEAD, G_LBASE,
+    G_LEN, G_QBASE, G_SIZE, G_TAG, G_TAKE, I32_MAX, CtrLayout,
+    append_reference,
+    chunk_begin_reference, gate_reference, iteration_reference, run_chunk,
+    seed_carry, step_sizes)
 from stateright_tpu_torch.ops.fused import (  # noqa: E402
-    S_DISC, S_INSERTED, S_VALID, FusedOut)
+    S_DISC, S_INSERTED, S_VALID, FusedOut, stats_len)
 from stateright_tpu_torch.ops.hashtable import (  # noqa: E402
     table_insert_reference)
 from stateright_tpu_torch.ops.words import (  # noqa: E402
@@ -116,7 +119,7 @@ def test_append_matches_jax_compaction_and_appends(density, symmetry,
                    ohi=t["ohi"] if symmetry else t["chi"],
                    olo=t["olo"] if symmetry else t["clo"])
     q, log = from_numpy_u32(q0, "cpu"), from_numpy_u32(log0, "cpu")
-    append_reference(ctr, lay, q, log, out, a)
+    append_reference(ctr, lay, q, log, out, a, 0, f, qcap - lanes)
 
     got_q, got_log = to_numpy_u32(q), to_numpy_u32(log)
     np.testing.assert_array_equal(got_q[:qbase + cnt], jq[:qbase + cnt])
@@ -162,18 +165,19 @@ def test_append_flags_a_count_the_step_disagrees_with():
     log = torch.zeros((32, 4), dtype=torch.int32)
     ctr = torch.zeros((lay.length,), dtype=torch.int32)
     x = lay.ext
-    append_reference(ctr, lay, q, log, out, a)  # the gate is shut
+    append_reference(ctr, lay, q, log, out, a, 0, f, 32)  # the gate is shut
     assert not ctr.any() and not q.any()
     ctr[B_Q_TAIL] = 2
     ctr[x + E_GATE:x + E_GATE + G_LEN] = torch.tensor([2, 0, 2, 1, 2, 0])
-    append_reference(ctr, lay, q, log, out, a)
+    append_reference(ctr, lay, q, log, out, a, 0, f, 32)
     assert ctr[B_Q_TAIL] == 5 and ctr[x + E_FAULT] == 1
 
 
 # --- the loop condition -------------------------------------------------
 
-def _seeded(n: int, qcap: int, cap: int = 1 << 12, symmetry=False):
-    model = TwoPhaseSys(n)
+def _seeded(n: int, qcap: int, cap: int = 1 << 12, symmetry=False,
+            model=None):
+    model = TwoPhaseSys(n) if model is None else model
     init = model.init_states()[0]
     fp = model.fingerprint(init)
     carry = seed_carry(model, qcap, cap, [model.encode(init)], 0, [fp],
@@ -237,6 +241,189 @@ def test_chunk_stops_where_the_jax_condition_does(stop):
                       grow_limit=grow_limit,
                       target_remaining=max(target - int(c[B_GEN]), 0))
     assert again[lay.ext + E_ITERS] == (1 if stop == "steps" else 0)
+
+
+# --- the gate: at the chunk's start and in K7's tail ------------------------
+
+#: the chunk parameters (steps, target_remaining, grow_limit) of
+#: chip_smoke.py's check_control: one set that opens the gate, three that
+#: shut it
+GATE_PARAMS = {"open": (3, I32_MAX, I32_MAX),
+               "no_steps": (0, I32_MAX, I32_MAX),
+               "target": (3, 0, I32_MAX), "grow_limit": (3, I32_MAX, 0)}
+
+
+def _gate_of(ctr, lay) -> list:
+    x = lay.ext + E_GATE
+    return ctr[x:x + G_LEN].tolist()
+
+
+def _transcribed_gate(c, lay, f_small, f_large, qlimit) -> list:
+    """The gate from a transcription of the JAX package's make_cond with
+    the chunk's steps budget, and the step-size rule of its
+    small/large/small window loops."""
+    x = lay.ext
+    head, tail = int(c[B_Q_HEAD]), int(c[B_Q_TAIL])
+    avail = tail - head
+    go = (c[x + E_STEPS] > 0 and not c[x + E_FAULT]
+          and _jax_condition_holds(c, lay, c[x + E_TARGET], c[x + E_GROW],
+                                   qlimit, c[B_GEN]))
+    small = 0 < f_small and avail <= f_small
+    f = f_small if small else f_large
+    return [(1 if small else 2) if go else 0, head, min(avail, f),
+            int(c[x + E_TAG]), tail, int(c[B_LOG_N])]
+
+
+@pytest.mark.parametrize("case", list(GATE_PARAMS))
+def test_chunk_begin_leaves_the_gate_of_its_counters(case):
+    """The plain ``chunk_begin`` writes the chunk's parameters, zeroes
+    the per-chunk counters and the stats vector, and leaves the gate
+    that ``gate_reference`` gives on the counters it leaves (and the
+    transcribed JAX condition): open only under the open parameters."""
+    fmax = 512
+    model, carry = _seeded(5, 1 << 15, 1 << 15)
+    run_chunk(model, carry, fmax=fmax, steps=3)
+    lay = carry.layout
+    f_small, f_large, qmargin = step_sizes(model, fmax)
+    qlimit = carry.q.shape[0] - qmargin
+    ctr = carry.ctr.clone()
+    stats = torch.full((stats_len(model),), -1, dtype=torch.int32)
+    gate = chunk_begin_reference(ctr, lay, *GATE_PARAMS[case], 7, f_small,
+                                 f_large, qlimit, stats)
+    c = ctr.numpy()
+    x = lay.ext
+    assert (c[x + E_STEPS], c[x + E_TAG], c[x + E_ITERS], c[B_GEN]) == (
+        GATE_PARAMS[case][0], 7, 0, 0)
+    assert not stats.any()
+    assert _gate_of(ctr, lay) == gate
+    assert gate == gate_reference(ctr.clone(), lay, f_small, f_large,
+                                  qlimit)
+    assert gate == _transcribed_gate(c, lay, f_small, f_large, qlimit)
+    assert (gate[G_SIZE] != 0) == (case == "open")
+    # the counters the gate does not read are the carry's
+    np.testing.assert_array_equal(c[B_Q_HEAD:B_LOG_N + 1],
+                                  carry.counters()[B_Q_HEAD:B_LOG_N + 1])
+
+
+TAIL_CASES = {"2pc3": (lambda: TwoPhaseSys(3), 16, 287),
+              "2pc5": (lambda: TwoPhaseSys(5), 512, 8831),
+              "lock3": (lambda: IncrementLock(3), 16, 60)}
+
+
+@pytest.mark.parametrize("name", list(TAIL_CASES))
+def test_append_tail_gate_is_the_gate_of_the_updated_carry(name):
+    """After every plain append of a whole search (one chunk), the gate
+    it left equals ``gate_reference`` (and the transcribed JAX condition)
+    on the counters it updated, the next iteration runs the step it
+    picked, and the last one is shut with the queue drained."""
+    make, fmax, log_rows = TAIL_CASES[name]
+    model, carry = _seeded(0, 1 << 15, 1 << 15, model=make())
+    lay = carry.layout
+    f_small, f_large, qmargin = step_sizes(model, fmax)
+    qlimit = carry.q.shape[0] - qmargin
+    chunk_begin_reference(carry.ctr, lay, 10**6, I32_MAX, I32_MAX, 1,
+                          f_small, f_large, qlimit)
+    sizes = set()
+    while True:
+        gate = _gate_of(carry.ctr, lay)
+        if not iteration_reference(model, carry, fmax):
+            break
+        sizes.add(gate[G_SIZE])
+        c = carry.counters()
+        # the step the gate picked: its rows taken, its tag spent
+        assert c[B_Q_HEAD] == gate[G_HEAD] + gate[G_TAKE]
+        assert c[lay.ext + E_TAG] == gate[G_TAG] + 1
+        assert (c[B_Q_TAIL] - gate[G_QBASE] == c[B_LOG_N] - gate[G_LBASE]
+                >= 0)
+        tail_gate = _gate_of(carry.ctr, lay)
+        assert tail_gate == gate_reference(carry.ctr.clone(), lay, f_small,
+                                           f_large, qlimit)
+        assert tail_gate == _transcribed_gate(c, lay, f_small, f_large,
+                                              qlimit)
+    c = carry.counters()
+    assert _gate_of(carry.ctr, lay)[G_SIZE] == 0
+    assert c[B_Q_HEAD] == c[B_Q_TAIL] and c[B_LOG_N] == log_rows
+    assert sizes == ({1, 2} if f_small else {2})
+
+
+@pytest.mark.parametrize("stop", ["steps", "target", "grow_limit", "done"])
+def test_a_shut_gate_stays_shut(stop):
+    """A chunk stopped by its steps, its generation target, its growth
+    limit or the end of the search leaves a shut gate; further
+    iterations with nothing changed run no step, change no counter, row
+    or gate, and the gate recomputed on those counters is still shut."""
+    fmax = 16
+    model, carry = _seeded(4, 1 << 13)
+    kw = {"steps": dict(steps=5), "target": dict(steps=64,
+                                                 target_remaining=300),
+          "grow_limit": dict(steps=64, grow_limit=150),
+          "done": dict(steps=10**4)}[stop]
+    c = run_chunk(model, carry, fmax=fmax, **kw)
+    lay = carry.layout
+    assert c[lay.ext + E_ITERS] > 0
+    f_small, f_large, qmargin = step_sizes(model, fmax)
+    qlimit = carry.q.shape[0] - qmargin
+    state = (carry.ctr.clone(), carry.q.clone(), carry.log.clone())
+    assert _gate_of(carry.ctr, lay)[G_SIZE] == 0
+    for _ in range(3):
+        assert not iteration_reference(model, carry, fmax)
+    for before, now in zip(state, (carry.ctr, carry.q, carry.log)):
+        assert torch.equal(before, now)
+    assert gate_reference(carry.ctr.clone(), lay, f_small, f_large,
+                          qlimit)[G_SIZE] == 0
+    if stop == "done":
+        assert c[B_Q_HEAD] == c[B_Q_TAIL] and c[B_LOG_N] == 1567
+
+
+@pytest.mark.parametrize("lanes,sms,tile", [
+    (454_656, 132, 4096), (1_007_616, 132, 4096), (110_592, 132, 1024),
+    (196_608, 132, 1024), (9_472, 132, 1024), (454_656, 8, 4096),
+    (100_000, 20, 4096)])
+def test_append_tile_keeps_three_tiles_for_four_sms(lanes, sms, tile):
+    """K7's tile size: the larger of 4,096 and 1,024 lanes that gives at
+    least three tiles for every four SMs (2pc7, 2pc16, then
+    IncrementLock(9) and Increment(16) at 12,288 rows on 132 SMs), the
+    smallest when none does; its grid is one block a tile and the
+    tail."""
+    from stateright_tpu_torch.ops import _cuda
+    assert _cuda.append_tile(lanes, sms) == tile
+    assert _cuda.append_grid(lanes, tile) == -(-lanes // tile) + 1
+
+
+@pytest.mark.parametrize("rows,tile,fits", [
+    (600, 1024, True), (600, 4096, True), (1200, 1024, False),
+    (1200, 4096, False), (601, 4096, True)],
+    ids=["own-1024", "own-4096", "more-rows-1024", "more-rows-4096",
+         "same-grid-4096"])
+def test_chunk_args_takes_the_tile_of_its_scratch(rows, tile, fits):
+    """K7's scan state fixes its grid (a launch's epoch is its tickets
+    over its blocks): ``chunk_args`` takes the tile size from the scratch
+    and refuses a scratch made for another grid, whose blocks would split
+    over two epochs and wait forever; a tile K7 lacks is refused when
+    the scratch is made."""
+    from stateright_tpu_torch.ops import _cuda
+    f_large, a, w, n_props = 600, TwoPhaseSys(7).max_actions, 4, 3
+    cpu = torch.device("cpu")
+    lay = CtrLayout(n_props, w)
+    bufs = _cuda.step_buffers(TwoPhaseSys(7), f_large, S_DISC + 3 * n_props,
+                              False, cpu, 1)
+    scratch = _cuda.append_scratch(rows * a, tile, cpu)
+    assert scratch["status"].shape[0] == _cuda.append_grid(rows * a, tile)
+
+    def args():
+        return _cuda.chunk_args(
+            ctr=torch.zeros((lay.length,), dtype=torch.int32),
+            bufs=bufs, q=torch.zeros((64, w + 3), dtype=torch.int32),
+            log=torch.zeros((64, 4), dtype=torch.int32), scratch=scratch,
+            qlimit=32, n_props=n_props, width=w, n_actions=a, f_small=0,
+            f_large=f_large, ext=lay.ext, recent=lay.recent, cch=lay.cch)
+    if fits:
+        assert args().tile_lanes == tile
+    else:
+        with pytest.raises(ValueError, match="do not fit"):
+            args()
+    with pytest.raises(ValueError, match="no 2048-lane tile"):
+        _cuda.append_scratch(f_large * a, 2048, cpu)
 
 
 # --- the engine: target_state_count, the pipeline, profile() -------------

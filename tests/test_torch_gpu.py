@@ -786,7 +786,9 @@ def test_insert_over_several_launch_ranges_keeps_the_lowest_lane():
 
 # --- the chunk on the card (csrc/chunk.cu) ---------------------------------
 
-APPEND_CASES = [(d, s, e) for d in (0.0, 0.01, 0.5, 1.0)
+#: the inserted mask's density; "tile0": the first 4,096-lane tile all
+#: inserted (the shared-memory stage full), 1 % after it
+APPEND_CASES = [(d, s, e) for d in (0.0, 0.01, 0.5, 1.0, "tile0")
                 for s in (False, True) for e in (False, True)]
 
 
@@ -797,10 +799,11 @@ APPEND_CASES = [(d, s, e) for d in (0.0, 0.01, 0.5, 1.0)
          for d, s, e in APPEND_CASES])
 def test_append_matches_plain_version_on_random_masks(density, symmetry,
                                                       near_end):
-    """K7 against ``append_reference`` on random words and a random
-    inserted mask over several of its blocks, for the large and the small
-    step size, at the end of the queue and log and inside them: the
-    counter block, queue and log bit for bit."""
+    """K7 at each of its tile sizes against ``append_reference`` on random
+    words and a random inserted mask over several of its tiles, for the
+    large and the small step size (one scan state across every launch),
+    at the end of the queue and log and inside them: the counter block
+    (the next gate included), stats vector, queue and log bit for bit."""
     _need_card()
     from stateright_tpu_torch.checker.device_loop import (
         B_DISC, B_LOG_N, B_Q_HEAD, B_Q_TAIL, E_GATE, E_STEPS, G_LEN,
@@ -810,12 +813,18 @@ def test_append_matches_plain_version_on_random_masks(density, symmetry,
                                                 S_VALID, FusedOut)
     from stateright_tpu_torch.ops.words import from_numpy_u32
     dev = torch.device("cuda")
-    rng = np.random.default_rng([int(density * 100), symmetry, near_end])
-    f_small, f_large, a, w, n_props = 96, 300, 37, 4, 3
+    rng = np.random.default_rng([int(100 * (density if density != "tile0"
+                                            else 2)), symmetry, near_end])
+    # the small step spans 3 of the grid's 6 4,096-lane tiles: its tail is
+    # a block past them that waits for their prefix
+    f_small, f_large, a, w, n_props = 240, 600, 37, 4, 3
     lay = CtrLayout(n_props, w)
     lc = 6 if symmetry else 4
-    for size, f in ((2, f_large), (1, f_small)):
-        lanes_l = f_large * a
+    lanes_l = f_large * a
+    # one scan state per tile size (grid), kept across both step sizes
+    scratch = {t: _cuda.append_scratch(lanes_l, t, dev)
+               for t in _cuda.APPEND_TILES}
+    for launch, (size, f) in enumerate(((2, f_large), (1, f_small)), 1):
         lanes = f * a
         qcap, logcap = 4 * lanes_l, 3 * lanes_l
 
@@ -828,8 +837,12 @@ def test_append_matches_plain_version_on_random_masks(density, symmetry,
                                   n_props, symmetry, dev, 1)
         for name in ("flat", "chi", "clo", "ohi", "olo", "ebits_out"):
             bufs[name].copy_(words(*bufs[name].shape))
-        bufs["inserted"].copy_(torch.from_numpy(
-            rng.random(lanes_l) < density))
+        if density == "tile0":
+            mask = rng.random(lanes_l) < 0.01
+            mask[:max(_cuda.APPEND_TILES)] = True
+        else:
+            mask = rng.random(lanes_l) < density
+        bufs["inserted"].copy_(torch.from_numpy(mask))
         cnt = int(bufs["inserted"][:lanes].sum())
         st = np.zeros(S_DISC + 3 * n_props, np.int64)
         st[S_VALID], st[S_INSERTED] = lanes, cnt
@@ -845,70 +858,155 @@ def test_append_matches_plain_version_on_random_masks(density, symmetry,
         ctr[lay.ext + E_STEPS] = 9
         ctr[lay.ext + E_GATE:lay.ext + E_GATE + G_LEN] = torch.tensor(
             [size, head, f - 3, 5, qbase, lbase], dtype=torch.int32)
-        blk = torch.zeros((_cuda.append_blocks(lanes_l),),
-                          dtype=torch.int32, device=dev)
-        start = (ctr.clone(), q.clone(), log.clone())
-        args = _cuda.chunk_args(
-            ctr=ctr, bufs=bufs, q=q, log=log, blk_cnt=blk,
-            qlimit=qcap - lanes_l, n_props=n_props, width=w, n_actions=a,
-            f_small=f_small, f_large=f_large, ext=lay.ext,
-            recent=lay.recent, cch=lay.cch)
-        _cuda.append(args, dev)
-        got = (ctr.clone(), q.clone(), log.clone())
-        ctr.copy_(start[0])
-        q.copy_(start[1])
-        log.copy_(start[2])
+        live = (ctr, q, log, bufs["stats"])
+        start = [t.clone() for t in live]
         out = FusedOut(
             pbits=None, ebits=bufs["ebits_out"][:f], terminal=None,
             flat=bufs["flat"][:lanes], chi=bufs["chi"][:lanes],
             clo=bufs["clo"][:lanes], cvalid=None, dvalid=None,
             inserted=bufs["inserted"][:lanes], stats=bufs["stats"],
             ohi=bufs["ohi"][:lanes], olo=bufs["olo"][:lanes])
-        append_reference(ctr, lay, q, log, out, a)
-        for name, x, y in zip(("ctr", "q", "log"), got, (ctr, q, log)):
-            assert torch.equal(x, y), (size, name)
+        append_reference(ctr, lay, q, log, out, a, f_small, f_large,
+                         qcap - lanes_l)
+        want = [t.clone() for t in live]
         assert int(ctr[B_Q_TAIL]) == qbase + cnt
+        for tile in _cuda.APPEND_TILES:
+            for t, v in zip(live, start):
+                t.copy_(v)
+            args = _cuda.chunk_args(
+                ctr=ctr, bufs=bufs, q=q, log=log, scratch=scratch[tile],
+                qlimit=qcap - lanes_l, n_props=n_props, width=w,
+                n_actions=a, f_small=f_small, f_large=f_large, ext=lay.ext,
+                recent=lay.recent, cch=lay.cch)
+            _cuda.append(args, dev)
+            for name, x, y in zip(("ctr", "q", "log", "stats"), live, want):
+                assert torch.equal(x, y), (size, tile, name)
+            # one ticket a block and launch; the highest inserted lane
+            # under this launch's epoch
+            tickets, last = scratch[tile]["ticket"].tolist()
+            assert tickets == launch * _cuda.append_grid(lanes_l, tile)
+            ins = np.flatnonzero(mask[:lanes])
+            if len(ins):
+                assert last == (launch << 32) | int(ins[-1]) + 1
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("n,symmetry,f", [(7, False, 12288), (7, False, 256),
-                                          (16, True, 12288)],
-                         ids=["2pc7-f12288", "2pc7-f256", "2pc16-ref"])
-def test_append_matches_plain_version_after_a_real_step(n, symmetry, f):
-    """The gate and the gated step (K1-K3) of a real mid-search
-    iteration, then K7 or ``append_reference`` from the same state: the
-    counters, queue and log rows bit for bit, its count the step's."""
+@pytest.mark.parametrize(
+    "name,symmetry,f", [("2pc7", False, 12288), ("2pc7", False, 256),
+                        ("2pc16", True, 12288), ("lock9", False, 12288)],
+    ids=["2pc7-f12288", "2pc7-f256", "2pc16-ref", "lock9-f12288"])
+def test_append_matches_plain_version_after_a_real_step(name, symmetry, f):
+    """The chunk's start (with its gate) and the gated step (K1-K3) of a
+    real mid-search iteration, then K7 or ``append_reference`` from the
+    same state: the counters (the next gate included), stats vector,
+    queue and log rows bit for bit, its count the step's. IncrementLock(9)
+    appends 14-word queue rows."""
     _need_card()
+    from stateright_tpu_torch import IncrementLock
     from stateright_tpu_torch.checker.device_loop import (
         B_Q_TAIL, E_FAULT, E_GATE, G_SIZE, I32_MAX, ChunkRunner,
-        append_reference)
+        append_reference, step_sizes)
     from stateright_tpu_torch.ops.fused import S_INSERTED
-    model = TwoPhaseSys(n)
+    model = {"2pc7": lambda: TwoPhaseSys(7), "2pc16": lambda: TwoPhaseSys(16),
+             "lock9": lambda: IncrementLock(9)}[name]()
     dev = torch.device("cuda")
     carry = _mid_search(model, 12288, symmetry, dev)
     lay = carry.layout
+    f_small, f_large, qmargin = step_sizes(model, f)
     card = ChunkRunner(model, carry, f).card()
     carry.ws.step += 1
     card.begin(1, I32_MAX, I32_MAX, carry.ws.step)
-    card.launch_gate()
     card.launch_steps()
     size = int(carry.ctr[lay.ext + E_GATE + G_SIZE])
     assert size == 2
     out = card.outputs(size)
-    start = (carry.ctr.clone(), carry.q.clone(), carry.log.clone())
+    stats = out.stats.clone()
+    start = (carry.ctr.clone(), carry.q.clone(), carry.log.clone(), stats)
     card.launch_append()
-    got = (carry.ctr.clone(), carry.q.clone(), carry.log.clone())
-    carry.ctr.copy_(start[0])
-    carry.q.copy_(start[1])
-    carry.log.copy_(start[2])
+    got = (carry.ctr.clone(), carry.q.clone(), carry.log.clone(),
+           out.stats.clone())
+    for t, v in zip((carry.ctr, carry.q, carry.log, out.stats), start):
+        t.copy_(v)
     append_reference(carry.ctr, lay, carry.q, carry.log, out,
-                     model.max_actions)
-    for x, y in zip(got, (carry.ctr, carry.q, carry.log)):
+                     model.max_actions, f_small, f_large,
+                     carry.q.shape[0] - qmargin)
+    for x, y in zip(got, (carry.ctr, carry.q, carry.log, out.stats)):
         assert torch.equal(x, y)
     cnt = int(out.inserted.sum())
-    assert cnt == int(out.stats[S_INSERTED]) > 0
+    assert cnt == int(stats[S_INSERTED]) > 0
     assert int(got[0][B_Q_TAIL]) - int(start[0][B_Q_TAIL]) == cnt
     assert int(got[0][lay.ext + E_FAULT]) == 0
+    assert int(got[0][lay.ext + E_GATE + G_SIZE]) == 0  # its one step spent
+    assert not got[3].any()
+
+
+@pytest.mark.gpu
+def test_a_shut_gate_leaves_everything_as_it_was():
+    """With the gate shut (a chunk of no steps), the gated step and K7,
+    launched alone and as the captured graph, change no counter, row,
+    stats word, status word or ticket."""
+    _need_card()
+    from stateright_tpu_torch.checker.device_loop import (
+        E_GATE, G_SIZE, I32_MAX, ChunkRunner)
+    model = TwoPhaseSys(7)
+    dev = torch.device("cuda")
+    carry = _mid_search(model, 300, False, dev)
+    card = ChunkRunner(model, carry, 12288).card()
+    card.begin(0, I32_MAX, I32_MAX, carry.ws.step + 1)
+    assert int(carry.ctr[carry.layout.ext + E_GATE + G_SIZE]) == 0
+    card.bufs["stats"].fill_(5)
+    bufs = (carry.ctr, carry.q, carry.log, carry.table, card.bufs["stats"],
+            card.scratch["status"], card.scratch["ticket"])
+    before = [t.clone() for t in bufs]
+    card.launch_steps()
+    card.launch_append()
+    card.graph.replay(3)
+    torch.cuda.synchronize()
+    for t, b in zip(bufs, before):
+        assert torch.equal(t, b)
+
+
+@pytest.mark.gpu
+def test_graph_replays_match_plain_iterations():
+    """Three replays of the captured iteration against three plain ones
+    from the same state (the card's gated step, then ``append_reference``
+    on its outputs): the counters (each next gate included), stats
+    vector, queue and log bit for bit, so K7's ticket and status words
+    carry over from one replay to the next."""
+    _need_card()
+    from stateright_tpu_torch.checker.device_loop import (
+        E_GATE, E_ITERS, G_SIZE, I32_MAX, ChunkRunner, append_reference,
+        step_sizes)
+    model = TwoPhaseSys(7)
+    dev = torch.device("cuda")
+    carry = _mid_search(model, 12288, False, dev)
+    lay = carry.layout
+    f = 12288
+    f_small, f_large, qmargin = step_sizes(model, f)
+    card = ChunkRunner(model, carry, f).card()
+    ws = carry.ws
+    tag = ws.step + 1
+    ws.step += 3
+    card.begin(3, I32_MAX, I32_MAX, tag)
+    state = (carry.ctr, carry.q, carry.log, carry.table, carry.ring,
+             ws.owner, ws.disc_cand, card.bufs["stats"])
+    for i in range(3):
+        before = [t.clone() for t in state]
+        size = int(carry.ctr[lay.ext + E_GATE + G_SIZE])
+        assert size != 0
+        card.launch_steps()
+        append_reference(carry.ctr, lay, carry.q, carry.log,
+                         card.outputs(size), model.max_actions, f_small,
+                         f_large, carry.q.shape[0] - qmargin)
+        plain = (carry.ctr.clone(), carry.q.clone(), carry.log.clone(),
+                 card.bufs["stats"].clone())
+        for t, b in zip(state, before):
+            t.copy_(b)
+        card.graph.replay(1)
+        for x, y in zip(plain, (carry.ctr, carry.q, carry.log,
+                                card.bufs["stats"])):
+            assert torch.equal(x, y), i
+        assert int(carry.ctr[lay.ext + E_ITERS]) == i + 1
 
 
 def _record(ck):
