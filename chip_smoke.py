@@ -9,6 +9,25 @@ Phases, one JSON line each:
 1. device  — the card (torch and ``nvidia-smi``), torch/CUDA/nvcc versions;
 2. build   — the nvcc build of ``stateright_tpu_torch/csrc`` for sm_90a:
              seconds, and each kernel's registers and shared memory;
+   race    — the host race on the main path (``spawn_gpu()`` races a
+             budgeted host BFS against the card by default):
+             IncrementLock(3) raced (61 states, won by the host, its wall),
+             the host BFS alone and the card alone (``race=False``: K1-K3, K4 and K7
+             launched); TwoPhaseSys(7) raced (won by the card, the pinned
+             count and digest) against ``race=False`` in turns, walls and
+             ``loop_s``; a chunk that fails to launch ends the race
+             (``join()`` raises, the host's answer held back);
+             TwoPhaseSys(3) raced against ``spawn_bfs()``'s set;
+             ``increment_lock check-gpu 3`` in fresh processes, raced
+             and ``--no-race`` in turns (the cold-start walls);
+   checkpoint — TwoPhaseSys(7) bounded at 100,000 generated states with
+             ``resumable=True``, saved, resumed on the card to the pinned
+             count and digest (a witness through the stitched mirror;
+             K4 launched on the preload, the checkpoint's whole mirror,
+             and held against its plain version and timed there, with
+             ``seed_s``, the file's size and ``save()``'s seconds); then
+             TwoPhaseSys(16, complete_symmetry=True) resumed to its exact
+             21,335 keys and digest through K1-sym;
 3. kernels — each kernel held against its plain torch version on the card
              at the main paths' shapes (2pc n=7, a mid-search frontier of
              12,288 and of 256 rows, a 2**20-slot table, a 2**15-slot
@@ -96,6 +115,7 @@ import os
 import re
 import subprocess
 import sys
+import threading
 import time
 
 #: TwoPhaseSys(7) full enumeration: unique states (the oracle the JAX
@@ -194,6 +214,19 @@ def emit(**fields) -> None:
 def run(cmd) -> str:
     return subprocess.run(cmd, capture_output=True, text=True,
                           check=True, timeout=60).stdout.strip()
+
+
+def zero_launches() -> None:
+    """Set every kernel's launch count to 0, once no retired racer (a
+    raced run's loser, which may still be draining a chunk) is alive to
+    add to them."""
+    from stateright_tpu_torch.checker import race
+    from stateright_tpu_torch.ops import _cuda
+
+    if not race.join_losers():
+        raise AssertionError("a raced run's loser is still running")
+    for key in _cuda.LAUNCHES:
+        _cuda.LAUNCHES[key] = 0
 
 
 def fp_digest(fps) -> str:
@@ -1317,13 +1350,11 @@ def end_to_end_sym(model, path_kernels, off_kernels, want=None, **opts):
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    for key in _cuda.LAUNCHES:
-        _cuda.LAUNCHES[key] = 0
+    zero_launches()
     t0 = time.perf_counter()
-    builder = model.checker().symmetry_fn(model.representative)
-    if opts:
-        builder = builder.gpu_options(**opts)
-    ck = builder.spawn_gpu().join()
+    # race=False: the card alone (symmetry is never raced anyway)
+    ck = model.checker().symmetry_fn(model.representative).gpu_options(
+        race=False, **opts).spawn_gpu().join()
     wall = time.perf_counter() - t0
     launches = dict(_cuda.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
@@ -1413,13 +1444,12 @@ def end_to_end(model_cls, path_kernels, **opts):
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    for key in _cuda.LAUNCHES:
-        _cuda.LAUNCHES[key] = 0
+    zero_launches()
     t0 = time.perf_counter()
-    builder = model_cls(7).checker()
-    if opts:
-        builder = builder.gpu_options(**opts)
-    ck = builder.spawn_gpu().join()
+    # race=False: the card alone, where a kernel fault raises (a raced
+    # run could adopt the host BFS's answer instead)
+    ck = model_cls(7).checker().gpu_options(race=False, **opts) \
+        .spawn_gpu().join()
     wall = time.perf_counter() - t0
     launches = dict(_cuda.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
@@ -1463,8 +1493,8 @@ def mirror_vs_plain(card) -> dict:
     reproduce the JAX package lane for lane. The set gate already holds;
     this counts the rows where the winner rules differ (ROADMAP C1)."""
     t0 = time.perf_counter()
-    cpu = card.model().checker().gpu_options(device="cpu").spawn_gpu() \
-        .join()
+    cpu = card.model().checker().gpu_options(device="cpu", race=False) \
+        .spawn_gpu().join()
     cpu_wall = time.perf_counter() - t0
     cpu.generated_fingerprints()  # pulls the mirror
     # the mirrors are engine-internal: this diagnostic reads them
@@ -1473,6 +1503,361 @@ def mirror_vs_plain(card) -> dict:
     return {"rows": len(a), "parents_differ": sum(
         1 for k, v in a if cpu._generated.get(k) != v),
         "first_row_differing": first, "cpu_wall_s": cpu_wall}
+
+
+def race_phase() -> dict:
+    """The host race on the main path (``spawn_gpu()`` with default
+    options races a budgeted host BFS against the card): IncrementLock(3)
+    raced (61 states, won by the host), then the host BFS alone and the
+    card alone (K1-K3 and K7 launched), the margin the host's win rests
+    on; the same model raced with a chunk that fails to launch and the
+    host held back, whose ``join()`` must raise (a device error is never
+    hidden by the host's answer); TwoPhaseSys(7) raced (won by the card,
+    the pinned count and digest), with its walls and ``loop_s`` against
+    ``race=False`` in turns; TwoPhaseSys(3) raced against
+    ``spawn_bfs()``'s set; and the ``check-gpu 3`` subcommand in fresh
+    processes, raced and ``--no-race`` in turns (what a small model costs
+    from a cold start). One ``race`` line each; returns them."""
+    from stateright_tpu_torch import IncrementLock, TwoPhaseSys
+    from stateright_tpu_torch.checker import bfs, device_loop, race
+    from stateright_tpu_torch.checker.race import RacingChecker
+
+    out = {}
+
+    def raced(model, **opts):
+        if not race.join_losers():
+            raise AssertionError("a raced run's loser is still running")
+        t0 = time.perf_counter()
+        ck = model.checker().gpu_options(**opts).spawn_gpu()
+        if not isinstance(ck, RacingChecker):
+            raise AssertionError(f"spawn_gpu() did not race: {type(ck)}")
+        ck.join()
+        return ck, time.perf_counter() - t0
+
+    # a small model: the host answers inside its budget
+    ck, wall = raced(IncrementLock(3), capacity=1 << 14)
+    ck.assert_properties()
+    t0 = time.perf_counter()
+    bfs3 = IncrementLock(3).checker().spawn_bfs().join()
+    host_wall = time.perf_counter() - t0
+    res = {"model": "IncrementLock(3)", "raced": True, "wall_s": wall,
+           "host_alone_wall_s": host_wall,
+           "engine": ck.profile()["engine"],
+           "unique": ck.unique_state_count(),
+           "checks": {"unique": ck.unique_state_count() == 61,
+                      "engine": ck.profile()["engine"] == "host",
+                      "set": ck.generated_fingerprints()
+                      == bfs3.generated_fingerprints()}}
+    emit(phase="race", **res)
+    out["lock3_raced"] = res
+    # the same model on the card alone: its kernels run
+    lock_kernels = ("fused_step", "table_insert", "chunk_begin", "append")
+    res, _ck = end_to_end_model(
+        IncrementLock(3), lock_kernels,
+        want=(61, 61, fp_digest(bfs3.generated_fingerprints())),
+        holds=("fin", "mutex"), capacity=1 << 14)
+    emit(phase="race", raced=False, **res)
+    out["lock3_card"] = res
+
+    # a device error ends the race: the host racer, held back until the
+    # race is decided, would otherwise answer inside its budget
+    if not race.join_losers():
+        raise AssertionError("a raced run's loser is still running")
+    ck = IncrementLock(3).checker().gpu_options(
+        capacity=1 << 14, race_budget=60.0).spawn_gpu()
+    host_run, dispatch = bfs.BfsChecker._run, device_loop.ChunkRunner.dispatch
+
+    def fail(*args, **kwargs):
+        raise RuntimeError("injected chunk failure")
+
+    def held(self):
+        ck._decided.wait(30)
+        host_run(self)
+
+    bfs.BfsChecker._run, device_loop.ChunkRunner.dispatch = held, fail
+    t0 = time.perf_counter()
+    try:
+        ck.join()
+        raised = None
+    except RuntimeError as exc:
+        raised = str(exc)
+    finally:
+        bfs.BfsChecker._run, device_loop.ChunkRunner.dispatch = (host_run,
+                                                                 dispatch)
+    wall = time.perf_counter() - t0
+    res = {"model": "IncrementLock(3)", "raced": True,
+           "injected": "ChunkRunner.dispatch raises", "wall_s": wall,
+           "raised": raised,
+           "checks": {"raised": raised == "injected chunk failure",
+                      "prompt": wall < 20,
+                      "losers": race.join_losers()}}
+    emit(phase="race", **res)
+    out["device_error"] = res
+    del ck
+
+    # the default 2pc7 run: won by the card; raced and unraced in turns
+    turns = []
+    for turn in range(2):
+        for mode in ("raced", "race=False"):
+            if mode == "race=False":
+                if not race.join_losers():
+                    raise AssertionError("a raced loser is still running")
+                t0 = time.perf_counter()
+                ck = TwoPhaseSys(7).checker().gpu_options(race=False) \
+                    .spawn_gpu().join()
+                wall = time.perf_counter() - t0
+            else:
+                ck, wall = raced(TwoPhaseSys(7))
+            prof = ck.profile()
+            digest = fp_digest(ck.generated_fingerprints())
+            res = {"model": "TwoPhaseSys(7)", "mode": mode, "turn": turn,
+                   "wall_s": wall, "engine": prof["engine"],
+                   **{k: prof.get(k) for k in (
+                       "seed_s", "capture_s", "loop_s", "sync_s",
+                       "chunks", "graph_launches")},
+                   "unique": ck.unique_state_count(),
+                   "checks": {
+                       "unique": ck.unique_state_count() == UNIQUE_2PC7,
+                       "generated": ck.state_count() == GENERATED_2PC7,
+                       "digest": digest == DIGEST_2PC7,
+                       "engine": prof["engine"] == (
+                           "gpu" if mode == "race=False" else "device")}}
+            emit(phase="race", **res)
+            turns.append(res)
+            del ck
+    out["2pc7"] = turns
+
+    # whoever wins a full enumeration, its set is the host BFS's
+    ck, wall = raced(TwoPhaseSys(3), capacity=1 << 12)
+    res = {"model": "TwoPhaseSys(3)", "raced": True, "wall_s": wall,
+           "engine": ck.profile()["engine"],
+           "checks": {"set": ck.generated_fingerprints()
+                      == TwoPhaseSys(3).checker().spawn_bfs().join()
+                      .generated_fingerprints()}}
+    emit(phase="race", **res)
+    out["2pc3"] = res
+
+    # the examples' check-gpu (spawn_gpu().report(sys.stdout)) in fresh
+    # processes, raced and on the card alone in turns: the wall a user
+    # of a small model pays from a cold start (the interpreter, torch,
+    # the CUDA context, the kernels' load and the capture)
+    for i, flags in enumerate(([], ["--no-race"], ["--no-race"], [],
+                               [], ["--no-race"])):
+        cmd = [sys.executable, "-m", "stateright_tpu_torch.examples."
+               "increment_lock", "check-gpu", "3", *flags]
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True, env={**os.environ, "PYTHONUNBUFFERED": "1"},
+            cwd=os.path.dirname(os.path.abspath(__file__)))
+        killer = threading.Timer(300, proc.kill)  # a hung run ends
+        killer.start()
+        lines, done_at = [], None
+        for line in proc.stdout:
+            lines.append(line.rstrip("\n"))
+            if done_at is None and line.startswith("Done."):
+                done_at = time.perf_counter() - t0
+        proc.wait()
+        killer.cancel()
+        wall = time.perf_counter() - t0
+        done = [ln for ln in lines if ln.startswith("Done.")]
+        engine = [ln.split()[1].split("=", 1)[1] for ln in lines
+                  if ln.startswith("# engine=")]
+        want = ("gpu",) if flags else ("host", "device")
+        res = {"command": " ".join(["increment_lock check-gpu 3",
+                                    *flags]),
+               "turn": i, "rc": proc.returncode, "done_line_s": done_at,
+               "process_wall_s": wall,
+               "engine": engine[0] if engine else None,
+               "output": "\n".join(lines)[-2000:],
+               "checks": {"rc": proc.returncode == 0,
+                          "done": len(done) == 1 and done[0].startswith(
+                              "Done. states=61, unique=61"),
+                          "engine": len(engine) == 1
+                          and engine[0] in want}}
+        emit(phase="race", **res)
+        out[f"cli {i}"] = res
+    failed = {k: r["checks"] for k, r in out.items()
+              if k != "2pc7" and not all(r["checks"].values())}
+    failed.update({f"2pc7 {r['mode']} {r['turn']}": r["checks"]
+                   for r in turns if not all(r["checks"].values())})
+    if failed:
+        raise AssertionError(f"race phase: {failed}")
+    return out
+
+
+def check_preload(keys, capacity: int, reps: int) -> dict:
+    """K4 at a resume's preload: every key of the checkpoint's mirror
+    (``keys``, uint64) into an empty table of the resumed run's
+    ``capacity``, as the resume seeds it (no mask), held to
+    ``table_insert_reference`` on the card (the table's key set and the
+    overflow flag) and timed."""
+    import numpy as np
+    import torch
+
+    from stateright_tpu_torch.ops.hashtable import (make_table,
+                                                    table_insert,
+                                                    table_insert_reference)
+    from stateright_tpu_torch.ops.words import from_numpy_u32, pack64
+
+    dev = torch.device("cuda", 0)
+    hi = from_numpy_u32((keys >> np.uint64(32)).astype(np.uint32), dev)
+    lo = from_numpy_u32(keys.astype(np.uint32), dev)
+    valid = torch.ones((len(keys),), dtype=torch.bool, device=dev)
+    t_p = make_table(capacity, dev)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    _ins, ovf_p = table_insert_reference(t_p, hi, lo, valid)
+    end.record()
+    end.synchronize()
+    plain_ms = start.elapsed_time(end)
+    t_k = make_table(capacity, dev)
+    none, ovf_k = table_insert(t_k, hi, lo, valid, mask=False)
+    table_p = np.sort(t_p[t_p != 0].cpu().numpy())
+    table_k = np.sort(t_k[t_k != 0].cpu().numpy())
+    checks = {"table_set": np.array_equal(table_k, table_p),
+              "flags": ovf_k == ovf_p and none is None and not ovf_k,
+              "every_key": table_k.size == len(keys)}
+    if not all(checks.values()):
+        raise AssertionError(f"K4 at the resume preload: {checks}")
+    words = table_p.view(np.uint32).astype(np.int64)
+    err = int(np.abs(table_k.view(np.uint32).astype(np.int64)
+                     - words).max()) if words.size else 0
+
+    def launch():
+        return table_insert(t_k, hi, lo, valid, mask=False)
+
+    dev_t = device_times(launch, before=t_k.zero_)
+    return {"keys": len(keys), "capacity": capacity, "max_abs_err": err,
+            "ms": cuda_ms(launch, reps, t_k.zero_),
+            "device_ms": dev_t["ours_ms"], "plain_ms": plain_ms,
+            **insert_bound(pack64(hi, lo), valid, len(keys), False),
+            "checks": checks}
+
+
+def checkpoint_phase() -> dict:
+    """Checkpoints on the card: the default-width TwoPhaseSys(7) bounded
+    by ``target_state_count(100_000)`` with ``resumable=True`` (the card
+    alone), saved, then resumed in a fresh checker (never raced): the
+    pinned count and digest, a witness through the stitched mirror, K4
+    launched on the preload (the checkpoint's whole mirror) and timed
+    there (``check_preload``); then under complete symmetry at 2pc16,
+    whose reduced count is exact: the resumed run reaches the
+    uninterrupted run's 21,335 keys and digest through K1-sym. One
+    ``checkpoint`` line each; returns them."""
+    import tempfile
+
+    import numpy as np
+
+    from stateright_tpu_torch import TwoPhaseSys
+    from stateright_tpu_torch.ops import _cuda
+
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "2pc7.npz")
+        zero_launches()
+        t0 = time.perf_counter()
+        partial = (TwoPhaseSys(7).checker()
+                   .gpu_options(resumable=True, race=False)
+                   .target_state_count(100_000).spawn_gpu().join())
+        partial_wall = time.perf_counter() - t0
+        t1 = time.perf_counter()
+        partial.save(path)
+        save_s = time.perf_counter() - t1
+        with np.load(path) as data:
+            mirror = data["child"].copy()
+            frontier = len(data["rows"])
+        zero_launches()
+        t0 = time.perf_counter()
+        ck = TwoPhaseSys(7).checker().resume_from(path).spawn_gpu().join()
+        wall = time.perf_counter() - t0
+        launches = dict(_cuda.LAUNCHES)
+        prof = ck.profile()
+        digest = fp_digest(ck.generated_fingerprints())
+        # a witness through the stitched mirror: the deepest state the
+        # resumed run found replays back through the checkpoint's part
+        saved = set(mirror.tolist())
+        last = next(reversed(ck._generated))
+        path_fps = []
+        fp = last
+        while fp is not None:
+            path_fps.append(fp)
+            fp = ck._generated[fp]
+        witness = ck._reconstruct_path(last)  # replays or raises
+        ck.assert_no_discovery("consistent")
+        for name in ("abort agreement", "commit agreement"):
+            ck.assert_any_discovery(name)  # replays or raises
+        res = {"model": "TwoPhaseSys(7)", "target": 100_000,
+               "partial": {"wall_s": partial_wall,
+                           "generated": partial.state_count(),
+                           "unique": partial.unique_state_count(),
+                           "frontier": frontier},
+               "save_s": save_s, "npz_bytes": os.path.getsize(path),
+               "wall_s": wall, "seed_s": prof.get("seed_s"),
+               "loop_s": prof.get("loop_s"), "capacity": prof["capacity"],
+               "preload": len(mirror), "unique": ck.unique_state_count(),
+               "generated": ck.state_count(), "digest": digest,
+               "witness_len": len(witness), "launches": launches,
+               "checks": {
+                   "partial": partial.unique_state_count() < UNIQUE_2PC7,
+                   "unique": ck.unique_state_count() == UNIQUE_2PC7,
+                   "digest": digest == DIGEST_2PC7,
+                   "generated_continues": ck.state_count()
+                   >= partial.state_count(),
+                   "stitched": last not in saved
+                   and any(f in saved for f in path_fps[1:]),
+                   "launches": all(launches[k] > 0 for k in (
+                       "table_insert", "fused_step", "chunk_begin",
+                       "append"))}}
+        res["k4_preload"] = check_preload(mirror, prof["capacity"], 20)
+        emit(phase="checkpoint", **res)
+        out["plain"] = res
+        del partial, ck
+
+        # under complete symmetry at full width: an exact reduced count
+        path = os.path.join(tmp, "2pc16_sym.npz")
+        m = TwoPhaseSys(16, complete_symmetry=True)
+        partial = (m.checker().symmetry_fn(m.representative)
+                   .gpu_options(resumable=True)
+                   .target_state_count(100_000).spawn_gpu().join())
+        partial.save(path)
+        zero_launches()
+        t0 = time.perf_counter()
+        m = TwoPhaseSys(16, complete_symmetry=True)
+        ck = (m.checker().symmetry_fn(m.representative).resume_from(path)
+              .spawn_gpu().join())
+        wall = time.perf_counter() - t0
+        launches = dict(_cuda.LAUNCHES)
+        digest = fp_digest(ck.generated_fingerprints())
+        for name in ("abort agreement", "commit agreement"):
+            ck.assert_any_discovery(name)  # replays or raises
+        res = {"model": "TwoPhaseSys(16, complete_symmetry=True)",
+               "target": 100_000,
+               "partial": {"generated": partial.state_count(),
+                           "unique": partial.unique_state_count()},
+               "npz_bytes": os.path.getsize(path), "wall_s": wall,
+               "seed_s": ck.profile().get("seed_s"),
+               "unique": ck.unique_state_count(),
+               "generated": ck.state_count(), "digest": digest,
+               "launches": launches,
+               "checks": {
+                   "partial": partial.unique_state_count()
+                   < UNIQUE_2PC16_SYM,
+                   "unique": ck.unique_state_count() == UNIQUE_2PC16_SYM,
+                   "digest": digest == DIGEST_2PC16_SYM,
+                   "originals": len(ck._orig_of)
+                   == ck.unique_state_count(),
+                   "launches": launches["fused_step_sym"] > 0
+                   and launches["table_insert"] > 0
+                   and not launches["fused_step"]}}
+        emit(phase="checkpoint", **res)
+        out["symmetric"] = res
+    failed = {k: r["checks"] for k, r in out.items()
+              if not all(r["checks"].values())}
+    if failed:
+        raise AssertionError(f"checkpoint phase: {failed}")
+    return out
 
 
 #: K1's new instantiations at a real mid-search step: (label, model
@@ -1551,14 +1936,12 @@ def end_to_end_model(model, path_kernels, off_kernels=(), symmetry=False,
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    for key in _cuda.LAUNCHES:
-        _cuda.LAUNCHES[key] = 0
+    zero_launches()
     t0 = time.perf_counter()
-    builder = model.checker()
+    # race=False: the card alone, where a kernel fault raises
+    builder = model.checker().gpu_options(race=False, **opts)
     if symmetry:
         builder = builder.symmetry_fn(model.representative)
-    if opts:
-        builder = builder.gpu_options(**opts)
     ck = builder.spawn_gpu().join()
     wall = time.perf_counter() - t0
     launches = dict(_cuda.LAUNCHES)
@@ -1930,6 +2313,9 @@ def main() -> int:
     emit(phase="build", seconds=info["seconds"], library=info["path"],
          kernels={lib: ptxas_usage(log)
                   for lib, log in info["logs"].items()})
+    # the host race on the main path, and checkpoints on the card
+    race_phase()
+    ckpt = checkpoint_phase()
 
     model = TwoPhaseSys(7)
     carry = mid_search_carry(model, torch.device("cuda", 0))
@@ -2025,8 +2411,8 @@ def main() -> int:
     del card
     # where the device time of the run goes (a separate, profiled run),
     # and the kernel nodes of a replay as the trace counts them
-    prof = device_times(lambda: TwoPhaseSys(7).checker().spawn_gpu().join(),
-                        host_top=12)
+    prof = device_times(lambda: TwoPhaseSys(7).checker().gpu_options(
+        race=False).spawn_gpu().join(), host_top=12)
     if prof["by_kernel_calls"] is not None:
         calls = prof["by_kernel_calls"]
         prof["kernel_nodes_per_replay_traced"] = sum(
@@ -2108,7 +2494,8 @@ def main() -> int:
     # separate, profiled run)
     m16 = TwoPhaseSys(16)
     prof16 = device_times(lambda: m16.checker().symmetry_fn(
-        m16.representative).spawn_gpu().join(), host_top=12)
+        m16.representative).gpu_options(race=False).spawn_gpu().join(),
+        host_top=12)
     emit(phase="e2e_profile", engine="gpu", symmetry="reference", n=16,
          **prof16)
     # growth under symmetry (the 6-column log re-inserted): 16-row steps
@@ -2193,6 +2580,11 @@ def main() -> int:
          "parts": ins["parts"],
          "mask": {k: ins["mask"][k] for k in ("ms", "device_ms", "bound_ms",
                                               "bound_by", "parts")},
+         "resume_preload": {
+             "launches": ckpt["plain"]["launches"]["table_insert"],
+             **{k: ckpt["plain"]["k4_preload"][k] for k in (
+                 "keys", "capacity", "max_abs_err", "ms", "device_ms",
+                 "plain_ms", "bound_ms", "bound_by")}},
          "status": "ok"},
         {"name": "fused_step_noprobe", "route": "cuda",
          "source": sharded_src,

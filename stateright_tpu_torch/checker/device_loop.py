@@ -178,22 +178,25 @@ def _new_ctr(layout: CtrLayout, device, q_head: int = 0, q_tail: int = 0,
     return from_numpy_u32(ctr.astype(np.uint32), device)
 
 
-def seed_carry(model, qcap: int, capacity: int, init_rows, full_ebits,
+def seed_carry(model, qcap: int, capacity: int, init_rows, init_ebits,
                init_fps, cc: int, device,
                symmetry: bool = False) -> ChunkCarry:
-    """The initial carry: init states enqueued (with their cached
-    fingerprints: the canonical ones under ``symmetry``), empty table,
-    log (6 columns under ``symmetry``) and ring. The caller inserts the
-    init fingerprints into the table."""
+    """The initial carry: init states enqueued (with their
+    eventually-bits — one value for all, or one per row, as a resumed
+    frontier brings them — and their cached fingerprints: the canonical
+    ones under ``symmetry``), empty table, log (6 columns under
+    ``symmetry``) and ring. The caller inserts the known fingerprints
+    into the table."""
     width = model.packed_width
     q = torch.zeros((qcap, width + 3), dtype=torch.int32, device=device)
     k = len(init_rows)
     block = None
     if k:
         fps = np.asarray(init_fps, np.uint64)
+        ebits = np.asarray(init_ebits, np.uint32).reshape(-1, 1)
         block = np.concatenate(
             [np.stack(init_rows).astype(np.uint32),
-             np.broadcast_to(np.asarray(full_ebits, np.uint32), (k, 1)),
+             np.broadcast_to(ebits, (k, 1)),
              (fps >> np.uint64(32)).astype(np.uint32)[:, None],
              fps.astype(np.uint32)[:, None]], axis=1)
         q[:k] = from_numpy_u32(block, device)
@@ -533,12 +536,14 @@ class ChunkRunner:
     the iteration graph (captured on first use and again after
     :meth:`invalidate`) and one copy of the counter block into one of two
     pinned host buffers, with an event; on the CPU the plain versions run
-    at dispatch. ``stats`` gathers the profile."""
+    at dispatch, and stop early once ``cancelled()`` holds (checked
+    before each iteration). ``stats`` gathers the profile."""
 
     def __init__(self, model, carry: ChunkCarry, fmax: int,
-                 stats: Optional[LoopStats] = None):
+                 stats: Optional[LoopStats] = None, cancelled=None):
         self.model, self.carry, self.fmax = model, carry, fmax
         self.stats = stats if stats is not None else LoopStats()
+        self._cancelled = cancelled or (lambda: False)
         self._tag = 0   # the CPU path's tags (the card's: carry.ws.step)
         self._host = None
         self._turn = 0
@@ -584,8 +589,10 @@ class ChunkRunner:
                                   grow_limit, tag, f_small, f_large,
                                   carry.q.shape[0] - qmargin)
             for _ in range(steps):
-                if not iteration_reference(self.model, carry, self.fmax):
-                    break  # nothing changed: the condition stays false
+                if (self._cancelled()
+                        or not iteration_reference(self.model, carry,
+                                                   self.fmax)):
+                    break  # cancelled, or the condition stays false
             return PendingChunk(st, carry.layout, carry.counters())
         self.card().run(steps, target, grow_limit, tag)
         st.graph_launches += steps

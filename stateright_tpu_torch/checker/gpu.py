@@ -18,15 +18,29 @@ search reached; the log's two extra columns map each canonical key to
 its original state's fingerprint (``_orig_of``), through which witness
 paths replay as concrete paths.
 
+With ``gpu_options(resumable=True)`` the run keeps its pending frontier
+(the queue rows from its head to its tail, their eventually-bits and
+cached fingerprints, the JAX package's layout), so ``save()`` can write
+it with the whole search record; ``resume_from(path)`` seeds a fresh
+run from such a file — written by this package or by the JAX package:
+the frontier becomes the queue, the mirror the visited table (through
+K4, the flat insert) — and the search goes on from there.
+
+The engine runs on its own thread (``HostChecker``), on the engine's
+device, and stops at the next chunk boundary — on the CPU at the next
+iteration — once ``cancel()`` is called: the race retires its loser so.
+
 What the JAX engine offers beyond that path is not ported yet and raises
 ``NotImplementedError`` naming the reason; nothing is silently ignored.
 """
 
 from __future__ import annotations
 
+import json
+import os
 import time
 from collections import deque
-from typing import List
+from typing import Dict, List
 
 import numpy as np
 import torch
@@ -42,14 +56,18 @@ from .device_loop import (B_DISC, B_GEN, B_LOG_N, B_OVF, B_Q_HEAD,
                           step_sizes)
 from .host import HostChecker
 
+
+class EncodingOverflow(RuntimeError):
+    """A successor of the model could not be encoded in its packed
+    layout: a limit of the model's encoding, not of the card (a raced
+    run waits for the host racer on it; ``race.py``)."""
+
+
 #: tpu_options keys of the JAX engine, accepted only at the value that
 #: is this engine's behaviour
-_FIXED = {"race": False, "fused": True}
+_FIXED = {"fused": True}
 
 _NOT_PORTED = {
-    "race": "the host-BFS race (checker/race.py) is not ported; the "
-            "engine always runs on the device — drop race or pass "
-            "race=False",
     "pipeline": "the sharded engine's loop is a host loop with no chunk "
                 "pipeline — drop pipeline or pass pipeline=False",
     "fused": "the staged (unfused) path and the fused='auto' fallback "
@@ -67,13 +85,33 @@ for _key in ("retries", "backoff", "chunk_deadline", "retry_seed",
              "degrade", "min_mesh", "blame_after", "spill", "spill_frac",
              "max_spills", "max_capacity", "max_segment", "audit",
              "corrupt_hook", "fault_hook", "autosave", "autosave_interval",
-             "resumable"):
+             "failover"):
     _NOT_PORTED[_key] = (
         "the resilience layer (retry, the degrade/promote ladder, spill, "
-        "audit, the host shadow, autosave and checkpoints) is not ported")
+        "audit, the host shadow, autosave and the race's failover rung) "
+        "is not ported (ROADMAP A11)")
 for _key in ("mesh_axis", "exchange", "kb", "kraw", "kmax"):
     _NOT_PORTED[_key] = ("a knob of the sharded engine: pass "
                          "gpu_options(mesh=<DeviceMesh>) as well")
+
+
+def model_tag(model) -> str:
+    """A checkpoint's model identity (the JAX package's ``model_tag``,
+    ``stateright_tpu/checker/tpu.py:73``): a checkpoint only makes sense
+    for the same model config (packed layout, transitions) and the same
+    fingerprint algorithm. Written in the JAX package's form — this
+    package's name mapped to ``stateright_tpu`` — so a checkpoint of
+    either package resumes on the other; models of different classes or
+    configs still differ."""
+    from .. import fingerprint
+
+    module = type(model).__module__
+    port = __name__.split(".")[0]
+    if module == port or module.startswith(port + "."):
+        module = "stateright_tpu" + module[len(port):]
+    return (f"{module}.{type(model).__qualname__}"
+            f"|{model.cache_key()!r}|w={model.packed_width}"
+            f"|fpv={fingerprint.FP_VERSION}")
 
 
 def auto_fmax(model, shards: int = 1) -> int:
@@ -103,9 +141,10 @@ class GpuChecker(HostChecker):
     """Device-resident BFS over a packed model on one CUDA device (or,
     with ``gpu_options(device="cpu")``, the kernels' plain versions)."""
 
-    #: gpu_options keys the engine reads
+    #: gpu_options keys the engine reads (``race`` and ``race_budget``
+    #: are read by ``CheckerBuilder.spawn_gpu()``, which routes the race)
     _OPTIONS = ("capacity", "fmax", "cc_dedup", "chunk_steps", "grow_at",
-                "device", "pipeline")
+                "device", "pipeline", "race", "race_budget", "resumable")
     #: tpu_options keys accepted only at the value that is the engine's
     _FIXED = _FIXED
 
@@ -146,10 +185,12 @@ class GpuChecker(HostChecker):
                 "to implement packed_representative (the device "
                 "canonicalization)")
         if builder.visitor_ is not None:
-            raise NotImplementedError("checker visitors are not ported")
-        if builder.resume_path_ is not None:
             raise NotImplementedError(
-                "resume_from() and checkpoints are not ported")
+                "checker visitors are not ported (ROADMAP A14)")
+        self._resume_path = builder.resume_path_
+        #: (rows, ebits, cached fps) of the pending frontier, kept after a
+        #: resumable run for save()
+        self._resume_frontier = None
         self._opts = opts
         self._device = self._resolve_device(opts)
         if self._device.type == "cuda":
@@ -287,6 +328,21 @@ class GpuChecker(HostChecker):
                                      len(self._properties), dev)
 
     # --- the run --------------------------------------------------------
+    def _start_background(self) -> None:
+        if self._device.type == "cuda" and self._device.index is None:
+            # the run's thread starts on device 0: name the caller's
+            self._device = torch.device("cuda", torch.cuda.current_device())
+        super()._start_background()
+
+    def _run_wrapper(self) -> None:
+        """The run on its thread, with the engine's device current there
+        (a new thread starts on device 0)."""
+        if self._device.type == "cuda":
+            with torch.cuda.device(self._device):
+                super()._run_wrapper()
+        else:
+            super()._run_wrapper()
+
     def _run(self) -> None:
         t_start = time.perf_counter()
         model = self._model
@@ -304,7 +360,16 @@ class GpuChecker(HostChecker):
                     cc_dedup_capacity=self._cc, grows=0,
                     chunk_steps=k_steps, pipeline=pipeline)
 
-        init_rows = self._seed_inits()
+        # discoveries by name: a resumed run's come from its checkpoint
+        discoveries: Dict[str, int] = {}
+        if self._resume_path is not None:
+            # the checkpoint's frontier is the queue, with its own
+            # eventually-bits and cached fps; its mirror is the preload
+            init_rows, seed_ebits, seed_fps = self._load_checkpoint(
+                discoveries)
+        else:
+            init_rows = self._seed_inits()
+            seed_ebits, seed_fps = full_ebits, list(self._generated)
         n_init = len(init_rows)
         # everything known at seed time is re-inserted on growth (the
         # log only records states found since)
@@ -316,11 +381,15 @@ class GpuChecker(HostChecker):
             self._capacity *= 4
         qcap = self._device_qcap(n_init, headroom)
         carry = seed_carry(model, qcap, self._capacity, init_rows,
-                           full_ebits, self._base_fps, self._cc,
-                           self._device, symmetry=self._symmetry)
+                           seed_ebits, seed_fps, self._cc, self._device,
+                           symmetry=self._symmetry)
         self._insert_keys(carry.table, self._base_fps)
         prof["seed_s"] = time.perf_counter() - t_start
-        runner = ChunkRunner(model, carry, fmax, stats)
+        runner = ChunkRunner(model, carry, fmax, stats,
+                             cancelled=self._cancel_event.is_set)
+        # discoveries a resumed run brought along count as found
+        known = np.array([prop.name in discoveries for prop in properties],
+                         bool)
         qmargin = step_sizes(model, fmax)[2]
         target = self._target_state_count
         inflight: deque = deque()
@@ -350,7 +419,7 @@ class GpuChecker(HostChecker):
                     "with the step's (S_FAULT)")
             self._state_count += int(c[B_GEN])
             if c[B_XOVF]:
-                raise RuntimeError(
+                raise EncodingOverflow(
                     "model capacity overflow: a successor could not be "
                     "encoded in the packed layout")
             if c[B_OVF]:
@@ -361,8 +430,9 @@ class GpuChecker(HostChecker):
             acts = set()
             q_tail, log_n = int(c[B_Q_TAIL]), int(c[B_LOG_N])
             if (q_tail == c[B_Q_HEAD]
-                    or c[B_DISC:B_DISC + prop_count].all()
-                    or (target is not None and self._state_count >= target)):
+                    or all(c[B_DISC:B_DISC + prop_count] | known)
+                    or (target is not None and self._state_count >= target)
+                    or self._cancel_event.is_set()):
                 acts.add("done")
             elif (log_n >= grow_limit
                   or q_tail > carry.q.shape[0] - qmargin):
@@ -397,8 +467,20 @@ class GpuChecker(HostChecker):
         self._unique_state_count = preload + log_n
         hit, fps = disc_registers(last, prop_count)
         for i, prop in enumerate(properties):
-            if hit[i]:
-                self._discovery_fps[prop.name] = int(fps[i])
+            if hit[i] and prop.name not in discoveries:
+                discoveries[prop.name] = int(fps[i])
+        self._discovery_fps.update(discoveries)
+        if opts.get("resumable"):
+            # the pending frontier, pulled now so save() needs no device
+            # buffers: its rows, eventually-bits and cached fps
+            # (canonical under symmetry), the JAX package's layout
+            w = model.packed_width
+            pend = to_numpy_u32(
+                carry.q[int(last[B_Q_HEAD]):int(last[B_Q_TAIL])])
+            self._resume_frontier = (
+                pend[:, :w].copy(), pend[:, w].copy(),
+                (pend[:, w + 1].astype(np.uint64) << np.uint64(32))
+                | pend[:, w + 2].astype(np.uint64))
         # the search record stays on the device until a path or the
         # fingerprint set is asked for
         self._mirror = (carry.log, log_n)
@@ -415,9 +497,136 @@ class GpuChecker(HostChecker):
             probe_rounds=stats.rounds, predup_hits=stats.pdh,
             wall_s=time.perf_counter() - t_start)
 
+    # --- checkpoints ----------------------------------------------------
     def save(self, path) -> None:
-        raise NotImplementedError(
-            "checkpoints (Checker.save / resume_from) are not ported")
+        """Checkpoint a finished (typically ``target_state_count``-bounded)
+        resumable run: the whole fingerprint -> parent record and the
+        pending frontier, from which ``CheckerBuilder.resume_from``
+        continues the search (the JAX package's ``TpuChecker.save``,
+        whose file format this is)."""
+        if not self.is_done():
+            raise RuntimeError(
+                "save() requires a finished run; bound it with "
+                "target_state_count(...) to checkpoint mid-search")
+        if self._resume_frontier is None:
+            raise RuntimeError(
+                "save() needs the pending frontier: run with "
+                "gpu_options(resumable=True) on the device engine")
+        self._ensure_mirror()
+        rows, ebits, ffps = self._resume_frontier
+        self._checkpoint_save(path, rows, ebits, ffps, self._discovery_fps)
+
+    def _checkpoint_save(self, path, rows, ebits, ffps,
+                         discoveries: Dict[str, int]) -> None:
+        """Write a ``resume_from``-loadable checkpoint (the whole mirror
+        and the given pending frontier) through the crash-safe atomic
+        write, its metadata carrying the payload's sha256 chained to the
+        run's chunk-digest head (``""``: the port keeps no shadow)."""
+        from .resilience import atomic_savez, chain_integrity, payload_digest
+
+        n = len(self._generated)
+        child = np.fromiter(self._generated.keys(), np.uint64, n)
+        parent = np.fromiter((p if p is not None else 0
+                              for p in self._generated.values()),
+                             np.uint64, n)
+        okeys = np.fromiter(self._orig_of.keys(), np.uint64,
+                            len(self._orig_of))
+        ovals = np.fromiter(self._orig_of.values(), np.uint64,
+                            len(self._orig_of))
+        arrays = dict(child=child, parent=parent,
+                      rows=np.asarray(rows, np.uint32),
+                      ebits=np.asarray(ebits, np.uint32),
+                      ffps=np.asarray(ffps, np.uint64),
+                      okeys=okeys, ovals=ovals,
+                      state_count=np.int64(self._state_count))
+        chain_head = ""
+        meta = json.dumps({
+            "model": model_tag(self._model),
+            "discoveries": {name: int(fp)
+                            for name, fp in discoveries.items()},
+            "symmetry": self._symmetry,
+            "sound": False,
+            "chain_head": chain_head,
+            "integrity": chain_integrity(payload_digest(arrays),
+                                         chain_head),
+        })
+        atomic_savez(path, meta=np.asarray(meta), **arrays)
+
+    @staticmethod
+    def _read_checkpoint(path):
+        """Open and verify one checkpoint file. Structural load errors
+        (a truncated archive, missing entries, bad JSON) and an
+        integrity-chain mismatch raise one actionable RuntimeError."""
+        from .resilience import chain_integrity, payload_digest
+
+        try:
+            with np.load(path) as data:
+                meta = json.loads(str(data["meta"]))
+                arrays = {key: data[key] for key in data.files
+                          if key != "meta"}
+            missing = {"child", "parent", "rows", "ebits", "ffps",
+                       "state_count"} - set(arrays)
+            if missing:
+                raise KeyError(f"missing {sorted(missing)}")
+        except Exception as e:
+            # zipfile.BadZipFile for a truncated archive, KeyError for a
+            # missing entry, OSError, a JSON decode error: not a usable
+            # checkpoint
+            raise RuntimeError(
+                f"cannot resume from {path!r}: the checkpoint file is "
+                "corrupt, truncated, or not a Checker.save() file "
+                f"({type(e).__name__}: {e}). Re-create it with save() on "
+                "a finished resumable run.") from e
+        want = meta.get("integrity")
+        if want is not None and chain_integrity(
+                payload_digest(arrays),
+                meta.get("chain_head") or "") != want:
+            raise RuntimeError(
+                f"cannot resume from {path!r}: integrity chain mismatch — "
+                "the payload no longer matches the sha256 it was written "
+                "under (bit rot, tampering, or a partial write)")
+        return arrays, meta
+
+    def _load_checkpoint(self, discoveries: Dict[str, int]):
+        """Seed the run from a ``save()`` file: the mirror (with its
+        canonical key -> original fp map), the state count, the saved
+        discoveries (into ``discoveries``), and the pending frontier,
+        returned as ``(rows, ebits, cached fps)`` (canonical fps under
+        symmetry). A corrupt newest file rolls back to the previous
+        autosave generation (``<path>.g1``) when one exists."""
+        from .resilience import AUTOSAVE_PREV_SUFFIX
+
+        try:
+            data, meta = self._read_checkpoint(self._resume_path)
+        except RuntimeError:
+            prev = os.fspath(self._resume_path) + AUTOSAVE_PREV_SUFFIX
+            if not os.path.exists(prev):
+                raise
+            data, meta = self._read_checkpoint(prev)
+        tag = model_tag(self._model)
+        if meta["model"] != tag:
+            raise RuntimeError(
+                "checkpoint was written by a different model config: "
+                f"saved {meta['model']!r}, resuming {tag!r}")
+        if (bool(meta.get("symmetry")) != self._symmetry
+                or bool(meta.get("sound"))):
+            raise RuntimeError(
+                "checkpoint dedup-key semantics do not match this run: "
+                f"saved symmetry={meta.get('symmetry')} "
+                f"sound={meta.get('sound')}, resuming "
+                f"symmetry={self._symmetry} sound=False")
+        parent = [None if p == 0 else p for p in data["parent"].tolist()]
+        self._generated.update(zip(data["child"].tolist(), parent))
+        if "okeys" in data:
+            self._orig_of.update(zip(data["okeys"].tolist(),
+                                     data["ovals"].tolist()))
+        self._state_count = int(data["state_count"])
+        self._unique_state_count = len(self._generated)
+        discoveries.update((name, int(fp))
+                           for name, fp in meta["discoveries"].items())
+        rows = [np.asarray(r, np.uint32) for r in data["rows"]]
+        return (rows, np.asarray(data["ebits"], np.uint32),
+                data["ffps"].tolist())
 
     # --- the search record ---------------------------------------------
     def _mirror_rows(self, log) -> None:

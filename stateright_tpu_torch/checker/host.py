@@ -1,31 +1,37 @@
-"""Shared results state of a checking run.
+"""Shared results state and execution of a checking run.
 
 Counterpart of ``stateright_tpu/checker/host.py``, trimmed: the
-properties, the discovered fingerprints, the counts, ``join`` and path
-reconstruction from the fingerprint -> parent mirror (translated through
-``_orig_of`` under symmetry reduction). The run executes in the caller's
-thread on the first ``join()``.
+properties, the discovered fingerprints, the counts, path
+reconstruction from the fingerprint -> parent mirror (translated
+through ``_orig_of`` under symmetry reduction), and the run itself on
+one background thread started lazily — at the first ``join()`` or
+``report()`` — with a cooperative ``cancel()`` (the race stops its loser
+with it). The JAX package's trace, flight recorder, ``StepDriver``,
+pause and profiler plumbing is not ported.
 """
 
 from __future__ import annotations
 
+import threading
 from typing import Dict, Optional
 
-from ..core import Model
+from ..core import Expectation, Model
 from .builder import Checker, CheckerBuilder
 from .path import Path
 
 
 class HostChecker(Checker):
-    """Base of the GPU engine: results bookkeeping and ``join``."""
+    """Base of every engine: results bookkeeping and the background
+    run."""
 
     def __init__(self, builder: CheckerBuilder):
         self._model = builder.model
+        self._symmetry_fn = builder.symmetry_fn_
         self._target_state_count = builder.target_state_count_
         self._properties = self._model.properties()
         self._state_count = 0
         self._unique_state_count = 0
-        self._discovery_fps: Dict[str, int] = {}
+        self._discovery_fps: Dict[str, object] = {}
         #: fingerprint -> parent fingerprint (None for init states), in
         #: insertion order: the search record witness paths replay from
         self._generated: Dict[int, Optional[int]] = {}
@@ -36,28 +42,64 @@ class HostChecker(Checker):
         self._done = False
         self._error: Optional[BaseException] = None
         self._profile: Dict[str, object] = {}
+        self._thread: Optional[threading.Thread] = None
+        self._start_lock = threading.Lock()
+        self._cancel_event = threading.Event()
 
     def _run(self) -> None:  # pragma: no cover - overridden
         raise NotImplementedError
 
+    # --- execution -------------------------------------------------------
+    def cancel(self) -> None:
+        """Cooperatively stop the run (checked at the engines' loop
+        points); the race stops its loser with it."""
+        self._cancel_event.set()
+
+    def cancelled(self) -> bool:
+        return self._cancel_event.is_set()
+
+    def _start_background(self) -> None:
+        with self._start_lock:
+            if self._thread is None:
+                self._thread = threading.Thread(target=self._run_wrapper,
+                                                daemon=True)
+                self._thread.start()
+
+    def _run_wrapper(self) -> None:
+        """The run on its thread: an error lands in ``error()`` (raised
+        at ``join()``), and the run is done either way."""
+        try:
+            self._run()
+        except BaseException as exc:  # re-raised at join()
+            self._error = exc
+        finally:
+            self._done = True
+
     def join(self) -> "HostChecker":
-        if not self._done:
-            try:
-                self._run()
-            except BaseException as exc:
-                self._error = exc
-            finally:
-                self._done = True
+        self._start_background()
+        if self._thread is not None:  # else it ran in this thread
+            self._thread.join()
         if self._error is not None:
             raise self._error
         return self
 
     def is_done(self) -> bool:
-        return self._done
+        # a crashed engine counts as done for polling; the failure
+        # itself surfaces on join() (and on report(), which joins)
+        return self._done or (
+            len(self._discovery_fps) == len(self._properties))
 
     def error(self) -> Optional[BaseException]:
+        """The engine's failure, if it crashed; raised by ``join()``."""
         return self._error
 
+    def _init_ebits(self) -> frozenset:
+        """Bit per not-yet-satisfied ``eventually`` property."""
+        return frozenset(
+            i for i, p in enumerate(self._properties)
+            if p.expectation == Expectation.EVENTUALLY)
+
+    # --- Checker interface ----------------------------------------------
     def model(self) -> Model:
         return self._model
 
@@ -92,4 +134,15 @@ class HostChecker(Checker):
 
     def discoveries(self) -> Dict[str, Path]:
         return {name: self._reconstruct_path(fp)
-                for name, fp in self._discovery_fps.items()}
+                for name, fp in list(self._discovery_fps.items())}
+
+
+def refuse_unported(builder: CheckerBuilder) -> None:
+    """The host engines' guard: a visitor or ``sound_eventually()`` the
+    engine would silently ignore raises instead."""
+    if builder.visitor_ is not None:
+        raise NotImplementedError(
+            "checker visitors are not ported (ROADMAP A14)")
+    if builder.sound_eventually_:
+        raise NotImplementedError(
+            "sound_eventually() is not ported (ROADMAP A11)")

@@ -746,6 +746,23 @@ int srt_append(const ChunkArgs* c) {
   return (int)cudaGetLastError();
 }
 
+// The chunk's replays: the graph of one iteration (captured by torch,
+// its cudaGraphExec_t passed as an integer) launched `times` times on
+// `stream`, in one call, so the host gives up the interpreter lock once
+// a chunk instead of once a replay. Returns the first launch error.
+int srt_graph_launch(long long exec, long long stream, int times) {
+  if (exec == 0 || times < 0) return (int)cudaErrorInvalidValue;
+  cudaGraphExec_t g = reinterpret_cast<cudaGraphExec_t>(
+      static_cast<intptr_t>(exec));
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(
+      static_cast<intptr_t>(stream));
+  for (int i = 0; i < times; ++i) {
+    cudaError_t e = cudaGraphLaunch(g, st);
+    if (e != cudaSuccess) return (int)e;
+  }
+  return 0;
+}
+
 // Bytes of the argument struct, checked by the Python binding.
 int srt_chunk_args_size() { return (int)sizeof(ChunkArgs); }
 

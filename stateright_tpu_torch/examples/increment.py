@@ -29,7 +29,7 @@ from ..checker.representative import RewritePlan
 from ..core import Expectation, Property
 from ..models.packed import PackedModel, check_cuda_model
 from ..ops.words import M32, u64
-from . import check_gpu, not_ported, parse_args
+from . import not_ported, parse_args
 
 # state: (i, ((t, pc), ...)) — shared counter, per-thread (local, counter)
 State = Tuple[int, Tuple[Tuple[int, int], ...]]
@@ -147,23 +147,35 @@ class Increment(PackedModel):
 def main(argv=None) -> int:
     cmd, thread_count, opts = parse_args(argv)
     module = "stateright_tpu_torch.examples.increment"
-    if cmd in ("check", "check-sym", "explore"):
-        return not_ported(module, cmd)
+    model = Increment(thread_count)
+    if cmd == "check":
+        print(f"Model checking increment with {thread_count} threads.")
+        model.checker().spawn_dfs().report(sys.stdout)
+        return 0
+    if cmd == "check-sym":
+        print(f"Model checking increment with {thread_count} threads "
+              "using symmetry reduction.")
+        (model.checker().symmetry_fn(model.representative)
+         .spawn_dfs().report(sys.stdout))
+        return 0
     if cmd == "check-gpu":
         print(f"Model checking increment with {thread_count} threads "
               "on the GPU engine.")
-        return check_gpu(Increment(thread_count).checker()
-                         .gpu_options(**opts))
+        model.checker().gpu_options(**opts).spawn_gpu().report(sys.stdout)
+        return 0
     if cmd == "check-gpu-sym":
         print(f"Model checking increment with {thread_count} threads "
               "on the GPU engine using symmetry reduction.")
-        model = Increment(thread_count)
-        return check_gpu(model.checker().symmetry_fn(model.representative)
-                         .gpu_options(**opts))
+        (model.checker().symmetry_fn(model.representative)
+         .gpu_options(**opts).spawn_gpu().report(sys.stdout))
+        return 0
+    if cmd == "explore":
+        return not_ported(module, cmd)
     print("USAGE:")
-    for sub in ("check-gpu", "check-gpu-sym"):
-        print(f"  python -m {module} {sub} [THREAD_COUNT] [--cpu]")
-    print("  (check, check-sym and explore: not ported)")
+    for sub in ("check", "check-sym", "check-gpu", "check-gpu-sym"):
+        print(f"  python -m {module} {sub} [THREAD_COUNT] [--cpu] "
+              "[--no-race]")
+    print("  (explore: not ported)")
     return 2
 
 

@@ -28,7 +28,7 @@ from ..checker.representative import RewritePlan
 from ..core import Expectation, Property
 from ..models.packed import PackedModel, check_cuda_model
 from ..ops.words import M32, u64
-from . import check_gpu, not_ported, parse_args
+from . import not_ported, parse_args
 
 # state: (i, lock, ((t, pc), ...))
 State = Tuple[int, bool, Tuple[Tuple[int, int], ...]]
@@ -162,16 +162,29 @@ class IncrementLock(PackedModel):
 def main(argv=None) -> int:
     cmd, thread_count, opts = parse_args(argv)
     module = "stateright_tpu_torch.examples.increment_lock"
-    if cmd in ("check", "check-sym", "explore"):
-        return not_ported(module, cmd)
+    model = IncrementLock(thread_count)
+    if cmd == "check":
+        print(f"Model checking increment_lock with {thread_count} threads.")
+        model.checker().spawn_dfs().report(sys.stdout)
+        return 0
+    if cmd == "check-sym":
+        print(f"Model checking increment_lock with {thread_count} threads "
+              "using symmetry reduction.")
+        (model.checker().symmetry_fn(model.representative)
+         .spawn_dfs().report(sys.stdout))
+        return 0
     if cmd == "check-gpu":
         print(f"Model checking increment_lock with {thread_count} threads "
               "on the GPU engine.")
-        return check_gpu(IncrementLock(thread_count).checker()
-                         .gpu_options(**opts))
+        model.checker().gpu_options(**opts).spawn_gpu().report(sys.stdout)
+        return 0
+    if cmd == "explore":
+        return not_ported(module, cmd)
     print("USAGE:")
-    print(f"  python -m {module} check-gpu [THREAD_COUNT] [--cpu]")
-    print("  (check, check-sym and explore: not ported)")
+    for sub in ("check", "check-sym", "check-gpu"):
+        print(f"  python -m {module} {sub} [THREAD_COUNT] [--cpu] "
+              "[--no-race]")
+    print("  (explore: not ported)")
     return 2
 
 

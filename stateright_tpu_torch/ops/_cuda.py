@@ -33,6 +33,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 from typing import NamedTuple
@@ -62,8 +63,13 @@ LAUNCHES = {"fused_step": 0, "table_insert": 0, "fused_step_noprobe": 0,
             "probe_block": 0, "fused_step_sym": 0,
             "fused_step_noprobe_sym": 0, "chunk_begin": 0, "append": 0}
 
-#: while a graph is captured: the launches each wrapper recorded in it
-_CAPTURED = None
+#: ``counts``: while this thread captures a graph, the launches each
+#: wrapper recorded in it (another thread's launches count as launches)
+_CAPTURE = threading.local()
+#: one graph capture at a time, and one build: the engine runs on its own
+#: thread, and a race's retired device lane may still be running
+_CAPTURE_LOCK = threading.Lock()
+_BUILD_LOCK = threading.Lock()
 
 #: ``{"seconds": build time, "logs": {library name: its nvcc/ptxas
 #: output}, "path": {library name: path}}``
@@ -260,9 +266,14 @@ def build() -> dict:
     """Compile the kernels (unless this source hash is already built),
     one ``nvcc`` per source, all started together, and load the
     libraries. Returns :data:`BUILD_INFO`."""
-    global _LIB
-    if _LIB is not None:
+    with _BUILD_LOCK:
+        if _LIB is None:
+            _build()
         return BUILD_INFO
+
+
+def _build() -> None:
+    global _LIB
     tag = _source_hash()
     paths = {name: _BUILD / f"libsrt_{name}_{tag}.so" for name in _SOURCES}
     logs = {}
@@ -273,7 +284,8 @@ def build() -> dict:
         _BUILD.mkdir(parents=True, exist_ok=True)
         procs = {}
         for name, path in todo.items():
-            tmp = path.with_suffix(f".{os.getpid()}.tmp")
+            tmp = path.with_suffix(
+                f".{os.getpid()}.{threading.get_ident()}.tmp")
             cmd = [nvcc, *_NVCC_FLAGS, "-o", str(tmp),
                    str(_CSRC / _SOURCES[name])]
             procs[name] = (cmd, tmp, subprocess.Popen(
@@ -305,10 +317,12 @@ def build() -> dict:
                     f"{struct.__name__} layout differs between "
                     f"csrc/{_SOURCES[name]} and ops/_cuda.py")
         libs[name] = lib
+    launch = libs["chunk"].srt_graph_launch
+    launch.argtypes = [_ll, _ll, _i]
+    launch.restype = _i
     _LIB = libs
     BUILD_INFO.update(seconds=seconds, logs=logs,
                       path={k: str(v) for k, v in paths.items()})
-    return BUILD_INFO
 
 
 def _check(t: torch.Tensor, name: str, dtype, ndim: int, device,
@@ -331,8 +345,9 @@ def _raise_on(err: int, what: str) -> None:
 def _count(name: str) -> None:
     """Count a launch of the wrapper ``name``: into the graph being
     captured (its replays count it), else into ``LAUNCHES``."""
-    if _CAPTURED is not None:
-        _CAPTURED[name] = _CAPTURED.get(name, 0) + 1
+    captured = getattr(_CAPTURE, "counts", None)
+    if captured is not None:
+        captured[name] = captured.get(name, 0) + 1
     else:
         LAUNCHES[name] += 1
 
@@ -722,35 +737,41 @@ class ChunkGraph:
     before (a launch outside the capture loads them and sets their
     attributes). Nothing is allocated inside the capture, so the capture
     neither collects garbage nor empties torch's allocator cache, as
-    ``torch.cuda.graph`` would."""
+    ``torch.cuda.graph`` would. A replay of ``times`` launches is one call
+    into ``csrc/chunk.cu`` (``srt_graph_launch``), which gives up the
+    interpreter lock once, not once a launch: another Python thread (the
+    race's host BFS) then delays it once a chunk."""
 
     def __init__(self, record, device):
-        global _CAPTURED
+        self.device = device
         self.graph = torch.cuda.CUDAGraph()
         stream = torch.cuda.Stream(device)
         stream.wait_stream(torch.cuda.current_stream(device))
-        _CAPTURED = {}
-        try:
-            with torch.cuda.stream(stream):
-                self.graph.capture_begin(capture_error_mode="relaxed")
-                try:
-                    record()
-                except BaseException:
-                    try:  # end the capture; the launch error is the news
-                        self.graph.capture_end()
-                    except RuntimeError:
-                        pass
-                    raise
-                self.graph.capture_end()
-            self.counts = dict(_CAPTURED)
-        finally:
-            _CAPTURED = None
+        with _CAPTURE_LOCK:
+            _CAPTURE.counts = {}
+            try:
+                with torch.cuda.stream(stream):
+                    self.graph.capture_begin(capture_error_mode="relaxed")
+                    try:
+                        record()
+                    except BaseException:
+                        try:  # end the capture; the launch error is news
+                            self.graph.capture_end()
+                        except RuntimeError:
+                            pass
+                        raise
+                    self.graph.capture_end()
+                self.counts = dict(_CAPTURE.counts)
+            finally:
+                _CAPTURE.counts = None
         torch.cuda.current_stream(device).wait_stream(stream)
         if not self.counts:
             raise RuntimeError("the chunk's graph captured no launch")
 
     def replay(self, times: int) -> None:
-        for _ in range(times):
-            self.graph.replay()
+        build()
+        stream = torch.cuda.current_stream(self.device).cuda_stream
+        _raise_on(_LIB["chunk"].srt_graph_launch(
+            self.graph.raw_cuda_graph_exec(), stream, times), "graph replay")
         for name, n in self.counts.items():
             LAUNCHES[name] += n * times

@@ -17,7 +17,7 @@ fingerprint, so every rank also holds the same ``_orig_of``.
 What the JAX engine offers beyond that path raises ``NotImplementedError``
 (through ``GpuChecker``'s guards, or here): the degrade/promote ladder,
 retry, spill, audit, shadow, post-hoc host properties, the lasso sweep,
-checkpoints and traces.
+checkpoints, the race and traces.
 """
 
 from __future__ import annotations
@@ -27,7 +27,8 @@ import time
 import torch
 
 from ..checker.builder import CheckerBuilder
-from ..checker.gpu import GpuChecker, auto_fmax, candidate_sizes
+from ..checker.gpu import (EncodingOverflow, GpuChecker, auto_fmax,
+                           candidate_sizes)
 from ..ops.expand import eventually_indices
 from .collectives import AxisGroup
 from .sharded import (ShardedStats, StepSizes, owner_bits, owner_of,
@@ -61,6 +62,10 @@ class ShardedGpuChecker(GpuChecker):
 
     def __init__(self, builder: CheckerBuilder):
         opts = builder.gpu_options_
+        if opts.get("resumable") or builder.resume_path_ is not None:
+            raise NotImplementedError(
+                "checkpoints on a mesh (gpu_options(resumable=True), "
+                "resume_from) are not ported (ROADMAP A9b)")
         self._mesh = opts["mesh"]
         if not all(hasattr(self._mesh, a) for a in _MESH_API):
             raise NotImplementedError(
@@ -87,6 +92,19 @@ class ShardedGpuChecker(GpuChecker):
         if self._device.type == "cuda":
             self._device = self._grp.device
         self._logs = None  # every rank's log, gathered after the run
+        self._started = False
+
+    def _start_background(self) -> None:
+        """The sharded run stays on the caller's thread, the one that set
+        up the rank's process group and device: a mesh never races, and
+        with gloo's collectives on a worker thread the process aborted at
+        exit now and then ("terminate called without an active
+        exception", 1 run in 32 of a one-rank gloo 2pc3 under load).
+        ``join()`` and ``report()`` return once it is done."""
+        with self._start_lock:
+            if not self._started:
+                self._started = True
+                self._run_wrapper()
 
     # --- growth -------------------------------------------------------
     def _sharded_qcap(self, n_init: int, headroom: int, d: int) -> int:
@@ -222,7 +240,7 @@ class ShardedGpuChecker(GpuChecker):
                               if target is not None else 2**63),
             stats=stats, grow=grow, resize=resize)
         if carry.xovf:
-            raise RuntimeError(
+            raise EncodingOverflow(
                 "model capacity overflow: a successor could not be "
                 "encoded in the packed layout")
         if carry.ovf:

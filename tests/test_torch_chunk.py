@@ -433,7 +433,8 @@ def _port(model, **opts):
     target = opts.pop("target", None)
     if target is not None:
         builder = builder.target_state_count(target)
-    return builder.gpu_options(device="cpu", **opts).spawn_gpu().join()
+    return builder.gpu_options(device="cpu", race=False, **opts) \
+        .spawn_gpu().join()
 
 
 def _jax(model, **opts):
@@ -481,8 +482,8 @@ def test_pipeline_parity(n, complete):
         if complete is not None:
             builder = builder.symmetry_fn(model.representative)
         return builder.gpu_options(device="cpu", fmax=64, capacity=1 << 14,
-                                   chunk_steps=4,
-                                   pipeline=pipeline).spawn_gpu().join()
+                                   chunk_steps=4, pipeline=pipeline,
+                                   race=False).spawn_gpu().join()
 
     on, off = run(True), run(False)
     assert on.unique_state_count() == off.unique_state_count()

@@ -26,8 +26,10 @@ ROOT = pathlib.Path(__file__).resolve().parent.parent
 
 
 def _cpu(model, **opts):
-    return model.checker().gpu_options(device="cpu", **opts) \
-        .spawn_gpu().join()
+    """The device engine alone on the CPU (the race would let the host
+    BFS win small models, and its record is in BFS order)."""
+    opts = {"device": "cpu", "race": False, **opts}
+    return model.checker().gpu_options(**opts).spawn_gpu().join()
 
 
 def _digest(fps) -> str:
@@ -117,11 +119,12 @@ def _symmetry_without_canon(builder):
     (_symmetry_without_canon, "packed_representative"),
     (lambda b: b.sound_eventually(), "sound_eventually"),
     (lambda b: b.visitor(lambda *a: None), "visitor"),
-    (lambda b: b.resume_from("x.npz"), "checkpoints"),
+    (lambda b: b.gpu_options(mesh=object()).resume_from("x.npz"),
+     "checkpoints on a mesh"),
     (lambda b: b.gpu_options(mesh=object()), "mesh"),
     (lambda b: b.gpu_options(hint=2), "hint"),
     (lambda b: b.gpu_options(mode="level"), "per-level"),
-    (lambda b: b.gpu_options(race=True), "race"),
+    (lambda b: b.gpu_options(race=True, mesh=object()), "race=True"),
     (lambda b: b.gpu_options(fused="auto"), "fallback"),
     (lambda b: b.gpu_options(autosave="x.npz"), "not ported"),
 ], ids=["symmetry", "sound", "visitor", "resume", "mesh", "hint", "level",
@@ -133,8 +136,10 @@ def test_unported_features_raise(setup, match):
 
 
 def test_checkpoint_save_raises():
+    # checkpoints are ported; a run without resumable=True has no
+    # pending frontier to save
     ck = _cpu(TwoPhaseSys(3))
-    with pytest.raises(NotImplementedError, match="checkpoints"):
+    with pytest.raises(RuntimeError, match="resumable"):
         ck.save("x.npz")
 
 

@@ -16,7 +16,7 @@ from stateright_tpu_torch.core import Property
 
 
 def _cpu(model, **opts):
-    return model.checker().gpu_options(device="cpu", **opts) \
+    return model.checker().gpu_options(device="cpu", race=False, **opts) \
         .spawn_gpu().join()
 
 
@@ -108,7 +108,7 @@ def test_engine_on_card_matches_plain_path():
     _need_card()
     from stateright_tpu_torch.ops import _cuda
     launches = dict(_cuda.LAUNCHES)
-    ck = TwoPhaseSys(5).checker().spawn_gpu().join()
+    ck = TwoPhaseSys(5).checker().gpu_options(race=False).spawn_gpu().join()
     plain = _cpu(TwoPhaseSys(5))
     assert ck.unique_state_count() == 8832
     assert ck.state_count() == plain.state_count()
@@ -1022,12 +1022,13 @@ def test_graph_replays_across_a_growth():
     lowest-lane winner rule does not depend on the table's layout, nor
     the record on where chunks end)."""
     _need_card()
-    opts = dict(fmax=16, chunk_steps=4, cc_dedup=64)
+    opts = dict(fmax=16, chunk_steps=4, cc_dedup=64, race=False)
     grown = TwoPhaseSys(5).checker().gpu_options(
         capacity=1 << 10, **opts).spawn_gpu().join()
     flat = TwoPhaseSys(5).checker().gpu_options(
         capacity=1 << 16, **opts).spawn_gpu().join()
-    plain = _cpu(TwoPhaseSys(5), capacity=1 << 16, **opts)
+    plain = _cpu(TwoPhaseSys(5), capacity=1 << 16,
+                 **{k: v for k, v in opts.items() if k != "race"})
     pg, pf = grown.profile(), flat.profile()
     assert pg["grows"] == 2 and pf["grows"] == 0
     assert pg["capture_s"] > pf["capture_s"] > 0
@@ -1046,7 +1047,7 @@ def test_pipeline_on_card_repeats_the_record(chunk_steps):
     the same search record row for row, and the plain path's set."""
     _need_card()
     runs = [TwoPhaseSys(5).checker().gpu_options(
-        chunk_steps=chunk_steps, pipeline=p).spawn_gpu().join()
+        chunk_steps=chunk_steps, pipeline=p, race=False).spawn_gpu().join()
         for p in (True, False)]
     assert _record(runs[0]) == _record(runs[1])
     for ck in runs:
@@ -1201,7 +1202,8 @@ def test_more_models_end_to_end_on_card():
             (PackedLinearEquation(2, 4, 7), dict(capacity=1 << 12,
                                                  fmax=64), 65536)):
         launches = _cuda.LAUNCHES["fused_step"]
-        ck = model.checker().gpu_options(**opts).spawn_gpu().join()
+        ck = model.checker().gpu_options(race=False, **opts) \
+            .spawn_gpu().join()
         plain = _cpu(model, **opts)
         assert ck.unique_state_count() == plain.unique_state_count() \
             == unique
@@ -1213,7 +1215,7 @@ def test_more_models_end_to_end_on_card():
             assert ck.profile()["grows"] == 3
     for symmetry in (False, True):
         model = Increment(5)
-        builder = model.checker()
+        builder = model.checker().gpu_options(race=False)
         if symmetry:
             builder = builder.symmetry_fn(model.representative)
         ck = builder.spawn_gpu().join()
@@ -1277,3 +1279,104 @@ def test_every_width_launches_lane_exact(name, symmetry, monkeypatch):
             for nm in names:
                 assert torch.equal(getattr(k, nm), getattr(p, nm)), (n, nm)
             assert torch.equal(k.stats[S_DISC:], p.stats[S_DISC:]), n
+
+
+# --- the race and checkpoints on the card ---------------------------------
+
+@pytest.mark.gpu
+def test_race_on_card():
+    """``spawn_gpu()`` races by default: IncrementLock(3) is answered by
+    the host inside its budget (and on the card alone with race=False,
+    through its kernels); a raced 2pc5, whoever wins, is the host BFS's
+    set; a raced loser leaves no thread behind."""
+    _need_card()
+    from stateright_tpu_torch import IncrementLock
+    from stateright_tpu_torch.checker import race
+    from stateright_tpu_torch.ops import _cuda
+    ck = IncrementLock(3).checker().gpu_options(capacity=1 << 14) \
+        .spawn_gpu().join()
+    assert isinstance(ck, race.RacingChecker)
+    assert ck.unique_state_count() == 61
+    assert ck.profile()["engine"] == "host"
+    assert race.join_losers(timeout=60)
+    launches = dict(_cuda.LAUNCHES)
+    card = IncrementLock(3).checker().gpu_options(
+        capacity=1 << 14, race=False).spawn_gpu().join()
+    assert card.generated_fingerprints() == ck.generated_fingerprints()
+    assert all(_cuda.LAUNCHES[k] > launches[k]
+               for k in ("fused_step", "append", "chunk_begin"))
+    raced = TwoPhaseSys(5).checker().spawn_gpu().join()
+    assert raced.profile()["engine"] in ("host", "device")
+    assert raced.generated_fingerprints() == \
+        TwoPhaseSys(5).checker().spawn_bfs().join().generated_fingerprints()
+    assert race.join_losers(timeout=60)
+
+
+@pytest.mark.gpu
+def test_device_error_on_card_ends_the_race(monkeypatch):
+    """A chunk that fails to launch on the card makes the raced
+    ``join()`` raise, although the host racer (held back until the race
+    is decided, with a 60 s budget) would answer IncrementLock(3): the
+    host's answer never hides a device error."""
+    _need_card()
+    import time
+
+    from stateright_tpu_torch import IncrementLock
+    from stateright_tpu_torch.checker import bfs, device_loop, race
+    ck = IncrementLock(3).checker().gpu_options(
+        capacity=1 << 14, race_budget=60.0).spawn_gpu()
+    assert isinstance(ck, race.RacingChecker)
+    host_run = bfs.BfsChecker._run
+
+    def fail(*args, **kwargs):
+        raise RuntimeError("injected chunk failure")
+
+    def held(self):
+        ck._decided.wait(30)
+        host_run(self)
+
+    monkeypatch.setattr(device_loop.ChunkRunner, "dispatch", fail)
+    monkeypatch.setattr(bfs.BfsChecker, "_run", held)
+    t0 = time.monotonic()
+    with pytest.raises(RuntimeError, match="injected"):
+        ck.join()
+    assert time.monotonic() - t0 < 20
+    assert race.join_losers(timeout=60)
+
+
+@pytest.mark.gpu
+def test_checkpoint_resumes_on_card(tmp_path):
+    """A bounded 2pc5 run on the card saved and resumed on the card: the
+    full 8,832 states of the host BFS, the resume's preload through K4;
+    under complete symmetry, the uninterrupted reduced set through
+    K1-sym."""
+    _need_card()
+    from stateright_tpu_torch.ops import _cuda
+    path = tmp_path / "ckpt.npz"
+    partial = TwoPhaseSys(5).checker().gpu_options(
+        resumable=True, fmax=64, chunk_steps=4).target_state_count(2000) \
+        .spawn_gpu().join()
+    assert partial.unique_state_count() < 8832
+    partial.save(path)
+    inserts = _cuda.LAUNCHES["table_insert"]
+    resumed = TwoPhaseSys(5).checker().resume_from(path).spawn_gpu().join()
+    assert resumed.unique_state_count() == 8832
+    assert resumed.generated_fingerprints() == \
+        TwoPhaseSys(5).checker().spawn_bfs().join().generated_fingerprints()
+    assert resumed.state_count() >= partial.state_count()
+    assert _cuda.LAUNCHES["table_insert"] > inserts
+    resumed.assert_properties()
+
+    def sym():
+        m = TwoPhaseSys(5, complete_symmetry=True)
+        return m.checker().symmetry_fn(m.representative)
+
+    path = tmp_path / "sym.npz"
+    sym().gpu_options(resumable=True, fmax=16, chunk_steps=1) \
+        .target_state_count(200).spawn_gpu().join().save(path)
+    steps = _cuda.LAUNCHES["fused_step_sym"]
+    resumed = sym().resume_from(path).spawn_gpu().join()
+    whole = sym().spawn_gpu().join()
+    assert resumed.unique_state_count() == whole.unique_state_count() == 314
+    assert resumed.generated_fingerprints() == whole.generated_fingerprints()
+    assert _cuda.LAUNCHES["fused_step_sym"] > steps

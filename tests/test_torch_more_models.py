@@ -55,7 +55,9 @@ PAIRS = {
 
 
 def _cpu(builder, **opts):
-    return builder.gpu_options(device="cpu", **opts).spawn_gpu().join()
+    """The device engine alone on the CPU (no host race)."""
+    return builder.gpu_options(device="cpu", race=False, **opts) \
+        .spawn_gpu().join()
 
 
 def _rows(model, rng) -> np.ndarray:
@@ -340,12 +342,32 @@ def test_step_entry_refuses_unknown_names():
         })(1, 2, 3), True)
 
 
-def test_examples_cli():
+def test_examples_cli(capsys):
+    # check runs the host DFS as the JAX package's does, and prints its
+    # Done. line (the JAX package's: 61 states, all unique)
     from stateright_tpu_torch.examples import increment, increment_lock
-    assert increment_lock.main(["check", "3"]) == 2  # dfs: not ported
+    assert increment_lock.main(["check", "3"]) == 0
+    done = [ln for ln in capsys.readouterr().out.splitlines()
+            if ln.startswith("Done.")]
+    assert len(done) == 1 and done[0].startswith(
+        "Done. states=61, unique=61, sec=")
     assert increment.main(["explore", "2"]) == 2
     assert increment_lock.main(["check-gpu", "3", "--cpu"]) == 0
     assert increment.main(["check-gpu-sym", "2", "--cpu"]) == 0
+
+
+def test_examples_cli_no_race(capsys):
+    # check-gpu --no-race runs the device engine alone (race=False)
+    from stateright_tpu_torch.examples import increment_lock
+    from stateright_tpu_torch.examples import parse_args
+    assert parse_args(["check-gpu", "4", "--no-race", "--cpu"]) == (
+        "check-gpu", 4, {"race": False, "device": "cpu"})
+    assert increment_lock.main(["check-gpu", "3", "--cpu",
+                                "--no-race"]) == 0
+    out = capsys.readouterr().out.splitlines()
+    assert [ln for ln in out if ln.startswith("Done.")][0].startswith(
+        "Done. states=61, unique=61, sec=")
+    assert any(ln.startswith("# engine=gpu ") for ln in out), out
 
 
 # --- the import boundary --------------------------------------------------

@@ -117,8 +117,8 @@ def run_tree(tree: str, reps: int) -> int:
                     "wall_s", "loop_s", "iterations", "small_iterations",
                     "chunks", "syncs", "graph_launches", "captures",
                     "grows", "launches", "checks")}}), flush=True)
-        prof = smoke.device_times(lambda: make().checker().spawn_gpu()
-                                  .join())
+        prof = smoke.device_times(lambda: make().checker().gpu_options(
+            race=False).spawn_gpu().join())
         print(json.dumps({**head, "run": label, "profiled": True, **{
             k: prof.get(k) for k in ("loop_s", "busy", "ours_ms",
                                      "torch_ms", "copy_ms", "by_kernel_ms",
