@@ -92,6 +92,26 @@ Phases, one JSON line each:
              the 12,288-row steps of IncrementLock(9) and Increment(16)
              (14- and 20-word queue rows).
 
+8. paxos   — PackedPaxos on the card (phase ``kernels`` with
+             ``model: PackedPaxos``, then ``paxos``): K1's paxos
+             instantiation (``csrc/paxos.cuh``, the wide K1) with K2/K3
+             at a mid-search 8,192-row step of PackedPaxos(3), lane for
+             lane; K8 (``history_kernel``) over the rows the next step
+             appends, from the search's own table, from an empty one and
+             keyed by the actor words (fresh keys, repeated within the
+             step), and K9 (``hpull_kernel``) at a 256-row window, bit
+             for bit; PackedPaxos(2) in full with ``race=False`` from the
+             default ``hcap`` and from ``hcap=4`` (history growth and the
+             rescan): 16,668 states, the JAX package's digest
+             (``PIN_PAXOS2``), ``linearizable`` holds over its 5 distinct
+             histories, ``value chosen`` replays; the BASELINE workload
+             (7 distinct histories, as the JAX package's; PackedPaxos(3),
+             ``capacity=1<<21``, ``race=False``,
+             ``target_state_count(500_000)``) with its rates, walls, host
+             evaluation, distinct histories, memory and (a profiled
+             repeat) the device's busy share; and PackedPaxos(3) through
+             the default raced entry point.
+
 Then a ``kernels`` line (the contract's per-kernel record), the card's name
 and power limit from ``nvidia-smi``, and as the last line
 ``{"ok": true, "device": {...}}``. Any failed check or exception exits
@@ -196,6 +216,32 @@ FIN_LEN = 4
 #: run's witness ends at (x, y) = (2, 1))
 SOLVABLE_LEN = 3
 
+#: PackedPaxos(2) full enumeration (the north-star oracle, the Rust
+#: crate's paxos.rs:291): unique states, state_count() and the sha256 of
+#: the sorted fingerprints, from the JAX package's host BFS on the CPU:
+#:   PackedPaxos(2).checker().spawn_bfs().join()
+#: tests/test_torch_paxos.py::test_paxos_pins_are_the_jax_packages holds
+#: the JAX package's host BFS and staged device engine to all three (a
+#: full enumeration's set does not depend on the engine), and the
+#: port's plain path is held to them beside it.
+PIN_PAXOS2 = (16_668, 32_971,
+              "184fdb02ebca156876cc206a2c39ce2c"
+              "c11186fb868ec1b3c6b1fdf63b516971")
+#: the distinct histories (host_property_key values) of PackedPaxos(2)'s
+#: full space, and of PackedPaxos(3) at the BASELINE budget: the JAX
+#: package's staged engine evaluates this many (its memo's size; the
+#: same test). Every one is reached within 10 BFS levels, far inside
+#: the budget, so the pin does not depend on the engine's order.
+HISTORIES_PAXOS2 = 5
+HISTORIES_PAXOS3 = 7
+#: the actions of the shortest ``value chosen`` witness of PackedPaxos(2)
+#: (a BFS finds a shortest one whatever its order)
+CHOSEN_LEN_PAXOS2 = 8
+#: the BASELINE workload (BASELINE.json "states/sec explored (paxos check
+#: 3)", bench.py's device run): PackedPaxos(3), capacity 2**21,
+#: race=False, target_state_count(500_000) generated transitions
+PAXOS3_TARGET = 500_000
+
 #: HBM bandwidth of an H100 SXM (bytes/s) and its CUDA-core fp32 rate
 #: (operations/s): NVIDIA's published peaks at 700 W. The steps do 32-bit
 #: integer work, for which no peak is published beside these; it is
@@ -239,7 +285,8 @@ def fp_digest(fps) -> str:
 #: names first, so a name that contains another is matched as itself
 _OURS = ("dedup_claim_kernel", "dedup_commit_kernel", "flat_insert_kernel",
          "expand_kernel", "claim_kernel", "commit_kernel",
-         "append_kernel", "chunk_begin_kernel")
+         "append_kernel", "chunk_begin_kernel", "history_kernel",
+         "hpull_kernel")
 
 
 def kernel_name(symbol: str):
@@ -266,20 +313,28 @@ def kernel_instance(symbol: str):
 
 
 def ptxas_usage(log: str) -> dict:
-    """Registers and shared memory per kernel (each instantiation of K1
-    by its model) from ``-Xptxas -v`` of one library."""
-    out, name = {}, None
+    """Registers, shared memory and spills per kernel (each
+    instantiation of K1 by its model) from ``-Xptxas -v`` of one
+    library."""
+    out, name, spill = {}, None, {}
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line) \
             or re.search(r"Function properties for (\w+)", line)
         if m:
             name = m.group(1)
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m and name:
+            spill[name] = [int(g) for g in m.groups()]
         m = re.search(r"Used (\d+) registers", line)
         if m and name:
             smem = re.search(r"(\d+) bytes smem", line)
+            frame, stores, loads = spill.get(name, (0, 0, 0))
             out[kernel_instance(name) or name] = {
                 "registers": int(m.group(1)),
-                "smem_bytes": int(smem.group(1)) if smem else 0}
+                "smem_bytes": int(smem.group(1)) if smem else 0,
+                "stack_bytes": frame, "spill_store_bytes": stores,
+                "spill_load_bytes": loads}
     return out
 
 
@@ -315,12 +370,18 @@ def device_times(fn, host_top: int = 0, before=None) -> dict:
     ``cudaGraphLaunch``, ...) as [calls, host ms]; when ``fn`` returns a
     checker, ``loop_s`` is its profile's and ``busy`` the traced device
     time over it."""
+    import gc
+
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    # a trace now and then holds no device time: up to three tries
+    # a trace now and then holds no device time, or (seen once, in a run
+    # whose first allocation took 62 ms inside the trace) none of a
+    # chunk's graph replays: up to three tries. Earlier phases' checkers
+    # are collected first, so the run reuses their cached memory
     for _attempt in range(3):
+        gc.collect()
         if before:
             before()
         with profile(activities=[ProfilerActivity.CPU,
@@ -346,7 +407,11 @@ def device_times(fn, host_top: int = 0, before=None) -> dict:
                 copy_ms += us / 1e3
             else:
                 torch_ms += us / 1e3
-        if seen:
+        # a chunk's run replays its graph, each replay K7 once: a trace
+        # with fewer K7 records than replays lost the graph's kernels
+        replays = (result.profile().get("graph_launches", 0)
+                   if hasattr(result, "profile") else 0)
+        if seen and calls["append_kernel"] >= replays:
             break
     out = {"ours_ms": None, "torch_ms": None, "copy_ms": None,
            "by_kernel_ms": None, "by_kernel_calls": None}
@@ -1985,7 +2050,9 @@ def end_to_end_model(model, path_kernels, off_kernels=(), symmetry=False,
             "capacity", "loop_s", "sync_s", "seed_s", "shards", "exchange",
             "collectives", "collectives_per_iteration", "kovfs", "aborts",
             "kmax", "gather_s", "vmax", "dmax", "chunks", "sync_stall",
-            "capture_s", "captures", "graph_launches", "fmax")
+            "capture_s", "captures", "graph_launches", "fmax", "h_n",
+            "histories", "pulls", "hgrow", "hgrow_s", "host_eval_s",
+            "host_evals", "mirror_s")
     return {"model": label, "options": shown, "wall_s": wall,
             "unique": unique, "unique_per_s": unique / wall,
             "generated": ck.state_count(), "digest": digest,
@@ -2070,6 +2137,356 @@ def models_phase(mesh) -> dict:
     if failed:
         raise AssertionError(f"models phase: {failed}")
     return runs
+
+
+def check_history(model, carry, f: int, reps: int) -> dict:
+    """K8 (``history_kernel``, ``csrc/history.cu``) against its plain
+    version on the card over the rows one more real step of ``carry`` at
+    ``f`` rows appends, in three cases: keyed by the model's history
+    columns with a table that holds the keys of every earlier row (as
+    the search's own would: few or no fresh keys; the timed case), the
+    same from an empty table (each distinct history of the step fresh),
+    and keyed by the actor words (``[0, _net_off)``) with a table seeded
+    from every second earlier row (thousands of fresh keys, repeated
+    within the step: the claims, the in-batch dedup and the ordered
+    append over many 512-row batches). Each case holds the fresh keys'
+    queue indices in order (``hidx``), their count, the overflow flag
+    and the table's key set exactly; the last two need fresh keys.
+    Timed with CUDA events and ``torch.profiler``."""
+    import ctypes
+
+    import torch
+
+    from stateright_tpu_torch.checker.device_loop import (
+        HistoryStage, history_reference, new_history, run_chunk)
+    from stateright_tpu_torch.ops import _cuda
+    from stateright_tpu_torch.ops.hash_kernel import fp64_device
+    from stateright_tpu_torch.ops.hashtable import make_table
+    from stateright_tpu_torch.ops.words import pack64
+
+    dev = carry.q.device
+    tail0 = carry.q_tail
+    run_chunk(model, carry, fmax=f, steps=1)
+    tail1 = carry.q_tail
+    nrows = tail1 - tail0
+    rows = torch.arange(tail0, tail1, dtype=torch.int64, device=dev)
+    search = new_history(model, 1 << 16, carry.log.shape[0], tail0, dev)
+    wide_cap = 1 << max(4 * tail1 - 1, 1).bit_length()
+    cases = {
+        "search": (search.hoff, search.hwidth, search.hcap,
+                   torch.arange(tail0, dtype=torch.int64, device=dev)),
+        "empty": (search.hoff, search.hwidth, search.hcap, None),
+        "actors": (0, model._net_off, wide_cap,
+                   torch.arange(0, tail0, 2, dtype=torch.int64,
+                                device=dev))}
+    out, stages = {}, {}
+    for label, (hoff, hwidth, hcap, seed) in cases.items():
+        base = HistoryStage(
+            table=make_table(hcap, dev),
+            hidx=torch.zeros_like(search.hidx), hdone=search.hdone.clone(),
+            hoff=hoff, hwidth=hwidth)
+        if seed is not None:
+            history_reference(carry.q, base, seed)
+        table0 = base.table.clone()
+
+        def stage(base=base, table0=table0):
+            return HistoryStage(
+                table=table0.clone(), hidx=torch.zeros_like(base.hidx),
+                hdone=base.hdone.clone(), hoff=base.hoff,
+                hwidth=base.hwidth)
+
+        k = stage()
+        h_k, ovf_k = _cuda.history_insert(carry.q, k, start=tail0,
+                                          end=tail1, append=True, h_n=0)
+        p = stage()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fresh, ovf_p = history_reference(carry.q, p, rows)
+        end.record()
+        end.synchronize()
+        reps_p = rows[fresh]
+        n = reps_p.shape[0]
+        got = k.hidx[:h_k].long()
+        err = (int((got - reps_p).abs().max()) if n else 0) \
+            if h_k == n else 1 << 31
+        keys = pack64(*fp64_device(carry.q[rows, hoff:hoff + hwidth]))
+        distinct = int(torch.unique(keys).numel())
+        # the rows whose key is one of the fresh keys (> n: repeated)
+        fresh_rows = int(torch.isin(keys, keys[fresh]).sum())
+        checks = {"count": h_k == n, "hidx": err == 0,
+                  "overflow": ovf_k == ovf_p == False,  # noqa: E712
+                  "table_set": torch.equal(
+                      torch.sort(k.table[k.table != 0]).values,
+                      torch.sort(p.table[p.table != 0]).values)}
+        if label != "search":
+            checks["fresh"] = n > 0
+        if label == "actors":  # keys repeated within the step
+            checks["in_batch_duplicates"] = fresh_rows > n
+        out[label] = {"hoff": hoff, "hwidth": hwidth, "hcap": hcap,
+                      "seeded_rows": 0 if seed is None else len(seed),
+                      "fresh": n, "fresh_rows": fresh_rows,
+                      "distinct_keys": distinct,
+                      "max_abs_err": err,
+                      "plain_ms": start.elapsed_time(end), "checks": checks}
+        stages[label] = (k, table0)
+    failed = {lb: c["checks"] for lb, c in out.items()
+              if not all(c["checks"].values())}
+    if failed:
+        raise AssertionError(f"K8 over {nrows} rows disagrees with its "
+                             f"plain version: {failed}")
+    # the kernel alone: its arguments over a device control block
+    ctl0 = torch.tensor([tail0, tail1, 0, 0], dtype=torch.int32,
+                        device=dev)
+    ctl = ctl0.clone()
+    ptr = ctl.data_ptr()
+    for label, (k, table0) in stages.items():
+        args = _cuda._hist_args(carry.q, k)
+        args.start, args.end = ptr, ptr + 4
+        args.hidx = k.hidx.data_ptr()
+        args.h_n, args.ovf = ptr + 8, ptr + 12
+        assert ctypes.sizeof(args) == ctypes.sizeof(_cuda.HistArgs)
+
+        def restore(k=k, table0=table0):
+            k.table.copy_(table0)
+            ctl.copy_(ctl0)
+
+        def launch(args=args):
+            _cuda.history(args, dev)
+
+        out[label]["ms"] = cuda_ms(launch, reps, restore)
+        if label == "search":
+            times = device_times(launch, before=restore)
+            out[label]["device_ms"] = (times["by_kernel_ms"] or {}).get(
+                "history_kernel")
+    main = out["search"]
+    hwidth, n = main["hwidth"], main["fresh"]
+    # the bound: each row's key columns and one bucket read, each fresh
+    # key's slot and queue index written
+    nbytes = nrows * (4 * hwidth + 32) + n * (8 + 4)
+    ops = nrows * (25 * hwidth + 30)
+    return {"f": f, "rows": nrows, "fresh": n, "hcap": main["hcap"],
+            "max_abs_err": max(c["max_abs_err"] for c in out.values()),
+            "ms": main["ms"], "device_ms": main.get("device_ms"),
+            "plain_ms": main["plain_ms"], **bound(nbytes, ops),
+            "cases": out,
+            "checks": {f"{lb} {k}": v for lb, c in out.items()
+                       for k, v in c["checks"].items()}}
+
+
+def check_hpull(model, carry, reps: int) -> dict:
+    """K9 (``hpull_kernel``, ``csrc/history.cu``) against its plain
+    version on the card: a full window of ``HIST_WINDOW`` (256)
+    representatives at seeded queue indices of ``carry`` (rows with a
+    log entry), bit for bit, and timed."""
+    import numpy as np
+    import torch
+
+    from stateright_tpu_torch.checker.device_loop import (HIST_WINDOW,
+                                                          hpull_reference)
+    from stateright_tpu_torch.ops import _cuda
+
+    dev = carry.q.device
+    w = model.packed_width
+    n_init = 1  # mid_search_carry seeds one init row
+    rng = np.random.default_rng(12)
+    hidx = torch.from_numpy(rng.integers(
+        n_init, carry.q_tail, HIST_WINDOW).astype(np.int32)).to(dev)
+    out = torch.zeros((HIST_WINDOW, w + 2), dtype=torch.int32, device=dev)
+
+    def launch():
+        _cuda.hpull(carry.q, hidx, carry.log, 0, n_init, out,
+                    count=HIST_WINDOW)
+
+    launch()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    want = hpull_reference(carry.q, hidx, carry.log, 0, HIST_WINDOW,
+                           n_init, HIST_WINDOW)
+    end.record()
+    end.synchronize()
+    plain_ms = start.elapsed_time(end)
+    err = int((out.long() - want.long()).abs().max())
+    if err:
+        raise AssertionError(f"K9 disagrees with its plain version: "
+                             f"max_abs_err {err}")
+    ms = cuda_ms(launch, reps)
+    times = device_times(launch)
+    # the bound: the indices, the rows and their log keys read once, the
+    # window written once
+    nbytes = HIST_WINDOW * (4 + 4 * w + 8) + HIST_WINDOW * 4 * (w + 2)
+    return {"rows": HIST_WINDOW, "W": w, "max_abs_err": err, "ms": ms,
+            "device_ms": (times["by_kernel_ms"] or {}).get("hpull_kernel"),
+            "plain_ms": plain_ms, **bound(nbytes, HIST_WINDOW * (w + 2)),
+            "checks": {"bit_exact": err == 0}}
+
+
+def paxos_run(clients: int, path_kernels, target=None, **opts) -> tuple:
+    """One PackedPaxos(clients) check through the user entry point on
+    the card alone (``race=False``), every launch count set to 0 before
+    it: ``linearizable`` holds over the pinned number of distinct
+    histories (K8 logged each once, the host evaluated each), ``value
+    chosen`` has a witness that replays through the host model and ends
+    at a chosen value, and each of ``path_kernels`` launched. Returns
+    its measurements and the checker."""
+    import torch
+
+    from stateright_tpu_torch.examples.paxos_packed import PackedPaxos
+    from stateright_tpu_torch.ops import _cuda
+
+    model = PackedPaxos(clients)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    builder = model.checker().gpu_options(race=False, **opts)
+    if target is not None:
+        builder = builder.target_state_count(target)
+    t0 = time.perf_counter()
+    ck = builder.spawn_gpu().join()
+    wall = time.perf_counter() - t0
+    launches = dict(_cuda.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    ck.assert_no_discovery("linearizable")
+    path = ck.assert_any_discovery("value chosen")  # replays or raises
+    prop = model.property("value chosen")
+    t1 = time.perf_counter()
+    fps = ck.generated_fingerprints()  # pulls the mirror
+    mirror_s = time.perf_counter() - t1
+    prof = ck.profile()
+    want_h = {2: HISTORIES_PAXOS2, 3: HISTORIES_PAXOS3}[clients]
+    checks = {"launches": all(launches[k] > 0 for k in path_kernels),
+              "histories": prof["h_n"] == prof["histories"] == want_h,
+              "replay value chosen": bool(prop.condition(
+                  model, path.last_state())),
+              "fingerprints": len(fps) == ck.unique_state_count()}
+    keys = ("engine", "syncs", "chunks", "iterations", "small_iterations",
+            "grows", "capacity", "fmax", "seed_s", "loop_s", "sync_s",
+            "capture_s", "captures", "graph_launches", "h_n", "histories",
+            "pulls", "hgrow", "hgrow_s", "host_eval_s", "host_evals",
+            "vmax", "dmax")
+    unique = ck.unique_state_count()
+    res = {"model": f"PackedPaxos({clients})", "options": opts,
+           "target": target, "wall_s": wall, "unique": unique,
+           "generated": ck.state_count(), "unique_per_s": unique / wall,
+           "engine_wall_s": prof.get("wall_s"), "mirror_s": mirror_s,
+           "witness_length": len(path),
+           **{k: prof[k] for k in keys if k in prof},
+           "max_memory_allocated": peak, "launches": launches,
+           "checks": checks}
+    return res, ck, fps
+
+
+def paxos_phase(device) -> tuple:
+    """Phase ``paxos``: PackedPaxos on the card (see the module
+    docstring). Returns the kernel checks and the runs."""
+    import torch
+
+    from stateright_tpu_torch.examples.paxos_packed import PackedPaxos
+
+    model = PackedPaxos(3)
+    carry = mid_search_carry(model, device, rows=8192)
+    checks = {}
+    checks["fused_step"] = check_step(model, carry, 8192, reps=10)
+    emit(phase="kernels", kernel="fused_step", model="PackedPaxos",
+         params=list(model.cuda_spec()[1]), **checks["fused_step"])
+    checks["history"] = check_history(model, carry, 8192, reps=20)
+    emit(phase="kernels", kernel="history", model="PackedPaxos",
+         **checks["history"])
+    checks["hpull"] = check_hpull(model, carry, reps=50)
+    emit(phase="kernels", kernel="hpull", model="PackedPaxos",
+         **checks["hpull"])
+    del carry
+
+    path = ("fused_step", "chunk_begin", "append", "history", "hpull")
+    runs = {}
+    for hcap in (1 << 16, 4):
+        res, _ck, fps = paxos_run(2, path, hcap=hcap)
+        res["digest"] = fp_digest(fps)
+        res["checks"].update(
+            unique=res["unique"] == PIN_PAXOS2[0],
+            generated=res["generated"] == PIN_PAXOS2[1],
+            digest=res["digest"] == PIN_PAXOS2[2],
+            witness_length=res["witness_length"] == CHOSEN_LEN_PAXOS2)
+        if hcap == 4:
+            res["checks"]["history_grew"] = res.get("hgrow", 0) >= 1
+        emit(phase="paxos", **res)
+        runs["paxos2", hcap] = res
+        del _ck, fps
+    # the BASELINE workload at bench.py's size: the budget is the host's
+    # generated count at dispatch, which lags one chunk under the
+    # pipeline (as in the JAX package), so the run passes it
+    res, _ck, _fps = paxos_run(3, path, target=PAXOS3_TARGET,
+                               capacity=1 << 21)
+    res["checks"].update(target=res["generated"] >= PAXOS3_TARGET,
+                         unique_500k=res["unique"] >= 500_000)
+    res["states_per_s"] = res["generated"] / res["wall_s"]
+    del _ck, _fps
+    # where its device time goes: the same run profiled
+    prof = device_times(lambda: PackedPaxos(3).checker().gpu_options(
+        race=False, capacity=1 << 21).target_state_count(
+            PAXOS3_TARGET).spawn_gpu().join(), host_top=12)
+    res["profile"] = prof
+    emit(phase="paxos", workload="BASELINE paxos check 3", **res)
+    runs["paxos3"] = res
+    # the default entry point: raced against the host BFS, default options
+    from stateright_tpu_torch.checker import race
+    race.join_losers()
+    t0 = time.perf_counter()
+    ck = PackedPaxos(3).checker().target_state_count(
+        PAXOS3_TARGET).spawn_gpu().join()
+    wall = time.perf_counter() - t0
+    ck.assert_no_discovery("linearizable")
+    ck.assert_any_discovery("value chosen")
+    raced = {"model": "PackedPaxos(3)", "raced": True,
+             "target": PAXOS3_TARGET, "wall_s": wall,
+             "engine": ck.profile().get("engine"),
+             "unique": ck.unique_state_count(),
+             "generated": ck.state_count(),
+             "checks": {"decided": ck.profile().get("engine") is not None}}
+    emit(phase="paxos", **raced)
+    runs["paxos3_raced"] = raced
+    del ck
+    failed = [label for label, r in runs.items()
+              if not all(r["checks"].values())]
+    if failed:
+        raise AssertionError(f"paxos phase: {failed}: "
+                             f"{[runs[k]['checks'] for k in failed]}")
+    torch.cuda.synchronize()
+    return checks, runs
+
+
+def paxos_kernel_entries(checks: dict, runs: dict) -> list:
+    """The ``kernels`` line's records of the Paxos path: K1's paxos
+    instantiation (with K2/K3), K8 and K9, with their launches on the
+    BASELINE run."""
+    launches = runs["paxos3"]["launches"]
+    step = checks["fused_step"]
+    out = [{
+        "name": "fused_step[paxos]", "route": "cuda",
+        "source": "stateright_tpu_torch/csrc/fused_step.cu",
+        "device_functions": "stateright_tpu_torch/csrc/paxos.cuh",
+        "replaces": "stateright_tpu/ops/fused.py:259",
+        "configuration": "probe=True", "model": "PackedPaxos(3)",
+        "launches": launches["fused_step"],
+        "max_abs_err": step["max_abs_err"], "ms": step["ms"],
+        "device_ms": step["device_ms"], "plain_ms": step["plain_ms"],
+        "bound_ms": step["bound_ms"], "bound_by": step["bound_by"],
+        "library_ms": None, "parts": step["parts"], "status": "ok"}]
+    src = "stateright_tpu_torch/csrc/history.cu"
+    for name, replaces in (
+            ("history", "stateright_tpu/checker/device_loop.py:574"),
+            ("hpull", "stateright_tpu/checker/tpu.py:2410")):
+        r = checks[name]
+        out.append({
+            "name": name, "route": "cuda", "source": src,
+            "replaces": replaces, "model": "PackedPaxos(3)",
+            "launches": launches[name], "max_abs_err": r["max_abs_err"],
+            "ms": r["ms"], "device_ms": r["device_ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": None,
+            "status": "ok"})
+    return out
 
 
 def model_kernel_entries(steps: dict, runs: dict) -> list:
@@ -2556,6 +2973,8 @@ def main() -> int:
     # the other models end to end, on one card and on the one-rank mesh
     model_runs = models_phase(mesh)
     dist.destroy_process_group()
+    # Paxos on the card: K1's paxos instantiation, the history stage
+    pax_checks, pax_runs = paxos_phase(torch.device("cuda", 0))
 
     fused_src = "stateright_tpu_torch/csrc/fused_step.cu"
     sharded_src = "stateright_tpu_torch/csrc/sharded_step.cu"
@@ -2667,6 +3086,7 @@ def main() -> int:
          "device_ms": control["device_ms"], "status": "ok"},
     ]
     kernels += model_kernel_entries(model_steps, model_runs)
+    kernels += paxos_kernel_entries(pax_checks, pax_runs)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     # the run uses one card, whatever the machine holds

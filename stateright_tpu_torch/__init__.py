@@ -2,7 +2,8 @@
 
 ``TwoPhaseSys(n).checker().spawn_gpu().join()`` runs the device-resident
 BFS model checker on one NVIDIA Hopper GPU (so do ``PackedLinearEquation``,
-``Increment``, with its symmetry, and ``IncrementLock``): the loop's step is a
+``Increment``, with its symmetry, ``IncrementLock`` and ``PackedPaxos``,
+whose ``linearizable`` property the host evaluates): the loop's step is a
 hand-written CUDA kernel (``csrc/fused_step.cu``) built with ``nvcc`` on
 first use; ``gpu_options(device="cpu")`` runs the kernels' plain torch
 versions instead. The package imports torch, numpy and the standard
@@ -14,9 +15,10 @@ from .checker import Checker, CheckerBuilder, Path
 from .core import Expectation, Model, Property
 from .examples.increment import Increment
 from .examples.increment_lock import IncrementLock
+from .examples.paxos_packed import PackedPaxos
 from .models.packed import PackedLinearEquation
 from .models.twopc import TwoPhaseSys
 
 __all__ = ["Checker", "CheckerBuilder", "Expectation", "Increment",
-           "IncrementLock", "Model", "PackedLinearEquation", "Path",
-           "Property", "TwoPhaseSys"]
+           "IncrementLock", "Model", "PackedLinearEquation", "PackedPaxos",
+           "Path", "Property", "TwoPhaseSys"]

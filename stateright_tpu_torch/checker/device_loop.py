@@ -34,6 +34,21 @@ captured once per carry allocation and replayed ``chunk_steps`` times;
 the host copies the counter block once per chunk. On the CPU the same
 iterations run the kernels' plain versions. Queue, table, ring, log and
 counters are updated in place.
+
+A model with host-evaluated properties (``host_property_indices``) adds
+the history stage (:class:`HistoryStage`, the JAX package's
+``ChunkCarry.hkey_hi/hkey_lo/hidx/h_n/hovf``): after each append the
+rows it appended are deduplicated by the fingerprint of their
+host-property columns (``host_property_cols``) against a history-key
+table, and the queue index of each fresh key's first row is logged in
+``hidx`` (K8, ``csrc/history.cu``, the graph's eighth node on the card;
+:func:`history_reference` on the CPU). ``h_n`` and ``hovf`` ride the
+counter block (``B_H_N``, ``B_HOVF``); an overflowing insert still
+commits its iteration, sets ``hovf`` and shuts the gate, so the loop
+stops after it (the host grows the table and rescans the span). After
+each chunk the first ``HIST_WINDOW`` representatives logged since the
+host's pulled count are gathered with their witness fingerprints (K9,
+:func:`hpull_reference`) and copied with the counter block.
 """
 
 from __future__ import annotations
@@ -49,12 +64,14 @@ from ..ops.expand import assemble_candidates, small_step_sizes
 from ..ops.fused import (S_CCH, S_DEDUP, S_DISC, S_FAULT, S_INSERTED,
                          S_OVF, S_ROUNDS, S_VALID, S_XOVF, StepWorkspace,
                          fused_step, stats_len)
-from ..ops.hashtable import make_table
+from ..ops.hash_kernel import fp64_device
+from ..ops.hashtable import make_table, table_insert_reference
 from ..ops.words import (from_numpy_u32, keys_from_numpy, keys_to_numpy,
-                         to_numpy_u32)
+                         pack64, to_numpy_u32)
 
-# the counter block: the JAX package's base_stats fields (kovf, h_n,
-# hovf, rmax and e_n are those of paths the port does not run: 0), then
+# the counter block: the JAX package's base_stats fields (kovf, rmax and
+# e_n are those of paths the port does not run: 0; h_n and hovf are the
+# history stage's), then
 # disc_hit[P], disc_hi[P], disc_lo[P], the most recent queue row (W + 3)
 # and the ring hits (CtrLayout)
 (B_Q_HEAD, B_Q_TAIL, B_LOG_N, B_GEN, B_OVF, B_XOVF, B_KOVF, B_H_N, B_HOVF,
@@ -97,6 +114,45 @@ class CtrLayout(NamedTuple):
         return self.ext + E_GATE + G_LEN
 
 
+#: representatives gathered with each chunk's counter block; more fresh
+#: ones are pulled on their own (distinct histories grow far slower than
+#: states)
+HIST_WINDOW = 256
+
+
+def history_rounds(hcap: int) -> int:
+    """The history insert's probe-round bound (the JAX package's
+    ``h_rounds``): a probe through foreign buckets advances one bucket a
+    round, so the bucket count bounds it, with a margin for claim
+    retries; reaching it reports ``hovf`` (the growth signal)."""
+    return min(4096, hcap + 64)
+
+
+@dataclass
+class HistoryStage:
+    """The history stage of a carry (models with host-evaluated
+    properties): the history-key table (packed int64 keys, the visited
+    table's layout), ``hidx`` (int32, the queue index of each distinct
+    key's representative, ``h_n`` of them: ``ctr[B_H_N]``) and ``hdone``
+    (int32[1], the queue rows already deduplicated: K8 takes the rows
+    from there to the queue tail). The keys are the fingerprints of the
+    rows' words ``[hoff, hoff + hwidth)``."""
+
+    table: torch.Tensor
+    hidx: torch.Tensor
+    hdone: torch.Tensor
+    hoff: int
+    hwidth: int
+
+    @property
+    def hcap(self) -> int:
+        return self.table.numel()
+
+    @property
+    def max_rounds(self) -> int:
+        return history_rounds(self.hcap)
+
+
 @dataclass
 class ChunkCarry:
     """The search state, on the engine's device. The loop scalars live in
@@ -114,6 +170,8 @@ class ChunkCarry:
     #: the card's chunk for this allocation (CardChunk), made on first
     #: use and dropped when a buffer is replaced
     card: object = field(default=None, repr=False)
+    #: the history stage (models with host-evaluated properties)
+    hist: Optional[HistoryStage] = None
 
     def counters(self) -> np.ndarray:
         return self.ctr.cpu().numpy().copy()
@@ -178,9 +236,23 @@ def _new_ctr(layout: CtrLayout, device, q_head: int = 0, q_tail: int = 0,
     return from_numpy_u32(ctr.astype(np.uint32), device)
 
 
+def new_history(model, hcap: int, logcap: int, hdone: int,
+                device) -> HistoryStage:
+    """An empty history stage of ``hcap`` keys (a power of two >= 4)
+    for a log of ``logcap`` rows, deduplicating queue rows from
+    ``hdone`` on."""
+    cols = getattr(model, "host_property_cols", None)
+    hoff, hwidth = cols if cols is not None else (0, model.packed_width)
+    return HistoryStage(
+        table=make_table(hcap, device),
+        hidx=torch.zeros((logcap,), dtype=torch.int32, device=device),
+        hdone=torch.tensor([hdone], dtype=torch.int32, device=device),
+        hoff=int(hoff), hwidth=int(hwidth))
+
+
 def seed_carry(model, qcap: int, capacity: int, init_rows, init_ebits,
-               init_fps, cc: int, device,
-               symmetry: bool = False) -> ChunkCarry:
+               init_fps, cc: int, device, symmetry: bool = False,
+               hcap: int = 0) -> ChunkCarry:
     """The initial carry: init states enqueued (with their
     eventually-bits — one value for all, or one per row, as a resumed
     frontier brings them — and their cached fingerprints: the canonical
@@ -213,7 +285,9 @@ def seed_carry(model, qcap: int, capacity: int, init_rows, init_ebits,
                      recent=None if block is None else block[-1]),
         layout=layout,
         ws=(StepWorkspace(capacity, cc, n_props, table.device)
-            if table.is_cuda else None), symmetry=symmetry)
+            if table.is_cuda else None), symmetry=symmetry,
+        hist=(new_history(model, hcap, capacity, k, q.device)
+              if hcap else None))
 
 
 def carry_from_numpy(carry, ring_hi, ring_lo, device="cpu") -> ChunkCarry:
@@ -300,7 +374,7 @@ def gate_reference(ctr, layout: CtrLayout, f_small: int, f_large: int,
     avail = tail - head
     disc = c[B_DISC:B_DISC + layout.P]
     go = (avail > 0 and c[x + E_STEPS] > 0 and not c[B_OVF]
-          and not c[B_XOVF] and not c[x + E_FAULT]
+          and not c[B_XOVF] and not c[B_HOVF] and not c[x + E_FAULT]
           and c[B_GEN] < c[x + E_TARGET] and log_n < c[x + E_GROW]
           and tail <= qlimit and not (disc and all(disc)))
     small = 0 < f_small and avail <= f_small
@@ -368,6 +442,139 @@ def append_reference(ctr, layout: CtrLayout, q, log, out, n_actions: int,
     gate_reference(ctr, layout, f_small, f_large, qlimit, out.stats)
 
 
+def first_lanes(key: torch.Tensor) -> torch.Tensor:
+    """bool mask of the lowest lane of each distinct value of ``key``
+    (int64 ``[n]``)."""
+    n = key.shape[0]
+    if not n:
+        return torch.zeros((0,), dtype=torch.bool, device=key.device)
+    _, inv = torch.unique(key, return_inverse=True)
+    lane = torch.arange(n, dtype=torch.int64, device=key.device)
+    first = torch.full((n,), n, dtype=torch.int64, device=key.device)
+    first.scatter_reduce_(0, inv, lane, reduce="amin")
+    return first[inv] == lane
+
+
+def history_reference(q, hist: HistoryStage, rows: torch.Tensor):
+    """The plain version of K8 (``csrc/history.cu``) over the queue rows
+    ``rows`` (int64 ``[n]``, in order): key each row by the fingerprint
+    of its words ``[hoff, hoff + hwidth)`` and insert the lowest row of
+    each key not yet in ``hist.table`` (in place), within the JAX
+    package's ``h_rounds`` bound. Returns ``(fresh bool[n],
+    overflowed)``: ``fresh`` marks the inserted rows, the keys' new
+    representatives. (The JAX package's insert keeps the highest lane of
+    an in-batch duplicate group instead: the same keys and counts,
+    another representative of the same history.)"""
+    words = q[rows, hist.hoff:hist.hoff + hist.hwidth]
+    hi, lo = fp64_device(words)
+    lead = first_lanes(pack64(hi, lo))
+    fresh, ovf = table_insert_reference(hist.table, hi, lo, lead,
+                                        hist.max_rounds)
+    return fresh, ovf
+
+
+def history_range_reference(q, hist: HistoryStage, start: int, end: int,
+                            h_n: int) -> "tuple":
+    """:func:`history_reference` over the queue rows ``[start, end)``,
+    each fresh row's queue index appended to ``hist.hidx`` at ``h_n``.
+    Returns ``(h_n, overflowed)``."""
+    rows = torch.arange(start, end, dtype=torch.int64, device=q.device)
+    fresh, ovf = history_reference(q, hist, rows)
+    reps = rows[fresh]
+    hist.hidx[h_n:h_n + reps.shape[0]] = reps.to(torch.int32)
+    return h_n + reps.shape[0], ovf
+
+
+def history_step_reference(ctr, layout: CtrLayout, q,
+                           hist: HistoryStage) -> None:
+    """K8's pass in a chunk, plain: the rows from ``hist.hdone`` to the
+    queue tail through :func:`history_range_reference` at ``h_n``
+    (``ctr[B_H_N]``, advanced), ``hdone`` moved to the tail; an overflow
+    sets ``ctr[B_HOVF]`` and shuts the next iteration's gate."""
+    start, tail = int(hist.hdone[0]), int(ctr[B_Q_TAIL])
+    if tail <= start:
+        return
+    h_n, ovf = history_range_reference(q, hist, start, tail,
+                                       int(ctr[B_H_N]))
+    ctr[B_H_N] = h_n
+    hist.hdone[0] = tail
+    if ovf:
+        ctr[B_HOVF] = 1
+        ctr[layout.ext + E_GATE + G_SIZE] = 0
+
+
+def hpull_reference(q, hidx, log, start: int, count: int, n_init: int,
+                    rows: int) -> torch.Tensor:
+    """The plain version of K9 (``csrc/history.cu``): int32 ``[rows,
+    W + 2]``, row ``i < min(count, rows)`` the queue row
+    ``hidx[start + i]`` (its ``W`` packed words) and its witness
+    fingerprint (the log's child key at ``hidx[start + i] - n_init``),
+    the other rows zero."""
+    w = q.shape[1] - 3
+    out = torch.zeros((rows, w + 2), dtype=torch.int32, device=q.device)
+    k = max(0, min(count, rows))
+    if k:
+        sel = hidx[start:start + k].to(torch.int64)
+        out[:k, :w] = q[sel, :w]
+        out[:k, w:] = log[sel - n_init, 0:2]
+    return out
+
+
+def history_regrow(q, hist: HistoryStage, h_n: int,
+                   hcap: int) -> HistoryStage:
+    """A history stage with a new table of ``hcap`` keys, seeded from
+    the ``h_n`` logged representatives (K8 over ``hidx[:h_n]`` without
+    appending, or its plain version); ``hidx`` and ``hdone`` carry over.
+    Raises if even the new table overflows."""
+    new = HistoryStage(table=make_table(hcap, q.device), hidx=hist.hidx,
+                       hdone=hist.hdone, hoff=hist.hoff,
+                       hwidth=hist.hwidth)
+    if q.is_cuda:
+        from ..ops import _cuda
+        _h, ovf = _cuda.history_insert(q, new, index=hist.hidx[:h_n],
+                                       append=False)
+    else:
+        _fresh, ovf = history_reference(q, new,
+                                        hist.hidx[:h_n].to(torch.int64))
+    if ovf:
+        raise RuntimeError(
+            "history-key table overflow while re-seeding after growth; "
+            "raise gpu_options(hcap=...)")
+    return new
+
+
+def history_rescan(q, hist: HistoryStage, start: int, end: int,
+                   h_n: int) -> "tuple":
+    """After an in-chunk history overflow: deduplicate the queue rows
+    ``[start, end)`` against the (grown) table, appending each fresh
+    key's representative to ``hidx`` at ``h_n`` (K8 over the range, or
+    its plain version). Returns ``(h_n, overflowed)``."""
+    if end <= start:
+        return h_n, False
+    if q.is_cuda:
+        from ..ops import _cuda
+        return _cuda.history_insert(q, hist, start=start, end=end,
+                                    append=True, h_n=h_n)
+    return history_range_reference(q, hist, start, end, h_n)
+
+
+def pull_representatives(q, hidx, log, start: int, count: int,
+                         n_init: int) -> np.ndarray:
+    """The ``count`` representatives logged from ``start`` on, as numpy
+    uint32 ``[count, W + 2]`` (the packed rows, then the witness
+    fingerprint halves): K9 on the card, its plain version here."""
+    if count <= 0:
+        return np.zeros((0, q.shape[1] - 1), np.uint32)
+    if q.is_cuda:
+        from ..ops import _cuda
+        out = torch.empty((count, q.shape[1] - 1), dtype=torch.int32,
+                          device=q.device)
+        _cuda.hpull(q, hidx, log, start, n_init, out, count=count)
+    else:
+        out = hpull_reference(q, hidx, log, start, count, n_init, count)
+    return to_numpy_u32(out)
+
+
 def step_sizes(model, fmax: int):
     """``(f_small, f_large, qmargin)`` of the chunk at ``fmax`` rows:
     ``f_small`` 0 when one size serves (``fmax <= FMAX_SMALL``);
@@ -399,6 +606,9 @@ def iteration_reference(model, carry: ChunkCarry, fmax: int) -> bool:
     append_reference(carry.ctr, carry.layout, carry.q, carry.log, out,
                      model.max_actions, f_small, f_large,
                      carry.q.shape[0] - qmargin)
+    if carry.hist is not None:
+        history_step_reference(carry.ctr, carry.layout, carry.q,
+                               carry.hist)
     return True
 
 
@@ -441,6 +651,15 @@ class CardChunk:
         self._step = (carry.q, carry.table, carry.ring, carry.ws,
                       carry.symmetry)
         self._gate_ptr = carry.ctr[lay.ext + E_GATE:].data_ptr()
+        # the history stage (K8 in the graph, K9 after each chunk)
+        self.hist = carry.hist
+        self.window = self.hargs = None
+        if carry.hist is not None:
+            self.hargs = _cuda.history_chunk_args(carry.ctr, lay.ext, carry.q,
+                                                  carry.hist)
+            self.window = torch.zeros((HIST_WINDOW, lay.W + 2),
+                                      dtype=torch.int32, device=dev)
+        self._q, self._log, self._ctr = carry.q, carry.log, carry.ctr
         t0 = time.perf_counter()
         # every kernel once outside the capture (loads it, sets its
         # shared-memory limit), with no steps left: the gate stays shut
@@ -472,9 +691,23 @@ class CardChunk:
         from ..ops import _cuda
         _cuda.append(self.args, self.device)
 
+    def launch_history(self) -> None:
+        from ..ops import _cuda
+        _cuda.history(self.hargs, self.device)
+
     def _record(self) -> None:
         self.launch_steps()
         self.launch_append()
+        if self.hist is not None:
+            self.launch_history()
+
+    def pull_window(self, h_base: int, n_init: int) -> None:
+        """K9: the first ``HIST_WINDOW`` representatives logged from
+        ``h_base`` on (the count read from the counter block on the
+        device) into ``self.window``."""
+        from ..ops import _cuda
+        _cuda.hpull(self._q, self.hist.hidx, self._log, h_base, n_init,
+                    self.window, h_n=self._ctr[B_H_N:B_H_N + 1])
 
     def outputs(self, size: int):
         """The step outputs of the step size ``size`` (a ``FusedOut``
@@ -504,10 +737,13 @@ class PendingChunk:
     the profile the first time."""
 
     def __init__(self, stats: LoopStats, layout: CtrLayout, counters=None,
-                 buf=None, event=None):
+                 buf=None, event=None, window=None, h_base: int = 0):
         self._stats, self._layout = stats, layout
         self._c, self._buf, self._event = counters, buf, event
         self._counted = False
+        #: the representative window (numpy int32 [HIST_WINDOW, W + 2],
+        #: a pinned buffer until read) and the h_n it starts at
+        self._window, self.h_base = window, h_base
 
     def read(self) -> np.ndarray:
         st = self._stats
@@ -529,6 +765,14 @@ class PendingChunk:
             st.pdh += int(c[B_PDH])
         return self._c
 
+    def window(self) -> Optional[np.ndarray]:
+        """The chunk's representative window (after :meth:`read`), or
+        ``None`` without a history stage."""
+        if self._window is not None and not isinstance(self._window,
+                                                       np.ndarray):
+            self._window = self._window.numpy().copy()
+        return self._window
+
 
 class ChunkRunner:
     """Runs chunks over one carry at ``fmax`` rows per large step. On the
@@ -547,14 +791,20 @@ class ChunkRunner:
         self._tag = 0   # the CPU path's tags (the card's: carry.ws.step)
         self._host = None
         self._turn = 0
+        self._windows = None
         if carry.q.is_cuda:
             n = carry.layout.length
             self._host = [(torch.empty((n,), dtype=torch.int32,
                                        pin_memory=True),
                            torch.cuda.Event()) for _ in range(2)]
+            if carry.hist is not None:
+                self._windows = [torch.empty(
+                    (HIST_WINDOW, carry.layout.W + 2), dtype=torch.int32,
+                    pin_memory=True) for _ in range(2)]
 
     def invalidate(self) -> None:
-        """The carry's buffers were replaced (growth): recapture."""
+        """The carry's buffers were replaced (growth), or its history
+        stage was (grown or dropped): recapture."""
         self.carry.card = None
 
     def card(self) -> CardChunk:
@@ -569,10 +819,14 @@ class ChunkRunner:
         return card
 
     def dispatch(self, steps: int, target_remaining: int = I32_MAX,
-                 grow_limit: int = I32_MAX) -> PendingChunk:
+                 grow_limit: int = I32_MAX, h_base: int = 0,
+                 n_init: int = 0) -> PendingChunk:
         """Launch one chunk of at most ``steps`` iterations under the
         JAX package's loop condition with these ``target_remaining``
-        (generated transitions) and ``grow_limit`` (log rows)."""
+        (generated transitions) and ``grow_limit`` (log rows). With a
+        history stage the chunk also gathers the representative window
+        from ``h_base`` (the host's pulled count; ``n_init`` the queue
+        rows before the log's first)."""
         carry, st = self.carry, self.stats
         target = min(max(int(target_remaining), 0), I32_MAX)
         grow_limit = min(int(grow_limit), I32_MAX)
@@ -593,14 +847,28 @@ class ChunkRunner:
                         or not iteration_reference(self.model, carry,
                                                    self.fmax)):
                     break  # cancelled, or the condition stays false
-            return PendingChunk(st, carry.layout, carry.counters())
-        self.card().run(steps, target, grow_limit, tag)
+            c = carry.counters()
+            window = None
+            if carry.hist is not None:
+                window = hpull_reference(
+                    carry.q, carry.hist.hidx, carry.log, h_base,
+                    int(c[B_H_N]) - h_base, n_init, HIST_WINDOW).numpy()
+            return PendingChunk(st, carry.layout, c, window=window,
+                                h_base=h_base)
+        card = self.card()
+        card.run(steps, target, grow_limit, tag)
         st.graph_launches += steps
         buf, event = self._host[self._turn]
+        window = None
+        if card.hist is not None:
+            card.pull_window(h_base, n_init)
+            window = self._windows[self._turn]
+            window.copy_(card.window, non_blocking=True)
         self._turn ^= 1
         buf.copy_(carry.ctr, non_blocking=True)
         event.record()
-        return PendingChunk(st, carry.layout, buf=buf, event=event)
+        return PendingChunk(st, carry.layout, buf=buf, event=event,
+                            window=window, h_base=h_base)
 
 
 def run_chunk(model, carry: ChunkCarry, *, fmax: int, steps: int,

@@ -18,6 +18,18 @@ search reached; the log's two extra columns map each canonical key to
 its original state's fingerprint (``_orig_of``), through which witness
 paths replay as concrete paths.
 
+A model with host-evaluated properties (``host_property_indices``, e.g.
+the linearizability tester of ``PackedPaxos``) runs the chunk with its
+history stage (``device_loop.py``: K8 in the graph deduplicates the
+appended rows by their history columns, K9 gathers each chunk's fresh
+representatives into the chunk's one sync); the host evaluates each
+distinct history once (memoised by ``model.host_property_key``), the
+init states at seed time, and grows the history table (``hcap``,
+default ``1 << 16``) when it fills or overflows, rescanning the span an
+overflow left unlogged: the JAX package's ``_pull_host_reps``,
+``_regrow_history_table``, ``_rescan_history`` and ``hgrow`` loop
+(``stateright_tpu/checker/tpu.py``).
+
 With ``gpu_options(resumable=True)`` the run keeps its pending frontier
 (the queue rows from its head to its tail, their eventually-bits and
 cached fingerprints, the JAX package's layout), so ``save()`` can write
@@ -50,10 +62,12 @@ from ..ops.fused import CC_DEFAULT, StepWorkspace, supports
 from ..ops.hashtable import table_insert
 from ..ops.words import from_numpy_u32, to_numpy_u32
 from .builder import CheckerBuilder
-from .device_loop import (B_DISC, B_GEN, B_LOG_N, B_OVF, B_Q_HEAD,
-                          B_Q_TAIL, B_XOVF, E_FAULT, I32_MAX, ChunkRunner,
-                          LoopStats, disc_registers, seed_carry,
-                          step_sizes)
+from ..core import Expectation
+from .device_loop import (B_DISC, B_GEN, B_H_N, B_HOVF, B_LOG_N, B_OVF,
+                          B_Q_HEAD, B_Q_TAIL, B_XOVF, E_FAULT, HIST_WINDOW,
+                          I32_MAX, ChunkRunner, LoopStats, disc_registers,
+                          history_regrow, history_rescan,
+                          pull_representatives, seed_carry, step_sizes)
 from .host import HostChecker
 
 
@@ -76,10 +90,6 @@ _NOT_PORTED = {
     "mode": "the per-level engine (mode='level') is not ported",
     "hint": "the per-row staged compaction (hint=) is not ported",
     "host_map": "fleet host labels (cluster/mesh.py) are not ported",
-    "hcap": "host-evaluated properties (the history dedup and the "
-            "post-hoc reduction) are not ported",
-    "hmax": "host-evaluated properties (the history dedup and the "
-            "post-hoc reduction) are not ported",
 }
 for _key in ("retries", "backoff", "chunk_deadline", "retry_seed",
              "degrade", "min_mesh", "blame_after", "spill", "spill_frac",
@@ -143,8 +153,11 @@ class GpuChecker(HostChecker):
 
     #: gpu_options keys the engine reads (``race`` and ``race_budget``
     #: are read by ``CheckerBuilder.spawn_gpu()``, which routes the race)
+    #: (``hmax``, the sharded engine's post-hoc buffer in the JAX
+    #: package, is accepted and not read here, as there)
     _OPTIONS = ("capacity", "fmax", "cc_dedup", "chunk_steps", "grow_at",
-                "device", "pipeline", "race", "race_budget", "resumable")
+                "device", "pipeline", "race", "race_budget", "resumable",
+                "hcap", "hmax")
     #: tpu_options keys accepted only at the value that is the engine's
     _FIXED = _FIXED
 
@@ -171,13 +184,31 @@ class GpuChecker(HostChecker):
             raise NotImplementedError(
                 f"gpu_options({key}={value!r}): "
                 + _NOT_PORTED.get(key, "not ported to stateright_tpu_torch"))
-        reason = supports(
-            model, sound=builder.sound_eventually_,
-            host_props=bool(getattr(model, "host_property_indices", ())))
+        reason = supports(model, sound=builder.sound_eventually_)
         if reason is not None:
             raise NotImplementedError(reason)
         self._symmetry_fn = builder.symmetry_fn_
         self._symmetry = builder.symmetry_fn_ is not None
+        # host-evaluated properties (e.g. the linearizability search):
+        # evaluated on the host once per distinct history, memoised by
+        # model.host_property_key(row)
+        self._host_props = [
+            (i, self._properties[i])
+            for i in getattr(model, "host_property_indices", ())]
+        self._host_fns = self._resolve_host_fns(
+            getattr(model, "host_property_fns", None))
+        self._host_prop_cache: Dict[bytes, List[bool]] = {}
+        self._hcap = int(opts.get("hcap", 1 << 16))
+        if self._hcap & (self._hcap - 1) or self._hcap < 4:
+            raise ValueError(
+                "gpu_options(hcap=...) must be a power of two >= 4 (the "
+                "open-addressing probe ring masks by bucket count)")
+        if self._host_props and self._symmetry:
+            raise NotImplementedError(
+                "host-evaluated properties under symmetry reduction wait "
+                "for A8's next slice (ROADMAP.md)")
+        self._h_pulled = 0    # representatives already host-evaluated
+        self._hscan_tail = 0  # queue rows known fully history-deduped
         if (self._symmetry
                 and getattr(model, "packed_representative", None) is None):
             raise NotImplementedError(
@@ -224,6 +255,159 @@ class GpuChecker(HostChecker):
         #: enqueued, kept on the device with the checker (coverage
         #: diagnostics read them)
         self._queue = None
+
+    def _resolve_host_fns(self, fns) -> "Optional[list]":
+        """``model.host_property_fns`` in ``_host_props`` order: a dict
+        binds by property name (unknown or missing names raise); a
+        sequence binds by position behind a length check (the JAX
+        package's ``TpuChecker._resolve_host_fns``)."""
+        if fns is None:
+            return None
+        if isinstance(fns, dict):
+            names = [p.name for _i, p in self._host_props]
+            unknown = sorted(set(fns) - set(names))
+            missing = [n for n in names if n not in fns]
+            if unknown or missing:
+                raise ValueError(
+                    "host_property_fns keys must match the model's "
+                    "host-evaluated property names exactly "
+                    f"(host_property_indices -> {names}); "
+                    f"unknown={unknown}, missing={missing}")
+            return [fns[n] for n in names]
+        if len(fns) != len(self._host_props):
+            raise ValueError(
+                f"model declares {len(self._host_props)} host-evaluated "
+                f"properties (host_property_indices) but {len(fns)} "
+                "host_property_fns")
+        return list(fns)
+
+    # --- host-evaluated properties --------------------------------------
+    def _evaluate_host_props(self, row) -> List[bool]:
+        """The host properties' values on one packed row."""
+        if self._host_fns is not None:
+            # the model evaluates each property straight off the packed
+            # row (e.g. the history columns alone)
+            return [bool(fn(row)) for fn in self._host_fns]
+        state = self._model.decode(row)
+        return [bool(prop.condition(self._model, state))
+                for _i, prop in self._host_props]
+
+    def _eval_host_props_block(self, rows, fps,
+                               discoveries: Dict[str, int]) -> None:
+        """Evaluate the host properties over a block of packed rows (with
+        their fingerprints ``fps``) in order: keys in one vectorised pass
+        (``model.host_property_key_block`` when the model has it), each
+        missing key evaluated once, the first failing (ALWAYS) or holding
+        (SOMETIMES) row of each property its discovery; stops once every
+        host property has one (the JAX package's
+        ``_eval_host_props_block``)."""
+        host_props = self._host_props
+        n = len(rows)
+        if not n or not host_props or all(
+                p.name in discoveries for _i, p in host_props):
+            return
+        t0 = time.perf_counter()
+        model = self._model
+        block_fn = getattr(model, "host_property_key_block", None)
+        keys = (block_fn(rows) if block_fn is not None
+                else [model.host_property_key(row) for row in rows])
+        cache = self._host_prop_cache
+        for j in range(n):
+            results = cache.get(keys[j])
+            if results is None:
+                results = cache[keys[j]] = self._evaluate_host_props(
+                    rows[j])
+            for (_i, prop), res in zip(host_props, results):
+                if prop.name in discoveries:
+                    continue
+                if ((prop.expectation == Expectation.ALWAYS and not res)
+                        or (prop.expectation == Expectation.SOMETIMES
+                            and res)):
+                    discoveries[prop.name] = int(fps[j])
+            if all(p.name in discoveries for _i, p in host_props):
+                break
+        prof = self._profile
+        prof["host_eval_s"] += time.perf_counter() - t0
+        prof["host_evals"] += n
+
+    def _want_reps(self, discoveries: Dict[str, int]) -> bool:
+        return any(p.name not in discoveries for _i, p in self._host_props)
+
+    def _eval_reps(self, block, discoveries: Dict[str, int]) -> None:
+        """Evaluate pulled representatives: uint32 ``[n, W + 2]``, the
+        packed rows, then their witness fingerprints' halves (K9's
+        layout)."""
+        w = self._model.packed_width
+        fps = (block[:, w].astype(np.uint64) << np.uint64(32)) \
+            | block[:, w + 1].astype(np.uint64)
+        self._eval_host_props_block(block[:, :w], fps.tolist(), discoveries)
+
+    def _pull_host_reps(self, carry, h_n: int, n_init: int,
+                        discoveries: Dict[str, int]) -> None:
+        """Host-evaluate the representatives logged since the last pull
+        (K9 over ``hidx[h_pulled:h_n]``, one sync)."""
+        start = self._h_pulled
+        if h_n <= start or not self._want_reps(discoveries):
+            self._h_pulled = max(start, h_n)
+            return
+        self._eval_reps(pull_representatives(
+            carry.q, carry.hist.hidx, carry.log, start, h_n - start,
+            n_init), discoveries)
+        self._profile["pulls"] += 1
+        self._h_pulled = h_n
+
+    def _take_window(self, window, h_base: int, h_n: int, carry,
+                     n_init: int, discoveries: Dict[str, int]) -> None:
+        """Evaluate a chunk's fresh representatives: those of its window
+        the host has not seen (the window starts at the pulled count at
+        dispatch, ``h_base``), then the rest by a standalone pull."""
+        fresh = h_n - self._h_pulled
+        if fresh <= 0:
+            return
+        if not self._want_reps(discoveries):
+            self._h_pulled = h_n
+            return
+        offset = self._h_pulled - h_base
+        take = max(0, min(fresh, HIST_WINDOW - offset))
+        if take:
+            self._eval_reps(window[offset:offset + take].astype(np.uint32),
+                            discoveries)
+            self._h_pulled += take
+        if fresh > take:
+            self._pull_host_reps(carry, h_n, n_init, discoveries)
+
+    def _grow_history(self, carry, h_n: int, hovf: bool, q_tail: int,
+                      n_init: int, discoveries: Dict[str, int]) -> None:
+        """Grow the history table: at the growth threshold (``grow_at``
+        of ``hcap``) or on an overflow, to at least four times its size,
+        re-seeded from the logged representatives; after an overflow the
+        span since the last clean chunk is rescanned (growing again if
+        even that overflows) and its recovered representatives are
+        evaluated. The JAX package's ``handle_hgrow``."""
+        t0 = time.perf_counter()
+        while True:
+            new_hcap = self._hcap
+            while new_hcap * self._grow_at <= h_n:
+                new_hcap *= 4
+            if new_hcap == self._hcap:
+                new_hcap *= 4  # an overflow below the threshold
+            self._hcap = new_hcap
+            carry.hist = history_regrow(carry.q, carry.hist, h_n, new_hcap)
+            if not hovf:
+                break
+            new_n, ovf = history_rescan(carry.q, carry.hist,
+                                        self._hscan_tail, q_tail, h_n)
+            if not ovf:
+                h_n = new_n
+                break
+        carry.ctr[B_H_N] = h_n
+        carry.ctr[B_HOVF] = 0
+        carry.hist.hdone[0] = q_tail
+        self._hscan_tail = q_tail
+        self._pull_host_reps(carry, h_n, n_init, discoveries)
+        prof = self._profile
+        prof["hgrow"] += 1
+        prof["hgrow_s"] += time.perf_counter() - t0
 
     # --- seeding ------------------------------------------------------
     def _canon_fp(self, state) -> int:
@@ -323,6 +507,11 @@ class GpuChecker(HostChecker):
             raise RuntimeError("overflow while re-inserting during growth")
         self._insert_keys(table, self._base_fps)
         carry.q, carry.log, carry.table = q, log, table
+        if carry.hist is not None:  # one representative per log row
+            hidx = torch.zeros((self._capacity,), dtype=torch.int32,
+                               device=dev)
+            hidx[:carry.hist.hidx.shape[0]] = carry.hist.hidx
+            carry.hist.hidx = hidx
         if carry.ws is not None:
             carry.ws = StepWorkspace(self._capacity, self._cc,
                                      len(self._properties), dev)
@@ -359,6 +548,9 @@ class GpuChecker(HostChecker):
         prof.update(engine="gpu", device=str(self._device), fmax=fmax,
                     cc_dedup_capacity=self._cc, grows=0,
                     chunk_steps=k_steps, pipeline=pipeline)
+        if self._host_props:  # the history stage's counters
+            prof.update(pulls=0, hgrow=0, hgrow_s=0.0, host_eval_s=0.0,
+                        host_evals=0)
 
         # discoveries by name: a resumed run's come from its checkpoint
         discoveries: Dict[str, int] = {}
@@ -374,6 +566,14 @@ class GpuChecker(HostChecker):
         # everything known at seed time is re-inserted on growth (the
         # log only records states found since)
         self._base_fps = list(self._generated)
+        host_idx = {i for i, _p in self._host_props}
+        if self._host_props and self._resume_path is None:
+            # the init rows never enter the history log (only appended
+            # rows do): evaluate them here once. A resumed frontier was
+            # evaluated before its checkpoint (its discoveries ride it)
+            self._eval_host_props_block(
+                [np.asarray(row) for row in init_rows], seed_fps,
+                discoveries)
         if prop_count == 0:
             return  # nothing to search for
         preload = len(self._base_fps)
@@ -382,30 +582,41 @@ class GpuChecker(HostChecker):
         qcap = self._device_qcap(n_init, headroom)
         carry = seed_carry(model, qcap, self._capacity, init_rows,
                            seed_ebits, seed_fps, self._cc, self._device,
-                           symmetry=self._symmetry)
+                           symmetry=self._symmetry,
+                           hcap=(self._hcap if self._want_reps(discoveries)
+                                 else 0))
+        self._hscan_tail = n_init
         self._insert_keys(carry.table, self._base_fps)
         prof["seed_s"] = time.perf_counter() - t_start
         runner = ChunkRunner(model, carry, fmax, stats,
                              cancelled=self._cancel_event.is_set)
-        # discoveries a resumed run brought along count as found
-        known = np.array([prop.name in discoveries for prop in properties],
-                         bool)
         qmargin = step_sizes(model, fmax)[2]
         target = self._target_state_count
         inflight: deque = deque()
         last = None  # the newest counter block read
 
+        def found() -> np.ndarray:
+            """Each property's discovery so far: the device registers
+            (not for host-evaluated properties: their device bits are
+            placeholders) or a known one (a resumed run's, the host's)."""
+            hit = last[B_DISC:B_DISC + prop_count] != 0
+            return np.array([(bool(hit[i]) and i not in host_idx)
+                             or prop.name in discoveries
+                             for i, prop in enumerate(properties)], bool)
+
         def dispatch() -> None:
             # the growth limit bounds the log; the seed-time keys count
             # against the table's load. The generation budget is the
             # host's count at dispatch, which lags one chunk under the
-            # pipeline, as in the JAX package
+            # pipeline, as in the JAX package; the representative window
+            # starts at the host's pulled count at dispatch
             grow_limit = int(min(self._grow_at * self._capacity,
                                  self._capacity - headroom) - preload)
             remaining = (min(max(target - self._state_count, 0), I32_MAX)
                          if target is not None else I32_MAX)
             inflight.append((runner.dispatch(k_steps, remaining,
-                                             grow_limit), grow_limit))
+                                             grow_limit, self._h_pulled,
+                                             n_init), grow_limit))
 
         def process(pending, grow_limit: int) -> set:
             """Consume one chunk's counters; returns the host actions it
@@ -429,8 +640,20 @@ class GpuChecker(HostChecker):
                     "gpu_options(capacity=...)")
             acts = set()
             q_tail, log_n = int(c[B_Q_TAIL]), int(c[B_LOG_N])
-            if (q_tail == c[B_Q_HEAD]
-                    or all(c[B_DISC:B_DISC + prop_count] | known)
+            window = pending.window()
+            if window is not None:
+                h_n, hovf = int(c[B_H_N]), bool(c[B_HOVF])
+                self._take_window(window, pending.h_base, h_n, carry,
+                                  n_init, discoveries)
+                if not self._want_reps(discoveries):
+                    acts.add("hdrop")  # the history stage is dead work
+                elif hovf or h_n >= self._grow_at * self._hcap:
+                    acts.add("hgrow")
+                    hgrow_pend["hovf"] |= hovf
+                    hgrow_pend["h_n"] = max(hgrow_pend["h_n"], h_n)
+                else:
+                    self._hscan_tail = q_tail
+            if (q_tail == c[B_Q_HEAD] or all(found())
                     or (target is not None and self._state_count >= target)
                     or self._cancel_event.is_set()):
                 acts.add("done")
@@ -438,6 +661,8 @@ class GpuChecker(HostChecker):
                   or q_tail > carry.q.shape[0] - qmargin):
                 acts.add("grow")
             return acts
+
+        hgrow_pend = {"hovf": False, "h_n": 0}
 
         t_loop = time.perf_counter()
         # the JAX package's chunk loop (checker/tpu.py _drive_device):
@@ -456,18 +681,32 @@ class GpuChecker(HostChecker):
                 continue
             while inflight:
                 acts |= process(*inflight.popleft())
-            if "done" in acts:
+            if "hdrop" in acts and carry.hist is not None:
+                carry.hist = None
+                carry.ctr[B_HOVF] = 0
+                runner.invalidate()
+            if "hgrow" in acts and carry.hist is not None:
+                # before the exit, as in the JAX package: an overflow in
+                # the last chunk leaves rows whose histories only the
+                # rescan logs and evaluates
+                self._grow_history(carry, hgrow_pend["h_n"],
+                                   hgrow_pend["hovf"], int(last[B_Q_TAIL]),
+                                   n_init, discoveries)
+                hgrow_pend.update(hovf=False, h_n=0)
+                runner.invalidate()
+            if "done" in acts or all(found()):
                 break
-            self._grow_device(carry, n_init, headroom)
-            runner.invalidate()
-            prof["grows"] += 1
+            if "grow" in acts:
+                self._grow_device(carry, n_init, headroom)
+                runner.invalidate()
+                prof["grows"] += 1
             dispatch()
         prof["loop_s"] = time.perf_counter() - t_loop
         log_n = int(last[B_LOG_N])
         self._unique_state_count = preload + log_n
         hit, fps = disc_registers(last, prop_count)
         for i, prop in enumerate(properties):
-            if hit[i] and prop.name not in discoveries:
+            if hit[i] and i not in host_idx and prop.name not in discoveries:
                 discoveries[prop.name] = int(fps[i])
         self._discovery_fps.update(discoveries)
         if opts.get("resumable"):
@@ -491,6 +730,7 @@ class GpuChecker(HostChecker):
             sync_s=stats.sync_s, sync_stall=stats.sync_s,
             capture_s=stats.capture_s, captures=stats.captures,
             graph_launches=stats.graph_launches,
+            h_n=int(carry.ctr[B_H_N]), histories=len(self._host_prop_cache),
             iterations=stats.iterations,
             small_iterations=stats.small_iterations,
             vmax=stats.vmax, dmax=stats.dmax, cc_dedup_hits=stats.cch,

@@ -59,6 +59,11 @@
 //                          counters and the tag; a count that disagrees
 //                          with the step's S_INSERTED sets the fault
 //                          flag) and evaluates the next iteration's gate.
+//   K8 history_kernel      (history.cu) only for a model with
+//                          host-evaluated properties: the rows K7
+//                          appended, deduplicated by their history
+//                          words; an overflow sets hovf and shuts the gate
+//                          K7's tail just wrote (the gate reads hovf).
 // Per chunk, outside the graph: chunk_begin_kernel writes the chunk's
 // parameters (steps, target_remaining, grow_limit, the first tag), zeroes
 // the per-chunk counters, as the JAX package's dispatch does to its
@@ -97,6 +102,8 @@ enum Base {
   B_GEN = 3,
   B_OVF = 4,
   B_XOVF = 5,
+  B_H_N = 7,
+  B_HOVF = 8,
   B_VMAX = 9,
   B_DMAX = 10,
   B_PDH = 13,
@@ -128,6 +135,9 @@ constexpr int kBeginThreads = 128;
 // shared memory (srt_append and srt_chunk_begin check them)
 constexpr int kMaxCtr = 256;
 constexpr int kMaxStats = 64;
+// the words of the most recent queue row K7's tail holds per lane of its
+// warp (rows of up to 32 * kRecentWords - 3 words)
+constexpr int kRecentWords = 5;
 
 // A block's status word: the epoch of the K7 launch that wrote it (high
 // 32 bits), a flag (2 bits) and a count of rows (30 bits): its tile's
@@ -324,17 +334,19 @@ __device__ int look_back(const unsigned long long* status, int tile,
 }
 
 // The JAX package's make_cond on the counters (rows pending, steps left,
-// no overflow or fault, gen < target_remaining, log_n < grow_limit,
-// q_tail <= qcap - qmargin, not every property discovered: `every`), the
+// no overflow, history overflow or fault, gen < target_remaining,
+// log_n < grow_limit, q_tail <= qcap - qmargin, not every property discovered: `every`), the
 // step size (the small one iff at most f_small rows are pending) and the
 // gate, written to `g`.
 __device__ __forceinline__ void write_gate(const ChunkArgs& c, int* g,
                                            int head, int tail, int log_n,
                                            int steps, int ovf, int xovf,
-                                           int fault, int gen, int target,
-                                           int grow, int tag, bool every) {
+                                           int hovf, int fault, int gen,
+                                           int target, int grow, int tag,
+                                           bool every) {
   const int avail = tail - head;
-  const bool go = avail > 0 && steps > 0 && !ovf && !xovf && !fault &&
+  const bool go = avail > 0 && steps > 0 && !ovf && !xovf && !hovf &&
+                  !fault &&
                   gen < target && log_n < grow &&
                   (long long)tail <= c.qlimit && !every;
   const bool small = c.f_small > 0 && avail <= c.f_small;
@@ -353,8 +365,9 @@ __device__ void eval_gate(const ChunkArgs& c, int* ctr) {
   bool every = c.P > 0;
   for (int p = 0; p < c.P; ++p) every = every && ctr[B_DISC + p] != 0;
   write_gate(c, ctr + c.ext + E_GATE, ctr[B_Q_HEAD], ctr[B_Q_TAIL],
-             ctr[B_LOG_N], x[E_STEPS], ctr[B_OVF], ctr[B_XOVF], x[E_FAULT],
-             ctr[B_GEN], x[E_TARGET], x[E_GROW], x[E_TAG], every);
+             ctr[B_LOG_N], x[E_STEPS], ctr[B_OVF], ctr[B_XOVF],
+             ctr[B_HOVF], x[E_FAULT], ctr[B_GEN], x[E_TARGET], x[E_GROW],
+             x[E_TAG], every);
 }
 
 // The counter block and the stats vector into shared memory, one word a
@@ -492,8 +505,8 @@ __device__ __forceinline__ void write_rows(
 // q_head += take, q_tail and log_n += total, gen += S_VALID, the flags,
 // the profile counters, steps -= 1, the tag; a total that disagrees
 // with the step's S_INSERTED sets the fault flag), the sticky first-hit
-// merge (lane p + 1 for property p), the most recent queue row (the last
-// W + 3 lanes, from the last inserted lane, its loads issued first) and
+// merge (lane p + 1 for property p), the most recent queue row (word i
+// by lane i % 32, from the last inserted lane, its loads issued first) and
 // the next gate; then the counter block written back and the stats
 // vector zeroed. The counters are read by the next kernel in the stream
 // or by the host after the chunk, so the tail need not wait for the
@@ -529,13 +542,18 @@ __device__ __forceinline__ void append_tail(const ChunkArgs& c, int size,
                                                     : 0;
   __syncwarp();
   const int P = c.P, W = c.W, x = c.ext;
-  // the most recent queue row, its loads in flight during the update
-  const int w = lane - (32 - (W + 3));
-  uint32_t recent = 0;
-  if (w >= 0 && total > 0)
-    recent = w < W ? c.flat[(long long)last * W + w]
-             : w == W ? c.ebits[last / c.A]
-                      : (w == W + 1 ? c.chi : c.clo)[last];
+  // the most recent queue row, its loads in flight during the update:
+  // word lane + 32 u of it in recent[u]
+  uint32_t recent[kRecentWords];
+#pragma unroll
+  for (int u = 0; u < kRecentWords; ++u) {
+    const int w = lane + 32 * u;
+    recent[u] = 0u;
+    if (w < W + 3 && total > 0)
+      recent[u] = w < W ? c.flat[(long long)last * W + w]
+                  : w == W ? c.ebits[last / c.A]
+                           : (w == W + 1 ? c.chi : c.clo)[last];
+  }
   bool hit = false;
   if (lane >= 1 && lane <= P) {  // the sticky first hit of property p
     const int p = lane - 1;
@@ -586,9 +604,13 @@ __device__ __forceinline__ void append_tail(const ChunkArgs& c, int size,
     s_ctr[x + E_ITERS] = iters;
     s_ctr[x + E_SMALL] = small;
     write_gate(c, s_ctr + x + E_GATE, head, tail, log_n, steps, ovf, xovf,
-               fault, gen, target, grow, tag, every);
+               s_ctr[B_HOVF], fault, gen, target, grow, tag, every);
   }
-  if (w >= 0 && total > 0) s_ctr[c.recent + w] = (int)recent;
+#pragma unroll
+  for (int u = 0; u < kRecentWords; ++u) {
+    const int w = lane + 32 * u;
+    if (w < W + 3 && total > 0) s_ctr[c.recent + w] = (int)recent[u];
+  }
   __syncwarp();
   commit_counters(c, lane, 32, s_ctr);
 }
@@ -732,8 +754,8 @@ int srt_append(const ChunkArgs* c) {
       (c->log_cols == 6 && (c->ohi == nullptr || c->olo == nullptr)) ||
       c->status == nullptr || c->ticket == nullptr ||
       (long long)c->f_large * c->A > (long long)kValueMask ||
-      ctr_len(*c) > kMaxCtr || c->stats_len > kMaxStats ||
-      c->P + c->W + 3 > 31 ||
+      ctr_len(*c) > kMaxCtr || c->stats_len > kMaxStats || c->P > 31 ||
+      c->W + 3 > 32 * kRecentWords ||
       (t != 1024 && t != 4096))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(c->stream);

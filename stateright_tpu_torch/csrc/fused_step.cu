@@ -13,8 +13,10 @@
 // vmaps any packed model's step; here K1 is a template over the model's
 // device functions, instantiated for TwoPhaseSys (twopc.cuh, both
 // flags), PackedLinearEquation (lineq.cuh), Increment (increment.cuh,
-// both flags) and IncrementLock (increment_lock.cuh); K2 and K3 do not
-// depend on the model. Built with nvcc for
+// both flags), IncrementLock (increment_lock.cuh) and PackedPaxos
+// (paxos.cuh, a wide model: K1 keeps its 96-word rows in shared memory
+// and writes each child word by word, step_common.cuh WideRow); K2 and
+// K3 do not depend on the model. Built with nvcc for
 // sm_90a into a shared library with a plain C interface and driven over
 // ctypes by stateright_tpu_torch/ops/_cuda.py. K4 replaces the XLA insert
 // stateright_tpu/ops/hashtable.py:71 (table_insert), not a pallas_call.
@@ -121,6 +123,7 @@
 #include "increment.cuh"
 #include "increment_lock.cuh"
 #include "lineq.cuh"
+#include "paxos.cuh"
 #include "step_common.cuh"
 #include "twopc.cuh"
 
@@ -300,6 +303,16 @@ int srt_fused_step_increment_sym(const StepArgs* args, int n) {
       args->olo == nullptr)
     return (int)cudaErrorInvalidValue;
   return launch_step<IncrementModel, true>(m, *args);
+}
+
+// One fused step for PackedPaxos(clients, servers, slots) (paxos.cuh:
+// at most 7 clients, 4 servers, 16 slots and 128 words; the wide K1).
+int srt_fused_step_paxos(const StepArgs* args, int clients, int servers,
+                         int slots) {
+  const PaxosModel m(clients, servers, slots);
+  if (!m.ok() || args->A != m.max_actions())
+    return (int)cudaErrorInvalidValue;
+  return launch_step<PaxosModel, false>(m, *args);
 }
 
 // One fused step for IncrementLock(n), 1 <= n <= 16.

@@ -16,6 +16,7 @@
 #include <cooperative_groups.h>
 #include <cstdint>
 #include <cuda_runtime.h>
+#include <type_traits>
 
 namespace {
 
@@ -164,6 +165,32 @@ __device__ __forceinline__ void fp64(const uint32_t (&w)[W], int width,
   lo = h2;
 }
 
+// A wide model's child row (kWideRow below): put(i, v) stores word i at
+// dst[i] and folds it into the fingerprint as fp64 does, so the child is
+// never held whole; finish() gives fp64 of the width words put.
+struct RowOut {
+  uint32_t* dst;
+  uint32_t h1 = 0u, h2 = 0u;
+
+  __device__ explicit RowOut(uint32_t* d) : dst(d) {}
+
+  __device__ __forceinline__ void put(int i, uint32_t v) {
+    dst[i] = v;
+    const uint32_t x = v ^ fmix32((uint32_t)(i + 1) * kGolden);
+    h1 ^= fmix32(x * kC1_1);
+    h2 ^= fmix32(x * kC1_2);
+  }
+
+  __device__ __forceinline__ void finish(int width, uint32_t& hi,
+                                         uint32_t& lo) const {
+    uint32_t a = fmix32(h1 ^ kSeed1 ^ (uint32_t)width);
+    uint32_t b = fmix32(h2 ^ kSeed2 ^ ((uint32_t)width * kC1_1));
+    if (a == 0u && b == 0u) b = 1u;
+    hi = a;
+    lo = b;
+  }
+};
+
 // Every lane of the warp must call these (no early returns before them).
 __device__ __forceinline__ void warp_add(int* dst, int v) {
 #pragma unroll
@@ -279,6 +306,18 @@ __device__ __forceinline__ bool open_gate(StepArgs& a, int* take) {
 
 struct NoCanon {};
 
+// Whether M is a wide model (M::kWideRow): its row is too wide for K1's
+// per-lane register arrays (Paxos: 96 words), so K1 loads the tile's
+// rows into shared memory cooperatively and calls m.props_row(row) and
+// m.step_row(row, act, out, ovf) on the shared copy, the child going
+// straight to its flat row through a RowOut. Models without the member
+// (every other) compile to K1 as it was.
+template <class M, class = void>
+struct WideRow : std::false_type {};
+template <class M>
+struct WideRow<M, std::void_t<decltype(M::kWideRow)>>
+    : std::integral_constant<bool, M::kWideRow> {};
+
 // The row's representative state of a model under SYM (M::RowCanon),
 // else nothing: models without symmetry define no RowCanon.
 template <class M, bool SYM>
@@ -291,7 +330,8 @@ struct CanonOf<M, true> {
 };
 
 // K1's per-row state in shared memory, written once per row (16-byte
-// aligned, so a lane reads its row's words as one vector load).
+// aligned, so a lane reads its row's words as one vector load; a wide
+// model's lanes read the words they need from it).
 template <class M, bool SYM>
 struct alignas(16) RowState {
   uint32_t w[M::W];  // the frontier row (its first m.width() words)
@@ -305,7 +345,8 @@ struct alignas(16) RowState {
 };
 
 // The model interface K1 takes (csrc/twopc.cuh, lineq.cuh,
-// increment.cuh, increment_lock.cuh): M::W, the words of a row array;
+// increment.cuh, increment_lock.cuh; the wide paxos.cuh: see WideRow):
+// M::W, the words of a row array;
 // m.width(), the words of the state (at most W: a runtime width, n + 1
 // or n + 2 for the increment models, is walked by unrolled loops
 // guarded by it, so the row arrays stay in registers); m.step(w, act,
@@ -348,20 +389,40 @@ __global__ void expand_kernel(M m, StepArgs a) {
   const int nrows =
       (int)max(0ll, min((long long)a.tile.rows, (long long)a.F - row0));
   if (threadIdx.x == 0) s_valid = 0;
-  for (int i = threadIdx.x; i < nrows; i += blockDim.x) {
-    const long long r = row0 + i;
-    RowState<M, SYM>& rs = rows[i];
-    uint32_t w[M::W];
+  if constexpr (WideRow<M>::value) {
+    static_assert(!SYM, "a wide model has no symmetric K1");
+    // the tile's rows, neighbouring threads on neighbouring words
+    for (int k = threadIdx.x; k < nrows * width; k += blockDim.x) {
+      const int i = k / width, c = k - i * width;
+      rows[i].w[c] = a.frontier[(row0 + i) * a.fstride + c];
+    }
+    __syncthreads();
+    for (int i = threadIdx.x; i < nrows; i += blockDim.x) {
+      const long long r = row0 + i;
+      RowState<M, SYM>& rs = rows[i];
+      const uint32_t pb = m.props_row(rs.w);
+      rs.pb = pb;
+      rs.eb = a.ebits[r * a.estride] & ~(pb & a.ev_mask);
+      rs.fv = take >= 0 ? r < take : a.fvalid[r] != 0;
+      rs.valid = 0;
+      rs.xovf = 0;
+    }
+  } else {
+    for (int i = threadIdx.x; i < nrows; i += blockDim.x) {
+      const long long r = row0 + i;
+      RowState<M, SYM>& rs = rows[i];
+      uint32_t w[M::W];
 #pragma unroll
-    for (int k = 0; k < M::W; ++k)
-      w[k] = rs.w[k] = k < width ? a.frontier[r * a.fstride + k] : 0u;
-    const uint32_t pb = m.props(w);
-    if constexpr (SYM) m.row_canon(w, rs.rc);
-    rs.pb = pb;
-    rs.eb = a.ebits[r * a.estride] & ~(pb & a.ev_mask);
-    rs.fv = take >= 0 ? r < take : a.fvalid[r] != 0;
-    rs.valid = 0;
-    rs.xovf = 0;
+      for (int k = 0; k < M::W; ++k)
+        w[k] = rs.w[k] = k < width ? a.frontier[r * a.fstride + k] : 0u;
+      const uint32_t pb = m.props(w);
+      if constexpr (SYM) m.row_canon(w, rs.rc);
+      rs.pb = pb;
+      rs.eb = a.ebits[r * a.estride] & ~(pb & a.ev_mask);
+      rs.fv = take >= 0 ? r < take : a.fvalid[r] != 0;
+      rs.valid = 0;
+      rs.xovf = 0;
+    }
   }
   __syncthreads();
   int nvalid = 0;
@@ -372,31 +433,37 @@ __global__ void expand_kernel(M m, StepArgs a) {
   int row = threadIdx.x / A, act = threadIdx.x - row * A;
   for (int t = threadIdx.x; t < tile; t += blockDim.x) {
     RowState<M, SYM>& rs = rows[row];
-    uint32_t w[M::W], s[M::W];
-#pragma unroll
-    for (int k = 0; k < M::W; ++k) w[k] = rs.w[k];
-    bool ovf = false;
-    const bool v = m.step(w, act, s, ovf);
     const long long lane = lane0 + t;
-    if constexpr (M::W == 4) {  // 2pc: one 16-byte store
-      reinterpret_cast<uint4*>(a.flat)[lane] =
-          make_uint4(s[0], s[1], s[2], s[3]);
-    } else {
-#pragma unroll
-      for (int k = 0; k < M::W; ++k)
-        if (k < width) a.flat[lane * width + k] = s[k];
-    }
+    bool ovf = false, v;
     uint32_t hi, lo;
-    if constexpr (SYM) {
-      uint32_t c[M::W];
-      m.canon_child(rs.rc, w, act, s, c);
-      fp64(c, width, hi, lo);
-      uint32_t ohi, olo;
-      fp64(s, width, ohi, olo);
-      a.ohi[lane] = ohi;
-      a.olo[lane] = olo;
+    if constexpr (WideRow<M>::value) {
+      RowOut out(a.flat + lane * width);
+      v = m.step_row(rs.w, act, out, ovf);
+      out.finish(width, hi, lo);
     } else {
-      fp64(s, width, hi, lo);
+      uint32_t w[M::W], s[M::W];
+#pragma unroll
+      for (int k = 0; k < M::W; ++k) w[k] = rs.w[k];
+      v = m.step(w, act, s, ovf);
+      if constexpr (M::W == 4) {  // 2pc: one 16-byte store
+        reinterpret_cast<uint4*>(a.flat)[lane] =
+            make_uint4(s[0], s[1], s[2], s[3]);
+      } else {
+#pragma unroll
+        for (int k = 0; k < M::W; ++k)
+          if (k < width) a.flat[lane * width + k] = s[k];
+      }
+      if constexpr (SYM) {
+        uint32_t c[M::W];
+        m.canon_child(rs.rc, w, act, s, c);
+        fp64(c, width, hi, lo);
+        uint32_t ohi, olo;
+        fp64(s, width, ohi, olo);
+        a.ohi[lane] = ohi;
+        a.olo[lane] = olo;
+      } else {
+        fp64(s, width, hi, lo);
+      }
     }
     a.chi[lane] = hi;
     a.clo[lane] = lo;

@@ -6,8 +6,10 @@ subcommands: ``check`` and ``check-sym`` run the host DFS engine, as
 the JAX package's do; ``check-gpu`` is the counterpart of ``check-tpu``
 (``spawn_gpu()``, raced against a budgeted host BFS; ``--no-race``
 runs the card alone, ``--cpu`` the kernels' plain versions); each
-writes ``report()``'s lines. ``explore`` (the Explorer) is not ported
-and exits non-zero.
+writes ``report()``'s lines. ``paxos`` (with ``paxos_packed``) has the
+JAX package's ``check`` (the host BFS) and ``check-gpu``. ``explore``
+(the Explorer) and ``spawn`` (the UDP runtime) are not ported and exit
+non-zero.
 """
 
 from __future__ import annotations

@@ -46,13 +46,24 @@ class PackedModel(Model):
     packed_width: int
     #: static upper bound on actions per state
     max_actions: int
-    #: property indices evaluated on the host (not ported: the GPU
-    #: engine raises for models that declare any)
+    #: property indices evaluated on the host, once per distinct
+    #: ``host_property_key`` (the GPU engine's history stage)
     host_property_indices: Tuple[int, ...] = ()
+    #: ``(offset, width)`` of the packed columns the host-evaluated
+    #: properties depend on (``None``: the whole row); the GPU engine
+    #: deduplicates states by them before the host evaluates them
+    host_property_cols = None
 
     def cache_key(self):
         """Hashable identity of this model's packed program."""
         return None
+
+    def host_property_key(self, row) -> bytes:
+        """Memoisation key of the host properties on a packed row: at
+        least as fine as their dependence on the state (default: the
+        whole row; models whose host properties read only some columns
+        narrow it)."""
+        return np.asarray(row, dtype=np.uint32).tobytes()
 
     def encode(self, state: Any) -> np.ndarray:
         """Canonical ``uint32[packed_width]`` encoding of ``state``."""

@@ -3,7 +3,8 @@
 Each source (``fused_step.cu``: the single-chip step and the insert;
 ``sharded_step.cu``: the sharded engine's probe-free step and owner-side
 probe; ``chunk.cu``: the chunk's start and K7, the append, which between
-them evaluate the loop's gate) is
+them evaluate the loop's gate; ``history.cu``: K8, the history insert,
+and K9, the representative pull) is
 compiled with ``nvcc`` for ``sm_90a`` into its own shared
 library with a plain C interface the first time a kernel is needed (never
 at import), all ``nvcc`` processes started together, into
@@ -47,7 +48,7 @@ _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD = Path(__file__).resolve().parents[2] / "build" / "kernels"
 #: library name -> source under csrc/
 _SOURCES = {"fused_step": "fused_step.cu", "sharded_step": "sharded_step.cu",
-            "chunk": "chunk.cu"}
+            "chunk": "chunk.cu", "history": "history.cu"}
 _NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -58,10 +59,13 @@ _NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 #: ``fused_step_sym`` and ``fused_step_noprobe_sym`` (the same kernels
 #: with K1's symmetric instantiation), and the chunk's kernels:
 #: ``chunk_begin`` (once per chunk, with the chunk's first gate) and
-#: ``append`` (K7, with the next iteration's gate)
+#: ``append`` (K7, with the next iteration's gate), and the history
+#: stage's: ``history`` (K8, the history insert) and ``hpull`` (K9, the
+#: representative pull)
 LAUNCHES = {"fused_step": 0, "table_insert": 0, "fused_step_noprobe": 0,
             "probe_block": 0, "fused_step_sym": 0,
-            "fused_step_noprobe_sym": 0, "chunk_begin": 0, "append": 0}
+            "fused_step_noprobe_sym": 0, "chunk_begin": 0, "append": 0,
+            "history": 0, "hpull": 0}
 
 #: ``counts``: while this thread captures a graph, the launches each
 #: wrapper recorded in it (another thread's launches count as launches)
@@ -185,6 +189,28 @@ class ChunkArgs(ctypes.Structure):
     ]
 
 
+class HistArgs(ctypes.Structure):
+    """``HistArgs`` of ``csrc/history.cu``, field for field."""
+
+    _fields_ = [
+        ("q", _p), ("qstride", _ll), ("hoff", _i), ("hwidth", _i),
+        ("keys", _p), ("n_buckets", _ll), ("max_rounds", _i),
+        ("index", _p), ("count", _i), ("start", _p), ("end", _p),
+        ("hidx", _p), ("h_n", _p), ("ovf", _p), ("gate", _p),
+        ("stream", _p),
+    ]
+
+
+class HpullArgs(ctypes.Structure):
+    """``HpullArgs`` of ``csrc/history.cu``, field for field."""
+
+    _fields_ = [
+        ("q", _p), ("qstride", _ll), ("W", _i), ("hidx", _p), ("log", _p),
+        ("log_cols", _i), ("n_init", _i), ("start", _i), ("h_n", _p),
+        ("count", _i), ("out", _p), ("rows", _i), ("stream", _p),
+    ]
+
+
 #: the tile sizes of K7 (lanes per block: 256 threads of 4 or 16 lanes;
 #: ``csrc/chunk.cu`` instantiates each)
 APPEND_TILES = (1024, 4096)
@@ -198,12 +224,18 @@ APPEND_TICKETS = 2
 #: instantiation). Their entries are ``srt_fused_step_<name>[_sym]``
 #: (fused_step.cu) and ``srt_dedup_step_<name>[_sym]`` (sharded_step.cu)
 STEP_MODELS = {"twopc": (1, 2), "lineq": (3, None), "increment": (1, 1),
-               "increment_lock": (1, None)}
+               "increment_lock": (1, None), "paxos": (3, None)}
+#: the models of STEP_MODELS with no probe-free (sharded) step: their
+#: host-evaluated properties keep them off a mesh (B14)
+SINGLE_CHIP_MODELS = ("paxos",)
 
 
-def _step_entries(prefix: str, struct, size_fn: str) -> list:
+def _step_entries(prefix: str, struct, size_fn: str,
+                  sharded: bool = False) -> list:
     out = []
     for name, (n_plain, n_sym) in STEP_MODELS.items():
+        if sharded and name in SINGLE_CHIP_MODELS:
+            continue
         out.append((f"{prefix}_{name}", struct, size_fn, n_plain))
         if n_sym is not None:
             out.append((f"{prefix}_{name}_sym", struct, size_fn, n_sym))
@@ -219,8 +251,10 @@ _ENTRIES = {
     "chunk": [("srt_chunk_begin", ChunkArgs, "srt_chunk_args_size", 4),
               ("srt_append", ChunkArgs, "srt_chunk_args_size", 0)],
     "sharded_step": _step_entries("srt_dedup_step", DedupArgs,
-                                  "srt_dedup_args_size")
+                                  "srt_dedup_args_size", sharded=True)
     + [("srt_probe_block", StepArgs, "srt_step_args_size", 0)],
+    "history": [("srt_history", HistArgs, "srt_hist_args_size", 0),
+                ("srt_hpull", HpullArgs, "srt_hpull_args_size", 0)],
 }
 
 
@@ -725,6 +759,105 @@ def append(args: ChunkArgs, device) -> None:
     queue and log rows in lane order at the gate's q_tail and log_n,
     then the carry update and the next iteration's gate."""
     _chunk_launch("srt_append", "append", "append", args, device)
+
+
+# --- the history stage (csrc/history.cu) ---------------------------------
+
+def _hist_args(q, hist) -> HistArgs:
+    dev = q.device
+    _check(q, "q", torch.int32, 2, dev)
+    _check(hist.table, "history table", torch.int64, 2, dev)
+    _check(hist.hidx, "hidx", torch.int32, 1, dev)
+    _check(hist.hdone, "hdone", torch.int32, 1, dev)
+    if (hist.table.shape[1] != 4 or hist.hwidth < 1
+            or hist.hoff + hist.hwidth > q.shape[1] - 3):
+        raise ValueError("the history stage does not fit this queue")
+    return HistArgs(q=q.data_ptr(), qstride=q.stride(0), hoff=hist.hoff,
+                    hwidth=hist.hwidth, keys=hist.table.data_ptr(),
+                    n_buckets=hist.table.shape[0],
+                    max_rounds=hist.max_rounds)
+
+
+def history_chunk_args(ctr, ext: int, q, hist) -> HistArgs:
+    """K8's arguments in a chunk: the rows from ``hist.hdone`` to the
+    queue tail of the counter block ``ctr`` (its port fields from
+    ``ext``), ``h_n`` and ``hovf`` the block's, an overflow shutting its
+    gate."""
+    from ..checker.device_loop import B_H_N, B_HOVF, B_Q_TAIL, E_GATE
+    _check(ctr, "ctr", torch.int32, 1, q.device)
+    args = _hist_args(q, hist)
+    base = ctr.data_ptr()
+    args.start = hist.hdone.data_ptr()
+    args.end = base + 4 * B_Q_TAIL
+    args.hidx = hist.hidx.data_ptr()
+    args.h_n = base + 4 * B_H_N
+    args.ovf = base + 4 * B_HOVF
+    args.gate = base + 4 * (ext + E_GATE)
+    return args
+
+
+def history(args: HistArgs, device) -> None:
+    """Launch K8 with ``args`` (:func:`history_chunk_args`)."""
+    build()
+    args.stream = torch.cuda.current_stream(device).cuda_stream
+    _raise_on(_LIB["history"].srt_history(ctypes.byref(args)),
+              "history insert")
+    _count("history")
+
+
+def history_insert(q, hist, *, index=None, start: int = 0, end: int = 0,
+                   append: bool = True, h_n: int = 0) -> "tuple":
+    """K8 outside a chunk: the rows ``index`` (int32 queue indices, the
+    re-seed) or ``[start, end)`` (the rescan) into ``hist.table``, each
+    fresh key's row appended to ``hist.hidx`` at ``h_n`` when
+    ``append``. Returns ``(h_n, overflowed)`` (one synchronising read:
+    growth only)."""
+    dev = q.device
+    args = _hist_args(q, hist)
+    ctl = torch.tensor([start, end, h_n, 0], dtype=torch.int32, device=dev)
+    base = ctl.data_ptr()
+    if index is not None:
+        index = index.to(torch.int32).contiguous()
+        _check(index, "index", torch.int32, 1, dev)
+        if not index.shape[0]:
+            return h_n, False
+        args.index, args.count = index.data_ptr(), index.shape[0]
+    else:
+        args.start, args.end = base, base + 4
+    args.hidx = hist.hidx.data_ptr() if append else None
+    args.h_n, args.ovf = base + 8, base + 12
+    history(args, dev)
+    out = ctl.tolist()
+    return out[2], bool(out[3])
+
+
+def hpull(q, hidx, log, start: int, n_init: int, out, h_n=None,
+          count: int = 0) -> None:
+    """Launch K9: ``out`` (int32 ``[rows, W + 2]``) row ``i`` the queue
+    row ``hidx[start + i]`` and its witness fingerprint (the log's child
+    key at that index ``- n_init``), for ``i`` below ``*h_n - start``
+    (``h_n`` a one-element int32 device tensor: the counter block's) or
+    ``count``; the other rows zero."""
+    build()
+    dev = q.device
+    _check(q, "q", torch.int32, 2, dev)
+    _check(hidx, "hidx", torch.int32, 1, dev)
+    _check(log, "log", torch.int32, 2, dev)
+    _check(out, "out", torch.int32, 2, dev)
+    w = q.shape[1] - 3
+    if out.shape[1] != w + 2 or not out.shape[0]:
+        raise ValueError("out must be [rows, W + 2]")
+    if h_n is not None:
+        _check(h_n, "h_n", torch.int32, 1, dev)
+    args = HpullArgs(q=q.data_ptr(), qstride=q.stride(0), W=w,
+                     hidx=hidx.data_ptr(), log=log.data_ptr(),
+                     log_cols=log.shape[1], n_init=n_init, start=start,
+                     h_n=None if h_n is None else h_n.data_ptr(),
+                     count=count, out=out.data_ptr(), rows=out.shape[0],
+                     stream=torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(_LIB["history"].srt_hpull(ctypes.byref(args)),
+              "representative pull")
+    _count("hpull")
 
 
 class ChunkGraph:

@@ -104,15 +104,22 @@ class FusedOut(NamedTuple):
     olo: Optional[torch.Tensor] = None
 
 
-def supports(model, *, sound: bool, host_props: bool) -> Optional[str]:
+def supports(model, *, sound: bool) -> Optional[str]:
     """``None`` when the fused step covers this configuration, else why
-    it does not."""
+    it does not.
+
+    Host-evaluated properties run on the fused chunk here, unlike in
+    the JAX package (``stateright_tpu/ops/fused.py:143``, "staged
+    only"): its Pallas kernel had no history table, so the history
+    dedup lived only in the staged branch, whereas on the card the
+    history insert is one more kernel node of the chunk's graph (K8,
+    ``csrc/history.cu``) after the append, over the rows the fused step
+    inserted — the staged math over the same frontier block. The staged
+    branch's own configurations (``sound``; ``hint``, refused by the
+    engine) are still not ported."""
     if sound:
         return ("sound_eventually dedups on (state, ebits) node keys "
                 "and logs cross edges — not ported")
-    if host_props:
-        return ("host-evaluated properties need the in-loop history "
-                "dedup — not ported")
     return None
 
 

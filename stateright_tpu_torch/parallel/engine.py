@@ -62,6 +62,11 @@ class ShardedGpuChecker(GpuChecker):
 
     def __init__(self, builder: CheckerBuilder):
         opts = builder.gpu_options_
+        if getattr(builder.model, "host_property_indices", ()):
+            raise NotImplementedError(
+                "host-evaluated properties on a mesh need the sharded "
+                "post-hoc reduction (B14, build_sharded_posthoc; ROADMAP "
+                "A9b); run this model on one card")
         if opts.get("resumable") or builder.resume_path_ is not None:
             raise NotImplementedError(
                 "checkpoints on a mesh (gpu_options(resumable=True), "

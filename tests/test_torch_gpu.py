@@ -1380,3 +1380,174 @@ def test_checkpoint_resumes_on_card(tmp_path):
     assert resumed.unique_state_count() == whole.unique_state_count() == 314
     assert resumed.generated_fingerprints() == whole.generated_fingerprints()
     assert _cuda.LAUNCHES["fused_step_sym"] > steps
+
+
+#: PackedPaxos(2): unique states, state_count() and the sha256 of the
+#: sorted fingerprints (chip_smoke.py PIN_PAXOS2: the JAX package's host
+#: BFS; tests/test_torch_paxos.py holds the port's plain path to it)
+PIN_PAXOS2 = (16_668, 32_971,
+              "184fdb02ebca156876cc206a2c39ce2c"
+              "c11186fb868ec1b3c6b1fdf63b516971")
+
+
+def _paxos_rows(model, rng, f):
+    """``f`` rows drawn with replacement from the first 3,000 states of a
+    host BFS of ``model``, a tenth of them with crowded networks (their
+    children's sends overflow) and a twentieth random words."""
+    seen, states, queue = set(), [], list(model.init_states())
+    while queue and len(states) < 3000:
+        s = queue.pop(0)
+        enc = model.encode(s)
+        if enc.tobytes() not in seen:
+            seen.add(enc.tobytes())
+            states.append(enc)
+            queue.extend(model.next_states(s))
+    rows = np.stack([states[i] for i in rng.integers(0, len(states), f)])
+    e_cap, w = model.net_capacity, model.packed_width
+    for i in np.flatnonzero(rng.random(f) < 0.1):
+        slots = rows[i, model._net_off:model._timer_off].reshape(e_cap, 4)
+        occ = [tuple(int(x) for x in s) for s in slots if s[0] >> 16 & 1]
+        for j in range(len(occ), int(rng.integers(len(occ), e_cap + 1))):
+            occ.append(((1 << 16) | (7 << 8) | (20 + j), 1, 14 << 24, j))
+        occ.sort(key=lambda t: (t[0], t[2], t[3]))
+        slots[:] = 0
+        for j, t in enumerate(occ):
+            slots[j] = t
+    junk = rng.random(f) < 0.05
+    rows[junk] = rng.integers(0, 2 ** 32, (int(junk.sum()), w),
+                              dtype=np.uint64).astype(np.uint32)
+    return rows
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("clients,f", [(1, 64), (2, 1000), (3, 8192)])
+def test_paxos_step_lane_exact_on_card(clients, f):
+    """K1's paxos instantiation (the wide K1: rows in shared memory, the
+    child written word by word) with K2/K3 against the plain version,
+    lane for lane on every lane (invalid and overflowing ones too), then
+    the inserted key set and the table; small and full width."""
+    _need_card()
+    from stateright_tpu_torch.examples.paxos_packed import PackedPaxos
+    from stateright_tpu_torch.ops.fused import (S_DISC, S_VALID, S_XOVF,
+                                                fused_step,
+                                                fused_step_reference)
+    from stateright_tpu_torch.ops.hash_kernel import fp64_device
+    from stateright_tpu_torch.ops.hashtable import make_table
+    from stateright_tpu_torch.ops.words import from_numpy_u32, pack64
+    model = PackedPaxos(clients)
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(clients)
+    block = from_numpy_u32(_paxos_rows(model, rng, f), dev)
+    phi, plo = (x.to(torch.int32) for x in fp64_device(block))
+    ebits = torch.zeros((f,), dtype=torch.int32, device=dev)
+    fvalid = torch.from_numpy(rng.random(f) < 0.9).to(dev)
+    out, tables = [], []
+    for fn in (fused_step, fused_step_reference):
+        table = make_table(1 << 18, dev)
+        ring = torch.zeros((1 << 12,), dtype=torch.int64, device=dev)
+        out.append(fn(model, block, ebits, fvalid, phi, plo, table, ring))
+        tables.append(sorted(table[table != 0].tolist()))
+    k, p = out
+    for nm in ("flat", "chi", "clo", "cvalid", "pbits", "ebits",
+               "terminal"):
+        assert torch.equal(getattr(k, nm), getattr(p, nm)), nm
+    for i in (S_XOVF, S_VALID):
+        assert int(k.stats[i]) == int(p.stats[i]), i
+    if clients > 1:  # the crowded rows' sends overflow
+        assert int(k.stats[S_XOVF]) == 1
+    assert torch.equal(k.stats[S_DISC:], p.stats[S_DISC:])
+    key_k = pack64(k.chi, k.clo)[k.inserted].tolist()
+    key_p = pack64(p.chi, p.clo)[p.inserted].tolist()
+    assert len(key_k) == len(set(key_k)) and set(key_k) == set(key_p)
+    assert tables[0] == tables[1]
+
+
+@pytest.mark.gpu
+def test_history_kernels_match_plain_versions_on_card():
+    """K8 over a queue range (as in the chunk and the rescan) and over an
+    index list without appending (the re-seed), against the plain
+    version: the representatives in order, their count, the table's key
+    set, the overflow flag (a 4-key table overflows); K9 in both count
+    modes against its plain version, bit for bit."""
+    _need_card()
+    from stateright_tpu_torch.checker.device_loop import (
+        history_reference, hpull_reference, new_history)
+    from stateright_tpu_torch.examples.paxos_packed import PackedPaxos
+    from stateright_tpu_torch.ops import _cuda
+    from stateright_tpu_torch.ops.words import from_numpy_u32
+    model = PackedPaxos(3)
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(8)
+    rows = _paxos_rows(model, rng, 5000)
+    # a history word drawn from 64 values on half the rows: many fresh
+    # keys, each repeated
+    sel = rng.random(len(rows)) < 0.5
+    rows[sel, model._hist_off + 1] = rng.integers(0, 64, int(sel.sum()))
+    w = model.packed_width
+    q = torch.zeros((len(rows) + 8, w + 3), dtype=torch.int32, device=dev)
+    q[:len(rows), :w] = from_numpy_u32(rows, dev)
+    for hcap in (1 << 14, 4):
+        k = new_history(model, hcap, len(rows), 0, dev)
+        p = new_history(model, hcap, len(rows), 0, dev)
+        start, end = 17, len(rows)
+        h_k, ovf_k = _cuda.history_insert(q, k, start=start, end=end,
+                                          append=True, h_n=3)
+        idx = torch.arange(start, end, dtype=torch.int64, device=dev)
+        fresh, ovf_p = history_reference(q, p, idx)
+        assert ovf_k == ovf_p == (hcap == 4)
+        if hcap == 4:
+            continue  # which keys an overflowing insert keeps may differ
+        reps = idx[fresh].to(torch.int32)
+        assert h_k == 3 + reps.shape[0]
+        assert torch.equal(k.hidx[3:h_k], reps)
+        assert torch.equal(torch.sort(k.table[k.table != 0]).values,
+                           torch.sort(p.table[p.table != 0]).values)
+        # the re-seed: the representatives into a fresh table, no append
+        k2 = new_history(model, hcap, len(rows), 0, dev)
+        h2, ovf2 = _cuda.history_insert(q, k2, index=reps, append=False,
+                                        h_n=0)
+        assert (h2, ovf2) == (0, False)
+        assert torch.equal(torch.sort(k2.table[k2.table != 0]).values,
+                           torch.sort(p.table[p.table != 0]).values)
+        assert not k2.hidx.any()
+    log = torch.from_numpy(rng.integers(0, 2 ** 31, (len(rows), 4)).astype(
+        np.int32)).to(dev)
+    hidx = torch.from_numpy(rng.integers(1, len(rows), 300).astype(
+        np.int32)).to(dev)
+    for count, rows_out in ((300, 256), (40, 64)):
+        out = torch.full((rows_out, w + 2), -1, dtype=torch.int32,
+                         device=dev)
+        _cuda.hpull(q, hidx, log, 5, 1, out, count=count)
+        want = hpull_reference(q, hidx, log, 5, count, 1, rows_out)
+        assert torch.equal(out, want)
+        h_n = torch.tensor([5 + count], dtype=torch.int32, device=dev)
+        out.fill_(-1)
+        _cuda.hpull(q, hidx, log, 5, 1, out, h_n=h_n)
+        assert torch.equal(out, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hcap", [1 << 16, 4])
+def test_paxos2_end_to_end_on_card(hcap):
+    """``PackedPaxos(2).checker().spawn_gpu()`` on the card alone: the
+    JAX package's count and digest, ``linearizable`` holds, ``value
+    chosen`` replays; K1-K3, K7, K8 and K9 launched; from a 4-key
+    history table the stage grows and rescans to the same answer."""
+    _need_card()
+    import hashlib
+    from stateright_tpu_torch.examples.paxos_packed import PackedPaxos
+    from stateright_tpu_torch.ops import _cuda
+    before = dict(_cuda.LAUNCHES)
+    ck = PackedPaxos(2).checker().gpu_options(race=False, hcap=hcap) \
+        .spawn_gpu().join()
+    launched = {k: _cuda.LAUNCHES[k] - before[k] for k in before}
+    fps = np.array(sorted(ck.generated_fingerprints()), dtype=np.uint64)
+    digest = hashlib.sha256(fps.astype("<u8").tobytes()).hexdigest()
+    assert (ck.unique_state_count(), ck.state_count(), digest) == PIN_PAXOS2
+    ck.assert_no_discovery("linearizable")
+    ck.assert_any_discovery("value chosen")
+    for name in ("fused_step", "append", "chunk_begin", "history", "hpull"):
+        assert launched[name] > 0, name
+    assert ck.profile()["h_n"] == 5
+    if hcap == 4:
+        assert ck.profile()["hgrow"] >= 1
