@@ -19,7 +19,10 @@ Phases, one JSON line each:
              (``join()`` raises, the host's answer held back);
              TwoPhaseSys(3) raced against ``spawn_bfs()``'s set;
              ``increment_lock check-gpu 3`` in fresh processes, raced
-             and ``--no-race`` in turns (the cold-start walls);
+             and ``--no-race`` in turns (the cold-start walls; these run
+             last, after phase ``paxos``: once another process has used
+             the card, this one's profiler traces lose their device
+             time);
    checkpoint — TwoPhaseSys(7) bounded at 100,000 generated states with
              ``resumable=True``, saved, resumed on the card to the pinned
              count and digest (a witness through the stitched mirror;
@@ -92,15 +95,22 @@ Phases, one JSON line each:
              the 12,288-row steps of IncrementLock(9) and Increment(16)
              (14- and 20-word queue rows).
 
-8. paxos   — PackedPaxos on the card (phase ``kernels`` with
-             ``model: PackedPaxos``, then ``paxos``): K1's paxos
-             instantiation (``csrc/paxos.cuh``, the wide K1) with K2/K3
-             at a mid-search 8,192-row step of PackedPaxos(3), lane for
-             lane; K8 (``history_kernel``) over the rows the next step
-             appends, from the search's own table, from an empty one and
-             keyed by the actor words (fresh keys, repeated within the
-             step), and K9 (``hpull_kernel``) at a 256-row window, bit
-             for bit; PackedPaxos(2) in full with ``race=False`` from the
+8. paxos   — PackedPaxos on the card: its kernels right after the
+             build (phase ``kernels`` with ``model: PackedPaxos``), the
+             runs last (phase ``paxos``). K1's paxos instantiation
+             (``csrc/paxos.cuh``, the wide K1 over ``ops/_cuda.py``
+             ``wide_geometry``, its registers and no spill) with K2/K3
+             at a mid-search 8,192-row step of
+             PackedPaxos(3), lane for lane; K8 (``history_kernel``) over
+             the rows the next step appends, from the search's own
+             table, from an empty one and keyed by the actor words
+             (fresh keys, repeated within the step), and in index mode
+             (the re-seed: no append), and K9 (``hpull_kernel``) at a
+             256-row window, bit for bit; K1's and K8's lines carry
+             the parent tree's device ms as copied from another run
+             (``PARENT_MS``, ``parent_device_ms_copied``) beside their
+             own; PackedPaxos(2) in full
+             with ``race=False`` from the
              default ``hcap`` and from ``hcap=4`` (history growth and the
              rescan): 16,668 states, the JAX package's digest
              (``PIN_PAXOS2``), ``linearizable`` holds over its 5 distinct
@@ -242,6 +252,17 @@ CHOSEN_LEN_PAXOS2 = 8
 #: race=False, target_state_count(500_000) generated transitions
 PAXOS3_TARGET = 500_000
 
+#: the parent tree's device ms (``torch.profiler``) of the two kernels
+#: this tree redesigned, at this script's shapes: K1's paxos
+#: instantiation at the mid-search 8,192-row PackedPaxos(3) step and K8
+#: over the 15,085 rows of the next one (all keys known), copied from a
+#: run of ``tools/torch_paxos_kernels.py --old`` on an H100 80GB HBM3 at
+#: 700 W, both trees in turns in one call (the parent's two turns). The
+#: phase lines carry them as ``parent_device_ms_copied``; the
+#: ``kernels`` line, which holds this run's measurements, does not.
+PARENT_MS = {"expand_kernel": (0.251268, 0.248941),
+             "history": (0.077313, 0.077319)}
+
 #: HBM bandwidth of an H100 SXM (bytes/s) and its CUDA-core fp32 rate
 #: (operations/s): NVIDIA's published peaks at 700 W. The steps do 32-bit
 #: integer work, for which no peak is published beside these; it is
@@ -336,6 +357,14 @@ def ptxas_usage(log: str) -> dict:
                 "stack_bytes": frame, "spill_store_bytes": stores,
                 "spill_load_bytes": loads}
     return out
+
+
+def kernel_usage(library: str, kernel: str) -> dict:
+    """Registers, shared memory and spills of ``kernel`` (a
+    :func:`kernel_instance` name) in ``library``'s build, from ptxas."""
+    from stateright_tpu_torch.ops import _cuda
+
+    return ptxas_usage(_cuda.build()["logs"].get(library, "")).get(kernel)
 
 
 def cuda_ms(fn, reps: int, before=None) -> float:
@@ -1579,10 +1608,10 @@ def race_phase() -> dict:
     host held back, whose ``join()`` must raise (a device error is never
     hidden by the host's answer); TwoPhaseSys(7) raced (won by the card,
     the pinned count and digest), with its walls and ``loop_s`` against
-    ``race=False`` in turns; TwoPhaseSys(3) raced against
-    ``spawn_bfs()``'s set; and the ``check-gpu 3`` subcommand in fresh
-    processes, raced and ``--no-race`` in turns (what a small model costs
-    from a cold start). One ``race`` line each; returns them."""
+    ``race=False`` in turns; and TwoPhaseSys(3) raced against
+    ``spawn_bfs()``'s set (the ``check-gpu 3`` subcommand in fresh
+    processes runs last, ``cold_start_phase``). One ``race`` line each;
+    returns them."""
     from stateright_tpu_torch import IncrementLock, TwoPhaseSys
     from stateright_tpu_torch.checker import bfs, device_loop, race
     from stateright_tpu_torch.checker.race import RacingChecker
@@ -1702,10 +1731,24 @@ def race_phase() -> dict:
     emit(phase="race", **res)
     out["2pc3"] = res
 
-    # the examples' check-gpu (spawn_gpu().report(sys.stdout)) in fresh
-    # processes, raced and on the card alone in turns: the wall a user
-    # of a small model pays from a cold start (the interpreter, torch,
-    # the CUDA context, the kernels' load and the capture)
+    failed = {k: r["checks"] for k, r in out.items()
+              if k != "2pc7" and not all(r["checks"].values())}
+    failed.update({f"2pc7 {r['mode']} {r['turn']}": r["checks"]
+                   for r in turns if not all(r["checks"].values())})
+    if failed:
+        raise AssertionError(f"race phase: {failed}")
+    return out
+
+
+def cold_start_phase() -> dict:
+    """The examples' ``check-gpu`` (``spawn_gpu().report(sys.stdout)``)
+    in fresh processes, raced and on the card alone in turns: the wall a
+    user of a small model pays from a cold start (the interpreter, torch,
+    the CUDA context, the kernels' load and the capture). One ``race``
+    line each; returns them. It runs last: after another process has used
+    the card, ``torch.profiler`` traces of this process mostly lose their
+    device time (``tools/torch_trace_probe.py``)."""
+    out = {}
     for i, flags in enumerate(([], ["--no-race"], ["--no-race"], [],
                                [], ["--no-race"])):
         cmd = [sys.executable, "-m", "stateright_tpu_torch.examples."
@@ -1743,11 +1786,9 @@ def race_phase() -> dict:
         emit(phase="race", **res)
         out[f"cli {i}"] = res
     failed = {k: r["checks"] for k, r in out.items()
-              if k != "2pc7" and not all(r["checks"].values())}
-    failed.update({f"2pc7 {r['mode']} {r['turn']}": r["checks"]
-                   for r in turns if not all(r["checks"].values())})
+              if not all(r["checks"].values())}
     if failed:
-        raise AssertionError(f"race phase: {failed}")
+        raise AssertionError(f"cold-start runs: {failed}")
     return out
 
 
@@ -2151,8 +2192,11 @@ def check_history(model, carry, f: int, reps: int) -> dict:
     within the step: the claims, the in-batch dedup and the ordered
     append over many 512-row batches). Each case holds the fresh keys'
     queue indices in order (``hidx``), their count, the overflow flag
-    and the table's key set exactly; the last two need fresh keys.
-    Timed with CUDA events and ``torch.profiler``."""
+    and the table's key set exactly; the last two need fresh keys. Then
+    index mode (the re-seed after growth: an index list, no append): the
+    search case's rows and the actor-keyed representatives into fresh
+    tables, ``h_n`` and ``hidx`` untouched, the key set exact. Each case
+    timed with CUDA events and ``torch.profiler``."""
     import ctypes
 
     import torch
@@ -2235,13 +2279,46 @@ def check_history(model, carry, f: int, reps: int) -> dict:
     if failed:
         raise AssertionError(f"K8 over {nrows} rows disagrees with its "
                              f"plain version: {failed}")
-    # the kernel alone: its arguments over a device control block
+    # index mode (the re-seed after growth): the search case's rows and
+    # the actor-keyed representatives into fresh tables, no append
+    for label in ("search", "actors"):
+        hoff, hwidth, hcap, _seed = cases[label]
+        idx = rows if label == "search" else stages[label][0].hidx[
+            :out[label]["fresh"]].long()
+
+        def fresh_stage(hoff=hoff, hwidth=hwidth, hcap=hcap):
+            return HistoryStage(
+                table=make_table(hcap, dev),
+                hidx=torch.zeros_like(search.hidx),
+                hdone=search.hdone.clone(), hoff=hoff, hwidth=hwidth)
+
+        k, p = fresh_stage(), fresh_stage()
+        h_k, ovf_k = _cuda.history_insert(carry.q, k, index=idx,
+                                          append=False, h_n=7)
+        _fresh, ovf_p = history_reference(carry.q, p, idx)
+        checks = {"h_n": h_k == 7, "hidx_untouched": not bool(k.hidx.any()),
+                  "overflow": ovf_k == ovf_p == False,  # noqa: E712
+                  "table_set": torch.equal(
+                      torch.sort(k.table[k.table != 0]).values,
+                      torch.sort(p.table[p.table != 0]).values)}
+        out[f"index {label}"] = {"hoff": hoff, "hwidth": hwidth,
+                                 "hcap": hcap, "rows": int(idx.shape[0]),
+                                 "max_abs_err": 0 if all(checks.values())
+                                 else 1 << 31, "checks": checks}
+    failed = {lb: c["checks"] for lb, c in out.items()
+              if not all(c["checks"].values())}
+    if failed:
+        raise AssertionError(f"K8 in index mode disagrees with its plain "
+                             f"version: {failed}")
+    # the kernel alone: its arguments over a device control block, with
+    # a scratch for these rows
     ctl0 = torch.tensor([tail0, tail1, 0, 0], dtype=torch.int32,
                         device=dev)
     ctl = ctl0.clone()
     ptr = ctl.data_ptr()
+    scratch = _cuda.history_scratch(nrows, dev)
     for label, (k, table0) in stages.items():
-        args = _cuda._hist_args(carry.q, k)
+        args = _cuda._hist_args(carry.q, k, scratch)
         args.start, args.end = ptr, ptr + 4
         args.hidx = k.hidx.data_ptr()
         args.h_n, args.ovf = ptr + 8, ptr + 12
@@ -2255,10 +2332,9 @@ def check_history(model, carry, f: int, reps: int) -> dict:
             _cuda.history(args, dev)
 
         out[label]["ms"] = cuda_ms(launch, reps, restore)
-        if label == "search":
-            times = device_times(launch, before=restore)
-            out[label]["device_ms"] = (times["by_kernel_ms"] or {}).get(
-                "history_kernel")
+        times = device_times(launch, before=restore)
+        out[label]["device_ms"] = (times["by_kernel_ms"] or {}).get(
+            "history_kernel")
     main = out["search"]
     hwidth, n = main["hwidth"], main["fresh"]
     # the bound: each row's key columns and one bucket read, each fresh
@@ -2269,6 +2345,9 @@ def check_history(model, carry, f: int, reps: int) -> dict:
             "max_abs_err": max(c["max_abs_err"] for c in out.values()),
             "ms": main["ms"], "device_ms": main.get("device_ms"),
             "plain_ms": main["plain_ms"], **bound(nbytes, ops),
+            "grid": _cuda.history_grid(nrows, _cuda.sm_count(dev)),
+            "usage": kernel_usage("history", "history_kernel"),
+            "parent_device_ms_copied": PARENT_MS["history"],
             "cases": out,
             "checks": {f"{lb} {k}": v for lb, c in out.items()
                        for k, v in c["checks"].items()}}
@@ -2377,26 +2456,54 @@ def paxos_run(clients: int, path_kernels, target=None, **opts) -> tuple:
     return res, ck, fps
 
 
-def paxos_phase(device) -> tuple:
-    """Phase ``paxos``: PackedPaxos on the card (see the module
-    docstring). Returns the kernel checks and the runs."""
-    import torch
-
+def paxos_kernels(device) -> dict:
+    """The Paxos kernels at a mid-search 8,192-row PackedPaxos(3) step
+    (phase ``kernels`` with ``model: PackedPaxos``): K1's paxos
+    instantiation with K2/K3 lane for lane, its launch
+    (``ops/_cuda.py`` ``wide_geometry``/``wide_smem_bytes``), its
+    registers and spills; K8 in its cases and index mode; K9. K1's and
+    K8's lines carry the parent tree's device ms as copied into
+    ``PARENT_MS`` (``parent_device_ms_copied``), not measured here.
+    Returns the checks."""
     from stateright_tpu_torch.examples.paxos_packed import PackedPaxos
+    from stateright_tpu_torch.ops import _cuda
 
     model = PackedPaxos(3)
     carry = mid_search_carry(model, device, rows=8192)
     checks = {}
-    checks["fused_step"] = check_step(model, carry, 8192, reps=10)
+    step = check_step(model, carry, 8192, reps=10)
+    geo = _cuda.tile_geometry(8192, model.max_actions,
+                              _cuda.sm_count(device))
+    wide = _cuda.wide_geometry(geo, 8192, model.max_actions,
+                               _cuda.sm_count(device))
+    usage = kernel_usage("fused_step", "expand_kernel[PaxosModel]")
+    step.update(k1_launch={**wide._asdict(), "smem_bytes":
+                           _cuda.wide_smem_bytes(wide, model.packed_width,
+                                                 model.max_actions)},
+                usage=usage,
+                parent_device_ms_copied=PARENT_MS["expand_kernel"])
+    step["checks"].update(
+        k1_no_spill=bool(usage) and usage["spill_store_bytes"] == 0)
+    if not all(step["checks"].values()):
+        raise AssertionError(f"K1-paxos: {step['checks']}")
+    checks["fused_step"] = step
     emit(phase="kernels", kernel="fused_step", model="PackedPaxos",
-         params=list(model.cuda_spec()[1]), **checks["fused_step"])
+         params=list(model.cuda_spec()[1]), **step)
     checks["history"] = check_history(model, carry, 8192, reps=20)
     emit(phase="kernels", kernel="history", model="PackedPaxos",
          **checks["history"])
     checks["hpull"] = check_hpull(model, carry, reps=50)
     emit(phase="kernels", kernel="hpull", model="PackedPaxos",
          **checks["hpull"])
-    del carry
+    return checks
+
+
+def paxos_phase(device) -> dict:
+    """Phase ``paxos``: PackedPaxos on the card end to end (see the
+    module docstring). Returns the runs."""
+    import torch
+
+    from stateright_tpu_torch.examples.paxos_packed import PackedPaxos
 
     path = ("fused_step", "chunk_begin", "append", "history", "hpull")
     runs = {}
@@ -2453,7 +2560,7 @@ def paxos_phase(device) -> tuple:
         raise AssertionError(f"paxos phase: {failed}: "
                              f"{[runs[k]['checks'] for k in failed]}")
     torch.cuda.synchronize()
-    return checks, runs
+    return runs
 
 
 def paxos_kernel_entries(checks: dict, runs: dict) -> list:
@@ -2472,20 +2579,35 @@ def paxos_kernel_entries(checks: dict, runs: dict) -> list:
         "max_abs_err": step["max_abs_err"], "ms": step["ms"],
         "device_ms": step["device_ms"], "plain_ms": step["plain_ms"],
         "bound_ms": step["bound_ms"], "bound_by": step["bound_by"],
-        "library_ms": None, "parts": step["parts"], "status": "ok"}]
+        "library_ms": None, "parts": step["parts"],
+        "k1": {"redesigned": "active lanes stepped into shared staging, "
+                             "children copied coalesced, quiet lanes "
+                             "copied from the row",
+               "launch": step["k1_launch"],
+               "usage": step["usage"]},
+        "status": "ok"}]
     src = "stateright_tpu_torch/csrc/history.cu"
     for name, replaces in (
             ("history", "stateright_tpu/checker/device_loop.py:574"),
             ("hpull", "stateright_tpu/checker/tpu.py:2410")):
         r = checks[name]
-        out.append({
+        entry = {
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces, "model": "PackedPaxos(3)",
             "launches": launches[name], "max_abs_err": r["max_abs_err"],
             "ms": r["ms"], "device_ms": r["device_ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": None,
-            "status": "ok"})
+            "status": "ok"}
+        if name == "history":
+            entry.update(redesigned="a grid of lookups, the last block "
+                         "inserting the absent rows in row order",
+                         grid=r["grid"],
+                         usage=r["usage"],
+                         cases={lb: {k: c.get(k) for k in (
+                             "fresh", "ms", "device_ms", "plain_ms")}
+                             for lb, c in r["cases"].items()})
+        out.append(entry)
     return out
 
 
@@ -2730,6 +2852,9 @@ def main() -> int:
     emit(phase="build", seconds=info["seconds"], library=info["path"],
          kernels={lib: ptxas_usage(log)
                   for lib, log in info["logs"].items()})
+    # the Paxos kernels first: their device times come from traces of
+    # single launches, which later phases can spoil (PERF.md section 7)
+    pax_checks = paxos_kernels(torch.device("cuda", 0))
     # the host race on the main path, and checkpoints on the card
     race_phase()
     ckpt = checkpoint_phase()
@@ -2973,8 +3098,10 @@ def main() -> int:
     # the other models end to end, on one card and on the one-rank mesh
     model_runs = models_phase(mesh)
     dist.destroy_process_group()
-    # Paxos on the card: K1's paxos instantiation, the history stage
-    pax_checks, pax_runs = paxos_phase(torch.device("cuda", 0))
+    # Paxos on the card end to end (its kernels were checked first)
+    pax_runs = paxos_phase(torch.device("cuda", 0))
+    # the cold starts last: another process on the card spoils the traces
+    cold_start_phase()
 
     fused_src = "stateright_tpu_torch/csrc/fused_step.cu"
     sharded_src = "stateright_tpu_torch/csrc/sharded_step.cu"

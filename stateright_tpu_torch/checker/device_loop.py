@@ -653,10 +653,12 @@ class CardChunk:
         self._gate_ptr = carry.ctr[lay.ext + E_GATE:].data_ptr()
         # the history stage (K8 in the graph, K9 after each chunk)
         self.hist = carry.hist
-        self.window = self.hargs = None
+        self.window = self.hargs = self.hscratch = None
         if carry.hist is not None:
+            # K8's scratch, for the most rows one iteration appends
+            self.hscratch = _cuda.history_scratch(lanes, dev)
             self.hargs = _cuda.history_chunk_args(carry.ctr, lay.ext, carry.q,
-                                                  carry.hist)
+                                                  carry.hist, self.hscratch)
             self.window = torch.zeros((HIST_WINDOW, lay.W + 2),
                                       dtype=torch.int32, device=dev)
         self._q, self._log, self._ctr = carry.q, carry.log, carry.ctr

@@ -3,8 +3,8 @@
 // unordered non-duplicating network of stateright_tpu_torch/actor/
 // packed.py (net_consume, net_send), the register client's step and the
 // linearizability history's record hooks of actor/packed_register.py
-// (_client_step, packed_record_in, packed_record_out), and the row sink
-// a wide model writes its child through (RowOut).
+// (_client_step, packed_record_in, packed_record_out). A wide model
+// writes its child through step_common.cuh's RowOut.
 //
 // They compute what the JAX package's _packed_step_unordered
 // (stateright_tpu/actor/packed.py:710, with _net_consume :489 and
@@ -139,6 +139,18 @@ __device__ __forceinline__ bool net_send(Net& n, uint32_t src, uint32_t dst,
     }
   }
   return valid && ((!has_match && !has_empty) || oob);
+}
+
+// The network's zero tail: the first slot from which every slot of the
+// E is all-zero words (a sorted network's empty slots; E when the last
+// slot holds a word). Delivering a slot there changes nothing: it
+// carries no message, and consuming it shifts zeros.
+__device__ __forceinline__ int zero_tail(const uint32_t* w, int E) {
+  int z = E;
+  while (z > 0 && (w[4 * z - 4] | w[4 * z - 3] | w[4 * z - 2] |
+                   w[4 * z - 1]) == 0u)
+    --z;
+  return z;
 }
 
 // "value chosen": some occupied slot holds a GetOk of a non-null value

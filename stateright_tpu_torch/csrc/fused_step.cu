@@ -14,8 +14,9 @@
 // device functions, instantiated for TwoPhaseSys (twopc.cuh, both
 // flags), PackedLinearEquation (lineq.cuh), Increment (increment.cuh,
 // both flags), IncrementLock (increment_lock.cuh) and PackedPaxos
-// (paxos.cuh, a wide model: K1 keeps its 96-word rows in shared memory
-// and writes each child word by word, step_common.cuh WideRow); K2 and
+// (paxos.cuh, a wide model: K1 keeps its 96-word rows in shared memory,
+// stages each child there and writes each warp's children with
+// coalesced stores, step_common.cuh WideRow); K2 and
 // K3 do not depend on the model. Built with nvcc for
 // sm_90a into a shared library with a plain C interface and driven over
 // ctypes by stateright_tpu_torch/ops/_cuda.py. K4 replaces the XLA insert

@@ -29,31 +29,49 @@
 // table and rescans.
 //
 // The representative of a key is its LOWEST (first appended) row of the
-// batch: each row's key is looked up in the table, the absent keys are
-// deduplicated in shared memory (the lowest lane of each wins), each
-// winner claims its slot (distinct keys: only slot races between
-// different keys retry) and the winners append their queue indices in
-// lane order by a block scan. (The JAX package's insert keeps the
-// highest lane of an in-batch duplicate group: the same keys and
-// counts, another representative of the same history.)
+// batch. K8 is one launch over a grid: the blocks key their tiles of
+// kHistTileRows rows (a group of kHistGroup threads per row reads the
+// row's key columns together and XOR-folds its per-word mixes by
+// shuffles: fp64 folds its words in any order), look each key up in the
+// table (writing nothing to it) and compact the lowest absent row of
+// each key of their tiles (deduplicated in shared memory) in row order
+// into the scratch, each tile in its own range, with the tile's count.
+// The last block to arrive (a grid counter with __threadfence; it resets
+// the counter, so the next launch or graph replay starts clean, and no
+// block waits on another) walks the absent rows only, in row order, 512
+// at a time: it deduplicates them in shared memory (the lowest row of
+// each key wins), each winner claims its slot (an earlier batch's row
+// of the same key makes the claim a duplicate: that row won) and the
+// winners append their queue indices at h_n by a block scan. (The JAX package's insert keeps the highest
+// lane of an in-batch duplicate group: the same keys and counts, another
+// representative of the same history.) More rows than the scratch holds
+// count as an overflow, so the host rescans them after growing: the
+// chunk sizes its scratch for the most rows one iteration appends, so
+// that never happens on the path.
 //
 // What bounds it on this card: per appended row K8 reads the row's
 // history columns (40 bytes at Paxos(3)) and one 32-byte bucket of the
-// table, and writes 4 bytes per fresh key: ~0.5 MB for the ~7,000 rows a
-// large Paxos(3) step appends, ~0.2 us of the card's bytes. Distinct
-// histories are few (Paxos(2) has 5), so almost every lookup is a hit,
-// and the whole stage is latency: one block walks the rows 512 at a time
-// (one memory round trip for the columns, one for the bucket, a few
-// barriers), which keeps the appends in order with no grid-wide scan.
-// K9 moves at most HIST_WINDOW (256) rows of W + 2 words a chunk (~100 KB
-// at W = 96): one block per row, its threads over the columns.
+// table, and writes 4 bytes per fresh key: ~1 MB for the ~15,000 rows a
+// large Paxos(3) step appends, ~0.3 us of the card's bytes. Distinct
+// histories are few (Paxos(2) has 5), so almost every lookup is a hit
+// and the tail has nothing to do; the lookups are latency (a column
+// read, then a bucket read), which the grid spreads over the SMs, so
+// the launch costs about one such round trip. K9 moves at most
+// HIST_WINDOW (256) rows of W + 2 words a chunk (~100 KB at W = 96):
+// one block per row, its threads over the columns.
 
 #include "step_common.cuh"
 
 namespace {
 
+// K8: threads per block (every block of the grid, the tail's too), the
+// threads keying one row, the rows each group keys per tile, and the
+// tile's rows; the tail's shared dedup table per batch of kHistThreads
 constexpr int kHistThreads = 512;
-constexpr int kHistCells = 2 * kHistThreads;  // the batch's shared table
+constexpr int kHistGroup = 8;
+constexpr int kHistPasses = 4;
+constexpr int kHistTileRows = kHistThreads / kHistGroup * kHistPasses;
+constexpr int kHistCells = 2 * kHistThreads;
 constexpr int kPullThreads = 128;
 constexpr int kPullBlocks = 1024;
 
@@ -78,6 +96,17 @@ struct HistArgs {
   int* h_n;                  // read, and advanced by the appended count
   int* ovf;                  // set to 1 on an overflow
   int* gate;                 // the chunk's gate, or null
+  // the scratch for at most cap rows (ops/_cuda.py history_scratch): per
+  // tile of kHistTileRows rows the count of its absent rows, and their
+  // keys and queue indices in row order in the tile's own range; ctl[0]
+  // counts the blocks arrived, ctl[1] flags a lookup's overflow (both
+  // zero between launches: the last block resets them)
+  int* tile_n;               // [ceil(cap / kHistTileRows)]
+  unsigned long long* akey;  // [tiles * kHistTileRows]
+  int* arow;
+  int* ctl;                  // [2]
+  int cap;
+  int blocks;                // the grid
   void* stream;
 };
 
@@ -100,20 +129,27 @@ struct HpullArgs {
 
 namespace {
 
-// fp64 of the width words at p (a row of that width).
-__device__ __forceinline__ void fp64_span(const uint32_t* p, int width,
-                                          uint32_t& hi, uint32_t& lo) {
-  uint32_t h1 = 0u, h2 = 0u;
-  for (int i = 0; i < width; ++i) {
-    const uint32_t x = p[i] ^ fmix32((uint32_t)(i + 1) * kGolden);
-    h1 ^= fmix32(x * kC1_1);
-    h2 ^= fmix32(x * kC1_2);
+// The exclusive prefix sum of v over the block, and its total. Every
+// thread of the block calls it (two barriers; s_warp has a slot per warp).
+__device__ __forceinline__ int block_scan(int v, int* s_warp, int& total) {
+  const int wl = threadIdx.x & 31, wid = threadIdx.x >> 5;
+  int x = v;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int y = __shfl_up_sync(0xFFFFFFFFu, x, o);
+    if (wl >= o) x += y;
   }
-  h1 = fmix32(h1 ^ kSeed1 ^ (uint32_t)width);
-  h2 = fmix32(h2 ^ kSeed2 ^ ((uint32_t)width * kC1_1));
-  if (h1 == 0u && h2 == 0u) h2 = 1u;
-  hi = h1;
-  lo = h2;
+  if (wl == 31) s_warp[wid] = x;
+  __syncthreads();
+  int before = 0;
+  total = 0;
+  for (int w = 0; w < (int)(blockDim.x >> 5); ++w) {
+    const int c = s_warp[w];
+    before += w < wid ? c : 0;
+    total += c;
+  }
+  __syncthreads();
+  return before + x - v;
 }
 
 // Whether the table holds key: its buckets from the start bucket until a
@@ -140,45 +176,92 @@ __device__ __forceinline__ int probe_find(const unsigned long long* keys,
   return LOOKUP_OVF;
 }
 
-// K8. One block over the rows (see the file's head), kHistThreads at a
-// time: each thread keys its row, looks it up, enters an absent key into
-// the batch's shared table (the lowest lane wins its cell), the winners
-// claim their slots and append their queue indices in lane order.
+// K8 (see the file's head): the blocks' lookups and ordered compaction
+// over tiles blockIdx.x, blockIdx.x + gridDim.x, ...; then the last block
+// to arrive inserts the absent rows in row order. With no rows (a replay
+// whose gate was shut) block 0 alone arrives and finds nothing to do.
 __global__ void __launch_bounds__(kHistThreads)
     history_kernel(HistArgs a) {
+  constexpr int kGroups = kHistThreads / kHistGroup;
   __shared__ unsigned long long s_key[kHistCells];
   __shared__ uint32_t s_lane[kHistCells];
+  __shared__ unsigned long long s_tkey[kHistTileRows];
+  __shared__ int s_trow[kHistTileRows];
+  __shared__ uint8_t s_tabs[kHistTileRows];
+  __shared__ int s_off[kHistThreads];
   __shared__ int s_warp[kHistThreads / 32];
-  __shared__ int s_base, s_ovf;
-  const int tid = threadIdx.x, wl = tid & 31, wid = tid >> 5;
+  __shared__ int s_base, s_ovf, s_last;
+  const int tid = threadIdx.x;
+  const int g = tid / kHistGroup, gl = tid % kHistGroup;
   const long long first = a.index ? 0 : *a.start;
-  const long long n = a.index ? a.count : *a.end - first;
+  const long long n_all =
+      max(0ll, a.index ? (long long)a.count : (long long)*a.end - first);
+  const long long n = n_all > a.cap ? 0 : n_all;
+  const int tiles = (int)((n + kHistTileRows - 1) / kHistTileRows);
+  // the blocks with a tile (block 0 at least) take part; the others
+  // leave at once (a block that starts after the tail moved *start finds
+  // no rows: it leaves too, unless it is block 0, which has arrived)
+  const int active = max(1, min((int)gridDim.x, tiles));
+  if ((int)blockIdx.x >= active) return;
+  if (tid == 0) s_ovf = 0;
   for (int c = tid; c < kHistCells; c += blockDim.x) {
     s_key[c] = 0ull;
     s_lane[c] = ~0u;
   }
-  if (tid == 0) {
-    s_base = *a.h_n;
-    s_ovf = 0;
-  }
   __syncthreads();
-  for (long long base = 0; base < n; base += blockDim.x) {
-    const long long i = base + tid;
-    long long r = 0;
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const long long t0 = (long long)tile * kHistTileRows;
+    // 1. group g keys the tile's rows g + kGroups * j, its threads over
+    // the columns; thread gl = j keeps row j's key and queue index
     uint32_t hi = 0u, lo = 0u;
-    bool fresh = false;
-    if (i < n) {
-      r = a.index ? a.index[i] : first + i;
-      fp64_span(a.q + r * a.qstride + a.hoff, a.hwidth, hi, lo);
+    long long r = 0;
+    bool have = false;
+#pragma unroll
+    for (int j = 0; j < kHistPasses; ++j) {
+      const long long i = t0 + g + kGroups * j;
+      uint32_t h1 = 0u, h2 = 0u;
+      long long rj = 0;
+      if (i < n) {
+        rj = a.index ? a.index[i] : first + i;
+        const uint32_t* p = a.q + rj * a.qstride + a.hoff;
+        for (int c = gl; c < a.hwidth; c += kHistGroup) {
+          const uint32_t x = p[c] ^ fmix32((uint32_t)(c + 1) * kGolden);
+          h1 ^= fmix32(x * kC1_1);
+          h2 ^= fmix32(x * kC1_2);
+        }
+      }
+#pragma unroll
+      for (int o = kHistGroup / 2; o > 0; o >>= 1) {
+        h1 ^= __shfl_xor_sync(0xFFFFFFFFu, h1, o);
+        h2 ^= __shfl_xor_sync(0xFFFFFFFFu, h2, o);
+      }
+      if (gl == j) {
+        fp64_finish(h1, h2, a.hwidth, hi, lo);
+        r = rj;
+        have = i < n;
+      }
+    }
+    // 2. the lookups, kHistPasses threads of each group at once
+    bool absent = false;
+    if (have) {
       const int st = probe_find(a.keys, a.n_buckets, hi, lo, a.max_rounds);
       if (st == LOOKUP_OVF) s_ovf = 1;
-      fresh = st == ABSENT;
+      absent = st == ABSENT;
     }
-    // the batch's lowest lane of each absent key
+    if (gl < kHistPasses) {
+      const int o = g + kGroups * gl;
+      s_tabs[o] = absent;
+      s_tkey[o] = ((unsigned long long)hi << 32) | lo;
+      s_trow[o] = (int)r;
+    }
+    __syncthreads();
+    // 3. the tile's lowest absent row of each key (s_key/s_lane: at most
+    // half their cells taken), in row order into the tile's range
     uint32_t cell = ~0u;
-    if (fresh) {
-      const unsigned long long key = ((unsigned long long)hi << 32) | lo;
-      uint32_t c = (lo ^ (hi * kPhi)) & (uint32_t)(kHistCells - 1);
+    if (tid < kHistTileRows && s_tabs[tid]) {
+      const unsigned long long key = s_tkey[tid];
+      const uint32_t khi = (uint32_t)(key >> 32), klo = (uint32_t)key;
+      uint32_t c = (klo ^ (khi * kPhi)) & (uint32_t)(kHistCells - 1);
       while (true) {
         const unsigned long long prev = atomicCAS(&s_key[c], 0ull, key);
         if (prev == 0ull || prev == key) break;
@@ -188,42 +271,114 @@ __global__ void __launch_bounds__(kHistThreads)
       cell = c;
     }
     __syncthreads();
-    bool win = fresh && s_lane[cell] == (uint32_t)tid;
-    if (win) {
-      long long slot;
-      int rounds;
-      const int st = probe_claim(a.keys, a.n_buckets, hi, lo, a.max_rounds,
-                                 &slot, &rounds);
-      if (st != PROBE_CLAIMED) {  // only an overflow: the keys are new
-        s_ovf = 1;
-        win = false;
-      }
+    const bool take = cell != ~0u && s_lane[cell] == (uint32_t)tid;
+    int count;
+    const int at = block_scan(take ? 1 : 0, s_warp, count);
+    if (take) {
+      a.akey[t0 + at] = s_tkey[tid];
+      a.arow[t0 + at] = s_trow[tid];
     }
-    // the winners' queue indices at h_n, in lane order
-    const unsigned ballot = __ballot_sync(0xFFFFFFFFu, win);
-    if (wl == 0) s_warp[wid] = __popc(ballot);
-    __syncthreads();
-    int excl = __popc(ballot & ((1u << wl) - 1u)), total = 0;
-    for (int w = 0; w < (int)(blockDim.x >> 5); ++w) {
-      excl += w < wid ? s_warp[w] : 0;
-      total += s_warp[w];
-    }
-    if (win && a.hidx) a.hidx[s_base + excl] = (int)r;
-    if (cell != ~0u) {  // clear the batch's cells for the next one
+    if (tid == 0) a.tile_n[tile] = count;
+    if (cell != ~0u) {  // clear the cells for the next tile
       s_key[cell] = 0ull;
       s_lane[cell] = ~0u;
     }
-    __syncthreads();
-    if (tid == 0 && a.hidx) s_base += total;
+    __syncthreads();  // s_t* and the cells are the next tile's
+  }
+  // arrive (every thread's scratch writes fenced first); the last block
+  // goes on
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) {
+    if (s_ovf) atomicOr(&a.ctl[1], 1);
+    __threadfence();
+    s_last = atomicAdd(&a.ctl[0], 1) == active - 1;
   }
   __syncthreads();
+  if (!s_last) return;
+  __threadfence();
+  // the tail: the absent rows of kHistThreads tiles at a time, in row
+  // order (tile by tile, each tile's in order), kHistThreads per batch
+  for (int c = tid; c < kHistCells; c += blockDim.x) {
+    s_key[c] = 0ull;
+    s_lane[c] = ~0u;
+  }
+  if (tid == 0) {
+    s_base = *a.h_n;
+    s_ovf = n_all > a.cap || __ldcg(&a.ctl[1]) != 0;
+  }
+  __syncthreads();
+  for (int tg = 0; tg < tiles; tg += kHistThreads) {
+    const int nt = min(kHistThreads, tiles - tg);
+    int total;
+    s_off[tid] = block_scan(tid < nt ? __ldcg(&a.tile_n[tg + tid]) : 0,
+                            s_warp, total);
+    __syncthreads();
+    for (int b0 = 0; b0 < total; b0 += kHistThreads) {
+      const int i = b0 + tid;
+      bool fresh = i < total;
+      unsigned long long key = 0ull;
+      int r = 0;
+      if (fresh) {
+        // its tile: the last of the group whose offset is at most i
+        int lo_t = 0, hi_t = nt - 1;
+        while (lo_t < hi_t) {
+          const int mid = (lo_t + hi_t + 1) >> 1;
+          if (s_off[mid] <= i)
+            lo_t = mid;
+          else
+            hi_t = mid - 1;
+        }
+        const long long e =
+            (long long)(tg + lo_t) * kHistTileRows + (i - s_off[lo_t]);
+        key = __ldcg(&a.akey[e]);
+        r = __ldcg(&a.arow[e]);
+      }
+      const uint32_t khi = (uint32_t)(key >> 32), klo = (uint32_t)key;
+      // the batch's lowest row of each key
+      uint32_t cell = ~0u;
+      if (fresh) {
+        uint32_t c = (klo ^ (khi * kPhi)) & (uint32_t)(kHistCells - 1);
+        while (true) {
+          const unsigned long long prev = atomicCAS(&s_key[c], 0ull, key);
+          if (prev == 0ull || prev == key) break;
+          c = (c + 1) & (uint32_t)(kHistCells - 1);
+        }
+        atomicMin(&s_lane[c], (uint32_t)tid);
+        cell = c;
+      }
+      __syncthreads();
+      bool win = fresh && s_lane[cell] == (uint32_t)tid;
+      if (win) {
+        long long slot;
+        int rounds;
+        const int st = probe_claim(a.keys, a.n_buckets, khi, klo,
+                                   a.max_rounds, &slot, &rounds);
+        if (st == PROBE_OVF) s_ovf = 1;
+        // a duplicate: an earlier batch's row of the key claimed it
+        win = st == PROBE_CLAIMED;
+      }
+      int won;
+      const int excl = block_scan(win ? 1 : 0, s_warp, won);
+      if (win && a.hidx) a.hidx[s_base + excl] = r;
+      if (cell != ~0u) {  // clear the batch's cells for the next one
+        s_key[cell] = 0ull;
+        s_lane[cell] = ~0u;
+      }
+      __syncthreads();
+      if (tid == 0 && a.hidx) s_base += won;
+      __syncthreads();
+    }
+  }
   if (tid == 0) {
     *a.h_n = s_base;
     if (s_ovf) {
       *a.ovf = 1;
       if (a.gate) a.gate[G_SIZE] = 0;
     }
-    if (!a.index) *a.start = (int)(first + n);
+    if (!a.index) *a.start = (int)(first + n_all);
+    a.ctl[0] = 0;
+    a.ctl[1] = 0;
   }
 }
 
@@ -248,18 +403,23 @@ __global__ void __launch_bounds__(kPullThreads) hpull_kernel(HpullArgs a) {
 
 extern "C" {
 
-// K8: one block (the appends stay in lane order). Returns
-// cudaGetLastError() of the launch.
+// K8 over a->blocks blocks (the last to arrive appends in row order).
+// Returns cudaGetLastError() of the launch.
 int srt_history(const HistArgs* a) {
   if (a->hwidth < 1 || a->n_buckets < 1 ||
       (a->n_buckets & (a->n_buckets - 1)) || a->max_rounds < 1 ||
-      a->h_n == nullptr || a->ovf == nullptr ||
+      a->h_n == nullptr || a->ovf == nullptr || a->tile_n == nullptr ||
+      a->akey == nullptr || a->arow == nullptr || a->ctl == nullptr ||
+      a->cap < 0 || a->blocks < 1 ||
       (a->index == nullptr && (a->start == nullptr || a->end == nullptr)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(a->stream);
-  history_kernel<<<1, kHistThreads, 0, st>>>(*a);
+  history_kernel<<<a->blocks, kHistThreads, 0, st>>>(*a);
   return (int)cudaGetLastError();
 }
+
+// K8's rows per tile (ops/_cuda.py HIST_TILE_ROWS mirrors it).
+int srt_hist_tile_rows() { return kHistTileRows; }
 
 // K9 over a->rows rows.
 int srt_hpull(const HpullArgs* a) {

@@ -21,9 +21,12 @@
 // delivered slot, the destination's words and the history from there,
 // holds the child's network (64 words) and history in registers
 // (actor_net.cuh) and writes the child once, word by word, through a
-// RowOut that folds each word into the fingerprint. An overflowing
-// child (a send that finds no slot) is written as 0xDEADBEEF words and
-// is invalid, as in the JAX package.
+// RowOut that folds each word into the fingerprint; the words go to the
+// thread's staging row in shared memory, from which K1 copies the child
+// to flat with coalesced stores. Lanes from quiet_from on are not
+// stepped: their child is the row. An overflowing child (a send that
+// finds no slot) is written as 0xDEADBEEF words and is invalid, as in
+// the JAX package.
 #pragma once
 
 #include <cstdint>
@@ -71,6 +74,16 @@ struct PaxosModel {
   // "value chosen".
   __device__ __forceinline__ uint32_t props_row(const uint32_t* w) const {
     return 1u | (actor::value_chosen(w + net_off, E) ? 2u : 0u);
+  }
+
+  // The first action lane whose child is the row itself, as are all
+  // after it (K1 copies the row there and steps only the lanes before
+  // it): the network's zero tail. A slot there holds no message (header
+  // 0: server 0 is handed message type 0, which no branch of
+  // server_step takes; record_in ignores it), and consuming it shifts
+  // zeros, so the child is the row, invalid and without overflow.
+  __device__ __forceinline__ int quiet_from(const uint32_t* w) const {
+    return actor::zero_tail(w + net_off, E);
   }
 
   // Server sid's on_msg (paxos.rs:85-172) on its words sv, from src,
@@ -250,10 +263,10 @@ struct PaxosModel {
     bool overflow = false;
 #pragma unroll
     for (int k = 0; k < kMaxServers; ++k) {
-      if (k < S) {
-        const Send& sd = sends[k];
-        if (sd.valid) record_out(hist, S, C, dst, sd.m0);
-        overflow |= net_send(net, dst, sd.dst, sd.m0, sd.m1, sd.valid, E);
+      const Send& sd = sends[k];
+      if (k < S && sd.valid) {  // an invalid send changes nothing
+        record_out(hist, S, C, dst, sd.m0);
+        overflow |= net_send(net, dst, sd.dst, sd.m0, sd.m1, true, E);
       }
     }
     const bool poison = valid && overflow;

@@ -120,6 +120,11 @@ struct StepArgs {
   unsigned long long* ring_arena;  // [cc]
   unsigned long long* disc_cand;   // [P]
   TileGeometry tile;               // the launch of K1, K2, K3 and K5
+  // A wide model's K1 (WideRow) is launched over wide instead, with
+  // wide_smem bytes of dynamic shared memory (ops/_cuda.py
+  // wide_geometry, wide_smem_bytes); the other models leave them unused.
+  TileGeometry wide;
+  long long wide_smem;
   // Inside a chunk on the card (chunk.cu), K1-K3 are launched for both
   // step sizes in every iteration and read their window from the
   // device: a launch runs only when gate[G_SIZE] == gate_size, over the
@@ -165,9 +170,59 @@ __device__ __forceinline__ void fp64(const uint32_t (&w)[W], int width,
   lo = h2;
 }
 
+// fp64's seeds and width mixed into the XOR-folds h1, h2 of a row's
+// width words (as fp64 ends).
+__device__ __forceinline__ void fp64_finish(uint32_t h1, uint32_t h2,
+                                            int width, uint32_t& hi,
+                                            uint32_t& lo) {
+  h1 = fmix32(h1 ^ kSeed1 ^ (uint32_t)width);
+  h2 = fmix32(h2 ^ kSeed2 ^ ((uint32_t)width * kC1_1));
+  if (h1 == 0u && h2 == 0u) h2 = 1u;
+  hi = h1;
+  lo = h2;
+}
+
+// The column keys fmix32((i + 1) * kGolden) of fp64 for columns i <
+// kColumnKeys, for a wide model's words, whose column indices are
+// runtime values: a lane would compute the key again for every word, and
+// a table in shared memory would be read behind the staging row's
+// stores, which may alias it; a constant table does not.
+// (tests/test_torch_paxos_geometry.py holds it to fingerprint.py.)
+constexpr int kColumnKeys = 128;
+__constant__ uint32_t kColumnKey[kColumnKeys] = {
+    0x92CA2F0Eu, 0x3CD6E3F3u, 0x1B147DCCu, 0x4C081DBFu, 0x487981ABu,
+    0xDB408C9Du, 0x78BC1B8Fu, 0xD83072E5u, 0x65CBDD54u, 0x1F4B8CEFu,
+    0x91783BB0u, 0x0231739Bu, 0x2AA96DD0u, 0xB42BC0B0u, 0x04E90BF5u,
+    0xE2AD51BAu, 0x79F70494u, 0x010B6880u, 0xA4523835u, 0xCEEB36B7u,
+    0xD939FF68u, 0xB18C6441u, 0xDD507B42u, 0x5DB59265u, 0x33469494u,
+    0xA65D9B7Au, 0x57DCB96Bu, 0x1B486183u, 0xE411DDC1u, 0x3E2CF241u,
+    0x9E2EA24Fu, 0xB7FBE3E5u, 0xA452933Au, 0x1E712332u, 0x52DF2E19u,
+    0x336BD315u, 0x56D396D2u, 0xF857A331u, 0x4FE97DA7u, 0x9B972A46u,
+    0x9D3E0D8Au, 0xA6ECE606u, 0xC5C7990Cu, 0x17D886BFu, 0x62CE7C21u,
+    0x827E3843u, 0xB9D7427Cu, 0x17891EA1u, 0xD0F0E17Au, 0x5139A741u,
+    0xA3D32F02u, 0xDB12A15Cu, 0x13B3ABCFu, 0x730C5F25u, 0x1DB71420u,
+    0xF9435A88u, 0x51EE6AF8u, 0xAF1EA67Fu, 0x71D9CB92u, 0x3E2C1C4Eu,
+    0x1D6722CFu, 0xF9D656F3u, 0x2F16C17Eu, 0xF8262992u, 0x8E0CE9DFu,
+    0xAE71F440u, 0x578EC0A1u, 0xFF95D72Eu, 0x09B28281u, 0xAF7E56B5u,
+    0x535A0944u, 0xB7E2D8D3u, 0xF5E7B311u, 0x974B2094u, 0xC73099C2u,
+    0xB361D660u, 0x171C8432u, 0x7263CAD3u, 0xC661216Eu, 0xB1A0EBCAu,
+    0x6B48AA35u, 0x6ED7A14Au, 0xE1FEF49Fu, 0x86A1C4E4u, 0xF918B5F7u,
+    0x8A927E91u, 0xCB840F04u, 0xEDDFC8E4u, 0xC6A57EEAu, 0x52FB3D10u,
+    0xA57C5997u, 0x2B1613BCu, 0x8A6D276Du, 0x0207F551u, 0xE7A5E850u,
+    0x13CEA631u, 0x1E8C037Eu, 0xF2EBE3A2u, 0xEE6E1AC7u, 0x45516E65u,
+    0xF23F1FC4u, 0x40F455EBu, 0xDC72791Bu, 0xFC0DF56Du, 0xB81049B8u,
+    0x68F4A814u, 0x7740174Du, 0x8FD60C81u, 0x59D7D340u, 0xF20F0D94u,
+    0xB28913B6u, 0x5B53B292u, 0x85F6B629u, 0xF4E7D086u, 0x8D4F664Du,
+    0x5DEAC120u, 0xE12DE03Bu, 0x180E3AC5u, 0x53B4B547u, 0x95236D9Eu,
+    0xD640B398u, 0x121A5DE7u, 0x00D4705Eu, 0xF3ADADE7u, 0x394B58D3u,
+    0x0846CD67u, 0x263FC0DCu, 0x7740D790u};
+
 // A wide model's child row (kWideRow below): put(i, v) stores word i at
-// dst[i] and folds it into the fingerprint as fp64 does, so the child is
-// never held whole; finish() gives fp64 of the width words put.
+// dst[i] (the thread's staging row in shared memory, which K1 copies to
+// flat with the warp's other children) and folds it into the
+// fingerprint as fp64 does, so the child is never held whole in
+// registers; finish() gives fp64 of the width words put. The words may
+// come in any order (the fold is an XOR).
 struct RowOut {
   uint32_t* dst;
   uint32_t h1 = 0u, h2 = 0u;
@@ -176,18 +231,14 @@ struct RowOut {
 
   __device__ __forceinline__ void put(int i, uint32_t v) {
     dst[i] = v;
-    const uint32_t x = v ^ fmix32((uint32_t)(i + 1) * kGolden);
+    const uint32_t x = v ^ kColumnKey[i];
     h1 ^= fmix32(x * kC1_1);
     h2 ^= fmix32(x * kC1_2);
   }
 
   __device__ __forceinline__ void finish(int width, uint32_t& hi,
                                          uint32_t& lo) const {
-    uint32_t a = fmix32(h1 ^ kSeed1 ^ (uint32_t)width);
-    uint32_t b = fmix32(h2 ^ kSeed2 ^ ((uint32_t)width * kC1_1));
-    if (a == 0u && b == 0u) b = 1u;
-    hi = a;
-    lo = b;
+    fp64_finish(h1, h2, width, hi, lo);
   }
 };
 
@@ -308,15 +359,60 @@ struct NoCanon {};
 
 // Whether M is a wide model (M::kWideRow): its row is too wide for K1's
 // per-lane register arrays (Paxos: 96 words), so K1 loads the tile's
-// rows into shared memory cooperatively and calls m.props_row(row) and
-// m.step_row(row, act, out, ovf) on the shared copy, the child going
-// straight to its flat row through a RowOut. Models without the member
-// (every other) compile to K1 as it was.
+// rows into shared memory cooperatively and calls m.props_row(row),
+// m.quiet_from(row) (the first action lane from which every lane's child
+// is the row itself, invalid and not overflowing: K1 copies the row to
+// those lanes with the row's fingerprint) and, for the lanes before it,
+// m.step_row(row, act, out, ovf) on the shared copy, the child going to
+// the thread's staging row through a RowOut; each warp then writes its
+// children to flat with coalesced (16-byte where the width allows)
+// stores. Models
+// without the member (every other) compile to K1 as it was.
 template <class M, class = void>
 struct WideRow : std::false_type {};
 template <class M>
 struct WideRow<M, std::void_t<decltype(M::kWideRow)>>
     : std::integral_constant<bool, M::kWideRow> {};
+
+// K1-wide's launch is ops/_cuda.py wide_geometry's; its tile holds at
+// most kWideRows rows (one warp scans them).
+constexpr int kWideRows = 32;
+
+// A staging row's stride in words: the width made odd, so word k of the
+// 32 lanes of a warp falls in 32 distinct banks (at width 96 an even
+// stride would put them all in one).
+__host__ __device__ __forceinline__ int wide_stride(int width) {
+  return width | 1;
+}
+
+// K1-wide's shared memory after the tile's rows: per row its quiet lane
+// (m.quiet_from), its fingerprint (hi, lo) and its first active item (4
+// words), then the count of active lanes (4 words, for alignment), the
+// tile's active lanes (rows * A), and one staging row of
+// wide_stride(width) words per thread.
+struct WideSmem {
+  uint32_t* info;
+  uint32_t* nact;
+  uint32_t* act;
+  uint32_t* stage;
+};
+
+__host__ __device__ __forceinline__ size_t wide_words(const TileGeometry& w,
+                                                      int width, int A) {
+  return 4 * ((size_t)w.rows + 1) + (size_t)w.rows * A +
+         (size_t)w.threads * wide_stride(width);
+}
+
+__device__ __forceinline__ WideSmem wide_smem(unsigned char* smem,
+                                              const TileGeometry& w,
+                                              size_t row_bytes, int A) {
+  WideSmem s;
+  s.info = reinterpret_cast<uint32_t*>(smem + (size_t)w.rows * row_bytes);
+  s.nact = s.info + 4 * w.rows;
+  s.act = s.nact + 4;
+  s.stage = s.act + w.rows * A;
+  return s;
+}
 
 // The row's representative state of a model under SYM (M::RowCanon),
 // else nothing: models without symmetry define no RowCanon.
@@ -369,10 +465,19 @@ struct alignas(16) RowState {
 // key every later kernel dedups on, and
 // ohi/olo = fp64(child), the original state's fingerprint the log keeps;
 // flat stays the original child and the properties are evaluated on the
-// original frontier rows either way. The grid also resets the ring
-// arena for the step (grid-stride). Inside a chunk the launch is gated
-// (open_gate): its rows are the queue's from the head, the first take of
-// them valid.
+// original frontier rows either way. A wide model (WideRow; launched over
+// a.wide) loads the tile's rows word by word and takes
+// each row's fingerprint and quiet lane (m.quiet_from); the lanes below
+// the quiet lanes are listed and stepped densely, a thread each, each
+// child going to the thread's staging row in shared memory; after each
+// pass of the block's threads every warp copies its children to flat,
+// as 16-byte vectors, 32 a store, where the width is a multiple of four
+// words, else each child's contiguous words 32 a store (where each
+// lane's own strided stores would touch 32 sectors an instruction); the
+// quiet lanes get the row's words and fingerprint.
+// The grid also resets the ring arena for the step (grid-stride).
+// Inside a chunk the launch is gated (open_gate): its rows are the
+// queue's from the head, the first take of them valid.
 template <class M, bool SYM>
 __global__ void expand_kernel(M m, StepArgs a) {
   extern __shared__ __align__(16) unsigned char tile_smem[];
@@ -391,11 +496,16 @@ __global__ void expand_kernel(M m, StepArgs a) {
   if (threadIdx.x == 0) s_valid = 0;
   if constexpr (WideRow<M>::value) {
     static_assert(!SYM, "a wide model has no symmetric K1");
-    // the tile's rows, neighbouring threads on neighbouring words
-    for (int k = threadIdx.x; k < nrows * width; k += blockDim.x) {
-      const int i = k / width, c = k - i * width;
-      rows[i].w[c] = a.frontier[(row0 + i) * a.fstride + c];
-    }
+    static_assert(kWideRows <= 32, "one warp scans the tile's rows");
+    const WideSmem ws =
+        wide_smem(tile_smem, a.tile, sizeof(RowState<M, SYM>), A);
+    static_assert(M::W <= kColumnKeys, "a column without its key");
+    const int wl = threadIdx.x & 31, wid = threadIdx.x >> 5;
+    const int nwarps = blockDim.x >> 5;
+    // the tile's rows, a warp per row
+    for (int i = wid; i < nrows; i += nwarps)
+      for (int c = wl; c < width; c += 32)
+        rows[i].w[c] = a.frontier[(row0 + i) * a.fstride + c];
     __syncthreads();
     for (int i = threadIdx.x; i < nrows; i += blockDim.x) {
       const long long r = row0 + i;
@@ -406,6 +516,42 @@ __global__ void expand_kernel(M m, StepArgs a) {
       rs.fv = take >= 0 ? r < take : a.fvalid[r] != 0;
       rs.valid = 0;
       rs.xovf = 0;
+      ws.info[4 * i] = (uint32_t)min(A, max(0, m.quiet_from(rs.w)));
+    }
+    // each row's fingerprint, a warp per row
+    for (int i = wid; i < nrows; i += nwarps) {
+      uint32_t h1 = 0u, h2 = 0u;
+      for (int k = wl; k < width; k += 32) {
+        const uint32_t x = rows[i].w[k] ^ kColumnKey[k];
+        h1 ^= fmix32(x * kC1_1);
+        h2 ^= fmix32(x * kC1_2);
+      }
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) {
+        h1 ^= __shfl_xor_sync(0xFFFFFFFFu, h1, o);
+        h2 ^= __shfl_xor_sync(0xFFFFFFFFu, h2, o);
+      }
+      if (wl == 0)
+        fp64_finish(h1, h2, width, ws.info[4 * i + 1], ws.info[4 * i + 2]);
+    }
+    __syncthreads();
+    // the active lanes (below each row's quiet lane), in lane order: each
+    // row's first at the prefix of the quiet lanes before it
+    if (wid == 0) {
+      const int q = wl < nrows ? (int)ws.info[4 * wl] : 0;
+      int x = q;
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const int y = __shfl_up_sync(0xFFFFFFFFu, x, o);
+        if (wl >= o) x += y;
+      }
+      if (wl < nrows) ws.info[4 * wl + 3] = (uint32_t)(x - q);
+      if (wl == 31) *ws.nact = (uint32_t)x;
+    }
+    __syncthreads();
+    for (int i = threadIdx.x; i < nrows; i += blockDim.x) {
+      const int q = (int)ws.info[4 * i], off = (int)ws.info[4 * i + 3];
+      for (int e = 0; e < q; ++e) ws.act[off + e] = (uint32_t)(i * A + e);
     }
   } else {
     for (int i = threadIdx.x; i < nrows; i += blockDim.x) {
@@ -431,16 +577,109 @@ __global__ void expand_kernel(M m, StepArgs a) {
   // lane t = row * A + act, walked in strides of blockDim.x
   const int drow = blockDim.x / A, dact = blockDim.x - drow * A;
   int row = threadIdx.x / A, act = threadIdx.x - row * A;
-  for (int t = threadIdx.x; t < tile; t += blockDim.x) {
-    RowState<M, SYM>& rs = rows[row];
-    const long long lane = lane0 + t;
-    bool ovf = false, v;
-    uint32_t hi, lo;
-    if constexpr (WideRow<M>::value) {
-      RowOut out(a.flat + lane * width);
-      v = m.step_row(rs.w, act, out, ovf);
-      out.finish(width, hi, lo);
-    } else {
+  if constexpr (WideRow<M>::value) {
+    const WideSmem ws =
+        wide_smem(tile_smem, a.tile, sizeof(RowState<M, SYM>), A);
+    const int nact = (int)*ws.nact;
+    const int stride = wide_stride(width);
+    // 16-byte stores where every row of flat starts 16-byte aligned
+    const bool vec16 =
+        (width & 3) == 0 && (reinterpret_cast<uintptr_t>(a.flat) & 15) == 0;
+    const int wl = threadIdx.x & 31, w0 = threadIdx.x - wl;
+    const int wid = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
+    // the active lanes, densely: each thread steps one into its staging
+    // row; uniform trip count: the warp then writes its children
+    for (int base = 0; base < nact; base += blockDim.x) {
+      const int j = base + threadIdx.x;
+      if (j < nact) {
+        const int t = (int)ws.act[j], i = t / A;
+        RowState<M, SYM>& rs = rows[i];
+        const long long lane = lane0 + t;
+        bool ovf = false;
+        uint32_t hi, lo;
+        RowOut out(ws.stage + threadIdx.x * stride);
+        const bool v = m.step_row(rs.w, t - i * A, out, ovf);
+        out.finish(width, hi, lo);
+        a.chi[lane] = hi;
+        a.clo[lane] = lo;
+        const bool cv = v && rs.fv;
+        a.cvalid[lane] = cv;
+        nvalid += cv;
+        if (cv) rs.valid = 1;
+        if (ovf && rs.fv) rs.xovf = 1;
+      }
+      __syncwarp();
+      // each child is width contiguous words of flat
+      const int n = min(32, nact - (base + w0));
+      if (vec16) {
+        // the warp's n children as n * q4 16-byte vectors, 32 a store
+        // (the staging rows' odd stride: read a word at a time)
+        const int q4 = width >> 2, dc = 32 / q4, dk = 32 - dc * q4;
+        int c = wl / q4, k4 = wl - c * q4;
+        for (int j = wl; j < n * q4; j += 32) {
+          const uint32_t* src = ws.stage + (w0 + c) * stride + 4 * k4;
+          reinterpret_cast<uint4*>(
+              a.flat + (lane0 + ws.act[base + w0 + c]) * width)[k4] =
+              make_uint4(src[0], src[1], src[2], src[3]);
+          c += dc;
+          k4 += dk;
+          if (k4 >= q4) {
+            k4 -= q4;
+            ++c;
+          }
+        }
+      } else {
+        // 32 consecutive words of one child a store
+        for (int c = 0; c < n; ++c) {
+          uint32_t* dst = a.flat + (lane0 + ws.act[base + w0 + c]) * width;
+          const uint32_t* src = ws.stage + (w0 + c) * stride;
+          for (int k = wl; k < width; k += 32) dst[k] = src[k];
+        }
+      }
+      __syncwarp();
+    }
+    // the quiet lanes: the row itself, its fingerprint, invalid
+    for (int t = threadIdx.x; t < tile; t += blockDim.x) {
+      if (act >= (int)ws.info[4 * row]) {
+        const long long lane = lane0 + t;
+        a.chi[lane] = ws.info[4 * row + 1];
+        a.clo[lane] = ws.info[4 * row + 2];
+        a.cvalid[lane] = 0;
+      }
+      row += drow;
+      act += dact;
+      if (act >= A) {
+        act -= A;
+        ++row;
+      }
+    }
+    for (int i = wid; i < nrows; i += nwarps) {
+      const int e0 = (int)ws.info[4 * i];
+      if (vec16) {
+        // the row's quiet lanes are one span of (A - e0) * width words
+        const int q4 = width >> 2, dk = 32 % q4;
+        const uint4* src = reinterpret_cast<const uint4*>(rows[i].w);
+        uint4* dst =
+            reinterpret_cast<uint4*>(a.flat + (lane0 + i * A + e0) * width);
+        int k4 = wl % q4;
+        for (int j = wl; j < (A - e0) * q4; j += 32) {
+          dst[j] = src[k4];
+          k4 += dk;
+          if (k4 >= q4) k4 -= q4;
+        }
+      } else {
+        for (int e = e0; e < A; ++e) {
+          uint32_t* dst = a.flat + (lane0 + i * A + e) * width;
+          for (int k = wl; k < width; k += 32) dst[k] = rows[i].w[k];
+        }
+      }
+    }
+  } else {
+    for (int t = threadIdx.x; t < tile; t += blockDim.x) {
+      RowState<M, SYM>& rs = rows[row];
+      const long long lane = lane0 + t;
+      bool ovf = false, v;
+      uint32_t hi, lo;
       uint32_t w[M::W], s[M::W];
 #pragma unroll
       for (int k = 0; k < M::W; ++k) w[k] = rs.w[k];
@@ -464,20 +703,20 @@ __global__ void expand_kernel(M m, StepArgs a) {
       } else {
         fp64(s, width, hi, lo);
       }
-    }
-    a.chi[lane] = hi;
-    a.clo[lane] = lo;
-    const bool cv = v && rs.fv;
-    a.cvalid[lane] = cv;
-    nvalid += cv;
-    // plain stores of one value: the row's OR, read after the barrier
-    if (cv) rs.valid = 1;
-    if (ovf && rs.fv) rs.xovf = 1;
-    row += drow;
-    act += dact;
-    if (act >= A) {
-      act -= A;
-      ++row;
+      a.chi[lane] = hi;
+      a.clo[lane] = lo;
+      const bool cv = v && rs.fv;
+      a.cvalid[lane] = cv;
+      nvalid += cv;
+      // plain stores of one value: the row's OR, read after the barrier
+      if (cv) rs.valid = 1;
+      if (ovf && rs.fv) rs.xovf = 1;
+      row += drow;
+      act += dact;
+      if (act >= A) {
+        act -= A;
+        ++row;
+      }
     }
   }
   __syncthreads();
@@ -524,17 +763,42 @@ cudaError_t allow_smem(K kernel, size_t smem) {
                               (int)smem);
 }
 
+// The dynamic shared memory K1-wide's layout takes over the geometry w
+// at width words and A lanes a row: the tile's rows, then wide_words
+// 32-bit words (WideSmem). The launch checks that ops/_cuda.py's
+// wide_smem_bytes gave at least this much.
+template <class M, bool SYM>
+size_t wide_smem_bytes(const TileGeometry& w, int width, int A) {
+  return (size_t)w.rows * sizeof(RowState<M, SYM>) +
+         wide_words(w, width, A) * sizeof(uint32_t);
+}
+
 // Launch K1 over a.tile (blocks >= 1 even at F = 0: the grid resets
-// the ring arena).
+// the ring arena); a wide model over a.wide.
 template <class M, bool SYM>
 cudaError_t launch_expand(const M& m, const StepArgs& a, cudaStream_t st) {
   const TileGeometry& g = a.tile;
   if (!geometry_ok(g, a.F, a.A)) return cudaErrorInvalidValue;
-  const size_t smem = (size_t)g.rows * sizeof(RowState<M, SYM>);
-  cudaError_t e = allow_smem(expand_kernel<M, SYM>, smem);
-  if (e != cudaSuccess) return e;
-  expand_kernel<M, SYM><<<g.blocks, g.threads, smem, st>>>(m, a);
-  return cudaGetLastError();
+  if constexpr (WideRow<M>::value) {
+    StepArgs wa = a;
+    wa.tile = a.wide;
+    const size_t smem = (size_t)a.wide_smem;
+    if (!geometry_ok(wa.tile, a.F, a.A) || wa.tile.rows > kWideRows ||
+        a.wide_smem < 0 ||
+        smem < wide_smem_bytes<M, SYM>(wa.tile, m.width(), a.A))
+      return cudaErrorInvalidValue;
+    cudaError_t e = allow_smem(expand_kernel<M, SYM>, smem);
+    if (e != cudaSuccess) return e;
+    expand_kernel<M, SYM><<<wa.tile.blocks, wa.tile.threads, smem, st>>>(
+        m, wa);
+    return cudaGetLastError();
+  } else {
+    const size_t smem = (size_t)g.rows * sizeof(RowState<M, SYM>);
+    cudaError_t e = allow_smem(expand_kernel<M, SYM>, smem);
+    if (e != cudaSuccess) return e;
+    expand_kernel<M, SYM><<<g.blocks, g.threads, smem, st>>>(m, a);
+    return cudaGetLastError();
+  }
 }
 
 // Publish this step's discovery registers from the candidates K1 left

@@ -76,7 +76,7 @@ _CAPTURE_LOCK = threading.Lock()
 _BUILD_LOCK = threading.Lock()
 
 #: ``{"seconds": build time, "logs": {library name: its nvcc/ptxas
-#: output}, "path": {library name: path}}``
+#: output, kept beside the library}, "path": {library name: path}}``
 BUILD_INFO: dict = {}
 
 #: library name -> loaded ctypes library, once built
@@ -141,6 +141,59 @@ def sm_count(device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
+#: K1-wide's launch: a wide model's K1 (Paxos) runs at most this many
+#: rows (``csrc/step_common.cuh`` ``kWideRows``, the most one warp
+#: scans) and threads a block, each thread with a staging row of
+#: ``wide_stride(width)`` words in shared memory; at 128 threads the
+#: registers of a lane's network and history (~165 at Paxos) fit
+#: ``WIDE_BLOCKS_PER_SM`` blocks an SM, and so does the shared memory of
+#: 32 rows at PackedPaxos(3)'s 96 words (two at the widest, 122)
+WIDE_ROWS = 32
+WIDE_THREADS = 128
+WIDE_BLOCKS_PER_SM = 3
+#: the wide models of ``STEP_MODELS`` (``kWideRow``): the words of their
+#: row in K1's shared ``RowState`` (``PaxosModel::W``); the launch
+#: refuses a shared-memory size below what this gives
+WIDE_MODELS = {"paxos": 128}
+
+
+def wide_stride(width: int) -> int:
+    """A staging row's stride: the width made odd (``step_common.cuh``
+    ``wide_stride``), so word ``k`` of a warp's 32 lanes falls in 32
+    distinct shared-memory banks."""
+    return width | 1
+
+
+def wide_geometry(geo: Geometry, f: int, a: int, sms: int) -> Geometry:
+    """K1-wide's launch over ``f`` rows of ``a`` lanes on a card of
+    ``sms`` SMs from the step's tile geometry ``geo`` (``StepArgs.wide``):
+    its rows capped at ``WIDE_ROWS``, and fewer when that gives blocks
+    for no more than ``WIDE_BLOCKS_PER_SM`` an SM, so that every block is
+    resident at once and each thread steps fewer children in turn; the
+    blocks that cover ``f`` with them, the tile's threads capped at
+    ``WIDE_THREADS``; K2 and K3 keep ``geo``."""
+    rows = max(1, min(geo.rows, WIDE_ROWS,
+                      -(-f // (WIDE_BLOCKS_PER_SM * sms))))
+    lanes32 = -(-(rows * a) // 32) * 32
+    return Geometry(rows=rows, threads=min(lanes32, WIDE_THREADS),
+                    blocks=-(-f // rows) if f > 0 else 1, cells=0)
+
+
+def wide_smem_bytes(geo: Geometry, width: int, a: int,
+                    row_words: int = WIDE_MODELS["paxos"]) -> int:
+    """K1-wide's dynamic shared memory over ``geo`` (a
+    :func:`wide_geometry`) for rows of ``width`` words and ``a`` action
+    lanes (``StepArgs.wide_smem``; ``step_common.cuh`` ``WideSmem``): the
+    tile's rows (``RowState``: ``row_words`` words and 16 bytes of
+    flags, 16-byte aligned), four words per row (its quiet lane,
+    fingerprint and first active item) and four for the count, the
+    tile's active lanes (``rows * a``), then one staging row of
+    ``wide_stride(width)`` words per thread."""
+    return (geo.rows * (4 * row_words + 16)
+            + 4 * (4 * (geo.rows + 1) + geo.rows * a
+                   + geo.threads * wide_stride(width)))
+
+
 class TileGeometry(ctypes.Structure):
     """``TileGeometry`` of ``csrc/step_common.cuh``, field for field."""
 
@@ -163,8 +216,9 @@ class StepArgs(ctypes.Structure):
         ("inserted", _p), ("claims", _p), ("n_claims", _p), ("stats", _p),
         ("keys", _p), ("n_buckets", _ll), ("max_rounds", _i), ("cc", _i),
         ("owner", _p), ("ring", _p), ("ring_arena", _p),
-        ("disc_cand", _p), ("tile", TileGeometry), ("gate", _p),
-        ("gate_size", _i), ("stream", _p),
+        ("disc_cand", _p), ("tile", TileGeometry), ("wide", TileGeometry),
+        ("wide_smem", _ll), ("gate", _p), ("gate_size", _i),
+        ("stream", _p),
     ]
 
 
@@ -197,7 +251,8 @@ class HistArgs(ctypes.Structure):
         ("keys", _p), ("n_buckets", _ll), ("max_rounds", _i),
         ("index", _p), ("count", _i), ("start", _p), ("end", _p),
         ("hidx", _p), ("h_n", _p), ("ovf", _p), ("gate", _p),
-        ("stream", _p),
+        ("tile_n", _p), ("akey", _p), ("arow", _p), ("ctl", _p),
+        ("cap", _i), ("blocks", _i), ("stream", _p),
     ]
 
 
@@ -334,8 +389,12 @@ def _build() -> None:
         if failed:
             raise RuntimeError("\n".join(failed))
         for name, (_cmd, tmp, _proc) in procs.items():
+            todo[name].with_suffix(".log").write_text(logs[name])
             os.replace(tmp, todo[name])
     seconds = time.perf_counter() - t0
+    for name, path in paths.items():  # a library built earlier: its log
+        if name not in logs and path.with_suffix(".log").exists():
+            logs[name] = path.with_suffix(".log").read_text()
     libs = {}
     for name, path in paths.items():
         lib = ctypes.CDLL(str(path))
@@ -354,6 +413,12 @@ def _build() -> None:
     launch = libs["chunk"].srt_graph_launch
     launch.argtypes = [_ll, _ll, _i]
     launch.restype = _i
+    tile_rows = libs["history"].srt_hist_tile_rows
+    tile_rows.argtypes = []
+    tile_rows.restype = _i
+    if tile_rows() != HIST_TILE_ROWS:
+        raise RuntimeError("K8's tile rows differ between csrc/history.cu "
+                           "and ops/_cuda.py")
     _LIB = libs
     BUILD_INFO.update(seconds=seconds, logs=logs,
                       path={k: str(v) for k, v in paths.items()})
@@ -461,6 +526,12 @@ def _step_args(model, frontier, ebits, fvalid, phi, plo, ring, ws,
             or ws.disc_cand.device != dev):
         raise ValueError("workspace does not match this ring or model")
     geo = tile_geometry(f, n_actions, sm_count(dev))
+    wide, wide_smem = geo, 0
+    row_words = WIDE_MODELS.get(entry[0])
+    if row_words is not None:
+        wide = wide_geometry(geo, f, n_actions, sm_count(dev))
+        wide_smem = wide_smem_bytes(wide, model.packed_width, n_actions,
+                                    row_words)
     if bufs is None:
         bufs = step_buffers(model, f, stats_len, symmetry, dev, geo.blocks)
     elif (bufs["inserted"].shape[0] < lanes
@@ -498,7 +569,8 @@ def _step_args(model, frontier, ebits, fvalid, phi, plo, ring, ws,
         max_rounds=4096, cc=cc, ring=ring.data_ptr() if cc else None,
         ring_arena=ws.ring_arena.data_ptr(),
         disc_cand=ws.disc_cand.data_ptr(),
-        tile=TileGeometry(*geo), gate=gate, gate_size=gate_size,
+        tile=TileGeometry(*geo), wide=TileGeometry(*wide),
+        wide_smem=wide_smem, gate=gate, gate_size=gate_size,
         stream=torch.cuda.current_stream(dev).cuda_stream)
     outputs = (b["pbits"][:f], b["ebits_out"][:f], b["terminal"][:f],
                b["flat"][:lanes], b["chi"][:lanes], b["clo"][:lanes],
@@ -763,7 +835,47 @@ def append(args: ChunkArgs, device) -> None:
 
 # --- the history stage (csrc/history.cu) ---------------------------------
 
-def _hist_args(q, hist) -> HistArgs:
+#: K8's rows per tile and threads per block (``csrc/history.cu``
+#: ``kHistTileRows``, ``kHistThreads``)
+HIST_TILE_ROWS = 256
+HIST_THREADS = 512
+#: K8's most blocks per SM: its grid is at most this many per SM, fewer
+#: when its scratch holds fewer tiles
+HIST_BLOCKS_PER_SM = 2
+
+
+def _hist_tiles(cap: int) -> int:
+    """K8's tiles for at most ``cap`` rows (at least one)."""
+    return max(1, -(-cap // HIST_TILE_ROWS))
+
+
+def history_grid(cap: int, sms: int) -> int:
+    """K8's blocks for at most ``cap`` rows on a card of ``sms`` SMs:
+    one per tile of ``HIST_TILE_ROWS`` rows, at most
+    ``HIST_BLOCKS_PER_SM`` per SM (a block then takes several tiles),
+    at least one."""
+    return max(1, min(_hist_tiles(cap), HIST_BLOCKS_PER_SM * sms))
+
+
+def history_scratch(cap: int, device) -> dict:
+    """K8's scratch for at most ``cap`` rows a launch: ``tile_n`` (int32,
+    one count per tile), ``akey`` (int64) and ``arow`` (int32), a tile's
+    absent rows in its own range of ``HIST_TILE_ROWS``, and ``ctl``
+    (int32 ``[2]``, zeroed: the blocks arrived and the lookups' overflow
+    flag, which every launch leaves zero). Made once, outside any
+    graph."""
+    tiles = _hist_tiles(cap)
+    return {"tile_n": torch.zeros((tiles,), dtype=torch.int32,
+                                  device=device),
+            "akey": torch.zeros((tiles * HIST_TILE_ROWS,), dtype=torch.int64,
+                                device=device),
+            "arow": torch.zeros((tiles * HIST_TILE_ROWS,), dtype=torch.int32,
+                                device=device),
+            "ctl": torch.zeros((2,), dtype=torch.int32, device=device),
+            "cap": cap}
+
+
+def _hist_args(q, hist, scratch) -> HistArgs:
     dev = q.device
     _check(q, "q", torch.int32, 2, dev)
     _check(hist.table, "history table", torch.int64, 2, dev)
@@ -772,20 +884,36 @@ def _hist_args(q, hist) -> HistArgs:
     if (hist.table.shape[1] != 4 or hist.hwidth < 1
             or hist.hoff + hist.hwidth > q.shape[1] - 3):
         raise ValueError("the history stage does not fit this queue")
+    cap = scratch["cap"]
+    tiles = _hist_tiles(cap)
+    for name, dtype, n in (("tile_n", torch.int32, tiles),
+                           ("akey", torch.int64, tiles * HIST_TILE_ROWS),
+                           ("arow", torch.int32, tiles * HIST_TILE_ROWS),
+                           ("ctl", torch.int32, 2)):
+        _check(scratch[name], name, dtype, 1, dev)
+        if scratch[name].shape[0] < n:
+            raise ValueError(f"K8's scratch {name} holds fewer than "
+                             f"{cap} rows")
     return HistArgs(q=q.data_ptr(), qstride=q.stride(0), hoff=hist.hoff,
                     hwidth=hist.hwidth, keys=hist.table.data_ptr(),
                     n_buckets=hist.table.shape[0],
-                    max_rounds=hist.max_rounds)
+                    max_rounds=hist.max_rounds,
+                    tile_n=scratch["tile_n"].data_ptr(),
+                    akey=scratch["akey"].data_ptr(),
+                    arow=scratch["arow"].data_ptr(),
+                    ctl=scratch["ctl"].data_ptr(), cap=cap,
+                    blocks=history_grid(cap, sm_count(dev)))
 
 
-def history_chunk_args(ctr, ext: int, q, hist) -> HistArgs:
+def history_chunk_args(ctr, ext: int, q, hist, scratch) -> HistArgs:
     """K8's arguments in a chunk: the rows from ``hist.hdone`` to the
     queue tail of the counter block ``ctr`` (its port fields from
     ``ext``), ``h_n`` and ``hovf`` the block's, an overflow shutting its
-    gate."""
+    gate; ``scratch`` a :func:`history_scratch` for the most rows one
+    iteration appends (more count as an overflow)."""
     from ..checker.device_loop import B_H_N, B_HOVF, B_Q_TAIL, E_GATE
     _check(ctr, "ctr", torch.int32, 1, q.device)
-    args = _hist_args(q, hist)
+    args = _hist_args(q, hist, scratch)
     base = ctr.data_ptr()
     args.start = hist.hdone.data_ptr()
     args.end = base + 4 * B_Q_TAIL
@@ -810,10 +938,9 @@ def history_insert(q, hist, *, index=None, start: int = 0, end: int = 0,
     """K8 outside a chunk: the rows ``index`` (int32 queue indices, the
     re-seed) or ``[start, end)`` (the rescan) into ``hist.table``, each
     fresh key's row appended to ``hist.hidx`` at ``h_n`` when
-    ``append``. Returns ``(h_n, overflowed)`` (one synchronising read:
-    growth only)."""
+    ``append``, with a scratch of its own for these rows. Returns
+    ``(h_n, overflowed)`` (one synchronising read: growth only)."""
     dev = q.device
-    args = _hist_args(q, hist)
     ctl = torch.tensor([start, end, h_n, 0], dtype=torch.int32, device=dev)
     base = ctl.data_ptr()
     if index is not None:
@@ -821,6 +948,11 @@ def history_insert(q, hist, *, index=None, start: int = 0, end: int = 0,
         _check(index, "index", torch.int32, 1, dev)
         if not index.shape[0]:
             return h_n, False
+        rows = index.shape[0]
+    else:
+        rows = max(0, end - start)
+    args = _hist_args(q, hist, history_scratch(rows, dev))
+    if index is not None:
         args.index, args.count = index.data_ptr(), index.shape[0]
     else:
         args.start, args.end = base, base + 4

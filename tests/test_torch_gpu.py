@@ -1393,11 +1393,16 @@ PIN_PAXOS2 = (16_668, 32_971,
 def _paxos_rows(model, rng, f):
     """``f`` rows drawn with replacement from the first 3,000 states of a
     host BFS of ``model``, a tenth of them with crowded networks (their
-    children's sends overflow) and a twentieth random words."""
+    children's sends overflow) and a twentieth random words. A state
+    whose network outgrows ``net_capacity`` is not encoded, and the BFS
+    does not go past it."""
     seen, states, queue = set(), [], list(model.init_states())
     while queue and len(states) < 3000:
         s = queue.pop(0)
-        enc = model.encode(s)
+        try:
+            enc = model.encode(s)
+        except ValueError:  # more envelopes than net_capacity slots
+            continue
         if enc.tobytes() not in seen:
             seen.add(enc.tobytes())
             states.append(enc)
@@ -1419,24 +1424,19 @@ def _paxos_rows(model, rng, f):
     return rows
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("clients,f", [(1, 64), (2, 1000), (3, 8192)])
-def test_paxos_step_lane_exact_on_card(clients, f):
-    """K1's paxos instantiation (the wide K1: rows in shared memory, the
-    child written word by word) with K2/K3 against the plain version,
-    lane for lane on every lane (invalid and overflowing ones too), then
-    the inserted key set and the table; small and full width."""
-    _need_card()
-    from stateright_tpu_torch.examples.paxos_packed import PackedPaxos
+def _paxos_step_lane_exact(model, f, seed):
+    """K1's paxos instantiation with K2/K3 against the plain version over
+    ``f`` rows of ``_paxos_rows`` (crowded networks, junk rows, a tenth
+    of the rows invalid), lane for lane on every lane (invalid and
+    overflowing ones too), then the inserted key set and the table."""
     from stateright_tpu_torch.ops.fused import (S_DISC, S_VALID, S_XOVF,
                                                 fused_step,
                                                 fused_step_reference)
     from stateright_tpu_torch.ops.hash_kernel import fp64_device
     from stateright_tpu_torch.ops.hashtable import make_table
-    from stateright_tpu_torch.ops.words import from_numpy_u32, pack64
-    model = PackedPaxos(clients)
+    from stateright_tpu_torch.ops.words import pack64, from_numpy_u32
     dev = torch.device("cuda")
-    rng = np.random.default_rng(clients)
+    rng = np.random.default_rng(seed)
     block = from_numpy_u32(_paxos_rows(model, rng, f), dev)
     phi, plo = (x.to(torch.int32) for x in fp64_device(block))
     ebits = torch.zeros((f,), dtype=torch.int32, device=dev)
@@ -1453,13 +1453,92 @@ def test_paxos_step_lane_exact_on_card(clients, f):
         assert torch.equal(getattr(k, nm), getattr(p, nm)), nm
     for i in (S_XOVF, S_VALID):
         assert int(k.stats[i]) == int(p.stats[i]), i
-    if clients > 1:  # the crowded rows' sends overflow
-        assert int(k.stats[S_XOVF]) == 1
     assert torch.equal(k.stats[S_DISC:], p.stats[S_DISC:])
     key_k = pack64(k.chi, k.clo)[k.inserted].tolist()
     key_p = pack64(p.chi, p.clo)[p.inserted].tolist()
     assert len(key_k) == len(set(key_k)) and set(key_k) == set(key_p)
     assert tables[0] == tables[1]
+    return k
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("clients,f", [(1, 64), (2, 1000), (3, 8192)])
+def test_paxos_step_lane_exact_on_card(clients, f):
+    """K1's paxos instantiation (the wide K1: rows in shared memory, each
+    warp's children staged there and written as one span) with K2/K3
+    against the plain version, lane for lane on every lane (invalid and
+    overflowing ones too), then the inserted key set and the table; small
+    and full width."""
+    _need_card()
+    from stateright_tpu_torch.examples.paxos_packed import PackedPaxos
+    from stateright_tpu_torch.ops.fused import S_XOVF
+    k = _paxos_step_lane_exact(PackedPaxos(clients), f, clients)
+    if clients > 1:  # the crowded rows' sends overflow
+        assert int(k.stats[S_XOVF]) == 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("clients,servers,slots,f", [
+    (2, 4, 16, 1237), (2, 3, 7, 1000), (3, 3, 5, 333), (1, 4, 3, 77)])
+def test_paxos_wide_step_lane_exact_at_odd_shapes_on_card(clients, servers,
+                                                          slots, f):
+    """K1-wide at the shapes its warp spans find hardest, lane for lane
+    on every lane against the plain version: a width that is no multiple
+    of four words (PackedPaxos(2, server_count=4): 102; with 3 slots 46),
+    fewer than 16 action lanes (7, 5, 3: a warp's 32 lanes span rows and
+    tiles split warps), and frontiers of no multiple of 32 rows or of the
+    tile, with junk rows and crowded networks whose sends overflow."""
+    _need_card()
+    from stateright_tpu_torch.examples.paxos_packed import PackedPaxos
+    from stateright_tpu_torch.ops.fused import S_XOVF
+    model = PackedPaxos(clients, server_count=servers, net_capacity=slots)
+    k = _paxos_step_lane_exact(model, f, 100 + slots)
+    assert int(k.stats[S_XOVF]) == 1
+
+
+@pytest.mark.gpu
+def test_paxos_shut_gate_leaves_everything_as_it_was():
+    """On a Paxos carry with its history stage, the gated step (K1-wide,
+    K2, K3), K7 and K8 with the gate shut, launched alone and as the
+    captured graph, change no counter, queue or log row, table, history
+    table, hidx, hdone, step output or scratch word."""
+    _need_card()
+    from stateright_tpu_torch.checker.device_loop import (
+        E_GATE, G_SIZE, I32_MAX, ChunkRunner, run_chunk, seed_carry)
+    from stateright_tpu_torch.examples.paxos_packed import PackedPaxos
+    from stateright_tpu_torch.ops.hashtable import table_insert
+    from stateright_tpu_torch.ops.words import from_numpy_u32
+    model = PackedPaxos(2)
+    dev = torch.device("cuda")
+    init = model.init_states()[0]
+    fp = model.fingerprint(init)
+    carry = seed_carry(model, 1 << 18, 1 << 17, [model.encode(init)], 0,
+                       [fp], 1 << 12, dev, hcap=1 << 10)
+    table_insert(carry.table,
+                 from_numpy_u32(np.array([fp >> 32], np.uint32), dev),
+                 from_numpy_u32(np.array([fp & 0xFFFFFFFF], np.uint32),
+                                dev),
+                 torch.ones((1,), dtype=torch.bool, device=dev))
+    run_chunk(model, carry, fmax=512, steps=6)
+    card = ChunkRunner(model, carry, 512).card()
+    card.begin(0, I32_MAX, I32_MAX, carry.ws.step + 1)
+    assert int(carry.ctr[carry.layout.ext + E_GATE + G_SIZE]) == 0
+    for name in ("stats", "flat", "chi", "cvalid"):
+        card.bufs[name].fill_(5)
+    hist = carry.hist
+    bufs = (carry.ctr, carry.q, carry.log, carry.table, hist.table,
+            hist.hidx, hist.hdone, card.bufs["stats"], card.bufs["flat"],
+            card.bufs["chi"], card.bufs["cvalid"], card.scratch["status"],
+            card.scratch["ticket"], *card.hscratch.values())
+    bufs = tuple(t for t in bufs if isinstance(t, torch.Tensor))
+    before = [t.clone() for t in bufs]
+    card.launch_steps()
+    card.launch_append()
+    card.launch_history()
+    card.graph.replay(3)
+    torch.cuda.synchronize()
+    for t, b in zip(bufs, before):
+        assert torch.equal(t, b)
 
 
 @pytest.mark.gpu
@@ -1524,6 +1603,144 @@ def test_history_kernels_match_plain_versions_on_card():
         out.fill_(-1)
         _cuda.hpull(q, hidx, log, 5, 1, out, h_n=h_n)
         assert torch.equal(out, want)
+
+
+def _k8_rows(case, rng):
+    """PackedPaxos(3) rows (``_paxos_rows``, 5,000) with their history
+    columns set for one K8 case: ``known``, ``replays``: 64 histories;
+    ``one_fresh``: 64 histories and a 65th at rows 300, 1,700, 2,900 and
+    4,999 (20 tiles of 256 rows: four blocks); ``thousands``: ~2,000
+    histories, each repeated; ``late_overflow``: 4 histories and a 5th
+    at row 4,999 only."""
+    from stateright_tpu_torch.examples.paxos_packed import PackedPaxos
+    model = PackedPaxos(3)
+    rows = _paxos_rows(model, rng, 5000)
+    hoff, hw = model.host_property_cols
+    pool = rng.integers(0, 2 ** 32, (65, hw), dtype=np.uint64).astype(
+        np.uint32)
+    n_hist = {"known": 64, "replays": 64, "index": 64, "one_fresh": 64,
+              "late_overflow": 4}.get(case)
+    if n_hist is None:  # thousands
+        rows[:, hoff:hoff + hw] = pool[rng.integers(0, 64, len(rows))]
+        rows[:, hoff + 1] = rng.integers(0, 2000, len(rows))
+    else:
+        rows[:, hoff:hoff + hw] = pool[rng.integers(0, n_hist, len(rows))]
+    if case == "one_fresh":
+        rows[[300, 1700, 2900, 4999], hoff:hoff + hw] = pool[64]
+    if case == "late_overflow":
+        rows[4999, hoff:hoff + hw] = pool[64]
+    return model, rows, pool[:n_hist or 64]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["known", "one_fresh", "thousands",
+                                  "late_overflow", "index", "replays"])
+def test_history_kernel_cases_on_card(case):
+    """K8 (a grid of lookups, each tile's absent rows compacted in row
+    order, the last block inserting them) against ``history_reference``
+    over 5,000 rows from ``h_n = 3``: ``known``, every key in the table
+    already (``h_n`` and ``hidx`` unchanged, ``*start`` moved to
+    ``*end``); ``one_fresh``, one new key whose rows fall in four blocks
+    (its lowest row is the representative); ``thousands``, ~2,000 fresh
+    keys repeated over the rows (representatives in row order, the key
+    set); ``late_overflow``, a full one-bucket table whose only miss is
+    the last row, in the last block (the overflow flag, the gate shut,
+    nothing appended); ``index``, an index list in another order with
+    repeats, appended and not; ``replays``, two replays of a captured
+    graph of one launch, the state restored between them (the grid's
+    arrival counter resets: the second replay's tail runs too)."""
+    _need_card()
+    from stateright_tpu_torch.checker.device_loop import (
+        G_SIZE, history_reference, new_history)
+    from stateright_tpu_torch.ops import _cuda
+    from stateright_tpu_torch.ops.hash_kernel import fp64_device
+    from stateright_tpu_torch.ops.words import from_numpy_u32
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(31)
+    model, rows, seed_hist = _k8_rows(case, rng)
+    n, w = len(rows), model.packed_width
+    q = torch.zeros((n + 8, w + 3), dtype=torch.int32, device=dev)
+    q[:n, :w] = from_numpy_u32(rows, dev)
+    hcap = 4 if case == "late_overflow" else 1 << 14
+    k = new_history(model, hcap, n, 0, dev)
+    p = new_history(model, hcap, n, 0, dev)
+    if case in ("known", "one_fresh", "late_overflow", "replays"):
+        # the table holds the seed histories' keys
+        hi, lo = fp64_device(from_numpy_u32(seed_hist, dev))
+        for st in (k, p):
+            _cuda.table_insert(st.table, hi, lo, torch.ones(
+                (hi.shape[0],), dtype=torch.bool, device=dev), None,
+                st.max_rounds, mask=False)
+
+    def sorted_keys(st):
+        return torch.sort(st.table[st.table != 0]).values
+
+    if case == "index":
+        idx = torch.from_numpy(rng.integers(0, n, 3000).astype(
+            np.int64)).to(dev)
+        fresh, ovf_p = history_reference(q, p, idx)
+        h_k, ovf_k = _cuda.history_insert(q, k, index=idx, append=True,
+                                          h_n=3)
+        reps = idx[fresh].to(torch.int32)
+        assert (h_k, ovf_k, ovf_p) == (3 + reps.shape[0], False, False)
+        assert torch.equal(k.hidx[3:h_k], reps)
+        assert torch.equal(sorted_keys(k), sorted_keys(p))
+        k2 = new_history(model, hcap, n, 0, dev)
+        assert _cuda.history_insert(q, k2, index=idx, append=False,
+                                    h_n=3) == (3, False)
+        assert not k2.hidx.any()
+        assert torch.equal(sorted_keys(k2), sorted_keys(p))
+        return
+    start, end = 0, n
+    table0 = k.table.clone()
+    ctl = torch.tensor([start, end, 3, 0], dtype=torch.int32, device=dev)
+    gate = torch.tensor([2, 0, 0, 0, 0, 0, 0], dtype=torch.int32,
+                        device=dev)
+    scratch = _cuda.history_scratch(n, dev)
+    args = _cuda._hist_args(q, k, scratch)
+    base = ctl.data_ptr()
+    args.start, args.end, args.h_n, args.ovf = (base, base + 4, base + 8,
+                                                base + 12)
+    args.hidx = k.hidx.data_ptr()
+    args.gate = gate.data_ptr()
+    idx = torch.arange(start, end, dtype=torch.int64, device=dev)
+    fresh, ovf_p = history_reference(q, p, idx)
+    reps = idx[fresh].to(torch.int32)
+
+    def check():
+        got_start, got_end, h_k, ovf_k = ctl.tolist()
+        assert (got_start, got_end) == (end, end)
+        assert not scratch["ctl"].any()
+        assert bool(ovf_k) == ovf_p == (case == "late_overflow")
+        assert int(gate[G_SIZE]) == (0 if ovf_p else 2)
+        if ovf_p:  # the only miss overflowed: nothing fresh to append
+            assert h_k == 3 and not k.hidx.any()
+            return
+        assert h_k == 3 + reps.shape[0]
+        assert torch.equal(k.hidx[3:h_k], reps)
+        assert torch.equal(sorted_keys(k), sorted_keys(p))
+
+    if case != "replays":
+        _cuda.history(args, dev)
+        torch.cuda.synchronize()
+        check()
+        if case == "known":
+            assert reps.shape[0] == 0 and not k.hidx.any()
+        if case == "one_fresh":
+            assert reps.tolist() == [300]
+        if case == "thousands":
+            assert reps.shape[0] > 1000
+        return
+    # two replays of a captured graph of one launch, restored between
+    _cuda.history(args, dev)  # loads the kernel outside the capture
+    graph = _cuda.ChunkGraph(lambda: _cuda.history(args, dev), dev)
+    for _turn in range(2):
+        k.table.copy_(table0)
+        k.hidx.zero_()
+        ctl.copy_(torch.tensor([start, end, 3, 0], dtype=torch.int32))
+        graph.replay(1)
+        torch.cuda.synchronize()
+        check()
 
 
 @pytest.mark.gpu
