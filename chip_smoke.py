@@ -121,6 +121,38 @@ Phases, one JSON line each:
              evaluation, distinct histories, memory and (a profiled
              repeat) the device's busy share; and PackedPaxos(3) through
              the default raced entry point.
+9. registers — the register family on the card: its kernels right
+             after the Paxos kernels (phase ``kernels`` with ``model`` and
+             ``instantiation``), the runs after phase ``paxos`` (phase
+             ``registers``). K1's ``abd_ordered`` (``csrc/abd.cuh``
+             ``AbdOrderedModel``, the edit K1) at mid-search steps of
+             PackedAbd(2, ordered=True) (108 words, the BASELINE's
+             "linearizable-register check 2 ordered"), PackedAbd(3,
+             server_count=2, ordered=True, channel_depth=8) (260, bench.py
+             tpu_abd3) and PackedAbd(2, server_count=3, ordered=True,
+             channel_depth=8) (331, tpu_abd2) under its active-lane rule
+             (every output on every lane, the children and their
+             fingerprints on the lanes of non-empty channels), ``abd``
+             (PackedAbd(2), unordered) and ``single_copy``
+             (PackedSingleCopy(3)) lane for lane, each at a step size its
+             run launches (``REGISTER_STEPS``), with K2/K3, its launch,
+             registers and no spill; at 331 words K7 after a real gated
+             step, K8 and K9. The K1 checks' plain versions run after
+             the runs (at tpu_abd2's 1,055-row and single-copy's
+             9,954-row steps they take tens of seconds, and later traces
+             would lose their device time). The runs, with
+             ``race=False``:
+             PackedAbd(2, ordered=True) (564, ``PIN_ABD2_ORDERED``),
+             abd3 in full (36,213 / 63,053, ``PIN_ABD3``, with a profiled
+             repeat), PackedAbd(2) (544) and PackedSingleCopy(3) (4,243,
+             the BASELINE's "single-copy-register check 3"), each with
+             the JAX package's digest, ``linearizable`` holding and
+             ``value chosen`` replaying; PackedSingleCopy(4, 2) (bench.py
+             race_single_copy) raced as by default and with
+             ``race=False``: ``linearizable`` discovered, its witness
+             replaying to a history with no serialization; tpu_abd2
+             bounded at ``ABD2_TARGET`` generated states, as bench.py
+             does (its full space is far larger).
 
 Then a ``kernels`` line (the contract's per-kernel record), the card's name
 and power limit from ``nvidia-smi``, and as the last line
@@ -251,6 +283,33 @@ CHOSEN_LEN_PAXOS2 = 8
 #: 3)", bench.py's device run): PackedPaxos(3), capacity 2**21,
 #: race=False, target_state_count(500_000) generated transitions
 PAXOS3_TARGET = 500_000
+
+#: The register family's full enumerations: unique states, state_count()
+#: and the sha256 of the sorted fingerprints, from the JAX package's host
+#: BFS on the CPU, e.g. for ``abd3``:
+#:   PackedAbd(3, server_count=2, ordered=True, channel_depth=8)
+#:       .checker().spawn_bfs().join()
+#: (the BASELINE's "linearizable-register check 2 ordered" is
+#: PackedAbd(2, ordered=True); bench.py's tpu_abd3 the one above).
+#: tests/test_torch_registers.py::test_register_pins_are_the_jax_packages
+#: holds the JAX package's host BFS to each, and the port's plain path
+#: beside it. In each ``linearizable`` holds and ``value chosen`` is found.
+PIN_ABD2_ORDERED = (564, 813,
+                    "ee7dfeba8696ab0e7dac96583d234fbb"
+                    "542c6d286be8d42653c644f87f84fe89")
+PIN_ABD3 = (36_213, 63_053,
+            "3b3f0567885b11e3c52fc2fb593e40c2"
+            "7c252198aa5def2add3df754b329ddae")
+PIN_ABD2 = (544, 875,
+            "74b6c987508fdbd9cd9cba2f48e0c02a"
+            "4623bc189fd1e6312a2295b52b6cf57f")
+PIN_SC3 = (4_243, 6_778,
+           "e6f3f5ee7973c27783c1c04047915d50"
+           "4cbb55032810666063cdcdc30a01f323")
+#: bench.py's widest register row: tpu_abd2, PackedAbd(2,
+#: server_count=3, ordered=True, channel_depth=8), 331 words, bounded
+#: there at this many generated states
+ABD2_TARGET = 100_000
 
 #: the parent tree's device ms (``torch.profiler``) of the two kernels
 #: this tree redesigned, at this script's shapes: K1's paxos
@@ -437,10 +496,14 @@ def device_times(fn, host_top: int = 0, before=None) -> dict:
             else:
                 torch_ms += us / 1e3
         # a chunk's run replays its graph, each replay K7 once: a trace
-        # with fewer K7 records than replays lost the graph's kernels
+        # with fewer K7 records than replays lost the graph's kernels;
+        # a step's K2 never runs without its K1: a trace with K2 and no
+        # K1 lost K1's record
         replays = (result.profile().get("graph_launches", 0)
                    if hasattr(result, "profile") else 0)
-        if seen and calls["append_kernel"] >= replays:
+        k1_lost = calls["claim_kernel"] > 0 and not (
+            calls["expand_kernel"] or calls["expand_kernel_sym"])
+        if seen and calls["append_kernel"] >= replays and not k1_lost:
             break
     out = {"ours_ms": None, "torch_ms": None, "copy_ms": None,
            "by_kernel_ms": None, "by_kernel_calls": None}
@@ -664,30 +727,65 @@ def block_args(model, carry, f: int, pfp=None):
 
 
 def check_step(model, carry, f: int, reps: int, symmetry: bool = False,
-               pfp=None) -> dict:
+               pfp=None, active=None, defer: bool = False):
     """K1-K3 (one ``fused_step``, the symmetric instantiation under
     ``symmetry``) against ``fused_step_reference`` on the card over ``f``
-    pending rows of ``carry``, by the set gate."""
+    rows of ``carry`` (its pending ones valid), by the set gate.
+    ``active(frontier)`` (an edit model's rule) gives the lanes whose
+    children K1 writes (bool ``[f * A]``): flat, chi and clo are held
+    there only, every other output on every lane, and the bound counts
+    the children of those lanes. The kernel is timed (CUDA events, then
+    a trace) before its plain version runs: a plain version of tens of
+    seconds spoils the traces taken after it. ``defer`` returns, once
+    the kernel is timed, a function that runs the plain version and
+    returns the check; it holds copies of the step's inputs, not
+    ``carry``."""
+    from stateright_tpu_torch.ops.fused import StepWorkspace, fused_step
+
+    block, args = block_args(model, carry, f, pfp)
+    table0, ring0 = carry.table.clone(), carry.ring.clone()
+    t_k, r_k = table0.clone(), ring0.clone()
+    ws = StepWorkspace(table0.numel(), ring0.shape[0],
+                       len(model.properties()), block.device)
+    k = fused_step(model, *args, t_k, r_k, ws, symmetry=symmetry)
+    n_claims = int(ws.n_claims.sum())  # K2's claims, which K3 walks
+    t_after = t_k.clone()
+
+    def restore():
+        t_k.copy_(table0)
+        r_k.copy_(ring0)
+
+    def launch():
+        return fused_step(model, *args, t_k, r_k, ws, symmetry=symmetry)
+
+    ms = cuda_ms(launch, reps, restore)
+    dev = device_times(launch, before=restore)
+    if defer:
+        args = tuple(x.clone() for x in args)
+
+    def finish():
+        return _step_against_plain(model, f, symmetry, active, args, k,
+                                   n_claims, t_after, ms, dev, table0, ring0)
+    return finish if defer else finish()
+
+
+def _step_against_plain(model, f, symmetry, active, args, k, n_claims,
+                        t_k, ms, dev, table0, ring0) -> dict:
+    """The rest of :func:`check_step`: the plain version on a copy of
+    the table and ring the kernel's step started from, held against the
+    kernel's outputs ``k`` (and its table after the step, ``t_k``), and
+    the bound."""
     import numpy as np
     import torch
 
     from stateright_tpu_torch.ops.fused import (S_CCH, S_DEDUP, S_DISC,
                                                 S_FAULT, S_INSERTED, S_OVF,
-                                                S_XOVF, StepWorkspace,
-                                                fused_step,
-                                                fused_step_reference)
+                                                S_XOVF, fused_step_reference)
     from stateright_tpu_torch.ops.words import pack64
 
     w = model.packed_width
-    block, args = block_args(model, carry, f, pfp)
-    table0, ring0 = carry.table.clone(), carry.ring.clone()
-    t_k, r_k = table0.clone(), ring0.clone()
-    t_p, r_p = table0.clone(), ring0.clone()
     n_props = len(model.properties())
-    ws = StepWorkspace(table0.numel(), ring0.shape[0], n_props,
-                       block.device)
-    k = fused_step(model, *args, t_k, r_k, ws, symmetry=symmetry)
-    n_claims = int(ws.n_claims.sum())  # K2's claims, which K3 walks
+    t_p, r_p = table0.clone(), ring0.clone()
     # the plain version walks its blocks one after another: it is timed
     # on this one comparison step only
     start = torch.cuda.Event(enable_timing=True)
@@ -699,12 +797,15 @@ def check_step(model, carry, f: int, reps: int, symmetry: bool = False,
     plain_ms = start.elapsed_time(end)
     lane_exact = ("flat", "chi", "clo", "cvalid", "pbits", "ebits",
                   "terminal") + (("ohi", "olo") if symmetry else ())
+    written = None if active is None else active(args[0])
     err = 0
     for name in lane_exact:
         a = getattr(k, name).to(torch.int64)
         b = getattr(p, name).to(torch.int64)
         if a.shape != b.shape:
             raise AssertionError(f"f={f} {name}: shape {a.shape} != {b.shape}")
+        if written is not None and name in ("flat", "chi", "clo"):
+            a, b = a[written], b[written]
         err = max(err, int((a - b).abs().max()) if a.numel() else 0)
 
     def inserted_keys(out):
@@ -736,16 +837,6 @@ def check_step(model, carry, f: int, reps: int, symmetry: bool = False,
     if not all(checks.values()):
         raise AssertionError(f"fused step f={f} disagrees with its plain "
                              f"version: {checks}")
-
-    def restore():
-        t_k.copy_(table0)
-        r_k.copy_(ring0)
-
-    def launch():
-        return fused_step(model, *args, t_k, r_k, ws, symmetry=symmetry)
-
-    ms = cuda_ms(launch, reps, restore)
-    dev = device_times(launch, before=restore)
     # the bound: each input read once, each output written once, table
     # and ring traffic counted for the lanes that need it: the ring per
     # tile winner (K2's one lane per key and tile; the kernel counts the
@@ -756,15 +847,17 @@ def check_step(model, carry, f: int, reps: int, symmetry: bool = False,
     n_table = int(k.dvalid.sum())
     n_win = int(sk[S_DEDUP]) + int(sk[S_CCH])
     n_ins = len(kk)
+    n_written = lanes if written is None else int(written.sum())
     nbytes = (f * (4 * w + 4 + 8 + 1)            # frontier, ebits, fps, fvalid
               + f * (max(n_props, 1) + 4 + 1)    # pbits, ebits, terminal
-              + lanes * (4 * w + 8 + 3)          # flat, chi/clo, 3 masks
+              + n_written * 4 * w                # flat
+              + lanes * (8 + 3)                  # chi/clo, 3 masks
               + lanes * (8 if symmetry else 0)   # ohi/olo
               + (n_win * 8 if ring0.shape[0] else 0)  # ring probes
               + n_table * 32                     # bucket reads
               + n_ins * 16)                      # table + ring writes
-    ops = lanes * step_ops(model, symmetry) + n_table * 12
-    return {"f": f, "lanes": lanes, "valid": n_valid,
+    ops = n_written * step_ops(model, symmetry) + n_table * 12
+    return {"f": f, "lanes": lanes, "written": n_written, "valid": n_valid,
             "tile_winners": n_win, "to_table": n_table,
             "inserted": n_ins, "claims": n_claims, "max_abs_err": err,
             "ms": ms,
@@ -1442,9 +1535,11 @@ def end_to_end_sym(model, path_kernels, off_kernels, want=None, **opts):
 
     from stateright_tpu_torch.ops import _cuda
 
+    # a raced run's loser may still be capturing its chunk's graph on
+    # its own thread: wait for it before synchronizing the card
+    zero_launches()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    zero_launches()
     t0 = time.perf_counter()
     # race=False: the card alone (symmetry is never raced anyway)
     ck = model.checker().symmetry_fn(model.representative).gpu_options(
@@ -1536,9 +1631,11 @@ def end_to_end(model_cls, path_kernels, **opts):
 
     from stateright_tpu_torch.ops import _cuda
 
+    # a raced run's loser may still be capturing its chunk's graph on
+    # its own thread: wait for it before synchronizing the card
+    zero_launches()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    zero_launches()
     t0 = time.perf_counter()
     # race=False: the card alone, where a kernel fault raises (a raced
     # run could adopt the host BFS's answer instead)
@@ -2040,9 +2137,11 @@ def end_to_end_model(model, path_kernels, off_kernels=(), symmetry=False,
     from stateright_tpu_torch.core import Expectation
     from stateright_tpu_torch.ops import _cuda
 
+    # a raced run's loser may still be capturing its chunk's graph on
+    # its own thread: wait for it before synchronizing the card
+    zero_launches()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    zero_launches()
     t0 = time.perf_counter()
     # race=False: the card alone, where a kernel fault raises
     builder = model.checker().gpu_options(race=False, **opts)
@@ -2415,9 +2514,11 @@ def paxos_run(clients: int, path_kernels, target=None, **opts) -> tuple:
     from stateright_tpu_torch.ops import _cuda
 
     model = PackedPaxos(clients)
+    # a raced run's loser may still be capturing its chunk's graph on
+    # its own thread: wait for it before synchronizing the card
+    zero_launches()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    zero_launches()
     builder = model.checker().gpu_options(race=False, **opts)
     if target is not None:
         builder = builder.target_state_count(target)
@@ -2608,6 +2709,287 @@ def paxos_kernel_entries(checks: dict, runs: dict) -> list:
                              "fresh", "ms", "device_ms", "plain_ms")}
                              for lb, c in r["cases"].items()})
         out.append(entry)
+    return out
+
+
+def _abd(*args, **kwargs):
+    from stateright_tpu_torch.examples.abd_packed import PackedAbd
+    return PackedAbd(*args, **kwargs)
+
+
+def _single_copy(*args):
+    from stateright_tpu_torch.examples.single_copy_packed import \
+        PackedSingleCopy
+    return PackedSingleCopy(*args)
+
+
+#: the register family's K1 checks (phase ``kernels`` with a ``model``
+#: key), each at a step its configuration's run launches: the label, the
+#: model, its ``cuda_spec`` name, the rows of the step and the rows
+#: pending at it. The full spaces of 544 and 564 states take the small
+#: step (256 rows, a few dozen pending); the others ``auto_fmax``'s
+#: large step (1,728 rows at abd3's 260 words, 1,055 at tpu_abd2's 331,
+#: 9,954 at single-copy's 79), every row pending but at single-copy 3,
+#: whose large step launches with ~588 of its rows pending (the first
+#: such step with at least 512).
+REGISTER_STEPS = (
+    ("PackedAbd(2, ordered=True)", lambda: _abd(2, ordered=True),
+     "abd_ordered", 256, 48),
+    ("PackedAbd(3, server_count=2, ordered=True, channel_depth=8)",
+     lambda: _abd(3, server_count=2, ordered=True, channel_depth=8),
+     "abd_ordered", 1728, 1728),
+    ("PackedAbd(2)", lambda: _abd(2), "abd", 256, 48),
+    ("PackedAbd(2, server_count=3, ordered=True, channel_depth=8)",
+     lambda: _abd(2, server_count=3, ordered=True, channel_depth=8),
+     "abd_ordered", 1055, 1055),
+    ("PackedSingleCopy(3)", lambda: _single_copy(3), "single_copy", 9954,
+     512),
+)
+#: the label of the widest register row (331 words), where K7, K8 and
+#: K9 are checked too
+WIDE_REGISTER = REGISTER_STEPS[3][0]
+#: K1's model struct of each register instantiation (ptxas's name)
+REGISTER_STRUCTS = {"abd_ordered": "AbdOrderedModel", "abd": "AbdModel",
+                    "single_copy": "SingleCopyModel"}
+
+
+def ordered_active(model):
+    """The edit model's rule (``csrc/abd.cuh`` ``AbdOrderedModel``): the
+    lanes K1 writes are those whose channel holds a message."""
+    def active(frontier):
+        lens = frontier[:, model._net_off:model._net_off + model._n_chan]
+        return (lens != 0).reshape(-1)
+    return active
+
+
+def register_kernels(device) -> tuple:
+    """The register family's K1 instantiations at a mid-search step of
+    each ``REGISTER_STEPS`` configuration, timed, with their launch,
+    registers and spills; and at the widest row (331 words) K7 (after a
+    real gated step), K8 and K9 against their plain versions. Returns
+    the checks by label and the K1 checks' plain halves
+    (:func:`register_plain`), which run at the end of the script."""
+    from stateright_tpu_torch.ops import _cuda
+
+    checks, plain = {}, []
+    sms = _cuda.sm_count(device)
+    for label, make, name, rows, pending in REGISTER_STEPS:
+        model = make()
+        carry = mid_search_carry(model, device, rows=rows, pending=pending)
+        active = ordered_active(model) if name == "abd_ordered" else None
+        finish = check_step(model, carry, rows, reps=10, active=active,
+                            defer=True)
+        geo = _cuda.tile_geometry(rows, model.max_actions, sms)
+        wide, smem = _cuda.k1_launch(name, geo, rows, model.packed_width,
+                                     model.max_actions, sms)
+        usage = kernel_usage("fused_step",
+                             f"expand_kernel[{REGISTER_STRUCTS[name]}]")
+        meta = {"width": model.packed_width, "actions": model.max_actions,
+                "pending": int(carry.q_tail - carry.q_head),
+                "k1_launch": {**wide._asdict(), "smem_bytes": smem},
+                "usage": usage}
+        checks[label] = {}
+        if label == WIDE_REGISTER:
+            for kernel, fn in (
+                    ("append", lambda: check_append(model, carry, rows,
+                                                    reps=10)),
+                    ("history", lambda: check_history(model, carry, rows,
+                                                      reps=10)),
+                    ("hpull", lambda: check_hpull(model, carry, reps=20))):
+                r = fn()
+                checks[label][kernel] = r
+                emit(phase="kernels", kernel=kernel, model=label, **r)
+        plain.append((label, model, name, meta, finish))
+        del carry
+    return checks, plain
+
+
+def register_plain(checks: dict, plain: list) -> None:
+    """The plain halves of :func:`register_kernels`' K1 checks: each
+    plain version on its step's inputs, held against the kernel's
+    outputs, into ``checks``. They run after every trace of the script:
+    at 1,055 rows (tpu_abd2) and 9,954 (single-copy 3) they take tens of
+    seconds (the plain version walks blocks whose rows divide the step:
+    5 x 211 and 2 x 4,977), and the traces taken after such a wait lose
+    their device time."""
+    for label, model, name, meta, finish in plain:
+        step = finish()
+        step.update(meta)
+        usage = meta["usage"]
+        step["checks"].update(
+            k1_no_spill=bool(usage) and usage["spill_store_bytes"] == 0)
+        if not all(step["checks"].values()):
+            raise AssertionError(f"K1-{name} {label}: {step['checks']}")
+        checks[label]["fused_step"] = step
+        emit(phase="kernels", kernel="fused_step", model=label,
+             instantiation=name, params=list(model.cuda_spec()[1]), **step)
+
+
+def register_run(model, path_kernels, want=None, holds=(), found=(),
+                 target=None, race=False, **opts) -> tuple:
+    """One check of a register model through the user entry point,
+    every launch count set to 0 before it: on the card alone
+    (``race=False``: each of ``path_kernels`` must have launched) or
+    raced as by default (``race=None``: no options); ``want`` = (unique,
+    state_count, digest) pins the answer; the properties in ``holds``
+    have no discovery; each of ``found`` has one whose witness replays
+    through the host model to a state where the property's condition
+    says it should end (a ``linearizable`` counterexample's history has
+    no serialization). Returns its measurements and the checker."""
+    import torch
+
+    from stateright_tpu_torch.core import Expectation
+    from stateright_tpu_torch.ops import _cuda
+
+    # a raced run's loser may still be capturing its chunk's graph on
+    # its own thread: wait for it before synchronizing the card
+    zero_launches()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    builder = model.checker()
+    if race is not None:
+        builder = builder.gpu_options(race=race, **opts)
+    if target is not None:
+        builder = builder.target_state_count(target)
+    t0 = time.perf_counter()
+    ck = builder.spawn_gpu().join()
+    wall = time.perf_counter() - t0
+    launches = dict(_cuda.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    prof = ck.profile()
+    checks = {}
+    if race is False:
+        checks["launches"] = all(launches[k] > 0 for k in path_kernels)
+    digest = None
+    if want is not None:
+        digest = fp_digest(ck.generated_fingerprints())
+        checks.update(unique=ck.unique_state_count() == want[0],
+                      generated=ck.state_count() == want[1],
+                      digest=digest == want[2])
+    for name in holds:
+        ck.assert_no_discovery(name)
+        checks[f"holds {name}"] = True
+    witness = {}
+    for name in found:
+        path = ck.assert_any_discovery(name)  # replays or raises
+        prop = model.property(name)
+        checks[f"replay {name}"] = prop.condition(
+            model, path.last_state()) == (
+                prop.expectation == Expectation.SOMETIMES)
+        if name == "linearizable":
+            checks["no serialization"] = \
+                path.last_state().history.serialized_history() is None
+        witness[name] = len(path)
+    keys = ("engine", "syncs", "chunks", "iterations", "small_iterations",
+            "grows", "capacity", "fmax", "seed_s", "loop_s", "sync_s",
+            "capture_s", "captures", "graph_launches", "h_n", "histories",
+            "pulls", "hgrow", "host_eval_s", "host_evals", "vmax", "dmax")
+    label = (f"{type(model).__name__}"
+             f"({', '.join(str(p) for p in model.cache_key()[1:])})")
+    res = {"model": label, "raced": race is None, "options": opts,
+           "target": target, "wall_s": wall,
+           "unique": ck.unique_state_count(), "generated": ck.state_count(),
+           "unique_per_s": ck.unique_state_count() / wall,
+           "digest": digest, "witness_length": witness,
+           **{k: prof[k] for k in keys if k in prof},
+           "max_memory_allocated": peak, "launches": launches,
+           "checks": checks}
+    return res, ck
+
+
+def registers_phase() -> dict:
+    """Phase ``registers``: the register family on the card end to end
+    (see the module docstring). Returns the runs by label."""
+    import torch
+
+    from stateright_tpu_torch.examples.abd_packed import PackedAbd
+    from stateright_tpu_torch.examples.single_copy_packed import \
+        PackedSingleCopy
+
+    path = ("fused_step", "chunk_begin", "append", "history", "hpull")
+    lin, chosen = "linearizable", "value chosen"
+    runs = {}
+
+    def record(key, res, **extra):
+        res.update(extra)
+        emit(phase="registers", **res)
+        runs[key] = res
+        if not all(res["checks"].values()):
+            raise AssertionError(f"registers {key}: {res['checks']}")
+
+    res, _ck = register_run(PackedAbd(2, ordered=True), path,
+                            want=PIN_ABD2_ORDERED, holds=(lin,),
+                            found=(chosen,))
+    record("abd2_ordered", res,
+           workload="BASELINE linearizable-register check 2 ordered")
+    abd3 = dict(server_count=2, ordered=True, channel_depth=8)
+    res, _ck = register_run(PackedAbd(3, **abd3), path, want=PIN_ABD3,
+                            holds=(lin,), found=(chosen,))
+    del _ck
+    # where its device time goes: the same run profiled
+    res["profile"] = device_times(lambda: PackedAbd(3, **abd3).checker()
+                                  .gpu_options(race=False).spawn_gpu()
+                                  .join(), host_top=8)
+    record("abd3", res, workload="bench.py tpu_abd3")
+    res, _ck = register_run(PackedAbd(2), path, want=PIN_ABD2,
+                            holds=(lin,), found=(chosen,))
+    record("abd2", res)
+    res, _ck = register_run(PackedSingleCopy(3), path, want=PIN_SC3,
+                            holds=(lin,), found=(chosen,))
+    record("single_copy3", res,
+           workload="BASELINE single-copy-register check 3")
+    # the counterexample: raced as by default, and on the card alone
+    for race in (None, False):
+        res, _ck = register_run(PackedSingleCopy(4, 2), path,
+                                found=(lin,), race=race)
+        record(("single_copy42", race), res,
+               workload="bench.py race_single_copy")
+    # bench.py's widest row, bounded as there
+    res, _ck = register_run(
+        PackedAbd(2, server_count=3, ordered=True, channel_depth=8), path,
+        holds=(lin,), target=ABD2_TARGET, capacity=1 << 21)
+    res["checks"]["target"] = res["generated"] >= ABD2_TARGET
+    record("abd2_s3", res, workload="bench.py tpu_abd2 (bounded)")
+    del _ck
+    torch.cuda.synchronize()
+    return runs
+
+
+def register_kernel_entries(checks: dict, runs: dict) -> list:
+    """The ``kernels`` line's records of K1's register instantiations,
+    each with its launches on its configuration's run (``abd_ordered``:
+    the full abd3 run; ``abd``: PackedAbd(2); ``single_copy``:
+    PackedSingleCopy(3)) and its checks by configuration; the
+    ``abd_ordered`` headline is abd3's."""
+    main_of = {"abd_ordered": ("PackedAbd(3, server_count=2, ordered=True, "
+                               "channel_depth=8)", "abd3"),
+               "abd": ("PackedAbd(2)", "abd2"),
+               "single_copy": ("PackedSingleCopy(3)", "single_copy3")}
+    instantiation = {lb: n for lb, _, n, *_ in REGISTER_STEPS}
+    out = []
+    for name, (label, run) in main_of.items():
+        by = {lb: c["fused_step"] for lb, c in checks.items()
+              if instantiation[lb] == name}
+        main = by[label]
+        out.append({
+            "name": f"fused_step[{name}]", "route": "cuda",
+            "source": "stateright_tpu_torch/csrc/fused_step.cu",
+            "device_functions": "stateright_tpu_torch/csrc/"
+                                + ("single_copy.cuh" if name == "single_copy"
+                                   else "abd.cuh"),
+            "replaces": "stateright_tpu/ops/fused.py:259",
+            "configuration": "probe=True", "model": label,
+            "launches": runs[run]["launches"]["fused_step"],
+            "max_abs_err": max(r["max_abs_err"] for r in by.values()),
+            "ms": main["ms"], "device_ms": main["device_ms"],
+            "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+            "bound_by": main["bound_by"], "library_ms": None,
+            "by_model": {lb: {k: r[k] for k in (
+                "f", "pending", "width", "lanes", "written", "ms",
+                "device_ms", "plain_ms", "bound_ms", "bound_by",
+                "max_abs_err",
+                "k1_launch", "usage")} for lb, r in by.items()},
+            "status": "ok"})
     return out
 
 
@@ -2855,6 +3237,7 @@ def main() -> int:
     # the Paxos kernels first: their device times come from traces of
     # single launches, which later phases can spoil (PERF.md section 7)
     pax_checks = paxos_kernels(torch.device("cuda", 0))
+    reg_checks, reg_plain = register_kernels(torch.device("cuda", 0))
     # the host race on the main path, and checkpoints on the card
     race_phase()
     ckpt = checkpoint_phase()
@@ -3100,6 +3483,10 @@ def main() -> int:
     dist.destroy_process_group()
     # Paxos on the card end to end (its kernels were checked first)
     pax_runs = paxos_phase(torch.device("cuda", 0))
+    # the register family on the card end to end
+    reg_runs = registers_phase()
+    # the register K1 checks' plain versions, after every trace
+    register_plain(reg_checks, reg_plain)
     # the cold starts last: another process on the card spoils the traces
     cold_start_phase()
 
@@ -3214,6 +3601,17 @@ def main() -> int:
     ]
     kernels += model_kernel_entries(model_steps, model_runs)
     kernels += paxos_kernel_entries(pax_checks, pax_runs)
+    kernels += register_kernel_entries(reg_checks, reg_runs)
+    # K7, K8 and K9 at the widest register row (331 words)
+    for entry in kernels:
+        r = reg_checks[WIDE_REGISTER].get(entry["name"])
+        if entry["name"] in ("append", "history", "hpull"):
+            entry["register_331"] = {
+                "model": WIDE_REGISTER, "launches": reg_runs["abd2_s3"][
+                    "launches"][entry["name"]],
+                **{k: r.get(k) for k in (
+                    "max_abs_err", "ms", "device_ms", "plain_ms",
+                    "bound_ms", "bound_by")}}
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     # the run uses one card, whatever the machine holds

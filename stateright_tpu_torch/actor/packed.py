@@ -28,15 +28,19 @@ Delivery nondeterminism is the action axis: action ``e`` delivers slot
 ``e``; disabled slots, missing recipients and no-op handler results are
 mask bits.
 
+An ordered network keeps one FIFO per declared ``(src, dst)`` channel
+at a fixed position, ``[lengths | channel x depth x message words]``;
+action ``c`` delivers the head of channel ``c``.
+
 The port's step (:meth:`PackedActorModel.packed_step`) is the JAX
 package's ``_packed_step_unordered`` (``stateright_tpu/actor/packed.py``
-:710, with ``_net_consume`` :489 and ``_net_send`` :519) over a batch,
-in int64 holding uint32 values: the plain version of the CUDA device
-functions a model names in ``cuda_spec`` (``csrc/actor_net.cuh``). The
-ordered network, the lossy drop lanes, the device timers and the
-crash/restart lanes are not ported: ``packed_step`` raises
-``NotImplementedError`` for them (A8's next slice); the host engines
-check such models.
+:710, with ``_net_consume`` :489 and ``_net_send`` :519) or
+``_packed_step_ordered`` (:588) over a batch, in int64 holding uint32
+values: the plain version of the CUDA device functions a model names in
+``cuda_spec`` (``csrc/actor_net.cuh``). The lossy drop lanes, the
+device timers and the crash/restart lanes are not ported:
+``packed_step`` raises ``NotImplementedError`` for them (A8's next
+slice); the host engines check such models.
 """
 
 from __future__ import annotations
@@ -448,11 +452,9 @@ class PackedActorModel(ActorModel, PackedModel):
 
     def unported_lanes(self) -> Optional[str]:
         """Why the port's device step cannot run this configuration (the
-        ordered network, lossy drop lanes, device timers, crash/restart
-        lanes: A8's next slice), or ``None``."""
+        lossy drop lanes, device timers, crash/restart lanes: A8's next
+        slice), or ``None``."""
         what = []
-        if self._net_ordered:
-            what.append("the ordered network")
         if self.lossy_network_:
             what.append("the lossy drop lanes")
         if self.device_timers:
@@ -465,23 +467,104 @@ class PackedActorModel(ActorModel, PackedModel):
                 "slice of the port (ROADMAP.md); check this model with "
                 "spawn_bfs() or spawn_dfs()")
 
+    def packed_boundary(self, words):
+        """Batched ``within_boundary`` of the children ``words`` (int64
+        ``[N, W]``): ``bool[N]``, True = keep (default: every child)."""
+        return torch.ones((words.shape[0],), dtype=torch.bool,
+                          device=words.device)
+
     def packed_step(self, words):
         """Successors of a ``[F, W]`` batch: ``(succ int64[F, A, W], valid
         bool[F, A], overflow bool[F, A])``, the JAX package's
-        ``_packed_step_unordered`` lane for lane (an overflowing lane is
-        poisoned with ``0xDEADBEEF`` and invalid)."""
+        ``_packed_step_unordered`` or ``_packed_step_ordered`` lane for
+        lane (an overflowing lane is poisoned with ``0xDEADBEEF`` and
+        invalid)."""
         reason = self.unported_lanes()
         if reason is not None:
             raise NotImplementedError(reason)
         w = u64(words)
         f, width = w.shape
-        e_cap, sw = self.net_capacity, self._sw
-        n = f * e_cap
-        rows = w[:, None, :].expand(f, e_cap, width).reshape(n, width)
-        act = torch.arange(e_cap, device=w.device).repeat(f)
-        succ, valid, ovf = self._step_lanes(rows, act)
-        return (succ.reshape(f, e_cap, width), valid.reshape(f, e_cap),
-                ovf.reshape(f, e_cap))
+        a = self.max_actions
+        rows = w[:, None, :].expand(f, a, width).reshape(f * a, width)
+        act = torch.arange(a, device=w.device).repeat(f)
+        lanes = (self._step_lanes_ordered if self._net_ordered
+                 else self._step_lanes)
+        succ, valid, ovf = lanes(rows, act)
+        return (succ.reshape(f, a, width), valid.reshape(f, a),
+                ovf.reshape(f, a))
+
+    def _step_lanes_ordered(self, rows, c):
+        """One delivery per lane on the ordered network: ``rows`` int64
+        ``[N, W]``, ``c`` the channel whose head is delivered ``[N]``.
+        The head is popped (the channel shifted left, a zero entering at
+        its tail, its length less one), then each send appends at the
+        tail of the channel ``chan_lut[sender * A + recipient]``; a full
+        channel, an undeclared one or a recipient past the actors is an
+        overflow. An empty channel's lane delivers its zero head: its
+        length wraps to ``0xFFFFFFFF`` in the (invalid) child, as in the
+        JAX package."""
+        aw, mw = self._aw, self.msg_width
+        d, n_chan = self.channel_depth, self._n_chan
+        hw = self.history_width
+        n = rows.shape[0]
+        dev = rows.device
+        n_actors = len(self.actor_widths)
+        lane = torch.arange(n, device=dev)
+        chan_src = torch.from_numpy(self._chan_src.astype(np.int64)).to(dev)
+        chan_dst = torch.from_numpy(self._chan_dst.astype(np.int64)).to(dev)
+        chan_lut = torch.from_numpy(self._chan_lut.astype(np.int64)).to(dev)
+        actors = rows[:, :aw]
+        lens = rows[:, self._net_off:self._msgs_off]
+        msgs = rows[:, self._msgs_off:self._timer_off].reshape(
+            n, n_chan, d, mw)
+        rest = rows[:, self._timer_off:self._hist_off]  # timer, crashes
+        hist = rows[:, self._hist_off:] if hw else None
+        src, dst = chan_src[c], chan_dst[c]
+        ln = lens[lane, c]
+        head = msgs[lane, c, 0]
+        new_actors, changed, sends = self.packed_deliver(actors, src, dst,
+                                                         head)
+        assert len(sends) == self.max_sends
+        any_send = torch.zeros_like(changed)
+        for _sdst, _smsg, svalid in sends:
+            any_send = any_send | svalid
+        valid = (ln > 0) & (changed | any_send)
+        # pop the head: the channel shifted left, a zero at its tail
+        csel = torch.arange(n_chan, device=dev)[None, :] == c[:, None]
+        shifted = torch.cat([msgs[:, :, 1:], torch.zeros_like(
+            msgs[:, :, :1])], dim=2)
+        msgs = torch.where(csel[:, :, None, None], shifted, msgs)
+        lens = torch.where(csel, (lens - 1) & M32, lens)
+        if hw:
+            hist = self.packed_record_in(hist, src, dst, head)
+        overflow = torch.zeros_like(valid)
+        slot = torch.arange(d, device=dev)[None, :]
+        for sdst, smsg, svalid in sends:
+            if hw:
+                rec = self.packed_record_out(hist, dst, sdst, smsg)
+                hist = torch.where(svalid[:, None], rec, hist)
+            flat = torch.clamp(dst * n_actors + sdst,
+                               max=n_actors * n_actors - 1)
+            cd = chan_lut[flat]
+            to = torch.arange(n_chan, device=dev)[None, :] == cd[:, None]
+            pos = torch.where(to, lens, 0).sum(dim=1)
+            ovf = svalid & ((pos >= d) | (sdst >= n_actors) | (cd < 0))
+            put = svalid & ~ovf
+            at = to[:, :, None] & (slot == torch.clamp(pos, max=d - 1)[
+                :, None])[:, None, :] & put[:, None, None]
+            msgs = torch.where(at[:, :, :, None], smsg[:, None, None, :],
+                               msgs)
+            lens = torch.where(to & put[:, None], (lens + 1) & M32, lens)
+            overflow = overflow | ovf
+        parts = [new_actors, lens, msgs.reshape(n, -1), rest]
+        if hw:
+            parts.append(hist)
+        row_out = torch.cat(parts, dim=1) & M32
+        overflow = valid & overflow
+        row_out = torch.where(overflow[:, None],
+                              torch.full_like(row_out, 0xDEADBEEF), row_out)
+        valid = valid & ~overflow & self.packed_boundary(row_out)
+        return row_out, valid, overflow
 
     def _step_lanes(self, rows, e):
         """One delivery per lane: ``rows`` int64 ``[N, W]``, ``e`` the
@@ -530,7 +613,8 @@ class PackedActorModel(ActorModel, PackedModel):
         overflow = valid & overflow
         row_out = torch.where(overflow[:, None],
                               torch.full_like(row_out, 0xDEADBEEF), row_out)
-        return row_out, valid & ~overflow, overflow
+        valid = valid & ~overflow & self.packed_boundary(row_out)
+        return row_out, valid, overflow
 
     # --- fingerprint ------------------------------------------------------
     def fingerprint(self, state: ActorModelState) -> int:

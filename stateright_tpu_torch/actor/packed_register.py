@@ -13,7 +13,9 @@ packs all three once — client state slots, register message codecs, the
 tester's packed word layout with its device-side record hooks, the
 one-hot ``packed_deliver`` dispatch, and the shared device properties
 (host-evaluated ``linearizable`` + device-scanned ``value chosen``) — so
-a protocol only supplies its server packing and its batched server step. ``PackedPaxos`` and ``PackedAbd`` are the in-tree instances.
+a protocol only supplies its server packing and its batched server
+step. ``PackedPaxos``, ``PackedAbd`` and ``PackedSingleCopy`` are the
+in-tree instances.
 
 Clients are ``put_count=1`` (one put then one get), matching the
 reference examples; history packing relies on the resulting <=2
@@ -129,13 +131,78 @@ class PackedRegisterModel(PackedActorModel):
             # declare the flows the register protocol actually uses —
             # client<->server and server<->server; client<->client FIFOs
             # would waste ~30% row width (and expansion lanes)
-            servers = range(server_count)
-            clients = range(server_count, server_count + client_count)
-            self.ordered_channels = (
-                [(c, s) for c in clients for s in servers]
-                + [(s, c) for s in servers for c in clients]
-                + [(s, t) for s in servers for t in servers if s != t])
+            self.ordered_channels = self.register_channels()
         self.finalize_layout()
+
+    def register_channels(self) -> List[tuple]:
+        """The ordered channels of a register protocol, in this order:
+        client -> server, server -> client, server -> server (``s !=
+        t``), each by sender, then recipient (``csrc/actor_net.cuh``
+        ``reg_chan`` computes the index from the pair)."""
+        s, c = self.server_count, self.client_count
+        servers = range(s)
+        clients = range(s, s + c)
+        return ([(x, y) for x in clients for y in servers]
+                + [(x, y) for x in servers for y in clients]
+                + [(x, y) for x in servers for y in servers if x != y])
+
+    #: the batched hooks whose CUDA device functions run in place of a
+    #: register model's own on the card
+    CUDA_HOOKS = ("packed_deliver", "_server_step", "_client_step",
+                  "packed_record_in", "packed_record_out",
+                  "packed_boundary", "encode_server", "encode_internal",
+                  "encode_msg", "encode_history")
+
+    def check_cuda_register(self, base: type, header: str,
+                            symmetry: bool, name: str,
+                            ordered: bool = False) -> None:
+        """Refuse this model on the card unless ``csrc/<header>``
+        (written for ``base``) computes what it does: refused are
+        symmetry (no device representative), the unported lanes, the
+        duplicating network, the ordered network unless ``ordered`` (and
+        then any channels but :meth:`register_channels`, or more than 32
+        of them), more than 7 clients, 4 servers or 16 network slots,
+        more packed words than the instantiation ``name`` takes
+        (``ops/_cuda.py`` ``row_words``), and a subclass that overrides
+        one of :data:`CUDA_HOOKS` or what ``check_cuda_model`` checks."""
+        from ..models.packed import check_cuda_model
+        from ..ops._cuda import row_words
+        cls = type(self).__name__
+        max_width = row_words(name)
+        if symmetry:
+            raise NotImplementedError(f"{cls} has no packed_representative")
+        reason = self.unported_lanes()
+        if reason is not None:
+            raise NotImplementedError(reason)
+        if self._net_dup:
+            raise NotImplementedError(
+                f"csrc/{header} runs the non-duplicating network only")
+        if self._net_ordered and not ordered:
+            raise NotImplementedError(
+                f"csrc/{header} has no step on the ordered network; check "
+                f"this {cls} with spawn_bfs() or on the CPU "
+                "(gpu_options(device='cpu'))")
+        if self._net_ordered and (
+                [tuple(ch) for ch in self.ordered_channels]
+                != self.register_channels() or self._n_chan > 32):
+            raise NotImplementedError(
+                f"csrc/{header} runs the register protocol's own ordered "
+                "channels (register_channels(), at most 32)")
+        if (self.client_count > 7 or self.server_count > 4
+                or (not self._net_ordered and self.net_capacity > 16)
+                or self.packed_width > max_width):
+            raise NotImplementedError(
+                f"csrc/{header} takes at most 7 clients, 4 servers, 16 "
+                f"network slots and {max_width} packed words")
+        for name in self.CUDA_HOOKS:
+            if getattr(type(self), name) is not getattr(base, name):
+                raise NotImplementedError(
+                    f"{cls} overrides {name}; the CUDA step kernel runs "
+                    f"{base.__name__}'s own (csrc/{header})")
+        check_cuda_model(self, base, header,
+                         (("linearizable", Expectation.ALWAYS),
+                          ("value chosen", Expectation.SOMETIMES)),
+                         self.packed_width, self.max_actions, symmetry)
 
     # --- subclass interface ----------------------------------------------
     def encode_server(self, state: Any) -> List[int]:
@@ -305,17 +372,21 @@ class PackedRegisterModel(PackedActorModel):
     def packed_properties(self, words):
         """``bool[F, 2]``: index 0 ``linearizable`` is host-evaluated
         (neutral True); ``value chosen`` scans the deliverable envelopes
-        (every occupied slot of the multiset) for a ``GetOk`` of a
-        non-null value."""
+        (every occupied slot of the multiset; the channel heads of an
+        ordered network) for a ``GetOk`` of a non-null value."""
         from ..ops.words import u64
         w = u64(words)
         if self._net_ordered:
-            raise NotImplementedError(self.unported_lanes())
-        slots = w[:, self._net_off:self._timer_off].reshape(
-            w.shape[0], self.net_capacity, self._sw)
-        hdr, m0 = slots[:, :, 0], slots[:, :, 2]
-        chosen = (((hdr >> 16) & 1) != 0) & ((m0 >> 24) == T_GETOK) \
-            & ((m0 & 0xF) != 0)
+            lens = w[:, self._net_off:self._msgs_off]
+            m0 = w[:, self._msgs_off:self._timer_off].reshape(
+                w.shape[0], self._n_chan, -1)[:, :, 0]
+            live = lens > 0
+        else:
+            slots = w[:, self._net_off:self._timer_off].reshape(
+                w.shape[0], self.net_capacity, self._sw)
+            live = ((slots[:, :, 0] >> 16) & 1) != 0
+            m0 = slots[:, :, 2]
+        chosen = live & ((m0 >> 24) == T_GETOK) & ((m0 & 0xF) != 0)
         return torch.stack([torch.ones_like(chosen[:, 0]),
                             chosen.any(dim=1)], dim=1)
 

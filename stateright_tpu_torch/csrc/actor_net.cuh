@@ -1,21 +1,24 @@
 // The packed actor system's device functions shared by the register
-// protocols (Paxos here; ABD and single-copy in A8's next slice): the
-// unordered non-duplicating network of stateright_tpu_torch/actor/
-// packed.py (net_consume, net_send), the register client's step and the
+// protocols (csrc/paxos.cuh, abd.cuh, single_copy.cuh): the unordered
+// non-duplicating network of stateright_tpu_torch/actor/packed.py
+// (net_consume, net_send), the ordered network's FIFO channels
+// (reg_chan, OrderedEdit), the register client's step and the
 // linearizability history's record hooks of actor/packed_register.py
-// (_client_step, packed_record_in, packed_record_out). A wide model
-// writes its child through step_common.cuh's RowOut.
+// (_client_step, packed_record_in, packed_record_out), and the two steps
+// a register model runs: register_step_unordered, which writes the child
+// through step_common.cuh's RowOut, and register_edit_ordered with
+// register_child_word, which describe the child as the row plus an edit.
 //
 // They compute what the JAX package's _packed_step_unordered
 // (stateright_tpu/actor/packed.py:710, with _net_consume :489 and
-// _net_send :519) and the register hooks
+// _net_send :519), _packed_step_ordered (:588) and the register hooks
 // (stateright_tpu/actor/packed_register.py:363-447) compute for one
 // (state, action) lane, not the vmapped mask arithmetic: the child's
-// network lives in registers as four columns of kMaxSlots words (hdr,
-// count, msg[0], msg[1]), every loop over it is unrolled with static
-// indices and guarded by the runtime slot count, so nothing goes to
-// local memory; the history (1 + 3 C words) lives in registers the
-// same way.
+// unordered network lives in registers as four columns of kMaxSlots
+// words (hdr, count, msg[0], msg[1]), every loop over it is unrolled
+// with static indices and guarded by the runtime slot count, so nothing
+// goes to local memory; the history (1 + 3 C words) lives in registers
+// the same way.
 #pragma once
 
 #include <cstdint>
@@ -263,6 +266,301 @@ __device__ __forceinline__ void record_in(Hist& x, int S, int C,
     }
   }
   if (invalidate) x.h[0] &= ~1u;
+}
+
+// The register dispatch (packed_register.py packed_deliver) of a
+// delivery of (m0, m1) from src to dst on row w: the server step on the
+// destination server's words (the last server's for a client), the
+// client step on the destination client's word (clipped), each kept
+// where the destination is of its kind. M gives C, S, sw (a server's
+// words), M::kMaxSW, M::kMaxSends, m.n_sends() (its handlers' sends) and
+// m.server_step(sid, sv, src, m0, m1, nw, sends). Out: the
+// destination's first word (doff) and its new words (nw, dn of them),
+// whether it changed, and its sends (the client's in slot 0).
+template <class M>
+struct Delivery {
+  uint32_t nw[M::kMaxSW];
+  Send sends[M::kMaxSends];
+  int doff, dn;
+  bool changed, any_send;
+};
+
+template <class M>
+__device__ __forceinline__ void register_dispatch(const M& m,
+                                                  const uint32_t* w,
+                                                  uint32_t src, uint32_t dst,
+                                                  uint32_t m0, uint32_t m1,
+                                                  Delivery<M>& d) {
+  const bool is_server = dst < (uint32_t)m.S;
+  const uint32_t sidx = min(dst, (uint32_t)(m.S - 1));
+  const int soff = (int)sidx * m.sw;
+  uint32_t sv[M::kMaxSW];
+#pragma unroll
+  for (int j = 0; j < M::kMaxSW; ++j) sv[j] = j < m.sw ? w[soff + j] : 0u;
+  const bool s_ch = m.server_step(sidx, sv, src, m0, m1, d.nw, d.sends);
+  const int cidx = min(max((int)dst - m.S, 0), m.C - 1);
+  const int coff = m.S * m.sw + cidx;
+  bool c_ch;
+  Send c_send;
+  const uint32_t ncw =
+      client_step((uint32_t)(cidx + m.S), w[coff], m0, m.S, c_ch, c_send);
+  d.changed = is_server ? s_ch : c_ch;
+  d.any_send = false;
+#pragma unroll
+  for (int k = 0; k < M::kMaxSends; ++k) {
+    if (!is_server) d.sends[k] = k == 0 ? c_send : no_send();
+    d.any_send |= k < m.n_sends() && d.sends[k].valid;
+  }
+  if (!is_server) {
+    d.nw[0] = ncw;
+#pragma unroll
+    for (int j = 1; j < M::kMaxSW; ++j) d.nw[j] = 0u;
+  }
+  d.doff = is_server ? soff : coff;
+  d.dn = is_server ? m.sw : 1;
+}
+
+// A register model's child on the unordered network (slot e of row w,
+// in shared memory) into out, word by word (step_common.cuh RowOut);
+// returns whether it is a valid successor, ovf whether it overflowed the
+// network (then its words are kPoison and it is invalid). M adds E,
+// aw, net_off, timer_off, hist_off and hw to what register_dispatch
+// reads.
+template <class M, class Out>
+__device__ __forceinline__ bool register_step_unordered(const M& m,
+                                                        const uint32_t* w,
+                                                        int e, Out& out,
+                                                        bool& ovf) {
+  const int E = m.E;
+  const uint32_t* slot = w + m.net_off + 4 * e;
+  const uint32_t hdr = slot[0], m0 = slot[2], m1 = slot[3];
+  const bool occupied = (hdr & kOcc) != 0u;
+  const uint32_t src = (hdr >> 8) & 0xFFu, dst = hdr & 0xFFu;
+  Delivery<M> d;
+  register_dispatch(m, w, src, dst, m0, m1, d);
+  const bool valid = occupied && dst < (uint32_t)(m.S + m.C) &&
+                     (d.changed || d.any_send);
+
+  // the network and the history: consume the slot, record the
+  // delivery, then each send's invocation record and network insert
+  Net net;
+  net_load(net, w + m.net_off, E);
+  net_consume(net, e, E);
+  Hist hist;
+  hist_load(hist, w + m.hist_off, m.hw);
+  record_in(hist, m.S, m.C, dst, m0);
+  bool overflow = false;
+#pragma unroll
+  for (int k = 0; k < M::kMaxSends; ++k) {
+    const Send& sd = d.sends[k];
+    if (k < m.n_sends() && sd.valid) {  // an invalid send changes nothing
+      record_out(hist, m.S, m.C, dst, sd.m0);
+      overflow |= net_send(net, dst, sd.dst, sd.m0, sd.m1, true, E);
+    }
+  }
+  const bool poison = valid && overflow;
+  ovf = poison;
+
+  // the child, word by word
+  for (int k = 0; k < m.aw; ++k) {
+    uint32_t v = w[k];
+#pragma unroll
+    for (int j = 0; j < M::kMaxSW; ++j)
+      if (j < d.dn && k == d.doff + j) v = d.nw[j];
+    out.put(k, poison ? kPoison : v);
+  }
+#pragma unroll
+  for (int j = 0; j < kMaxSlots; ++j) {
+    if (j < E) {
+      const int k = m.net_off + 4 * j;
+      out.put(k, poison ? kPoison : net.hdr[j]);
+      out.put(k + 1, poison ? kPoison : net.cnt[j]);
+      out.put(k + 2, poison ? kPoison : net.m0[j]);
+      out.put(k + 3, poison ? kPoison : net.m1[j]);
+    }
+  }
+  out.put(m.timer_off, poison ? kPoison : w[m.timer_off]);
+#pragma unroll
+  for (int i = 0; i < kMaxHist; ++i)
+    if (i < m.hw) out.put(m.hist_off + i, poison ? kPoison : hist.h[i]);
+  return valid && !poison;
+}
+
+// --- the ordered network: one FIFO per register channel ---------------
+//
+// A register model's channels (packed_register.py register_channels):
+// client -> server (C * S), server -> client (S * C), server -> server
+// without self-channels (S * (S - 1)), each by sender, then recipient.
+// The row holds their lengths, then depth entries of two message words
+// per channel.
+
+// The channel of (src, dst), or -1 when the model declares none (a
+// client to a client, a server to itself, an actor past the C + S).
+__device__ __forceinline__ int reg_chan(uint32_t src, uint32_t dst, int C,
+                                        int S) {
+  const uint32_t s = (uint32_t)S, n = (uint32_t)(S + C);
+  if (src >= n || dst >= n) return -1;
+  if (src >= s && dst < s) return (int)((src - s) * s + dst);
+  if (src < s && dst >= s) return C * S + (int)(src * (uint32_t)C + dst - s);
+  if (src < s && dst < s && src != dst)
+    return 2 * C * S + (int)(src * (s - 1u) + (dst < src ? dst : dst - 1u));
+  return -1;
+}
+
+// The sender and recipient of channel ch (the inverse of reg_chan).
+__device__ __forceinline__ void reg_chan_ends(int ch, int C, int S,
+                                              uint32_t& src,
+                                              uint32_t& dst) {
+  if (ch < C * S) {
+    src = (uint32_t)(S + ch / S);
+    dst = (uint32_t)(ch % S);
+  } else if (ch < 2 * C * S) {
+    const int r = ch - C * S;
+    src = (uint32_t)(r / C);
+    dst = (uint32_t)(S + r % C);
+  } else {
+    const int r = ch - 2 * C * S, s1 = S - 1;
+    src = (uint32_t)(r / s1);
+    const uint32_t t = (uint32_t)(r % s1);
+    dst = t < src ? t : t + 1u;
+  }
+}
+
+// A lane's child on the ordered network as an edit of the row: the
+// destination's new words, the history, the popped channel and the
+// appended entries (at most kMaxSends), or the poison of an
+// overflowing child. It lives in shared memory, one per thread, and the
+// lanes of a warp read one another's (register_child_word).
+template <int kMaxSW, int kMaxSends>
+struct OrderedEdit {
+  uint32_t actor[kMaxSW];  // the destination's words from aoff, an of them
+  uint32_t hist[kMaxHist];
+  uint32_t am0[kMaxSends], am1[kMaxSends];  // the appended messages
+  int aoff, an, pop, napp, poison;
+  int achan[kMaxSends], apos[kMaxSends];  // their channels and entries
+};
+
+// The edit of the lane that delivers the head of channel c of row w (in
+// shared memory) into ed; returns whether the child is a valid
+// successor, ovf whether it overflowed (a send into a full channel or
+// one the model does not declare: the child is poisoned and invalid).
+// An empty channel's lane is never asked for (its child is invalid and
+// K1 does not write it). M adds D (the depth), lens_off, msgs_off and
+// hist_off and hw to what register_dispatch reads.
+template <class M, class Edit>
+__device__ __forceinline__ bool register_edit_ordered(const M& m,
+                                                      const uint32_t* w,
+                                                      int c, Edit& ed,
+                                                      bool& ovf) {
+  uint32_t src, dst;
+  reg_chan_ends(c, m.C, m.S, src, dst);
+  const uint32_t ln = w[m.lens_off + c];
+  const uint32_t* head = w + m.msgs_off + 2 * m.D * c;
+  const uint32_t m0 = head[0], m1 = head[1];
+  Delivery<M> d;
+  register_dispatch(m, w, src, dst, m0, m1, d);
+  const bool valid = ln > 0u && (d.changed || d.any_send);
+  Hist hist;
+  hist_load(hist, w + m.hist_off, m.hw);
+  record_in(hist, m.S, m.C, dst, m0);
+  bool overflow = false;
+  int napp = 0;
+  int achan[M::kMaxSends];  // each send's channel (-1: none appended)
+#pragma unroll
+  for (int k = 0; k < M::kMaxSends; ++k) {
+    achan[k] = -1;
+    const Send& sd = d.sends[k];
+    if (k < m.n_sends() && sd.valid) {
+      record_out(hist, m.S, m.C, dst, sd.m0);
+      const int cd = reg_chan(dst, sd.dst, m.C, m.S);
+      // the channel's length after the pop and the appends before
+      uint32_t pos =
+          cd >= 0 ? w[m.lens_off + cd] - (cd == c ? 1u : 0u) : 0u;
+#pragma unroll
+      for (int j = 0; j < k; ++j) pos += achan[j] == cd ? 1u : 0u;
+      const bool bad = cd < 0 || pos >= (uint32_t)m.D;
+      overflow |= bad;
+      if (!bad) {
+        achan[k] = cd;
+        ed.am0[napp] = sd.m0;
+        ed.am1[napp] = sd.m1;
+        ed.achan[napp] = cd;
+        ed.apos[napp] = (int)pos;
+        ++napp;
+      }
+    }
+  }
+  const bool poison = valid && overflow;
+  ovf = poison;
+  ed.poison = poison;
+  ed.pop = c;
+  ed.napp = napp;
+  ed.aoff = d.doff;
+  ed.an = d.dn;
+#pragma unroll
+  for (int j = 0; j < M::kMaxSW; ++j) ed.actor[j] = d.nw[j];
+#pragma unroll
+  for (int i = 0; i < kMaxHist; ++i) ed.hist[i] = hist.h[i];
+  return valid && !poison;
+}
+
+// Word k of the child that edit ed makes of row w: the destination's new
+// words, the channels' lengths (the popped one less one, each append
+// one more), their entries (the popped channel shifted by one entry, a
+// zero entering at its tail; the appended entries), the history, else
+// the row's word.
+template <class M, class Edit>
+__device__ __forceinline__ uint32_t register_child_word(const M& m,
+                                                        const uint32_t* w,
+                                                        const Edit& ed,
+                                                        int k) {
+  if (ed.poison) return kPoison;
+  if (k < m.lens_off)
+    return k >= ed.aoff && k < ed.aoff + ed.an ? ed.actor[k - ed.aoff]
+                                               : w[k];
+  if (k < m.msgs_off) {
+    const int ch = k - m.lens_off;
+    uint32_t v = w[k] - (ch == ed.pop ? 1u : 0u);
+    for (int a = 0; a < ed.napp; ++a) v += ed.achan[a] == ch ? 1u : 0u;
+    return v;
+  }
+  if (k < m.timer_off) {
+    const int r = k - m.msgs_off, ch = r / (2 * m.D);
+    const int j = (r >> 1) - ch * m.D;
+    for (int a = 0; a < ed.napp; ++a)
+      if (ed.achan[a] == ch && ed.apos[a] == j)
+        return (r & 1) ? ed.am1[a] : ed.am0[a];
+    if (ch == ed.pop) return j < m.D - 1 ? w[k + 2] : 0u;
+    return w[k];
+  }
+  if (k < m.hist_off) return w[k];
+  return ed.hist[k - m.hist_off];
+}
+
+// "value chosen" on the ordered network: some channel's head is a GetOk
+// of a non-null value.
+__device__ __forceinline__ bool value_chosen_ordered(const uint32_t* w,
+                                                     int lens_off,
+                                                     int msgs_off, int nchan,
+                                                     int D) {
+  bool chosen = false;
+  for (int ch = 0; ch < nchan; ++ch) {
+    const uint32_t m0 = w[msgs_off + 2 * D * ch];
+    chosen |= w[lens_off + ch] != 0u && (m0 >> 24) == T_GETOK &&
+              (m0 & 0xFu) != 0u;
+  }
+  return chosen;
+}
+
+// The channels with a message (bit ch): the lanes whose child is not
+// the row's junk (an empty channel's lane is invalid).
+__device__ __forceinline__ uint32_t nonempty_channels(const uint32_t* w,
+                                                      int lens_off,
+                                                      int nchan) {
+  uint32_t mask = 0u;
+  for (int ch = 0; ch < nchan; ++ch)
+    mask |= (w[lens_off + ch] != 0u ? 1u : 0u) << ch;
+  return mask;
 }
 
 }  // namespace actor

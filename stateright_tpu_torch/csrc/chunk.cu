@@ -132,12 +132,16 @@ constexpr int kBatch = 8;
 // threads of chunk_begin_kernel
 constexpr int kBeginThreads = 128;
 // the most counter-block and stats-vector words the kernels stage in
-// shared memory (srt_append and srt_chunk_begin check them)
-constexpr int kMaxCtr = 256;
+// shared memory (srt_append and srt_chunk_begin check them): the block
+// holds the most recent queue row, up to 352 + 3 words
+constexpr int kMaxCtr = 512;
 constexpr int kMaxStats = 64;
 // the words of the most recent queue row K7's tail holds per lane of its
-// warp (rows of up to 32 * kRecentWords - 3 words)
+// warp in registers (rows of up to 32 * kRecentWords - 3 words; a wider
+// row's other words are copied after the update); the widest row K7
+// takes
 constexpr int kRecentWords = 5;
+constexpr int kMaxRowWords = 352;
 
 // A block's status word: the epoch of the K7 launch that wrote it (high
 // 32 bits), a flag (2 bits) and a count of rows (30 bits): its tile's
@@ -457,7 +461,10 @@ __device__ __forceinline__ ColumnSrc log_column(const ChunkArgs& c, int col,
 // t / cols, t / cols + nthreads / cols, ..., so neighbouring threads store
 // neighbouring words, the column's source is fixed for the whole walk (no
 // branch per word), and each thread has up to kBatch words of each span
-// in flight before it stores them. Row i is lane t0 + s_off[i] of
+// in flight before it stores them. Queue rows wider than the threads
+// (W + 3 > nthreads: the ordered register rows of up to 352 words) are
+// written as one run of n (W + 3) words instead, thread t taking words
+// t, t + nthreads, ..., kBatch in flight. Row i is lane t0 + s_off[i] of
 // frontier row r0 + s_row[i].
 __device__ __forceinline__ void write_rows(
     const ChunkArgs& c, int t, int nthreads, int n, int t0, int r0,
@@ -468,6 +475,27 @@ __device__ __forceinline__ void write_rows(
   const int qrow = t < qstride * qc ? t / qc : n;  // n: no column
   const int lrow = t < lstride * lc ? t / lc : n;
   const int qcol = t - (t / qc) * qc, lcol = t - (t / lc) * lc;
+  if (qstride == 0) {  // the n rows' words in order, kBatch in flight
+    const int total = n * qc;
+    uint32_t* dst = c.q + ((long long)qbase + excl) * qc;
+    for (int base = t; base < total; base += nthreads * kBatch) {
+      uint32_t v[kBatch];
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) {
+        const int x = base + u * nthreads, i = x / qc, col = x - i * qc;
+        if (x < total) {
+          const ColumnSrc src = queue_column(c, col);
+          v[u] = src.base[(long long)(t0 + s_off[i]) * src.mul_l +
+                          (long long)(r0 + s_row[i]) * src.mul_r + src.add];
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) {
+        const int x = base + u * nthreads;
+        if (x < total) dst[x] = v[u];
+      }
+    }
+  }
   const ColumnSrc qs = queue_column(c, qcol);
   const ColumnSrc ls = log_column(c, lcol, head);
   uint32_t* qd = c.q + ((long long)qbase + excl) * qc + qcol;
@@ -611,6 +639,10 @@ __device__ __forceinline__ void append_tail(const ChunkArgs& c, int size,
     const int w = lane + 32 * u;
     if (w < W + 3 && total > 0) s_ctr[c.recent + w] = (int)recent[u];
   }
+  for (int w = lane + 32 * kRecentWords; w < W + 3 && total > 0; w += 32)
+    s_ctr[c.recent + w] = (int)(w < W ? c.flat[(long long)last * W + w]
+                                : w == W ? c.ebits[last / c.A]
+                                         : (w == W + 1 ? c.chi : c.clo)[last]);
   __syncwarp();
   commit_counters(c, lane, 32, s_ctr);
 }
@@ -755,7 +787,7 @@ int srt_append(const ChunkArgs* c) {
       c->status == nullptr || c->ticket == nullptr ||
       (long long)c->f_large * c->A > (long long)kValueMask ||
       ctr_len(*c) > kMaxCtr || c->stats_len > kMaxStats || c->P > 31 ||
-      c->W + 3 > 32 * kRecentWords ||
+      c->W > kMaxRowWords ||
       (t != 1024 && t != 4096))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(c->stream);

@@ -13,10 +13,14 @@
 // vmaps any packed model's step; here K1 is a template over the model's
 // device functions, instantiated for TwoPhaseSys (twopc.cuh, both
 // flags), PackedLinearEquation (lineq.cuh), Increment (increment.cuh,
-// both flags), IncrementLock (increment_lock.cuh) and PackedPaxos
+// both flags), IncrementLock (increment_lock.cuh), PackedPaxos
 // (paxos.cuh, a wide model: K1 keeps its 96-word rows in shared memory,
 // stages each child there and writes each warp's children with
-// coalesced stores, step_common.cuh WideRow); K2 and
+// coalesced stores, step_common.cuh WideRow), PackedSingleCopy
+// (single_copy.cuh, wide) and PackedAbd (abd.cuh: wide on the unordered
+// network; on the ordered one an edit model of up to 352 words, whose
+// warps write each child from the shared row and the lane's edit,
+// step_common.cuh EditRow); K2 and
 // K3 do not depend on the model. Built with nvcc for
 // sm_90a into a shared library with a plain C interface and driven over
 // ctypes by stateright_tpu_torch/ops/_cuda.py. K4 replaces the XLA insert
@@ -121,10 +125,12 @@
 // the strided stores, not the bytes, set K1's time (7-10x its byte
 // bound on an H100, PERF.md).
 
+#include "abd.cuh"
 #include "increment.cuh"
 #include "increment_lock.cuh"
 #include "lineq.cuh"
 #include "paxos.cuh"
+#include "single_copy.cuh"
 #include "step_common.cuh"
 #include "twopc.cuh"
 
@@ -314,6 +320,39 @@ int srt_fused_step_paxos(const StepArgs* args, int clients, int servers,
   if (!m.ok() || args->A != m.max_actions())
     return (int)cudaErrorInvalidValue;
   return launch_step<PaxosModel, false>(m, *args);
+}
+
+// One fused step for PackedSingleCopy(clients, servers, slots)
+// (single_copy.cuh: at most 7 clients, 4 servers, 16 slots and 128
+// words; the wide K1).
+int srt_fused_step_single_copy(const StepArgs* args, int clients,
+                               int servers, int slots) {
+  const SingleCopyModel m(clients, servers, slots);
+  if (!m.ok() || args->A != m.max_actions())
+    return (int)cudaErrorInvalidValue;
+  return launch_step<SingleCopyModel, false>(m, *args);
+}
+
+// One fused step for PackedAbd(clients, servers, slots) on the unordered
+// network (abd.cuh AbdModel: at most 7 clients, 4 servers, 16 slots and
+// 128 words; the wide K1).
+int srt_fused_step_abd(const StepArgs* args, int clients, int servers,
+                       int slots) {
+  const AbdModel m(clients, servers, slots);
+  if (!m.ok() || args->A != m.max_actions())
+    return (int)cudaErrorInvalidValue;
+  return launch_step<AbdModel, false>(m, *args);
+}
+
+// One fused step for PackedAbd(clients, servers, ordered=True,
+// channel_depth=depth) (abd.cuh AbdOrderedModel: at most 7 clients, 4
+// servers, 32 channels and 352 words; the edit K1).
+int srt_fused_step_abd_ordered(const StepArgs* args, int clients,
+                               int servers, int depth) {
+  const AbdOrderedModel m(clients, servers, depth);
+  if (!m.ok() || args->A != m.max_actions())
+    return (int)cudaErrorInvalidValue;
+  return launch_step<AbdOrderedModel, false>(m, *args);
 }
 
 // One fused step for IncrementLock(n), 1 <= n <= 16.

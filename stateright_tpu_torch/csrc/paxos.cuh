@@ -41,6 +41,7 @@ struct PaxosModel {
   static constexpr bool kWideRow = true;
   static constexpr int kMaxServers = 4;
   static constexpr int kMaxSW = 3 + kMaxServers;  // a server's words
+  static constexpr int kMaxSends = kMaxServers;   // a handler's sends
 
   // protocol-internal message tags (paxos_packed.py T_*)
   static constexpr uint32_t T_PREPARE = 5, T_PREPARED = 6, T_ACCEPT = 7,
@@ -93,7 +94,7 @@ struct PaxosModel {
   __device__ __forceinline__ bool server_step(
       uint32_t sid, const uint32_t (&sv)[kMaxSW], uint32_t src, uint32_t m0,
       uint32_t c, uint32_t (&nw)[kMaxSW],
-      actor::Send (&sends)[kMaxServers]) const {
+      actor::Send (&sends)[kMaxSends]) const {
     using namespace actor;
     const uint32_t quorum = (uint32_t)(S / 2 + 1);
     const uint32_t srv_src = min(src, (uint32_t)(S - 1));
@@ -213,91 +214,15 @@ struct PaxosModel {
     return put_ok || prep_ok || prpd_ok || acc_ok || acd_ok || dcd;
   }
 
+  // its handlers' sends: the S - 1 peers, and the PutOk of a decision
+  __device__ __forceinline__ int n_sends() const { return S; }
+
   // The child of row w (shared memory) under action lane e into out;
   // returns whether it is a valid successor, ovf whether it overflowed
   // the network (then its words are kPoison and it is invalid).
   template <class Out>
   __device__ __forceinline__ bool step_row(const uint32_t* w, int e,
                                            Out& out, bool& ovf) const {
-    using namespace actor;
-    const uint32_t* slot = w + net_off + 4 * e;
-    const uint32_t hdr = slot[0], m0 = slot[2], m1 = slot[3];
-    const bool occupied = (hdr & kOcc) != 0u;
-    const uint32_t src = (hdr >> 8) & 0xFFu, dst = hdr & 0xFFu;
-    const uint32_t n_actors = (uint32_t)(S + C);
-
-    // the register dispatch (packed_deliver): the server step on the
-    // destination server's words (the last server's for a client), the
-    // client step on the destination client's word (clipped)
-    const bool is_server = dst < (uint32_t)S;
-    const uint32_t sidx = min(dst, (uint32_t)(S - 1));
-    const int soff = (int)sidx * sw;
-    uint32_t sv[kMaxSW], nsw[kMaxSW];
-#pragma unroll
-    for (int j = 0; j < kMaxSW; ++j) sv[j] = j < sw ? w[soff + j] : 0u;
-    Send sends[kMaxServers];
-    const bool s_ch = server_step(sidx, sv, src, m0, m1, nsw, sends);
-    const int cidx = min(max((int)dst - S, 0), C - 1);
-    const int coff = S * sw + cidx;
-    bool c_ch;
-    Send c_send;
-    const uint32_t ncw =
-        client_step((uint32_t)(cidx + S), w[coff], m0, S, c_ch, c_send);
-    const bool changed = is_server ? s_ch : c_ch;
-    bool any_send = false;
-#pragma unroll
-    for (int k = 0; k < kMaxServers; ++k) {
-      if (!is_server) sends[k] = k == 0 ? c_send : no_send();
-      any_send |= k < S && sends[k].valid;
-    }
-    const bool valid = occupied && dst < n_actors && (changed || any_send);
-
-    // the network and the history: consume the slot, record the
-    // delivery, then each send's invocation record and network insert
-    Net net;
-    net_load(net, w + net_off, E);
-    net_consume(net, e, E);
-    Hist hist;
-    hist_load(hist, w + hist_off, hw);
-    record_in(hist, S, C, dst, m0);
-    bool overflow = false;
-#pragma unroll
-    for (int k = 0; k < kMaxServers; ++k) {
-      const Send& sd = sends[k];
-      if (k < S && sd.valid) {  // an invalid send changes nothing
-        record_out(hist, S, C, dst, sd.m0);
-        overflow |= net_send(net, dst, sd.dst, sd.m0, sd.m1, true, E);
-      }
-    }
-    const bool poison = valid && overflow;
-    ovf = poison;
-
-    // the child, word by word
-    for (int k = 0; k < aw; ++k) {
-      uint32_t v = w[k];
-      if (is_server) {
-#pragma unroll
-        for (int j = 0; j < kMaxSW; ++j)
-          if (j < sw && k == soff + j) v = nsw[j];
-      } else if (k == coff) {
-        v = ncw;
-      }
-      out.put(k, poison ? kPoison : v);
-    }
-#pragma unroll
-    for (int j = 0; j < kMaxSlots; ++j) {
-      if (j < E) {
-        const int k = net_off + 4 * j;
-        out.put(k, poison ? kPoison : net.hdr[j]);
-        out.put(k + 1, poison ? kPoison : net.cnt[j]);
-        out.put(k + 2, poison ? kPoison : net.m0[j]);
-        out.put(k + 3, poison ? kPoison : net.m1[j]);
-      }
-    }
-    out.put(timer_off, poison ? kPoison : w[timer_off]);
-#pragma unroll
-    for (int i = 0; i < kMaxHist; ++i)
-      if (i < hw) out.put(hist_off + i, poison ? kPoison : hist.h[i]);
-    return valid && !poison;
+    return actor::register_step_unordered(*this, w, e, out, ovf);
   }
 };

@@ -374,8 +374,27 @@ template <class M>
 struct WideRow<M, std::void_t<decltype(M::kWideRow)>>
     : std::integral_constant<bool, M::kWideRow> {};
 
+// Whether M is an edit model (M::kEditRow): a row too wide to stage each
+// child in shared memory (ABD on the ordered network: up to 352 words),
+// whose lane's child is the row plus a short edit (M::Edit: the words
+// the lane's action changes). K1 keeps the tile's rows in shared memory
+// as for a wide model and steps the lanes of m.active_lanes(row) (a mask
+// of at most 32 lanes) densely, a thread each: m.edit_lane(row, act, ed,
+// ovf) writes the lane's edit to the thread's slot in shared memory;
+// then each warp writes its children one after another, its 32 lanes
+// over the child's words (m.child_word(row, ed, k)), each folding its
+// words into the fingerprint, which a warp reduction finishes. The other
+// lanes are invalid and do not overflow (the model's rule): they get
+// the row's fingerprint and cvalid = 0, and their rows of flat are not
+// written.
+template <class M, class = void>
+struct EditRow : std::false_type {};
+template <class M>
+struct EditRow<M, std::void_t<decltype(M::kEditRow)>>
+    : std::integral_constant<bool, M::kEditRow> {};
+
 // K1-wide's launch is ops/_cuda.py wide_geometry's; its tile holds at
-// most kWideRows rows (one warp scans them).
+// most kWideRows rows (one warp scans them). So is an edit model's.
 constexpr int kWideRows = 32;
 
 // A staging row's stride in words: the width made odd, so word k of the
@@ -397,10 +416,21 @@ struct WideSmem {
   uint32_t* stage;
 };
 
+// The words of a thread's slot after the active lanes: a wide model's
+// staging row, an edit model's M::Edit.
+template <class M>
+__host__ __device__ __forceinline__ size_t slot_words(int width) {
+  if constexpr (EditRow<M>::value)
+    return sizeof(typename M::Edit) / sizeof(uint32_t);
+  else
+    return (size_t)wide_stride(width);
+}
+
+template <class M>
 __host__ __device__ __forceinline__ size_t wide_words(const TileGeometry& w,
                                                       int width, int A) {
   return 4 * ((size_t)w.rows + 1) + (size_t)w.rows * A +
-         (size_t)w.threads * wide_stride(width);
+         (size_t)w.threads * slot_words<M>(width);
 }
 
 __device__ __forceinline__ WideSmem wide_smem(unsigned char* smem,
@@ -412,6 +442,13 @@ __device__ __forceinline__ WideSmem wide_smem(unsigned char* smem,
   s.act = s.nact + 4;
   s.stage = s.act + w.rows * A;
   return s;
+}
+
+// The column key of fp64 for column k: kColumnKey's below its size,
+// computed past it (an edit model's rows are up to 352 words).
+__device__ __forceinline__ uint32_t column_key(int k) {
+  return k < kColumnKeys ? kColumnKey[k]
+                         : fmix32((uint32_t)(k + 1) * kGolden);
 }
 
 // The row's representative state of a model under SYM (M::RowCanon),
@@ -441,7 +478,9 @@ struct alignas(16) RowState {
 };
 
 // The model interface K1 takes (csrc/twopc.cuh, lineq.cuh,
-// increment.cuh, increment_lock.cuh; the wide paxos.cuh: see WideRow):
+// increment.cuh, increment_lock.cuh; the wide paxos.cuh, single_copy.cuh
+// and abd.cuh's AbdModel: see WideRow; abd.cuh's AbdOrderedModel: see
+// EditRow):
 // M::W, the words of a row array;
 // m.width(), the words of the state (at most W: a runtime width, n + 1
 // or n + 2 for the increment models, is walked by unrolled loops
@@ -474,7 +513,11 @@ struct alignas(16) RowState {
 // as 16-byte vectors, 32 a store, where the width is a multiple of four
 // words, else each child's contiguous words 32 a store (where each
 // lane's own strided stores would touch 32 sectors an instruction); the
-// quiet lanes get the row's words and fingerprint.
+// quiet lanes get the row's words and fingerprint. An edit model
+// (EditRow; launched over a.wide too) loads its rows alike, takes each
+// row's fingerprint and active lanes (m.active_lanes), steps those
+// densely into edits, and writes each warp's children word by word from
+// the shared rows, 32 consecutive words a store.
 // The grid also resets the ring arena for the step (grid-stride).
 // Inside a chunk the launch is gated (open_gate): its rows are the
 // queue's from the head, the first take of them valid.
@@ -494,12 +537,12 @@ __global__ void expand_kernel(M m, StepArgs a) {
   const int nrows =
       (int)max(0ll, min((long long)a.tile.rows, (long long)a.F - row0));
   if (threadIdx.x == 0) s_valid = 0;
-  if constexpr (WideRow<M>::value) {
-    static_assert(!SYM, "a wide model has no symmetric K1");
+  if constexpr (WideRow<M>::value || EditRow<M>::value) {
+    static_assert(!SYM, "a wide or edit model has no symmetric K1");
     static_assert(kWideRows <= 32, "one warp scans the tile's rows");
+    constexpr bool kEdit = EditRow<M>::value;
     const WideSmem ws =
         wide_smem(tile_smem, a.tile, sizeof(RowState<M, SYM>), A);
-    static_assert(M::W <= kColumnKeys, "a column without its key");
     const int wl = threadIdx.x & 31, wid = threadIdx.x >> 5;
     const int nwarps = blockDim.x >> 5;
     // the tile's rows, a warp per row
@@ -516,13 +559,18 @@ __global__ void expand_kernel(M m, StepArgs a) {
       rs.fv = take >= 0 ? r < take : a.fvalid[r] != 0;
       rs.valid = 0;
       rs.xovf = 0;
-      ws.info[4 * i] = (uint32_t)min(A, max(0, m.quiet_from(rs.w)));
+      // a wide model's quiet lane, an edit model's mask of active lanes
+      if constexpr (kEdit)
+        ws.info[4 * i] =
+            m.active_lanes(rs.w) & (A >= 32 ? ~0u : (1u << A) - 1u);
+      else
+        ws.info[4 * i] = (uint32_t)min(A, max(0, m.quiet_from(rs.w)));
     }
     // each row's fingerprint, a warp per row
     for (int i = wid; i < nrows; i += nwarps) {
       uint32_t h1 = 0u, h2 = 0u;
       for (int k = wl; k < width; k += 32) {
-        const uint32_t x = rows[i].w[k] ^ kColumnKey[k];
+        const uint32_t x = rows[i].w[k] ^ column_key(k);
         h1 ^= fmix32(x * kC1_1);
         h2 ^= fmix32(x * kC1_2);
       }
@@ -535,10 +583,11 @@ __global__ void expand_kernel(M m, StepArgs a) {
         fp64_finish(h1, h2, width, ws.info[4 * i + 1], ws.info[4 * i + 2]);
     }
     __syncthreads();
-    // the active lanes (below each row's quiet lane), in lane order: each
-    // row's first at the prefix of the quiet lanes before it
+    // the active lanes, in lane order: each row's first at the prefix of
+    // the active counts before it
     if (wid == 0) {
-      const int q = wl < nrows ? (int)ws.info[4 * wl] : 0;
+      const uint32_t info = wl < nrows ? ws.info[4 * wl] : 0u;
+      const int q = kEdit ? __popc(info) : (int)info;
       int x = q;
 #pragma unroll
       for (int o = 1; o < 32; o <<= 1) {
@@ -550,8 +599,15 @@ __global__ void expand_kernel(M m, StepArgs a) {
     }
     __syncthreads();
     for (int i = threadIdx.x; i < nrows; i += blockDim.x) {
-      const int q = (int)ws.info[4 * i], off = (int)ws.info[4 * i + 3];
-      for (int e = 0; e < q; ++e) ws.act[off + e] = (uint32_t)(i * A + e);
+      uint32_t info = ws.info[4 * i];
+      int off = (int)ws.info[4 * i + 3];
+      if constexpr (kEdit) {
+        for (; info; info &= info - 1u)
+          ws.act[off++] = (uint32_t)(i * A + __ffs(info) - 1);
+      } else {
+        for (int e = 0; e < (int)info; ++e)
+          ws.act[off + e] = (uint32_t)(i * A + e);
+      }
     }
   } else {
     for (int i = threadIdx.x; i < nrows; i += blockDim.x) {
@@ -578,6 +634,7 @@ __global__ void expand_kernel(M m, StepArgs a) {
   const int drow = blockDim.x / A, dact = blockDim.x - drow * A;
   int row = threadIdx.x / A, act = threadIdx.x - row * A;
   if constexpr (WideRow<M>::value) {
+    static_assert(M::W <= kColumnKeys, "RowOut: a column without its key");
     const WideSmem ws =
         wide_smem(tile_smem, a.tile, sizeof(RowState<M, SYM>), A);
     const int nact = (int)*ws.nact;
@@ -672,6 +729,84 @@ __global__ void expand_kernel(M m, StepArgs a) {
           uint32_t* dst = a.flat + (lane0 + i * A + e) * width;
           for (int k = wl; k < width; k += 32) dst[k] = rows[i].w[k];
         }
+      }
+    }
+  } else if constexpr (EditRow<M>::value) {
+    using Edit = typename M::Edit;
+    const WideSmem ws =
+        wide_smem(tile_smem, a.tile, sizeof(RowState<M, SYM>), A);
+    Edit* edits = reinterpret_cast<Edit*>(ws.stage);
+    const int nact = (int)*ws.nact;
+    const int wl = threadIdx.x & 31, w0 = threadIdx.x - wl;
+    // this lane's columns of every child (k = wl + 32 u) and their keys
+    constexpr int kCols = (M::W + 31) / 32;
+    uint32_t key[kCols];
+#pragma unroll
+    for (int u = 0; u < kCols; ++u) key[u] = column_key(wl + 32 * u);
+    // the active lanes, densely: each thread writes one's edit to its
+    // slot; uniform trip count: the warp then writes its children
+    for (int base = 0; base < nact; base += blockDim.x) {
+      const int j = base + threadIdx.x;
+      if (j < nact) {
+        const int t = (int)ws.act[j], i = t / A;
+        RowState<M, SYM>& rs = rows[i];
+        bool ovf = false;
+        const bool v = m.edit_lane(rs.w, t - i * A, edits[threadIdx.x], ovf);
+        const bool cv = v && rs.fv;
+        a.cvalid[lane0 + t] = cv;
+        nvalid += cv;
+        if (cv) rs.valid = 1;
+        if (ovf && rs.fv) rs.xovf = 1;
+      }
+      __syncwarp();
+      // child c of the warp's: its width contiguous words of flat, 32 a
+      // store, each lane folding its words; then the warp's XOR
+      const int n = min(32, nact - (base + w0));
+      for (int c = 0; c < n; ++c) {
+        const int t = (int)ws.act[base + w0 + c];
+        const Edit& ed = edits[w0 + c];
+        const uint32_t* row = rows[t / A].w;
+        const long long lane = lane0 + t;
+        uint32_t* dst = a.flat + lane * width;
+        uint32_t h1 = 0u, h2 = 0u;
+#pragma unroll
+        for (int u = 0; u < kCols; ++u) {
+          const int k = wl + 32 * u;
+          if (k < width) {
+            const uint32_t v = m.child_word(row, ed, k);
+            dst[k] = v;
+            const uint32_t x = v ^ key[u];
+            h1 ^= fmix32(x * kC1_1);
+            h2 ^= fmix32(x * kC1_2);
+          }
+        }
+#pragma unroll
+        for (int o = 16; o > 0; o >>= 1) {
+          h1 ^= __shfl_xor_sync(0xFFFFFFFFu, h1, o);
+          h2 ^= __shfl_xor_sync(0xFFFFFFFFu, h2, o);
+        }
+        if (wl == 0) {
+          uint32_t hi, lo;
+          fp64_finish(h1, h2, width, hi, lo);
+          a.chi[lane] = hi;
+          a.clo[lane] = lo;
+        }
+      }
+      __syncwarp();
+    }
+    // the other lanes: the row's fingerprint, invalid; flat unwritten
+    for (int t = threadIdx.x; t < tile; t += blockDim.x) {
+      if (!((ws.info[4 * row] >> act) & 1u)) {
+        const long long lane = lane0 + t;
+        a.chi[lane] = ws.info[4 * row + 1];
+        a.clo[lane] = ws.info[4 * row + 2];
+        a.cvalid[lane] = 0;
+      }
+      row += drow;
+      act += dact;
+      if (act >= A) {
+        act -= A;
+        ++row;
       }
     }
   } else {
@@ -770,7 +905,7 @@ cudaError_t allow_smem(K kernel, size_t smem) {
 template <class M, bool SYM>
 size_t wide_smem_bytes(const TileGeometry& w, int width, int A) {
   return (size_t)w.rows * sizeof(RowState<M, SYM>) +
-         wide_words(w, width, A) * sizeof(uint32_t);
+         wide_words<M>(w, width, A) * sizeof(uint32_t);
 }
 
 // Launch K1 over a.tile (blocks >= 1 even at F = 0: the grid resets
@@ -779,7 +914,7 @@ template <class M, bool SYM>
 cudaError_t launch_expand(const M& m, const StepArgs& a, cudaStream_t st) {
   const TileGeometry& g = a.tile;
   if (!geometry_ok(g, a.F, a.A)) return cudaErrorInvalidValue;
-  if constexpr (WideRow<M>::value) {
+  if constexpr (WideRow<M>::value || EditRow<M>::value) {
     StepArgs wa = a;
     wa.tile = a.wide;
     const size_t smem = (size_t)a.wide_smem;

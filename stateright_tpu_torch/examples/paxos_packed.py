@@ -42,8 +42,6 @@ from typing import Any, List, Optional, Tuple
 import torch
 
 from ..actor import Id
-from ..core import Expectation
-from ..models.packed import check_cuda_model
 from ..ops.words import M32
 from ..actor.packed_register import (PackedRegisterModel, T_GET, T_GETOK,
                                      T_INTERNAL0, T_PUT, T_PUTOK,
@@ -204,35 +202,10 @@ class PackedPaxos(PackedRegisterModel):
         kernel runs ``csrc/paxos.cuh`` (with ``csrc/actor_net.cuh``) for
         up to 7 clients, 4 servers and 16 network slots on the
         unordered non-duplicating network without drops, timers or
-        crashes. There is no device representative, so ``symmetry`` is
-        refused, as is a subclass that changes the step, the encoding or
-        the properties."""
-        if symmetry:
-            raise NotImplementedError("PackedPaxos has no "
-                                      "packed_representative")
-        reason = self.unported_lanes()
-        if reason is not None:
-            raise NotImplementedError(reason)
-        if self._net_dup:
-            raise NotImplementedError(
-                "csrc/paxos.cuh runs the non-duplicating network only")
-        if (self.client_count > 7 or self.server_count > 4
-                or self.net_capacity > 16 or self.packed_width > 128):
-            raise NotImplementedError(
-                "csrc/paxos.cuh takes at most 7 clients, 4 servers, 16 "
-                "network slots and 128 packed words")
-        for name in ("packed_deliver", "_server_step", "_client_step",
-                     "packed_record_in", "packed_record_out",
-                     "encode_server", "encode_internal", "encode_msg",
-                     "encode_history"):
-            if getattr(type(self), name) is not getattr(PackedPaxos, name):
-                raise NotImplementedError(
-                    f"{type(self).__name__} overrides {name}; the CUDA "
-                    "step kernel runs PackedPaxos's own (csrc/paxos.cuh)")
-        check_cuda_model(self, PackedPaxos, "paxos.cuh",
-                         (("linearizable", Expectation.ALWAYS),
-                          ("value chosen", Expectation.SOMETIMES)),
-                         self.packed_width, self.max_actions, symmetry)
+        crashes (``check_cuda_register``: no symmetry, no ordered
+        network, no subclass that changes the step, the encoding or the
+        properties)."""
+        self.check_cuda_register(PackedPaxos, "paxos.cuh", symmetry, "paxos")
         return "paxos", (self.client_count, self.server_count,
                          self.net_capacity)
 

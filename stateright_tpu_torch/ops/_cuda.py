@@ -152,9 +152,21 @@ WIDE_ROWS = 32
 WIDE_THREADS = 128
 WIDE_BLOCKS_PER_SM = 3
 #: the wide models of ``STEP_MODELS`` (``kWideRow``): the words of their
-#: row in K1's shared ``RowState`` (``PaxosModel::W``); the launch
-#: refuses a shared-memory size below what this gives
-WIDE_MODELS = {"paxos": 128}
+#: row in K1's shared ``RowState`` (``PaxosModel::W``, ``AbdModel::W``,
+#: ``SingleCopyModel::W``); the launch refuses a shared-memory size below
+#: what this gives
+WIDE_MODELS = {"paxos": 128, "abd": 128, "single_copy": 128}
+#: the edit models of ``STEP_MODELS`` (``kEditRow``, launched over
+#: K1-wide's geometry): the words of their shared row and of a thread's
+#: edit (``AbdOrderedModel::W`` and ``sizeof(Edit)`` in words:
+#: ``actor_net.cuh`` ``OrderedEdit<6, 3>``, 45, which ``abd.cuh`` asserts)
+EDIT_MODELS = {"abd_ordered": (352, 45)}
+
+
+def row_words(name: str) -> int:
+    """The most packed words K1's wide or edit instantiation ``name``
+    takes: its shared row's."""
+    return WIDE_MODELS[name] if name in WIDE_MODELS else EDIT_MODELS[name][0]
 
 
 def wide_stride(width: int) -> int:
@@ -180,18 +192,38 @@ def wide_geometry(geo: Geometry, f: int, a: int, sms: int) -> Geometry:
 
 
 def wide_smem_bytes(geo: Geometry, width: int, a: int,
-                    row_words: int = WIDE_MODELS["paxos"]) -> int:
+                    row_words: int = WIDE_MODELS["paxos"],
+                    slot_words: int = None) -> int:
     """K1-wide's dynamic shared memory over ``geo`` (a
     :func:`wide_geometry`) for rows of ``width`` words and ``a`` action
     lanes (``StepArgs.wide_smem``; ``step_common.cuh`` ``WideSmem``): the
     tile's rows (``RowState``: ``row_words`` words and 16 bytes of
-    flags, 16-byte aligned), four words per row (its quiet lane,
-    fingerprint and first active item) and four for the count, the
-    tile's active lanes (``rows * a``), then one staging row of
-    ``wide_stride(width)`` words per thread."""
+    flags, 16-byte aligned), four words per row (its quiet lane or
+    active lanes, fingerprint and first active item) and four for the
+    count, the tile's active lanes (``rows * a``), then one slot per
+    thread: a staging row of ``wide_stride(width)`` words, or an edit
+    model's ``slot_words``."""
+    if slot_words is None:
+        slot_words = wide_stride(width)
     return (geo.rows * (4 * row_words + 16)
             + 4 * (4 * (geo.rows + 1) + geo.rows * a
-                   + geo.threads * wide_stride(width)))
+                   + geo.threads * slot_words))
+
+
+def k1_launch(name: str, geo: Geometry, f: int, width: int, a: int,
+              sms: int) -> tuple:
+    """``(StepArgs.wide, StepArgs.wide_smem)`` of the step kernels of
+    ``STEP_MODELS`` entry ``name`` over ``f`` rows of ``width`` words and
+    ``a`` lanes (tile geometry ``geo``): a wide or edit model's K1
+    geometry and shared memory, else ``(geo, 0)`` (unused)."""
+    if name in WIDE_MODELS:
+        row_words, slot_words = WIDE_MODELS[name], None
+    elif name in EDIT_MODELS:
+        row_words, slot_words = EDIT_MODELS[name]
+    else:
+        return geo, 0
+    wide = wide_geometry(geo, f, a, sms)
+    return wide, wide_smem_bytes(wide, width, a, row_words, slot_words)
 
 
 class TileGeometry(ctypes.Structure):
@@ -279,10 +311,12 @@ APPEND_TICKETS = 2
 #: instantiation). Their entries are ``srt_fused_step_<name>[_sym]``
 #: (fused_step.cu) and ``srt_dedup_step_<name>[_sym]`` (sharded_step.cu)
 STEP_MODELS = {"twopc": (1, 2), "lineq": (3, None), "increment": (1, 1),
-               "increment_lock": (1, None), "paxos": (3, None)}
+               "increment_lock": (1, None), "paxos": (3, None),
+               "abd": (3, None), "abd_ordered": (3, None),
+               "single_copy": (3, None)}
 #: the models of STEP_MODELS with no probe-free (sharded) step: their
 #: host-evaluated properties keep them off a mesh (B14)
-SINGLE_CHIP_MODELS = ("paxos",)
+SINGLE_CHIP_MODELS = ("paxos", "abd", "abd_ordered", "single_copy")
 
 
 def _step_entries(prefix: str, struct, size_fn: str,
@@ -526,12 +560,8 @@ def _step_args(model, frontier, ebits, fvalid, phi, plo, ring, ws,
             or ws.disc_cand.device != dev):
         raise ValueError("workspace does not match this ring or model")
     geo = tile_geometry(f, n_actions, sm_count(dev))
-    wide, wide_smem = geo, 0
-    row_words = WIDE_MODELS.get(entry[0])
-    if row_words is not None:
-        wide = wide_geometry(geo, f, n_actions, sm_count(dev))
-        wide_smem = wide_smem_bytes(wide, model.packed_width, n_actions,
-                                    row_words)
+    wide, wide_smem = k1_launch(entry[0], geo, f, model.packed_width,
+                                n_actions, sm_count(dev))
     if bufs is None:
         bufs = step_buffers(model, f, stats_len, symmetry, dev, geo.blocks)
     elif (bufs["inserted"].shape[0] < lanes

@@ -7,6 +7,9 @@ imports no JAX, so it runs where only the port is installed:
 
 (``--noconftest``: the suite's conftest configures JAX.)"""
 
+import pathlib
+import sys
+
 import numpy as np
 import pytest
 import torch
@@ -30,6 +33,13 @@ def _reachable(model):
             order.append(state)
             queue.extend(model.next_states(state))
     return order
+
+
+def _chip_smoke():
+    """``chip_smoke.py``, whose pins the end-to-end runs are held to."""
+    sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
+    import chip_smoke
+    return chip_smoke
 
 
 def _need_card():
@@ -1382,20 +1392,14 @@ def test_checkpoint_resumes_on_card(tmp_path):
     assert _cuda.LAUNCHES["fused_step_sym"] > steps
 
 
-#: PackedPaxos(2): unique states, state_count() and the sha256 of the
-#: sorted fingerprints (chip_smoke.py PIN_PAXOS2: the JAX package's host
-#: BFS; tests/test_torch_paxos.py holds the port's plain path to it)
-PIN_PAXOS2 = (16_668, 32_971,
-              "184fdb02ebca156876cc206a2c39ce2c"
-              "c11186fb868ec1b3c6b1fdf63b516971")
-
-
 def _paxos_rows(model, rng, f):
-    """``f`` rows drawn with replacement from the first 3,000 states of a
-    host BFS of ``model``, a tenth of them with crowded networks (their
-    children's sends overflow) and a twentieth random words. A state
-    whose network outgrows ``net_capacity`` is not encoded, and the BFS
-    does not go past it."""
+    """``f`` rows of a register model (Paxos, ABD, single-copy) drawn
+    with replacement from the first 3,000 states of a host BFS of
+    ``model``, a tenth of them with crowded networks (their children's
+    sends overflow: on the ordered network a third of the channels filled
+    to their depth) and a twentieth random words. A state whose network
+    outgrows the encoding is not encoded, and the BFS does not go past
+    it."""
     seen, states, queue = set(), [], list(model.init_states())
     while queue and len(states) < 3000:
         s = queue.pop(0)
@@ -1410,6 +1414,14 @@ def _paxos_rows(model, rng, f):
     rows = np.stack([states[i] for i in rng.integers(0, len(states), f)])
     e_cap, w = model.net_capacity, model.packed_width
     for i in np.flatnonzero(rng.random(f) < 0.1):
+        if model._net_ordered:
+            d, r = model.channel_depth, rows[i]
+            for ch in np.flatnonzero(rng.random(model._n_chan) < 0.3):
+                for j in range(int(r[model._net_off + ch]), d):
+                    off = model._msgs_off + (ch * d + j) * 2
+                    r[off:off + 2] = ((14 << 24) | j, j)
+                r[model._net_off + ch] = d
+            continue
         slots = rows[i, model._net_off:model._timer_off].reshape(e_cap, 4)
         occ = [tuple(int(x) for x in s) for s in slots if s[0] >> 16 & 1]
         for j in range(len(occ), int(rng.integers(len(occ), e_cap + 1))):
@@ -1760,7 +1772,8 @@ def test_paxos2_end_to_end_on_card(hcap):
     launched = {k: _cuda.LAUNCHES[k] - before[k] for k in before}
     fps = np.array(sorted(ck.generated_fingerprints()), dtype=np.uint64)
     digest = hashlib.sha256(fps.astype("<u8").tobytes()).hexdigest()
-    assert (ck.unique_state_count(), ck.state_count(), digest) == PIN_PAXOS2
+    assert (ck.unique_state_count(), ck.state_count(), digest) == \
+        _chip_smoke().PIN_PAXOS2
     ck.assert_no_discovery("linearizable")
     ck.assert_any_discovery("value chosen")
     for name in ("fused_step", "append", "chunk_begin", "history", "hpull"):
@@ -1768,3 +1781,202 @@ def test_paxos2_end_to_end_on_card(hcap):
     assert ck.profile()["h_n"] == 5
     if hcap == 4:
         assert ck.profile()["hgrow"] >= 1
+
+
+# --- the register family (ABD on both networks, the single-copy register)
+
+#: the register configurations of the card's K1 checks: the BASELINE's
+#: ordered ABD (108 words), bench.py's abd3 (260) and tpu_abd2 (331),
+#: ABD on the unordered network (82) and the single-copy register (79;
+#: and with two servers, 84)
+REGISTER_MODELS = {
+    "abd2-ordered": lambda: _abd(2, ordered=True),
+    "abd3-ordered": lambda: _abd(3, server_count=2, ordered=True,
+                                 channel_depth=8),
+    "abd2-s3-ordered": lambda: _abd(2, server_count=3, ordered=True,
+                                    channel_depth=8),
+    "abd2": lambda: _abd(2),
+    "single-copy3": lambda: _single_copy(3),
+    "single-copy4-2": lambda: _single_copy(4, 2),
+}
+
+
+def _abd(*args, **kw):
+    from stateright_tpu_torch.examples.abd_packed import PackedAbd
+    return PackedAbd(*args, **kw)
+
+
+def _single_copy(*args):
+    from stateright_tpu_torch.examples.single_copy_packed import \
+        PackedSingleCopy
+    return PackedSingleCopy(*args)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,f", [
+    ("abd2-ordered", 1000), ("abd3-ordered", 2048),
+    ("abd2-s3-ordered", 4096), ("abd2", 1000), ("single-copy3", 1000),
+    ("single-copy4-2", 333)])
+def test_register_step_lane_exact_on_card(name, f):
+    """K1's register instantiations with K2/K3 against the plain version
+    over ``_paxos_rows`` (crowded networks, junk rows, a tenth of the
+    rows invalid). The ordered network's (the edit K1) under its rule:
+    the children and their fingerprints on every lane of a non-empty
+    channel, K1 leaving an empty channel's lane unwritten (the plain
+    version writes the JAX package's junk row there, invalid); cvalid,
+    the properties, terminal and the flags on every lane. The unordered
+    ones (the wide K1) on every lane. Then the inserted key set and the
+    table."""
+    _need_card()
+    from stateright_tpu_torch.ops.fused import (S_DISC, S_VALID, S_XOVF,
+                                                fused_step,
+                                                fused_step_reference)
+    from stateright_tpu_torch.ops.hash_kernel import fp64_device
+    from stateright_tpu_torch.ops.hashtable import make_table
+    from stateright_tpu_torch.ops.words import from_numpy_u32, pack64
+    model = REGISTER_MODELS[name]()
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(f)
+    rows = _paxos_rows(model, rng, f)
+    block = from_numpy_u32(rows, dev)
+    phi, plo = (x.to(torch.int32) for x in fp64_device(block))
+    ebits = torch.zeros((f,), dtype=torch.int32, device=dev)
+    fvalid = torch.from_numpy(rng.random(f) < 0.9).to(dev)
+    out, tables = [], []
+    for fn in (fused_step, fused_step_reference):
+        table = make_table(1 << 18, dev)
+        ring = torch.zeros((1 << 12,), dtype=torch.int64, device=dev)
+        out.append(fn(model, block, ebits, fvalid, phi, plo, table, ring))
+        tables.append(sorted(table[table != 0].tolist()))
+    k, p = out
+    if model._net_ordered:
+        lens = rows[:, model._net_off:model._net_off + model._n_chan]
+        written = torch.from_numpy((lens != 0).reshape(-1)).to(dev)
+        assert int(written.sum()) < written.numel()  # empty channels
+    else:
+        written = torch.ones_like(k.cvalid)
+    for nm in ("flat", "chi", "clo"):
+        assert torch.equal(getattr(k, nm)[written], getattr(p, nm)[written])
+    for nm in ("cvalid", "pbits", "ebits", "terminal"):
+        assert torch.equal(getattr(k, nm), getattr(p, nm)), nm
+    for i in (S_XOVF, S_VALID):
+        assert int(k.stats[i]) == int(p.stats[i]), i
+    assert torch.equal(k.stats[S_DISC:], p.stats[S_DISC:])
+    if model._net_ordered or model.server_count > 2:
+        assert int(k.stats[S_XOVF]) == 1  # the crowded rows overflow
+    key_k = pack64(k.chi, k.clo)[k.inserted].tolist()
+    key_p = pack64(p.chi, p.clo)[p.inserted].tolist()
+    assert len(key_k) == len(set(key_k)) and set(key_k) == set(key_p)
+    assert tables[0] == tables[1]
+
+
+@pytest.mark.gpu
+def test_append_history_and_pull_at_331_words_on_card():
+    """bench.py's widest register row (PackedAbd(2, server_count=3,
+    ordered=True, channel_depth=8): 331 words, wider than K7's block of
+    256 threads): after a real gated step at 4,096 rows of a mid-search
+    carry, K7 against ``append_reference`` (counters, the next gate and
+    the 334-word most recent row among them, stats, queue and log bit for
+    bit); K8 over the rows it appended against ``history_reference``; K9
+    over them against ``hpull_reference``."""
+    _need_card()
+    from stateright_tpu_torch.checker.device_loop import (
+        B_Q_TAIL, E_FAULT, E_GATE, G_SIZE, I32_MAX, ChunkRunner,
+        append_reference, history_reference, hpull_reference, new_history,
+        step_sizes)
+    from stateright_tpu_torch.ops import _cuda
+    from stateright_tpu_torch.ops.fused import S_INSERTED
+    model = REGISTER_MODELS["abd2-s3-ordered"]()
+    assert model.packed_width == 331
+    dev = torch.device("cuda")
+    f = 4096
+    carry = _mid_search(model, f, False, dev)
+    lay = carry.layout
+    f_small, f_large, qmargin = step_sizes(model, f)
+    card = ChunkRunner(model, carry, f).card()
+    carry.ws.step += 1
+    card.begin(1, I32_MAX, I32_MAX, carry.ws.step)
+    card.launch_steps()
+    size = int(carry.ctr[lay.ext + E_GATE + G_SIZE])
+    out = card.outputs(size)
+    stats = out.stats.clone()
+    start = (carry.ctr.clone(), carry.q.clone(), carry.log.clone(), stats)
+    tail0 = int(carry.ctr[B_Q_TAIL])
+    card.launch_append()
+    got = (carry.ctr.clone(), carry.q.clone(), carry.log.clone(),
+           out.stats.clone())
+    for t, v in zip((carry.ctr, carry.q, carry.log, out.stats), start):
+        t.copy_(v)
+    append_reference(carry.ctr, lay, carry.q, carry.log, out,
+                     model.max_actions, f_small, f_large,
+                     carry.q.shape[0] - qmargin)
+    for x, y in zip(got, (carry.ctr, carry.q, carry.log, out.stats)):
+        assert torch.equal(x, y)
+    cnt = int(out.inserted.sum())
+    assert cnt == int(stats[S_INSERTED]) > 0
+    tail = int(got[0][B_Q_TAIL])
+    assert tail - tail0 == cnt
+    assert int(got[0][lay.ext + E_FAULT]) == 0
+    # K8 and K9 over the appended 331-word rows
+    q = carry.q
+    k = new_history(model, 1 << 12, q.shape[0], 0, dev)
+    p = new_history(model, 1 << 12, q.shape[0], 0, dev)
+    h_k, ovf_k = _cuda.history_insert(q, k, start=tail0, end=tail,
+                                      append=True, h_n=0)
+    idx = torch.arange(tail0, tail, dtype=torch.int64, device=dev)
+    fresh, ovf_p = history_reference(q, p, idx)
+    reps = idx[fresh].to(torch.int32)
+    assert not ovf_k and not ovf_p and h_k == reps.shape[0] > 0
+    assert torch.equal(k.hidx[:h_k], reps)
+    assert torch.equal(torch.sort(k.table[k.table != 0]).values,
+                       torch.sort(p.table[p.table != 0]).values)
+    w = model.packed_width
+    outk = torch.full((256, w + 2), -1, dtype=torch.int32, device=dev)
+    _cuda.hpull(q, k.hidx, carry.log, 0, 1, outk, count=h_k)
+    assert torch.equal(outk, hpull_reference(q, k.hidx, carry.log, 0, h_k,
+                                             1, 256))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,pin", [
+    ("abd2-ordered", "PIN_ABD2_ORDERED"), ("abd3-ordered", "PIN_ABD3"),
+    ("single-copy3", "PIN_SC3")])
+def test_register_end_to_end_on_card(name, pin):
+    """``spawn_gpu()`` on the card alone: the JAX package's count,
+    generated count and digest (``chip_smoke.py``'s ``pin``);
+    ``linearizable`` holds and ``value chosen`` replays; K1-K3, K7, K8
+    and K9 launched."""
+    _need_card()
+    pin = getattr(_chip_smoke(), pin)
+    import hashlib
+    from stateright_tpu_torch.ops import _cuda
+    model = REGISTER_MODELS[name]()
+    before = dict(_cuda.LAUNCHES)
+    ck = model.checker().gpu_options(race=False).spawn_gpu().join()
+    launched = {k: _cuda.LAUNCHES[k] - before[k] for k in before}
+    fps = np.array(sorted(ck.generated_fingerprints()), dtype=np.uint64)
+    digest = hashlib.sha256(fps.astype("<u8").tobytes()).hexdigest()
+    assert (ck.unique_state_count(), ck.state_count(), digest) == pin
+    ck.assert_no_discovery("linearizable")
+    path = ck.assert_any_discovery("value chosen")  # replays or raises
+    assert model.property("value chosen").condition(model,
+                                                    path.last_state())
+    for kernel in ("fused_step", "append", "chunk_begin", "history",
+                   "hpull"):
+        assert launched[kernel] > 0, kernel
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("race", [False, None], ids=["card", "raced"])
+def test_single_copy_counterexample_on_card(race):
+    """Two unreplicated servers are not linearizable: on the card alone
+    and raced as by default, the ``linearizable`` discovery's witness
+    replays through the host model to a history with no serialization."""
+    _need_card()
+    model = REGISTER_MODELS["single-copy4-2"]()
+    builder = model.checker()
+    if race is not None:
+        builder = builder.gpu_options(race=race)
+    ck = builder.spawn_gpu().join()
+    path = ck.assert_any_discovery("linearizable")  # replays or raises
+    assert path.last_state().history.serialized_history() is None

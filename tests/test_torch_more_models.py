@@ -331,11 +331,12 @@ def test_cuda_spec_names_and_parameters(model, symmetry, spec, entry):
 
 
 def test_step_entry_refuses_unknown_names():
-    # (paxos has a step kernel since its own slice; ABD has none yet)
+    # (paxos and ABD have step kernels since their own slices; the
+    # write-once register has none yet)
     class _Other(PackedLinearEquation):
         def cuda_spec(self, symmetry=False):
-            return "abd", (3,)
-    with pytest.raises(NotImplementedError, match="abd"):
+            return "write_once", (3,)
+    with pytest.raises(NotImplementedError, match="write_once"):
         _cuda.step_entry(_Other(1, 2, 3), False)
     with pytest.raises(NotImplementedError, match="under symmetry"):
         _cuda.step_entry(type("_Sym", (PackedLinearEquation,), {

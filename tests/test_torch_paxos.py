@@ -406,7 +406,27 @@ def _timers():
     (lambda: PackedPaxos(1).crash_restart(1), "crash"),
 ], ids=["ordered", "lossy", "timers", "crash"])
 def test_unported_configurations_raise(configure, match):
+    """What the card refuses. The ordered network has a plain step since
+    the register slice: the ordered PackedPaxos(1) (168 words, 16
+    channels) checks on the CPU to the JAX package's host BFS (99
+    states, the same fingerprints), while the card, which has no Paxos
+    instantiation on FIFO channels, still refuses it. The lossy drop
+    lanes, the timers and the crash/restart lanes raise everywhere."""
     model = configure()
+    if model._net_ordered:
+        assert (model.packed_width, model.max_actions) == (168, 16)
+        with pytest.raises(NotImplementedError, match=match):
+            model.cuda_spec()
+        from stateright_tpu.actor import Network as JNetwork
+        jm = JPaxos(1)
+        jm.init_network(JNetwork.new_ordered())
+        jm.finalize_layout()
+        want = jm.checker().spawn_bfs().join()
+        ck = _cpu(model, fmax=64)
+        assert ck.unique_state_count() == want.unique_state_count() == 99
+        assert ck.generated_fingerprints() == want.generated_fingerprints()
+        ck.assert_no_discovery("linearizable")
+        return
     with pytest.raises(NotImplementedError, match=match):
         model.packed_step(torch.from_numpy(
             model.encode(model.init_states()[0]).astype(np.int64)[None]))

@@ -1,0 +1,379 @@
+"""The register family's K1 launch and device functions, on the CPU
+without JAX: K1's launch (``ops/_cuda.py`` ``k1_launch``) and shared
+memory at every ordered ABD configuration ``cuda_spec`` admits (up to
+352 words and 32 channels: the edit model of ``csrc/abd.cuh``) and at
+the unordered ones (the wide model, up to 128 words); and the device
+functions themselves (``csrc/actor_net.cuh``, ``abd.cuh``,
+``single_copy.cuh``, ``paxos.cuh``), compiled for the host with ``g++``
+under a header that defines CUDA's qualifiers away: ``reg_chan`` and
+``reg_chan_ends`` against ``register_channels()``, the packed layout's
+channel order; the row and edit sizes the launch sizes shared memory
+with; and each model's step on every lane of reachable and crowded
+rows against its plain version, under K1's lane rules (a wide model's
+quiet lanes are the row, invalid; an edit model's lanes of empty
+channels are invalid and their rows unwritten). The card's tests and
+``chip_smoke.py`` hold the kernels."""
+
+import ctypes
+import pathlib
+import shutil
+import subprocess
+
+import numpy as np
+import pytest
+import torch
+
+from stateright_tpu_torch.examples.abd_packed import PackedAbd
+from stateright_tpu_torch.examples.paxos_packed import PackedPaxos
+from stateright_tpu_torch.examples.single_copy_packed import \
+    PackedSingleCopy
+from stateright_tpu_torch.ops import _cuda
+
+CSRC = pathlib.Path(_cuda.__file__).resolve().parent.parent / "csrc"
+
+#: an H100 SXM: its SMs, and the shared memory of one SM and one block
+SMS = 132
+SM_SMEM = 228 * 1024
+BLOCK_SMEM = 227 * 1024
+#: the block's own reserve of shared memory
+RESERVED = 1024
+
+#: the device functions behind a C interface, for ctypes. Per row a
+#: step writes its property bits, then per lane a flags word (1 valid,
+#: 2 overflow, 4 stepped: below a wide model's quiet lane, or an edit
+#: model's active lane) and the child's words, as K1 would: a quiet
+#: lane's child is the row, an inactive lane's is left zero
+HOST_SOURCE = r"""
+#define __device__
+#define __host__
+#define __forceinline__ inline
+#include <algorithm>
+#include <cstdint>
+#include <string>
+using std::min;
+using std::max;
+#include "abd.cuh"
+#include "paxos.cuh"
+#include "single_copy.cuh"
+
+namespace {
+struct Out {
+  uint32_t* dst;
+  void put(int i, uint32_t v) { dst[i] = v; }
+};
+
+template <class M>
+void step_wide(const M& m, const uint32_t* rows, int f, uint32_t* out) {
+  const int W = m.width(), A = m.max_actions();
+  for (int r = 0; r < f; ++r) {
+    const uint32_t* w = rows + (long)r * W;
+    *out++ = m.props_row(w);
+    const int q = m.quiet_from(w);
+    for (int e = 0; e < A; ++e) {
+      uint32_t* flags = out++;
+      bool ovf = false, v = false;
+      if (e < q) {
+        Out o{out};
+        v = m.step_row(w, e, o, ovf);
+      } else {
+        for (int k = 0; k < W; ++k) out[k] = w[k];
+      }
+      *flags = (v ? 1u : 0u) | (ovf ? 2u : 0u) | (e < q ? 4u : 0u);
+      out += W;
+    }
+  }
+}
+
+void step_edit(const AbdOrderedModel& m, const uint32_t* rows, int f,
+               uint32_t* out) {
+  const int W = m.width(), A = m.max_actions();
+  for (int r = 0; r < f; ++r) {
+    const uint32_t* w = rows + (long)r * W;
+    *out++ = m.props_row(w);
+    const uint32_t mask = m.active_lanes(w);
+    for (int e = 0; e < A; ++e) {
+      uint32_t* flags = out++;
+      bool ovf = false, v = false;
+      const bool on = (mask >> e) & 1u;
+      if (on) {
+        AbdOrderedModel::Edit ed;
+        v = m.edit_lane(w, e, ed, ovf);
+        for (int k = 0; k < W; ++k) out[k] = m.child_word(w, ed, k);
+      } else {
+        for (int k = 0; k < W; ++k) out[k] = 0u;
+      }
+      *flags = (v ? 1u : 0u) | (ovf ? 2u : 0u) | (on ? 4u : 0u);
+      out += W;
+    }
+  }
+}
+
+template <class M>
+int run(const M& m, const uint32_t* rows, int f, uint32_t* out) {
+  if (!m.ok()) return 1;
+  step_wide(m, rows, f, out);
+  return 0;
+}
+}  // namespace
+
+extern "C" {
+int h_reg_chan(uint32_t src, uint32_t dst, int c, int s) {
+  return actor::reg_chan(src, dst, c, s);
+}
+void h_reg_chan_ends(int ch, int c, int s, uint32_t* src, uint32_t* dst) {
+  actor::reg_chan_ends(ch, c, s, *src, *dst);
+}
+// 0: the shared row's words, 1: the edit's (OrderedEdit), by model
+int h_words(const char* name, int what) {
+  const std::string n(name);
+  if (n == "abd_ordered")
+    return what ? (int)(sizeof(AbdOrderedModel::Edit) / 4)
+                : AbdOrderedModel::W;
+  if (n == "abd") return AbdModel::W;
+  if (n == "single_copy") return SingleCopyModel::W;
+  if (n == "paxos") return PaxosModel::W;
+  return -1;
+}
+int h_step(const char* name, int p0, int p1, int p2, const uint32_t* rows,
+           int f, uint32_t* out) {
+  const std::string n(name);
+  if (n == "abd_ordered") {
+    const AbdOrderedModel m(p0, p1, p2);
+    if (!m.ok()) return 1;
+    step_edit(m, rows, f, out);
+    return 0;
+  }
+  if (n == "abd") return run(AbdModel(p0, p1, p2), rows, f, out);
+  if (n == "single_copy")
+    return run(SingleCopyModel(p0, p1, p2), rows, f, out);
+  if (n == "paxos") return run(PaxosModel(p0, p1, p2), rows, f, out);
+  return 2;
+}
+}
+"""
+
+
+@pytest.fixture(scope="module")
+def host(tmp_path_factory):
+    """The device functions built for the host (``g++``), by ctypes."""
+    cxx = shutil.which("g++")
+    if cxx is None:
+        pytest.skip("no g++ to build the device functions for the host")
+    d = tmp_path_factory.mktemp("host_cuda")
+    src = d / "host.cpp"
+    src.write_text(HOST_SOURCE)
+    lib = d / "libhost.so"
+    subprocess.run([cxx, "-std=c++17", "-O1", "-shared", "-fPIC",
+                    f"-I{CSRC}", str(src), "-o", str(lib)], check=True,
+                   capture_output=True, text=True)
+    h = ctypes.CDLL(str(lib))
+    h.h_reg_chan.argtypes = [ctypes.c_uint32, ctypes.c_uint32, ctypes.c_int,
+                             ctypes.c_int]
+    h.h_reg_chan_ends.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                                  ctypes.POINTER(ctypes.c_uint32),
+                                  ctypes.POINTER(ctypes.c_uint32)]
+    h.h_words.argtypes = [ctypes.c_char_p, ctypes.c_int]
+    h.h_step.argtypes = [ctypes.c_char_p] + [ctypes.c_int] * 3 + [
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+    return h
+
+
+def _reg_chan_ends(host, ch, c, s):
+    src, dst = ctypes.c_uint32(), ctypes.c_uint32()
+    host.h_reg_chan_ends(ch, c, s, ctypes.byref(src), ctypes.byref(dst))
+    return src.value, dst.value
+
+
+def _admitted_ordered():
+    for c in range(1, 8):
+        for s in range(1, 5):
+            for d in range(1, 17):
+                model = PackedAbd(c, server_count=s, ordered=True,
+                                  channel_depth=d)
+                if (model.packed_width <= _cuda.row_words("abd_ordered")
+                        and model.max_actions <= 32):
+                    yield model
+
+
+@pytest.mark.parametrize("clients", range(1, 8))
+@pytest.mark.parametrize("servers", range(1, 5))
+def test_channel_arithmetic_is_the_layouts(host, clients, servers):
+    """``reg_chan`` maps each declared (sender, recipient) to its index
+    in ``register_channels()`` and every other pair to -1;
+    ``reg_chan_ends`` inverts it."""
+    model = PackedAbd(clients, server_count=servers, ordered=True)
+    chans = model.register_channels()
+    assert [tuple(x) for x in model.ordered_channels] == chans
+    n = clients + servers
+    for ch, (src, dst) in enumerate(chans):
+        assert host.h_reg_chan(src, dst, clients, servers) == ch
+        assert _reg_chan_ends(host, ch, clients, servers) == (src, dst)
+    declared = set(chans)
+    for src in range(n + 2):
+        for dst in range(n + 2):
+            if (src, dst) not in declared:
+                assert host.h_reg_chan(src, dst, clients, servers) == -1
+
+
+def test_edit_size_is_the_launchs(host):
+    """The launch sizes shared memory with the device structs' own
+    sizes: ``AbdOrderedModel::W`` and ``sizeof(Edit)`` (``OrderedEdit<6,
+    3>``: the destination's 6 words, the 22 history words of 7 clients,
+    3 appended messages of two words, 5 scalars and the 3 appends'
+    channels and entries), and each wide model's ``W``."""
+    edit = 6 + (1 + 3 * 7) + 2 * 3 + 5 + 2 * 3
+    assert _cuda.EDIT_MODELS["abd_ordered"] == (
+        host.h_words(b"abd_ordered", 0), host.h_words(b"abd_ordered", 1))
+    assert _cuda.EDIT_MODELS["abd_ordered"][1] == edit
+    for name, words in _cuda.WIDE_MODELS.items():
+        assert host.h_words(name.encode(), 0) == words == \
+            _cuda.row_words(name)
+
+
+def test_k1_launch_fits_at_every_admitted_ordered_configuration():
+    """At every admitted configuration and frontier the edit K1's tile
+    holds at most 32 rows, its threads are whole warps, the blocks cover
+    the frontier, and ``WIDE_BLOCKS_PER_SM`` blocks fit an SM's shared
+    memory."""
+    n = 0
+    for model in _admitted_ordered():
+        n += 1
+        a, w = model.max_actions, model.packed_width
+        for f in (1, 37, 256, 4096, 8192):
+            geo = _cuda.tile_geometry(f, a, SMS)
+            wide, smem = _cuda.k1_launch("abd_ordered", geo, f, w, a, SMS)
+            assert 1 <= wide.rows <= _cuda.WIDE_ROWS
+            assert wide.threads % 32 == 0 and wide.threads <= 128
+            assert wide.blocks * wide.rows >= f
+            assert smem <= BLOCK_SMEM
+            assert _cuda.WIDE_BLOCKS_PER_SM * (smem + RESERVED) <= SM_SMEM
+    assert n > 100
+    assert PackedAbd(2, server_count=3, ordered=True,
+                     channel_depth=8).packed_width == 331
+
+
+@pytest.mark.parametrize("make", [
+    lambda c, s: PackedAbd(c, server_count=s),
+    lambda c, s: PackedSingleCopy(c, s)], ids=["abd", "single-copy"])
+def test_unordered_register_rows_fit_the_wide_k1(make):
+    """Every unordered ABD and single-copy configuration of at most 7
+    clients, 4 servers and 16 slots fits the wide K1's 128-word row, and
+    its launch's shared memory fits a block."""
+    for c in range(1, 8):
+        for s in range(1, 5):
+            model = make(c, s)
+            name = model.cuda_spec()[0]
+            assert model.packed_width <= _cuda.WIDE_MODELS[name] == 128
+            geo = _cuda.tile_geometry(8192, model.max_actions, SMS)
+            _wide, smem = _cuda.k1_launch(name, geo, 8192,
+                                          model.packed_width,
+                                          model.max_actions, SMS)
+            assert smem <= BLOCK_SMEM
+
+
+def _reachable(model, limit):
+    """The first ``limit`` states of a host BFS, encoded."""
+    seen, rows, queue = set(), [], list(model.init_states())
+    while queue and len(rows) < limit:
+        state = queue.pop(0)
+        row = np.asarray(model.encode(state), dtype=np.uint32)
+        if row.tobytes() in seen:
+            continue
+        seen.add(row.tobytes())
+        rows.append(row)
+        queue.extend(model.next_states(state))
+    return np.stack(rows)
+
+
+def _crowded(model, rows, rng, k):
+    """``k`` of ``rows`` with about a third of their FIFO channels filled
+    to the depth with messages of an unknown type: appends there
+    overflow."""
+    out = []
+    depth = model.channel_depth
+    for row in rows[rng.choice(len(rows), k)]:
+        row = row.copy()
+        for ch in range(model._n_chan):
+            if rng.random() < 0.3:
+                for j in range(int(row[model._net_off + ch]), depth):
+                    off = model._msgs_off + (ch * depth + j) * 2
+                    row[off], row[off + 1] = (14 << 24) | j, j
+                row[model._net_off + ch] = depth
+        out.append(row)
+    return np.stack(out)
+
+
+#: the configurations whose device step is held lane for lane: ABD on
+#: the ordered network (the BASELINE's, abd3, tpu_abd2, the smallest and
+#: one with a single server and deep channels), ABD unordered,
+#: single-copy and Paxos
+HOST_STEPS = {
+    "abd-ordered-2": lambda: PackedAbd(2, ordered=True),
+    "abd-ordered-3x2-d8": lambda: PackedAbd(3, server_count=2, ordered=True,
+                                            channel_depth=8),
+    "abd-ordered-2x3-d8": lambda: PackedAbd(2, server_count=3, ordered=True,
+                                            channel_depth=8),
+    "abd-ordered-1x1": lambda: PackedAbd(1, server_count=1, ordered=True),
+    "abd-ordered-1x4-d6": lambda: PackedAbd(1, server_count=4, ordered=True,
+                                            channel_depth=6),
+    "abd-2": lambda: PackedAbd(2),
+    "abd-3x2": lambda: PackedAbd(3, server_count=2),
+    "abd-2x3": lambda: PackedAbd(2, server_count=3),
+    "single-copy-3": lambda: PackedSingleCopy(3),
+    "single-copy-2x2": lambda: PackedSingleCopy(2, 2),
+    "single-copy-4x2": lambda: PackedSingleCopy(4, 2),
+    "paxos-1": lambda: PackedPaxos(1),
+    "paxos-2": lambda: PackedPaxos(2),
+}
+
+
+@pytest.mark.parametrize("config", list(HOST_STEPS))
+def test_device_step_is_the_plain_step(host, config):
+    """The model's device functions, as K1 calls them, on every lane of
+    reachable rows (and, on the ordered network, rows with full
+    channels) against ``packed_step`` and ``packed_properties``: the
+    property bits of every row; the child's words, ``valid`` and
+    ``overflow`` of every stepped lane; a wide model's quiet lanes are
+    the row, invalid, and the plain step agrees; an edit model's lanes
+    are those of non-empty channels, and the plain step's other lanes
+    are invalid and do not overflow."""
+    model = HOST_STEPS[config]()
+    name, params = model.cuda_spec()
+    rows = _reachable(model, 300)
+    if name == "abd_ordered":
+        rng = np.random.default_rng(5)
+        rows = np.concatenate([rows, _crowded(model, rows, rng, 100)])
+    rows = np.ascontiguousarray(rows, dtype=np.uint32)
+    f, w, a = rows.shape[0], model.packed_width, model.max_actions
+    out = np.zeros(f * (1 + a * (1 + w)), dtype=np.uint32)
+    assert host.h_step(name.encode(), *params, rows.ctypes.data, f,
+                       out.ctypes.data) == 0
+    out = out.reshape(f, 1 + a * (1 + w))
+    lanes = out[:, 1:].reshape(f, a, 1 + w)
+    flags, child = lanes[:, :, 0], lanes[:, :, 1:]
+    stepped = (flags & 4) != 0
+    x = torch.from_numpy(rows.astype(np.int64))
+    s, valid, ovf = model.packed_step(x)
+    s = s.numpy().reshape(f, a, w).astype(np.uint32)
+    valid = valid.numpy().reshape(f, a)
+    ovf = ovf.numpy().reshape(f, a)
+    props = model.packed_properties(x).numpy().astype(np.uint32)
+    bits = (props << np.arange(props.shape[1], dtype=np.uint32)).sum(1)
+    assert np.array_equal(out[:, 0], bits)
+    if name == "abd_ordered":
+        lens = rows[:, model._net_off:model._net_off + model._n_chan]
+        assert np.array_equal(stepped, lens != 0)
+        held = stepped
+        assert not (valid & ~held).any() and not (ovf & ~held).any()
+        if config != "abd-ordered-1x1":
+            assert ovf.any()
+    else:
+        held = np.ones_like(stepped)
+        quiet = ~stepped
+        assert np.array_equal(child[quiet],
+                              np.broadcast_to(rows[:, None, :],
+                                              child.shape)[quiet])
+    assert valid[held].any()
+    assert np.array_equal(child[held], s[held])
+    assert np.array_equal((flags[held] & 1) != 0, valid[held])
+    assert np.array_equal((flags[held] & 2) != 0, ovf[held])
