@@ -137,7 +137,9 @@ Phases, one JSON line each:
              (PackedSingleCopy(3)) lane for lane, each at a step size its
              run launches (``REGISTER_STEPS``), with K2/K3, its launch,
              registers and no spill; at 331 words K7 after a real gated
-             step, K8 and K9. The K1 checks' plain versions run after
+             step, K8 and K9, at 260 words K7 (its 128-lane tile for rows
+             wider than its 256-thread block). The K1 checks' plain
+             versions run after
              the runs (at tpu_abd2's 1,055-row and single-copy's
              9,954-row steps they take tens of seconds, and later traces
              would lose their device time). The runs, with
@@ -378,9 +380,14 @@ def kernel_name(symbol: str):
 
 def kernel_instance(symbol: str):
     """The kernel a symbol names, K1 with its model's struct:
-    ``expand_kernel[TwoPcModel]``, ``expand_kernel_sym[IncrementModel]``
+    ``expand_kernel[TwoPcModel]``, ``expand_kernel_sym[IncrementModel]``,
+    K7 with its lanes a thread and threads: ``append_kernel[1x128]``
     (mangled or demangled names)."""
     name = kernel_name(symbol)
+    if name == "append_kernel":  # K7 by lanes a thread and threads
+        m = re.search(r"append_kernelILi(\d+)ELi(\d+)E", symbol) \
+            or re.search(r"append_kernel<(\d+), (\d+)>", symbol)
+        return f"{name}[{m.group(1)}x{m.group(2)}]" if m else name
     if name not in ("expand_kernel", "expand_kernel_sym"):
         return name
     m = re.search(r"expand_kernelI(\d+)", symbol)
@@ -613,7 +620,7 @@ def bound(nbytes: int, ops: int) -> dict:
 
 
 def kernel_parts(model, f: int, symmetry: bool, cc: int, by_kernel,
-                 counts=None, noprobe=None) -> dict:
+                 counts=None, noprobe=None, written=None) -> dict:
     """Per kernel of one step over ``f`` rows: its device ms (from
     ``by_kernel``, a profiled call), its own bound and its launch
     geometry. K1 (expand) always; with ``counts = (valid lanes, tile
@@ -622,7 +629,9 @@ def kernel_parts(model, f: int, symmetry: bool, cc: int, by_kernel,
     (valid lanes, tile winners, tile winners the ring held, claims)``
     K5's claim and commit of the probe-free step. Each kernel counts its
     own inputs read once and outputs written once, so the parts' bounds
-    add up to more than the step's (K1's outputs are K2's inputs)."""
+    add up to more than the step's (K1's outputs are K2's inputs).
+    ``written``: the lanes whose children K1 writes (an edit model's
+    active lanes; default every lane)."""
     import torch
 
     from stateright_tpu_torch.ops import _cuda
@@ -630,6 +639,8 @@ def kernel_parts(model, f: int, symmetry: bool, cc: int, by_kernel,
     w = model.packed_width
     a = model.max_actions
     lanes = f * a
+    if written is None:
+        written = lanes
     pcols = max(len(model.properties()), 1)
     by_kernel = by_kernel or {}
     tiles = _cuda.tile_geometry(
@@ -642,10 +653,11 @@ def kernel_parts(model, f: int, symmetry: bool, cc: int, by_kernel,
         "device_ms": by_kernel.get(k1),
         **bound(f * (4 * w + 4 + 1)                # frontier, ebits, fvalid
                 + f * (pcols + 4 + 1)              # pbits, ebits, terminal
-                + lanes * (4 * w + 8 + 1)          # flat, chi/clo, cvalid
+                + written * 4 * w                  # flat
+                + lanes * (8 + 1)                  # chi/clo, cvalid
                 + lanes * (8 if symmetry else 0)   # ohi/olo
                 + cc * 8,                          # the ring arena reset
-                lanes * step_ops(model, symmetry)),
+                written * step_ops(model, symmetry)),
         "geometry": geometry}}
     if counts is not None:
         valid, winners, table, ins = counts
@@ -848,15 +860,28 @@ def _step_against_plain(model, f, symmetry, active, args, k, n_claims,
     n_win = int(sk[S_DEDUP]) + int(sk[S_CCH])
     n_ins = len(kk)
     n_written = lanes if written is None else int(written.sum())
-    nbytes = (f * (4 * w + 4 + 8 + 1)            # frontier, ebits, fps, fvalid
-              + f * (max(n_props, 1) + 4 + 1)    # pbits, ebits, terminal
-              + n_written * 4 * w                # flat
-              + lanes * (8 + 3)                  # chi/clo, 3 masks
-              + lanes * (8 if symmetry else 0)   # ohi/olo
-              + (n_win * 8 if ring0.shape[0] else 0)  # ring probes
-              + n_table * 32                     # bucket reads
-              + n_ins * 16)                      # table + ring writes
+
+    def step_bytes(rows, n_w):
+        a = model.max_actions
+        return (rows * (4 * w + 4 + 8 + 1)        # frontier, ebits, fps,
+                                                  # fvalid
+                + rows * (max(n_props, 1) + 4 + 1)  # pbits, ebits, terminal
+                + n_w * 4 * w                     # flat
+                + rows * a * (8 + 3)              # chi/clo, 3 masks
+                + rows * a * (8 if symmetry else 0)  # ohi/olo
+                + (n_win * 8 if ring0.shape[0] else 0)  # ring probes
+                + n_table * 32                    # bucket reads
+                + n_ins * 16)                     # table + ring writes
+    nbytes = step_bytes(f, n_written)
     ops = n_written * step_ops(model, symmetry) + n_table * 12
+    # the same over the pending rows only (the rows past them are
+    # stepped, invalid): the least work of the search's own step
+    pending = int(args[2].sum())
+    pw = (pending * model.max_actions if written is None
+          else int(written[:pending * model.max_actions].sum()))
+    pending_bound = {"rows": pending, "written": pw,
+                     **bound(step_bytes(pending, pw),
+                             pw * step_ops(model, symmetry) + n_table * 12)}
     return {"f": f, "lanes": lanes, "written": n_written, "valid": n_valid,
             "tile_winners": n_win, "to_table": n_table,
             "inserted": n_ins, "claims": n_claims, "max_abs_err": err,
@@ -864,9 +889,11 @@ def _step_against_plain(model, f, symmetry, active, args, k, n_claims,
             "device_ms": dev["ours_ms"],
             "device_by_kernel_ms": dev["by_kernel_ms"],
             "plain_ms": plain_ms, **bound(nbytes, ops),
+            "pending_bound": pending_bound,
             "parts": kernel_parts(model, f, symmetry, ring0.shape[0],
                                   dev["by_kernel_ms"],
-                                  (n_valid, n_win, n_table, n_ins)),
+                                  (n_valid, n_win, n_table, n_ins),
+                                  written=n_written),
             "checks": checks}
 
 
@@ -2748,6 +2775,19 @@ REGISTER_STEPS = (
 #: the label of the widest register row (331 words), where K7, K8 and
 #: K9 are checked too
 WIDE_REGISTER = REGISTER_STEPS[3][0]
+#: abd3's label (260-word rows), where K7 is checked too
+ABD3_REGISTER = REGISTER_STEPS[1][0]
+#: the redesign of the ordered register path's two kernels (the
+#: ``kernels`` line's ``redesigned``)
+REDESIGNED = {
+    "abd_ordered": "the block's warps share the children (child c by "
+                   "warp c % nwarps), each written from the edit's "
+                   "columns in registers, 32 words a store; the "
+                   "fingerprint from the row's folds with only the "
+                   "changed words refolded; rows loaded block-wide",
+    "append": "rows wider than 256 words on 128-lane tiles of 128 "
+              "threads (the tiles outnumber the SMs), a warp per row, 32 "
+              "words a store, 24 words in flight a lane"}
 #: K1's model struct of each register instantiation (ptxas's name)
 REGISTER_STRUCTS = {"abd_ordered": "AbdOrderedModel", "abd": "AbdModel",
                     "single_copy": "SingleCopyModel"}
@@ -2765,8 +2805,9 @@ def ordered_active(model):
 def register_kernels(device) -> tuple:
     """The register family's K1 instantiations at a mid-search step of
     each ``REGISTER_STEPS`` configuration, timed, with their launch,
-    registers and spills; and at the widest row (331 words) K7 (after a
-    real gated step), K8 and K9 against their plain versions. Returns
+    registers and spills; at the widest row (331 words) K7 (after a real
+    gated step), K8 and K9 against their plain versions, and at abd3's
+    (260 words) K7. Returns
     the checks by label and the K1 checks' plain halves
     (:func:`register_plain`), which run at the end of the script."""
     from stateright_tpu_torch.ops import _cuda
@@ -2789,13 +2830,14 @@ def register_kernels(device) -> tuple:
                 "k1_launch": {**wide._asdict(), "smem_bytes": smem},
                 "usage": usage}
         checks[label] = {}
-        if label == WIDE_REGISTER:
-            for kernel, fn in (
-                    ("append", lambda: check_append(model, carry, rows,
-                                                    reps=10)),
-                    ("history", lambda: check_history(model, carry, rows,
-                                                      reps=10)),
-                    ("hpull", lambda: check_hpull(model, carry, reps=20))):
+        row_checks = (
+            ("append", lambda: check_append(model, carry, rows, reps=10)),
+            ("history", lambda: check_history(model, carry, rows,
+                                              reps=10)),
+            ("hpull", lambda: check_hpull(model, carry, reps=20)))
+        if label in (WIDE_REGISTER, ABD3_REGISTER):
+            for kernel, fn in row_checks[:3 if label == WIDE_REGISTER
+                                         else 1]:
                 r = fn()
                 checks[label][kernel] = r
                 emit(phase="kernels", kernel=kernel, model=label, **r)
@@ -2987,9 +3029,11 @@ def register_kernel_entries(checks: dict, runs: dict) -> list:
             "by_model": {lb: {k: r[k] for k in (
                 "f", "pending", "width", "lanes", "written", "ms",
                 "device_ms", "plain_ms", "bound_ms", "bound_by",
-                "max_abs_err",
-                "k1_launch", "usage")} for lb, r in by.items()},
+                "max_abs_err", "pending_bound",
+                "k1_launch", "usage", "parts")} for lb, r in by.items()},
             "status": "ok"})
+        if name in REDESIGNED:
+            out[-1]["redesigned"] = REDESIGNED[name]
     return out
 
 
@@ -3602,16 +3646,24 @@ def main() -> int:
     kernels += model_kernel_entries(model_steps, model_runs)
     kernels += paxos_kernel_entries(pax_checks, pax_runs)
     kernels += register_kernel_entries(reg_checks, reg_runs)
-    # K7, K8 and K9 at the widest register row (331 words)
+    # K7, K8 and K9 at the widest register row (331 words), K7 at abd3's
+    # (260)
     for entry in kernels:
-        r = reg_checks[WIDE_REGISTER].get(entry["name"])
-        if entry["name"] in ("append", "history", "hpull"):
-            entry["register_331"] = {
-                "model": WIDE_REGISTER, "launches": reg_runs["abd2_s3"][
+        for label, key, run_key in (
+                (WIDE_REGISTER, "register_331", "abd2_s3"),
+                (ABD3_REGISTER, "register_260", "abd3")):
+            r = reg_checks[label].get(entry["name"])
+            if r is None or entry["name"] not in ("append", "history",
+                                                  "hpull"):
+                continue
+            entry[key] = {
+                "model": label, "launches": reg_runs[run_key][
                     "launches"][entry["name"]],
                 **{k: r.get(k) for k in (
                     "max_abs_err", "ms", "device_ms", "plain_ms",
                     "bound_ms", "bound_by")}}
+            if entry["name"] in REDESIGNED:
+                entry[key]["redesigned"] = REDESIGNED[entry["name"]]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     # the run uses one card, whatever the machine holds

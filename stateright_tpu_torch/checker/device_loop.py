@@ -636,7 +636,7 @@ class CardChunk:
         # matches a tile
         lanes = f_large * n_actions
         self.scratch = _cuda.append_scratch(
-            lanes, _cuda.append_tile(lanes, sms), dev)
+            lanes, _cuda.append_tile(lanes, sms, carry.layout.W), dev)
         lay = carry.layout
         self.args = _cuda.chunk_args(
             ctr=carry.ctr, bufs=self.bufs, q=carry.q, log=carry.log,

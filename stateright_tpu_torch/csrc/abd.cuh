@@ -18,8 +18,8 @@
 //                    tpu_abd3 260 and tpu_abd2 331): an edit model
 //                    (kEditRow, step_common.cuh), whose lane computes
 //                    the edit of its child (actor_net.cuh
-//                    register_edit_ordered) and whose warp writes the
-//                    children from the shared row (register_child_word).
+//                    register_edit_ordered) and whose warps write the
+//                    children from the shared row (ordered_child_word).
 //
 // Packed server state (2 + S words): w0 = seq | val << 12 | tag << 16 |
 // rid << 18 | requester << 26 (tag 0 idle, 1 phase 1, 2 phase 2), w1 =
@@ -227,6 +227,7 @@ struct AbdOrderedModel : AbdServer {
   static constexpr bool kEditRow = true;
   static constexpr int kMaxChannels = 32;  // a mask of the lanes
   using Edit = actor::OrderedEdit<kMaxSW, kMaxSends>;
+  using Head = actor::OrderedHead<kMaxSends>;
   // ops/_cuda.py EDIT_MODELS sizes K1's shared memory with it
   static_assert(sizeof(Edit) == 45 * sizeof(uint32_t), "EDIT_MODELS");
 
@@ -273,9 +274,14 @@ struct AbdOrderedModel : AbdServer {
     return actor::register_edit_ordered(*this, w, c, ed, ovf);
   }
 
+  __device__ __forceinline__ Head edit_head(const Edit& ed) const {
+    return actor::ordered_head(ed, D);
+  }
+
   __device__ __forceinline__ uint32_t child_word(const uint32_t* w,
                                                  const Edit& ed,
-                                                 int k) const {
-    return actor::register_child_word(*this, w, ed, k);
+                                                 const Head& h, int k,
+                                                 uint32_t old) const {
+    return actor::ordered_child_word(*this, w, ed, h, k, old);
   }
 };

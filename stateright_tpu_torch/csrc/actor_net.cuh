@@ -2,12 +2,12 @@
 // protocols (csrc/paxos.cuh, abd.cuh, single_copy.cuh): the unordered
 // non-duplicating network of stateright_tpu_torch/actor/packed.py
 // (net_consume, net_send), the ordered network's FIFO channels
-// (reg_chan, OrderedEdit), the register client's step and the
+// (reg_chan, OrderedEdit, OrderedHead), the register client's step and the
 // linearizability history's record hooks of actor/packed_register.py
 // (_client_step, packed_record_in, packed_record_out), and the two steps
 // a register model runs: register_step_unordered, which writes the child
 // through step_common.cuh's RowOut, and register_edit_ordered with
-// register_child_word, which describe the child as the row plus an edit.
+// ordered_child_word, which describe the child as the row plus an edit.
 //
 // They compute what the JAX package's _packed_step_unordered
 // (stateright_tpu/actor/packed.py:710, with _net_consume :489 and
@@ -426,19 +426,48 @@ __device__ __forceinline__ void reg_chan_ends(int ch, int C, int S,
   }
 }
 
-// A lane's child on the ordered network as an edit of the row: the
-// destination's new words, the history, the popped channel and the
-// appended entries (at most kMaxSends), or the poison of an
-// overflowing child. It lives in shared memory, one per thread, and the
-// lanes of a warp read one another's (register_child_word).
+// A lane's child on the ordered network as an edit of the row, in
+// shared memory (one slot per thread of K1, read by the warp that writes
+// the child): the destination's new words, the history and the appended
+// messages, and where each lands in the child as absolute columns, so
+// the writer needs no channel arithmetic: the destination's span [aoff,
+// aoff + an), the popped channel's length column and first entry word,
+// each append's length column and entry word (-2 past the appends); or
+// the poison of an overflowing child.
 template <int kMaxSW, int kMaxSends>
 struct OrderedEdit {
   uint32_t actor[kMaxSW];  // the destination's words from aoff, an of them
   uint32_t hist[kMaxHist];
   uint32_t am0[kMaxSends], am1[kMaxSends];  // the appended messages
-  int aoff, an, pop, napp, poison;
-  int achan[kMaxSends], apos[kMaxSends];  // their channels and entries
+  int aoff, an, plen, pword, poison;
+  int alen[kMaxSends], aword[kMaxSends];
 };
+
+// An OrderedEdit's columns in registers (ordered_head), read once per
+// child by the warp that writes it; pend is the popped channel's end.
+template <int kMaxSends>
+struct OrderedHead {
+  int aoff, an, plen, pword, pend, poison;
+  int alen[kMaxSends], aword[kMaxSends];
+};
+
+template <int kMaxSW, int kMaxSends>
+__device__ __forceinline__ OrderedHead<kMaxSends> ordered_head(
+    const OrderedEdit<kMaxSW, kMaxSends>& ed, int depth) {
+  OrderedHead<kMaxSends> h;
+  h.aoff = ed.aoff;
+  h.an = ed.an;
+  h.plen = ed.plen;
+  h.pword = ed.pword;
+  h.pend = ed.pword + 2 * depth;
+  h.poison = ed.poison;
+#pragma unroll
+  for (int a = 0; a < kMaxSends; ++a) {
+    h.alen[a] = ed.alen[a];
+    h.aword[a] = ed.aword[a];
+  }
+  return h;
+}
 
 // The edit of the lane that delivers the head of channel c of row w (in
 // shared memory) into ed; returns whether the child is a valid
@@ -469,6 +498,7 @@ __device__ __forceinline__ bool register_edit_ordered(const M& m,
 #pragma unroll
   for (int k = 0; k < M::kMaxSends; ++k) {
     achan[k] = -1;
+    ed.alen[k] = ed.aword[k] = -2;  // past the appends: no column
     const Send& sd = d.sends[k];
     if (k < m.n_sends() && sd.valid) {
       record_out(hist, m.S, m.C, dst, sd.m0);
@@ -484,8 +514,8 @@ __device__ __forceinline__ bool register_edit_ordered(const M& m,
         achan[k] = cd;
         ed.am0[napp] = sd.m0;
         ed.am1[napp] = sd.m1;
-        ed.achan[napp] = cd;
-        ed.apos[napp] = (int)pos;
+        ed.alen[napp] = m.lens_off + cd;
+        ed.aword[napp] = m.msgs_off + 2 * (m.D * cd + (int)pos);
         ++napp;
       }
     }
@@ -493,48 +523,46 @@ __device__ __forceinline__ bool register_edit_ordered(const M& m,
   const bool poison = valid && overflow;
   ovf = poison;
   ed.poison = poison;
-  ed.pop = c;
-  ed.napp = napp;
+  ed.plen = m.lens_off + c;
+  ed.pword = m.msgs_off + 2 * m.D * c;
   ed.aoff = d.doff;
   ed.an = d.dn;
 #pragma unroll
   for (int j = 0; j < M::kMaxSW; ++j) ed.actor[j] = d.nw[j];
 #pragma unroll
-  for (int i = 0; i < kMaxHist; ++i) ed.hist[i] = hist.h[i];
+  for (int i = 0; i < kMaxHist; ++i)
+    if (i < m.hw) ed.hist[i] = hist.h[i];
   return valid && !poison;
 }
 
-// Word k of the child that edit ed makes of row w: the destination's new
-// words, the channels' lengths (the popped one less one, each append
-// one more), their entries (the popped channel shifted by one entry, a
-// zero entering at its tail; the appended entries), the history, else
-// the row's word.
-template <class M, class Edit>
-__device__ __forceinline__ uint32_t register_child_word(const M& m,
-                                                        const uint32_t* w,
-                                                        const Edit& ed,
-                                                        int k) {
-  if (ed.poison) return kPoison;
-  if (k < m.lens_off)
-    return k >= ed.aoff && k < ed.aoff + ed.an ? ed.actor[k - ed.aoff]
-                                               : w[k];
-  if (k < m.msgs_off) {
-    const int ch = k - m.lens_off;
-    uint32_t v = w[k] - (ch == ed.pop ? 1u : 0u);
-    for (int a = 0; a < ed.napp; ++a) v += ed.achan[a] == ch ? 1u : 0u;
-    return v;
+// Word k of the child that edit ed (its columns h in registers) makes of
+// row w, whose word k is old. The child is the row but for the edit's
+// spans: the destination's words [aoff, aoff + an) from the edit; the
+// popped channel's entries [pword, pend) shifted by one entry, a zero
+// entry entering at its tail; the popped channel's length one less and
+// each append's channel's one more; each appended entry's two words
+// (over the shift where a lane appends to the channel it pops); the
+// history [hist_off, width) from the edit. The poison's every word is
+// kPoison.
+template <class M, class Edit, class Head>
+__device__ __forceinline__ uint32_t ordered_child_word(const M& m,
+                                                       const uint32_t* w,
+                                                       const Edit& ed,
+                                                       const Head& h, int k,
+                                                       uint32_t old) {
+  if (h.poison) return kPoison;
+  uint32_t v = old;
+  if ((unsigned)(k - h.aoff) < (unsigned)h.an) v = ed.actor[k - h.aoff];
+  if (k >= h.pword && k < h.pend) v = k + 2 < h.pend ? w[k + 2] : 0u;
+  if (k == h.plen) v -= 1u;
+#pragma unroll
+  for (int a = 0; a < M::kMaxSends; ++a) {
+    if (k == h.alen[a]) v += 1u;
+    if (k == h.aword[a]) v = ed.am0[a];
+    if (k == h.aword[a] + 1) v = ed.am1[a];
   }
-  if (k < m.timer_off) {
-    const int r = k - m.msgs_off, ch = r / (2 * m.D);
-    const int j = (r >> 1) - ch * m.D;
-    for (int a = 0; a < ed.napp; ++a)
-      if (ed.achan[a] == ch && ed.apos[a] == j)
-        return (r & 1) ? ed.am1[a] : ed.am0[a];
-    if (ch == ed.pop) return j < m.D - 1 ? w[k + 2] : 0u;
-    return w[k];
-  }
-  if (k < m.hist_off) return w[k];
-  return ed.hist[k - m.hist_off];
+  if (k >= m.hist_off) v = ed.hist[k - m.hist_off];
+  return v;
 }
 
 // "value chosen" on the ordered network: some channel's head is a GetOk

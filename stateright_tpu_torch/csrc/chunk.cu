@@ -33,8 +33,10 @@
 //                          queue head, under the gate's tag.
 //   K7 append_kernel       one launch: a block per tile of 1,024 or 4,096
 //                          lanes of the large step (256 threads of 4 or
-//                          16 lanes; ops/_cuda.py append_tile picks the
-//                          size per chunk), and one block more,
+//                          16 lanes; rows wider than 256 words: 128
+//                          lanes, a thread each; ops/_cuda.py
+//                          append_tile picks the size per chunk), and
+//                          one block more,
 //                          the tail. Each block reads the gate and draws
 //                          a ticket (its tile, and the launch's epoch);
 //                          a tile's block counts its inserted lanes from
@@ -124,9 +126,15 @@ enum Extra {
 };
 
 // K7's blocks: 256 threads, each over 4 or 16 consecutive lanes
-// (ChunkArgs.tile_lanes: a tile of 1,024 or 4,096 lanes)
+// (ChunkArgs.tile_lanes: a tile of 1,024 or 4,096 lanes), or for rows
+// wider than that block 128 threads of one lane each (a tile of 128
+// lanes: a large step's tiles then outnumber the SMs)
 constexpr int kAppendThreads = 256;
-constexpr int kAppendWarps = kAppendThreads / 32;
+constexpr int kWideTileThreads = 128;
+// the words of a wide queue row a lane holds (rows of up to
+// 32 * kQueueWords words) and the rows a warp copies at once
+constexpr int kQueueWords = 12;
+constexpr int kRowsInFlight = 2;
 // the words a thread has in flight at once (row words, status words)
 constexpr int kBatch = 8;
 // threads of chunk_begin_kernel
@@ -142,6 +150,7 @@ constexpr int kMaxStats = 64;
 // takes
 constexpr int kRecentWords = 5;
 constexpr int kMaxRowWords = 352;
+static_assert(kMaxRowWords + 3 <= 32 * kQueueWords, "a wide queue row");
 
 // A block's status word: the epoch of the K7 launch that wrote it (high
 // 32 bits), a flag (2 bits) and a count of rows (30 bits): its tile's
@@ -211,25 +220,29 @@ template <int LPT>
 __device__ __forceinline__ uint32_t lane_bits(const uint8_t* ins,
                                               long long l0,
                                               long long lanes) {
-  uint32_t m = 0;
-  if (l0 + LPT <= lanes) {
-    uint32_t w[LPT / 4];
-    if constexpr (LPT == 16) {
-      const uint4 v = *reinterpret_cast<const uint4*>(ins + l0);
-      w[0] = v.x, w[1] = v.y, w[2] = v.z, w[3] = v.w;
-    } else {
-      w[0] = *reinterpret_cast<const uint32_t*>(ins + l0);
-    }
-#pragma unroll
-    for (int k = 0; k < LPT / 4; ++k)
-#pragma unroll
-      for (int b = 0; b < 4; ++b)
-        if ((w[k] >> (8 * b)) & 0xFFu) m |= 1u << (4 * k + b);
+  if constexpr (LPT == 1) {
+    return l0 < lanes && ins[l0] ? 1u : 0u;
   } else {
-    for (int k = 0; k < LPT && l0 + k < lanes; ++k)
-      if (ins[l0 + k]) m |= 1u << k;
+    uint32_t m = 0;
+    if (l0 + LPT <= lanes) {
+      uint32_t w[LPT / 4];
+      if constexpr (LPT == 16) {
+        const uint4 v = *reinterpret_cast<const uint4*>(ins + l0);
+        w[0] = v.x, w[1] = v.y, w[2] = v.z, w[3] = v.w;
+      } else {
+        w[0] = *reinterpret_cast<const uint32_t*>(ins + l0);
+      }
+#pragma unroll
+      for (int k = 0; k < LPT / 4; ++k)
+#pragma unroll
+        for (int b = 0; b < 4; ++b)
+          if ((w[k] >> (8 * b)) & 0xFFu) m |= 1u << (4 * k + b);
+    } else {
+      for (int k = 0; k < LPT && l0 + k < lanes; ++k)
+        if (ins[l0 + k]) m |= 1u << k;
+    }
+    return m;
   }
-  return m;
 }
 
 // Orders this thread's earlier loads and stores before its later ones,
@@ -462,10 +475,12 @@ __device__ __forceinline__ ColumnSrc log_column(const ChunkArgs& c, int col,
 // neighbouring words, the column's source is fixed for the whole walk (no
 // branch per word), and each thread has up to kBatch words of each span
 // in flight before it stores them. Queue rows wider than the threads
-// (W + 3 > nthreads: the ordered register rows of up to 352 words) are
-// written as one run of n (W + 3) words instead, thread t taking words
-// t, t + nthreads, ..., kBatch in flight. Row i is lane t0 + s_off[i] of
-// frontier row r0 + s_row[i].
+// (W + 3 > nthreads: the ordered register rows of up to 352 words, in
+// 128-lane tiles) are copied a warp per row instead, 32 consecutive
+// words a store: a row's source is fixed for the whole row (no division
+// or column switch per word), and each lane holds kRowsInFlight rows'
+// words (up to 24) in flight. Row i is lane t0 + s_off[i] of frontier
+// row r0 + s_row[i].
 __device__ __forceinline__ void write_rows(
     const ChunkArgs& c, int t, int nthreads, int n, int t0, int r0,
     const uint16_t* s_off, const uint16_t* s_row, int head, int qbase,
@@ -475,24 +490,43 @@ __device__ __forceinline__ void write_rows(
   const int qrow = t < qstride * qc ? t / qc : n;  // n: no column
   const int lrow = t < lstride * lc ? t / lc : n;
   const int qcol = t - (t / qc) * qc, lcol = t - (t / lc) * lc;
-  if (qstride == 0) {  // the n rows' words in order, kBatch in flight
-    const int total = n * qc;
-    uint32_t* dst = c.q + ((long long)qbase + excl) * qc;
-    for (int base = t; base < total; base += nthreads * kBatch) {
-      uint32_t v[kBatch];
+  if (qstride == 0) {
+    // a warp per row, kRowsInFlight rows at once: the row's words from
+    // its lane's flat row, then the row's eventually-bits and the
+    // child's key, lane wl holding words wl + 32 u
+    const int wl = t & 31, wid = t >> 5, nw = nthreads >> 5;
+    uint32_t* q0 = c.q + ((long long)qbase + excl) * qc;
+    for (int i0 = wid; i0 < n; i0 += nw * kRowsInFlight) {
+      uint32_t v[kRowsInFlight][kQueueWords];
 #pragma unroll
-      for (int u = 0; u < kBatch; ++u) {
-        const int x = base + u * nthreads, i = x / qc, col = x - i * qc;
-        if (x < total) {
-          const ColumnSrc src = queue_column(c, col);
-          v[u] = src.base[(long long)(t0 + s_off[i]) * src.mul_l +
-                          (long long)(r0 + s_row[i]) * src.mul_r + src.add];
+      for (int j = 0; j < kRowsInFlight; ++j) {
+        const int i = i0 + j * nw;
+        if (i < n) {
+          const long long l = t0 + s_off[i];
+          const uint32_t* src = c.flat + l * c.W;
+#pragma unroll
+          for (int u = 0; u < kQueueWords; ++u) {
+            const int k = wl + 32 * u;
+            if (k < c.W)
+              v[j][u] = src[k];
+            else if (k == c.W)
+              v[j][u] = c.ebits[r0 + s_row[i]];
+            else if (k < qc)
+              v[j][u] = (k == c.W + 1 ? c.chi : c.clo)[l];
+          }
         }
       }
 #pragma unroll
-      for (int u = 0; u < kBatch; ++u) {
-        const int x = base + u * nthreads;
-        if (x < total) dst[x] = v[u];
+      for (int j = 0; j < kRowsInFlight; ++j) {
+        const int i = i0 + j * nw;
+        if (i < n) {
+          uint32_t* dst = q0 + (long long)i * qc;
+#pragma unroll
+          for (int u = 0; u < kQueueWords; ++u) {
+            const int k = wl + 32 * u;
+            if (k < qc) dst[k] = v[j][u];
+          }
+        }
       }
     }
   }
@@ -647,17 +681,17 @@ __device__ __forceinline__ void append_tail(const ChunkArgs& c, int size,
   commit_counters(c, lane, 32, s_ctr);
 }
 
-// K7 over tiles of 256 * LPT lanes: the appends in lane order, and (the
-// tail) the carry update and the next gate. Each block reads the gate,
+// K7 over tiles of THREADS * LPT lanes: the appends in lane order, and
+// (the tail) the carry update and the next gate. Each block reads the gate,
 // and on an open gate draws a ticket; its last status word (a release)
 // comes after its reads of the gate, and the tail (the block that draws
 // the launch's last ticket) rewrites the gate only after it has read
 // every block's last word, so every block works on this iteration's
 // gate.
-template <int LPT>
-__global__ void __launch_bounds__(kAppendThreads)
-    append_kernel(ChunkArgs c) {
-  constexpr int kTile = kAppendThreads * LPT;
+template <int LPT, int THREADS>
+__global__ void __launch_bounds__(THREADS) append_kernel(ChunkArgs c) {
+  constexpr int kTile = THREADS * LPT;
+  constexpr int kAppendWarps = THREADS / 32;
   __shared__ unsigned long long s_ticket;
   __shared__ int s_size, s_head, s_qbase, s_lbase, s_excl, s_tile_last;
   __shared__ int s_warp[kAppendWarps];
@@ -752,7 +786,7 @@ __global__ void __launch_bounds__(kAppendThreads)
     store_release(c.status + tile, status_word(epoch, F_AGG, 0));
   }
   if (tile >= nblk || n == 0) return;
-  write_rows(c, tid, kAppendThreads, n, t0, r0, s_off, s_row, s_head,
+  write_rows(c, tid, THREADS, n, t0, r0, s_off, s_row, s_head,
              s_qbase, s_lbase, s_excl);
 }
 
@@ -788,15 +822,19 @@ int srt_append(const ChunkArgs* c) {
       (long long)c->f_large * c->A > (long long)kValueMask ||
       ctr_len(*c) > kMaxCtr || c->stats_len > kMaxStats || c->P > 31 ||
       c->W > kMaxRowWords ||
-      (t != 1024 && t != 4096))
+      (t != kWideTileThreads && t != 1024 && t != 4096))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(c->stream);
   // the tiles of the large step, and the tail
   const int blocks = append_blocks((long long)c->f_large * c->A, t) + 1;
-  if (t == 1024)
-    append_kernel<4><<<blocks, kAppendThreads, 0, st>>>(*c);
+  if (t == kWideTileThreads)  // one lane a thread
+    append_kernel<1, kWideTileThreads><<<blocks, kWideTileThreads, 0, st>>>(
+        *c);
+  else if (t == 1024)
+    append_kernel<4, kAppendThreads><<<blocks, kAppendThreads, 0, st>>>(*c);
   else
-    append_kernel<16><<<blocks, kAppendThreads, 0, st>>>(*c);
+    append_kernel<16, kAppendThreads><<<blocks, kAppendThreads, 0, st>>>(
+        *c);
   return (int)cudaGetLastError();
 }
 

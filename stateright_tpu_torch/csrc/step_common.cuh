@@ -18,13 +18,10 @@
 #include <cuda_runtime.h>
 #include <type_traits>
 
+#include "fold.cuh"
+
 namespace {
 
-constexpr uint32_t kC1_1 = 0xCC9E2D51u;
-constexpr uint32_t kC1_2 = 0x239B961Bu;
-constexpr uint32_t kGolden = 0x9E3779B9u;
-constexpr uint32_t kSeed1 = 0x9747B28Cu;
-constexpr uint32_t kSeed2 = 0x85EBCA6Bu;
 constexpr uint32_t kPhi = 0x9E3779B9u;
 constexpr int kBucket = 4;
 // threads per block of the flat insert (one lane per thread)
@@ -138,15 +135,6 @@ struct StepArgs {
 
 namespace {
 
-__device__ __forceinline__ uint32_t fmix32(uint32_t h) {
-  h ^= h >> 16;
-  h *= 0x85EBCA6Bu;
-  h ^= h >> 13;
-  h *= 0xC2B2AE35u;
-  h ^= h >> 16;
-  return h;
-}
-
 // The fingerprint of stateright_tpu_torch/fingerprint.py fp64_words
 // over the first width words of w (width <= W; a runtime width is
 // walked by an unrolled, guarded loop, so w stays in registers): each
@@ -163,18 +151,6 @@ __device__ __forceinline__ void fp64(const uint32_t (&w)[W], int width,
       h2 ^= fmix32(x * kC1_2);
     }
   }
-  h1 = fmix32(h1 ^ kSeed1 ^ (uint32_t)width);
-  h2 = fmix32(h2 ^ kSeed2 ^ ((uint32_t)width * kC1_1));
-  if (h1 == 0u && h2 == 0u) h2 = 1u;
-  hi = h1;
-  lo = h2;
-}
-
-// fp64's seeds and width mixed into the XOR-folds h1, h2 of a row's
-// width words (as fp64 ends).
-__device__ __forceinline__ void fp64_finish(uint32_t h1, uint32_t h2,
-                                            int width, uint32_t& hi,
-                                            uint32_t& lo) {
   h1 = fmix32(h1 ^ kSeed1 ^ (uint32_t)width);
   h2 = fmix32(h2 ^ kSeed2 ^ ((uint32_t)width * kC1_1));
   if (h1 == 0u && h2 == 0u) h2 = 1u;
@@ -377,16 +353,22 @@ struct WideRow<M, std::void_t<decltype(M::kWideRow)>>
 // Whether M is an edit model (M::kEditRow): a row too wide to stage each
 // child in shared memory (ABD on the ordered network: up to 352 words),
 // whose lane's child is the row plus a short edit (M::Edit: the words
-// the lane's action changes). K1 keeps the tile's rows in shared memory
-// as for a wide model and steps the lanes of m.active_lanes(row) (a mask
-// of at most 32 lanes) densely, a thread each: m.edit_lane(row, act, ed,
-// ovf) writes the lane's edit to the thread's slot in shared memory;
-// then each warp writes its children one after another, its 32 lanes
-// over the child's words (m.child_word(row, ed, k)), each folding its
-// words into the fingerprint, which a warp reduction finishes. The other
-// lanes are invalid and do not overflow (the model's rule): they get
-// the row's fingerprint and cvalid = 0, and their rows of flat are not
-// written.
+// the lane's action changes and the columns they land in). K1 keeps the
+// tile's rows in shared memory as for a wide model (loaded block-wide,
+// kEditLoads words in flight a thread), with each row's fingerprint
+// folds, and steps the lanes of m.active_lanes(row) (a mask of at most
+// 32 lanes) densely, a thread each: m.edit_lane(row, act, ed, ovf)
+// writes the lane's edit to the thread's slot in shared memory. After a
+// barrier the block's warps share the children, child c of the pass by
+// warp c % nwarps: the warp reads the edit's columns into registers
+// once (m.edit_head(ed)) and writes the child's words 32 consecutive
+// ones a store (m.child_word(row, ed, head, k, old)); a lane whose word
+// differs from the row's folds the old word out and the new one in
+// (fold.cuh fold_change), so the child's fingerprint is the row's folds
+// with its changed columns refolded, XOR-reduced over the warp and
+// finished. The other lanes are invalid and do not overflow (the
+// model's rule): they get the row's fingerprint and cvalid = 0, and
+// their rows of flat are not written.
 template <class M, class = void>
 struct EditRow : std::false_type {};
 template <class M>
@@ -396,6 +378,9 @@ struct EditRow<M, std::void_t<decltype(M::kEditRow)>>
 // K1-wide's launch is ops/_cuda.py wide_geometry's; its tile holds at
 // most kWideRows rows (one warp scans them). So is an edit model's.
 constexpr int kWideRows = 32;
+// the frontier words an edit model's K1 thread has in flight as it
+// loads the tile's rows
+constexpr int kEditLoads = 8;
 
 // A staging row's stride in words: the width made odd, so word k of the
 // 32 lanes of a warp falls in 32 distinct banks (at width 96 an even
@@ -445,7 +430,7 @@ __device__ __forceinline__ WideSmem wide_smem(unsigned char* smem,
 }
 
 // The column key of fp64 for column k: kColumnKey's below its size,
-// computed past it (an edit model's rows are up to 352 words).
+// computed past it.
 __device__ __forceinline__ uint32_t column_key(int k) {
   return k < kColumnKeys ? kColumnKey[k]
                          : fmix32((uint32_t)(k + 1) * kGolden);
@@ -514,10 +499,11 @@ struct alignas(16) RowState {
 // words, else each child's contiguous words 32 a store (where each
 // lane's own strided stores would touch 32 sectors an instruction); the
 // quiet lanes get the row's words and fingerprint. An edit model
-// (EditRow; launched over a.wide too) loads its rows alike, takes each
-// row's fingerprint and active lanes (m.active_lanes), steps those
-// densely into edits, and writes each warp's children word by word from
-// the shared rows, 32 consecutive words a store.
+// (EditRow; launched over a.wide too) loads its rows block-wide, takes
+// each row's fingerprint folds and active lanes (m.active_lanes), steps
+// those densely into edits, and spreads the children over the block's
+// warps, each writing its children from the shared rows, 32 consecutive
+// words a store, and folding only the words it changes.
 // The grid also resets the ring arena for the step (grid-stride).
 // Inside a chunk the launch is gated (open_gate): its rows are the
 // queue's from the head, the first take of them valid.
@@ -545,10 +531,34 @@ __global__ void expand_kernel(M m, StepArgs a) {
         wide_smem(tile_smem, a.tile, sizeof(RowState<M, SYM>), A);
     const int wl = threadIdx.x & 31, wid = threadIdx.x >> 5;
     const int nwarps = blockDim.x >> 5;
-    // the tile's rows, a warp per row
-    for (int i = wid; i < nrows; i += nwarps)
-      for (int c = wl; c < width; c += 32)
-        rows[i].w[c] = a.frontier[(row0 + i) * a.fstride + c];
+    if constexpr (kEdit) {
+      // the tile's rows, block-wide, kEditLoads words in flight a thread
+      // (word x of the tile is word x % width of row x / width)
+      const int total = nrows * width, nt = blockDim.x;
+      for (int x0 = threadIdx.x; x0 < total; x0 += kEditLoads * nt) {
+        uint32_t v[kEditLoads];
+        int i = x0 / width, c = x0 - i * width;
+        int at[kEditLoads];
+#pragma unroll
+        for (int u = 0; u < kEditLoads; ++u) {
+          at[u] = -1;
+          if (x0 + u * nt < total) {
+            v[u] = a.frontier[(row0 + i) * a.fstride + c];
+            at[u] = i * (int)(sizeof(RowState<M, SYM>) / 4) + c;
+          }
+          for (c += nt; c >= width; c -= width) ++i;
+        }
+        uint32_t* base = reinterpret_cast<uint32_t*>(rows);
+#pragma unroll
+        for (int u = 0; u < kEditLoads; ++u)
+          if (at[u] >= 0) base[at[u]] = v[u];
+      }
+    } else {
+      // the tile's rows, a warp per row
+      for (int i = wid; i < nrows; i += nwarps)
+        for (int c = wl; c < width; c += 32)
+          rows[i].w[c] = a.frontier[(row0 + i) * a.fstride + c];
+    }
     __syncthreads();
     for (int i = threadIdx.x; i < nrows; i += blockDim.x) {
       const long long r = row0 + i;
@@ -566,21 +576,34 @@ __global__ void expand_kernel(M m, StepArgs a) {
       else
         ws.info[4 * i] = (uint32_t)min(A, max(0, m.quiet_from(rs.w)));
     }
-    // each row's fingerprint, a warp per row
+    // each row's fingerprint, a warp per row: an edit model keeps the
+    // folds (its children's are the row's with their changed words
+    // refolded), a wide model the fingerprint
     for (int i = wid; i < nrows; i += nwarps) {
       uint32_t h1 = 0u, h2 = 0u;
       for (int k = wl; k < width; k += 32) {
-        const uint32_t x = rows[i].w[k] ^ column_key(k);
-        h1 ^= fmix32(x * kC1_1);
-        h2 ^= fmix32(x * kC1_2);
+        if constexpr (kEdit) {
+          fold_word(h1, h2, k, rows[i].w[k]);
+        } else {
+          const uint32_t x = rows[i].w[k] ^ column_key(k);
+          h1 ^= fmix32(x * kC1_1);
+          h2 ^= fmix32(x * kC1_2);
+        }
       }
 #pragma unroll
       for (int o = 16; o > 0; o >>= 1) {
         h1 ^= __shfl_xor_sync(0xFFFFFFFFu, h1, o);
         h2 ^= __shfl_xor_sync(0xFFFFFFFFu, h2, o);
       }
-      if (wl == 0)
-        fp64_finish(h1, h2, width, ws.info[4 * i + 1], ws.info[4 * i + 2]);
+      if (wl == 0) {
+        if constexpr (kEdit) {
+          ws.info[4 * i + 1] = h1;
+          ws.info[4 * i + 2] = h2;
+        } else {
+          fp64_finish(h1, h2, width, ws.info[4 * i + 1],
+                      ws.info[4 * i + 2]);
+        }
+      }
     }
     __syncthreads();
     // the active lanes, in lane order: each row's first at the prefix of
@@ -737,18 +760,16 @@ __global__ void expand_kernel(M m, StepArgs a) {
         wide_smem(tile_smem, a.tile, sizeof(RowState<M, SYM>), A);
     Edit* edits = reinterpret_cast<Edit*>(ws.stage);
     const int nact = (int)*ws.nact;
-    const int wl = threadIdx.x & 31, w0 = threadIdx.x - wl;
-    // this lane's columns of every child (k = wl + 32 u) and their keys
-    constexpr int kCols = (M::W + 31) / 32;
-    uint32_t key[kCols];
-#pragma unroll
-    for (int u = 0; u < kCols; ++u) key[u] = column_key(wl + 32 * u);
-    // the active lanes, densely: each thread writes one's edit to its
-    // slot; uniform trip count: the warp then writes its children
+    const int wl = threadIdx.x & 31, wid = threadIdx.x >> 5;
+    const int nwarps = blockDim.x >> 5;
+    // the active lanes, densely, a pass of at most blockDim.x: each
+    // thread writes one's edit to its slot; then child c of the pass is
+    // written by warp c % nwarps (uniform trip counts: every thread
+    // meets both barriers)
     for (int base = 0; base < nact; base += blockDim.x) {
-      const int j = base + threadIdx.x;
-      if (j < nact) {
-        const int t = (int)ws.act[j], i = t / A;
+      const int n = min((int)blockDim.x, nact - base);
+      if ((int)threadIdx.x < n) {
+        const int t = (int)ws.act[base + threadIdx.x], i = t / A;
         RowState<M, SYM>& rs = rows[i];
         bool ovf = false;
         const bool v = m.edit_lane(rs.w, t - i * A, edits[threadIdx.x], ovf);
@@ -758,27 +779,22 @@ __global__ void expand_kernel(M m, StepArgs a) {
         if (cv) rs.valid = 1;
         if (ovf && rs.fv) rs.xovf = 1;
       }
-      __syncwarp();
-      // child c of the warp's: its width contiguous words of flat, 32 a
-      // store, each lane folding its words; then the warp's XOR
-      const int n = min(32, nact - (base + w0));
-      for (int c = 0; c < n; ++c) {
-        const int t = (int)ws.act[base + w0 + c];
-        const Edit& ed = edits[w0 + c];
-        const uint32_t* row = rows[t / A].w;
+      __syncthreads();
+      // the child's width contiguous words of flat, 32 a store; each
+      // lane folds the words it changes into the row's folds
+      for (int c = wid; c < n; c += nwarps) {
+        const int t = (int)ws.act[base + c], i = t / A;
+        const Edit& ed = edits[c];
+        const auto h = m.edit_head(ed);
+        const uint32_t* row = rows[i].w;
         const long long lane = lane0 + t;
         uint32_t* dst = a.flat + lane * width;
         uint32_t h1 = 0u, h2 = 0u;
-#pragma unroll
-        for (int u = 0; u < kCols; ++u) {
-          const int k = wl + 32 * u;
-          if (k < width) {
-            const uint32_t v = m.child_word(row, ed, k);
-            dst[k] = v;
-            const uint32_t x = v ^ key[u];
-            h1 ^= fmix32(x * kC1_1);
-            h2 ^= fmix32(x * kC1_2);
-          }
+        for (int k = wl; k < width; k += 32) {
+          const uint32_t old = row[k];
+          const uint32_t v = m.child_word(row, ed, h, k, old);
+          dst[k] = v;
+          if (v != old) fold_change(h1, h2, k, old, v);
         }
 #pragma unroll
         for (int o = 16; o > 0; o >>= 1) {
@@ -787,19 +803,23 @@ __global__ void expand_kernel(M m, StepArgs a) {
         }
         if (wl == 0) {
           uint32_t hi, lo;
-          fp64_finish(h1, h2, width, hi, lo);
+          fp64_finish(ws.info[4 * i + 1] ^ h1, ws.info[4 * i + 2] ^ h2,
+                      width, hi, lo);
           a.chi[lane] = hi;
           a.clo[lane] = lo;
         }
       }
-      __syncwarp();
+      __syncthreads();  // the slots are the next pass's
     }
     // the other lanes: the row's fingerprint, invalid; flat unwritten
     for (int t = threadIdx.x; t < tile; t += blockDim.x) {
       if (!((ws.info[4 * row] >> act) & 1u)) {
         const long long lane = lane0 + t;
-        a.chi[lane] = ws.info[4 * row + 1];
-        a.clo[lane] = ws.info[4 * row + 2];
+        uint32_t hi, lo;
+        fp64_finish(ws.info[4 * row + 1], ws.info[4 * row + 2], width, hi,
+                    lo);
+        a.chi[lane] = hi;
+        a.clo[lane] = lo;
         a.cvalid[lane] = 0;
       }
       row += drow;

@@ -157,10 +157,19 @@ WIDE_BLOCKS_PER_SM = 3
 #: what this gives
 WIDE_MODELS = {"paxos": 128, "abd": 128, "single_copy": 128}
 #: the edit models of ``STEP_MODELS`` (``kEditRow``, launched over
-#: K1-wide's geometry): the words of their shared row and of a thread's
+#: K1-wide's rows): the words of their shared row and of a thread's
 #: edit (``AbdOrderedModel::W`` and ``sizeof(Edit)`` in words:
 #: ``actor_net.cuh`` ``OrderedEdit<6, 3>``, 45, which ``abd.cuh`` asserts)
 EDIT_MODELS = {"abd_ordered": (352, 45)}
+#: an edit model's K1 threads a block, however few its lanes: its warps
+#: share the writing of the block's children; and its blocks an SM, its
+#: rows cut so that they are resident at once (at 96 registers a thread,
+#: five 128-thread blocks an SM): at abd3's 1,728-row step 3 rows and
+#: ~7 children a block (``tools/torch_register_kernels.py --sweep`` on an
+#: H100: K1 0.01405 device ms, against 0.01748 at 5 rows, 0.02234 at 256
+#: threads)
+EDIT_THREADS = 128
+EDIT_BLOCKS_PER_SM = 5
 
 
 def row_words(name: str) -> int:
@@ -176,18 +185,22 @@ def wide_stride(width: int) -> int:
     return width | 1
 
 
-def wide_geometry(geo: Geometry, f: int, a: int, sms: int) -> Geometry:
+def wide_geometry(geo: Geometry, f: int, a: int, sms: int,
+                  threads: int = None, per_sm: int = None) -> Geometry:
     """K1-wide's launch over ``f`` rows of ``a`` lanes on a card of
     ``sms`` SMs from the step's tile geometry ``geo`` (``StepArgs.wide``):
     its rows capped at ``WIDE_ROWS``, and fewer when that gives blocks
     for no more than ``WIDE_BLOCKS_PER_SM`` an SM, so that every block is
     resident at once and each thread steps fewer children in turn; the
     blocks that cover ``f`` with them, the tile's threads capped at
-    ``WIDE_THREADS``; K2 and K3 keep ``geo``."""
-    rows = max(1, min(geo.rows, WIDE_ROWS,
-                      -(-f // (WIDE_BLOCKS_PER_SM * sms))))
-    lanes32 = -(-(rows * a) // 32) * 32
-    return Geometry(rows=rows, threads=min(lanes32, WIDE_THREADS),
+    ``WIDE_THREADS`` (an edit model: ``threads`` and ``per_sm`` blocks
+    an SM, ``EDIT_THREADS`` and ``EDIT_BLOCKS_PER_SM``); K2 and K3 keep
+    ``geo``."""
+    per_sm = WIDE_BLOCKS_PER_SM if per_sm is None else per_sm
+    rows = max(1, min(geo.rows, WIDE_ROWS, -(-f // (per_sm * sms))))
+    if threads is None:
+        threads = min(-(-(rows * a) // 32) * 32, WIDE_THREADS)
+    return Geometry(rows=rows, threads=threads,
                     blocks=-(-f // rows) if f > 0 else 1, cells=0)
 
 
@@ -216,13 +229,15 @@ def k1_launch(name: str, geo: Geometry, f: int, width: int, a: int,
     ``STEP_MODELS`` entry ``name`` over ``f`` rows of ``width`` words and
     ``a`` lanes (tile geometry ``geo``): a wide or edit model's K1
     geometry and shared memory, else ``(geo, 0)`` (unused)."""
+    threads = per_sm = None
     if name in WIDE_MODELS:
         row_words, slot_words = WIDE_MODELS[name], None
     elif name in EDIT_MODELS:
         row_words, slot_words = EDIT_MODELS[name]
+        threads, per_sm = EDIT_THREADS, EDIT_BLOCKS_PER_SM
     else:
         return geo, 0
-    wide = wide_geometry(geo, f, a, sms)
+    wide = wide_geometry(geo, f, a, sms, threads, per_sm)
     return wide, wide_smem_bytes(wide, width, a, row_words, slot_words)
 
 
@@ -298,9 +313,16 @@ class HpullArgs(ctypes.Structure):
     ]
 
 
-#: the tile sizes of K7 (lanes per block: 256 threads of 4 or 16 lanes;
-#: ``csrc/chunk.cu`` instantiates each)
-APPEND_TILES = (1024, 4096)
+#: the tile sizes of K7 (lanes per block: 256 threads of 4 or 16 lanes,
+#: or 128 threads of one lane; ``csrc/chunk.cu`` instantiates each)
+APPEND_TILES = (128, 1024, 4096)
+#: K7's tile for queue rows wider than its 256-thread block (``W + 3 >
+#: 256``, the ordered register rows): 128 lanes, so that a large step's
+#: tiles outnumber the SMs (tpu_abd2's 18,990 lanes: 149 tiles), each
+#: copying its rows a warp per row
+APPEND_WIDE_TILE = 128
+#: the threads of K7's 1,024- and 4,096-lane blocks
+APPEND_THREADS = 256
 #: K7's control words (``Ticket`` of ``csrc/chunk.cu``: the tickets drawn,
 #: the step's highest inserted lane + 1 under its launch's epoch)
 APPEND_TICKETS = 2
@@ -751,18 +773,24 @@ def table_insert(table, fhi, flo, valid, ws, max_rounds: int,
 
 # --- the chunk (csrc/chunk.cu) -----------------------------------------
 
-def append_tile(lanes: int, sms: int) -> int:
-    """K7's tile size for steps of up to ``lanes`` lanes on a card of
-    ``sms`` SMs: the largest that still gives at least three tiles for
-    every four SMs (fewer, longer tiles shorten the look-back; more,
-    shorter ones spread the row writes: on an H100, 2pc7's 454,656 lanes
-    take 4,096-lane tiles, IncrementLock(9)'s 110,592 and Increment(16)'s
-    196,608 take 1,024; ``tools/torch_append_sweep.py``)."""
+def append_tile(lanes: int, sms: int, width: int = 0) -> int:
+    """K7's tile size for steps of up to ``lanes`` lanes of ``width``-word
+    rows on a card of ``sms`` SMs. Rows of ``width + 3 <= 256`` words
+    take the largest of 1,024 and 4,096 lanes that still gives at least
+    three tiles for every four SMs (fewer, longer tiles shorten the
+    look-back; more, shorter ones spread the row writes: on an H100,
+    2pc7's 454,656 lanes take 4,096-lane tiles, IncrementLock(9)'s
+    110,592 and Increment(16)'s 196,608 take 1,024;
+    ``tools/torch_append_sweep.py``), else 1,024; wider rows
+    ``APPEND_WIDE_TILE``."""
+    if width + 3 > APPEND_THREADS:
+        return APPEND_WIDE_TILE
     want = (3 * sms) // 4
-    for tile in sorted(APPEND_TILES, reverse=True):
+    narrow = [t for t in APPEND_TILES if t != APPEND_WIDE_TILE]
+    for tile in sorted(narrow, reverse=True):
         if lanes // tile >= want:
             return tile
-    return min(APPEND_TILES)
+    return min(narrow)
 
 
 def append_grid(lanes: int, tile_lanes: int) -> int:

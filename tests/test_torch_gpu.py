@@ -1980,3 +1980,312 @@ def test_single_copy_counterexample_on_card(race):
     ck = builder.spawn_gpu().join()
     path = ck.assert_any_discovery("linearizable")  # replays or raises
     assert path.last_state().history.serialized_history() is None
+
+
+# --- the edit K1 (ABD on the ordered network) and K7 at wide rows -------
+
+#: the ordered register configurations of the edit K1's card checks:
+#: the BASELINE's (108 words), abd3 (260), tpu_abd2 (331), a single
+#: server (one send a handler) and four servers with deep channels
+ORDERED_MODELS = {
+    "abd2-ordered": REGISTER_MODELS["abd2-ordered"],
+    "abd3-ordered": REGISTER_MODELS["abd3-ordered"],
+    "abd2-s3-ordered": REGISTER_MODELS["abd2-s3-ordered"],
+    "abd1x1-ordered": lambda: _abd(1, server_count=1, ordered=True),
+    "abd1x4-d6-ordered": lambda: _abd(1, server_count=4, ordered=True,
+                                      channel_depth=6),
+}
+
+
+def _edit_rows(model, rng, f, case):
+    """``_paxos_rows`` (crowded channels, whose appends overflow into the
+    poison child, and junk rows); ``idle``: 128 rows in a row with every
+    channel empty, so whole blocks of K1 have no active lane; ``busy``:
+    every channel of every row holds a message, so blocks have more
+    active lanes than threads (several passes)."""
+    rows = _paxos_rows(model, rng, f)
+    lens = slice(model._net_off, model._net_off + model._n_chan)
+    if case == "idle":
+        rows[64:192, lens] = 0
+    elif case == "busy":
+        rows[:, lens] = np.maximum(rows[:, lens], 1)
+    return rows
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,f,case", [
+    ("abd2-ordered", 1001, "mixed"), ("abd3-ordered", 1728, "mixed"),
+    ("abd2-s3-ordered", 1055, "mixed"), ("abd1x1-ordered", 777, "mixed"),
+    ("abd1x4-d6-ordered", 1000, "mixed"), ("abd3-ordered", 997, "idle"),
+    ("abd2-s3-ordered", 8192, "busy"), ("abd3-ordered", 8192, "busy")])
+def test_edit_k1_lane_exact_on_card(name, f, case):
+    """The edit K1 (with K2/K3) against the plain version under its
+    contract: on the lanes of non-empty channels the child's words, its
+    fingerprint, cvalid and the overflow (the poison child) bit for bit;
+    on the other lanes cvalid 0 and the row's fingerprint; pbits,
+    ebits, terminal, the stats and discoveries everywhere; then the
+    inserted key set and the table. At 108, 260 and 331 words, a single
+    server and deep channels, ragged frontiers, a run of rows with no
+    message (blocks with no active lane) and rows whose every channel
+    holds one (more active lanes a block than its threads)."""
+    _need_card()
+    from stateright_tpu_torch.ops import _cuda
+    from stateright_tpu_torch.ops.fused import (S_DISC, S_VALID, S_XOVF,
+                                                fused_step,
+                                                fused_step_reference)
+    from stateright_tpu_torch.ops.hash_kernel import fp64_device
+    from stateright_tpu_torch.ops.hashtable import make_table
+    from stateright_tpu_torch.ops.words import from_numpy_u32, pack64
+    model = ORDERED_MODELS[name]()
+    dev = torch.device("cuda")
+    rng = np.random.default_rng([f, len(case)])
+    rows = _edit_rows(model, rng, f, case)
+    a = model.max_actions
+    lens = rows[:, model._net_off:model._net_off + model._n_chan]
+    active = (lens != 0).reshape(-1)
+    sms = _cuda.sm_count(dev)
+    wide, _smem = _cuda.k1_launch("abd_ordered",
+                                  _cuda.tile_geometry(f, a, sms), f,
+                                  model.packed_width, a, sms)
+    per_block = np.add.reduceat(active.reshape(f, a).sum(1),
+                                np.arange(0, f, wide.rows))
+    if case == "idle":
+        assert (per_block == 0).any()
+    if case == "busy":
+        assert (per_block > wide.threads).any()
+    block = from_numpy_u32(rows, dev)
+    phi, plo = (x.to(torch.int32) for x in fp64_device(block))
+    ebits = torch.zeros((f,), dtype=torch.int32, device=dev)
+    fvalid = torch.from_numpy(rng.random(f) < 0.9).to(dev)
+    out, tables = [], []
+    for fn in (fused_step, fused_step_reference):
+        table = make_table(1 << 18, dev)
+        ring = torch.zeros((1 << 12,), dtype=torch.int64, device=dev)
+        out.append(fn(model, block, ebits, fvalid, phi, plo, table, ring))
+        tables.append(sorted(table[table != 0].tolist()))
+    k, p = out
+    written = torch.from_numpy(active).to(dev)
+    for nm in ("flat", "chi", "clo"):
+        assert torch.equal(getattr(k, nm)[written], getattr(p, nm)[written])
+    # an empty channel's lane: the row's fingerprint
+    rhi, rlo = fp64_device(block)
+    idle = ~written.reshape(f, a)
+    assert torch.equal(k.chi.reshape(f, a)[idle].long() & 0xFFFFFFFF,
+                       rhi[:, None].expand(f, a)[idle])
+    assert torch.equal(k.clo.reshape(f, a)[idle].long() & 0xFFFFFFFF,
+                       rlo[:, None].expand(f, a)[idle])
+    for nm in ("cvalid", "pbits", "ebits", "terminal"):
+        assert torch.equal(getattr(k, nm), getattr(p, nm)), nm
+    for i in (S_XOVF, S_VALID):
+        assert int(k.stats[i]) == int(p.stats[i]), i
+    assert torch.equal(k.stats[S_DISC:], p.stats[S_DISC:])
+    if case == "mixed" and name != "abd1x1-ordered":
+        assert int(k.stats[S_XOVF]) == 1  # the crowded rows overflow
+    key_k = pack64(k.chi, k.clo)[k.inserted].tolist()
+    key_p = pack64(p.chi, p.clo)[p.inserted].tolist()
+    assert len(key_k) == len(set(key_k)) and set(key_k) == set(key_p)
+    assert tables[0] == tables[1]
+
+
+@pytest.mark.gpu
+def test_ordered_register_shut_gate_leaves_everything_as_it_was():
+    """On an abd3 carry (260-word rows: the edit K1, K7's wide tile and
+    its history stage), the gated step, K7 and K8 with the gate shut,
+    launched alone and as the captured graph, change no counter, queue
+    or log row, table, history table, step output or scratch word."""
+    _need_card()
+    from stateright_tpu_torch.checker.device_loop import (
+        E_GATE, G_SIZE, I32_MAX, ChunkRunner, run_chunk, seed_carry)
+    from stateright_tpu_torch.ops import _cuda
+    from stateright_tpu_torch.ops.hashtable import table_insert
+    from stateright_tpu_torch.ops.words import from_numpy_u32
+    model = REGISTER_MODELS["abd3-ordered"]()
+    dev = torch.device("cuda")
+    init = model.init_states()[0]
+    fp = model.fingerprint(init)
+    carry = seed_carry(model, 1 << 18, 1 << 17, [model.encode(init)], 0,
+                       [fp], 1 << 12, dev, hcap=1 << 10)
+    table_insert(carry.table,
+                 from_numpy_u32(np.array([fp >> 32], np.uint32), dev),
+                 from_numpy_u32(np.array([fp & 0xFFFFFFFF], np.uint32),
+                                dev),
+                 torch.ones((1,), dtype=torch.bool, device=dev))
+    run_chunk(model, carry, fmax=1728, steps=6)
+    card = ChunkRunner(model, carry, 1728).card()
+    assert card.scratch["tile"] == _cuda.APPEND_WIDE_TILE
+    card.begin(0, I32_MAX, I32_MAX, carry.ws.step + 1)
+    assert int(carry.ctr[carry.layout.ext + E_GATE + G_SIZE]) == 0
+    for nm in ("stats", "flat", "chi", "cvalid"):
+        card.bufs[nm].fill_(5)
+    hist = carry.hist
+    bufs = (carry.ctr, carry.q, carry.log, carry.table, hist.table,
+            hist.hidx, hist.hdone, card.bufs["stats"], card.bufs["flat"],
+            card.bufs["chi"], card.bufs["cvalid"], card.scratch["status"],
+            card.scratch["ticket"], *card.hscratch.values())
+    bufs = tuple(t for t in bufs if isinstance(t, torch.Tensor))
+    before = [t.clone() for t in bufs]
+    card.launch_steps()
+    card.launch_append()
+    card.launch_history()
+    card.graph.replay(3)
+    torch.cuda.synchronize()
+    for t, b in zip(bufs, before):
+        assert torch.equal(t, b)
+
+
+#: K7's wide-row cases: queue rows of 263 and 334 words (abd3's 260-word
+#: and tpu_abd2's 331-word states), by inserted density
+WIDE_APPEND_CASES = [(w, d) for w in (260, 331)
+                     for d in (0.0, 0.01, 0.3, 1.0)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("width,density", WIDE_APPEND_CASES,
+                         ids=[f"w{w}-d{d}" for w, d in WIDE_APPEND_CASES])
+def test_append_wide_rows_match_plain_version(width, density):
+    """K7 at rows wider than its 256-thread block, on its 128-lane tile
+    (``append_tile``), against ``append_reference`` on random words and
+    a random inserted mask: the large step with a ragged take, then the
+    small step on the large step's grid (one scan state across both
+    launches), the counter block (the next gate and the 263- or
+    334-word most recent row included), stats vector, queue and log bit
+    for bit; then a shut gate, which changes nothing and draws no
+    ticket."""
+    _need_card()
+    from stateright_tpu_torch.checker.device_loop import (
+        B_DISC, B_LOG_N, B_Q_HEAD, B_Q_TAIL, E_GATE, E_STEPS, G_LEN,
+        G_SIZE, CtrLayout, append_reference)
+    from stateright_tpu_torch.ops import _cuda
+    from stateright_tpu_torch.ops.fused import (S_DISC, S_INSERTED,
+                                                S_VALID, FusedOut)
+    from stateright_tpu_torch.ops.words import from_numpy_u32
+    dev = torch.device("cuda")
+    rng = np.random.default_rng([width, int(100 * density)])
+    model = REGISTER_MODELS["abd2-s3-ordered" if width == 331
+                            else "abd3-ordered"]()
+    assert model.packed_width == width
+    f_small, f_large, a, n_props = 256, 1055, model.max_actions, 2
+    w = width
+    lay = CtrLayout(n_props, w)
+    lanes_l = f_large * a
+    tile = _cuda.append_tile(lanes_l, _cuda.sm_count(dev), w)
+    assert tile == _cuda.APPEND_WIDE_TILE
+    scratch = _cuda.append_scratch(lanes_l, tile, dev)
+    qcap, logcap = 3 * lanes_l, 3 * lanes_l
+
+    def words(*shape):
+        return from_numpy_u32(rng.integers(
+            0, 2**32, size=shape, dtype=np.uint64).astype(np.uint32), dev)
+
+    bufs = _cuda.step_buffers(model, f_large, S_DISC + 3 * n_props, False,
+                              dev, 1)
+    q, log = words(qcap, w + 3), words(logcap, 4)
+    for launch, (size, f) in enumerate(((2, f_large), (1, f_small)), 1):
+        lanes = f * a
+        for nm in ("flat", "chi", "clo", "ebits_out"):
+            bufs[nm].copy_(words(*bufs[nm].shape))
+        mask = rng.random(lanes_l) < density
+        bufs["inserted"].copy_(torch.from_numpy(mask))
+        cnt = int(bufs["inserted"][:lanes].sum())
+        st = np.zeros(S_DISC + 3 * n_props, np.int64)
+        st[S_VALID], st[S_INSERTED] = lanes, cnt
+        bufs["stats"].copy_(torch.from_numpy(st.astype(np.int32)))
+        head = 1000 + launch
+        qbase, lbase = head + f + 5, 17 * launch
+        ctr = torch.zeros((lay.length,), dtype=torch.int32, device=dev)
+        ctr[B_Q_HEAD], ctr[B_Q_TAIL], ctr[B_LOG_N] = head, qbase, lbase
+        ctr[B_DISC] = 1
+        ctr[lay.ext + E_STEPS] = 9
+        ctr[lay.ext + E_GATE:lay.ext + E_GATE + G_LEN] = torch.tensor(
+            [size, head, f - 3, 5, qbase, lbase], dtype=torch.int32)
+        live = (ctr, q, log, bufs["stats"])
+        start = [t.clone() for t in live]
+        out = FusedOut(
+            pbits=None, ebits=bufs["ebits_out"][:f], terminal=None,
+            flat=bufs["flat"][:lanes], chi=bufs["chi"][:lanes],
+            clo=bufs["clo"][:lanes], cvalid=None, dvalid=None,
+            inserted=bufs["inserted"][:lanes], stats=bufs["stats"],
+            ohi=bufs["ohi"][:lanes], olo=bufs["olo"][:lanes])
+        append_reference(ctr, lay, q, log, out, a, f_small, f_large,
+                         qcap - lanes_l)
+        want = [t.clone() for t in live]
+        assert int(ctr[B_Q_TAIL]) == qbase + cnt
+        for t, v in zip(live, start):
+            t.copy_(v)
+        args = _cuda.chunk_args(
+            ctr=ctr, bufs=bufs, q=q, log=log, scratch=scratch,
+            qlimit=qcap - lanes_l, n_props=n_props, width=w, n_actions=a,
+            f_small=f_small, f_large=f_large, ext=lay.ext,
+            recent=lay.recent, cch=lay.cch)
+        _cuda.append(args, dev)
+        for nm, x, y in zip(("ctr", "q", "log", "stats"), live, want):
+            assert torch.equal(x, y), (size, nm)
+        tickets, last = scratch["ticket"].tolist()
+        assert tickets == launch * _cuda.append_grid(lanes_l, tile)
+        ins = np.flatnonzero(mask[:lanes])
+        if len(ins):
+            assert last == (launch << 32) | int(ins[-1]) + 1
+    # a shut gate: nothing runs, nothing changes
+    ctr[lay.ext + E_GATE + G_SIZE] = 0
+    frozen = [t.clone() for t in (ctr, q, log, bufs["stats"],
+                                  scratch["status"], scratch["ticket"])]
+    _cuda.append(args, dev)
+    torch.cuda.synchronize()
+    for x, y in zip((ctr, q, log, bufs["stats"], scratch["status"],
+                     scratch["ticket"]), frozen):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,f", [("abd3-ordered", 1728),
+                                    ("abd2-s3-ordered", 1055)])
+def test_wide_row_graph_replays_match_plain_iterations(name, f):
+    """Two replays in a row of the captured iteration of an ordered
+    register carry (the edit K1, K2, K3, K7 on its 128-lane tile, and
+    K8 where the carry has a history stage) against two iterations from
+    the same state with K7 replaced by its plain version (the card's
+    gated step, ``append_reference`` on its outputs, then K8): the
+    counters (each next gate and the most recent row included), stats
+    vector, queue, log and history table bit for bit."""
+    _need_card()
+    from stateright_tpu_torch.checker.device_loop import (
+        E_GATE, E_ITERS, G_SIZE, I32_MAX, ChunkRunner, append_reference,
+        step_sizes)
+    model = REGISTER_MODELS[name]()
+    dev = torch.device("cuda")
+    carry = _mid_search(model, f, False, dev)
+    lay = carry.layout
+    f_small, f_large, qmargin = step_sizes(model, f)
+    card = ChunkRunner(model, carry, f).card()
+    ws = carry.ws
+    tag = ws.step + 1
+    ws.step += 2
+    card.begin(2, I32_MAX, I32_MAX, tag)
+    state = [carry.ctr, carry.q, carry.log, carry.table, carry.ring,
+             ws.owner, ws.disc_cand, card.bufs["stats"]]
+    held = {"ctr": carry.ctr, "q": carry.q, "log": carry.log,
+            "stats": card.bufs["stats"]}
+    hist = carry.hist
+    if hist is not None:  # the history stage, K8 in the graph
+        state += [hist.table, hist.hidx, hist.hdone,
+                  *card.hscratch.values()]
+        held.update({"hist.table": hist.table, "hidx": hist.hidx})
+    state = [t for t in state if isinstance(t, torch.Tensor)]
+    for i in range(2):
+        before = [t.clone() for t in state]
+        size = int(carry.ctr[lay.ext + E_GATE + G_SIZE])
+        assert size != 0
+        card.launch_steps()
+        append_reference(carry.ctr, lay, carry.q, carry.log,
+                         card.outputs(size), model.max_actions, f_small,
+                         f_large, carry.q.shape[0] - qmargin)
+        if hist is not None:
+            card.launch_history()
+        plain = {k: t.clone() for k, t in held.items()}
+        for t, b in zip(state, before):
+            t.copy_(b)
+        card.graph.replay(1)
+        for k, t in held.items():
+            diff = (plain[k] != t).nonzero()
+            assert not diff.numel(), (i, k, diff[:8].tolist())
+        assert int(carry.ctr[lay.ext + E_ITERS]) == i + 1

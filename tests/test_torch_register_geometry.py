@@ -27,6 +27,7 @@ from stateright_tpu_torch.examples.abd_packed import PackedAbd
 from stateright_tpu_torch.examples.paxos_packed import PackedPaxos
 from stateright_tpu_torch.examples.single_copy_packed import \
     PackedSingleCopy
+from stateright_tpu_torch.fingerprint import fp64_words
 from stateright_tpu_torch.ops import _cuda
 
 CSRC = pathlib.Path(_cuda.__file__).resolve().parent.parent / "csrc"
@@ -41,8 +42,12 @@ RESERVED = 1024
 #: the device functions behind a C interface, for ctypes. Per row a
 #: step writes its property bits, then per lane a flags word (1 valid,
 #: 2 overflow, 4 stepped: below a wide model's quiet lane, or an edit
-#: model's active lane) and the child's words, as K1 would: a quiet
-#: lane's child is the row, an inactive lane's is left zero
+#: model's active lane), the child's fingerprint (hi, lo) and its words,
+#: as K1 would: a quiet lane's child is the row, an inactive lane's is
+#: left zero (its fingerprint the row's); a wide model's fingerprint
+#: folds every word of the child (RowOut), an edit model's is the row's
+#: folds with the words the child changes refolded (fold.cuh
+#: fold_change, as step_common.cuh's edit K1 takes it)
 HOST_SOURCE = r"""
 #define __device__
 #define __host__
@@ -53,6 +58,7 @@ HOST_SOURCE = r"""
 using std::min;
 using std::max;
 #include "abd.cuh"
+#include "fold.cuh"
 #include "paxos.cuh"
 #include "single_copy.cuh"
 
@@ -61,6 +67,12 @@ struct Out {
   uint32_t* dst;
   void put(int i, uint32_t v) { dst[i] = v; }
 };
+
+// the XOR-folds of a row's W words
+void fold_row(const uint32_t* w, int W, uint32_t& h1, uint32_t& h2) {
+  h1 = h2 = 0u;
+  for (int k = 0; k < W; ++k) fold_word(h1, h2, k, w[k]);
+}
 
 template <class M>
 void step_wide(const M& m, const uint32_t* rows, int f, uint32_t* out) {
@@ -71,6 +83,8 @@ void step_wide(const M& m, const uint32_t* rows, int f, uint32_t* out) {
     const int q = m.quiet_from(w);
     for (int e = 0; e < A; ++e) {
       uint32_t* flags = out++;
+      uint32_t* fp = out;
+      out += 2;
       bool ovf = false, v = false;
       if (e < q) {
         Out o{out};
@@ -78,12 +92,18 @@ void step_wide(const M& m, const uint32_t* rows, int f, uint32_t* out) {
       } else {
         for (int k = 0; k < W; ++k) out[k] = w[k];
       }
+      uint32_t h1, h2;
+      fold_row(out, W, h1, h2);
+      fp64_finish(h1, h2, W, fp[0], fp[1]);
       *flags = (v ? 1u : 0u) | (ovf ? 2u : 0u) | (e < q ? 4u : 0u);
       out += W;
     }
   }
 }
 
+// K1's edit branch on the host: per active lane the edit, its columns
+// (edit_head) and each child word from the row word (child_word); the
+// fingerprint from the row's folds, each changed word refolded
 void step_edit(const AbdOrderedModel& m, const uint32_t* rows, int f,
                uint32_t* out) {
   const int W = m.width(), A = m.max_actions();
@@ -91,17 +111,27 @@ void step_edit(const AbdOrderedModel& m, const uint32_t* rows, int f,
     const uint32_t* w = rows + (long)r * W;
     *out++ = m.props_row(w);
     const uint32_t mask = m.active_lanes(w);
+    uint32_t r1, r2;
+    fold_row(w, W, r1, r2);
     for (int e = 0; e < A; ++e) {
       uint32_t* flags = out++;
+      uint32_t* fp = out;
+      out += 2;
       bool ovf = false, v = false;
       const bool on = (mask >> e) & 1u;
+      uint32_t h1 = r1, h2 = r2;
       if (on) {
         AbdOrderedModel::Edit ed;
         v = m.edit_lane(w, e, ed, ovf);
-        for (int k = 0; k < W; ++k) out[k] = m.child_word(w, ed, k);
+        const AbdOrderedModel::Head h = m.edit_head(ed);
+        for (int k = 0; k < W; ++k) {
+          out[k] = m.child_word(w, ed, h, k, w[k]);
+          if (out[k] != w[k]) fold_change(h1, h2, k, w[k], out[k]);
+        }
       } else {
         for (int k = 0; k < W; ++k) out[k] = 0u;
       }
+      fp64_finish(h1, h2, W, fp[0], fp[1]);
       *flags = (v ? 1u : 0u) | (ovf ? 2u : 0u) | (on ? 4u : 0u);
       out += W;
     }
@@ -220,7 +250,7 @@ def test_edit_size_is_the_launchs(host):
     sizes: ``AbdOrderedModel::W`` and ``sizeof(Edit)`` (``OrderedEdit<6,
     3>``: the destination's 6 words, the 22 history words of 7 clients,
     3 appended messages of two words, 5 scalars and the 3 appends'
-    channels and entries), and each wide model's ``W``."""
+    length columns and entry words), and each wide model's ``W``."""
     edit = 6 + (1 + 3 * 7) + 2 * 3 + 5 + 2 * 3
     assert _cuda.EDIT_MODELS["abd_ordered"] == (
         host.h_words(b"abd_ordered", 0), host.h_words(b"abd_ordered", 1))
@@ -233,7 +263,7 @@ def test_edit_size_is_the_launchs(host):
 def test_k1_launch_fits_at_every_admitted_ordered_configuration():
     """At every admitted configuration and frontier the edit K1's tile
     holds at most 32 rows, its threads are whole warps, the blocks cover
-    the frontier, and ``WIDE_BLOCKS_PER_SM`` blocks fit an SM's shared
+    the frontier, and ``EDIT_BLOCKS_PER_SM`` blocks fit an SM's shared
     memory."""
     n = 0
     for model in _admitted_ordered():
@@ -246,7 +276,7 @@ def test_k1_launch_fits_at_every_admitted_ordered_configuration():
             assert wide.threads % 32 == 0 and wide.threads <= 128
             assert wide.blocks * wide.rows >= f
             assert smem <= BLOCK_SMEM
-            assert _cuda.WIDE_BLOCKS_PER_SM * (smem + RESERVED) <= SM_SMEM
+            assert _cuda.EDIT_BLOCKS_PER_SM * (smem + RESERVED) <= SM_SMEM
     assert n > 100
     assert PackedAbd(2, server_count=3, ordered=True,
                      channel_depth=8).packed_width == 331
@@ -327,6 +357,28 @@ HOST_STEPS = {
 }
 
 
+def _host_step(host, config):
+    """``HOST_STEPS[config]``'s rows (reachable, and on the ordered
+    network crowded too) through the host-built device step: the model,
+    its rows, the property bits, and per lane the flags, the fingerprint
+    as K1 takes it (uint64) and the child's words."""
+    model = HOST_STEPS[config]()
+    name, params = model.cuda_spec()
+    rows = _reachable(model, 300)
+    if name == "abd_ordered":
+        rng = np.random.default_rng(5)
+        rows = np.concatenate([rows, _crowded(model, rows, rng, 100)])
+    rows = np.ascontiguousarray(rows, dtype=np.uint32)
+    f, w, a = rows.shape[0], model.packed_width, model.max_actions
+    out = np.zeros(f * (1 + a * (3 + w)), dtype=np.uint32)
+    assert host.h_step(name.encode(), *params, rows.ctypes.data, f,
+                       out.ctypes.data) == 0
+    out = out.reshape(f, 1 + a * (3 + w))
+    lanes = out[:, 1:].reshape(f, a, 3 + w)
+    fp = (lanes[:, :, 1].astype(np.uint64) << np.uint64(32)) | lanes[:, :, 2]
+    return model, rows, out[:, 0], lanes[:, :, 0], fp, lanes[:, :, 3:]
+
+
 @pytest.mark.parametrize("config", list(HOST_STEPS))
 def test_device_step_is_the_plain_step(host, config):
     """The model's device functions, as K1 calls them, on every lane of
@@ -336,21 +388,11 @@ def test_device_step_is_the_plain_step(host, config):
     ``overflow`` of every stepped lane; a wide model's quiet lanes are
     the row, invalid, and the plain step agrees; an edit model's lanes
     are those of non-empty channels, and the plain step's other lanes
-    are invalid and do not overflow."""
-    model = HOST_STEPS[config]()
-    name, params = model.cuda_spec()
-    rows = _reachable(model, 300)
-    if name == "abd_ordered":
-        rng = np.random.default_rng(5)
-        rows = np.concatenate([rows, _crowded(model, rows, rng, 100)])
-    rows = np.ascontiguousarray(rows, dtype=np.uint32)
+    are invalid and do not overflow. An edit model's child is the row
+    with its edit's spans (``edit_head``, ``child_word``)."""
+    model, rows, bits_k, flags, _fp, child = _host_step(host, config)
+    name = model.cuda_spec()[0]
     f, w, a = rows.shape[0], model.packed_width, model.max_actions
-    out = np.zeros(f * (1 + a * (1 + w)), dtype=np.uint32)
-    assert host.h_step(name.encode(), *params, rows.ctypes.data, f,
-                       out.ctypes.data) == 0
-    out = out.reshape(f, 1 + a * (1 + w))
-    lanes = out[:, 1:].reshape(f, a, 1 + w)
-    flags, child = lanes[:, :, 0], lanes[:, :, 1:]
     stepped = (flags & 4) != 0
     x = torch.from_numpy(rows.astype(np.int64))
     s, valid, ovf = model.packed_step(x)
@@ -359,7 +401,7 @@ def test_device_step_is_the_plain_step(host, config):
     ovf = ovf.numpy().reshape(f, a)
     props = model.packed_properties(x).numpy().astype(np.uint32)
     bits = (props << np.arange(props.shape[1], dtype=np.uint32)).sum(1)
-    assert np.array_equal(out[:, 0], bits)
+    assert np.array_equal(bits_k, bits)
     if name == "abd_ordered":
         lens = rows[:, model._net_off:model._net_off + model._n_chan]
         assert np.array_equal(stepped, lens != 0)
@@ -377,3 +419,135 @@ def test_device_step_is_the_plain_step(host, config):
     assert np.array_equal(child[held], s[held])
     assert np.array_equal((flags[held] & 1) != 0, valid[held])
     assert np.array_equal((flags[held] & 2) != 0, ovf[held])
+
+
+@pytest.mark.parametrize("config", list(HOST_STEPS))
+def test_k1_child_fingerprint_is_fp64_of_the_child(host, config):
+    """The fingerprint K1 gives each lane, on the host, is
+    ``fingerprint.py``'s ``fp64_words`` of the plain step's child: a
+    wide model's folds every word of the child; an edit model's is its
+    row's folds with only the words its child changes refolded, on
+    every active lane (the poison child of an overflow among them, and
+    columns past the 128 keys of ``kColumnKey`` at abd3's 260 and
+    tpu_abd2's 331 words), and the row's own on every other lane."""
+    model, rows, _bits, flags, fp, child = _host_step(host, config)
+    name = model.cuda_spec()[0]
+    f, w, a = rows.shape[0], model.packed_width, model.max_actions
+    x = torch.from_numpy(rows.astype(np.int64))
+    s, _valid, ovf = model.packed_step(x)
+    s = s.numpy().reshape(f, a, w).astype(np.uint32)
+    ovf = ovf.numpy().reshape(f, a)
+    stepped = (flags & 4) != 0
+    edit = name == "abd_ordered"
+    poisoned = 0
+    for r in range(f):
+        row_fp = fp64_words(rows[r].tolist())
+        for e in range(a):
+            if edit and not stepped[r, e]:
+                assert fp[r, e] == row_fp
+                continue
+            assert fp[r, e] == fp64_words(s[r, e].tolist()), (r, e)
+            poisoned += bool(ovf[r, e])
+    if edit and config != "abd-ordered-1x1":
+        assert poisoned > 0
+    if config in ("abd-ordered-3x2-d8", "abd-ordered-2x3-d8"):
+        assert w > 128
+
+
+def _chunk_constant(name):
+    """A ``constexpr int`` of ``csrc/chunk.cu``."""
+    import re
+    m = re.search(rf"constexpr int {name} = (\d+);",
+                  (CSRC / "chunk.cu").read_text())
+    return int(m.group(1))
+
+
+@pytest.mark.parametrize("lanes", [1, 127, 128, 4_608, 18_990, 24_192,
+                                   110_592, 147_456, 454_656])
+def test_k7_wide_rows_take_their_tile_and_narrow_rows_keep_theirs(lanes):
+    """K7's tile (``append_tile``) at every row width up to the widest
+    the kernel takes (352 words, queue rows of 355): rows wider than the
+    256-thread block take the 128-lane tile of 128 threads; narrower ones
+    keep the 1,024/4,096-lane rule (three tiles for every four SMs);
+    either way the grid's tiles cover every lane once, with the tail one
+    block past them."""
+    assert _chunk_constant("kMaxRowWords") == 352
+    assert _chunk_constant("kWideTileThreads") == _cuda.APPEND_WIDE_TILE
+    assert _chunk_constant("kAppendThreads") == _cuda.APPEND_THREADS
+    want = (3 * SMS) // 4
+    narrow = 4096 if lanes // 4096 >= want else 1024
+    for width in range(1, 353):
+        tile = _cuda.append_tile(lanes, SMS, width)
+        if width + 3 > 256:
+            assert tile == _cuda.APPEND_WIDE_TILE == 128
+        else:
+            assert tile == narrow == _cuda.append_tile(lanes, SMS)
+        tiles = _cuda.append_grid(lanes, tile) - 1
+        assert tiles * tile >= lanes and (tiles - 1) * tile < lanes
+
+
+@pytest.mark.parametrize("model", [
+    lambda: PackedAbd(2, server_count=3, ordered=True, channel_depth=8),
+    lambda: PackedAbd(3, server_count=2, ordered=True, channel_depth=8)],
+    ids=["tpu_abd2", "abd3"])
+def test_k7_wide_tiles_outnumber_the_sms_at_the_ordered_steps(model):
+    """At the large steps of bench.py's ordered register rows (tpu_abd2:
+    1,055 rows of 18 lanes and 331 words; abd3: 1,728 of 14 and 260),
+    K7's wide tiles give every SM of an H100 a block."""
+    from stateright_tpu_torch.checker.gpu import auto_fmax
+    model = model()
+    rows = auto_fmax(model)
+    assert rows == {331: 1055, 260: 1728}[model.packed_width]
+    lanes = rows * model.max_actions
+    tile = _cuda.append_tile(lanes, SMS, model.packed_width)
+    assert tile == 128
+    assert _cuda.append_grid(lanes, tile) - 1 >= SMS
+
+
+@pytest.mark.parametrize("width", [257, 260, 328, 331, 352])
+def test_k7_wide_row_copy_writes_each_word_once(width):
+    """A transcription of K7's wide-row copy (``csrc/chunk.cu``
+    ``write_rows``, ``W + 3 >`` the block's threads): warp ``w`` of the
+    128-thread block copies rows ``w, w + 4, ...``, ``kRowsInFlight`` at
+    a time, lane ``l`` words ``l + 32 u`` for ``u < kQueueWords`` from
+    the lane's ``flat`` row, the row's ``ebits`` and the child's key;
+    over a tile's rows (none, one, a ragged count, more than the tile's
+    warps can hold at once) it writes the queue rows the JAX append
+    writes, every word once."""
+    qwords = _chunk_constant("kQueueWords")
+    in_flight = _chunk_constant("kRowsInFlight")
+    threads = _chunk_constant("kWideTileThreads")
+    a, qc = 7, width + 3
+    rng = np.random.default_rng(width)
+    lanes = 128
+    flat = rng.integers(0, 2**32, (lanes, width), dtype=np.uint64)
+    ebits = rng.integers(0, 2**32, lanes // a + 1, dtype=np.uint64)
+    chi, clo = (rng.integers(0, 2**32, lanes, dtype=np.uint64)
+                for _ in range(2))
+    for density in (0.0, 1 / lanes, 0.3, 1.0):
+        ins = np.flatnonzero(rng.random(lanes) < density)
+        n = len(ins)
+        q = np.zeros((n, qc), dtype=np.uint64)
+        writes = np.zeros((n, qc), dtype=np.int64)
+        nw = threads // 32
+        for wid in range(nw):
+            for i0 in range(wid, n, nw * in_flight):
+                for j in range(in_flight):
+                    i = i0 + j * nw
+                    if i >= n:
+                        continue
+                    lane = ins[i]
+                    for wl in range(32):
+                        for u in range(qwords):
+                            k = wl + 32 * u
+                            if k >= qc:
+                                continue
+                            q[i, k] = (flat[lane, k] if k < width
+                                       else ebits[lane // a] if k == width
+                                       else (chi if k == width + 1
+                                             else clo)[lane])
+                            writes[i, k] += 1
+        assert (writes == 1).all()
+        want = np.concatenate([flat[ins], ebits[ins // a][:, None],
+                               chi[ins][:, None], clo[ins][:, None]], 1)
+        assert np.array_equal(q, want)

@@ -89,9 +89,10 @@ def run_tree(tree: str, reps: int) -> int:
             chosen = tile
             if own_tile:
                 _cuda.append_tile = (own_tile if tile is None
-                                     else lambda lanes, sms, t=tile: t)
+                                     else lambda *_a, t=tile: t)
                 chosen = _cuda.append_tile(rows * model.max_actions,
-                                           _cuda.sm_count(dev))
+                                           _cuda.sm_count(dev),
+                                           model.packed_width)
             carry.card = None  # a new chunk (and tile size) per run
             res = smoke.check_append(model, carry, rows, reps)
             print(json.dumps({**head, "shape": label, "tile_lanes": chosen,
