@@ -130,18 +130,24 @@ Phases, one JSON line each:
              "linearizable-register check 2 ordered"), PackedAbd(3,
              server_count=2, ordered=True, channel_depth=8) (260, bench.py
              tpu_abd3) and PackedAbd(2, server_count=3, ordered=True,
-             channel_depth=8) (331, tpu_abd2) under its active-lane rule
-             (every output on every lane, the children and their
-             fingerprints on the lanes of non-empty channels), ``abd``
-             (PackedAbd(2), unordered) and ``single_copy``
-             (PackedSingleCopy(3)) lane for lane, each at a step size its
-             run launches (``REGISTER_STEPS``), with K2/K3, its launch,
-             registers and no spill; at 331 words K7 after a real gated
+             channel_depth=8) (331, tpu_abd2), ``abd`` (PackedAbd(2),
+             unordered: the group K1) and ``single_copy``
+             (PackedSingleCopy(3), at 9,954 rows with ~588 pending and
+             at 512 all pending, and PackedSingleCopy(4) at 9,475 all
+             pending: the group K1), each at a step size its run
+             launches (``REGISTER_STEPS``), gated as the search launches
+             it (``gated_step``), under K1's lane rule (the children
+             and their fingerprints held on the lanes of non-empty
+             channels, or below the quiet lane; the group K1 steps only
+             the pending rows: there only, and the property bits on
+             them; cvalid and terminal everywhere: ``active_rule``),
+             with K2/K3, its
+             launch, registers and no spill; at 331 words K7 after a real gated
              step, K8 and K9, at 260 words K7 (its 128-lane tile for rows
              wider than its 256-thread block). The K1 checks' plain
              versions run after
              the runs (at tpu_abd2's 1,055-row and single-copy's
-             9,954-row steps they take tens of seconds, and later traces
+             9,954- and 9,475-row steps they take tens of seconds, and later traces
              would lose their device time). The runs, with
              ``race=False``:
              PackedAbd(2, ordered=True) (564, ``PIN_ABD2_ORDERED``),
@@ -620,7 +626,8 @@ def bound(nbytes: int, ops: int) -> dict:
 
 
 def kernel_parts(model, f: int, symmetry: bool, cc: int, by_kernel,
-                 counts=None, noprobe=None, written=None) -> dict:
+                 counts=None, noprobe=None, written=None,
+                 stepped=None) -> dict:
     """Per kernel of one step over ``f`` rows: its device ms (from
     ``by_kernel``, a profiled call), its own bound and its launch
     geometry. K1 (expand) always; with ``counts = (valid lanes, tile
@@ -631,7 +638,10 @@ def kernel_parts(model, f: int, symmetry: bool, cc: int, by_kernel,
     own inputs read once and outputs written once, so the parts' bounds
     add up to more than the step's (K1's outputs are K2's inputs).
     ``written``: the lanes whose children K1 writes (an edit model's
-    active lanes; default every lane)."""
+    active lanes; default every lane); ``stepped``: the rows K1 reads
+    and writes keys and bits for (a group model's pending rows; default
+    every row; every lane's cvalid and every row's terminal are written
+    either way)."""
     import torch
 
     from stateright_tpu_torch.ops import _cuda
@@ -641,6 +651,7 @@ def kernel_parts(model, f: int, symmetry: bool, cc: int, by_kernel,
     lanes = f * a
     if written is None:
         written = lanes
+    rows = f if stepped is None else stepped
     pcols = max(len(model.properties()), 1)
     by_kernel = by_kernel or {}
     tiles = _cuda.tile_geometry(
@@ -651,11 +662,11 @@ def kernel_parts(model, f: int, symmetry: bool, cc: int, by_kernel,
     k1 = "expand_kernel_sym" if symmetry else "expand_kernel"
     parts = {k1: {
         "device_ms": by_kernel.get(k1),
-        **bound(f * (4 * w + 4 + 1)                # frontier, ebits, fvalid
-                + f * (pcols + 4 + 1)              # pbits, ebits, terminal
+        **bound(rows * (4 * w + 4 + 1)             # frontier, ebits, fvalid
+                + rows * (pcols + 4) + f           # pbits, ebits, terminal
                 + written * 4 * w                  # flat
-                + lanes * (8 + 1)                  # chi/clo, cvalid
-                + lanes * (8 if symmetry else 0)   # ohi/olo
+                + rows * a * 8 + lanes             # chi/clo, cvalid
+                + rows * a * (8 if symmetry else 0)  # ohi/olo
                 + cc * 8,                          # the ring arena reset
                 written * step_ops(model, symmetry)),
         "geometry": geometry}}
@@ -738,20 +749,53 @@ def block_args(model, carry, f: int, pfp=None):
     return block, (block[:, :w], block[:, w], fvalid, phi, plo)
 
 
+def gated_step(model, args, table, ring, ws, take: int):
+    """``fused_step`` as the search launches it inside a chunk: gated,
+    over the rows of ``args`` (``block_args``'s) with the first ``take``
+    pending (the gate's; ``fvalid`` unused), under the tag in the gate.
+    Returns ``(launch, gate)``: ``launch()`` runs one step (a
+    ``FusedOut``); ``gate`` is the int32 gate on the card (bump its
+    ``G_TAG`` before a repeat, so each launch has its own owner-word
+    tag)."""
+    import torch
+
+    from stateright_tpu_torch.checker.device_loop import (G_SIZE, G_TAG,
+                                                          G_TAKE)
+    from stateright_tpu_torch.ops import _cuda
+    from stateright_tpu_torch.ops.fused import FusedOut, stats_len
+
+    frontier, ebits, _fvalid, phi, plo = args
+    gate = torch.zeros((7,), dtype=torch.int32, device=frontier.device)
+    gate[G_SIZE], gate[G_TAKE], gate[G_TAG] = 1, take, ws.step + 1
+
+    def launch():
+        return FusedOut(*_cuda.fused_step(
+            model, frontier, ebits, None, phi, plo, table, ring, ws,
+            stats_len(model), gate=gate.data_ptr(), gate_size=1))
+    return launch, gate
+
+
 def check_step(model, carry, f: int, reps: int, symmetry: bool = False,
-               pfp=None, active=None, defer: bool = False):
+               pfp=None, active=None, defer: bool = False,
+               gated: bool = False):
     """K1-K3 (one ``fused_step``, the symmetric instantiation under
     ``symmetry``) against ``fused_step_reference`` on the card over ``f``
     rows of ``carry`` (its pending ones valid), by the set gate.
-    ``active(frontier)`` (an edit model's rule) gives the lanes whose
-    children K1 writes (bool ``[f * A]``): flat, chi and clo are held
-    there only, every other output on every lane, and the bound counts
-    the children of those lanes. The kernel is timed (CUDA events, then
-    a trace) before its plain version runs: a plain version of tens of
-    seconds spoils the traces taken after it. ``defer`` returns, once
-    the kernel is timed, a function that runs the plain version and
-    returns the check; it holds copies of the step's inputs, not
-    ``carry``."""
+    ``active(frontier)`` (a group or edit model's rule) gives the lanes
+    whose children K1 writes (bool ``[f * A]``): flat, chi and clo are
+    held there only, every other output on every lane; a group
+    instantiation (``_cuda.pending_rows``) writes only the pending rows'
+    outputs: flat, chi and clo are held on the written lanes of pending
+    rows, pbits and ebits on pending rows, cvalid and terminal on every
+    lane and row, and its bound (``pending_bound``) counts those.
+    ``gated`` launches the step as the search does (:func:`gated_step`:
+    the pending rows a prefix passed as the gate's ``take``). The kernel
+    is timed (CUDA events, then a trace) before its plain version runs:
+    a plain version of tens of seconds spoils the traces taken after
+    it. ``defer`` returns, once the kernel is timed, a function that
+    runs the plain version and returns the check; it holds copies of the
+    step's inputs, not ``carry``."""
+    from stateright_tpu_torch.checker.device_loop import G_TAG
     from stateright_tpu_torch.ops.fused import StepWorkspace, fused_step
 
     block, args = block_args(model, carry, f, pfp)
@@ -759,16 +803,22 @@ def check_step(model, carry, f: int, reps: int, symmetry: bool = False,
     t_k, r_k = table0.clone(), ring0.clone()
     ws = StepWorkspace(table0.numel(), ring0.shape[0],
                        len(model.properties()), block.device)
-    k = fused_step(model, *args, t_k, r_k, ws, symmetry=symmetry)
+    gate = None
+    if gated:
+        take = min(carry.q_tail - carry.q_head, f)
+        launch, gate = gated_step(model, args, t_k, r_k, ws, take)
+    else:
+        def launch():
+            return fused_step(model, *args, t_k, r_k, ws, symmetry=symmetry)
+    k = launch()
     n_claims = int(ws.n_claims.sum())  # K2's claims, which K3 walks
     t_after = t_k.clone()
 
     def restore():
         t_k.copy_(table0)
         r_k.copy_(ring0)
-
-    def launch():
-        return fused_step(model, *args, t_k, r_k, ws, symmetry=symmetry)
+        if gate is not None:
+            gate[G_TAG] += 1
 
     ms = cuda_ms(launch, reps, restore)
     dev = device_times(launch, before=restore)
@@ -790,6 +840,7 @@ def _step_against_plain(model, f, symmetry, active, args, k, n_claims,
     import numpy as np
     import torch
 
+    from stateright_tpu_torch.ops import _cuda
     from stateright_tpu_torch.ops.fused import (S_CCH, S_DEDUP, S_DISC,
                                                 S_FAULT, S_INSERTED, S_OVF,
                                                 S_XOVF, fused_step_reference)
@@ -810,6 +861,13 @@ def _step_against_plain(model, f, symmetry, active, args, k, n_claims,
     lane_exact = ("flat", "chi", "clo", "cvalid", "pbits", "ebits",
                   "terminal") + (("ohi", "olo") if symmetry else ())
     written = None if active is None else active(args[0])
+    rows_held = None  # every row
+    pend_rows = not symmetry and _cuda.pending_rows(model.cuda_spec()[0])
+    if pend_rows:
+        # K1 steps the pending rows only
+        rows_held = args[2]
+        lanes_held = rows_held.repeat_interleave(model.max_actions)
+        written = lanes_held if written is None else written & lanes_held
     err = 0
     for name in lane_exact:
         a = getattr(k, name).to(torch.int64)
@@ -818,6 +876,8 @@ def _step_against_plain(model, f, symmetry, active, args, k, n_claims,
             raise AssertionError(f"f={f} {name}: shape {a.shape} != {b.shape}")
         if written is not None and name in ("flat", "chi", "clo"):
             a, b = a[written], b[written]
+        if rows_held is not None and name in ("pbits", "ebits"):
+            a, b = a[rows_held], b[rows_held]
         err = max(err, int((a - b).abs().max()) if a.numel() else 0)
 
     def inserted_keys(out):
@@ -861,21 +921,29 @@ def _step_against_plain(model, f, symmetry, active, args, k, n_claims,
     n_ins = len(kk)
     n_written = lanes if written is None else int(written.sum())
 
+    cc = ring0.shape[0]
+
     def step_bytes(rows, n_w):
+        # ``rows`` of the f stepped (read, their keys and bits written),
+        # ``n_w`` children written; every lane's masks and every row's
+        # terminal written whatever is stepped
         a = model.max_actions
         return (rows * (4 * w + 4 + 8 + 1)        # frontier, ebits, fps,
                                                   # fvalid
-                + rows * (max(n_props, 1) + 4 + 1)  # pbits, ebits, terminal
+                + rows * (max(n_props, 1) + 4)    # pbits, ebits
+                + f                               # terminal
                 + n_w * 4 * w                     # flat
-                + rows * a * (8 + 3)              # chi/clo, 3 masks
+                + rows * a * 8                    # chi/clo
+                + f * a * 3                       # cvalid, dvalid, inserted
                 + rows * a * (8 if symmetry else 0)  # ohi/olo
-                + (n_win * 8 if ring0.shape[0] else 0)  # ring probes
+                + cc * 8                          # the ring arena K1 resets
+                + (n_win * 8 if cc else 0)        # ring probes
                 + n_table * 32                    # bucket reads
                 + n_ins * 16)                     # table + ring writes
     nbytes = step_bytes(f, n_written)
     ops = n_written * step_ops(model, symmetry) + n_table * 12
-    # the same over the pending rows only (the rows past them are
-    # stepped, invalid): the least work of the search's own step
+    # the same with only the pending rows stepped: the least work of the
+    # search's own step, a group K1's (``_cuda.pending_rows``)
     pending = int(args[2].sum())
     pw = (pending * model.max_actions if written is None
           else int(written[:pending * model.max_actions].sum()))
@@ -890,10 +958,11 @@ def _step_against_plain(model, f, symmetry, active, args, k, n_claims,
             "device_by_kernel_ms": dev["by_kernel_ms"],
             "plain_ms": plain_ms, **bound(nbytes, ops),
             "pending_bound": pending_bound,
-            "parts": kernel_parts(model, f, symmetry, ring0.shape[0],
+            "parts": kernel_parts(model, f, symmetry, cc,
                                   dev["by_kernel_ms"],
                                   (n_valid, n_win, n_table, n_ins),
-                                  written=n_written),
+                                  written=n_written,
+                                  stepped=pending if pend_rows else None),
             "checks": checks}
 
 
@@ -2751,14 +2820,15 @@ def _single_copy(*args):
 
 
 #: the register family's K1 checks (phase ``kernels`` with a ``model``
-#: key), each at a step its configuration's run launches: the label, the
-#: model, its ``cuda_spec`` name, the rows of the step and the rows
-#: pending at it. The full spaces of 544 and 564 states take the small
-#: step (256 rows, a few dozen pending); the others ``auto_fmax``'s
-#: large step (1,728 rows at abd3's 260 words, 1,055 at tpu_abd2's 331,
-#: 9,954 at single-copy's 79), every row pending but at single-copy 3,
-#: whose large step launches with ~588 of its rows pending (the first
-#: such step with at least 512).
+#: key), each at a step its configuration's run launches, gated as the
+#: search launches it: the label, the model, its ``cuda_spec`` name, the
+#: rows of the step and the rows pending at it. The full spaces of 544
+#: and 564 states take the small step (256 rows, a few dozen pending);
+#: the others ``auto_fmax``'s large step (1,728 rows at abd3's 260
+#: words, 1,055 at tpu_abd2's 331, 9,954 at single-copy 3's 79, 9,475 at
+#: single-copy 4's 83), every row pending but at single-copy 3, whose
+#: large step launches with ~588 of its rows pending (the first such
+#: step with at least 512); and single-copy 3 at 512 rows, all pending.
 REGISTER_STEPS = (
     ("PackedAbd(2, ordered=True)", lambda: _abd(2, ordered=True),
      "abd_ordered", 256, 48),
@@ -2771,15 +2841,27 @@ REGISTER_STEPS = (
      "abd_ordered", 1055, 1055),
     ("PackedSingleCopy(3)", lambda: _single_copy(3), "single_copy", 9954,
      512),
+    ("PackedSingleCopy(3) at 512 rows", lambda: _single_copy(3),
+     "single_copy", 512, 512),
+    ("PackedSingleCopy(4)", lambda: _single_copy(4), "single_copy", 9475,
+     9475),
 )
 #: the label of the widest register row (331 words), where K7, K8 and
 #: K9 are checked too
 WIDE_REGISTER = REGISTER_STEPS[3][0]
 #: abd3's label (260-word rows), where K7 is checked too
 ABD3_REGISTER = REGISTER_STEPS[1][0]
-#: the redesign of the ordered register path's two kernels (the
-#: ``kernels`` line's ``redesigned``)
+#: the redesigns of the register paths' kernels (the ``kernels`` line's
+#: ``redesigned``)
 REDESIGNED = {
+    "abd": "each child built by a half-warp group with slot j of the "
+           "network in lane j (consume by a shuffle, each send's match "
+           "and rank by ballots, its insert by a shuffle), written "
+           "straight to flat 16 consecutive words a store, each lane "
+           "folding its own; only the pending rows stepped, spread over "
+           "the grid in a gated launch; quiet lanes' rows unwritten",
+    "single_copy": "as abd: the group-built child and the pending rows "
+                   "spread over the grid",
     "abd_ordered": "the block's warps share the children (child c by "
                    "warp c % nwarps), each written from the edit's "
                    "columns in registers, 32 words a store; the "
@@ -2791,6 +2873,32 @@ REDESIGNED = {
 #: K1's model struct of each register instantiation (ptxas's name)
 REGISTER_STRUCTS = {"abd_ordered": "AbdOrderedModel", "abd": "AbdModel",
                     "single_copy": "SingleCopyModel"}
+
+
+def unordered_active(model):
+    """A group model's rule (``csrc/abd.cuh`` ``AbdModel``,
+    ``csrc/single_copy.cuh``): the lanes K1 writes are those below the
+    row's quiet lane, the network's zero tail (``actor_net.cuh``
+    ``zero_tail``)."""
+    def active(frontier):
+        import torch
+        e = model.net_capacity
+        slots = frontier[:, model._net_off:model._timer_off].reshape(
+            -1, e, 4)
+        live = (slots != 0).any(-1)
+        quiet = (live * torch.arange(1, e + 1, device=frontier.device)
+                 ).max(-1).values
+        lanes = torch.arange(e, device=frontier.device)
+        return (lanes[None, :] < quiet[:, None]).reshape(-1)
+    return active
+
+
+def active_rule(model, name):
+    """The lanes K1's instantiation ``name`` writes a child for, by its
+    model's rule (None: every lane)."""
+    return {"abd_ordered": ordered_active, "abd": unordered_active,
+            "single_copy": unordered_active}.get(
+                name, lambda _m: None)(model)
 
 
 def ordered_active(model):
@@ -2817,16 +2925,16 @@ def register_kernels(device) -> tuple:
     for label, make, name, rows, pending in REGISTER_STEPS:
         model = make()
         carry = mid_search_carry(model, device, rows=rows, pending=pending)
-        active = ordered_active(model) if name == "abd_ordered" else None
-        finish = check_step(model, carry, rows, reps=10, active=active,
-                            defer=True)
+        finish = check_step(model, carry, rows, reps=10,
+                            active=active_rule(model, name), defer=True,
+                            gated=True)
         geo = _cuda.tile_geometry(rows, model.max_actions, sms)
         wide, smem = _cuda.k1_launch(name, geo, rows, model.packed_width,
                                      model.max_actions, sms)
         usage = kernel_usage("fused_step",
                              f"expand_kernel[{REGISTER_STRUCTS[name]}]")
         meta = {"width": model.packed_width, "actions": model.max_actions,
-                "pending": int(carry.q_tail - carry.q_head),
+                "pending": min(int(carry.q_tail - carry.q_head), rows),
                 "k1_launch": {**wide._asdict(), "smem_bytes": smem},
                 "usage": usage}
         checks[label] = {}
@@ -3003,6 +3111,8 @@ def register_kernel_entries(checks: dict, runs: dict) -> list:
     the full abd3 run; ``abd``: PackedAbd(2); ``single_copy``:
     PackedSingleCopy(3)) and its checks by configuration; the
     ``abd_ordered`` headline is abd3's."""
+    from stateright_tpu_torch.ops import _cuda
+
     main_of = {"abd_ordered": ("PackedAbd(3, server_count=2, ordered=True, "
                                "channel_depth=8)", "abd3"),
                "abd": ("PackedAbd(2)", "abd2"),
@@ -3024,8 +3134,16 @@ def register_kernel_entries(checks: dict, runs: dict) -> list:
             "launches": runs[run]["launches"]["fused_step"],
             "max_abs_err": max(r["max_abs_err"] for r in by.values()),
             "ms": main["ms"], "device_ms": main["device_ms"],
-            "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
-            "bound_by": main["bound_by"], "library_ms": None,
+            "plain_ms": main["plain_ms"],
+            # a group K1 steps the pending rows only: the least work is
+            # theirs (with every lane's flags and every row's terminal)
+            **({"bound_ms": main["pending_bound"]["bound_ms"],
+                "bound_by": main["pending_bound"]["bound_by"],
+                "bound_of": "the pending rows"}
+               if _cuda.pending_rows(name) else
+               {"bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+                "bound_of": "every row"}),
+            "library_ms": None,
             "by_model": {lb: {k: r[k] for k in (
                 "f", "pending", "width", "lanes", "written", "ms",
                 "device_ms", "plain_ms", "bound_ms", "bound_by",

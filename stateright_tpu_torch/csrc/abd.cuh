@@ -8,10 +8,11 @@
 // PackedAbd.cuda_spec refuses the rest):
 //
 //   AbdModel         the unordered non-duplicating network of E <= 16
-//                    slots (at most 128 words): a wide model like
-//                    paxos.cuh (actor_net.cuh register_step_unordered,
-//                    the child staged through RowOut, the network's zero
-//                    tail quiet);
+//                    slots (at most 128 words): a group model
+//                    (kGroupRow, step_common.cuh), each child built by a
+//                    group of lanes with the network in their registers
+//                    (actor_net.cuh register_step_group), the network's
+//                    zero tail quiet;
 //   AbdOrderedModel  the ordered network's register channels of depth D
 //                    (at most 32 channels and 352 words: the BASELINE's
 //                    PackedAbd(2, ordered=True) is 108, bench.py's
@@ -168,7 +169,7 @@ struct AbdServer {
 // finalize_layout, S (2 + S) + C + 4 E + 1 + 1 + 3 C words.
 struct AbdModel : AbdServer {
   static constexpr int W = 128;  // C = 7, S = 4, E = 16 need 118
-  static constexpr bool kWideRow = true;
+  static constexpr bool kGroupRow = true;
 
   int E;  // network slots
   int sw, aw, net_off, timer_off, hist_off, hw, width_;
@@ -206,10 +207,16 @@ struct AbdModel : AbdServer {
     return actor::zero_tail(w + net_off, E);
   }
 
-  template <class Out>
-  __device__ __forceinline__ bool step_row(const uint32_t* w, int e,
-                                           Out& out, bool& ovf) const {
-    return actor::register_step_unordered(*this, w, e, out, ovf);
+  // The child of row w (shared memory) under action lane e, built by the
+  // group g into dst (its row of flat): whether it is a valid successor,
+  // ovf whether it overflowed (its words kPoison, invalid), (hi, lo) its
+  // fingerprint.
+  template <class Grp>
+  __device__ __forceinline__ bool step_group(const uint32_t* w, int e,
+                                             const Grp& g, uint32_t* dst,
+                                             bool& ovf, uint32_t& hi,
+                                             uint32_t& lo) const {
+    return actor::register_step_group(*this, w, e, g, dst, ovf, hi, lo);
   }
 };
 

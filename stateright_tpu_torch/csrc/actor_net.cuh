@@ -4,10 +4,13 @@
 // (net_consume, net_send), the ordered network's FIFO channels
 // (reg_chan, OrderedEdit, OrderedHead), the register client's step and the
 // linearizability history's record hooks of actor/packed_register.py
-// (_client_step, packed_record_in, packed_record_out), and the two steps
-// a register model runs: register_step_unordered, which writes the child
-// through step_common.cuh's RowOut, and register_edit_ordered with
-// ordered_child_word, which describe the child as the row plus an edit.
+// (_client_step, packed_record_in, packed_record_out), and the steps a
+// register model runs: register_step_unordered, which writes the child
+// through step_common.cuh's RowOut (Paxos), register_step_group, which
+// builds it with a group of lanes holding the network (ABD and the
+// single-copy register on the unordered network), and
+// register_edit_ordered with ordered_child_word, which describe the
+// child as the row plus an edit (ABD on the ordered network).
 //
 // They compute what the JAX package's _packed_step_unordered
 // (stateright_tpu/actor/packed.py:710, with _net_consume :489 and
@@ -22,6 +25,8 @@
 #pragma once
 
 #include <cstdint>
+
+#include "fold.cuh"
 
 namespace actor {
 
@@ -383,6 +388,181 @@ __device__ __forceinline__ bool register_step_unordered(const M& m,
 #pragma unroll
   for (int i = 0; i < kMaxHist; ++i)
     if (i < m.hw) out.put(m.hist_off + i, poison ? kPoison : hist.h[i]);
+  return valid && !poison;
+}
+
+// --- the unordered network in a group's lanes --------------------------
+//
+// register_step_group builds one child with a group of G lanes (a
+// half-warp in step_common.cuh's group K1, G >= E): slot j of
+// the child's network [hdr, cnt, m0, m1] lives in lane j's registers
+// (lanes from E on hold zeros), so a consume or a send is a few
+// shuffles and ballots instead of one lane's unrolled walk over 16
+// slots; the delivery (register_dispatch) and the history record are
+// computed alike by every lane of the group (one instruction stream);
+// then the lanes write the child's words to its row (the actors' words
+// and the history G consecutive ones a store, slot j's four words by
+// lane j), each folding its own into the fingerprint (fold.cuh), and the
+// group XOR-reduces the folds. Grp gives rank() (the lane's place in
+// the group), size(), down(v) / up(v) (lane r + 1's / r - 1's v, where
+// it exists), ballot(p) (the group's lanes whose p holds, as bits of any
+// order: only popcounts are read), xor_all(v), words() (the group's
+// 2 G words of shared memory, at least kMaxHist) and sync() (the group's
+// barrier, which orders its lanes' shared-memory accesses); every lane
+// of the group calls each of them at the same point (the control flow
+// around them is the same for the whole group).
+
+// Deliver slot e (the group's net_consume): decrement its count, or at
+// a count c of at most one shift the suffix up one slot by a shuffle (a
+// zeroed slot enters at the tail); the count wraps as in net_consume.
+template <class Grp>
+__device__ __forceinline__ void group_consume(const Grp& g, uint32_t& hdr,
+                                              uint32_t& cnt, uint32_t& m0,
+                                              uint32_t& m1, int e,
+                                              uint32_t c, int E) {
+  const int r = g.rank();
+  if (r == e) cnt -= 1u;
+  if (c > 1u) return;
+  const uint32_t nh = g.down(hdr), nc = g.down(cnt), n0 = g.down(m0),
+                 n1 = g.down(m1);
+  if (r >= e && r < E) {
+    const bool last = r + 1 >= E;
+    hdr = last ? 0u : nh;
+    cnt = last ? 0u : nc;
+    m0 = last ? 0u : n0;
+    m1 = last ? 0u : n1;
+  }
+}
+
+// A valid send of (sm0, sm1) from src to dst (the group's net_send):
+// bump the count of the slot that holds the envelope (its lane's match,
+// by ballot), or insert [hdr, 1, sm0, sm1] at its rank (the popcount of
+// the occupied slots below it in (hdr, m0, m1) order) by shifting the
+// suffix down one slot by a shuffle. Returns the overflow: no match and
+// no empty slot, or a recipient at or above 256.
+template <class Grp>
+__device__ __forceinline__ bool group_send(const Grp& g, uint32_t& hdr,
+                                           uint32_t& cnt, uint32_t& m0,
+                                           uint32_t& m1, uint32_t src,
+                                           uint32_t dst, uint32_t sm0,
+                                           uint32_t sm1, int E) {
+  const int r = g.rank();
+  const uint32_t h = kOcc | (src << 8) | dst;
+  const bool live = r < E;
+  const bool occ = (hdr & kOcc) != 0u;
+  const bool match = live && occ && hdr == h && m0 == sm0 && m1 == sm1;
+  if (match) cnt += 1u;
+  const bool lt =
+      hdr < h || (hdr == h && (m0 < sm0 || (m0 == sm0 && m1 < sm1)));
+  const bool has_match = g.ballot(match) != 0u;
+  const bool has_empty = g.ballot(live && !occ) != 0u;
+  const int pos = __popc(g.ballot(live && occ && lt));
+  const bool oob = dst >= 256u;
+  if (!has_match && has_empty && !oob) {
+    const uint32_t ph = g.up(hdr), pc = g.up(cnt), p0 = g.up(m0),
+                   p1 = g.up(m1);
+    if (live && r > pos) {
+      hdr = ph;
+      cnt = pc;
+      m0 = p0;
+      m1 = p1;
+    } else if (r == pos) {
+      hdr = h;
+      cnt = 1u;
+      m0 = sm0;
+      m1 = sm1;
+    }
+  }
+  return (!has_match && !has_empty) || oob;
+}
+
+// A register model's child on the unordered network (slot e of row w, in
+// shared memory), built by the group g into dst (the child's row of
+// flat); returns whether it is a valid successor, ovf whether it
+// overflowed the network (then its words are kPoison and it is invalid),
+// and (hi, lo) its fingerprint, in every lane. The same child, validity
+// and overflow as register_step_unordered, bit for bit: the same
+// consume, the same record_in, then per valid send record_out before
+// its insert, in send order. M is register_step_unordered's.
+template <class M, class Grp>
+__device__ __forceinline__ bool register_step_group(const M& m,
+                                                    const uint32_t* w,
+                                                    int e, const Grp& g,
+                                                    uint32_t* dst, bool& ovf,
+                                                    uint32_t& hi,
+                                                    uint32_t& lo) {
+  const int E = m.E, r = g.rank(), G = g.size();
+  const uint32_t* slot = w + m.net_off + 4 * e;
+  const uint32_t hdr = slot[0], m0 = slot[2], m1 = slot[3];
+  const bool occupied = (hdr & kOcc) != 0u;
+  const uint32_t src = (hdr >> 8) & 0xFFu, to = hdr & 0xFFu;
+  Delivery<M> d;
+  register_dispatch(m, w, src, to, m0, m1, d);
+  const bool valid = occupied && to < (uint32_t)(m.S + m.C) &&
+                     (d.changed || d.any_send);
+
+  // the network, slot r in lane r: consume slot e, record the delivery,
+  // then each send's invocation record and network insert
+  const bool live = r < E;
+  const uint32_t* own = w + m.net_off + 4 * (live ? r : 0);
+  uint32_t nh = live ? own[0] : 0u, nc = live ? own[1] : 0u,
+           n0 = live ? own[2] : 0u, n1 = live ? own[3] : 0u;
+  group_consume(g, nh, nc, n0, n1, e, slot[1], E);
+  Hist hist;
+  hist_load(hist, w + m.hist_off, m.hw);
+  record_in(hist, m.S, m.C, to, m0);
+  bool overflow = false;
+#pragma unroll
+  for (int k = 0; k < M::kMaxSends; ++k) {
+    const Send& sd = d.sends[k];
+    if (k < m.n_sends() && sd.valid) {  // an invalid send changes nothing
+      record_out(hist, m.S, m.C, to, sd.m0);
+      overflow |= group_send(g, nh, nc, n0, n1, to, sd.dst, sd.m0, sd.m1, E);
+    }
+  }
+  const bool poison = valid && overflow;
+  ovf = poison;
+
+  // the child's words, each lane folding the words it writes: the
+  // actors' words (the destination's new ones) G consecutive a store,
+  // slot r's four words by lane r (the group's 4 G consecutive words in
+  // four stores), the history G consecutive a store, the timer by the
+  // last lane
+  const int width = m.hist_off + m.hw;
+  uint32_t h1 = 0u, h2 = 0u;
+  auto put = [&](int k, uint32_t v) {
+    if (poison) v = kPoison;
+    dst[k] = v;
+    fold_word(h1, h2, k, v);
+  };
+  for (int k = r; k < m.aw; k += G) {
+    uint32_t v = w[k];
+#pragma unroll
+    for (int j = 0; j < M::kMaxSW; ++j)
+      if (j < d.dn && k == d.doff + j) v = d.nw[j];
+    put(k, v);
+  }
+  if (live) {
+    const int k = m.net_off + 4 * r;
+    put(k, nh);
+    put(k + 1, nc);
+    put(k + 2, n0);
+    put(k + 3, n1);
+  }
+  if (r == G - 1) put(m.timer_off, w[m.timer_off]);
+  // the history through the group's shared words (a lane's own word
+  // from its registers would need a runtime index into hist.h, which
+  // puts the history in local memory): the first lane writes them
+  uint32_t* hs = g.words();
+  g.sync();  // the group's last child has read them
+  if (r == 0) {
+#pragma unroll
+    for (int i = 0; i < kMaxHist; ++i)
+      if (i < m.hw) hs[i] = hist.h[i];
+  }
+  g.sync();
+  for (int i = r; i < m.hw; i += G) put(m.hist_off + i, hs[i]);
+  fp64_finish(g.xor_all(h1), g.xor_all(h2), width, hi, lo);
   return valid && !poison;
 }
 

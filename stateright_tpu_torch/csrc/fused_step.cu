@@ -17,10 +17,13 @@
 // (paxos.cuh, a wide model: K1 keeps its 96-word rows in shared memory,
 // stages each child there and writes each warp's children with
 // coalesced stores, step_common.cuh WideRow), PackedSingleCopy
-// (single_copy.cuh, wide) and PackedAbd (abd.cuh: wide on the unordered
-// network; on the ordered one an edit model of up to 352 words, whose
-// warps write each child from the shared row and the lane's edit,
-// step_common.cuh EditRow); K2 and
+// (single_copy.cuh, a group model: each child built by a half-warp with
+// the network in its lanes, step_common.cuh GroupRow) and PackedAbd
+// (abd.cuh: a group model on the unordered network; on the ordered one
+// an edit model of up to 352 words, whose warps write each child from
+// the shared row and the lane's edit, step_common.cuh EditRow); the
+// group models step only the pending rows, which a gated launch
+// spreads over its grid; K2 and
 // K3 do not depend on the model. Built with nvcc for
 // sm_90a into a shared library with a plain C interface and driven over
 // ctypes by stateright_tpu_torch/ops/_cuda.py. K4 replaces the XLA insert
@@ -324,7 +327,7 @@ int srt_fused_step_paxos(const StepArgs* args, int clients, int servers,
 
 // One fused step for PackedSingleCopy(clients, servers, slots)
 // (single_copy.cuh: at most 7 clients, 4 servers, 16 slots and 128
-// words; the wide K1).
+// words; the group K1).
 int srt_fused_step_single_copy(const StepArgs* args, int clients,
                                int servers, int slots) {
   const SingleCopyModel m(clients, servers, slots);
@@ -335,7 +338,7 @@ int srt_fused_step_single_copy(const StepArgs* args, int clients,
 
 // One fused step for PackedAbd(clients, servers, slots) on the unordered
 // network (abd.cuh AbdModel: at most 7 clients, 4 servers, 16 slots and
-// 128 words; the wide K1).
+// 128 words; the group K1).
 int srt_fused_step_abd(const StepArgs* args, int clients, int servers,
                        int slots) {
   const AbdModel m(clients, servers, slots);

@@ -5,10 +5,11 @@
 // stateright_tpu/examples/single_copy_packed.py:59-84 with the register
 // dispatch of actor/packed_register.py), for C <= 7 clients, S <= 4
 // servers and E <= 16 slots of the unordered non-duplicating network (at
-// most 128 words; no drops, timers or crashes). A wide model like
-// paxos.cuh: actor_net.cuh register_step_unordered writes the child
-// through RowOut, the network's zero tail is quiet. Server state: one
-// word, the stored value.
+// most 128 words; no drops, timers or crashes). A group model
+// (kGroupRow, step_common.cuh): each child is built by a group of lanes
+// with the network in their registers (actor_net.cuh
+// register_step_group), the network's zero tail is quiet. Server state:
+// one word, the stored value.
 #pragma once
 
 #include <cstdint>
@@ -17,7 +18,7 @@
 
 struct SingleCopyModel {
   static constexpr int W = 128;  // C = 7, S = 4, E = 16 need 98
-  static constexpr bool kWideRow = true;
+  static constexpr bool kGroupRow = true;
   static constexpr int kMaxServers = 4;
   static constexpr int kMaxSW = 1;
   static constexpr int kMaxSends = 1;
@@ -72,9 +73,15 @@ struct SingleCopyModel {
     return actor::zero_tail(w + net_off, E);
   }
 
-  template <class Out>
-  __device__ __forceinline__ bool step_row(const uint32_t* w, int e,
-                                           Out& out, bool& ovf) const {
-    return actor::register_step_unordered(*this, w, e, out, ovf);
+  // The child of row w (shared memory) under action lane e, built by the
+  // group g into dst (its row of flat): whether it is a valid successor,
+  // ovf whether it overflowed (its words kPoison, invalid), (hi, lo) its
+  // fingerprint.
+  template <class Grp>
+  __device__ __forceinline__ bool step_group(const uint32_t* w, int e,
+                                             const Grp& g, uint32_t* dst,
+                                             bool& ovf, uint32_t& hi,
+                                             uint32_t& lo) const {
+    return actor::register_step_group(*this, w, e, g, dst, ovf, hi, lo);
   }
 };

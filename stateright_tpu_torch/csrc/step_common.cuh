@@ -375,8 +375,84 @@ template <class M>
 struct EditRow<M, std::void_t<decltype(M::kEditRow)>>
     : std::integral_constant<bool, M::kEditRow> {};
 
+// Whether M is a group model (M::kGroupRow): a register model on the
+// unordered network (ABD, the single-copy register), whose rows K1 keeps
+// in shared memory as for a wide model, with their quiet lanes
+// (m.quiet_from), and whose children it builds a half-warp each
+// (WarpGroup below): m.step_group(row, act, g, dst, ovf, hi, lo)
+// (actor_net.cuh register_step_group), the network in the group's
+// lanes, the child's words written straight to its row of flat (16
+// consecutive words a store; slot j's four by lane j), each lane
+// folding its own, the folds XOR-reduced over the group. A quiet lane
+// gets the row's fingerprint and cvalid = 0, and its row of flat is not
+// written. There is no staging row and no barrier between children: a
+// group's child is its own. A group model's K1 steps only the pending
+// rows, which a gated launch spreads over its grid (pending_span below).
+template <class M, class = void>
+struct GroupRow : std::false_type {};
+template <class M>
+struct GroupRow<M, std::void_t<decltype(M::kGroupRow)>>
+    : std::integral_constant<bool, M::kGroupRow> {};
+
+// The models whose K1 keeps its tile's rows in shared memory and walks
+// their active lanes densely (wide, edit and group models).
+template <class M>
+constexpr bool kSharedRow =
+    WideRow<M>::value || EditRow<M>::value || GroupRow<M>::value;
+
+// The lanes of a group model's child: a half-warp, one lane a network
+// slot (actor_net.cuh kMaxSlots); a whole warp a child lost at every
+// register step on an H100 (tools/torch_register_kernels.py --sweep).
+constexpr int kGroupLanes = 16;
+
+// A half-warp (lanes [base, base + 16) of a warp), with the collectives
+// actor_net.cuh's register_step_group calls; every lane of the group
+// calls each at the same point.
+struct WarpGroup {
+  unsigned mask;
+  int r;
+  uint32_t* smem;  // the group's 2 kGroupLanes words of shared memory
+
+  __device__ explicit WarpGroup(uint32_t* words) : smem(words) {
+    const int wl = threadIdx.x & 31;
+    r = wl & (kGroupLanes - 1);
+    mask = ((1u << kGroupLanes) - 1u) << (wl - r);
+  }
+  __device__ __forceinline__ uint32_t* words() const { return smem; }
+  __device__ __forceinline__ void sync() const { __syncwarp(mask); }
+  __device__ __forceinline__ int rank() const { return r; }
+  __device__ __forceinline__ int size() const { return kGroupLanes; }
+  __device__ __forceinline__ uint32_t down(uint32_t v) const {
+    return __shfl_down_sync(mask, v, 1, kGroupLanes);
+  }
+  __device__ __forceinline__ uint32_t up(uint32_t v) const {
+    return __shfl_up_sync(mask, v, 1, kGroupLanes);
+  }
+  __device__ __forceinline__ uint32_t ballot(bool p) const {
+    return __ballot_sync(mask, p) & mask;
+  }
+  __device__ __forceinline__ uint32_t xor_all(uint32_t v) const {
+#pragma unroll
+    for (int o = kGroupLanes / 2; o > 0; o >>= 1)
+      v ^= __shfl_xor_sync(mask, v, o, kGroupLanes);
+    return v;
+  }
+};
+
+// The rows a block of a gated launch of a group K1 takes: block b
+// of `blocks` takes the pending rows [b * span, min(take, (b + 1) *
+// span)), span = ceil(take / blocks) capped at the geometry's rows (what
+// its shared memory holds; blocks * rows >= F >= take, so the cap never
+// cuts a row off). ops/_cuda.py pending_span mirrors it.
+__host__ __device__ __forceinline__ int pending_span(int take, int blocks,
+                                                     int rows) {
+  const int span = take > 0 ? (take + blocks - 1) / blocks : 0;
+  return span < rows ? span : rows;
+}
+
 // K1-wide's launch is ops/_cuda.py wide_geometry's; its tile holds at
-// most kWideRows rows (one warp scans them). So is an edit model's.
+// most kWideRows rows (one warp scans them). So is an edit or a group
+// model's.
 constexpr int kWideRows = 32;
 // the frontier words an edit model's K1 thread has in flight as it
 // loads the tile's rows
@@ -402,11 +478,16 @@ struct WideSmem {
 };
 
 // The words of a thread's slot after the active lanes: a wide model's
-// staging row, an edit model's M::Edit.
+// staging row, an edit model's M::Edit, a group model's two (its
+// group's 2 kGroupLanes words: the child's history on its way to
+// flat).
+constexpr int kGroupSlotWords = 2;
 template <class M>
 __host__ __device__ __forceinline__ size_t slot_words(int width) {
   if constexpr (EditRow<M>::value)
     return sizeof(typename M::Edit) / sizeof(uint32_t);
+  else if constexpr (GroupRow<M>::value)
+    return kGroupSlotWords;
   else
     return (size_t)wide_stride(width);
 }
@@ -503,10 +584,46 @@ struct alignas(16) RowState {
 // each row's fingerprint folds and active lanes (m.active_lanes), steps
 // those densely into edits, and spreads the children over the block's
 // warps, each writing its children from the shared rows, 32 consecutive
-// words a store, and folding only the words it changes.
+// words a store, and folding only the words it changes. A group model
+// (GroupRow; launched over a.wide too) loads and lists its rows as a wide
+// model does and builds each active lane's child with a half-warp,
+// written straight to flat.
 // The grid also resets the ring arena for the step (grid-stride).
 // Inside a chunk the launch is gated (open_gate): its rows are the
 // queue's from the head, the first take of them valid.
+//
+// What the later kernels read of K1's outputs, which sets what a
+// shared-row model (wide, edit, group: kSharedRow) must write:
+//   K2 claim_kernel (fused_step.cu; K5's claim in sharded_step.cu
+//     alike) in tile_stage: cvalid on every lane of its tiles, chi and
+//     clo only where cvalid; no row output.
+//   K3 commit_kernel: the claims lists, owner words and ring arena K2
+//     left, the discovery candidates (publish_discoveries, with the
+//     step's phi/plo inputs); no lane or row output of K1.
+//   K7 append_kernel (chunk.cu): inserted; for each inserted lane (a
+//     cvalid lane: K2 and K3 mark only tile winners of valid lanes) its
+//     flat row, chi and clo (queue_column, log_column, write_rows) and
+//     ebits_out at its row (a pending row: cvalid needs fv); the tail
+//     the same of the last inserted lane; the stats K1 added to.
+//   K8 history_kernel (history.cu): the queue rows K7 wrote, nothing of
+//     K1's.
+//   pbits and terminal: no kernel; K1 itself turns a pending row's bits
+//     into discovery candidates. The host reads them only from an
+//     ungated step's outputs (the tests, chip_smoke.py).
+// So a group K1 steps the pending rows only: a row that is not pending
+// (past take in a gated launch, fvalid 0 in an ungated one) is not
+// loaded, folded or stepped; its lanes get cvalid = 0 and the row
+// terminal = 0 (the plain version's), its other outputs are unwritten.
+// In a gated launch the blocks spread over the pending rows
+// (pending_span), the rows past them cleared grid-stride; lanes keep
+// their absolute numbers (row * A + act), so every output and the
+// discovery atomicMin's are placed as before. The wide and edit K1s
+// step every row of their tiles: at Paxos's all-pending step the rule
+// and the spread skip nothing and cost K1-paxos a few per cent, and at
+// the ordered register steps they cost K1-abd_ordered as much (PERF.md).
+// The edit and group models leave the rows of flat of their inactive or
+// quiet lanes unwritten (cvalid = 0, the row's fingerprint); the wide
+// one copies the row there.
 template <class M, bool SYM>
 __global__ void expand_kernel(M m, StepArgs a) {
   extern __shared__ __align__(16) unsigned char tile_smem[];
@@ -519,18 +636,49 @@ __global__ void expand_kernel(M m, StepArgs a) {
   for (long long i = tid; i < a.cc; i += nthreads) a.ring_arena[i] = ~0ull;
   const int A = a.A;
   const int width = m.width();
-  const long long row0 = (long long)blockIdx.x * a.tile.rows;
-  const int nrows =
+  // a group model steps the pending rows only (GroupRow)
+  constexpr bool kPend = GroupRow<M>::value;
+  long long row0 = (long long)blockIdx.x * a.tile.rows;
+  int nrows =
       (int)max(0ll, min((long long)a.tile.rows, (long long)a.F - row0));
+  if constexpr (kPend) {
+    if (take >= 0) {
+      // a gated launch: the pending rows spread over the grid; the rows
+      // past them get no child (cvalid = 0, terminal = 0; grid-stride)
+      const int pend = min(take, a.F);
+      const int span = pending_span(pend, gridDim.x, a.tile.rows);
+      row0 = (long long)blockIdx.x * span;
+      nrows = (int)max(0ll, min((long long)span, (long long)pend - row0));
+      const long long lanes = (long long)a.F * A;
+      for (long long l = (long long)pend * A + tid; l < lanes; l += nthreads)
+        a.cvalid[l] = 0;
+      for (long long r = pend + tid; r < a.F; r += nthreads)
+        a.terminal[r] = 0;
+    }
+  }
   if (threadIdx.x == 0) s_valid = 0;
-  if constexpr (WideRow<M>::value || EditRow<M>::value) {
-    static_assert(!SYM, "a wide or edit model has no symmetric K1");
+  if constexpr (kSharedRow<M>) {
+    static_assert(!SYM, "a shared-row model has no symmetric K1");
     static_assert(kWideRows <= 32, "one warp scans the tile's rows");
     constexpr bool kEdit = EditRow<M>::value;
     const WideSmem ws =
         wide_smem(tile_smem, a.tile, sizeof(RowState<M, SYM>), A);
     const int wl = threadIdx.x & 31, wid = threadIdx.x >> 5;
     const int nwarps = blockDim.x >> 5;
+    // which rows a group model steps: in a gated launch every row of the
+    // block's span, in an ungated one those with fvalid (read once, in
+    // shared memory); a row that is not gets no load, no fold, no step
+    // and no child: its lanes cvalid = 0, the row terminal = 0 (the
+    // plain version's), its other outputs unwritten. A wide or edit
+    // model steps every row.
+    if constexpr (kPend) {
+      if (take < 0) {  // the same for the whole block
+        for (int i = threadIdx.x; i < nrows; i += blockDim.x)
+          rows[i].fv = a.fvalid[row0 + i] != 0;
+        __syncthreads();
+      }
+    }
+    auto pending = [&](int i) { return !kPend || take >= 0 || rows[i].fv; };
     if constexpr (kEdit) {
       // the tile's rows, block-wide, kEditLoads words in flight a thread
       // (word x of the tile is word x % width of row x / width)
@@ -556,30 +704,46 @@ __global__ void expand_kernel(M m, StepArgs a) {
     } else {
       // the tile's rows, a warp per row
       for (int i = wid; i < nrows; i += nwarps)
-        for (int c = wl; c < width; c += 32)
-          rows[i].w[c] = a.frontier[(row0 + i) * a.fstride + c];
+        if (pending(i))
+          for (int c = wl; c < width; c += 32)
+            rows[i].w[c] = a.frontier[(row0 + i) * a.fstride + c];
     }
     __syncthreads();
     for (int i = threadIdx.x; i < nrows; i += blockDim.x) {
       const long long r = row0 + i;
       RowState<M, SYM>& rs = rows[i];
+      if constexpr (kPend) {
+        rs.valid = 0;
+        rs.xovf = 0;
+        if (!pending(i)) {  // no active lane
+          ws.info[4 * i] = 0u;
+          continue;
+        }
+        rs.fv = 1;
+      }
       const uint32_t pb = m.props_row(rs.w);
       rs.pb = pb;
       rs.eb = a.ebits[r * a.estride] & ~(pb & a.ev_mask);
-      rs.fv = take >= 0 ? r < take : a.fvalid[r] != 0;
-      rs.valid = 0;
-      rs.xovf = 0;
-      // a wide model's quiet lane, an edit model's mask of active lanes
+      if constexpr (!kPend) {
+        rs.fv = take >= 0 ? r < take : a.fvalid[r] != 0;
+        rs.valid = 0;
+        rs.xovf = 0;
+      }
+      // a wide or group model's quiet lane, an edit model's mask of
+      // active lanes
       if constexpr (kEdit)
         ws.info[4 * i] =
             m.active_lanes(rs.w) & (A >= 32 ? ~0u : (1u << A) - 1u);
       else
         ws.info[4 * i] = (uint32_t)min(A, max(0, m.quiet_from(rs.w)));
     }
-    // each row's fingerprint, a warp per row: an edit model keeps the
-    // folds (its children's are the row's with their changed words
-    // refolded), a wide model the fingerprint
-    for (int i = wid; i < nrows; i += nwarps) {
+    // each row's fingerprint, a warp per row (a group model's pending
+    // rows, from the last warp down: the first threads take the rows'
+    // properties above): an edit model keeps the folds (its children's
+    // are the row's with their changed words refolded), a wide or group
+    // model the fingerprint
+    for (int i = kPend ? nwarps - 1 - wid : wid; i < nrows; i += nwarps) {
+      if (!pending(i)) continue;  // the whole warp
       uint32_t h1 = 0u, h2 = 0u;
       for (int k = wl; k < width; k += 32) {
         if constexpr (kEdit) {
@@ -656,74 +820,104 @@ __global__ void expand_kernel(M m, StepArgs a) {
   // lane t = row * A + act, walked in strides of blockDim.x
   const int drow = blockDim.x / A, dact = blockDim.x - drow * A;
   int row = threadIdx.x / A, act = threadIdx.x - row * A;
-  if constexpr (WideRow<M>::value) {
-    static_assert(M::W <= kColumnKeys, "RowOut: a column without its key");
+  if constexpr (WideRow<M>::value || GroupRow<M>::value) {
     const WideSmem ws =
         wide_smem(tile_smem, a.tile, sizeof(RowState<M, SYM>), A);
     const int nact = (int)*ws.nact;
-    const int stride = wide_stride(width);
+    const int wl = threadIdx.x & 31, w0 = threadIdx.x - wl;
+    const int wid = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
     // 16-byte stores where every row of flat starts 16-byte aligned
     const bool vec16 =
         (width & 3) == 0 && (reinterpret_cast<uintptr_t>(a.flat) & 15) == 0;
-    const int wl = threadIdx.x & 31, w0 = threadIdx.x - wl;
-    const int wid = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
-    // the active lanes, densely: each thread steps one into its staging
-    // row; uniform trip count: the warp then writes its children
-    for (int base = 0; base < nact; base += blockDim.x) {
-      const int j = base + threadIdx.x;
-      if (j < nact) {
+    if constexpr (WideRow<M>::value) {
+      static_assert(M::W <= kColumnKeys,
+                    "RowOut: a column without its key");
+      const int stride = wide_stride(width);
+      // the active lanes, densely: each thread steps one into its
+      // staging row; uniform trip count: the warp then writes its
+      // children
+      for (int base = 0; base < nact; base += blockDim.x) {
+        const int j = base + threadIdx.x;
+        if (j < nact) {
+          const int t = (int)ws.act[j], i = t / A;
+          RowState<M, SYM>& rs = rows[i];
+          const long long lane = lane0 + t;
+          bool ovf = false;
+          uint32_t hi, lo;
+          RowOut out(ws.stage + threadIdx.x * stride);
+          const bool v = m.step_row(rs.w, t - i * A, out, ovf);
+          out.finish(width, hi, lo);
+          a.chi[lane] = hi;
+          a.clo[lane] = lo;
+          const bool cv = v && rs.fv;
+          a.cvalid[lane] = cv;
+          nvalid += cv;
+          if (cv) rs.valid = 1;
+          if (ovf && rs.fv) rs.xovf = 1;
+        }
+        __syncwarp();
+        // each child is width contiguous words of flat
+        const int n = min(32, nact - (base + w0));
+        if (vec16) {
+          // the warp's n children as n * q4 16-byte vectors, 32 a store
+          // (the staging rows' odd stride: read a word at a time)
+          const int q4 = width >> 2, dc = 32 / q4, dk = 32 - dc * q4;
+          int c = wl / q4, k4 = wl - c * q4;
+          for (int j = wl; j < n * q4; j += 32) {
+            const uint32_t* src = ws.stage + (w0 + c) * stride + 4 * k4;
+            reinterpret_cast<uint4*>(
+                a.flat + (lane0 + ws.act[base + w0 + c]) * width)[k4] =
+                make_uint4(src[0], src[1], src[2], src[3]);
+            c += dc;
+            k4 += dk;
+            if (k4 >= q4) {
+              k4 -= q4;
+              ++c;
+            }
+          }
+        } else {
+          // 32 consecutive words of one child a store
+          for (int c = 0; c < n; ++c) {
+            uint32_t* dst = a.flat + (lane0 + ws.act[base + w0 + c]) * width;
+            const uint32_t* src = ws.stage + (w0 + c) * stride;
+            for (int k = wl; k < width; k += 32) dst[k] = src[k];
+          }
+        }
+        __syncwarp();
+      }
+    } else {
+      const int gid = threadIdx.x / kGroupLanes;
+      const int ngroups = blockDim.x / kGroupLanes;
+      const WarpGroup g(ws.stage + gid * kGroupLanes * kGroupSlotWords);
+      // the active lanes, a child a group (the same trip count for the
+      // group; no barrier: no group reads another's work)
+      for (int j = gid; j < nact; j += ngroups) {
         const int t = (int)ws.act[j], i = t / A;
         RowState<M, SYM>& rs = rows[i];
         const long long lane = lane0 + t;
         bool ovf = false;
         uint32_t hi, lo;
-        RowOut out(ws.stage + threadIdx.x * stride);
-        const bool v = m.step_row(rs.w, t - i * A, out, ovf);
-        out.finish(width, hi, lo);
-        a.chi[lane] = hi;
-        a.clo[lane] = lo;
-        const bool cv = v && rs.fv;
-        a.cvalid[lane] = cv;
-        nvalid += cv;
-        if (cv) rs.valid = 1;
-        if (ovf && rs.fv) rs.xovf = 1;
-      }
-      __syncwarp();
-      // each child is width contiguous words of flat
-      const int n = min(32, nact - (base + w0));
-      if (vec16) {
-        // the warp's n children as n * q4 16-byte vectors, 32 a store
-        // (the staging rows' odd stride: read a word at a time)
-        const int q4 = width >> 2, dc = 32 / q4, dk = 32 - dc * q4;
-        int c = wl / q4, k4 = wl - c * q4;
-        for (int j = wl; j < n * q4; j += 32) {
-          const uint32_t* src = ws.stage + (w0 + c) * stride + 4 * k4;
-          reinterpret_cast<uint4*>(
-              a.flat + (lane0 + ws.act[base + w0 + c]) * width)[k4] =
-              make_uint4(src[0], src[1], src[2], src[3]);
-          c += dc;
-          k4 += dk;
-          if (k4 >= q4) {
-            k4 -= q4;
-            ++c;
-          }
-        }
-      } else {
-        // 32 consecutive words of one child a store
-        for (int c = 0; c < n; ++c) {
-          uint32_t* dst = a.flat + (lane0 + ws.act[base + w0 + c]) * width;
-          const uint32_t* src = ws.stage + (w0 + c) * stride;
-          for (int k = wl; k < width; k += 32) dst[k] = src[k];
+        const bool v = m.step_group(rs.w, t - i * A, g,
+                                    a.flat + lane * width, ovf, hi, lo);
+        if (g.rank() == 0) {
+          a.chi[lane] = hi;
+          a.clo[lane] = lo;
+          a.cvalid[lane] = v;
+          nvalid += v;
+          if (v) rs.valid = 1;
+          if (ovf) rs.xovf = 1;
         }
       }
-      __syncwarp();
     }
-    // the quiet lanes: the row itself, its fingerprint, invalid
+    // the quiet lanes: the row's fingerprint, invalid (a group model's
+    // row that is not pending: invalid only)
     for (int t = threadIdx.x; t < tile; t += blockDim.x) {
       if (act >= (int)ws.info[4 * row]) {
         const long long lane = lane0 + t;
-        a.chi[lane] = ws.info[4 * row + 1];
-        a.clo[lane] = ws.info[4 * row + 2];
+        if (!kPend || rows[row].fv) {
+          a.chi[lane] = ws.info[4 * row + 1];
+          a.clo[lane] = ws.info[4 * row + 2];
+        }
         a.cvalid[lane] = 0;
       }
       row += drow;
@@ -733,24 +927,28 @@ __global__ void expand_kernel(M m, StepArgs a) {
         ++row;
       }
     }
-    for (int i = wid; i < nrows; i += nwarps) {
-      const int e0 = (int)ws.info[4 * i];
-      if (vec16) {
-        // the row's quiet lanes are one span of (A - e0) * width words
-        const int q4 = width >> 2, dk = 32 % q4;
-        const uint4* src = reinterpret_cast<const uint4*>(rows[i].w);
-        uint4* dst =
-            reinterpret_cast<uint4*>(a.flat + (lane0 + i * A + e0) * width);
-        int k4 = wl % q4;
-        for (int j = wl; j < (A - e0) * q4; j += 32) {
-          dst[j] = src[k4];
-          k4 += dk;
-          if (k4 >= q4) k4 -= q4;
-        }
-      } else {
-        for (int e = e0; e < A; ++e) {
-          uint32_t* dst = a.flat + (lane0 + i * A + e) * width;
-          for (int k = wl; k < width; k += 32) dst[k] = rows[i].w[k];
+    // a wide model's quiet lanes get the row itself (a group model's
+    // rows of flat stay unwritten)
+    if constexpr (WideRow<M>::value) {
+      for (int i = wid; i < nrows; i += nwarps) {
+        const int e0 = (int)ws.info[4 * i];
+        if (vec16) {
+          // the row's quiet lanes are one span of (A - e0) * width words
+          const int q4 = width >> 2, dk = 32 % q4;
+          const uint4* src = reinterpret_cast<const uint4*>(rows[i].w);
+          uint4* dst = reinterpret_cast<uint4*>(a.flat +
+                                                (lane0 + i * A + e0) * width);
+          int k4 = wl % q4;
+          for (int j = wl; j < (A - e0) * q4; j += 32) {
+            dst[j] = src[k4];
+            k4 += dk;
+            if (k4 >= q4) k4 -= q4;
+          }
+        } else {
+          for (int e = e0; e < A; ++e) {
+            uint32_t* dst = a.flat + (lane0 + i * A + e) * width;
+            for (int k = wl; k < width; k += 32) dst[k] = rows[i].w[k];
+          }
         }
       }
     }
@@ -879,6 +1077,10 @@ __global__ void expand_kernel(M m, StepArgs a) {
   for (int i = threadIdx.x; i < nrows; i += blockDim.x) {
     const RowState<M, SYM>& rs = rows[i];
     const long long r = row0 + i;
+    if (kPend && !rs.fv) {  // not pending: no child, nothing found
+      a.terminal[r] = 0;
+      continue;
+    }
     const uint32_t pb = rs.pb, eb = rs.eb;
     for (int p = 0; p < a.pcols; ++p)
       a.pbits[r * a.pcols + p] =
@@ -934,13 +1136,15 @@ template <class M, bool SYM>
 cudaError_t launch_expand(const M& m, const StepArgs& a, cudaStream_t st) {
   const TileGeometry& g = a.tile;
   if (!geometry_ok(g, a.F, a.A)) return cudaErrorInvalidValue;
-  if constexpr (WideRow<M>::value || EditRow<M>::value) {
+  if constexpr (kSharedRow<M>) {
     StepArgs wa = a;
     wa.tile = a.wide;
     const size_t smem = (size_t)a.wide_smem;
     if (!geometry_ok(wa.tile, a.F, a.A) || wa.tile.rows > kWideRows ||
         a.wide_smem < 0 ||
         smem < wide_smem_bytes<M, SYM>(wa.tile, m.width(), a.A))
+      return cudaErrorInvalidValue;
+    if (GroupRow<M>::value && a.A > kGroupLanes)
       return cudaErrorInvalidValue;
     cudaError_t e = allow_smem(expand_kernel<M, SYM>, smem);
     if (e != cudaSuccess) return e;

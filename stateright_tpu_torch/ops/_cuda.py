@@ -152,10 +152,24 @@ WIDE_ROWS = 32
 WIDE_THREADS = 128
 WIDE_BLOCKS_PER_SM = 3
 #: the wide models of ``STEP_MODELS`` (``kWideRow``): the words of their
-#: row in K1's shared ``RowState`` (``PaxosModel::W``, ``AbdModel::W``,
-#: ``SingleCopyModel::W``); the launch refuses a shared-memory size below
-#: what this gives
-WIDE_MODELS = {"paxos": 128, "abd": 128, "single_copy": 128}
+#: row in K1's shared ``RowState`` (``PaxosModel::W``); the launch refuses
+#: a shared-memory size below what this gives
+WIDE_MODELS = {"paxos": 128}
+#: the group models of ``STEP_MODELS`` (``kGroupRow``, ``csrc/
+#: step_common.cuh`` ``GroupRow``: the register models on the unordered
+#: network, each child built by a half-warp, ``kGroupLanes``, with the
+#: network in its lanes): the words of their shared row (``AbdModel::W``,
+#: ``SingleCopyModel::W``)
+GROUP_MODELS = {"abd": 128, "single_copy": 128}
+#: a group model's shared words a thread (``kGroupSlotWords``: a group's
+#: child's history, at most 22 words, on its way to flat)
+GROUP_SLOT_WORDS = 2
+#: a group model's K1: its threads a block and its blocks an SM (the rows
+#: a block cut so that they are resident at once), read when
+#: ``k1_launch`` is called; the best of ``tools/torch_register_kernels.py
+#: --sweep`` on an H100 (PERF.md)
+GROUP_THREADS = 128
+GROUP_BLOCKS_PER_SM = 4
 #: the edit models of ``STEP_MODELS`` (``kEditRow``, launched over
 #: K1-wide's rows): the words of their shared row and of a thread's
 #: edit (``AbdOrderedModel::W`` and ``sizeof(Edit)`` in words:
@@ -173,9 +187,13 @@ EDIT_BLOCKS_PER_SM = 5
 
 
 def row_words(name: str) -> int:
-    """The most packed words K1's wide or edit instantiation ``name``
-    takes: its shared row's."""
-    return WIDE_MODELS[name] if name in WIDE_MODELS else EDIT_MODELS[name][0]
+    """The most packed words K1's wide, group or edit instantiation
+    ``name`` takes: its shared row's."""
+    if name in WIDE_MODELS:
+        return WIDE_MODELS[name]
+    if name in GROUP_MODELS:
+        return GROUP_MODELS[name]
+    return EDIT_MODELS[name][0]
 
 
 def wide_stride(width: int) -> int:
@@ -194,7 +212,8 @@ def wide_geometry(geo: Geometry, f: int, a: int, sms: int,
     resident at once and each thread steps fewer children in turn; the
     blocks that cover ``f`` with them, the tile's threads capped at
     ``WIDE_THREADS`` (an edit model: ``threads`` and ``per_sm`` blocks
-    an SM, ``EDIT_THREADS`` and ``EDIT_BLOCKS_PER_SM``); K2 and K3 keep
+    an SM, ``EDIT_THREADS`` and ``EDIT_BLOCKS_PER_SM``; a group model's
+    ``GROUP_THREADS`` and ``GROUP_BLOCKS_PER_SM``); K2 and K3 keep
     ``geo``."""
     per_sm = WIDE_BLOCKS_PER_SM if per_sm is None else per_sm
     rows = max(1, min(geo.rows, WIDE_ROWS, -(-f // (per_sm * sms))))
@@ -227,11 +246,15 @@ def k1_launch(name: str, geo: Geometry, f: int, width: int, a: int,
               sms: int) -> tuple:
     """``(StepArgs.wide, StepArgs.wide_smem)`` of the step kernels of
     ``STEP_MODELS`` entry ``name`` over ``f`` rows of ``width`` words and
-    ``a`` lanes (tile geometry ``geo``): a wide or edit model's K1
-    geometry and shared memory, else ``(geo, 0)`` (unused)."""
+    ``a`` lanes (tile geometry ``geo``): a wide, group or edit model's K1
+    geometry and shared memory, else ``(geo, 0)`` (unused). Read when
+    called: ``EDIT_*`` and ``GROUP_*``."""
     threads = per_sm = None
     if name in WIDE_MODELS:
         row_words, slot_words = WIDE_MODELS[name], None
+    elif name in GROUP_MODELS:
+        row_words, slot_words = GROUP_MODELS[name], GROUP_SLOT_WORDS
+        threads, per_sm = GROUP_THREADS, GROUP_BLOCKS_PER_SM
     elif name in EDIT_MODELS:
         row_words, slot_words = EDIT_MODELS[name]
         threads, per_sm = EDIT_THREADS, EDIT_BLOCKS_PER_SM
@@ -239,6 +262,24 @@ def k1_launch(name: str, geo: Geometry, f: int, width: int, a: int,
         return geo, 0
     wide = wide_geometry(geo, f, a, sms, threads, per_sm)
     return wide, wide_smem_bytes(wide, width, a, row_words, slot_words)
+
+
+def pending_span(take: int, blocks: int, rows: int) -> int:
+    """The pending rows a block of a gated group K1 takes
+    (``csrc/step_common.cuh`` ``pending_span``): block ``b`` of
+    ``blocks`` takes rows ``[b * span, min(take, (b + 1) * span))``,
+    ``span`` = ``ceil(take / blocks)`` capped at the geometry's
+    ``rows``."""
+    span = -(-take // blocks) if take > 0 else 0
+    return min(span, rows)
+
+
+def pending_rows(name: str) -> bool:
+    """Whether K1's instantiation ``name`` steps only the pending rows (a
+    group model's): a row that is not gets no child (its lanes
+    ``cvalid`` 0, the row ``terminal`` 0, its other outputs unwritten).
+    The wide and edit K1s step every row of their tiles."""
+    return name in GROUP_MODELS
 
 
 class TileGeometry(ctypes.Structure):

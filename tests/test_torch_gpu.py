@@ -1436,6 +1436,42 @@ def _paxos_rows(model, rng, f):
     return rows
 
 
+def _k1_held(model, rows, fvalid):
+    """The lanes and rows whose outputs K1's instantiation for ``model``
+    writes, as bool tensors on ``fvalid``'s device: a group one
+    (``_cuda.pending_rows``) steps the pending rows only, every other one
+    every row; of a row's lanes those below the quiet lane (a group
+    model), of non-empty channels (an edit model) or every lane. The
+    children and their fingerprints are held on those lanes, the
+    property and eventually bits on those rows, cvalid and terminal
+    everywhere."""
+    from stateright_tpu_torch.ops import _cuda
+    name = model.cuda_spec()[0]
+    dev = fvalid.device
+    held_rows = torch.ones_like(fvalid)
+    if _cuda.pending_rows(name):
+        held_rows = fvalid
+    lanes = held_rows.repeat_interleave(model.max_actions)
+    rule = _chip_smoke().active_rule(model, name)
+    if rule is not None:
+        lanes = lanes & rule(torch.from_numpy(rows.astype(np.int64)).to(dev))
+    return lanes, held_rows
+
+
+def _hold_k1(model, k, p, rows, fvalid):
+    """K1's outputs ``k`` against the plain version's ``p`` under
+    :func:`_k1_held`'s rule; returns the held lanes."""
+    lanes, held_rows = _k1_held(model, rows, fvalid)
+    for nm in ("flat", "chi", "clo"):
+        assert torch.equal(getattr(k, nm)[lanes], getattr(p, nm)[lanes]), nm
+    for nm in ("pbits", "ebits"):
+        assert torch.equal(getattr(k, nm)[held_rows],
+                           getattr(p, nm)[held_rows]), nm
+    for nm in ("cvalid", "terminal"):
+        assert torch.equal(getattr(k, nm), getattr(p, nm)), nm
+    return lanes
+
+
 def _paxos_step_lane_exact(model, f, seed):
     """K1's paxos instantiation with K2/K3 against the plain version over
     ``f`` rows of ``_paxos_rows`` (crowded networks, junk rows, a tenth
@@ -1820,13 +1856,16 @@ def _single_copy(*args):
 def test_register_step_lane_exact_on_card(name, f):
     """K1's register instantiations with K2/K3 against the plain version
     over ``_paxos_rows`` (crowded networks, junk rows, a tenth of the
-    rows invalid). The ordered network's (the edit K1) under its rule:
-    the children and their fingerprints on every lane of a non-empty
-    channel, K1 leaving an empty channel's lane unwritten (the plain
-    version writes the JAX package's junk row there, invalid); cvalid,
-    the properties, terminal and the flags on every lane. The unordered
-    ones (the wide K1) on every lane. Then the inserted key set and the
-    table."""
+    rows invalid), under K1's rule (:func:`_k1_held`): the ordered
+    network's (the edit K1) children and their fingerprints on every
+    lane of a non-empty channel, K1 leaving an empty channel's lane
+    unwritten (the plain version writes the JAX package's junk row
+    there, invalid), cvalid, the properties, terminal and the flags on
+    every lane; the unordered ones' (the group K1, which steps the
+    pending rows only) on the pending rows' lanes below the quiet lane,
+    whose rows of flat are left unwritten, the properties on the pending
+    rows, cvalid, terminal and the flags everywhere. Then the inserted
+    key set and the table."""
     _need_card()
     from stateright_tpu_torch.ops.fused import (S_DISC, S_VALID, S_XOVF,
                                                 fused_step,
@@ -1849,20 +1888,105 @@ def test_register_step_lane_exact_on_card(name, f):
         out.append(fn(model, block, ebits, fvalid, phi, plo, table, ring))
         tables.append(sorted(table[table != 0].tolist()))
     k, p = out
-    if model._net_ordered:
-        lens = rows[:, model._net_off:model._net_off + model._n_chan]
-        written = torch.from_numpy((lens != 0).reshape(-1)).to(dev)
-        assert int(written.sum()) < written.numel()  # empty channels
-    else:
-        written = torch.ones_like(k.cvalid)
-    for nm in ("flat", "chi", "clo"):
-        assert torch.equal(getattr(k, nm)[written], getattr(p, nm)[written])
-    for nm in ("cvalid", "pbits", "ebits", "terminal"):
-        assert torch.equal(getattr(k, nm), getattr(p, nm)), nm
+    written = _hold_k1(model, k, p, rows, fvalid)
+    assert int(written.sum()) < written.numel()  # quiet or empty lanes
     for i in (S_XOVF, S_VALID):
         assert int(k.stats[i]) == int(p.stats[i]), i
     assert torch.equal(k.stats[S_DISC:], p.stats[S_DISC:])
     if model._net_ordered or model.server_count > 2:
+        assert int(k.stats[S_XOVF]) == 1  # the crowded rows overflow
+    key_k = pack64(k.chi, k.clo)[k.inserted].tolist()
+    key_p = pack64(p.chi, p.clo)[p.inserted].tolist()
+    assert len(key_k) == len(set(key_k)) and set(key_k) == set(key_p)
+    assert tables[0] == tables[1]
+
+
+def _wrap_counts(model, rows, rng):
+    """``rows`` with about a quarter of their occupied unordered slots
+    given the count 0 or 0xFFFFFFFF: delivering the first wraps it (and
+    the shift overwrites it), a send matching the second wraps it to 0."""
+    e = model.net_capacity
+    for i in range(rows.shape[0]):
+        slots = rows[i, model._net_off:model._timer_off].reshape(e, 4)
+        for j in np.flatnonzero((slots[:, 0] >> 16) & 1):
+            if rng.random() < 0.25:
+                slots[j, 1] = 0 if rng.random() < 0.5 else 0xFFFFFFFF
+    return rows
+
+
+#: the gated steps of the shared-row K1s: (model, rows, rows pending,
+#: case): the group K1 at the register family's steps (PackedAbd(2)'s
+#: 256-row step with 54 pending, single-copy 3's 9,954-row step with
+#: ~588, 512 of 512), with no row pending, with counts that wrap, and
+#: the wide (Paxos) and edit (ordered ABD) K1s, gated over every row of
+#: their tiles
+GATED_STEPS = [
+    ("abd2", 256, 54, "mixed"), ("single-copy3", 9954, 588, "mixed"),
+    ("single-copy3", 512, 512, "mixed"), ("single-copy4-2", 1000, 0,
+                                          "mixed"),
+    ("abd2", 1000, 999, "wrap"), ("single-copy3", 333, 200, "wrap"),
+    ("paxos2", 1000, 611, "mixed"), ("abd3-ordered", 1728, 500, "mixed"),
+    ("abd2-ordered", 256, 0, "mixed")]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,f,take,case", GATED_STEPS,
+                         ids=[f"{n}-{f}-{t}-{c}" for n, f, t, c in
+                              GATED_STEPS])
+def test_shared_row_k1_gated_lane_exact_on_card(name, f, take, case):
+    """A shared-row K1 (with K2/K3) launched as the search launches it,
+    gated with the first ``take`` of ``f`` rows pending (``chip_smoke.py``
+    ``gated_step``: a group K1's blocks spread over the pending rows),
+    against the plain version with those rows valid, under K1's rule
+    (:func:`_k1_held`): the rows past ``take`` get cvalid 0 and terminal
+    0 (and from a group K1 nothing else); on ``_paxos_rows`` (crowded
+    networks whose sends overflow into the poison child, junk rows),
+    with ``wrap`` counts that wrap on a delivery or a send. Then the
+    stats, the discoveries, the inserted key set and the table."""
+    _need_card()
+    from stateright_tpu_torch.examples.paxos_packed import PackedPaxos
+    from stateright_tpu_torch.ops.fused import (S_DISC, S_INSERTED, S_VALID,
+                                                S_XOVF, StepWorkspace,
+                                                fused_step_reference)
+    from stateright_tpu_torch.ops.hash_kernel import fp64_device
+    from stateright_tpu_torch.ops.hashtable import make_table
+    from stateright_tpu_torch.ops.words import from_numpy_u32, pack64
+    smoke = _chip_smoke()
+    model = (PackedPaxos(2) if name == "paxos2"
+             else REGISTER_MODELS[name]())
+    dev = torch.device("cuda")
+    rng = np.random.default_rng([f, take])
+    rows = _paxos_rows(model, rng, f)
+    if case == "wrap":
+        rows = _wrap_counts(model, rows, rng)
+    block = from_numpy_u32(rows, dev)
+    phi, plo = (x.to(torch.int32) for x in fp64_device(block))
+    ebits = torch.from_numpy(rng.integers(0, 4, f).astype(np.int32)).to(dev)
+    fvalid = torch.arange(f, device=dev) < take
+    args = (block, ebits, fvalid, phi, plo)
+    out, tables = [], []
+    for gated in (True, False):
+        table = make_table(1 << 18, dev)
+        ring = torch.zeros((1 << 12,), dtype=torch.int64, device=dev)
+        if gated:
+            ws = StepWorkspace(table.numel(), ring.shape[0],
+                               len(model.properties()), dev)
+            launch, _gate = smoke.gated_step(model, args, table, ring, ws,
+                                             take)
+            out.append(launch())
+        else:
+            out.append(fused_step_reference(model, *args, table, ring))
+        tables.append(sorted(table[table != 0].tolist()))
+    k, p = out
+    _hold_k1(model, k, p, rows, fvalid)
+    for i in (S_XOVF, S_VALID, S_INSERTED):
+        assert int(k.stats[i]) == int(p.stats[i]), i
+    assert torch.equal(k.stats[S_DISC:], p.stats[S_DISC:])
+    assert not k.cvalid[take * model.max_actions:].any()
+    if take == 0:
+        assert int(k.stats[S_VALID]) == 0
+    elif case == "mixed" and (name == "paxos2" or model._net_ordered
+                              or model.server_count > 2):
         assert int(k.stats[S_XOVF]) == 1  # the crowded rows overflow
     key_k = pack64(k.chi, k.clo)[k.inserted].tolist()
     key_p = pack64(p.chi, p.clo)[p.inserted].tolist()

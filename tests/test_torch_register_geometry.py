@@ -2,7 +2,7 @@
 without JAX: K1's launch (``ops/_cuda.py`` ``k1_launch``) and shared
 memory at every ordered ABD configuration ``cuda_spec`` admits (up to
 352 words and 32 channels: the edit model of ``csrc/abd.cuh``) and at
-the unordered ones (the wide model, up to 128 words); and the device
+the unordered ones (the group model, up to 128 words); and the device
 functions themselves (``csrc/actor_net.cuh``, ``abd.cuh``,
 ``single_copy.cuh``, ``paxos.cuh``), compiled for the host with ``g++``
 under a header that defines CUDA's qualifiers away: ``reg_chan`` and
@@ -52,11 +52,16 @@ HOST_SOURCE = r"""
 #define __device__
 #define __host__
 #define __forceinline__ inline
+#include <ucontext.h>
+
 #include <algorithm>
 #include <cstdint>
 #include <string>
+#include <type_traits>
+#include <vector>
 using std::min;
 using std::max;
+inline int __popc(unsigned x) { return __builtin_popcount(x); }
 #include "abd.cuh"
 #include "fold.cuh"
 #include "paxos.cuh"
@@ -138,11 +143,160 @@ void step_edit(const AbdOrderedModel& m, const uint32_t* rows, int f,
   }
 }
 
+// A group of G lanes on the host (step_common.cuh WarpGroup's
+// collectives): each lane runs the device step on its own stack
+// (ucontext), and each collective switches back to the scheduler, which
+// runs every lane of the group to the same collective, computes its
+// results as the warp's shuffles and ballots would, and resumes them.
+struct Sched {
+  int G = 0;
+  ucontext_t main;
+  ucontext_t lane[32];
+  std::vector<char> stack[32];
+  int kind[32];
+  uint32_t in[32], out[32];
+  uint32_t words[64];  // the group's shared words
+  bool done[32];
+  void (*body)(int) = nullptr;
+};
+Sched sched;
+
+struct HostGroup {
+  int r, n;
+  uint32_t call(int k, uint32_t v) const {
+    sched.kind[r] = k;
+    sched.in[r] = v;
+    swapcontext(&sched.lane[r], &sched.main);
+    return sched.out[r];
+  }
+  int rank() const { return r; }
+  int size() const { return n; }
+  uint32_t* words() const { return sched.words; }
+  void sync() const { call(5, 0u); }
+  uint32_t down(uint32_t v) const { return call(1, v); }
+  uint32_t up(uint32_t v) const { return call(2, v); }
+  uint32_t ballot(bool p) const { return call(3, p ? 1u : 0u); }
+  uint32_t xor_all(uint32_t v) const { return call(4, v); }
+};
+
+void lane_entry(int r) {
+  sched.body(r);
+  sched.done[r] = true;
+}
+
+// Run body(r) for the G lanes of a group in lockstep; false when the
+// lanes reach different collectives or some end before the others.
+bool run_group(int G, void (*body)(int)) {
+  sched.G = G;
+  sched.body = body;
+  for (int r = 0; r < G; ++r) {
+    sched.stack[r].resize(1 << 16);
+    getcontext(&sched.lane[r]);
+    sched.lane[r].uc_stack.ss_sp = sched.stack[r].data();
+    sched.lane[r].uc_stack.ss_size = sched.stack[r].size();
+    sched.lane[r].uc_link = &sched.main;
+    makecontext(&sched.lane[r], (void (*)())lane_entry, 1, r);
+    sched.done[r] = false;
+  }
+  while (true) {
+    for (int r = 0; r < G; ++r) swapcontext(&sched.main, &sched.lane[r]);
+    int ended = 0;
+    for (int r = 0; r < G; ++r) ended += sched.done[r];
+    if (ended == G) return true;
+    if (ended) return false;
+    for (int r = 1; r < G; ++r)
+      if (sched.kind[r] != sched.kind[0]) return false;
+    uint32_t bits = 0u, x = 0u;
+    for (int r = 0; r < G; ++r) {
+      bits |= (sched.in[r] ? 1u : 0u) << r;
+      x ^= sched.in[r];
+    }
+    for (int r = 0; r < G; ++r) {
+      switch (sched.kind[0]) {
+        case 1: sched.out[r] = sched.in[r + 1 < G ? r + 1 : r]; break;
+        case 2: sched.out[r] = sched.in[r >= 1 ? r - 1 : r]; break;
+        case 3: sched.out[r] = bits; break;
+        default: sched.out[r] = x;
+      }
+    }
+  }
+}
+
+// One child by a group: the model, its row and lane, and each lane's
+// results (which must agree).
+struct GroupTask {
+  const void* m;
+  const uint32_t* w;
+  int e;
+  uint32_t* dst;
+  bool v[32], ovf[32];
+  uint32_t hi[32], lo[32];
+};
+GroupTask task;
+
 template <class M>
-int run(const M& m, const uint32_t* rows, int f, uint32_t* out) {
-  if (!m.ok()) return 1;
-  step_wide(m, rows, f, out);
+void group_body(int r) {
+  const M& m = *static_cast<const M*>(task.m);
+  const HostGroup g{r, sched.G};
+  bool ovf = false;
+  task.v[r] = m.step_group(task.w, task.e, g, task.dst, ovf, task.hi[r],
+                           task.lo[r]);
+  task.ovf[r] = ovf;
+}
+
+// K1's group branch on the host: every lane below the quiet lane built
+// by a group of G lanes (its words straight to its row of the output,
+// its fingerprint the group's); the quiet lanes the row, its fingerprint
+template <class M>
+int step_group(const M& m, int G, const uint32_t* rows, int f,
+               uint32_t* out) {
+  const int W = m.width(), A = m.max_actions();
+  if (G < A || G > 32) return 3;
+  for (int r = 0; r < f; ++r) {
+    const uint32_t* w = rows + (long)r * W;
+    *out++ = m.props_row(w);
+    const int q = m.quiet_from(w);
+    for (int e = 0; e < A; ++e) {
+      uint32_t* flags = out++;
+      uint32_t* fp = out;
+      out += 2;
+      bool ovf = false, v = false;
+      if (e < q) {
+        task = GroupTask{&m, w, e, out};
+        if (!run_group(G, group_body<M>)) return 4;
+        for (int x = 1; x < G; ++x)
+          if (task.v[x] != task.v[0] || task.ovf[x] != task.ovf[0] ||
+              task.hi[x] != task.hi[0] || task.lo[x] != task.lo[0])
+            return 5;
+        v = task.v[0];
+        ovf = task.ovf[0];
+        fp[0] = task.hi[0];
+        fp[1] = task.lo[0];
+      } else {
+        for (int k = 0; k < W; ++k) out[k] = w[k];
+        uint32_t h1, h2;
+        fold_row(out, W, h1, h2);
+        fp64_finish(h1, h2, W, fp[0], fp[1]);
+      }
+      *flags = (v ? 1u : 0u) | (ovf ? 2u : 0u) | (e < q ? 4u : 0u);
+      out += W;
+    }
+  }
   return 0;
+}
+
+// the model's K1: a wide model's RowOut (lanes 0), a group model's group
+// branch with groups of that many lanes
+template <class M>
+int run(const M& m, int lanes, const uint32_t* rows, int f, uint32_t* out) {
+  if (!m.ok()) return 1;
+  if constexpr (std::is_same_v<M, PaxosModel>) {
+    if (lanes) return 6;
+    step_wide(m, rows, f, out);
+    return 0;
+  } else {
+    return lanes ? step_group(m, lanes, rows, f, out) : 6;
+  }
 }
 }  // namespace
 
@@ -164,19 +318,19 @@ int h_words(const char* name, int what) {
   if (n == "paxos") return PaxosModel::W;
   return -1;
 }
-int h_step(const char* name, int p0, int p1, int p2, const uint32_t* rows,
-           int f, uint32_t* out) {
+int h_step(const char* name, int p0, int p1, int p2, int lanes,
+           const uint32_t* rows, int f, uint32_t* out) {
   const std::string n(name);
   if (n == "abd_ordered") {
     const AbdOrderedModel m(p0, p1, p2);
-    if (!m.ok()) return 1;
+    if (!m.ok() || lanes) return 1;
     step_edit(m, rows, f, out);
     return 0;
   }
-  if (n == "abd") return run(AbdModel(p0, p1, p2), rows, f, out);
+  if (n == "abd") return run(AbdModel(p0, p1, p2), lanes, rows, f, out);
   if (n == "single_copy")
-    return run(SingleCopyModel(p0, p1, p2), rows, f, out);
-  if (n == "paxos") return run(PaxosModel(p0, p1, p2), rows, f, out);
+    return run(SingleCopyModel(p0, p1, p2), lanes, rows, f, out);
+  if (n == "paxos") return run(PaxosModel(p0, p1, p2), lanes, rows, f, out);
   return 2;
 }
 }
@@ -203,7 +357,7 @@ def host(tmp_path_factory):
                                   ctypes.POINTER(ctypes.c_uint32),
                                   ctypes.POINTER(ctypes.c_uint32)]
     h.h_words.argtypes = [ctypes.c_char_p, ctypes.c_int]
-    h.h_step.argtypes = [ctypes.c_char_p] + [ctypes.c_int] * 3 + [
+    h.h_step.argtypes = [ctypes.c_char_p] + [ctypes.c_int] * 4 + [
         ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
     return h
 
@@ -250,12 +404,13 @@ def test_edit_size_is_the_launchs(host):
     sizes: ``AbdOrderedModel::W`` and ``sizeof(Edit)`` (``OrderedEdit<6,
     3>``: the destination's 6 words, the 22 history words of 7 clients,
     3 appended messages of two words, 5 scalars and the 3 appends'
-    length columns and entry words), and each wide model's ``W``."""
+    length columns and entry words), and each wide and group model's
+    ``W``."""
     edit = 6 + (1 + 3 * 7) + 2 * 3 + 5 + 2 * 3
     assert _cuda.EDIT_MODELS["abd_ordered"] == (
         host.h_words(b"abd_ordered", 0), host.h_words(b"abd_ordered", 1))
     assert _cuda.EDIT_MODELS["abd_ordered"][1] == edit
-    for name, words in _cuda.WIDE_MODELS.items():
+    for name, words in {**_cuda.WIDE_MODELS, **_cuda.GROUP_MODELS}.items():
         assert host.h_words(name.encode(), 0) == words == \
             _cuda.row_words(name)
 
@@ -287,18 +442,124 @@ def test_k1_launch_fits_at_every_admitted_ordered_configuration():
     lambda c, s: PackedSingleCopy(c, s)], ids=["abd", "single-copy"])
 def test_unordered_register_rows_fit_the_wide_k1(make):
     """Every unordered ABD and single-copy configuration of at most 7
-    clients, 4 servers and 16 slots fits the wide K1's 128-word row, and
-    its launch's shared memory fits a block."""
+    clients, 4 servers and 16 slots fits the group K1's 128-word shared
+    row (the wide K1's, which it replaced), and its launch's shared
+    memory fits a block."""
     for c in range(1, 8):
         for s in range(1, 5):
             model = make(c, s)
             name = model.cuda_spec()[0]
-            assert model.packed_width <= _cuda.WIDE_MODELS[name] == 128
+            assert model.packed_width <= _cuda.GROUP_MODELS[name] == 128
             geo = _cuda.tile_geometry(8192, model.max_actions, SMS)
             _wide, smem = _cuda.k1_launch(name, geo, 8192,
                                           model.packed_width,
                                           model.max_actions, SMS)
             assert smem <= BLOCK_SMEM
+
+
+def _admitted_unordered():
+    """Every unordered ABD and single-copy configuration ``cuda_spec``
+    admits: up to 7 clients, 4 servers and 16 slots."""
+    for c in range(1, 8):
+        for s in range(1, 5):
+            for e in (1, 4, 8, 16):
+                yield PackedAbd(c, server_count=s, net_capacity=e)
+                yield PackedSingleCopy(c, s, net_capacity=e)
+
+
+def _group_smem(rows, a, threads):
+    """The group K1's dynamic shared memory: per row its ``RowState``
+    (128 words and 16 bytes of flags), four info words, four words of
+    the count, the tile's active lanes, two words a thread (a group's
+    child's history of at most 22 words, 2 G words a group)."""
+    return (rows * (4 * 128 + 16)
+            + 4 * (4 * (rows + 1) + rows * a + 2 * threads))
+
+
+def test_group_k1_launch_fits_at_every_admitted_unordered_configuration():
+    """At every admitted unordered register configuration and frontier
+    the group K1's launch (``k1_launch``) holds at most 32 rows a block
+    (``kWideRows``: one warp scans them), whole warps of half-warp groups
+    (``kGroupLanes``, at least the network's slots: slot j in lane j),
+    blocks that cover the frontier, shared memory with no staging rows
+    (the layout of ``step_common.cuh`` ``WideSmem``, two words a thread),
+    and ``GROUP_BLOCKS_PER_SM`` blocks fit an SM's shared memory."""
+    n = 0
+    lanes = _step_constant("kGroupLanes")
+    assert lanes == 16 and _step_constant("kGroupSlotWords") == \
+        _cuda.GROUP_SLOT_WORDS == 2
+    assert _cuda.GROUP_THREADS % 32 == 0 and _cuda.GROUP_THREADS <= 1024
+    for model in _admitted_unordered():
+        name = model.cuda_spec()[0]
+        a, w = model.max_actions, model.packed_width
+        assert name in _cuda.GROUP_MODELS and _cuda.pending_rows(name)
+        assert w <= _cuda.row_words(name) and a <= lanes
+        n += 1
+        for f in (1, 37, 256, 512, 4096, 9954, 12288):
+            geo = _cuda.tile_geometry(f, a, SMS)
+            wide, smem = _cuda.k1_launch(name, geo, f, w, a, SMS)
+            assert 1 <= wide.rows <= _cuda.WIDE_ROWS == 32
+            assert wide.threads == _cuda.GROUP_THREADS
+            assert wide.blocks * wide.rows >= f
+            assert (wide.blocks - 1) * wide.rows < f
+            assert smem == _group_smem(wide.rows, a, wide.threads) \
+                <= BLOCK_SMEM
+            assert _cuda.GROUP_BLOCKS_PER_SM * (smem + RESERVED) <= SM_SMEM
+    assert n == 7 * 4 * 4 * 2
+
+
+def test_group_k1_launch_at_the_register_steps():
+    """The group K1's launch at the steps its runs launch on an H100:
+    PackedAbd(2)'s 256-row small step, PackedSingleCopy(3)'s 9,954-row and
+    PackedSingleCopy(4)'s 9,475-row large steps (``auto_fmax``) take a
+    few rows a block, their blocks
+    resident at once, and under the gate spread their pending rows (54,
+    ~588, 512 of 512; PackedSingleCopy(4)'s 9,475 of 9,475: a few) at
+    most two a block, or as many as the geometry's rows."""
+    from stateright_tpu_torch.checker.gpu import auto_fmax
+    for model, f, take in ((PackedAbd(2), 256, 54),
+                           (PackedSingleCopy(3), 9954, 588),
+                           (PackedSingleCopy(3), 512, 512),
+                           (PackedSingleCopy(4), 9475, 9475)):
+        name = model.cuda_spec()[0]
+        a, w = model.max_actions, model.packed_width
+        if f > 512:  # the large step (chip_smoke.py REGISTER_STEPS)
+            assert auto_fmax(model) == f
+        wide, _smem = _cuda.k1_launch(name, _cuda.tile_geometry(f, a, SMS),
+                                      f, w, a, SMS)
+        assert wide.blocks <= _cuda.GROUP_BLOCKS_PER_SM * SMS + SMS
+        span = _cuda.pending_span(take, wide.blocks, wide.rows)
+        assert span <= (2 if take < f else wide.rows)
+
+
+@pytest.mark.parametrize("sms", [1, 66, 114, 132])
+@pytest.mark.parametrize("name", ["abd", "single_copy"])
+def test_pending_span_covers_every_pending_row_once(name, sms):
+    """The gated group K1's spread (``pending_span``, mirroring
+    ``step_common.cuh``'s): over a grid of frontiers ``F`` and pending
+    counts ``take <= F``, with each instantiation's launch, the blocks'
+    spans ``[b * span, min(take, (b + 1) * span))`` cover every pending
+    row exactly once and no row past ``take``, and no block takes more
+    rows than its shared memory holds (the geometry's ``rows``). The
+    wide and edit K1s step every row of their tiles."""
+    assert _cuda.pending_rows(name)
+    assert not any(_cuda.pending_rows(n) for n in (
+        *_cuda.WIDE_MODELS, *_cuda.EDIT_MODELS))
+    a, w = {"abd": (16, 82), "single_copy": (16, 79)}[name]
+    for f in (1, 2, 31, 32, 33, 256, 512, 1055, 1728, 8192, 9954, 12288):
+        wide, _smem = _cuda.k1_launch(name, _cuda.tile_geometry(f, a, sms),
+                                      f, w, a, sms)
+        for take in sorted({0, 1, 2, f // 3, f - 1, f, 54, 588} - {-1}):
+            if take > f:
+                continue
+            span = _cuda.pending_span(take, wide.blocks, wide.rows)
+            assert span <= wide.rows
+            hits = np.zeros(f, dtype=np.int64)
+            for b in range(wide.blocks):
+                lo, hi = b * span, min(take, (b + 1) * span)
+                if hi > lo:
+                    hits[lo:hi] += 1
+            assert (hits[:take] == 1).all() and (hits[take:] == 0).all()
 
 
 def _reachable(model, limit):
@@ -336,7 +597,8 @@ def _crowded(model, rows, rng, k):
 #: the configurations whose device step is held lane for lane: ABD on
 #: the ordered network (the BASELINE's, abd3, tpu_abd2, the smallest and
 #: one with a single server and deep channels), ABD unordered,
-#: single-copy and Paxos
+#: single-copy (seven clients: a history of 22 words, more than a
+#: half-warp's lanes) and Paxos
 HOST_STEPS = {
     "abd-ordered-2": lambda: PackedAbd(2, ordered=True),
     "abd-ordered-3x2-d8": lambda: PackedAbd(3, server_count=2, ordered=True,
@@ -352,18 +614,37 @@ HOST_STEPS = {
     "single-copy-3": lambda: PackedSingleCopy(3),
     "single-copy-2x2": lambda: PackedSingleCopy(2, 2),
     "single-copy-4x2": lambda: PackedSingleCopy(4, 2),
+    "single-copy-7": lambda: PackedSingleCopy(7),
+    "abd-7x2": lambda: PackedAbd(7, server_count=2),
     "paxos-1": lambda: PackedPaxos(1),
     "paxos-2": lambda: PackedPaxos(2),
 }
 
 
+def _step_constant(name):
+    """A ``constexpr int`` of ``csrc/step_common.cuh``."""
+    import re
+    m = re.search(rf"constexpr int {name} = (\d+);",
+                  (CSRC / "step_common.cuh").read_text())
+    return int(m.group(1))
+
+
+def _k1_lanes(name):
+    """The lanes K1's instantiation ``name`` builds a child with: a group
+    model's half-warp (``kGroupLanes``), else 0 (a wide model's thread,
+    an edit model's edit)."""
+    return _step_constant("kGroupLanes") if name in _cuda.GROUP_MODELS \
+        else 0
+
+
 def _host_step(host, config):
     """``HOST_STEPS[config]``'s rows (reachable, and on the ordered
-    network crowded too) through the host-built device step: the model,
-    its rows, the property bits, and per lane the flags, the fingerprint
-    as K1 takes it (uint64) and the child's words."""
+    network crowded too) through the host-built device step as K1 takes
+    it: the model, its rows, the property bits, and per lane the flags,
+    the fingerprint as K1 takes it (uint64) and the child's words."""
     model = HOST_STEPS[config]()
     name, params = model.cuda_spec()
+    lanes = _k1_lanes(name)
     rows = _reachable(model, 300)
     if name == "abd_ordered":
         rng = np.random.default_rng(5)
@@ -371,7 +652,7 @@ def _host_step(host, config):
     rows = np.ascontiguousarray(rows, dtype=np.uint32)
     f, w, a = rows.shape[0], model.packed_width, model.max_actions
     out = np.zeros(f * (1 + a * (3 + w)), dtype=np.uint32)
-    assert host.h_step(name.encode(), *params, rows.ctypes.data, f,
+    assert host.h_step(name.encode(), *params, lanes, rows.ctypes.data, f,
                        out.ctypes.data) == 0
     out = out.reshape(f, 1 + a * (3 + w))
     lanes = out[:, 1:].reshape(f, a, 3 + w)

@@ -1,33 +1,38 @@
 #!/usr/bin/env python3
-"""The ordered register path's kernels on the card, at the steps its runs
-launch, and the runs around them, one JSON line per tree and
+"""The register family's K1 instantiations on the card, at the steps
+their runs launch, and the runs around them, one JSON line per tree and
 measurement.
 
     python tools/torch_register_kernels.py
     python tools/torch_register_kernels.py --old build/parent
+    python tools/torch_register_kernels.py --sweep
 
-The shapes are ``chip_smoke.py``'s ``REGISTER_STEPS``: a mid-search
-carry of each ordered ABD configuration (the BASELINE's
-PackedAbd(2, ordered=True) at its 256-row step, abd3 at 1,728 rows,
-tpu_abd2 at 1,055), built by the tree's own loop (its digest printed, so
-two trees are compared on the same carry). On each: K1-K3 (one
-``fused_step``) timed with CUDA events and under ``torch.profiler`` (K1's
-own device ms) before any plain version runs, with a digest of its
-outputs on the lanes K1 writes (the same in both trees when both compute
-the same function) and K1's bound (bytes of the written children); at
-abd3's and tpu_abd2's rows K7 (``check_append``: held to
-``append_reference`` bit for bit, device ms, bound). Then the other K1s,
-timed alike, which the redesign must leave as they were: TwoPhaseSys(7)
-and IncrementLock(9) at 12,288 rows, PackedPaxos(3) at 8,192,
-PackedAbd(2) at 256 and PackedSingleCopy(3) at 9,954 (588 pending), and
-K7 at 2pc7's narrow rows. Last, abd3 (36,213 states) and tpu_abd2
-(bounded at 100,000 generated) end to end, twice each for the wall and
-once under ``torch.profiler`` (device ms by kernel, busy share).
+The steps (``GROUP_STEPS``, ``OTHER_STEPS``): a mid-search carry of each
+configuration, built by the tree's own loop (its digest printed, so two
+trees are compared on the same carry), stepped once as the search
+launches the step inside a chunk: gated, the pending rows a prefix whose
+count the gate carries (``gated_launch``). K1-abd at PackedAbd(2)'s
+256-row step (~54 pending), K1-single_copy at PackedSingleCopy(3)'s
+9,954-row step (~588 pending), at a 512-row step of it with every row
+pending and at PackedSingleCopy(4)'s 9,475-row step (``auto_fmax``'s)
+with every row pending. On each: K1-K3 (one step) timed with CUDA events
+and under ``torch.profiler`` (K1's own device ms, the median of
+``TRACES`` traced launches), with a digest of its
+outputs on the lanes and rows the redesigned K1 writes (``held``: the
+same in both trees when both compute the same function there) and K1's
+bound (bytes of the rows it steps, their children and the lanes' keys and
+flags). Then the kernels the redesign must leave as they were, timed
+alike: K1-abd_ordered at its three ``chip_smoke.py`` steps,
+TwoPhaseSys(7) and IncrementLock(9) at 12,288 rows, PackedPaxos(3) at
+8,192, and K7 at 2pc7's rows and at tpu_abd2's 331-word rows. Last,
+PackedAbd(2) (544 states) and PackedSingleCopy(3) (4,243) end to end,
+twice each for the wall and once under ``torch.profiler`` (device ms by
+kernel, busy share).
 
-``--sweep`` times K1-abd_ordered instead at each ordered step over
-other launches of this tree (no rebuild: ``ops/_cuda.py``
-``EDIT_THREADS`` and ``EDIT_BLOCKS_PER_SM`` set before each), its
-outputs' digest beside each.
+``--sweep`` times K1-abd and K1-single_copy instead at each of
+``GROUP_STEPS`` over other launches of this tree (no rebuild:
+``ops/_cuda.py`` ``GROUP_THREADS`` and ``GROUP_BLOCKS_PER_SM`` set
+before each), its outputs' digest beside each.
 
 ``--old DIR`` also times another tree of the repository (the parent
 commit unpacked there: ``git archive HEAD~ stateright_tpu_torch
@@ -44,6 +49,7 @@ import hashlib
 import importlib
 import json
 import os
+import statistics
 import subprocess
 import sys
 
@@ -51,17 +57,42 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 #: the kernels whose registers each line reports (``chip_smoke.py``
 #: ``ptxas_usage`` names, by library)
-KERNELS = (("fused_step", "expand_kernel[AbdOrderedModel]"),
-           ("fused_step", "expand_kernel[AbdModel]"),
+KERNELS = (("fused_step", "expand_kernel[AbdModel]"),
            ("fused_step", "expand_kernel[SingleCopyModel]"),
+           ("fused_step", "expand_kernel[AbdOrderedModel]"),
            ("fused_step", "expand_kernel[PaxosModel]"),
            ("fused_step", "expand_kernel[TwoPcModel]"),
            ("fused_step", "expand_kernel[IncrementLockModel]"),
-           ("chunk", "append_kernel"), ("chunk", "append_kernel[1x128]"),
+           ("chunk", "append_kernel[1x128]"),
            ("chunk", "append_kernel[4x256]"),
            ("chunk", "append_kernel[16x256]"))
 #: H100 SXM device memory bytes per second (the bound's rate)
 HBM_BYTES_S = 3.35e12
+#: traced launches a step's device ms is the median of
+TRACES = 5
+
+#: K1-abd's and K1-single_copy's steps: label, model (``chip_smoke.py``
+#: constructors), instantiation, rows, rows pending at least
+GROUP_STEPS = (
+    ("PackedAbd(2)", lambda s: s._abd(2), "abd", 256, 48),
+    ("PackedSingleCopy(3)", lambda s: s._single_copy(3), "single_copy",
+     9954, 512),
+    ("PackedSingleCopy(3) at 512 rows", lambda s: s._single_copy(3),
+     "single_copy", 512, 512),
+    ("PackedSingleCopy(4)", lambda s: s._single_copy(4), "single_copy",
+     9475, 9475))
+#: the other K1s, which must stay as they were
+OTHER_STEPS = (
+    ("PackedAbd(2, ordered=True)", lambda s: s._abd(2, ordered=True),
+     "abd_ordered", 256, 48),
+    ("abd3", lambda s: s._abd(3, server_count=2, ordered=True,
+                               channel_depth=8), "abd_ordered", 1728, 1728),
+    ("tpu_abd2", lambda s: s._abd(2, server_count=3, ordered=True,
+                                   channel_depth=8), "abd_ordered", 1055,
+     1055),
+    ("2pc7", None, "twopc", 12288, 12288),
+    ("lock9", None, "increment_lock", 12288, 12288),
+    ("paxos3", None, "paxos", 8192, 8192))
 
 
 def card() -> str:
@@ -79,50 +110,117 @@ def carry_digest(carry) -> str:
     return h.hexdigest()[:16]
 
 
-def time_k1(smoke, model, carry, f: int, reps: int, active=None) -> dict:
-    """K1-K3 over ``f`` rows of ``carry`` (``chip_smoke.py``
-    ``block_args``): CUDA-event ms of one step, the profiled device ms
-    by kernel, a digest of the outputs on the lanes K1 writes (``active``
-    for an edit model, else every lane), and K1's bound in bytes (the
-    frontier, the row outputs, the written children, the lanes'
-    fingerprints and flags, the ring arena reset). No plain version."""
+def held(model, name: str, frontier, take: int):
+    """The lanes and rows whose outputs this tree's K1 writes (bool
+    tensors): the pending rows of a group model (``abd``,
+    ``single_copy``), every row of the others; and of their lanes those
+    below the quiet lane (a group model) or of non-empty channels
+    (``abd_ordered``)."""
     import torch
 
-    from stateright_tpu_torch.ops.fused import StepWorkspace, fused_step
+    f, a = frontier.shape[0], model.max_actions
+    dev = frontier.device
+    group = name in ("abd", "single_copy")
+    rows = torch.arange(f, device=dev) < (take if group else f)
+    lanes = rows.repeat_interleave(a)
+    if name == "abd_ordered":
+        lens = frontier[:, model._net_off:model._net_off + model._n_chan]
+        lanes &= (lens != 0).reshape(-1)
+    elif name in ("abd", "single_copy"):
+        e = model.net_capacity
+        slots = frontier[:, model._net_off:model._timer_off].reshape(f, e, 4)
+        quiet = ((slots != 0).any(-1)
+                 * torch.arange(1, e + 1, device=dev)).max(-1).values
+        lanes &= (torch.arange(e, device=dev)[None, :]
+                  < quiet[:, None]).reshape(-1)
+    return lanes, rows
+
+
+def gated_launch(model, args, table, ring, ws, take: int):
+    """One step as a chunk launches it: gated (the gate's size 1, head
+    0, ``take`` rows pending, its own tag), over ``args`` (``block_args``
+    of ``chip_smoke.py``). Returns ``(launch, bump)``: ``bump()`` gives
+    the next launch a new tag."""
+    import torch
+
+    from stateright_tpu_torch.ops import _cuda
+    from stateright_tpu_torch.ops.fused import FusedOut, stats_len
+
+    frontier, ebits, _fvalid, phi, plo = args
+    # G_SIZE, G_HEAD, G_TAKE, G_TAG, G_QBASE, G_LBASE, G_LEN
+    gate = torch.tensor([1, 0, take, ws.step + 1, 0, 0, 0],
+                        dtype=torch.int32, device=frontier.device)
+
+    def launch():
+        return FusedOut(*_cuda.fused_step(
+            model, frontier, ebits, None, phi, plo, table, ring, ws,
+            stats_len(model), gate=gate.data_ptr(), gate_size=1))
+
+    def bump():
+        gate[3] += 1
+    return launch, bump
+
+
+def time_k1(smoke, model, name: str, carry, f: int, reps: int) -> dict:
+    """K1-K3 over ``f`` rows of ``carry``, gated with its pending rows
+    (at most ``f``): CUDA-event ms of one step, the profiled device ms
+    by kernel, a digest of the outputs ``held`` gives (the children and
+    their keys on its lanes, the property and eventually bits on its
+    rows, cvalid, terminal and the stats but the probe rounds
+    everywhere), and K1's bound in
+    bytes (the pending rows read, their outputs, the held children, every
+    lane's key and flag, the ring arena reset). No plain version."""
+    import torch
+
+    from stateright_tpu_torch.ops.fused import StepWorkspace
 
     block, args = smoke.block_args(model, carry, f)
+    take = min(carry.q_tail - carry.q_head, f)
     table0, ring0 = carry.table.clone(), carry.ring.clone()
     t_k, r_k = table0.clone(), ring0.clone()
     ws = StepWorkspace(table0.numel(), ring0.shape[0],
                        len(model.properties()), block.device)
+    launch, bump = gated_launch(model, args, t_k, r_k, ws, take)
 
     def restore():
         t_k.copy_(table0)
         r_k.copy_(ring0)
-
-    def launch():
-        return fused_step(model, *args, t_k, r_k, ws)
+        bump()
 
     out = launch()
     torch.cuda.synchronize()
     a, w = model.max_actions, model.packed_width
     lanes = f * a
-    written = (torch.ones((lanes,), dtype=torch.bool, device=block.device)
-               if active is None else active(args[0]))
+    written, rows = held(model, name, args[0], take)
     h = hashlib.sha256()
-    for name in ("flat", "chi", "clo"):
-        h.update(getattr(out, name)[written].cpu().numpy().tobytes())
-    for name in ("cvalid", "pbits", "ebits", "terminal", "stats"):
-        h.update(getattr(out, name).cpu().numpy().tobytes())
+    for nm in ("flat", "chi", "clo"):
+        h.update(getattr(out, nm)[written].cpu().numpy().tobytes())
+    for nm in ("pbits", "ebits"):
+        h.update(getattr(out, nm)[rows].cpu().numpy().tobytes())
+    for nm in ("cvalid", "terminal"):
+        h.update(getattr(out, nm).cpu().numpy().tobytes())
+    # the stats but the probe rounds (S_ROUNDS, 2: the most bucket reads
+    # of one lane, which a lost CAS race can add one to)
+    stats = out.stats.cpu().numpy().copy()
+    stats[2] = 0
+    h.update(stats.tobytes())
     n_written = int(written.sum())
     ms = smoke.cuda_ms(launch, reps, restore)
-    dev = smoke.device_times(launch, before=restore)
-    by = dev.get("by_kernel_ms") or {}
+    # each kernel's median over TRACES traced launches (one trace is one
+    # launch: a few per cent apart from the next)
+    runs = [smoke.device_times(launch, before=restore)
+            for _ in range(TRACES)]
+    by_runs = [r.get("by_kernel_ms") or {} for r in runs]
+    by = {k: statistics.median(r.get(k, 0.0) for r in by_runs)
+          for k in by_runs[0]}
+    dev = {"ours_ms": statistics.median(r.get("ours_ms") or 0.0
+                                        for r in runs)}
     pcols = max(len(model.properties()), 1)
-    k1_bytes = (f * (4 * w + 4 + 1) + f * (pcols + 4 + 1)
+    n_rows = int(rows.sum())
+    k1_bytes = (n_rows * (4 * w + 4 + 1) + n_rows * (pcols + 4 + 1)
                 + n_written * 4 * w + lanes * (8 + 1)
                 + ring0.shape[0] * 8)
-    return {"f": f, "lanes": lanes, "written": n_written,
+    return {"f": f, "pending": take, "lanes": lanes, "written": n_written,
             "outputs": h.hexdigest()[:16], "step_ms": ms,
             "step_device_ms": dev.get("ours_ms"),
             "k1_device_ms": by.get("expand_kernel"),
@@ -131,13 +229,13 @@ def time_k1(smoke, model, carry, f: int, reps: int, active=None) -> dict:
 
 
 #: ``--sweep``'s launches: (threads a block, blocks an SM)
-SWEEP = ((64, 3), (128, 2), (128, 3), (128, 4), (128, 6), (128, 8),
-         (256, 2), (256, 3), (256, 4))
+SWEEP = ((64, 4), (64, 8), (96, 6), (128, 2), (128, 3), (128, 4),
+         (128, 6), (128, 8), (192, 3), (256, 2), (256, 4))
 
 
 def sweep(reps: int) -> int:
-    """K1-abd_ordered at each ordered ``REGISTER_STEPS`` step of this
-    tree over the launches of ``SWEEP``."""
+    """K1-abd and K1-single_copy at each of ``GROUP_STEPS`` of this tree
+    over the launches of ``SWEEP``."""
     sys.path.insert(0, ROOT)
     import torch
 
@@ -147,38 +245,35 @@ def sweep(reps: int) -> int:
     dev = torch.device("cuda", 0)
     info = _cuda.build()
     head = {"tree": ROOT, "card": card(), "build_s": info["seconds"]}
-    default = (_cuda.EDIT_THREADS, _cuda.EDIT_BLOCKS_PER_SM)
-    for label, make, name, rows, pending in smoke.REGISTER_STEPS:
-        if name != "abd_ordered":
-            continue
-        model = make()
+    default = (_cuda.GROUP_THREADS, _cuda.GROUP_BLOCKS_PER_SM)
+    sms = _cuda.sm_count(dev)
+    for label, make, name, rows, pending in GROUP_STEPS:
+        model = make(smoke)
         carry = smoke.mid_search_carry(model, dev, rows=rows,
                                        pending=pending)
         for threads, per_sm in SWEEP:
-            _cuda.EDIT_THREADS, _cuda.EDIT_BLOCKS_PER_SM = threads, per_sm
-            res = time_k1(smoke, model, carry, rows, reps,
-                          smoke.ordered_active(model))
+            _cuda.GROUP_THREADS, _cuda.GROUP_BLOCKS_PER_SM = threads, per_sm
+            res = time_k1(smoke, model, name, carry, rows, reps)
             geo = _cuda.k1_launch(name, _cuda.tile_geometry(
-                rows, model.max_actions, _cuda.sm_count(dev)), rows,
-                model.packed_width, model.max_actions,
-                _cuda.sm_count(dev))
-            print(json.dumps({**head, "sweep": label, "threads": threads,
-                              "per_sm": per_sm,
+                rows, model.max_actions, sms), rows, model.packed_width,
+                model.max_actions, sms)
+            print(json.dumps({**head, "sweep": label,
+                              "threads": threads, "per_sm": per_sm,
                               "launch": {**geo[0]._asdict(),
                                          "smem_bytes": geo[1]},
                               **{k: res[k] for k in (
-                                  "outputs", "k1_device_ms",
+                                  "pending", "outputs", "k1_device_ms",
                                   "step_device_ms", "step_ms",
                                   "k1_bound_ms")}}), flush=True)
-        _cuda.EDIT_THREADS, _cuda.EDIT_BLOCKS_PER_SM = default
+        _cuda.GROUP_THREADS, _cuda.GROUP_BLOCKS_PER_SM = default
         del carry
     return 0
 
 
 def run_tree(tree: str, reps: int) -> int:
-    """Time the ordered register path's kernels and runs of the
-    repository at ``tree`` (its own package, build and
-    ``chip_smoke.py``) in this process."""
+    """Time the register K1s, the other K1s and K7, and the unordered
+    register runs of the repository at ``tree`` (its own package, build
+    and ``chip_smoke.py``) in this process."""
     sys.path.insert(0, tree)
     import torch
 
@@ -200,19 +295,18 @@ def run_tree(tree: str, reps: int) -> int:
     def emit(**line):
         print(json.dumps({**head, **line}), flush=True)
 
-    # the edit K1 at each ordered step, and K7 at the wide rows
-    for label, make, name, rows, pending in smoke.REGISTER_STEPS:
-        if name != "abd_ordered":
-            continue
-        model = make()
+    makers = {"2pc7": lambda s: pkg.TwoPhaseSys(7),
+              "lock9": lambda s: pkg.IncrementLock(9),
+              "paxos3": lambda s: PackedPaxos(3)}
+    for label, make, name, rows, pending in GROUP_STEPS + OTHER_STEPS:
+        model = (make or makers[label])(smoke)
         carry = smoke.mid_search_carry(model, dev, rows=rows,
                                        pending=pending)
         digest = carry_digest(carry)
-        res = time_k1(smoke, model, carry, rows, reps,
-                      smoke.ordered_active(model))
-        emit(kernel="K1-abd_ordered", model=label, carry=digest,
+        res = time_k1(smoke, model, name, carry, rows, reps)
+        emit(kernel=f"K1-{name}", model=label, carry=digest,
              width=model.packed_width, **res)
-        if rows > 256:
+        if label in ("2pc7", "tpu_abd2"):
             app = smoke.check_append(model, carry, rows, reps)
             emit(kernel="K7", model=label, carry=digest,
                  width=model.packed_width,
@@ -221,53 +315,23 @@ def run_tree(tree: str, reps: int) -> int:
                      "bytes", "bound_ms", "bound_by", "max_abs_err",
                      "checks")})
         del carry
-    # the other K1s and narrow-row K7, which must stay as they were
-    others = (
-        ("2pc7", lambda: pkg.TwoPhaseSys(7), 12288, None),
-        ("lock9", lambda: pkg.IncrementLock(9), 12288, None),
-        ("paxos3", lambda: PackedPaxos(3), 8192, None),
-        ("abd2", lambda: smoke._abd(2), 256, 48),
-        ("single_copy3", lambda: smoke._single_copy(3), 9954, 512))
-    for label, make, rows, pending in others:
-        model = make()
-        carry = smoke.mid_search_carry(model, dev, rows=rows,
-                                       pending=pending)
-        digest = carry_digest(carry)
-        res = time_k1(smoke, model, carry, rows, reps)
-        emit(kernel=f"K1 {label}", carry=digest, **res)
-        if label == "2pc7":
-            app = smoke.check_append(model, carry, rows, reps)
-            emit(kernel="K7", model="TwoPhaseSys(7)", carry=digest,
-                 width=model.packed_width,
-                 **{k: app.get(k) for k in (
-                     "lanes", "appended", "ms", "device_ms", "plain_ms",
-                     "bytes", "bound_ms", "bound_by", "max_abs_err",
-                     "checks")})
-        del carry
-    # the ordered register runs end to end
-    abd3 = dict(server_count=2, ordered=True, channel_depth=8)
-    abd2s3 = dict(server_count=3, ordered=True, channel_depth=8)
+    # the unordered register runs end to end
     path = ("fused_step", "chunk_begin", "append", "history", "hpull")
-    runs = (("abd3", lambda: smoke._abd(3, **abd3), smoke.PIN_ABD3, None,
-             {}),
-            ("tpu_abd2", lambda: smoke._abd(2, **abd2s3), None,
-             smoke.ABD2_TARGET, {"capacity": 1 << 21}))
+    runs = (("abd2", lambda: smoke._abd(2), smoke.PIN_ABD2),
+            ("single_copy3", lambda: smoke._single_copy(3), smoke.PIN_SC3))
     keys = ("wall_s", "unique", "generated", "digest", "loop_s",
             "host_eval_s", "histories", "iterations", "graph_launches",
             "launches", "checks")
-    for label, make, want, target, opts in runs:
+    for label, make, want in runs:
         for turn in range(2):
             res, ck = smoke.register_run(make(), path, want=want,
-                                         holds=("linearizable",),
-                                         target=target, **opts)
+                                         holds=("linearizable",))
             del ck
             emit(run=label, turn=turn, **{k: res.get(k) for k in keys})
 
-        def one(make=make, target=target, opts=opts):
-            builder = make().checker().gpu_options(race=False, **opts)
-            if target is not None:
-                builder = builder.target_state_count(target)
-            return builder.spawn_gpu().join()
+        def one(make=make):
+            return make().checker().gpu_options(race=False).spawn_gpu() \
+                .join()
         prof = smoke.device_times(one)
         emit(run=label, profiled=True, **{k: prof.get(k) for k in (
             "loop_s", "busy", "ours_ms", "torch_ms", "copy_ms",
@@ -281,7 +345,8 @@ def main() -> int:
     ap.add_argument("--old", help="the root of another tree of the "
                     "repository, timed before and after this one")
     ap.add_argument("--sweep", action="store_true",
-                    help="time K1-abd_ordered over other launches")
+                    help="time K1-abd and K1-single_copy over other "
+                    "launches")
     ap.add_argument("--tree", help=argparse.SUPPRESS)
     args = ap.parse_args()
 
