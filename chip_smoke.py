@@ -161,6 +161,34 @@ Phases, one JSON line each:
              replaying to a history with no serialization; tpu_abd2
              bounded at ``ABD2_TARGET`` generated states, as bench.py
              does (its full space is far larger).
+10. crash  — crash/restart fault injection on the card: its kernels right
+             after the register kernels (phase ``kernels`` with ``model``
+             and ``instantiation``), the runs after phase ``registers``
+             (phase ``crash``). K1's ``write_once`` (``csrc/
+             write_once.cuh``, the group K1 with crash lanes) at
+             PackedWriteOnce(7, net_capacity=16).crash_restart(2,
+             actors=[0]) (96 words, 18 lanes) at the 256-row step its
+             run launches (~200 pending) and at 1,024 rows all pending,
+             and ``paxos_crash`` (``csrc/paxos.cuh`` ``PaxosCrashModel``,
+             the wide K1 with crash lanes) at a mid-search 8,192-row step
+             of PackedPaxos(3).crash_restart(1, actors=[0, 1, 2]) (97
+             words, 22 lanes), each gated, under the active-lane rule
+             (``crash_active``: bit for bit on the active lanes, cvalid
+             everywhere), with K2/K3, registers, spills, and the
+             registers of the parent's K1 instantiations beside them;
+             the runs: PackedWriteOnce(2) durable (51, ``PIN_WO2``),
+             ``linearizable`` holding, ``value chosen`` found;
+             PackedWriteOnce(2, durable=False) raced and with
+             ``race=False``: ``linearizable`` discovered, its witness
+             replaying through a ``Crash`` to a history with no
+             serialization; PackedWriteOnce(7, net_capacity=16) under
+             ``crash_restart(2)`` (8,965, ``PIN_WO7``); PackedPaxos(1)
+             under ``crash_restart(1, actors=[0, 1, 2])`` (7,155,
+             ``PIN_PAXOS1_CRASH``); PackedPaxos(3) under the same
+             crashes at the BASELINE size (``capacity=1<<21``,
+             ``race=False``, bounded at ``PAXOS3_TARGET``: its full space
+             is too large for the JAX package's host BFS), with a
+             profiled repeat.
 
 Then a ``kernels`` line (the contract's per-kernel record), the card's name
 and power limit from ``nvidia-smi``, and as the last line
@@ -314,6 +342,28 @@ PIN_ABD2 = (544, 875,
 PIN_SC3 = (4_243, 6_778,
            "e6f3f5ee7973c27783c1c04047915d50"
            "4cbb55032810666063cdcdc30a01f323")
+#: Crash/restart fault injection (phase ``crash``): full enumerations,
+#: unique states, state_count() and the sha256 of the sorted
+#: fingerprints, from the JAX package's host BFS on the CPU:
+#:   PackedWriteOnce(2, durable=True).crash_restart(1, actors=[0])
+#:       .checker().spawn_bfs().join()
+#: (``linearizable`` holds, ``value chosen`` is found);
+#: tests/test_torch_crash_restart.py holds the port's plain path to the
+#: JAX package's host BFS at this model and to the pin at Paxos(1)
+PIN_WO2 = (51, 87,
+           "605985bd5b408583268f0b7dd154b0a6"
+           "3832b58f0d31ed96c7f89a62b5a1c2c7")
+#:   PackedWriteOnce(7, durable=True, net_capacity=16).crash_restart(
+#:       2, actors=[0]).checker().spawn_bfs().join()
+PIN_WO7 = (8_965, 29_146,
+           "26762366cb6780b3fc6dadafef35b80c"
+           "274a94c0729903957650b8d7ce7cb8a4")
+#:   PackedPaxos(1).crash_restart(1, actors=[0, 1, 2]).checker()
+#:       .spawn_bfs().join()
+PIN_PAXOS1_CRASH = (7_155, 24_049,
+                    "a9224227a226031d2f4f2de3c2401a86"
+                    "4dcb761fb655fd229ab03fbb45b0bed3")
+
 #: bench.py's widest register row: tpu_abd2, PackedAbd(2,
 #: server_count=3, ordered=True, channel_depth=8), 331 words, bounded
 #: there at this many generated states
@@ -2897,8 +2947,8 @@ def active_rule(model, name):
     """The lanes K1's instantiation ``name`` writes a child for, by its
     model's rule (None: every lane)."""
     return {"abd_ordered": ordered_active, "abd": unordered_active,
-            "single_copy": unordered_active}.get(
-                name, lambda _m: None)(model)
+            "single_copy": unordered_active, "write_once": crash_active,
+            "paxos_crash": crash_active}.get(name, lambda _m: None)(model)
 
 
 def ordered_active(model):
@@ -3155,6 +3205,207 @@ def register_kernel_entries(checks: dict, runs: dict) -> list:
     return out
 
 
+def _write_once(*args, crashes=1, **kwargs):
+    from stateright_tpu_torch.examples.write_once_packed import \
+        PackedWriteOnce
+    return PackedWriteOnce(*args, **kwargs).crash_restart(crashes,
+                                                           actors=[0])
+
+
+def _paxos_crash(clients):
+    from stateright_tpu_torch.examples.paxos_packed import PackedPaxos
+    return PackedPaxos(clients).crash_restart(1, actors=[0, 1, 2])
+
+
+#: the crash lanes' K1 checks (phase ``kernels`` with a ``model`` key),
+#: as REGISTER_STEPS: the label, the model, its ``cuda_spec`` name, the
+#: rows of the step and the rows pending at it. PackedWriteOnce(7)'s
+#: levels hold at most 1,526 states: its run takes the 256-row small
+#: step (at ~200 pending: its fourth level) and the large 7,281-row one
+#: (an odd size: the plain version walks it a row at a time, minutes);
+#: the fullest step is checked at 1,024 rows, all pending.
+CRASH_STEPS = (
+    ("PackedWriteOnce(7, net_capacity=16).crash_restart(2, actors=[0])",
+     lambda: _write_once(7, net_capacity=16, crashes=2), "write_once", 256,
+     200),
+    ("PackedWriteOnce(7, net_capacity=16).crash_restart(2, actors=[0]) "
+     "at 1,024 rows", lambda: _write_once(7, net_capacity=16, crashes=2),
+     "write_once", 1024, 1024),
+    ("PackedPaxos(3).crash_restart(1, actors=[0, 1, 2])",
+     lambda: _paxos_crash(3), "paxos_crash", 8192, 8192),
+)
+#: K1's model struct of each crash instantiation, and of the parent's
+#: instantiations whose registers are reported beside them (ptxas's name)
+CRASH_STRUCTS = {"write_once": "WriteOnceModel",
+                 "paxos_crash": "PaxosCrashModel"}
+PARENT_STRUCTS = {"paxos": "PaxosModel", "abd": "AbdModel",
+                  "single_copy": "SingleCopyModel",
+                  "abd_ordered": "AbdOrderedModel"}
+
+
+def crash_active(model):
+    """The active-lane rule of an instantiation with crash lanes
+    (``csrc/actor_net.cuh`` ``crash_active_lanes``): the deliveries below
+    the network's zero tail to a recipient that is up, the crash lanes of
+    actors up with fewer than ``max_crashes_`` crashes, the restart lanes
+    of actors down. K1 writes those lanes' children only; every other
+    lane is invalid and does not overflow."""
+    def active(frontier):
+        import torch
+        dev = frontier.device
+        f, e = frontier.shape[0], model.net_capacity
+        slots = frontier[:, model._net_off:model._timer_off].reshape(
+            f, e, 4).to(torch.int64) & 0xFFFFFFFF
+        live = (slots != 0).any(-1)
+        quiet = (live * torch.arange(1, e + 1, device=dev)).max(-1).values
+        below = torch.arange(e, device=dev)[None, :] < quiet[:, None]
+        if not model.max_crashes_:
+            return below.reshape(-1)
+        cw = frontier[:, model._crash_off].to(torch.int64) & 0xFFFFFFFF
+        last = len(model.actor_widths) - 1
+        to = torch.clamp(slots[:, :, 0] & 0xFF, max=last)
+        up = ((cw[:, None] >> (4 * to + 3)) & 1) == 0
+        idx = torch.from_numpy(model._crash_idx.astype("int64")).to(dev)
+        down = ((cw[:, None] >> (4 * idx + 3)) & 1) != 0
+        count = (cw[:, None] >> (4 * idx)) & 7
+        return torch.cat([below & up, ~down & (count < model.max_crashes_),
+                          down], dim=1).reshape(-1)
+    return active
+
+
+def crash_kernels(device) -> tuple:
+    """K1's crash instantiations at the ``CRASH_STEPS``, gated, timed,
+    with their launch, registers and spills, and the registers of the
+    parent's K1 instantiations; returns the checks by label and their
+    plain halves (:func:`register_plain`, which runs them last)."""
+    from stateright_tpu_torch.ops import _cuda
+
+    checks, plain = {}, []
+    sms = _cuda.sm_count(device)
+    for label, make, name, rows, pending in CRASH_STEPS:
+        model = make()
+        carry = mid_search_carry(model, device, rows=rows, pending=pending)
+        finish = check_step(model, carry, rows, reps=10,
+                            active=crash_active(model), defer=True,
+                            gated=True)
+        geo = _cuda.tile_geometry(rows, model.max_actions, sms)
+        wide, smem = _cuda.k1_launch(name, geo, rows, model.packed_width,
+                                     model.max_actions, sms)
+        usage = kernel_usage("fused_step",
+                             f"expand_kernel[{CRASH_STRUCTS[name]}]")
+        meta = {"width": model.packed_width, "actions": model.max_actions,
+                "pending": min(int(carry.q_tail - carry.q_head), rows),
+                "k1_launch": {**wide._asdict(), "smem_bytes": smem},
+                "usage": usage,
+                "parent_usage": {n: kernel_usage(
+                    "fused_step", f"expand_kernel[{s}]")
+                    for n, s in PARENT_STRUCTS.items()}}
+        checks[label] = {}
+        plain.append((label, model, name, meta, finish))
+        del carry
+    return checks, plain
+
+
+def crash_phase() -> dict:
+    """Phase ``crash``: crash/restart fault injection on the card end to
+    end (see the module docstring). Returns the runs by label."""
+    import torch
+
+    from stateright_tpu_torch.actor.model import Crash
+
+    path = ("fused_step", "chunk_begin", "append", "history", "hpull")
+    lin, chosen = "linearizable", "value chosen"
+    runs = {}
+
+    def record(key, res, **extra):
+        res.update(extra)
+        emit(phase="crash", **res)
+        runs[key] = res
+        if not all(res["checks"].values()):
+            raise AssertionError(f"crash {key}: {res['checks']}")
+
+    res, _ck = register_run(_write_once(2), path, want=PIN_WO2,
+                            holds=(lin,), found=(chosen,))
+    record("write_once2", res)
+    # the lost acknowledged write: raced as by default, and the card alone
+    for race in (None, False):
+        res, ck = register_run(_write_once(2, durable=False), path,
+                               found=(lin,), race=race)
+        actions = ck.assert_any_discovery(lin).into_actions()
+        res["checks"]["witness_crash"] = any(isinstance(a, Crash)
+                                             for a in actions)
+        record(("write_once2_volatile", race), res,
+               witness_actions=[type(a).__name__ for a in actions])
+        del ck
+    res, _ck = register_run(_write_once(7, net_capacity=16, crashes=2), path,
+                            want=PIN_WO7, holds=(lin,), found=(chosen,))
+    record("write_once7", res)
+    res, _ck = register_run(_paxos_crash(1), path, want=PIN_PAXOS1_CRASH,
+                            holds=(lin,), found=(chosen,))
+    record("paxos1", res)
+    del _ck
+    # the BASELINE workload under crashes, bounded as the BASELINE run
+    res, _ck = register_run(_paxos_crash(3), path, holds=(lin,),
+                            found=(chosen,), target=PAXOS3_TARGET,
+                            capacity=1 << 21)
+    res["checks"]["target"] = res["generated"] >= PAXOS3_TARGET
+    del _ck
+    res["profile"] = device_times(lambda: _paxos_crash(3).checker()
+                                  .gpu_options(race=False, capacity=1 << 21)
+                                  .target_state_count(PAXOS3_TARGET)
+                                  .spawn_gpu().join(), host_top=8)
+    record("paxos3", res, workload="BASELINE paxos check 3 under "
+           "crash_restart(1, actors=[0, 1, 2]), bounded")
+    torch.cuda.synchronize()
+    return runs
+
+
+def crash_kernel_entries(checks: dict, runs: dict) -> list:
+    """The ``kernels`` line's records of K1's crash instantiations, each
+    with its launches on its configuration's run (``write_once``: the
+    PackedWriteOnce(7) run; ``paxos_crash``: the bounded PackedPaxos(3)
+    run) and the parent's K1 registers beside its own."""
+    from stateright_tpu_torch.ops import _cuda
+
+    main_of = {"write_once": (CRASH_STEPS[1][0], "write_once7"),
+               "paxos_crash": (CRASH_STEPS[2][0], "paxos3")}
+    instantiation = {lb: n for lb, _, n, *_ in CRASH_STEPS}
+    out = []
+    for name, (label, run) in main_of.items():
+        by = {lb: c["fused_step"] for lb, c in checks.items()
+              if instantiation[lb] == name}
+        main = by[label]
+        pend = _cuda.pending_rows(name)
+        out.append({
+            "name": f"fused_step[{name}]", "route": "cuda",
+            "source": "stateright_tpu_torch/csrc/fused_step.cu",
+            "device_functions": "stateright_tpu_torch/csrc/"
+                                + ("write_once.cuh" if name == "write_once"
+                                   else "paxos.cuh"),
+            "replaces": "stateright_tpu/ops/fused.py:259",
+            "lanes_of": "stateright_tpu/actor/packed.py:849",
+            "configuration": "probe=True", "model": label,
+            "launches": runs[run]["launches"]["fused_step"],
+            "max_abs_err": max(r["max_abs_err"] for r in by.values()),
+            "ms": main["ms"], "device_ms": main["device_ms"],
+            "plain_ms": main["plain_ms"],
+            **({"bound_ms": main["pending_bound"]["bound_ms"],
+                "bound_by": main["pending_bound"]["bound_by"],
+                "bound_of": "the pending rows"}
+               if pend else
+               {"bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+                "bound_of": "every row"}),
+            "library_ms": None,
+            "parent_usage": main["parent_usage"],
+            "by_model": {lb: {k: r[k] for k in (
+                "f", "pending", "width", "lanes", "written", "ms",
+                "device_ms", "plain_ms", "bound_ms", "bound_by",
+                "max_abs_err", "pending_bound", "k1_launch", "usage",
+                "parts")} for lb, r in by.items()},
+            "status": "ok"})
+    return out
+
+
 def model_kernel_entries(steps: dict, runs: dict) -> list:
     """The ``kernels`` line's records of K1's new instantiations: each
     step kernel by model, with its launches on its model's run (the
@@ -3400,6 +3651,7 @@ def main() -> int:
     # single launches, which later phases can spoil (PERF.md section 7)
     pax_checks = paxos_kernels(torch.device("cuda", 0))
     reg_checks, reg_plain = register_kernels(torch.device("cuda", 0))
+    crash_checks, crash_plain = crash_kernels(torch.device("cuda", 0))
     # the host race on the main path, and checkpoints on the card
     race_phase()
     ckpt = checkpoint_phase()
@@ -3647,8 +3899,11 @@ def main() -> int:
     pax_runs = paxos_phase(torch.device("cuda", 0))
     # the register family on the card end to end
     reg_runs = registers_phase()
-    # the register K1 checks' plain versions, after every trace
+    # crash/restart fault injection on the card end to end
+    crash_runs = crash_phase()
+    # the register and crash K1 checks' plain versions, after every trace
     register_plain(reg_checks, reg_plain)
+    register_plain(crash_checks, crash_plain)
     # the cold starts last: another process on the card spoils the traces
     cold_start_phase()
 
@@ -3764,6 +4019,7 @@ def main() -> int:
     kernels += model_kernel_entries(model_steps, model_runs)
     kernels += paxos_kernel_entries(pax_checks, pax_runs)
     kernels += register_kernel_entries(reg_checks, reg_runs)
+    kernels += crash_kernel_entries(crash_checks, crash_runs)
     # K7, K8 and K9 at the widest register row (331 words), K7 at abd3's
     # (260)
     for entry in kernels:

@@ -37,10 +37,14 @@ package's ``_packed_step_unordered`` (``stateright_tpu/actor/packed.py``
 :710, with ``_net_consume`` :489 and ``_net_send`` :519) or
 ``_packed_step_ordered`` (:588) over a batch, in int64 holding uint32
 values: the plain version of the CUDA device functions a model names in
-``cuda_spec`` (``csrc/actor_net.cuh``). The lossy drop lanes, the
-device timers and the crash/restart lanes are not ported:
+``cuda_spec`` (``csrc/actor_net.cuh``). On the unordered network it
+has the crash/restart lanes (``crash_restart``: the JAX package's
+``:849-900``): lane ``E + c`` crashes the ``c``-th crashable actor,
+lane ``E + n_cr + c`` restarts it, and a delivery to a down recipient
+is invalid. The lossy drop lanes and the device timers are not ported:
 ``packed_step`` raises ``NotImplementedError`` for them (A8's next
-slice); the host engines check such models.
+slice), as for crashes on the ordered network; the host engines check
+such models.
 """
 
 from __future__ import annotations
@@ -251,14 +255,39 @@ class PackedActorModel(ActorModel, PackedModel):
     #: sets this True is refused by ``packed_step`` (A8's next slice)
     device_timers: bool = False
 
-    # --- crash-restart (``crash_restart``): the layout is computed as in
-    # the JAX package, the device lanes are not ported ----------------------
+    # --- crash-restart (``crash_restart``) ----------------------------------
     def durable_word_mask(self, index: int) -> List[int]:
-        """Per-word 0/1 mask of actor ``index``'s crash-surviving words
-        (the host projection :meth:`_crash_durable` applies it through
-        the codec). Default: all zeros — nothing survives, the
-        fail-stop model."""
+        """Per-word 0/1 mask of actor ``index``'s crash-surviving words.
+
+        A device Crash wipes the non-durable words to zero; the host
+        projection (:meth:`_crash_durable`) applies the identical mask
+        through the codec, so both engines agree bit for bit. Default:
+        all zeros — nothing survives, the fail-stop model."""
         return [0] * self.actor_widths[index]
+
+    def packed_on_restart(self, actors, aidx):
+        """Batched restart (the device ``Actor.on_restart``).
+
+        Args:
+          actors: int64 ``[N, AW]`` concatenated actor states — actor
+            ``aidx``'s words already hold only its durable content (the
+            crash wiped the rest);
+          aidx: int64 ``[N]`` index of the restarting actor.
+        Returns:
+          ``(new_actors int64[N, AW], sends like packed_deliver's,
+          set_timer bool[N])`` — ``set_timer`` True arms the restarted
+          actor's timer.
+
+        Default: adopt the durable words as the new state, emit nothing —
+        the mirror of the host default :meth:`_restart_state`. Override
+        BOTH together for richer recovery (e.g. announce-rejoin sends).
+        """
+        n = actors.shape[0]
+        zero = torch.zeros((n,), dtype=torch.int64, device=actors.device)
+        no = torch.zeros((n,), dtype=torch.bool, device=actors.device)
+        zmsg = torch.zeros((n, self.msg_width), dtype=torch.int64,
+                           device=actors.device)
+        return actors, [(zero, zmsg, no) for _ in range(self.max_sends)], no
 
     def _crash_durable(self, index: int, state: Any) -> Any:
         """Host-side crash projection: encode, zero the volatile words,
@@ -270,8 +299,9 @@ class PackedActorModel(ActorModel, PackedModel):
             index, [int(w) if m else 0 for w, m in zip(words, mask)])
 
     def _restart_state(self, index: int, durable: Any, out: Out) -> Any:
-        """Host-side restart: adopt the durable projection, emit
-        nothing."""
+        """Host-side restart, mirroring the default
+        :meth:`packed_on_restart`: adopt the durable projection, emit
+        nothing. Override together with ``packed_on_restart``."""
         return durable
 
     def packed_record_out(self, history, src, dst, msg):
@@ -452,15 +482,14 @@ class PackedActorModel(ActorModel, PackedModel):
 
     def unported_lanes(self) -> Optional[str]:
         """Why the port's device step cannot run this configuration (the
-        lossy drop lanes, device timers, crash/restart lanes: A8's next
-        slice), or ``None``."""
+        lossy drop lanes, device timers: A8's next slice), or ``None``.
+        With neither, the crash/restart lanes follow the delivery lanes
+        (``cr_base`` = E)."""
         what = []
         if self.lossy_network_:
             what.append("the lossy drop lanes")
         if self.device_timers:
             what.append("the device timers")
-        if self.max_crashes_:
-            what.append("the crash/restart lanes")
         if not what:
             return None
         return (f"{', '.join(what)} of PackedActorModel wait for A8's next "
@@ -484,7 +513,7 @@ class PackedActorModel(ActorModel, PackedModel):
             raise NotImplementedError(reason)
         w = u64(words)
         f, width = w.shape
-        a = self.max_actions
+        a = self.max_actions  # raises for crashes on the ordered network
         rows = w[:, None, :].expand(f, a, width).reshape(f * a, width)
         act = torch.arange(a, device=w.device).repeat(f)
         lanes = (self._step_lanes_ordered if self._net_ordered
@@ -566,18 +595,26 @@ class PackedActorModel(ActorModel, PackedModel):
         valid = valid & ~overflow & self.packed_boundary(row_out)
         return row_out, valid, overflow
 
-    def _step_lanes(self, rows, e):
-        """One delivery per lane: ``rows`` int64 ``[N, W]``, ``e`` the
-        delivered slot ``[N]``."""
+    def _step_lanes(self, rows, act):
+        """One action per lane: ``rows`` int64 ``[N, W]``, ``act`` the
+        lane's action ``[N]``: below E the delivery of slot ``act``, then
+        (with ``crash_restart``) a crash and a restart lane per crashable
+        actor."""
         aw, e_cap, sw = self._aw, self.net_capacity, self._sw
         hw = self.history_width
         n = rows.shape[0]
+        dev = rows.device
         actors = rows[:, :aw]
         slots = rows[:, self._net_off:self._timer_off].reshape(n, e_cap, sw)
         hist = rows[:, self._hist_off:] if hw else None
         timer = rows[:, self._timer_off:self._timer_off + 1]
+        # the crash-nibble word rides between timer and history; the
+        # slice is empty when injection is off
+        crash = rows[:, self._timer_off + 1:self._hist_off]
+        crashes_on = bool(self.max_crashes_)
         n_actors = len(self.actor_widths)
-        row = slots[torch.arange(n, device=rows.device), e]
+        e = torch.clamp(act, max=e_cap - 1)
+        row = slots[torch.arange(n, device=dev), e]
         hdr = row[:, 0]
         occupied = (hdr & _OCC) != 0
         src = (hdr >> 8) & 0xFF
@@ -591,6 +628,11 @@ class PackedActorModel(ActorModel, PackedModel):
             any_send = any_send | svalid
         # no-op pruning (model.rs:259-260) + recipient existence
         valid = occupied & (dst < n_actors) & (changed | any_send)
+        if crashes_on:
+            # a down recipient takes no deliveries (its messages wait in
+            # the network until Restart)
+            dst_nib = torch.clamp(dst, max=n_actors - 1) * 4
+            valid = valid & (((crash[:, 0] >> (dst_nib + 3)) & 1) == 0)
         # a duplicating delivery leaves the envelope in flight
         new_slots = slots if self._net_dup else net_consume(slots, e)
         new_hist = None
@@ -604,16 +646,93 @@ class PackedActorModel(ActorModel, PackedModel):
             new_slots, ovf = net_send(new_slots, dst, sdst, smsg, svalid,
                                       dup=self._net_dup)
             overflow = overflow | ovf
-        parts = [new_actors, new_slots.reshape(n, -1), timer]
+        parts = [new_actors, new_slots.reshape(n, -1), timer, crash]
         if hw:
             parts.append(new_hist)
         row_out = torch.cat(parts, dim=1) & M32
+        if crashes_on:
+            row_out, valid, overflow = self._crash_lanes(
+                rows, act, row_out, valid, overflow)
         # an overflowing successor would drop a message: poison the row,
         # invalidate it and report the overflow (the engines raise)
         overflow = valid & overflow
         row_out = torch.where(overflow[:, None],
                               torch.full_like(row_out, 0xDEADBEEF), row_out)
         valid = valid & ~overflow & self.packed_boundary(row_out)
+        return row_out, valid, overflow
+
+    def _crash_lanes(self, rows, act, row_out, valid, overflow):
+        """The crash/restart lanes over the delivery lanes' results (the
+        JAX package's ``_packed_step_unordered`` crash branch): lane
+        ``cr_base + c`` crashes the ``c``-th crashable actor — its
+        volatile words (``durable_word_mask``) zeroed, its timer bit
+        cleared, its crash count bumped and its down bit set; valid iff
+        it is up with fewer than ``max_crashes_`` crashes, and never an
+        overflow — and lane ``cr_base + n_cr + c`` restarts it — the down
+        bit cleared and :meth:`packed_on_restart` run, whose sends go
+        through ``record_out`` and the network; valid iff it is down.
+        Both write a full child whether valid or not."""
+        aw, e_cap, sw = self._aw, self.net_capacity, self._sw
+        hw = self.history_width
+        n = rows.shape[0]
+        dev = rows.device
+        actors = rows[:, :aw]
+        slots = rows[:, self._net_off:self._timer_off].reshape(n, e_cap, sw)
+        hist = rows[:, self._hist_off:] if hw else None
+        tw = rows[:, self._timer_off]
+        cw = rows[:, self._crash_off]
+        n_cr = len(self._crash_idx)
+        cr_base = e_cap  # no drop lanes, no timer lanes (unported_lanes)
+        is_crash = (act >= cr_base) & (act < cr_base + n_cr)
+        is_restart = act >= cr_base + n_cr
+        ci = torch.clamp(torch.where(is_restart, act - cr_base - n_cr,
+                                     act - cr_base), 0, n_cr - 1)
+        crash_idx = torch.from_numpy(self._crash_idx.astype(np.int64)).to(dev)
+        aidx = crash_idx[ci]
+        nib = aidx * 4
+        cnt = (cw >> nib) & 7
+        dbit = ((cw >> (nib + 3)) & 1) != 0
+        owner = torch.from_numpy(self._word_owner.astype(np.int64)).to(dev)
+        durable = torch.from_numpy(self._word_durable.astype(bool)).to(dev)
+        wipe = (owner[None, :] == aidx[:, None]) & ~durable[None, :]
+        c_actors = torch.where(wipe, 0, actors)
+        c_timer = tw & ~(1 << aidx) & M32
+        # cnt < max_crashes when valid, so +1 never carries into the down
+        # bit
+        c_cw = ((cw + (1 << nib)) | (1 << (nib + 3))) & M32
+        c_parts = [c_actors, slots.reshape(n, -1), c_timer[:, None],
+                   c_cw[:, None]]
+        if hw:
+            c_parts.append(hist)
+        c_row = torch.cat(c_parts, dim=1) & M32
+        c_valid = ~dbit & (cnt < self.max_crashes_)
+
+        r_actors, r_sends, r_set_timer = self.packed_on_restart(actors, aidx)
+        assert len(r_sends) == self.max_sends
+        r_slots = slots
+        r_hist = hist
+        r_ovf = torch.zeros_like(dbit)
+        for sdst, smsg, svalid in r_sends:
+            if hw:
+                rec = self.packed_record_out(r_hist, aidx, sdst, smsg)
+                r_hist = torch.where(svalid[:, None], rec, r_hist)
+            r_slots, ovf = net_send(r_slots, aidx, sdst, smsg, svalid,
+                                    dup=self._net_dup)
+            r_ovf = r_ovf | ovf
+        r_timer = tw | (r_set_timer.to(torch.int64) << aidx)
+        r_cw = cw & ~(1 << (nib + 3)) & M32
+        r_parts = [r_actors, r_slots.reshape(n, -1), r_timer[:, None],
+                   r_cw[:, None]]
+        if hw:
+            r_parts.append(r_hist)
+        r_row = torch.cat(r_parts, dim=1) & M32
+
+        row_out = torch.where(is_crash[:, None], c_row, row_out)
+        valid = torch.where(is_crash, c_valid, valid)
+        overflow = overflow & ~is_crash
+        row_out = torch.where(is_restart[:, None], r_row, row_out)
+        valid = torch.where(is_restart, dbit, valid)
+        overflow = torch.where(is_restart, r_ovf, overflow)
         return row_out, valid, overflow
 
     # --- fingerprint ------------------------------------------------------

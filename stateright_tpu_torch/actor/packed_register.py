@@ -147,24 +147,31 @@ class PackedRegisterModel(PackedActorModel):
                 + [(x, y) for x in servers for y in servers if x != y])
 
     #: the batched hooks whose CUDA device functions run in place of a
-    #: register model's own on the card
+    #: register model's own on the card (the restart hooks: the kernels'
+    #: crash lanes run the default recovery, actor_net.cuh crash_edit)
     CUDA_HOOKS = ("packed_deliver", "_server_step", "_client_step",
                   "packed_record_in", "packed_record_out",
                   "packed_boundary", "encode_server", "encode_internal",
-                  "encode_msg", "encode_history")
+                  "encode_msg", "encode_history", "packed_on_restart",
+                  "_restart_state")
 
     def check_cuda_register(self, base: type, header: str,
                             symmetry: bool, name: str,
-                            ordered: bool = False) -> None:
+                            ordered: bool = False,
+                            crash: bool = False) -> None:
         """Refuse this model on the card unless ``csrc/<header>``
         (written for ``base``) computes what it does: refused are
         symmetry (no device representative), the unported lanes, the
-        duplicating network, the ordered network unless ``ordered`` (and
-        then any channels but :meth:`register_channels`, or more than 32
-        of them), more than 7 clients, 4 servers or 16 network slots,
-        more packed words than the instantiation ``name`` takes
+        crash/restart lanes unless ``crash`` (the instantiation has them:
+        on the unordered network, at most 8 actors), the duplicating
+        network, the ordered network unless ``ordered`` (and then any
+        channels but :meth:`register_channels`, or more than 32 of
+        them), more than 7 clients, 4 servers or 16 network slots, more
+        packed words than the instantiation ``name`` takes
         (``ops/_cuda.py`` ``row_words``), and a subclass that overrides
-        one of :data:`CUDA_HOOKS` or what ``check_cuda_model`` checks."""
+        one of :data:`CUDA_HOOKS` or what ``check_cuda_model`` checks.
+        ``durable_word_mask`` is data: the kernel takes the mask
+        (:meth:`crash_params`)."""
         from ..models.packed import check_cuda_model
         from ..ops._cuda import row_words
         cls = type(self).__name__
@@ -174,6 +181,11 @@ class PackedRegisterModel(PackedActorModel):
         reason = self.unported_lanes()
         if reason is not None:
             raise NotImplementedError(reason)
+        if self.max_crashes_ and not crash:
+            raise NotImplementedError(
+                f"csrc/{header} has no crash/restart lanes; check this "
+                f"{cls} under crash_restart() with spawn_bfs() or on the "
+                "CPU (gpu_options(device='cpu'))")
         if self._net_dup:
             raise NotImplementedError(
                 f"csrc/{header} runs the non-duplicating network only")
@@ -203,6 +215,24 @@ class PackedRegisterModel(PackedActorModel):
                          (("linearizable", Expectation.ALWAYS),
                           ("value chosen", Expectation.SOMETIMES)),
                          self.packed_width, self.max_actions, symmetry)
+
+    def crash_params(self) -> tuple:
+        """The crash lanes' kernel parameters (``csrc/actor_net.cuh``
+        ``CrashSpec``): ``(max_crashes, crashable actors, their indices a
+        nibble each, the durable actor words' mask as two 32-bit
+        halves)``, each as a C ``int``; all zero without crashes."""
+        def c_int(v: int) -> int:
+            return v - (1 << 32) if v >= 1 << 31 else v
+        if not self.max_crashes_:
+            return (0, 0, 0, 0, 0)
+        idx = 0
+        for c, a in enumerate(self._crash_idx.tolist()):
+            idx |= int(a) << (4 * c)
+        dur = 0
+        for j, d in enumerate(self._word_durable.tolist()):
+            dur |= int(d) << j
+        return (int(self.max_crashes_), len(self._crash_idx), c_int(idx),
+                c_int(dur & 0xFFFFFFFF), c_int(dur >> 32))
 
     # --- subclass interface ----------------------------------------------
     def encode_server(self, state: Any) -> List[int]:

@@ -10,7 +10,11 @@
 // builds it with a group of lanes holding the network (ABD and the
 // single-copy register on the unordered network), and
 // register_edit_ordered with ordered_child_word, which describe the
-// child as the row plus an edit (ABD on the ordered network).
+// child as the row plus an edit (ABD on the ordered network); and the
+// crash/restart lanes of a model that has them (crash_restart: M::kCrash,
+// CrashSpec below; Paxos under crashes, the write-once register), whose
+// children are the row with at most one actor's words, the timer word and
+// the crash word changed (crash_edit, crash_word).
 //
 // They compute what the JAX package's _packed_step_unordered
 // (stateright_tpu/actor/packed.py:710, with _net_consume :489 and
@@ -25,6 +29,7 @@
 #pragma once
 
 #include <cstdint>
+#include <type_traits>
 
 #include "fold.cuh"
 
@@ -38,6 +43,51 @@ constexpr uint32_t kPoison = 0xDEADBEEFu;  // an overflowing child's words
 
 // register message type tags (actor/packed_register.py T_*)
 constexpr uint32_t T_PUT = 1, T_GET = 2, T_PUTOK = 3, T_GETOK = 4;
+
+// The crash/restart lanes of a model (ActorModel.crash_restart, the
+// packed layout of actor/packed.py finalize_layout): with k > 0 the crash
+// word follows the timer word (actor a's nibble at bits 4 a: bits 0-2 its
+// crash count, bit 3 down) and the history follows it; lane E + c crashes
+// the c-th crashable actor (its index in nibble c of idx), lane E + n + c
+// restarts it. Bit j of the durable mask (dur_lo, then dur_hi) keeps word
+// j of the actors' words through a crash (durable_word_mask); at most 8
+// actors, 8 crashable ones, k <= 7 and 64 actor words.
+struct CrashSpec {
+  int k;                    // crashes an actor may take (0: no crash word)
+  int n;                    // the crashable actors
+  uint32_t idx;             // the c-th crashable actor's index, nibble c
+  uint32_t dur_lo, dur_hi;  // the durable actor words, bit j = word j
+
+  __host__ __device__ uint32_t actor(int c) const {
+    return (idx >> (4 * c)) & 0xFu;
+  }
+  __host__ __device__ bool durable(int j) const {
+    return j < 32 ? (dur_lo >> j) & 1u : (dur_hi >> (j - 32)) & 1u;
+  }
+  // the spec over `actors` actors of aw words in all, with E delivery
+  // lanes (the lane mask holds at most 32 lanes)
+  __host__ bool ok(int actors, int aw, int E) const {
+    if (k < 0 || k > 7 || n < 0 || n > 8 || actors > 8 || aw > 64 ||
+        E + 2 * n > 32 || (k == 0 && n > 0))
+      return false;
+    for (int c = 0; c < n; ++c)
+      if (actor(c) >= (uint32_t)actors) return false;
+    return true;
+  }
+};
+
+// Whether M has the crash/restart lanes (M::kCrash and a CrashSpec cr);
+// models without the member compile to their steps as they were.
+template <class M, class = void>
+struct HasCrash : std::false_type {};
+template <class M>
+struct HasCrash<M, std::void_t<decltype(M::kCrash)>>
+    : std::integral_constant<bool, M::kCrash> {};
+
+// Whether actor a is down in crash word cw.
+__host__ __device__ __forceinline__ bool is_down(uint32_t cw, uint32_t a) {
+  return (cw >> (4 * a + 3)) & 1u;
+}
 
 // One send of a handler: recipient, the two message words, and whether
 // it is emitted.
@@ -325,6 +375,139 @@ __device__ __forceinline__ void register_dispatch(const M& m,
   d.dn = is_server ? m.sw : 1;
 }
 
+// --- the crash/restart lanes (M::kCrash) --------------------------------
+//
+// What the JAX package's _packed_step_unordered computes on its crash
+// and restart lanes (stateright_tpu/actor/packed.py:849-900) with the
+// default packed_on_restart (the durable words adopted, no sends, no
+// timer: the models refuse a subclass with its own), for one lane. M
+// gives S, C, sw (a server's words: servers first, then a word per
+// client), aw, E, timer_off and cr.
+
+// Whether row w's delivery to dst goes to a down recipient (invalid: the
+// message waits for the restart).
+template <class M>
+__device__ __forceinline__ bool dst_down(const M& m, const uint32_t* w,
+                                         uint32_t dst) {
+  return m.cr.k && is_down(w[m.timer_off + 1],
+                           min(dst, (uint32_t)(m.S + m.C - 1)));
+}
+
+// The actor whose state holds actor word j.
+template <class M>
+__device__ __forceinline__ uint32_t word_owner(const M& m, int j) {
+  const int sw = m.S * m.sw;
+  return j < sw ? (uint32_t)(j / m.sw) : (uint32_t)(m.S + j - sw);
+}
+
+// The active lanes of row w (bit e; at most 32 lanes): the deliveries
+// before the network's zero tail to a recipient that is up, each crash
+// lane of an actor that is up with fewer than k crashes, each restart
+// lane of an actor that is down. Every other lane's child is invalid and
+// does not overflow.
+template <class M>
+__device__ __forceinline__ uint32_t crash_active_lanes(const M& m,
+                                                       const uint32_t* w) {
+  const int E = m.E;
+  const int z = zero_tail(w + m.net_off, E);
+  const uint32_t cw = m.cr.k ? w[m.timer_off + 1] : 0u;
+  const uint32_t last = (uint32_t)(m.S + m.C - 1);
+  uint32_t mask = 0u;
+  for (int j = 0; j < z; ++j)
+    if (!is_down(cw, min(w[m.net_off + 4 * j] & 0xFFu, last)))
+      mask |= 1u << j;
+  for (int c = 0; c < m.cr.n; ++c) {
+    const uint32_t a = m.cr.actor(c);
+    if (is_down(cw, a))
+      mask |= 1u << (E + m.cr.n + c);
+    else if (((cw >> (4 * a)) & 7u) < (uint32_t)m.cr.k)
+      mask |= 1u << (E + c);
+  }
+  return mask;
+}
+
+// A crash or restart lane's child as an edit of the row: the actor, the
+// new timer and crash words, whether it restarts (a crash wipes the
+// actor's volatile words) and whether the child is valid.
+struct CrashEdit {
+  uint32_t a, timer, cw;
+  bool restart, valid;
+};
+
+// Lane e (>= E) of row w: a crash clears the actor's timer bit, bumps
+// its count and sets its down bit (valid when it is up with fewer than k
+// crashes: the count never carries into the down bit); a restart clears
+// the down bit (valid when it is down).
+template <class M>
+__device__ __forceinline__ CrashEdit crash_edit(const M& m, const uint32_t* w,
+                                                int e) {
+  const int c = e - m.E;
+  CrashEdit ed;
+  ed.restart = c >= m.cr.n;
+  ed.a = m.cr.actor(ed.restart ? c - m.cr.n : c);
+  const uint32_t nib = 4u * ed.a;
+  const uint32_t tw = w[m.timer_off], cw = w[m.timer_off + 1];
+  const bool down = is_down(cw, ed.a);
+  if (ed.restart) {
+    ed.timer = tw;
+    ed.cw = cw & ~(1u << (nib + 3));
+    ed.valid = down;
+  } else {
+    ed.timer = tw & ~(1u << ed.a);
+    ed.cw = (cw + (1u << nib)) | (1u << (nib + 3));
+    ed.valid = !down && ((cw >> nib) & 7u) < (uint32_t)m.cr.k;
+  }
+  return ed;
+}
+
+// Word k of the child that ed makes of the row, whose word k is old: a
+// crashed actor's volatile words zero, the timer and crash words new,
+// every other word the row's.
+template <class M>
+__device__ __forceinline__ uint32_t crash_word(const M& m, const CrashEdit& ed,
+                                               int k, uint32_t old) {
+  if (k < m.aw)
+    return !ed.restart && word_owner(m, k) == ed.a && !m.cr.durable(k) ? 0u
+                                                                      : old;
+  if (k == m.timer_off) return ed.timer;
+  if (k == m.timer_off + 1) return ed.cw;
+  return old;
+}
+
+// Crash or restart lane e's child of row w (in shared memory) into out,
+// word by word (step_common.cuh RowOut); returns whether it is valid (it
+// never overflows).
+template <class M, class Out>
+__device__ __forceinline__ bool crash_step_row(const M& m, const uint32_t* w,
+                                               int e, Out& out) {
+  const CrashEdit ed = crash_edit(m, w, e);
+  for (int k = 0; k < m.width(); ++k) out.put(k, crash_word(m, ed, k, w[k]));
+  return ed.valid;
+}
+
+// Crash or restart lane e's child of row w built by the group g into dst
+// (its row of flat), lane r writing words r, r + G, ...; its fingerprint
+// (hi, lo) is the row's folds (r1, r2) with the words it changes refolded
+// (fold.cuh fold_change), in every lane. Returns whether it is valid (it
+// never overflows).
+template <class M, class Grp>
+__device__ __forceinline__ bool crash_step_group(const M& m,
+                                                 const uint32_t* w, int e,
+                                                 const Grp& g, uint32_t* dst,
+                                                 uint32_t r1, uint32_t r2,
+                                                 uint32_t& hi, uint32_t& lo) {
+  const CrashEdit ed = crash_edit(m, w, e);
+  const int width = m.width(), G = g.size();
+  uint32_t h1 = 0u, h2 = 0u;
+  for (int k = g.rank(); k < width; k += G) {
+    const uint32_t old = w[k], v = crash_word(m, ed, k, old);
+    dst[k] = v;
+    if (v != old) fold_change(h1, h2, k, old, v);
+  }
+  fp64_finish(r1 ^ g.xor_all(h1), r2 ^ g.xor_all(h2), width, hi, lo);
+  return ed.valid;
+}
+
 // A register model's child on the unordered network (slot e of row w,
 // in shared memory) into out, word by word (step_common.cuh RowOut);
 // returns whether it is a valid successor, ovf whether it overflowed the
@@ -343,8 +526,9 @@ __device__ __forceinline__ bool register_step_unordered(const M& m,
   const uint32_t src = (hdr >> 8) & 0xFFu, dst = hdr & 0xFFu;
   Delivery<M> d;
   register_dispatch(m, w, src, dst, m0, m1, d);
-  const bool valid = occupied && dst < (uint32_t)(m.S + m.C) &&
-                     (d.changed || d.any_send);
+  bool valid = occupied && dst < (uint32_t)(m.S + m.C) &&
+               (d.changed || d.any_send);
+  if constexpr (HasCrash<M>::value) valid = valid && !dst_down(m, w, dst);
 
   // the network and the history: consume the slot, record the
   // delivery, then each send's invocation record and network insert
@@ -385,6 +569,8 @@ __device__ __forceinline__ bool register_step_unordered(const M& m,
     }
   }
   out.put(m.timer_off, poison ? kPoison : w[m.timer_off]);
+  if constexpr (HasCrash<M>::value)
+    if (m.cr.k) out.put(m.timer_off + 1, poison ? kPoison : w[m.timer_off + 1]);
 #pragma unroll
   for (int i = 0; i < kMaxHist; ++i)
     if (i < m.hw) out.put(m.hist_off + i, poison ? kPoison : hist.h[i]);
@@ -498,8 +684,9 @@ __device__ __forceinline__ bool register_step_group(const M& m,
   const uint32_t src = (hdr >> 8) & 0xFFu, to = hdr & 0xFFu;
   Delivery<M> d;
   register_dispatch(m, w, src, to, m0, m1, d);
-  const bool valid = occupied && to < (uint32_t)(m.S + m.C) &&
-                     (d.changed || d.any_send);
+  bool valid = occupied && to < (uint32_t)(m.S + m.C) &&
+               (d.changed || d.any_send);
+  if constexpr (HasCrash<M>::value) valid = valid && !dst_down(m, w, to);
 
   // the network, slot r in lane r: consume slot e, record the delivery,
   // then each send's invocation record and network insert
@@ -550,6 +737,8 @@ __device__ __forceinline__ bool register_step_group(const M& m,
     put(k + 3, n1);
   }
   if (r == G - 1) put(m.timer_off, w[m.timer_off]);
+  if constexpr (HasCrash<M>::value)
+    if (m.cr.k && r == G - 2) put(m.timer_off + 1, w[m.timer_off + 1]);
   // the history through the group's shared words (a lane's own word
   // from its registers would need a runtime index into hist.h, which
   // puts the history in local memory): the first lane writes them

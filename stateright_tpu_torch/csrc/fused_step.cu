@@ -18,7 +18,10 @@
 // stages each child there and writes each warp's children with
 // coalesced stores, step_common.cuh WideRow), PackedSingleCopy
 // (single_copy.cuh, a group model: each child built by a half-warp with
-// the network in its lanes, step_common.cuh GroupRow) and PackedAbd
+// the network in its lanes, step_common.cuh GroupRow), PackedWriteOnce
+// (write_once.cuh, a group model with crash/restart lanes,
+// step_common.cuh CrashLanes), PackedPaxos under crash_restart
+// (paxos.cuh PaxosCrashModel, the wide K1 with crash lanes) and PackedAbd
 // (abd.cuh: a group model on the unordered network; on the ordered one
 // an edit model of up to 352 words, whose warps write each child from
 // the shared row and the lane's edit, step_common.cuh EditRow); the
@@ -136,6 +139,7 @@
 #include "single_copy.cuh"
 #include "step_common.cuh"
 #include "twopc.cuh"
+#include "write_once.cuh"
 
 namespace {
 
@@ -264,6 +268,15 @@ int launch_step(const M& m, const StepArgs& a) {
   return (int)cudaGetLastError();
 }
 
+// The crash spec of a model's crash_restart (actor_net.cuh CrashSpec):
+// max_crashes, the crashable actors, their indices a nibble each, the
+// durable actor words' mask (two 32-bit halves).
+inline actor::CrashSpec crash_spec(int k, int n, int idx, int dur_lo,
+                                   int dur_hi) {
+  return actor::CrashSpec{k, n, (uint32_t)idx, (uint32_t)dur_lo,
+                          (uint32_t)dur_hi};
+}
+
 }  // namespace
 
 extern "C" {
@@ -323,6 +336,33 @@ int srt_fused_step_paxos(const StepArgs* args, int clients, int servers,
   if (!m.ok() || args->A != m.max_actions())
     return (int)cudaErrorInvalidValue;
   return launch_step<PaxosModel, false>(m, *args);
+}
+
+// One fused step for PackedPaxos(clients, servers, slots) under
+// crash_restart (paxos.cuh PaxosCrashModel: the wide K1 with a crash and
+// a restart lane per crashable actor).
+int srt_fused_step_paxos_crash(const StepArgs* args, int clients,
+                               int servers, int slots, int k, int n, int idx,
+                               int dur_lo, int dur_hi) {
+  const PaxosCrashModel m(clients, servers, slots,
+                          crash_spec(k, n, idx, dur_lo, dur_hi));
+  if (!m.ok() || args->A != m.max_actions())
+    return (int)cudaErrorInvalidValue;
+  return launch_step<PaxosCrashModel, false>(m, *args);
+}
+
+// One fused step for PackedWriteOnce(clients, servers, durable, slots),
+// with or without crash_restart (write_once.cuh: at most 7 clients, 4
+// servers, 16 slots, 8 actors and 128 words; the group K1 with crash
+// lanes).
+int srt_fused_step_write_once(const StepArgs* args, int clients, int servers,
+                              int slots, int k, int n, int idx, int dur_lo,
+                              int dur_hi) {
+  const WriteOnceModel m(clients, servers, slots,
+                         crash_spec(k, n, idx, dur_lo, dur_hi));
+  if (!m.ok() || args->A != m.max_actions())
+    return (int)cudaErrorInvalidValue;
+  return launch_step<WriteOnceModel, false>(m, *args);
 }
 
 // One fused step for PackedSingleCopy(clients, servers, slots)

@@ -4,8 +4,9 @@
 // _packed_step_unordered with the register dispatch and the Paxos
 // server step, stateright_tpu/examples/paxos_packed.py:193), for C <= 7
 // clients, S <= 4 servers and E <= 16 network slots as runtime
-// arguments (unordered non-duplicating network, no drops, timers or
-// crashes: PackedPaxos.cuda_spec refuses the rest).
+// arguments (unordered non-duplicating network, no drops or timers:
+// PackedPaxos.cuda_spec refuses the rest); under crash_restart its
+// crash/restart lanes (PaxosCrashModel, at the end).
 //
 // Packed state (actor/packed.py finalize_layout), width
 // S (3 + S) + C + 4 E + 1 + 1 + 3 C (96 words at C = 3, S = 3, E = 16):
@@ -224,5 +225,44 @@ struct PaxosModel {
   __device__ __forceinline__ bool step_row(const uint32_t* w, int e,
                                            Out& out, bool& ovf) const {
     return actor::register_step_unordered(*this, w, e, out, ovf);
+  }
+};
+
+// PackedPaxos under crash_restart(k, actors=...): PaxosModel with the
+// crash word after the timer word (the history one word right) and a
+// crash and a restart lane per crashable actor after the E deliveries
+// (actor_net.cuh CrashSpec; the durable mask a kernel argument: a Paxos
+// server's words all survive, a client's none, paxos_packed.py
+// durable_word_mask). K1-wide steps the active lanes only (active_lanes:
+// no quiet tail), a crash or restart lane's child written word by word
+// as the delivery's is; every other lane is invalid, does not overflow,
+// and its row of flat is not written.
+struct PaxosCrashModel : PaxosModel {
+  static constexpr bool kCrash = true;
+  actor::CrashSpec cr;
+
+  __host__ PaxosCrashModel(int clients, int servers, int slots,
+                           actor::CrashSpec spec)
+      : PaxosModel(clients, servers, slots), cr(spec) {
+    hist_off = timer_off + 2;
+    width_ = hist_off + hw;
+  }
+
+  __host__ bool ok() const {
+    return PaxosModel::ok() && cr.k >= 1 && cr.ok(S + C, aw, E);
+  }
+
+  __host__ int max_actions() const { return E + 2 * cr.n; }
+
+  __device__ __forceinline__ uint32_t active_lanes(const uint32_t* w) const {
+    return actor::crash_active_lanes(*this, w);
+  }
+
+  template <class Out>
+  __device__ __forceinline__ bool step_row(const uint32_t* w, int e,
+                                           Out& out, bool& ovf) const {
+    if (e < E) return actor::register_step_unordered(*this, w, e, out, ovf);
+    ovf = false;
+    return actor::crash_step_row(*this, w, e, out);
   }
 };

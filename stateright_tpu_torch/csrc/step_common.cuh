@@ -394,6 +394,25 @@ template <class M>
 struct GroupRow<M, std::void_t<decltype(M::kGroupRow)>>
     : std::integral_constant<bool, M::kGroupRow> {};
 
+// Whether a wide or group model has crash/restart lanes (M::kCrash:
+// PaxosCrashModel, WriteOnceModel; actor_net.cuh CrashSpec): its active
+// lanes are no quiet tail but a mask, m.active_lanes(row) (at most 32
+// lanes: the deliveries before the network's zero tail to a recipient
+// that is up, the crash lanes of the actors that may crash, the restart
+// lanes of the down ones), listed as an edit model's are; K1 keeps each
+// row's fingerprint folds, as for an edit model, since a group model's
+// crash or restart child is the row with a few words refolded
+// (m.step_group(row, act, g, dst, ovf, hi, lo, r1, r2), the row's folds
+// r1, r2 last); every other lane gets the row's fingerprint and cvalid =
+// 0, and its row of flat is not written (a wide model's too). A group
+// model's delivery lanes, not its crash lanes, are its group's network
+// slots (the launch refuses more than kGroupLanes of them).
+template <class M, class = void>
+struct CrashLanes : std::false_type {};
+template <class M>
+struct CrashLanes<M, std::void_t<decltype(M::kCrash)>>
+    : std::integral_constant<bool, M::kCrash> {};
+
 // The models whose K1 keeps its tile's rows in shared memory and walks
 // their active lanes densely (wide, edit and group models).
 template <class M>
@@ -657,6 +676,10 @@ __global__ void expand_kernel(M m, StepArgs a) {
     }
   }
   if (threadIdx.x == 0) s_valid = 0;
+  // a lane mask of active lanes and the rows' fingerprint folds (an edit
+  // model, a model with crash lanes), or a quiet tail and the rows'
+  // fingerprints (the other wide and group models)
+  constexpr bool kMask = EditRow<M>::value || CrashLanes<M>::value;
   if constexpr (kSharedRow<M>) {
     static_assert(!SYM, "a shared-row model has no symmetric K1");
     static_assert(kWideRows <= 32, "one warp scans the tile's rows");
@@ -729,9 +752,9 @@ __global__ void expand_kernel(M m, StepArgs a) {
         rs.valid = 0;
         rs.xovf = 0;
       }
-      // a wide or group model's quiet lane, an edit model's mask of
-      // active lanes
-      if constexpr (kEdit)
+      // a wide or group model's quiet lane, the mask of active lanes of
+      // an edit model or a model with crash lanes
+      if constexpr (kMask)
         ws.info[4 * i] =
             m.active_lanes(rs.w) & (A >= 32 ? ~0u : (1u << A) - 1u);
       else
@@ -739,14 +762,14 @@ __global__ void expand_kernel(M m, StepArgs a) {
     }
     // each row's fingerprint, a warp per row (a group model's pending
     // rows, from the last warp down: the first threads take the rows'
-    // properties above): an edit model keeps the folds (its children's
-    // are the row's with their changed words refolded), a wide or group
-    // model the fingerprint
+    // properties above): an edit model, or one with crash lanes, keeps
+    // the folds (its children's are the row's with their changed words
+    // refolded), the other wide and group models the fingerprint
     for (int i = kPend ? nwarps - 1 - wid : wid; i < nrows; i += nwarps) {
       if (!pending(i)) continue;  // the whole warp
       uint32_t h1 = 0u, h2 = 0u;
       for (int k = wl; k < width; k += 32) {
-        if constexpr (kEdit) {
+        if constexpr (kMask) {
           fold_word(h1, h2, k, rows[i].w[k]);
         } else {
           const uint32_t x = rows[i].w[k] ^ column_key(k);
@@ -760,7 +783,7 @@ __global__ void expand_kernel(M m, StepArgs a) {
         h2 ^= __shfl_xor_sync(0xFFFFFFFFu, h2, o);
       }
       if (wl == 0) {
-        if constexpr (kEdit) {
+        if constexpr (kMask) {
           ws.info[4 * i + 1] = h1;
           ws.info[4 * i + 2] = h2;
         } else {
@@ -774,7 +797,7 @@ __global__ void expand_kernel(M m, StepArgs a) {
     // the active counts before it
     if (wid == 0) {
       const uint32_t info = wl < nrows ? ws.info[4 * wl] : 0u;
-      const int q = kEdit ? __popc(info) : (int)info;
+      const int q = kMask ? __popc(info) : (int)info;
       int x = q;
 #pragma unroll
       for (int o = 1; o < 32; o <<= 1) {
@@ -788,7 +811,7 @@ __global__ void expand_kernel(M m, StepArgs a) {
     for (int i = threadIdx.x; i < nrows; i += blockDim.x) {
       uint32_t info = ws.info[4 * i];
       int off = (int)ws.info[4 * i + 3];
-      if constexpr (kEdit) {
+      if constexpr (kMask) {
         for (; info; info &= info - 1u)
           ws.act[off++] = (uint32_t)(i * A + __ffs(info) - 1);
       } else {
@@ -895,10 +918,14 @@ __global__ void expand_kernel(M m, StepArgs a) {
         const int t = (int)ws.act[j], i = t / A;
         RowState<M, SYM>& rs = rows[i];
         const long long lane = lane0 + t;
-        bool ovf = false;
+        bool ovf = false, v;
         uint32_t hi, lo;
-        const bool v = m.step_group(rs.w, t - i * A, g,
-                                    a.flat + lane * width, ovf, hi, lo);
+        if constexpr (CrashLanes<M>::value)
+          v = m.step_group(rs.w, t - i * A, g, a.flat + lane * width, ovf,
+                           hi, lo, ws.info[4 * i + 1], ws.info[4 * i + 2]);
+        else
+          v = m.step_group(rs.w, t - i * A, g, a.flat + lane * width, ovf,
+                           hi, lo);
         if (g.rank() == 0) {
           a.chi[lane] = hi;
           a.clo[lane] = lo;
@@ -909,14 +936,21 @@ __global__ void expand_kernel(M m, StepArgs a) {
         }
       }
     }
-    // the quiet lanes: the row's fingerprint, invalid (a group model's
-    // row that is not pending: invalid only)
+    // the quiet (or, with crash lanes, inactive) lanes: the row's
+    // fingerprint, invalid (a group model's row that is not pending:
+    // invalid only)
     for (int t = threadIdx.x; t < tile; t += blockDim.x) {
-      if (act >= (int)ws.info[4 * row]) {
+      const uint32_t info = ws.info[4 * row];
+      if (kMask ? !((info >> act) & 1u) : act >= (int)info) {
         const long long lane = lane0 + t;
         if (!kPend || rows[row].fv) {
-          a.chi[lane] = ws.info[4 * row + 1];
-          a.clo[lane] = ws.info[4 * row + 2];
+          if constexpr (kMask) {
+            fp64_finish(ws.info[4 * row + 1], ws.info[4 * row + 2], width,
+                        a.chi[lane], a.clo[lane]);
+          } else {
+            a.chi[lane] = ws.info[4 * row + 1];
+            a.clo[lane] = ws.info[4 * row + 2];
+          }
         }
         a.cvalid[lane] = 0;
       }
@@ -928,8 +962,9 @@ __global__ void expand_kernel(M m, StepArgs a) {
       }
     }
     // a wide model's quiet lanes get the row itself (a group model's
-    // rows of flat stay unwritten)
-    if constexpr (WideRow<M>::value) {
+    // rows of flat, and those of a model with crash lanes, stay
+    // unwritten)
+    if constexpr (WideRow<M>::value && !CrashLanes<M>::value) {
       for (int i = wid; i < nrows; i += nwarps) {
         const int e0 = (int)ws.info[4 * i];
         if (vec16) {
@@ -1130,6 +1165,15 @@ size_t wide_smem_bytes(const TileGeometry& w, int width, int A) {
          wide_words<M>(w, width, A) * sizeof(uint32_t);
 }
 
+// The delivery lanes of A action lanes: those before the crash lanes.
+template <class M>
+int delivery_lanes(const M& m, int A) {
+  if constexpr (CrashLanes<M>::value)
+    return A - 2 * m.cr.n;
+  else
+    return A;
+}
+
 // Launch K1 over a.tile (blocks >= 1 even at F = 0: the grid resets
 // the ring arena); a wide model over a.wide.
 template <class M, bool SYM>
@@ -1144,8 +1188,11 @@ cudaError_t launch_expand(const M& m, const StepArgs& a, cudaStream_t st) {
         a.wide_smem < 0 ||
         smem < wide_smem_bytes<M, SYM>(wa.tile, m.width(), a.A))
       return cudaErrorInvalidValue;
-    if (GroupRow<M>::value && a.A > kGroupLanes)
+    // a group model's delivery lanes are its group's slots; a lane mask
+    // holds 32 lanes
+    if (GroupRow<M>::value && delivery_lanes(m, a.A) > kGroupLanes)
       return cudaErrorInvalidValue;
+    if (CrashLanes<M>::value && a.A > 32) return cudaErrorInvalidValue;
     cudaError_t e = allow_smem(expand_kernel<M, SYM>, smem);
     if (e != cudaSuccess) return e;
     expand_kernel<M, SYM><<<wa.tile.blocks, wa.tile.threads, smem, st>>>(

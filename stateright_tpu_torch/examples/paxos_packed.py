@@ -201,13 +201,18 @@ class PackedPaxos(PackedRegisterModel):
         """``("paxos", (client_count, server_count, net_capacity))``: the
         kernel runs ``csrc/paxos.cuh`` (with ``csrc/actor_net.cuh``) for
         up to 7 clients, 4 servers and 16 network slots on the
-        unordered non-duplicating network without drops, timers or
-        crashes (``check_cuda_register``: no symmetry, no ordered
-        network, no subclass that changes the step, the encoding or the
-        properties)."""
-        self.check_cuda_register(PackedPaxos, "paxos.cuh", symmetry, "paxos")
-        return "paxos", (self.client_count, self.server_count,
-                         self.net_capacity)
+        unordered non-duplicating network without drops or timers
+        (``check_cuda_register``: no symmetry, no ordered network, no
+        subclass that changes the step, the encoding, the properties or
+        the recovery). Under ``crash_restart``: ``("paxos_crash", (...,
+        *crash_params()))``, ``PaxosCrashModel`` with the crashable set
+        and the durable mask."""
+        crash = bool(self.max_crashes_)
+        name = "paxos_crash" if crash else "paxos"
+        self.check_cuda_register(PackedPaxos, "paxos.cuh", symmetry, name,
+                                 crash=crash)
+        params = (self.client_count, self.server_count, self.net_capacity)
+        return name, params + (self.crash_params() if crash else ())
 
     # ------------------------------------------------------------------
     # the batched server step

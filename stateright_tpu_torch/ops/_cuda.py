@@ -152,15 +152,18 @@ WIDE_ROWS = 32
 WIDE_THREADS = 128
 WIDE_BLOCKS_PER_SM = 3
 #: the wide models of ``STEP_MODELS`` (``kWideRow``): the words of their
-#: row in K1's shared ``RowState`` (``PaxosModel::W``); the launch refuses
-#: a shared-memory size below what this gives
-WIDE_MODELS = {"paxos": 128}
+#: row in K1's shared ``RowState`` (``PaxosModel::W``, which
+#: ``PaxosCrashModel`` keeps); the launch refuses a shared-memory size
+#: below what this gives
+WIDE_MODELS = {"paxos": 128, "paxos_crash": 128}
 #: the group models of ``STEP_MODELS`` (``kGroupRow``, ``csrc/
 #: step_common.cuh`` ``GroupRow``: the register models on the unordered
 #: network, each child built by a half-warp, ``kGroupLanes``, with the
 #: network in its lanes): the words of their shared row (``AbdModel::W``,
-#: ``SingleCopyModel::W``)
-GROUP_MODELS = {"abd": 128, "single_copy": 128}
+#: ``SingleCopyModel::W``, ``WriteOnceModel::W``; the write-once
+#: register's crash lanes follow its network slots, ``step_common.cuh``
+#: ``CrashLanes``)
+GROUP_MODELS = {"abd": 128, "single_copy": 128, "write_once": 128}
 #: a group model's shared words a thread (``kGroupSlotWords``: a group's
 #: child's history, at most 22 words, on its way to flat)
 GROUP_SLOT_WORDS = 2
@@ -376,10 +379,12 @@ APPEND_TICKETS = 2
 STEP_MODELS = {"twopc": (1, 2), "lineq": (3, None), "increment": (1, 1),
                "increment_lock": (1, None), "paxos": (3, None),
                "abd": (3, None), "abd_ordered": (3, None),
-               "single_copy": (3, None)}
+               "single_copy": (3, None), "write_once": (8, None),
+               "paxos_crash": (8, None)}
 #: the models of STEP_MODELS with no probe-free (sharded) step: their
 #: host-evaluated properties keep them off a mesh (B14)
-SINGLE_CHIP_MODELS = ("paxos", "abd", "abd_ordered", "single_copy")
+SINGLE_CHIP_MODELS = ("paxos", "abd", "abd_ordered", "single_copy",
+                      "write_once", "paxos_crash")
 
 
 def _step_entries(prefix: str, struct, size_fn: str,

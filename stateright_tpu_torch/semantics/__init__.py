@@ -9,17 +9,23 @@ carried as the ``ActorModel`` history and queried inside ``Property``
 conditions. The testers run on the host: the serialization search is
 irregular recursion, evaluated once per distinct history.
 
-This slice carries what the register protocols and Paxos need: the
-base protocols, the register spec and the linearizability tester.
-``online``, ``sequential_consistency``, ``vec``, ``history`` and
-``write_once_register`` wait for A8's next slice (ROADMAP.md).
+This slice carries what the register protocols, Paxos and the
+write-once register need: the base protocols, the register, write-once
+register and stack specs, and the linearizability and sequential
+consistency testers. ``history`` and ``online`` serve the actor runtime
+and the soak, and wait for them (ROADMAP.md A15).
 """
 
 from .core import ConsistencyTester, SequentialSpec
 from .linearizability import LinearizabilityTester
 from .register import Read, ReadOk, Register, Write, WriteOk
+from .sequential_consistency import SequentialConsistencyTester
+from .vec import Len, LenOk, Pop, PopOk, Push, PushOk, VecSpec
+from .write_once_register import WORegister, WriteFail
 
 __all__ = [
-    "ConsistencyTester", "LinearizabilityTester", "Read", "ReadOk",
-    "Register", "SequentialSpec", "Write", "WriteOk",
+    "ConsistencyTester", "Len", "LenOk", "LinearizabilityTester", "Pop",
+    "PopOk", "Push", "PushOk", "Read", "ReadOk", "Register",
+    "SequentialConsistencyTester", "SequentialSpec", "VecSpec",
+    "WORegister", "Write", "WriteFail", "WriteOk",
 ]

@@ -1834,6 +1834,15 @@ REGISTER_MODELS = {
     "abd2": lambda: _abd(2),
     "single-copy3": lambda: _single_copy(3),
     "single-copy4-2": lambda: _single_copy(4, 2),
+    # crash/restart lanes: the write-once register (the group K1 with
+    # crash lanes; volatile: the crash wipes the server's word) and
+    # Paxos (the wide K1 with crash lanes)
+    "write-once2": lambda: _write_once(2),
+    "write-once4-volatile": lambda: _write_once(4, durable=False),
+    "write-once7": lambda: _write_once(7, net_capacity=16, crashes=2),
+    "paxos1-crash": lambda: _paxos_crash(1),
+    "paxos2-crash": lambda: _paxos_crash(2),
+    "paxos3-crash": lambda: _paxos_crash(3),
 }
 
 
@@ -1848,11 +1857,45 @@ def _single_copy(*args):
     return PackedSingleCopy(*args)
 
 
+def _write_once(*args, crashes=1, **kw):
+    from stateright_tpu_torch.examples.write_once_packed import \
+        PackedWriteOnce
+    return PackedWriteOnce(*args, **kw).crash_restart(crashes, actors=[0])
+
+
+def _paxos_crash(clients):
+    from stateright_tpu_torch.examples.paxos_packed import PackedPaxos
+    return PackedPaxos(clients).crash_restart(1, actors=[0, 1, 2])
+
+
+def _crash_cases(model, rows, rng):
+    """``rows`` of a model with crash lanes, a third with a crashable
+    actor put down (its count at least one) and a third with one at its
+    crash budget (up or down): rows whose crash lanes are spent and whose
+    deliveries to the down actor wait."""
+    idx = model._crash_idx
+    for i in range(rows.shape[0]):
+        case = rng.integers(0, 3)
+        if case == 0:
+            continue
+        a = int(idx[rng.integers(0, len(idx))])
+        cw = int(rows[i, model._crash_off])
+        count = max(1, (cw >> (4 * a)) & 7) if case == 1 \
+            else model.max_crashes_
+        cw = (cw & ~(0xF << (4 * a))) | (count << (4 * a))
+        if case == 1 or rng.random() < 0.5:
+            cw |= 1 << (4 * a + 3)
+        rows[i, model._crash_off] = cw
+    return rows
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("name,f", [
     ("abd2-ordered", 1000), ("abd3-ordered", 2048),
     ("abd2-s3-ordered", 4096), ("abd2", 1000), ("single-copy3", 1000),
-    ("single-copy4-2", 333)])
+    ("single-copy4-2", 333), ("write-once2", 1000),
+    ("write-once4-volatile", 777), ("write-once7", 2048),
+    ("paxos1-crash", 1000), ("paxos2-crash", 1000), ("paxos3-crash", 8192)])
 def test_register_step_lane_exact_on_card(name, f):
     """K1's register instantiations with K2/K3 against the plain version
     over ``_paxos_rows`` (crowded networks, junk rows, a tenth of the
@@ -1864,8 +1907,12 @@ def test_register_step_lane_exact_on_card(name, f):
     every lane; the unordered ones' (the group K1, which steps the
     pending rows only) on the pending rows' lanes below the quiet lane,
     whose rows of flat are left unwritten, the properties on the pending
-    rows, cvalid, terminal and the flags everywhere. Then the inserted
-    key set and the table."""
+    rows, cvalid, terminal and the flags everywhere. A model with crash
+    lanes (rows with an actor up, down and at its crash budget,
+    :func:`_crash_cases`): bit for bit on its active lanes (the junk
+    rows of its other lanes, invalid and not overflowing, unwritten),
+    cvalid and the flags everywhere. Then the inserted key set and the
+    table."""
     _need_card()
     from stateright_tpu_torch.ops.fused import (S_DISC, S_VALID, S_XOVF,
                                                 fused_step,
@@ -1877,6 +1924,8 @@ def test_register_step_lane_exact_on_card(name, f):
     dev = torch.device("cuda")
     rng = np.random.default_rng(f)
     rows = _paxos_rows(model, rng, f)
+    if model.max_crashes_:
+        rows = _crash_cases(model, rows, rng)
     block = from_numpy_u32(rows, dev)
     phi, plo = (x.to(torch.int32) for x in fp64_device(block))
     ebits = torch.zeros((f,), dtype=torch.int32, device=dev)
@@ -1926,7 +1975,10 @@ GATED_STEPS = [
                                           "mixed"),
     ("abd2", 1000, 999, "wrap"), ("single-copy3", 333, 200, "wrap"),
     ("paxos2", 1000, 611, "mixed"), ("abd3-ordered", 1728, 500, "mixed"),
-    ("abd2-ordered", 256, 0, "mixed")]
+    ("abd2-ordered", 256, 0, "mixed"), ("write-once7", 256, 200, "mixed"),
+    ("write-once7", 1024, 1024, "mixed"), ("write-once2", 333, 0, "wrap"),
+    ("paxos3-crash", 8192, 5000, "mixed"), ("paxos2-crash", 256, 0,
+                                            "wrap")]
 
 
 @pytest.mark.gpu
@@ -1959,6 +2011,8 @@ def test_shared_row_k1_gated_lane_exact_on_card(name, f, take, case):
     rows = _paxos_rows(model, rng, f)
     if case == "wrap":
         rows = _wrap_counts(model, rows, rng)
+    if model.max_crashes_:
+        rows = _crash_cases(model, rows, rng)
     block = from_numpy_u32(rows, dev)
     phi, plo = (x.to(torch.int32) for x in fp64_device(block))
     ebits = torch.from_numpy(rng.integers(0, 4, f).astype(np.int32)).to(dev)
@@ -2088,6 +2142,56 @@ def test_register_end_to_end_on_card(name, pin):
     for kernel in ("fused_step", "append", "chunk_begin", "history",
                    "hpull"):
         assert launched[kernel] > 0, kernel
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,pin", [
+    ("write-once2", "PIN_WO2"), ("write-once7", "PIN_WO7"),
+    ("paxos1-crash", "PIN_PAXOS1_CRASH")])
+def test_crash_end_to_end_on_card(name, pin):
+    """Crash/restart fault injection through ``spawn_gpu()`` on the card
+    alone: the JAX package's count, generated count and digest
+    (``chip_smoke.py``'s ``pin``); ``linearizable`` holds and ``value
+    chosen`` replays; K1-K3, K7, K8 and K9 launched."""
+    test_register_end_to_end_on_card(name, pin)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("race", [False, None], ids=["card", "raced"])
+def test_volatile_write_once_caught_through_a_crash_on_card(race):
+    """A volatile write-once server loses an acknowledged write: on the
+    card alone and raced as by default, the ``linearizable`` discovery's
+    witness replays through the host model, holds a ``Crash`` and ends
+    in a history with no serialization."""
+    _need_card()
+    from stateright_tpu_torch.actor.model import Crash
+    model = _write_once(2, durable=False)
+    builder = model.checker()
+    if race is not None:
+        builder = builder.gpu_options(race=race)
+    ck = builder.spawn_gpu().join()
+    path = ck.assert_any_discovery("linearizable")  # replays or raises
+    assert any(isinstance(a, Crash) for a in path.into_actions())
+    assert path.last_state().history.serialized_history() is None
+
+
+@pytest.mark.gpu
+def test_k1_registers_of_the_parent_instantiations_on_card():
+    """The crash lanes are a compile-time property of their models: K1's
+    Paxos, ABD, single-copy and ordered-ABD instantiations keep their
+    registers (168, 96, 121 and 96 on the H100 toolchain, PERF.md) and
+    spill nothing; the crash instantiations spill nothing either."""
+    _need_card()
+    smoke = _chip_smoke()
+    want = {"PaxosModel": 168, "AbdModel": 96, "SingleCopyModel": 121,
+            "AbdOrderedModel": 96}
+    for struct, regs in want.items():
+        usage = smoke.kernel_usage("fused_step", f"expand_kernel[{struct}]")
+        assert usage["registers"] == regs, (struct, usage)
+        assert usage["spill_store_bytes"] == 0, (struct, usage)
+    for struct in ("WriteOnceModel", "PaxosCrashModel"):
+        usage = smoke.kernel_usage("fused_step", f"expand_kernel[{struct}]")
+        assert usage["spill_store_bytes"] == 0, (struct, usage)
 
 
 @pytest.mark.gpu

@@ -331,12 +331,12 @@ def test_cuda_spec_names_and_parameters(model, symmetry, spec, entry):
 
 
 def test_step_entry_refuses_unknown_names():
-    # (paxos and ABD have step kernels since their own slices; the
-    # write-once register has none yet)
+    # (paxos, ABD and the write-once register have step kernels since
+    # their own slices; no model has lossy drop lanes on the card yet)
     class _Other(PackedLinearEquation):
         def cuda_spec(self, symmetry=False):
-            return "write_once", (3,)
-    with pytest.raises(NotImplementedError, match="write_once"):
+            return "single_copy_lossy", (3,)
+    with pytest.raises(NotImplementedError, match="single_copy_lossy"):
         _cuda.step_entry(_Other(1, 2, 3), False)
     with pytest.raises(NotImplementedError, match="under symmetry"):
         _cuda.step_entry(type("_Sym", (PackedLinearEquation,), {

@@ -403,16 +403,29 @@ def _timers():
     (_ordered, "ordered network"),
     (lambda: PackedPaxos(1).lossy_network(True), "lossy"),
     (_timers, "timers"),
-    (lambda: PackedPaxos(1).crash_restart(1), "crash"),
+    (lambda: PackedPaxos(1).crash_restart(1), "paxos_crash"),
 ], ids=["ordered", "lossy", "timers", "crash"])
 def test_unported_configurations_raise(configure, match):
     """What the card refuses. The ordered network has a plain step since
     the register slice: the ordered PackedPaxos(1) (168 words, 16
     channels) checks on the CPU to the JAX package's host BFS (99
     states, the same fingerprints), while the card, which has no Paxos
-    instantiation on FIFO channels, still refuses it. The lossy drop
-    lanes, the timers and the crash/restart lanes raise everywhere."""
+    instantiation on FIFO channels, still refuses it. The crash/restart
+    lanes are ported: PackedPaxos(1) under ``crash_restart(1)`` (every
+    actor crashable) checks on the CPU to the JAX package's host BFS,
+    and ``cuda_spec`` names its instantiation, ``paxos_crash``. The
+    lossy drop lanes and the timers raise everywhere."""
     model = configure()
+    if model.max_crashes_:
+        assert model.cuda_spec()[0] == match
+        want = JPaxos(1).crash_restart(1).checker().spawn_bfs().join()
+        ck = _cpu(model, fmax=256)
+        assert ck.unique_state_count() == want.unique_state_count()
+        assert ck.state_count() == want.state_count()
+        assert ck.generated_fingerprints() == want.generated_fingerprints()
+        ck.assert_no_discovery("linearizable")
+        ck.assert_any_discovery("value chosen")
+        return
     if model._net_ordered:
         assert (model.packed_width, model.max_actions) == (168, 16)
         with pytest.raises(NotImplementedError, match=match):

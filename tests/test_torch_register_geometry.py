@@ -4,15 +4,16 @@ memory at every ordered ABD configuration ``cuda_spec`` admits (up to
 352 words and 32 channels: the edit model of ``csrc/abd.cuh``) and at
 the unordered ones (the group model, up to 128 words); and the device
 functions themselves (``csrc/actor_net.cuh``, ``abd.cuh``,
-``single_copy.cuh``, ``paxos.cuh``), compiled for the host with ``g++``
-under a header that defines CUDA's qualifiers away: ``reg_chan`` and
-``reg_chan_ends`` against ``register_channels()``, the packed layout's
-channel order; the row and edit sizes the launch sizes shared memory
-with; and each model's step on every lane of reachable and crowded
-rows against its plain version, under K1's lane rules (a wide model's
-quiet lanes are the row, invalid; an edit model's lanes of empty
-channels are invalid and their rows unwritten). The card's tests and
-``chip_smoke.py`` hold the kernels."""
+``single_copy.cuh``, ``paxos.cuh``, ``write_once.cuh``), compiled for the
+host with ``g++`` under a header that defines CUDA's qualifiers away:
+``reg_chan`` and ``reg_chan_ends`` against ``register_channels()``, the
+packed layout's channel order; the row and edit sizes the launch sizes
+shared memory with; and each model's step on every lane of reachable and
+crowded rows against its plain version, under K1's lane rules (a wide
+model's quiet lanes are the row, invalid; an edit model's lanes of empty
+channels, and the inactive lanes of a model with crash lanes, are
+invalid and their rows unwritten). The card's tests and ``chip_smoke.py``
+hold the kernels."""
 
 import ctypes
 import pathlib
@@ -27,6 +28,7 @@ from stateright_tpu_torch.examples.abd_packed import PackedAbd
 from stateright_tpu_torch.examples.paxos_packed import PackedPaxos
 from stateright_tpu_torch.examples.single_copy_packed import \
     PackedSingleCopy
+from stateright_tpu_torch.examples.write_once_packed import PackedWriteOnce
 from stateright_tpu_torch.fingerprint import fp64_words
 from stateright_tpu_torch.ops import _cuda
 
@@ -42,12 +44,13 @@ RESERVED = 1024
 #: the device functions behind a C interface, for ctypes. Per row a
 #: step writes its property bits, then per lane a flags word (1 valid,
 #: 2 overflow, 4 stepped: below a wide model's quiet lane, or an edit
-#: model's active lane), the child's fingerprint (hi, lo) and its words,
-#: as K1 would: a quiet lane's child is the row, an inactive lane's is
-#: left zero (its fingerprint the row's); a wide model's fingerprint
-#: folds every word of the child (RowOut), an edit model's is the row's
+#: model's or a crash model's active lane), the child's fingerprint (hi,
+#: lo) and its words, as K1 would: a quiet lane's child is the row, an
+#: inactive lane's is left zero (its fingerprint the row's); a wide
+#: model's fingerprint folds every word of the child (RowOut), an edit
+#: model's, and a group model's crash or restart child's, is the row's
 #: folds with the words the child changes refolded (fold.cuh
-#: fold_change, as step_common.cuh's edit K1 takes it)
+#: fold_change, as step_common.cuh's K1 takes it)
 HOST_SOURCE = r"""
 #define __device__
 #define __host__
@@ -66,6 +69,7 @@ inline int __popc(unsigned x) { return __builtin_popcount(x); }
 #include "fold.cuh"
 #include "paxos.cuh"
 #include "single_copy.cuh"
+#include "write_once.cuh"
 
 namespace {
 struct Out {
@@ -79,28 +83,45 @@ void fold_row(const uint32_t* w, int W, uint32_t& h1, uint32_t& h2) {
   for (int k = 0; k < W; ++k) fold_word(h1, h2, k, w[k]);
 }
 
+// the lanes K1 steps: those below the quiet lane, or a crash model's
+// active lanes (step_common.cuh CrashLanes)
+template <class M>
+uint32_t stepped_lanes(const M& m, const uint32_t* w, int A) {
+  if constexpr (actor::HasCrash<M>::value) {
+    return m.active_lanes(w);
+  } else {
+    const int q = m.quiet_from(w);
+    return q >= 32 ? ~0u : (1u << q) - 1u;
+  }
+}
+
 template <class M>
 void step_wide(const M& m, const uint32_t* rows, int f, uint32_t* out) {
   const int W = m.width(), A = m.max_actions();
+  constexpr bool kCrash = actor::HasCrash<M>::value;
   for (int r = 0; r < f; ++r) {
     const uint32_t* w = rows + (long)r * W;
     *out++ = m.props_row(w);
-    const int q = m.quiet_from(w);
+    const uint32_t on = stepped_lanes(m, w, A);
     for (int e = 0; e < A; ++e) {
       uint32_t* flags = out++;
       uint32_t* fp = out;
       out += 2;
       bool ovf = false, v = false;
-      if (e < q) {
+      const bool stepped = (on >> e) & 1u;
+      uint32_t h1, h2;
+      if (stepped) {
         Out o{out};
         v = m.step_row(w, e, o, ovf);
+        fold_row(out, W, h1, h2);
+      } else if (kCrash) {  // unwritten, the row's fingerprint
+        fold_row(w, W, h1, h2);
       } else {
         for (int k = 0; k < W; ++k) out[k] = w[k];
+        fold_row(out, W, h1, h2);
       }
-      uint32_t h1, h2;
-      fold_row(out, W, h1, h2);
       fp64_finish(h1, h2, W, fp[0], fp[1]);
-      *flags = (v ? 1u : 0u) | (ovf ? 2u : 0u) | (e < q ? 4u : 0u);
+      *flags = (v ? 1u : 0u) | (ovf ? 2u : 0u) | (stepped ? 4u : 0u);
       out += W;
     }
   }
@@ -239,29 +260,40 @@ void group_body(int r) {
   const M& m = *static_cast<const M*>(task.m);
   const HostGroup g{r, sched.G};
   bool ovf = false;
-  task.v[r] = m.step_group(task.w, task.e, g, task.dst, ovf, task.hi[r],
-                           task.lo[r]);
+  if constexpr (actor::HasCrash<M>::value) {
+    uint32_t r1, r2;
+    fold_row(task.w, m.width(), r1, r2);
+    task.v[r] = m.step_group(task.w, task.e, g, task.dst, ovf, task.hi[r],
+                             task.lo[r], r1, r2);
+  } else {
+    task.v[r] = m.step_group(task.w, task.e, g, task.dst, ovf, task.hi[r],
+                             task.lo[r]);
+  }
   task.ovf[r] = ovf;
 }
 
-// K1's group branch on the host: every lane below the quiet lane built
-// by a group of G lanes (its words straight to its row of the output,
-// its fingerprint the group's); the quiet lanes the row, its fingerprint
+// K1's group branch on the host: every lane below the quiet lane (a
+// crash model's active lanes) built by a group of G lanes (its words
+// straight to its row of the output, its fingerprint the group's); the
+// quiet lanes the row, its fingerprint (a crash model's inactive lanes
+// unwritten, the row's fingerprint)
 template <class M>
 int step_group(const M& m, int G, const uint32_t* rows, int f,
                uint32_t* out) {
   const int W = m.width(), A = m.max_actions();
-  if (G < A || G > 32) return 3;
+  constexpr bool kCrash = actor::HasCrash<M>::value;
+  if (G < m.E || G > 32 || A > 32) return 3;
   for (int r = 0; r < f; ++r) {
     const uint32_t* w = rows + (long)r * W;
     *out++ = m.props_row(w);
-    const int q = m.quiet_from(w);
+    const uint32_t on = stepped_lanes(m, w, A);
     for (int e = 0; e < A; ++e) {
       uint32_t* flags = out++;
       uint32_t* fp = out;
       out += 2;
       bool ovf = false, v = false;
-      if (e < q) {
+      const bool stepped = (on >> e) & 1u;
+      if (stepped) {
         task = GroupTask{&m, w, e, out};
         if (!run_group(G, group_body<M>)) return 4;
         for (int x = 1; x < G; ++x)
@@ -273,12 +305,13 @@ int step_group(const M& m, int G, const uint32_t* rows, int f,
         fp[0] = task.hi[0];
         fp[1] = task.lo[0];
       } else {
-        for (int k = 0; k < W; ++k) out[k] = w[k];
+        if (!kCrash)
+          for (int k = 0; k < W; ++k) out[k] = w[k];
         uint32_t h1, h2;
-        fold_row(out, W, h1, h2);
+        fold_row(w, W, h1, h2);
         fp64_finish(h1, h2, W, fp[0], fp[1]);
       }
-      *flags = (v ? 1u : 0u) | (ovf ? 2u : 0u) | (e < q ? 4u : 0u);
+      *flags = (v ? 1u : 0u) | (ovf ? 2u : 0u) | (stepped ? 4u : 0u);
       out += W;
     }
   }
@@ -290,7 +323,7 @@ int step_group(const M& m, int G, const uint32_t* rows, int f,
 template <class M>
 int run(const M& m, int lanes, const uint32_t* rows, int f, uint32_t* out) {
   if (!m.ok()) return 1;
-  if constexpr (std::is_same_v<M, PaxosModel>) {
+  if constexpr (std::is_base_of_v<PaxosModel, M>) {
     if (lanes) return 6;
     step_wide(m, rows, f, out);
     return 0;
@@ -316,21 +349,32 @@ int h_words(const char* name, int what) {
   if (n == "abd") return AbdModel::W;
   if (n == "single_copy") return SingleCopyModel::W;
   if (n == "paxos") return PaxosModel::W;
+  if (n == "paxos_crash") return PaxosCrashModel::W;
+  if (n == "write_once") return WriteOnceModel::W;
   return -1;
 }
-int h_step(const char* name, int p0, int p1, int p2, int lanes,
+// the model's step over its cuda_spec parameters p (np of them)
+int h_step(const char* name, const int* p, int np, int lanes,
            const uint32_t* rows, int f, uint32_t* out) {
   const std::string n(name);
   if (n == "abd_ordered") {
-    const AbdOrderedModel m(p0, p1, p2);
+    const AbdOrderedModel m(p[0], p[1], p[2]);
     if (!m.ok() || lanes) return 1;
     step_edit(m, rows, f, out);
     return 0;
   }
-  if (n == "abd") return run(AbdModel(p0, p1, p2), lanes, rows, f, out);
+  if (n == "abd") return run(AbdModel(p[0], p[1], p[2]), lanes, rows, f, out);
   if (n == "single_copy")
-    return run(SingleCopyModel(p0, p1, p2), lanes, rows, f, out);
-  if (n == "paxos") return run(PaxosModel(p0, p1, p2), lanes, rows, f, out);
+    return run(SingleCopyModel(p[0], p[1], p[2]), lanes, rows, f, out);
+  if (n == "paxos")
+    return run(PaxosModel(p[0], p[1], p[2]), lanes, rows, f, out);
+  if (np != 8) return 2;
+  const actor::CrashSpec cr{p[3], p[4], (uint32_t)p[5], (uint32_t)p[6],
+                            (uint32_t)p[7]};
+  if (n == "paxos_crash")
+    return run(PaxosCrashModel(p[0], p[1], p[2], cr), lanes, rows, f, out);
+  if (n == "write_once")
+    return run(WriteOnceModel(p[0], p[1], p[2], cr), lanes, rows, f, out);
   return 2;
 }
 }
@@ -357,8 +401,9 @@ def host(tmp_path_factory):
                                   ctypes.POINTER(ctypes.c_uint32),
                                   ctypes.POINTER(ctypes.c_uint32)]
     h.h_words.argtypes = [ctypes.c_char_p, ctypes.c_int]
-    h.h_step.argtypes = [ctypes.c_char_p] + [ctypes.c_int] * 4 + [
-        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+    h.h_step.argtypes = [ctypes.c_char_p, ctypes.c_void_p, ctypes.c_int,
+                         ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+                         ctypes.c_void_p]
     return h
 
 
@@ -594,6 +639,19 @@ def _crowded(model, rows, rng, k):
     return np.stack(out)
 
 
+def _at_budget(model, rows, rng, k):
+    """``k`` of ``rows`` with each crashable actor's crash count set to
+    the model's budget (its down bit kept): rows whose crash lanes are
+    all spent, which a short search at a budget of two does not reach."""
+    out = rows[rng.choice(len(rows), k)].copy()
+    for a in model._crash_idx.tolist():
+        cw = out[:, model._crash_off]
+        cw = (cw & ~np.uint32(7 << (4 * a))) \
+            | np.uint32(model.max_crashes_ << (4 * a))
+        out[:, model._crash_off] = cw
+    return out
+
+
 #: the configurations whose device step is held lane for lane: ABD on
 #: the ordered network (the BASELINE's, abd3, tpu_abd2, the smallest and
 #: one with a single server and deep channels), ABD unordered,
@@ -618,7 +676,31 @@ HOST_STEPS = {
     "abd-7x2": lambda: PackedAbd(7, server_count=2),
     "paxos-1": lambda: PackedPaxos(1),
     "paxos-2": lambda: PackedPaxos(2),
+    "write-once-2": lambda: PackedWriteOnce(2).crash_restart(1, actors=[0]),
+    "write-once-2-volatile": lambda: PackedWriteOnce(
+        2, durable=False).crash_restart(1, actors=[0]),
+    "write-once-7x16-k2": lambda: PackedWriteOnce(
+        7, net_capacity=16).crash_restart(2, actors=[0]),
+    "write-once-2x2-all": lambda: PackedWriteOnce(
+        2, server_count=2, durable=False).crash_restart(1),
+    "write-once-3-no-crash": lambda: PackedWriteOnce(3),
+    "paxos-1-crash": lambda: PackedPaxos(1).crash_restart(
+        1, actors=[0, 1, 2]),
+    "paxos-2-crash-all-k2": lambda: PackedPaxos(2).crash_restart(2),
 }
+
+#: the instantiations with crash/restart lanes (``csrc/step_common.cuh``
+#: ``CrashLanes``): K1 steps their active lanes only, a lane mask (the
+#: write-once register's without crashes too)
+CRASH_MODELS = ("write_once", "paxos_crash")
+
+
+def _chip_smoke():
+    """``chip_smoke.py`` (its lane rules)."""
+    import sys
+    sys.path.insert(0, str(CSRC.parents[1]))
+    import chip_smoke
+    return chip_smoke
 
 
 def _step_constant(name):
@@ -649,11 +731,15 @@ def _host_step(host, config):
     if name == "abd_ordered":
         rng = np.random.default_rng(5)
         rows = np.concatenate([rows, _crowded(model, rows, rng, 100)])
+    if model.max_crashes_:
+        rng = np.random.default_rng(7)
+        rows = np.concatenate([rows, _at_budget(model, rows, rng, 100)])
     rows = np.ascontiguousarray(rows, dtype=np.uint32)
     f, w, a = rows.shape[0], model.packed_width, model.max_actions
     out = np.zeros(f * (1 + a * (3 + w)), dtype=np.uint32)
-    assert host.h_step(name.encode(), *params, lanes, rows.ctypes.data, f,
-                       out.ctypes.data) == 0
+    p = np.asarray(params, dtype=np.int32)
+    assert host.h_step(name.encode(), p.ctypes.data, len(p), lanes,
+                       rows.ctypes.data, f, out.ctypes.data) == 0
     out = out.reshape(f, 1 + a * (3 + w))
     lanes = out[:, 1:].reshape(f, a, 3 + w)
     fp = (lanes[:, :, 1].astype(np.uint64) << np.uint64(32)) | lanes[:, :, 2]
@@ -670,7 +756,12 @@ def test_device_step_is_the_plain_step(host, config):
     the row, invalid, and the plain step agrees; an edit model's lanes
     are those of non-empty channels, and the plain step's other lanes
     are invalid and do not overflow. An edit model's child is the row
-    with its edit's spans (``edit_head``, ``child_word``)."""
+    with its edit's spans (``edit_head``, ``child_word``). A model with
+    crash lanes steps its active lanes (the deliveries before the
+    network's zero tail to a recipient that is up, the crash lanes of
+    actors up and below their budget, the restart lanes of actors down):
+    bit for bit on every one, and the plain step's other lanes are
+    invalid and do not overflow (their junk rows are not written)."""
     model, rows, bits_k, flags, _fp, child = _host_step(host, config)
     name = model.cuda_spec()[0]
     f, w, a = rows.shape[0], model.packed_width, model.max_actions
@@ -683,7 +774,29 @@ def test_device_step_is_the_plain_step(host, config):
     props = model.packed_properties(x).numpy().astype(np.uint32)
     bits = (props << np.arange(props.shape[1], dtype=np.uint32)).sum(1)
     assert np.array_equal(bits_k, bits)
-    if name == "abd_ordered":
+    if name in CRASH_MODELS:
+        held = stepped
+        assert not (valid & ~held).any() and not (ovf & ~held).any()
+        # chip_smoke.py's mirror of the rule, which the card's checks use
+        rule = _chip_smoke().crash_active(model)
+        assert np.array_equal(rule(torch.from_numpy(
+            rows.astype(np.int64))).numpy().reshape(f, a), stepped)
+        if model.max_crashes_:
+            e = model.net_capacity
+            n_cr = len(model._crash_idx)
+            cw = rows[:, model._crash_off]
+            down = np.zeros((f, a), dtype=bool)
+            for c, act in enumerate(model._crash_idx.tolist()):
+                d = ((cw >> (4 * act + 3)) & 1) != 0
+                cnt = (cw >> (4 * act)) & 7
+                assert np.array_equal(stepped[:, e + n_cr + c], d)
+                assert np.array_equal(stepped[:, e + c],
+                                      ~d & (cnt < model.max_crashes_))
+                down[:, e + c] = d
+            # rows with an actor down, and with one at its crash budget
+            assert stepped[:, e + n_cr:].any()
+            assert (~stepped[:, e:e + n_cr] & ~down[:, e:e + n_cr]).any()
+    elif name == "abd_ordered":
         lens = rows[:, model._net_off:model._net_off + model._n_chan]
         assert np.array_equal(stepped, lens != 0)
         held = stepped
@@ -719,7 +832,7 @@ def test_k1_child_fingerprint_is_fp64_of_the_child(host, config):
     s = s.numpy().reshape(f, a, w).astype(np.uint32)
     ovf = ovf.numpy().reshape(f, a)
     stepped = (flags & 4) != 0
-    edit = name == "abd_ordered"
+    edit = name == "abd_ordered" or name in CRASH_MODELS
     poisoned = 0
     for r in range(f):
         row_fp = fp64_words(rows[r].tolist())
@@ -729,7 +842,7 @@ def test_k1_child_fingerprint_is_fp64_of_the_child(host, config):
                 continue
             assert fp[r, e] == fp64_words(s[r, e].tolist()), (r, e)
             poisoned += bool(ovf[r, e])
-    if edit and config != "abd-ordered-1x1":
+    if name == "abd_ordered" and config != "abd-ordered-1x1":
         assert poisoned > 0
     if config in ("abd-ordered-3x2-d8", "abd-ordered-2x3-d8"):
         assert w > 128

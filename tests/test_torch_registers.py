@@ -417,14 +417,20 @@ def test_cuda_spec_refuses_symmetry():
 
 
 def test_unported_lanes_still_raise_in_the_plain_step():
-    """The lossy drop lanes, device timers and crash/restart lanes wait
-    for the next slice: the plain step raises and names them."""
+    """The lossy drop lanes and device timers wait for the next slice:
+    the plain step raises and names them. The crash/restart lanes are
+    ported: PackedSingleCopy(2) under ``crash_restart(1)`` (every actor
+    crashable) steps lane for lane as the JAX package's ``packed_step``
+    on the first states of its host BFS (its ``cuda_spec`` still refuses
+    it: no instantiation of the single-copy register has crash lanes),
+    with crowded rows and random words."""
     for model, match in ((PackedSingleCopy(2).lossy_network(True), "lossy"),
-                         (_timers(), "timers"),
-                         (PackedSingleCopy(2).crash_restart(1), "crash")):
+                         (_timers(), "timers")):
         row = model.encode(model.init_states()[0]).astype(np.int64)
         with pytest.raises(NotImplementedError, match=match):
             model.packed_step(torch.from_numpy(row)[None])
+    _same_step(PackedSingleCopy(2).crash_restart(1),
+               JSingleCopy(2).crash_restart(1), seed=13, limit=120)
 
 
 def test_clis(capsys):
