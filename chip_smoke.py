@@ -2919,7 +2919,25 @@ REDESIGNED = {
                    "changed words refolded; rows loaded block-wide",
     "append": "rows wider than 256 words on 128-lane tiles of 128 "
               "threads (the tiles outnumber the SMs), a warp per row, 32 "
-              "words a store, 24 words in flight a lane"}
+              "words a store, 24 words in flight a lane",
+    "write_once": "each active lane in two phases: A, a thread each, a "
+                  "delivery's scalar part (the dispatch, the validity, "
+                  "the history) into a record in shared memory, or a "
+                  "crash or restart lane's edit and fingerprint (the "
+                  "row's folds with its changed words refolded); B, "
+                  "after a barrier, a half-warp each, the delivery's "
+                  "child from its record with the network in its lanes, "
+                  "or the crash child's words from the shared row; each "
+                  "row's property bits and active lanes by a warp, a "
+                  "lane a network slot",
+    "paxos_crash": "the block's active list split, deliveries first, "
+                   "each staged by a thread as K1-paxos's; each crash or "
+                   "restart child's edit and fingerprint (the row's "
+                   "folds with its changed words refolded) by a thread, "
+                   "its words written from the shared row by a warp, 32 "
+                   "a store; rows loaded block-wide, 8 words in flight a "
+                   "thread; each row's property bits and active lanes by "
+                   "a warp, a lane a network slot"}
 #: K1's model struct of each register instantiation (ptxas's name)
 REGISTER_STRUCTS = {"abd_ordered": "AbdOrderedModel", "abd": "AbdModel",
                     "single_copy": "SingleCopyModel"}
@@ -3396,6 +3414,7 @@ def crash_kernel_entries(checks: dict, runs: dict) -> list:
                {"bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
                 "bound_of": "every row"}),
             "library_ms": None,
+            "redesigned": REDESIGNED[name],
             "parent_usage": main["parent_usage"],
             "by_model": {lb: {k: r[k] for k in (
                 "f", "pending", "width", "lanes", "written", "ms",

@@ -14,7 +14,11 @@
 // crash/restart lanes of a model that has them (crash_restart: M::kCrash,
 // CrashSpec below; Paxos under crashes, the write-once register), whose
 // children are the row with at most one actor's words, the timer word and
-// the crash word changed (crash_edit, crash_word).
+// the crash word changed (crash_edit, crash_word; crash_fingerprint, a
+// thread's, and crash_copy, a group's); and a
+// delivery's child in two phases, its scalar part once a child
+// (register_deliver_scalar) and its network and words by a group
+// (register_deliver_group: the write-once register).
 //
 // They compute what the JAX package's _packed_step_unordered
 // (stateright_tpu/actor/packed.py:710, with _net_consume :489 and
@@ -393,13 +397,6 @@ __device__ __forceinline__ bool dst_down(const M& m, const uint32_t* w,
                            min(dst, (uint32_t)(m.S + m.C - 1)));
 }
 
-// The actor whose state holds actor word j.
-template <class M>
-__device__ __forceinline__ uint32_t word_owner(const M& m, int j) {
-  const int sw = m.S * m.sw;
-  return j < sw ? (uint32_t)(j / m.sw) : (uint32_t)(m.S + j - sw);
-}
-
 // The active lanes of row w (bit e; at most 32 lanes): the deliveries
 // before the network's zero tail to a recipient that is up, each crash
 // lane of an actor that is up with fewer than k crashes, each restart
@@ -426,12 +423,48 @@ __device__ __forceinline__ uint32_t crash_active_lanes(const M& m,
   return mask;
 }
 
+// crash_active_lanes and the register models' property bits (bit 0,
+// "linearizable", host-evaluated: neutral true; bit 1, "value chosen")
+// of row w (in shared memory) computed by a group of 32 lanes, lane r
+// reading slot r: every test a ballot (in lane order), instead of one
+// thread's walks over the slots. K1 takes them so for a model with
+// crash lanes (a warp per row, beside the row's fingerprint folds).
+template <class M, class Grp>
+__device__ __forceinline__ void crash_row_lanes(const M& m,
+                                                const uint32_t* w,
+                                                const Grp& g, uint32_t& pb,
+                                                uint32_t& mask) {
+  const int E = m.E, r = g.rank();
+  const bool live = r < E;
+  const uint32_t* slot = w + m.net_off + 4 * (live ? r : 0);
+  const uint32_t hdr = live ? slot[0] : 0u, m0 = live ? slot[2] : 0u;
+  const bool word = live && (hdr | slot[1] | m0 | slot[3]) != 0u;
+  const bool chosen = ((hdr >> 16) & 1u) && (m0 >> 24) == T_GETOK &&
+                      (m0 & 0xFu) != 0u;
+  pb = 1u | (g.ballot(chosen) != 0u ? 2u : 0u);
+  // the network's zero tail: past the last slot holding a word
+  const uint32_t nz = g.ballot(word);
+  const int z = nz ? 32 - __clz(nz) : 0;
+  const uint32_t cw = m.cr.k ? w[m.timer_off + 1] : 0u;
+  const uint32_t last = (uint32_t)(m.S + m.C - 1);
+  mask = g.ballot(r < z && !is_down(cw, min(hdr & 0xFFu, last)));
+  for (int c = 0; c < m.cr.n; ++c) {
+    const uint32_t a = m.cr.actor(c);
+    if (is_down(cw, a))
+      mask |= 1u << (E + m.cr.n + c);
+    else if (((cw >> (4 * a)) & 7u) < (uint32_t)m.cr.k)
+      mask |= 1u << (E + c);
+  }
+}
+
 // A crash or restart lane's child as an edit of the row: the actor, the
-// new timer and crash words, whether it restarts (a crash wipes the
-// actor's volatile words) and whether the child is valid.
+// new timer and crash words, whether it restarts, whether the child is
+// valid, and the words a crash wipes where they are volatile: the
+// actor's, [first, first + n) (n = 0 on a restart).
 struct CrashEdit {
   uint32_t a, timer, cw;
   bool restart, valid;
+  int first, n;
 };
 
 // Lane e (>= E) of row w: a crash clears the actor's timer bit, bumps
@@ -448,6 +481,9 @@ __device__ __forceinline__ CrashEdit crash_edit(const M& m, const uint32_t* w,
   const uint32_t nib = 4u * ed.a;
   const uint32_t tw = w[m.timer_off], cw = w[m.timer_off + 1];
   const bool down = is_down(cw, ed.a);
+  const bool server = ed.a < (uint32_t)m.S;
+  ed.first = server ? (int)ed.a * m.sw : m.S * m.sw + (int)ed.a - m.S;
+  ed.n = ed.restart ? 0 : server ? m.sw : 1;
   if (ed.restart) {
     ed.timer = tw;
     ed.cw = cw & ~(1u << (nib + 3));
@@ -466,46 +502,45 @@ __device__ __forceinline__ CrashEdit crash_edit(const M& m, const uint32_t* w,
 template <class M>
 __device__ __forceinline__ uint32_t crash_word(const M& m, const CrashEdit& ed,
                                                int k, uint32_t old) {
-  if (k < m.aw)
-    return !ed.restart && word_owner(m, k) == ed.a && !m.cr.durable(k) ? 0u
-                                                                      : old;
+  if ((unsigned)(k - ed.first) < (unsigned)ed.n)
+    return m.cr.durable(k) ? old : 0u;
   if (k == m.timer_off) return ed.timer;
   if (k == m.timer_off + 1) return ed.cw;
   return old;
 }
 
-// Crash or restart lane e's child of row w (in shared memory) into out,
-// word by word (step_common.cuh RowOut); returns whether it is valid (it
-// never overflows).
-template <class M, class Out>
-__device__ __forceinline__ bool crash_step_row(const M& m, const uint32_t* w,
-                                               int e, Out& out) {
+// Crash or restart lane e's child of row w (in shared memory) as its
+// edit, with its fingerprint (hi, lo): the row's folds (r1, r2) with the
+// words the child changes refolded (fold.cuh fold_change): the crashed
+// actor's volatile words that are not zero, the timer word where the
+// actor's bit was set, the crash word. One thread's work; the edit's
+// valid says whether the child is valid (it never overflows).
+template <class M>
+__device__ __forceinline__ CrashEdit crash_fingerprint(const M& m,
+                                                       const uint32_t* w,
+                                                       int e, uint32_t r1,
+                                                       uint32_t r2,
+                                                       uint32_t& hi,
+                                                       uint32_t& lo) {
   const CrashEdit ed = crash_edit(m, w, e);
-  for (int k = 0; k < m.width(); ++k) out.put(k, crash_word(m, ed, k, w[k]));
-  return ed.valid;
+  uint32_t h1 = r1, h2 = r2;
+  for (int k = ed.first; k < ed.first + ed.n; ++k)
+    if (!m.cr.durable(k) && w[k] != 0u) fold_change(h1, h2, k, w[k], 0u);
+  const uint32_t tw = w[m.timer_off], cw = w[m.timer_off + 1];
+  if (ed.timer != tw) fold_change(h1, h2, m.timer_off, tw, ed.timer);
+  if (ed.cw != cw) fold_change(h1, h2, m.timer_off + 1, cw, ed.cw);
+  fp64_finish(h1, h2, m.width(), hi, lo);
+  return ed;
 }
 
-// Crash or restart lane e's child of row w built by the group g into dst
-// (its row of flat), lane r writing words r, r + G, ...; its fingerprint
-// (hi, lo) is the row's folds (r1, r2) with the words it changes refolded
-// (fold.cuh fold_change), in every lane. Returns whether it is valid (it
-// never overflows).
-template <class M, class Grp>
-__device__ __forceinline__ bool crash_step_group(const M& m,
-                                                 const uint32_t* w, int e,
-                                                 const Grp& g, uint32_t* dst,
-                                                 uint32_t r1, uint32_t r2,
-                                                 uint32_t& hi, uint32_t& lo) {
-  const CrashEdit ed = crash_edit(m, w, e);
-  const int width = m.width(), G = g.size();
-  uint32_t h1 = 0u, h2 = 0u;
-  for (int k = g.rank(); k < width; k += G) {
-    const uint32_t old = w[k], v = crash_word(m, ed, k, old);
-    dst[k] = v;
-    if (v != old) fold_change(h1, h2, k, old, v);
-  }
-  fp64_finish(r1 ^ g.xor_all(h1), r2 ^ g.xor_all(h2), width, hi, lo);
-  return ed.valid;
+// The child that edit ed makes of row w (in shared memory), written to
+// dst (its row of flat) by lane r of G lanes: words r, r + G, ... (G
+// consecutive words a store).
+template <class M>
+__device__ __forceinline__ void crash_copy(const M& m, const uint32_t* w,
+                                           const CrashEdit& ed, int r, int G,
+                                           uint32_t* dst) {
+  for (int k = r; k < m.width(); k += G) dst[k] = crash_word(m, ed, k, w[k]);
 }
 
 // A register model's child on the unordered network (slot e of row w,
@@ -752,6 +787,122 @@ __device__ __forceinline__ bool register_step_group(const M& m,
   g.sync();
   for (int i = r; i < m.hw; i += G) put(m.hist_off + i, hs[i]);
   fp64_finish(g.xor_all(h1), g.xor_all(h2), width, hi, lo);
+  return valid && !poison;
+}
+
+// --- a delivery's child in two phases (a group model with crash lanes) --
+//
+// register_step_group's child split where its work splits: the scalar
+// part (the dispatch, the validity, the history's records), which every
+// lane of a group would compute alike, is computed once per child by a
+// thread (register_deliver_scalar, phase A) into a DeliveryRecord in
+// shared memory; the group then builds the child from the record
+// (register_deliver_group, phase B): the network in its lanes (the
+// consume, then each recorded send), the child's words written to its
+// row and folded. The same child, validity, overflow and fingerprint as
+// register_step_group, bit for bit.
+
+// A delivery's scalar part: the history after its records, the
+// destination's new words, the handler's sends, and flags: bit 0 the
+// validity before the sends' overflow, bit 1 + k send k emitted, the
+// destination's first word (doff) at bit 8, its word count (dn) at bit
+// 16.
+template <class M>
+struct DeliveryRecord {
+  uint32_t hist[kMaxHist];
+  uint32_t nw[M::kMaxSW];
+  uint32_t dst[M::kMaxSends], m0[M::kMaxSends], m1[M::kMaxSends];
+  uint32_t flags;
+};
+
+// Phase A: the scalar part of slot e's delivery on row w (in shared
+// memory) into rec.
+template <class M>
+__device__ __forceinline__ void register_deliver_scalar(
+    const M& m, const uint32_t* w, int e, DeliveryRecord<M>& rec) {
+  const uint32_t* slot = w + m.net_off + 4 * e;
+  const uint32_t hdr = slot[0], m0 = slot[2], m1 = slot[3];
+  const bool occupied = (hdr & kOcc) != 0u;
+  const uint32_t src = (hdr >> 8) & 0xFFu, to = hdr & 0xFFu;
+  Delivery<M> d;
+  register_dispatch(m, w, src, to, m0, m1, d);
+  bool valid = occupied && to < (uint32_t)(m.S + m.C) &&
+               (d.changed || d.any_send);
+  if constexpr (HasCrash<M>::value) valid = valid && !dst_down(m, w, to);
+  Hist hist;
+  hist_load(hist, w + m.hist_off, m.hw);
+  record_in(hist, m.S, m.C, to, m0);
+  uint32_t flags = (valid ? 1u : 0u) | ((uint32_t)d.doff << 8) |
+                   ((uint32_t)d.dn << 16);
+#pragma unroll
+  for (int k = 0; k < M::kMaxSends; ++k) {
+    const Send& sd = d.sends[k];
+    if (k < m.n_sends() && sd.valid) {  // an invalid send changes nothing
+      record_out(hist, m.S, m.C, to, sd.m0);
+      flags |= 2u << k;
+    }
+    rec.dst[k] = sd.dst;
+    rec.m0[k] = sd.m0;
+    rec.m1[k] = sd.m1;
+  }
+#pragma unroll
+  for (int j = 0; j < M::kMaxSW; ++j) rec.nw[j] = d.nw[j];
+#pragma unroll
+  for (int i = 0; i < kMaxHist; ++i)
+    if (i < m.hw) rec.hist[i] = hist.h[i];
+  rec.flags = flags;
+}
+
+// Phase B: slot e's child of row w from its record rec, built by the
+// group g into dst (its row of flat) as register_step_group writes and
+// folds it (the actors' words and the history G consecutive a store,
+// slot r's four words by lane r, the timer and crash words by the last
+// lanes, each lane folding its own). Returns whether it is a valid
+// successor, ovf whether it overflowed (its words kPoison), (hi, lo) its
+// fingerprint, in every lane.
+template <class M, class Grp>
+__device__ __forceinline__ bool register_deliver_group(
+    const M& m, const uint32_t* w, int e, const DeliveryRecord<M>& rec,
+    const Grp& g, uint32_t* dst, bool& ovf, uint32_t& hi, uint32_t& lo) {
+  const int E = m.E, r = g.rank(), G = g.size();
+  const uint32_t* slot = w + m.net_off + 4 * e;
+  const uint32_t to = slot[0] & 0xFFu, flags = rec.flags;
+  const bool live = r < E;
+  const uint32_t* own = w + m.net_off + 4 * (live ? r : 0);
+  uint32_t nh = live ? own[0] : 0u, nc = live ? own[1] : 0u,
+           n0 = live ? own[2] : 0u, n1 = live ? own[3] : 0u;
+  group_consume(g, nh, nc, n0, n1, e, slot[1], E);
+  bool overflow = false;
+#pragma unroll
+  for (int k = 0; k < M::kMaxSends; ++k)
+    if ((flags >> (1 + k)) & 1u)
+      overflow |= group_send(g, nh, nc, n0, n1, to, rec.dst[k], rec.m0[k],
+                             rec.m1[k], E);
+  const bool valid = flags & 1u;
+  const bool poison = valid && overflow;
+  ovf = poison;
+
+  uint32_t h1 = 0u, h2 = 0u;
+  auto put = [&](int k, uint32_t v) {
+    if (poison) v = kPoison;
+    dst[k] = v;
+    fold_word(h1, h2, k, v);
+  };
+  const int doff = (int)((flags >> 8) & 0xFFu), dn = (int)(flags >> 16);
+  for (int k = r; k < m.aw; k += G)
+    put(k, (unsigned)(k - doff) < (unsigned)dn ? rec.nw[k - doff] : w[k]);
+  if (live) {
+    const int k = m.net_off + 4 * r;
+    put(k, nh);
+    put(k + 1, nc);
+    put(k + 2, n0);
+    put(k + 3, n1);
+  }
+  if (r == G - 1) put(m.timer_off, w[m.timer_off]);
+  if constexpr (HasCrash<M>::value)
+    if (m.cr.k && r == G - 2) put(m.timer_off + 1, w[m.timer_off + 1]);
+  for (int i = r; i < m.hw; i += G) put(m.hist_off + i, rec.hist[i]);
+  fp64_finish(g.xor_all(h1), g.xor_all(h2), m.hist_off + m.hw, hi, lo);
   return valid && !poison;
 }
 

@@ -415,4 +415,18 @@ int srt_table_insert(const StepArgs* args) {
 // Bytes of the argument struct, checked by the Python binding.
 int srt_step_args_size() { return (int)sizeof(StepArgs); }
 
+#ifdef SRT_K1_PHASES
+// K1's phase clocks since the last call (step_common.cuh K1Clock: the
+// ticks of each phase summed over blocks, then the blocks) into out
+// (kK1Phases + 1 values), cleared; a tool's build only.
+int srt_k1_phase_ticks(unsigned long long* out) {
+  const size_t n = sizeof(unsigned long long) * (kK1Phases + 1);
+  cudaError_t e = cudaDeviceSynchronize();
+  if (e == cudaSuccess) e = cudaMemcpyFromSymbol(out, k1_phase_ticks, n);
+  unsigned long long zero[kK1Phases + 1] = {};
+  if (e == cudaSuccess) e = cudaMemcpyToSymbol(k1_phase_ticks, zero, n);
+  return (int)e;
+}
+#endif
+
 }  // extern "C"

@@ -234,9 +234,12 @@ struct PaxosModel {
 // (actor_net.cuh CrashSpec; the durable mask a kernel argument: a Paxos
 // server's words all survive, a client's none, paxos_packed.py
 // durable_word_mask). K1-wide steps the active lanes only (active_lanes:
-// no quiet tail), a crash or restart lane's child written word by word
-// as the delivery's is; every other lane is invalid, does not overflow,
-// and its row of flat is not written.
+// no quiet tail): a delivery's child through step_row, as PaxosModel's;
+// a crash or restart lane's child, the row with one to three words
+// changed, as an edit with its fingerprint (the row's folds with those
+// words refolded) by a thread, then written from the shared row by a
+// warp (crash_child, crash_write); every other lane is invalid, does not
+// overflow, and its row of flat is not written.
 struct PaxosCrashModel : PaxosModel {
   static constexpr bool kCrash = true;
   actor::CrashSpec cr;
@@ -258,11 +261,40 @@ struct PaxosCrashModel : PaxosModel {
     return actor::crash_active_lanes(*this, w);
   }
 
+  // Delivery lane e's child (e < E) as PaxosModel's, with the crash
+  // lanes' rules (a recipient that is down, the crash word).
   template <class Out>
   __device__ __forceinline__ bool step_row(const uint32_t* w, int e,
                                            Out& out, bool& ovf) const {
-    if (e < E) return actor::register_step_unordered(*this, w, e, out, ovf);
-    ovf = false;
-    return actor::crash_step_row(*this, w, e, out);
+    return actor::register_step_unordered(*this, w, e, out, ovf);
+  }
+
+  // The property bits and the active lanes of row w (shared memory),
+  // props_row's and active_lanes', by a group g of 32 lanes (ballots in
+  // lane order).
+  template <class Grp>
+  __device__ __forceinline__ void row_lanes(const uint32_t* w, const Grp& g,
+                                            uint32_t& pb,
+                                            uint32_t& mask) const {
+    actor::crash_row_lanes(*this, w, g, pb, mask);
+  }
+
+  // A crash or restart lane's child (e >= E; valid or not, never
+  // overflowing) in two parts: its edit and fingerprint (hi, lo), from
+  // the row's folds (r1, r2), by a thread; then its words, the row's with
+  // the edit's, written to dst by lane r of G lanes.
+  using CrashEdit = actor::CrashEdit;
+
+  __device__ __forceinline__ CrashEdit crash_child(const uint32_t* w, int e,
+                                                   uint32_t r1, uint32_t r2,
+                                                   uint32_t& hi,
+                                                   uint32_t& lo) const {
+    return actor::crash_fingerprint(*this, w, e, r1, r2, hi, lo);
+  }
+
+  __device__ __forceinline__ void crash_write(const uint32_t* w,
+                                              const CrashEdit& ed, int r,
+                                              int G, uint32_t* dst) const {
+    actor::crash_copy(*this, w, ed, r, G, dst);
   }
 };

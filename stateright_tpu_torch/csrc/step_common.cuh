@@ -396,17 +396,24 @@ struct GroupRow<M, std::void_t<decltype(M::kGroupRow)>>
 
 // Whether a wide or group model has crash/restart lanes (M::kCrash:
 // PaxosCrashModel, WriteOnceModel; actor_net.cuh CrashSpec): its active
-// lanes are no quiet tail but a mask, m.active_lanes(row) (at most 32
-// lanes: the deliveries before the network's zero tail to a recipient
-// that is up, the crash lanes of the actors that may crash, the restart
-// lanes of the down ones), listed as an edit model's are; K1 keeps each
-// row's fingerprint folds, as for an edit model, since a group model's
-// crash or restart child is the row with a few words refolded
-// (m.step_group(row, act, g, dst, ovf, hi, lo, r1, r2), the row's folds
-// r1, r2 last); every other lane gets the row's fingerprint and cvalid =
-// 0, and its row of flat is not written (a wide model's too). A group
-// model's delivery lanes, not its crash lanes, are its group's network
-// slots (the launch refuses more than kGroupLanes of them).
+// lanes are no quiet tail but a mask (at most 32 lanes: the deliveries
+// before the network's zero tail to a recipient that is up, the crash
+// lanes of the actors that may crash, the restart lanes of the down
+// ones), taken with the row's property bits by a warp per row, a lane a
+// network slot (m.row_lanes), and listed deliveries first, then the
+// crash and restart lanes (nact[1]: the deliveries). K1 keeps each
+// row's fingerprint folds, as for an edit model: a crash or restart
+// child is the row with one to three words changed, whose edit and
+// fingerprint (the row's folds with those words refolded) a thread
+// takes (m.crash_child) and whose words the block's warps, or groups,
+// write from the shared row (m.crash_write). The wide model stages each
+// delivery as before; the group model builds each active lane's child in
+// two phases (m.deliver_scalar or m.crash_child by a thread into its
+// slot, then m.deliver_group or m.crash_write by a group). Every other
+// lane gets the row's fingerprint and cvalid = 0, and its row of flat is
+// not written. A group model's delivery lanes, not its crash lanes, are
+// its group's network slots (the launch refuses more than kGroupLanes of
+// them).
 template <class M, class = void>
 struct CrashLanes : std::false_type {};
 template <class M>
@@ -418,6 +425,47 @@ struct CrashLanes<M, std::void_t<decltype(M::kCrash)>>
 template <class M>
 constexpr bool kSharedRow =
     WideRow<M>::value || EditRow<M>::value || GroupRow<M>::value;
+
+// K1's phase clocks, in a tool's build only (tools/torch_paxos_kernels.py
+// and torch_register_kernels.py pass -DSRT_K1_PHASES to nvcc; the
+// library's own build has none of it): a shared-row K1 ends each phase
+// at a barrier, after which thread 0 of the block adds the SM clock's
+// ticks since the last one to k1_phase_ticks[phase] (kPhaseRows: the
+// prologue, from the gate to the active lanes listed; kPhaseDeliveries:
+// the delivery children; kPhaseCrashes: the crash and restart children;
+// kPhaseTail: the other lanes and the rows' outputs) and counts the block
+// in k1_phase_ticks[kK1Phases]. fused_step.cu srt_k1_phase_ticks reads
+// and clears them.
+enum K1Phase {
+  kPhaseRows = 0,
+  kPhaseDeliveries = 1,
+  kPhaseCrashes = 2,
+  kPhaseTail = 3,
+  kK1Phases = 4
+};
+#ifdef SRT_K1_PHASES
+__device__ unsigned long long k1_phase_ticks[kK1Phases + 1];
+struct K1Clock {
+  long long t = 0;
+  __device__ void start() {
+    if (threadIdx.x == 0) t = clock64();
+  }
+  __device__ void end(int phase) {
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      const long long now = clock64();
+      atomicAdd(&k1_phase_ticks[phase], (unsigned long long)(now - t));
+      if (phase == kPhaseTail) atomicAdd(&k1_phase_ticks[kK1Phases], 1ull);
+      t = now;
+    }
+  }
+};
+#else
+struct K1Clock {
+  __device__ __forceinline__ void start() {}
+  __device__ __forceinline__ void end(int) {}
+};
+#endif
 
 // The lanes of a group model's child: a half-warp, one lane a network
 // slot (actor_net.cuh kMaxSlots); a whole warp a child lost at every
@@ -455,6 +503,15 @@ struct WarpGroup {
     for (int o = kGroupLanes / 2; o > 0; o >>= 1)
       v ^= __shfl_xor_sync(mask, v, o, kGroupLanes);
     return v;
+  }
+};
+
+// A whole warp as a group of 32 lanes with ballots in lane order
+// (actor_net.cuh crash_row_lanes).
+struct FullWarp {
+  __device__ __forceinline__ int rank() const { return threadIdx.x & 31; }
+  __device__ __forceinline__ uint32_t ballot(bool p) const {
+    return __ballot_sync(0xFFFFFFFFu, p);
   }
 };
 
@@ -499,12 +556,16 @@ struct WideSmem {
 // The words of a thread's slot after the active lanes: a wide model's
 // staging row, an edit model's M::Edit, a group model's two (its
 // group's 2 kGroupLanes words: the child's history on its way to
-// flat).
+// flat), or with crash lanes the M::Record of the delivery its thread
+// takes in phase A (actor_net.cuh DeliveryRecord), its words made odd so
+// that the threads' records start in distinct banks.
 constexpr int kGroupSlotWords = 2;
 template <class M>
 __host__ __device__ __forceinline__ size_t slot_words(int width) {
   if constexpr (EditRow<M>::value)
     return sizeof(typename M::Edit) / sizeof(uint32_t);
+  else if constexpr (GroupRow<M>::value && CrashLanes<M>::value)
+    return (sizeof(typename M::Record) / sizeof(uint32_t)) | 1u;
   else if constexpr (GroupRow<M>::value)
     return kGroupSlotWords;
   else
@@ -606,7 +667,8 @@ struct alignas(16) RowState {
 // words a store, and folding only the words it changes. A group model
 // (GroupRow; launched over a.wide too) loads and lists its rows as a wide
 // model does and builds each active lane's child with a half-warp,
-// written straight to flat.
+// written straight to flat. A model with crash lanes (CrashLanes) takes
+// its crash and restart children as edits of the row (see there).
 // The grid also resets the ring arena for the step (grid-stride).
 // Inside a chunk the launch is gated (open_gate): its rows are the
 // queue's from the head, the first take of them valid.
@@ -650,6 +712,8 @@ __global__ void expand_kernel(M m, StepArgs a) {
   __shared__ int s_valid;
   int take;
   if (!open_gate(a, &take)) return;
+  K1Clock clk;
+  if constexpr (kSharedRow<M>) clk.start();
   const long long tid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   const long long nthreads = (long long)gridDim.x * blockDim.x;
   for (long long i = tid; i < a.cc; i += nthreads) a.ring_arena[i] = ~0ull;
@@ -702,7 +766,7 @@ __global__ void expand_kernel(M m, StepArgs a) {
       }
     }
     auto pending = [&](int i) { return !kPend || take >= 0 || rows[i].fv; };
-    if constexpr (kEdit) {
+    if constexpr (kEdit || (WideRow<M>::value && CrashLanes<M>::value)) {
       // the tile's rows, block-wide, kEditLoads words in flight a thread
       // (word x of the tile is word x % width of row x / width)
       const int total = nrows * width, nt = blockDim.x;
@@ -744,6 +808,14 @@ __global__ void expand_kernel(M m, StepArgs a) {
         }
         rs.fv = 1;
       }
+      if constexpr (CrashLanes<M>::value) {
+        if constexpr (!kPend) {
+          rs.fv = take >= 0 ? r < take : a.fvalid[r] != 0;
+          rs.valid = 0;
+          rs.xovf = 0;
+        }
+        continue;  // the bits and the lanes by the row's warp below
+      }
       const uint32_t pb = m.props_row(rs.w);
       rs.pb = pb;
       rs.eb = a.ebits[r * a.estride] & ~(pb & a.ev_mask);
@@ -753,7 +825,7 @@ __global__ void expand_kernel(M m, StepArgs a) {
         rs.xovf = 0;
       }
       // a wide or group model's quiet lane, the mask of active lanes of
-      // an edit model or a model with crash lanes
+      // an edit model
       if constexpr (kMask)
         ws.info[4 * i] =
             m.active_lanes(rs.w) & (A >= 32 ? ~0u : (1u << A) - 1u);
@@ -762,11 +834,23 @@ __global__ void expand_kernel(M m, StepArgs a) {
     }
     // each row's fingerprint, a warp per row (a group model's pending
     // rows, from the last warp down: the first threads take the rows'
-    // properties above): an edit model, or one with crash lanes, keeps
-    // the folds (its children's are the row's with their changed words
-    // refolded), the other wide and group models the fingerprint
+    // flags above): an edit model, or one with crash lanes, keeps the
+    // folds (its children's are the row's with their changed words
+    // refolded), the other wide and group models the fingerprint; with
+    // crash lanes the warp also takes the row's property bits and active
+    // lanes, a lane a network slot (m.row_lanes)
     for (int i = kPend ? nwarps - 1 - wid : wid; i < nrows; i += nwarps) {
       if (!pending(i)) continue;  // the whole warp
+      if constexpr (CrashLanes<M>::value) {
+        const uint32_t eb = wl == 0 ? a.ebits[(row0 + i) * a.estride] : 0u;
+        uint32_t pb, mask;
+        m.row_lanes(rows[i].w, FullWarp{}, pb, mask);
+        if (wl == 0) {
+          rows[i].pb = pb;
+          rows[i].eb = eb & ~(pb & a.ev_mask);
+          ws.info[4 * i] = mask & (A >= 32 ? ~0u : (1u << A) - 1u);
+        }
+      }
       uint32_t h1 = 0u, h2 = 0u;
       for (int k = wl; k < width; k += 32) {
         if constexpr (kMask) {
@@ -794,10 +878,18 @@ __global__ void expand_kernel(M m, StepArgs a) {
     }
     __syncthreads();
     // the active lanes, in lane order: each row's first at the prefix of
-    // the active counts before it
+    // the active counts before it; with crash lanes the deliveries
+    // first, then the crash and restart lanes (nact[1] deliveries: the
+    // two counts scanned at once, the deliveries' in the low 16 bits)
     if (wid == 0) {
       const uint32_t info = wl < nrows ? ws.info[4 * wl] : 0u;
-      const int q = kMask ? __popc(info) : (int)info;
+      int q;
+      if constexpr (CrashLanes<M>::value) {
+        const uint32_t dmask = (1u << m.E) - 1u;
+        q = __popc(info & dmask) | (__popc(info & ~dmask) << 16);
+      } else {
+        q = kMask ? __popc(info) : (int)info;
+      }
       int x = q;
 #pragma unroll
       for (int o = 1; o < 32; o <<= 1) {
@@ -805,13 +897,26 @@ __global__ void expand_kernel(M m, StepArgs a) {
         if (wl >= o) x += y;
       }
       if (wl < nrows) ws.info[4 * wl + 3] = (uint32_t)(x - q);
-      if (wl == 31) *ws.nact = (uint32_t)x;
+      if (wl == 31) {
+        if constexpr (CrashLanes<M>::value) {
+          ws.nact[0] = (uint32_t)((x & 0xFFFF) + (x >> 16));
+          ws.nact[1] = (uint32_t)(x & 0xFFFF);
+        } else {
+          *ws.nact = (uint32_t)x;
+        }
+      }
     }
     __syncthreads();
     for (int i = threadIdx.x; i < nrows; i += blockDim.x) {
       uint32_t info = ws.info[4 * i];
       int off = (int)ws.info[4 * i + 3];
-      if constexpr (kMask) {
+      if constexpr (CrashLanes<M>::value) {
+        int d = off & 0xFFFF, c = (int)ws.nact[1] + (off >> 16);
+        for (; info; info &= info - 1u) {
+          const int e = __ffs(info) - 1;
+          ws.act[e < m.E ? d++ : c++] = (uint32_t)(i * A + e);
+        }
+      } else if constexpr (kMask) {
         for (; info; info &= info - 1u)
           ws.act[off++] = (uint32_t)(i * A + __ffs(info) - 1);
       } else {
@@ -837,6 +942,7 @@ __global__ void expand_kernel(M m, StepArgs a) {
     }
   }
   __syncthreads();
+  if constexpr (kSharedRow<M>) clk.end(kPhaseRows);
   int nvalid = 0;
   const int tile = nrows * A;
   const long long lane0 = row0 * A;
@@ -856,12 +962,16 @@ __global__ void expand_kernel(M m, StepArgs a) {
       static_assert(M::W <= kColumnKeys,
                     "RowOut: a column without its key");
       const int stride = wide_stride(width);
-      // the active lanes, densely: each thread steps one into its
+      // the staged children: every active lane, or with crash lanes the
+      // deliveries (the list's first nact[1])
+      int nstaged = nact;
+      if constexpr (CrashLanes<M>::value) nstaged = (int)ws.nact[1];
+      // the staged lanes, densely: each thread steps one into its
       // staging row; uniform trip count: the warp then writes its
       // children
-      for (int base = 0; base < nact; base += blockDim.x) {
+      for (int base = 0; base < nstaged; base += blockDim.x) {
         const int j = base + threadIdx.x;
-        if (j < nact) {
+        if (j < nstaged) {
           const int t = (int)ws.act[j], i = t / A;
           RowState<M, SYM>& rs = rows[i];
           const long long lane = lane0 + t;
@@ -880,7 +990,7 @@ __global__ void expand_kernel(M m, StepArgs a) {
         }
         __syncwarp();
         // each child is width contiguous words of flat
-        const int n = min(32, nact - (base + w0));
+        const int n = min(32, nstaged - (base + w0));
         if (vec16) {
           // the warp's n children as n * q4 16-byte vectors, 32 a store
           // (the staging rows' odd stride: read a word at a time)
@@ -908,34 +1018,141 @@ __global__ void expand_kernel(M m, StepArgs a) {
         }
         __syncwarp();
       }
+      if constexpr (CrashLanes<M>::value) {
+        clk.end(kPhaseDeliveries);
+        // the crash and restart children (the list's rest) in passes of
+        // blockDim.x: each thread takes one's edit and fingerprint (the
+        // row's folds with its one to three changed words refolded) and
+        // leaves the edit in its staging row; after a barrier child c of
+        // the pass is written from the shared row by warp c % nwarps, 32
+        // consecutive words a store
+        using Edit = typename M::CrashEdit;
+        const int ncr = nact - nstaged;
+        for (int base = 0; base < ncr; base += blockDim.x) {
+          const int n = min((int)blockDim.x, ncr - base);
+          if ((int)threadIdx.x < n) {
+            const int t = (int)ws.act[nstaged + base + threadIdx.x];
+            const int i = t / A;
+            RowState<M, SYM>& rs = rows[i];
+            const long long lane = lane0 + t;
+            uint32_t hi, lo;
+            const Edit ed = m.crash_child(rs.w, t - i * A, ws.info[4 * i + 1],
+                                          ws.info[4 * i + 2], hi, lo);
+            *reinterpret_cast<Edit*>(ws.stage + threadIdx.x * stride) = ed;
+            a.chi[lane] = hi;
+            a.clo[lane] = lo;
+            const bool cv = ed.valid && rs.fv;
+            a.cvalid[lane] = cv;
+            nvalid += cv;
+            if (cv) rs.valid = 1;
+          }
+          __syncthreads();
+          for (int c = wid; c < n; c += nwarps) {
+            const int t = (int)ws.act[nstaged + base + c], i = t / A;
+            const Edit ed =
+                *reinterpret_cast<const Edit*>(ws.stage + c * stride);
+            m.crash_write(rows[i].w, ed, wl, 32,
+                          a.flat + (lane0 + t) * width);
+          }
+          __syncthreads();  // the staging rows are the next pass's
+        }
+      }
     } else {
       const int gid = threadIdx.x / kGroupLanes;
       const int ngroups = blockDim.x / kGroupLanes;
-      const WarpGroup g(ws.stage + gid * kGroupLanes * kGroupSlotWords);
-      // the active lanes, a child a group (the same trip count for the
-      // group; no barrier: no group reads another's work)
-      for (int j = gid; j < nact; j += ngroups) {
-        const int t = (int)ws.act[j], i = t / A;
-        RowState<M, SYM>& rs = rows[i];
-        const long long lane = lane0 + t;
-        bool ovf = false, v;
-        uint32_t hi, lo;
-        if constexpr (CrashLanes<M>::value)
-          v = m.step_group(rs.w, t - i * A, g, a.flat + lane * width, ovf,
-                           hi, lo, ws.info[4 * i + 1], ws.info[4 * i + 2]);
-        else
-          v = m.step_group(rs.w, t - i * A, g, a.flat + lane * width, ovf,
-                           hi, lo);
-        if (g.rank() == 0) {
-          a.chi[lane] = hi;
-          a.clo[lane] = lo;
-          a.cvalid[lane] = v;
-          nvalid += v;
-          if (v) rs.valid = 1;
-          if (ovf) rs.xovf = 1;
+      if constexpr (CrashLanes<M>::value) {
+        // the active lanes in passes of blockDim.x, each in two phases:
+        // A, a thread each, a delivery's scalar part (the dispatch, the
+        // validity, the history) into its record, or a crash or restart
+        // lane's edit into it with the child's fingerprint (the row's
+        // folds with its changed words refolded); B, after a barrier, a
+        // group each, a delivery's child built from its record with the
+        // network in the group's lanes, or a crash child's words written
+        // from the shared row
+        using Rec = typename M::Record;
+        using Edit = typename M::CrashEdit;
+        static_assert(sizeof(Edit) <= sizeof(Rec), "an edit fits a slot");
+        const int rec_words = (int)slot_words<M>(width);
+        const WarpGroup g(ws.stage);  // no group words: the records
+        const int nd = (int)ws.nact[1];  // the deliveries come first
+        for (int base = 0; base < nact; base += blockDim.x) {
+          const int n = min((int)blockDim.x, nact - base);
+          if (base > 0) __syncthreads();  // the last pass's records read
+          if ((int)threadIdx.x < n) {
+            const int j = base + threadIdx.x;
+            const int t = (int)ws.act[j], i = t / A;
+            RowState<M, SYM>& rs = rows[i];
+            uint32_t* slot = ws.stage + threadIdx.x * rec_words;
+            if (j < nd) {
+              m.deliver_scalar(rs.w, t - i * A, *reinterpret_cast<Rec*>(slot));
+            } else {
+              const long long lane = lane0 + t;
+              uint32_t hi, lo;
+              const Edit ed =
+                  m.crash_child(rs.w, t - i * A, ws.info[4 * i + 1],
+                                ws.info[4 * i + 2], hi, lo);
+              *reinterpret_cast<Edit*>(slot) = ed;
+              a.chi[lane] = hi;
+              a.clo[lane] = lo;
+              a.cvalid[lane] = ed.valid;
+              nvalid += ed.valid;
+              if (ed.valid) rs.valid = 1;
+            }
+          }
+          __syncthreads();
+          for (int c = gid; c < n; c += ngroups) {
+            const int j = base + c;
+            const int t = (int)ws.act[j], i = t / A;
+            RowState<M, SYM>& rs = rows[i];
+            const long long lane = lane0 + t;
+            const uint32_t* slot = ws.stage + c * rec_words;
+            if (j >= nd) {
+              const Edit ed = *reinterpret_cast<const Edit*>(slot);
+              m.crash_write(rs.w, ed, g.rank(), g.size(),
+                            a.flat + lane * width);
+              continue;
+            }
+            bool ovf;
+            uint32_t hi, lo;
+            const bool v = m.deliver_group(
+                rs.w, t - i * A, *reinterpret_cast<const Rec*>(slot), g,
+                a.flat + lane * width, ovf, hi, lo);
+            if (g.rank() == 0) {
+              a.chi[lane] = hi;
+              a.clo[lane] = lo;
+              a.cvalid[lane] = v;
+              nvalid += v;
+              if (v) rs.valid = 1;
+              if (ovf) rs.xovf = 1;
+            }
+          }
+        }
+        clk.end(kPhaseDeliveries);
+      } else {
+        const WarpGroup g(ws.stage + gid * kGroupLanes * kGroupSlotWords);
+        // the active lanes, a child a group (the same trip count for the
+        // group; no barrier: no group reads another's work)
+        for (int j = gid; j < nact; j += ngroups) {
+          const int t = (int)ws.act[j], i = t / A;
+          RowState<M, SYM>& rs = rows[i];
+          const long long lane = lane0 + t;
+          bool ovf = false;
+          uint32_t hi, lo;
+          const bool v = m.step_group(rs.w, t - i * A, g,
+                                      a.flat + lane * width, ovf, hi, lo);
+          if (g.rank() == 0) {
+            a.chi[lane] = hi;
+            a.clo[lane] = lo;
+            a.cvalid[lane] = v;
+            nvalid += v;
+            if (v) rs.valid = 1;
+            if (ovf) rs.xovf = 1;
+          }
         }
       }
     }
+    if constexpr (!CrashLanes<M>::value) clk.end(kPhaseDeliveries);
+    clk.end(kPhaseCrashes);
     // the quiet (or, with crash lanes, inactive) lanes: the row's
     // fingerprint, invalid (a group model's row that is not pending:
     // invalid only)
@@ -1044,6 +1261,8 @@ __global__ void expand_kernel(M m, StepArgs a) {
       }
       __syncthreads();  // the slots are the next pass's
     }
+    clk.end(kPhaseDeliveries);
+    clk.end(kPhaseCrashes);
     // the other lanes: the row's fingerprint, invalid; flat unwritten
     for (int t = threadIdx.x; t < tile; t += blockDim.x) {
       if (!((ws.info[4 * row] >> act) & 1u)) {
@@ -1133,6 +1352,7 @@ __global__ void expand_kernel(M m, StepArgs a) {
       atomicMin(&a.disc_cand[p], tag | (unsigned long long)r);
     }
   }
+  if constexpr (kSharedRow<M>) clk.end(kPhaseTail);
   block_add(&a.stats[S_VALID], nvalid, &s_valid);
 }
 

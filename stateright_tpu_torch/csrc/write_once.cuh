@@ -8,12 +8,16 @@
 // :849-900), for C <= 7 clients, S <= 4 servers, E <= 16 slots of the
 // unordered non-duplicating network, at most 8 actors and 128 words (no
 // drops or timers). A group model (kGroupRow, step_common.cuh) with crash
-// lanes (kCrash): each delivery's child is built by a group of lanes with
-// the network in their registers (actor_net.cuh register_step_group);
-// a crash or restart lane's child is the row with at most the actor's
-// words, the timer word and the crash word changed, written by the group
-// as an edit of the row with only the changed words refolded
-// (actor_net.cuh crash_step_group). K1 steps the active lanes only
+// lanes (kCrash): K1 builds each active lane's child in two phases: A, a
+// thread takes a delivery's scalar part (the dispatch, the validity, the
+// history) into a Record in shared memory, or a crash or restart lane's
+// edit (the row with at most the actor's words, the timer word and the
+// crash word changed) and its fingerprint (the row's folds with those
+// words refolded); B, a group of lanes builds the delivery's child with
+// the network in its registers, or writes the crash child's words
+// (actor_net.cuh register_deliver_scalar, register_deliver_group,
+// crash_fingerprint, crash_copy).
+// K1 steps the active lanes only
 // (active_lanes: the deliveries before the network's zero tail to a
 // recipient that is up, the crash lanes of actors that may crash, the
 // restart lanes of actors that are down); every other lane is invalid
@@ -91,19 +95,54 @@ struct WriteOnceModel {
     return actor::crash_active_lanes(*this, w);
   }
 
-  // The child of row w (shared memory) under action lane e, built by the
-  // group g into dst (its row of flat): whether it is a valid successor,
-  // ovf whether it overflowed (its words kPoison, invalid), (hi, lo) its
-  // fingerprint; (r1, r2) are the row's fingerprint folds.
+  // A delivery's scalar part, K1's phase A (a thread per child).
+  using Record = actor::DeliveryRecord<WriteOnceModel>;
+
+  __device__ __forceinline__ void deliver_scalar(const uint32_t* w, int e,
+                                                 Record& rec) const {
+    actor::register_deliver_scalar(*this, w, e, rec);
+  }
+
+  // Delivery lane e's child of row w (shared memory) from its record,
+  // built by the group g into dst (its row of flat): whether it is a valid
+  // successor, ovf whether it overflowed (its words kPoison, invalid),
+  // (hi, lo) its fingerprint.
   template <class Grp>
-  __device__ __forceinline__ bool step_group(const uint32_t* w, int e,
-                                             const Grp& g, uint32_t* dst,
-                                             bool& ovf, uint32_t& hi,
-                                             uint32_t& lo, uint32_t r1,
-                                             uint32_t r2) const {
-    if (e < E)
-      return actor::register_step_group(*this, w, e, g, dst, ovf, hi, lo);
-    ovf = false;
-    return actor::crash_step_group(*this, w, e, g, dst, r1, r2, hi, lo);
+  __device__ __forceinline__ bool deliver_group(const uint32_t* w, int e,
+                                                const Record& rec,
+                                                const Grp& g, uint32_t* dst,
+                                                bool& ovf, uint32_t& hi,
+                                                uint32_t& lo) const {
+    return actor::register_deliver_group(*this, w, e, rec, g, dst, ovf, hi,
+                                         lo);
+  }
+
+  // The property bits and the active lanes of row w (shared memory),
+  // props_row's and active_lanes', by a group g of 32 lanes (ballots in
+  // lane order).
+  template <class Grp>
+  __device__ __forceinline__ void row_lanes(const uint32_t* w, const Grp& g,
+                                            uint32_t& pb,
+                                            uint32_t& mask) const {
+    actor::crash_row_lanes(*this, w, g, pb, mask);
+  }
+
+  // A crash or restart lane's child (e >= E; valid or not, never
+  // overflowing) in two parts: its edit and fingerprint (hi, lo), from
+  // the row's folds (r1, r2), by a thread; then its words, the row's with
+  // the edit's, written to dst by lane r of G lanes.
+  using CrashEdit = actor::CrashEdit;
+
+  __device__ __forceinline__ CrashEdit crash_child(const uint32_t* w, int e,
+                                                   uint32_t r1, uint32_t r2,
+                                                   uint32_t& hi,
+                                                   uint32_t& lo) const {
+    return actor::crash_fingerprint(*this, w, e, r1, r2, hi, lo);
+  }
+
+  __device__ __forceinline__ void crash_write(const uint32_t* w,
+                                              const CrashEdit& ed, int r,
+                                              int G, uint32_t* dst) const {
+    actor::crash_copy(*this, w, ed, r, G, dst);
   }
 };

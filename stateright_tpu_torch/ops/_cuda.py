@@ -167,6 +167,12 @@ GROUP_MODELS = {"abd": 128, "single_copy": 128, "write_once": 128}
 #: a group model's shared words a thread (``kGroupSlotWords``: a group's
 #: child's history, at most 22 words, on its way to flat)
 GROUP_SLOT_WORDS = 2
+#: a group model with crash lanes: its shared words a thread instead, the
+#: record of the delivery (or the crash edit) the thread takes in K1's
+#: phase A (``csrc/actor_net.cuh`` ``DeliveryRecord``: the history's 22
+#: words, the destination's ``kMaxSW`` words, three a send, a flags word;
+#: made odd, ``step_common.cuh`` ``slot_words``)
+GROUP_RECORD_WORDS = {"write_once": 27}
 #: a group model's K1: its threads a block and its blocks an SM (the rows
 #: a block cut so that they are resident at once), read when
 #: ``k1_launch`` is called; the best of ``tools/torch_register_kernels.py
@@ -256,7 +262,8 @@ def k1_launch(name: str, geo: Geometry, f: int, width: int, a: int,
     if name in WIDE_MODELS:
         row_words, slot_words = WIDE_MODELS[name], None
     elif name in GROUP_MODELS:
-        row_words, slot_words = GROUP_MODELS[name], GROUP_SLOT_WORDS
+        row_words = GROUP_MODELS[name]
+        slot_words = GROUP_RECORD_WORDS.get(name, GROUP_SLOT_WORDS)
         threads, per_sm = GROUP_THREADS, GROUP_BLOCKS_PER_SM
     elif name in EDIT_MODELS:
         row_words, slot_words = EDIT_MODELS[name]

@@ -2048,6 +2048,128 @@ def test_shared_row_k1_gated_lane_exact_on_card(name, f, take, case):
     assert tables[0] == tables[1]
 
 
+def _crash_edge_rows(model, rows, case, rng):
+    """``rows`` of a model with crash lanes set up for one of
+    ``CRASH_EDGES``' cases: ``every-crash`` every crashable actor up with
+    no crash yet (every crash lane active, and in half the rows the
+    actor's timer bit set, which a crash clears), ``every-restart`` every
+    one down after a crash (every restart lane active, the deliveries to
+    them waiting), ``spent`` every one up at its crash budget (no crash
+    or restart lane), ``wipe`` the volatile server up with a stored value
+    and its timer bit set (its crash changes three words: the value wiped,
+    the timer and crash words), ``overflow`` a full network whose first
+    slot is a client's Put to the server held twice (its delivery's reply
+    finds no slot: the poisoned child)."""
+    rows = rows.copy()
+    idx = [int(a) for a in model._crash_idx]
+    k = model.max_crashes_
+    cw = 0
+    if case == "every-restart":
+        cw = sum((8 | 1) << (4 * a) for a in idx)
+    elif case == "spent":
+        cw = sum(k << (4 * a) for a in idx)
+    rows[:, model._crash_off] = cw
+    timers = sum(1 << a for a in idx)
+    if case == "every-crash":
+        rows[::2, model._timer_off] |= timers
+    if case == "wipe":
+        rows[:, 0] = rng.integers(1, 16, rows.shape[0])
+        rows[:, model._timer_off] |= 1
+    if case == "overflow":
+        e = model.net_capacity
+        for i in range(rows.shape[0]):
+            slots = rows[i, model._net_off:model._timer_off].reshape(e, 4)
+            slots[0] = ((1 << 16) | (1 << 8), 2, (1 << 24) | (i % 7 + 1), 0)
+            for j in range(1, e):
+                slots[j] = ((1 << 16) | (7 << 8) | (20 + j), 1, 14 << 24, j)
+    return rows
+
+
+#: the edge cases of the crash K1s: (model, rows, case)
+CRASH_EDGES = [
+    ("paxos3-crash", 2048, "every-crash"),
+    ("paxos3-crash", 2048, "every-restart"),
+    ("paxos3-crash", 2048, "spent"),
+    ("write-once7", 1024, "every-crash"),
+    ("write-once7", 1024, "every-restart"),
+    ("write-once7", 1024, "spent"),
+    ("write-once4-volatile", 777, "wipe"),
+    ("write-once7", 1024, "overflow"),
+    ("write-once4-volatile", 333, "overflow")]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,f,case", CRASH_EDGES,
+                         ids=[f"{n}-{c}" for n, _f, c in CRASH_EDGES])
+def test_crash_k1_edge_rows_lane_exact_on_card(name, f, case):
+    """K1-paxos_crash (a delivery staged by a thread, each crash or
+    restart child's edit and fingerprint by a thread and its words by a
+    warp) and K1-write_once (each active lane in two phases: a thread's
+    record or crash edit, then a group's child) with K2/K3 against the
+    plain version on :func:`_crash_edge_rows` (every crash lane active,
+    so that a Paxos block's crash children outnumber its warps; every
+    restart lane; spent budgets; the volatile register's three-word
+    crash child; the poisoned delivery), under K1's rule
+    (:func:`_k1_held`), then the flags, the inserted key set and the
+    table."""
+    _need_card()
+    from stateright_tpu_torch.ops import _cuda
+    from stateright_tpu_torch.ops.fused import (S_DISC, S_VALID, S_XOVF,
+                                                fused_step,
+                                                fused_step_reference)
+    from stateright_tpu_torch.ops.hash_kernel import fp64_device
+    from stateright_tpu_torch.ops.hashtable import make_table
+    from stateright_tpu_torch.ops.words import from_numpy_u32, pack64
+    model = REGISTER_MODELS[name]()
+    dev = torch.device("cuda")
+    rng = np.random.default_rng([f, len(case)])
+    rows = _crash_edge_rows(model, _paxos_rows(model, rng, f), case, rng)
+    block = from_numpy_u32(rows, dev)
+    phi, plo = (x.to(torch.int32) for x in fp64_device(block))
+    ebits = torch.zeros((f,), dtype=torch.int32, device=dev)
+    fvalid = torch.ones((f,), dtype=torch.bool, device=dev)
+    out, tables = [], []
+    for fn in (fused_step, fused_step_reference):
+        table = make_table(1 << 18, dev)
+        ring = torch.zeros((1 << 12,), dtype=torch.int64, device=dev)
+        out.append(fn(model, block, ebits, fvalid, phi, plo, table, ring))
+        tables.append(sorted(table[table != 0].tolist()))
+    k, p = out
+    lanes = _hold_k1(model, k, p, rows, fvalid)
+    for i in (S_XOVF, S_VALID):
+        assert int(k.stats[i]) == int(p.stats[i]), i
+    assert torch.equal(k.stats[S_DISC:], p.stats[S_DISC:])
+    key_k = pack64(k.chi, k.clo)[k.inserted].tolist()
+    key_p = pack64(p.chi, p.clo)[p.inserted].tolist()
+    assert len(key_k) == len(set(key_k)) and set(key_k) == set(key_p)
+    assert tables[0] == tables[1]
+    # the case took: its lanes active, its children as described
+    a, e, n = model.max_actions, model.net_capacity, len(model._crash_idx)
+    act = lanes.reshape(f, a).cpu().numpy()
+    crash, restart = act[:, e:e + n], act[:, e + n:]
+    if case in ("every-crash", "wipe"):
+        assert crash.all() and not restart.any()
+    elif case == "every-restart":
+        assert restart.all() and not crash.any()
+    elif case == "spent":
+        assert not crash.any() and not restart.any()
+    if case == "every-crash" and name.startswith("paxos"):
+        wide, _smem = _cuda.k1_launch(
+            "paxos_crash", _cuda.tile_geometry(f, a, _cuda.sm_count(dev)),
+            f, model.packed_width, a, _cuda.sm_count(dev))
+        assert wide.rows * n > wide.threads // 32
+    flat = k.flat.reshape(f, a, -1).cpu().numpy().view(np.uint32)
+    if case == "wipe":
+        changed = (flat[:, e, :] != rows).sum(1)
+        assert (changed == 3).all() and (flat[:, e, 0] == 0).all()
+    if case == "overflow":
+        assert int(k.stats[S_XOVF]) == 1
+        poisoned = (flat[:, 0, :] == 0xDEADBEEF).all(1) & act[:, 0]
+        assert poisoned.any()
+        assert not k.cvalid.reshape(f, a)[torch.from_numpy(poisoned).to(
+            dev), 0].any()
+
+
 @pytest.mark.gpu
 def test_append_history_and_pull_at_331_words_on_card():
     """bench.py's widest register row (PackedAbd(2, server_count=3,
@@ -2180,7 +2302,9 @@ def test_k1_registers_of_the_parent_instantiations_on_card():
     """The crash lanes are a compile-time property of their models: K1's
     Paxos, ABD, single-copy and ordered-ABD instantiations keep their
     registers (168, 96, 121 and 96 on the H100 toolchain, PERF.md) and
-    spill nothing; the crash instantiations spill nothing either."""
+    spill nothing; the crash instantiations spill nothing either, and the
+    write-once register's two-phase K1 stays below the 128 registers at
+    which four of its blocks fit an SM."""
     _need_card()
     smoke = _chip_smoke()
     want = {"PaxosModel": 168, "AbdModel": 96, "SingleCopyModel": 121,
@@ -2192,6 +2316,8 @@ def test_k1_registers_of_the_parent_instantiations_on_card():
     for struct in ("WriteOnceModel", "PaxosCrashModel"):
         usage = smoke.kernel_usage("fused_step", f"expand_kernel[{struct}]")
         assert usage["spill_store_bytes"] == 0, (struct, usage)
+        if struct == "WriteOnceModel":
+            assert usage["registers"] < 128, usage
 
 
 @pytest.mark.gpu

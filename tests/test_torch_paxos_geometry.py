@@ -183,3 +183,85 @@ def test_history_grid_covers_the_largest_append(cfg, fmax):
             taken = [t for b in range(active)
                      for t in range(b, tiles, grid)]
             assert sorted(taken) == list(range(tiles))
+
+
+def _split_list(masks, e, a):
+    """A numpy transcription of K1's active list for a model with crash
+    lanes (``csrc/step_common.cuh``, the prologue's scan and listing):
+    per row its delivery and crash counts packed in one word (deliveries
+    in the low 16 bits), one inclusive scan of the packed words, the
+    deliveries listed in lane order from the front, the crash and restart
+    lanes after them from the deliveries' total; returns the list, the
+    deliveries' count and the packed words' most in either half."""
+    dmask = (1 << e) - 1
+    q = np.array([bin(m & dmask).count("1")
+                  | (bin(m & ~dmask & 0xFFFFFFFF).count("1") << 16)
+                  for m in masks], dtype=np.int64)
+    x = np.cumsum(q)
+    total = int(x[-1]) if len(x) else 0
+    nd = total & 0xFFFF
+    nact = nd + (total >> 16)
+    act = np.full(len(masks) * a, -1, dtype=np.int64)
+    for i, m in enumerate(masks):
+        off = int(x[i] - q[i])
+        d, c = off & 0xFFFF, nd + (off >> 16)
+        for lane in range(32):
+            if (m >> lane) & 1:
+                if lane < e:
+                    act[d] = i * a + lane
+                    d += 1
+                else:
+                    act[c] = i * a + lane
+                    c += 1
+    return act[:nact], nd, max(total & 0xFFFF, total >> 16)
+
+
+@pytest.mark.parametrize("e,n", [(16, 3), (16, 1), (1, 8), (4, 2), (16, 8),
+                                 (8, 0)])
+def test_crash_active_list_puts_the_deliveries_first(e, n):
+    """K1's active list with crash lanes: every active lane once, the
+    deliveries (lanes below ``E``) first in lane order, then the crash
+    and restart lanes in lane order; the two counts scanned in one
+    packed word never carry into each other (at most 32 rows of 32
+    lanes: 1,024 in either half); the wide K1 stages the list's first
+    ``nact[1]`` (the deliveries) and hands the rest to its crash pass.
+    Over random masks of up to 32 rows, every lane on and every lane
+    off."""
+    a = e + 2 * n
+    rng = np.random.default_rng([e, n])
+    full = (1 << a) - 1
+    for rows in (1, 7, 21, 32):
+        for case in range(20):
+            if case == 0:
+                masks = [full] * rows
+            elif case == 1:
+                masks = [0] * rows
+            else:
+                masks = [int(rng.integers(0, full + 1)) for _ in range(rows)]
+            act, nd, most = _split_list(masks, e, a)
+            lanes = [i * a + k for i, m in enumerate(masks)
+                     for k in range(a) if (m >> k) & 1]
+            want = sorted(t for t in lanes if t % a < e) + \
+                sorted(t for t in lanes if t % a >= e)
+            assert act.tolist() == want
+            assert nd == sum(1 for t in lanes if t % a < e)
+            assert most <= 32 * 32 < 1 << 16
+
+
+def test_crash_wide_launch_at_the_crash_step():
+    """PackedPaxos(3).crash_restart(1, actors=[0, 1, 2]) (97 words, 22
+    lanes) at the smoke's mid-search 8,192-row step on an H100: 391
+    blocks of 21 rows and 128 threads with 62,952 B of shared memory,
+    three resident an SM (the parent's launch: the redesign keeps it); a
+    thread's staging row holds the crash edit its crash pass leaves there
+    (six words)."""
+    model = PackedPaxos(3).crash_restart(1, actors=[0, 1, 2])
+    name, _params = model.cuda_spec()
+    a, w = model.max_actions, model.packed_width
+    assert (name, a, w) == ("paxos_crash", 22, 97)
+    wide, smem = _cuda.k1_launch(name, _cuda.tile_geometry(8192, a, 132),
+                                 8192, w, a, 132)
+    assert (wide.rows, wide.threads, wide.blocks) == (21, 128, 391)
+    assert smem == 62952
+    assert _cuda.WIDE_BLOCKS_PER_SM * (smem + 1024) <= SM_SMEM
+    assert _cuda.wide_stride(w) >= 6

@@ -48,9 +48,13 @@ RESERVED = 1024
 #: lo) and its words, as K1 would: a quiet lane's child is the row, an
 #: inactive lane's is left zero (its fingerprint the row's); a wide
 #: model's fingerprint folds every word of the child (RowOut), an edit
-#: model's, and a group model's crash or restart child's, is the row's
-#: folds with the words the child changes refolded (fold.cuh
-#: fold_change, as step_common.cuh's K1 takes it)
+#: model's, and a crash or restart child's, is the row's folds with the
+#: words the child changes refolded (fold.cuh fold_change, as
+#: step_common.cuh's K1 takes it); a crash or restart child is its edit
+#: and fingerprint (crash_child, a thread's) and its words (crash_write,
+#: a group's lanes), a group model's delivery with crash lanes its record
+#: (deliver_scalar, a thread's) and its child (deliver_group, the
+#: group's)
 HOST_SOURCE = r"""
 #define __device__
 #define __host__
@@ -65,6 +69,7 @@ HOST_SOURCE = r"""
 using std::min;
 using std::max;
 inline int __popc(unsigned x) { return __builtin_popcount(x); }
+inline int __clz(unsigned x) { return x ? __builtin_clz(x) : 32; }
 #include "abd.cuh"
 #include "fold.cuh"
 #include "paxos.cuh"
@@ -83,6 +88,18 @@ void fold_row(const uint32_t* w, int W, uint32_t& h1, uint32_t& h2) {
   for (int k = 0; k < W; ++k) fold_word(h1, h2, k, w[k]);
 }
 
+// a crash or restart lane's child as K1 takes it: its edit and
+// fingerprint by a thread, its words by the lanes of a group (one here)
+template <class M>
+bool crash_lane(const M& m, const uint32_t* w, int e, uint32_t* out,
+                uint32_t* fp) {
+  uint32_t r1, r2;
+  fold_row(w, m.width(), r1, r2);
+  const auto ed = m.crash_child(w, e, r1, r2, fp[0], fp[1]);
+  m.crash_write(w, ed, 0, 1, out);
+  return ed.valid;
+}
+
 // the lanes K1 steps: those below the quiet lane, or a crash model's
 // active lanes (step_common.cuh CrashLanes)
 template <class M>
@@ -95,37 +112,6 @@ uint32_t stepped_lanes(const M& m, const uint32_t* w, int A) {
   }
 }
 
-template <class M>
-void step_wide(const M& m, const uint32_t* rows, int f, uint32_t* out) {
-  const int W = m.width(), A = m.max_actions();
-  constexpr bool kCrash = actor::HasCrash<M>::value;
-  for (int r = 0; r < f; ++r) {
-    const uint32_t* w = rows + (long)r * W;
-    *out++ = m.props_row(w);
-    const uint32_t on = stepped_lanes(m, w, A);
-    for (int e = 0; e < A; ++e) {
-      uint32_t* flags = out++;
-      uint32_t* fp = out;
-      out += 2;
-      bool ovf = false, v = false;
-      const bool stepped = (on >> e) & 1u;
-      uint32_t h1, h2;
-      if (stepped) {
-        Out o{out};
-        v = m.step_row(w, e, o, ovf);
-        fold_row(out, W, h1, h2);
-      } else if (kCrash) {  // unwritten, the row's fingerprint
-        fold_row(w, W, h1, h2);
-      } else {
-        for (int k = 0; k < W; ++k) out[k] = w[k];
-        fold_row(out, W, h1, h2);
-      }
-      fp64_finish(h1, h2, W, fp[0], fp[1]);
-      *flags = (v ? 1u : 0u) | (ovf ? 2u : 0u) | (stepped ? 4u : 0u);
-      out += W;
-    }
-  }
-}
 
 // K1's edit branch on the host: per active lane the edit, its columns
 // (edit_head) and each child word from the row word (child_word); the
@@ -243,17 +229,36 @@ bool run_group(int G, void (*body)(int)) {
   }
 }
 
-// One child by a group: the model, its row and lane, and each lane's
-// results (which must agree).
+// One child by a group: the model, its row and lane, a delivery's record
+// (a group model with crash lanes: phase A's), and each lane's results
+// (which must agree).
 struct GroupTask {
   const void* m;
   const uint32_t* w;
   int e;
   uint32_t* dst;
+  const void* rec;
   bool v[32], ovf[32];
   uint32_t hi[32], lo[32];
 };
 GroupTask task;
+
+// a delivery's record type (a group model with crash lanes), or none
+template <class M>
+struct RecordOf {
+  using type = typename M::Record;
+};
+struct NoRecord {
+  struct type {};
+};
+
+bool group_agrees(int G) {
+  for (int x = 1; x < G; ++x)
+    if (task.v[x] != task.v[0] || task.ovf[x] != task.ovf[0] ||
+        task.hi[x] != task.hi[0] || task.lo[x] != task.lo[0])
+      return false;
+  return true;
+}
 
 template <class M>
 void group_body(int r) {
@@ -261,15 +266,56 @@ void group_body(int r) {
   const HostGroup g{r, sched.G};
   bool ovf = false;
   if constexpr (actor::HasCrash<M>::value) {
-    uint32_t r1, r2;
-    fold_row(task.w, m.width(), r1, r2);
-    task.v[r] = m.step_group(task.w, task.e, g, task.dst, ovf, task.hi[r],
-                             task.lo[r], r1, r2);
+    task.v[r] = m.deliver_group(
+        task.w, task.e, *static_cast<const typename M::Record*>(task.rec),
+        g, task.dst, ovf, task.hi[r], task.lo[r]);
   } else {
     task.v[r] = m.step_group(task.w, task.e, g, task.dst, ovf, task.hi[r],
                              task.lo[r]);
   }
   task.ovf[r] = ovf;
+}
+
+// K1's wide branch on the host: every lane below the quiet lane through
+// step_row (the child folded in full, RowOut), the quiet lanes the row;
+// with crash lanes the active deliveries through step_row, each crash or
+// restart child as crash_lane, the inactive lanes unwritten (their
+// fingerprint the row's)
+template <class M>
+int step_wide(const M& m, const uint32_t* rows, int f, uint32_t* out) {
+  const int W = m.width(), A = m.max_actions();
+  constexpr bool kCrash = actor::HasCrash<M>::value;
+  for (int r = 0; r < f; ++r) {
+    const uint32_t* w = rows + (long)r * W;
+    *out++ = m.props_row(w);
+    const uint32_t on = stepped_lanes(m, w, A);
+    uint32_t r1, r2;
+    fold_row(w, W, r1, r2);
+    for (int e = 0; e < A; ++e) {
+      uint32_t* flags = out++;
+      uint32_t* fp = out;
+      out += 2;
+      bool ovf = false, v = false;
+      const bool stepped = (on >> e) & 1u;
+      uint32_t h1 = r1, h2 = r2;
+      bool crash = false;
+      if constexpr (kCrash) crash = stepped && e >= m.E;
+      if (crash) {
+        if constexpr (kCrash) v = crash_lane(m, w, e, out, fp);
+      } else if (stepped) {
+        Out o{out};
+        v = m.step_row(w, e, o, ovf);
+        fold_row(out, W, h1, h2);
+      } else if (!kCrash) {
+        for (int k = 0; k < W; ++k) out[k] = w[k];
+        fold_row(out, W, h1, h2);
+      }
+      if (!crash) fp64_finish(h1, h2, W, fp[0], fp[1]);
+      *flags = (v ? 1u : 0u) | (ovf ? 2u : 0u) | (stepped ? 4u : 0u);
+      out += W;
+    }
+  }
+  return 0;
 }
 
 // K1's group branch on the host: every lane below the quiet lane (a
@@ -293,13 +339,20 @@ int step_group(const M& m, int G, const uint32_t* rows, int f,
       out += 2;
       bool ovf = false, v = false;
       const bool stepped = (on >> e) & 1u;
-      if (stepped) {
-        task = GroupTask{&m, w, e, out};
+      bool crash = false;
+      if constexpr (kCrash) crash = stepped && e >= m.E;
+      if (crash) {
+        if constexpr (kCrash) v = crash_lane(m, w, e, out, fp);
+      } else if (stepped) {
+        // with crash lanes phase A by one thread, then the group
+        task = GroupTask{&m, w, e, out, nullptr};
+        typename std::conditional_t<kCrash, RecordOf<M>, NoRecord>::type rec;
+        if constexpr (kCrash) {
+          m.deliver_scalar(w, e, rec);
+          task.rec = &rec;
+        }
         if (!run_group(G, group_body<M>)) return 4;
-        for (int x = 1; x < G; ++x)
-          if (task.v[x] != task.v[0] || task.ovf[x] != task.ovf[0] ||
-              task.hi[x] != task.hi[0] || task.lo[x] != task.lo[0])
-            return 5;
+        if (!group_agrees(G)) return 5;
         v = task.v[0];
         ovf = task.ovf[0];
         fp[0] = task.hi[0];
@@ -318,15 +371,50 @@ int step_group(const M& m, int G, const uint32_t* rows, int f,
   return 0;
 }
 
+// a crash model's row lanes by a group of 32 lanes (crash_row_lanes), as
+// K1 takes them: every lane's results
+struct RowLanesTask {
+  const void* m;
+  const uint32_t* w;
+  uint32_t pb[32], mask[32];
+};
+RowLanesTask lanes_task;
+
+template <class M>
+void row_lanes_body(int r) {
+  const M& m = *static_cast<const M*>(lanes_task.m);
+  m.row_lanes(lanes_task.w, HostGroup{r, 32}, lanes_task.pb[r],
+              lanes_task.mask[r]);
+}
+
+// per row: the warp's property bits and lanes, then props_row's and
+// active_lanes' (a thread's); 4 when the lanes disagree
+template <class M>
+int row_lanes(const M& m, const uint32_t* rows, int f, uint32_t* out) {
+  const int W = m.width();
+  for (int r = 0; r < f; ++r) {
+    const uint32_t* w = rows + (long)r * W;
+    lanes_task = RowLanesTask{&m, w};
+    if (!run_group(32, row_lanes_body<M>)) return 4;
+    for (int x = 1; x < 32; ++x)
+      if (lanes_task.pb[x] != lanes_task.pb[0] ||
+          lanes_task.mask[x] != lanes_task.mask[0])
+        return 4;
+    *out++ = lanes_task.pb[0];
+    *out++ = lanes_task.mask[0];
+    *out++ = m.props_row(w);
+    *out++ = m.active_lanes(w);
+  }
+  return 0;
+}
+
 // the model's K1: a wide model's RowOut (lanes 0), a group model's group
 // branch with groups of that many lanes
 template <class M>
 int run(const M& m, int lanes, const uint32_t* rows, int f, uint32_t* out) {
   if (!m.ok()) return 1;
   if constexpr (std::is_base_of_v<PaxosModel, M>) {
-    if (lanes) return 6;
-    step_wide(m, rows, f, out);
-    return 0;
+    return lanes ? 6 : step_wide(m, rows, f, out);
   } else {
     return lanes ? step_group(m, lanes, rows, f, out) : 6;
   }
@@ -340,12 +428,16 @@ int h_reg_chan(uint32_t src, uint32_t dst, int c, int s) {
 void h_reg_chan_ends(int ch, int c, int s, uint32_t* src, uint32_t* dst) {
   actor::reg_chan_ends(ch, c, s, *src, *dst);
 }
-// 0: the shared row's words, 1: the edit's (OrderedEdit), by model
+// 0: the shared row's words, 1: the edit's (OrderedEdit) or a delivery
+// record's (DeliveryRecord, made odd: step_common.cuh slot_words), by
+// model
 int h_words(const char* name, int what) {
   const std::string n(name);
   if (n == "abd_ordered")
     return what ? (int)(sizeof(AbdOrderedModel::Edit) / 4)
                 : AbdOrderedModel::W;
+  if (n == "write_once" && what)
+    return (int)(sizeof(WriteOnceModel::Record) / 4) | 1;
   if (n == "abd") return AbdModel::W;
   if (n == "single_copy") return SingleCopyModel::W;
   if (n == "paxos") return PaxosModel::W;
@@ -377,6 +469,19 @@ int h_step(const char* name, const int* p, int np, int lanes,
     return run(WriteOnceModel(p[0], p[1], p[2], cr), lanes, rows, f, out);
   return 2;
 }
+// a crash model's row lanes (row_lanes above)
+int h_row_lanes(const char* name, const int* p, int np, const uint32_t* rows,
+                int f, uint32_t* out) {
+  const std::string n(name);
+  if (np != 8) return 2;
+  const actor::CrashSpec cr{p[3], p[4], (uint32_t)p[5], (uint32_t)p[6],
+                            (uint32_t)p[7]};
+  if (n == "paxos_crash")
+    return row_lanes(PaxosCrashModel(p[0], p[1], p[2], cr), rows, f, out);
+  if (n == "write_once")
+    return row_lanes(WriteOnceModel(p[0], p[1], p[2], cr), rows, f, out);
+  return 2;
+}
 }
 """
 
@@ -404,6 +509,8 @@ def host(tmp_path_factory):
     h.h_step.argtypes = [ctypes.c_char_p, ctypes.c_void_p, ctypes.c_int,
                          ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
                          ctypes.c_void_p]
+    h.h_row_lanes.argtypes = [ctypes.c_char_p, ctypes.c_void_p, ctypes.c_int,
+                              ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
     return h
 
 
@@ -551,6 +658,78 @@ def test_group_k1_launch_fits_at_every_admitted_unordered_configuration():
                 <= BLOCK_SMEM
             assert _cuda.GROUP_BLOCKS_PER_SM * (smem + RESERVED) <= SM_SMEM
     assert n == 7 * 4 * 4 * 2
+
+
+def _write_once_smem(rows, a, threads):
+    """The write-once register's K1 shared memory: as ``_group_smem`` but
+    a thread's slot the delivery record of its phase A
+    (``GROUP_RECORD_WORDS``: 27 words)."""
+    return (rows * (4 * 128 + 16)
+            + 4 * (4 * (rows + 1) + rows * a + 27 * threads))
+
+
+def _admitted_write_once():
+    """Write-once configurations ``cuda_spec`` admits, with and without
+    crash/restart: up to 7 clients, 4 servers, 16 slots, 8 actors."""
+    for c in range(1, 8):
+        for s in range(1, 5):
+            if c + s > 8:
+                continue
+            for e in (1, 8, 16):
+                yield PackedWriteOnce(c, server_count=s, net_capacity=e)
+                yield PackedWriteOnce(c, server_count=s, net_capacity=e,
+                                      durable=False).crash_restart(2)
+                yield PackedWriteOnce(c, server_count=s,
+                                      net_capacity=e).crash_restart(
+                                          7, actors=[0])
+
+
+def test_group_record_is_the_devices(host):
+    """The host's words of a delivery record (``GROUP_RECORD_WORDS``, a
+    thread's slot in the write-once register's K1) are the device
+    struct's (``actor_net.cuh`` ``DeliveryRecord<WriteOnceModel>``: the
+    history's 22 words, one new destination word, a send's three, the
+    flags) made odd, so that the 32 threads of a warp write word ``q`` of
+    their records to 32 distinct banks and a group reads one record's
+    consecutive words from distinct banks; the crash edit a crash lane's
+    thread leaves in the same slot fits it."""
+    words = _cuda.GROUP_RECORD_WORDS["write_once"]
+    assert words == host.h_words(b"write_once", 1) == (22 + 1 + 3 + 1) | 1
+    assert set(_cuda.GROUP_RECORD_WORDS) <= set(_cuda.GROUP_MODELS)
+    lane = np.arange(32)
+    for q in range(words):
+        assert len(set(((lane * words + q) % 32).tolist())) == 32
+    assert len(set(((5 * words + np.arange(words)) % 32).tolist())) == \
+        min(words, 32)
+
+
+@pytest.mark.parametrize("sms", [1, 132])
+def test_write_once_k1_launch_fits(sms):
+    """At every admitted write-once configuration and frontier the group
+    K1's launch (``k1_launch``) holds at most 32 rows a block, the
+    records of its 128 threads in shared memory, blocks that cover the
+    frontier, and ``GROUP_BLOCKS_PER_SM`` blocks fit an SM's shared
+    memory; a delivery lane is a network slot (at most ``kGroupLanes``)
+    and the crash lanes fit the 32-lane mask."""
+    n = 0
+    for model in _admitted_write_once():
+        name = model.cuda_spec()[0]
+        a, w = model.max_actions, model.packed_width
+        assert name == "write_once" and _cuda.pending_rows(name)
+        assert w <= _cuda.row_words(name) and a <= 32
+        assert a - 2 * len(getattr(model, "_crash_idx", ())) \
+            <= _step_constant("kGroupLanes")
+        n += 1
+        for f in (1, 37, 256, 1024, 7281, 12288):
+            geo = _cuda.tile_geometry(f, a, sms)
+            wide, smem = _cuda.k1_launch(name, geo, f, w, a, sms)
+            assert 1 <= wide.rows <= _cuda.WIDE_ROWS
+            assert wide.threads == _cuda.GROUP_THREADS
+            assert wide.blocks * wide.rows >= f > (wide.blocks - 1) * wide.rows
+            assert smem == _write_once_smem(wide.rows, a, wide.threads) \
+                <= BLOCK_SMEM
+            assert _cuda.GROUP_BLOCKS_PER_SM * (smem + RESERVED) <= SM_SMEM
+    assert n == 22 * 3 * 3
 
 
 def test_group_k1_launch_at_the_register_steps():
@@ -846,6 +1025,46 @@ def test_k1_child_fingerprint_is_fp64_of_the_child(host, config):
         assert poisoned > 0
     if config in ("abd-ordered-3x2-d8", "abd-ordered-2x3-d8"):
         assert w > 128
+
+
+@pytest.mark.parametrize("config", [c for c in HOST_STEPS
+                                    if HOST_STEPS[c]().cuda_spec()[0]
+                                    in CRASH_MODELS])
+def test_crash_row_lanes_by_a_warp_are_the_threads(host, config):
+    """K1 takes a crash model's property bits and active lanes with a
+    warp per row (``actor_net.cuh`` ``crash_row_lanes``: lane r reads
+    slot r, every test a ballot): on reachable rows, rows at the crash
+    budget and rows with crowded networks, every lane of the warp agrees
+    and they equal the thread's walks (``props_row``, ``active_lanes``),
+    which the device step tests hold to the plain step."""
+    model = HOST_STEPS[config]()
+    name, params = model.cuda_spec()
+    rows = _reachable(model, 300)
+    rng = np.random.default_rng(11)
+    if model.max_crashes_:
+        rows = np.concatenate([rows, _at_budget(model, rows, rng, 100)])
+    # rows whose networks fill up to each slot count (zero tails at
+    # every slot), as a search's crowded rows
+    full = rows[rng.choice(len(rows), 64)].copy()
+    e = model.net_capacity
+    for k, row in enumerate(full):
+        n = k % (e + 1)
+        net = row[model._net_off:model._timer_off].reshape(e, 4)
+        net[n:] = 0
+        for j in range(n):
+            if not net[j].any():
+                net[j] = [(1 << 16) | (j % 3), 1, (4 << 24) | (j % 5), 0]
+    rows = np.ascontiguousarray(np.concatenate([rows, full]),
+                                dtype=np.uint32)
+    f = rows.shape[0]
+    out = np.zeros((f, 4), dtype=np.uint32)
+    p = np.asarray(params, dtype=np.int32)
+    assert host.h_row_lanes(name.encode(), p.ctypes.data, len(p),
+                            rows.ctypes.data, f, out.ctypes.data) == 0
+    assert np.array_equal(out[:, 0], out[:, 2])
+    assert np.array_equal(out[:, 1], out[:, 3])
+    assert (out[:, 0] & 2).any() or config.startswith("paxos")
+    assert len(set(out[:, 1].tolist())) > 4
 
 
 def _chunk_constant(name):

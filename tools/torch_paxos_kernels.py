@@ -13,13 +13,20 @@ plain version; K1's own device ms from ``torch.profiler``, the step's
 CUDA-event ms) and K8 over the rows the next step appends
 (``check_history``: the search's own table, an empty one and keyed by
 the actor words, each against the plain version; device ms and CUDA-event
-ms per case), then the narrow K1 beside them (TwoPhaseSys(7) and
-IncrementLock(9) at 12,288 rows). Each tree runs them with its own
+ms per case), then K1's crash instantiation (``paxos_crash``) at the
+mid-search 8,192-row step of PackedPaxos(3).crash_restart(1,
+actors=[0, 1, 2]) (``chip_smoke.py``'s, gated: ``torch_register_kernels.py``
+``crash_step``: the median device ms of five traces, the delivery, crash
+and restart children it builds, lane for lane against the plain version
+on its active lanes, and K1's phase clocks from a build with
+``-DSRT_K1_PHASES``), then the narrow K1 beside them (TwoPhaseSys(7)
+and IncrementLock(9) at 12,288 rows). Each tree runs them with its own
 ``chip_smoke.py``, and
 prints a digest of the carry it built, so two trees are compared on the
 same carry (the loop's lowest-lane rule makes it the same). Then each
 tree runs the BASELINE workload (PackedPaxos(3), ``capacity=1<<21``,
-``race=False``, ``target_state_count(500_000)``) twice for its wall and
+``race=False``, ``target_state_count(500_000)``) and the same under
+``crash_restart(1, actors=[0, 1, 2])``, each twice for its wall and
 once under ``torch.profiler`` (device ms by kernel, busy share).
 
 ``--old DIR`` also times another tree of the repository (the parent
@@ -45,6 +52,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 #: the kernels whose registers each line reports (``chip_smoke.py``
 #: ``ptxas_usage`` names, by library)
 KERNELS = (("fused_step", "expand_kernel[PaxosModel]"),
+           ("fused_step", "expand_kernel[PaxosCrashModel]"),
            ("history", "history_kernel"))
 
 
@@ -108,6 +116,12 @@ def run_tree(tree: str, reps: int) -> int:
                       "max_abs_err": hist["max_abs_err"],
                       "checks": hist["checks"]}), flush=True)
     del carry
+    from torch_register_kernels import crash_step
+    line, crash_finish = crash_step(
+        smoke, _cuda, tree, smoke._paxos_crash(3), "paxos_crash",
+        "PackedPaxos(3).crash_restart(1, actors=[0, 1, 2])", 8192, 8192,
+        reps)
+    print(json.dumps({**head, **line}), flush=True)
     # the narrow K1 instantiations (the register-array path), which the
     # wide branch must leave as they were
     for label, nmodel in (("2pc7", pkg.TwoPhaseSys(7)),
@@ -144,6 +158,32 @@ def run_tree(tree: str, reps: int) -> int:
                                    if k in ("cudaGraphLaunch",
                                             "cudaLaunchKernel")}}),
           flush=True)
+    # the BASELINE workload under crashes, bounded as the BASELINE run
+    def crash_run():
+        return smoke._paxos_crash(3).checker().gpu_options(
+            race=False, capacity=1 << 21).target_state_count(
+                smoke.PAXOS3_TARGET).spawn_gpu().join()
+
+    path = ("fused_step", "chunk_begin", "append", "history", "hpull")
+    for turn in range(2):
+        res, ck = smoke.register_run(
+            smoke._paxos_crash(3), path, holds=("linearizable",),
+            found=("value chosen",), target=smoke.PAXOS3_TARGET,
+            capacity=1 << 21)
+        del ck
+        print(json.dumps({**head, "run": "paxos check 3 under crashes",
+                          "turn": turn, **{k: res.get(k) for k in (
+                              "wall_s", "unique", "generated", "loop_s",
+                              "host_eval_s", "iterations", "histories",
+                              "launches", "checks")}}), flush=True)
+    prof = smoke.device_times(crash_run)
+    print(json.dumps({**head, "run": "paxos check 3 under crashes",
+                      "profiled": True, **{k: prof.get(k) for k in (
+                          "loop_s", "busy", "ours_ms", "torch_ms",
+                          "copy_ms", "by_kernel_ms", "by_kernel_calls",
+                          "graph_launches")}}), flush=True)
+    # the crash step's plain version and phase clocks, every trace taken
+    print(json.dumps({**head, **crash_finish()}), flush=True)
     return 0
 
 

@@ -24,10 +24,20 @@ bound (bytes of the rows it steps, their children and the lanes' keys and
 flags). Then the kernels the redesign must leave as they were, timed
 alike: K1-abd_ordered at its three ``chip_smoke.py`` steps,
 TwoPhaseSys(7) and IncrementLock(9) at 12,288 rows, PackedPaxos(3) at
-8,192, and K7 at 2pc7's rows and at tpu_abd2's 331-word rows. Last,
-PackedAbd(2) (544 states) and PackedSingleCopy(3) (4,243) end to end,
-twice each for the wall and once under ``torch.profiler`` (device ms by
-kernel, busy share).
+8,192, and K7 at 2pc7's rows and at tpu_abd2's 331-word rows. Then
+K1-write_once (``CRASH_STEPS``: PackedWriteOnce(7, net_capacity=16)
+.crash_restart(2, actors=[0]) at its run's 256-row step and at 1,024
+rows all pending; ``crash_step``), timed alike, with the delivery, crash
+and restart children it builds. Then PackedAbd(2) (544 states) and
+PackedSingleCopy(3) (4,243) end to end, twice each for the wall and once
+under ``torch.profiler`` (device ms by kernel, busy share). Last, every
+trace taken, each crash step held lane for lane to its plain version on
+its active lanes, and K1's phase clocks read over it: a build of the
+tree's kernels with ``-DSRT_K1_PHASES`` (``build/k1_phases``; a tree
+whose sources have no clocks reads none) adds, per block, the SM clock
+ticks of K1's prologue, delivery children, crash and restart children
+and tail (``csrc/step_common.cuh`` ``K1Clock``: a barrier ends each
+phase in that build only).
 
 ``--sweep`` times K1-abd and K1-single_copy instead at each of
 ``GROUP_STEPS`` over other launches of this tree (no rebuild:
@@ -63,6 +73,8 @@ KERNELS = (("fused_step", "expand_kernel[AbdModel]"),
            ("fused_step", "expand_kernel[PaxosModel]"),
            ("fused_step", "expand_kernel[TwoPcModel]"),
            ("fused_step", "expand_kernel[IncrementLockModel]"),
+           ("fused_step", "expand_kernel[WriteOnceModel]"),
+           ("fused_step", "expand_kernel[PaxosCrashModel]"),
            ("chunk", "append_kernel[1x128]"),
            ("chunk", "append_kernel[4x256]"),
            ("chunk", "append_kernel[16x256]"))
@@ -93,6 +105,23 @@ OTHER_STEPS = (
     ("2pc7", None, "twopc", 12288, 12288),
     ("lock9", None, "increment_lock", 12288, 12288),
     ("paxos3", None, "paxos", 8192, 8192))
+#: K1-write_once's steps (``chip_smoke.py`` ``CRASH_STEPS``): its run's
+#: 256-row step (~200 pending) and 1,024 rows all pending
+CRASH_STEPS = (
+    ("PackedWriteOnce(7)", lambda s: s._write_once(7, net_capacity=16,
+                                                   crashes=2),
+     "write_once", 256, 200),
+    ("PackedWriteOnce(7) at 1,024 rows",
+     lambda s: s._write_once(7, net_capacity=16, crashes=2), "write_once",
+     1024, 1024))
+#: the instantiations with crash/restart lanes
+CRASH_NAMES = ("write_once", "paxos_crash")
+#: the define a build with K1's phase clocks passes to nvcc
+#: (``csrc/step_common.cuh`` ``K1Clock``), its build directory and the
+#: phases in the order of ``k1_phase_ticks``
+PHASE_DEFINE = "-DSRT_K1_PHASES"
+PHASE_BUILD = os.path.join("build", "k1_phases")
+PHASES = ("rows", "deliveries", "crashes", "tail")
 
 
 def card() -> str:
@@ -110,20 +139,23 @@ def carry_digest(carry) -> str:
     return h.hexdigest()[:16]
 
 
-def held(model, name: str, frontier, take: int):
+def held(smoke, model, name: str, frontier, take: int):
     """The lanes and rows whose outputs this tree's K1 writes (bool
     tensors): the pending rows of a group model (``abd``,
-    ``single_copy``), every row of the others; and of their lanes those
-    below the quiet lane (a group model) or of non-empty channels
-    (``abd_ordered``)."""
+    ``single_copy``, ``write_once``), every row of the others; and of
+    their lanes those below the quiet lane (a group model), of non-empty
+    channels (``abd_ordered``) or active (a model with crash lanes:
+    ``chip_smoke.py`` ``crash_active``)."""
     import torch
 
     f, a = frontier.shape[0], model.max_actions
     dev = frontier.device
-    group = name in ("abd", "single_copy")
+    group = name in ("abd", "single_copy", "write_once")
     rows = torch.arange(f, device=dev) < (take if group else f)
     lanes = rows.repeat_interleave(a)
-    if name == "abd_ordered":
+    if name in CRASH_NAMES:
+        lanes &= smoke.crash_active(model)(frontier)
+    elif name == "abd_ordered":
         lens = frontier[:, model._net_off:model._net_off + model._n_chan]
         lanes &= (lens != 0).reshape(-1)
     elif name in ("abd", "single_copy"):
@@ -134,6 +166,81 @@ def held(model, name: str, frontier, take: int):
         lanes &= (torch.arange(e, device=dev)[None, :]
                   < quiet[:, None]).reshape(-1)
     return lanes, rows
+
+
+def children(smoke, model, frontier, take: int) -> dict:
+    """The children K1 builds over the first ``take`` rows of
+    ``frontier`` (a model with crash lanes: ``chip_smoke.py``
+    ``crash_active``): deliveries, crashes and restarts."""
+    a, e = model.max_actions, model.net_capacity
+    n = len(model._crash_idx)
+    act = smoke.crash_active(model)(frontier[:take]).reshape(take, a)
+    return {"deliveries": int(act[:, :e].sum()),
+            "crashes": int(act[:, e:e + n].sum()),
+            "restarts": int(act[:, e + n:].sum())}
+
+
+def use_phase_build(cuda, tree: str):
+    """Load the kernels of ``tree`` built with K1's phase clocks
+    (``PHASE_DEFINE``, in ``PHASE_BUILD`` under the tree) in place of the
+    loaded ones. Returns a function that puts the loaded ones back."""
+    from pathlib import Path
+
+    saved = (cuda._LIB, cuda._BUILD, cuda._NVCC_FLAGS, dict(cuda.BUILD_INFO))
+    cuda._LIB = None
+    cuda._BUILD = Path(tree) / PHASE_BUILD
+    cuda._NVCC_FLAGS = [*cuda._NVCC_FLAGS, PHASE_DEFINE]
+    cuda.BUILD_INFO.clear()
+    cuda.build()
+
+    def restore():
+        cuda._LIB, cuda._BUILD, cuda._NVCC_FLAGS = saved[:3]
+        cuda.BUILD_INFO.clear()
+        cuda.BUILD_INFO.update(saved[3])
+    return restore
+
+
+def k1_phases(smoke, model, carry, f: int, reps: int):
+    """K1's phase clocks over ``reps`` gated steps of ``f`` rows of
+    ``carry`` (the phase build loaded: :func:`use_phase_build`): per
+    phase the SM clock ticks a block spent in it, and its share of the
+    block's; None where the tree's K1 has no clocks."""
+    import ctypes
+
+    import torch
+
+    from stateright_tpu_torch.ops import _cuda
+    from stateright_tpu_torch.ops.fused import StepWorkspace
+
+    read = getattr(_cuda._LIB["fused_step"], "srt_k1_phase_ticks", None)
+    if read is None:
+        return None
+    read.argtypes = [ctypes.c_void_p]
+    read.restype = ctypes.c_int
+    ticks = (ctypes.c_ulonglong * (len(PHASES) + 1))()
+    _block, args = smoke.block_args(model, carry, f)
+    take = min(carry.q_tail - carry.q_head, f)
+    table, ring = carry.table.clone(), carry.ring.clone()
+    ws = StepWorkspace(table.numel(), ring.shape[0],
+                       len(model.properties()), table.device)
+    launch, bump = gated_launch(model, args, table, ring, ws, take)
+    launch()
+    torch.cuda.synchronize()
+    if read(ticks):
+        raise RuntimeError("srt_k1_phase_ticks failed")
+    for _ in range(reps):
+        table.copy_(carry.table)
+        ring.copy_(carry.ring)
+        bump()
+        launch()
+    if read(ticks):
+        raise RuntimeError("srt_k1_phase_ticks failed")
+    blocks = max(int(ticks[len(PHASES)]), 1)  # over the reps launches
+    per = [ticks[i] / blocks for i in range(len(PHASES))]
+    total = sum(per) or 1.0
+    return {"blocks_per_launch": blocks / reps,
+            "ticks_per_block": dict(zip(PHASES, per)),
+            "share": dict(zip(PHASES, (p / total for p in per)))}
 
 
 def gated_launch(model, args, table, ring, ws, take: int):
@@ -191,7 +298,7 @@ def time_k1(smoke, model, name: str, carry, f: int, reps: int) -> dict:
     torch.cuda.synchronize()
     a, w = model.max_actions, model.packed_width
     lanes = f * a
-    written, rows = held(model, name, args[0], take)
+    written, rows = held(smoke, model, name, args[0], take)
     h = hashlib.sha256()
     for nm in ("flat", "chi", "clo"):
         h.update(getattr(out, nm)[written].cpu().numpy().tobytes())
@@ -226,6 +333,49 @@ def time_k1(smoke, model, name: str, carry, f: int, reps: int) -> dict:
             "k1_device_ms": by.get("expand_kernel"),
             "by_kernel_ms": by, "k1_bytes": k1_bytes,
             "k1_bound_ms": k1_bytes / HBM_BYTES_S * 1e3}
+
+
+def crash_step(smoke, cuda, tree: str, model, name: str, label: str,
+               rows: int, pending: int, reps: int):
+    """K1's crash instantiation ``name`` at a gated step of ``rows`` rows
+    of a mid-search carry of ``model`` (at least ``pending`` pending):
+    :func:`time_k1`'s line with the children it builds
+    (:func:`children`). Returns the line and a function to call once
+    every trace is taken (traces taken after a plain version or another
+    build may lose K1's record): it holds the step lane for lane to its
+    plain version on its active lanes (``chip_smoke.py`` ``check_step``)
+    and reads K1's phase clocks (the tree's phase build, where its
+    sources have the clocks: :func:`k1_phases`), and returns their line."""
+    import torch
+
+    carry = smoke.mid_search_carry(model, torch.device("cuda", 0),
+                                   rows=rows, pending=pending)
+    res = time_k1(smoke, model, name, carry, rows, reps)
+    _block, args = smoke.block_args(model, carry, rows)
+    line = {"kernel": f"K1-{name}", "model": label,
+            "carry": carry_digest(carry), "width": model.packed_width,
+            **res, "children": children(smoke, model, args[0],
+                                        res["pending"])}
+
+    def finish() -> dict:
+        check = smoke.check_step(model, carry, rows, reps=1,
+                                 active=smoke.crash_active(model),
+                                 gated=True)
+        phases = None
+        src = os.path.join(tree, "stateright_tpu_torch", "csrc",
+                           "step_common.cuh")
+        with open(src) as fh:
+            clocked = "SRT_K1_PHASES" in fh.read()
+        if clocked:
+            restore = use_phase_build(cuda, tree)
+            try:
+                phases = k1_phases(smoke, model, carry, rows, reps)
+            finally:
+                restore()
+        return {"kernel": f"K1-{name}", "model": label,
+                "carry": line["carry"], "plain_ms": check["plain_ms"],
+                "checks": check["checks"], "phases": phases}
+    return line, finish
 
 
 #: ``--sweep``'s launches: (threads a block, blocks an SM)
@@ -315,6 +465,12 @@ def run_tree(tree: str, reps: int) -> int:
                      "bytes", "bound_ms", "bound_by", "max_abs_err",
                      "checks")})
         del carry
+    crash_checks = []
+    for label, make, name, rows, pending in CRASH_STEPS:
+        line, finish = crash_step(smoke, _cuda, tree, make(smoke), name,
+                                  label, rows, pending, reps)
+        emit(**line)
+        crash_checks.append(finish)
     # the unordered register runs end to end
     path = ("fused_step", "chunk_begin", "append", "history", "hpull")
     runs = (("abd2", lambda: smoke._abd(2), smoke.PIN_ABD2),
@@ -336,6 +492,9 @@ def run_tree(tree: str, reps: int) -> int:
         emit(run=label, profiled=True, **{k: prof.get(k) for k in (
             "loop_s", "busy", "ours_ms", "torch_ms", "copy_ms",
             "by_kernel_ms", "by_kernel_calls", "graph_launches")})
+    # the crash steps' plain versions and phase clocks, every trace taken
+    for finish in crash_checks:
+        emit(**finish())
     return 0
 
 
