@@ -189,6 +189,38 @@ Phases, one JSON line each:
              ``race=False``, bounded at ``PAXOS3_TARGET``: its full space
              is too large for the JAX package's host BFS), with a
              profiled repeat.
+11. lossy  — the lossy drop lanes, the duplicating network and the
+             device timers on the card: its kernels right after the
+             crash kernels (phase ``kernels`` with ``model`` and
+             ``instantiation``), the runs after phase ``crash`` (phase
+             ``lossy``). K1's ``paxos_lossy`` (``csrc/paxos.cuh``
+             ``PaxosLossyModel``, the wide K1 with drop lanes) at a
+             mid-search 8,192-row step of PackedPaxos(2).lossy_network(
+             True) (92 words, 32 lanes) under its active-lane rule
+             (``lossy_active``), ``ping_pong`` (``csrc/ping_pong.cuh``,
+             the narrow K1) at an 8,192-row frontier of PackedPingPong(7,
+             lossy=True, duplicating=True) (51 words, 32 lanes) and at the
+             widest level (2 rows) of PackedPingPong(7, lossy=True,
+             duplicating=False), and ``timer_count``
+             (``csrc/timer_count.cuh``, the narrow K1 with Timeout lanes)
+             at an 8,192-row frontier of PackedTimerCount(8, 4) (12
+             words, 9 lanes), each gated, with K2/K3, registers and
+             spills (the narrow K1s are held on every lane; their bounds
+             count the lanes ``lossy_active`` names, the children the
+             step needs), and the registers of every
+             earlier K1 instantiation beside them (``REGISTERS``: held
+             unchanged, no spill); the runs, each ``race=False``:
+             lossy PackedPaxos(2) (954,508, ``PIN_PAXOS2_LOSSY``:
+             ``linearizable`` holding through K8, ``value chosen``
+             replayed); PackedPingPong(5) and (7), lossy and duplicating
+             (``PIN_PING5``, ``PIN_PING7``: "delta within 1" holding,
+             "must reach max" found with a witness that replays through a
+             ``Drop``, the canonical ``[Drop(Envelope(Id(0), Id(1),
+             Ping(0)))]`` accepted by ``assert_discovery``);
+             PackedPingPong(5) lossless and non-duplicating
+             (``PIN_PING5_LOSSLESS``: 11 states);
+             PackedTimerCount(8, 4) (``PIN_TIMER8``: "bounded" holding,
+             "all max" found).
 
 Then a ``kernels`` line (the contract's per-kernel record), the card's name
 and power limit from ``nvidia-smi``, and as the last line
@@ -363,6 +395,40 @@ PIN_WO7 = (8_965, 29_146,
 PIN_PAXOS1_CRASH = (7_155, 24_049,
                     "a9224227a226031d2f4f2de3c2401a86"
                     "4dcb761fb655fd229ab03fbb45b0bed3")
+#: The lossy network, the duplicating network and the device timers
+#: (phase ``lossy``): full enumerations from the JAX package's device
+#: engine on the CPU, ``model.checker().tpu_options(capacity=1 << 22,
+#: race=False).spawn_tpu().join()``:
+#:   PackedPaxos(2).lossy_network(True) (92 words, 32 lanes;
+#:       ``linearizable`` holds, ``value chosen`` is found, 8 states)
+PIN_PAXOS2_LOSSY = (954_508, 5_060_177,
+                    "7e116ed5541dd3c1fe19959bc1c78979"
+                    "293813429d83672c30b03c641cc33057")
+#:   PackedPaxos(1).lossy_network(True)
+PIN_PAXOS1_LOSSY = (2_378, 8_197,
+                    "19c4e123f9b145ff44ac9a828f1160be"
+                    "90beb24a48dda1e72aab5e9791bb54ef")
+#:   PackedPingPong(5, lossy=True, duplicating=True) (51 words, 32 lanes)
+PIN_PING5 = (4_094, 21_505,
+             "bbe0d91b137fa4dbb62d765dabbd48b4"
+             "232775ed819c5efb7d1a1376cbe558a7")
+#:   PackedPingPong(7, lossy=True, duplicating=True) (16 envelopes: the
+#:       most E = 16 holds)
+PIN_PING7 = (65_534, 475_137,
+             "97e53213de167f83c0716e62c048ae7f"
+             "f30f0d248586cd545bd48de5020308df")
+#:   PackedPingPong(5, lossy=False, duplicating=False)
+PIN_PING5_LOSSLESS = (11, 11,
+                      "07737048bb05540f514330e8bf91d6cb"
+                      "ab6ecd62e0355beb61373f13eeaa824d")
+#:   PackedTimerCount(3, 2)
+PIN_TIMER3 = (27, 55,
+              "07eb4129d42b12ebb7385a09070cba0d"
+              "4953f9585596a8a4f8b15504b01c7e14")
+#:   PackedTimerCount(8, 4) (12 words, 9 lanes)
+PIN_TIMER8 = (390_625, 2_500_001,
+              "3dc5f3f241d3c926de2a723af1bb73dc"
+              "27be4acc200d40dad456e436179bdc83")
 
 #: bench.py's widest register row: tpu_abd2, PackedAbd(2,
 #: server_count=3, ordered=True, channel_depth=8), 331 words, bounded
@@ -827,7 +893,7 @@ def gated_step(model, args, table, ring, ws, take: int):
 
 def check_step(model, carry, f: int, reps: int, symmetry: bool = False,
                pfp=None, active=None, defer: bool = False,
-               gated: bool = False):
+               gated: bool = False, needed=None):
     """K1-K3 (one ``fused_step``, the symmetric instantiation under
     ``symmetry``) against ``fused_step_reference`` on the card over ``f``
     rows of ``carry`` (its pending ones valid), by the set gate.
@@ -838,6 +904,9 @@ def check_step(model, carry, f: int, reps: int, symmetry: bool = False,
     outputs: flat, chi and clo are held on the written lanes of pending
     rows, pbits and ebits on pending rows, cvalid and terminal on every
     lane and row, and its bound (``pending_bound``) counts those.
+    ``needed(frontier)`` (a kernel that writes every lane, of a model
+    whose step needs fewer lanes' children) gives the lanes the bound
+    counts, in place of ``active``'s, while every lane is held.
     ``gated`` launches the step as the search does (:func:`gated_step`:
     the pending rows a prefix passed as the gate's ``take``). The kernel
     is timed (CUDA events, then a trace) before its plain version runs:
@@ -877,12 +946,13 @@ def check_step(model, carry, f: int, reps: int, symmetry: bool = False,
 
     def finish():
         return _step_against_plain(model, f, symmetry, active, args, k,
-                                   n_claims, t_after, ms, dev, table0, ring0)
+                                   n_claims, t_after, ms, dev, table0, ring0,
+                                   needed)
     return finish if defer else finish()
 
 
 def _step_against_plain(model, f, symmetry, active, args, k, n_claims,
-                        t_k, ms, dev, table0, ring0) -> dict:
+                        t_k, ms, dev, table0, ring0, needed=None) -> dict:
     """The rest of :func:`check_step`: the plain version on a copy of
     the table and ring the kernel's step started from, held against the
     kernel's outputs ``k`` (and its table after the step, ``t_k``), and
@@ -911,6 +981,7 @@ def _step_against_plain(model, f, symmetry, active, args, k, n_claims,
     lane_exact = ("flat", "chi", "clo", "cvalid", "pbits", "ebits",
                   "terminal") + (("ohi", "olo") if symmetry else ())
     written = None if active is None else active(args[0])
+    need = None if needed is None else needed(args[0])
     rows_held = None  # every row
     pend_rows = not symmetry and _cuda.pending_rows(model.cuda_spec()[0])
     if pend_rows:
@@ -918,6 +989,7 @@ def _step_against_plain(model, f, symmetry, active, args, k, n_claims,
         rows_held = args[2]
         lanes_held = rows_held.repeat_interleave(model.max_actions)
         written = lanes_held if written is None else written & lanes_held
+        need = None if need is None else need & lanes_held
     err = 0
     for name in lane_exact:
         a = getattr(k, name).to(torch.int64)
@@ -969,7 +1041,9 @@ def _step_against_plain(model, f, symmetry, active, args, k, n_claims,
     n_table = int(k.dvalid.sum())
     n_win = int(sk[S_DEDUP]) + int(sk[S_CCH])
     n_ins = len(kk)
-    n_written = lanes if written is None else int(written.sum())
+    if need is None:
+        need = written  # the lanes the bound counts
+    n_written = lanes if need is None else int(need.sum())
 
     cc = ring0.shape[0]
 
@@ -995,8 +1069,8 @@ def _step_against_plain(model, f, symmetry, active, args, k, n_claims,
     # the same with only the pending rows stepped: the least work of the
     # search's own step, a group K1's (``_cuda.pending_rows``)
     pending = int(args[2].sum())
-    pw = (pending * model.max_actions if written is None
-          else int(written[:pending * model.max_actions].sum()))
+    pw = (pending * model.max_actions if need is None
+          else int(need[:pending * model.max_actions].sum()))
     pending_bound = {"rows": pending, "written": pw,
                      **bound(step_bytes(pending, pw),
                              pw * step_ops(model, symmetry) + n_table * 12)}
@@ -2966,7 +3040,8 @@ def active_rule(model, name):
     model's rule (None: every lane)."""
     return {"abd_ordered": ordered_active, "abd": unordered_active,
             "single_copy": unordered_active, "write_once": crash_active,
-            "paxos_crash": crash_active}.get(name, lambda _m: None)(model)
+            "paxos_crash": crash_active,
+            "paxos_lossy": lossy_active}.get(name, lambda _m: None)(model)
 
 
 def ordered_active(model):
@@ -3261,6 +3336,42 @@ PARENT_STRUCTS = {"paxos": "PaxosModel", "abd": "AbdModel",
                   "abd_ordered": "AbdOrderedModel"}
 
 
+def _below_zero_tail(model, frontier):
+    """``(slots, below)``: each row's network slots (int64 ``[f, E,
+    slot words]``: 4 for the register models, 3 for PingPong) and which
+    lie before its zero tail (``actor_net.cuh`` ``zero_tail``), bool
+    ``[f, E]``."""
+    import torch
+    dev = frontier.device
+    f, e = frontier.shape[0], model.net_capacity
+    slots = frontier[:, model._net_off:model._timer_off].reshape(
+        f, e, model._sw).to(torch.int64) & 0xFFFFFFFF
+    live = (slots != 0).any(-1)
+    quiet = (live * torch.arange(1, e + 1, device=dev)).max(-1).values
+    return slots, torch.arange(e, device=dev)[None, :] < quiet[:, None]
+
+
+def lossy_active(model):
+    """The active-lane rule of an instantiation with drop or Timeout
+    lanes: the deliveries and (lossy) the drops of the slots before the
+    network's zero tail (``csrc/actor_net.cuh`` ``drop_active_lanes``),
+    then the Timeout lanes of the actors whose timer bit is set. Every
+    other lane's child is invalid and does not overflow. K1-paxos_lossy
+    writes the active lanes' children only; the narrow K1s write every
+    lane, and their bounds count these."""
+    def active(frontier):
+        import torch
+        below = _below_zero_tail(model, frontier)[1]
+        lanes = [below] * (2 if model.lossy_network_ else 1)
+        if model.device_timers:
+            n = len(model.actor_widths)
+            tw = frontier[:, model._timer_off].to(torch.int64) & 0xFFFFFFFF
+            bits = torch.arange(n, device=frontier.device)
+            lanes.append(((tw[:, None] >> bits) & 1) != 0)
+        return torch.cat(lanes, dim=1).reshape(-1)
+    return active
+
+
 def crash_active(model):
     """The active-lane rule of an instantiation with crash lanes
     (``csrc/actor_net.cuh`` ``crash_active_lanes``): the deliveries below
@@ -3271,12 +3382,7 @@ def crash_active(model):
     def active(frontier):
         import torch
         dev = frontier.device
-        f, e = frontier.shape[0], model.net_capacity
-        slots = frontier[:, model._net_off:model._timer_off].reshape(
-            f, e, 4).to(torch.int64) & 0xFFFFFFFF
-        live = (slots != 0).any(-1)
-        quiet = (live * torch.arange(1, e + 1, device=dev)).max(-1).values
-        below = torch.arange(e, device=dev)[None, :] < quiet[:, None]
+        slots, below = _below_zero_tail(model, frontier)
         if not model.max_crashes_:
             return below.reshape(-1)
         cw = frontier[:, model._crash_off].to(torch.int64) & 0xFFFFFFFF
@@ -3376,6 +3482,200 @@ def crash_phase() -> dict:
            "crash_restart(1, actors=[0, 1, 2]), bounded")
     torch.cuda.synchronize()
     return runs
+
+
+def _paxos_lossy(clients):
+    from stateright_tpu_torch.examples.paxos_packed import PackedPaxos
+    return PackedPaxos(clients).lossy_network(True)
+
+
+def _ping_pong(max_nat, lossy=True, duplicating=True):
+    from stateright_tpu_torch.actor.test_util import PackedPingPong
+    return PackedPingPong(max_nat, lossy=lossy, duplicating=duplicating)
+
+
+def _timer_count(n, max_nat):
+    from stateright_tpu_torch.actor.test_util import PackedTimerCount
+    return PackedTimerCount(n, max_nat)
+
+
+#: the lossy and timer K1 checks (phase ``kernels`` with a ``model``
+#: key), as CRASH_STEPS: the label, the model, its ``cuda_spec`` name,
+#: the rows of the step and the rows pending at it. PingPong(7)'s widest
+#: level holds 10,220 states and TimerCount(8, 4)'s 38,165: both steps
+#: are full. The non-duplicating PingPong(7) (30 states) runs the
+#: consume and the count bump of the same instantiation, at its widest
+#: level of 2 rows.
+LOSSY_STEPS = (
+    ("PackedPaxos(2).lossy_network(True)", lambda: _paxos_lossy(2),
+     "paxos_lossy", 8192, 8192),
+    ("PackedPingPong(7, lossy=True, duplicating=True)",
+     lambda: _ping_pong(7), "ping_pong", 8192, 8192),
+    ("PackedPingPong(7, lossy=True, duplicating=False)",
+     lambda: _ping_pong(7, duplicating=False), "ping_pong", 2, 2),
+    ("PackedTimerCount(8, 4)", lambda: _timer_count(8, 4), "timer_count",
+     8192, 8192),
+)
+#: K1's model struct of each instantiation of phase ``lossy``
+LOSSY_STRUCTS = {"paxos_lossy": "PaxosLossyModel",
+                 "ping_pong": "PingPongModel",
+                 "timer_count": "TimerCountModel"}
+#: the registers a thread of every earlier K1 instantiation takes (ptxas,
+#: the parent tree's build on an H100), which the drop lanes' trait must
+#: leave as they are
+REGISTERS = {"PaxosModel": 168, "AbdModel": 96, "SingleCopyModel": 121,
+             "AbdOrderedModel": 96, "PaxosCrashModel": 164,
+             "WriteOnceModel": 72}
+
+
+def lossy_kernels(device) -> tuple:
+    """K1's lossy and timer instantiations at the ``LOSSY_STEPS``,
+    gated, timed, with their launch, registers and spills, and the
+    registers of every earlier K1 instantiation (held to ``REGISTERS``,
+    no spill); returns the checks by label and their plain halves
+    (:func:`register_plain`, which runs them last)."""
+    from stateright_tpu_torch.ops import _cuda
+
+    earlier = {n: kernel_usage("fused_step", f"expand_kernel[{n}]")
+               for n in REGISTERS}
+    same = {n: bool(u) and u["registers"] == REGISTERS[n]
+            and u["spill_store_bytes"] == 0 for n, u in earlier.items()}
+    emit(phase="kernels", kernel="fused_step", registers_of=earlier,
+         registers_before=REGISTERS, unchanged=same)
+    if not all(same.values()):
+        raise AssertionError(f"earlier K1 registers changed: {earlier}")
+    checks, plain = {}, []
+    sms = _cuda.sm_count(device)
+    for label, make, name, rows, pending in LOSSY_STEPS:
+        model = make()
+        carry = mid_search_carry(model, device, rows=rows, pending=pending)
+        # K1-paxos_lossy writes its active lanes only; the narrow K1s
+        # write and are held on every lane
+        rule = lossy_active(model)
+        wide = name == "paxos_lossy"
+        finish = check_step(model, carry, rows, reps=10,
+                            active=rule if wide else None,
+                            needed=None if wide else rule, defer=True,
+                            gated=True)
+        geo = _cuda.tile_geometry(rows, model.max_actions, sms)
+        wide, smem = _cuda.k1_launch(name, geo, rows, model.packed_width,
+                                     model.max_actions, sms)
+        usage = kernel_usage("fused_step",
+                             f"expand_kernel[{LOSSY_STRUCTS[name]}]")
+        meta = {"width": model.packed_width, "actions": model.max_actions,
+                "pending": min(int(carry.q_tail - carry.q_head), rows),
+                "k1_launch": ({**wide._asdict(), "smem_bytes": smem}
+                              if smem else geo._asdict()),
+                "usage": usage, "parent_usage": earlier}
+        checks[label] = {}
+        plain.append((label, model, name, meta, finish))
+        del carry
+    return checks, plain
+
+
+def lossy_phase() -> dict:
+    """Phase ``lossy``: the lossy drop lanes, the duplicating network and
+    the device timers on the card end to end (see the module docstring).
+    Returns the runs by label."""
+    import torch
+
+    from stateright_tpu_torch.actor import Drop, Envelope, Id
+    from stateright_tpu_torch.actor.test_util import Ping
+
+    chunk = ("fused_step", "chunk_begin", "append")
+    hist = chunk + ("history", "hpull")
+    lin, chosen = "linearizable", "value chosen"
+    runs = {}
+
+    def record(key, res, **extra):
+        res.update(extra)
+        emit(phase="lossy", **res)
+        runs[key] = res
+        if not all(res["checks"].values()):
+            raise AssertionError(f"lossy {key}: {res['checks']}")
+
+    res, _ck = register_run(_paxos_lossy(2), hist, want=PIN_PAXOS2_LOSSY,
+                            holds=(lin,), found=(chosen,))
+    del _ck
+    res["profile"] = device_times(lambda: _paxos_lossy(2).checker()
+                                  .gpu_options(race=False).spawn_gpu()
+                                  .join(), host_top=8)
+    record("paxos2", res)
+    res, _ck = register_run(_paxos_lossy(1), hist, want=PIN_PAXOS1_LOSSY,
+                            holds=(lin,), found=(chosen,))
+    record("paxos1", res)
+    must = "must reach max"
+    canonical = [Drop(Envelope(src=Id(0), dst=Id(1), msg=Ping(0)))]
+    for n, want in ((5, PIN_PING5), (7, PIN_PING7)):
+        res, ck = register_run(_ping_pong(n), chunk, want=want,
+                               holds=("delta within 1",),
+                               found=(must, "can reach max"))
+        actions = ck.assert_any_discovery(must).into_actions()
+        res["checks"]["witness_drop"] = any(isinstance(a, Drop)
+                                            for a in actions)
+        ck.assert_discovery(must, canonical)  # raises unless it holds
+        res["checks"]["canonical_drop_witness"] = True
+        record(f"ping_pong{n}", res,
+               witness_actions=[type(a).__name__ for a in actions])
+        del ck
+    res, ck = register_run(_ping_pong(5, lossy=False, duplicating=False),
+                           chunk, want=PIN_PING5_LOSSLESS,
+                           holds=("delta within 1", must),
+                           found=("can reach max",))
+    record("ping_pong5_lossless", res)
+    res, ck = register_run(_timer_count(3, 2), chunk, want=PIN_TIMER3,
+                           holds=("bounded",), found=("all max",))
+    record("timer_count3", res)
+    res, ck = register_run(_timer_count(8, 4), chunk, want=PIN_TIMER8,
+                           holds=("bounded",), found=("all max",))
+    record("timer_count8", res)
+    del ck
+    torch.cuda.synchronize()
+    return runs
+
+
+def lossy_kernel_entries(checks: dict, runs: dict) -> list:
+    """The ``kernels`` line's records of K1's lossy and timer
+    instantiations, each with its launches on its configuration's run
+    (``paxos_lossy``: lossy PackedPaxos(2); ``ping_pong``: PingPong(7),
+    duplicating; ``timer_count``: TimerCount(8, 4)) and its checks by
+    model."""
+    main_of = {"paxos_lossy": (LOSSY_STEPS[0][0], "paxos2", "paxos.cuh"),
+               "ping_pong": (LOSSY_STEPS[1][0], "ping_pong7",
+                             "ping_pong.cuh"),
+               "timer_count": (LOSSY_STEPS[3][0], "timer_count8",
+                               "timer_count.cuh")}
+    instantiation = {lb: n for lb, _, n, *_ in LOSSY_STEPS}
+    lanes_of = {"paxos_lossy": "stateright_tpu/actor/packed.py:790",
+                "ping_pong": "stateright_tpu/actor/packed.py:790",
+                "timer_count": "stateright_tpu/actor/packed.py:806"}
+    out = []
+    for name, (label, run, header) in main_of.items():
+        by = {lb: c["fused_step"] for lb, c in checks.items()
+              if instantiation[lb] == name}
+        main = by[label]
+        out.append({
+            "name": f"fused_step[{name}]", "route": "cuda",
+            "source": "stateright_tpu_torch/csrc/fused_step.cu",
+            "device_functions": f"stateright_tpu_torch/csrc/{header}",
+            "replaces": "stateright_tpu/ops/fused.py:259",
+            "lanes_of": lanes_of[name],
+            "configuration": "probe=True", "model": label,
+            "launches": runs[run]["launches"]["fused_step"],
+            "max_abs_err": max(r["max_abs_err"] for r in by.values()),
+            "ms": main["ms"], "device_ms": main["device_ms"],
+            "plain_ms": main["plain_ms"],
+            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+            "library_ms": None,
+            **{k: main[k] for k in (
+                "f", "pending", "width", "lanes", "written", "k1_launch",
+                "usage", "parts")},
+            "by_model": {lb: {k: r[k] for k in (
+                "f", "pending", "width", "lanes", "written", "ms",
+                "device_ms", "plain_ms", "bound_ms", "bound_by",
+                "max_abs_err")} for lb, r in by.items()},
+            "status": "ok"})
+    return out
 
 
 def crash_kernel_entries(checks: dict, runs: dict) -> list:
@@ -3671,6 +3971,7 @@ def main() -> int:
     pax_checks = paxos_kernels(torch.device("cuda", 0))
     reg_checks, reg_plain = register_kernels(torch.device("cuda", 0))
     crash_checks, crash_plain = crash_kernels(torch.device("cuda", 0))
+    lossy_checks, lossy_plain = lossy_kernels(torch.device("cuda", 0))
     # the host race on the main path, and checkpoints on the card
     race_phase()
     ckpt = checkpoint_phase()
@@ -3920,9 +4221,13 @@ def main() -> int:
     reg_runs = registers_phase()
     # crash/restart fault injection on the card end to end
     crash_runs = crash_phase()
-    # the register and crash K1 checks' plain versions, after every trace
+    # the lossy network and the device timers on the card end to end
+    lossy_runs = lossy_phase()
+    # the register, crash and lossy K1 checks' plain versions, after every
+    # trace
     register_plain(reg_checks, reg_plain)
     register_plain(crash_checks, crash_plain)
+    register_plain(lossy_checks, lossy_plain)
     # the cold starts last: another process on the card spoils the traces
     cold_start_phase()
 
@@ -4039,6 +4344,7 @@ def main() -> int:
     kernels += paxos_kernel_entries(pax_checks, pax_runs)
     kernels += register_kernel_entries(reg_checks, reg_runs)
     kernels += crash_kernel_entries(crash_checks, crash_runs)
+    kernels += lossy_kernel_entries(lossy_checks, lossy_runs)
     # K7, K8 and K9 at the widest register row (331 words), K7 at abd3's
     # (260)
     for entry in kernels:

@@ -34,17 +34,20 @@ action ``c`` delivers the head of channel ``c``.
 
 The port's step (:meth:`PackedActorModel.packed_step`) is the JAX
 package's ``_packed_step_unordered`` (``stateright_tpu/actor/packed.py``
-:710, with ``_net_consume`` :489 and ``_net_send`` :519) or
-``_packed_step_ordered`` (:588) over a batch, in int64 holding uint32
-values: the plain version of the CUDA device functions a model names in
-``cuda_spec`` (``csrc/actor_net.cuh``). On the unordered network it
-has the crash/restart lanes (``crash_restart``: the JAX package's
-``:849-900``): lane ``E + c`` crashes the ``c``-th crashable actor,
-lane ``E + n_cr + c`` restarts it, and a delivery to a down recipient
-is invalid. The lossy drop lanes and the device timers are not ported:
-``packed_step`` raises ``NotImplementedError`` for them (A8's next
-slice), as for crashes on the ordered network; the host engines check
-such models.
+:710, with ``_net_consume`` :489, ``_net_remove`` :509 and ``_net_send``
+:519) or ``_packed_step_ordered`` (:588) over a batch, in int64 holding
+uint32 values: the plain version of the CUDA device functions a model
+names in ``cuda_spec`` (``csrc/actor_net.cuh``, ``csrc/ping_pong.cuh``,
+``csrc/timer_count.cuh``). Its lanes are the JAX package's:
+``[E deliveries | E drops if lossy | one Timeout lane per actor if
+device_timers | a crash lane, then a restart lane, per crashable actor]``
+on the unordered network (``:731``, ``:790-900``), ``[a delivery per
+channel | one Timeout lane per actor]`` on the ordered one (``:637-699``).
+A drop lane removes one copy of its slot's envelope (the whole envelope
+on the duplicating network), a Timeout lane runs ``packed_on_timeout``,
+and a delivery to a down recipient is invalid. A lossy ordered network
+and crashes on the ordered network raise ``NotImplementedError``, as in
+the JAX package; the host engines check such models.
 """
 
 from __future__ import annotations
@@ -251,9 +254,25 @@ class PackedActorModel(ActorModel, PackedModel):
         """
         raise NotImplementedError
 
-    #: Timeout lanes (``packed_on_timeout``) are not ported: a model that
-    #: sets this True is refused by ``packed_step`` (A8's next slice)
+    #: opt-in Timeout lanes: models whose actors use timers set this True
+    #: and implement :meth:`packed_on_timeout`
     device_timers: bool = False
+
+    def packed_on_timeout(self, actors, aidx):
+        """Batched timeout (``on_timeout``, `model.rs:288-306`).
+
+        Args:
+          actors: int64 ``[N, AW]`` concatenated actor states;
+          aidx: int64 ``[N]`` index of the actor whose timer fired.
+        Returns:
+          ``(new_actors int64[N, AW], changed bool[N], sends like
+          packed_deliver's, keep_timer bool[N])`` — ``keep_timer`` True
+          iff the handler re-set its timer.
+        """
+        raise NotImplementedError(
+            f"{type(self).__name__} sets device_timers but has no "
+            "packed_on_timeout: the Timeout lanes need the hook; check "
+            "this model with spawn_bfs() or spawn_dfs()")
 
     # --- crash-restart (``crash_restart``) ----------------------------------
     def durable_word_mask(self, index: int) -> List[int]:
@@ -472,29 +491,13 @@ class PackedActorModel(ActorModel, PackedModel):
     # --- device step (the plain version, batched torch) ---------------------
     def validate_device_state(self, state: ActorModelState) -> None:
         """Refuse configurations whose transitions the packed action axis
-        cannot express: a set timer needs the Timeout lanes, which are
-        not ported."""
+        cannot express: a set timer needs the Timeout lanes
+        (``device_timers`` and :meth:`packed_on_timeout`)."""
         if any(state.is_timer_set) and not self.device_timers:
             raise NotImplementedError(
                 "PackedActorModel needs device_timers=True (and a "
                 "packed_on_timeout kernel) to explore Timeout actions on "
                 "the device engine; use the host engines otherwise")
-
-    def unported_lanes(self) -> Optional[str]:
-        """Why the port's device step cannot run this configuration (the
-        lossy drop lanes, device timers: A8's next slice), or ``None``.
-        With neither, the crash/restart lanes follow the delivery lanes
-        (``cr_base`` = E)."""
-        what = []
-        if self.lossy_network_:
-            what.append("the lossy drop lanes")
-        if self.device_timers:
-            what.append("the device timers")
-        if not what:
-            return None
-        return (f"{', '.join(what)} of PackedActorModel wait for A8's next "
-                "slice of the port (ROADMAP.md); check this model with "
-                "spawn_bfs() or spawn_dfs()")
 
     def packed_boundary(self, words):
         """Batched ``within_boundary`` of the children ``words`` (int64
@@ -508,12 +511,11 @@ class PackedActorModel(ActorModel, PackedModel):
         ``_packed_step_unordered`` or ``_packed_step_ordered`` lane for
         lane (an overflowing lane is poisoned with ``0xDEADBEEF`` and
         invalid)."""
-        reason = self.unported_lanes()
-        if reason is not None:
-            raise NotImplementedError(reason)
         w = u64(words)
         f, width = w.shape
-        a = self.max_actions  # raises for crashes on the ordered network
+        # raises for a lossy ordered network and crashes on the ordered
+        # network
+        a = self.max_actions
         rows = w[:, None, :].expand(f, a, width).reshape(f * a, width)
         act = torch.arange(a, device=w.device).repeat(f)
         lanes = (self._step_lanes_ordered if self._net_ordered
@@ -522,16 +524,47 @@ class PackedActorModel(ActorModel, PackedModel):
         return (succ.reshape(f, a, width), valid.reshape(f, a),
                 ovf.reshape(f, a))
 
-    def _step_lanes_ordered(self, rows, c):
-        """One delivery per lane on the ordered network: ``rows`` int64
-        ``[N, W]``, ``c`` the channel whose head is delivered ``[N]``.
-        The head is popped (the channel shifted left, a zero entering at
-        its tail, its length less one), then each send appends at the
-        tail of the channel ``chan_lut[sender * A + recipient]``; a full
-        channel, an undeclared one or a recipient past the actors is an
-        overflow. An empty channel's lane delivers its zero head: its
-        length wraps to ``0xFFFFFFFF`` in the (invalid) child, as in the
-        JAX package."""
+    def _timeout_lanes(self, actors, net, timer, hist, act, base, send,
+                       child, row_out, valid, overflow):
+        """The Timeout lanes over the other lanes' results, on either
+        network: lane ``base + a`` runs :meth:`packed_on_timeout` on
+        actor ``a``, sends its sends from ``a`` (``send(net, hist,
+        sender, dst, msg, valid)`` returns the network, the history and
+        the overflow), and clears the actor's timer bit, set again where
+        the handler keeps it; it is valid iff the bit was set.
+        ``child(actors, net, timer, hist)`` builds the row."""
+        n_actors = len(self.actor_widths)
+        is_timeout = (act >= base) & (act < base + n_actors)
+        aidx = torch.clamp(act - base, 0, n_actors - 1)
+        tw = timer[:, 0]
+        t_actors, _changed, t_sends, keep = self.packed_on_timeout(actors,
+                                                                   aidx)
+        assert len(t_sends) == self.max_sends
+        t_ovf = torch.zeros_like(valid)
+        for sdst, smsg, svalid in t_sends:
+            net, hist, ovf = send(net, hist, aidx, sdst, smsg, svalid)
+            t_ovf = t_ovf | ovf
+        new_tw = (tw & ~(1 << aidx) & M32) | (keep.to(torch.int64) << aidx)
+        t_row = child(t_actors, net, new_tw[:, None], hist)
+        return (torch.where(is_timeout[:, None], t_row, row_out),
+                torch.where(is_timeout, ((tw >> aidx) & 1) != 0, valid),
+                torch.where(is_timeout, t_ovf, overflow))
+
+    def _step_lanes_ordered(self, rows, act):
+        """One action per lane on the ordered network: ``rows`` int64
+        ``[N, W]``, ``act`` the lane's action ``[N]``: below the channel
+        count the delivery of that channel's head, then (with
+        ``device_timers``) a Timeout lane per actor. The head is popped
+        (the channel shifted left, a zero entering at its tail, its
+        length less one), then each send appends at the tail of the
+        channel ``chan_lut[sender * A + recipient]``; a full channel, an
+        undeclared one or a recipient past the actors is an overflow. An
+        empty channel's lane delivers its zero head: its length wraps to
+        ``0xFFFFFFFF`` in the (invalid) child, as in the JAX package. A
+        Timeout lane (JAX ``:664-692``) runs :meth:`packed_on_timeout`
+        on the row, appends its sends from the timed-out actor, and
+        clears the actor's timer bit, set again where the handler keeps
+        it; it is valid iff the bit was set."""
         aw, mw = self._aw, self.msg_width
         d, n_chan = self.channel_depth, self._n_chan
         hw = self.history_width
@@ -546,8 +579,39 @@ class PackedActorModel(ActorModel, PackedModel):
         lens = rows[:, self._net_off:self._msgs_off]
         msgs = rows[:, self._msgs_off:self._timer_off].reshape(
             n, n_chan, d, mw)
-        rest = rows[:, self._timer_off:self._hist_off]  # timer, crashes
+        timer = rows[:, self._timer_off:self._timer_off + 1]
+        crash = rows[:, self._timer_off + 1:self._hist_off]
         hist = rows[:, self._hist_off:] if hw else None
+        chans = torch.arange(n_chan, device=dev)[None, :]
+        slot = torch.arange(d, device=dev)[None, :]
+
+        def append_send(net, hist, sender, sdst, smsg, svalid):
+            lens, msgs = net
+            if hw:
+                rec = self.packed_record_out(hist, sender, sdst, smsg)
+                hist = torch.where(svalid[:, None], rec, hist)
+            flat = torch.clamp(sender * n_actors + sdst,
+                               max=n_actors * n_actors - 1)
+            cd = chan_lut[flat]
+            to = chans == cd[:, None]
+            pos = torch.where(to, lens, 0).sum(dim=1)
+            ovf = svalid & ((pos >= d) | (sdst >= n_actors) | (cd < 0))
+            put = svalid & ~ovf
+            at = to[:, :, None] & (slot == torch.clamp(pos, max=d - 1)[
+                :, None])[:, None, :] & put[:, None, None]
+            msgs = torch.where(at[:, :, :, None], smsg[:, None, None, :],
+                               msgs)
+            lens = torch.where(to & put[:, None], (lens + 1) & M32, lens)
+            return (lens, msgs), hist, ovf
+
+        def child(c_actors, c_net, c_timer, c_hist):
+            c_lens, c_msgs = c_net
+            parts = [c_actors, c_lens, c_msgs.reshape(n, -1), c_timer, crash]
+            if hw:
+                parts.append(c_hist)
+            return torch.cat(parts, dim=1) & M32
+
+        c = torch.clamp(act, max=n_chan - 1)
         src, dst = chan_src[c], chan_dst[c]
         ln = lens[lane, c]
         head = msgs[lane, c, 0]
@@ -559,36 +623,22 @@ class PackedActorModel(ActorModel, PackedModel):
             any_send = any_send | svalid
         valid = (ln > 0) & (changed | any_send)
         # pop the head: the channel shifted left, a zero at its tail
-        csel = torch.arange(n_chan, device=dev)[None, :] == c[:, None]
+        csel = chans == c[:, None]
         shifted = torch.cat([msgs[:, :, 1:], torch.zeros_like(
             msgs[:, :, :1])], dim=2)
-        msgs = torch.where(csel[:, :, None, None], shifted, msgs)
-        lens = torch.where(csel, (lens - 1) & M32, lens)
-        if hw:
-            hist = self.packed_record_in(hist, src, dst, head)
+        p_net = (torch.where(csel, (lens - 1) & M32, lens),
+                 torch.where(csel[:, :, None, None], shifted, msgs))
+        p_hist = self.packed_record_in(hist, src, dst, head) if hw else None
         overflow = torch.zeros_like(valid)
-        slot = torch.arange(d, device=dev)[None, :]
         for sdst, smsg, svalid in sends:
-            if hw:
-                rec = self.packed_record_out(hist, dst, sdst, smsg)
-                hist = torch.where(svalid[:, None], rec, hist)
-            flat = torch.clamp(dst * n_actors + sdst,
-                               max=n_actors * n_actors - 1)
-            cd = chan_lut[flat]
-            to = torch.arange(n_chan, device=dev)[None, :] == cd[:, None]
-            pos = torch.where(to, lens, 0).sum(dim=1)
-            ovf = svalid & ((pos >= d) | (sdst >= n_actors) | (cd < 0))
-            put = svalid & ~ovf
-            at = to[:, :, None] & (slot == torch.clamp(pos, max=d - 1)[
-                :, None])[:, None, :] & put[:, None, None]
-            msgs = torch.where(at[:, :, :, None], smsg[:, None, None, :],
-                               msgs)
-            lens = torch.where(to & put[:, None], (lens + 1) & M32, lens)
+            p_net, p_hist, ovf = append_send(p_net, p_hist, dst, sdst, smsg,
+                                             svalid)
             overflow = overflow | ovf
-        parts = [new_actors, lens, msgs.reshape(n, -1), rest]
-        if hw:
-            parts.append(hist)
-        row_out = torch.cat(parts, dim=1) & M32
+        row_out = child(new_actors, p_net, timer, p_hist)
+        if self.device_timers:
+            row_out, valid, overflow = self._timeout_lanes(
+                actors, (lens, msgs), timer, hist, act, n_chan, append_send,
+                child, row_out, valid, overflow)
         overflow = valid & overflow
         row_out = torch.where(overflow[:, None],
                               torch.full_like(row_out, 0xDEADBEEF), row_out)
@@ -598,10 +648,24 @@ class PackedActorModel(ActorModel, PackedModel):
     def _step_lanes(self, rows, act):
         """One action per lane: ``rows`` int64 ``[N, W]``, ``act`` the
         lane's action ``[N]``: below E the delivery of slot ``act``, then
-        (with ``crash_restart``) a crash and a restart lane per crashable
-        actor."""
+        (lossy) the drop of slot ``act - E``, then (``device_timers``) a
+        Timeout lane per actor, then (``crash_restart``) a crash and a
+        restart lane per crashable actor. A drop lane (JAX ``:790-804``)
+        leaves the actors, timer, crash word and history as they are and
+        consumes one copy of the slot (``net_consume``), or on the
+        duplicating network removes the envelope (``net_remove``); it is
+        valid iff the slot is occupied and never overflows. A Timeout
+        lane (JAX ``:806-847``) runs :meth:`packed_on_timeout` on the
+        row, records and sends its sends from the timed-out actor, and
+        clears the actor's timer bit, set again where the handler keeps
+        it; it is valid iff the bit was set (never pruned as a no-op, as
+        on the host, where a handler that re-sets its timer yields a
+        self-loop)."""
         aw, e_cap, sw = self._aw, self.net_capacity, self._sw
         hw = self.history_width
+        lossy = bool(self.lossy_network_)
+        dup = self._net_dup
+        base = e_cap * (2 if lossy else 1)
         n = rows.shape[0]
         dev = rows.device
         actors = rows[:, :aw]
@@ -613,7 +677,25 @@ class PackedActorModel(ActorModel, PackedModel):
         crash = rows[:, self._timer_off + 1:self._hist_off]
         crashes_on = bool(self.max_crashes_)
         n_actors = len(self.actor_widths)
-        e = torch.clamp(act, max=e_cap - 1)
+
+        def child(c_actors, c_slots, c_timer, c_hist):
+            parts = [c_actors, c_slots.reshape(n, -1), c_timer, crash]
+            if hw:
+                parts.append(c_hist)
+            return torch.cat(parts, dim=1) & M32
+
+        def send(c_slots, c_hist, sender, sdst, smsg, svalid):
+            if hw:
+                rec = self.packed_record_out(c_hist, sender, sdst, smsg)
+                c_hist = torch.where(svalid[:, None], rec, c_hist)
+            c_slots, ovf = net_send(c_slots, sender, sdst, smsg, svalid,
+                                    dup=dup)
+            return c_slots, c_hist, ovf
+
+        # the drop lanes [E, base): none unless lossy
+        is_drop = (act >= e_cap) & (act < base)
+        e = torch.clamp(torch.where(is_drop, act - e_cap, act),
+                        max=e_cap - 1)
         row = slots[torch.arange(n, device=dev), e]
         hdr = row[:, 0]
         occupied = (hdr & _OCC) != 0
@@ -634,25 +716,34 @@ class PackedActorModel(ActorModel, PackedModel):
             dst_nib = torch.clamp(dst, max=n_actors - 1) * 4
             valid = valid & (((crash[:, 0] >> (dst_nib + 3)) & 1) == 0)
         # a duplicating delivery leaves the envelope in flight
-        new_slots = slots if self._net_dup else net_consume(slots, e)
+        new_slots = slots if dup else net_consume(slots, e)
         new_hist = None
         if hw:
             new_hist = self.packed_record_in(hist, src, dst, msg)
         overflow = torch.zeros_like(occupied)
         for sdst, smsg, svalid in sends:
-            if hw:
-                recorded = self.packed_record_out(new_hist, dst, sdst, smsg)
-                new_hist = torch.where(svalid[:, None], recorded, new_hist)
-            new_slots, ovf = net_send(new_slots, dst, sdst, smsg, svalid,
-                                      dup=self._net_dup)
+            new_slots, new_hist, ovf = send(new_slots, new_hist, dst, sdst,
+                                            smsg, svalid)
             overflow = overflow | ovf
-        parts = [new_actors, new_slots.reshape(n, -1), timer, crash]
-        if hw:
-            parts.append(new_hist)
-        row_out = torch.cat(parts, dim=1) & M32
+        row_out = child(new_actors, new_slots, timer, new_hist)
+        if lossy:
+            # Drop (`model.rs:217-220`): one copy gone (the whole envelope
+            # on the duplicating network); the network always changes
+            drop_slots = net_remove(slots, e) if dup \
+                else net_consume(slots, e)
+            row_out = torch.where(is_drop[:, None],
+                                  child(actors, drop_slots, timer, hist),
+                                  row_out)
+            valid = torch.where(is_drop, occupied, valid)
+            overflow = overflow & ~is_drop
+        if self.device_timers:
+            row_out, valid, overflow = self._timeout_lanes(
+                actors, slots, timer, hist, act, base, send, child, row_out,
+                valid, overflow)
         if crashes_on:
+            cr_base = base + (n_actors if self.device_timers else 0)
             row_out, valid, overflow = self._crash_lanes(
-                rows, act, row_out, valid, overflow)
+                rows, act, cr_base, row_out, valid, overflow)
         # an overflowing successor would drop a message: poison the row,
         # invalidate it and report the overflow (the engines raise)
         overflow = valid & overflow
@@ -661,16 +752,17 @@ class PackedActorModel(ActorModel, PackedModel):
         valid = valid & ~overflow & self.packed_boundary(row_out)
         return row_out, valid, overflow
 
-    def _crash_lanes(self, rows, act, row_out, valid, overflow):
-        """The crash/restart lanes over the delivery lanes' results (the
+    def _crash_lanes(self, rows, act, cr_base, row_out, valid, overflow):
+        """The crash/restart lanes over the other lanes' results (the
         JAX package's ``_packed_step_unordered`` crash branch): lane
-        ``cr_base + c`` crashes the ``c``-th crashable actor — its
-        volatile words (``durable_word_mask``) zeroed, its timer bit
-        cleared, its crash count bumped and its down bit set; valid iff
-        it is up with fewer than ``max_crashes_`` crashes, and never an
-        overflow — and lane ``cr_base + n_cr + c`` restarts it — the down
-        bit cleared and :meth:`packed_on_restart` run, whose sends go
-        through ``record_out`` and the network; valid iff it is down.
+        ``cr_base + c`` (``cr_base`` past the deliveries, drops and
+        Timeout lanes, JAX ``:731``) crashes the ``c``-th crashable actor
+        — its volatile words (``durable_word_mask``) zeroed, its timer
+        bit cleared, its crash count bumped and its down bit set; valid
+        iff it is up with fewer than ``max_crashes_`` crashes, and never
+        an overflow — and lane ``cr_base + n_cr + c`` restarts it — the
+        down bit cleared and :meth:`packed_on_restart` run, whose sends
+        go through ``record_out`` and the network; valid iff it is down.
         Both write a full child whether valid or not."""
         aw, e_cap, sw = self._aw, self.net_capacity, self._sw
         hw = self.history_width
@@ -682,7 +774,6 @@ class PackedActorModel(ActorModel, PackedModel):
         tw = rows[:, self._timer_off]
         cw = rows[:, self._crash_off]
         n_cr = len(self._crash_idx)
-        cr_base = e_cap  # no drop lanes, no timer lanes (unported_lanes)
         is_crash = (act >= cr_base) & (act < cr_base + n_cr)
         is_restart = act >= cr_base + n_cr
         ci = torch.clamp(torch.where(is_restart, act - cr_base - n_cr,
@@ -757,6 +848,16 @@ def net_consume(slots, e):
     up = torch.cat([slots[:, 1:], torch.zeros_like(slots[:, :1])], dim=1)
     return torch.where((emptied[:, None] & (idx >= e[:, None]))[:, :, None],
                        up, slots)
+
+
+def net_remove(slots, e):
+    """Remove slot ``e`` of each lane outright (a drop on the duplicating
+    network, "never deliver again", `network.rs:238-275`): the suffix
+    shifted up one row, a zeroed row entering at the tail."""
+    e_cap = slots.shape[1]
+    idx = torch.arange(e_cap, device=slots.device)[None, :]
+    up = torch.cat([slots[:, 1:], torch.zeros_like(slots[:, :1])], dim=1)
+    return torch.where((idx >= e[:, None])[:, :, None], up, slots)
 
 
 def net_send(slots, src, dst, msg, valid, dup: bool = False):

@@ -158,10 +158,14 @@ class PackedRegisterModel(PackedActorModel):
     def check_cuda_register(self, base: type, header: str,
                             symmetry: bool, name: str,
                             ordered: bool = False,
-                            crash: bool = False) -> None:
+                            crash: bool = False,
+                            lossy: bool = False) -> None:
         """Refuse this model on the card unless ``csrc/<header>``
         (written for ``base``) computes what it does: refused are
-        symmetry (no device representative), the unported lanes, the
+        symmetry (no device representative), the Timeout lanes (device
+        timers), the lossy drop lanes unless ``lossy`` (the
+        instantiation has them; never together with crashes: no
+        instantiation has both, and a lane mask holds 32 lanes), the
         crash/restart lanes unless ``crash`` (the instantiation has them:
         on the unordered network, at most 8 actors), the duplicating
         network, the ordered network unless ``ordered`` (and then any
@@ -178,9 +182,27 @@ class PackedRegisterModel(PackedActorModel):
         max_width = row_words(name)
         if symmetry:
             raise NotImplementedError(f"{cls} has no packed_representative")
-        reason = self.unported_lanes()
-        if reason is not None:
-            raise NotImplementedError(reason)
+        if self.lossy_network_:
+            if self.max_crashes_ and not self._net_ordered:
+                lanes = 2 * self.net_capacity + 2 * len(self._crash_idx)
+                raise NotImplementedError(
+                    f"a lossy {cls} under crash_restart() has {lanes} "
+                    "lanes (deliveries, drops, crashes and restarts); no "
+                    "instantiation has both the drop and the crash lanes "
+                    "(a lane mask holds 32); check it with spawn_bfs() or "
+                    "on the CPU (gpu_options(device='cpu'))")
+            if not lossy or self._net_ordered:
+                raise NotImplementedError(
+                    f"csrc/{header} has no lossy drop lanes"
+                    + (" on the ordered network" if self._net_ordered
+                       else "")
+                    + f"; check this lossy {cls} with spawn_bfs() or on "
+                    "the CPU (gpu_options(device='cpu'))")
+        if self.device_timers:
+            raise NotImplementedError(
+                f"csrc/{header} has no Timeout lanes (device timers); "
+                f"check this {cls} with spawn_bfs() or on the CPU "
+                "(gpu_options(device='cpu'))")
         if self.max_crashes_ and not crash:
             raise NotImplementedError(
                 f"csrc/{header} has no crash/restart lanes; check this "

@@ -18,7 +18,14 @@
 // thread's, and crash_copy, a group's); and a
 // delivery's child in two phases, its scalar part once a child
 // (register_deliver_scalar) and its network and words by a group
-// (register_deliver_group: the write-once register).
+// (register_deliver_group: the write-once register); the lossy drop lanes
+// of a model that has them (M::kLossy: Paxos on a lossy network), whose
+// children are the row with one count word less one or the network's
+// words from the dropped slot on moved up a slot (drop_edit, drop_word;
+// drop_fingerprint, a thread's, and drop_copy, a warp's); and the
+// unordered network of a narrow model's register row with one message
+// word a slot, the duplicating network's set semantics among them
+// (row_net_consume, row_net_send: the ping-pong fixture).
 //
 // They compute what the JAX package's _packed_step_unordered
 // (stateright_tpu/actor/packed.py:710, with _net_consume :489 and
@@ -423,31 +430,45 @@ __device__ __forceinline__ uint32_t crash_active_lanes(const M& m,
   return mask;
 }
 
-// crash_active_lanes and the register models' property bits (bit 0,
-// "linearizable", host-evaluated: neutral true; bit 1, "value chosen")
-// of row w (in shared memory) computed by a group of 32 lanes, lane r
-// reading slot r: every test a ballot (in lane order), instead of one
-// thread's walks over the slots. K1 takes them so for a model with
-// crash lanes (a warp per row, beside the row's fingerprint folds).
+// The register models' property bits (bit 0, "linearizable",
+// host-evaluated: neutral true; bit 1, "value chosen") and the network's
+// zero tail (returned) of row w (in shared memory), computed by a group
+// of 32 lanes, lane r reading slot r: every test a ballot (in lane
+// order), instead of one thread's walks over the slots. hdr is lane r's
+// slot header (0 past E). K1 takes them so for a model with crash or
+// drop lanes (a warp per row, beside the row's fingerprint folds), whose
+// active lanes crash_row_lanes and drop_row_lanes build from them.
 template <class M, class Grp>
-__device__ __forceinline__ void crash_row_lanes(const M& m,
-                                                const uint32_t* w,
-                                                const Grp& g, uint32_t& pb,
-                                                uint32_t& mask) {
-  const int E = m.E, r = g.rank();
-  const bool live = r < E;
+__device__ __forceinline__ int row_slot_scan(const M& m, const uint32_t* w,
+                                             const Grp& g, uint32_t& pb,
+                                             uint32_t& hdr) {
+  const int r = g.rank();
+  const bool live = r < m.E;
   const uint32_t* slot = w + m.net_off + 4 * (live ? r : 0);
-  const uint32_t hdr = live ? slot[0] : 0u, m0 = live ? slot[2] : 0u;
+  hdr = live ? slot[0] : 0u;
+  const uint32_t m0 = live ? slot[2] : 0u;
   const bool word = live && (hdr | slot[1] | m0 | slot[3]) != 0u;
   const bool chosen = ((hdr >> 16) & 1u) && (m0 >> 24) == T_GETOK &&
                       (m0 & 0xFu) != 0u;
   pb = 1u | (g.ballot(chosen) != 0u ? 2u : 0u);
   // the network's zero tail: past the last slot holding a word
   const uint32_t nz = g.ballot(word);
-  const int z = nz ? 32 - __clz(nz) : 0;
+  return nz ? 32 - __clz(nz) : 0;
+}
+
+// The property bits (row_slot_scan) and crash_active_lanes of row w by a
+// group of 32 lanes.
+template <class M, class Grp>
+__device__ __forceinline__ void crash_row_lanes(const M& m,
+                                                const uint32_t* w,
+                                                const Grp& g, uint32_t& pb,
+                                                uint32_t& mask) {
+  const int E = m.E;
+  uint32_t hdr;
+  const int z = row_slot_scan(m, w, g, pb, hdr);
   const uint32_t cw = m.cr.k ? w[m.timer_off + 1] : 0u;
   const uint32_t last = (uint32_t)(m.S + m.C - 1);
-  mask = g.ballot(r < z && !is_down(cw, min(hdr & 0xFFu, last)));
+  mask = g.ballot(g.rank() < z && !is_down(cw, min(hdr & 0xFFu, last)));
   for (int c = 0; c < m.cr.n; ++c) {
     const uint32_t a = m.cr.actor(c);
     if (is_down(cw, a))
@@ -541,6 +562,182 @@ __device__ __forceinline__ void crash_copy(const M& m, const uint32_t* w,
                                            const CrashEdit& ed, int r, int G,
                                            uint32_t* dst) {
   for (int k = r; k < m.width(); k += G) dst[k] = crash_word(m, ed, k, w[k]);
+}
+
+// --- the lossy drop lanes (M::kLossy) -----------------------------------
+//
+// What the JAX package's _packed_step_unordered computes on its drop lanes
+// (stateright_tpu/actor/packed.py:790-804) for one lane: lane E + e drops
+// one copy of slot e's envelope. The actors, the timer word and the
+// history stay as they are; on the non-duplicating network a slot with a
+// count above one keeps its place with the count less one, and at a count
+// of at most one (or, on the duplicating network, whatever the count: the
+// envelope is removed outright, _net_remove :509) the network's words from
+// slot e on move up one slot, a zeroed slot entering at the tail. The lane
+// is valid iff the slot is occupied, and never overflows. M gives E,
+// net_off and width().
+
+// A drop lane's child as an edit of the row: the dropped slot, whether
+// the network's words from it on move up a slot (else only its count word
+// changes, less one), and whether the child is valid.
+struct DropEdit {
+  int e;
+  bool shift, valid;
+};
+
+// Lane `lane` (E + e) of row w on the network of the model (dup: the
+// duplicating network).
+template <class M>
+__device__ __forceinline__ DropEdit drop_edit(const M& m, const uint32_t* w,
+                                              int lane, bool dup) {
+  DropEdit ed;
+  ed.e = lane - m.E;
+  const uint32_t* slot = w + m.net_off + 4 * ed.e;
+  ed.valid = (slot[0] & kOcc) != 0u;
+  ed.shift = dup || slot[1] <= 1u;
+  return ed;
+}
+
+// Word k of the child that ed makes of row w, whose word k is old.
+template <class M>
+__device__ __forceinline__ uint32_t drop_word(const M& m, const DropEdit& ed,
+                                              const uint32_t* w, int k,
+                                              uint32_t old) {
+  const int j = k - (m.net_off + 4 * ed.e);
+  if (j < 0 || k >= m.net_off + 4 * m.E) return old;
+  if (!ed.shift) return j == 1 ? old - 1u : old;
+  return k + 4 < m.net_off + 4 * m.E ? w[k + 4] : 0u;
+}
+
+// Drop lane `lane`'s child of row w (in shared memory) as its edit, with
+// its fingerprint (hi, lo): the row's folds (r1, r2) with the words the
+// child changes refolded (the count word, or the network's words from the
+// dropped slot on). One thread's work.
+template <class M>
+__device__ __forceinline__ DropEdit drop_fingerprint(
+    const M& m, const uint32_t* w, int lane, bool dup, uint32_t r1,
+    uint32_t r2, uint32_t& hi, uint32_t& lo) {
+  const DropEdit ed = drop_edit(m, w, lane, dup);
+  uint32_t h1 = r1, h2 = r2;
+  const int end = ed.shift ? m.net_off + 4 * m.E : m.net_off + 4 * ed.e + 2;
+  for (int k = m.net_off + 4 * ed.e; k < end; ++k) {
+    const uint32_t v = drop_word(m, ed, w, k, w[k]);
+    if (v != w[k]) fold_change(h1, h2, k, w[k], v);
+  }
+  fp64_finish(h1, h2, m.width(), hi, lo);
+  return ed;
+}
+
+// The child that edit ed makes of row w (in shared memory), written to
+// dst (its row of flat) by lane r of G lanes (G consecutive words a
+// store).
+template <class M>
+__device__ __forceinline__ void drop_copy(const M& m, const uint32_t* w,
+                                          const DropEdit& ed, int r, int G,
+                                          uint32_t* dst) {
+  for (int k = r; k < m.width(); k += G) dst[k] = drop_word(m, ed, w, k, w[k]);
+}
+
+// The property bits (row_slot_scan) and the active lanes of a lossy
+// model's row w by a group of 32 lanes: the deliveries and the drops of
+// the slots before the network's zero tail (bits e and E + e). Every
+// other lane's child is invalid and does not overflow.
+template <class M, class Grp>
+__device__ __forceinline__ void drop_row_lanes(const M& m, const uint32_t* w,
+                                               const Grp& g, uint32_t& pb,
+                                               uint32_t& mask) {
+  uint32_t hdr;
+  const int z = row_slot_scan(m, w, g, pb, hdr);
+  const uint32_t below = g.ballot(g.rank() < z);
+  mask = below | (below << m.E);
+}
+
+// The same lanes by one thread (the host harness's rule).
+template <class M>
+__device__ __forceinline__ uint32_t drop_active_lanes(const M& m,
+                                                      const uint32_t* w) {
+  const int z = zero_tail(w + m.net_off, m.E);
+  const uint32_t below = z >= 32 ? ~0u : (1u << z) - 1u;
+  return below | (below << m.E);
+}
+
+// --- a narrow model's network in its register row (ping_pong.cuh) -------
+//
+// The unordered network of actor/packed.py (net_consume, net_remove,
+// net_send) with one message word a slot, [hdr, cnt, msg] at words
+// OFF + 3 j of a row array s of W words (OFF a compile-time offset, so
+// every index is static after unrolling and the row stays in registers),
+// E <= kMaxSlots slots live.
+
+// Deliver (consume) slot e: its count less one, or at a count of at most
+// one the suffix moved up a slot (a zeroed slot entering at the tail);
+// with `remove` the suffix moves up whatever the count (a drop on the
+// duplicating network, net_remove).
+template <int OFF, int W>
+__device__ __forceinline__ void row_net_consume(uint32_t (&s)[W], int e,
+                                                int E, bool remove) {
+  static_assert(OFF + 3 * kMaxSlots <= W, "the network fits the row");
+  uint32_t c = 0u;
+#pragma unroll
+  for (int j = 0; j < kMaxSlots; ++j)
+    if (j == e) {
+      c = s[OFF + 3 * j + 1];
+      s[OFF + 3 * j + 1] = c - 1u;
+    }
+  if (!remove && c > 1u) return;
+#pragma unroll
+  for (int j = 0; j < kMaxSlots; ++j) {
+    if (j >= e && j < E) {
+#pragma unroll
+      for (int x = 0; x < 3; ++x)
+        s[OFF + 3 * j + x] =
+            j + 1 < E ? s[OFF + 3 * (j + 1 < kMaxSlots ? j + 1 : j) + x] : 0u;
+    }
+  }
+}
+
+// Send msg from src to dst where valid: on the non-duplicating network
+// bump the count of the slot that holds the envelope, on the duplicating
+// one (a set) leave it; else insert [hdr, 1, msg] at its (hdr, msg) rank
+// by moving the suffix down a slot. Returns the overflow: a valid send
+// that finds no match and no empty slot, or a recipient at or above 256.
+template <int OFF, int W>
+__device__ __forceinline__ bool row_net_send(uint32_t (&s)[W], uint32_t src,
+                                             uint32_t dst, uint32_t msg,
+                                             bool valid, bool dup, int E) {
+  const uint32_t hdr = kOcc | (src << 8) | dst;
+  bool has_match = false, has_empty = false;
+  int pos = 0;
+#pragma unroll
+  for (int j = 0; j < kMaxSlots; ++j) {
+    if (j < E) {
+      const uint32_t h = s[OFF + 3 * j], x = s[OFF + 3 * j + 2];
+      const bool occ = (h & kOcc) != 0u;
+      const bool match = occ && h == hdr && x == msg;
+      if (match && valid && !dup) s[OFF + 3 * j + 1] += 1u;
+      has_match |= match;
+      has_empty |= !occ;
+      pos += occ && (h < hdr || (h == hdr && x < msg));
+    }
+  }
+  const bool oob = dst >= 256u;
+  if (valid && !has_match && has_empty && !oob) {
+#pragma unroll
+    for (int j = kMaxSlots - 1; j >= 0; --j) {
+      if (j < E) {
+        if (j > pos) {
+#pragma unroll
+          for (int x = 0; x < 3; ++x)
+            s[OFF + 3 * j + x] = s[OFF + 3 * (j > 0 ? j - 1 : 0) + x];
+        } else if (j == pos) {
+          s[OFF + 3 * j] = hdr;
+          s[OFF + 3 * j + 1] = 1u;
+          s[OFF + 3 * j + 2] = msg;
+        }
+      }
+    }
+  }
+  return valid && ((!has_match && !has_empty) || oob);
 }
 
 // A register model's child on the unordered network (slot e of row w,

@@ -21,7 +21,12 @@
 // the network in its lanes, step_common.cuh GroupRow), PackedWriteOnce
 // (write_once.cuh, a group model with crash/restart lanes,
 // step_common.cuh CrashLanes), PackedPaxos under crash_restart
-// (paxos.cuh PaxosCrashModel, the wide K1 with crash lanes) and PackedAbd
+// (paxos.cuh PaxosCrashModel, the wide K1 with crash lanes) and on a
+// lossy network (PaxosLossyModel, the wide K1 with drop lanes,
+// step_common.cuh DropLanes), the actor test fixtures PackedPingPong
+// (ping_pong.cuh: a narrow model with drop lanes and the duplicating
+// network as parameters) and PackedTimerCount (timer_count.cuh: a narrow
+// model with a Timeout lane per actor), and PackedAbd
 // (abd.cuh: a group model on the unordered network; on the ordered one
 // an edit model of up to 352 words, whose warps write each child from
 // the shared row and the lane's edit, step_common.cuh EditRow); the
@@ -136,8 +141,10 @@
 #include "increment_lock.cuh"
 #include "lineq.cuh"
 #include "paxos.cuh"
+#include "ping_pong.cuh"
 #include "single_copy.cuh"
 #include "step_common.cuh"
+#include "timer_count.cuh"
 #include "twopc.cuh"
 #include "write_once.cuh"
 
@@ -349,6 +356,36 @@ int srt_fused_step_paxos_crash(const StepArgs* args, int clients,
   if (!m.ok() || args->A != m.max_actions())
     return (int)cudaErrorInvalidValue;
   return launch_step<PaxosCrashModel, false>(m, *args);
+}
+
+// One fused step for PackedPaxos(clients, servers, slots) on a lossy
+// network (paxos.cuh PaxosLossyModel: the wide K1 with a drop lane per
+// network slot).
+int srt_fused_step_paxos_lossy(const StepArgs* args, int clients,
+                               int servers, int slots) {
+  const PaxosLossyModel m(clients, servers, slots);
+  if (!m.ok() || args->A != m.max_actions())
+    return (int)cudaErrorInvalidValue;
+  return launch_step<PaxosLossyModel, false>(m, *args);
+}
+
+// One fused step for PackedPingPong(max_nat, lossy, duplicating, slots)
+// (ping_pong.cuh: at most 16 slots; the narrow K1).
+int srt_fused_step_ping_pong(const StepArgs* args, int max_nat, int slots,
+                             int dup, int lossy) {
+  const PingPongModel m(max_nat, slots, dup, lossy);
+  if (!m.ok() || args->A != m.max_actions())
+    return (int)cudaErrorInvalidValue;
+  return launch_step<PingPongModel, false>(m, *args);
+}
+
+// One fused step for PackedTimerCount(n, max_nat) (timer_count.cuh: at
+// most 32 actors; the narrow K1 with a Timeout lane per actor).
+int srt_fused_step_timer_count(const StepArgs* args, int n, int max_nat) {
+  const TimerCountModel m(n, max_nat);
+  if (!m.ok() || args->A != m.max_actions())
+    return (int)cudaErrorInvalidValue;
+  return launch_step<TimerCountModel, false>(m, *args);
 }
 
 // One fused step for PackedWriteOnce(clients, servers, durable, slots),

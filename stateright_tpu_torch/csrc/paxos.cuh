@@ -4,9 +4,10 @@
 // _packed_step_unordered with the register dispatch and the Paxos
 // server step, stateright_tpu/examples/paxos_packed.py:193), for C <= 7
 // clients, S <= 4 servers and E <= 16 network slots as runtime
-// arguments (unordered non-duplicating network, no drops or timers:
+// arguments (unordered non-duplicating network, no timers:
 // PackedPaxos.cuda_spec refuses the rest); under crash_restart its
-// crash/restart lanes (PaxosCrashModel, at the end).
+// crash/restart lanes (PaxosCrashModel), on a lossy network its drop
+// lanes (PaxosLossyModel, at the end).
 //
 // Packed state (actor/packed.py finalize_layout), width
 // S (3 + S) + C + 4 E + 1 + 1 + 3 C (96 words at C = 3, S = 3, E = 16):
@@ -296,5 +297,57 @@ struct PaxosCrashModel : PaxosModel {
                                               const CrashEdit& ed, int r,
                                               int G, uint32_t* dst) const {
     actor::crash_copy(*this, w, ed, r, G, dst);
+  }
+};
+
+// PackedPaxos on a lossy network (lossy_network(True)): PaxosModel with a
+// drop lane per network slot after the E deliveries (actor_net.cuh
+// DropEdit). K1-wide steps the active lanes only (row_lanes: the
+// deliveries and the drops of the slots before the network's zero tail,
+// by a warp): a delivery's child through step_row, as PaxosModel's; a
+// drop child, the row with its count word less one or its network's
+// words from the dropped slot on moved up a slot, as an edit with its
+// fingerprint (the row's folds with those words refolded) by a thread,
+// then written from the shared row by a warp (drop_child, drop_write);
+// every other lane is invalid, does not overflow, and its row of flat is
+// not written.
+struct PaxosLossyModel : PaxosModel {
+  static constexpr bool kLossy = true;
+
+  __host__ PaxosLossyModel(int clients, int servers, int slots)
+      : PaxosModel(clients, servers, slots) {}
+
+  __host__ int max_actions() const { return 2 * E; }
+
+  __device__ __forceinline__ uint32_t active_lanes(const uint32_t* w) const {
+    return actor::drop_active_lanes(*this, w);
+  }
+
+  // The property bits and the active lanes of row w (shared memory) by a
+  // group g of 32 lanes (ballots in lane order).
+  template <class Grp>
+  __device__ __forceinline__ void row_lanes(const uint32_t* w, const Grp& g,
+                                            uint32_t& pb,
+                                            uint32_t& mask) const {
+    actor::drop_row_lanes(*this, w, g, pb, mask);
+  }
+
+  // A drop lane's child (lane >= E; valid or not, never overflowing) in
+  // two parts: its edit and fingerprint (hi, lo), from the row's folds
+  // (r1, r2), by a thread; then its words, written to dst by lane r of G
+  // lanes.
+  using DropEdit = actor::DropEdit;
+
+  __device__ __forceinline__ DropEdit drop_child(const uint32_t* w, int lane,
+                                                 uint32_t r1, uint32_t r2,
+                                                 uint32_t& hi,
+                                                 uint32_t& lo) const {
+    return actor::drop_fingerprint(*this, w, lane, false, r1, r2, hi, lo);
+  }
+
+  __device__ __forceinline__ void drop_write(const uint32_t* w,
+                                             const DropEdit& ed, int r,
+                                             int G, uint32_t* dst) const {
+    actor::drop_copy(*this, w, ed, r, G, dst);
   }
 };

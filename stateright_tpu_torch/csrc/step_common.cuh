@@ -420,6 +420,67 @@ template <class M>
 struct CrashLanes<M, std::void_t<decltype(M::kCrash)>>
     : std::integral_constant<bool, M::kCrash> {};
 
+// Whether a wide model has the lossy drop lanes (M::kLossy:
+// PaxosLossyModel; actor_net.cuh DropEdit): lanes [E, 2E) drop slot
+// lane - E. Its active lanes are a mask, as with crash lanes (at most 32
+// lanes: the deliveries and the drops of the slots before the network's
+// zero tail), taken with the row's property bits by a warp per row
+// (m.row_lanes) and listed deliveries first, then the drops (nact[1]: the
+// deliveries); K1 keeps each row's fingerprint folds. A delivery is
+// staged as a wide model's; a drop child is the row with its count word
+// less one or its network's words from the dropped slot on moved up a
+// slot, whose edit and fingerprint (the row's folds with those words
+// refolded) a thread takes (m.drop_child) and whose words a warp writes
+// from the shared row (m.drop_write), as a crash child's. Every other
+// lane gets the row's fingerprint and cvalid = 0, and its row of flat is
+// not written.
+template <class M, class = void>
+struct DropLanes : std::false_type {};
+template <class M>
+struct DropLanes<M, std::void_t<decltype(M::kLossy)>>
+    : std::integral_constant<bool, M::kLossy> {};
+
+// The models whose lanes after the deliveries are edits of the row (crash
+// and restart lanes, or drop lanes): a lane mask, the rows' folds, the
+// deliveries listed first.
+template <class M>
+constexpr bool kEditLanes = CrashLanes<M>::value || DropLanes<M>::value;
+
+// An edit lane's child: its edit and fingerprint by a thread (child), its
+// words by the lanes of a warp or group (write): a crash or restart
+// child's (M::CrashEdit, m.crash_child, m.crash_write), or a drop child's
+// (M::DropEdit, m.drop_child, m.drop_write).
+template <class M, bool = DropLanes<M>::value>
+struct LaneEdit {
+  using Edit = typename M::CrashEdit;
+  __device__ static __forceinline__ Edit child(const M& m, const uint32_t* w,
+                                               int e, uint32_t r1,
+                                               uint32_t r2, uint32_t& hi,
+                                               uint32_t& lo) {
+    return m.crash_child(w, e, r1, r2, hi, lo);
+  }
+  __device__ static __forceinline__ void write(const M& m, const uint32_t* w,
+                                               const Edit& ed, int r, int G,
+                                               uint32_t* dst) {
+    m.crash_write(w, ed, r, G, dst);
+  }
+};
+template <class M>
+struct LaneEdit<M, true> {
+  using Edit = typename M::DropEdit;
+  __device__ static __forceinline__ Edit child(const M& m, const uint32_t* w,
+                                               int e, uint32_t r1,
+                                               uint32_t r2, uint32_t& hi,
+                                               uint32_t& lo) {
+    return m.drop_child(w, e, r1, r2, hi, lo);
+  }
+  __device__ static __forceinline__ void write(const M& m, const uint32_t* w,
+                                               const Edit& ed, int r, int G,
+                                               uint32_t* dst) {
+    m.drop_write(w, ed, r, G, dst);
+  }
+};
+
 // The models whose K1 keeps its tile's rows in shared memory and walks
 // their active lanes densely (wide, edit and group models).
 template <class M>
@@ -668,7 +729,8 @@ struct alignas(16) RowState {
 // (GroupRow; launched over a.wide too) loads and lists its rows as a wide
 // model does and builds each active lane's child with a half-warp,
 // written straight to flat. A model with crash lanes (CrashLanes) takes
-// its crash and restart children as edits of the row (see there).
+// its crash and restart children as edits of the row (see there), and a
+// lossy one (DropLanes) its drop children alike.
 // The grid also resets the ring arena for the step (grid-stride).
 // Inside a chunk the launch is gated (open_gate): its rows are the
 // queue's from the head, the first take of them valid.
@@ -743,7 +805,7 @@ __global__ void expand_kernel(M m, StepArgs a) {
   // a lane mask of active lanes and the rows' fingerprint folds (an edit
   // model, a model with crash lanes), or a quiet tail and the rows'
   // fingerprints (the other wide and group models)
-  constexpr bool kMask = EditRow<M>::value || CrashLanes<M>::value;
+  constexpr bool kMask = EditRow<M>::value || kEditLanes<M>;
   if constexpr (kSharedRow<M>) {
     static_assert(!SYM, "a shared-row model has no symmetric K1");
     static_assert(kWideRows <= 32, "one warp scans the tile's rows");
@@ -766,7 +828,7 @@ __global__ void expand_kernel(M m, StepArgs a) {
       }
     }
     auto pending = [&](int i) { return !kPend || take >= 0 || rows[i].fv; };
-    if constexpr (kEdit || (WideRow<M>::value && CrashLanes<M>::value)) {
+    if constexpr (kEdit || (WideRow<M>::value && kEditLanes<M>)) {
       // the tile's rows, block-wide, kEditLoads words in flight a thread
       // (word x of the tile is word x % width of row x / width)
       const int total = nrows * width, nt = blockDim.x;
@@ -808,7 +870,7 @@ __global__ void expand_kernel(M m, StepArgs a) {
         }
         rs.fv = 1;
       }
-      if constexpr (CrashLanes<M>::value) {
+      if constexpr (kEditLanes<M>) {
         if constexpr (!kPend) {
           rs.fv = take >= 0 ? r < take : a.fvalid[r] != 0;
           rs.valid = 0;
@@ -841,7 +903,7 @@ __global__ void expand_kernel(M m, StepArgs a) {
     // lanes, a lane a network slot (m.row_lanes)
     for (int i = kPend ? nwarps - 1 - wid : wid; i < nrows; i += nwarps) {
       if (!pending(i)) continue;  // the whole warp
-      if constexpr (CrashLanes<M>::value) {
+      if constexpr (kEditLanes<M>) {
         const uint32_t eb = wl == 0 ? a.ebits[(row0 + i) * a.estride] : 0u;
         uint32_t pb, mask;
         m.row_lanes(rows[i].w, FullWarp{}, pb, mask);
@@ -884,7 +946,7 @@ __global__ void expand_kernel(M m, StepArgs a) {
     if (wid == 0) {
       const uint32_t info = wl < nrows ? ws.info[4 * wl] : 0u;
       int q;
-      if constexpr (CrashLanes<M>::value) {
+      if constexpr (kEditLanes<M>) {
         const uint32_t dmask = (1u << m.E) - 1u;
         q = __popc(info & dmask) | (__popc(info & ~dmask) << 16);
       } else {
@@ -898,7 +960,7 @@ __global__ void expand_kernel(M m, StepArgs a) {
       }
       if (wl < nrows) ws.info[4 * wl + 3] = (uint32_t)(x - q);
       if (wl == 31) {
-        if constexpr (CrashLanes<M>::value) {
+        if constexpr (kEditLanes<M>) {
           ws.nact[0] = (uint32_t)((x & 0xFFFF) + (x >> 16));
           ws.nact[1] = (uint32_t)(x & 0xFFFF);
         } else {
@@ -910,7 +972,7 @@ __global__ void expand_kernel(M m, StepArgs a) {
     for (int i = threadIdx.x; i < nrows; i += blockDim.x) {
       uint32_t info = ws.info[4 * i];
       int off = (int)ws.info[4 * i + 3];
-      if constexpr (CrashLanes<M>::value) {
+      if constexpr (kEditLanes<M>) {
         int d = off & 0xFFFF, c = (int)ws.nact[1] + (off >> 16);
         for (; info; info &= info - 1u) {
           const int e = __ffs(info) - 1;
@@ -965,7 +1027,7 @@ __global__ void expand_kernel(M m, StepArgs a) {
       // the staged children: every active lane, or with crash lanes the
       // deliveries (the list's first nact[1])
       int nstaged = nact;
-      if constexpr (CrashLanes<M>::value) nstaged = (int)ws.nact[1];
+      if constexpr (kEditLanes<M>) nstaged = (int)ws.nact[1];
       // the staged lanes, densely: each thread steps one into its
       // staging row; uniform trip count: the warp then writes its
       // children
@@ -1018,15 +1080,15 @@ __global__ void expand_kernel(M m, StepArgs a) {
         }
         __syncwarp();
       }
-      if constexpr (CrashLanes<M>::value) {
+      if constexpr (kEditLanes<M>) {
         clk.end(kPhaseDeliveries);
-        // the crash and restart children (the list's rest) in passes of
-        // blockDim.x: each thread takes one's edit and fingerprint (the
-        // row's folds with its one to three changed words refolded) and
-        // leaves the edit in its staging row; after a barrier child c of
-        // the pass is written from the shared row by warp c % nwarps, 32
-        // consecutive words a store
-        using Edit = typename M::CrashEdit;
+        // the crash and restart (or drop) children, the list's rest, in
+        // passes of blockDim.x: each thread takes one's edit and
+        // fingerprint (the row's folds with its changed words refolded)
+        // and leaves the edit in its staging row; after a barrier child c
+        // of the pass is written from the shared row by warp c % nwarps,
+        // 32 consecutive words a store
+        using Edit = typename LaneEdit<M>::Edit;
         const int ncr = nact - nstaged;
         for (int base = 0; base < ncr; base += blockDim.x) {
           const int n = min((int)blockDim.x, ncr - base);
@@ -1036,8 +1098,9 @@ __global__ void expand_kernel(M m, StepArgs a) {
             RowState<M, SYM>& rs = rows[i];
             const long long lane = lane0 + t;
             uint32_t hi, lo;
-            const Edit ed = m.crash_child(rs.w, t - i * A, ws.info[4 * i + 1],
-                                          ws.info[4 * i + 2], hi, lo);
+            const Edit ed =
+                LaneEdit<M>::child(m, rs.w, t - i * A, ws.info[4 * i + 1],
+                                   ws.info[4 * i + 2], hi, lo);
             *reinterpret_cast<Edit*>(ws.stage + threadIdx.x * stride) = ed;
             a.chi[lane] = hi;
             a.clo[lane] = lo;
@@ -1051,8 +1114,8 @@ __global__ void expand_kernel(M m, StepArgs a) {
             const int t = (int)ws.act[nstaged + base + c], i = t / A;
             const Edit ed =
                 *reinterpret_cast<const Edit*>(ws.stage + c * stride);
-            m.crash_write(rows[i].w, ed, wl, 32,
-                          a.flat + (lane0 + t) * width);
+            LaneEdit<M>::write(m, rows[i].w, ed, wl, 32,
+                               a.flat + (lane0 + t) * width);
           }
           __syncthreads();  // the staging rows are the next pass's
         }
@@ -1151,7 +1214,7 @@ __global__ void expand_kernel(M m, StepArgs a) {
         }
       }
     }
-    if constexpr (!CrashLanes<M>::value) clk.end(kPhaseDeliveries);
+    if constexpr (!kEditLanes<M>) clk.end(kPhaseDeliveries);
     clk.end(kPhaseCrashes);
     // the quiet (or, with crash lanes, inactive) lanes: the row's
     // fingerprint, invalid (a group model's row that is not pending:
@@ -1181,7 +1244,7 @@ __global__ void expand_kernel(M m, StepArgs a) {
     // a wide model's quiet lanes get the row itself (a group model's
     // rows of flat, and those of a model with crash lanes, stay
     // unwritten)
-    if constexpr (WideRow<M>::value && !CrashLanes<M>::value) {
+    if constexpr (WideRow<M>::value && !kEditLanes<M>) {
       for (int i = wid; i < nrows; i += nwarps) {
         const int e0 = (int)ws.info[4 * i];
         if (vec16) {
@@ -1385,11 +1448,14 @@ size_t wide_smem_bytes(const TileGeometry& w, int width, int A) {
          wide_words<M>(w, width, A) * sizeof(uint32_t);
 }
 
-// The delivery lanes of A action lanes: those before the crash lanes.
+// The delivery lanes of A action lanes: those before the crash or drop
+// lanes.
 template <class M>
 int delivery_lanes(const M& m, int A) {
   if constexpr (CrashLanes<M>::value)
     return A - 2 * m.cr.n;
+  else if constexpr (DropLanes<M>::value)
+    return A - m.E;
   else
     return A;
 }
@@ -1412,7 +1478,7 @@ cudaError_t launch_expand(const M& m, const StepArgs& a, cudaStream_t st) {
     // holds 32 lanes
     if (GroupRow<M>::value && delivery_lanes(m, a.A) > kGroupLanes)
       return cudaErrorInvalidValue;
-    if (CrashLanes<M>::value && a.A > 32) return cudaErrorInvalidValue;
+    if (kEditLanes<M> && a.A > 32) return cudaErrorInvalidValue;
     cudaError_t e = allow_smem(expand_kernel<M, SYM>, smem);
     if (e != cudaSuccess) return e;
     expand_kernel<M, SYM><<<wa.tile.blocks, wa.tile.threads, smem, st>>>(

@@ -201,16 +201,21 @@ class PackedPaxos(PackedRegisterModel):
         """``("paxos", (client_count, server_count, net_capacity))``: the
         kernel runs ``csrc/paxos.cuh`` (with ``csrc/actor_net.cuh``) for
         up to 7 clients, 4 servers and 16 network slots on the
-        unordered non-duplicating network without drops or timers
+        unordered non-duplicating network without timers
         (``check_cuda_register``: no symmetry, no ordered network, no
         subclass that changes the step, the encoding, the properties or
-        the recovery). Under ``crash_restart``: ``("paxos_crash", (...,
+        the recovery). Under ``lossy_network(True)``: ``("paxos_lossy",
+        (...))``, ``PaxosLossyModel`` with a drop lane per slot after the
+        deliveries. Under ``crash_restart``: ``("paxos_crash", (...,
         *crash_params()))``, ``PaxosCrashModel`` with the crashable set
-        and the durable mask."""
+        and the durable mask (lossy and crashes together are
+        refused)."""
         crash = bool(self.max_crashes_)
-        name = "paxos_crash" if crash else "paxos"
+        lossy = bool(self.lossy_network_)
+        name = ("paxos_crash" if crash else "paxos_lossy" if lossy
+                else "paxos")
         self.check_cuda_register(PackedPaxos, "paxos.cuh", symmetry, name,
-                                 crash=crash)
+                                 crash=crash, lossy=True)
         params = (self.client_count, self.server_count, self.net_capacity)
         return name, params + (self.crash_params() if crash else ())
 

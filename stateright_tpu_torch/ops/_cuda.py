@@ -153,9 +153,9 @@ WIDE_THREADS = 128
 WIDE_BLOCKS_PER_SM = 3
 #: the wide models of ``STEP_MODELS`` (``kWideRow``): the words of their
 #: row in K1's shared ``RowState`` (``PaxosModel::W``, which
-#: ``PaxosCrashModel`` keeps); the launch refuses a shared-memory size
-#: below what this gives
-WIDE_MODELS = {"paxos": 128, "paxos_crash": 128}
+#: ``PaxosCrashModel`` and ``PaxosLossyModel`` keep); the launch refuses
+#: a shared-memory size below what this gives
+WIDE_MODELS = {"paxos": 128, "paxos_crash": 128, "paxos_lossy": 128}
 #: the group models of ``STEP_MODELS`` (``kGroupRow``, ``csrc/
 #: step_common.cuh`` ``GroupRow``: the register models on the unordered
 #: network, each child built by a half-warp, ``kGroupLanes``, with the
@@ -387,11 +387,15 @@ STEP_MODELS = {"twopc": (1, 2), "lineq": (3, None), "increment": (1, 1),
                "increment_lock": (1, None), "paxos": (3, None),
                "abd": (3, None), "abd_ordered": (3, None),
                "single_copy": (3, None), "write_once": (8, None),
-               "paxos_crash": (8, None)}
+               "paxos_crash": (8, None), "paxos_lossy": (3, None),
+               "ping_pong": (4, None), "timer_count": (2, None)}
 #: the models of STEP_MODELS with no probe-free (sharded) step: their
-#: host-evaluated properties keep them off a mesh (B14)
+#: host-evaluated properties keep them off a mesh (B14), and the actor
+#: test fixtures (``ping_pong``, ``timer_count``) wait for the step
+#: kernel's configuration 3 (the sharded engine refuses them on the card)
 SINGLE_CHIP_MODELS = ("paxos", "abd", "abd_ordered", "single_copy",
-                      "write_once", "paxos_crash")
+                      "write_once", "paxos_crash", "paxos_lossy",
+                      "ping_pong", "timer_count")
 
 
 def _step_entries(prefix: str, struct, size_fn: str,

@@ -96,6 +96,15 @@ class ShardedGpuChecker(GpuChecker):
         self._grp = AxisGroup(self._mesh, self._axis)
         if self._device.type == "cuda":
             self._device = self._grp.device
+            from ..ops._cuda import SINGLE_CHIP_MODELS
+            name = builder.model.cuda_spec(
+                builder.symmetry_fn_ is not None)[0]
+            if name in SINGLE_CHIP_MODELS:
+                raise NotImplementedError(
+                    f"the CUDA step kernel {name!r} has no probe-free "
+                    "(sharded) instantiation yet (the step kernel's "
+                    "configuration 3 for it, ROADMAP B); run this model "
+                    "on one card, or on a CPU mesh")
         self._logs = None  # every rank's log, gathered after the run
         self._started = False
 

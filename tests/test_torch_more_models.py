@@ -332,7 +332,9 @@ def test_cuda_spec_names_and_parameters(model, symmetry, spec, entry):
 
 def test_step_entry_refuses_unknown_names():
     # (paxos, ABD and the write-once register have step kernels since
-    # their own slices; no model has lossy drop lanes on the card yet)
+    # their own slices, lossy Paxos, PingPong and TimerCount since the
+    # drop and Timeout lanes were ported; the single-copy register has no
+    # lossy instantiation, so the name stays unknown)
     class _Other(PackedLinearEquation):
         def cuda_spec(self, symmetry=False):
             return "single_copy_lossy", (3,)

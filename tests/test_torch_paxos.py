@@ -401,7 +401,7 @@ def _timers():
 
 @pytest.mark.parametrize("configure,match", [
     (_ordered, "ordered network"),
-    (lambda: PackedPaxos(1).lossy_network(True), "lossy"),
+    (lambda: PackedPaxos(1).lossy_network(True), "paxos_lossy"),
     (_timers, "timers"),
     (lambda: PackedPaxos(1).crash_restart(1), "paxos_crash"),
 ], ids=["ordered", "lossy", "timers", "crash"])
@@ -413,9 +413,22 @@ def test_unported_configurations_raise(configure, match):
     instantiation on FIFO channels, still refuses it. The crash/restart
     lanes are ported: PackedPaxos(1) under ``crash_restart(1)`` (every
     actor crashable) checks on the CPU to the JAX package's host BFS,
-    and ``cuda_spec`` names its instantiation, ``paxos_crash``. The
-    lossy drop lanes and the timers raise everywhere."""
+    and ``cuda_spec`` names its instantiation, ``paxos_crash``. So are
+    the lossy drop lanes: lossy PackedPaxos(1) checks on the CPU to the
+    JAX device engine's pin (``chip_smoke.py`` ``PIN_PAXOS1_LOSSY``:
+    2,378 / 8,197 and its digest), and ``cuda_spec`` names
+    ``paxos_lossy``. Timers on a model without a ``packed_on_timeout``
+    raise everywhere."""
     model = configure()
+    if model.lossy_network_:
+        assert model.cuda_spec()[0] == match
+        ck = _cpu(model, fmax=256)
+        assert (ck.unique_state_count(), ck.state_count(),
+                _digest(ck.generated_fingerprints())) \
+            == _chip_smoke().PIN_PAXOS1_LOSSY
+        ck.assert_no_discovery("linearizable")
+        ck.assert_any_discovery("value chosen")
+        return
     if model.max_crashes_:
         assert model.cuda_spec()[0] == match
         want = JPaxos(1).crash_restart(1).checker().spawn_bfs().join()

@@ -24,6 +24,8 @@ import numpy as np
 import pytest
 import torch
 
+from stateright_tpu_torch.actor.test_util import (PackedPingPong,
+                                                  PackedTimerCount)
 from stateright_tpu_torch.examples.abd_packed import PackedAbd
 from stateright_tpu_torch.examples.paxos_packed import PackedPaxos
 from stateright_tpu_torch.examples.single_copy_packed import \
@@ -73,10 +75,22 @@ inline int __clz(unsigned x) { return x ? __builtin_clz(x) : 32; }
 #include "abd.cuh"
 #include "fold.cuh"
 #include "paxos.cuh"
+#include "ping_pong.cuh"
 #include "single_copy.cuh"
+#include "timer_count.cuh"
 #include "write_once.cuh"
 
 namespace {
+// a model with drop lanes (step_common.cuh DropLanes), and one whose
+// lanes after the deliveries are edits of the row (crash or drop lanes)
+template <class M, class = void>
+struct Lossy : std::false_type {};
+template <class M>
+struct Lossy<M, std::void_t<decltype(M::kLossy)>>
+    : std::integral_constant<bool, M::kLossy> {};
+template <class M>
+constexpr bool kEdits = actor::HasCrash<M>::value || Lossy<M>::value;
+
 struct Out {
   uint32_t* dst;
   void put(int i, uint32_t v) { dst[i] = v; }
@@ -100,11 +114,23 @@ bool crash_lane(const M& m, const uint32_t* w, int e, uint32_t* out,
   return ed.valid;
 }
 
-// the lanes K1 steps: those below the quiet lane, or a crash model's
-// active lanes (step_common.cuh CrashLanes)
+// a drop lane's child as K1 takes it: its edit and fingerprint by a
+// thread, its words by the lanes of a warp (one here)
+template <class M>
+bool drop_lane(const M& m, const uint32_t* w, int e, uint32_t* out,
+               uint32_t* fp) {
+  uint32_t r1, r2;
+  fold_row(w, m.width(), r1, r2);
+  const auto ed = m.drop_child(w, e, r1, r2, fp[0], fp[1]);
+  m.drop_write(w, ed, 0, 1, out);
+  return ed.valid;
+}
+
+// the lanes K1 steps: those below the quiet lane, or a crash or lossy
+// model's active lanes (step_common.cuh CrashLanes, DropLanes)
 template <class M>
 uint32_t stepped_lanes(const M& m, const uint32_t* w, int A) {
-  if constexpr (actor::HasCrash<M>::value) {
+  if constexpr (kEdits<M>) {
     return m.active_lanes(w);
   } else {
     const int q = m.quiet_from(w);
@@ -279,12 +305,12 @@ void group_body(int r) {
 // K1's wide branch on the host: every lane below the quiet lane through
 // step_row (the child folded in full, RowOut), the quiet lanes the row;
 // with crash lanes the active deliveries through step_row, each crash or
-// restart child as crash_lane, the inactive lanes unwritten (their
-// fingerprint the row's)
+// restart child as crash_lane, each drop child as drop_lane, the
+// inactive lanes unwritten (their fingerprint the row's)
 template <class M>
 int step_wide(const M& m, const uint32_t* rows, int f, uint32_t* out) {
   const int W = m.width(), A = m.max_actions();
-  constexpr bool kCrash = actor::HasCrash<M>::value;
+  constexpr bool kCrash = kEdits<M>;
   for (int r = 0; r < f; ++r) {
     const uint32_t* w = rows + (long)r * W;
     *out++ = m.props_row(w);
@@ -301,7 +327,10 @@ int step_wide(const M& m, const uint32_t* rows, int f, uint32_t* out) {
       bool crash = false;
       if constexpr (kCrash) crash = stepped && e >= m.E;
       if (crash) {
-        if constexpr (kCrash) v = crash_lane(m, w, e, out, fp);
+        if constexpr (Lossy<M>::value)
+          v = drop_lane(m, w, e, out, fp);
+        else if constexpr (kCrash)
+          v = crash_lane(m, w, e, out, fp);
       } else if (stepped) {
         Out o{out};
         v = m.step_row(w, e, o, ovf);
@@ -408,6 +437,32 @@ int row_lanes(const M& m, const uint32_t* rows, int f, uint32_t* out) {
   return 0;
 }
 
+// a narrow model's K1 (a thread a lane): per row the property bits, per
+// lane the flags, the fingerprint (every word of the child folded, as
+// step_common.cuh fp64) and the child's words
+template <class M>
+int step_narrow(const M& m, const uint32_t* rows, int f, uint32_t* out) {
+  if (!m.ok()) return 1;
+  const int W = m.width(), A = m.max_actions();
+  for (int r = 0; r < f; ++r) {
+    uint32_t w[M::W] = {};
+    for (int k = 0; k < W; ++k) w[k] = rows[(long)r * W + k];
+    *out++ = m.props(w);
+    for (int e = 0; e < A; ++e) {
+      uint32_t s[M::W];
+      bool ovf = false;
+      const bool v = m.step(w, e, s, ovf);
+      uint32_t h1 = 0u, h2 = 0u;
+      for (int k = 0; k < W; ++k) fold_word(h1, h2, k, s[k]);
+      *out++ = (v ? 1u : 0u) | (ovf ? 2u : 0u) | 4u;
+      fp64_finish(h1, h2, W, out[0], out[1]);
+      out += 2;
+      for (int k = 0; k < W; ++k) *out++ = s[k];
+    }
+  }
+  return 0;
+}
+
 // the model's K1: a wide model's RowOut (lanes 0), a group model's group
 // branch with groups of that many lanes
 template <class M>
@@ -442,6 +497,9 @@ int h_words(const char* name, int what) {
   if (n == "single_copy") return SingleCopyModel::W;
   if (n == "paxos") return PaxosModel::W;
   if (n == "paxos_crash") return PaxosCrashModel::W;
+  if (n == "paxos_lossy") return PaxosLossyModel::W;
+  if (n == "ping_pong") return PingPongModel::W;
+  if (n == "timer_count") return TimerCountModel::W;
   if (n == "write_once") return WriteOnceModel::W;
   return -1;
 }
@@ -460,6 +518,14 @@ int h_step(const char* name, const int* p, int np, int lanes,
     return run(SingleCopyModel(p[0], p[1], p[2]), lanes, rows, f, out);
   if (n == "paxos")
     return run(PaxosModel(p[0], p[1], p[2]), lanes, rows, f, out);
+  if (n == "paxos_lossy")
+    return run(PaxosLossyModel(p[0], p[1], p[2]), lanes, rows, f, out);
+  if (n == "ping_pong" && np == 4)
+    return lanes ? 6
+                 : step_narrow(PingPongModel(p[0], p[1], p[2], p[3]), rows,
+                               f, out);
+  if (n == "timer_count" && np == 2)
+    return lanes ? 6 : step_narrow(TimerCountModel(p[0], p[1]), rows, f, out);
   if (np != 8) return 2;
   const actor::CrashSpec cr{p[3], p[4], (uint32_t)p[5], (uint32_t)p[6],
                             (uint32_t)p[7]};
@@ -473,6 +539,8 @@ int h_step(const char* name, const int* p, int np, int lanes,
 int h_row_lanes(const char* name, const int* p, int np, const uint32_t* rows,
                 int f, uint32_t* out) {
   const std::string n(name);
+  if (n == "paxos_lossy" && np == 3)
+    return row_lanes(PaxosLossyModel(p[0], p[1], p[2]), rows, f, out);
   if (np != 8) return 2;
   const actor::CrashSpec cr{p[3], p[4], (uint32_t)p[5], (uint32_t)p[6],
                             (uint32_t)p[7]};
@@ -866,12 +934,31 @@ HOST_STEPS = {
     "paxos-1-crash": lambda: PackedPaxos(1).crash_restart(
         1, actors=[0, 1, 2]),
     "paxos-2-crash-all-k2": lambda: PackedPaxos(2).crash_restart(2),
+    "paxos-1-lossy": lambda: PackedPaxos(1).lossy_network(True),
+    "paxos-2-lossy": lambda: PackedPaxos(2).lossy_network(True),
 }
 
 #: the instantiations with crash/restart lanes (``csrc/step_common.cuh``
 #: ``CrashLanes``): K1 steps their active lanes only, a lane mask (the
 #: write-once register's without crashes too)
 CRASH_MODELS = ("write_once", "paxos_crash")
+#: the instantiations with drop lanes (``DropLanes``): K1 steps their
+#: active lanes only, a lane mask (``chip_smoke.py`` ``lossy_active``)
+LOSSY_MODELS = ("paxos_lossy",)
+
+
+def _counts_up(model, rows, rng, k):
+    """``k`` of ``rows`` with the count of about half their occupied
+    network slots raised to 2 or 3: a drop there keeps the slot (its
+    count less one), which a short search seldom reaches."""
+    out = rows[rng.choice(len(rows), k)].copy()
+    e = model.net_capacity
+    for row in out:
+        net = row[model._net_off:model._net_off + 4 * e].reshape(e, 4)
+        for j in range(e):
+            if net[j, 0] and rng.random() < 0.5:
+                net[j, 1] = rng.integers(2, 4)
+    return out
 
 
 def _chip_smoke():
@@ -913,6 +1000,9 @@ def _host_step(host, config):
     if model.max_crashes_:
         rng = np.random.default_rng(7)
         rows = np.concatenate([rows, _at_budget(model, rows, rng, 100)])
+    if name in LOSSY_MODELS:
+        rng = np.random.default_rng(9)
+        rows = np.concatenate([rows, _counts_up(model, rows, rng, 100)])
     rows = np.ascontiguousarray(rows, dtype=np.uint32)
     f, w, a = rows.shape[0], model.packed_width, model.max_actions
     out = np.zeros(f * (1 + a * (3 + w)), dtype=np.uint32)
@@ -953,11 +1043,13 @@ def test_device_step_is_the_plain_step(host, config):
     props = model.packed_properties(x).numpy().astype(np.uint32)
     bits = (props << np.arange(props.shape[1], dtype=np.uint32)).sum(1)
     assert np.array_equal(bits_k, bits)
-    if name in CRASH_MODELS:
+    if name in CRASH_MODELS + LOSSY_MODELS:
         held = stepped
         assert not (valid & ~held).any() and not (ovf & ~held).any()
         # chip_smoke.py's mirror of the rule, which the card's checks use
-        rule = _chip_smoke().crash_active(model)
+        smoke = _chip_smoke()
+        rule = (smoke.lossy_active if name in LOSSY_MODELS
+                else smoke.crash_active)(model)
         assert np.array_equal(rule(torch.from_numpy(
             rows.astype(np.int64))).numpy().reshape(f, a), stepped)
         if model.max_crashes_:
@@ -975,6 +1067,15 @@ def test_device_step_is_the_plain_step(host, config):
             # rows with an actor down, and with one at its crash budget
             assert stepped[:, e + n_cr:].any()
             assert (~stepped[:, e:e + n_cr] & ~down[:, e:e + n_cr]).any()
+        if name in LOSSY_MODELS:
+            e = model.net_capacity
+            # a slot's drop lane is active with its delivery; drops that
+            # keep the slot (a count above one) and drops that shift
+            assert np.array_equal(stepped[:, :e], stepped[:, e:])
+            counts = rows[:, model._net_off + 1:model._timer_off:4]
+            assert (stepped[:, e:] & (counts > 1)).any()
+            assert (stepped[:, e:] & (counts == 1)).any()
+            assert valid[:, e:][stepped[:, e:]].all()
     elif name == "abd_ordered":
         lens = rows[:, model._net_off:model._net_off + model._n_chan]
         assert np.array_equal(stepped, lens != 0)
@@ -1011,7 +1112,7 @@ def test_k1_child_fingerprint_is_fp64_of_the_child(host, config):
     s = s.numpy().reshape(f, a, w).astype(np.uint32)
     ovf = ovf.numpy().reshape(f, a)
     stepped = (flags & 4) != 0
-    edit = name == "abd_ordered" or name in CRASH_MODELS
+    edit = name == "abd_ordered" or name in CRASH_MODELS + LOSSY_MODELS
     poisoned = 0
     for r in range(f):
         row_fp = fp64_words(rows[r].tolist())
@@ -1029,14 +1130,15 @@ def test_k1_child_fingerprint_is_fp64_of_the_child(host, config):
 
 @pytest.mark.parametrize("config", [c for c in HOST_STEPS
                                     if HOST_STEPS[c]().cuda_spec()[0]
-                                    in CRASH_MODELS])
+                                    in CRASH_MODELS + LOSSY_MODELS])
 def test_crash_row_lanes_by_a_warp_are_the_threads(host, config):
-    """K1 takes a crash model's property bits and active lanes with a
-    warp per row (``actor_net.cuh`` ``crash_row_lanes``: lane r reads
-    slot r, every test a ballot): on reachable rows, rows at the crash
-    budget and rows with crowded networks, every lane of the warp agrees
-    and they equal the thread's walks (``props_row``, ``active_lanes``),
-    which the device step tests hold to the plain step."""
+    """K1 takes a crash or lossy model's property bits and active lanes
+    with a warp per row (``actor_net.cuh`` ``crash_row_lanes``,
+    ``drop_row_lanes``: lane r reads slot r, every test a ballot): on
+    reachable rows, rows at the crash budget and rows with crowded
+    networks, every lane of the warp agrees and they equal the thread's
+    walks (``props_row``, ``active_lanes``), which the device step tests
+    hold to the plain step."""
     model = HOST_STEPS[config]()
     name, params = model.cuda_spec()
     rows = _reachable(model, 300)
@@ -1065,6 +1167,86 @@ def test_crash_row_lanes_by_a_warp_are_the_threads(host, config):
     assert np.array_equal(out[:, 1], out[:, 3])
     assert (out[:, 0] & 2).any() or config.startswith("paxos")
     assert len(set(out[:, 1].tolist())) > 4
+
+
+#: the narrow instantiations of the actor test fixtures (a thread a
+#: lane): PackedPingPong in the four network quadrants, with a small
+#: network that overflows, and PackedTimerCount, up to its 32 actors
+NARROW_STEPS = {
+    "ping-pong-5-lossy-dup": lambda: PackedPingPong(5, True, True),
+    "ping-pong-5-lossy": lambda: PackedPingPong(5, True, False),
+    "ping-pong-5-dup": lambda: PackedPingPong(5, False, True),
+    "ping-pong-5": lambda: PackedPingPong(5, False, False),
+    "ping-pong-6-lossy-dup-e3": lambda: PackedPingPong(6, True, True,
+                                                       net_capacity=3),
+    "timer-count-3x2": lambda: PackedTimerCount(3, 2),
+    "timer-count-8x4": lambda: PackedTimerCount(8, 4),
+    "timer-count-32x2": lambda: PackedTimerCount(32, 2),
+}
+
+
+def _reachable_within(model, limit):
+    """The first ``limit`` states of a host BFS within the model's
+    boundary, encoded (a state whose network outgrows the encoding is
+    skipped)."""
+    seen, rows, queue = set(), [], list(model.init_states())
+    while queue and len(rows) < limit:
+        state = queue.pop(0)
+        if not model.within_boundary(state):
+            continue
+        try:
+            row = np.asarray(model.encode(state), dtype=np.uint32)
+        except ValueError:
+            continue
+        if row.tobytes() in seen:
+            continue
+        seen.add(row.tobytes())
+        rows.append(row)
+        queue.extend(model.next_states(state))
+    return np.stack(rows)
+
+
+@pytest.mark.parametrize("config", list(NARROW_STEPS))
+def test_narrow_device_step_is_the_plain_step(host, config):
+    """``csrc/ping_pong.cuh`` and ``csrc/timer_count.cuh`` as K1 calls
+    them (a thread a lane, every lane written) on reachable rows and
+    rows of random words: the property bits of every row, and on every
+    lane the child's words, ``valid``, ``overflow`` and the fingerprint
+    (``fp64_words`` of the plain step's child) against ``packed_step``
+    and ``packed_properties``."""
+    model = NARROW_STEPS[config]()
+    name, params = model.cuda_spec()
+    rng = np.random.default_rng(17)
+    rows = _reachable_within(model, 300)
+    junk = rng.integers(0, 2 ** 32, size=(40, model.packed_width),
+                        dtype=np.uint64).astype(np.uint32)
+    small = rng.integers(0, 8, size=(40, model.packed_width),
+                         dtype=np.uint64).astype(np.uint32)
+    rows = np.ascontiguousarray(np.concatenate([rows, junk, small]))
+    f, w, a = rows.shape[0], model.packed_width, model.max_actions
+    out = np.zeros(f * (1 + a * (3 + w)), dtype=np.uint32)
+    p = np.asarray(params, dtype=np.int32)
+    assert host.h_step(name.encode(), p.ctypes.data, len(p), 0,
+                       rows.ctypes.data, f, out.ctypes.data) == 0
+    out = out.reshape(f, 1 + a * (3 + w))
+    lanes = out[:, 1:].reshape(f, a, 3 + w)
+    x = torch.from_numpy(rows.astype(np.int64))
+    s, valid, ovf = model.packed_step(x)
+    s = s.numpy().astype(np.uint32)
+    props = model.packed_properties(x).numpy().astype(np.uint32)
+    assert np.array_equal(out[:, 0], (props << np.arange(
+        props.shape[1], dtype=np.uint32)).sum(1))
+    assert np.array_equal(lanes[:, :, 3:], s)
+    assert np.array_equal((lanes[:, :, 0] & 1) != 0, valid.numpy())
+    assert np.array_equal((lanes[:, :, 0] & 2) != 0, ovf.numpy())
+    fp = (lanes[:, :, 1].astype(np.uint64) << np.uint64(32)) \
+        | lanes[:, :, 2]
+    for r in range(0, f, 7):
+        for e in range(a):
+            assert fp[r, e] == fp64_words(s[r, e].tolist())
+    assert valid.any()
+    if config == "ping-pong-6-lossy-dup-e3":
+        assert ovf.any()
 
 
 def _chunk_constant(name):

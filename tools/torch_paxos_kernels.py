@@ -19,7 +19,14 @@ actors=[0, 1, 2]) (``chip_smoke.py``'s, gated: ``torch_register_kernels.py``
 ``crash_step``: the median device ms of five traces, the delivery, crash
 and restart children it builds, lane for lane against the plain version
 on its active lanes, and K1's phase clocks from a build with
-``-DSRT_K1_PHASES``), then the narrow K1 beside them (TwoPhaseSys(7)
+``-DSRT_K1_PHASES``), then K1's lossy instantiation (``paxos_lossy``) at
+the mid-search 8,192-row step of PackedPaxos(2).lossy_network(True)
+(``chip_smoke.py``'s, gated: ``torch_register_kernels.py`` ``time_k1``,
+with the delivery and drop children it builds, and at the end lane for
+lane against the plain version on its active lanes; an older tree
+without the instantiation prints a line saying so, and its K1-paxos
+line above stands beside it), then the
+narrow K1 beside them (TwoPhaseSys(7)
 and IncrementLock(9) at 12,288 rows). Each tree runs them with its own
 ``chip_smoke.py``, and
 prints a digest of the carry it built, so two trees are compared on the
@@ -53,6 +60,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 #: ``ptxas_usage`` names, by library)
 KERNELS = (("fused_step", "expand_kernel[PaxosModel]"),
            ("fused_step", "expand_kernel[PaxosCrashModel]"),
+           ("fused_step", "expand_kernel[PaxosLossyModel]"),
            ("history", "history_kernel"))
 
 
@@ -122,6 +130,7 @@ def run_tree(tree: str, reps: int) -> int:
         "PackedPaxos(3).crash_restart(1, actors=[0, 1, 2])", 8192, 8192,
         reps)
     print(json.dumps({**head, **line}), flush=True)
+    lossy_finish = lossy_step(smoke, head, dev, reps)
     # the narrow K1 instantiations (the register-array path), which the
     # wide branch must leave as they were
     for label, nmodel in (("2pc7", pkg.TwoPhaseSys(7)),
@@ -184,7 +193,47 @@ def run_tree(tree: str, reps: int) -> int:
                           "graph_launches")}}), flush=True)
     # the crash step's plain version and phase clocks, every trace taken
     print(json.dumps({**head, **crash_finish()}), flush=True)
+    if lossy_finish is not None:
+        print(json.dumps({**head, **lossy_finish()}), flush=True)
     return 0
+
+
+def lossy_step(smoke, head: dict, dev, reps: int):
+    """K1-paxos_lossy at the mid-search 8,192-row step of lossy
+    PackedPaxos(2), gated (``time_k1``), with the delivery and drop
+    children it builds; prints its line and returns a function that holds
+    the step to its plain version on its active lanes once every trace
+    is taken, or None (printing so) for a tree without the
+    instantiation."""
+    if not hasattr(smoke, "_paxos_lossy"):
+        print(json.dumps({**head, "kernel": "K1-paxos_lossy",
+                          "absent": "no paxos_lossy instantiation in this "
+                          "tree; its K1-paxos line stands beside it"}),
+              flush=True)
+        return None
+    from torch_register_kernels import time_k1
+
+    label = "PackedPaxos(2).lossy_network(True)"
+    model = smoke._paxos_lossy(2)
+    carry = smoke.mid_search_carry(model, dev, rows=8192, pending=8192)
+    res = time_k1(smoke, model, "paxos_lossy", carry, 8192, reps)
+    _block, args = smoke.block_args(model, carry, 8192)
+    take, e = res["pending"], model.net_capacity
+    act = smoke.lossy_active(model)(args[0][:take]).reshape(take, 2 * e)
+    print(json.dumps({**head, "kernel": "K1-paxos_lossy", "model": label,
+                      "carry": carry_digest(carry),
+                      "width": model.packed_width, **res,
+                      "children": {"deliveries": int(act[:, :e].sum()),
+                                   "drops": int(act[:, e:].sum())}}),
+          flush=True)
+
+    def finish() -> dict:
+        check = smoke.check_step(model, carry, 8192, reps=1,
+                                 active=smoke.lossy_active(model),
+                                 gated=True)
+        return {"kernel": "K1-paxos_lossy", "model": label,
+                "plain_ms": check["plain_ms"], "checks": check["checks"]}
+    return finish
 
 
 def main() -> int:

@@ -145,7 +145,8 @@ def held(smoke, model, name: str, frontier, take: int):
     ``single_copy``, ``write_once``), every row of the others; and of
     their lanes those below the quiet lane (a group model), of non-empty
     channels (``abd_ordered``) or active (a model with crash lanes:
-    ``chip_smoke.py`` ``crash_active``)."""
+    ``chip_smoke.py`` ``crash_active``; with drop lanes:
+    ``lossy_active``)."""
     import torch
 
     f, a = frontier.shape[0], model.max_actions
@@ -155,6 +156,8 @@ def held(smoke, model, name: str, frontier, take: int):
     lanes = rows.repeat_interleave(a)
     if name in CRASH_NAMES:
         lanes &= smoke.crash_active(model)(frontier)
+    elif name == "paxos_lossy":
+        lanes &= smoke.lossy_active(model)(frontier)
     elif name == "abd_ordered":
         lens = frontier[:, model._net_off:model._net_off + model._n_chan]
         lanes &= (lens != 0).reshape(-1)
