@@ -196,18 +196,22 @@ Phases, one JSON line each:
              ``lossy``). K1's ``paxos_lossy`` (``csrc/paxos.cuh``
              ``PaxosLossyModel``, the wide K1 with drop lanes) at a
              mid-search 8,192-row step of PackedPaxos(2).lossy_network(
-             True) (92 words, 32 lanes) under its active-lane rule
-             (``lossy_active``), ``ping_pong`` (``csrc/ping_pong.cuh``,
-             the narrow K1) at an 8,192-row frontier of PackedPingPong(7,
-             lossy=True, duplicating=True) (51 words, 32 lanes) and at the
-             widest level (2 rows) of PackedPingPong(7, lossy=True,
-             duplicating=False), and ``timer_count``
-             (``csrc/timer_count.cuh``, the narrow K1 with Timeout lanes)
-             at an 8,192-row frontier of PackedTimerCount(8, 4) (12
-             words, 9 lanes), each gated, with K2/K3, registers and
-             spills (the narrow K1s are held on every lane; their bounds
-             count the lanes ``lossy_active`` names, the children the
-             step needs), and the registers of every
+             True) (92 words, 32 lanes) and ``ping_pong``
+             (``csrc/ping_pong.cuh`` ``PingPongLossyModel``, the wide K1
+             with drop lanes) at an 8,192-row frontier of
+             PackedPingPong(7, lossy=True, duplicating=True) (51 words,
+             32 lanes) and at the widest level (2 rows) of
+             PackedPingPong(7, lossy=True, duplicating=False), each
+             under its active-lane rule (``lossy_active``), and
+             ``timer_count`` (``csrc/timer_count.cuh``, the narrow K1
+             with Timeout lanes) at an 8,192-row frontier of
+             PackedTimerCount(8, 4) (12 words, 9 lanes) and the lossless
+             ``ping_pong`` (``PingPongModel``, the narrow K1) at the
+             1-row levels of PackedPingPong(7, lossy=False) on both
+             networks, held on every lane (their bounds count the lanes
+             ``lossy_active`` names, the children the step needs), each
+             gated, with K2/K3,
+             registers and spills, and the registers of every
              earlier K1 instantiation beside them (``REGISTERS``: held
              unchanged, no spill); the runs, each ``race=False``:
              lossy PackedPaxos(2) (954,508, ``PIN_PAXOS2_LOSSY``:
@@ -3011,7 +3015,22 @@ REDESIGNED = {
                    "its words written from the shared row by a warp, 32 "
                    "a store; rows loaded block-wide, 8 words in flight a "
                    "thread; each row's property bits and active lanes by "
-                   "a warp, a lane a network slot"}
+                   "a warp, a lane a network slot",
+    "paxos_lossy": "each row's suffix folds by a warp (two lanes a "
+                   "slot fold its words' change under a shift, then a "
+                   "suffix XOR), so a drop child's fingerprint is one "
+                   "lookup and its words a group of 8 lanes' copy from "
+                   "the shared row as 16-byte vectors; the groups take "
+                   "the drop children from a shared counter, starting "
+                   "while other warps step the deliveries; no staged "
+                   "edit, no barrier",
+    "ping_pong": "off the thread-a-lane K1 onto the shared-row K1: rows "
+                 "in shared memory, each row's bits and zero tail by a "
+                 "warp; only the deliveries and drops before the zero "
+                 "tail stepped, each delivery by a thread into its "
+                 "staging row and copied by its warp 32 consecutive "
+                 "words a store, each drop child as paxos_lossy's; the "
+                 "other lanes' rows of flat unwritten"}
 #: K1's model struct of each register instantiation (ptxas's name)
 REGISTER_STRUCTS = {"abd_ordered": "AbdOrderedModel", "abd": "AbdModel",
                     "single_copy": "SingleCopyModel"}
@@ -3037,11 +3056,13 @@ def unordered_active(model):
 
 def active_rule(model, name):
     """The lanes K1's instantiation ``name`` writes a child for, by its
-    model's rule (None: every lane)."""
+    model's rule (None: every lane, as ping-pong's lossless one)."""
+    if name == "ping_pong" and not model.lossy_network_:
+        return None
     return {"abd_ordered": ordered_active, "abd": unordered_active,
             "single_copy": unordered_active, "write_once": crash_active,
-            "paxos_crash": crash_active,
-            "paxos_lossy": lossy_active}.get(name, lambda _m: None)(model)
+            "paxos_crash": crash_active, "paxos_lossy": lossy_active,
+            "ping_pong": lossy_active}.get(name, lambda _m: None)(model)
 
 
 def ordered_active(model):
@@ -3357,8 +3378,8 @@ def lossy_active(model):
     network's zero tail (``csrc/actor_net.cuh`` ``drop_active_lanes``),
     then the Timeout lanes of the actors whose timer bit is set. Every
     other lane's child is invalid and does not overflow. K1-paxos_lossy
-    writes the active lanes' children only; the narrow K1s write every
-    lane, and their bounds count these."""
+    and K1-ping_pong write the active lanes' children only; the narrow
+    K1-timer_count writes every lane, and its bound counts these."""
     def active(frontier):
         import torch
         below = _below_zero_tail(model, frontier)[1]
@@ -3505,7 +3526,8 @@ def _timer_count(n, max_nat):
 #: level holds 10,220 states and TimerCount(8, 4)'s 38,165: both steps
 #: are full. The non-duplicating PingPong(7) (30 states) runs the
 #: consume and the count bump of the same instantiation, at its widest
-#: level of 2 rows.
+#: level of 2 rows; the lossless PingPong(7) (every level 1 row) runs
+#: ping-pong's lossless instantiation, on both networks.
 LOSSY_STEPS = (
     ("PackedPaxos(2).lossy_network(True)", lambda: _paxos_lossy(2),
      "paxos_lossy", 8192, 8192),
@@ -3515,17 +3537,33 @@ LOSSY_STEPS = (
      lambda: _ping_pong(7, duplicating=False), "ping_pong", 2, 2),
     ("PackedTimerCount(8, 4)", lambda: _timer_count(8, 4), "timer_count",
      8192, 8192),
+    ("PackedPingPong(7, lossy=False, duplicating=True)",
+     lambda: _ping_pong(7, lossy=False), "ping_pong", 1, 1),
+    ("PackedPingPong(7, lossy=False, duplicating=False)",
+     lambda: _ping_pong(7, lossy=False, duplicating=False), "ping_pong",
+     1, 1),
 )
-#: K1's model struct of each instantiation of phase ``lossy``
-LOSSY_STRUCTS = {"paxos_lossy": "PaxosLossyModel",
-                 "ping_pong": "PingPongModel",
-                 "timer_count": "TimerCountModel"}
-#: the registers a thread of every earlier K1 instantiation takes (ptxas,
-#: the parent tree's build on an H100), which the drop lanes' trait must
-#: leave as they are
+
+
+def lossy_struct(name: str, model) -> str:
+    """K1's model struct of instantiation ``name`` of phase ``lossy``
+    for ``model``: ping-pong's lossy one (the wide K1 with drop lanes) or
+    its lossless one (the narrow K1, ``csrc/fused_step.cu``
+    ``srt_fused_step_ping_pong``)."""
+    if name == "ping_pong":
+        return ("PingPongLossyModel" if model.lossy_network_
+                else "PingPongModel")
+    return {"paxos_lossy": "PaxosLossyModel",
+            "timer_count": "TimerCountModel"}[name]
+
+
+#: the registers a thread of every other K1 instantiation takes (ptxas,
+#: the parent tree's build on an H100), which the drop lanes' and the
+#: shared-row path's redesigns must leave as they are
 REGISTERS = {"PaxosModel": 168, "AbdModel": 96, "SingleCopyModel": 121,
              "AbdOrderedModel": 96, "PaxosCrashModel": 164,
-             "WriteOnceModel": 72}
+             "WriteOnceModel": 72, "TimerCountModel": 134,
+             "PingPongModel": 122}
 
 
 def lossy_kernels(device) -> tuple:
@@ -3549,19 +3587,22 @@ def lossy_kernels(device) -> tuple:
     for label, make, name, rows, pending in LOSSY_STEPS:
         model = make()
         carry = mid_search_carry(model, device, rows=rows, pending=pending)
-        # K1-paxos_lossy writes its active lanes only; the narrow K1s
-        # write and are held on every lane
+        # the drop lanes' instantiations (K1-paxos_lossy, the lossy
+        # K1-ping_pong) write their active lanes only; the others (the
+        # lossless K1-ping_pong, K1-timer_count) write and are held on
+        # every lane, their bounds counting the lanes the step needs
         rule = lossy_active(model)
-        wide = name == "paxos_lossy"
+        drops = bool(model.lossy_network_)
         finish = check_step(model, carry, rows, reps=10,
-                            active=rule if wide else None,
-                            needed=None if wide else rule, defer=True,
+                            active=rule if drops else None,
+                            needed=None if drops else rule, defer=True,
                             gated=True)
         geo = _cuda.tile_geometry(rows, model.max_actions, sms)
         wide, smem = _cuda.k1_launch(name, geo, rows, model.packed_width,
-                                     model.max_actions, sms)
+                                     model.max_actions, sms,
+                                     model.cuda_spec()[1])
         usage = kernel_usage("fused_step",
-                             f"expand_kernel[{LOSSY_STRUCTS[name]}]")
+                             f"expand_kernel[{lossy_struct(name, model)}]")
         meta = {"width": model.packed_width, "actions": model.max_actions,
                 "pending": min(int(carry.q_tail - carry.q_head), rows),
                 "k1_launch": ({**wide._asdict(), "smem_bytes": smem}
@@ -3667,13 +3708,16 @@ def lossy_kernel_entries(checks: dict, runs: dict) -> list:
             "plain_ms": main["plain_ms"],
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
             "library_ms": None,
+            **({"redesigned": REDESIGNED[name]} if name in REDESIGNED
+               else {}),
             **{k: main[k] for k in (
                 "f", "pending", "width", "lanes", "written", "k1_launch",
                 "usage", "parts")},
             "by_model": {lb: {k: r[k] for k in (
                 "f", "pending", "width", "lanes", "written", "ms",
                 "device_ms", "plain_ms", "bound_ms", "bound_by",
-                "max_abs_err")} for lb, r in by.items()},
+                "max_abs_err", "k1_launch", "usage")}
+                for lb, r in by.items()},
             "status": "ok"})
     return out
 

@@ -10,10 +10,10 @@ the Timeout lanes: lossy duplicating max 5 -> 4,094 unique states;
 lossless non-duplicating max 5 -> 11 (`src/actor/model.rs:611`,
 `:642`); TimerCount(3, 2) -> 27.
 
-On the card :class:`PackedPingPong` runs ``csrc/ping_pong.cuh`` (one
-instantiation for the four network quadrants: ``dup`` and ``lossy`` are
-kernel parameters) and :class:`PackedTimerCount` ``csrc/timer_count.cuh``
-(one Timeout lane per actor); ``cuda_spec`` names them.
+On the card :class:`PackedPingPong` runs ``csrc/ping_pong.cuh`` (K1's
+shared-row path, with the drop lanes where lossy; ``dup`` a kernel
+parameter) and :class:`PackedTimerCount` ``csrc/timer_count.cuh`` (one
+Timeout lane per actor); ``cuda_spec`` names them.
 """
 
 from __future__ import annotations
@@ -185,9 +185,10 @@ class PackedPingPong(PackedActorModel):
 
     def cuda_spec(self, symmetry: bool = False):
         """``("ping_pong", (max_nat, net_capacity, duplicating, lossy))``:
-        the kernel runs ``csrc/ping_pong.cuh`` (the narrow K1, a thread a
-        lane) for up to 16 network slots on either unordered network,
-        lossy or not. Refused: symmetry (no representative), crashes,
+        the kernel runs ``csrc/ping_pong.cuh`` (the wide K1: rows in
+        shared memory, the lanes before the network's zero tail stepped,
+        each drop child built by a warp) for up to 16 network slots on
+        either unordered network, lossy or not. Refused: symmetry (no representative), crashes,
         timers, and a subclass that changes the step, the encoding, the
         properties or the boundary."""
         cls = type(self).__name__

@@ -19,10 +19,14 @@
 // delivery's child in two phases, its scalar part once a child
 // (register_deliver_scalar) and its network and words by a group
 // (register_deliver_group: the write-once register); the lossy drop lanes
-// of a model that has them (M::kLossy: Paxos on a lossy network), whose
-// children are the row with one count word less one or the network's
-// words from the dropped slot on moved up a slot (drop_edit, drop_word;
-// drop_fingerprint, a thread's, and drop_copy, a warp's); and the
+// of a model that has them (M::kLossy: Paxos on a lossy network, the
+// ping-pong fixture), whose children are the row with one count word
+// less one or the network's words from the dropped slot on moved up a
+// slot (drop_edit, drop_word; the row's suffix folds by a warp,
+// drop_suffix_folds, and each child's fingerprint from them by a thread,
+// drop_fold, and its words by a group, drop_write, which K1 runs; and
+// drop_fingerprint with drop_copy, a thread's, the reference the host
+// tests hold them to); and the
 // unordered network of a narrow model's register row with one message
 // word a slot, the duplicating network's set semantics among them
 // (row_net_consume, row_net_send: the ping-pong fixture).
@@ -574,8 +578,20 @@ __device__ __forceinline__ void crash_copy(const M& m, const uint32_t* w,
 // of at most one (or, on the duplicating network, whatever the count: the
 // envelope is removed outright, _net_remove :509) the network's words from
 // slot e on move up one slot, a zeroed slot entering at the tail. The lane
-// is valid iff the slot is occupied, and never overflows. M gives E,
-// net_off and width().
+// is valid iff the slot is occupied (and, for a model with a boundary,
+// the row within it: M::drop_edit), and never overflows. M gives E,
+// net_off, width() and drop_edit(w, lane); a slot is kSlotWords<M> words
+// (hdr, count, then the message's).
+
+// The words of a network slot of M: M::kSlotWords where it has one (the
+// ping-pong fixture's 3: hdr, count, msg), else the register models' 4.
+template <class M, class = void>
+struct SlotWordsOf : std::integral_constant<int, 4> {};
+template <class M>
+struct SlotWordsOf<M, std::void_t<decltype(M::kSlotWords)>>
+    : std::integral_constant<int, M::kSlotWords> {};
+template <class M>
+constexpr int kSlotWords = SlotWordsOf<M>::value;
 
 // A drop lane's child as an edit of the row: the dropped slot, whether
 // the network's words from it on move up a slot (else only its count word
@@ -586,13 +602,13 @@ struct DropEdit {
 };
 
 // Lane `lane` (E + e) of row w on the network of the model (dup: the
-// duplicating network).
+// duplicating network): the edit, valid iff the slot is occupied.
 template <class M>
 __device__ __forceinline__ DropEdit drop_edit(const M& m, const uint32_t* w,
                                               int lane, bool dup) {
   DropEdit ed;
   ed.e = lane - m.E;
-  const uint32_t* slot = w + m.net_off + 4 * ed.e;
+  const uint32_t* slot = w + m.net_off + kSlotWords<M> * ed.e;
   ed.valid = (slot[0] & kOcc) != 0u;
   ed.shift = dup || slot[1] <= 1u;
   return ed;
@@ -603,24 +619,144 @@ template <class M>
 __device__ __forceinline__ uint32_t drop_word(const M& m, const DropEdit& ed,
                                               const uint32_t* w, int k,
                                               uint32_t old) {
-  const int j = k - (m.net_off + 4 * ed.e);
-  if (j < 0 || k >= m.net_off + 4 * m.E) return old;
+  constexpr int sw = kSlotWords<M>;
+  const int j = k - (m.net_off + sw * ed.e);
+  if (j < 0 || k >= m.net_off + sw * m.E) return old;
   if (!ed.shift) return j == 1 ? old - 1u : old;
-  return k + 4 < m.net_off + 4 * m.E ? w[k + 4] : 0u;
+  return k + sw < m.net_off + sw * m.E ? w[k + sw] : 0u;
 }
 
-// Drop lane `lane`'s child of row w (in shared memory) as its edit, with
-// its fingerprint (hi, lo): the row's folds (r1, r2) with the words the
-// child changes refolded (the count word, or the network's words from the
-// dropped slot on). One thread's work.
+// The suffix folds of a lossy model's row w (shared memory), by a group
+// g of 32 lanes, lanes 2 j and 2 j + 1 for slot j (half its words each):
+// the XOR-folds (s1, s2) of the change a shift makes to each network
+// word from slot j's first to the network's end (word k becomes word k
+// + slot words, the tail zeros), each word's change folded once (its
+// column key computed: a table read at 32 lanes' distinct columns would
+// serialize), then a suffix XOR over the lanes (g.suffix_xor), slot j's
+// in lane 2 j. A shift drop of slot e folds to the row's folds XOR slot
+// e's suffix folds (drop_fold), so the drops of one row share the
+// refolding of its network. Every lane of the group calls it at the same
+// point.
+template <class M, class Grp>
+__device__ __forceinline__ void drop_suffix_folds(const M& m,
+                                                  const uint32_t* w,
+                                                  const Grp& g, uint32_t& s1,
+                                                  uint32_t& s2) {
+  constexpr int sw = kSlotWords<M>, half = (sw + 1) / 2;
+  const int r = g.rank(), j = r >> 1;
+  uint32_t h1 = 0u, h2 = 0u;
+  if (j < m.E) {
+    const int end = m.net_off + sw * m.E;
+#pragma unroll
+    for (int x = 0; x < half; ++x) {
+      const int c = (r & 1) * half + x;  // the slot's word
+      const int k = m.net_off + sw * j + c;
+      if (c < sw) {
+        const uint32_t old = w[k], v = k + sw < end ? w[k + sw] : 0u;
+        if (v != old) fold_change(h1, h2, k, old, v);
+      }
+    }
+  }
+  s1 = g.suffix_xor(h1);
+  s2 = g.suffix_xor(h2);
+}
+
+// A drop child's fingerprint (hi, lo) from the row's folds (r1, r2): a
+// shift's with the row's suffix folds of the dropped slot (sfx: slot j's
+// (s1, s2) at sfx[2 j], from drop_suffix_folds), a kept slot's with its
+// count word refolded (less one). One thread's work.
 template <class M>
-__device__ __forceinline__ DropEdit drop_fingerprint(
-    const M& m, const uint32_t* w, int lane, bool dup, uint32_t r1,
-    uint32_t r2, uint32_t& hi, uint32_t& lo) {
-  const DropEdit ed = drop_edit(m, w, lane, dup);
+__device__ __forceinline__ void drop_fold(const M& m, const uint32_t* w,
+                                          const DropEdit& ed,
+                                          const uint32_t* sfx, uint32_t r1,
+                                          uint32_t r2, uint32_t& hi,
+                                          uint32_t& lo) {
   uint32_t h1 = r1, h2 = r2;
-  const int end = ed.shift ? m.net_off + 4 * m.E : m.net_off + 4 * ed.e + 2;
-  for (int k = m.net_off + 4 * ed.e; k < end; ++k) {
+  if (ed.shift) {
+    h1 ^= sfx[2 * ed.e];
+    h2 ^= sfx[2 * ed.e + 1];
+  } else {
+    const int k = m.net_off + kSlotWords<M> * ed.e + 1;
+    fold_change(h1, h2, k, w[k], w[k] - 1u);
+  }
+  fp64_finish(h1, h2, m.width(), hi, lo);
+}
+
+// The child that edit ed makes of row w (shared memory), written to dst
+// (its row of flat) by lane r of G lanes: with vec (the width a multiple
+// of four, dst 16-byte aligned) the 4-word vectors r, r + G, ..., else
+// the words r, r + G, ... (G consecutive words a store).
+template <class M>
+__device__ __forceinline__ void drop_write(const M& m, const uint32_t* w,
+                                           const DropEdit& ed, int r, int G,
+                                           uint32_t* dst, bool vec) {
+  const int width = m.width();
+  if (vec) {
+    for (int q = r; 4 * q < width; q += G) {
+      uint32_t v[4];
+#pragma unroll
+      for (int x = 0; x < 4; ++x) v[x] = drop_word(m, ed, w, 4 * q + x,
+                                                   w[4 * q + x]);
+#ifdef __CUDACC__
+      reinterpret_cast<uint4*>(dst)[q] = make_uint4(v[0], v[1], v[2], v[3]);
+#else
+      for (int x = 0; x < 4; ++x) dst[4 * q + x] = v[x];
+#endif
+    }
+  } else {
+    for (int k = r; k < width; k += G) dst[k] = drop_word(m, ed, w, k, w[k]);
+  }
+}
+
+// A lossy model's members K1 calls for its drop lanes (M, the model,
+// derives from it and gives drop_edit): drop_suffix (a group's
+// drop_suffix_folds), drop_fold and drop_write.
+template <class M>
+struct DropLaneOps {
+  template <class Grp>
+  __device__ __forceinline__ void drop_suffix(const uint32_t* w,
+                                              const Grp& g, uint32_t& s1,
+                                              uint32_t& s2) const {
+    drop_suffix_folds(model(), w, g, s1, s2);
+  }
+  __device__ __forceinline__ void drop_fold(const uint32_t* w,
+                                            const DropEdit& ed,
+                                            const uint32_t* sfx, uint32_t r1,
+                                            uint32_t r2, uint32_t& hi,
+                                            uint32_t& lo) const {
+    actor::drop_fold(model(), w, ed, sfx, r1, r2, hi, lo);
+  }
+  __device__ __forceinline__ void drop_write(const uint32_t* w,
+                                             const DropEdit& ed, int r,
+                                             int G, uint32_t* dst,
+                                             bool vec) const {
+    actor::drop_write(model(), w, ed, r, G, dst, vec);
+  }
+
+ private:
+  __device__ __forceinline__ const M& model() const {
+    return static_cast<const M&>(*this);
+  }
+};
+
+// A drop child by one thread, the reference the host tests hold
+// drop_fold and drop_write to: its edit with its fingerprint (hi, lo),
+// the row's folds (r1, r2) with the words the child changes refolded one
+// by one (the count word, or the network's words from the dropped slot
+// on), then its words written to dst by lane r of G lanes (drop_copy).
+template <class M>
+__device__ __forceinline__ DropEdit drop_fingerprint(const M& m,
+                                                     const uint32_t* w,
+                                                     int lane, uint32_t r1,
+                                                     uint32_t r2,
+                                                     uint32_t& hi,
+                                                     uint32_t& lo) {
+  constexpr int sw = kSlotWords<M>;
+  const DropEdit ed = m.drop_edit(w, lane);
+  uint32_t h1 = r1, h2 = r2;
+  const int first = m.net_off + sw * ed.e;
+  const int end = ed.shift ? m.net_off + sw * m.E : first + 2;
+  for (int k = first; k < end; ++k) {
     const uint32_t v = drop_word(m, ed, w, k, w[k]);
     if (v != w[k]) fold_change(h1, h2, k, w[k], v);
   }
@@ -628,9 +764,6 @@ __device__ __forceinline__ DropEdit drop_fingerprint(
   return ed;
 }
 
-// The child that edit ed makes of row w (in shared memory), written to
-// dst (its row of flat) by lane r of G lanes (G consecutive words a
-// store).
 template <class M>
 __device__ __forceinline__ void drop_copy(const M& m, const uint32_t* w,
                                           const DropEdit& ed, int r, int G,

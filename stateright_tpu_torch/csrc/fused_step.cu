@@ -24,9 +24,9 @@
 // (paxos.cuh PaxosCrashModel, the wide K1 with crash lanes) and on a
 // lossy network (PaxosLossyModel, the wide K1 with drop lanes,
 // step_common.cuh DropLanes), the actor test fixtures PackedPingPong
-// (ping_pong.cuh: a narrow model with drop lanes and the duplicating
-// network as parameters) and PackedTimerCount (timer_count.cuh: a narrow
-// model with a Timeout lane per actor), and PackedAbd
+// (ping_pong.cuh: lossy, the wide K1 with drop lanes; lossless, a narrow
+// model; the duplicating network a parameter) and PackedTimerCount (timer_count.cuh:
+// a narrow model with a Timeout lane per actor), and PackedAbd
 // (abd.cuh: a group model on the unordered network; on the ordered one
 // an edit model of up to 352 words, whose warps write each child from
 // the shared row and the lane's edit, step_common.cuh EditRow); the
@@ -370,10 +370,17 @@ int srt_fused_step_paxos_lossy(const StepArgs* args, int clients,
 }
 
 // One fused step for PackedPingPong(max_nat, lossy, duplicating, slots)
-// (ping_pong.cuh: at most 16 slots; the narrow K1).
+// (ping_pong.cuh: at most 16 slots; lossy, the wide K1 with drop lanes,
+// PingPongLossyModel; lossless, the narrow K1, PingPongModel).
 int srt_fused_step_ping_pong(const StepArgs* args, int max_nat, int slots,
                              int dup, int lossy) {
-  const PingPongModel m(max_nat, slots, dup, lossy);
+  if (lossy) {
+    const PingPongLossyModel m(max_nat, slots, dup);
+    if (!m.ok() || args->A != m.max_actions())
+      return (int)cudaErrorInvalidValue;
+    return launch_step<PingPongLossyModel, false>(m, *args);
+  }
+  const PingPongModel m(max_nat, slots, dup, 0);
   if (!m.ok() || args->A != m.max_actions())
     return (int)cudaErrorInvalidValue;
   return launch_step<PingPongModel, false>(m, *args);

@@ -306,12 +306,13 @@ struct PaxosCrashModel : PaxosModel {
 // deliveries and the drops of the slots before the network's zero tail,
 // by a warp): a delivery's child through step_row, as PaxosModel's; a
 // drop child, the row with its count word less one or its network's
-// words from the dropped slot on moved up a slot, as an edit with its
-// fingerprint (the row's folds with those words refolded) by a thread,
-// then written from the shared row by a warp (drop_child, drop_write);
-// every other lane is invalid, does not overflow, and its row of flat is
-// not written.
-struct PaxosLossyModel : PaxosModel {
+// words from the dropped slot on moved up a slot, its fingerprint the
+// row's folds with the row's suffix folds of the slot (drop_suffix, a
+// warp's per row) or its count word refolded (drop_fold), its words
+// written from the shared row by a group of lanes (drop_write: 16-byte
+// vectors, the width a multiple of four); every other lane is invalid,
+// does not overflow, and its row of flat is not written.
+struct PaxosLossyModel : PaxosModel, actor::DropLaneOps<PaxosLossyModel> {
   static constexpr bool kLossy = true;
 
   __host__ PaxosLossyModel(int clients, int servers, int slots)
@@ -332,22 +333,10 @@ struct PaxosLossyModel : PaxosModel {
     actor::drop_row_lanes(*this, w, g, pb, mask);
   }
 
-  // A drop lane's child (lane >= E; valid or not, never overflowing) in
-  // two parts: its edit and fingerprint (hi, lo), from the row's folds
-  // (r1, r2), by a thread; then its words, written to dst by lane r of G
-  // lanes.
-  using DropEdit = actor::DropEdit;
-
-  __device__ __forceinline__ DropEdit drop_child(const uint32_t* w, int lane,
-                                                 uint32_t r1, uint32_t r2,
-                                                 uint32_t& hi,
-                                                 uint32_t& lo) const {
-    return actor::drop_fingerprint(*this, w, lane, false, r1, r2, hi, lo);
-  }
-
-  __device__ __forceinline__ void drop_write(const uint32_t* w,
-                                             const DropEdit& ed, int r,
-                                             int G, uint32_t* dst) const {
-    actor::drop_copy(*this, w, ed, r, G, dst);
+  // A drop lane's edit (lane >= E; valid or not, never overflowing): the
+  // non-duplicating network's.
+  __device__ __forceinline__ actor::DropEdit drop_edit(const uint32_t* w,
+                                                       int lane) const {
+    return actor::drop_edit(*this, w, lane, false);
   }
 };

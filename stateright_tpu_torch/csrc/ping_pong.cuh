@@ -4,18 +4,28 @@
 // JAX package's _packed_step_unordered with PackedPingPong's
 // packed_deliver, stateright_tpu/actor/test_util.py:117), for E <= 16
 // network slots on either unordered network, lossy or not: the network
-// (dup) and the drop lanes (lossy) are kernel parameters, so one
-// instantiation serves the four quadrants.
+// (dup) is a parameter; the drop lanes (lossy) pick the instantiation.
 //
 // Packed state (actor/packed.py finalize_layout), width 3 + 3 E (51 at
 // E = 16): [actor 0's count, actor 1's count | [hdr, count, msg] x E |
 // timer]; msg = type << 8 | value (Ping 1, Pong 2). Action lane e < E
 // delivers slot e; with lossy, lane E + e drops it.
 //
-// A narrow model (a thread a lane, as increment.cuh): the row and the
-// child are register arrays of W words, the network's slots at the static
-// offset 2 (actor_net.cuh row_net_consume, row_net_send), every loop over
-// them unrolled with static indices and guarded by the runtime E.
+// PingPongModel::step is one lane's step on register arrays of W words,
+// the network's slots at the static offset 2 (actor_net.cuh
+// row_net_consume, row_net_send), every loop over them unrolled with
+// static indices and guarded by the runtime E. Lossless, K1 runs it as a
+// narrow model (a thread a lane, as increment.cuh; every level of the
+// lossless fixture is one row, where the narrow K1 is the faster one).
+// Lossy (PingPongLossyModel), K1 runs it on the shared-row path
+// (step_common.cuh WideRow, DropLanes): the rows in shared memory, only
+// the deliveries and drops before the network's zero tail, each delivery
+// stepped densely by a thread through step_row (the row copied into the
+// step's arrays, the child put through a RowOut into the thread's
+// staging row, which its warp copies to flat 32 consecutive words a
+// store), each drop child's fingerprint from the row's suffix folds and
+// its words written by a group of lanes from the shared row
+// (actor_net.cuh drop_suffix_folds, drop_fold, drop_write).
 #pragma once
 
 #include <cstdint>
@@ -104,5 +114,97 @@ struct PingPongModel {
     const bool reach = a == max_nat || b == max_nat;
     const bool exceed = a == max_nat + 1u || b == max_nat + 1u;
     return (delta ? 1u : 0u) | (reach ? 6u : 0u) | (exceed ? 8u : 0u);
+  }
+};
+
+// The fixture on a lossy network, on K1's shared-row path (step_common.cuh
+// WideRow, DropLanes; actor_net.cuh DropEdit): the rows in shared memory,
+// only the active lanes stepped (row_lanes: the deliveries and the drops
+// of the slots before the network's zero tail, by a warp). A delivery
+// goes through step_row; a drop child is the row with slot e's count
+// less one or the network's words from slot e on moved up a slot (on the
+// duplicating network always: the envelope removed), as
+// PaxosLossyModel's (actor_net.cuh DropLaneOps), valid iff the slot is
+// occupied and the row within the boundary; every other lane is invalid,
+// does not overflow, and its row of flat is not written.
+struct PingPongLossyModel : PingPongModel,
+                            actor::DropLaneOps<PingPongLossyModel> {
+  static constexpr bool kWideRow = true;
+  static constexpr bool kLossy = true;
+  // a slot's words (actor_net.cuh kSlotWords): hdr, count, msg
+  static constexpr int kSlotWords = 3;
+  static constexpr int net_off = kNetOff;
+  // K1's shared row (RowState): the widest row's 51 words made a
+  // multiple of four, so that the row and its flags fill whole 16-byte
+  // units (ops/_cuda.py WIDE_MODELS sizes the launch with it)
+  static constexpr int W = 52;
+
+  __host__ PingPongLossyModel(int max_nat_, int slots, int dup_)
+      : PingPongModel(max_nat_, slots, dup_, 1) {}
+
+  // PingPongModel::props of the shared row w.
+  __device__ __forceinline__ uint32_t props_row(const uint32_t* w) const {
+    const uint32_t a = w[0], b = w[1];
+    const bool delta = max(a, b) - min(a, b) <= 1u;
+    const bool reach = a == max_nat || b == max_nat;
+    const bool exceed = a == max_nat + 1u || b == max_nat + 1u;
+    return (delta ? 1u : 0u) | (reach ? 6u : 0u) | (exceed ? 8u : 0u);
+  }
+
+  // The deliveries and drops of the slots before the network's zero tail
+  // (the first slot from which every slot is all-zero words).
+  __device__ __forceinline__ uint32_t active_lanes(const uint32_t* w) const {
+    const uint32_t* net = w + kNetOff;
+    int z = E;
+    while (z > 0 && (net[3 * z - 3] | net[3 * z - 2] | net[3 * z - 1]) == 0u)
+      --z;
+    const uint32_t below = (1u << z) - 1u;  // z <= 16
+    return below | (below << E);
+  }
+
+  // The property bits and the active lanes of row w (shared memory) by a
+  // group g of 32 lanes, lane r reading slot r (the zero tail by a
+  // ballot).
+  template <class Grp>
+  __device__ __forceinline__ void row_lanes(const uint32_t* w, const Grp& g,
+                                            uint32_t& pb,
+                                            uint32_t& mask) const {
+    pb = props_row(w);
+    const int r = g.rank();
+    const uint32_t* slot = w + kNetOff + 3 * (r < E ? r : 0);
+    const bool word = r < E && (slot[0] | slot[1] | slot[2]) != 0u;
+    const uint32_t nz = g.ballot(word);
+    const int z = nz ? 32 - __clz(nz) : 0;
+    const uint32_t below = (1u << z) - 1u;  // z <= 16
+    mask = below | (below << E);
+  }
+
+  // Delivery lane act's child of row w (shared memory) into out (a
+  // RowOut: the thread's staging row and the child's fingerprint):
+  // PingPongModel::step on a register copy of the row, with its
+  // overflow and kPoison rules.
+  template <class Out>
+  __device__ __forceinline__ bool step_row(const uint32_t* w, int act,
+                                           Out& out, bool& ovf) const {
+    constexpr int kW = PingPongModel::W;
+    const int width_ = width();
+    uint32_t x[kW], s[kW];
+#pragma unroll
+    for (int k = 0; k < kW; ++k) x[k] = k < width_ ? w[k] : 0u;
+    const bool v = step(x, act, s, ovf);
+#pragma unroll
+    for (int k = 0; k < kW; ++k)
+      if (k < width_) out.put(k, s[k]);
+    return v;
+  }
+
+  // A drop lane's edit (lane >= E; never overflowing): valid iff the slot
+  // is occupied and the row within the boundary (the child's counts are
+  // the row's).
+  __device__ __forceinline__ actor::DropEdit drop_edit(const uint32_t* w,
+                                                       int lane) const {
+    actor::DropEdit ed = actor::drop_edit(*this, w, lane, dup);
+    ed.valid = ed.valid && w[0] <= max_nat && w[1] <= max_nat;
+    return ed;
   }
 };

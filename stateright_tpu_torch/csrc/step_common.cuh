@@ -421,19 +421,26 @@ struct CrashLanes<M, std::void_t<decltype(M::kCrash)>>
     : std::integral_constant<bool, M::kCrash> {};
 
 // Whether a wide model has the lossy drop lanes (M::kLossy:
-// PaxosLossyModel; actor_net.cuh DropEdit): lanes [E, 2E) drop slot
-// lane - E. Its active lanes are a mask, as with crash lanes (at most 32
-// lanes: the deliveries and the drops of the slots before the network's
-// zero tail), taken with the row's property bits by a warp per row
-// (m.row_lanes) and listed deliveries first, then the drops (nact[1]: the
-// deliveries); K1 keeps each row's fingerprint folds. A delivery is
-// staged as a wide model's; a drop child is the row with its count word
-// less one or its network's words from the dropped slot on moved up a
-// slot, whose edit and fingerprint (the row's folds with those words
-// refolded) a thread takes (m.drop_child) and whose words a warp writes
-// from the shared row (m.drop_write), as a crash child's. Every other
-// lane gets the row's fingerprint and cvalid = 0, and its row of flat is
-// not written.
+// PaxosLossyModel, ping_pong.cuh PingPongLossyModel; actor_net.cuh
+// DropEdit): lanes [E, 2E) drop slot lane - E. Its active lanes are a
+// mask, as with crash lanes (at most 32 lanes: the deliveries and the
+// drops of the slots before the network's zero tail), taken with the
+// row's property bits by a warp per row (m.row_lanes) and listed
+// deliveries first, then the drops (nact[1]: the deliveries); K1 keeps
+// each row's fingerprint folds and, by the same warp, the row's suffix
+// folds (m.drop_suffix: lanes 2 j and 2 j + 1 slot j, the XOR of the
+// changes a shift makes to the network's words from slot j on,
+// kSuffixWords a row in shared memory). A delivery is staged as a wide
+// model's; a drop child is the row with its count word less one or its
+// network's words from the dropped slot on moved up a slot: its
+// fingerprint is the row's folds with the slot's suffix folds (or its
+// count word refolded), one lane's lookup (m.drop_fold), and its words
+// are written from the shared row by a group of kDropLanes lanes
+// (m.drop_write: 16-byte vectors where the width allows), the groups
+// taking the children from a shared counter (a warp idle in the
+// deliveries' last pass starts early), with no barrier and no staging.
+// Every other lane gets the row's fingerprint and cvalid = 0, and its
+// row of flat is not written.
 template <class M, class = void>
 struct DropLanes : std::false_type {};
 template <class M>
@@ -445,41 +452,6 @@ struct DropLanes<M, std::void_t<decltype(M::kLossy)>>
 // deliveries listed first.
 template <class M>
 constexpr bool kEditLanes = CrashLanes<M>::value || DropLanes<M>::value;
-
-// An edit lane's child: its edit and fingerprint by a thread (child), its
-// words by the lanes of a warp or group (write): a crash or restart
-// child's (M::CrashEdit, m.crash_child, m.crash_write), or a drop child's
-// (M::DropEdit, m.drop_child, m.drop_write).
-template <class M, bool = DropLanes<M>::value>
-struct LaneEdit {
-  using Edit = typename M::CrashEdit;
-  __device__ static __forceinline__ Edit child(const M& m, const uint32_t* w,
-                                               int e, uint32_t r1,
-                                               uint32_t r2, uint32_t& hi,
-                                               uint32_t& lo) {
-    return m.crash_child(w, e, r1, r2, hi, lo);
-  }
-  __device__ static __forceinline__ void write(const M& m, const uint32_t* w,
-                                               const Edit& ed, int r, int G,
-                                               uint32_t* dst) {
-    m.crash_write(w, ed, r, G, dst);
-  }
-};
-template <class M>
-struct LaneEdit<M, true> {
-  using Edit = typename M::DropEdit;
-  __device__ static __forceinline__ Edit child(const M& m, const uint32_t* w,
-                                               int e, uint32_t r1,
-                                               uint32_t r2, uint32_t& hi,
-                                               uint32_t& lo) {
-    return m.drop_child(w, e, r1, r2, hi, lo);
-  }
-  __device__ static __forceinline__ void write(const M& m, const uint32_t* w,
-                                               const Edit& ed, int r, int G,
-                                               uint32_t* dst) {
-    m.drop_write(w, ed, r, G, dst);
-  }
-};
 
 // The models whose K1 keeps its tile's rows in shared memory and walks
 // their active lanes densely (wide, edit and group models).
@@ -493,14 +465,14 @@ constexpr bool kSharedRow =
 // at a barrier, after which thread 0 of the block adds the SM clock's
 // ticks since the last one to k1_phase_ticks[phase] (kPhaseRows: the
 // prologue, from the gate to the active lanes listed; kPhaseDeliveries:
-// the delivery children; kPhaseCrashes: the crash and restart children;
-// kPhaseTail: the other lanes and the rows' outputs) and counts the block
-// in k1_phase_ticks[kK1Phases]. fused_step.cu srt_k1_phase_ticks reads
-// and clears them.
+// the delivery children; kPhaseEdits: the crash and restart, or drop,
+// children; kPhaseTail: the other lanes and the rows' outputs) and counts
+// the block in k1_phase_ticks[kK1Phases]. fused_step.cu
+// srt_k1_phase_ticks reads and clears them.
 enum K1Phase {
   kPhaseRows = 0,
   kPhaseDeliveries = 1,
-  kPhaseCrashes = 2,
+  kPhaseEdits = 2,
   kPhaseTail = 3,
   kK1Phases = 4
 };
@@ -568,11 +540,21 @@ struct WarpGroup {
 };
 
 // A whole warp as a group of 32 lanes with ballots in lane order
-// (actor_net.cuh crash_row_lanes).
+// (actor_net.cuh crash_row_lanes) and suffix XORs (drop_suffix_folds:
+// lane r gets the XOR of lanes r to 31).
 struct FullWarp {
   __device__ __forceinline__ int rank() const { return threadIdx.x & 31; }
   __device__ __forceinline__ uint32_t ballot(bool p) const {
     return __ballot_sync(0xFFFFFFFFu, p);
+  }
+  __device__ __forceinline__ uint32_t suffix_xor(uint32_t v) const {
+    const int r = threadIdx.x & 31;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const uint32_t y = __shfl_down_sync(0xFFFFFFFFu, v, o);
+      if (r + o < 32) v ^= y;
+    }
+    return v;
   }
 };
 
@@ -604,15 +586,25 @@ __host__ __device__ __forceinline__ int wide_stride(int width) {
 
 // K1-wide's shared memory after the tile's rows: per row its quiet lane
 // (m.quiet_from), its fingerprint (hi, lo) and its first active item (4
-// words), then the count of active lanes (4 words, for alignment), the
-// tile's active lanes (rows * A), and one staging row of
+// words), then the count of active lanes (4 words, for alignment: with
+// edit lanes the deliveries' count too, with drop lanes the next drop
+// child to take), the tile's active lanes (rows * A), with drop lanes
+// each row's suffix folds (kSuffixWords), and one staging row of
 // wide_stride(width) words per thread.
 struct WideSmem {
   uint32_t* info;
   uint32_t* nact;
   uint32_t* act;
+  uint32_t* sfx;
   uint32_t* stage;
 };
+
+// A row's suffix folds with drop lanes (actor_net.cuh drop_suffix_folds):
+// two words a network slot, at most 16 slots.
+constexpr int kSuffixWords = 32;
+// The lanes that write one drop child (actor_net.cuh drop_write): four
+// children a warp at once, 8 consecutive words or vectors a store.
+constexpr int kDropLanes = 8;
 
 // The words of a thread's slot after the active lanes: a wide model's
 // staging row, an edit model's M::Edit, a group model's two (its
@@ -633,13 +625,21 @@ __host__ __device__ __forceinline__ size_t slot_words(int width) {
     return (size_t)wide_stride(width);
 }
 
+// The suffix folds' words of a tile of `rows` rows: a model with drop
+// lanes has them, the others none.
+template <class M>
+__host__ __device__ __forceinline__ size_t suffix_words(int rows) {
+  return DropLanes<M>::value ? (size_t)rows * kSuffixWords : 0;
+}
+
 template <class M>
 __host__ __device__ __forceinline__ size_t wide_words(const TileGeometry& w,
                                                       int width, int A) {
   return 4 * ((size_t)w.rows + 1) + (size_t)w.rows * A +
-         (size_t)w.threads * slot_words<M>(width);
+         suffix_words<M>(w.rows) + (size_t)w.threads * slot_words<M>(width);
 }
 
+template <class M>
 __device__ __forceinline__ WideSmem wide_smem(unsigned char* smem,
                                               const TileGeometry& w,
                                               size_t row_bytes, int A) {
@@ -647,7 +647,8 @@ __device__ __forceinline__ WideSmem wide_smem(unsigned char* smem,
   s.info = reinterpret_cast<uint32_t*>(smem + (size_t)w.rows * row_bytes);
   s.nact = s.info + 4 * w.rows;
   s.act = s.nact + 4;
-  s.stage = s.act + w.rows * A;
+  s.sfx = s.act + w.rows * A;
+  s.stage = s.sfx + suffix_words<M>(w.rows);
   return s;
 }
 
@@ -730,7 +731,8 @@ struct alignas(16) RowState {
 // model does and builds each active lane's child with a half-warp,
 // written straight to flat. A model with crash lanes (CrashLanes) takes
 // its crash and restart children as edits of the row (see there), and a
-// lossy one (DropLanes) its drop children alike.
+// lossy one (DropLanes) its drop children from the rows' suffix folds, a
+// group of lanes each.
 // The grid also resets the ring arena for the step (grid-stride).
 // Inside a chunk the launch is gated (open_gate): its rows are the
 // queue's from the head, the first take of them valid.
@@ -811,7 +813,7 @@ __global__ void expand_kernel(M m, StepArgs a) {
     static_assert(kWideRows <= 32, "one warp scans the tile's rows");
     constexpr bool kEdit = EditRow<M>::value;
     const WideSmem ws =
-        wide_smem(tile_smem, a.tile, sizeof(RowState<M, SYM>), A);
+        wide_smem<M>(tile_smem, a.tile, sizeof(RowState<M, SYM>), A);
     const int wl = threadIdx.x & 31, wid = threadIdx.x >> 5;
     const int nwarps = blockDim.x >> 5;
     // which rows a group model steps: in a gated launch every row of the
@@ -900,7 +902,8 @@ __global__ void expand_kernel(M m, StepArgs a) {
     // folds (its children's are the row's with their changed words
     // refolded), the other wide and group models the fingerprint; with
     // crash lanes the warp also takes the row's property bits and active
-    // lanes, a lane a network slot (m.row_lanes)
+    // lanes, a lane a network slot (m.row_lanes), and with drop lanes the
+    // row's suffix folds (m.drop_suffix)
     for (int i = kPend ? nwarps - 1 - wid : wid; i < nrows; i += nwarps) {
       if (!pending(i)) continue;  // the whole warp
       if constexpr (kEditLanes<M>) {
@@ -911,6 +914,14 @@ __global__ void expand_kernel(M m, StepArgs a) {
           rows[i].pb = pb;
           rows[i].eb = eb & ~(pb & a.ev_mask);
           ws.info[4 * i] = mask & (A >= 32 ? ~0u : (1u << A) - 1u);
+        }
+      }
+      if constexpr (DropLanes<M>::value) {
+        uint32_t s1, s2;
+        m.drop_suffix(rows[i].w, FullWarp{}, s1, s2);
+        if ((wl & 1) == 0 && (wl >> 1) < m.E) {  // slot wl / 2's
+          ws.sfx[i * kSuffixWords + wl] = s1;
+          ws.sfx[i * kSuffixWords + wl + 1] = s2;
         }
       }
       uint32_t h1 = 0u, h2 = 0u;
@@ -963,6 +974,8 @@ __global__ void expand_kernel(M m, StepArgs a) {
         if constexpr (kEditLanes<M>) {
           ws.nact[0] = (uint32_t)((x & 0xFFFF) + (x >> 16));
           ws.nact[1] = (uint32_t)(x & 0xFFFF);
+          // with drop lanes, the next drop child to take
+          if constexpr (DropLanes<M>::value) ws.nact[2] = 0u;
         } else {
           *ws.nact = (uint32_t)x;
         }
@@ -1013,7 +1026,7 @@ __global__ void expand_kernel(M m, StepArgs a) {
   int row = threadIdx.x / A, act = threadIdx.x - row * A;
   if constexpr (WideRow<M>::value || GroupRow<M>::value) {
     const WideSmem ws =
-        wide_smem(tile_smem, a.tile, sizeof(RowState<M, SYM>), A);
+        wide_smem<M>(tile_smem, a.tile, sizeof(RowState<M, SYM>), A);
     const int nact = (int)*ws.nact;
     const int wl = threadIdx.x & 31, w0 = threadIdx.x - wl;
     const int wid = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
@@ -1080,15 +1093,55 @@ __global__ void expand_kernel(M m, StepArgs a) {
         }
         __syncwarp();
       }
-      if constexpr (kEditLanes<M>) {
+      if constexpr (DropLanes<M>::value) {
         clk.end(kPhaseDeliveries);
-        // the crash and restart (or drop) children, the list's rest, in
-        // passes of blockDim.x: each thread takes one's edit and
-        // fingerprint (the row's folds with its changed words refolded)
-        // and leaves the edit in its staging row; after a barrier child c
-        // of the pass is written from the shared row by warp c % nwarps,
-        // 32 consecutive words a store
-        using Edit = typename LaneEdit<M>::Edit;
+        // the drop children, the list's rest, a group of kDropLanes lanes
+        // each, taken in turn from a shared counter (nact[2]): a warp
+        // with no delivery in the last pass (none past the deliveries'
+        // count) starts on them while the others still step theirs, so
+        // the drops' stores overlap the deliveries' chains. The group's
+        // lanes write the child's words from the shared row straight to
+        // flat (m.drop_write); its first lane takes its fingerprint, the
+        // row's folds with the row's suffix folds of the slot or its
+        // count word refolded (m.drop_fold), and writes the lane's
+        // outputs
+        const int gr = threadIdx.x % kDropLanes;
+        const int g0 = wl - gr;  // the group's first lane in the warp
+        const unsigned gmask = ((1u << kDropLanes) - 1u) << g0;
+        const int ndrop = nact - nstaged;
+        int* next = reinterpret_cast<int*>(ws.nact + 2);
+        while (true) {
+          int c = 0;
+          if (gr == 0) c = atomicAdd(next, 1);
+          c = __shfl_sync(gmask, c, g0);
+          if (c >= ndrop) break;
+          const int t = (int)ws.act[nstaged + c], i = t / A;
+          RowState<M, SYM>& rs = rows[i];
+          const long long lane = lane0 + t;
+          const auto ed = m.drop_edit(rs.w, t - i * A);
+          m.drop_write(rs.w, ed, gr, kDropLanes, a.flat + lane * width,
+                       vec16);
+          if (gr == 0) {
+            uint32_t hi, lo;
+            m.drop_fold(rs.w, ed, ws.sfx + i * kSuffixWords,
+                        ws.info[4 * i + 1], ws.info[4 * i + 2], hi, lo);
+            a.chi[lane] = hi;
+            a.clo[lane] = lo;
+            const bool cv = ed.valid && rs.fv;
+            a.cvalid[lane] = cv;
+            nvalid += cv;
+            if (cv) rs.valid = 1;
+          }
+        }
+      } else if constexpr (kEditLanes<M>) {
+        clk.end(kPhaseDeliveries);
+        // the crash and restart children, the list's rest, in passes of
+        // blockDim.x: each thread takes one's edit and fingerprint (the
+        // row's folds with its changed words refolded) and leaves the
+        // edit in its staging row; after a barrier child c of the pass is
+        // written from the shared row by warp c % nwarps, 32 consecutive
+        // words a store
+        using Edit = typename M::CrashEdit;
         const int ncr = nact - nstaged;
         for (int base = 0; base < ncr; base += blockDim.x) {
           const int n = min((int)blockDim.x, ncr - base);
@@ -1099,8 +1152,8 @@ __global__ void expand_kernel(M m, StepArgs a) {
             const long long lane = lane0 + t;
             uint32_t hi, lo;
             const Edit ed =
-                LaneEdit<M>::child(m, rs.w, t - i * A, ws.info[4 * i + 1],
-                                   ws.info[4 * i + 2], hi, lo);
+                m.crash_child(rs.w, t - i * A, ws.info[4 * i + 1],
+                              ws.info[4 * i + 2], hi, lo);
             *reinterpret_cast<Edit*>(ws.stage + threadIdx.x * stride) = ed;
             a.chi[lane] = hi;
             a.clo[lane] = lo;
@@ -1114,8 +1167,8 @@ __global__ void expand_kernel(M m, StepArgs a) {
             const int t = (int)ws.act[nstaged + base + c], i = t / A;
             const Edit ed =
                 *reinterpret_cast<const Edit*>(ws.stage + c * stride);
-            LaneEdit<M>::write(m, rows[i].w, ed, wl, 32,
-                               a.flat + (lane0 + t) * width);
+            m.crash_write(rows[i].w, ed, wl, 32,
+                          a.flat + (lane0 + t) * width);
           }
           __syncthreads();  // the staging rows are the next pass's
         }
@@ -1215,7 +1268,7 @@ __global__ void expand_kernel(M m, StepArgs a) {
       }
     }
     if constexpr (!kEditLanes<M>) clk.end(kPhaseDeliveries);
-    clk.end(kPhaseCrashes);
+    clk.end(kPhaseEdits);
     // the quiet (or, with crash lanes, inactive) lanes: the row's
     // fingerprint, invalid (a group model's row that is not pending:
     // invalid only)
@@ -1270,7 +1323,7 @@ __global__ void expand_kernel(M m, StepArgs a) {
   } else if constexpr (EditRow<M>::value) {
     using Edit = typename M::Edit;
     const WideSmem ws =
-        wide_smem(tile_smem, a.tile, sizeof(RowState<M, SYM>), A);
+        wide_smem<M>(tile_smem, a.tile, sizeof(RowState<M, SYM>), A);
     Edit* edits = reinterpret_cast<Edit*>(ws.stage);
     const int nact = (int)*ws.nact;
     const int wl = threadIdx.x & 31, wid = threadIdx.x >> 5;
@@ -1325,7 +1378,7 @@ __global__ void expand_kernel(M m, StepArgs a) {
       __syncthreads();  // the slots are the next pass's
     }
     clk.end(kPhaseDeliveries);
-    clk.end(kPhaseCrashes);
+    clk.end(kPhaseEdits);
     // the other lanes: the row's fingerprint, invalid; flat unwritten
     for (int t = threadIdx.x; t < tile; t += blockDim.x) {
       if (!((ws.info[4 * row] >> act) & 1u)) {

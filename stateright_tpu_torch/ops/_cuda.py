@@ -153,9 +153,16 @@ WIDE_THREADS = 128
 WIDE_BLOCKS_PER_SM = 3
 #: the wide models of ``STEP_MODELS`` (``kWideRow``): the words of their
 #: row in K1's shared ``RowState`` (``PaxosModel::W``, which
-#: ``PaxosCrashModel`` and ``PaxosLossyModel`` keep); the launch refuses
-#: a shared-memory size below what this gives
-WIDE_MODELS = {"paxos": 128, "paxos_crash": 128, "paxos_lossy": 128}
+#: ``PaxosCrashModel`` and ``PaxosLossyModel`` keep;
+#: ``PingPongLossyModel::W``, the ping-pong fixture's 51 words made a
+#: multiple of four: ``ping_pong`` is wide where lossy, its lossless one
+#: narrow, :func:`drop_lanes`); the launch refuses a shared-memory size
+#: below what this gives
+WIDE_MODELS = {"paxos": 128, "paxos_crash": 128, "paxos_lossy": 128,
+               "ping_pong": 52}
+#: a row's suffix folds in K1's shared memory with drop lanes
+#: (``csrc/step_common.cuh`` ``kSuffixWords``: two a network slot)
+SUFFIX_WORDS = 32
 #: the group models of ``STEP_MODELS`` (``kGroupRow``, ``csrc/
 #: step_common.cuh`` ``GroupRow``: the register models on the unordered
 #: network, each child built by a half-warp, ``kGroupLanes``, with the
@@ -234,31 +241,48 @@ def wide_geometry(geo: Geometry, f: int, a: int, sms: int,
 
 def wide_smem_bytes(geo: Geometry, width: int, a: int,
                     row_words: int = WIDE_MODELS["paxos"],
-                    slot_words: int = None) -> int:
+                    slot_words: int = None, suffix: bool = False) -> int:
     """K1-wide's dynamic shared memory over ``geo`` (a
     :func:`wide_geometry`) for rows of ``width`` words and ``a`` action
     lanes (``StepArgs.wide_smem``; ``step_common.cuh`` ``WideSmem``): the
     tile's rows (``RowState``: ``row_words`` words and 16 bytes of
     flags, 16-byte aligned), four words per row (its quiet lane or
     active lanes, fingerprint and first active item) and four for the
-    count, the tile's active lanes (``rows * a``), then one slot per
-    thread: a staging row of ``wide_stride(width)`` words, or an edit
-    model's ``slot_words``."""
+    count, the tile's active lanes (``rows * a``), with ``suffix`` (drop
+    lanes) ``SUFFIX_WORDS`` a row, then one slot per thread: a staging
+    row of ``wide_stride(width)`` words, or an edit model's
+    ``slot_words``."""
     if slot_words is None:
         slot_words = wide_stride(width)
     return (geo.rows * (4 * row_words + 16)
             + 4 * (4 * (geo.rows + 1) + geo.rows * a
+                   + (geo.rows * SUFFIX_WORDS if suffix else 0)
                    + geo.threads * slot_words))
 
 
+def drop_lanes(name: str, params: tuple = ()) -> bool:
+    """Whether the K1 instantiation of ``STEP_MODELS`` entry ``name``
+    for its ``cuda_spec`` parameters ``params`` has drop lanes
+    (``csrc/step_common.cuh`` ``DropLanes``): ``paxos_lossy``, and
+    ``ping_pong`` where lossy (its last parameter; ``csrc/fused_step.cu``
+    ``srt_fused_step_ping_pong`` launches the narrow K1 otherwise). Each
+    row of its tile keeps ``SUFFIX_WORDS`` words in shared memory."""
+    return name == "paxos_lossy" or (name == "ping_pong"
+                                     and bool(params) and bool(params[-1]))
+
+
 def k1_launch(name: str, geo: Geometry, f: int, width: int, a: int,
-              sms: int) -> tuple:
+              sms: int, params: tuple = ()) -> tuple:
     """``(StepArgs.wide, StepArgs.wide_smem)`` of the step kernels of
-    ``STEP_MODELS`` entry ``name`` over ``f`` rows of ``width`` words and
-    ``a`` lanes (tile geometry ``geo``): a wide, group or edit model's K1
-    geometry and shared memory, else ``(geo, 0)`` (unused). Read when
-    called: ``EDIT_*`` and ``GROUP_*``."""
+    ``STEP_MODELS`` entry ``name`` (``cuda_spec`` parameters ``params``)
+    over ``f`` rows of ``width`` words and ``a`` lanes (tile geometry
+    ``geo``): a wide, group or edit model's K1 geometry and shared
+    memory, else ``(geo, 0)`` (unused). Read when called: ``EDIT_*`` and
+    ``GROUP_*``."""
     threads = per_sm = None
+    drops = drop_lanes(name, params)
+    if name == "ping_pong" and not drops:
+        return geo, 0  # the lossless fixture: the narrow K1
     if name in WIDE_MODELS:
         row_words, slot_words = WIDE_MODELS[name], None
     elif name in GROUP_MODELS:
@@ -271,7 +295,8 @@ def k1_launch(name: str, geo: Geometry, f: int, width: int, a: int,
     else:
         return geo, 0
     wide = wide_geometry(geo, f, a, sms, threads, per_sm)
-    return wide, wide_smem_bytes(wide, width, a, row_words, slot_words)
+    return wide, wide_smem_bytes(wide, width, a, row_words, slot_words,
+                                 suffix=drops)
 
 
 def pending_span(take: int, blocks: int, rows: int) -> int:
@@ -640,7 +665,7 @@ def _step_args(model, frontier, ebits, fvalid, phi, plo, ring, ws,
         raise ValueError("workspace does not match this ring or model")
     geo = tile_geometry(f, n_actions, sm_count(dev))
     wide, wide_smem = k1_launch(entry[0], geo, f, model.packed_width,
-                                n_actions, sm_count(dev))
+                                n_actions, sm_count(dev), entry[1])
     if bufs is None:
         bufs = step_buffers(model, f, stats_len, symmetry, dev, geo.blocks)
     elif (bufs["inserted"].shape[0] < lanes

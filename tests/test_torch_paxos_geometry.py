@@ -136,7 +136,10 @@ def test_wide_stores_are_aligned(cfg):
         assert s in (1, 4) and (starts % 16 != 0).any()
 
 
-@pytest.mark.parametrize("width", sorted({_width(*cfg) for cfg in CONFIGS}))
+@pytest.mark.parametrize("width", sorted(
+    {_width(*cfg) for cfg in CONFIGS}
+    # the ping-pong fixture's rows on the same K1 (``csrc/ping_pong.cuh``)
+    | {3 + 3 * e for e in range(1, 17)}))
 def test_staging_rows_keep_the_banks_apart(width):
     """A thread's staging row has an odd stride, so word ``k`` of the 32
     lanes of a warp (``RowOut.put``: every lane at the same word) lands

@@ -114,15 +114,16 @@ bool crash_lane(const M& m, const uint32_t* w, int e, uint32_t* out,
   return ed.valid;
 }
 
-// a drop lane's child as K1 takes it: its edit and fingerprint by a
-// thread, its words by the lanes of a warp (one here)
+// a drop lane's child by one thread (actor_net.cuh drop_fingerprint,
+// drop_copy): the reference drop_suffix_folds, drop_fold and drop_write
+// are held to
 template <class M>
 bool drop_lane(const M& m, const uint32_t* w, int e, uint32_t* out,
                uint32_t* fp) {
   uint32_t r1, r2;
   fold_row(w, m.width(), r1, r2);
-  const auto ed = m.drop_child(w, e, r1, r2, fp[0], fp[1]);
-  m.drop_write(w, ed, 0, 1, out);
+  const auto ed = actor::drop_fingerprint(m, w, e, r1, r2, fp[0], fp[1]);
+  actor::drop_copy(m, w, ed, 0, 1, out);
   return ed.valid;
 }
 
@@ -210,6 +211,7 @@ struct HostGroup {
   uint32_t up(uint32_t v) const { return call(2, v); }
   uint32_t ballot(bool p) const { return call(3, p ? 1u : 0u); }
   uint32_t xor_all(uint32_t v) const { return call(4, v); }
+  uint32_t suffix_xor(uint32_t v) const { return call(6, v); }
 };
 
 void lane_entry(int r) {
@@ -244,11 +246,14 @@ bool run_group(int G, void (*body)(int)) {
       bits |= (sched.in[r] ? 1u : 0u) << r;
       x ^= sched.in[r];
     }
-    for (int r = 0; r < G; ++r) {
+    uint32_t suffix = 0u;  // lanes r to G - 1, from the last down
+    for (int r = G - 1; r >= 0; --r) {
+      suffix ^= sched.in[r];
       switch (sched.kind[0]) {
         case 1: sched.out[r] = sched.in[r + 1 < G ? r + 1 : r]; break;
         case 2: sched.out[r] = sched.in[r >= 1 ? r - 1 : r]; break;
         case 3: sched.out[r] = bits; break;
+        case 6: sched.out[r] = suffix; break;
         default: sched.out[r] = x;
       }
     }
@@ -302,11 +307,80 @@ void group_body(int r) {
   task.ovf[r] = ovf;
 }
 
+// a lossy row's suffix folds as K1 takes them: by a warp of 32 lanes
+// (actor_net.cuh drop_suffix_folds), two words a slot (sfx[2 j])
+struct SuffixTask {
+  const void* m;
+  const uint32_t* w;
+  uint32_t s1[32], s2[32];
+};
+SuffixTask suffix_task;
+
+template <class M>
+void suffix_body(int r) {
+  const M& m = *static_cast<const M*>(suffix_task.m);
+  m.drop_suffix(suffix_task.w, HostGroup{r, 32}, suffix_task.s1[r],
+                suffix_task.s2[r]);
+}
+
+// 0, or 4 when the lanes reach different collectives
+template <class M>
+int row_suffix(const M& m, const uint32_t* w, uint32_t* sfx) {
+  suffix_task = SuffixTask{&m, w};
+  if (!run_group(32, suffix_body<M>)) return 4;
+  for (int j = 0; j < m.E; ++j) {  // slot j's in lane 2 j
+    sfx[2 * j] = suffix_task.s1[2 * j];
+    sfx[2 * j + 1] = suffix_task.s2[2 * j];
+  }
+  return 0;
+}
+
+// a drop lane's child as K1 builds it: its words by a group of 8 lanes
+// (drop_write, 16-byte vectors or not), its fingerprint from the row's
+// folds and suffix folds by the group's first lane (drop_fold)
+constexpr int kDropLanes = 8;
+template <class M>
+bool drop_child(const M& m, const uint32_t* w, int e, const uint32_t* sfx,
+                bool vec, uint32_t* out, uint32_t* fp) {
+  uint32_t r1, r2;
+  fold_row(w, m.width(), r1, r2);
+  const actor::DropEdit ed = m.drop_edit(w, e);
+  for (int r = 0; r < kDropLanes; ++r)
+    m.drop_write(w, ed, r, kDropLanes, out, vec);
+  m.drop_fold(w, ed, sfx, r1, r2, fp[0], fp[1]);
+  return ed.valid;
+}
+
+// per row, per drop lane E + j: whether it is active, then K1's valid
+// flag, fingerprint (hi, lo) and words (drop_child), then the thread's
+// (drop_lane)
+template <class M>
+int drops(const M& m, bool vec, const uint32_t* rows, int f, uint32_t* out) {
+  const int W = m.width();
+  if (vec && (W & 3)) return 3;
+  uint32_t sfx[32];
+  for (int r = 0; r < f; ++r) {
+    const uint32_t* w = rows + (long)r * W;
+    const uint32_t on = m.active_lanes(w);
+    if (row_suffix(m, w, sfx)) return 4;
+    for (int j = 0; j < m.E; ++j) {
+      const int e = m.E + j;
+      uint32_t* o = out + ((long)r * m.E + j) * (7 + 2 * W);
+      o[0] = (on >> e) & 1u;
+      if (!o[0]) continue;
+      o[1] = drop_child(m, w, e, sfx, vec, o + 7, o + 2);
+      o[4] = drop_lane(m, w, e, o + 7 + W, o + 5);
+    }
+  }
+  return 0;
+}
+
 // K1's wide branch on the host: every lane below the quiet lane through
 // step_row (the child folded in full, RowOut), the quiet lanes the row;
 // with crash lanes the active deliveries through step_row, each crash or
-// restart child as crash_lane, each drop child as drop_lane, the
-// inactive lanes unwritten (their fingerprint the row's)
+// restart child as crash_lane, each drop child as drop_child (16-byte
+// vectors where the width is a multiple of four, as K1), the inactive
+// lanes unwritten (their fingerprint the row's)
 template <class M>
 int step_wide(const M& m, const uint32_t* rows, int f, uint32_t* out) {
   const int W = m.width(), A = m.max_actions();
@@ -317,6 +391,9 @@ int step_wide(const M& m, const uint32_t* rows, int f, uint32_t* out) {
     const uint32_t on = stepped_lanes(m, w, A);
     uint32_t r1, r2;
     fold_row(w, W, r1, r2);
+    uint32_t sfx[32];
+    if constexpr (Lossy<M>::value)
+      if (row_suffix(m, w, sfx)) return 4;
     for (int e = 0; e < A; ++e) {
       uint32_t* flags = out++;
       uint32_t* fp = out;
@@ -327,10 +404,11 @@ int step_wide(const M& m, const uint32_t* rows, int f, uint32_t* out) {
       bool crash = false;
       if constexpr (kCrash) crash = stepped && e >= m.E;
       if (crash) {
-        if constexpr (Lossy<M>::value)
-          v = drop_lane(m, w, e, out, fp);
-        else if constexpr (kCrash)
+        if constexpr (Lossy<M>::value) {
+          v = drop_child(m, w, e, sfx, (W & 3) == 0, out, fp);
+        } else if constexpr (kCrash) {
           v = crash_lane(m, w, e, out, fp);
+        }
       } else if (stepped) {
         Out o{out};
         v = m.step_row(w, e, o, ovf);
@@ -468,7 +546,8 @@ int step_narrow(const M& m, const uint32_t* rows, int f, uint32_t* out) {
 template <class M>
 int run(const M& m, int lanes, const uint32_t* rows, int f, uint32_t* out) {
   if (!m.ok()) return 1;
-  if constexpr (std::is_base_of_v<PaxosModel, M>) {
+  if constexpr (std::is_base_of_v<PaxosModel, M> ||
+                std::is_base_of_v<PingPongLossyModel, M>) {
     return lanes ? 6 : step_wide(m, rows, f, out);
   } else {
     return lanes ? step_group(m, lanes, rows, f, out) : 6;
@@ -498,7 +577,7 @@ int h_words(const char* name, int what) {
   if (n == "paxos") return PaxosModel::W;
   if (n == "paxos_crash") return PaxosCrashModel::W;
   if (n == "paxos_lossy") return PaxosLossyModel::W;
-  if (n == "ping_pong") return PingPongModel::W;
+  if (n == "ping_pong") return PingPongLossyModel::W;
   if (n == "timer_count") return TimerCountModel::W;
   if (n == "write_once") return WriteOnceModel::W;
   return -1;
@@ -520,10 +599,15 @@ int h_step(const char* name, const int* p, int np, int lanes,
     return run(PaxosModel(p[0], p[1], p[2]), lanes, rows, f, out);
   if (n == "paxos_lossy")
     return run(PaxosLossyModel(p[0], p[1], p[2]), lanes, rows, f, out);
-  if (n == "ping_pong" && np == 4)
-    return lanes ? 6
-                 : step_narrow(PingPongModel(p[0], p[1], p[2], p[3]), rows,
-                               f, out);
+  // ping_pong: lanes 0 its one-lane step (PingPongModel::step, a thread a
+  // lane: the lossless K1), -1 the lossy K1's wide branch
+  if (n == "ping_pong" && np == 4) {
+    if (lanes == 0)
+      return step_narrow(PingPongModel(p[0], p[1], p[2], p[3]), rows, f,
+                         out);
+    if (lanes != -1 || !p[3]) return 6;
+    return run(PingPongLossyModel(p[0], p[1], p[2]), 0, rows, f, out);
+  }
   if (n == "timer_count" && np == 2)
     return lanes ? 6 : step_narrow(TimerCountModel(p[0], p[1]), rows, f, out);
   if (np != 8) return 2;
@@ -535,12 +619,24 @@ int h_step(const char* name, const int* p, int np, int lanes,
     return run(WriteOnceModel(p[0], p[1], p[2], cr), lanes, rows, f, out);
   return 2;
 }
+// a lossy model's drop children by a warp and by a thread (drops above)
+int h_drops(const char* name, const int* p, int np, int vec,
+            const uint32_t* rows, int f, uint32_t* out) {
+  const std::string n(name);
+  if (n == "paxos_lossy" && np == 3)
+    return drops(PaxosLossyModel(p[0], p[1], p[2]), vec, rows, f, out);
+  if (n == "ping_pong" && np == 4 && p[3])
+    return drops(PingPongLossyModel(p[0], p[1], p[2]), vec, rows, f, out);
+  return 2;
+}
 // a crash model's row lanes (row_lanes above)
 int h_row_lanes(const char* name, const int* p, int np, const uint32_t* rows,
                 int f, uint32_t* out) {
   const std::string n(name);
   if (n == "paxos_lossy" && np == 3)
     return row_lanes(PaxosLossyModel(p[0], p[1], p[2]), rows, f, out);
+  if (n == "ping_pong" && np == 4 && p[3])
+    return row_lanes(PingPongLossyModel(p[0], p[1], p[2]), rows, f, out);
   if (np != 8) return 2;
   const actor::CrashSpec cr{p[3], p[4], (uint32_t)p[5], (uint32_t)p[6],
                             (uint32_t)p[7]};
@@ -579,6 +675,9 @@ def host(tmp_path_factory):
                          ctypes.c_void_p]
     h.h_row_lanes.argtypes = [ctypes.c_char_p, ctypes.c_void_p, ctypes.c_int,
                               ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+    h.h_drops.argtypes = [ctypes.c_char_p, ctypes.c_void_p, ctypes.c_int,
+                          ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+                          ctypes.c_void_p]
     return h
 
 
@@ -1247,6 +1346,364 @@ def test_narrow_device_step_is_the_plain_step(host, config):
     assert valid.any()
     if config == "ping-pong-6-lossy-dup-e3":
         assert ovf.any()
+
+
+#: the lossy ping-pong fixture on K1's shared-row path
+#: (``csrc/ping_pong.cuh`` ``PingPongLossyModel``): (max_nat, lossy,
+#: duplicating, net_capacity) on both networks at every network size,
+#: and small networks whose sends overflow
+PING_PONG_WIDE = [(4, True, dup, e) for dup in (True, False)
+                  for e in range(1, 17)] \
+    + [(6, True, True, 3), (5, True, False, 2)]
+#: the lossless ping-pong fixture, on the narrow K1 (``PingPongModel``, a
+#: thread a lane), on both networks at every network size
+PING_PONG_LOSSLESS = [(4, False, dup, e) for dup in (True, False)
+                      for e in range(1, 17)]
+
+
+def _pp_id(cfg):
+    max_nat, lossy, dup, e = cfg
+    return (f"max{max_nat}-{'lossy' if lossy else 'lossless'}-"
+            f"{'dup' if dup else 'nondup'}-e{e}")
+
+
+def _ping_pong(cfg):
+    max_nat, lossy, dup, e = cfg
+    return PackedPingPong(max_nat, lossy, dup, net_capacity=e)
+
+
+def _crowded_slots(model, rows, rng, sw):
+    """``rows`` with each network refilled to a zero tail at every slot
+    position in turn (row k: k % (E + 1) slots): distinct occupied
+    envelopes of ``sw`` words (header, count 1 to 3, message words), in
+    the network's (header, message) order; the junk of a random word in
+    a tenth of the slots (an unoccupied header)."""
+    e, off = model.net_capacity, model._net_off
+    out = rows.copy()
+    for k, row in enumerate(out):
+        n = k % (e + 1)
+        net = row[off:off + sw * e].reshape(e, sw)
+        net[:] = 0
+        env = set()
+        while len(env) < n:
+            hdr = (1 << 16) | (int(rng.integers(0, 3)) << 8) \
+                | int(rng.integers(0, 3))
+            msg = tuple(int(x) for x in rng.integers(0, 1 << 10, sw - 2))
+            env.add((hdr,) + msg)
+        for j, t in enumerate(sorted(env)):
+            net[j, 0], net[j, 1], net[j, 2:] = t[0], rng.integers(1, 4), t[1:]
+            if rng.random() < 0.1:
+                net[j, 0] = int(rng.integers(1, 1 << 16))
+    return out
+
+
+def _ping_pong_rows(model, seed):
+    """Seeded rows of a ping-pong fixture: reachable states within the
+    boundary, rows of random words and of small random words, and
+    crowded networks (:func:`_crowded_slots`)."""
+    rng = np.random.default_rng(seed)
+    rows = _reachable_within(model, 200)
+    w = model.packed_width
+    junk = rng.integers(0, 2 ** 32, size=(30, w),
+                        dtype=np.uint64).astype(np.uint32)
+    small = rng.integers(0, 8, size=(30, w), dtype=np.uint64).astype(
+        np.uint32)
+    crowded = _crowded_slots(model, rows[rng.integers(0, len(rows), 60)],
+                             rng, 3)
+    return np.ascontiguousarray(np.concatenate([rows, junk, small,
+                                                crowded]), dtype=np.uint32)
+
+
+def _host_lanes(host, model, rows, lanes):
+    """``h_step`` of ``model``'s instantiation over ``rows`` (``lanes``: 0
+    the one-lane step, -1 K1's wide branch): the property bits, and per
+    lane the flags, the fingerprint (uint64) and the child's words."""
+    name, params = model.cuda_spec()
+    f, w, a = rows.shape[0], model.packed_width, model.max_actions
+    out = np.zeros(f * (1 + a * (3 + w)), dtype=np.uint32)
+    p = np.asarray(params, dtype=np.int32)
+    assert host.h_step(name.encode(), p.ctypes.data, len(p), lanes,
+                       rows.ctypes.data, f, out.ctypes.data) == 0
+    out = out.reshape(f, 1 + a * (3 + w))
+    lane = out[:, 1:].reshape(f, a, 3 + w)
+    fp = (lane[:, :, 1].astype(np.uint64) << np.uint64(32)) | lane[:, :, 2]
+    return out[:, 0], lane[:, :, 0], fp, lane[:, :, 3:]
+
+
+@pytest.mark.parametrize("cfg", PING_PONG_WIDE, ids=_pp_id)
+def test_ping_pong_step_row_is_the_one_lane_step(host, cfg):
+    """``csrc/ping_pong.cuh`` on K1's shared-row path (the host's wide
+    branch: ``step_row`` through a RowOut on each delivery before the
+    network's zero tail, each drop child from the row's suffix folds,
+    ``drop_suffix_folds``, ``drop_fold`` and ``drop_write``)
+    against ``PingPongModel::step`` (the thread-a-lane step) and the
+    plain step, lane for lane on seeded reachable, random and crowded
+    rows: the property bits of every row; on every stepped lane (the
+    lanes ``chip_smoke.py`` ``lossy_active`` names) the child's words,
+    ``valid``, ``overflow`` and fingerprint; every other lane's
+    fingerprint the row's and its child invalid without overflow in the
+    plain step."""
+    model = _ping_pong(cfg)
+    rows = _ping_pong_rows(model, list(cfg[1:]))
+    f, w, a = rows.shape[0], model.packed_width, model.max_actions
+    bits_w, flags_w, fp_w, child_w = _host_lanes(host, model, rows, -1)
+    bits_n, flags_n, fp_n, child_n = _host_lanes(host, model, rows, 0)
+    assert np.array_equal(bits_w, bits_n)
+    stepped = (flags_w & 4) != 0
+    rule = _chip_smoke().lossy_active(model)(
+        torch.from_numpy(rows.astype(np.int64))).numpy().reshape(f, a)
+    x = torch.from_numpy(rows.astype(np.int64))
+    s, valid, ovf = model.packed_step(x)
+    s = s.numpy().reshape(f, a, w).astype(np.uint32)
+    valid = valid.numpy().reshape(f, a)
+    ovf = ovf.numpy().reshape(f, a)
+    assert np.array_equal(stepped, rule)
+    assert stepped.any() and (~stepped).any()
+    for arr_w, arr_n in ((child_w, child_n), (fp_w, fp_n),
+                         (flags_w & 3, flags_n & 3)):
+        assert np.array_equal(arr_w[stepped], arr_n[stepped])
+    assert np.array_equal(child_w[stepped], s[stepped])
+    assert np.array_equal((flags_w[stepped] & 1) != 0, valid[stepped])
+    assert np.array_equal((flags_w[stepped] & 2) != 0, ovf[stepped])
+    assert not valid[~stepped].any() and not ovf[~stepped].any()
+    row_fp = np.array([fp64_words(r.tolist()) for r in rows],
+                      dtype=np.uint64)
+    assert np.array_equal(fp_w[~stepped],
+                          np.broadcast_to(row_fp[:, None],
+                                          fp_w.shape)[~stepped])
+    # (a one-slot network has no room for a reply: every delivery
+    # overflows)
+    assert (valid | ovf)[stepped].any()
+    if cfg == (6, True, True, 3):
+        assert ovf.any()
+
+
+@pytest.mark.parametrize("cfg", PING_PONG_LOSSLESS, ids=_pp_id)
+def test_lossless_ping_pong_one_lane_step_is_the_plain_step(host, cfg):
+    """The lossless ping-pong fixture as its K1 (the narrow K1,
+    ``PingPongModel::step``, a thread a lane, every lane written) runs
+    it, at every network size on both networks, against the plain step
+    on seeded reachable, random and crowded rows (every slot position
+    the zero tail): the property bits of every row, and on every lane the
+    child's words, ``valid``, ``overflow`` and the fingerprint; the lanes
+    past the network's zero tail (``chip_smoke.py`` ``lossy_active``)
+    the row itself, invalid."""
+    from stateright_tpu_torch.ops.hash_kernel import fp64_device
+    model = _ping_pong(cfg)
+    rows = _ping_pong_rows(model, list(cfg[1:]))
+    f, w, a = rows.shape[0], model.packed_width, model.max_actions
+    bits, flags, fp, child = _host_lanes(host, model, rows, 0)
+    x = torch.from_numpy(rows.astype(np.int64))
+    s, valid, ovf = model.packed_step(x)
+    props = model.packed_properties(x).numpy().astype(np.uint32)
+    assert np.array_equal(bits, (props << np.arange(
+        props.shape[1], dtype=np.uint32)).sum(1))
+    s = s.numpy().astype(np.uint32)
+    assert np.array_equal(child, s.reshape(f, a, w))
+    assert np.array_equal((flags & 1) != 0, valid.numpy().reshape(f, a))
+    assert np.array_equal((flags & 2) != 0, ovf.numpy().reshape(f, a))
+    hi, lo = fp64_device(torch.from_numpy(s.reshape(f * a, w).view(
+        np.int32)))
+    want = (hi.numpy().astype(np.uint64) << np.uint64(32)) \
+        | lo.numpy().astype(np.uint64)
+    assert np.array_equal(fp.reshape(-1), want)
+    quiet = ~_chip_smoke().lossy_active(model)(x).numpy().reshape(f, a)
+    assert quiet.any() and (~quiet).any()
+    assert np.array_equal(child[quiet],
+                          np.broadcast_to(rows[:, None, :],
+                                          child.shape)[quiet])
+    assert not valid.numpy().reshape(f, a)[quiet].any()
+    # (a one-slot network has no room for a reply: every delivery
+    # overflows)
+    assert (valid | ovf).any()
+
+
+#: the lossy instantiations whose drop children a warp builds: lossy
+#: Paxos(1) and (2) (4-word slots, 16-byte vectors) and the lossy
+#: ping-pong fixture (3-word slots) at every network size on both
+#: unordered networks
+DROP_CONFIGS = {
+    "paxos-1-lossy": lambda: PackedPaxos(1).lossy_network(True),
+    "paxos-2-lossy": lambda: PackedPaxos(2).lossy_network(True),
+    **{f"ping-pong-{'dup' if dup else 'nondup'}-e{e}":
+       (lambda dup=dup, e=e: PackedPingPong(4, True, dup, net_capacity=e))
+       for dup in (True, False) for e in range(1, 17)},
+}
+
+
+def _drop_rows(model, seed):
+    """Seeded rows of a lossy model: reachable states, the same with
+    counts raised to 2 or 3 (drops that keep their slot), and crowded
+    networks at every zero-tail position; a ping-pong fixture's rows of
+    :func:`_ping_pong_rows` besides."""
+    if model.cuda_spec()[0] == "ping_pong":
+        return _ping_pong_rows(model, seed)
+    rng = np.random.default_rng(seed)
+    rows = _reachable(model, 200)
+    up = _counts_up(model, rows, rng, 60)
+    crowded = _crowded_slots(model, rows[rng.integers(0, len(rows), 60)],
+                             rng, 4)
+    return np.ascontiguousarray(np.concatenate([rows, up, crowded]),
+                                dtype=np.uint32)
+
+
+#: each configuration with 32 words a store, and with 16-byte vectors
+#: where its width is a multiple of four
+DROP_CASES = [(c, vec) for c in DROP_CONFIGS for vec in (False, True)
+              if not vec or DROP_CONFIGS[c]().packed_width % 4 == 0]
+
+
+@pytest.mark.parametrize("config,vec", DROP_CASES,
+                         ids=[f"{c}-{'vectors' if v else 'words'}"
+                              for c, v in DROP_CASES])
+def test_drop_child_by_a_warp_is_the_threads(host, config, vec):
+    """A drop child as K1 builds it (``actor_net.cuh``): the row's
+    suffix folds by a warp (``drop_suffix_folds``: lanes 2 j and 2 j + 1
+    fold half of slot j's words' changes under a shift each, then a
+    suffix XOR over the lanes), the child's fingerprint the row's folds
+    with the dropped slot's suffix folds or its count word refolded
+    (``drop_fold``), its words from the shared row by a group of 8 lanes
+    (``drop_write``: 8 consecutive words a store or, where the width is
+    a multiple of four, 16-byte vectors), on every active drop lane of
+    seeded rows (kept and shifted slots at every position): the warp's
+    lanes agree, and the child's words, validity and fingerprint equal
+    the thread's (``drop_fingerprint``, ``drop_copy``: each changed word
+    refolded in turn), the plain step's child and validity, and
+    ``fp64_words`` of it."""
+    model = DROP_CONFIGS[config]()
+    name, params = model.cuda_spec()
+    w, e = model.packed_width, model.net_capacity
+    rows = _drop_rows(model, len(config))
+    f = rows.shape[0]
+    out = np.zeros(f * e * (7 + 2 * w), dtype=np.uint32)
+    p = np.asarray(params, dtype=np.int32)
+    assert host.h_drops(name.encode(), p.ctypes.data, len(p), int(vec),
+                        rows.ctypes.data, f, out.ctypes.data) == 0
+    out = out.reshape(f, e, 7 + 2 * w)
+    active = out[:, :, 0] != 0
+    assert active.any()
+    warp, thread = out[:, :, 7:7 + w], out[:, :, 7 + w:]
+    assert np.array_equal(warp[active], thread[active])
+    assert np.array_equal(out[:, :, 1:4][active], out[:, :, 4:7][active])
+    x = torch.from_numpy(rows.astype(np.int64))
+    s, valid, ovf = model.packed_step(x)
+    s = s.numpy().reshape(f, 2 * e, w)[:, e:].astype(np.uint32)
+    valid = valid.numpy().reshape(f, 2 * e)[:, e:]
+    assert not ovf.numpy().reshape(f, 2 * e)[:, e:].any()
+    assert np.array_equal(warp[active], s[active])
+    assert np.array_equal(out[:, :, 1][active] != 0, valid[active])
+    assert not valid[~active].any()
+    fp = (out[:, :, 2].astype(np.uint64) << np.uint64(32)) | out[:, :, 3]
+    for r, j in zip(*np.nonzero(active)):
+        assert fp[r, j] == fp64_words(s[r, j].tolist()), (r, j)
+    # drops that keep their slot and drops that shift the network
+    counts = rows[:, model._net_off + 1:model._timer_off:model._sw]
+    if not model._net_dup:
+        assert (active & (counts > 1)).any()
+    assert (active & (counts == 1)).any()
+
+
+@pytest.mark.parametrize("dup", [True, False], ids=["dup", "nondup"])
+@pytest.mark.parametrize("e", range(1, 17))
+def test_ping_pong_row_lanes_by_a_warp_are_lossy_active(host, e, dup):
+    """K1 takes the lossy ping-pong fixture's property bits and active
+    lanes with a warp per row (``PingPongLossyModel::row_lanes``: the
+    counts' bits from words 0 and 1, the zero tail by a ballot over the
+    3-word slots): on seeded reachable, random and crowded rows every
+    lane agrees, and they equal the plain properties, the thread's
+    ``active_lanes`` and ``chip_smoke.py`` ``lossy_active``."""
+    model = PackedPingPong(4, True, dup, net_capacity=e)
+    name, params = model.cuda_spec()
+    rows = _ping_pong_rows(model, [e, dup])
+    f, a = rows.shape[0], model.max_actions
+    out = np.zeros((f, 4), dtype=np.uint32)
+    p = np.asarray(params, dtype=np.int32)
+    assert host.h_row_lanes(name.encode(), p.ctypes.data, len(p),
+                            rows.ctypes.data, f, out.ctypes.data) == 0
+    x = torch.from_numpy(rows.astype(np.int64))
+    props = model.packed_properties(x).numpy().astype(np.uint32)
+    bits = (props << np.arange(props.shape[1], dtype=np.uint32)).sum(1)
+    assert np.array_equal(out[:, 0], bits)
+    assert np.array_equal(out[:, 0], out[:, 2])
+    rule = _chip_smoke().lossy_active(model)(x).numpy().reshape(f, a)
+    mask = (rule * (1 << np.arange(a, dtype=np.int64))).sum(1)
+    assert np.array_equal(out[:, 1].astype(np.int64), mask)
+    assert np.array_equal(out[:, 1], out[:, 3])
+    assert len(set(out[:, 1].tolist())) == e + 1  # every zero tail
+
+
+@pytest.mark.parametrize("sms", [66, 114, 132])
+def test_ping_pong_wide_launch_fits(sms):
+    """At every network size the lossy ping-pong fixture's K1 launch
+    (``k1_launch`` with its ``cuda_spec`` parameters: K1-wide's geometry
+    over ``WIDE_MODELS``'s 52 words a shared row) holds at most 32 rows a
+    block, whole warps of at most ``WIDE_THREADS``, blocks that cover the
+    frontier, the shared memory of ``step_common.cuh`` ``WideSmem`` (the
+    rows' suffix folds, ``kSuffixWords`` a row, and a staging row of the
+    width made odd a thread), and ``WIDE_BLOCKS_PER_SM`` blocks an SM; the
+    lossless one's is the narrow K1's (the tile geometry, no shared
+    memory), its instantiation without drop lanes."""
+    assert _cuda.row_words("ping_pong") == 52
+    assert _cuda.SUFFIX_WORDS == _step_constant("kSuffixWords") == 32
+    n = 0
+    for e in range(1, 17):
+        for lossy in (True, False):
+            model = PackedPingPong(5, lossy, True, net_capacity=e)
+            a, w = model.max_actions, model.packed_width
+            name, params = model.cuda_spec()
+            assert _cuda.drop_lanes(name, params) == lossy
+            assert a <= 32 and w <= 51
+            n += 1
+            for f in (1, 2, 37, 1000, 8192, 10220, 65536):
+                geo = _cuda.tile_geometry(f, a, sms)
+                wide, smem = _cuda.k1_launch(name, geo, f, w, a, sms,
+                                             params)
+                if not lossy:
+                    assert (wide, smem) == (geo, 0)
+                    continue
+                assert 1 <= wide.rows <= _cuda.WIDE_ROWS == 32
+                assert wide.threads % 32 == 0
+                assert wide.threads <= _cuda.WIDE_THREADS
+                assert wide.blocks * wide.rows >= f
+                assert (wide.blocks - 1) * wide.rows < f
+                assert smem == (wide.rows * (4 * 52 + 16)
+                                + 4 * (4 * (wide.rows + 1) + wide.rows * a
+                                       + 32 * wide.rows
+                                       + wide.threads * (w | 1)))
+                assert smem <= BLOCK_SMEM
+                assert _cuda.WIDE_BLOCKS_PER_SM * (smem + RESERVED) \
+                    <= SM_SMEM
+    assert n == 32
+
+
+@pytest.mark.parametrize("sms", [66, 114, 132])
+def test_lossy_paxos_launch_fits(sms):
+    """At every admitted lossy Paxos configuration (up to 7 clients, 4
+    servers, 16 slots: 32 lanes) and frontier, K1-paxos_lossy's launch
+    takes the wide K1's shared memory plus the rows' suffix folds
+    (``kSuffixWords`` a row), at most 227 KB, and two blocks fit an SM
+    (three at lossy PackedPaxos(2)'s 8,192-row step, its 21 rows)."""
+    for c in range(1, 8):
+        for s in range(1, 5):
+            for e in (1, 5, 16):
+                model = PackedPaxos(c, server_count=s,
+                                    net_capacity=e).lossy_network(True)
+                a, w = model.max_actions, model.packed_width
+                assert a == 2 * e <= 32 and w <= 128
+                name, params = model.cuda_spec()
+                assert _cuda.drop_lanes(name, params)
+                for f in (1, 37, 8192, 65536):
+                    geo = _cuda.tile_geometry(f, a, sms)
+                    wide, smem = _cuda.k1_launch(name, geo, f, w, a, sms,
+                                                 params)
+                    assert smem == _cuda.wide_smem_bytes(
+                        wide, w, a) + 4 * 32 * wide.rows
+                    assert smem <= BLOCK_SMEM
+                    assert 2 * (smem + RESERVED) <= SM_SMEM
+                    if (c, s, e, f, sms) == (2, 3, 16, 8192, 132):
+                        assert wide.rows == 21
+                        assert _cuda.WIDE_BLOCKS_PER_SM * (
+                            smem + RESERVED) <= SM_SMEM
 
 
 def _chunk_constant(name):

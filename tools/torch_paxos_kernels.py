@@ -5,6 +5,7 @@ one JSON line per tree and measurement.
 
     python tools/torch_paxos_kernels.py
     python tools/torch_paxos_kernels.py --old build/parent
+    python tools/torch_paxos_kernels.py --old build/parent --fixtures
 
 The shapes are ``chip_smoke.py``'s: a mid-search PackedPaxos(3) carry
 (the port's own loop at 8,192 rows a step until 8,192 rows are pending),
@@ -21,11 +22,15 @@ and restart children it builds, lane for lane against the plain version
 on its active lanes, and K1's phase clocks from a build with
 ``-DSRT_K1_PHASES``), then K1's lossy instantiation (``paxos_lossy``) at
 the mid-search 8,192-row step of PackedPaxos(2).lossy_network(True)
-(``chip_smoke.py``'s, gated: ``torch_register_kernels.py`` ``time_k1``,
+(``chip_smoke.py``'s, gated: ``torch_register_kernels.py`` ``k1_step``,
 with the delivery and drop children it builds, and at the end lane for
-lane against the plain version on its active lanes; an older tree
-without the instantiation prints a line saying so, and its K1-paxos
-line above stands beside it), then the
+lane against the plain version on its active lanes and K1's phase
+clocks; an older tree without the instantiation prints a line saying
+so, and its K1-paxos line above stands beside it), then K1-ping_pong at
+PingPong(7)'s 8,192-row step and at the non-duplicating PingPong(7)'s
+2-row step and K1-timer_count at TimerCount(8, 4)'s 8,192-row step
+(``torch_register_kernels.py`` ``FIXTURE_STEPS``, alike; K1-ping_pong
+held on its active lanes, K1-timer_count on every lane), then the
 narrow K1 beside them (TwoPhaseSys(7)
 and IncrementLock(9) at 12,288 rows). Each tree runs them with its own
 ``chip_smoke.py``, and
@@ -34,7 +39,10 @@ same carry (the loop's lowest-lane rule makes it the same). Then each
 tree runs the BASELINE workload (PackedPaxos(3), ``capacity=1<<21``,
 ``race=False``, ``target_state_count(500_000)``) and the same under
 ``crash_restart(1, actors=[0, 1, 2])``, each twice for its wall and
-once under ``torch.profiler`` (device ms by kernel, busy share).
+once under ``torch.profiler`` (device ms by kernel, busy share), and
+lossy Paxos(2) and PingPong(7) in the network's four quadrants in
+full, once each under ``torch.profiler``. ``--fixtures`` runs only the
+fixtures' K1 steps and PingPong(7)'s four runs.
 
 ``--old DIR`` also times another tree of the repository (the parent
 commit unpacked there: ``git archive HEAD~ stateright_tpu_torch
@@ -61,6 +69,9 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 KERNELS = (("fused_step", "expand_kernel[PaxosModel]"),
            ("fused_step", "expand_kernel[PaxosCrashModel]"),
            ("fused_step", "expand_kernel[PaxosLossyModel]"),
+           ("fused_step", "expand_kernel[PingPongModel]"),
+           ("fused_step", "expand_kernel[PingPongLossyModel]"),
+           ("fused_step", "expand_kernel[TimerCountModel]"),
            ("history", "history_kernel"))
 
 
@@ -130,7 +141,13 @@ def run_tree(tree: str, reps: int) -> int:
         "PackedPaxos(3).crash_restart(1, actors=[0, 1, 2])", 8192, 8192,
         reps)
     print(json.dumps({**head, **line}), flush=True)
-    lossy_finish = lossy_step(smoke, head, dev, reps)
+    lossy_finish = lossy_step(smoke, _cuda, tree, head, reps)
+    fixture_finish = []
+    if hasattr(smoke, "_ping_pong"):
+        from torch_register_kernels import fixture_steps
+        lines, fixture_finish = fixture_steps(smoke, _cuda, tree, reps)
+        for line in lines:
+            print(json.dumps({**head, **line}), flush=True)
     # the narrow K1 instantiations (the register-array path), which the
     # wide branch must leave as they were
     for label, nmodel in (("2pc7", pkg.TwoPhaseSys(7)),
@@ -191,48 +208,87 @@ def run_tree(tree: str, reps: int) -> int:
                           "loop_s", "busy", "ours_ms", "torch_ms",
                           "copy_ms", "by_kernel_ms", "by_kernel_calls",
                           "graph_launches")}}), flush=True)
-    # the crash step's plain version and phase clocks, every trace taken
-    print(json.dumps({**head, **crash_finish()}), flush=True)
-    if lossy_finish is not None:
-        print(json.dumps({**head, **lossy_finish()}), flush=True)
+    # lossy Paxos(2) and PingPong(7) in full
+    if hasattr(smoke, "_ping_pong"):
+        profile_runs(smoke, head, (("lossy Paxos(2)",
+                                    lambda: smoke._paxos_lossy(2)),)
+                     + ping_pong_runs(smoke))
+    # the edit steps' plain versions and phase clocks, every trace taken
+    for finish in [crash_finish] + ([lossy_finish] if lossy_finish else []) \
+            + fixture_finish:
+        print(json.dumps({**head, **finish()}), flush=True)
     return 0
 
 
-def lossy_step(smoke, head: dict, dev, reps: int):
+def ping_pong_runs(smoke) -> tuple:
+    """PingPong(7)'s runs in the network's four quadrants (``smoke``'s
+    ``_ping_pong``): label, model maker."""
+    return tuple((f"PingPong(7, lossy={lossy}, duplicating={dup})",
+                  lambda lossy=lossy, dup=dup: smoke._ping_pong(
+                      7, lossy=lossy, duplicating=dup))
+                 for lossy in (True, False) for dup in (True, False))
+
+
+def profile_runs(smoke, head: dict, runs) -> None:
+    """Each of ``runs`` (label, model maker) in full, once under
+    ``torch.profiler``: device ms and calls by kernel, busy share."""
+    for label, make in runs:
+        def one(make=make):
+            return make().checker().gpu_options(race=False).spawn_gpu() \
+                .join()
+        prof = smoke.device_times(one)
+        print(json.dumps({**head, "run": label, "profiled": True,
+                          **{k: prof.get(k) for k in (
+                              "loop_s", "busy", "ours_ms", "torch_ms",
+                              "copy_ms", "by_kernel_ms", "by_kernel_calls",
+                              "graph_launches")}}), flush=True)
+
+
+def run_fixtures(tree: str, reps: int) -> int:
+    """``--fixtures``: K1-ping_pong and K1-timer_count at the
+    ``FIXTURE_STEPS`` and PingPong(7)'s four runs (:func:`ping_pong_runs`)
+    of the repository at ``tree``, in this process."""
+    sys.path.insert(0, tree)
+    from stateright_tpu_torch.ops import _cuda
+    from torch_register_kernels import fixture_steps
+
+    smoke = importlib.import_module("chip_smoke")
+    if not smoke.__file__.startswith(tree):
+        raise RuntimeError(f"imported {smoke.__file__}, not {tree}'s")
+    info = _cuda.build()
+    usage = {name: smoke.ptxas_usage(info["logs"].get(lib, "")).get(name)
+             for lib, name in KERNELS}
+    head = {"tree": tree, "card": card(), "build_s": info["seconds"]}
+    print(json.dumps({**head, "usage": usage}), flush=True)
+    lines, finish = fixture_steps(smoke, _cuda, tree, reps)
+    for line in lines:
+        print(json.dumps({**head, **line}), flush=True)
+    profile_runs(smoke, head, ping_pong_runs(smoke))
+    for fin in finish:
+        print(json.dumps({**head, **fin()}), flush=True)
+    return 0
+
+
+def lossy_step(smoke, cuda, tree: str, head: dict, reps: int):
     """K1-paxos_lossy at the mid-search 8,192-row step of lossy
-    PackedPaxos(2), gated (``time_k1``), with the delivery and drop
-    children it builds; prints its line and returns a function that holds
-    the step to its plain version on its active lanes once every trace
-    is taken, or None (printing so) for a tree without the
-    instantiation."""
+    PackedPaxos(2), gated (``torch_register_kernels.py`` ``k1_step``),
+    with the delivery and drop children it builds; prints its line and
+    returns a function that holds the step to its plain version on its
+    active lanes and reads K1's phase clocks once every trace is taken,
+    or None (printing so) for a tree without the instantiation."""
     if not hasattr(smoke, "_paxos_lossy"):
         print(json.dumps({**head, "kernel": "K1-paxos_lossy",
                           "absent": "no paxos_lossy instantiation in this "
                           "tree; its K1-paxos line stands beside it"}),
               flush=True)
         return None
-    from torch_register_kernels import time_k1
+    from torch_register_kernels import k1_step
 
-    label = "PackedPaxos(2).lossy_network(True)"
     model = smoke._paxos_lossy(2)
-    carry = smoke.mid_search_carry(model, dev, rows=8192, pending=8192)
-    res = time_k1(smoke, model, "paxos_lossy", carry, 8192, reps)
-    _block, args = smoke.block_args(model, carry, 8192)
-    take, e = res["pending"], model.net_capacity
-    act = smoke.lossy_active(model)(args[0][:take]).reshape(take, 2 * e)
-    print(json.dumps({**head, "kernel": "K1-paxos_lossy", "model": label,
-                      "carry": carry_digest(carry),
-                      "width": model.packed_width, **res,
-                      "children": {"deliveries": int(act[:, :e].sum()),
-                                   "drops": int(act[:, e:].sum())}}),
-          flush=True)
-
-    def finish() -> dict:
-        check = smoke.check_step(model, carry, 8192, reps=1,
-                                 active=smoke.lossy_active(model),
-                                 gated=True)
-        return {"kernel": "K1-paxos_lossy", "model": label,
-                "plain_ms": check["plain_ms"], "checks": check["checks"]}
+    line, finish = k1_step(smoke, cuda, tree, model, "paxos_lossy",
+                           "PackedPaxos(2).lossy_network(True)", 8192, 8192,
+                           reps, rule=smoke.lossy_active(model))
+    print(json.dumps({**head, **line}), flush=True)
     return finish
 
 
@@ -241,6 +297,9 @@ def main() -> int:
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--old", help="the root of another tree of the "
                     "repository, timed before and after this one")
+    ap.add_argument("--fixtures", action="store_true",
+                    help="only the actor test fixtures' K1 steps and "
+                    "PingPong(7)'s runs")
     ap.add_argument("--tree", help=argparse.SUPPRESS)
     args = ap.parse_args()
 
@@ -249,13 +308,15 @@ def main() -> int:
         print("torch_paxos_kernels: no CUDA device", file=sys.stderr)
         return 2
     if args.tree:
-        return run_tree(args.tree, args.reps)
+        run = run_fixtures if args.fixtures else run_tree
+        return run(args.tree, args.reps)
     print(card(), flush=True)
     trees = [ROOT] if not args.old else [
         os.path.abspath(args.old), ROOT, ROOT, os.path.abspath(args.old)]
     for tree in trees:
         cmd = [sys.executable, os.path.abspath(__file__), "--tree", tree,
-               "--reps", str(args.reps)]
+               "--reps", str(args.reps)] + (["--fixtures"] if args.fixtures
+                                            else [])
         rc = subprocess.run(cmd, cwd=tree).returncode
         if rc:
             return rc

@@ -35,9 +35,13 @@ trace taken, each crash step held lane for lane to its plain version on
 its active lanes, and K1's phase clocks read over it: a build of the
 tree's kernels with ``-DSRT_K1_PHASES`` (``build/k1_phases``; a tree
 whose sources have no clocks reads none) adds, per block, the SM clock
-ticks of K1's prologue, delivery children, crash and restart children
-and tail (``csrc/step_common.cuh`` ``K1Clock``: a barrier ends each
-phase in that build only).
+ticks of K1's prologue, delivery children, edit children (crash and
+restart, or drop) and tail (``csrc/step_common.cuh`` ``K1Clock``: a
+barrier ends each phase in that build only; a K1 without the clocks,
+the narrow one, reads none). ``FIXTURE_STEPS`` (K1-ping_pong at
+PingPong(7)'s two steps, K1-timer_count at TimerCount(8, 4)'s) are
+timed alike by ``tools/torch_paxos_kernels.py`` (``fixture_steps``;
+``--fixtures`` there runs them alone).
 
 ``--sweep`` times K1-abd and K1-single_copy instead at each of
 ``GROUP_STEPS`` over other launches of this tree (no rebuild:
@@ -114,14 +118,39 @@ CRASH_STEPS = (
     ("PackedWriteOnce(7) at 1,024 rows",
      lambda s: s._write_once(7, net_capacity=16, crashes=2), "write_once",
      1024, 1024))
+#: the actor test fixtures' K1s (``chip_smoke.py`` ``LOSSY_STEPS``):
+#: K1-ping_pong at PingPong(7)'s 8,192-row step (lossy, duplicating), at
+#: the non-duplicating PingPong(7)'s 2-row widest level, as a 2-row step
+#: and as its run launches it (the small step's 256 rows, ``ops/
+#: expand.py`` ``FMAX_SMALL``, 2 pending), and at the lossless
+#: PingPong(7)'s 1-row levels (every level of both networks) as their
+#: runs launch them; K1-timer_count at TimerCount(8, 4)'s 8,192-row step
+#: beside them
+FIXTURE_STEPS = (
+    ("PackedPingPong(7, lossy=True, duplicating=True)",
+     lambda s: s._ping_pong(7), "ping_pong", 8192, 8192),
+    ("PackedPingPong(7, lossy=True, duplicating=False)",
+     lambda s: s._ping_pong(7, duplicating=False), "ping_pong", 2, 2),
+    ("PackedPingPong(7, lossy=True, duplicating=False) at 256 rows",
+     lambda s: s._ping_pong(7, duplicating=False), "ping_pong", 256, 2),
+    ("PackedPingPong(7, lossy=False, duplicating=True) at 256 rows",
+     lambda s: s._ping_pong(7, lossy=False), "ping_pong", 256, 1),
+    ("PackedPingPong(7, lossy=False, duplicating=False) at 256 rows",
+     lambda s: s._ping_pong(7, lossy=False, duplicating=False),
+     "ping_pong", 256, 1),
+    ("PackedTimerCount(8, 4)", lambda s: s._timer_count(8, 4),
+     "timer_count", 8192, 8192))
 #: the instantiations with crash/restart lanes
 CRASH_NAMES = ("write_once", "paxos_crash")
+#: the instantiations whose K1 writes the children of their active lanes
+#: only (``chip_smoke.py`` ``lossy_active``): the drop lanes' models
+LOSSY_NAMES = ("paxos_lossy", "ping_pong")
 #: the define a build with K1's phase clocks passes to nvcc
 #: (``csrc/step_common.cuh`` ``K1Clock``), its build directory and the
 #: phases in the order of ``k1_phase_ticks``
 PHASE_DEFINE = "-DSRT_K1_PHASES"
 PHASE_BUILD = os.path.join("build", "k1_phases")
-PHASES = ("rows", "deliveries", "crashes", "tail")
+PHASES = ("rows", "deliveries", "edits", "tail")
 
 
 def card() -> str:
@@ -139,14 +168,21 @@ def carry_digest(carry) -> str:
     return h.hexdigest()[:16]
 
 
+def lossy(model) -> bool:
+    """Whether ``model`` (an actor model) runs on a lossy network: its
+    K1 instantiation has drop lanes."""
+    return bool(model.lossy_network_)
+
+
 def held(smoke, model, name: str, frontier, take: int):
     """The lanes and rows whose outputs this tree's K1 writes (bool
     tensors): the pending rows of a group model (``abd``,
     ``single_copy``, ``write_once``), every row of the others; and of
     their lanes those below the quiet lane (a group model), of non-empty
     channels (``abd_ordered``) or active (a model with crash lanes:
-    ``chip_smoke.py`` ``crash_active``; with drop lanes:
-    ``lossy_active``)."""
+    ``chip_smoke.py`` ``crash_active``; with drop lanes, ``paxos_lossy``
+    and a lossy ``ping_pong``: ``lossy_active``); every lane of a
+    lossless ``ping_pong``."""
     import torch
 
     f, a = frontier.shape[0], model.max_actions
@@ -156,7 +192,7 @@ def held(smoke, model, name: str, frontier, take: int):
     lanes = rows.repeat_interleave(a)
     if name in CRASH_NAMES:
         lanes &= smoke.crash_active(model)(frontier)
-    elif name == "paxos_lossy":
+    elif name in LOSSY_NAMES and lossy(model):
         lanes &= smoke.lossy_active(model)(frontier)
     elif name == "abd_ordered":
         lens = frontier[:, model._net_off:model._net_off + model._n_chan]
@@ -173,14 +209,20 @@ def held(smoke, model, name: str, frontier, take: int):
 
 def children(smoke, model, frontier, take: int) -> dict:
     """The children K1 builds over the first ``take`` rows of
-    ``frontier`` (a model with crash lanes: ``chip_smoke.py``
-    ``crash_active``): deliveries, crashes and restarts."""
+    ``frontier``: with crash lanes (``chip_smoke.py`` ``crash_active``)
+    deliveries, crashes and restarts; else (``lossy_active``) the
+    deliveries and the drops or Timeout lanes before the network's zero
+    tail or with the timer set."""
     a, e = model.max_actions, model.net_capacity
-    n = len(model._crash_idx)
-    act = smoke.crash_active(model)(frontier[:take]).reshape(take, a)
-    return {"deliveries": int(act[:, :e].sum()),
-            "crashes": int(act[:, e:e + n].sum()),
-            "restarts": int(act[:, e + n:].sum())}
+    if model.max_crashes_:
+        n = len(model._crash_idx)
+        act = smoke.crash_active(model)(frontier[:take]).reshape(take, a)
+        return {"deliveries": int(act[:, :e].sum()),
+                "crashes": int(act[:, e:e + n].sum()),
+                "restarts": int(act[:, e + n:].sum())}
+    act = smoke.lossy_active(model)(frontier[:take]).reshape(take, a)
+    rest = "timeouts" if model.device_timers else "drops"
+    return {"deliveries": int(act[:, :e].sum()), rest: int(act[:, e:].sum())}
 
 
 def use_phase_build(cuda, tree: str):
@@ -238,7 +280,9 @@ def k1_phases(smoke, model, carry, f: int, reps: int):
         launch()
     if read(ticks):
         raise RuntimeError("srt_k1_phase_ticks failed")
-    blocks = max(int(ticks[len(PHASES)]), 1)  # over the reps launches
+    blocks = int(ticks[len(PHASES)])  # over the reps launches
+    if not blocks:  # a K1 without the clocks (the narrow K1)
+        return None
     per = [ticks[i] / blocks for i in range(len(PHASES))]
     total = sum(per) or 1.0
     return {"blocks_per_launch": blocks / reps,
@@ -338,17 +382,18 @@ def time_k1(smoke, model, name: str, carry, f: int, reps: int) -> dict:
             "k1_bound_ms": k1_bytes / HBM_BYTES_S * 1e3}
 
 
-def crash_step(smoke, cuda, tree: str, model, name: str, label: str,
-               rows: int, pending: int, reps: int):
-    """K1's crash instantiation ``name`` at a gated step of ``rows`` rows
-    of a mid-search carry of ``model`` (at least ``pending`` pending):
+def k1_step(smoke, cuda, tree: str, model, name: str, label: str,
+            rows: int, pending: int, reps: int, rule=None):
+    """K1's instantiation ``name`` at a gated step of ``rows`` rows of a
+    mid-search carry of ``model`` (at least ``pending`` pending):
     :func:`time_k1`'s line with the children it builds
     (:func:`children`). Returns the line and a function to call once
     every trace is taken (traces taken after a plain version or another
     build may lose K1's record): it holds the step lane for lane to its
-    plain version on its active lanes (``chip_smoke.py`` ``check_step``)
-    and reads K1's phase clocks (the tree's phase build, where its
-    sources have the clocks: :func:`k1_phases`), and returns their line."""
+    plain version (``chip_smoke.py`` ``check_step``) on the lanes
+    ``rule`` names (every lane: None) and reads K1's phase clocks (the
+    tree's phase build, where its sources have the clocks:
+    :func:`k1_phases`), and returns their line."""
     import torch
 
     carry = smoke.mid_search_carry(model, torch.device("cuda", 0),
@@ -361,8 +406,7 @@ def crash_step(smoke, cuda, tree: str, model, name: str, label: str,
                                         res["pending"])}
 
     def finish() -> dict:
-        check = smoke.check_step(model, carry, rows, reps=1,
-                                 active=smoke.crash_active(model),
+        check = smoke.check_step(model, carry, rows, reps=1, active=rule,
                                  gated=True)
         phases = None
         src = os.path.join(tree, "stateright_tpu_torch", "csrc",
@@ -379,6 +423,31 @@ def crash_step(smoke, cuda, tree: str, model, name: str, label: str,
                 "carry": line["carry"], "plain_ms": check["plain_ms"],
                 "checks": check["checks"], "phases": phases}
     return line, finish
+
+
+def crash_step(smoke, cuda, tree: str, model, name: str, label: str,
+               rows: int, pending: int, reps: int):
+    """:func:`k1_step` of a crash instantiation, held on its active
+    lanes (``chip_smoke.py`` ``crash_active``)."""
+    return k1_step(smoke, cuda, tree, model, name, label, rows, pending,
+                   reps, rule=smoke.crash_active(model))
+
+
+def fixture_steps(smoke, cuda, tree: str, reps: int) -> tuple:
+    """:func:`k1_step` at each of ``FIXTURE_STEPS``: K1-ping_pong held on
+    its active lanes (``lossy_active``) where lossy, K1-timer_count and
+    the lossless K1-ping_pong on every lane. Returns their lines and
+    their finishing functions."""
+    lines, finish = [], []
+    for label, make, name, rows, pending in FIXTURE_STEPS:
+        model = make(smoke)
+        rule = (smoke.lossy_active(model)
+                if name in LOSSY_NAMES and lossy(model) else None)
+        line, fin = k1_step(smoke, cuda, tree, model, name, label, rows,
+                            pending, reps, rule=rule)
+        lines.append(line)
+        finish.append(fin)
+    return lines, finish
 
 
 #: ``--sweep``'s launches: (threads a block, blocks an SM)
