@@ -202,15 +202,17 @@ Phases, one JSON line each:
              PackedPingPong(7, lossy=True, duplicating=True) (51 words,
              32 lanes) and at the widest level (2 rows) of
              PackedPingPong(7, lossy=True, duplicating=False), each
-             under its active-lane rule (``lossy_active``), and
-             ``timer_count`` (``csrc/timer_count.cuh``, the narrow K1
-             with Timeout lanes) at an 8,192-row frontier of
-             PackedTimerCount(8, 4) (12 words, 9 lanes) and the lossless
-             ``ping_pong`` (``PingPongModel``, the narrow K1) at the
-             1-row levels of PackedPingPong(7, lossy=False) on both
-             networks, held on every lane (their bounds count the lanes
-             ``lossy_active`` names, the children the step needs), each
-             gated, with K2/K3,
+             under its active-lane rule (``lossy_active``),
+             ``timer_count`` (``csrc/timer_count.cuh``, K1's timer path,
+             ``step_common.cuh`` ``TimerRow``) at an 8,192-row frontier
+             of PackedTimerCount(8, 4) (12 words, 9 lanes) and at its
+             run's 256-row small step, held on its active lanes
+             (``timer_active``: the Timeout lanes whose timer bit is
+             set), and the lossless ``ping_pong`` (``PingPongModel``, the
+             narrow K1) at the 1-row levels of PackedPingPong(7,
+             lossy=False) on both networks, held on every lane (its bound
+             counting the lanes ``lossy_active`` names, the children the
+             step needs), each gated, with K2/K3,
              registers and spills, and the registers of every
              earlier K1 instantiation beside them (``REGISTERS``: held
              unchanged, no spill); the runs, each ``race=False``:
@@ -3030,7 +3032,18 @@ REDESIGNED = {
                  "tail stepped, each delivery by a thread into its "
                  "staging row and copied by its warp 32 consecutive "
                  "words a store, each drop child as paxos_lossy's; the "
-                 "other lanes' rows of flat unwritten"}
+                 "other lanes' rows of flat unwritten",
+    "timer_count": "off the thread-a-lane K1 onto its own path: only the "
+                   "pending rows, each loaded into shared memory by a "
+                   "group of 4 lanes, a lane a column, taking its "
+                   "fingerprint folds, property bits and Timeout lanes "
+                   "on the way; each active lane (timer bit set) by a "
+                   "thread, its fingerprint the row's folds with the "
+                   "count and timer words refolded, its edit posted to a "
+                   "shared slot; the block's children then written as "
+                   "one range of 16-byte vectors from the shared rows; "
+                   "the delivery lane and clear Timeout lanes' rows of "
+                   "flat unwritten"}
 #: K1's model struct of each register instantiation (ptxas's name)
 REGISTER_STRUCTS = {"abd_ordered": "AbdOrderedModel", "abd": "AbdModel",
                     "single_copy": "SingleCopyModel"}
@@ -3062,7 +3075,8 @@ def active_rule(model, name):
     return {"abd_ordered": ordered_active, "abd": unordered_active,
             "single_copy": unordered_active, "write_once": crash_active,
             "paxos_crash": crash_active, "paxos_lossy": lossy_active,
-            "ping_pong": lossy_active}.get(name, lambda _m: None)(model)
+            "ping_pong": lossy_active, "timer_count": timer_active}.get(
+                name, lambda _m: None)(model)
 
 
 def ordered_active(model):
@@ -3373,13 +3387,13 @@ def _below_zero_tail(model, frontier):
 
 
 def lossy_active(model):
-    """The active-lane rule of an instantiation with drop or Timeout
+    """The active-lane rule of an actor model with drop or Timeout
     lanes: the deliveries and (lossy) the drops of the slots before the
     network's zero tail (``csrc/actor_net.cuh`` ``drop_active_lanes``),
     then the Timeout lanes of the actors whose timer bit is set. Every
     other lane's child is invalid and does not overflow. K1-paxos_lossy
-    and K1-ping_pong write the active lanes' children only; the narrow
-    K1-timer_count writes every lane, and its bound counts these."""
+    and the lossy K1-ping_pong write the active lanes' children only;
+    K1-timer_count writes fewer still (:func:`timer_active`)."""
     def active(frontier):
         import torch
         below = _below_zero_tail(model, frontier)[1]
@@ -3390,6 +3404,20 @@ def lossy_active(model):
             bits = torch.arange(n, device=frontier.device)
             lanes.append(((tw[:, None] >> bits) & 1) != 0)
         return torch.cat(lanes, dim=1).reshape(-1)
+    return active
+
+
+def timer_active(model):
+    """The active-lane rule of K1's timer instantiation
+    (``csrc/timer_count.cuh``, ``step_common.cuh`` ``TimerRow``): the
+    Timeout lanes of the actors whose timer bit is set, the lanes of
+    :func:`lossy_active` but the delivery, whose child the timer-count
+    fixture never takes (its actors take no message). K1-timer_count
+    writes these lanes' children only."""
+    def active(frontier):
+        rule = lossy_active(model)(frontier).reshape(frontier.shape[0], -1)
+        rule[:, :model.net_capacity] = False
+        return rule.reshape(-1)
     return active
 
 
@@ -3527,7 +3555,9 @@ def _timer_count(n, max_nat):
 #: are full. The non-duplicating PingPong(7) (30 states) runs the
 #: consume and the count bump of the same instantiation, at its widest
 #: level of 2 rows; the lossless PingPong(7) (every level 1 row) runs
-#: ping-pong's lossless instantiation, on both networks.
+#: ping-pong's lossless instantiation, on both networks; TimerCount(8, 4)
+#: also at its run's small step (256 rows, 8 pending after the first
+#: level).
 LOSSY_STEPS = (
     ("PackedPaxos(2).lossy_network(True)", lambda: _paxos_lossy(2),
      "paxos_lossy", 8192, 8192),
@@ -3542,6 +3572,8 @@ LOSSY_STEPS = (
     ("PackedPingPong(7, lossy=False, duplicating=False)",
      lambda: _ping_pong(7, lossy=False, duplicating=False), "ping_pong",
      1, 1),
+    ("PackedTimerCount(8, 4) at 256 rows", lambda: _timer_count(8, 4),
+     "timer_count", 256, 2),
 )
 
 
@@ -3559,10 +3591,12 @@ def lossy_struct(name: str, model) -> str:
 
 #: the registers a thread of every other K1 instantiation takes (ptxas,
 #: the parent tree's build on an H100), which the drop lanes' and the
-#: shared-row path's redesigns must leave as they are
+#: shared-row path's redesigns must leave as they are, and K1-timer_count
+#: on its own path (``step_common.cuh`` ``TimerRow``; the narrow K1 it
+#: replaced took 134)
 REGISTERS = {"PaxosModel": 168, "AbdModel": 96, "SingleCopyModel": 121,
              "AbdOrderedModel": 96, "PaxosCrashModel": 164,
-             "WriteOnceModel": 72, "TimerCountModel": 134,
+             "WriteOnceModel": 72, "TimerCountModel": 47,
              "PingPongModel": 122}
 
 
@@ -3588,15 +3622,13 @@ def lossy_kernels(device) -> tuple:
         model = make()
         carry = mid_search_carry(model, device, rows=rows, pending=pending)
         # the drop lanes' instantiations (K1-paxos_lossy, the lossy
-        # K1-ping_pong) write their active lanes only; the others (the
-        # lossless K1-ping_pong, K1-timer_count) write and are held on
-        # every lane, their bounds counting the lanes the step needs
-        rule = lossy_active(model)
-        drops = bool(model.lossy_network_)
-        finish = check_step(model, carry, rows, reps=10,
-                            active=rule if drops else None,
-                            needed=None if drops else rule, defer=True,
-                            gated=True)
+        # K1-ping_pong) and K1-timer_count write their active lanes only;
+        # the lossless K1-ping_pong writes and is held on every lane, its
+        # bound counting the lanes the step needs
+        rule = active_rule(model, name)
+        finish = check_step(model, carry, rows, reps=10, active=rule,
+                            needed=None if rule else lossy_active(model),
+                            defer=True, gated=True)
         geo = _cuda.tile_geometry(rows, model.max_actions, sms)
         wide, smem = _cuda.k1_launch(name, geo, rows, model.packed_width,
                                      model.max_actions, sms,

@@ -185,12 +185,14 @@ class PackedPingPong(PackedActorModel):
 
     def cuda_spec(self, symmetry: bool = False):
         """``("ping_pong", (max_nat, net_capacity, duplicating, lossy))``:
-        the kernel runs ``csrc/ping_pong.cuh`` (the wide K1: rows in
-        shared memory, the lanes before the network's zero tail stepped,
-        each drop child built by a warp) for up to 16 network slots on
-        either unordered network, lossy or not. Refused: symmetry (no representative), crashes,
-        timers, and a subclass that changes the step, the encoding, the
-        properties or the boundary."""
+        the kernel runs ``csrc/ping_pong.cuh`` for up to 16 network slots
+        on either unordered network. Lossy, on the shared-row K1 with drop
+        lanes (``PingPongLossyModel``: rows in shared memory, the lanes
+        before the network's zero tail stepped, each drop child's words
+        written by a group of 8 lanes); lossless, on the narrow K1
+        (``PingPongModel``, a thread a lane). Refused: symmetry (no
+        representative), crashes, timers, and a subclass that changes the
+        step, the encoding, the properties or the boundary."""
         cls = type(self).__name__
         if symmetry:
             raise NotImplementedError(f"{cls} has no packed_representative")
@@ -334,11 +336,13 @@ class PackedTimerCount(PackedActorModel):
 
     def cuda_spec(self, symmetry: bool = False):
         """``("timer_count", (n_actors, max_nat))``: the kernel runs
-        ``csrc/timer_count.cuh`` (the narrow K1, a thread a lane: one
-        delivery lane, never valid, and one Timeout lane per actor) for
-        up to 32 actors on the non-duplicating network. Refused:
-        symmetry, a lossy network, crashes, and a subclass that changes
-        the step, the encoding or the properties."""
+        ``csrc/timer_count.cuh`` (K1's timer path: the pending rows in
+        shared memory, only the Timeout lanes whose timer bit is set
+        stepped, each child the row with its count and timer words
+        edited; the delivery lane, never valid, is not) for up to 32
+        actors on the non-duplicating network. Refused: symmetry, a lossy
+        network, crashes, and a subclass that changes the step, the
+        encoding or the properties."""
         cls = type(self).__name__
         if symmetry:
             raise NotImplementedError(f"{cls} has no packed_representative")

@@ -25,13 +25,14 @@
 // lossy network (PaxosLossyModel, the wide K1 with drop lanes,
 // step_common.cuh DropLanes), the actor test fixtures PackedPingPong
 // (ping_pong.cuh: lossy, the wide K1 with drop lanes; lossless, a narrow
-// model; the duplicating network a parameter) and PackedTimerCount (timer_count.cuh:
-// a narrow model with a Timeout lane per actor), and PackedAbd
-// (abd.cuh: a group model on the unordered network; on the ordered one
-// an edit model of up to 352 words, whose warps write each child from
-// the shared row and the lane's edit, step_common.cuh EditRow); the
-// group models step only the pending rows, which a gated launch
-// spreads over its grid; K2 and
+// model; the duplicating network a parameter) and PackedTimerCount
+// (timer_count.cuh: a timer model, each Timeout child an edit of the
+// shared row, step_common.cuh TimerRow), and PackedAbd (abd.cuh: a
+// group model on the unordered network; on the ordered one an edit model
+// of up to 352 words, whose warps write each child from the shared row
+// and the lane's edit, step_common.cuh EditRow); the group and timer
+// models step only the pending rows, which a gated launch spreads over
+// its grid; K2 and
 // K3 do not depend on the model. Built with nvcc for
 // sm_90a into a shared library with a plain C interface and driven over
 // ctypes by stateright_tpu_torch/ops/_cuda.py. K4 replaces the XLA insert
@@ -387,7 +388,8 @@ int srt_fused_step_ping_pong(const StepArgs* args, int max_nat, int slots,
 }
 
 // One fused step for PackedTimerCount(n, max_nat) (timer_count.cuh: at
-// most 32 actors; the narrow K1 with a Timeout lane per actor).
+// most 32 actors; K1's timer path, step_common.cuh TimerRow, stepping the
+// Timeout lanes whose timer bit is set).
 int srt_fused_step_timer_count(const StepArgs* args, int n, int max_nat) {
   const TimerCountModel m(n, max_nat);
   if (!m.ok() || args->A != m.max_actions())

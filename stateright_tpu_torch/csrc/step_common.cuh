@@ -459,6 +459,32 @@ template <class M>
 constexpr bool kSharedRow =
     WideRow<M>::value || EditRow<M>::value || GroupRow<M>::value;
 
+// Whether M is a timer model (M::kTimerRow: timer_count.cuh
+// TimerCountModel), a narrow row (at most M::W = 36 words) whose only
+// valid lanes are Timeout lanes, each child the row with one or two words
+// changed. K1 takes its own path, launched over a.wide (ops/_cuda.py
+// k1_launch): only the pending rows, as a group model's (pending_span);
+// each row loaded into shared memory by a group of kTimerLanes lanes, a
+// lane a column, which then takes the row's fingerprint folds, property
+// bits and active lanes (m.row_fold: bit a of the mask is lane 1 + a, so
+// 32 actors' 33 lanes fit it); the block's active lanes listed densely by
+// one warp's scan of the rows' counts. Then a thread a lane of the tile:
+// an active lane takes its edit (m.timer_edit) and fingerprint
+// (m.timer_fold: the row's folds with the changed words refolded), writes
+// chi, clo and cvalid and posts the edit to its child's slot in the list
+// (TimerSmem); every other lane gets the row's fingerprint and cvalid =
+// 0, and its row of flat is not written. After a barrier the block's
+// threads walk the words of all its children as one range, child c's
+// words from its slot's shared row with the edit applied (m.timer_word),
+// 16-byte vectors where the width is a multiple of four: the children of
+// a row's consecutive active lanes are adjacent in flat, so a warp's
+// stores are coalesced.
+template <class M, class = void>
+struct TimerRow : std::false_type {};
+template <class M>
+struct TimerRow<M, std::void_t<decltype(M::kTimerRow)>>
+    : std::integral_constant<bool, M::kTimerRow> {};
+
 // K1's phase clocks, in a tool's build only (tools/torch_paxos_kernels.py
 // and torch_register_kernels.py pass -DSRT_K1_PHASES to nvcc; the
 // library's own build has none of it): a shared-row K1 ends each phase
@@ -558,6 +584,35 @@ struct FullWarp {
   }
 };
 
+// The lanes that load and fold one row of a timer model (TimerRow): a
+// lane a column, 8 rows a warp.
+constexpr int kTimerLanes = 4;
+
+// G consecutive lanes of a warp (G a power of two, at most 32) with the
+// collectives a timer model's row_fold calls; every lane of the group
+// calls each at the same point.
+template <int G>
+struct LaneGroup {
+  unsigned mask;
+  int r;
+
+  __device__ LaneGroup() {
+    const int wl = threadIdx.x & 31;
+    r = wl & (G - 1);
+    mask = (G == 32 ? 0xFFFFFFFFu : (1u << G) - 1u) << (wl - r);
+  }
+  __device__ __forceinline__ int rank() const { return r; }
+  __device__ __forceinline__ int size() const { return G; }
+  __device__ __forceinline__ uint32_t ballot(bool p) const {
+    return __ballot_sync(mask, p) & mask;
+  }
+  __device__ __forceinline__ uint32_t xor_all(uint32_t v) const {
+#pragma unroll
+    for (int o = G / 2; o > 0; o >>= 1) v ^= __shfl_xor_sync(mask, v, o, G);
+    return v;
+  }
+};
+
 // The rows a block of a gated launch of a group K1 takes: block b
 // of `blocks` takes the pending rows [b * span, min(take, (b + 1) *
 // span)), span = ceil(take / blocks) capped at the geometry's rows (what
@@ -652,6 +707,27 @@ __device__ __forceinline__ WideSmem wide_smem(unsigned char* smem,
   return s;
 }
 
+// A timer model's K1 shared memory after the tile's rows (TimerRow): per
+// row its active lanes (bit a: lane 1 + a), fingerprint folds (h1, h2)
+// and first child in the list (4 words), then the block's count of
+// children (4 words, for alignment), then a slot a Timeout lane of the
+// tile (rows * (A - 1)), child c's in slot c: its lane in the tile, its
+// row << 8 | the edit's column, the count and timer words.
+struct TimerSmem {
+  uint32_t* info;
+  uint32_t* nact;
+  uint4* slots;
+};
+
+__device__ __forceinline__ TimerSmem timer_smem(unsigned char* smem,
+                                                int rows, size_t row_bytes) {
+  TimerSmem s;
+  s.info = reinterpret_cast<uint32_t*>(smem + (size_t)rows * row_bytes);
+  s.nact = s.info + 4 * rows;
+  s.slots = reinterpret_cast<uint4*>(s.nact + 4);
+  return s;
+}
+
 // The column key of fp64 for column k: kColumnKey's below its size,
 // computed past it.
 __device__ __forceinline__ uint32_t column_key(int k) {
@@ -688,7 +764,7 @@ struct alignas(16) RowState {
 // The model interface K1 takes (csrc/twopc.cuh, lineq.cuh,
 // increment.cuh, increment_lock.cuh; the wide paxos.cuh, single_copy.cuh
 // and abd.cuh's AbdModel: see WideRow; abd.cuh's AbdOrderedModel: see
-// EditRow):
+// EditRow; timer_count.cuh's TimerCountModel: see TimerRow):
 // M::W, the words of a row array;
 // m.width(), the words of the state (at most W: a runtime width, n + 1
 // or n + 2 for the increment models, is walked by unrolled loops
@@ -732,13 +808,18 @@ struct alignas(16) RowState {
 // written straight to flat. A model with crash lanes (CrashLanes) takes
 // its crash and restart children as edits of the row (see there), and a
 // lossy one (DropLanes) its drop children from the rows' suffix folds, a
-// group of lanes each.
+// group of lanes each. A timer model (TimerRow; launched over a.wide
+// too) loads its pending rows with a group of lanes a row, takes their
+// folds, bits and Timeout lanes on the way, gives each active lane's
+// fingerprint a thread and writes the block's children as one range of
+// words from the shared rows.
 // The grid also resets the ring arena for the step (grid-stride).
 // Inside a chunk the launch is gated (open_gate): its rows are the
 // queue's from the head, the first take of them valid.
 //
 // What the later kernels read of K1's outputs, which sets what a
-// shared-row model (wide, edit, group: kSharedRow) must write:
+// shared-row model (wide, edit, group: kSharedRow) or a timer model must
+// write:
 //   K2 claim_kernel (fused_step.cu; K5's claim in sharded_step.cu
 //     alike) in tile_stage: cvalid on every lane of its tiles, chi and
 //     clo only where cvalid; no row output.
@@ -755,8 +836,8 @@ struct alignas(16) RowState {
 //   pbits and terminal: no kernel; K1 itself turns a pending row's bits
 //     into discovery candidates. The host reads them only from an
 //     ungated step's outputs (the tests, chip_smoke.py).
-// So a group K1 steps the pending rows only: a row that is not pending
-// (past take in a gated launch, fvalid 0 in an ungated one) is not
+// So a group or timer K1 steps the pending rows only: a row that is not
+// pending (past take in a gated launch, fvalid 0 in an ungated one) is not
 // loaded, folded or stepped; its lanes get cvalid = 0 and the row
 // terminal = 0 (the plain version's), its other outputs are unwritten.
 // In a gated launch the blocks spread over the pending rows
@@ -766,9 +847,9 @@ struct alignas(16) RowState {
 // step every row of their tiles: at Paxos's all-pending step the rule
 // and the spread skip nothing and cost K1-paxos a few per cent, and at
 // the ordered register steps they cost K1-abd_ordered as much (PERF.md).
-// The edit and group models leave the rows of flat of their inactive or
-// quiet lanes unwritten (cvalid = 0, the row's fingerprint); the wide
-// one copies the row there.
+// The edit, group and timer models leave the rows of flat of their
+// inactive or quiet lanes unwritten (cvalid = 0, the row's fingerprint);
+// the wide one copies the row there.
 template <class M, bool SYM>
 __global__ void expand_kernel(M m, StepArgs a) {
   extern __shared__ __align__(16) unsigned char tile_smem[];
@@ -777,14 +858,16 @@ __global__ void expand_kernel(M m, StepArgs a) {
   int take;
   if (!open_gate(a, &take)) return;
   K1Clock clk;
-  if constexpr (kSharedRow<M>) clk.start();
+  constexpr bool kTimer = TimerRow<M>::value;
+  if constexpr (kSharedRow<M> || kTimer) clk.start();
   const long long tid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   const long long nthreads = (long long)gridDim.x * blockDim.x;
   for (long long i = tid; i < a.cc; i += nthreads) a.ring_arena[i] = ~0ull;
   const int A = a.A;
   const int width = m.width();
-  // a group model steps the pending rows only (GroupRow)
-  constexpr bool kPend = GroupRow<M>::value;
+  // a group or timer model steps the pending rows only (GroupRow,
+  // TimerRow)
+  constexpr bool kPend = GroupRow<M>::value || kTimer;
   long long row0 = (long long)blockIdx.x * a.tile.rows;
   int nrows =
       (int)max(0ll, min((long long)a.tile.rows, (long long)a.F - row0));
@@ -999,6 +1082,69 @@ __global__ void expand_kernel(M m, StepArgs a) {
           ws.act[off + e] = (uint32_t)(i * A + e);
       }
     }
+  } else if constexpr (kTimer) {
+    static_assert(!SYM, "a timer model has no symmetric K1");
+    static_assert(kWideRows <= 32, "one warp scans the tile's rows");
+    const TimerSmem ts =
+        timer_smem(tile_smem, a.tile.rows, sizeof(RowState<M, SYM>));
+    // each row by a group of kTimerLanes lanes, a lane a column: its
+    // words loaded (all of a lane's in flight at once, with the row's
+    // ebits) into shared memory, then its folds, property bits and active
+    // lanes (m.row_fold: a lane folds the columns it loaded); a row that
+    // is not pending (fvalid 0 in an ungated launch) none of them, and no
+    // active lane
+    constexpr int kCols = (M::W + kTimerLanes - 1) / kTimerLanes;
+    const LaneGroup<kTimerLanes> g;
+    const int ngroups = blockDim.x / kTimerLanes;
+    for (int i = threadIdx.x / kTimerLanes; i < nrows; i += ngroups) {
+      const long long r = row0 + i;
+      RowState<M, SYM>& rs = rows[i];
+      const bool fv = take >= 0 || a.fvalid[r] != 0;  // the group's
+      uint32_t h1 = 0u, h2 = 0u, pb = 0u, lanes = 0u, eb = 0u;
+      if (fv) {
+        const uint32_t* src = a.frontier + r * a.fstride;
+        uint32_t v[kCols];
+#pragma unroll
+        for (int j = 0; j < kCols; ++j) {
+          const int k = g.rank() + j * kTimerLanes;
+          if (k < width) v[j] = src[k];
+        }
+        if (g.rank() == 0) eb = a.ebits[r * a.estride];
+#pragma unroll
+        for (int j = 0; j < kCols; ++j) {
+          const int k = g.rank() + j * kTimerLanes;
+          if (k < width) rs.w[k] = v[j];
+        }
+        m.row_fold(rs.w, g, h1, h2, pb, lanes);
+      }
+      if (g.rank() == 0) {
+        rs.fv = fv;
+        rs.valid = lanes != 0u;  // every active lane is a valid child
+        rs.xovf = 0;
+        if (fv) {
+          rs.pb = pb;
+          rs.eb = eb & ~(pb & a.ev_mask);
+        }
+        ts.info[4 * i] = lanes;
+        ts.info[4 * i + 1] = h1;
+        ts.info[4 * i + 2] = h2;
+      }
+    }
+    __syncthreads();
+    // each row's first child in the list: the prefix of the active counts
+    // before it
+    if (threadIdx.x < 32) {
+      const int wl = threadIdx.x;
+      const int q = wl < nrows ? __popc(ts.info[4 * wl]) : 0;
+      int x = q;
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const int y = __shfl_up_sync(0xFFFFFFFFu, x, o);
+        if (wl >= o) x += y;
+      }
+      if (wl < nrows) ts.info[4 * wl + 3] = (uint32_t)(x - q);
+      if (wl == 31) *ts.nact = (uint32_t)x;
+    }
   } else {
     for (int i = threadIdx.x; i < nrows; i += blockDim.x) {
       const long long r = row0 + i;
@@ -1017,7 +1163,7 @@ __global__ void expand_kernel(M m, StepArgs a) {
     }
   }
   __syncthreads();
-  if constexpr (kSharedRow<M>) clk.end(kPhaseRows);
+  if constexpr (kSharedRow<M> || kTimer) clk.end(kPhaseRows);
   int nvalid = 0;
   const int tile = nrows * A;
   const long long lane0 = row0 * A;
@@ -1397,6 +1543,75 @@ __global__ void expand_kernel(M m, StepArgs a) {
         ++row;
       }
     }
+  } else if constexpr (kTimer) {
+    using Edit = typename M::Edit;
+    const TimerSmem ts =
+        timer_smem(tile_smem, a.tile.rows, sizeof(RowState<M, SYM>));
+    const int nact = (int)*ts.nact;
+    // a thread a lane: an active lane's edit and fingerprint (the row's
+    // folds with its changed words refolded), its edit posted to its
+    // child's slot; every other lane the row's fingerprint (a row that is
+    // not pending: none), invalid
+    for (int t = threadIdx.x; t < tile; t += blockDim.x) {
+      const uint32_t* info = ts.info + 4 * row;
+      const uint32_t lanes = info[0];
+      const int b = act - 1;  // a Timeout lane's actor
+      const long long lane = lane0 + t;
+      if (act > 0 && ((lanes >> b) & 1u)) {
+        const uint32_t* w = rows[row].w;
+        const Edit ed = m.timer_edit(w, b);
+        uint32_t hi, lo;
+        m.timer_fold(w, ed, info[1], info[2], hi, lo);
+        a.chi[lane] = hi;
+        a.clo[lane] = lo;
+        a.cvalid[lane] = 1;
+        ts.slots[info[3] + __popc(lanes & ((1u << b) - 1u))] = make_uint4(
+            (uint32_t)t, (uint32_t)row << 8 | ed.col, ed.count, ed.timer);
+      } else {
+        if (rows[row].fv)
+          fp64_finish(info[1], info[2], width, a.chi[lane], a.clo[lane]);
+        a.cvalid[lane] = 0;
+      }
+      row += drow;
+      act += dact;
+      if (act >= A) {
+        act -= A;
+        ++row;
+      }
+    }
+    if (threadIdx.x == 0) nvalid = nact;
+    __syncthreads();
+    // the block's children as one range of q units each (16-byte vectors
+    // where every row of flat starts 16-byte aligned, else words), unit x
+    // the k-th of child c: its slot's row with the edit applied
+    const bool vec16 =
+        (width & 3) == 0 && (reinterpret_cast<uintptr_t>(a.flat) & 15) == 0;
+    const int q = vec16 ? width >> 2 : width;
+    const int dc = blockDim.x / q, dk = blockDim.x - dc * q;
+    int c = threadIdx.x / q, k = threadIdx.x - c * q;
+    for (int x = threadIdx.x; x < nact * q; x += blockDim.x) {
+      const uint4 s = ts.slots[c];
+      const uint32_t* w = rows[s.y >> 8].w;
+      const Edit ed{s.y & 0xFFu, s.z, s.w};
+      uint32_t* dst = a.flat + (lane0 + s.x) * width;
+      if (vec16) {
+        uint4 v = reinterpret_cast<const uint4*>(w)[k];
+        v.x = m.timer_word(ed, 4 * k, v.x);
+        v.y = m.timer_word(ed, 4 * k + 1, v.y);
+        v.z = m.timer_word(ed, 4 * k + 2, v.z);
+        v.w = m.timer_word(ed, 4 * k + 3, v.w);
+        reinterpret_cast<uint4*>(dst)[k] = v;
+      } else {
+        dst[k] = m.timer_word(ed, k, w[k]);
+      }
+      c += dc;
+      k += dk;
+      if (k >= q) {
+        k -= q;
+        ++c;
+      }
+    }
+    clk.end(kPhaseEdits);
   } else {
     for (int t = threadIdx.x; t < tile; t += blockDim.x) {
       RowState<M, SYM>& rs = rows[row];
@@ -1468,7 +1683,7 @@ __global__ void expand_kernel(M m, StepArgs a) {
       atomicMin(&a.disc_cand[p], tag | (unsigned long long)r);
     }
   }
-  if constexpr (kSharedRow<M>) clk.end(kPhaseTail);
+  if constexpr (kSharedRow<M> || kTimer) clk.end(kPhaseTail);
   block_add(&a.stats[S_VALID], nvalid, &s_valid);
 }
 
@@ -1501,6 +1716,17 @@ size_t wide_smem_bytes(const TileGeometry& w, int width, int A) {
          wide_words<M>(w, width, A) * sizeof(uint32_t);
 }
 
+// The dynamic shared memory a timer model's K1 takes over a tile of rows
+// rows of A lanes (TimerSmem): the rows, four words a row and four of
+// the count, a 16-byte slot a Timeout lane. The launch checks that
+// ops/_cuda.py's timer_smem_bytes gave at least this much.
+template <class M, bool SYM>
+size_t timer_smem_bytes(int rows, int A) {
+  return (size_t)rows * sizeof(RowState<M, SYM>) +
+         (4 * ((size_t)rows + 1) + 4 * (size_t)rows * (A - 1)) *
+             sizeof(uint32_t);
+}
+
 // The delivery lanes of A action lanes: those before the crash or drop
 // lanes.
 template <class M>
@@ -1514,7 +1740,7 @@ int delivery_lanes(const M& m, int A) {
 }
 
 // Launch K1 over a.tile (blocks >= 1 even at F = 0: the grid resets
-// the ring arena); a wide model over a.wide.
+// the ring arena); a wide, edit, group or timer model over a.wide.
 template <class M, bool SYM>
 cudaError_t launch_expand(const M& m, const StepArgs& a, cudaStream_t st) {
   const TileGeometry& g = a.tile;
@@ -1532,6 +1758,20 @@ cudaError_t launch_expand(const M& m, const StepArgs& a, cudaStream_t st) {
     if (GroupRow<M>::value && delivery_lanes(m, a.A) > kGroupLanes)
       return cudaErrorInvalidValue;
     if (kEditLanes<M> && a.A > 32) return cudaErrorInvalidValue;
+    cudaError_t e = allow_smem(expand_kernel<M, SYM>, smem);
+    if (e != cudaSuccess) return e;
+    expand_kernel<M, SYM><<<wa.tile.blocks, wa.tile.threads, smem, st>>>(
+        m, wa);
+    return cudaGetLastError();
+  } else if constexpr (TimerRow<M>::value) {
+    StepArgs wa = a;
+    wa.tile = a.wide;
+    const size_t smem = (size_t)a.wide_smem;
+    // one warp scans the tile's rows; a row's Timeout lanes fit a mask
+    if (!geometry_ok(wa.tile, a.F, a.A) || wa.tile.rows > kWideRows ||
+        a.A > 33 || a.wide_smem < 0 ||
+        smem < timer_smem_bytes<M, SYM>(wa.tile.rows, a.A))
+      return cudaErrorInvalidValue;
     cudaError_t e = allow_smem(expand_kernel<M, SYM>, smem);
     if (e != cudaSuccess) return e;
     expand_kernel<M, SYM><<<wa.tile.blocks, wa.tile.threads, smem, st>>>(

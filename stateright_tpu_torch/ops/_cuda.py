@@ -200,15 +200,30 @@ EDIT_MODELS = {"abd_ordered": (352, 45)}
 #: threads)
 EDIT_THREADS = 128
 EDIT_BLOCKS_PER_SM = 5
+#: the timer models of ``STEP_MODELS`` (``kTimerRow``, ``csrc/
+#: step_common.cuh`` ``TimerRow``, launched over K1-wide's rows): the
+#: words of their shared row (``TimerCountModel::W``: 32 actors' counts,
+#: the network's slot and the timer word)
+TIMER_MODELS = {"timer_count": 36}
+#: a timer model's K1 threads a block and its blocks an SM (its rows cut
+#: so that they are resident at once), read when ``k1_launch`` is called:
+#: at TimerCount(8, 4)'s 8,192-row step 32 rows and 256 blocks. The
+#: best two of ``tools/torch_register_kernels.py --timer-sweep`` on an
+#: H100, this and 128 threads with 4 blocks, tie within 1.5 % at both of
+#: its steps (PERF.md)
+TIMER_THREADS = 256
+TIMER_BLOCKS_PER_SM = 2
 
 
 def row_words(name: str) -> int:
-    """The most packed words K1's wide, group or edit instantiation
-    ``name`` takes: its shared row's."""
+    """The most packed words K1's wide, group, edit or timer
+    instantiation ``name`` takes: its shared row's."""
     if name in WIDE_MODELS:
         return WIDE_MODELS[name]
     if name in GROUP_MODELS:
         return GROUP_MODELS[name]
+    if name in TIMER_MODELS:
+        return TIMER_MODELS[name]
     return EDIT_MODELS[name][0]
 
 
@@ -260,6 +275,18 @@ def wide_smem_bytes(geo: Geometry, width: int, a: int,
                    + geo.threads * slot_words))
 
 
+def timer_smem_bytes(geo: Geometry, a: int, row_words: int) -> int:
+    """A timer model's K1 dynamic shared memory over ``geo`` (a
+    :func:`wide_geometry`) for ``a`` action lanes (``StepArgs.wide_smem``;
+    ``step_common.cuh`` ``TimerSmem``): the tile's rows (``RowState``:
+    ``row_words`` words and 16 bytes of flags), four words per row (its
+    active lanes, fingerprint folds and first child) and four for the
+    count, then a 16-byte slot per Timeout lane of the tile (``rows * (a
+    - 1)``)."""
+    return (geo.rows * (4 * row_words + 16) + 4 * 4 * (geo.rows + 1)
+            + 16 * geo.rows * (a - 1))
+
+
 def drop_lanes(name: str, params: tuple = ()) -> bool:
     """Whether the K1 instantiation of ``STEP_MODELS`` entry ``name``
     for its ``cuda_spec`` parameters ``params`` has drop lanes
@@ -276,13 +303,17 @@ def k1_launch(name: str, geo: Geometry, f: int, width: int, a: int,
     """``(StepArgs.wide, StepArgs.wide_smem)`` of the step kernels of
     ``STEP_MODELS`` entry ``name`` (``cuda_spec`` parameters ``params``)
     over ``f`` rows of ``width`` words and ``a`` lanes (tile geometry
-    ``geo``): a wide, group or edit model's K1 geometry and shared
-    memory, else ``(geo, 0)`` (unused). Read when called: ``EDIT_*`` and
-    ``GROUP_*``."""
+    ``geo``): a wide, group, edit or timer model's K1 geometry and shared
+    memory, else ``(geo, 0)`` (unused). Read when called: ``EDIT_*``,
+    ``GROUP_*`` and ``TIMER_*``."""
     threads = per_sm = None
     drops = drop_lanes(name, params)
     if name == "ping_pong" and not drops:
         return geo, 0  # the lossless fixture: the narrow K1
+    if name in TIMER_MODELS:
+        wide = wide_geometry(geo, f, a, sms, TIMER_THREADS,
+                             TIMER_BLOCKS_PER_SM)
+        return wide, timer_smem_bytes(wide, a, TIMER_MODELS[name])
     if name in WIDE_MODELS:
         row_words, slot_words = WIDE_MODELS[name], None
     elif name in GROUP_MODELS:
@@ -311,10 +342,10 @@ def pending_span(take: int, blocks: int, rows: int) -> int:
 
 def pending_rows(name: str) -> bool:
     """Whether K1's instantiation ``name`` steps only the pending rows (a
-    group model's): a row that is not gets no child (its lanes
+    group or timer model's): a row that is not gets no child (its lanes
     ``cvalid`` 0, the row ``terminal`` 0, its other outputs unwritten).
     The wide and edit K1s step every row of their tiles."""
-    return name in GROUP_MODELS
+    return name in GROUP_MODELS or name in TIMER_MODELS
 
 
 class TileGeometry(ctypes.Structure):

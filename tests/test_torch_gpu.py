@@ -1986,7 +1986,7 @@ GATED_STEPS = [
     ("ping-pong7-lossy-dup", 8192, 5000, "mixed"),
     ("ping-pong7-lossy", 1000, 0, "mixed"), ("ping-pong7-dup", 777, 300,
                                              "mixed"),
-    ("ping-pong6-e3", 333, 200, "mixed")]
+    ("ping-pong6-e3", 333, 200, "mixed"), ("timer-count8", 256, 2, "mixed")]
 
 
 @pytest.mark.gpu
@@ -1994,9 +1994,10 @@ GATED_STEPS = [
                          ids=[f"{n}-{f}-{t}-{c}" for n, f, t, c in
                               GATED_STEPS])
 def test_shared_row_k1_gated_lane_exact_on_card(name, f, take, case):
-    """A shared-row K1 (with K2/K3) launched as the search launches it,
-    gated with the first ``take`` of ``f`` rows pending (``chip_smoke.py``
-    ``gated_step``: a group K1's blocks spread over the pending rows),
+    """A shared-row or timer K1 (with K2/K3) launched as the search
+    launches it, gated with the first ``take`` of ``f`` rows pending
+    (``chip_smoke.py`` ``gated_step``: a group or timer K1's blocks spread
+    over the pending rows),
     against the plain version with those rows valid, under K1's rule
     (:func:`_k1_held`): the rows past ``take`` get cvalid 0 and terminal
     0 (and from a group K1 nothing else); on ``_paxos_rows`` (crowded
@@ -2012,7 +2013,7 @@ def test_shared_row_k1_gated_lane_exact_on_card(name, f, take, case):
     from stateright_tpu_torch.ops.hashtable import make_table
     from stateright_tpu_torch.ops.words import from_numpy_u32, pack64
     smoke = _chip_smoke()
-    fixture = name.startswith("ping-pong")
+    fixture = name.startswith(("ping-pong", "timer-count"))
     model = (PackedPaxos(2) if name == "paxos2" else _fixture(name)
              if fixture else REGISTER_MODELS[name]())
     dev = torch.device("cuda")
@@ -2365,6 +2366,7 @@ def _fixture(name):
                                                 net_capacity=3),
         "timer-count8": lambda: PackedTimerCount(8, 4),
         "timer-count32": lambda: PackedTimerCount(32, 2),
+        "timer-count32-all": lambda: PackedTimerCount(32, 2),
     }[name]()
 
 
@@ -2401,18 +2403,22 @@ def _fixture_rows(model, rng, f):
 @pytest.mark.parametrize("name,f", [
     ("ping-pong7-lossy-dup", 8192), ("ping-pong7-lossy", 1000),
     ("ping-pong7-dup", 777), ("ping-pong7", 64), ("ping-pong6-e3", 333),
-    ("timer-count8", 8192), ("timer-count32", 1237)])
+    ("timer-count8", 8192), ("timer-count32", 1237),
+    ("timer-count32-all", 500)])
 def test_narrow_fixture_k1_lane_exact_on_card(name, f):
     """K1-ping_pong (the four network quadrants; a small network whose
     sends overflow) and K1-timer_count (a Timeout lane per actor, up to
-    32) with K2/K3 against the plain version, under K1's rule
-    (:func:`_k1_held`): the lossy K1-ping_pong, on the shared-row path
-    with drop lanes, writes the children, chi and clo of its active
-    lanes (``chip_smoke.py`` ``lossy_active``: the deliveries and drops
-    before the network's zero tail), which are held there; the lossless
-    K1-ping_pong and K1-timer_count write and are held on every lane;
-    cvalid, the property and eventually bits and terminal everywhere.
-    Then the flags, the inserted key set and the table."""
+    32; ``-all``: every timer bit set, 33 lanes of which 32 active) with
+    K2/K3 against the plain version, under K1's rule (:func:`_k1_held`):
+    the lossy K1-ping_pong, on the shared-row path with drop lanes,
+    writes the children, chi and clo of its active lanes
+    (``chip_smoke.py`` ``lossy_active``: the deliveries and drops before
+    the network's zero tail), which are held there; K1-timer_count those
+    of its pending rows' Timeout lanes whose timer bit is set
+    (``timer_active``), held there; the lossless K1-ping_pong writes and
+    is held on every lane; cvalid and terminal everywhere, the property
+    and eventually bits on the rows K1 steps. Then the flags, the
+    inserted key set and the table."""
     _need_card()
     from stateright_tpu_torch.ops.fused import (S_DISC, S_VALID, S_XOVF,
                                                 fused_step,
@@ -2424,6 +2430,8 @@ def test_narrow_fixture_k1_lane_exact_on_card(name, f):
     dev = torch.device("cuda")
     rng = np.random.default_rng([f, len(name)])
     rows = _fixture_rows(model, rng, f)
+    if name.endswith("-all"):
+        rows[:, model._timer_off] = 0xFFFFFFFF
     block = from_numpy_u32(rows, dev)
     phi, plo = (x.to(torch.int32) for x in fp64_device(block))
     ebits = torch.from_numpy(rng.integers(0, 16, f).astype(np.int32)).to(dev)
@@ -2436,7 +2444,13 @@ def test_narrow_fixture_k1_lane_exact_on_card(name, f):
         tables.append(sorted(table[table != 0].tolist()))
     k, p = out
     lanes = _hold_k1(model, k, p, rows, fvalid)
-    if name.startswith("ping-pong") and model.lossy_network_:
+    if name.startswith("timer-count"):
+        # the delivery lanes, and the Timeout lanes of clear timer bits
+        assert int(lanes.sum()) < lanes.numel()
+        if name.endswith("-all"):
+            held = lanes.reshape(f, model.max_actions)[fvalid]
+            assert bool(held[:, 1:].all()) and not held[:, 0].any()
+    elif model.lossy_network_:
         assert int(lanes.sum()) < lanes.numel()  # lanes past the zero tail
     else:
         assert bool(lanes.all())
@@ -2518,11 +2532,12 @@ def test_volatile_write_once_caught_through_a_crash_on_card(race):
 
 @pytest.mark.gpu
 def test_k1_registers_of_the_parent_instantiations_on_card():
-    """The crash and drop lanes are compile-time properties of their
-    models: K1's Paxos, ABD, single-copy and ordered-ABD instantiations,
-    the narrow K1-timer_count and the lossless ping-pong fixture's narrow
-    K1 keep their registers (168, 96, 121, 96, 134 and 122 on the H100
-    toolchain, PERF.md) and spill nothing; the crash and lossy
+    """The crash and drop lanes and the timer path are compile-time
+    properties of their models: K1's Paxos, ABD, single-copy and
+    ordered-ABD instantiations and the lossless ping-pong fixture's narrow
+    K1 keep their registers (168, 96, 121, 96 and 122 on the H100
+    toolchain, PERF.md), K1-timer_count on its own path takes 47 (the
+    narrow K1 it replaced: 134), and none spills; the crash and lossy
     instantiations (the lossy ping-pong fixture's shared-row one among
     them) spill nothing either, and the write-once register's two-phase
     K1 stays below the 128 registers at which four of its blocks fit an
@@ -2530,7 +2545,7 @@ def test_k1_registers_of_the_parent_instantiations_on_card():
     _need_card()
     smoke = _chip_smoke()
     want = {"PaxosModel": 168, "AbdModel": 96, "SingleCopyModel": 121,
-            "AbdOrderedModel": 96, "TimerCountModel": 134,
+            "AbdOrderedModel": 96, "TimerCountModel": 47,
             "PingPongModel": 122}
     for struct, regs in want.items():
         usage = smoke.kernel_usage("fused_step", f"expand_kernel[{struct}]")

@@ -4,16 +4,18 @@ memory at every ordered ABD configuration ``cuda_spec`` admits (up to
 352 words and 32 channels: the edit model of ``csrc/abd.cuh``) and at
 the unordered ones (the group model, up to 128 words); and the device
 functions themselves (``csrc/actor_net.cuh``, ``abd.cuh``,
-``single_copy.cuh``, ``paxos.cuh``, ``write_once.cuh``), compiled for the
-host with ``g++`` under a header that defines CUDA's qualifiers away:
+``single_copy.cuh``, ``paxos.cuh``, ``write_once.cuh``,
+``timer_count.cuh``), compiled for the host with ``g++`` under a header
+that defines CUDA's qualifiers away:
 ``reg_chan`` and ``reg_chan_ends`` against ``register_channels()``, the
 packed layout's channel order; the row and edit sizes the launch sizes
 shared memory with; and each model's step on every lane of reachable and
 crowded rows against its plain version, under K1's lane rules (a wide
 model's quiet lanes are the row, invalid; an edit model's lanes of empty
-channels, and the inactive lanes of a model with crash lanes, are
-invalid and their rows unwritten). The card's tests and ``chip_smoke.py``
-hold the kernels."""
+channels, and the inactive lanes of a model with crash lanes or of the
+timer model, are invalid and their rows unwritten); the timer K1's
+launch and the order in which its block writes its children. The
+card's tests and ``chip_smoke.py`` hold the kernels."""
 
 import ctypes
 import pathlib
@@ -45,8 +47,8 @@ RESERVED = 1024
 
 #: the device functions behind a C interface, for ctypes. Per row a
 #: step writes its property bits, then per lane a flags word (1 valid,
-#: 2 overflow, 4 stepped: below a wide model's quiet lane, or an edit
-#: model's or a crash model's active lane), the child's fingerprint (hi,
+#: 2 overflow, 4 stepped: below a wide model's quiet lane, or an edit,
+#: crash or timer model's active lane), the child's fingerprint (hi,
 #: lo) and its words, as K1 would: a quiet lane's child is the row, an
 #: inactive lane's is left zero (its fingerprint the row's); a wide
 #: model's fingerprint folds every word of the child (RowOut), an edit
@@ -541,6 +543,67 @@ int step_narrow(const M& m, const uint32_t* rows, int f, uint32_t* out) {
   return 0;
 }
 
+// a timer model's row by a group of G lanes (row_fold), as K1 takes it:
+// every lane's results
+struct FoldTask {
+  const void* m;
+  const uint32_t* w;
+  uint32_t h1[32], h2[32], pb[32], lanes[32];
+};
+FoldTask fold_task;
+
+template <class M>
+void fold_body(int r) {
+  const M& m = *static_cast<const M*>(fold_task.m);
+  m.row_fold(fold_task.w, HostGroup{r, sched.G}, fold_task.h1[r],
+             fold_task.h2[r], fold_task.pb[r], fold_task.lanes[r]);
+}
+
+// K1's timer branch on the host (step_common.cuh TimerRow): per row its
+// folds, property bits and Timeout lanes by a group of G lanes (row_fold:
+// 4 when the lanes disagree);
+// per lane the flags (4: active), the fingerprint (an active lane's from
+// the row's folds, timer_fold; every other lane's the row's) and the
+// child's words (an active lane's the row with its edit, timer_word;
+// every other lane's left zero)
+template <class M>
+int step_timer(const M& m, int G, const uint32_t* rows, int f,
+               uint32_t* out) {
+  if (!m.ok() || G < 1 || G > 32) return 1;
+  const int W = m.width(), A = m.max_actions();
+  for (int r = 0; r < f; ++r) {
+    const uint32_t* row = rows + (long)r * W;
+    fold_task = FoldTask{&m, row};
+    if (!run_group(G, fold_body<M>)) return 4;
+    for (int x = 1; x < G; ++x)
+      if (fold_task.h1[x] != fold_task.h1[0] ||
+          fold_task.h2[x] != fold_task.h2[0] ||
+          fold_task.pb[x] != fold_task.pb[0] ||
+          fold_task.lanes[x] != fold_task.lanes[0])
+        return 4;
+    const uint32_t lanes = fold_task.lanes[0];
+    *out++ = fold_task.pb[0];
+    for (int e = 0; e < A; ++e) {
+      uint32_t* flags = out++;
+      uint32_t* fp = out;
+      out += 2;
+      const bool on = e > 0 && ((lanes >> (e - 1)) & 1u);
+      if (on) {
+        const typename M::Edit ed = m.timer_edit(row, e - 1);
+        m.timer_fold(row, ed, fold_task.h1[0], fold_task.h2[0], fp[0],
+                     fp[1]);
+        for (int k = 0; k < W; ++k) out[k] = m.timer_word(ed, k, row[k]);
+      } else {
+        fp64_finish(fold_task.h1[0], fold_task.h2[0], W, fp[0], fp[1]);
+        for (int k = 0; k < W; ++k) out[k] = 0u;
+      }
+      *flags = on ? 5u : 0u;
+      out += W;
+    }
+  }
+  return 0;
+}
+
 // the model's K1: a wide model's RowOut (lanes 0), a group model's group
 // branch with groups of that many lanes
 template <class M>
@@ -608,8 +671,9 @@ int h_step(const char* name, const int* p, int np, int lanes,
     if (lanes != -1 || !p[3]) return 6;
     return run(PingPongLossyModel(p[0], p[1], p[2]), 0, rows, f, out);
   }
+  // timer_count: K1's timer branch, a row by a group of that many lanes
   if (n == "timer_count" && np == 2)
-    return lanes ? 6 : step_narrow(TimerCountModel(p[0], p[1]), rows, f, out);
+    return step_timer(TimerCountModel(p[0], p[1]), lanes, rows, f, out);
   if (np != 8) return 2;
   const actor::CrashSpec cr{p[3], p[4], (uint32_t)p[5], (uint32_t)p[6],
                             (uint32_t)p[7]};
@@ -1078,8 +1142,11 @@ def _step_constant(name):
 
 def _k1_lanes(name):
     """The lanes K1's instantiation ``name`` builds a child with: a group
-    model's half-warp (``kGroupLanes``), else 0 (a wide model's thread,
-    an edit model's edit)."""
+    model's half-warp (``kGroupLanes``), a timer model's row group
+    (``kTimerLanes``), else 0 (a wide model's thread, an edit model's
+    edit)."""
+    if name in _cuda.TIMER_MODELS:
+        return _step_constant("kTimerLanes")
     return _step_constant("kGroupLanes") if name in _cuda.GROUP_MODELS \
         else 0
 
@@ -1268,9 +1335,11 @@ def test_crash_row_lanes_by_a_warp_are_the_threads(host, config):
     assert len(set(out[:, 1].tolist())) > 4
 
 
-#: the narrow instantiations of the actor test fixtures (a thread a
-#: lane): PackedPingPong in the four network quadrants, with a small
-#: network that overflows, and PackedTimerCount, up to its 32 actors
+#: the actor test fixtures' device steps as their K1s take them:
+#: PackedPingPong in the four network quadrants (the one-lane step), with
+#: a small network that overflows, and PackedTimerCount from 1 to its 32
+#: actors (the timer branch: a row by a group of lanes, each active
+#: Timeout lane an edit of it)
 NARROW_STEPS = {
     "ping-pong-5-lossy-dup": lambda: PackedPingPong(5, True, True),
     "ping-pong-5-lossy": lambda: PackedPingPong(5, True, False),
@@ -1281,6 +1350,8 @@ NARROW_STEPS = {
     "timer-count-3x2": lambda: PackedTimerCount(3, 2),
     "timer-count-8x4": lambda: PackedTimerCount(8, 4),
     "timer-count-32x2": lambda: PackedTimerCount(32, 2),
+    "timer-count-1x3": lambda: PackedTimerCount(1, 3),
+    "timer-count-31x3": lambda: PackedTimerCount(31, 3),
 }
 
 
@@ -1305,14 +1376,34 @@ def _reachable_within(model, limit):
     return np.stack(rows)
 
 
+def _timer_edges(model, rng, k):
+    """``k`` rows of a timer-count fixture at its edges: counts from 0
+    to ``max_nat`` (one below it: the Timeout clears its bit; further
+    below: it keeps it), the timer word's bits at random, every one set
+    in a third of the rows, none in a tenth."""
+    n = model.n_actors
+    rows = np.zeros((k, model.packed_width), dtype=np.uint32)
+    rows[:, :n] = rng.integers(0, model.max_nat + 1, size=(k, n))
+    tw = rng.integers(0, 1 << n, size=k, dtype=np.uint64)
+    tw[::3] = (1 << n) - 1
+    tw[1::10] = 0
+    rows[:, model._timer_off] = tw.astype(np.uint32)
+    return rows
+
+
 @pytest.mark.parametrize("config", list(NARROW_STEPS))
 def test_narrow_device_step_is_the_plain_step(host, config):
-    """``csrc/ping_pong.cuh`` and ``csrc/timer_count.cuh`` as K1 calls
-    them (a thread a lane, every lane written) on reachable rows and
-    rows of random words: the property bits of every row, and on every
-    lane the child's words, ``valid``, ``overflow`` and the fingerprint
-    (``fp64_words`` of the plain step's child) against ``packed_step``
-    and ``packed_properties``."""
+    """``csrc/ping_pong.cuh`` and ``csrc/timer_count.cuh`` as their K1s
+    take them on reachable rows and rows of random words (a timer-count
+    fixture's also at its counts' and timer bits' edges, the timer bit
+    both kept and cleared): the property bits of every row, and on every
+    lane the ping-pong fixture's one-lane step writes, and every active
+    lane of the timer branch (a Timeout lane whose timer bit is set:
+    ``chip_smoke.py`` ``timer_active``), the child's words, ``valid``,
+    ``overflow`` and the fingerprint (``fp64_words`` of the plain step's
+    child) against ``packed_step`` and ``packed_properties``; every
+    other lane of the timer branch is invalid without overflow in the
+    plain step, its fingerprint the row's and its child unwritten."""
     model = NARROW_STEPS[config]()
     name, params = model.cuda_spec()
     rng = np.random.default_rng(17)
@@ -1321,28 +1412,54 @@ def test_narrow_device_step_is_the_plain_step(host, config):
                         dtype=np.uint64).astype(np.uint32)
     small = rng.integers(0, 8, size=(40, model.packed_width),
                          dtype=np.uint64).astype(np.uint32)
-    rows = np.ascontiguousarray(np.concatenate([rows, junk, small]))
+    parts = [rows, junk, small]
+    timer = name == "timer_count"
+    if timer:
+        parts.append(_timer_edges(model, rng, 60))
+    rows = np.ascontiguousarray(np.concatenate(parts))
     f, w, a = rows.shape[0], model.packed_width, model.max_actions
     out = np.zeros(f * (1 + a * (3 + w)), dtype=np.uint32)
     p = np.asarray(params, dtype=np.int32)
-    assert host.h_step(name.encode(), p.ctypes.data, len(p), 0,
-                       rows.ctypes.data, f, out.ctypes.data) == 0
+    assert host.h_step(name.encode(), p.ctypes.data, len(p),
+                       _k1_lanes(name), rows.ctypes.data, f,
+                       out.ctypes.data) == 0
     out = out.reshape(f, 1 + a * (3 + w))
     lanes = out[:, 1:].reshape(f, a, 3 + w)
     x = torch.from_numpy(rows.astype(np.int64))
     s, valid, ovf = model.packed_step(x)
-    s = s.numpy().astype(np.uint32)
+    s = s.numpy().astype(np.uint32).reshape(f, a, w)
+    valid, ovf = valid.numpy().reshape(f, a), ovf.numpy().reshape(f, a)
     props = model.packed_properties(x).numpy().astype(np.uint32)
     assert np.array_equal(out[:, 0], (props << np.arange(
         props.shape[1], dtype=np.uint32)).sum(1))
-    assert np.array_equal(lanes[:, :, 3:], s)
-    assert np.array_equal((lanes[:, :, 0] & 1) != 0, valid.numpy())
-    assert np.array_equal((lanes[:, :, 0] & 2) != 0, ovf.numpy())
+    held = np.ones((f, a), dtype=bool)
     fp = (lanes[:, :, 1].astype(np.uint64) << np.uint64(32)) \
         | lanes[:, :, 2]
-    for r in range(0, f, 7):
+    if timer:
+        held = (lanes[:, :, 0] & 4) != 0
+        rule = _chip_smoke().timer_active(model)(x).numpy().reshape(f, a)
+        assert np.array_equal(held, rule)
+        assert not valid[~held].any() and not ovf[~held].any()
+        assert not lanes[:, :, 3:][~held].any()
+        row_fp = np.array([fp64_words(r.tolist()) for r in rows],
+                          dtype=np.uint64)
+        assert np.array_equal(fp[~held], np.broadcast_to(
+            row_fp[:, None], fp.shape)[~held])
+        # an active lane's timer bit kept and one's cleared
+        n = a - 1
+        bit = np.arange(n, dtype=np.uint32)
+        was = (rows[:, model._timer_off][:, None] >> bit) & 1
+        now = (s[:, 1:, model._timer_off] >> bit[None, :]) & 1
+        assert np.array_equal(held[:, 1:], was != 0) and not held[:, 0].any()
+        assert (held[:, 1:] & (now != 0)).any()
+        assert (held[:, 1:] & (now == 0)).any()
+    assert np.array_equal(lanes[:, :, 3:][held], s[held])
+    assert np.array_equal((lanes[:, :, 0] & 1)[held] != 0, valid[held])
+    assert np.array_equal((lanes[:, :, 0] & 2)[held] != 0, ovf[held])
+    for r in range(0, f, 1 if timer else 7):
         for e in range(a):
-            assert fp[r, e] == fp64_words(s[r, e].tolist())
+            if held[r, e]:
+                assert fp[r, e] == fp64_words(s[r, e].tolist())
     assert valid.any()
     if config == "ping-pong-6-lossy-dup-e3":
         assert ovf.any()
@@ -1704,6 +1821,142 @@ def test_lossy_paxos_launch_fits(sms):
                         assert wide.rows == 21
                         assert _cuda.WIDE_BLOCKS_PER_SM * (
                             smem + RESERVED) <= SM_SMEM
+
+
+#: the timer-count fixture's sizes the timer K1 is held at: 1 to its
+#: 32 actors (widths 5 to 36 words; 12, 32 and 36 multiples of four)
+TIMER_SIZES = [(1, 3), (3, 2), (8, 4), (28, 2), (31, 3), (32, 2)]
+
+
+def _timer_rows(model, seed):
+    """Seeded rows of a timer-count fixture: reachable states, random and
+    small random words, and rows at its counts' and timer bits' edges
+    (:func:`_timer_edges`)."""
+    rng = np.random.default_rng(seed)
+    w = model.packed_width
+    junk = rng.integers(0, 2 ** 32, size=(30, w),
+                        dtype=np.uint64).astype(np.uint32)
+    small = rng.integers(0, 8, size=(30, w), dtype=np.uint64).astype(
+        np.uint32)
+    return np.ascontiguousarray(np.concatenate([
+        _reachable_within(model, 200), junk, small,
+        _timer_edges(model, rng, 60)]), dtype=np.uint32)
+
+
+@pytest.mark.parametrize("lanes", [1, 2, 8, 16, 32])
+@pytest.mark.parametrize("n,max_nat", TIMER_SIZES)
+def test_timer_row_fold_by_any_group_is_the_k1s(host, n, max_nat, lanes):
+    """``csrc/timer_count.cuh`` ``row_fold`` by a group of 1 to 32 lanes
+    (each lane's columns folded, then XOR-reduced and balloted over the
+    group, on ucontext lanes: ``HostGroup``) gives every lane the same
+    folds, property bits and Timeout lanes as the group of
+    ``kTimerLanes`` K1 takes, so the K1 branch's every output (the flags,
+    each lane's fingerprint and child) is the same."""
+    model = PackedTimerCount(n, max_nat)
+    name = model.cuda_spec()[0]
+    rows = _timer_rows(model, [n, max_nat])
+    want = _host_lanes(host, model, rows, _k1_lanes(name))
+    got = _host_lanes(host, model, rows, lanes)
+    for x, y in zip(want, got):
+        assert np.array_equal(x, y)
+    assert ((want[1] & 4) != 0).any()
+
+
+@pytest.mark.parametrize("sms", [66, 132])
+@pytest.mark.parametrize("n,max_nat", TIMER_SIZES)
+def test_timer_k1_launch_fits(host, n, max_nat, sms):
+    """K1-timer_count's launch (``k1_launch``: K1-wide's geometry at
+    ``TIMER_THREADS`` and ``TIMER_BLOCKS_PER_SM``) at 1, 256 and 8,192
+    rows holds at most 32 rows a block (one warp scans them), whole warps
+    of whole row groups (``kTimerLanes``), blocks that cover the frontier,
+    the shared memory of ``step_common.cuh`` ``TimerSmem`` (a row's
+    ``RowState`` of ``TimerCountModel::W`` = 36 words, four info words a
+    row, four of the count, a 16-byte slot a Timeout lane), at most a
+    block's, and ``TIMER_BLOCKS_PER_SM`` blocks an SM; the timer K1 steps
+    the pending rows only. At TimerCount(8, 4)'s 8,192-row step on 132
+    SMs: 32 rows, 256 blocks, 9,744 bytes."""
+    model = PackedTimerCount(n, max_nat)
+    name, params = model.cuda_spec()
+    a, w = model.max_actions, model.packed_width
+    assert a == n + 1 <= 33 and w == n + 4
+    assert _cuda.row_words(name) == host.h_words(name.encode(), 0) == 36
+    assert _cuda.pending_rows(name) and name in _cuda.TIMER_MODELS
+    assert _cuda.TIMER_THREADS % 32 == 0
+    assert 32 % _step_constant("kTimerLanes") == 0
+    for f in (1, 256, 8192):
+        geo = _cuda.tile_geometry(f, a, sms)
+        wide, smem = _cuda.k1_launch(name, geo, f, w, a, sms, params)
+        assert 1 <= wide.rows <= _cuda.WIDE_ROWS == 32
+        assert wide.threads == _cuda.TIMER_THREADS
+        assert wide.blocks * wide.rows >= f > (wide.blocks - 1) * wide.rows
+        assert smem == (wide.rows * (4 * 36 + 16)
+                        + 4 * (4 * (wide.rows + 1) + 4 * wide.rows * (a - 1)))
+        assert smem <= BLOCK_SMEM
+        assert _cuda.TIMER_BLOCKS_PER_SM * (smem + RESERVED) <= SM_SMEM
+        if (n, max_nat, f, sms) == (8, 4, 8192, 132):
+            assert (wide.rows, wide.blocks, smem) == (32, 256, 9744)
+
+
+@pytest.mark.parametrize("threads", [64, 128, 256, 512])
+@pytest.mark.parametrize("n,max_nat", TIMER_SIZES)
+def test_timer_children_written_as_one_range(n, max_nat, threads):
+    """A transcription of K1's timer branch over one tile (``csrc/
+    step_common.cuh``): each row's first child at the prefix of the
+    active counts before it (one warp's scan), an active lane's slot at
+    that plus the active lanes before it in its row; then the block's
+    threads walk the children as one range of units (16-byte vectors
+    where the width is a multiple of four, else words), thread x's next
+    unit ``blockDim`` on (the child and unit stepped without a division).
+    Over tiles of 1, 5 and 32 rows of seeded rows, every unit of every
+    active lane's child is written once, the children are the plain
+    step's, and no other lane's row of flat is written."""
+    model = PackedTimerCount(n, max_nat)
+    rows_all = _timer_rows(model, [n, threads])
+    w, a = model.packed_width, model.max_actions
+    x = torch.from_numpy(rows_all.astype(np.int64))
+    s_all = model.packed_step(x)[0].numpy().astype(np.uint32).reshape(
+        -1, a, w)
+    rule = _chip_smoke().timer_active(model)(x).numpy().reshape(-1, a)
+    for vec in (False, True):
+        if vec and w % 4:
+            continue
+        q = w // 4 if vec else w
+        for nrows in (1, 5, 32):
+            for r0 in range(0, len(rows_all) - nrows + 1, 97):
+                rows = rows_all[r0:r0 + nrows]
+                lanes = rows[:, model._timer_off].astype(np.int64) & (
+                    (1 << n) - 1)
+                cnt = np.array([bin(v).count("1") for v in lanes])
+                first = np.concatenate([[0], np.cumsum(cnt)[:-1]])
+                nact = int(cnt.sum())
+                slots = np.zeros(nact, dtype=np.int64)  # the tile lane
+                for t in range(nrows * a):
+                    i, e = divmod(t, a)
+                    if e and (lanes[i] >> (e - 1)) & 1:
+                        below = lanes[i] & ((1 << (e - 1)) - 1)
+                        slots[first[i] + bin(int(below)).count("1")] = t
+                flat = np.zeros((nrows * a, w), dtype=np.uint32)
+                hits = np.zeros((nact, q), dtype=np.int64)
+                dc, dk = divmod(threads, q)
+                for tid in range(threads):
+                    c, k = divmod(tid, q)
+                    for _u in range(tid, nact * q, threads):
+                        t = slots[c]
+                        i, e = divmod(int(t), a)
+                        child = s_all[r0 + i, e]
+                        cols = slice(4 * k, 4 * k + 4) if vec else slice(
+                            k, k + 1)
+                        flat[t, cols] = child[cols]
+                        hits[c, k] += 1
+                        c, k = c + dc, k + dk
+                        if k >= q:
+                            c, k = c + 1, k - q
+                assert (hits == 1).all()
+                act = rule[r0:r0 + nrows].reshape(-1)
+                assert act.sum() == nact
+                assert np.array_equal(
+                    flat[act], s_all[r0:r0 + nrows].reshape(-1, w)[act])
+                assert not flat[~act].any()
 
 
 def _chunk_constant(name):

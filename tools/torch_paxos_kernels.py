@@ -28,10 +28,11 @@ lane against the plain version on its active lanes and K1's phase
 clocks; an older tree without the instantiation prints a line saying
 so, and its K1-paxos line above stands beside it), then K1-ping_pong at
 PingPong(7)'s 8,192-row step and at the non-duplicating PingPong(7)'s
-2-row step and K1-timer_count at TimerCount(8, 4)'s 8,192-row step
-(``torch_register_kernels.py`` ``FIXTURE_STEPS``, alike; K1-ping_pong
-held on its active lanes, K1-timer_count on every lane), then the
-narrow K1 beside them (TwoPhaseSys(7)
+2-row step and K1-timer_count at TimerCount(8, 4)'s 8,192-row step and
+its run's 256-row small step (``torch_register_kernels.py``
+``FIXTURE_STEPS``, alike; each held on its active lanes, the lossless
+K1-ping_pong on every lane), then the narrow K1 beside them
+(TwoPhaseSys(7)
 and IncrementLock(9) at 12,288 rows). Each tree runs them with its own
 ``chip_smoke.py``, and
 prints a digest of the carry it built, so two trees are compared on the
@@ -40,9 +41,9 @@ tree runs the BASELINE workload (PackedPaxos(3), ``capacity=1<<21``,
 ``race=False``, ``target_state_count(500_000)``) and the same under
 ``crash_restart(1, actors=[0, 1, 2])``, each twice for its wall and
 once under ``torch.profiler`` (device ms by kernel, busy share), and
-lossy Paxos(2) and PingPong(7) in the network's four quadrants in
-full, once each under ``torch.profiler``. ``--fixtures`` runs only the
-fixtures' K1 steps and PingPong(7)'s four runs.
+lossy Paxos(2), PingPong(7) in the network's four quadrants and
+TimerCount(8, 4) in full, once each under ``torch.profiler``.
+``--fixtures`` runs only the fixtures' K1 steps and runs.
 
 ``--old DIR`` also times another tree of the repository (the parent
 commit unpacked there: ``git archive HEAD~ stateright_tpu_torch
@@ -221,12 +222,14 @@ def run_tree(tree: str, reps: int) -> int:
 
 
 def ping_pong_runs(smoke) -> tuple:
-    """PingPong(7)'s runs in the network's four quadrants (``smoke``'s
-    ``_ping_pong``): label, model maker."""
+    """PingPong(7)'s runs in the network's four quadrants and
+    TimerCount(8, 4)'s (``smoke``'s ``_ping_pong``, ``_timer_count``):
+    label, model maker."""
     return tuple((f"PingPong(7, lossy={lossy}, duplicating={dup})",
                   lambda lossy=lossy, dup=dup: smoke._ping_pong(
                       7, lossy=lossy, duplicating=dup))
-                 for lossy in (True, False) for dup in (True, False))
+                 for lossy in (True, False) for dup in (True, False)) + (
+        ("TimerCount(8, 4)", lambda: smoke._timer_count(8, 4)),)
 
 
 def profile_runs(smoke, head: dict, runs) -> None:
@@ -246,7 +249,7 @@ def profile_runs(smoke, head: dict, runs) -> None:
 
 def run_fixtures(tree: str, reps: int) -> int:
     """``--fixtures``: K1-ping_pong and K1-timer_count at the
-    ``FIXTURE_STEPS`` and PingPong(7)'s four runs (:func:`ping_pong_runs`)
+    ``FIXTURE_STEPS`` and the fixtures' runs (:func:`ping_pong_runs`)
     of the repository at ``tree``, in this process."""
     sys.path.insert(0, tree)
     from stateright_tpu_torch.ops import _cuda
@@ -299,7 +302,7 @@ def main() -> int:
                     "repository, timed before and after this one")
     ap.add_argument("--fixtures", action="store_true",
                     help="only the actor test fixtures' K1 steps and "
-                    "PingPong(7)'s runs")
+                    "runs")
     ap.add_argument("--tree", help=argparse.SUPPRESS)
     args = ap.parse_args()
 

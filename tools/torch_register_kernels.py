@@ -6,6 +6,7 @@ measurement.
     python tools/torch_register_kernels.py
     python tools/torch_register_kernels.py --old build/parent
     python tools/torch_register_kernels.py --sweep
+    python tools/torch_register_kernels.py --timer-sweep
 
 The steps (``GROUP_STEPS``, ``OTHER_STEPS``): a mid-search carry of each
 configuration, built by the tree's own loop (its digest printed, so two
@@ -46,7 +47,9 @@ timed alike by ``tools/torch_paxos_kernels.py`` (``fixture_steps``;
 ``--sweep`` times K1-abd and K1-single_copy instead at each of
 ``GROUP_STEPS`` over other launches of this tree (no rebuild:
 ``ops/_cuda.py`` ``GROUP_THREADS`` and ``GROUP_BLOCKS_PER_SM`` set
-before each), its outputs' digest beside each.
+before each), its outputs' digest beside each; ``--timer-sweep``
+K1-timer_count at its ``FIXTURE_STEPS`` alike (``TIMER_THREADS``,
+``TIMER_BLOCKS_PER_SM``).
 
 ``--old DIR`` also times another tree of the repository (the parent
 commit unpacked there: ``git archive HEAD~ stateright_tpu_torch
@@ -125,7 +128,7 @@ CRASH_STEPS = (
 #: expand.py`` ``FMAX_SMALL``, 2 pending), and at the lossless
 #: PingPong(7)'s 1-row levels (every level of both networks) as their
 #: runs launch them; K1-timer_count at TimerCount(8, 4)'s 8,192-row step
-#: beside them
+#: and at its run's 256-row small step (8 pending) beside them
 FIXTURE_STEPS = (
     ("PackedPingPong(7, lossy=True, duplicating=True)",
      lambda s: s._ping_pong(7), "ping_pong", 8192, 8192),
@@ -139,7 +142,9 @@ FIXTURE_STEPS = (
      lambda s: s._ping_pong(7, lossy=False, duplicating=False),
      "ping_pong", 256, 1),
     ("PackedTimerCount(8, 4)", lambda s: s._timer_count(8, 4),
-     "timer_count", 8192, 8192))
+     "timer_count", 8192, 8192),
+    ("PackedTimerCount(8, 4) at 256 rows", lambda s: s._timer_count(8, 4),
+     "timer_count", 256, 2))
 #: the instantiations with crash/restart lanes
 CRASH_NAMES = ("write_once", "paxos_crash")
 #: the instantiations whose K1 writes the children of their active lanes
@@ -182,15 +187,23 @@ def held(smoke, model, name: str, frontier, take: int):
     channels (``abd_ordered``) or active (a model with crash lanes:
     ``chip_smoke.py`` ``crash_active``; with drop lanes, ``paxos_lossy``
     and a lossy ``ping_pong``: ``lossy_active``); every lane of a
-    lossless ``ping_pong``."""
+    lossless ``ping_pong``; of ``timer_count`` the pending rows' Timeout
+    lanes whose timer bit is set (the lanes K1's timer path writes; the
+    parent's narrow K1 wrote every lane, these among them)."""
     import torch
 
     f, a = frontier.shape[0], model.max_actions
     dev = frontier.device
-    group = name in ("abd", "single_copy", "write_once")
-    rows = torch.arange(f, device=dev) < (take if group else f)
+    pend = ("abd", "single_copy", "write_once", "timer_count")
+    rows = torch.arange(f, device=dev) < (take if name in pend else f)
     lanes = rows.repeat_interleave(a)
-    if name in CRASH_NAMES:
+    if name == "timer_count":
+        tw = frontier[:, model._timer_off].to(torch.int64) & 0xFFFFFFFF
+        bits = torch.arange(a - 1, device=dev)
+        timeouts = ((tw[:, None] >> bits) & 1) != 0
+        lanes &= torch.cat([torch.zeros_like(timeouts[:, :1]), timeouts],
+                           dim=1).reshape(-1)
+    elif name in CRASH_NAMES:
         lanes &= smoke.crash_active(model)(frontier)
     elif name in LOSSY_NAMES and lossy(model):
         lanes &= smoke.lossy_active(model)(frontier)
@@ -435,14 +448,17 @@ def crash_step(smoke, cuda, tree: str, model, name: str, label: str,
 
 def fixture_steps(smoke, cuda, tree: str, reps: int) -> tuple:
     """:func:`k1_step` at each of ``FIXTURE_STEPS``: K1-ping_pong held on
-    its active lanes (``lossy_active``) where lossy, K1-timer_count and
-    the lossless K1-ping_pong on every lane. Returns their lines and
-    their finishing functions."""
+    its active lanes (``lossy_active``) where lossy, K1-timer_count on
+    its own (``timer_active``, where the tree has the rule: an older
+    tree's narrow K1 on every lane), the lossless K1-ping_pong on every
+    lane. Returns their lines and their finishing functions."""
     lines, finish = [], []
     for label, make, name, rows, pending in FIXTURE_STEPS:
         model = make(smoke)
         rule = (smoke.lossy_active(model)
                 if name in LOSSY_NAMES and lossy(model) else None)
+        if name == "timer_count" and hasattr(smoke, "timer_active"):
+            rule = smoke.timer_active(model)
         line, fin = k1_step(smoke, cuda, tree, model, name, label, rows,
                             pending, reps, rule=rule)
         lines.append(line)
@@ -455,9 +471,17 @@ SWEEP = ((64, 4), (64, 8), (96, 6), (128, 2), (128, 3), (128, 4),
          (128, 6), (128, 8), (192, 3), (256, 2), (256, 4))
 
 
-def sweep(reps: int) -> int:
+#: ``--timer-sweep``'s launches of K1-timer_count: (threads a block,
+#: blocks an SM)
+TIMER_SWEEP = ((64, 4), (64, 8), (128, 2), (128, 4), (128, 8), (256, 2),
+               (256, 4), (512, 1), (512, 2))
+
+
+def sweep(reps: int, timer: bool = False) -> int:
     """K1-abd and K1-single_copy at each of ``GROUP_STEPS`` of this tree
-    over the launches of ``SWEEP``."""
+    over the launches of ``SWEEP``; with ``timer``, K1-timer_count at its
+    ``FIXTURE_STEPS`` over those of ``TIMER_SWEEP`` (``ops/_cuda.py``
+    ``TIMER_THREADS``, ``TIMER_BLOCKS_PER_SM``)."""
     sys.path.insert(0, ROOT)
     import torch
 
@@ -467,14 +491,19 @@ def sweep(reps: int) -> int:
     dev = torch.device("cuda", 0)
     info = _cuda.build()
     head = {"tree": ROOT, "card": card(), "build_s": info["seconds"]}
-    default = (_cuda.GROUP_THREADS, _cuda.GROUP_BLOCKS_PER_SM)
+    knobs = (("TIMER_THREADS", "TIMER_BLOCKS_PER_SM") if timer
+             else ("GROUP_THREADS", "GROUP_BLOCKS_PER_SM"))
+    default = tuple(getattr(_cuda, k) for k in knobs)
     sms = _cuda.sm_count(dev)
-    for label, make, name, rows, pending in GROUP_STEPS:
+    steps = ([st for st in FIXTURE_STEPS if st[2] == "timer_count"]
+             if timer else GROUP_STEPS)
+    for label, make, name, rows, pending in steps:
         model = make(smoke)
         carry = smoke.mid_search_carry(model, dev, rows=rows,
                                        pending=pending)
-        for threads, per_sm in SWEEP:
-            _cuda.GROUP_THREADS, _cuda.GROUP_BLOCKS_PER_SM = threads, per_sm
+        for threads, per_sm in TIMER_SWEEP if timer else SWEEP:
+            for k, v in zip(knobs, (threads, per_sm)):
+                setattr(_cuda, k, v)
             res = time_k1(smoke, model, name, carry, rows, reps)
             geo = _cuda.k1_launch(name, _cuda.tile_geometry(
                 rows, model.max_actions, sms), rows, model.packed_width,
@@ -487,7 +516,8 @@ def sweep(reps: int) -> int:
                                   "pending", "outputs", "k1_device_ms",
                                   "step_device_ms", "step_ms",
                                   "k1_bound_ms")}}), flush=True)
-        _cuda.GROUP_THREADS, _cuda.GROUP_BLOCKS_PER_SM = default
+        for k, v in zip(knobs, default):
+            setattr(_cuda, k, v)
         del carry
     return 0
 
@@ -578,6 +608,8 @@ def main() -> int:
     ap.add_argument("--sweep", action="store_true",
                     help="time K1-abd and K1-single_copy over other "
                     "launches")
+    ap.add_argument("--timer-sweep", action="store_true",
+                    help="time K1-timer_count over other launches")
     ap.add_argument("--tree", help=argparse.SUPPRESS)
     args = ap.parse_args()
 
@@ -587,8 +619,8 @@ def main() -> int:
         return 2
     if args.tree:
         return run_tree(args.tree, args.reps)
-    if args.sweep:
-        return sweep(args.reps)
+    if args.sweep or args.timer_sweep:
+        return sweep(args.reps, timer=args.timer_sweep)
     print(card(), flush=True)
     trees = [ROOT] if not args.old else [
         os.path.abspath(args.old), ROOT, ROOT, os.path.abspath(args.old)]
