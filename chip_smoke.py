@@ -227,6 +227,34 @@ Phases, one JSON line each:
              (``PIN_PING5_LOSSLESS``: 11 states);
              PackedTimerCount(8, 4) (``PIN_TIMER8``: "bounded" holding,
              "all max" found).
+12. staged — the staged step (``gpu_options(fused=False)``,
+             ``sound_eventually()``; ``ops/staged.py``): its kernels
+             right after the lossy kernels (phase ``kernels`` with
+             ``staged``), the runs after phase ``lossy`` (phase
+             ``staged``). K1 alone (``srt_expand_<model>``) held to
+             ``expand_frontier``, then KS1 (``stage_kernel``), KS2
+             (``predup_kernel``) and KS3 (``staged_append_kernel``,
+             after K4 inserted KS2's slots), each bit for bit against its
+             plain version on the card kernel's own inputs, at a
+             mid-search 8,192-row PackedPaxos(3) step and its 256-row
+             small step, and under sound at PackedPingPong(7, lossy,
+             duplicating)'s 7,710-row step and 256-row small step from a
+             frontier seeded with every eventually bit pending, each
+             timed beside its plain version, its bound and, for KS1,
+             ``torch.nonzero``; the chunk's start is ``chunk_begin``
+             (phase ``chunk``), its gate's staged terms held in phase
+             ``kernels``. The
+             runs, each ``race=False`` with every launch count set to 0:
+             the BASELINE workload with ``fused=False`` (the JAX
+             package's staged counts and digest, ``PIN_PAXOS3_STAGED``;
+             K1, KS1-KS3, K4 and K8 launched, no K2/K3/K7; profiled);
+             TwoPhaseSys(7) with ``fused=False`` and its candidate
+             buffers too small (``kraw``/``kmax`` of 4,096: rebuilt on
+             kovf; 296,448, the fused
+             digest); PackedPingPong(7, lossy, duplicating) under
+             ``sound_eventually()`` (``PIN_PING7_SOUND``: 69,629 nodes,
+             its three discoveries replayed, cross edges logged, the
+             lasso swept), profiled beside its plain fused run.
 
 Then a ``kernels`` line (the contract's per-kernel record), the card's name
 and power limit from ``nvidia-smi``, and as the last line
@@ -423,6 +451,14 @@ PIN_PING5 = (4_094, 21_505,
 PIN_PING7 = (65_534, 475_137,
              "97e53213de167f83c0716e62c048ae7f"
              "f30f0d248586cd545bd48de5020308df")
+#:   PackedPingPong(7, lossy=True, duplicating=True) under
+#:       sound_eventually(): 69,629 (state, pending eventually-bits)
+#:       nodes over the same 65,534 states (PIN_PING7's digest), from the
+#:       JAX package's device engine on the CPU,
+#:       ``.checker().sound_eventually().tpu_options(race=False, kraw=
+#:       123360, kmax=123360)``: its staged step's default sizes
+PIN_PING7_SOUND = (69_629, 511_986, PIN_PING7[2])
+PING7_SOUND_FOUND = ("can reach max", "must exceed max", "must reach max")
 #:   PackedPingPong(5, lossy=False, duplicating=False)
 PIN_PING5_LOSSLESS = (11, 11,
                       "07737048bb05540f514330e8bf91d6cb"
@@ -435,6 +471,20 @@ PIN_TIMER3 = (27, 55,
 PIN_TIMER8 = (390_625, 2_500_001,
               "3dc5f3f241d3c926de2a723af1bb73dc"
               "27be4acc200d40dad456e436179bdc83")
+
+#: the BASELINE workload on the staged step (phase ``staged``): the JAX
+#: package's staged device engine on the CPU, ``PackedPaxos(3).checker()
+#: .tpu_options(race=False, fused=False, mode="device", capacity=1 << 21,
+#: kraw=40960, kmax=20480).target_state_count(PAXOS3_TARGET)`` (its
+#: default sizes at 8,192-row steps, set so that no earlier run's size
+#: memo moves them)
+PIN_PAXOS3_STAGED = (531_488, 1_002_122,
+                     "a207fd11121dbed1aa1f0a4264fe4497"
+                     "bb439e608aaa0479cf99e7dc4ec75af0")
+#: TwoPhaseSys(7)'s staged run with candidate buffers below its steps'
+#: lanes (~20,000 valid at 12,288 rows): its first large step overflows
+#: them, commits nothing and the chunk is rebuilt (``handle_kovf``)
+STAGED_2PC7_KOVF = {"kraw": 4096, "kmax": 4096}
 
 #: bench.py's widest register row: tpu_abd2, PackedAbd(2,
 #: server_count=3, ordered=True, channel_depth=8), 331 words, bounded
@@ -494,7 +544,8 @@ def fp_digest(fps) -> str:
 #: this port's kernels, by the name each has in the profiler; longer
 #: names first, so a name that contains another is matched as itself
 _OURS = ("dedup_claim_kernel", "dedup_commit_kernel", "flat_insert_kernel",
-         "expand_kernel", "claim_kernel", "commit_kernel",
+         "staged_append_kernel", "stage_kernel",
+         "predup_kernel", "expand_kernel", "claim_kernel", "commit_kernel",
          "append_kernel", "chunk_begin_kernel", "history_kernel",
          "hpull_kernel")
 
@@ -638,7 +689,8 @@ def device_times(fn, host_top: int = 0, before=None) -> dict:
                    if hasattr(result, "profile") else 0)
         k1_lost = calls["claim_kernel"] > 0 and not (
             calls["expand_kernel"] or calls["expand_kernel_sym"])
-        if seen and calls["append_kernel"] >= replays and not k1_lost:
+        appends = calls["append_kernel"] + calls["staged_append_kernel"]
+        if seen and appends >= replays and not k1_lost:
             break
     out = {"ours_ms": None, "torch_ms": None, "copy_ms": None,
            "by_kernel_ms": None, "by_kernel_calls": None}
@@ -671,14 +723,15 @@ def device_times(fn, host_top: int = 0, before=None) -> dict:
 
 def mid_search_carry(model, device, symmetry: bool = False,
                      rows: int = 12288, pending: int = None,
-                     past_discoveries: bool = False):
+                     past_discoveries: bool = False, ebits: int = 0):
     """A real mid-search state of ``model`` (2pc n=7, or n=16 under
     symmetry reduction; the other models' at their kernels' checks): the
     port's own loop run at ``rows`` rows per step until at least
     ``pending`` (default ``rows``) rows are pending. A model whose every
     property is soon discovered (Increment's ``fin``) would stop there:
     ``past_discoveries`` clears the discovery flags after each step, so
-    the search goes on to a wide frontier."""
+    the search goes on to a wide frontier. ``ebits``: the init state's
+    pending eventually-bits (0: none)."""
     import numpy as np
     import torch
 
@@ -691,7 +744,7 @@ def mid_search_carry(model, device, symmetry: bool = False,
     init = model.init_states()[0]
     fp = model.fingerprint(model.representative(init) if symmetry
                            else init)
-    carry = seed_carry(model, 1 << 21, 1 << 20, [model.encode(init)], 0,
+    carry = seed_carry(model, 1 << 21, 1 << 20, [model.encode(init)], ebits,
                        [fp], 1 << 15, device, symmetry=symmetry)
     table_insert(carry.table,
                  from_numpy_u32(np.array([fp >> 32], np.uint32), device),
@@ -1473,14 +1526,17 @@ def check_control(model, carry, f: int = 12288) -> dict:
     the chunk's first gate, ``eval_gate``) against its plain version on
     the card, from the counters of a mid-search ``carry``, under chunk
     parameters that open the gate and that shut it (no steps left, the
-    generation target reached, the growth limit reached): the counter
-    block (gate included) bit for bit and the step's stats vector
-    zeroed. Also the kernel nodes of one captured iteration."""
+    generation target reached, the growth limit reached), and with the
+    staged chunk's terms (``kovf`` set; ``e_n`` past and at the edge
+    log's limit, through ``chunk_begin_args``): the counter block (gate
+    included) bit for bit and the step's stats vector zeroed. Also the
+    kernel nodes of one captured iteration."""
     import torch
 
     from stateright_tpu_torch.checker.device_loop import (
-        E_GATE, G_SIZE, I32_MAX, ChunkRunner, chunk_begin_reference,
-        step_sizes)
+        B_E_N, B_KOVF, E_GATE, G_SIZE, I32_MAX, ChunkRunner,
+        chunk_begin_reference, step_sizes)
+    from stateright_tpu_torch.ops import _cuda
 
     lay = carry.layout
     card = ChunkRunner(model, carry, f).card()
@@ -1488,25 +1544,43 @@ def check_control(model, carry, f: int = 12288) -> dict:
     qlimit = carry.q.shape[0] - qmargin
     ctr0 = carry.ctr.clone()
     stats = card.bufs["stats"]
-    cases = {"open": (3, I32_MAX, I32_MAX, 7),
-             "no_steps": (0, I32_MAX, I32_MAX, 7),
-             "target": (3, 0, I32_MAX, 7),
-             "grow_limit": (3, I32_MAX, 0, 7)}
+    # the staged chunk's start (launched with an edge log of 0 rows)
+    staged = _cuda.chunk_begin_args(
+        ctr=carry.ctr, stats=stats, qlimit=qlimit, n_props=lay.P,
+        f_small=f_small, f_large=f_large, ext=lay.ext, cch=lay.cch)
+    run = (3, I32_MAX, I32_MAX, 7)
+    # name: (parameters, counter words set first, the edge log's limit)
+    cases = {"open": (run, {}, None),
+             "no_steps": ((0, I32_MAX, I32_MAX, 7), {}, None),
+             "target": ((3, 0, I32_MAX, 7), {}, None),
+             "grow_limit": ((3, I32_MAX, 0, 7), {}, None),
+             "kovf": (run, {B_KOVF: 1}, None),
+             "edge_log_full": (run, {B_E_N: 1}, 0),
+             "edge_log_room": (run, {}, 0)}
+    opens = ("open", "edge_log_room")
     err, checks = 0, {}
-    for name, params in cases.items():
+    for name, (params, words, elimit) in cases.items():
         carry.ctr.copy_(ctr0)
+        for i, v in words.items():
+            carry.ctr[i] = v
+        start = carry.ctr.clone()
         stats.fill_(-1)
-        card.begin(*params)
+        if elimit is None:
+            card.begin(*params)
+        else:
+            _cuda.chunk_begin(staged, carry.ctr.device, *params, elimit)
         k_ctr, k_stats = carry.ctr.clone(), stats.clone()
-        p_ctr, p_stats = ctr0.clone(), torch.full_like(k_stats, -1)
+        p_ctr, p_stats = start, torch.full_like(k_stats, -1)
         chunk_begin_reference(p_ctr, lay, *params, f_small, f_large, qlimit,
-                              p_stats)
+                              p_stats,
+                              elimit=I32_MAX if elimit is None else elimit)
         e = int((k_ctr.long() - p_ctr.long()).abs().max())
         err = max(err, e)
         opened = int(k_ctr[lay.ext + E_GATE + G_SIZE]) != 0
         checks[name] = (e == 0 and not bool(k_stats.any())
                         and not bool(p_stats.any())
-                        and opened == (name == "open"))
+                        and opened == (name in opens))
+    carry.ctr.copy_(ctr0)
     # the captured iteration: K1-K3 of both sizes and K7, no gate kernel
     nodes = sum(KERNELS_PER_LAUNCH[k] * n
                 for k, n in card.graph.counts.items())
@@ -1519,7 +1593,7 @@ def check_control(model, carry, f: int = 12288) -> dict:
         carry.ctr.copy_(ctr0)
 
     def begin():
-        card.begin(*cases["open"])
+        card.begin(*run)
 
     ms_begin = cuda_ms(begin, 200)
     dev = device_times(begin, before=restore)
@@ -1527,8 +1601,8 @@ def check_control(model, carry, f: int = 12288) -> dict:
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
-    chunk_begin_reference(p_ctr, lay, *cases["open"], f_small, f_large,
-                          qlimit, stats)
+    chunk_begin_reference(p_ctr, lay, *run, f_small, f_large, qlimit,
+                          stats)
     end.record()
     end.synchronize()
     plain_ms = start.elapsed_time(end)
@@ -3154,7 +3228,7 @@ def register_plain(checks: dict, plain: list) -> None:
 
 
 def register_run(model, path_kernels, want=None, holds=(), found=(),
-                 target=None, race=False, **opts) -> tuple:
+                 target=None, race=False, sound=False, **opts) -> tuple:
     """One check of a register model through the user entry point,
     every launch count set to 0 before it: on the card alone
     (``race=False``: each of ``path_kernels`` must have launched) or
@@ -3163,7 +3237,8 @@ def register_run(model, path_kernels, want=None, holds=(), found=(),
     have no discovery; each of ``found`` has one whose witness replays
     through the host model to a state where the property's condition
     says it should end (a ``linearizable`` counterexample's history has
-    no serialization). Returns its measurements and the checker."""
+    no serialization); ``sound`` asks for ``sound_eventually()``. Returns
+    its measurements and the checker."""
     import torch
 
     from stateright_tpu_torch.core import Expectation
@@ -3175,6 +3250,8 @@ def register_run(model, path_kernels, want=None, holds=(), found=(),
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     builder = model.checker()
+    if sound:
+        builder = builder.sound_eventually()
     if race is not None:
         builder = builder.gpu_options(race=race, **opts)
     if target is not None:
@@ -3847,6 +3924,494 @@ def model_kernel_entries(steps: dict, runs: dict) -> list:
 
 #: the runs of ``--ranks``: (exchange, 2pc n or "lock8" for
 #: IncrementLock(8), complete symmetry or None)
+# --- the staged step (phase ``staged``) ------------------------------------
+
+STAGED_SRC = "stateright_tpu_torch/csrc/staged.cu"
+#: the staged step's kernels on the card, with their wrappers' launch
+#: counters and the JAX code each replaces
+STAGED_KERNELS = {
+    "stage": "stateright_tpu/checker/device_loop.py:398",
+    "predup": "stateright_tpu/ops/expand.py:122",
+    "staged_append": "stateright_tpu/checker/device_loop.py:522",
+}
+#: the staged chunk's path on the card: K1 alone, KS1-KS3 with K4 and the
+#: chunk's start (K8 and K9 with a history stage); never K2/K3 or K7
+STAGED_PATH = ("expand", "stage", "predup", "table_insert",
+               "staged_append", "chunk_begin")
+FUSED_ONLY = ("fused_step", "append")
+
+
+def _int_err(a, b) -> int:
+    """The largest absolute difference of two tensors of uint32 words
+    (int32 bit patterns, int64 values or bools; 0 when they agree; any
+    shape difference counts as 2**32)."""
+    import torch
+    a = a.to("cpu", torch.int64) & 0xFFFFFFFF
+    b = b.to("cpu", torch.int64) & 0xFFFFFFFF
+    if a.shape != b.shape:
+        return 1 << 32
+    return int((a - b).abs().max()) if a.numel() else 0
+
+
+def _highest_slots(pd, inserted) -> bool:
+    """Each ``inserted`` slot is the highest ``kvalid`` slot carrying its
+    key (the winner of the JAX package's insert)."""
+    import torch
+
+    from stateright_tpu_torch.ops.words import pack64
+    keys = pack64(pd.khi, pd.klo).cpu()
+    valid, ins = pd.kvalid.cpu(), inserted.cpu()
+    slots = torch.arange(keys.shape[0])
+    uniq, inv = torch.unique(keys[valid], return_inverse=True)
+    last = torch.full((uniq.shape[0],), -1, dtype=torch.int64)
+    last.scatter_reduce_(0, inv, slots[valid], reduce="amax")
+    won = last[torch.searchsorted(uniq, keys[ins])]
+    return bool((won == slots[ins]).all())
+
+
+def _sync_ms(fn, reps: int) -> float:
+    """Mean wall milliseconds of ``fn()`` with the card synchronized
+    around it (the plain versions, whose host reads synchronize)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def check_staged_step(model, carry, fmax: int, size: int, sound: bool,
+                      reps: int) -> dict:
+    """One staged step of ``model`` on a mid-search ``carry`` (its queue
+    and table cloned) at ``fmax`` rows (``size`` 2: the large step, 1:
+    the small one of FMAX_SMALL rows), kernel by kernel: K1 alone
+    (``expand``, held to ``expand_frontier`` on its valid lanes, cvalid
+    everywhere, the pending rows' bits), KS1, KS2 and KS3, each held bit
+    for bit to its plain version on the card kernel's inputs, K4 between
+    them; each of KS1-KS3 timed (CUDA events, ``reps``), its plain
+    version timed, its bound from this step's counts, and for KS1 the
+    one PyTorch call that compacts the same mask (``torch.nonzero``, a
+    yardstick only)."""
+    import torch
+
+    from stateright_tpu_torch.checker.device_loop import (
+        B_E_N, B_KOVF, B_LOG_N, CtrLayout, E_GATE, E_GROW, E_STEPS, E_TAG,
+        E_TARGET, G_LEN, I32_MAX)
+    from stateright_tpu_torch.checker.gpu import candidate_sizes
+    from stateright_tpu_torch.ops import _cuda
+    from stateright_tpu_torch.ops.expand import (eventually_indices,
+                                                 expand_frontier)
+    from stateright_tpu_torch.ops.fused import (S_DISC, StepWorkspace,
+                                                stats_len)
+    from stateright_tpu_torch.ops.staged import (
+        SC_DCOUNT, SC_KOVF, PredupOut, pre_dedup_arena_cells,
+        predup_reference, prop_kinds, reversed_slots, stage_reference,
+        staged_append_reference, staged_buffers, staged_sizes)
+
+    dev = carry.q.device
+    a, w = model.max_actions, model.packed_width
+    props = model.properties()
+    n_props = len(props)
+    kraw, kmax = candidate_sizes(model, fmax, {}, sound)
+    plans, qmargin = staged_sizes(model, fmax, kraw, kmax)
+    plan = plans[size]
+    f = plan.f
+    head, tail = carry.q_head, carry.q_tail
+    take = min(tail - head, f)
+    q = carry.q.clone()
+    table = carry.table.clone()
+    log = torch.zeros((plan.kfin + 8, 6 if sound else 4), dtype=torch.int32,
+                      device=dev)
+    ecap = 4 * plan.kfin + qmargin if sound else 0
+    elog = (torch.zeros((ecap, 4), dtype=torch.int32, device=dev)
+            if sound else None)
+    layout = CtrLayout(n_props, w)
+    ctr = carry.ctr.clone()
+    x = layout.ext
+    tag = 1 << 20
+    ctr[B_LOG_N] = ctr[B_E_N] = ctr[B_KOVF] = 0
+    ctr[x + E_STEPS], ctr[x + E_TAG] = 1, tag
+    ctr[x + E_TARGET] = ctr[x + E_GROW] = I32_MAX
+    ctr[x + E_GATE:x + E_GATE + G_LEN] = torch.tensor(
+        [size, head, take, tag, tail, 0], dtype=torch.int32)
+    ws = StepWorkspace(table.numel(), 0, n_props, dev)
+    ws.step = tag
+    sms = _cuda.sm_count(dev)
+    tiles = max(_cuda.tile_geometry(p.f, a, sms).blocks
+                for p in plans.values())
+    bufs = _cuda.step_buffers(model, plans[2].f, stats_len(model), False,
+                              dev, tiles)
+    sb = staged_buffers(plans[2], dev)
+    qlimit = q.shape[0] - qmargin
+    elimit = ecap - qmargin if sound else I32_MAX
+    args = _cuda.staged_args(
+        ctr=ctr, stats=bufs["stats"], bufs=bufs, sb=sb, q=q, log=log,
+        elog=elog, plans=plans, qlimit=qlimit, elimit=elimit, model=model,
+        layout=layout, sound=sound)
+    gate = ctr[x + E_GATE:].data_ptr()
+    bufs["stats"].zero_()
+    sb.sctl.zero_()
+    lanes = f * a
+    cells = pre_dedup_arena_cells(plan.kraw)
+    checks, err = {}, 0
+
+    # K1 alone, held to the plain expansion
+    _cuda.expand_step(model, q[:f, :w], q[:f, w], None, q[:f, w + 1],
+                      q[:f, w + 2], ws, stats_len(model), False, bufs=bufs,
+                      gate=gate, gate_size=size)
+    torch.cuda.synchronize()
+    cvalid = bufs["cvalid"][:lanes].clone()
+    pbits = bufs["pbits"][:f].clone()
+    terminal = bufs["terminal"][:f].clone()
+    ebits_out = bufs["ebits_out"][:f].clone()
+    chi, clo = bufs["chi"][:lanes].clone(), bufs["clo"][:lanes].clone()
+    flat = bufs["flat"][:lanes].clone()
+    block = q[head:head + f]
+    fvalid = torch.arange(f, device=dev) < take
+    exp = expand_frontier(model, block[:, :w], fvalid, block[:, w],
+                          eventually_indices(props),
+                          pfp=(block[:, w + 1], block[:, w + 2]))
+    v = cvalid
+    pend = fvalid
+    k1_parts = {
+        "cvalid": _int_err(cvalid, exp.cvalid),
+        "chi": _int_err(chi[v], exp.chi[v]),
+        "clo": _int_err(clo[v], exp.clo[v]),
+        "flat": _int_err(flat[v], exp.flat[v]),
+        "ebits": _int_err(ebits_out[pend], exp.ebits[pend]),
+        "terminal": _int_err(terminal, exp.terminal),
+        "pbits": _int_err(pbits[pend][:, :n_props],
+                          exp.pbits[pend][:, :n_props])}
+    k1_err = max(k1_parts.values())
+    checks["expand"] = k1_err == 0
+    stats_k1 = bufs["stats"].clone()
+
+    # timed as KS1-KS3 are: its arguments built once, the launch alone
+    k1, _out = _cuda.expand_launcher(
+        model, q[:f, :w], q[:f, w], None, q[:f, w + 1], q[:f, w + 2], ws,
+        stats_len(model), False, bufs=bufs, gate=gate, gate_size=size)
+    k1_ms = cuda_ms(k1, reps)
+    k1_plain = _sync_ms(lambda: expand_frontier(
+        model, block[:, :w], fvalid, block[:, w], eventually_indices(props),
+        pfp=(block[:, w + 1], block[:, w + 2])), 3)
+    bufs["stats"].copy_(stats_k1)
+
+    # KS1
+    def ks1():
+        _cuda.stage(args, dev, size)
+
+    ks1()
+    torch.cuda.synchronize()
+    kinds = prop_kinds(props)
+    so = stage_reference(cvalid, pbits, terminal, ebits_out, block[:, w],
+                         block[:, w + 1], block[:, w + 2], take, plan,
+                         kinds, sound)
+    rv = so.rvalid
+    e1 = max(_int_err(sb.rvalid[:plan.kraw], rv),
+             _int_err(sb.src[:plan.kraw][rv], so.src[rv]),
+             _int_err(sb.sctl[:SC_KOVF + 1], so.sctl[:SC_KOVF + 1]),
+             _int_err(bufs["stats"][S_DISC:S_DISC + 3 * n_props], so.disc))
+    if sound:
+        e1 = max(e1, _int_err(sb.pkey[:f], so.pkey))
+    checks["stage"] = e1 == 0
+    vcount = int(so.sctl[0])
+    sctl1 = sb.sctl.clone()
+    ks1_ms = cuda_ms(ks1, reps)
+    ks1_plain = _sync_ms(lambda: stage_reference(
+        cvalid, pbits, terminal, ebits_out, block[:, w], block[:, w + 1],
+        block[:, w + 2], take, plan, kinds, sound), 3)
+    lib_ms = cuda_ms(lambda: torch.nonzero(cvalid).flatten()[:plan.kraw],
+                     reps)
+
+    # KS2
+    def ks2():
+        _cuda.predup(args, dev, size, cells)
+
+    ks2()
+    torch.cuda.synchronize()
+    sctl_p = sctl1.clone()
+    pd = predup_reference(so.src, so.rvalid, chi, clo, ebits_out, a, plan,
+                          sctl_p, sound)
+    kfin = plan.kfin
+    kv = pd.kvalid
+    # the card's slots reversed (KS2 writes slot j at kfin - 1 - j)
+    card = reversed_slots(PredupOut(sb.lane, sb.khi, sb.klo, sb.kvalid),
+                          kfin)
+    e2 = max(_int_err(card.kvalid, kv),
+             _int_err(card.lane[kv], pd.lane[kv]),
+             _int_err(card.khi[kv], pd.khi[kv]),
+             _int_err(card.klo[kv], pd.klo[kv]),
+             _int_err(sb.sctl, sctl_p))
+    checks["predup"] = e2 == 0
+    dcount, kovf = int(sctl_p[SC_DCOUNT]), bool(sctl_p[SC_KOVF])
+    sctl2 = sb.sctl.clone()
+
+    def restore_sctl1():
+        sb.sctl.copy_(sctl1)
+
+    ks2_ms = cuda_ms(ks2, reps, before=restore_sctl1)
+    sb.sctl.copy_(sctl2)
+    ks2_plain = _sync_ms(lambda: predup_reference(
+        so.src, so.rvalid, chi, clo, ebits_out, a, plan, sctl1.clone(),
+        sound), 3)
+
+    # K4, then KS3 on the card and its plain version on copies
+    _cuda.staged_insert(table, sb.khi[:kfin], sb.klo[:kfin],
+                        sb.kvalid[:kfin], sb.inserted[:kfin], bufs["stats"],
+                        ws, gate, size)
+    torch.cuda.synchronize()
+    inserted = sb.inserted[:kfin].flip(0)
+    cnt = int(inserted.sum())
+    snap = {"ctr": ctr.clone(), "stats": bufs["stats"].clone(),
+            "sctl": sb.sctl.clone()}
+    pd_card = reversed_slots(PredupOut(sb.lane, sb.khi, sb.klo, sb.kvalid),
+                             kfin)
+    # K4 marked the highest slot of each fresh key, as the JAX package's
+    # insert (and so the CPU path) does
+    checks["insert_winner"] = _highest_slots(pd_card, inserted)
+    p_ctr, p_q = snap["ctr"].clone(), q.clone()
+    p_log = log.clone()
+    p_elog = None if elog is None else elog.clone()
+    p_stats, p_sctl = snap["stats"].clone(), snap["sctl"].clone()
+    pkey = sb.pkey[:f].clone()
+
+    def ks3():
+        _cuda.staged_append(args, dev)
+
+    ks3()
+    torch.cuda.synchronize()
+    f_small = plans[1].f if 1 in plans else 0
+
+    def ks3_plain(c_, q_, log_, elog_, st_, sc_):
+        staged_append_reference(
+            c_, layout, q_, log_, elog_, pd_card, inserted, flat, ebits_out,
+            chi, clo, chi, clo, pkey, st_, sc_, a, sound, f_small,
+            plans[2].f, qlimit, elimit)
+
+    ks3_plain(p_ctr, p_q, p_log, p_elog, p_stats, p_sctl)
+    ecnt = int(p_ctr[B_E_N])
+    e3 = max(_int_err(ctr, p_ctr), _int_err(q[tail:tail + cnt],
+                                            p_q[tail:tail + cnt]),
+             _int_err(log[:cnt], p_log[:cnt]),
+             _int_err(bufs["stats"], p_stats), _int_err(sb.sctl, p_sctl))
+    if sound:
+        e3 = max(e3, _int_err(elog[:ecnt], p_elog[:ecnt]))
+    checks["staged_append"] = e3 == 0
+
+    def restore3():
+        ctr.copy_(snap["ctr"])
+        bufs["stats"].copy_(snap["stats"])
+        sb.sctl.copy_(snap["sctl"])
+
+    ks3_ms = cuda_ms(ks3, reps, before=restore3)
+
+    def plain3():
+        ks3_plain(snap["ctr"].clone(), q.clone(), log.clone(),
+                  None if elog is None else elog.clone(),
+                  snap["stats"].clone(), snap["sctl"].clone())
+
+    ks3_plain_ms = _sync_ms(plain3, 3)
+    # each kernel's bound: the bytes it must move and the operations it
+    # must do on this step's data
+    key_ops = 60  # one node key: three words folded and finished
+    b1 = bound(lanes + 6 * f + 4 * min(vcount, plan.kraw) + plan.kraw
+               + (20 * f if sound else 0),
+               3 * lanes + (key_ops * f if sound else 0))
+    nv = min(vcount, plan.kraw)
+    b2 = bound(nv * (4 + 8 + (4 if sound else 12)) + plan.kraw
+               + 13 * min(dcount, kfin),
+               10 * nv + (key_ops * nv if sound else 0))
+    b0 = bound(f * (w + 3) * 4 + lanes * (4 * w + 9) + 6 * f,
+               lanes * (2 * w + 8))
+    b3 = bound(2 * kfin + cnt * (4 * (w + 3) * 2 + 4 * log.shape[1] + 12)
+               + ecnt * 24, 4 * kfin + cnt * (w + 8))
+    res = {"model": type(model).__name__, "sound": sound, "f": f,
+           "pending": take, "lanes": lanes, "kraw": plan.kraw, "kfin": kfin,
+           "vcount": vcount, "dcount": dcount, "kovf": kovf,
+           "inserted": cnt, "cross_edges": ecnt,
+           "k1_valid": int(stats_k1[4]), "k1_errors": k1_parts,
+           "checks": checks}
+    res["kernels"] = {
+        "expand": {"max_abs_err": k1_err, "ms": k1_ms,
+                   "plain_ms": k1_plain, "library_ms": None, **b0},
+        "stage": {"max_abs_err": e1, "ms": ks1_ms, "plain_ms": ks1_plain,
+                  "library_ms": lib_ms, **b1},
+        "predup": {"max_abs_err": e2, "ms": ks2_ms, "plain_ms": ks2_plain,
+                   "library_ms": None, **b2},
+        "staged_append": {"max_abs_err": e3, "ms": ks3_ms,
+                          "plain_ms": ks3_plain_ms, "library_ms": None,
+                          **b3}}
+    return res
+
+
+def staged_kernels(device) -> dict:
+    """The staged step's kernels (phase ``kernels`` with ``staged``):
+    PackedPaxos(3) at a mid-search 8,192-row step and its 256-row small
+    step, and under sound PackedPingPong(7, lossy, duplicating) at its
+    large and small steps from a frontier with every eventually bit
+    pending at the start. Returns the checks."""
+    from stateright_tpu_torch.examples.paxos_packed import PackedPaxos
+    from stateright_tpu_torch.ops.expand import eventually_indices
+
+    out = {}
+    paxos = PackedPaxos(3)
+    carry = mid_search_carry(paxos, device, rows=8192)
+    for size, reps in ((2, 20), (1, 50)):
+        res = check_staged_step(paxos, carry, 8192, size, False, reps)
+        emit(phase="kernels", staged=True, **res)
+        out["paxos3", size] = res
+    del carry
+    ping = _ping_pong(7)
+    full = sum(1 << i for i in eventually_indices(ping.properties()))
+    carry = mid_search_carry(ping, device, rows=7710, pending=4096,
+                             ebits=full)
+    for size, reps in ((2, 20), (1, 50)):
+        res = check_staged_step(ping, carry, 7710, size, True, reps)
+        emit(phase="kernels", staged=True, **res)
+        out["ping7_sound", size] = res
+    del carry
+    failed = [k for k, r in out.items() if not all(r["checks"].values())]
+    if failed:
+        raise AssertionError(f"staged kernels: {failed}: "
+                             f"{[out[k]['checks'] for k in failed]}")
+    return out
+
+
+def staged_phase(device) -> dict:
+    """Phase ``staged``: the staged step end to end through the user entry
+    points, on the card alone, every launch count set to 0 before each
+    run: the BASELINE workload with ``fused=False`` (the JAX package's
+    staged counts and digest, ``PIN_PAXOS3_STAGED``; K1, KS1-KS3, K4 and
+    K8 launched, no K2/K3/K7), profiled; TwoPhaseSys(7) with
+    ``fused=False`` and candidate buffers too small (``STAGED_2PC7_KOVF``:
+    the chunk rebuilds on kovf; 296,448 and the fused run's digest); and
+    PackedPingPong(7, lossy, duplicating) under ``sound_eventually()``
+    (``PIN_PING7_SOUND``: 69,629 nodes, the three discoveries replayed,
+    cross edges logged and the lasso swept at exhaustion) beside its
+    plain fused run, both profiled. Returns the runs."""
+    import torch
+
+    from stateright_tpu_torch.examples.paxos_packed import PackedPaxos
+    from stateright_tpu_torch.ops import _cuda
+
+    path = STAGED_PATH + ("history", "hpull")
+    runs = {}
+
+    def fused_off(res):
+        return all(res["launches"][k] == 0 for k in FUSED_ONLY)
+
+    res, _ck, fps = paxos_run(3, path, target=PAXOS3_TARGET,
+                              capacity=1 << 21, fused=False)
+    res["digest"] = fp_digest(fps)
+    res["checks"].update(
+        unique=res["unique"] == PIN_PAXOS3_STAGED[0],
+        generated=res["generated"] == PIN_PAXOS3_STAGED[1],
+        digest=res["digest"] == PIN_PAXOS3_STAGED[2],
+        no_fused_step=fused_off(res))
+    del _ck, fps
+    res["profile"] = device_times(lambda: PackedPaxos(3).checker()
+                                  .gpu_options(race=False, fused=False,
+                                               capacity=1 << 21)
+                                  .target_state_count(PAXOS3_TARGET)
+                                  .spawn_gpu().join(), host_top=10)
+    emit(phase="staged", workload="BASELINE paxos check 3, fused=False",
+         **res)
+    runs["paxos3"] = res
+    twopc, _ck = register_run(_twopc7(), STAGED_PATH,
+                              want=(UNIQUE_2PC7, GENERATED_2PC7,
+                                    DIGEST_2PC7), fused=False,
+                              **STAGED_2PC7_KOVF)
+    prof = _ck.profile()
+    twopc.update(kovfs=prof.get("kovfs"), kraw=prof.get("kraw"),
+                 kmax=prof.get("kmax"))
+    twopc["checks"].update(
+        no_fused_step=fused_off(twopc),
+        kovf_rebuilt=twopc["kovfs"] >= 1 and twopc["captures"] >= 2)
+    emit(phase="staged", **twopc)
+    runs["twopc7"] = twopc
+    del _ck
+    ping, ck = register_run(_ping_pong(7), STAGED_PATH,
+                            want=PIN_PING7_SOUND,
+                            holds=("delta within 1",),
+                            found=PING7_SOUND_FOUND, sound=True)
+    prof = ck.profile()
+    ping.update(e_n=prof.get("e_n"), lasso_s=prof.get("lasso_s"),
+                lasso_nodes=prof.get("lasso_nodes"),
+                lasso_edges=prof.get("lasso_edges"),
+                witness_lengths={k: len(p)
+                                 for k, p in ck.discoveries().items()})
+    ping["checks"].update(cross_edges=(prof.get("e_n") or 0) > 0,
+                          lasso_swept="lasso_s" in prof,
+                          no_fused_step=fused_off(ping))
+    del ck
+    ping["profile"] = device_times(
+        lambda: _ping_pong(7).checker().sound_eventually().gpu_options(
+            race=False).spawn_gpu().join(), host_top=8)
+    ping["plain_profile"] = device_times(
+        lambda: _ping_pong(7).checker().gpu_options(race=False).spawn_gpu()
+        .join(), host_top=8)
+    emit(phase="staged", sound=True, **ping)
+    runs["ping7_sound"] = ping
+    failed = [k for k, r in runs.items() if not all(r["checks"].values())]
+    if failed:
+        raise AssertionError(f"staged phase: {failed}: "
+                             f"{[runs[k]['checks'] for k in failed]}")
+    torch.cuda.synchronize()
+    del _cuda
+    return runs
+
+
+def _twopc7():
+    from stateright_tpu_torch import TwoPhaseSys
+    return TwoPhaseSys(7)
+
+
+def staged_kernel_entries(checks: dict, runs: dict) -> list:
+    """The ``kernels`` line's records of the staged step: KS1-KS3 and K1
+    alone, with their launches on the staged BASELINE run,
+    their Paxos(3) 8,192-row numbers and the other shapes beside them."""
+    launches = runs["paxos3"]["launches"]
+    steps = {k: r for k, r in checks.items() if isinstance(k, tuple)}
+    out = []
+    for name, replaces in STAGED_KERNELS.items():
+        main = checks["paxos3", 2]["kernels"][name]
+        by = {f"{lb} f={r['f']}": r["kernels"][name]
+              for (lb, _s), r in steps.items()}
+        out.append({
+            "name": name, "route": "cuda", "source": STAGED_SRC,
+            "replaces": replaces, "model": "PackedPaxos(3)",
+            "launches": launches[name],
+            "max_abs_err": max([main["max_abs_err"]]
+                               + [r["max_abs_err"] for r in by.values()]),
+            "ms": main["ms"], "plain_ms": main["plain_ms"],
+            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+            "library_ms": main["library_ms"],
+            "by_shape": {lb: {k: r[k] for k in (
+                "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                "max_abs_err")} for lb, r in by.items()},
+            "status": "ok"})
+    k1 = checks["paxos3", 2]["kernels"]["expand"]
+    out.append({
+        "name": "expand", "route": "cuda",
+        "source": "stateright_tpu_torch/csrc/fused_step.cu",
+        "replaces": "stateright_tpu/checker/device_loop.py:407",
+        "configuration": "K1 alone (srt_expand_<model>): the staged step's "
+                         "expansion",
+        "model": "PackedPaxos(3)", "launches": launches["expand"],
+        "max_abs_err": max(r["kernels"]["expand"]["max_abs_err"]
+                           for r in steps.values()),
+        **{k: k1[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                              "library_ms")},
+        "by_shape": {f"{lb} f={r['f']}": {
+            k: r["kernels"]["expand"][k] for k in (
+                "ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err")}
+            for (lb, _s), r in steps.items()},
+        "status": "ok"})
+    return out
+
+
 RANK_CASES = (("bucket", 7, None), ("ring", 7, None), ("bucket", 16, True),
               ("bucket", "lock8", None))
 
@@ -4048,6 +4613,7 @@ def main() -> int:
     reg_checks, reg_plain = register_kernels(torch.device("cuda", 0))
     crash_checks, crash_plain = crash_kernels(torch.device("cuda", 0))
     lossy_checks, lossy_plain = lossy_kernels(torch.device("cuda", 0))
+    staged_checks = staged_kernels(torch.device("cuda", 0))
     # the host race on the main path, and checkpoints on the card
     race_phase()
     ckpt = checkpoint_phase()
@@ -4299,6 +4865,8 @@ def main() -> int:
     crash_runs = crash_phase()
     # the lossy network and the device timers on the card end to end
     lossy_runs = lossy_phase()
+    # the staged step (fused=False, sound_eventually()) end to end
+    staged_runs = staged_phase(torch.device("cuda", 0))
     # the register, crash and lossy K1 checks' plain versions, after every
     # trace
     register_plain(reg_checks, reg_plain)
@@ -4421,6 +4989,7 @@ def main() -> int:
     kernels += register_kernel_entries(reg_checks, reg_runs)
     kernels += crash_kernel_entries(crash_checks, crash_runs)
     kernels += lossy_kernel_entries(lossy_checks, lossy_runs)
+    kernels += staged_kernel_entries(staged_checks, staged_runs)
     # K7, K8 and K9 at the widest register row (331 words), K7 at abd3's
     # (260)
     for entry in kernels:

@@ -7,9 +7,12 @@ both for dedup and for trace reconstruction by replay
 (``bfs.rs:314-342``); property evaluation on pop with early exit once
 every property has a discovery; ``eventually`` bits flushed as
 counterexamples at terminal states, with the Rust crate's two
-documented caveats (``bfs.rs:239-244``, ``:249-256``). Trimmed of the
-JAX package's trace events; visitors and ``sound_eventually()`` raise
-``NotImplementedError`` (not ported).
+documented caveats (``bfs.rs:239-244``, ``:249-256``).
+``CheckerBuilder.sound_eventually()`` opts into node-keyed dedup (state
+fingerprint and pending eventually-bits, ``fingerprint.fp64_node``),
+which removes the first caveat (DAG rejoins). Trimmed of the JAX
+package's trace events; visitors raise ``NotImplementedError`` (not
+ported).
 
 Symmetry reduction is intentionally not applied here: as in the Rust
 crate, only the DFS engine honours it.
@@ -34,8 +37,13 @@ class BfsChecker(HostChecker):
                        if model.within_boundary(s)]
         self._state_count = len(init_states)
         ebits = self._init_ebits()
+        # dedup keys: state fingerprints, or under sound_eventually()
+        # node keys (_node_fp translates them back for replay)
+        self._init_sound(builder, ebits)
+        mask = self._ebits_mask(ebits)
         for s in init_states:
-            self._generated.setdefault(model.fingerprint(s), None)
+            self._generated.setdefault(
+                self._node_key(model.fingerprint(s), mask), None)
         self._unique_state_count = len(self._generated)
         self._pending = deque(
             (s, model.fingerprint(s), ebits) for s in init_states)
@@ -52,6 +60,9 @@ class BfsChecker(HostChecker):
             if cancelled():
                 break
             state, state_fp, ebits = pending.popleft()
+            # this node's key has its AT-ENQUEUE bits (dedup happened at
+            # enqueue, before this pop clears any)
+            state_key = self._node_key(state_fp, self._ebits_mask(ebits))
 
             # Property evaluation (bfs.rs:192-226).
             is_awaiting_discoveries = False
@@ -60,12 +71,12 @@ class BfsChecker(HostChecker):
                     continue
                 if prop.expectation == Expectation.ALWAYS:
                     if not prop.condition(model, state):
-                        discoveries[prop.name] = state_fp
+                        discoveries[prop.name] = state_key
                     else:
                         is_awaiting_discoveries = True
                 elif prop.expectation == Expectation.SOMETIMES:
                     if prop.condition(model, state):
-                        discoveries[prop.name] = state_fp
+                        discoveries[prop.name] = state_key
                     else:
                         is_awaiting_discoveries = True
                 else:  # EVENTUALLY: discoveries only surface at terminals.
@@ -78,6 +89,7 @@ class BfsChecker(HostChecker):
             # Expansion (bfs.rs:229-264).
             actions: List = []
             is_terminal = True
+            child_mask = self._ebits_mask(ebits)
             model.actions(state, actions)
             for action in actions:
                 next_state = model.next_state(state, action)
@@ -87,10 +99,11 @@ class BfsChecker(HostChecker):
                     continue
                 self._state_count += 1
                 next_fp = model.fingerprint(next_state)
-                if next_fp in generated:
+                next_key = self._node_key(next_fp, child_mask)
+                if next_key in generated:
                     is_terminal = False
                     continue
-                generated[next_fp] = state_fp
+                generated[next_key] = state_key
                 self._unique_state_count = len(generated)
                 is_terminal = False
                 pending.append((next_state, next_fp, ebits))
@@ -101,6 +114,6 @@ class BfsChecker(HostChecker):
                     # skipped ebit-clearing must not overwrite the
                     # witness
                     if i in ebits and prop.name not in discoveries:
-                        discoveries[prop.name] = state_fp
+                        discoveries[prop.name] = state_key
             if target is not None and self._state_count >= target:
                 return

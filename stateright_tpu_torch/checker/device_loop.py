@@ -49,6 +49,22 @@ stops after it (the host grows the table and rescans the span). After
 each chunk the first ``HIST_WINDOW`` representatives logged since the
 host's pulled count are gathered with their witness fingerprints (K9,
 :func:`hpull_reference`) and copied with the counter block.
+
+A run with ``fused=False`` or ``sound_eventually()`` takes the
+staged step instead (:class:`Staged`, the JAX package's ``make_step``
+with ``fused=False``; ``ops/staged.py``): K1 alone, the stage-one
+compaction to ``kraw`` lanes (KS1), the in-batch dedup and stage two to
+``kfin`` lanes (KS2), the masked table insert (K4) and the append (KS3,
+which evaluates the next gate), with the JAX package's ``kovf`` abort:
+an iteration whose lanes overflow a buffer commits nothing, sets
+``kovf`` (``B_KOVF``; ``vmax`` and ``dmax`` ride the block)
+and shuts the gate, and the host rebuilds with larger buffers. Under
+sound the dedup keys are node keys (state fingerprint and pending
+eventually-bits), the log has six columns (node key, parent node key,
+the state's own fingerprint) and the edge log (``ChunkCarry.elog``,
+``e_n`` at ``B_E_N``) takes the cross edges the lasso sweep needs. On
+the card the staged iteration is one CUDA graph as well
+(:class:`StagedCard`).
 """
 
 from __future__ import annotations
@@ -60,7 +76,8 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from ..ops.expand import assemble_candidates, small_step_sizes
+from ..ops.expand import (assemble_candidates, eventually_indices,
+                          expand_frontier, small_step_sizes)
 from ..ops.fused import (S_CCH, S_DEDUP, S_DISC, S_FAULT, S_INSERTED,
                          S_OVF, S_ROUNDS, S_VALID, S_XOVF, StepWorkspace,
                          fused_step, stats_len)
@@ -69,8 +86,9 @@ from ..ops.hashtable import make_table, table_insert_reference
 from ..ops.words import (from_numpy_u32, keys_from_numpy, keys_to_numpy,
                          pack64, to_numpy_u32)
 
-# the counter block: the JAX package's base_stats fields (kovf, rmax and
-# e_n are those of paths the port does not run: 0; h_n and hovf are the
+# the counter block: the JAX package's base_stats fields (kovf and e_n
+# are the staged step's, 0 on the fused one; rmax is the per-row hint's,
+# which the port does not run: 0; h_n and hovf are the
 # history stage's), then
 # disc_hit[P], disc_hi[P], disc_lo[P], the most recent queue row (W + 3)
 # and the ring hits (CtrLayout)
@@ -172,6 +190,9 @@ class ChunkCarry:
     card: object = field(default=None, repr=False)
     #: the history stage (models with host-evaluated properties)
     hist: Optional[HistoryStage] = None
+    #: the staged step's edge log under sound (int32 [ecap, 4]: parent
+    #: node key, child node key), ``e_n`` rows of it used (``B_E_N``)
+    elog: Optional[torch.Tensor] = None
 
     def counters(self) -> np.ndarray:
         return self.ctr.cpu().numpy().copy()
@@ -252,13 +273,15 @@ def new_history(model, hcap: int, logcap: int, hdone: int,
 
 def seed_carry(model, qcap: int, capacity: int, init_rows, init_ebits,
                init_fps, cc: int, device, symmetry: bool = False,
-               hcap: int = 0) -> ChunkCarry:
+               hcap: int = 0, sound: bool = False,
+               ecap: int = 0) -> ChunkCarry:
     """The initial carry: init states enqueued (with their
     eventually-bits — one value for all, or one per row, as a resumed
     frontier brings them — and their cached fingerprints: the canonical
-    ones under ``symmetry``), empty table, log (6 columns under
-    ``symmetry``) and ring. The caller inserts the known fingerprints
-    into the table."""
+    ones under ``symmetry``; state, not node, fingerprints under
+    ``sound``), empty table, log (6 columns under ``symmetry`` or
+    ``sound``), ring and, with ``ecap``, edge log. The caller inserts the
+    known keys into the table."""
     width = model.packed_width
     q = torch.zeros((qcap, width + 3), dtype=torch.int32, device=device)
     k = len(init_rows)
@@ -279,7 +302,7 @@ def seed_carry(model, qcap: int, capacity: int, init_rows, init_ebits,
         q=q, table=table,
         ring=(torch.zeros((cc,), dtype=torch.int64, device=device)
               if cc else None),
-        log=torch.zeros((capacity, 6 if symmetry else 4),
+        log=torch.zeros((capacity, 6 if symmetry or sound else 4),
                         dtype=torch.int32, device=device),
         ctr=_new_ctr(layout, q.device, q_tail=k,
                      recent=None if block is None else block[-1]),
@@ -287,7 +310,9 @@ def seed_carry(model, qcap: int, capacity: int, init_rows, init_ebits,
         ws=(StepWorkspace(capacity, cc, n_props, table.device)
             if table.is_cuda else None), symmetry=symmetry,
         hist=(new_history(model, hcap, capacity, k, q.device)
-              if hcap else None))
+              if hcap else None),
+        elog=(torch.zeros((ecap, 4), dtype=torch.int32, device=device)
+              if ecap else None))
 
 
 def carry_from_numpy(carry, ring_hi, ring_lo, device="cpu") -> ChunkCarry:
@@ -345,7 +370,8 @@ def carry_to_numpy(carry: ChunkCarry) -> dict:
 
 def chunk_begin_reference(ctr, layout: CtrLayout, steps: int, target: int,
                           grow_limit: int, tag: int, f_small: int,
-                          f_large: int, qlimit: int, stats=None) -> list:
+                          f_large: int, qlimit: int, stats=None,
+                          elimit: int = I32_MAX) -> list:
     """The plain version of ``chunk_begin_kernel`` (``csrc/chunk.cu``):
     the chunk's parameters, the per-chunk counters zeroed (the JAX
     package's dispatch resets its carry's so), then the first
@@ -356,16 +382,20 @@ def chunk_begin_reference(ctr, layout: CtrLayout, steps: int, target: int,
         ctr[i] = 0
     ctr[x + E_STEPS], ctr[x + E_TARGET] = steps, target
     ctr[x + E_GROW], ctr[x + E_TAG] = grow_limit, tag
-    return gate_reference(ctr, layout, f_small, f_large, qlimit, stats)
+    return gate_reference(ctr, layout, f_small, f_large, qlimit, stats,
+                          elimit)
 
 
 def gate_reference(ctr, layout: CtrLayout, f_small: int, f_large: int,
-                   qlimit: int, stats=None) -> list:
-    """The plain version of ``eval_gate`` (``csrc/chunk.cu``, run by
-    ``chunk_begin_kernel`` and K7's tail): ``stats`` (the step's stats
-    vector, when given) zeroed, the JAX package's ``make_cond`` on the
-    counters and the iteration's gate, written into ``ctr`` and
-    returned (``G_*`` order)."""
+                   qlimit: int, stats=None, elimit: int = I32_MAX) -> list:
+    """The plain version of ``eval_gate`` (``csrc/step_common.cuh``, run
+    by ``chunk_begin_kernel``, K7's tail and KS3's): ``stats`` (the
+    step's stats vector, when given) zeroed, the JAX package's
+    ``make_cond`` on the counters — with the staged step's terms, no
+    candidate overflow (``kovf``) and ``e_n <= elimit`` (the JAX
+    package's ``e_n <= ecap - qmargin``; both hold on the fused chunk) —
+    and the iteration's gate, written into ``ctr`` and returned (``G_*``
+    order)."""
     if stats is not None:
         stats.zero_()
     c = ctr.tolist()
@@ -376,7 +406,8 @@ def gate_reference(ctr, layout: CtrLayout, f_small: int, f_large: int,
     go = (avail > 0 and c[x + E_STEPS] > 0 and not c[B_OVF]
           and not c[B_XOVF] and not c[B_HOVF] and not c[x + E_FAULT]
           and c[B_GEN] < c[x + E_TARGET] and log_n < c[x + E_GROW]
-          and tail <= qlimit and not (disc and all(disc)))
+          and tail <= qlimit and not (disc and all(disc))
+          and not c[B_KOVF] and c[B_E_N] <= elimit)
     small = 0 < f_small and avail <= f_small
     f = f_small if small else f_large
     gate = [(1 if small else 2) if go else 0, head, min(avail, f),
@@ -612,6 +643,80 @@ def iteration_reference(model, carry: ChunkCarry, fmax: int) -> bool:
     return True
 
 
+class Staged(NamedTuple):
+    """A chunk's staged step (``fused=False``, sound): the
+    plans of its step sizes (``ops/staged.py`` ``staged_sizes``), the
+    queue rows one iteration needs past the tail, node keys or not, and
+    the edge log's rows (0: none)."""
+
+    plans: dict
+    qmargin: int
+    sound: bool = False
+    ecap: int = 0
+
+    @property
+    def f_small(self) -> int:
+        return self.plans[1].f if 1 in self.plans else 0
+
+    @property
+    def f_large(self) -> int:
+        return self.plans[2].f
+
+    @property
+    def elimit(self) -> int:
+        """The most ``e_n`` may be before an iteration (the JAX package's
+        ``e_n <= ecap - qmargin``)."""
+        return self.ecap - self.qmargin if self.ecap else I32_MAX
+
+
+def staged_iteration_reference(model, carry: ChunkCarry,
+                               staged: Staged) -> bool:
+    """One iteration of the staged chunk's plain version: when the gate
+    picks a step, K1's plain version (``expand_frontier``) over its rows,
+    then KS1, KS2, the insert and KS3's plain versions
+    (``ops/staged.py``), which leave the next gate, and K8's when the
+    carry has a history stage. Returns whether a step ran."""
+    from ..ops.fused import (S_DISC, S_OVF, S_ROUNDS, S_VALID, S_XOVF,
+                             stats_len)
+    from ..ops.staged import (predup_reference, prop_kinds, stage_reference,
+                              staged_append_reference)
+    x = carry.layout.ext + E_GATE
+    size, head, take = carry.ctr[x + G_SIZE:x + G_TAKE + 1].tolist()
+    if not size:
+        return False
+    plan = staged.plans[size]
+    f, w, a = plan.f, model.packed_width, model.max_actions
+    properties = model.properties()
+    block = carry.q[head:head + f]
+    fvalid = torch.arange(f, device=block.device) < take
+    exp = expand_frontier(model, block[:, :w], fvalid, block[:, w],
+                          eventually_indices(properties),
+                          pfp=(block[:, w + 1], block[:, w + 2]),
+                          symmetry=carry.symmetry)
+    stats = torch.zeros((stats_len(model),), dtype=torch.int32,
+                        device=block.device)
+    stats[S_VALID] = int(exp.cvalid.sum())
+    stats[S_XOVF] = int(bool(exp.xovf))
+    so = stage_reference(exp.cvalid, exp.pbits, exp.terminal, exp.ebits,
+                         block[:, w], block[:, w + 1], block[:, w + 2],
+                         take, plan, prop_kinds(properties), staged.sound)
+    stats[S_DISC:S_DISC + 3 * len(properties)] = so.disc
+    pd = predup_reference(so.src, so.rvalid, exp.chi, exp.clo, exp.ebits, a,
+                          plan, so.sctl, staged.sound)
+    inserted, t_ovf, rounds = table_insert_reference(
+        carry.table, pd.khi, pd.klo, pd.kvalid, with_rounds=True)
+    stats[S_OVF], stats[S_ROUNDS] = int(t_ovf), rounds
+    staged_append_reference(
+        carry.ctr, carry.layout, carry.q, carry.log, carry.elog, pd,
+        inserted, exp.flat, exp.ebits, exp.chi, exp.clo, exp.ohi, exp.olo,
+        so.pkey, stats, so.sctl, a, staged.sound, staged.f_small,
+        staged.f_large, carry.q.shape[0] - staged.qmargin, staged.elimit)
+    if carry.hist is not None:
+        history_step_reference(carry.ctr, carry.layout, carry.q,
+                               carry.hist)
+    return True
+
+
 # --- the chunk on the card -------------------------------------------------
 
 class CardChunk:
@@ -733,6 +838,108 @@ class CardChunk:
         self.graph.replay(steps)
 
 
+class StagedCard:
+    """The staged chunk on the card for one carry allocation, one
+    ``fmax`` and one :class:`Staged` (its plans): K1's buffers, the
+    staged buffers (``ops/staged.py``), the chunk's arguments and the
+    graph of one iteration — for each step size K1 alone, KS1, KS2 and
+    K4 (each gated on the size the gate picked), then KS3 (which leaves
+    the next gate) and K8 with a history stage — captured after one
+    launch of each with the gate shut."""
+
+    def __init__(self, model, carry: ChunkCarry, fmax: int, staged: Staged):
+        from ..ops import _cuda
+        from ..ops.fused import stats_len
+        from ..ops.staged import staged_buffers
+        dev = carry.q.device
+        a = model.max_actions
+        large = staged.plans[2]
+        sms = _cuda.sm_count(dev)
+        tiles = max(_cuda.tile_geometry(p.f, a, sms).blocks
+                     for p in staged.plans.values())
+        self.bufs = _cuda.step_buffers(model, large.f, stats_len(model),
+                                       carry.symmetry, dev, tiles)
+        self.sb = staged_buffers(large, dev)
+        lay = carry.layout
+        self.args = _cuda.staged_args(
+            ctr=carry.ctr, stats=self.bufs["stats"], bufs=self.bufs,
+            sb=self.sb, q=carry.q, log=carry.log, elog=carry.elog,
+            plans=staged.plans, qlimit=carry.q.shape[0] - staged.qmargin,
+            elimit=staged.elimit, model=model, layout=lay,
+            sound=staged.sound)
+        self.begin_args = _cuda.chunk_begin_args(
+            ctr=carry.ctr, stats=self.bufs["stats"],
+            qlimit=carry.q.shape[0] - staged.qmargin, n_props=lay.P, f_small=staged.f_small, f_large=staged.f_large,
+            ext=lay.ext, cch=lay.cch)
+        self.device, self.fmax, self.staged = dev, fmax, staged
+        self._model = model
+        self._carry_bufs = (carry.q, carry.table, carry.ws, carry.symmetry)
+        self._gate_ptr = carry.ctr[lay.ext + E_GATE:].data_ptr()
+        self.hist = carry.hist
+        self.hargs = self.hscratch = self.window = None
+        if carry.hist is not None:
+            self.hscratch = _cuda.history_scratch(large.kfin, dev)
+            self.hargs = _cuda.history_chunk_args(carry.ctr, lay.ext, carry.q,
+                                                  carry.hist, self.hscratch)
+            self.window = torch.zeros((HIST_WINDOW, lay.W + 2),
+                                      dtype=torch.int32, device=dev)
+        self._q, self._log, self._ctr = carry.q, carry.log, carry.ctr
+        t0 = time.perf_counter()
+        self.begin(0, 0, 0, 0)  # the gate shut: every kernel loads once
+        self._record()
+        torch.cuda.synchronize(dev)
+        self.graph = _cuda.ChunkGraph(self._record, dev)
+        torch.cuda.synchronize(dev)
+        self.capture_s = time.perf_counter() - t0
+
+    def begin(self, steps: int, target: int, grow_limit: int,
+              tag: int) -> None:
+        from ..ops import _cuda
+        _cuda.chunk_begin(self.begin_args, self.device, steps, target,
+                          grow_limit, tag, self.staged.elimit)
+
+    def launch_size(self, size: int) -> None:
+        """K1, KS1, KS2 and K4 of step size ``size``, gated."""
+        from ..ops import _cuda
+        from ..ops.fused import stats_len
+        from ..ops.staged import pre_dedup_arena_cells
+        model = self._model
+        q, table, ws, symmetry = self._carry_bufs
+        plan = self.staged.plans[size]
+        w, f = model.packed_width, plan.f
+        _cuda.expand_step(model, q[:f, :w], q[:f, w], None, q[:f, w + 1],
+                          q[:f, w + 2], ws, stats_len(model), symmetry,
+                          bufs=self.bufs, gate=self._gate_ptr,
+                          gate_size=size)
+        _cuda.stage(self.args, self.device, size)
+        _cuda.predup(self.args, self.device, size,
+                     pre_dedup_arena_cells(plan.kraw))
+        sb, k = self.sb, plan.kfin
+        _cuda.staged_insert(table, sb.khi[:k], sb.klo[:k], sb.kvalid[:k],
+                            sb.inserted[:k], self.bufs["stats"], ws,
+                            self._gate_ptr, size)
+
+    def _record(self) -> None:
+        from ..ops import _cuda
+        for size in sorted(self.staged.plans):
+            self.launch_size(size)
+        _cuda.staged_append(self.args, self.device)
+        if self.hist is not None:
+            _cuda.history(self.hargs, self.device)
+
+    def pull_window(self, h_base: int, n_init: int) -> None:
+        """K9 (as :meth:`CardChunk.pull_window`)."""
+        from ..ops import _cuda
+        _cuda.hpull(self._q, self.hist.hidx, self._log, h_base, n_init,
+                    self.window, h_n=self._ctr[B_H_N:B_H_N + 1])
+
+    def run(self, steps: int, target: int, grow_limit: int,
+            tag: int) -> None:
+        """One chunk: its start, then ``steps`` replays of the graph."""
+        self.begin(steps, target, grow_limit, tag)
+        self.graph.replay(steps)
+
+
 class PendingChunk:
     """A dispatched chunk: :meth:`read` returns its counter block (numpy
     int32), waiting for the card when it has to, and adds the chunk to
@@ -777,17 +984,23 @@ class PendingChunk:
 
 
 class ChunkRunner:
-    """Runs chunks over one carry at ``fmax`` rows per large step. On the
-    card each chunk is one ``chunk_begin`` launch, ``steps`` replays of
-    the iteration graph (captured on first use and again after
-    :meth:`invalidate`) and one copy of the counter block into one of two
-    pinned host buffers, with an event; on the CPU the plain versions run
-    at dispatch, and stop early once ``cancelled()`` holds (checked
-    before each iteration). ``stats`` gathers the profile."""
+    """Runs chunks over one carry at ``fmax`` rows per large step, the
+    fused step's or with ``staged`` (a :class:`Staged`) the staged one's.
+    On the card each chunk is one start launch (``chunk_begin``),
+    ``steps`` replays of the iteration graph (captured
+    on first use and again after :meth:`invalidate`) and one copy of the
+    counter block into one of two pinned host buffers, with an event; on
+    the CPU the plain versions run at dispatch, and stop early once
+    ``cancelled()`` holds (checked before each iteration). ``stats``
+    gathers the profile."""
 
     def __init__(self, model, carry: ChunkCarry, fmax: int,
-                 stats: Optional[LoopStats] = None, cancelled=None):
+                 stats: Optional[LoopStats] = None, cancelled=None,
+                 staged: Optional[Staged] = None):
         self.model, self.carry, self.fmax = model, carry, fmax
+        #: the staged step's plans (None: the fused step); a new value
+        #: (a kovf rebuild, a grown edge log) needs :meth:`invalidate`
+        self.staged = staged
         self.stats = stats if stats is not None else LoopStats()
         self._cancelled = cancelled or (lambda: False)
         self._tag = 0   # the CPU path's tags (the card's: carry.ws.step)
@@ -809,13 +1022,18 @@ class ChunkRunner:
         stage was (grown or dropped): recapture."""
         self.carry.card = None
 
-    def card(self) -> CardChunk:
-        """The carry's chunk on the card at this ``fmax``, captured now
-        if the carry has none."""
+    def card(self):
+        """The carry's chunk on the card at this ``fmax`` (a
+        :class:`CardChunk`, or a :class:`StagedCard` for a staged
+        runner), captured now if the carry has none."""
         card = self.carry.card
         if card is None or card.fmax != self.fmax:
-            card = self.carry.card = CardChunk(self.model, self.carry,
-                                               self.fmax)
+            if self.staged is not None:
+                card = StagedCard(self.model, self.carry, self.fmax,
+                                  self.staged)
+            else:
+                card = CardChunk(self.model, self.carry, self.fmax)
+            self.carry.card = card
             self.stats.capture_s += card.capture_s
             self.stats.captures += 1
         return card
@@ -840,15 +1058,25 @@ class ChunkRunner:
             tag = self._tag + 1
             self._tag += steps
         if not carry.q.is_cuda:
-            f_small, f_large, qmargin = step_sizes(self.model, self.fmax)
+            staged = self.staged
+            if staged is not None:
+                f_small, f_large = staged.f_small, staged.f_large
+                qmargin, elimit = staged.qmargin, staged.elimit
+            else:
+                f_small, f_large, qmargin = step_sizes(self.model,
+                                                       self.fmax)
+                elimit = I32_MAX
             chunk_begin_reference(carry.ctr, carry.layout, steps, target,
                                   grow_limit, tag, f_small, f_large,
-                                  carry.q.shape[0] - qmargin)
+                                  carry.q.shape[0] - qmargin, elimit=elimit)
             for _ in range(steps):
-                if (self._cancelled()
-                        or not iteration_reference(self.model, carry,
-                                                   self.fmax)):
-                    break  # cancelled, or the condition stays false
+                if self._cancelled():
+                    break
+                if not (staged_iteration_reference(self.model, carry, staged)
+                        if staged is not None
+                        else iteration_reference(self.model, carry,
+                                                 self.fmax)):
+                    break  # the condition stays false
             c = carry.counters()
             window = None
             if carry.hist is not None:

@@ -42,6 +42,23 @@ The engine runs on its own thread (``HostChecker``), on the engine's
 device, and stops at the next chunk boundary — on the CPU at the next
 iteration — once ``cancel()`` is called: the race retires its loser so.
 
+``sound_eventually()`` runs the staged step instead (the JAX package's
+``fused=False`` branch, ``device_loop.py`` :class:`Staged`), which it
+needs for its node keys and cross-edge log; ``gpu_options(fused=False)``
+chooses it for any configuration, so that the BASELINE workload
+(``paxos check 3``, which the JAX package keeps staged: it has
+host-evaluated properties) runs as the JAX package runs it, to its
+record. The staged step has the candidate buffers ``kraw``/``kmax``
+(``candidate_sizes``) and the ``kovf`` protocol — an
+iteration whose lanes overflow a buffer commits nothing, and the host
+rebuilds the chunk with buffers sized from the observed maxima
+(``handle_kovf``). Under ``sound_eventually()`` dedup works on (state,
+pending eventually-bits) node keys, the log's extra columns map each
+node key to its state's fingerprint (``_orig_of``), the edge log takes
+the cross edges (grown by the host when it fills), and at exhaustion the
+lasso sweep (``checker/lasso.py``) over the insert and cross edges
+reports the cycles on which an ``eventually`` property never holds.
+
 What the JAX engine offers beyond that path is not ported yet and raises
 ``NotImplementedError`` naming the reason; nothing is silently ignored.
 """
@@ -57,16 +74,19 @@ from typing import Dict, List
 import numpy as np
 import torch
 
+from ..fingerprint import fp64_node
 from ..ops.expand import eventually_indices
 from ..ops.fused import CC_DEFAULT, StepWorkspace, supports
 from ..ops.hashtable import table_insert
+from ..ops.staged import staged_sizes
 from ..ops.words import from_numpy_u32, to_numpy_u32
 from .builder import CheckerBuilder
 from ..core import Expectation
-from .device_loop import (B_DISC, B_GEN, B_H_N, B_HOVF, B_LOG_N, B_OVF,
-                          B_Q_HEAD, B_Q_TAIL, B_XOVF, E_FAULT, HIST_WINDOW,
-                          I32_MAX, ChunkRunner, LoopStats, disc_registers,
-                          history_regrow, history_rescan,
+from .device_loop import (B_DISC, B_DMAX, B_E_N, B_GEN, B_H_N, B_HOVF,
+                          B_KOVF, B_LOG_N, B_OVF, B_Q_HEAD, B_Q_TAIL,
+                          B_VMAX, B_XOVF, E_FAULT, HIST_WINDOW,
+                          I32_MAX, ChunkRunner, LoopStats, Staged,
+                          disc_registers, history_regrow, history_rescan,
                           pull_representatives, seed_carry, step_sizes)
 from .host import HostChecker
 
@@ -79,16 +99,18 @@ class EncodingOverflow(RuntimeError):
 
 #: tpu_options keys of the JAX engine, accepted only at the value that
 #: is this engine's behaviour
-_FIXED = {"fused": True}
+_FIXED: dict = {}
 
 _NOT_PORTED = {
     "pipeline": "the sharded engine's loop is a host loop with no chunk "
                 "pipeline — drop pipeline or pass pipeline=False",
-    "fused": "the staged (unfused) path and the fused='auto' fallback "
-             "are not ported: the step always runs the CUDA kernel (its "
-             "plain version on the CPU)",
+    "fused": "fused='auto' (the JAX package's build-probe fallback) is "
+             "not ported: pass fused=True (the fused step, the default) "
+             "or fused=False (the staged step)",
     "mode": "the per-level engine (mode='level') is not ported",
-    "hint": "the per-row staged compaction (hint=) is not ported",
+    "hint": "the per-row staged compaction (hint=) is not ported: no "
+            "workload needs it, and the staged step packs tighter without "
+            "it (its kraw/kmax buffers grow on overflow)",
     "host_map": "fleet host labels (cluster/mesh.py) are not ported",
 }
 for _key in ("retries", "backoff", "chunk_deadline", "retry_seed",
@@ -100,9 +122,13 @@ for _key in ("retries", "backoff", "chunk_deadline", "retry_seed",
         "the resilience layer (retry, the degrade/promote ladder, spill, "
         "audit, the host shadow, autosave and the race's failover rung) "
         "is not ported (ROADMAP A11)")
-for _key in ("mesh_axis", "exchange", "kb", "kraw", "kmax"):
+for _key in ("mesh_axis", "exchange", "kb"):
     _NOT_PORTED[_key] = ("a knob of the sharded engine: pass "
                          "gpu_options(mesh=<DeviceMesh>) as well")
+for _key in ("kraw", "kmax"):
+    _NOT_PORTED[_key] = ("a candidate buffer of the sharded engine and "
+                         "of the staged step: pass gpu_options(mesh="
+                         "<DeviceMesh>) or fused=False as well")
 
 
 def model_tag(model) -> str:
@@ -133,17 +159,19 @@ def auto_fmax(model, shards: int = 1) -> int:
         target // (model.max_actions * model.packed_width * shards)))
 
 
-def candidate_sizes(model, fmax: int, opts: dict) -> "tuple":
-    """``(kraw, kmax)`` of the sharded step: the static defaults
-    (``ops/expand.py``) or the explicit ``kraw``/``kmax`` options, each
-    clamped (``kraw <= F*A``, ``kmax <= kraw``). The JAX package also
-    tightens the defaults from sizes earlier runs in the process
-    observed; the port does not, so its defaults never move between
-    runs."""
+def candidate_sizes(model, fmax: int, opts: dict,
+                    sound: bool = False) -> "tuple":
+    """``(kraw, kmax)`` of the sharded step and of the staged one: the
+    static defaults (``ops/expand.py``; under ``sound`` ``kmax`` is the
+    raw width) or the explicit ``kraw``/``kmax`` options, each clamped
+    (``kraw <= F*A``, ``kmax <= kraw``). The JAX package also tightens
+    the defaults from sizes earlier runs in the process observed; the
+    port does not, so its defaults never move between runs."""
     from ..ops.expand import kfinal_default, kmax_default
     fa = fmax * model.max_actions
-    kraw = min(int(opts.get("kraw", kmax_default(model, fmax))), fa)
-    kmax = min(int(opts.get("kmax", kfinal_default(model, fmax))), kraw)
+    kraw = min(int(opts.get("kraw", kmax_default(model, fmax, sound))), fa)
+    kmax = min(int(opts.get("kmax", kfinal_default(model, fmax, sound))),
+               kraw)
     return kraw, kmax
 
 
@@ -158,6 +186,8 @@ class GpuChecker(HostChecker):
     _OPTIONS = ("capacity", "fmax", "cc_dedup", "chunk_steps", "grow_at",
                 "device", "pipeline", "race", "race_budget", "resumable",
                 "hcap", "hmax")
+    #: the staged step's own keys (``fused=False``, sound)
+    _STAGED_OPTIONS = ("kraw", "kmax")
     #: tpu_options keys accepted only at the value that is the engine's
     _FIXED = _FIXED
 
@@ -174,8 +204,24 @@ class GpuChecker(HostChecker):
                     " see stateright_tpu_torch.models.packed.PackedModel")
         super().__init__(builder)
         opts = dict(builder.gpu_options_)
+        # sound-eventually mode: node-keyed dedup, only with an eventually
+        # property to be sound about (the JAX package's rule)
+        ev_idx = eventually_indices(self._properties)
+        self._sound = bool(builder.sound_eventually_) and bool(ev_idx)
+        fused = opts.get("fused", None)
+        if fused not in (None, True, False):
+            raise NotImplementedError(
+                f"gpu_options(fused={fused!r}): " + _NOT_PORTED["fused"])
+        reason = supports(model, sound=self._sound)
+        if fused is True and reason is not None:
+            raise ValueError("gpu_options(fused=True) is unsupported for "
+                             f"this configuration: {reason}")
+        #: the staged step (the JAX package's fused=False branch)
+        self._staged = fused is False or reason is not None
         for key, value in opts.items():
-            if key in self._OPTIONS:
+            if key in self._OPTIONS or key == "fused":
+                continue
+            if key in self._STAGED_OPTIONS and self._staged:
                 continue
             if key == "mode" and value in ("auto", "device"):
                 continue
@@ -184,11 +230,10 @@ class GpuChecker(HostChecker):
             raise NotImplementedError(
                 f"gpu_options({key}={value!r}): "
                 + _NOT_PORTED.get(key, "not ported to stateright_tpu_torch"))
-        reason = supports(model, sound=builder.sound_eventually_)
-        if reason is not None:
-            raise NotImplementedError(reason)
         self._symmetry_fn = builder.symmetry_fn_
         self._symmetry = builder.symmetry_fn_ is not None
+        if self._sound:
+            self._check_sound(builder, ev_idx, opts)
         # host-evaluated properties (e.g. the linearizability search):
         # evaluated on the host once per distinct history, memoised by
         # model.host_property_key(row)
@@ -255,6 +300,32 @@ class GpuChecker(HostChecker):
         #: enqueued, kept on the device with the checker (coverage
         #: diagnostics read them)
         self._queue = None
+
+    def _check_sound(self, builder, ev_idx, opts) -> None:
+        """The JAX package's guards of ``sound_eventually()`` (its
+        ``TpuChecker.__init__``) and the combinations this slice of the
+        port leaves out, each naming its ROADMAP item."""
+        if max(ev_idx) > 31:
+            raise NotImplementedError(
+                "sound_eventually() supports eventually-property indices "
+                "0..31")
+        if getattr(self._model, "host_property_indices", ()):
+            raise NotImplementedError(
+                "sound_eventually() with host-evaluated properties is not "
+                "supported on the GPU engine (nor on the JAX package's): "
+                "node-key dedup and the history stage's state keys cannot "
+                "share one table")
+        if opts.get("resumable") or builder.resume_path_ is not None:
+            raise NotImplementedError(
+                "sound_eventually() checkpoints (gpu_options(resumable="
+                "True), resume_from) are not ported (ROADMAP A11: sound "
+                "checkpoints and resume)")
+        if (self._symmetry and torch.device(opts.get("device", "cuda")).type
+                == "cuda"):
+            raise NotImplementedError(
+                "sound_eventually() under symmetry reduction on the card is "
+                "not ported (ROADMAP A11: sound under symmetry on the "
+                "card); pass gpu_options(device=\"cpu\")")
 
     def _resolve_host_fns(self, fns) -> "Optional[list]":
         """``model.host_property_fns`` in ``_host_props`` order: a dict
@@ -446,13 +517,20 @@ class GpuChecker(HostChecker):
         if self._symmetry:
             self._check_symmetry_fn(init_states)
         rows = []
+        # under sound the dedup keys are node keys (the state's canonical
+        # fingerprint and every eventually bit pending) and the queue
+        # caches the state fingerprints they are derived from
+        full = sum(1 << i for i in eventually_indices(self._properties))
+        self._seed_cache_fps = []
         for s in init_states:
             fp = self._canon_fp(s)
-            if fp not in self._generated:
-                self._generated[fp] = None
-                if self._symmetry:
-                    self._orig_of[fp] = model.fingerprint(s)
+            key = fp64_node(fp, full) if self._sound else fp
+            if key not in self._generated:
+                self._generated[key] = None
+                if self._symmetry or self._sound:
+                    self._orig_of[key] = model.fingerprint(s)
                 rows.append(model.encode(s))
+                self._seed_cache_fps.append(fp)
         self._unique_state_count = len(self._generated)
         return rows
 
@@ -561,7 +639,7 @@ class GpuChecker(HostChecker):
                 discoveries)
         else:
             init_rows = self._seed_inits()
-            seed_ebits, seed_fps = full_ebits, list(self._generated)
+            seed_ebits, seed_fps = full_ebits, self._seed_cache_fps
         n_init = len(init_rows)
         # everything known at seed time is re-inserted on growth (the
         # log only records states found since)
@@ -580,17 +658,35 @@ class GpuChecker(HostChecker):
         while self._grow_at * self._capacity <= headroom + preload:
             self._capacity *= 4
         qcap = self._device_qcap(n_init, headroom)
+        # the staged step's buffers (the JAX package's kraw/kmax) and,
+        # under sound, the edge log, grown on demand
+        fa = fmax * model.max_actions
+        kraw, kmax = candidate_sizes(model, fmax, opts, self._sound)
+        ecap = self._capacity if self._sound else 0
+
+        def staged_plan():
+            plans, margin = staged_sizes(model, fmax, kraw, kmax)
+            return Staged(plans, margin, self._sound, ecap)
+
+        staged = staged_plan() if self._staged else None
+        if staged is not None:
+            prof.update(staged=True, kraw=kraw, kmax=kmax, kovfs=0,
+                        egrows=0)
         carry = seed_carry(model, qcap, self._capacity, init_rows,
-                           seed_ebits, seed_fps, self._cc, self._device,
-                           symmetry=self._symmetry,
+                           seed_ebits, seed_fps,
+                           0 if staged is not None else self._cc,
+                           self._device, symmetry=self._symmetry,
                            hcap=(self._hcap if self._want_reps(discoveries)
-                                 else 0))
+                                 else 0), sound=self._sound, ecap=ecap)
         self._hscan_tail = n_init
         self._insert_keys(carry.table, self._base_fps)
         prof["seed_s"] = time.perf_counter() - t_start
         runner = ChunkRunner(model, carry, fmax, stats,
-                             cancelled=self._cancel_event.is_set)
-        qmargin = step_sizes(model, fmax)[2]
+                             cancelled=self._cancel_event.is_set,
+                             staged=staged)
+        qmargin = (staged.qmargin if staged is not None
+                   else step_sizes(model, fmax)[2])
+        kovf_pend = [0, 0]  # vmax, dmax of the kovf chunks
         target = self._target_state_count
         inflight: deque = deque()
         last = None  # the newest counter block read
@@ -640,6 +736,12 @@ class GpuChecker(HostChecker):
                     "gpu_options(capacity=...)")
             acts = set()
             q_tail, log_n = int(c[B_Q_TAIL]), int(c[B_LOG_N])
+            if c[B_KOVF]:
+                # an iteration overflowed a candidate buffer and committed
+                # nothing: rebuild with larger ones, then go on
+                kovf_pend[0] = max(kovf_pend[0], int(c[B_VMAX]))
+                kovf_pend[1] = max(kovf_pend[1], int(c[B_DMAX]))
+                acts.add("kovf")
             window = pending.window()
             if window is not None:
                 h_n, hovf = int(c[B_H_N]), bool(c[B_HOVF])
@@ -653,14 +755,57 @@ class GpuChecker(HostChecker):
                     hgrow_pend["h_n"] = max(hgrow_pend["h_n"], h_n)
                 else:
                     self._hscan_tail = q_tail
+            if "kovf" in acts:
+                return acts
             if (q_tail == c[B_Q_HEAD] or all(found())
                     or (target is not None and self._state_count >= target)
                     or self._cancel_event.is_set()):
                 acts.add("done")
+            elif ecap and int(c[B_E_N]) >= ecap - max(kmax, fmax):
+                acts.add("egrow")
             elif (log_n >= grow_limit
                   or q_tail > carry.q.shape[0] - qmargin):
                 acts.add("grow")
             return acts
+
+        def handle_kovf() -> None:
+            """The JAX package's ``handle_kovf``: each overflowed stage
+            resized to the observed branching (at least doubled), the
+            chunk rebuilt (a new graph on the card), ``kovf`` cleared."""
+            nonlocal kraw, kmax
+            vmax, dmax = kovf_pend
+            before = (kraw, kmax)
+            grew = False
+            if vmax > kraw:
+                kraw = min(max(kraw * 2, -(-(vmax + vmax // 4) // 256) * 256),
+                           fa)
+                grew = True
+            if dmax > kmax or not grew:
+                kmax = min(max(kmax * 2, -(-(dmax + dmax // 4) // 256) * 256),
+                           kraw)
+            kmax = min(kmax, kraw)
+            if (kraw, kmax) == before:
+                raise RuntimeError(
+                    "candidate-buffer overflow (kovf) wedged at "
+                    f"kraw={kraw} kmax={kmax} (observed vmax={vmax} "
+                    f"dmax={dmax})")
+            kovf_pend[:] = [0, 0]
+            prof["kovfs"] += 1
+            prof.update(kraw=kraw, kmax=kmax)
+            runner.staged = staged_plan()
+            runner.invalidate()
+            carry.ctr[B_KOVF] = 0
+
+        def handle_egrow() -> None:
+            """The edge log full: quadrupled, the chunk rebuilt."""
+            nonlocal ecap
+            elog = torch.zeros((ecap * 4, 4), dtype=torch.int32,
+                               device=carry.elog.device)
+            elog[:ecap] = carry.elog
+            carry.elog, ecap = elog, ecap * 4
+            prof["egrows"] += 1
+            runner.staged = staged_plan()
+            runner.invalidate()
 
         hgrow_pend = {"hovf": False, "h_n": 0}
 
@@ -694,9 +839,15 @@ class GpuChecker(HostChecker):
                                    n_init, discoveries)
                 hgrow_pend.update(hovf=False, h_n=0)
                 runner.invalidate()
+            if "kovf" in acts:
+                handle_kovf()
+                dispatch()
+                continue
             if "done" in acts or all(found()):
                 break
-            if "grow" in acts:
+            if "egrow" in acts:
+                handle_egrow()
+            elif "grow" in acts:
                 self._grow_device(carry, n_init, headroom)
                 runner.invalidate()
                 prof["grows"] += 1
@@ -708,6 +859,17 @@ class GpuChecker(HostChecker):
         for i, prop in enumerate(properties):
             if hit[i] and i not in host_idx and prop.name not in discoveries:
                 discoveries[prop.name] = int(fps[i])
+        if (self._sound and int(last[B_Q_TAIL]) == int(last[B_Q_HEAD])
+                and not self._symmetry and not self._cancel_event.is_set()):
+            # exhaustion under sound: the lasso sweep over the node graph
+            # of the insert and cross edges (not under symmetry: a
+            # cross-branch witness cannot replay through concrete orbit
+            # members, as the JAX package's engines rule)
+            t0 = time.perf_counter()
+            self._device_lasso_sweep(carry, log_n, int(last[B_E_N]), n_init,
+                                     full_ebits, discoveries)
+            prof.update(lasso_s=time.perf_counter() - t0,
+                        e_n=int(last[B_E_N]))
         self._discovery_fps.update(discoveries)
         if opts.get("resumable"):
             # the pending frontier, pulled now so save() needs no device
@@ -733,9 +895,37 @@ class GpuChecker(HostChecker):
             h_n=int(carry.ctr[B_H_N]), histories=len(self._host_prop_cache),
             iterations=stats.iterations,
             small_iterations=stats.small_iterations,
-            vmax=stats.vmax, dmax=stats.dmax, cc_dedup_hits=stats.cch,
+            vmax=stats.vmax, dmax=stats.dmax,
+            cc_dedup_hits=stats.cch,
             probe_rounds=stats.rounds, predup_hits=stats.pdh,
             wall_s=time.perf_counter() - t_start)
+
+    def _device_lasso_sweep(self, carry, log_n: int, e_n: int, n_init: int,
+                            full_mask: int, discoveries: Dict) -> None:
+        """The JAX package's ``_device_lasso_sweep``: the (state, pending
+        bits) node graph rebuilt from the device's logs — the insert
+        edges of the log, each node's pending mask from its queue row's
+        at-enqueue eventually-bits (queue row ``n_init + i`` is log row
+        ``i``'s), the cross edges of the edge log — and the shared SCC
+        sweep (``checker/lasso.py``), whose witnesses land in
+        ``discoveries`` as fingerprint paths (stem and one lap)."""
+        from .lasso import add_log_block, add_seed_nodes, lasso_sweep
+        w = self._model.packed_width
+        node_fp: Dict[int, int] = {}
+        node_parent: Dict[int, tuple] = {}
+        node_mask: Dict[int, int] = {}
+        node_edges: Dict[int, list] = {}
+        add_seed_nodes(node_fp, node_parent, node_mask, self._base_fps,
+                       self._orig_of, full_mask)
+        add_log_block(node_fp, node_parent, node_mask, node_edges,
+                      to_numpy_u32(carry.log[:log_n]),
+                      to_numpy_u32(carry.q[n_init:n_init + log_n, w]),
+                      to_numpy_u32(carry.elog[:e_n]))
+        lasso_sweep(self._properties, discoveries, node_edges, node_mask,
+                    node_parent, node_fp)
+        self._profile.update(lasso_nodes=len(node_mask),
+                             lasso_edges=sum(len(v)
+                                             for v in node_edges.values()))
 
     # --- checkpoints ----------------------------------------------------
     def save(self, path) -> None:
@@ -854,7 +1044,10 @@ class GpuChecker(HostChecker):
                 "checkpoint dedup-key semantics do not match this run: "
                 f"saved symmetry={meta.get('symmetry')} "
                 f"sound={meta.get('sound')}, resuming "
-                f"symmetry={self._symmetry} sound=False")
+                f"symmetry={self._symmetry} sound=False"
+                + (" (resuming a sound_eventually() checkpoint is not "
+                   "ported: ROADMAP A11, sound checkpoints and resume)"
+                   if meta.get("sound") else ""))
         parent = [None if p == 0 else p for p in data["parent"].tolist()]
         self._generated.update(zip(data["child"].tolist(), parent))
         if "okeys" in data:
@@ -893,8 +1086,11 @@ class GpuChecker(HostChecker):
 
     def generated_fingerprints(self) -> set:
         """The visited fingerprints: the canonical keys under symmetry
-        reduction (as the JAX package's engines answer)."""
+        reduction (as the JAX package's engines answer); under sound the
+        node keys translated to their states' fingerprints."""
         self._ensure_mirror()
+        if self._sound:
+            return {self._orig_of.get(k, k) for k in self._generated}
         return super().generated_fingerprints()
 
     def _reconstruct_path(self, fp: int):

@@ -6,8 +6,9 @@ reconstruction from the fingerprint -> parent mirror (translated
 through ``_orig_of`` under symmetry reduction), and the run itself on
 one background thread started lazily — at the first ``join()`` or
 ``report()`` — with a cooperative ``cancel()`` (the race stops its loser
-with it). The JAX package's trace, flight recorder, ``StepDriver``,
-pause and profiler plumbing is not ported.
+with it), and the host engines' sound-eventually node keys
+(``_init_sound``). The JAX package's trace, flight recorder,
+``StepDriver``, pause and profiler plumbing is not ported.
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ import threading
 from typing import Dict, Optional
 
 from ..core import Expectation, Model
+from ..fingerprint import fp64_node
 from .builder import Checker, CheckerBuilder
 from .path import Path
 
@@ -99,6 +101,35 @@ class HostChecker(Checker):
             i for i, p in enumerate(self._properties)
             if p.expectation == Expectation.EVENTUALLY)
 
+    # --- sound_eventually() on the host engines (BFS, DFS) ---------------
+    def _init_sound(self, builder: CheckerBuilder, ebits) -> None:
+        """Node-keyed dedup: with ``sound_eventually()`` and at least one
+        ``eventually`` property, keys combine the state fingerprint with
+        the pending eventually-bits (``fingerprint.fp64_node``);
+        ``_node_fp`` translates a key back to its state fingerprint."""
+        self._sound = bool(builder.sound_eventually_) and bool(ebits)
+        if self._sound:
+            if max(ebits) > 31:
+                # fp64_node hashes a 32-bit mask; truncating it would
+                # bring back the miss this mode removes
+                raise NotImplementedError(
+                    "sound_eventually() supports eventually-property "
+                    "indices 0..31")
+            self._node_fp: Dict[int, int] = {}
+
+    def _ebits_mask(self, ebits) -> int:
+        """The bitmask of an ebits set (0 when sound mode is off)."""
+        if not self._sound:
+            return 0
+        return sum(1 << i for i in ebits)
+
+    def _node_key(self, fp: int, ebits_mask: int) -> int:
+        if not self._sound:
+            return fp
+        key = fp64_node(fp, ebits_mask)
+        self._node_fp[key] = fp
+        return key
+
     # --- Checker interface ----------------------------------------------
     def model(self) -> Model:
         return self._model
@@ -113,7 +144,12 @@ class HostChecker(Checker):
         return dict(self._profile)
 
     def generated_fingerprints(self) -> set:
-        return set(self._generated)
+        """The visited state fingerprints (a sound run's node keys
+        translated to their states')."""
+        node_fp = getattr(self, "_node_fp", None)
+        if node_fp is None:
+            return set(self._generated)
+        return {node_fp.get(k, k) for k in self._generated}
 
     def _reconstruct_path(self, fp: int) -> Path:
         """Walk parent pointers to an init state, then replay forward
@@ -121,11 +157,15 @@ class HostChecker(Checker):
         Under symmetry reduction the chain is canonical; each node is
         translated to its original state's fingerprint, so the replay
         follows the concrete states the search explored (the DFS
-        engine's enqueue-original rule, ``dfs.rs:260-285``)."""
+        engine's enqueue-original rule, ``dfs.rs:260-285``); a sound
+        run's node keys are translated to their states' fingerprints
+        alike (``_node_fp`` on the host engines, ``_orig_of`` on the GPU
+        engine)."""
+        node_fp = getattr(self, "_node_fp", None) or self._orig_of
         fingerprints = []
         next_fp = fp
         while next_fp in self._generated:
-            fingerprints.append(self._orig_of.get(next_fp, next_fp))
+            fingerprints.append(node_fp.get(next_fp, next_fp))
             parent = self._generated[next_fp]
             if parent is None:
                 break
@@ -133,16 +173,17 @@ class HostChecker(Checker):
         return Path.from_fingerprints(self._model, fingerprints[::-1])
 
     def discoveries(self) -> Dict[str, Path]:
-        return {name: self._reconstruct_path(fp)
+        # a list-valued discovery is an explicit fingerprint path (a lasso
+        # witness: stem and one lap of the cycle, not a parent chain)
+        return {name: (Path.from_fingerprints(self._model, fp)
+                       if isinstance(fp, (list, tuple))
+                       else self._reconstruct_path(fp))
                 for name, fp in list(self._discovery_fps.items())}
 
 
 def refuse_unported(builder: CheckerBuilder) -> None:
-    """The host engines' guard: a visitor or ``sound_eventually()`` the
-    engine would silently ignore raises instead."""
+    """The host engines' guard: a visitor the engine would silently
+    ignore raises instead."""
     if builder.visitor_ is not None:
         raise NotImplementedError(
             "checker visitors are not ported (ROADMAP A14)")
-    if builder.sound_eventually_:
-        raise NotImplementedError(
-            "sound_eventually() is not ported (ROADMAP A11)")

@@ -5,21 +5,23 @@
 // Replaces what the JAX package's chunk program computes around its step
 // kernel in XLA (no pallas_call), stateright_tpu/checker/device_loop.py:
 //   * the loop condition make_cond (:352), evaluated on the device once
-//     per iteration (eval_gate: at the end of chunk_begin_kernel for a
-//     chunk's first iteration, in K7's tail for every next one);
+//     per iteration (step_common.cuh write_gate: at the end of
+//     chunk_begin_kernel for a chunk's first iteration, in K7's tail for
+//     every next one; the staged chunk's KS3, staged.cu, in its tail);
 //   * after the step kernel (:673-719): the ordered compaction of the
 //     fresh lanes (shrink_indices, :140), the candidate rows
 //     (assemble_candidates, stateright_tpu/ops/expand.py:153), the queue
 //     and log appends (the two dynamic_update_slices, :696-701) and the
 //     carry update (:702-719) (K7: append_kernel);
 //   * the dispatch's carry reset (stateright_tpu/checker/tpu.py:1377)
-//     (chunk_begin_kernel).
+//     (chunk_begin_kernel, the fused chunk's and the staged chunk's).
 // Built with nvcc for sm_90a into its own shared library with a plain C
 // interface and driven over ctypes by stateright_tpu_torch/ops/_cuda.py;
 // the graph is captured by stateright_tpu_torch/checker/device_loop.py.
 //
-// The counter block (int32 ctr, checker/device_loop.py CtrLayout): the
-// JAX package's base_stats layout [q_head, q_tail, log_n, gen, ovf, xovf,
+// The counter block (int32 ctr, checker/device_loop.py CtrLayout;
+// step_common.cuh B_*, E_*): the JAX package's base_stats layout
+// [q_head, q_tail, log_n, gen, ovf, xovf,
 // kovf, h_n, hovf, vmax, dmax, rmax, e_n, pdh, prb, disc_hit[P],
 // disc_hi[P], disc_lo[P], the most recent queue row (W + 3), cch], then
 // the port's own fields from ctr + ext (E_*): the steps left in the
@@ -96,35 +98,6 @@
 
 namespace {
 
-// the base_stats fields of the counter block (checker/device_loop.py B_*)
-enum Base {
-  B_Q_HEAD = 0,
-  B_Q_TAIL = 1,
-  B_LOG_N = 2,
-  B_GEN = 3,
-  B_OVF = 4,
-  B_XOVF = 5,
-  B_H_N = 7,
-  B_HOVF = 8,
-  B_VMAX = 9,
-  B_DMAX = 10,
-  B_PDH = 13,
-  B_PRB = 14,
-  B_DISC = 15,
-};
-
-// the port's fields from ctr + ext (checker/device_loop.py E_*)
-enum Extra {
-  E_STEPS = 0,
-  E_FAULT = 1,
-  E_TAG = 2,
-  E_ITERS = 3,
-  E_SMALL = 4,
-  E_TARGET = 5,
-  E_GROW = 6,
-  E_GATE = 7,
-};
-
 // K7's blocks: 256 threads, each over 4 or 16 consecutive lanes
 // (ChunkArgs.tile_lanes: a tile of 1,024 or 4,096 lanes), or for rows
 // wider than that block 128 threads of one lane each (a tile of 128
@@ -139,11 +112,6 @@ constexpr int kRowsInFlight = 2;
 constexpr int kBatch = 8;
 // threads of chunk_begin_kernel
 constexpr int kBeginThreads = 128;
-// the most counter-block and stats-vector words the kernels stage in
-// shared memory (srt_append and srt_chunk_begin check them): the block
-// holds the most recent queue row, up to 352 + 3 words
-constexpr int kMaxCtr = 512;
-constexpr int kMaxStats = 64;
 // the words of the most recent queue row K7's tail holds per lane of its
 // warp in registers (rows of up to 32 * kRecentWords - 3 words; a wider
 // row's other words are copied after the update); the widest row K7
@@ -350,43 +318,6 @@ __device__ int look_back(const unsigned long long* status, int tile,
   }
 }
 
-// The JAX package's make_cond on the counters (rows pending, steps left,
-// no overflow, history overflow or fault, gen < target_remaining,
-// log_n < grow_limit, q_tail <= qcap - qmargin, not every property discovered: `every`), the
-// step size (the small one iff at most f_small rows are pending) and the
-// gate, written to `g`.
-__device__ __forceinline__ void write_gate(const ChunkArgs& c, int* g,
-                                           int head, int tail, int log_n,
-                                           int steps, int ovf, int xovf,
-                                           int hovf, int fault, int gen,
-                                           int target, int grow, int tag,
-                                           bool every) {
-  const int avail = tail - head;
-  const bool go = avail > 0 && steps > 0 && !ovf && !xovf && !hovf &&
-                  !fault &&
-                  gen < target && log_n < grow &&
-                  (long long)tail <= c.qlimit && !every;
-  const bool small = c.f_small > 0 && avail <= c.f_small;
-  const int f = small ? c.f_small : c.f_large;
-  g[G_SIZE] = go ? (small ? 1 : 2) : 0;
-  g[G_HEAD] = head;
-  g[G_TAKE] = min(avail, f);
-  g[G_TAG] = tag;
-  g[G_QBASE] = tail;
-  g[G_LBASE] = log_n;
-}
-
-// The gate of the counter block `ctr` as it stands (one thread).
-__device__ void eval_gate(const ChunkArgs& c, int* ctr) {
-  const int* x = ctr + c.ext;
-  bool every = c.P > 0;
-  for (int p = 0; p < c.P; ++p) every = every && ctr[B_DISC + p] != 0;
-  write_gate(c, ctr + c.ext + E_GATE, ctr[B_Q_HEAD], ctr[B_Q_TAIL],
-             ctr[B_LOG_N], x[E_STEPS], ctr[B_OVF], ctr[B_XOVF],
-             ctr[B_HOVF], x[E_FAULT], ctr[B_GEN], x[E_TARGET], x[E_GROW],
-             x[E_TAG], every);
-}
-
 // The counter block and the stats vector into shared memory, one word a
 // thread of the `n` threads from thread t (one round trip to device
 // memory).
@@ -407,9 +338,12 @@ __device__ __forceinline__ void commit_counters(const ChunkArgs& c, int t,
 
 // Per chunk (one block): the chunk's parameters, the per-chunk counters
 // zeroed (gen, vmax, dmax, pdh, prb, cch, iterations), then the gate of
-// the chunk's first iteration and the step's stats vector zeroed.
+// the chunk's first iteration (with the staged terms: kovf, and e_n
+// within elimit, the staged chunk's edge log's limit) and the step's
+// stats vector zeroed.
 __global__ void chunk_begin_kernel(ChunkArgs c, int steps, int target,
-                                   int grow_limit, int tag) {
+                                   int grow_limit, int tag,
+                                   long long elimit) {
   __shared__ int s_ctr[kMaxCtr], s_st[kMaxStats];
   stage_counters(c, threadIdx.x, blockDim.x, s_ctr, s_st);
   __syncthreads();
@@ -427,7 +361,7 @@ __global__ void chunk_begin_kernel(ChunkArgs c, int steps, int target,
     x[E_TAG] = tag;
     x[E_ITERS] = 0;
     x[E_SMALL] = 0;
-    eval_gate(c, s_ctr);
+    eval_gate(c, s_ctr, c.ext, c.P, elimit);
   }
   __syncthreads();
   commit_counters(c, threadIdx.x, blockDim.x, s_ctr);
@@ -798,14 +732,15 @@ extern "C" {
 // launches (0 = launched); the caller raises on anything else.
 
 // The chunk's parameters and its first gate (outside the graph, once per
-// chunk).
+// chunk; elimit: the most e_n may be, the staged chunk's edge log's
+// limit).
 int srt_chunk_begin(const ChunkArgs* c, int steps, int target, int grow_limit,
-                    int tag) {
+                    int tag, long long elimit) {
   if (ctr_len(*c) > kMaxCtr || c->stats_len > kMaxStats)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(c->stream);
   chunk_begin_kernel<<<1, kBeginThreads, 0, st>>>(*c, steps, target,
-                                                  grow_limit, tag);
+                                                  grow_limit, tag, elimit);
   return (int)cudaGetLastError();
 }
 

@@ -59,4 +59,18 @@ __device__ __forceinline__ void fold_change(uint32_t& h1, uint32_t& h2,
   h2 ^= fmix32(x * kC1_2) ^ fmix32(y * kC1_2);
 }
 
+// fingerprint.py fp64_node: the node key of sound-eventually checking,
+// the fingerprint of the words [lo, hi, eb] of a state fingerprint
+// (hi, lo) and its pending eventually-bits eb (staged.cu's KS1 and KS2;
+// ops/hash_kernel.py fp64_node_device is its plain version).
+__device__ __forceinline__ void fp64_node(uint32_t hi, uint32_t lo,
+                                          uint32_t eb, uint32_t& nhi,
+                                          uint32_t& nlo) {
+  uint32_t h1 = 0u, h2 = 0u;
+  fold_word(h1, h2, 0, lo);
+  fold_word(h1, h2, 1, hi);
+  fold_word(h1, h2, 2, eb);
+  fp64_finish(h1, h2, 3, nhi, nlo);
+}
+
 }  // namespace

@@ -65,9 +65,13 @@
 //   K4 flat_insert_kernel  the flat insert of step_common.cuh (one
 //                      thread per lane: the bucket probe/claim, and with
 //                      a mask the owner word, the grid's barrier and the
-//                      claimer's commit), for seeding and growth; its
-//                      mask marks the LOWEST valid lane of each fresh
-//                      key, as K2/K3 do.
+//                      claimer's commit), for seeding and growth, and in
+//                      the staged chunk (staged.cu) the insert of the
+//                      kfin slots, gated and tagged by the chunk's gate;
+//                      its mask marks the LOWEST valid lane of each
+//                      fresh key, as K2/K3 do.
+//   K1 alone           srt_expand_<model>: the expand kernel without K2
+//                      and K3, the staged step's expansion.
 //
 // K1, the bucket probe/claim, the counters and the flat insert are in
 // step_common.cuh, shared with the sharded step (sharded_step.cu, whose
@@ -285,171 +289,328 @@ inline actor::CrashSpec crash_spec(int k, int n, int idx, int dur_lo,
                           (uint32_t)dur_hi};
 }
 
-}  // namespace
+// How an entry runs its model's kernels: the whole fused step (K1-K3),
+// or K1 alone, the staged step's expansion (staged.cu's kernels take
+// its outputs).
+enum class Run { kStep, kExpand };
 
-extern "C" {
+template <Run R, class M, bool SYM>
+int run(const M& m, const StepArgs& a) {
+  if constexpr (R == Run::kExpand)
+    return (int)launch_expand<M, SYM>(m, a,
+                                      static_cast<cudaStream_t>(a.stream));
+  else
+    return launch_step<M, SYM>(m, a);
+}
 
-// One fused step for TwoPhaseSys(n). Each entry returns
-// cudaGetLastError() of the launches (0 = launched); the caller raises on
-// anything else.
-int srt_fused_step_twopc(const StepArgs* args, int n) {
+// One fused step for TwoPhaseSys(n).
+template <Run R>
+int twopc_entry(const StepArgs* args, int n) {
   const TwoPcModel m(n);
   if (args->A != m.max_actions()) return (int)cudaErrorInvalidValue;
-  return launch_step<TwoPcModel, false>(m, *args);
+  return run<R, TwoPcModel, false>(m, *args);
 }
 
 // The same step under RM-permutation symmetry: dedup on canonical keys
 // (complete = 1: the orbit-invariant representative), original
 // fingerprints to ohi/olo.
-int srt_fused_step_twopc_sym(const StepArgs* args, int n, int complete) {
+template <Run R>
+int twopc_sym_entry(const StepArgs* args, int n, int complete) {
   const TwoPcModel m(n, complete);
   if (args->A != m.max_actions() || args->ohi == nullptr ||
       args->olo == nullptr)
     return (int)cudaErrorInvalidValue;
-  return launch_step<TwoPcModel, true>(m, *args);
+  return run<R, TwoPcModel, true>(m, *args);
 }
 
 // One fused step for PackedLinearEquation(a, b, c) (a and b as bytes, c
 // a byte or 256: models/packed.py PackedLinearEquation.cuda_spec).
-int srt_fused_step_lineq(const StepArgs* args, int a, int b, int c) {
+template <Run R>
+int lineq_entry(const StepArgs* args, int a, int b, int c) {
   const LinearEquationModel m(a, b, c);
   if (args->A != m.max_actions()) return (int)cudaErrorInvalidValue;
-  return launch_step<LinearEquationModel, false>(m, *args);
+  return run<R, LinearEquationModel, false>(m, *args);
 }
 
 // One fused step for Increment(n), 1 <= n <= 16.
-int srt_fused_step_increment(const StepArgs* args, int n) {
+template <Run R>
+int increment_entry(const StepArgs* args, int n) {
   if (n < 1 || n > 16) return (int)cudaErrorInvalidValue;
   const IncrementModel m(n);
   if (args->A != m.max_actions()) return (int)cudaErrorInvalidValue;
-  return launch_step<IncrementModel, false>(m, *args);
+  return run<R, IncrementModel, false>(m, *args);
 }
 
 // The same step under thread-permutation symmetry: dedup on the keys of
 // the sorted thread words, original fingerprints to ohi/olo.
-int srt_fused_step_increment_sym(const StepArgs* args, int n) {
+template <Run R>
+int increment_sym_entry(const StepArgs* args, int n) {
   if (n < 1 || n > 16) return (int)cudaErrorInvalidValue;
   const IncrementModel m(n);
   if (args->A != m.max_actions() || args->ohi == nullptr ||
       args->olo == nullptr)
     return (int)cudaErrorInvalidValue;
-  return launch_step<IncrementModel, true>(m, *args);
+  return run<R, IncrementModel, true>(m, *args);
 }
 
 // One fused step for PackedPaxos(clients, servers, slots) (paxos.cuh:
 // at most 7 clients, 4 servers, 16 slots and 128 words; the wide K1).
-int srt_fused_step_paxos(const StepArgs* args, int clients, int servers,
+template <Run R>
+int paxos_entry(const StepArgs* args, int clients, int servers,
                          int slots) {
   const PaxosModel m(clients, servers, slots);
   if (!m.ok() || args->A != m.max_actions())
     return (int)cudaErrorInvalidValue;
-  return launch_step<PaxosModel, false>(m, *args);
+  return run<R, PaxosModel, false>(m, *args);
 }
 
 // One fused step for PackedPaxos(clients, servers, slots) under
 // crash_restart (paxos.cuh PaxosCrashModel: the wide K1 with a crash and
 // a restart lane per crashable actor).
-int srt_fused_step_paxos_crash(const StepArgs* args, int clients,
+template <Run R>
+int paxos_crash_entry(const StepArgs* args, int clients,
                                int servers, int slots, int k, int n, int idx,
                                int dur_lo, int dur_hi) {
   const PaxosCrashModel m(clients, servers, slots,
                           crash_spec(k, n, idx, dur_lo, dur_hi));
   if (!m.ok() || args->A != m.max_actions())
     return (int)cudaErrorInvalidValue;
-  return launch_step<PaxosCrashModel, false>(m, *args);
+  return run<R, PaxosCrashModel, false>(m, *args);
 }
 
 // One fused step for PackedPaxos(clients, servers, slots) on a lossy
 // network (paxos.cuh PaxosLossyModel: the wide K1 with a drop lane per
 // network slot).
-int srt_fused_step_paxos_lossy(const StepArgs* args, int clients,
+template <Run R>
+int paxos_lossy_entry(const StepArgs* args, int clients,
                                int servers, int slots) {
   const PaxosLossyModel m(clients, servers, slots);
   if (!m.ok() || args->A != m.max_actions())
     return (int)cudaErrorInvalidValue;
-  return launch_step<PaxosLossyModel, false>(m, *args);
+  return run<R, PaxosLossyModel, false>(m, *args);
 }
 
 // One fused step for PackedPingPong(max_nat, lossy, duplicating, slots)
 // (ping_pong.cuh: at most 16 slots; lossy, the wide K1 with drop lanes,
 // PingPongLossyModel; lossless, the narrow K1, PingPongModel).
-int srt_fused_step_ping_pong(const StepArgs* args, int max_nat, int slots,
-                             int dup, int lossy) {
+template <Run R>
+int ping_pong_entry(const StepArgs* args, int max_nat, int slots, int dup,
+                    int lossy) {
   if (lossy) {
     const PingPongLossyModel m(max_nat, slots, dup);
     if (!m.ok() || args->A != m.max_actions())
       return (int)cudaErrorInvalidValue;
-    return launch_step<PingPongLossyModel, false>(m, *args);
+    return run<R, PingPongLossyModel, false>(m, *args);
   }
   const PingPongModel m(max_nat, slots, dup, 0);
   if (!m.ok() || args->A != m.max_actions())
     return (int)cudaErrorInvalidValue;
-  return launch_step<PingPongModel, false>(m, *args);
+  return run<R, PingPongModel, false>(m, *args);
 }
 
 // One fused step for PackedTimerCount(n, max_nat) (timer_count.cuh: at
 // most 32 actors; K1's timer path, step_common.cuh TimerRow, stepping the
 // Timeout lanes whose timer bit is set).
-int srt_fused_step_timer_count(const StepArgs* args, int n, int max_nat) {
+template <Run R>
+int timer_count_entry(const StepArgs* args, int n, int max_nat) {
   const TimerCountModel m(n, max_nat);
   if (!m.ok() || args->A != m.max_actions())
     return (int)cudaErrorInvalidValue;
-  return launch_step<TimerCountModel, false>(m, *args);
+  return run<R, TimerCountModel, false>(m, *args);
 }
 
 // One fused step for PackedWriteOnce(clients, servers, durable, slots),
 // with or without crash_restart (write_once.cuh: at most 7 clients, 4
 // servers, 16 slots, 8 actors and 128 words; the group K1 with crash
 // lanes).
-int srt_fused_step_write_once(const StepArgs* args, int clients, int servers,
+template <Run R>
+int write_once_entry(const StepArgs* args, int clients, int servers,
                               int slots, int k, int n, int idx, int dur_lo,
                               int dur_hi) {
   const WriteOnceModel m(clients, servers, slots,
                          crash_spec(k, n, idx, dur_lo, dur_hi));
   if (!m.ok() || args->A != m.max_actions())
     return (int)cudaErrorInvalidValue;
-  return launch_step<WriteOnceModel, false>(m, *args);
+  return run<R, WriteOnceModel, false>(m, *args);
 }
 
 // One fused step for PackedSingleCopy(clients, servers, slots)
 // (single_copy.cuh: at most 7 clients, 4 servers, 16 slots and 128
 // words; the group K1).
-int srt_fused_step_single_copy(const StepArgs* args, int clients,
+template <Run R>
+int single_copy_entry(const StepArgs* args, int clients,
                                int servers, int slots) {
   const SingleCopyModel m(clients, servers, slots);
   if (!m.ok() || args->A != m.max_actions())
     return (int)cudaErrorInvalidValue;
-  return launch_step<SingleCopyModel, false>(m, *args);
+  return run<R, SingleCopyModel, false>(m, *args);
 }
 
 // One fused step for PackedAbd(clients, servers, slots) on the unordered
 // network (abd.cuh AbdModel: at most 7 clients, 4 servers, 16 slots and
 // 128 words; the group K1).
-int srt_fused_step_abd(const StepArgs* args, int clients, int servers,
+template <Run R>
+int abd_entry(const StepArgs* args, int clients, int servers,
                        int slots) {
   const AbdModel m(clients, servers, slots);
   if (!m.ok() || args->A != m.max_actions())
     return (int)cudaErrorInvalidValue;
-  return launch_step<AbdModel, false>(m, *args);
+  return run<R, AbdModel, false>(m, *args);
 }
 
 // One fused step for PackedAbd(clients, servers, ordered=True,
 // channel_depth=depth) (abd.cuh AbdOrderedModel: at most 7 clients, 4
 // servers, 32 channels and 352 words; the edit K1).
-int srt_fused_step_abd_ordered(const StepArgs* args, int clients,
+template <Run R>
+int abd_ordered_entry(const StepArgs* args, int clients,
                                int servers, int depth) {
   const AbdOrderedModel m(clients, servers, depth);
   if (!m.ok() || args->A != m.max_actions())
     return (int)cudaErrorInvalidValue;
-  return launch_step<AbdOrderedModel, false>(m, *args);
+  return run<R, AbdOrderedModel, false>(m, *args);
 }
 
 // One fused step for IncrementLock(n), 1 <= n <= 16.
-int srt_fused_step_increment_lock(const StepArgs* args, int n) {
+template <Run R>
+int increment_lock_entry(const StepArgs* args, int n) {
   if (n < 1 || n > 16) return (int)cudaErrorInvalidValue;
   const IncrementLockModel m(n);
   if (args->A != m.max_actions()) return (int)cudaErrorInvalidValue;
-  return launch_step<IncrementLockModel, false>(m, *args);
+  return run<R, IncrementLockModel, false>(m, *args);
+}
+
+}  // namespace
+
+extern "C" {
+
+// Each entry returns cudaGetLastError() of its launches (0 = launched);
+// the caller raises on anything else. srt_fused_step_<model> launches
+// K1-K3 of one fused step, srt_expand_<model> K1 alone (the staged
+// step's expansion).
+
+int srt_fused_step_twopc(const StepArgs* args, int n) {
+  return twopc_entry<Run::kStep>(args, n);
+}
+int srt_expand_twopc(const StepArgs* args, int n) {
+  return twopc_entry<Run::kExpand>(args, n);
+}
+
+int srt_fused_step_twopc_sym(const StepArgs* args, int n, int complete) {
+  return twopc_sym_entry<Run::kStep>(args, n, complete);
+}
+int srt_expand_twopc_sym(const StepArgs* args, int n, int complete) {
+  return twopc_sym_entry<Run::kExpand>(args, n, complete);
+}
+
+int srt_fused_step_lineq(const StepArgs* args, int a, int b, int c) {
+  return lineq_entry<Run::kStep>(args, a, b, c);
+}
+int srt_expand_lineq(const StepArgs* args, int a, int b, int c) {
+  return lineq_entry<Run::kExpand>(args, a, b, c);
+}
+
+int srt_fused_step_increment(const StepArgs* args, int n) {
+  return increment_entry<Run::kStep>(args, n);
+}
+int srt_expand_increment(const StepArgs* args, int n) {
+  return increment_entry<Run::kExpand>(args, n);
+}
+
+int srt_fused_step_increment_sym(const StepArgs* args, int n) {
+  return increment_sym_entry<Run::kStep>(args, n);
+}
+int srt_expand_increment_sym(const StepArgs* args, int n) {
+  return increment_sym_entry<Run::kExpand>(args, n);
+}
+
+int srt_fused_step_paxos(const StepArgs* args, int clients, int servers,
+                         int slots) {
+  return paxos_entry<Run::kStep>(args, clients, servers, slots);
+}
+int srt_expand_paxos(const StepArgs* args, int clients, int servers,
+                         int slots) {
+  return paxos_entry<Run::kExpand>(args, clients, servers, slots);
+}
+
+int srt_fused_step_paxos_crash(const StepArgs* args, int clients,
+                               int servers, int slots, int k, int n, int idx,
+                               int dur_lo, int dur_hi) {
+  return paxos_crash_entry<Run::kStep>(args, clients, servers, slots, k, n, idx, dur_lo, dur_hi);
+}
+int srt_expand_paxos_crash(const StepArgs* args, int clients,
+                               int servers, int slots, int k, int n, int idx,
+                               int dur_lo, int dur_hi) {
+  return paxos_crash_entry<Run::kExpand>(args, clients, servers, slots, k, n, idx, dur_lo, dur_hi);
+}
+
+int srt_fused_step_paxos_lossy(const StepArgs* args, int clients,
+                               int servers, int slots) {
+  return paxos_lossy_entry<Run::kStep>(args, clients, servers, slots);
+}
+int srt_expand_paxos_lossy(const StepArgs* args, int clients,
+                               int servers, int slots) {
+  return paxos_lossy_entry<Run::kExpand>(args, clients, servers, slots);
+}
+
+int srt_fused_step_ping_pong(const StepArgs* args, int max_nat, int slots,
+                             int dup, int lossy) {
+  return ping_pong_entry<Run::kStep>(args, max_nat, slots, dup, lossy);
+}
+int srt_expand_ping_pong(const StepArgs* args, int max_nat, int slots,
+                             int dup, int lossy) {
+  return ping_pong_entry<Run::kExpand>(args, max_nat, slots, dup, lossy);
+}
+
+int srt_fused_step_timer_count(const StepArgs* args, int n, int max_nat) {
+  return timer_count_entry<Run::kStep>(args, n, max_nat);
+}
+int srt_expand_timer_count(const StepArgs* args, int n, int max_nat) {
+  return timer_count_entry<Run::kExpand>(args, n, max_nat);
+}
+
+int srt_fused_step_write_once(const StepArgs* args, int clients, int servers,
+                              int slots, int k, int n, int idx, int dur_lo,
+                              int dur_hi) {
+  return write_once_entry<Run::kStep>(args, clients, servers, slots, k, n, idx, dur_lo, dur_hi);
+}
+int srt_expand_write_once(const StepArgs* args, int clients, int servers,
+                              int slots, int k, int n, int idx, int dur_lo,
+                              int dur_hi) {
+  return write_once_entry<Run::kExpand>(args, clients, servers, slots, k, n, idx, dur_lo, dur_hi);
+}
+
+int srt_fused_step_single_copy(const StepArgs* args, int clients,
+                               int servers, int slots) {
+  return single_copy_entry<Run::kStep>(args, clients, servers, slots);
+}
+int srt_expand_single_copy(const StepArgs* args, int clients,
+                               int servers, int slots) {
+  return single_copy_entry<Run::kExpand>(args, clients, servers, slots);
+}
+
+int srt_fused_step_abd(const StepArgs* args, int clients, int servers,
+                       int slots) {
+  return abd_entry<Run::kStep>(args, clients, servers, slots);
+}
+int srt_expand_abd(const StepArgs* args, int clients, int servers,
+                       int slots) {
+  return abd_entry<Run::kExpand>(args, clients, servers, slots);
+}
+
+int srt_fused_step_abd_ordered(const StepArgs* args, int clients,
+                               int servers, int depth) {
+  return abd_ordered_entry<Run::kStep>(args, clients, servers, depth);
+}
+int srt_expand_abd_ordered(const StepArgs* args, int clients,
+                               int servers, int depth) {
+  return abd_ordered_entry<Run::kExpand>(args, clients, servers, depth);
+}
+
+int srt_fused_step_increment_lock(const StepArgs* args, int n) {
+  return increment_lock_entry<Run::kStep>(args, n);
+}
+int srt_expand_increment_lock(const StepArgs* args, int n) {
+  return increment_lock_entry<Run::kExpand>(args, n);
 }
 
 // K4, the stand-alone batched insert (seeding and growth): the flat

@@ -62,6 +62,97 @@ enum Gate {
   G_LEN = 6,
 };
 
+// The chunk's counter block (int32, checker/device_loop.py CtrLayout,
+// whose B_* and E_* mirror these): the JAX package's base_stats fields
+// (kovf and e_n the staged step's, 0 on the fused one; rmax, of the
+// per-row hint, always 0), then disc_hit[P], disc_hi[P], disc_lo[P], the
+// most recent queue row and the ring hits, then from ctr + ext the port's
+// own fields, the gate last.
+enum Base {
+  B_Q_HEAD = 0,
+  B_Q_TAIL = 1,
+  B_LOG_N = 2,
+  B_GEN = 3,
+  B_OVF = 4,
+  B_XOVF = 5,
+  B_KOVF = 6,
+  B_H_N = 7,
+  B_HOVF = 8,
+  B_VMAX = 9,
+  B_DMAX = 10,
+  B_RMAX = 11,
+  B_E_N = 12,
+  B_PDH = 13,
+  B_PRB = 14,
+  B_DISC = 15,
+};
+enum Extra {
+  E_STEPS = 0,
+  E_FAULT = 1,
+  E_TAG = 2,
+  E_ITERS = 3,
+  E_SMALL = 4,
+  E_TARGET = 5,
+  E_GROW = 6,
+  E_GATE = 7,
+};
+// the most counter-block and stats-vector words a chunk kernel stages in
+// shared memory (the block holds the most recent queue row, up to 352 + 3
+// words)
+constexpr int kMaxCtr = 512;
+constexpr int kMaxStats = 64;
+
+// The limits a gate reads (the chunk's arguments carry them too:
+// chunk.cu ChunkArgs): q_tail's (qcap - qmargin) and the step sizes.
+struct GateLimits {
+  long long qlimit;
+  int f_small, f_large;
+};
+
+// The JAX package's make_cond on the counters (rows pending, steps left,
+// no overflow, history overflow or fault, gen < target_remaining,
+// log_n < grow_limit, q_tail <= c.qlimit, and not `stop`: every property
+// discovered, or in the staged chunk a candidate overflow or a full edge
+// log), the step size (the small one iff at most c.f_small rows are
+// pending) and the gate, written to `g`.
+template <class Limits>
+__device__ __forceinline__ void write_gate(const Limits& c, int* g,
+                                           int head, int tail, int log_n,
+                                           int steps, int ovf, int xovf,
+                                           int hovf, int fault, int gen,
+                                           int target, int grow, int tag,
+                                           bool stop) {
+  const int avail = tail - head;
+  const bool go = avail > 0 && steps > 0 && !ovf && !xovf && !hovf &&
+                  !fault &&
+                  gen < target && log_n < grow &&
+                  (long long)tail <= c.qlimit && !stop;
+  const bool small = c.f_small > 0 && avail <= c.f_small;
+  const int f = small ? c.f_small : c.f_large;
+  g[G_SIZE] = go ? (small ? 1 : 2) : 0;
+  g[G_HEAD] = head;
+  g[G_TAKE] = min(avail, f);
+  g[G_TAG] = tag;
+  g[G_QBASE] = tail;
+  g[G_LBASE] = log_n;
+}
+
+// The gate of the counter block `ctr` as it stands (one thread; P
+// properties, the port's fields at ctr + ext), with e_n held to `elimit`
+// (the staged chunk's edge log; the fused chunk's e_n stays 0).
+template <class Limits>
+__device__ void eval_gate(const Limits& c, int* ctr, int ext, int P,
+                          long long elimit) {
+  const int* x = ctr + ext;
+  bool every = P > 0;
+  for (int p = 0; p < P; ++p) every = every && ctr[B_DISC + p] != 0;
+  write_gate(c, ctr + ext + E_GATE, ctr[B_Q_HEAD], ctr[B_Q_TAIL],
+             ctr[B_LOG_N], x[E_STEPS], ctr[B_OVF], ctr[B_XOVF],
+             ctr[B_HOVF], x[E_FAULT], ctr[B_GEN], x[E_TARGET], x[E_GROW],
+             x[E_TAG],
+             every || ctr[B_KOVF] || (long long)ctr[B_E_N] > elimit);
+}
+
 }  // namespace
 
 // The launch geometry of a kernel that works on block tiles of whole
@@ -1951,6 +2042,13 @@ __device__ __forceinline__ long long owner_lane(unsigned long long word,
 template <bool MASK>
 __global__ void __launch_bounds__(kThreads)
     flat_insert_kernel(StepArgs a, long long lane0) {
+  if (a.gate != nullptr) {
+    // in the staged chunk (staged.cu): the other step size's insert, or a
+    // shut gate, inserts nothing (every thread leaves, so the grid's
+    // barrier is never reached); the tag is the iteration's
+    if (a.gate[G_SIZE] != a.gate_size) return;
+    a.step = (uint32_t)a.gate[G_TAG];
+  }
   const long long l =
       lane0 + (long long)blockIdx.x * blockDim.x + threadIdx.x;
   long long claimed = -1;
@@ -1985,7 +2083,8 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // Launch the flat insert of a.F lanes into a.keys (a.A == 1, no ring),
-// kThreads lanes per block. Without a mask: one launch over every lane.
+// kThreads lanes per block (with a.gate, gated on a.gate_size and tagged
+// by the gate). Without a mask: one launch over every lane.
 // With one, the cooperative grid is capped at the blocks that can be
 // resident at once, so a batch wider than its threads runs as
 // consecutive launches over lane ranges in order, under the same tag: a

@@ -94,6 +94,17 @@ def fp64_words(words: Iterable[int]) -> int:
     return fp if fp != 0 else 1
 
 
+def fp64_node(fp: int, ebits_mask: int) -> int:
+    """Dedup identity of a search NODE under sound-eventually checking:
+    the state fingerprint combined with the pending eventually-bits, as
+    the words ``[lo, hi, ebits]`` (``ops/hash_kernel.py``
+    ``fp64_node_device`` and the kernels' ``fp64_node`` match it bit for
+    bit). The Rust crate leaves the bits out of the state identity and
+    documents the counterexamples it then misses (``bfs.rs:239-244``);
+    ``CheckerBuilder.sound_eventually()`` opts into including them."""
+    return fp64_words([fp & M32, (fp >> 32) & M32, ebits_mask & M32])
+
+
 # ---------------------------------------------------------------------------
 # Canonical word encoding of Python state values.
 #

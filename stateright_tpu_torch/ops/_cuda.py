@@ -1,10 +1,11 @@
 """Build and bind the CUDA kernels of ``stateright_tpu_torch/csrc``.
 
-Each source (``fused_step.cu``: the single-chip step and the insert;
-``sharded_step.cu``: the sharded engine's probe-free step and owner-side
-probe; ``chunk.cu``: the chunk's start and K7, the append, which between
-them evaluate the loop's gate; ``history.cu``: K8, the history insert,
-and K9, the representative pull) is
+Each source (``fused_step.cu``: the single-chip step, K1 alone and the
+insert; ``sharded_step.cu``: the sharded engine's probe-free step and
+owner-side probe; ``chunk.cu``: the chunk's start and K7, the append,
+which between them evaluate the loop's gate; ``history.cu``: K8, the
+history insert, and K9, the representative pull; ``staged.cu``: the
+staged step's KS1-KS3 and its chunk's start) is
 compiled with ``nvcc`` for ``sm_90a`` into its own shared
 library with a plain C interface the first time a kernel is needed (never
 at import), all ``nvcc`` processes started together, into
@@ -48,7 +49,8 @@ _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD = Path(__file__).resolve().parents[2] / "build" / "kernels"
 #: library name -> source under csrc/
 _SOURCES = {"fused_step": "fused_step.cu", "sharded_step": "sharded_step.cu",
-            "chunk": "chunk.cu", "history": "history.cu"}
+            "chunk": "chunk.cu", "history": "history.cu",
+            "staged": "staged.cu"}
 _NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -61,11 +63,15 @@ _NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 #: ``chunk_begin`` (once per chunk, with the chunk's first gate) and
 #: ``append`` (K7, with the next iteration's gate), and the history
 #: stage's: ``history`` (K8, the history insert) and ``hpull`` (K9, the
-#: representative pull)
+#: representative pull), and the staged step's: ``expand`` (K1 alone, in
+#: either instantiation), ``stage`` (KS1), ``predup`` (KS2) and
+#: ``staged_append`` (KS3); its insert counts as ``table_insert`` (K4) and
+#: its chunk's start as ``chunk_begin``
 LAUNCHES = {"fused_step": 0, "table_insert": 0, "fused_step_noprobe": 0,
             "probe_block": 0, "fused_step_sym": 0,
             "fused_step_noprobe_sym": 0, "chunk_begin": 0, "append": 0,
-            "history": 0, "hpull": 0}
+            "history": 0, "hpull": 0, "expand": 0, "stage": 0,
+            "predup": 0, "staged_append": 0}
 
 #: ``counts``: while this thread captures a graph, the launches each
 #: wrapper recorded in it (another thread's launches count as launches)
@@ -410,6 +416,33 @@ class HistArgs(ctypes.Structure):
     ]
 
 
+class StagedPlanC(ctypes.Structure):
+    """``StagedPlan`` of ``csrc/staged.cu``, field for field."""
+
+    _fields_ = [("f", _i), ("kraw", _i), ("kfin", _i)]
+
+
+class StagedArgs(ctypes.Structure):
+    """``StagedArgs`` of ``csrc/staged.cu``, field for field."""
+
+    _fields_ = [
+        ("ctr", _p), ("stats", _p), ("sctl", _p),
+        ("cvalid", _p), ("pbits", _p), ("terminal", _p), ("ebits_out", _p),
+        ("flat", _p), ("chi", _p), ("clo", _p), ("ohi", _p), ("olo", _p),
+        ("src", _p), ("rvalid", _p), ("dvalid", _p), ("pkey", _p),
+        ("lane", _p), ("khi", _p), ("klo", _p), ("kvalid", _p),
+        ("inserted", _p), ("sel", _p), ("arena", _p), ("bcount", _p),
+        ("sdisc", _p),
+        ("q", _p), ("log", _p), ("elog", _p),
+        ("qlimit", _ll), ("elimit", _ll),
+        ("P", _i), ("pcols", _i), ("W", _i), ("A", _i), ("log_cols", _i),
+        ("stats_len", _i), ("ext", _i), ("recent", _i), ("cch", _i),
+        ("sound", _i),
+        ("always_mask", _u), ("sometimes_mask", _u), ("ev_mask", _u),
+        ("small", StagedPlanC), ("large", StagedPlanC), ("stream", _p),
+    ]
+
+
 class HpullArgs(ctypes.Structure):
     """``HpullArgs`` of ``csrc/history.cu``, field for field."""
 
@@ -467,12 +500,18 @@ def _step_entries(prefix: str, struct, size_fn: str,
 
 
 #: per library: (C entry, argument struct, its size function, the
-#: number of int parameters after the struct: the model's) of each kernel
+#: number of int parameters after the struct: the model's; or their
+#: ctypes types) of each kernel
 _ENTRIES = {
     "fused_step": _step_entries("srt_fused_step", StepArgs,
                                 "srt_step_args_size")
+    + _step_entries("srt_expand", StepArgs, "srt_step_args_size")
     + [("srt_table_insert", StepArgs, "srt_step_args_size", 0)],
-    "chunk": [("srt_chunk_begin", ChunkArgs, "srt_chunk_args_size", 4),
+    "staged": [("srt_stage", StagedArgs, "srt_staged_args_size", 1),
+               ("srt_predup", StagedArgs, "srt_staged_args_size", 2),
+               ("srt_staged_append", StagedArgs, "srt_staged_args_size", 0)],
+    "chunk": [("srt_chunk_begin", ChunkArgs, "srt_chunk_args_size",
+               (_i, _i, _i, _i, _ll)),
               ("srt_append", ChunkArgs, "srt_chunk_args_size", 0)],
     "sharded_step": _step_entries("srt_dedup_step", DedupArgs,
                                   "srt_dedup_args_size", sharded=True)
@@ -569,7 +608,9 @@ def _build() -> None:
         lib = ctypes.CDLL(str(path))
         for entry, struct, size_name, n_params in _ENTRIES[name]:
             fn = getattr(lib, entry)
-            fn.argtypes = [ctypes.POINTER(struct)] + [_i] * n_params
+            fn.argtypes = [ctypes.POINTER(struct)] + (
+                [_i] * n_params if isinstance(n_params, int)
+                else list(n_params))
             fn.restype = _i
             size_fn = getattr(lib, size_name)
             size_fn.argtypes = []
@@ -777,6 +818,42 @@ def fused_step(model, frontier, ebits, fvalid, phi, plo, table, ring, ws,
     return outputs
 
 
+def expand_launcher(model, frontier, ebits, fvalid, phi, plo, ws,
+                    stats_len: int, symmetry: bool = False, bufs=None,
+                    gate=None, gate_size: int = 0):
+    """K1 alone (``srt_expand_<model>``: the staged step's expansion, no
+    table and no ring) with its arguments built once: returns ``(launch,
+    outputs)``, where ``launch()`` launches it on the stream current now
+    and ``outputs`` is the output tuple of :func:`fused_step`, whose
+    ``dvalid`` and ``inserted`` it leaves unwritten. ``bufs``, ``gate``
+    and ``gate_size``: a chunk's launch (see :func:`_step_args`); ``ws``
+    gives the discovery candidates K1 posts (the staged step takes its
+    own, KS1's)."""
+    build()
+    (suffix, params), outputs, args = _step_args(
+        model, frontier, ebits, fvalid, phi, plo, None, ws, stats_len,
+        symmetry, bufs, gate, gate_size)
+    entry = getattr(_LIB["fused_step"], f"srt_expand_{suffix}")
+
+    def launch() -> None:
+        _raise_on(entry(ctypes.byref(args), *params), f"expand ({suffix})")
+        _count("expand")
+
+    return launch, outputs
+
+
+def expand_step(model, frontier, ebits, fvalid, phi, plo, ws,
+                stats_len: int, symmetry: bool = False, bufs=None,
+                gate=None, gate_size: int = 0):
+    """Launch K1 alone (:func:`expand_launcher`) once; returns its
+    outputs."""
+    launch, outputs = expand_launcher(model, frontier, ebits, fvalid, phi,
+                                      plo, ws, stats_len, symmetry, bufs,
+                                      gate, gate_size)
+    launch()
+    return outputs
+
+
 def fused_step_noprobe(model, frontier, ebits, fvalid, phi, plo, ring, ws,
                        stats_len: int, symmetry: bool = False):
     """Launch K1 + K5 for one probe-free step; returns the same output
@@ -884,6 +961,132 @@ def table_insert(table, fhi, flo, valid, ws, max_rounds: int,
     return inserted, bool(host[S_OVF]), int(host[S_ROUNDS])
 
 
+def staged_insert(table, khi, klo, kvalid, inserted, stats, ws, gate,
+                  gate_size: int, max_rounds: int = 4096) -> None:
+    """Launch K4 in the staged chunk: the ``kvalid`` slots' keys
+    ``(khi, klo)`` into ``table`` in place, ``inserted`` marking the
+    lowest slot of each fresh key, gated on ``gate_size`` and tagged by
+    the chunk's gate (``gate``: a device pointer to it), its overflow,
+    rounds and fault into ``stats`` (the step's stats vector, ``S_*``).
+    No sync."""
+    build()
+    dev = table.device
+    _check(table, "table", torch.int64, 2, dev)
+    n = khi.shape[0]
+    for t, nm, dt in ((khi, "khi", torch.int32), (klo, "klo", torch.int32),
+                      (kvalid, "kvalid", torch.bool),
+                      (inserted, "inserted", torch.bool),
+                      (stats, "stats", torch.int32)):
+        _check(t, nm, dt, 1, dev)
+        if nm != "stats" and t.shape[0] != n:
+            raise ValueError(f"{nm} must have {n} slots")
+    if table.shape[1] != 4 or table.numel() >= 1 << 31 or not n:
+        raise ValueError("table must be [C/4, 4] with C < 2**31, and the "
+                         "insert at least one slot")
+    ws.check(table.numel(), 0, 0, dev)
+    args = StepArgs(
+        F=n, A=1, P=0, pcols=1, step=0, chi=khi.data_ptr(),
+        clo=klo.data_ptr(), cvalid=kvalid.data_ptr(),
+        inserted=inserted.data_ptr(), stats=stats.data_ptr(),
+        keys=table.data_ptr(), n_buckets=table.shape[0],
+        max_rounds=max_rounds, cc=0, owner=ws.owner.data_ptr(), gate=gate,
+        gate_size=gate_size,
+        stream=torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(_LIB["fused_step"].srt_table_insert(ctypes.byref(args)),
+              "staged insert")
+    _count("table_insert")
+
+
+# --- the staged step (csrc/staged.cu) -------------------------------------
+
+def staged_args(*, ctr, stats, bufs, sb, q, log, elog, plans: dict,
+                qlimit: int, elimit: int, model, layout,
+                sound: bool) -> StagedArgs:
+    """The ``StagedArgs`` of a staged chunk on the card: the counter
+    block ``ctr`` (its layout ``layout``), the step's stats vector, K1's
+    buffers ``bufs`` (:func:`step_buffers` at the large plan's rows) and
+    the staged buffers ``sb`` (``ops/staged.py`` ``staged_buffers`` of
+    the large plan), the queue, log and edge log (``None`` without one),
+    the plans (``{1: small, 2: large}`` or ``{2: large}``), the limits of
+    ``q_tail`` and ``e_n`` before a step. The stream is set at each
+    launch."""
+    from .fused import property_masks
+    dev = ctr.device
+    large = plans[2]
+    small = plans.get(1)
+    _check(ctr, "ctr", torch.int32, 1, dev)
+    _check(q, "q", torch.int32, 2, dev)
+    _check(log, "log", torch.int32, 2, dev)
+    if elog is not None:
+        _check(elog, "elog", torch.int32, 2, dev)
+    n_props = len(model.properties())
+    w, a = model.packed_width, model.max_actions
+    sym = log.shape[1] == 6
+    if (q.shape[1] != w + 3 or bufs["cvalid"].shape[0] < large.f * a
+            or sb.src.shape[0] < large.kraw or sb.lane.shape[0] < large.kfin
+            or sb.pkey.shape[0] < large.f
+            or (elog is not None and elog.shape[1] != 4)):
+        raise ValueError("staged buffers do not fit this chunk")
+    masks = property_masks(model)
+
+    def plan_c(p):
+        return (StagedPlanC(0, 0, 0) if p is None
+                else StagedPlanC(p.f, p.kraw, p.kfin))
+
+    return StagedArgs(
+        ctr=ctr.data_ptr(), stats=stats.data_ptr(),
+        sctl=sb.sctl.data_ptr(), cvalid=bufs["cvalid"].data_ptr(),
+        pbits=bufs["pbits"].data_ptr(), terminal=bufs["terminal"].data_ptr(),
+        ebits_out=bufs["ebits_out"].data_ptr(), flat=bufs["flat"].data_ptr(),
+        chi=bufs["chi"].data_ptr(), clo=bufs["clo"].data_ptr(),
+        ohi=bufs["ohi"].data_ptr() if sym else None,
+        olo=bufs["olo"].data_ptr() if sym else None,
+        src=sb.src.data_ptr(), rvalid=sb.rvalid.data_ptr(),
+        dvalid=sb.dvalid.data_ptr(), pkey=sb.pkey.data_ptr(),
+        lane=sb.lane.data_ptr(), khi=sb.khi.data_ptr(),
+        klo=sb.klo.data_ptr(), kvalid=sb.kvalid.data_ptr(),
+        inserted=sb.inserted.data_ptr(), sel=sb.sel.data_ptr(),
+        arena=sb.arena.data_ptr(),
+        bcount=sb.bcount.data_ptr(), sdisc=sb.sdisc.data_ptr(), q=q.data_ptr(), log=log.data_ptr(),
+        elog=None if elog is None else elog.data_ptr(), qlimit=qlimit,
+        elimit=elimit, P=n_props, pcols=max(n_props, 1), W=w, A=a,
+        log_cols=log.shape[1], stats_len=stats.shape[0], ext=layout.ext,
+        recent=layout.recent, cch=layout.cch, sound=int(sound),
+        always_mask=masks[Expectation.ALWAYS],
+        sometimes_mask=masks[Expectation.SOMETIMES],
+        ev_mask=masks[Expectation.EVENTUALLY],
+        small=plan_c(small), large=plan_c(large))
+
+
+def _staged_launch(entry: str, name: str, what: str, args: StagedArgs,
+                   device, *ints) -> None:
+    build()
+    args.stream = torch.cuda.current_stream(device).cuda_stream
+    _raise_on(getattr(_LIB["staged"], entry)(ctypes.byref(args), *ints),
+              what)
+    _count(name)
+
+
+def stage(args: StagedArgs, device, size: int) -> None:
+    """Launch KS1 of step size ``size`` (1 small, 2 large; gated)."""
+    _staged_launch("srt_stage", "stage", "stage", args, device, size)
+
+
+def predup(args: StagedArgs, device, size: int, cells: int) -> None:
+    """Launch KS2 of step size ``size`` (gated) over an arena of
+    ``cells`` cells (``ops/staged.py`` ``pre_dedup_arena_cells`` of the
+    size's ``kraw``)."""
+    _staged_launch("srt_predup", "predup", "pre-dedup", args, device, size,
+                   cells)
+
+
+def staged_append(args: StagedArgs, device) -> None:
+    """Launch KS3 over the step the gate picked, with the carry update
+    and the next gate."""
+    _staged_launch("srt_staged_append", "staged_append", "staged append",
+                   args, device)
+
+
 # --- the chunk (csrc/chunk.cu) -----------------------------------------
 
 def append_tile(lanes: int, sms: int, width: int = 0) -> int:
@@ -977,6 +1180,24 @@ def chunk_args(*, ctr, bufs, q, log, scratch, qlimit: int, n_props: int,
         ext=ext, recent=recent, cch=cch, tile_lanes=tile)
 
 
+def chunk_begin_args(*, ctr, stats, qlimit: int, n_props: int,
+                     f_small: int, f_large: int, ext: int,
+                     cch: int) -> ChunkArgs:
+    """The ``ChunkArgs`` :func:`chunk_begin` reads, for a chunk with no
+    K7 (the staged chunk, whose KS3 appends): the counter block ``ctr``
+    (its port's fields at ``ext``, the ring hits at ``cch``), the step's
+    stats vector, the step sizes and the limit of ``q_tail`` before an
+    iteration."""
+    dev = ctr.device
+    _check(ctr, "ctr", torch.int32, 1, dev)
+    _check(stats, "stats", torch.int32, 1, dev)
+    if ext + 13 > ctr.shape[0] or not 0 <= f_small <= f_large:
+        raise ValueError("the counter block does not fit this chunk")
+    return ChunkArgs(ctr=ctr.data_ptr(), stats=stats.data_ptr(),
+                     qlimit=qlimit, P=n_props, stats_len=stats.shape[0],
+                     f_small=f_small, f_large=f_large, ext=ext, cch=cch)
+
+
 def _chunk_launch(entry: str, name: str, what: str, args: ChunkArgs,
                   device, *ints) -> None:
     build()
@@ -987,14 +1208,17 @@ def _chunk_launch(entry: str, name: str, what: str, args: ChunkArgs,
 
 
 def chunk_begin(args: ChunkArgs, device, steps: int, target: int,
-                grow_limit: int, tag: int) -> None:
+                grow_limit: int, tag: int,
+                elimit: int = (1 << 31) - 1) -> None:
     """Launch the chunk's start: its ``steps``, ``target`` (the
     generated-transitions budget), ``grow_limit`` and first step ``tag``
     into the counter block, the per-chunk counters zeroed, then the
     first iteration's gate (the step's stats vector zeroed, the loop
-    condition on the counters, the step size, window and tag)."""
+    condition on the counters, the step size, window and tag), with
+    ``e_n`` held to ``elimit`` (the staged chunk's edge log; the fused
+    chunk keeps none)."""
     _chunk_launch("srt_chunk_begin", "chunk_begin", "chunk begin", args,
-                  device, steps, target, grow_limit, tag)
+                  device, steps, target, grow_limit, tag, elimit)
 
 
 def append(args: ChunkArgs, device) -> None:

@@ -1,9 +1,9 @@
 """Frontier expansion, in-batch dedup and discovery selection in torch.
 
-Counterpart of ``stateright_tpu/ops/expand.py`` without sound-eventually
-node keys (not ported). These are the plain versions of what the step
-kernel (``csrc/fused_step.cu``) computes; they compute in int64 holding
-uint32 values (``ops/words.py``).
+Counterpart of ``stateright_tpu/ops/expand.py``. These are the plain
+versions of what the step kernel (``csrc/fused_step.cu``) and the staged
+chunk's kernels (``csrc/staged.cu``) compute; they compute in int64
+holding uint32 values (``ops/words.py``).
 """
 
 from __future__ import annotations
@@ -146,25 +146,40 @@ def discovery_candidates(properties, exp: Expansion, fvalid,
 
 
 def assemble_candidates(rows_k, ebits_k, s_chi, s_clo, pw_hi, pw_lo,
-                        o_hi=None, o_lo=None):
+                        o_hi=None, o_lo=None, nk_hi=None, nk_lo=None):
     """The candidate-matrix column layout, from per-lane columns:
 
       [packed row (0..W-1) | child ebits (W) | state fp hi/lo (W+1, W+2)
-       | parent fp hi/lo (W+3, W+4) | original fp hi/lo (W+5, W+6)]
+       | (node key hi/lo (W+3, W+4) under sound)
+       | parent key hi/lo | original fp hi/lo]
 
-    the last two only when ``o_hi``/``o_lo`` are given (symmetry
+    the original fp only when ``o_hi``/``o_lo`` are given (symmetry
     reduction: the state fp is the canonical key, the original fp the
-    enqueued row's own). The queue block is ``[:, :W+3]`` and the log
-    block (child fp, parent fp[, original fp]) the slice from
-    ``log_off``. Columns are int32 bit patterns; returns
-    ``(cand, log_off)``."""
+    enqueued row's own; sound-eventually checking: the state's own fp),
+    the node keys only when ``nk_hi``/``nk_lo`` are (sound: they are the
+    dedup keys, and the parent key is the parent's node key). The queue
+    block is ``[:, :W+3]`` and the log block (dedup key, parent key[,
+    original fp]) the slice from ``log_off``: ``W + 1``, or ``W + 3``
+    with node keys. Columns are int32 bit patterns; returns ``(cand,
+    log_off)``."""
     width = rows_k.shape[1]
     cols = [rows_k, ebits_k[:, None], s_chi[:, None], s_clo[:, None],
             pw_hi[:, None], pw_lo[:, None]]
     if o_hi is not None:
         cols += [o_hi[:, None], o_lo[:, None]]
     cand = torch.cat([c.to(torch.int32) for c in cols], dim=1)
-    return cand, width + 1
+    if nk_hi is None:
+        return cand, width + 1
+    return splice_node_keys(cand, width, nk_hi, nk_lo), width + 3
+
+
+def splice_node_keys(cand, width: int, nk_hi, nk_lo):
+    """The node-key columns inserted at ``W + 3`` (sound mode), where
+    :func:`assemble_candidates`'s ``log_off`` expects them: the log
+    block's first two columns."""
+    return torch.cat([cand[:, :width + 3], nk_hi.to(torch.int32)[:, None],
+                      nk_lo.to(torch.int32)[:, None], cand[:, width + 3:]],
+                     dim=1)
 
 
 def small_step_sizes(fmax: int, kmax: int, n_actions: int):
@@ -175,12 +190,12 @@ def small_step_sizes(fmax: int, kmax: int, n_actions: int):
             fmax_small < fmax)
 
 
-def kmax_default(model, fmax: int) -> int:
-    """Default raw candidate width (``kraw``) of the sharded step: every
-    raw-valid child lane of an iteration. Models that declare
-    ``branching_hint`` (most valid children per state) get ``fmax*hint``
-    with a 1/4 margin, others ``F*A/2`` (the JAX package's policy;
-    sound-eventually node keys are not ported)."""
+def kmax_default(model, fmax: int, sound: bool = False) -> int:
+    """Default raw candidate width (``kraw``) of the sharded and the
+    staged step: every raw-valid child lane of an iteration. Models that
+    declare ``branching_hint`` (most valid children per state) get
+    ``fmax*hint`` with a 1/4 margin, others ``F*A/2`` (the JAX package's
+    policy; ``sound`` does not change it)."""
     fa = fmax * model.max_actions
     hint = getattr(model, "branching_hint", None)
     if hint:
@@ -189,10 +204,14 @@ def kmax_default(model, fmax: int) -> int:
     return min(fa, max(1 << 12, fa // 2))
 
 
-def kfinal_default(model, fmax: int) -> int:
+def kfinal_default(model, fmax: int, sound: bool = False) -> int:
     """Default post-dedup candidate width (``kmax``): the exchange, the
-    owner-side probe and the appends run at this width — the halved
-    hint, or ``F*A/8`` (the JAX package's policy)."""
+    owner-side probe and the appends (the staged step's table insert and
+    appends) run at this width — the halved hint, or ``F*A/8`` (the JAX
+    package's policy). Under ``sound`` there is no in-batch dedup (node
+    keys meet in the table), so it is the raw width."""
+    if sound:
+        return kmax_default(model, fmax, sound)
     fa = fmax * model.max_actions
     hint = getattr(model, "branching_hint", None)
     if hint:

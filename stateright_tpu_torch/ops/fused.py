@@ -106,20 +106,20 @@ class FusedOut(NamedTuple):
 
 def supports(model, *, sound: bool) -> Optional[str]:
     """``None`` when the fused step covers this configuration, else why
-    it does not.
+    the engine runs the staged step instead (``ops/staged.py``; the JAX
+    package's ``stateright_tpu/ops/fused.py:143``).
 
     Host-evaluated properties run on the fused chunk here, unlike in
-    the JAX package (``stateright_tpu/ops/fused.py:143``, "staged
-    only"): its Pallas kernel had no history table, so the history
-    dedup lived only in the staged branch, whereas on the card the
-    history insert is one more kernel node of the chunk's graph (K8,
-    ``csrc/history.cu``) after the append, over the rows the fused step
-    inserted — the staged math over the same frontier block. The staged
-    branch's own configurations (``sound``; ``hint``, refused by the
-    engine) are still not ported."""
+    the JAX package: its Pallas kernel had no history table, so the
+    history dedup lived only in the staged branch, whereas on the card
+    the history insert is one more kernel node of the chunk's graph (K8,
+    ``csrc/history.cu``) after the append, over the rows the step
+    inserted — the staged math over the same frontier block. ``sound``
+    (node keys and the cross-edge log) is the staged step's; ``hint``,
+    the JAX package's third reason, is refused by the engine."""
     if sound:
         return ("sound_eventually dedups on (state, ebits) node keys "
-                "and logs cross edges — not ported")
+                "and logs cross edges — staged only")
     return None
 
 

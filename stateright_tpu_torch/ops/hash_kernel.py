@@ -1,9 +1,12 @@
 """Batched state fingerprints in torch: the plain version of the
-fingerprint the CUDA kernels compute (``csrc/fused_step.cu`` ``fp64``).
+fingerprint the CUDA kernels compute (``csrc/fused_step.cu`` ``fp64``)
+and of the node key of sound-eventually checking (``csrc/fold.cuh``
+``fp64_node``).
 
-Counterpart of ``stateright_tpu/ops/hash_kernel.py`` ``fp64_device``: the
-same column-parallel construction as ``fingerprint.fp64_words``, bit for
-bit, over ``[N, W]`` batches of packed words.
+Counterpart of ``stateright_tpu/ops/hash_kernel.py`` (``fp64_device``,
+``fp64_node_device``): the same column-parallel construction as
+``fingerprint.fp64_words``, bit for bit, over ``[N, W]`` batches of
+packed words.
 """
 
 from __future__ import annotations
@@ -49,3 +52,11 @@ def fp64_device(words: torch.Tensor):
     h2 = _fmix32(h2 ^ SEED2 ^ ((w * C1_1) & M32))
     h2 = torch.where((h1 == 0) & (h2 == 0), torch.ones_like(h2), h2)
     return h1, h2
+
+
+def fp64_node_device(hi, lo, ebits):
+    """The node keys of sound-eventually checking: ``fingerprint.fp64_node``
+    of each state fingerprint ``(hi, lo)`` and pending eventually-bits
+    ``ebits`` (``[N]`` each, uint32 values or int32 bit patterns), as
+    int64 ``(hi, lo)`` values; the words ``[lo, hi, ebits]``."""
+    return fp64_device(torch.stack([u64(lo), u64(hi), u64(ebits)], dim=1))

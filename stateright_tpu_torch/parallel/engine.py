@@ -26,6 +26,8 @@ import time
 
 import torch
 
+from ..core import Expectation
+
 from ..checker.builder import CheckerBuilder
 from ..checker.gpu import (EncodingOverflow, GpuChecker, auto_fmax,
                            candidate_sizes)
@@ -62,6 +64,17 @@ class ShardedGpuChecker(GpuChecker):
 
     def __init__(self, builder: CheckerBuilder):
         opts = builder.gpu_options_
+        if builder.sound_eventually_ and any(
+                p.expectation == Expectation.EVENTUALLY
+                for p in builder.model.properties()):
+            raise NotImplementedError(
+                "sound_eventually() on a mesh is not ported (ROADMAP A11: "
+                "sound on a mesh); run it on one card")
+        if opts.get("fused", True) is not True:
+            raise NotImplementedError(
+                "the staged step (gpu_options(fused=False)) on a mesh is "
+                "not ported: the sharded engine's step is its own staged "
+                "exchange (kraw, kmax)")
         if getattr(builder.model, "host_property_indices", ()):
             raise NotImplementedError(
                 "host-evaluated properties on a mesh need the sharded "

@@ -117,7 +117,6 @@ def _symmetry_without_canon(builder):
 
 @pytest.mark.parametrize("setup,match", [
     (_symmetry_without_canon, "packed_representative"),
-    (lambda b: b.sound_eventually(), "sound_eventually"),
     (lambda b: b.visitor(lambda *a: None), "visitor"),
     (lambda b: b.gpu_options(mesh=object()).resume_from("x.npz"),
      "checkpoints on a mesh"),
@@ -127,12 +126,35 @@ def _symmetry_without_canon(builder):
     (lambda b: b.gpu_options(race=True, mesh=object()), "race=True"),
     (lambda b: b.gpu_options(fused="auto"), "fallback"),
     (lambda b: b.gpu_options(autosave="x.npz"), "not ported"),
-], ids=["symmetry", "sound", "visitor", "resume", "mesh", "hint", "level",
-        "race", "fused_auto", "unknown"])
+], ids=["symmetry", "visitor", "resume", "mesh", "hint", "level", "race",
+        "fused_auto", "unknown"])
 def test_unported_features_raise(setup, match):
     builder = setup(TwoPhaseSys(3).checker().gpu_options(device="cpu"))
     with pytest.raises(NotImplementedError, match=match):
         builder.spawn_gpu()
+
+
+@pytest.mark.parametrize("setup,jax_setup", [
+    (lambda b: b.sound_eventually(), lambda b: b.sound_eventually()),
+    (lambda b: b.gpu_options(fused=False),
+     lambda b: b.tpu_options(fused=False)),
+], ids=["sound", "fused_false"])
+def test_sound_and_staged_run_and_match_jax(setup, jax_setup):
+    """The calls that raised before the staged step was ported
+    (``sound_eventually()``, ``fused=False``) now run: raced as the JAX
+    package's are and alone on the staged step, to the JAX package's
+    counts and verdicts."""
+    ck = setup(TwoPhaseSys(3).checker().gpu_options(device="cpu")) \
+        .spawn_gpu().join()
+    want = jax_setup(JaxTwoPhaseSys(3).checker().tpu_options(
+        race=False, fused=False, mode="device")).spawn_tpu().join()
+    assert ck.unique_state_count() == want.unique_state_count() == 288
+    assert ck.generated_fingerprints() == want.generated_fingerprints()
+    assert sorted(ck.discoveries()) == sorted(want.discoveries())
+    alone = setup(TwoPhaseSys(3).checker().gpu_options(
+        device="cpu", race=False)).spawn_gpu().join()
+    assert alone.state_count() == want.state_count()
+    assert alone.generated_fingerprints() == want.generated_fingerprints()
 
 
 def test_checkpoint_save_raises():

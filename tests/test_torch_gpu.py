@@ -2882,3 +2882,124 @@ def test_wide_row_graph_replays_match_plain_iterations(name, f):
             diff = (plain[k] != t).nonzero()
             assert not diff.numel(), (i, k, diff[:8].tolist())
         assert int(carry.ctr[lay.ext + E_ITERS]) == i + 1
+
+
+# --- the staged step (fused=False, sound_eventually()) ---------------------
+
+def _staged_model(name):
+    from stateright_tpu_torch import PackedPaxos
+    from stateright_tpu_torch.actor.test_util import PackedPingPong
+    return {"2pc5": lambda: TwoPhaseSys(5),
+            "paxos1": lambda: PackedPaxos(1),
+            "paxos2": lambda: PackedPaxos(2),
+            "ping3": lambda: PackedPingPong(3, lossy=True, duplicating=True),
+            "ping5": lambda: PackedPingPong(5, lossy=True,
+                                            duplicating=True)}[name]()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,fmax,size,sound", [
+    ("2pc5", 512, 2, False), ("2pc5", 512, 1, False),
+    ("paxos2", 2048, 2, False), ("ping5", 1024, 2, True),
+    ("ping5", 1024, 1, True)])
+def test_staged_kernels_match_plain_versions_on_card(name, fmax, size,
+                                                     sound):
+    """K1 alone, KS1, KS2 and KS3 (after K4) at a mid-search step, each
+    bit for bit against its plain version on the card kernel's inputs
+    (``chip_smoke.check_staged_step``), under sound from a frontier
+    seeded with every eventually bit pending."""
+    _need_card()
+    from stateright_tpu_torch.ops.expand import eventually_indices
+    smoke = _chip_smoke()
+    model = _staged_model(name)
+    full = sum(1 << i for i in eventually_indices(model.properties()))
+    carry = smoke.mid_search_carry(model, torch.device("cuda"), rows=fmax,
+                                   pending=min(fmax, 600),
+                                   ebits=full if sound else 0)
+    res = smoke.check_staged_step(model, carry, fmax, size, sound, reps=2)
+    assert all(res["checks"].values()), res["checks"]
+    assert res["vcount"] > 0 and res["inserted"] > 0
+
+
+@pytest.mark.gpu
+def test_chunk_begin_gate_terms_match_plain_version_on_card():
+    """The chunk's start both chunks launch (``chunk_begin_kernel``):
+    its gate under parameters that open and shut it, with the staged
+    chunk's terms (``kovf`` set, ``e_n`` past and at the edge log's
+    limit), bit for bit against its plain version
+    (``chip_smoke.check_control``, at TwoPhaseSys(7)'s 12,288-row
+    chunk)."""
+    _need_card()
+    smoke = _chip_smoke()
+    model = TwoPhaseSys(7)
+    carry = smoke.mid_search_carry(model, torch.device("cuda"))
+    res = smoke.check_control(model, carry)
+    assert all(res["checks"].values()), res["checks"]
+
+
+def _sym_checker(model):
+    return model.checker().symmetry_fn(model.representative)
+
+
+STAGED_RUNS = {
+    "2pc4": (lambda: TwoPhaseSys(4).checker(),
+             dict(fused=False, fmax=512, capacity=1 << 12)),
+    "2pc4-kovf": (lambda: TwoPhaseSys(4).checker(),
+                  dict(fused=False, fmax=512, capacity=1 << 12, kraw=256,
+                       kmax=256)),
+    "2pc4-kovf-kmax": (lambda: TwoPhaseSys(4).checker(),
+                       dict(fused=False, fmax=512, capacity=1 << 12,
+                            kraw=4096, kmax=64)),
+    "2pc5-grow": (lambda: TwoPhaseSys(5).checker(),
+                  dict(fused=False, fmax=16, capacity=1 << 10)),
+    "2pc5-sym": (lambda: _sym_checker(TwoPhaseSys(5, complete_symmetry=True)),
+                 dict(fused=False, fmax=256, capacity=1 << 12)),
+    "paxos1": (lambda: _staged_model("paxos1").checker(),
+               dict(fused=False, fmax=256, capacity=1 << 12)),
+    "ping3-sound": (lambda: _staged_model("ping3").checker()
+                    .sound_eventually(), dict(fmax=256, capacity=1 << 14)),
+    "ping5-sound-grow": (lambda: _staged_model("ping5").checker()
+                         .sound_eventually(),
+                         dict(fmax=64, capacity=1 << 10)),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", list(STAGED_RUNS))
+def test_staged_end_to_end_matches_cpu_on_card(name):
+    """The staged chunk on the card (one graph of K1, KS1, KS2, K4 of
+    each size and KS3, K8 with host properties) against its plain
+    versions on the CPU: the same record row for row, counts, state sets
+    and discoveries;
+    the kovf runs rebuild, the growth runs grow (the edge log
+    too under sound), and no fused kernel launches."""
+    _need_card()
+    from stateright_tpu_torch.ops import _cuda
+    mk, opts = STAGED_RUNS[name]
+    want = mk().gpu_options(device="cpu", race=False, **opts) \
+        .spawn_gpu().join()
+    for k in _cuda.LAUNCHES:
+        _cuda.LAUNCHES[k] = 0
+    got = mk().gpu_options(race=False, **opts).spawn_gpu().join()
+    assert got.unique_state_count() == want.unique_state_count()
+    assert got.state_count() == want.state_count()
+    assert got.generated_fingerprints() == want.generated_fingerprints()
+    assert sorted(got.discoveries()) == sorted(want.discoveries())
+    # the row gate: K4 marks the slot the JAX package's insert marks (KS2
+    # reverses the slots), so the record is the CPU's row for row
+    got._ensure_mirror()
+    want._ensure_mirror()
+    assert list(got._generated.items()) == list(want._generated.items())
+    assert got._discovery_fps == want._discovery_fps
+    launched = _cuda.LAUNCHES
+    for k in ("expand", "stage", "predup", "table_insert", "staged_append",
+              "chunk_begin"):
+        assert launched[k] > 0, k
+    assert launched["fused_step"] == launched["append"] == 0
+    prof = got.profile()
+    if "kovf" in name:
+        assert prof["kovfs"] >= 1 and prof["captures"] > prof["kovfs"]
+    if "grow" in name:
+        assert prof["grows"] >= 1
+    if "sound" in name:
+        assert prof["e_n"] > 0 and "lasso_s" in prof

@@ -381,9 +381,27 @@ def test_options_that_raise():
     with pytest.raises(NotImplementedError, match="host-evaluated"):
         PackedPaxos(1).checker().gpu_options(device="cpu",
                                              mesh=object()).spawn_gpu()
-    with pytest.raises(NotImplementedError, match="staged"):
-        PackedPaxos(1).checker().gpu_options(device="cpu", fused=False) \
+    with pytest.raises(NotImplementedError, match="fallback"):
+        PackedPaxos(1).checker().gpu_options(device="cpu", fused="auto") \
             .spawn_gpu()
+
+
+def test_fused_false_runs_and_matches_jax():
+    """``fused=False``, which raised before the staged step was ported,
+    runs the staged step (K8's plain version after each staged append)
+    to the JAX package's staged counts and verdicts."""
+    ck = PackedPaxos(1).checker().gpu_options(device="cpu", fused=False) \
+        .spawn_gpu().join()
+    want = JPaxos(1).checker().tpu_options(
+        race=False, fused=False, mode="device").spawn_tpu().join()
+    assert ck.unique_state_count() == want.unique_state_count() == 265
+    assert ck.generated_fingerprints() == want.generated_fingerprints()
+    ck.assert_no_discovery("linearizable")
+    ck.assert_any_discovery("value chosen")
+    alone = PackedPaxos(1).checker().gpu_options(
+        device="cpu", fused=False, race=False).spawn_gpu().join()
+    assert alone.profile()["staged"] is True
+    assert alone.state_count() == want.state_count()
 
 
 def _ordered():

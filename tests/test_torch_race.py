@@ -150,8 +150,31 @@ def test_host_engines_refuse_what_they_would_ignore():
         with pytest.raises(NotImplementedError, match="A14"):
             getattr(TwoPhaseSys(3).checker().visitor(lambda *a: None),
                     spawn)()
-        with pytest.raises(NotImplementedError, match="A11"):
-            getattr(TwoPhaseSys(3).checker().sound_eventually(), spawn)()
+
+
+@pytest.mark.parametrize("spawn", ["spawn_bfs", "spawn_dfs"])
+def test_host_engines_run_sound_eventually(spawn):
+    """``sound_eventually()`` on the host engines, which raised before
+    their sound mode was ported: TwoPhaseSys (no eventually property:
+    the plain run) and PingPong on a lossy network (its eventually
+    properties under node keys: 277 nodes on the DFS) give the JAX
+    package's counts, fingerprints and verdicts."""
+    from stateright_tpu.actor.test_util import PingPongCfg as JCfg
+    from stateright_tpu_torch.actor.test_util import PingPongCfg
+    ping = PingPongCfg(maintains_history=True, max_nat=3).into_model() \
+        .lossy_network(True)
+    jping = JCfg(maintains_history=True, max_nat=3).into_model() \
+        .lossy_network(True)
+    for tm, jm in ((TwoPhaseSys(3), jtwopc.TwoPhaseSys(3)), (ping, jping)):
+        got = getattr(tm.checker().sound_eventually(), spawn)().join()
+        want = getattr(jm.checker().sound_eventually(), spawn)().join()
+        assert got.unique_state_count() == want.unique_state_count()
+        assert got.state_count() == want.state_count()
+        assert got.generated_fingerprints() == want.generated_fingerprints()
+        # the witnesses: the same node keys (BFS) or fingerprint paths
+        # (DFS), each replaying through the host model
+        assert got._discovery_fps == want._discovery_fps
+        assert sorted(got.discoveries()) == sorted(want.discoveries())
 
 
 # --- the race ---------------------------------------------------------------
