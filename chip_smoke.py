@@ -547,7 +547,7 @@ _OURS = ("dedup_claim_kernel", "dedup_commit_kernel", "flat_insert_kernel",
          "staged_append_kernel", "stage_kernel",
          "predup_kernel", "expand_kernel", "claim_kernel", "commit_kernel",
          "append_kernel", "chunk_begin_kernel", "history_kernel",
-         "hpull_kernel")
+         "hpull_kernel", "evict_prefix_kernel")
 
 
 def kernel_name(symbol: str):
@@ -4412,6 +4412,366 @@ def staged_kernel_entries(checks: dict, runs: dict) -> list:
     return out
 
 
+# --- the resilience layer (phase ``resilience``) ----------------------------
+
+EVICT_SRC = "stateright_tpu_torch/csrc/evict.cu"
+#: K10's check: a table of 2**21 slots filled to ~60 % from a seed, masks
+#: of this many prefixes (the middle one timed and reported)
+EVICT_SLOTS = 1 << 21
+EVICT_PREFIXES = (0, 85, 256)
+#: the capped runs (``gpu_options``): a table that grows to its budget,
+#: then spills. A rediscovered key is expanded again (the JAX package's
+#: design), so a budget far below the reachable set spills without end:
+#: the budgets are ``tools/torch_spill_sweep.py``'s (PERF.md section 6)
+#: (the occupancy that spills, ``grow_at * max_capacity``: 55 % of
+#: 2pc7's 296,448 states, 60 % of lossy Paxos(2)'s 954,508; ``fmax`` so
+#: one iteration's appends fit below the starting capacity's threshold,
+#: which then grows once to the budget)
+SPILL_2PC7 = dict(capacity=1 << 17, max_capacity=1 << 19, fmax=512,
+                  grow_at=0.311)
+SPILL_PAXOS2 = dict(capacity=1 << 19, max_capacity=1 << 21, fmax=1024,
+                    grow_at=0.273)
+#: the profile keys of the resilience layer a run reports
+RESILIENCE_KEYS = ("retries", "spills", "evicted_keys", "host_tier_keys",
+                   "host_probe_hits", "autosaves", "audits",
+                   "audit_mismatches", "quarantined", "failovers",
+                   "shadow_s", "spill_s", "fp_core", "kovfs")
+
+
+def resilience_kernels(device) -> dict:
+    """K10 (``evict_prefix_kernel``) against its plain version on the card:
+    tables of ``EVICT_SLOTS`` slots filled to ~60 % from a seed, masks of
+    ``EVICT_PREFIXES`` prefixes; the table and the count bit for bit,
+    each bucket's occupancy a prefix; ms per call (CUDA events, the table
+    restored before each call, untimed), device ms (a trace), the plain
+    version's ms and the bound of this mask's work: the table read once
+    with the mask, the count written, and 32 B written for each bucket
+    whose contents the eviction changed (K10 stores only those)."""
+    import numpy as np
+    import torch
+
+    from stateright_tpu_torch.ops import _cuda
+    from stateright_tpu_torch.ops.hashtable import (
+        evict_mask_words, make_table, table_evict_prefix,
+        table_evict_prefix_reference, table_insert)
+    rng = np.random.default_rng(23)
+    n = int(EVICT_SLOTS * 0.6)
+    fps = rng.integers(1, 2 ** 64 - 1, n, dtype=np.uint64)
+    hi = torch.from_numpy((fps >> np.uint64(32)).astype(np.uint32)
+                          .view(np.int32)).to(device)
+    lo = torch.from_numpy(fps.astype(np.uint32).view(np.int32)).to(device)
+    table = make_table(EVICT_SLOTS, device)
+    _, ovf = table_insert(table, hi, lo, torch.ones(n, dtype=torch.bool,
+                                                    device=device),
+                          mask=False)
+    if ovf:
+        raise AssertionError("K10's table overflowed while filling")
+    keys = int((table != 0).sum())
+    work = table.clone()
+    count = torch.zeros(1, dtype=torch.int32, device=device)
+    out = {}
+    for k in EVICT_PREFIXES:
+        mask = np.zeros(256, bool)
+        mask[rng.permutation(256)[:k]] = True
+        words = evict_mask_words(mask)
+        got, want = table.clone(), table.clone()
+        zero_launches()
+        got_count = table_evict_prefix(got, mask)
+        launches = _cuda.LAUNCHES["evict_prefix"]
+        want_count = table_evict_prefix_reference(want, mask)
+        torch.cuda.synchronize()
+        occupied = (got != 0).cpu().numpy()
+        changed = int((got != table).any(dim=1).sum())
+        nbytes = table.numel() * 8 + 32 + 4 + 32 * changed
+        err = max(_int_err(got.view(torch.int32), want.view(torch.int32)),
+                  abs(got_count - want_count))
+
+        def restore():
+            work.copy_(table)
+            count.zero_()
+
+        def launch(words=words):
+            _cuda.evict_prefix(work, words, count=count)
+
+        ms = cuda_ms(launch, 20, before=restore)
+        traced = device_times(launch, before=restore)
+        dev_ms = (traced["by_kernel_ms"] or {}).get("evict_prefix_kernel")
+        plain_ms = _sync_ms(lambda: (work.copy_(table),
+                                     table_evict_prefix_reference(work,
+                                                                  mask)), 3)
+        res = {"slots": EVICT_SLOTS, "keys": keys, "prefixes": k,
+               "evicted": got_count, "changed_buckets": changed,
+               "launches": launches,
+               "max_abs_err": err, "ms": ms, "device_ms": dev_ms,
+               "plain_ms": plain_ms, **bound(nbytes, 0),
+               "usage": kernel_usage("evict", "evict_prefix_kernel"),
+               "checks": {"equal": err == 0, "one_launch": launches == 1,
+                          "prefix_occupancy": bool(
+                              (occupied[:, 1:] <= occupied[:, :-1]).all())}}
+        emit(phase="kernels", kernel="evict_prefix", **res)
+        if not all(res["checks"].values()):
+            raise AssertionError(f"K10 with {k} prefixes: {res['checks']}")
+        out[k] = res
+    del table, work, hi, lo
+    torch.cuda.synchronize()
+    return out
+
+
+def _raise_at(k, msg="UNAVAILABLE: injected", every=False):
+    """A fault hook raising ``msg`` when chunk ``k`` syncs (once), or at
+    every chunk from ``k`` on."""
+    fired = []
+
+    def hook(chunk):
+        if chunk >= k if every else (chunk == k and not fired):
+            fired.append(chunk)
+            raise RuntimeError(msg)
+
+    return hook
+
+
+def resilience_run(model, path_kernels, want, engine="gpu", holds=(),
+                   found=(), **opts) -> tuple:
+    """One run through ``register_run`` (the card alone unless ``race``
+    is given), held to ``want``'s unique count and digest (a run that
+    re-seeds or spills generates more than the pinned count) and to
+    ``engine``, with the resilience layer's profile keys."""
+    race = opts.pop("race", False)
+    sound = opts.pop("sound", False)
+    res, ck = register_run(model, () if race is not False else path_kernels,
+                           holds=holds, found=found, race=race, sound=sound,
+                           **opts)
+    prof = ck.profile()
+    res["digest"] = fp_digest(ck.generated_fingerprints())
+    res.update({k: prof[k] for k in RESILIENCE_KEYS if k in prof})
+    res["engine"] = prof.get("engine")
+    res["checks"].update(unique=res["unique"] == want[0],
+                         digest=res["digest"] == want[2],
+                         engine=res["engine"] == engine)
+    res["options"] = {k: (v if isinstance(v, (int, float, str, bool))
+                          else type(v).__name__) for k, v in opts.items()}
+    return res, ck
+
+
+def resilience_phase(root: str) -> dict:
+    """Phase ``resilience``: the resilience layer on one card end to end
+    through ``spawn_gpu()``, every launch count set to 0 before each run,
+    each run's winning engine asserted (``gpu``, the failover run's
+    ``host``): spill (TwoPhaseSys(7) and lossy Paxos(2) under a table
+    budget below their reachable sets, beside uncapped runs at the same
+    ``fmax``: at least two spills through K10, growth stopped at the
+    budget, rediscoveries filtered, the uncapped digests), retry (an
+    injected ``UNAVAILABLE`` on lossy Paxos(2), and the shadow's cost with
+    no fault against a plain run), autosave (exhausted retries name the
+    checkpoint, ``resume_from`` finishes it), the watchdog (a stalled
+    sync), the audit (a lying card caught and rolled back; a clean
+    audited run), the race's opt-in failover rung and sound eventually with a
+    fault. Returns the runs by label."""
+    import torch
+
+    from stateright_tpu_torch import TwoPhaseSys
+    from stateright_tpu_torch.ops import _cuda
+
+    chunk = ("fused_step", "chunk_begin", "append")
+    hist = chunk + ("history", "hpull")
+    spill_path = ("table_insert", "evict_prefix")
+    lin, chosen = "linearizable", "value chosen"
+    agree = ("abort agreement", "commit agreement")
+    want2pc7 = (UNIQUE_2PC7, GENERATED_2PC7, DIGEST_2PC7)
+    runs = {}
+
+    def record(key, res, **extra):
+        res.update(extra)
+        emit(phase="resilience", run=key, **res)
+        runs[key] = res
+        if not all(res["checks"].values()):
+            raise AssertionError(f"resilience {key}: {res['checks']}")
+
+    # spill: the budget binds, K10 evicts, the host tier filters
+    for label, model_fn, cfg, path, want, kw in (
+            ("2pc7", _twopc7, SPILL_2PC7, chunk, want2pc7,
+             dict(holds=("consistent",), found=agree)),
+            ("paxos2_lossy", lambda: _paxos_lossy(2), SPILL_PAXOS2, hist,
+             PIN_PAXOS2_LOSSY, dict(holds=(lin,), found=(chosen,)))):
+        plain, _ck = resilience_run(model_fn(), path, want, fmax=cfg["fmax"],
+                                    **kw)
+        del _ck
+        record(f"{label}_uncapped", plain)
+        res, _ck = resilience_run(model_fn(), path + spill_path, want,
+                                  **cfg, **kw)
+        del _ck
+        budget = cfg["max_capacity"]
+        res["checks"].update(
+            spills=res.get("spills", 0) >= 2,
+            grows_to_budget=res["grows"] >= 1 and res["capacity"] == budget,
+            host_probe_hits=res.get("host_probe_hits", 0) >= 1,
+            k10_per_spill=res["launches"]["evict_prefix"]
+            == res.get("spills"))
+        record(f"{label}_capped", res,
+               uncapped={k: plain[k] for k in ("wall_s", "loop_s")},
+               k10_launches_per_spill=res["launches"]["evict_prefix"]
+               / max(res.get("spills") or 1, 1))
+
+    # retry: one injected transient fault mid-run; then the shadow's cost
+    # with retries on and no fault, beside a plain run
+    pax = (hist, PIN_PAXOS2_LOSSY)
+    pkw = dict(holds=(lin,), found=(chosen,))
+    res, _ck = resilience_run(_paxos_lossy(2), *pax, retries=2, backoff=0.0,
+                              fault_hook=_raise_at(2), **pkw)
+    res["checks"]["retried_once"] = res["retries"] == 1
+    record("paxos2_lossy_retry", res)
+    plain, _ck = resilience_run(_paxos_lossy(2), *pax, **pkw)
+    record("paxos2_lossy_plain", plain)
+    res, _ck = resilience_run(_paxos_lossy(2), *pax, retries=1, **pkw)
+    res["checks"]["no_retry"] = res["retries"] == 0
+    record("paxos2_lossy_shadow", res,
+           plain={k: plain[k] for k in ("wall_s", "loop_s")},
+           shadow_cost_s=res["wall_s"] - plain["wall_s"])
+    del _ck
+
+    # autosave: exhausted retries write the checkpoint and name it; the
+    # checkpoint resumes on the card to the whole set
+    save_dir = os.path.join(root, "build", "resilience")
+    os.makedirs(save_dir, exist_ok=True)
+    path = os.path.join(save_dir, "paxos2_lossy.npz")
+    for stale in (path, path + ".g1"):
+        if os.path.exists(stale):
+            os.remove(stale)
+    zero_launches()
+    ck = _paxos_lossy(2).checker().gpu_options(
+        race=False, retries=1, backoff=0.0, autosave=path, chunk_steps=16,
+        fault_hook=_raise_at(3, every=True)).spawn_gpu()
+    t0 = time.perf_counter()
+    try:
+        ck.join()
+        error = None
+    except RuntimeError as exc:
+        error = str(exc)
+    saved = {"wall_s": time.perf_counter() - t0,
+             "autosaves": ck.profile().get("autosaves"),
+             "retries": ck.profile().get("retries"),
+             "file_bytes": os.path.getsize(path) if os.path.exists(path)
+             else None, "error": error}
+    del ck
+    if error is None:
+        raise AssertionError(f"resilience autosave: the run did not exhaust "
+                             f"its retries: {saved}")
+    zero_launches()
+    t0 = time.perf_counter()
+    resumed = _paxos_lossy(2).checker().resume_from(path).gpu_options(
+        race=False).spawn_gpu().join()
+    res = {"wall_s": time.perf_counter() - t0,
+           "unique": resumed.unique_state_count(),
+           "digest": fp_digest(resumed.generated_fingerprints()),
+           "engine": resumed.profile().get("engine"),
+           "launches": dict(_cuda.LAUNCHES)}
+    resumed.assert_no_discovery(lin)
+    res["checks"] = {
+        "raised_naming_checkpoint": error is not None and path in error
+        and "resume_from" in error,
+        "autosaved": (saved["autosaves"] or 0) >= 1,
+        "unique": res["unique"] == PIN_PAXOS2_LOSSY[0],
+        "digest": res["digest"] == PIN_PAXOS2_LOSSY[2],
+        "engine": res["engine"] == "gpu",
+        "launches": all(res["launches"][k] > 0
+                        for k in hist + ("table_insert",))}
+    del resumed
+    record("paxos2_lossy_autosave_resume", res, saved=saved)
+
+    # the watchdog: a sync stalled past chunk_deadline is retried
+    stalled = []
+
+    def stall(chunk):
+        if chunk == 2 and not stalled:
+            stalled.append(chunk)
+            time.sleep(2.0)
+
+    res, _ck = resilience_run(_twopc7(), chunk, want2pc7, chunk_steps=8,
+                              retries=2, backoff=0.0, chunk_deadline=0.5,
+                              fault_hook=stall, holds=("consistent",),
+                              found=agree)
+    res["checks"]["retried"] = res["retries"] >= 1
+    record("2pc7_watchdog", res)
+
+    # the audit: a card that lies once is caught and rolled back; a clean
+    # audited run finds nothing
+    res, _ck = resilience_run(_twopc7(), chunk, want2pc7, chunk_steps=8,
+                              audit=1, retries=2, backoff=0.0,
+                              corrupt_hook=lambda o, d: 0 if o == 2
+                              else None, holds=("consistent",), found=agree)
+    res["checks"].update(caught=res["audit_mismatches"] >= 1,
+                         quarantined=res["quarantined"] == 1)
+    record("2pc7_audit_lie", res)
+    res, _ck = resilience_run(_twopc7(), chunk, want2pc7, chunk_steps=8,
+                              audit=1, holds=("consistent",), found=agree)
+    res["checks"].update(audited=res["audits"] >= 1,
+                         clean=res["audit_mismatches"] == 0)
+    record("2pc7_audit_clean", res)
+    del _ck
+
+    # the failover rung (opt-in on the port): a raced run with
+    # failover=True whose card keeps failing transiently is answered by
+    # the host BFS; without it (the default) the fault raises
+    host = TwoPhaseSys(4).checker().spawn_bfs().join()
+    want4 = (host.unique_state_count(), None,
+             fp_digest(host.generated_fingerprints()))
+    res, _ck = resilience_run(TwoPhaseSys(4), (), want4, engine="host",
+                              race=True, capacity=1 << 12, race_budget=0.0,
+                              failover=True,
+                              fault_hook=_raise_at(1, every=True))
+    res["checks"]["failed_over"] = res.get("failovers") == 1
+    del _ck
+    zero_launches()
+    try:
+        TwoPhaseSys(4).checker().gpu_options(
+            capacity=1 << 12, race_budget=0.0,
+            fault_hook=_raise_at(1, every=True)).spawn_gpu().join()
+        opt_out = None
+    except RuntimeError as exc:
+        opt_out = str(exc)
+    res["checks"]["opt_out_raises"] = (opt_out is not None
+                                       and "UNAVAILABLE" in opt_out)
+    record("2pc4_failover", res, opt_out_error=opt_out)
+
+    # sound eventually with one injected fault: the lasso sweep reads the
+    # shadow's records of both epochs
+    res, ck = resilience_run(_ping_pong(7), STAGED_PATH, PIN_PING7_SOUND,
+                             sound=True, chunk_steps=8, retries=2,
+                             backoff=0.0, fault_hook=_raise_at(2),
+                             holds=("delta within 1",),
+                             found=PING7_SOUND_FOUND)
+    res["checks"].update(retried_once=res["retries"] == 1,
+                         discoveries=sorted(ck.discoveries())
+                         == sorted(PING7_SOUND_FOUND))
+    del ck
+    record("ping7_sound_retry", res)
+    torch.cuda.synchronize()
+    return runs
+
+
+def resilience_kernel_entries(checks: dict, runs: dict) -> list:
+    """The ``kernels`` line's record of K10, with its launches on the
+    capped TwoPhaseSys(7) run (one a spill)."""
+    main = checks[85]
+    capped = runs["2pc7_capped"]
+    return [{
+        "name": "evict_prefix", "route": "cuda", "source": EVICT_SRC,
+        "replaces": "stateright_tpu/ops/hashtable.py:257",
+        "launches": capped["launches"]["evict_prefix"],
+        "max_abs_err": max(r["max_abs_err"] for r in checks.values()),
+        "ms": main["ms"], "device_ms": main["device_ms"],
+        "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+        "bound_by": main["bound_by"], "library_ms": None,
+        "launches_per_spill": {
+            k: runs[k]["k10_launches_per_spill"]
+            for k in ("2pc7_capped", "paxos2_lossy_capped")},
+        "by_prefixes": {str(k): {f: r[f] for f in (
+            "evicted", "changed_buckets", "ms", "device_ms", "plain_ms",
+            "bound_ms", "max_abs_err")}
+            for k, r in checks.items()},
+        "status": "ok"}]
+
+
 RANK_CASES = (("bucket", 7, None), ("ring", 7, None), ("bucket", 16, True),
               ("bucket", "lock8", None))
 
@@ -4614,6 +4974,7 @@ def main() -> int:
     crash_checks, crash_plain = crash_kernels(torch.device("cuda", 0))
     lossy_checks, lossy_plain = lossy_kernels(torch.device("cuda", 0))
     staged_checks = staged_kernels(torch.device("cuda", 0))
+    evict_checks = resilience_kernels(torch.device("cuda", 0))
     # the host race on the main path, and checkpoints on the card
     race_phase()
     ckpt = checkpoint_phase()
@@ -4867,6 +5228,9 @@ def main() -> int:
     lossy_runs = lossy_phase()
     # the staged step (fused=False, sound_eventually()) end to end
     staged_runs = staged_phase(torch.device("cuda", 0))
+    # the resilience layer (retry, the watchdog, autosave, the audit, the
+    # failover rung, spill through K10) end to end
+    resilience_runs = resilience_phase(root)
     # the register, crash and lossy K1 checks' plain versions, after every
     # trace
     register_plain(reg_checks, reg_plain)
@@ -4990,6 +5354,7 @@ def main() -> int:
     kernels += crash_kernel_entries(crash_checks, crash_runs)
     kernels += lossy_kernel_entries(lossy_checks, lossy_runs)
     kernels += staged_kernel_entries(staged_checks, staged_runs)
+    kernels += resilience_kernel_entries(evict_checks, resilience_runs)
     # K7, K8 and K9 at the widest register row (331 words), K7 at abd3's
     # (260)
     for entry in kernels:

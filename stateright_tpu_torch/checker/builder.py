@@ -97,7 +97,33 @@ class CheckerBuilder:
         (``checker/race.py``); ``race=False`` runs the card alone.
         ``resumable=True`` keeps the pending frontier after the run, so
         ``save()`` can checkpoint it (it disables the race, as do
-        symmetry and ``resume_from``). A mesh takes neither."""
+        symmetry and ``resume_from``). A mesh takes neither.
+
+        The resilience layer of one card (``checker/resilience.py``), the
+        JAX package's ``tpu_options`` of the same names, defaults and
+        meanings: ``retries`` (consecutive transient faults recovered,
+        default 0), ``backoff`` (first delay in seconds, doubled with
+        jitter, default 1.0) and ``retry_seed`` (the jitter's seed);
+        ``chunk_deadline`` (seconds a chunk's sync may take before the
+        watchdog turns it into a transient fault); ``autosave`` (a
+        checkpoint path, written every ``autosave_interval`` chunks,
+        default 32, and at the two terminal endings); ``audit`` (every
+        Nth chunk's fresh fingerprints re-hashed by the host oracle;
+        ``True`` every chunk, a float a sampled fraction) and
+        ``corrupt_hook``; ``fault_hook`` (called before each chunk's
+        sync: the fault injection point); ``max_capacity`` (the table's
+        growth budget, a power of two), ``spill`` (default True: past the
+        budget, or on an allocation fault, cold prefix ranges of the
+        table are evicted into the host tier), ``spill_frac`` (default
+        0.5) and ``max_spills`` (consecutive, default 8); and the race's
+        ``failover`` (default False on the port, True in the JAX package:
+        with it, a raced run whose card fails transiently is answered by
+        an un-budgeted host BFS). Any of
+        ``retries``, ``autosave``, ``audit`` or ``max_capacity`` keeps a
+        host shadow of the search, folded after every chunk. ``degrade``,
+        ``min_mesh`` and ``blame_after`` (the mesh's degradation ladder)
+        and every resilience key on a mesh raise (ROADMAP A9b), and
+        ``max_segment`` with the per-level engine (ROADMAP B16)."""
         self.gpu_options_.update(options)
         return self
 

@@ -274,14 +274,15 @@ def new_history(model, hcap: int, logcap: int, hdone: int,
 def seed_carry(model, qcap: int, capacity: int, init_rows, init_ebits,
                init_fps, cc: int, device, symmetry: bool = False,
                hcap: int = 0, sound: bool = False,
-               ecap: int = 0) -> ChunkCarry:
+               ecap: int = 0, table=None) -> ChunkCarry:
     """The initial carry: init states enqueued (with their
     eventually-bits — one value for all, or one per row, as a resumed
     frontier brings them — and their cached fingerprints: the canonical
     ones under ``symmetry``; state, not node, fingerprints under
     ``sound``), empty table, log (6 columns under ``symmetry`` or
     ``sound``), ring and, with ``ecap``, edge log. The caller inserts the
-    known keys into the table."""
+    known keys into the table. A spill's new epoch passes the evicted
+    ``table`` (``capacity`` slots) to keep instead of an empty one."""
     width = model.packed_width
     q = torch.zeros((qcap, width + 3), dtype=torch.int32, device=device)
     k = len(init_rows)
@@ -297,7 +298,11 @@ def seed_carry(model, qcap: int, capacity: int, init_rows, init_ebits,
         q[:k] = from_numpy_u32(block, device)
     n_props = len(model.properties())
     layout = CtrLayout(n_props, width)
-    table = make_table(capacity, device)
+    if table is None:
+        table = make_table(capacity, device)
+    elif table.numel() != capacity:
+        raise ValueError(f"a kept table has {table.numel()} slots, the "
+                         f"carry {capacity}")
     return ChunkCarry(
         q=q, table=table,
         ring=(torch.zeros((cc,), dtype=torch.int64, device=device)
@@ -954,13 +959,18 @@ class PendingChunk:
         #: a pinned buffer until read) and the h_n it starts at
         self._window, self.h_base = window, h_base
 
-    def read(self) -> np.ndarray:
-        st = self._stats
+    def wait(self) -> None:
+        """Wait for the counter block to reach the host (the chunk's one
+        sync; the engine's watchdog bounds it), without counting it."""
         if self._c is None:
             t0 = time.perf_counter()
             self._event.synchronize()
             self._c = self._buf.numpy().copy()
-            st.sync_s += time.perf_counter() - t0
+            self._stats.sync_s += time.perf_counter() - t0
+
+    def read(self) -> np.ndarray:
+        st = self._stats
+        self.wait()
         if not self._counted:
             self._counted = True
             c, lay = self._c, self._layout
@@ -1007,6 +1017,7 @@ class ChunkRunner:
         self._host = None
         self._turn = 0
         self._windows = None
+        self._side = None  # the shadow's copy stream (card only)
         if carry.q.is_cuda:
             n = carry.layout.length
             self._host = [(torch.empty((n,), dtype=torch.int32,
@@ -1021,6 +1032,26 @@ class ChunkRunner:
         """The carry's buffers were replaced (growth), or its history
         stage was (grown or dropped): recapture."""
         self.carry.card = None
+
+    def committed(self, t: torch.Tensor, start: int, end: int) -> np.ndarray:
+        """Rows ``[start, end)`` of ``t`` (the queue, the log or the edge
+        log: append-only) as numpy uint32, for the host shadow. Called
+        after a chunk's sync, with ``end`` that chunk's tail: under the
+        pipeline the next chunk is already appending past it, so on the
+        card the rows are copied on a side stream, which waits for
+        nothing on the stream the chunks run on, into pinned memory."""
+        if end <= start:
+            return np.zeros((0, t.shape[1]), np.uint32)
+        if not t.is_cuda:
+            return to_numpy_u32(t[start:end])
+        if self._side is None:
+            self._side = torch.cuda.Stream(t.device)
+        host = torch.empty((end - start, t.shape[1]), dtype=t.dtype,
+                           pin_memory=True)
+        with torch.cuda.stream(self._side):
+            host.copy_(t[start:end], non_blocking=True)
+        self._side.synchronize()
+        return host.numpy().view(np.uint32).copy()
 
     def card(self):
         """The carry's chunk on the card at this ``fmax`` (a

@@ -59,6 +59,19 @@ the cross edges (grown by the host when it fills), and at exhaustion the
 lasso sweep (``checker/lasso.py``) over the insert and cross edges
 reports the cycles on which an ``eventually`` property never holds.
 
+The resilience layer of one card (``checker/resilience.py``) wraps the
+chunk loop as the JAX package's does: with ``retries``, ``autosave``,
+``audit`` or a table budget (``max_capacity``) the engine keeps a host
+shadow, folded after each chunk's sync from the committed suffixes of
+the queue, the log and the edge log (``ChunkRunner.committed``); a
+transient fault re-seeds a fresh carry from it (``reseed``), a capacity
+fault or growth past the budget evicts cold prefix ranges of the table
+into it (``handle_spill``, K10), a failed audit rolls it back, and the
+two terminal endings write an autosave checkpoint. With none of those
+knobs set the run keeps no shadow and copies nothing more from the
+device (``fault_hook`` and ``chunk_deadline`` only wrap each chunk's
+sync).
+
 What the JAX engine offers beyond that path is not ported yet and raises
 ``NotImplementedError`` naming the reason; nothing is silently ignored.
 """
@@ -77,7 +90,7 @@ import torch
 from ..fingerprint import fp64_node
 from ..ops.expand import eventually_indices
 from ..ops.fused import CC_DEFAULT, StepWorkspace, supports
-from ..ops.hashtable import table_insert
+from ..ops.hashtable import table_evict_prefix, table_insert
 from ..ops.staged import staged_sizes
 from ..ops.words import from_numpy_u32, to_numpy_u32
 from .builder import CheckerBuilder
@@ -89,6 +102,15 @@ from .device_loop import (B_DISC, B_DMAX, B_E_N, B_GEN, B_H_N, B_HOVF,
                           disc_registers, history_regrow, history_rescan,
                           pull_representatives, seed_carry, step_sizes)
 from .host import HostChecker
+from .resilience import (SPILL_PREFIX_BITS, CandidateOverflowError,
+                         CorruptionError, FaultKind, audit_chunk_rows,
+                         blamed_device, classify_error,
+                         find_candidate_overflow, pack_qrows, spill_eligible)
+
+
+class DeviceWedgedError(RuntimeError):
+    """The card did not drain its stream within ``chunk_deadline``
+    before a re-seed: the run ends with its autosave (``_drain_device``)."""
 
 
 class EncodingOverflow(RuntimeError):
@@ -108,20 +130,31 @@ _NOT_PORTED = {
              "not ported: pass fused=True (the fused step, the default) "
              "or fused=False (the staged step)",
     "mode": "the per-level engine (mode='level') is not ported",
+    "max_segment": "the per-level engine's segment rows (mode='level', "
+                   "the only engine that reads max_segment) are not "
+                   "ported (ROADMAP B16)",
     "hint": "the per-row staged compaction (hint=) is not ported: no "
             "workload needs it, and the staged step packs tighter without "
             "it (its kraw/kmax buffers grow on overflow)",
     "host_map": "fleet host labels (cluster/mesh.py) are not ported",
 }
-for _key in ("retries", "backoff", "chunk_deadline", "retry_seed",
-             "degrade", "min_mesh", "blame_after", "spill", "spill_frac",
-             "max_spills", "max_capacity", "max_segment", "audit",
-             "corrupt_hook", "fault_hook", "autosave", "autosave_interval",
-             "failover"):
+for _key in ("degrade", "min_mesh", "blame_after"):
     _NOT_PORTED[_key] = (
-        "the resilience layer (retry, the degrade/promote ladder, spill, "
-        "audit, the host shadow, autosave and the race's failover rung) "
-        "is not ported (ROADMAP A11)")
+        "the degradation ladder of a mesh (degrade, min_mesh, blame_after) "
+        "is not ported (ROADMAP A9b), and one card has no rung to degrade "
+        "to")
+
+#: the resilience layer's keys (``checker/resilience.py``), with the JAX
+#: package's names, defaults and meanings: retry (``retries``,
+#: ``backoff``, ``retry_seed``), the watchdog (``chunk_deadline``),
+#: autosave (``autosave``, ``autosave_interval``), the audit (``audit``,
+#: ``corrupt_hook``), the fault hook, spill (``spill``, ``spill_frac``,
+#: ``max_spills``, ``max_capacity``) and the race's ``failover`` (on the
+#: port off unless asked for: ``checker/race.py``)
+RESILIENCE_OPTIONS = ("retries", "backoff", "retry_seed", "chunk_deadline",
+                      "autosave", "autosave_interval", "audit",
+                      "corrupt_hook", "fault_hook", "spill", "spill_frac",
+                      "max_spills", "max_capacity", "failover")
 for _key in ("mesh_axis", "exchange", "kb"):
     _NOT_PORTED[_key] = ("a knob of the sharded engine: pass "
                          "gpu_options(mesh=<DeviceMesh>) as well")
@@ -185,7 +218,7 @@ class GpuChecker(HostChecker):
     #: package, is accepted and not read here, as there)
     _OPTIONS = ("capacity", "fmax", "cc_dedup", "chunk_steps", "grow_at",
                 "device", "pipeline", "race", "race_budget", "resumable",
-                "hcap", "hmax")
+                "hcap", "hmax") + RESILIENCE_OPTIONS
     #: the staged step's own keys (``fused=False``, sound)
     _STAGED_OPTIONS = ("kraw", "kmax")
     #: tpu_options keys accepted only at the value that is the engine's
@@ -232,6 +265,7 @@ class GpuChecker(HostChecker):
                 + _NOT_PORTED.get(key, "not ported to stateright_tpu_torch"))
         self._symmetry_fn = builder.symmetry_fn_
         self._symmetry = builder.symmetry_fn_ is not None
+        self._init_resilience(opts)
         if self._sound:
             self._check_sound(builder, ev_idx, opts)
         # host-evaluated properties (e.g. the linearizability search):
@@ -280,6 +314,12 @@ class GpuChecker(HostChecker):
         self._capacity = int(opts.get("capacity", 1 << 20))
         if self._capacity & (self._capacity - 1) or self._capacity < 4:
             raise ValueError("capacity must be a power of two >= 4")
+        budget = self._spill_policy.max_capacity
+        if budget is not None and budget < self._capacity:
+            raise ValueError(
+                f"gpu_options(max_capacity={budget}) is below capacity="
+                f"{self._capacity}; the budget caps growth, so it must be "
+                ">= the starting capacity")
         self._grow_at = float(opts.get("grow_at", 0.55))
         self._chunk_steps = int(opts.get("chunk_steps", 64))
         if self._chunk_steps < 1:
@@ -300,6 +340,51 @@ class GpuChecker(HostChecker):
         #: enqueued, kept on the device with the checker (coverage
         #: diagnostics read them)
         self._queue = None
+
+    def _init_resilience(self, opts: dict) -> None:
+        """The resilience knobs (``checker/resilience.py``), read and
+        checked as the JAX package's ``TpuChecker.__init__`` does."""
+        from .resilience import AuditPolicy, RetryPolicy, SpillPolicy
+        self._retry_policy = RetryPolicy.from_options(opts)
+        self._audit_policy = AuditPolicy.from_options(opts)
+        self._spill_policy = SpillPolicy.from_options(opts)
+        #: an injected lying card (tests, ``chip_smoke.py``): ``(ordinal,
+        #: shards) -> 0`` flips one bit of the fingerprints that chunk
+        #: reported (the corruption analogue of ``fault_hook``)
+        self._corrupt_hook = opts.get("corrupt_hook")
+        #: ``(ordinal[, shards])``, called before each chunk's sync: the
+        #: fault injection point; a two-parameter hook gets the mesh
+        #: width (1)
+        self._fault_hook = opts.get("fault_hook")
+        self._fault_hook_arity = 1
+        if self._fault_hook is not None:
+            import inspect
+            try:
+                self._fault_hook_arity = len(
+                    inspect.signature(self._fault_hook).parameters)
+            except (TypeError, ValueError):
+                pass
+        self._chunk_deadline = opts.get("chunk_deadline")
+        if (self._chunk_deadline is not None
+                and float(self._chunk_deadline) <= 0):
+            raise ValueError(
+                "gpu_options(chunk_deadline=...) must be positive seconds "
+                "(omit it to disable the watchdog)")
+        self._autosave_path = opts.get("autosave")
+        self._autosave_every = int(opts.get("autosave_interval", 32))
+        #: the devices the audit caught lying (always 0 on one card)
+        self._quarantined: set = set()
+        #: the shadow's chunk-digest head at the last fold: what a
+        #: checkpoint's integrity chain is signed against
+        self._shadow_chain_head = None
+        self._spill_warned = False
+        if self._symmetry and self._audit_policy.enabled:
+            raise NotImplementedError(
+                "gpu_options(audit=...) is not supported with symmetry "
+                "reduction: the queue rows are original states while their "
+                "cached fingerprints are the canonical representatives', so "
+                "the oracle cannot re-execute them independently. Audit "
+                "unreduced runs, or rely on the artifact integrity chain.")
 
     def _check_sound(self, builder, ev_idx, opts) -> None:
         """The JAX package's guards of ``sound_eventually()`` (its
@@ -326,6 +411,13 @@ class GpuChecker(HostChecker):
                 "sound_eventually() under symmetry reduction on the card is "
                 "not ported (ROADMAP A11: sound under symmetry on the "
                 "card); pass gpu_options(device=\"cpu\")")
+        if self._spill_policy.max_capacity is not None:
+            raise NotImplementedError(
+                "gpu_options(max_capacity=...) memory tiering is not "
+                "supported with sound_eventually(): rediscovered node keys "
+                "would re-enter the cross-edge records the lasso sweep "
+                "treats as a faithful node graph. Raise "
+                "gpu_options(capacity=...) instead.")
 
     def _resolve_host_fns(self, fns) -> "Optional[list]":
         """``model.host_property_fns`` in ``_host_props`` order: a dict
@@ -534,21 +626,32 @@ class GpuChecker(HostChecker):
         self._unique_state_count = len(self._generated)
         return rows
 
-    def _insert_keys(self, table, fps) -> None:
-        """Insert known fingerprints (Python ints) into ``table``."""
+    def _insert_keys(self, table, fps, bulk: bool = False) -> None:
+        """Insert known fingerprints (Python ints) into ``table``. With
+        ``bulk`` (a re-seed's hot set) on the CPU the keys go in as the
+        JAX package's ``_bulk_insert_async`` sends them, 2**16 a call,
+        each call padded to a power of two of at least 16 lanes, so the
+        plain insert places them in the JAX table's slots."""
         if not len(fps):
             return
-        arr = np.asarray(fps, np.uint64)
-        hi = from_numpy_u32((arr >> np.uint64(32)).astype(np.uint32),
-                            table.device)
-        lo = from_numpy_u32(arr.astype(np.uint32), table.device)
-        valid = torch.ones((len(arr),), dtype=torch.bool,
-                           device=table.device)
-        _, ovf = table_insert(table, hi, lo, valid, mask=False)
-        if ovf:
-            raise RuntimeError(
-                "device hash table overflow while inserting known "
-                "fingerprints; raise gpu_options(capacity=...)")
+        step = 1 << 16 if bulk else len(fps)
+        for start in range(0, len(fps), step):
+            arr = np.asarray(fps[start:start + step], np.uint64)
+            n = len(arr)
+            if bulk and not table.is_cuda:
+                n = max(16, 1 << (n - 1).bit_length())
+                arr = np.concatenate([arr, np.zeros((n - len(arr),),
+                                                    np.uint64)])
+            hi = from_numpy_u32((arr >> np.uint64(32)).astype(np.uint32),
+                                table.device)
+            lo = from_numpy_u32(arr.astype(np.uint32), table.device)
+            valid = torch.arange(n, device=table.device) < len(
+                fps[start:start + step])
+            _, ovf = table_insert(table, hi, lo, valid, mask=False)
+            if ovf:
+                raise RuntimeError(
+                    "device hash table overflow while inserting known "
+                    "fingerprints; raise gpu_options(capacity=...)")
 
     # --- growth -------------------------------------------------------
     def _device_qcap(self, n_init: int, headroom: int) -> int:
@@ -566,8 +669,18 @@ class GpuChecker(HostChecker):
         """Quadruple the table and log, move the queue into a
         correspondingly larger buffer at the same positions, and
         re-insert every known fingerprint: the log's through the insert
-        kernel (plain insert on the CPU), then the seed-time keys."""
+        kernel (plain insert on the CPU), then the seed-time keys. A
+        failed allocation (``torch.cuda.OutOfMemoryError``, a capacity
+        fault that spill can relieve) leaves the capacity as it was."""
+        old = self._capacity
         self._capacity *= 4
+        try:
+            self._grow_buffers(carry, n_init, headroom)
+        except BaseException:
+            self._capacity = old
+            raise
+
+    def _grow_buffers(self, carry, n_init: int, headroom: int) -> None:
         dev = carry.q.device
         q_tail, log_n = carry.q_tail, carry.log_n
         q = torch.zeros((self._device_qcap(n_init, headroom),
@@ -621,11 +734,16 @@ class GpuChecker(HostChecker):
         headroom = fmax * model.max_actions
         k_steps = self._chunk_steps
         pipeline = bool(opts.get("pipeline", True))
+        width = model.packed_width
         stats = LoopStats()
         prof = self._profile
         prof.update(engine="gpu", device=str(self._device), fmax=fmax,
                     cc_dedup_capacity=self._cc, grows=0,
                     chunk_steps=k_steps, pipeline=pipeline)
+        # the resilience layer's counters, the JAX package's names
+        prof.update(retries=0, spills=0, evicted_keys=0, host_tier_keys=0,
+                    host_probe_hits=0, autosaves=0, audits=0,
+                    audit_mismatches=0, quarantined=0)
         if self._host_props:  # the history stage's counters
             prof.update(pulls=0, hgrow=0, hgrow_s=0.0, host_eval_s=0.0,
                         host_evals=0)
@@ -641,9 +759,6 @@ class GpuChecker(HostChecker):
             init_rows = self._seed_inits()
             seed_ebits, seed_fps = full_ebits, self._seed_cache_fps
         n_init = len(init_rows)
-        # everything known at seed time is re-inserted on growth (the
-        # log only records states found since)
-        self._base_fps = list(self._generated)
         host_idx = {i for i, _p in self._host_props}
         if self._host_props and self._resume_path is None:
             # the init rows never enter the history log (only appended
@@ -654,9 +769,27 @@ class GpuChecker(HostChecker):
                 discoveries)
         if prop_count == 0:
             return  # nothing to search for
-        preload = len(self._base_fps)
-        while self._grow_at * self._capacity <= headroom + preload:
-            self._capacity *= 4
+
+        # --- the resilience layer (checker/resilience.py), before the
+        # seed: with a table budget the shadow decides which keys the
+        # device table holds at all
+        retry = self._retry_policy
+        audit_pol = self._audit_policy
+        spill_pol = self._spill_policy
+        spill_on = spill_pol.enabled and not self._sound
+        corrupt_hook = self._corrupt_hook
+        shadow = self._make_shadow()
+        if audit_pol.enabled:
+            from .. import fingerprint
+            prof["fp_core"] = fingerprint.core()
+        # everything known at seed time is re-inserted on growth (the log
+        # only records states found since): the device-resident hot set
+        seed_keys = self._fit_table(
+            shadow.hot_keys() if shadow is not None
+            else list(self._generated), shadow, headroom, spill_on,
+            discoveries, "the seeded reached set")
+        preload = len(seed_keys)
+        self._base_fps = seed_keys
         qcap = self._device_qcap(n_init, headroom)
         # the staged step's buffers (the JAX package's kraw/kmax) and,
         # under sound, the edge log, grown on demand
@@ -672,29 +805,42 @@ class GpuChecker(HostChecker):
         if staged is not None:
             prof.update(staged=True, kraw=kraw, kmax=kmax, kovfs=0,
                         egrows=0)
-        carry = seed_carry(model, qcap, self._capacity, init_rows,
-                           seed_ebits, seed_fps,
-                           0 if staged is not None else self._cc,
-                           self._device, symmetry=self._symmetry,
-                           hcap=(self._hcap if self._want_reps(discoveries)
-                                 else 0), sound=self._sound, ecap=ecap)
+
+        def new_carry(rows, ebits, fps, table=None):
+            return seed_carry(model, qcap, self._capacity, rows, ebits, fps,
+                              0 if staged is not None else self._cc,
+                              self._device, symmetry=self._symmetry,
+                              hcap=(self._hcap
+                                    if self._want_reps(discoveries) else 0),
+                              sound=self._sound, ecap=ecap, table=table)
+
+        def new_runner():
+            return ChunkRunner(model, carry, fmax, stats,
+                               cancelled=self._cancel_event.is_set,
+                               staged=staged)
+
+        carry = new_carry(init_rows, seed_ebits, seed_fps)
         self._hscan_tail = n_init
-        self._insert_keys(carry.table, self._base_fps)
+        self._insert_keys(carry.table, seed_keys)
         prof["seed_s"] = time.perf_counter() - t_start
-        runner = ChunkRunner(model, carry, fmax, stats,
-                             cancelled=self._cancel_event.is_set,
-                             staged=staged)
-        qmargin = (staged.qmargin if staged is not None
-                   else step_sizes(model, fmax)[2])
+        runner = new_runner()
+        if shadow is not None:
+            shadow.seed_epoch([pack_qrows(init_rows, seed_ebits, seed_fps,
+                                          width)])
         kovf_pend = [0, 0]  # vmax, dmax of the kovf chunks
         target = self._target_state_count
         inflight: deque = deque()
         last = None  # the newest counter block read
 
+        def qmargin() -> int:
+            return (staged.qmargin if staged is not None
+                    else step_sizes(model, fmax)[2])
+
         def found() -> np.ndarray:
             """Each property's discovery so far: the device registers
             (not for host-evaluated properties: their device bits are
-            placeholders) or a known one (a resumed run's, the host's)."""
+            placeholders) or a known one (a resumed run's, the host's,
+            an earlier epoch's)."""
             hit = last[B_DISC:B_DISC + prop_count] != 0
             return np.array([(bool(hit[i]) and i not in host_idx)
                              or prop.name in discoveries
@@ -710,21 +856,88 @@ class GpuChecker(HostChecker):
                                  self._capacity - headroom) - preload)
             remaining = (min(max(target - self._state_count, 0), I32_MAX)
                          if target is not None else I32_MAX)
-            inflight.append((runner.dispatch(k_steps, remaining,
-                                             grow_limit, self._h_pulled,
-                                             n_init), grow_limit))
+            pending = runner.dispatch(k_steps, remaining, grow_limit,
+                                      self._h_pulled, n_init)
+            inflight.append((pending, grow_limit, stats.chunks))
 
-        def process(pending, grow_limit: int) -> set:
+        def fold(c: np.ndarray, ordinal: int) -> None:
+            """The shadow's fold of one synced chunk (the JAX package's
+            ``process`` with a shadow): the committed suffixes of the
+            queue, the log and the edge log copied to the host, audited
+            when this chunk is sampled, folded in; then the autosave."""
+            nonlocal corruption_attempt
+            t0 = time.perf_counter()
+            q_tail, log_n = int(c[B_Q_TAIL]), int(c[B_LOG_N])
+            if q_tail - n_init != log_n:
+                # the shadow reads queue row n_init + i as log row i
+                raise RuntimeError(
+                    f"queue and log out of lockstep: tail {q_tail}, "
+                    f"{n_init} seed rows, {log_n} log rows")
+            prev = shadow.log_n[0]
+            q_new = runner.committed(carry.q, n_init + prev, n_init + log_n)
+            log_new = runner.committed(carry.log, prev, log_n)
+            e_new = (None if carry.elog is None
+                     else runner.committed(carry.elog, shadow.e_n[0],
+                                           int(c[B_E_N])))
+            if (corrupt_hook is not None and len(q_new)
+                    and corrupt_hook(ordinal, 1) == 0):
+                # injected lying card: one bit flipped in the
+                # fingerprints it reported, consistently in the queue's
+                # fp column and the log's child key
+                q_new[:, width + 1] ^= np.uint32(1)
+                log_new[:, 0] ^= np.uint32(1)
+            audited = audit_pol.should_audit(ordinal)
+            if audited:
+                prof["audits"] += 1
+                bad = audit_chunk_rows(q_new, log_new, width,
+                                       sound=self._sound)
+                if bad:
+                    prof["audit_mismatches"] += 1
+                    raise CorruptionError(
+                        f"chunk {ordinal} audit: {bad} of {len(q_new)} "
+                        "frontier fingerprints disagree with the host "
+                        "oracle's re-execution — the chip is returning "
+                        "wrong results", device_index=0, mismatches=bad)
+            hits = shadow.note_chunk(0, q_new, log_new, e_new,
+                                     int(c[B_Q_HEAD]))
+            if audited:
+                # the oracle vouched for everything up to this fold
+                shadow.audit_mark()
+                corruption_attempt = 0
+            self._shadow_chain_head = shadow.chain_head
+            if hits:
+                prof["host_probe_hits"] += hits
+                prof["host_tier_keys"] = shadow.host_tier_keys
+            prof["shadow_s"] = (prof.get("shadow_s", 0.0)
+                                + time.perf_counter() - t0)
+            if (self._autosave_path is not None
+                    and self._autosave_every > 0
+                    and ordinal % self._autosave_every == 0):
+                self._write_autosave(shadow, discoveries)
+
+        def process(pending, grow_limit: int, ordinal: int) -> set:
             """Consume one chunk's counters; returns the host actions it
             demands (handled once the pipeline is drained)."""
-            nonlocal last
+            nonlocal last, fault_attempt, spill_attempt
+            self._sync_chunk(pending, ordinal)
             c = last = pending.read()
+            # a successful sync: the retry budget bounds consecutive
+            # faults, the spill budget consecutive spills
+            fault_attempt = spill_attempt = 0
             if c[carry.layout.ext + E_FAULT]:
                 raise RuntimeError(
                     "the step kernel found a claimed slot without this "
                     "step's owner word, or the append's count disagreed "
                     "with the step's (S_FAULT)")
+            if shadow is not None:
+                fold(c, ordinal)
+                self._unique_state_count = len(self._generated)
             self._state_count += int(c[B_GEN])
+            hit, fps = disc_registers(c, prop_count)
+            for i, prop in enumerate(properties):
+                if hit[i] and i not in host_idx \
+                        and prop.name not in discoveries:
+                    discoveries[prop.name] = int(fps[i])
             if c[B_XOVF]:
                 raise EncodingOverflow(
                     "model capacity overflow: a successor could not be "
@@ -764,15 +977,18 @@ class GpuChecker(HostChecker):
             elif ecap and int(c[B_E_N]) >= ecap - max(kmax, fmax):
                 acts.add("egrow")
             elif (log_n >= grow_limit
-                  or q_tail > carry.q.shape[0] - qmargin):
+                  or q_tail > carry.q.shape[0] - qmargin()):
                 acts.add("grow")
             return acts
 
         def handle_kovf() -> None:
             """The JAX package's ``handle_kovf``: each overflowed stage
             resized to the observed branching (at least doubled), the
-            chunk rebuilt (a new graph on the card), ``kovf`` cleared."""
-            nonlocal kraw, kmax
+            chunk rebuilt (a new graph on the card), ``kovf`` cleared. A
+            resize that cannot grow is a capacity fault
+            (:class:`CandidateOverflowError`), which the retry envelope
+            recovers with the buffers at their bound."""
+            nonlocal kraw, kmax, staged
             vmax, dmax = kovf_pend
             before = (kraw, kmax)
             grew = False
@@ -785,76 +1001,263 @@ class GpuChecker(HostChecker):
                            kraw)
             kmax = min(kmax, kraw)
             if (kraw, kmax) == before:
-                raise RuntimeError(
-                    "candidate-buffer overflow (kovf) wedged at "
+                raise CandidateOverflowError(
+                    "candidate-buffer capacity overflow (kovf) wedged at "
                     f"kraw={kraw} kmax={kmax} (observed vmax={vmax} "
-                    f"dmax={dmax})")
+                    f"dmax={dmax})", vmax=vmax, dmax=dmax)
             kovf_pend[:] = [0, 0]
             prof["kovfs"] += 1
             prof.update(kraw=kraw, kmax=kmax)
-            runner.staged = staged_plan()
+            runner.staged = staged = staged_plan()
             runner.invalidate()
             carry.ctr[B_KOVF] = 0
 
         def handle_egrow() -> None:
             """The edge log full: quadrupled, the chunk rebuilt."""
-            nonlocal ecap
+            nonlocal ecap, staged
             elog = torch.zeros((ecap * 4, 4), dtype=torch.int32,
                                device=carry.elog.device)
             elog[:ecap] = carry.elog
             carry.elog, ecap = elog, ecap * 4
             prof["egrows"] += 1
-            runner.staged = staged_plan()
+            runner.staged = staged = staged_plan()
             runner.invalidate()
 
+        def next_epoch(rows, ebits, fps, table=None) -> None:
+            """A new device incarnation from the shadow's pending
+            frontier: a fresh carry (keeping ``table``, a spill's evicted
+            one, else empty for the caller to fill), a new runner (a new
+            capture on the card), a new shadow epoch."""
+            nonlocal carry, runner, n_init, qcap
+            rows = [rows[i] for i in range(rows.shape[0])]
+            n_init = len(rows)
+            self._h_pulled = 0
+            self._hscan_tail = n_init
+            qcap = self._device_qcap(n_init, headroom)
+            carry = new_carry(rows, np.asarray(ebits, np.uint32), fps,
+                              table=table)
+            runner = new_runner()
+            shadow.seed_epoch([pack_qrows(rows, ebits, fps, width)])
+            hgrow_pend.update(hovf=False, h_n=0)
+            kovf_pend[:] = [0, 0]
+
+        def handle_spill(reason: str = "budget") -> None:
+            """The JAX package's ``handle_spill``: growth would pass the
+            table budget, so (the pipeline drained) the coldest prefix
+            ranges are evicted from the table in place (K10 on the card;
+            the shadow, the host tier, holds every key) and a new epoch
+            starts around the evicted table, its queue the pending
+            frontier, the growth limit's preload down by the evicted
+            keys. The new carry's recent-key ring is empty (the ring must
+            hold only keys the table holds)."""
+            nonlocal preload
+            if int(min(self._grow_at * self._capacity,
+                       self._capacity - headroom)) <= 0:
+                # even an empty table cannot fit one iteration's
+                # headroom: spilling again would spin at zero progress
+                self._capacity_terminal(RuntimeError(
+                    f"device table budget (capacity {self._capacity}) "
+                    f"cannot fit one iteration's headroom ({headroom}) — "
+                    "raise gpu_options(max_capacity=...) or shrink fmax"),
+                    shadow, discoveries)
+            occupancy = preload + int(last[B_LOG_N])
+            hot_budget = max(0, min(
+                int((1.0 - spill_pol.frac) * occupancy),
+                int(self._grow_at * self._capacity) - headroom - 1))
+            plan = shadow.spill_plan(hot_budget)
+            if plan is None:
+                self._capacity_terminal(RuntimeError(
+                    "host tier exhausted: range eviction cannot bring the "
+                    f"device table (capacity {self._capacity}) under its "
+                    "growth budget"), shadow, discoveries)
+            self._warn_spill_eventually()
+            t0 = time.perf_counter()
+            mask = np.zeros((1 << SPILL_PREFIX_BITS,), bool)
+            mask[sorted(shadow.evicted_prefixes)] = True
+            ecount = table_evict_prefix(carry.table, mask)
+            rows, ebs, fps = shadow.pending()
+            self._base_fps = shadow.hot_keys()
+            preload = max(occupancy - ecount, 0)
+            next_epoch(rows, ebs, fps, table=carry.table)
+            prof["spill_s"] = (prof.get("spill_s", 0.0)
+                               + time.perf_counter() - t0)
+            self._note_spill(shadow, ecount)
+
+        def reseed() -> None:
+            """The JAX package's post-fault ``reseed``: the device state
+            rebuilt from the shadow — the pending frontier the queue, the
+            hot set (the whole mirror until ranges are evicted) the
+            table — so the run explores exactly the rest of the graph.
+            The card's stream is drained first (the old carry's chunk
+            may still be in flight), within ``chunk_deadline``."""
+            nonlocal preload, ecap, staged
+            self._drain_device()
+            rows, ebs, fps = shadow.pending()
+            hot = self._fit_table(shadow.hot_keys(), shadow, headroom,
+                                  spill_on, discoveries,
+                                  "the re-seeded hot set")
+            preload = len(hot)
+            self._base_fps = hot
+            if self._sound:
+                ecap = max(ecap, self._capacity)
+            if staged is not None:
+                staged = staged_plan()
+            next_epoch(rows, ebs, fps)
+            self._insert_keys(carry.table, hot, bulk=True)
+
         hgrow_pend = {"hovf": False, "h_n": 0}
+        fault_attempt = spill_attempt = corruption_attempt = 0
+        recover_delay = None
 
         t_loop = time.perf_counter()
         # the JAX package's chunk loop (checker/tpu.py _drive_device):
         # with the pipeline, chunk N+1 is in flight while chunk N's
         # counters are read; a chunk launched past a stop condition runs
         # no iteration, since every condition the host acts on is also in
-        # the device's loop condition
-        dispatch()
+        # the device's loop condition. With a shadow the loop runs inside
+        # the retry envelope: a fault drops the chunks in flight and the
+        # run goes on from the shadow
         while True:
-            if pipeline and len(inflight) == 1:
+            try:
+                if recover_delay is not None:
+                    # back off before touching the device again; the
+                    # reseed runs inside the envelope, so a still-dead
+                    # backend just costs another attempt
+                    if recover_delay > 0:
+                        time.sleep(recover_delay)
+                    recover_delay = None
+                    reseed()
                 dispatch()
-            acts = process(*inflight.popleft())
-            if not acts:
-                if not inflight:
+                while True:
+                    if pipeline and len(inflight) == 1:
+                        dispatch()
+                    acts = process(*inflight.popleft())
+                    if not acts:
+                        if not inflight:
+                            dispatch()
+                        continue
+                    while inflight:
+                        acts |= process(*inflight.popleft())
+                    if "hdrop" in acts and carry.hist is not None:
+                        carry.hist = None
+                        carry.ctr[B_HOVF] = 0
+                        runner.invalidate()
+                    if "hgrow" in acts and carry.hist is not None:
+                        # before the exit, as in the JAX package: an
+                        # overflow in the last chunk leaves rows whose
+                        # histories only the rescan logs and evaluates
+                        self._grow_history(carry, hgrow_pend["h_n"],
+                                           hgrow_pend["hovf"],
+                                           int(last[B_Q_TAIL]), n_init,
+                                           discoveries)
+                        hgrow_pend.update(hovf=False, h_n=0)
+                        runner.invalidate()
+                    if "kovf" in acts:
+                        handle_kovf()
+                        dispatch()
+                        continue
+                    if "done" in acts or all(found()):
+                        break
+                    if "egrow" in acts:
+                        handle_egrow()
+                    elif "grow" in acts:
+                        # growth within the table budget; past it a spill
+                        # to the host tier, or the capacity-terminal
+                        # ending when spill is off
+                        if spill_pol.can_grow(self._capacity):
+                            self._grow_device(carry, n_init, headroom)
+                            runner.invalidate()
+                            prof["grows"] += 1
+                        elif spill_on and shadow is not None:
+                            handle_spill("budget")
+                        else:
+                            self._capacity_terminal(RuntimeError(
+                                "device table growth past gpu_options("
+                                f"max_capacity={spill_pol.max_capacity}) "
+                                "needed and spill is disabled"),
+                                shadow, discoveries)
                     dispatch()
-                continue
-            while inflight:
-                acts |= process(*inflight.popleft())
-            if "hdrop" in acts and carry.hist is not None:
-                carry.hist = None
-                carry.ctr[B_HOVF] = 0
-                runner.invalidate()
-            if "hgrow" in acts and carry.hist is not None:
-                # before the exit, as in the JAX package: an overflow in
-                # the last chunk leaves rows whose histories only the
-                # rescan logs and evaluates
-                self._grow_history(carry, hgrow_pend["h_n"],
-                                   hgrow_pend["hovf"], int(last[B_Q_TAIL]),
-                                   n_init, discoveries)
-                hgrow_pend.update(hovf=False, h_n=0)
-                runner.invalidate()
-            if "kovf" in acts:
-                handle_kovf()
-                dispatch()
-                continue
-            if "done" in acts or all(found()):
                 break
-            if "egrow" in acts:
-                handle_egrow()
-            elif "grow" in acts:
-                self._grow_device(carry, n_init, headroom)
-                runner.invalidate()
-                prof["grows"] += 1
-            dispatch()
+            except BaseException as exc:
+                if shadow is None:
+                    raise
+                inflight.clear()
+                if isinstance(exc, DeviceWedgedError):
+                    # no carry can be seeded on a card that does not
+                    # drain: the autosave ending at once
+                    self._resilience_degrade(exc, shadow, discoveries,
+                                             why=str(exc))
+                kind = classify_error(exc)
+                if kind is FaultKind.CAPACITY:
+                    # a spill-eligible capacity fault (RESOURCE_EXHAUSTED,
+                    # out of memory, table pressure, a wedged kovf)
+                    # recovers by shrinking the device-resident set (or
+                    # growing the candidate buffers) and re-seeding; the
+                    # rest, and an exhausted spill budget, end the run
+                    if not (spill_on and spill_eligible(exc)):
+                        self._capacity_terminal(exc, shadow, discoveries)
+                    spill_attempt += 1
+                    if spill_attempt > spill_pol.max_spills:
+                        self._capacity_terminal(exc, shadow, discoveries)
+                    cand = find_candidate_overflow(exc)
+                    if cand is not None:
+                        kraw = fa
+                        kmax = min(max(kmax * 2, cand.dmax + cand.dmax // 4),
+                                   fa)
+                        prof["kovfs"] = prof.get("kovfs", 0) + 1
+                        prof.update(kraw=kraw, kmax=kmax)
+                    else:
+                        # the fault names the budget better than any
+                        # option: growth clamped at this capacity, spill
+                        if (spill_pol.max_capacity is None
+                                or spill_pol.max_capacity > self._capacity):
+                            spill_pol.max_capacity = self._capacity
+                        plan = shadow.spill_plan(max(0, min(
+                            int((1.0 - spill_pol.frac) * self._grow_at
+                                * self._capacity),
+                            int(self._grow_at * self._capacity)
+                            - headroom - 1)))
+                        if plan is None:
+                            self._capacity_terminal(exc, shadow, discoveries)
+                        self._warn_spill_eventually()
+                        self._note_spill(shadow, plan[2])
+                    recover_delay = 0.0
+                    continue
+                if kind is FaultKind.CORRUPTION:
+                    # the audit caught the card lying: every fold since the
+                    # last audited chunk is suspect — roll the shadow back
+                    # to it and replay; one card has nothing to quarantine
+                    # around, so the replay runs under audit with a budget
+                    # of consecutive corruptions
+                    blamed = blamed_device(exc)
+                    self._quarantined.add(0 if blamed is None else blamed)
+                    prof["quarantined"] = len(self._quarantined)
+                    shadow.rollback_to_mark()
+                    self._unique_state_count = len(self._generated)
+                    if corruption_attempt >= max(1, retry.retries):
+                        raise RuntimeError(
+                            "chunk audit failed "
+                            f"{corruption_attempt + 1} consecutive times on "
+                            "the only device — the chip is persistently "
+                            "returning wrong results and there is no "
+                            f"healthy silicon to replay on ({exc})") from exc
+                    corruption_attempt += 1
+                    recover_delay = 0.0
+                    continue
+                if kind is not FaultKind.TRANSIENT:
+                    raise
+                # a transient fault: the chunks in flight are dropped
+                # (their work replays from the shadow); back off, re-seed,
+                # go on. Past the budget, the autosave ending
+                if fault_attempt >= retry.retries:
+                    self._resilience_degrade(exc, shadow, discoveries)
+                fault_attempt += 1
+                recover_delay = retry.delay(fault_attempt)
+                prof["retries"] += 1
         prof["loop_s"] = time.perf_counter() - t_loop
         log_n = int(last[B_LOG_N])
-        self._unique_state_count = preload + log_n
+        self._unique_state_count = (len(self._generated) if shadow is not None
+                                    else preload + log_n)
         hit, fps = disc_registers(last, prop_count)
         for i, prop in enumerate(properties):
             if hit[i] and i not in host_idx and prop.name not in discoveries:
@@ -864,10 +1267,14 @@ class GpuChecker(HostChecker):
             # exhaustion under sound: the lasso sweep over the node graph
             # of the insert and cross edges (not under symmetry: a
             # cross-branch witness cannot replay through concrete orbit
-            # members, as the JAX package's engines rule)
+            # members, as the JAX package's engines rule); after a
+            # re-seed the device logs hold one epoch, the shadow the run
             t0 = time.perf_counter()
-            self._device_lasso_sweep(carry, log_n, int(last[B_E_N]), n_init,
-                                     full_ebits, discoveries)
+            if shadow is not None:
+                self._shadow_lasso_sweep(shadow, full_ebits, discoveries)
+            else:
+                self._device_lasso_sweep(carry, log_n, int(last[B_E_N]),
+                                         n_init, full_ebits, discoveries)
             prof.update(lasso_s=time.perf_counter() - t0,
                         e_n=int(last[B_E_N]))
         self._discovery_fps.update(discoveries)
@@ -875,16 +1282,16 @@ class GpuChecker(HostChecker):
             # the pending frontier, pulled now so save() needs no device
             # buffers: its rows, eventually-bits and cached fps
             # (canonical under symmetry), the JAX package's layout
-            w = model.packed_width
             pend = to_numpy_u32(
                 carry.q[int(last[B_Q_HEAD]):int(last[B_Q_TAIL])])
             self._resume_frontier = (
-                pend[:, :w].copy(), pend[:, w].copy(),
-                (pend[:, w + 1].astype(np.uint64) << np.uint64(32))
-                | pend[:, w + 2].astype(np.uint64))
+                pend[:, :width].copy(), pend[:, width].copy(),
+                (pend[:, width + 1].astype(np.uint64) << np.uint64(32))
+                | pend[:, width + 2].astype(np.uint64))
         # the search record stays on the device until a path or the
-        # fingerprint set is asked for
-        self._mirror = (carry.log, log_n)
+        # fingerprint set is asked for; with a shadow the host mirror is
+        # already whole
+        self._mirror = None if shadow is not None else (carry.log, log_n)
         if self._symmetry:
             self._queue = (carry.q, int(last[B_Q_TAIL]))
         prof.update(
@@ -899,6 +1306,207 @@ class GpuChecker(HostChecker):
             cc_dedup_hits=stats.cch,
             probe_rounds=stats.rounds, predup_hits=stats.pdh,
             wall_s=time.perf_counter() - t_start)
+
+    # --- the resilience layer -------------------------------------------
+    def _make_shadow(self):
+        """The host shadow (``checker/resilience.py`` :class:`HostShadow`),
+        kept per chunk when retry, autosave, the audit or a table budget
+        is on (``None`` otherwise: no shadow, no extra copy from the
+        device). It shares the engine's mirror dicts, so the mirror is
+        whole at the end of the run without the device log pull."""
+        if not (self._retry_policy.enabled
+                or self._autosave_path is not None
+                or self._audit_policy.enabled
+                or (self._spill_policy.enabled
+                    and self._spill_policy.max_capacity is not None)):
+            return None
+        from .resilience import HostShadow
+        shadow = HostShadow(1, self._model.packed_width, self._generated,
+                            self._orig_of,
+                            translate=self._symmetry or self._sound,
+                            sound=self._sound)
+        shadow.audit_enabled = self._audit_policy.enabled
+        return shadow
+
+    def _fit_table(self, keys, shadow, headroom: int, spill_on: bool,
+                   discoveries, what: str) -> list:
+        """Size the table for a new device incarnation that starts with
+        ``keys``: quadrupled while one iteration's appends and the keys
+        pass the growth threshold and the budget allows; past the budget
+        the coldest prefix ranges are planned into the host tier (no
+        table to evict from yet) and the hot keys returned, or the run
+        ends capacity-terminal (spill off, no shadow, nothing left to
+        evict). Returns the keys to insert."""
+        budget = self._spill_policy
+        while (self._grow_at * self._capacity <= headroom + len(keys)
+               and budget.can_grow(self._capacity)):
+            self._capacity *= 4
+        if self._grow_at * self._capacity > headroom + len(keys):
+            return keys
+        plan = (shadow.spill_plan(int(self._grow_at * self._capacity)
+                                  - headroom - 1)
+                if spill_on and shadow is not None else None)
+        if plan is None:
+            self._capacity_terminal(RuntimeError(
+                f"device hash table budget (max_capacity="
+                f"{budget.max_capacity}) cannot hold {what} ({len(keys)} "
+                "keys) with spill unavailable"), shadow, discoveries)
+        self._note_spill(shadow, plan[2])
+        return shadow.hot_keys()
+
+    def _sync_chunk(self, pending, ordinal: int) -> None:
+        """Wait for one chunk's counter block through the fault hook (the
+        tests' fault injection point, fired first) and, with
+        ``chunk_deadline``, the watchdog, which turns a sync that does
+        not return in time into a :class:`ChunkDeadlineError` (a
+        transient fault) instead of a hang."""
+        hook = self._fault_hook
+
+        def pull():
+            if hook is not None:
+                if self._fault_hook_arity >= 2:
+                    hook(ordinal, 1)
+                else:
+                    hook(ordinal)
+            pending.wait()
+
+        if not self._chunk_deadline:
+            pull()
+            return
+        from .resilience import call_with_deadline
+        call_with_deadline(pull, float(self._chunk_deadline),
+                           what=f"chunk {ordinal} sync")
+
+    def _drain_device(self) -> None:
+        """Wait for the card's stream to drain before a re-seed, within
+        ``chunk_deadline`` when one is set. A card that does not drain
+        in time is wedged (a spinning kernel, a stalled stream): that
+        raises :class:`DeviceWedgedError`, which ends the run with its
+        autosave instead of re-seeding on the wedged context. The
+        watchdog's thread stays blocked in the abandoned wait."""
+        if self._device.type != "cuda":
+            return
+        from .resilience import ChunkDeadlineError, call_with_deadline
+        try:
+            call_with_deadline(lambda: torch.cuda.synchronize(self._device),
+                               float(self._chunk_deadline or 0),
+                               what="the drain before a re-seed")
+        except ChunkDeadlineError as exc:
+            raise DeviceWedgedError(
+                "the card did not drain within gpu_options(chunk_deadline="
+                f"{self._chunk_deadline}) before a re-seed: its stream is "
+                "wedged and cannot seed another carry") from exc
+
+    def _note_spill(self, shadow, evicted: int) -> None:
+        prof = self._profile
+        prof["spills"] += 1
+        prof["evicted_keys"] += int(evicted)
+        prof["host_tier_keys"] = shadow.host_tier_keys
+
+    def _warn_spill_eventually(self) -> None:
+        """Once a run: a spill under (unsound) eventually properties. A
+        rediscovered duplicate re-enters the frontier with its
+        rediscovery path's pending bits, so eventually verdicts may
+        differ from an uncapped run (safety properties and fingerprint
+        sets do not); ``sound_eventually()`` refuses a table budget."""
+        if self._spill_warned or self._sound:
+            return
+        self._spill_warned = True
+        if any(p.expectation == Expectation.EVENTUALLY
+               for p in self._properties):
+            import warnings
+            warnings.warn(
+                "memory tiering with (unsound) eventually properties: "
+                "rediscovered duplicates re-enter the frontier with "
+                "rediscovery-path pending bits, so eventually verdicts may "
+                "differ from an uncapped run (safety properties and "
+                "fingerprint sets are unaffected)", RuntimeWarning,
+                stacklevel=2)
+
+    def _write_autosave(self, shadow, discoveries: Dict[str, object]) -> None:
+        """Checkpoint the shadow (every ``autosave_interval`` chunks and
+        at the two terminal endings): host-side only, so it works with a
+        dead backend. The previous file survives as ``<path>.g1``, so a
+        corrupt newest one resumes one generation back."""
+        from .resilience import AUTOSAVE_PREV_SUFFIX
+        path = os.fspath(self._autosave_path)
+        if os.path.exists(path):
+            os.replace(path, path + AUTOSAVE_PREV_SUFFIX)
+        rows, ebits, fps = shadow.pending()
+        self._shadow_chain_head = shadow.chain_head
+        self._checkpoint_save(path, rows, ebits, fps, discoveries)
+        self._profile["autosaves"] += 1
+
+    def _resilience_degrade(self, exc: BaseException, shadow,
+                            discoveries: Dict[str, object],
+                            why: str = "") -> None:
+        """Retries exhausted, or a wedged card (one card has no mesh to
+        degrade on): write the autosave checkpoint when one is
+        configured and raise one error naming the resume command, from
+        ``exc``."""
+        why = why or ("transient device fault persisted after "
+                      f"{self._retry_policy.retries} retries "
+                      f"({type(exc).__name__}: {exc})")
+        if self._autosave_path is not None:
+            self._write_autosave(shadow, discoveries)
+            path = os.fspath(self._autosave_path)
+            raise RuntimeError(
+                f"{why}; progress checkpointed to {path!r} — resume with "
+                f"model.checker().resume_from({path!r}).spawn_gpu() once "
+                "the backend recovers") from exc
+        raise RuntimeError(
+            f"{why}; set gpu_options(autosave=path) to checkpoint progress "
+            "on exhausted retries") from exc
+
+    def _capacity_terminal(self, exc: BaseException, shadow,
+                           discoveries: Dict[str, object]) -> None:
+        """A capacity fault spill cannot relieve (spill off, a fault it
+        cannot fix, the host tier or the spill budget exhausted): write
+        the autosave checkpoint when one is configured and raise one
+        error naming both ways out. A model's encoding overflow stays
+        an :class:`EncodingOverflow` (the race waits for its host racer
+        on one)."""
+        detail = f"{type(exc).__name__}: {exc}"
+        kind = EncodingOverflow if isinstance(exc, EncodingOverflow) \
+            else RuntimeError
+        if self._autosave_path is not None and shadow is not None:
+            self._write_autosave(shadow, discoveries)
+            path = os.fspath(self._autosave_path)
+            raise kind(
+                f"capacity exhausted and not recoverable by spill "
+                f"({detail}); progress checkpointed to {path!r} — raise "
+                "gpu_options(capacity=...) (or max_capacity=...) and "
+                f"resume with model.checker().resume_from({path!r})"
+                ".spawn_gpu()") from exc
+        raise kind(
+            f"capacity exhausted and not recoverable by spill ({detail}); "
+            "raise gpu_options(capacity=...) (or max_capacity=...), or set "
+            "gpu_options(autosave=path) to checkpoint progress at this "
+            "point next time") from exc
+
+    def _shadow_lasso_sweep(self, shadow, full_mask: int,
+                            discoveries: Dict) -> None:
+        """The lasso sweep over the node graph rebuilt from the shadow's
+        insert and cross-edge records (every epoch's), not the device
+        logs (the last epoch's): the JAX package's
+        ``_shadow_lasso_sweep``."""
+        from .lasso import add_log_block, add_seed_nodes, lasso_sweep
+        node_fp: Dict[int, int] = {}
+        node_parent: Dict[int, tuple] = {}
+        node_mask: Dict[int, int] = {}
+        node_edges: Dict[int, list] = {}
+        add_seed_nodes(node_fp, node_parent, node_mask, shadow.root_keys(),
+                       self._orig_of, full_mask)
+        block = shadow.insert_block(0)
+        log_rows, eb_rows = block if block is not None else (
+            np.zeros((0, 6), np.uint32), np.zeros((0,), np.uint32))
+        add_log_block(node_fp, node_parent, node_mask, node_edges, log_rows,
+                      eb_rows, shadow.edge_block(0))
+        lasso_sweep(self._properties, discoveries, node_edges, node_mask,
+                    node_parent, node_fp)
+        self._profile.update(lasso_nodes=len(node_mask),
+                             lasso_edges=sum(len(v)
+                                             for v in node_edges.values()))
 
     def _device_lasso_sweep(self, carry, log_n: int, e_n: int, n_init: int,
                             full_mask: int, discoveries: Dict) -> None:
@@ -951,7 +1559,9 @@ class GpuChecker(HostChecker):
         """Write a ``resume_from``-loadable checkpoint (the whole mirror
         and the given pending frontier) through the crash-safe atomic
         write, its metadata carrying the payload's sha256 chained to the
-        run's chunk-digest head (``""``: the port keeps no shadow)."""
+        run's chunk-digest head (the shadow's at its last fold; ``""``
+        without a shadow). A list-valued discovery is an explicit
+        fingerprint path (a lasso witness) and is written as one."""
         from .resilience import atomic_savez, chain_integrity, payload_digest
 
         n = len(self._generated)
@@ -969,13 +1579,15 @@ class GpuChecker(HostChecker):
                       ffps=np.asarray(ffps, np.uint64),
                       okeys=okeys, ovals=ovals,
                       state_count=np.int64(self._state_count))
-        chain_head = ""
+        chain_head = self._shadow_chain_head or ""
         meta = json.dumps({
             "model": model_tag(self._model),
-            "discoveries": {name: int(fp)
+            "discoveries": {name: ([int(f) for f in fp]
+                                   if isinstance(fp, (list, tuple))
+                                   else int(fp))
                             for name, fp in discoveries.items()},
             "symmetry": self._symmetry,
-            "sound": False,
+            "sound": self._sound,
             "chain_head": chain_head,
             "integrity": chain_integrity(payload_digest(arrays),
                                          chain_head),

@@ -141,6 +141,13 @@ class HostChecker(Checker):
         return self._unique_state_count
 
     def profile(self) -> Dict[str, object]:
+        """The engine's counters and phase timers. The GPU engine's
+        resilience layer reports the JAX package's keys: ``retries``,
+        ``spills``, ``evicted_keys``, ``host_tier_keys``,
+        ``host_probe_hits``, ``autosaves``, ``audits``,
+        ``audit_mismatches``, ``quarantined`` (0 when unused), with
+        ``shadow_s``, ``spill_s`` and, on an audited run, ``fp_core``;
+        a raced run that failed over adds ``failovers``."""
         return dict(self._profile)
 
     def generated_fingerprints(self) -> set:

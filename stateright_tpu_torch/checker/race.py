@@ -38,9 +38,17 @@ graph capture, one launch call a chunk), so each return would otherwise
 wait for the lock for up to the default 5 ms (``tools/torch_race_gil.py``
 measures both; PERF.md § 5).
 
-The JAX package's failover rung (an un-budgeted host BFS after a
-transient device failure) is not ported (ROADMAP A11): it needs the
-resilience layer's error taxonomy.
+The failover rung, opt-in on the port: with ``gpu_options(
+failover=True)`` a raced run whose device lane fails with a TRANSIENT
+fault (``checker/resilience.py`` ``classify_error``: a dead backend,
+retries exhausted) is answered by an un-budgeted host BFS instead
+(``profile()["failovers"]`` 1, ``engine`` ``"host"``), as in the JAX
+package, where it is on by default. Here it is off by default: an entry
+point runs on the card unless the caller asks for the host, so a
+transient fault surfaces from ``join()`` (after the card's own retries
+and autosave) rather than being answered on the CPU. It applies only to
+a raced run and only to a transient fault: a programming error (a
+failed build or launch, a kernel's fault) still surfaces.
 """
 
 from __future__ import annotations
@@ -140,6 +148,7 @@ class RacingChecker(Checker):
         from .gpu import GpuChecker
 
         self._model = builder.model
+        self._builder = builder  # kept for the failover rung
         budget = builder.gpu_options_.get("race_budget")
         if budget is not None:
             self.HOST_BUDGET_S = float(budget)
@@ -152,7 +161,8 @@ class RacingChecker(Checker):
             # a model that can't run on the host engine races nothing
             self._host = None
         self._winner = None
-        #: the device run's encoding overflow when the host answered
+        self._failover = False
+        #: the device run's error when the host answered
         self._device_error = None
         self._decided = threading.Event()
         self._decider: threading.Thread | None = None
@@ -176,13 +186,15 @@ class RacingChecker(Checker):
 
     def _decide_loop(self, shortened: bool) -> None:
         host, gpu = self._host, self._gpu
+        fallback = False  # host is the un-budgeted failover engine
         t0 = time.monotonic()
         try:
             while True:
                 # first, so a host that finished in the same poll cannot
-                # hide it: an error of the card, not of the model
-                if gpu._done and gpu._error is not None and not isinstance(
-                        gpu._error, EncodingOverflow):
+                # hide it: an error of the card, not of the model (nor a
+                # transient fault, which the host may answer for)
+                if (gpu._done and gpu._error is not None
+                        and not self._host_may_answer(gpu._error)):
                     self._winner = gpu
                     if host is not None:
                         _retire(host)
@@ -199,15 +211,18 @@ class RacingChecker(Checker):
                     if host is not None:
                         _retire(host)
                     break
-                # the model outgrew the packed layout: the budgeted host
-                # racer may still deliver a complete, correct result —
-                # wait for it; the error surfaces only if the host cannot
+                # the model outgrew the packed layout, or the card failed
+                # transiently: the budgeted host racer may still deliver
+                # a complete, correct result — wait for it; past it, a
+                # transient fault falls over to an un-budgeted host BFS
                 if host is None and gpu._done:
-                    host = self._spawn_fallback(gpu)
+                    host = None if fallback else self._spawn_fallback(gpu)
                     if host is None:
                         self._winner = gpu  # surfaces the device error
                         break
-                if (host is not None
+                    fallback = True
+                    continue
+                if (host is not None and not fallback
                         and time.monotonic() - t0 > self.HOST_BUDGET_S):
                     _retire(host)
                     host = None
@@ -223,13 +238,35 @@ class RacingChecker(Checker):
         if self._winner is not self._host:
             self._host = None
 
+    def _host_may_answer(self, err: BaseException) -> bool:
+        """Whether the host may answer for a failed device run: an
+        encoding overflow (a limit of the model's packed layout), or a
+        transient fault with failover on."""
+        return isinstance(err, EncodingOverflow) or self._failover_applies(
+            err)
+
+    def _failover_applies(self, err: BaseException) -> bool:
+        from .resilience import FaultKind, classify_error
+        return (self._builder.gpu_options_.get("failover", False)
+                and classify_error(err) is FaultKind.TRANSIENT)
+
     def _spawn_fallback(self, gpu):
-        """The JAX package's failover rung: an un-budgeted host BFS after
-        a transient device failure. Not ported (ROADMAP A11): telling a
-        transient fault from a capacity or programming error needs the
-        resilience layer's ``classify_error``. So a failed device run
-        whose host racer did not finish surfaces its error."""
-        return None
+        """The failover rung (the JAX package's ``_spawn_fallback``):
+        after a transient device failure, start an un-budgeted host BFS
+        and return it, or ``None`` when failover does not apply (another
+        error, failover not asked for, a model the host engine cannot
+        run)."""
+        err = gpu._error
+        if err is None or not self._failover_applies(err):
+            return None
+        from .bfs import BfsChecker
+        try:
+            host = BfsChecker(self._builder)
+        except Exception:
+            return None
+        self._failover = True
+        host._start_background()
+        return host
 
     def _decide(self):
         if self._winner is None:
@@ -263,8 +300,9 @@ class RacingChecker(Checker):
 
     def profile(self):
         """The winning engine's ``profile()``, with ``engine`` naming the
-        winner: ``"host"`` for the budgeted host racer, ``"device"`` for
-        the card."""
+        winner: ``"host"`` for the budgeted host racer (or the failover
+        rung's host BFS), ``"device"`` for the card; a failover adds
+        ``failovers`` 1."""
         from .bfs import BfsChecker
 
         winner = self._decide()
@@ -273,6 +311,8 @@ class RacingChecker(Checker):
                           else "device")
         if self._device_error is not None and winner is not self._gpu:
             prof["device_error"] = str(self._device_error)
+        if self._failover:
+            prof["failovers"] = prof.get("failovers", 0) + 1
         return prof
 
     def discoveries(self):

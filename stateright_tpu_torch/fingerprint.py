@@ -1,5 +1,9 @@
-"""Stable 64-bit state fingerprints (a copy of ``stateright_tpu.fingerprint``,
-pure Python: the port needs no native helper).
+"""Stable 64-bit state fingerprints (a copy of ``stateright_tpu.fingerprint``).
+
+``fp64_words`` and ``fp64_rows`` dispatch to the native C core
+(``_native/fphash.c``, built at first use) when a compiler could build
+it, as the JAX package's do; the pure-Python body is the reference and
+the fallback, and :func:`core` names the one that answers.
 
 The same hash is computed on the host (here), by the plain torch version
 (``ops/hash_kernel.py``) and by the CUDA kernels (``csrc/fused_step.cu``)
@@ -24,10 +28,12 @@ non-zero, mirroring ``NonZeroU64`` in the reference).
 
 from __future__ import annotations
 
+import ctypes as _ctypes
 import dataclasses
 import enum
 import struct
 import threading as _threading
+from array import array as _array
 from typing import Any, Iterable, List
 
 M32 = 0xFFFFFFFF
@@ -72,10 +78,59 @@ def col_keys(n: int) -> List[int]:
     return _COL_KEYS[:n]
 
 
+def _native_lib():
+    """The C fingerprint core, or ``None`` (the pure-Python body)."""
+    from . import _native
+    return _native.load()
+
+
+def core() -> str:
+    """Which fingerprint core answers: ``"native"`` or ``"python"``."""
+    return "python" if _native_lib() is None else "native"
+
+
 def fp64_words(words: Iterable[int]) -> int:
-    """Hash a sequence of uint32 words into a non-zero 64-bit fingerprint.
-    The device versions (``ops/hash_kernel.py`` and the CUDA kernels)
-    must match it bit for bit."""
+    """Hash a sequence of uint32 words into a non-zero 64-bit fingerprint,
+    through the native core when it is built (:func:`_fp64_words_py` is
+    the reference). The device versions (``ops/hash_kernel.py`` and the
+    CUDA kernels) must match it bit for bit."""
+    lib = _native_lib()
+    if lib is None:
+        return _fp64_words_py(words)
+    if not isinstance(words, (list, tuple)):
+        words = list(words)  # the masked retry below reads them again
+    try:
+        buf = _array("I", words)
+    except (OverflowError, TypeError):
+        buf = _array("I", [w & M32 for w in words])
+    if not len(buf):
+        return lib.fp64_words(None, 0)
+    addr, n = buf.buffer_info()
+    return lib.fp64_words(
+        _ctypes.cast(addr, _ctypes.POINTER(_ctypes.c_uint32)), n)
+
+
+def fp64_rows(rows) -> list:
+    """Fingerprint a batch of packed states on the host: ``rows`` uint32
+    ``[N, W]``; returns N fingerprints, equal row for row to
+    :func:`fp64_words` (one C call with the native core)."""
+    import numpy as np
+    rows = np.ascontiguousarray(rows, dtype=np.uint32)
+    count, width = rows.shape
+    lib = _native_lib()
+    if lib is None:
+        return [_fp64_words_py(row.tolist()) for row in rows]
+    out = np.empty((count,), dtype=np.uint64)
+    if count:
+        lib.fp64_rows(
+            rows.ctypes.data_as(_ctypes.POINTER(_ctypes.c_uint32)),
+            count, width,
+            out.ctypes.data_as(_ctypes.POINTER(_ctypes.c_uint64)))
+    return out.tolist()
+
+
+def _fp64_words_py(words: Iterable[int]) -> int:
+    """The pure-Python body of :func:`fp64_words`: the reference."""
     h1 = 0
     h2 = 0
     n = 0

@@ -5,7 +5,8 @@ insert; ``sharded_step.cu``: the sharded engine's probe-free step and
 owner-side probe; ``chunk.cu``: the chunk's start and K7, the append,
 which between them evaluate the loop's gate; ``history.cu``: K8, the
 history insert, and K9, the representative pull; ``staged.cu``: the
-staged step's KS1-KS3 and its chunk's start) is
+staged step's KS1-KS3 and its chunk's start; ``evict.cu``: K10, the
+spill's prefix eviction) is
 compiled with ``nvcc`` for ``sm_90a`` into its own shared
 library with a plain C interface the first time a kernel is needed (never
 at import), all ``nvcc`` processes started together, into
@@ -50,7 +51,7 @@ _BUILD = Path(__file__).resolve().parents[2] / "build" / "kernels"
 #: library name -> source under csrc/
 _SOURCES = {"fused_step": "fused_step.cu", "sharded_step": "sharded_step.cu",
             "chunk": "chunk.cu", "history": "history.cu",
-            "staged": "staged.cu"}
+            "staged": "staged.cu", "evict": "evict.cu"}
 _NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -66,12 +67,13 @@ _NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 #: representative pull), and the staged step's: ``expand`` (K1 alone, in
 #: either instantiation), ``stage`` (KS1), ``predup`` (KS2) and
 #: ``staged_append`` (KS3); its insert counts as ``table_insert`` (K4) and
-#: its chunk's start as ``chunk_begin``
+#: its chunk's start as ``chunk_begin``; and the spill's ``evict_prefix``
+#: (K10)
 LAUNCHES = {"fused_step": 0, "table_insert": 0, "fused_step_noprobe": 0,
             "probe_block": 0, "fused_step_sym": 0,
             "fused_step_noprobe_sym": 0, "chunk_begin": 0, "append": 0,
             "history": 0, "hpull": 0, "expand": 0, "stage": 0,
-            "predup": 0, "staged_append": 0}
+            "predup": 0, "staged_append": 0, "evict_prefix": 0}
 
 #: ``counts``: while this thread captures a graph, the launches each
 #: wrapper recorded in it (another thread's launches count as launches)
@@ -443,6 +445,13 @@ class StagedArgs(ctypes.Structure):
     ]
 
 
+class EvictArgs(ctypes.Structure):
+    """``EvictArgs`` of ``csrc/evict.cu``, field for field."""
+
+    _fields_ = [("keys", _p), ("n_buckets", _ll), ("count", _p),
+                ("mask", _u * 8), ("blocks", _i), ("stream", _p)]
+
+
 class HpullArgs(ctypes.Structure):
     """``HpullArgs`` of ``csrc/history.cu``, field for field."""
 
@@ -518,6 +527,7 @@ _ENTRIES = {
     + [("srt_probe_block", StepArgs, "srt_step_args_size", 0)],
     "history": [("srt_history", HistArgs, "srt_hist_args_size", 0),
                 ("srt_hpull", HpullArgs, "srt_hpull_args_size", 0)],
+    "evict": [("srt_evict_prefix", EvictArgs, "srt_evict_args_size", 0)],
 }
 
 
@@ -629,6 +639,12 @@ def _build() -> None:
     if tile_rows() != HIST_TILE_ROWS:
         raise RuntimeError("K8's tile rows differ between csrc/history.cu "
                            "and ops/_cuda.py")
+    threads = libs["evict"].srt_evict_threads
+    threads.argtypes = []
+    threads.restype = _i
+    if threads() != EVICT_THREADS:
+        raise RuntimeError("K10's threads differ between csrc/evict.cu and "
+                           "ops/_cuda.py")
     _LIB = libs
     BUILD_INFO.update(seconds=seconds, logs=logs,
                       path={k: str(v) for k, v in paths.items()})
@@ -1385,6 +1401,44 @@ def hpull(q, hidx, log, start: int, n_init: int, out, h_n=None,
     _raise_on(_LIB["history"].srt_hpull(ctypes.byref(args)),
               "representative pull")
     _count("hpull")
+
+
+#: K10's threads a block (``csrc/evict.cu`` ``kEvictThreads``) and its
+#: blocks an SM over the grid-stride loop
+EVICT_THREADS = 256
+EVICT_BLOCKS_PER_SM = 8
+
+
+def evict_prefix(table, mask_words, count=None):
+    """Launch K10: evict from ``table`` (int64 ``[C/4, 4]``, in place) every
+    key whose top 8 bits are a prefix set in ``mask_words`` (8 uint32
+    words, bit ``p % 32`` of word ``p // 32`` for prefix ``p``) and compact
+    each bucket's survivors to its front in order. Returns the count of
+    evicted keys (one synchronising read); with ``count`` (int32 ``[1]``
+    on the device) the count is added to it instead and nothing is read
+    back. Raises on a launch error."""
+    build()
+    dev = table.device
+    _check(table, "table", torch.int64, 2, dev)
+    if table.shape[1] != 4 or table.data_ptr() % 16:
+        raise ValueError("table must be [C/4, 4], 16-byte aligned")
+    given = count is not None
+    if given:
+        _check(count, "count", torch.int32, 1, dev)
+    else:
+        count = torch.zeros((1,), dtype=torch.int32, device=dev)
+    n_buckets = table.shape[0]
+    blocks = max(1, min(-(-n_buckets // EVICT_THREADS),
+                        EVICT_BLOCKS_PER_SM * sm_count(dev)))
+    args = EvictArgs(keys=table.data_ptr(), n_buckets=n_buckets,
+                     count=count.data_ptr(),
+                     mask=(_u * 8)(*[int(w) for w in mask_words]),
+                     blocks=blocks,
+                     stream=torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(_LIB["evict"].srt_evict_prefix(ctypes.byref(args)),
+              "prefix eviction")
+    _count("evict_prefix")
+    return None if given else int(count.item())
 
 
 class ChunkGraph:

@@ -13,7 +13,9 @@ revisits every bucket between a key's start bucket and its slot.
 flat insert (``csrc/step_common.cuh``, through ``csrc/fused_step.cu``:
 the step kernel's bucket claim one thread per lane, and for a mask its
 owner words); on a CPU table it runs :func:`table_insert_reference`, the JAX package's insert
-ported lane for lane.
+ported lane for lane. :func:`table_evict_prefix`, the spill's eviction,
+launches K10 (``csrc/evict.cu``) on a CUDA table and runs
+:func:`table_evict_prefix_reference` on a CPU one.
 """
 
 from __future__ import annotations
@@ -175,6 +177,62 @@ def table_insert_reference(table, fhi, flo, valid, max_rounds: int = 4096,
     out = (inserted, overflowed)
     return out + (1 + (rounds2 - 1) + (rounds3 - 1),) if with_rounds \
         else out
+
+
+def _evict_mask(evict_pref) -> np.ndarray:
+    """``evict_pref`` (bool ``[256]``: numpy, a sequence or a tensor) as
+    numpy bool ``[256]``."""
+    if isinstance(evict_pref, torch.Tensor):
+        evict_pref = evict_pref.cpu().numpy()
+    mask = np.asarray(evict_pref, bool).reshape(-1)
+    if mask.shape != (256,):
+        raise ValueError("evict_pref must hold 256 flags, one per 8-bit "
+                         f"prefix (got {mask.shape})")
+    return mask
+
+
+def table_evict_prefix(table, evict_pref) -> int:
+    """Evict every key whose top 8 bits (``resilience.fp_prefix``) are a
+    prefix marked in ``evict_pref`` (bool ``[256]``) from ``table``
+    IN PLACE, and compact each bucket: its survivors move to its front,
+    in order (the insert claims a bucket's first empty slot, so its
+    occupancy must stay a prefix). Returns the count of evicted keys.
+    The JAX package's ``table_evict_prefix`` on the port's packed table:
+    on a CUDA table K10 (``ops/_cuda.py`` ``evict_prefix``), on a CPU
+    table :func:`table_evict_prefix_reference`.
+
+    As in the JAX package, compaction can open an empty slot in a bucket
+    a surviving key was once probed past while it was full, so a later
+    insert of that key may claim the earlier slot and report it fresh
+    again: the same maybe-fresh outcome as rediscovering an evicted key,
+    which the host tier's re-probe filters (``HostShadow.note_chunk``)."""
+    if table.is_cuda:
+        from . import _cuda
+        return _cuda.evict_prefix(table, evict_mask_words(evict_pref))
+    return table_evict_prefix_reference(table, _evict_mask(evict_pref))
+
+
+def evict_mask_words(evict_pref) -> list:
+    """K10's mask: the 256 flags as 8 uint32 words, bit ``p % 32`` of
+    word ``p // 32`` for prefix ``p``."""
+    bits = np.packbits(_evict_mask(evict_pref).reshape(8, 32)[:, ::-1],
+                       axis=1)
+    return [int(w) for w in bits.view(">u4").reshape(8)]
+
+
+def table_evict_prefix_reference(table, evict_pref) -> int:
+    """The plain version of :func:`table_evict_prefix` (any device): the
+    JAX package's body on packed keys. The prefix is ``(key >> 56) &
+    0xFF``: torch shifts int64 arithmetically, so the mask keeps the
+    top byte of a key with its high bit set."""
+    mask = torch.as_tensor(_evict_mask(evict_pref), device=table.device)
+    nonempty = table != 0
+    drop = nonempty & mask[(table >> 56) & 0xFF]
+    keep = nonempty & ~drop
+    # stable per-bucket compaction: the kept slots to the front, in order
+    order = torch.argsort((~keep).to(torch.int8), dim=1, stable=True)
+    table.copy_(torch.where(keep, table, 0).gather(1, order))
+    return int(drop.sum())
 
 
 def plan_insert_host(fps, capacity: int):

@@ -15,9 +15,10 @@ symmetry reduction the logs carry each canonical key's original
 fingerprint, so every rank also holds the same ``_orig_of``.
 
 What the JAX engine offers beyond that path raises ``NotImplementedError``
-(through ``GpuChecker``'s guards, or here): the degrade/promote ladder,
-retry, spill, audit, shadow, post-hoc host properties, the lasso sweep,
-checkpoints, the race and traces.
+(through ``GpuChecker``'s guards, or here): the resilience layer on a
+mesh (the degrade/promote ladder, retry, spill, audit, the shadow;
+ROADMAP A9b), post-hoc host properties, the lasso sweep, checkpoints,
+the race and traces.
 """
 
 from __future__ import annotations
@@ -29,8 +30,8 @@ import torch
 from ..core import Expectation
 
 from ..checker.builder import CheckerBuilder
-from ..checker.gpu import (EncodingOverflow, GpuChecker, auto_fmax,
-                           candidate_sizes)
+from ..checker.gpu import (RESILIENCE_OPTIONS, EncodingOverflow,
+                           GpuChecker, auto_fmax, candidate_sizes)
 from ..ops.expand import eventually_indices
 from .collectives import AxisGroup
 from .sharded import (ShardedStats, StepSizes, owner_bits, owner_of,
@@ -46,7 +47,8 @@ _MESH_API = ("mesh_dim_names", "size", "device_type", "get_group",
 class ShardedGpuChecker(GpuChecker):
     """Fingerprint-prefix-sharded BFS over one DeviceMesh dimension."""
 
-    _OPTIONS = tuple(k for k in GpuChecker._OPTIONS if k != "pipeline") \
+    _OPTIONS = tuple(k for k in GpuChecker._OPTIONS
+                     if k != "pipeline" and k not in RESILIENCE_OPTIONS) \
         + ("mesh", "mesh_axis", "exchange", "kb", "kraw", "kmax")
     #: the sharded loop stays a host loop: no chunk pipeline
     _FIXED = {**GpuChecker._FIXED, "pipeline": False}
@@ -64,6 +66,14 @@ class ShardedGpuChecker(GpuChecker):
 
     def __init__(self, builder: CheckerBuilder):
         opts = builder.gpu_options_
+        for key in RESILIENCE_OPTIONS + ("degrade", "min_mesh",
+                                         "blame_after"):
+            if key in opts:
+                raise NotImplementedError(
+                    f"gpu_options({key}=...) on a mesh: the resilience "
+                    "layer on a mesh (the per-shard shadow, the "
+                    "degradation ladder, spill and audit across ranks) is "
+                    "not ported (ROADMAP A9b); on one card it is")
         if builder.sound_eventually_ and any(
                 p.expectation == Expectation.EVENTUALLY
                 for p in builder.model.properties()):

@@ -125,7 +125,7 @@ def _symmetry_without_canon(builder):
     (lambda b: b.gpu_options(mode="level"), "per-level"),
     (lambda b: b.gpu_options(race=True, mesh=object()), "race=True"),
     (lambda b: b.gpu_options(fused="auto"), "fallback"),
-    (lambda b: b.gpu_options(autosave="x.npz"), "not ported"),
+    (lambda b: b.gpu_options(no_such_option=1), "not ported"),
 ], ids=["symmetry", "visitor", "resume", "mesh", "hint", "level", "race",
         "fused_auto", "unknown"])
 def test_unported_features_raise(setup, match):

@@ -3003,3 +3003,68 @@ def test_staged_end_to_end_matches_cpu_on_card(name):
         assert prof["grows"] >= 1
     if "sound" in name:
         assert prof["e_n"] > 0 and "lasso_s" in prof
+
+
+# --- the resilience layer: K10 and a capped run ----------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("prefixes", [0, 85, 256])
+@pytest.mark.parametrize("slots,seed", [(1 << 16, 1), (1 << 21, 2)])
+def test_evict_prefix_kernel_matches_plain_version_on_card(slots, seed,
+                                                           prefixes):
+    """K10 (``csrc/evict.cu``) on a table filled to ~60 % from a seed:
+    the table and the count bit for bit its plain version's on the same
+    input, each bucket's occupancy a prefix, one launch counted."""
+    _need_card()
+    from stateright_tpu_torch.ops import _cuda
+    from stateright_tpu_torch.ops.hashtable import (
+        make_table, table_evict_prefix, table_evict_prefix_reference,
+        table_insert)
+    rng = np.random.default_rng(seed)
+    n = int(slots * 0.6)
+    fps = rng.integers(1, 2 ** 63, n, dtype=np.uint64) \
+        | (rng.integers(0, 2, n, dtype=np.uint64) << np.uint64(63))
+    dev = torch.device("cuda")
+    hi = torch.from_numpy((fps >> np.uint64(32)).astype(np.uint32)
+                          .view(np.int32)).to(dev)
+    lo = torch.from_numpy(fps.astype(np.uint32).view(np.int32)).to(dev)
+    table = make_table(slots, dev)
+    _, ovf = table_insert(table, hi, lo, torch.ones(n, dtype=torch.bool,
+                                                    device=dev), mask=False)
+    assert not ovf
+    mask = np.zeros(256, bool)
+    mask[rng.permutation(256)[:prefixes]] = True
+    want = table.clone()
+    count_plain = table_evict_prefix_reference(want, mask)
+    launches = _cuda.LAUNCHES["evict_prefix"]
+    count = table_evict_prefix(table, mask)
+    torch.cuda.synchronize()
+    assert _cuda.LAUNCHES["evict_prefix"] == launches + 1
+    assert count == count_plain
+    assert torch.equal(table, want)
+    occupied = (table != 0).cpu().numpy()
+    assert bool((occupied[:, 1:] <= occupied[:, :-1]).all())
+    if prefixes == 256:
+        assert not occupied.any() and count > 0.55 * slots
+
+
+@pytest.mark.gpu
+def test_capped_run_matches_uncapped_digest_on_card():
+    """TwoPhaseSys(5) through a table capped below its 8,832 states: the
+    run spills through K10 (one launch a spill) and ends with the
+    uncapped run's count and fingerprint set, the card's engine alone."""
+    _need_card()
+    from stateright_tpu_torch.ops import _cuda
+    whole = TwoPhaseSys(5).checker().gpu_options(race=False, fmax=16) \
+        .spawn_gpu().join()
+    before = _cuda.LAUNCHES["evict_prefix"]
+    capped = TwoPhaseSys(5).checker().gpu_options(
+        race=False, capacity=1 << 12, max_capacity=1 << 14, fmax=16,
+        grow_at=0.35, chunk_steps=8).spawn_gpu().join()
+    prof = capped.profile()
+    assert prof["engine"] == "gpu" and prof["grows"] == 1
+    assert prof["spills"] >= 1 and prof["host_probe_hits"] >= 1
+    assert _cuda.LAUNCHES["evict_prefix"] - before == prof["spills"]
+    assert capped.unique_state_count() == whole.unique_state_count() == 8832
+    assert capped.generated_fingerprints() == whole.generated_fingerprints()
+    capped.assert_properties()

@@ -286,8 +286,8 @@ def test_unported_race_knobs_raise():
     with pytest.raises(NotImplementedError, match="A9b"):
         TwoPhaseSys(3).checker().gpu_options(mesh=object(),
                                              race=True).spawn_gpu()
-    with pytest.raises(NotImplementedError, match="A11"):
-        _raced(TwoPhaseSys(3), failover=False)
+    with pytest.raises(NotImplementedError, match="A9b"):
+        _raced(TwoPhaseSys(3), degrade=True)
 
 
 def test_no_card_still_raises_from_spawn_gpu(monkeypatch):
